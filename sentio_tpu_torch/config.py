@@ -1,0 +1,272 @@
+"""Configuration for the PyTorch port: the slice of ``sentio_tpu.config``
+that the ``/chat`` main path reads.
+
+Same dataclasses, fields, defaults and environment variable names as the
+JAX package's tree (retrieval, rerank, embedder, generator); the mesh,
+serve, auth and cache sections are left out because nothing in this
+package reads them. Plain dataclasses, no import-time work.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass, field
+from typing import Optional, Sequence
+
+__all__ = [
+    "RetrievalConfig",
+    "RerankConfig",
+    "EmbedderConfig",
+    "GeneratorConfig",
+    "Settings",
+]
+
+
+def _env_str(names: Sequence[str], default: str) -> str:
+    for name in names:
+        value = os.environ.get(name)
+        if value is not None and value != "":
+            return value
+    return default
+
+
+def _env_int(names: Sequence[str], default: int) -> int:
+    raw = _env_str(names, "")
+    if not raw:
+        return default
+    try:
+        return int(raw)
+    except ValueError:
+        return default
+
+
+def _env_float(names: Sequence[str], default: float) -> float:
+    raw = _env_str(names, "")
+    if not raw:
+        return default
+    try:
+        return float(raw)
+    except ValueError:
+        return default
+
+
+def _env_bool(names: Sequence[str], default: bool) -> bool:
+    raw = _env_str(names, "").strip().lower()
+    if not raw:
+        return default
+    return raw in ("1", "true", "yes", "on")
+
+
+@dataclass
+class RetrievalConfig:
+    """Retriever strategy + fusion knobs. This package implements the
+    ``dense`` strategy only; the other fields are kept so a settings tree
+    reads the same in both packages."""
+
+    strategy: str = "hybrid"  # dense | bm25 | hybrid
+    top_k: int = 10
+    rrf_k: int = 60
+    fusion_method: str = "rrf"  # rrf | weighted_rrf | comb_sum
+    dense_weight: float = 0.7
+    sparse_weight: float = 0.3
+    use_scorers: bool = False
+    keyword_scorer_weight: float = 0.8
+    recency_scorer_weight: float = 0.2
+    mmr_scorer_weight: float = 0.5
+    mmr_lambda: float = 0.7
+    bm25_k1: float = 1.5
+    bm25_b: float = 0.75
+    bm25_backend: str = "auto"  # auto | numpy | native
+    index_backend: str = "tpu"  # tpu | qdrant
+    collection_name: str = "sentio"
+    qdrant_url: str = "http://localhost:6333"
+    qdrant_api_key: str = ""
+    index_path: str = ""
+    web_cache_path: str = ""
+
+    @classmethod
+    def from_env(cls) -> "RetrievalConfig":
+        return cls(
+            strategy=_env_str(["RETRIEVAL_STRATEGY", "RETRIEVER_TYPE"], "hybrid"),
+            top_k=_env_int(["RETRIEVAL_TOP_K", "TOP_K"], 10),
+            rrf_k=_env_int(["RRF_K"], 60),
+            fusion_method=_env_str(["FUSION_METHOD", "HYBRID_FUSION"], "rrf"),
+            dense_weight=_env_float(["DENSE_WEIGHT"], 0.7),
+            sparse_weight=_env_float(["SPARSE_WEIGHT"], 0.3),
+            use_scorers=_env_bool(["USE_SCORERS"], False),
+            keyword_scorer_weight=_env_float(["KEYWORD_SCORER_WEIGHT"], 0.8),
+            recency_scorer_weight=_env_float(["RECENCY_SCORER_WEIGHT"], 0.2),
+            mmr_scorer_weight=_env_float(["MMR_SCORER_WEIGHT"], 0.5),
+            mmr_lambda=_env_float(["MMR_LAMBDA"], 0.7),
+            bm25_k1=_env_float(["BM25_K1"], 1.5),
+            bm25_b=_env_float(["BM25_B"], 0.75),
+            bm25_backend=_env_str(["BM25_BACKEND"], "auto"),
+            index_backend=_env_str(["INDEX_BACKEND", "VECTOR_STORE"], "tpu"),
+            collection_name=_env_str(["COLLECTION_NAME", "QDRANT_COLLECTION"], "sentio"),
+            qdrant_url=_env_str(["QDRANT_URL"], "http://localhost:6333"),
+            qdrant_api_key=_env_str(["QDRANT_API_KEY"], ""),
+            index_path=_env_str(["INDEX_PATH"], ""),
+            web_cache_path=_env_str(["WEB_CACHE_PATH", "CACHE_COLLECTION_PATH"], ""),
+        )
+
+
+@dataclass
+class RerankConfig:
+    """Reranker selection."""
+
+    enabled: bool = True
+    kind: str = "cross_encoder"  # cross_encoder | passthrough
+    top_k: int = 5
+    max_pair_tokens: int = 512
+    batch_size: int = 32
+    checkpoint_path: str = ""
+    tokenizer_path: str = ""
+
+    @classmethod
+    def from_env(cls) -> "RerankConfig":
+        return cls(
+            enabled=_env_bool(["USE_RERANKER"], True),
+            kind=_env_str(["RERANKER_KIND", "RERANKER_TYPE"], "cross_encoder"),
+            top_k=_env_int(["RERANK_TOP_K"], 5),
+            max_pair_tokens=_env_int(["RERANK_MAX_PAIR_TOKENS"], 512),
+            batch_size=_env_int(["RERANK_BATCH_SIZE"], 32),
+            checkpoint_path=_env_str(["RERANKER_CHECKPOINT"], ""),
+            tokenizer_path=_env_str(["RERANKER_TOKENIZER"], ""),
+        )
+
+
+@dataclass
+class EmbedderConfig:
+    """Bi-encoder settings (``provider='tpu'`` names the in-process model,
+    which in this package runs on the GPU)."""
+
+    provider: str = "tpu"  # tpu | hash
+    dim: int = 1024
+    max_tokens: int = 512
+    batch_size: int = 128
+    cache_size: int = 10_000
+    cache_ttl_s: float = 3600.0
+    model_preset: str = "base"  # tiny | base
+    checkpoint_path: str = ""
+    tokenizer_path: str = ""
+    coalesce: bool = True
+    coalesce_deadline_ms: float = 5.0
+    coalesce_max: int = 16
+
+    @classmethod
+    def from_env(cls) -> "EmbedderConfig":
+        return cls(
+            provider=_env_str(["EMBEDDER_PROVIDER", "EMBEDDING_PROVIDER"], "tpu"),
+            dim=_env_int(["EMBEDDING_DIM"], 1024),
+            max_tokens=_env_int(["EMBED_MAX_TOKENS"], 512),
+            batch_size=_env_int(["EMBED_BATCH_SIZE"], 128),
+            cache_size=_env_int(["EMBEDDING_CACHE_SIZE"], 10_000),
+            cache_ttl_s=_env_float(["EMBEDDING_CACHE_TTL"], 3600.0),
+            model_preset=_env_str(["EMBEDDER_PRESET"], "base"),
+            checkpoint_path=_env_str(["EMBEDDER_CHECKPOINT"], ""),
+            tokenizer_path=_env_str(["EMBEDDER_TOKENIZER"], ""),
+            coalesce=_env_bool(["EMBED_COALESCE"], True),
+            coalesce_deadline_ms=_env_float(["EMBED_COALESCE_DEADLINE_MS"], 5.0),
+            coalesce_max=_env_int(["EMBED_COALESCE_MAX"], 16),
+        )
+
+
+@dataclass
+class GeneratorConfig:
+    """Generator/verifier settings."""
+
+    provider: str = "tpu"
+    model_preset: str = "llama3-8b"  # llama3-8b | tiny
+    checkpoint_path: str = ""
+    tokenizer_path: str = ""
+    draft_checkpoint_path: str = ""
+    speculative_k: int = 4
+    api_base: str = ""
+    api_key: str = ""
+    api_model: str = "default"
+    api_timeout_s: float = 60.0
+    mode: str = "balanced"  # fast | balanced | quality | creative
+    max_new_tokens: int = 1024
+    context_token_budget: int = 2000
+    max_prompt_tokens: int = 4096
+    use_verifier: bool = True
+    verifier_max_tokens: int = 512
+    verify_mode: str = "sync"  # sync | async | gated
+    verify_confidence_threshold: float = 0.75
+    dtype: str = "bfloat16"
+    kv_page_size: int = 128
+    kv_max_pages_per_seq: int = 64
+    kv_quant: str = "none"
+    prefix_cache: bool = True
+    max_batch_size: int = 8
+    use_paged_decode: bool = True
+    decode_steps_per_tick: int = 16
+    decode_max_tick_steps: int = 64
+    decode_pipeline_depth: int = 2
+    prefill_chunk: int = 0
+    prefill_buckets: tuple[int, ...] = (256, 512, 1024, 2048, 4096)
+    temperature_by_mode: tuple[tuple[str, float], ...] = (
+        ("fast", 0.0),
+        ("balanced", 0.3),
+        ("quality", 0.2),
+        ("creative", 0.7),
+    )
+
+    def temperature(self, mode: Optional[str] = None) -> float:
+        table = dict(self.temperature_by_mode)
+        return table.get(mode or self.mode, 0.3)
+
+    @classmethod
+    def from_env(cls) -> "GeneratorConfig":
+        return cls(
+            provider=_env_str(["LLM_PROVIDER", "CHAT_LLM_PROVIDER"], "tpu"),
+            model_preset=_env_str(["LLM_MODEL", "CHAT_LLM_MODEL"], "llama3-8b"),
+            checkpoint_path=_env_str(["LLM_CHECKPOINT", "MODEL_PATH"], ""),
+            tokenizer_path=_env_str(["LLM_TOKENIZER", "TOKENIZER_PATH"], ""),
+            draft_checkpoint_path=_env_str(["LLM_DRAFT_CHECKPOINT"], ""),
+            speculative_k=_env_int(["SPECULATIVE_K"], 4),
+            api_base=_env_str(["OPENAI_BASE_URL", "CHAT_LLM_BASE_URL"], ""),
+            api_key=_env_str(["OPENAI_API_KEY", "CHAT_LLM_API_KEY"], ""),
+            api_model=_env_str(["OPENAI_MODEL", "CHAT_LLM_API_MODEL"], "default"),
+            api_timeout_s=_env_float(["OPENAI_TIMEOUT_S"], 60.0),
+            mode=_env_str(["LLM_MODE"], "balanced"),
+            max_new_tokens=_env_int(["LLM_MAX_TOKENS", "MAX_NEW_TOKENS"], 1024),
+            context_token_budget=_env_int(["CONTEXT_TOKEN_BUDGET"], 2000),
+            max_prompt_tokens=_env_int(["MAX_PROMPT_TOKENS"], 4096),
+            use_verifier=_env_bool(["USE_VERIFIER"], True),
+            verifier_max_tokens=_env_int(["VERIFIER_MAX_TOKENS"], 512),
+            verify_mode=_env_str(["VERIFY_MODE"], "sync"),
+            verify_confidence_threshold=_env_float(
+                ["VERIFY_CONFIDENCE_THRESHOLD"], 0.75
+            ),
+            dtype=_env_str(["LLM_DTYPE"], "bfloat16"),
+            kv_page_size=_env_int(["KV_PAGE_SIZE"], 128),
+            kv_max_pages_per_seq=_env_int(["KV_MAX_PAGES_PER_SEQ"], 64),
+            kv_quant=_env_str(["KV_QUANT"], "none"),
+            prefix_cache=_env_bool(["PREFIX_CACHE"], True),
+            max_batch_size=_env_int(["LLM_MAX_BATCH"], 8),
+            use_paged_decode=_env_bool(["USE_PAGED_KV", "USE_PAGED_DECODE"], True),
+            decode_steps_per_tick=_env_int(["DECODE_STEPS_PER_TICK"], 16),
+            decode_max_tick_steps=_env_int(["DECODE_MAX_TICK_STEPS"], 64),
+            decode_pipeline_depth=_env_int(["DECODE_PIPELINE_DEPTH"], 2),
+            prefill_chunk=_env_int(["PREFILL_CHUNK"], 0),
+        )
+
+
+@dataclass
+class Settings:
+    """The four sections the slice reads."""
+
+    retrieval: RetrievalConfig = field(default_factory=RetrievalConfig)
+    rerank: RerankConfig = field(default_factory=RerankConfig)
+    embedder: EmbedderConfig = field(default_factory=EmbedderConfig)
+    generator: GeneratorConfig = field(default_factory=GeneratorConfig)
+
+    @classmethod
+    def from_env(cls) -> "Settings":
+        return cls(
+            retrieval=RetrievalConfig.from_env(),
+            rerank=RerankConfig.from_env(),
+            embedder=EmbedderConfig.from_env(),
+            generator=GeneratorConfig.from_env(),
+        )

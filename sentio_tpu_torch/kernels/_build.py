@@ -1,0 +1,127 @@
+"""Build and bind the hand-written CUDA kernels.
+
+Each ``csrc/*.cu`` file exports a plain C launcher. It is compiled with
+``nvcc`` for ``sm_90a`` into its own shared library under ``build/`` at the
+root of the checkout (named by a hash of source and flags, so an edited
+source rebuilds) and loaded with ``ctypes``. Nothing is built at import:
+the first launch builds, or :func:`build_all` builds every kernel with one
+``nvcc`` process per source, all started together.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Optional, Sequence
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+class CudaKernel:
+    """One kernel: its source, its C launcher's signature, and ``launches``,
+    a plain count of successful launches that callers may read and reset."""
+
+    def __init__(self, name: str, source: str, symbol: str,
+                 argtypes: Sequence) -> None:
+        self.name = name
+        self.source = CSRC / source
+        self.symbol = symbol
+        self.argtypes = list(argtypes)
+        self.launches = 0
+        self.build_log = ""
+        self._fn = None
+        self._err = None
+
+    @property
+    def library(self) -> Path:
+        digest = hashlib.sha256(
+            self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        ).hexdigest()[:12]
+        return BUILD_DIR / f"{self.source.stem}-{digest}.so"
+
+    def start_build(self) -> Optional[subprocess.Popen]:
+        """Start ``nvcc`` unless the library is already built."""
+        if self.library.exists():
+            return None
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = self.library.with_name(f"{self.library.stem}.{os.getpid()}.tmp.so")
+        return subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+
+    def finish_build(self, proc: Optional[subprocess.Popen]) -> None:
+        if proc is None:
+            return
+        log, _ = proc.communicate()
+        self.build_log = log
+        tmp = Path(proc.args[proc.args.index("-o") + 1])
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed for {self.source.name}:\n{log}")
+        os.replace(tmp, self.library)
+
+    def _load(self):
+        if self._fn is None:
+            self.finish_build(self.start_build())
+            lib = ctypes.CDLL(str(self.library))
+            fn = getattr(lib, self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            err = lib.sentio_cuda_error_string
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            self._fn, self._err = fn, err
+        return self._fn
+
+    def launch(self, *args) -> None:
+        """Call the C launcher (which launches on the given stream and
+        returns ``cudaGetLastError()``); raise on a non-zero code."""
+        code = self._load()(*args)
+        if code != 0:
+            raise RuntimeError(
+                f"{self.name}: CUDA launch failed with error {code} "
+                f"({self._err(code).decode()})"
+            )
+        self.launches += 1
+
+
+def build_all(kernels: Sequence[CudaKernel]) -> float:
+    """Build every kernel in parallel (one nvcc each); returns seconds."""
+    t0 = time.perf_counter()
+    procs = [(k, k.start_build()) for k in kernels]
+    for kernel, proc in procs:
+        kernel.finish_build(proc)
+    for kernel in kernels:
+        kernel._load()
+    return time.perf_counter() - t0
+
+
+def ptr(tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(tensor.data_ptr())
+
+
+def stream_of(tensor) -> ctypes.c_void_p:
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(tensor.device).cuda_stream)

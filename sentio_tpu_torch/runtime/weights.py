@@ -1,0 +1,129 @@
+"""Carry weights into the port.
+
+* ``llama_from_jax`` / ``encoder_from_jax`` / ``cross_encoder_from_jax``
+  turn a JAX parameter tree (nested dicts of numpy arrays, dense kernels
+  stored ``[in, out]``) into this package's parameter dicts: dense
+  ``kernel`` [in, out] becomes ``weight`` [out, in] (the one transpose, made
+  here and nowhere else), embedding tables and biases keep their shape,
+  norm parameters stay float32.
+* :func:`load_pytree` reads the JAX package's ``save_pytree`` directory
+  format (``arrays.npz`` + ``manifest.json``, bf16 stored as a uint16 view)
+  with numpy alone, so a checkpoint such as ``artifacts/encoder-ck`` loads
+  without JAX.
+"""
+
+from __future__ import annotations
+
+import json
+from pathlib import Path
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from sentio_tpu_torch.models.transformer import EncoderConfig
+
+FORMAT_VERSION = 1
+_TUPLE_TAG = "__tuple__"
+
+
+def _tensor(x: Any) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x
+    arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))  # a writable copy
+
+
+def _carry(tree: dict, dtype: Optional[torch.dtype], device) -> dict:
+    """Recursively convert one JAX subtree. ``dtype`` applies to matrices
+    and embedding tables (None keeps the stored dtype); norm parameters
+    and other vectors are float32."""
+    if "kernel" in tree:
+        out = {"weight": _tensor(tree["kernel"]).t().contiguous()}
+        if "bias" in tree:
+            out["bias"] = _tensor(tree["bias"])
+        if dtype is not None:
+            out = {k: v.to(dtype) for k, v in out.items()}
+        return {k: v.to(device) for k, v in out.items()}
+    if "embedding" in tree:
+        table = _tensor(tree["embedding"])
+        return {"embedding": (table.to(dtype) if dtype is not None else table).to(device)}
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out[key] = _carry(value, dtype, device)
+        else:
+            out[key] = _tensor(value).float().to(device)
+    return out
+
+
+def _check_keys(tree: dict, required: tuple[str, ...], family: str) -> None:
+    missing = [k for k in required if k not in tree]
+    if missing:
+        raise ValueError(f"not a {family} parameter tree: missing {missing}")
+
+
+def llama_from_jax(tree: dict, dtype: Optional[torch.dtype] = None,
+                   device="cpu") -> dict:
+    _check_keys(tree, ("embed_tokens", "lm_head", "final_norm", "layers_0"), "llama")
+    return _carry(tree, dtype, device)
+
+
+def encoder_from_jax(tree: dict, dtype: Optional[torch.dtype] = None,
+                     device="cpu") -> dict:
+    _check_keys(tree, ("embed_tokens", "embed_positions", "embed_norm", "layers_0"),
+                "encoder")
+    return _carry(tree, dtype, device)
+
+
+def cross_encoder_from_jax(tree: dict, dtype: Optional[torch.dtype] = None,
+                           device="cpu") -> dict:
+    _check_keys(tree, ("encoder", "head"), "cross-encoder")
+    _check_keys(tree["encoder"], ("embed_tokens", "embed_positions", "embed_norm",
+                                  "layers_0"), "cross-encoder")
+    return _carry(tree, dtype, device)
+
+
+# ------------------------------------------------------------ checkpoints
+
+
+def _unflatten(flat: dict, structure: Any) -> Any:
+    if isinstance(structure, str):
+        return flat[structure]
+    if isinstance(structure, list):
+        return [_unflatten(flat, s) for s in structure]
+    if set(structure) == {_TUPLE_TAG}:
+        return tuple(_unflatten(flat, s) for s in structure[_TUPLE_TAG])
+    return {k: _unflatten(flat, s) for k, s in structure.items()}
+
+
+def load_pytree(path) -> tuple[Any, dict]:
+    """Read a ``save_pytree`` checkpoint directory → (tree of CPU tensors,
+    meta). bf16 leaves come back as ``torch.bfloat16``."""
+    path = Path(path)
+    manifest_path = path / "manifest.json"
+    if not manifest_path.exists():
+        raise FileNotFoundError(f"no checkpoint at {path}")
+    manifest = json.loads(manifest_path.read_text())
+    if manifest.get("format_version") != FORMAT_VERSION:
+        raise ValueError(f"unsupported checkpoint format {manifest.get('format_version')}")
+    flat: dict[str, torch.Tensor] = {}
+    with np.load(path / "arrays.npz", allow_pickle=False) as z:
+        for slot, key in manifest["keys"].items():
+            arr = z[slot]
+            if manifest["dtypes"][key] == "bfloat16" and arr.dtype == np.uint16:
+                flat[key] = torch.from_numpy(arr.copy()).view(torch.bfloat16)
+            else:
+                flat[key] = torch.from_numpy(arr)
+    return _unflatten(flat, manifest["structure"]), manifest.get("meta", {})
+
+
+def load_encoder(path, dtype: Optional[torch.dtype] = None,
+                 device="cpu") -> tuple[dict, EncoderConfig]:
+    """An encoder checkpoint (``meta.family == "encoder"``) → (params, config)."""
+    tree, meta = load_pytree(path)
+    if meta.get("family") != "encoder":
+        raise ValueError(f"{path} is a {meta.get('family')!r} checkpoint, not an encoder")
+    return encoder_from_jax(tree, dtype, device), EncoderConfig(**meta["config"])

@@ -1,0 +1,76 @@
+"""The CUDA kernels against their plain versions on the card.
+
+Marked ``cuda``: on a host without a CUDA device every test here skips
+(the decision is made in a fixture, at run time). On the card:
+``python -m pytest tests/test_torch_cuda.py -q -m cuda``. Tolerance: the
+bf16 kernel against the float32 plain version on bf16 inputs, max abs
+error 2e-2 (bf16 outputs carry ~3 significant digits)."""
+
+import pytest
+import torch
+
+from sentio_tpu_torch.kernels import FLASH_KERNEL, PAGED_KERNEL
+from sentio_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+from sentio_tpu_torch.kernels.paged_attention import paged_attention, paged_attention_plain
+
+pytestmark = pytest.mark.cuda
+ATOL = 2e-2
+
+
+@pytest.fixture()
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _paged_inputs(dev, rep, d=64, page=16, nb=6, b=5, hkv=2, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    num_pages = 1 + b * nb
+    kp = torch.randn((num_pages, page, hkv, d), generator=gen, device=dev, dtype=torch.bfloat16)
+    vp = torch.randn((num_pages, page, hkv, d), generator=gen, device=dev, dtype=torch.bfloat16)
+    table = torch.arange(1, num_pages, dtype=torch.int32, device=dev).reshape(b, nb)
+    table[0] = 0  # a free slot on the scratch page
+    lens = torch.tensor([0, 1, page - 1, page, nb * page - 1], dtype=torch.int32, device=dev)
+    q = torch.randn((b, hkv * rep, d), generator=gen, device=dev, dtype=torch.bfloat16)
+    return q, kp, vp, table, lens
+
+
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("d", [64, 128])
+def test_paged_kernel_matches_plain(dev, rep, d):
+    q, kp, vp, table, lens = _paged_inputs(dev, rep, d=d)
+    before = PAGED_KERNEL.launches
+    out = paged_attention(q, kp, vp, table, lens)
+    torch.cuda.synchronize()
+    assert PAGED_KERNEL.launches == before + 1
+    ref = paged_attention_plain(q.float(), kp.float(), vp.float(), table, lens)
+    assert (out.float() - ref).abs().max().item() <= ATOL
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_kernel_matches_plain(dev, d, causal):
+    gen = torch.Generator(device=dev).manual_seed(d)
+    b, t, h = 3, 100, 2
+    q, k, v = (torch.randn((b, t, h, d), generator=gen, device=dev, dtype=torch.bfloat16)
+               for _ in range(3))
+    lens = torch.tensor([0, 100, 37], dtype=torch.int32, device=dev)
+    before = FLASH_KERNEL.launches
+    out = flash_attention(q, k, v, lens, causal=causal)
+    torch.cuda.synchronize()
+    assert FLASH_KERNEL.launches == before + 1
+    ref = flash_attention_plain(q.float(), k.float(), v.float(), lens, causal=causal)
+    assert (out.float() - ref).abs().max().item() <= ATOL
+    assert not out[0].any()  # kv_lens == 0: exactly zero
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    q, kp, vp, table, lens = _paged_inputs(dev, 2)
+    with pytest.raises(ValueError):
+        paged_attention(q.float(), kp, vp, table, lens)
+    with pytest.raises(ValueError):
+        paged_attention(q, kp, vp, table.long(), lens)
+    x = torch.zeros((1, 8, 2, 48), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        flash_attention(x, x, x)
