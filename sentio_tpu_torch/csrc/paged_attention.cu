@@ -11,21 +11,26 @@
 // Launch geometry: grid (B, Hkv), 128 threads. One block per (row, kv head)
 // handles that group's rep query heads. The block reads page_table[b, i]
 // itself (the TPU kernel had it by scalar prefetch) and walks pages
-// 0 .. lens[b] / page in order, carrying (m, l, acc) in fp32:
-//   1. scores: warp w takes tokens w, w+4, ...; lanes read bf16 pairs of the
-//      token's K row (D contiguous bf16) and reduce q.k for all rep heads;
-//   2. softmax update: one warp per head row, over this page's tokens;
-//   3. acc update: thread d owns output column d (for every rep head) and
-//      streams V rows, so each V element is read once per block.
+// 0 .. lens[b] / page in order, carrying (m, l, acc) in fp32. Per page:
+//   1. the page's K and V rows of this kv head (each D contiguous bf16) are
+//      staged in shared memory with 16-byte loads, all issued before any is
+//      used (rows past the current token are not read);
+//   2. scores: thread t owns token t and takes q . k_t for all rep heads
+//      from shared memory (q is read as a broadcast);
+//   3. softmax update: one warp per head row, over this page's tokens;
+//   4. acc update: thread d owns output column d (for every rep head) and
+//      sums p[r][t] * v[t][d] over the staged V rows.
 // Reads: q [B, H, D], the owned K/V pages [P, page, Hkv, D], page_table
 // [B, NB] int32, lens [B] int32. Writes: out [B, H, D].
 //
 // Bound on the H100: the K/V bytes the rows own, B * (lens + 1) * Hkv * D *
 // 2 B * 2 (K and V) — about 67 MB per layer at 2K-token rows, ~20 us at
 // 3.35 TB/s; the arithmetic is ~1 FLOP per byte. The design reads each
-// owned K/V byte exactly once and nothing past lens; it does not yet
-// overlap loads with compute (no cp.async / TMA) and runs B * Hkv blocks
-// (64 at the serving batch), fewer than the 132 SMs.
+// owned K/V byte exactly once and nothing past lens. What it does not do
+// yet: overlap one page's loads with the previous page's math (cp.async /
+// TMA double buffering), or split a long row over several blocks — so a
+// row's time grows with its length on one SM, and B * Hkv blocks (64 at the
+// serving batch) leave most of the 132 SMs idle.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -35,8 +40,9 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxRep = 8;         // query heads per kv head
+constexpr int kMaxRep = 8;            // query heads per kv head
 constexpr int kMaxColsPerThread = 2;  // D <= 256
+constexpr int kVec = 8;               // bf16 per 16-byte load
 constexpr float kNegInf = -FLT_MAX;
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -51,6 +57,14 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// Shared memory, in order: K rows [page][D + kVec] bf16 (padded so 16-byte
+// reads of consecutive rows fall on different banks), V rows [page][D]
+// bf16, then fp32 q [rep][D], scores [rep][page], m, l, alpha [rep].
+__host__ __device__ inline size_t smem_bytes(int rep, int D, int page) {
+  return (size_t)page * (D + kVec) * 2 + (size_t)page * D * 2 +
+         sizeof(float) * ((size_t)rep * D + (size_t)rep * page + 3 * rep);
+}
+
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k_pages,
@@ -60,9 +74,12 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     __nv_bfloat16* __restrict__ out,
                     int H, int Hkv, int D, int page, int NB, int P,
                     float sm_scale) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int rep = H / Hkv;
-  float* q_s = smem;               // [rep][D]
+  const int kp = D + kVec;  // K row pitch in bf16
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* v_s = k_s + (size_t)page * kp;
+  float* q_s = reinterpret_cast<float*>(v_s + (size_t)page * D);  // [rep][D]
   float* s_s = q_s + rep * D;      // [rep][page] scores, then probabilities
   float* m_s = s_s + rep * page;   // [rep] running max
   float* l_s = m_s + rep;          // [rep] running normalizer
@@ -88,9 +105,9 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   for (int r = 0; r < kMaxRep; ++r)
 #pragma unroll
     for (int j = 0; j < kMaxColsPerThread; ++j) acc[r][j] = 0.f;
-  __syncthreads();
 
   const size_t tok_stride = (size_t)Hkv * D;  // between tokens of a page
+  const int vecs = D / kVec;                  // 16-byte chunks per row
   const int n_pages = cur < 0 ? 0 : min(cur / page + 1, NB);
   for (int i = 0; i < n_pages; ++i) {
     const int pid = page_table[b * NB + i];
@@ -98,31 +115,52 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
     const int n_valid = min(page, cur + 1 - i * page);
     const size_t page_off = (size_t)pid * page * tok_stride + (size_t)g * D;
 
-    // 1. scores s[r][t] = (q_r . k_t) * sm_scale
-    for (int t = warp; t < n_valid; t += kWarps) {
-      const __nv_bfloat16* krow = k_pages + page_off + (size_t)t * tok_stride;
+    // 1. stage the valid K and V rows (consecutive threads read consecutive
+    //    16-byte chunks of a row: each row is one contiguous D * 2 bytes)
+    for (int c = tid; c < n_valid * vecs; c += kThreads) {
+      const int t = c / vecs;
+      const int x = (c - t * vecs) * kVec;
+      const size_t src = page_off + (size_t)t * tok_stride + x;
+      *reinterpret_cast<uint4*>(k_s + t * kp + x) =
+          *reinterpret_cast<const uint4*>(k_pages + src);
+      *reinterpret_cast<uint4*>(v_s + t * D + x) =
+          *reinterpret_cast<const uint4*>(v_pages + src);
+    }
+    __syncthreads();
+
+    // 2. scores s[r][t] = (q_r . k_t) * sm_scale, one token per thread
+    for (int t = tid; t < n_valid; t += kThreads) {
       float part[kMaxRep];
 #pragma unroll
       for (int r = 0; r < kMaxRep; ++r) part[r] = 0.f;
-      for (int d = 2 * lane; d < D; d += 64) {
-        const float2 kf = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(krow + d));
+      const __nv_bfloat16* krow = k_s + t * kp;
+      for (int x = 0; x < D; x += kVec) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(krow + x);
+        const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+        float kf[kVec];
+#pragma unroll
+        for (int e = 0; e < kVec / 2; ++e) {
+          const float2 f = __bfloat1622float2(k2[e]);
+          kf[2 * e] = f.x;
+          kf[2 * e + 1] = f.y;
+        }
 #pragma unroll
         for (int r = 0; r < kMaxRep; ++r) {
-          if (r < rep) part[r] += q_s[r * D + d] * kf.x + q_s[r * D + d + 1] * kf.y;
+          if (r < rep) {
+            const float* qr = q_s + r * D + x;
+#pragma unroll
+            for (int e = 0; e < kVec; ++e) part[r] += qr[e] * kf[e];
+          }
         }
       }
 #pragma unroll
       for (int r = 0; r < kMaxRep; ++r) {
-        if (r < rep) {
-          const float s = warp_sum(part[r]);
-          if (lane == 0) s_s[r * page + t] = s * sm_scale;
-        }
+        if (r < rep) s_s[r * page + t] = part[r] * sm_scale;
       }
     }
     __syncthreads();
 
-    // 2. online-softmax update, one warp per head row
+    // 3. online-softmax update, one warp per head row
     for (int r = warp; r < rep; r += kWarps) {
       float mx = kNegInf;
       for (int t = lane; t < n_valid; t += 32) mx = fmaxf(mx, s_s[r * page + t]);
@@ -146,7 +184,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
     }
     __syncthreads();
 
-    // 3. acc[r][d] = acc[r][d] * alpha[r] + sum_t p[r][t] * v[t][d]
+    // 4. acc[r][d] = acc[r][d] * alpha[r] + sum_t p[r][t] * v[t][d]
 #pragma unroll
     for (int j = 0; j < kMaxColsPerThread; ++j) {
       const int d = tid + j * kThreads;
@@ -155,9 +193,9 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
         for (int r = 0; r < kMaxRep; ++r) {
           if (r < rep) acc[r][j] *= a_s[r];
         }
-        const __nv_bfloat16* vcol = v_pages + page_off + d;
+#pragma unroll 4
         for (int t = 0; t < n_valid; ++t) {
-          const float vv = __bfloat162float(vcol[(size_t)t * tok_stride]);
+          const float vv = __bfloat162float(v_s[t * D + d]);
 #pragma unroll
           for (int r = 0; r < kMaxRep; ++r) {
             if (r < rep) acc[r][j] += s_s[r * page + t] * vv;
@@ -165,7 +203,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
         }
       }
     }
-    __syncthreads();  // s_s is rewritten by the next page
+    __syncthreads();  // the next page overwrites k_s, v_s and s_s
   }
 
 #pragma unroll
@@ -191,12 +229,12 @@ extern "C" int paged_attention_bf16(const void* q, const void* k_pages,
                                     int Hkv, int D, int page, int NB, int P,
                                     float sm_scale, void* stream) {
   if (B <= 0) return 0;
-  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > kMaxRep || D % 2 != 0 ||
+  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > kMaxRep || D % kVec != 0 ||
       D > kThreads * kMaxColsPerThread || page <= 0 || NB <= 0 || P <= 0) {
     return (int)cudaErrorInvalidValue;
   }
-  const int rep = H / Hkv;
-  const size_t smem = sizeof(float) * ((size_t)rep * D + (size_t)rep * page + 3 * rep);
+  const size_t smem = smem_bytes(H / Hkv, D, page);
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         paged_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

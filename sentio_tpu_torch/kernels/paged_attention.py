@@ -3,8 +3,9 @@
 Replaces ``sentio_tpu/kernels/paged_attention.py::_paged_kernel`` (bf16
 pages; the int8 variant is not ported yet). The kernel is
 ``csrc/paged_attention.cu``: grid (B, Hkv), one block per (row, kv head)
-walking the row's page table with an fp32 online softmax; see the source
-for its geometry and what bounds it.
+walking the row's page table with an fp32 online softmax, each page's K/V
+rows staged in shared memory; see the source for its geometry and what
+bounds it.
 
 :func:`paged_attention` launches the kernel for CUDA tensors and runs
 :func:`paged_attention_plain` only for CPU tensors. There is no fallback
@@ -77,8 +78,10 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
         raise ValueError(f"k/v pages must be [P, page, Hkv, D], got "
                          f"{tuple(k_pages.shape)} / {tuple(v_pages.shape)}")
     num_pages, page, hkv, dk = k_pages.shape
-    if dk != d or h % hkv or h // hkv > 8 or d % 2 or d > 256:
+    if dk != d or h % hkv or h // hkv > 8 or d % 8 or d > 256:
         raise ValueError(f"unsupported heads/dims: H={h} Hkv={hkv} D={d}")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("paged_attention: page pools must be 16-byte aligned")
     if page_table.dim() != 2 or page_table.shape[0] != b or lens.shape != (b,):
         raise ValueError("page_table must be [B, NB] and lens [B]")
     for name, t, dtype in (("q", q, torch.bfloat16), ("k_pages", k_pages, torch.bfloat16),
