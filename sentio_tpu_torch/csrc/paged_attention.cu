@@ -13,8 +13,8 @@
 // itself (the TPU kernel had it by scalar prefetch) and walks pages
 // 0 .. lens[b] / page in order, carrying (m, l, acc) in fp32. Per page:
 //   1. the page's K and V rows of this kv head (each D contiguous bf16) are
-//      staged in shared memory with 16-byte loads, all issued before any is
-//      used (rows past the current token are not read);
+//      staged in shared memory with 16-byte loads, 8 K and 8 V loads in
+//      flight per thread (rows past the current token are not read);
 //   2. scores: thread t owns token t and takes q . k_t for all rep heads
 //      from shared memory (q is read as a broadcast);
 //   3. softmax update: one warp per head row, over this page's tokens;
@@ -43,6 +43,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxRep = 8;            // query heads per kv head
 constexpr int kMaxColsPerThread = 2;  // D <= 256
 constexpr int kVec = 8;               // bf16 per 16-byte load
+constexpr int kBatch = 8;             // 16-byte loads in flight per thread
 constexpr float kNegInf = -FLT_MAX;
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -116,15 +117,32 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
     const size_t page_off = (size_t)pid * page * tok_stride + (size_t)g * D;
 
     // 1. stage the valid K and V rows (consecutive threads read consecutive
-    //    16-byte chunks of a row: each row is one contiguous D * 2 bytes)
-    for (int c = tid; c < n_valid * vecs; c += kThreads) {
-      const int t = c / vecs;
-      const int x = (c - t * vecs) * kVec;
-      const size_t src = page_off + (size_t)t * tok_stride + x;
-      *reinterpret_cast<uint4*>(k_s + t * kp + x) =
-          *reinterpret_cast<const uint4*>(k_pages + src);
-      *reinterpret_cast<uint4*>(v_s + t * D + x) =
-          *reinterpret_cast<const uint4*>(v_pages + src);
+    //    16-byte chunks of a row: each row is one contiguous D * 2 bytes).
+    //    Each thread issues kBatch K and kBatch V loads before it stores
+    //    any, so a page costs a few HBM round trips, not one per chunk.
+    const int n_chunks = n_valid * vecs;
+    for (int c0 = tid; c0 < n_chunks; c0 += kThreads * kBatch) {
+      uint4 kr[kBatch], vr[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int c = c0 + u * kThreads;
+        if (c < n_chunks) {
+          const int t = c / vecs;
+          const size_t src = page_off + (size_t)t * tok_stride + (c - t * vecs) * kVec;
+          kr[u] = *reinterpret_cast<const uint4*>(k_pages + src);
+          vr[u] = *reinterpret_cast<const uint4*>(v_pages + src);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int c = c0 + u * kThreads;
+        if (c < n_chunks) {
+          const int t = c / vecs;
+          const int x = (c - t * vecs) * kVec;
+          *reinterpret_cast<uint4*>(k_s + t * kp + x) = kr[u];
+          *reinterpret_cast<uint4*>(v_s + t * D + x) = vr[u];
+        }
+      }
     }
     __syncthreads();
 
