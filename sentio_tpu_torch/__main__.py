@@ -39,8 +39,6 @@ def main(argv=None) -> int:
     chat = sub.add_parser("chat", help="answer one question through the pipeline")
     chat.add_argument("question")
     chat.add_argument("--docs", nargs="*", default=[], help="text files to ingest")
-    chat.add_argument("--top-k", type=int, default=None)
-    chat.add_argument("--mode", default="balanced")
     chat.add_argument("--max-tokens", type=int, default=None,
                       help="cap on answer and verify tokens (LLM_MAX_TOKENS)")
     chat.add_argument("--device", default=None, help="default: cuda")
@@ -70,7 +68,7 @@ def main(argv=None) -> int:
     docs = [Document(text=chunk, metadata={"source": name})
             for name, text in texts for chunk in _chunks(text)]
     pipeline.ingest(docs)
-    response = pipeline.chat(args.question, top_k=args.top_k, mode=args.mode)
+    response = pipeline.chat(args.question)
     json.dump(response, sys.stdout, indent=1)
     sys.stdout.write("\n")
     return 0

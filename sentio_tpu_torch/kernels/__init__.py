@@ -15,16 +15,11 @@ from sentio_tpu_torch.kernels.paged_attention import KERNEL as PAGED_KERNEL
 from sentio_tpu_torch.kernels.paged_attention import paged_attention
 
 __all__ = [
-    "flash_attention", "paged_attention", "flash_attn_fn", "encoder_attn_fn",
+    "flash_attention", "paged_attention", "encoder_attn_fn",
     "paged_attn_impl", "KERNELS", "FLASH_KERNEL", "PAGED_KERNEL",
 ]
 
 KERNELS = (PAGED_KERNEL, FLASH_KERNEL)
-
-
-def flash_attn_fn(q, k, v, kv_lens=None):
-    """Causal adapter for ``llama_forward(attn_fn=...)``."""
-    return flash_attention(q, k, v, kv_lens, causal=True)
 
 
 def encoder_attn_fn(q, k, v, kv_lens=None):

@@ -95,19 +95,8 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: int, device) -> Cache:
             "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device)}
 
 
-def _write_cache(cache_layer: Tensor, kv: Tensor, index) -> None:
-    """Write kv [B,T,H,D] into cache_layer [B,S,H,D] at seq offset ``index``
-    (int) or per-row offsets (a [B] tensor), in place."""
-    t = kv.shape[1]
-    if isinstance(index, int):
-        cache_layer[:, index:index + t] = kv
-        return
-    for row, start in enumerate(index.tolist()):
-        cache_layer[row, start:start + t] = kv[row]
-
-
 def _attn(lp: dict, cfg: LlamaConfig, x: Tensor, positions: Tensor, cos: Tensor,
-          sin: Tensor, layer: int, cache: Optional[Cache], cache_index,
+          sin: Tensor, layer: int, cache: Optional[Cache], cache_index: int,
           pad_mask: Optional[Tensor], attn_fn=None) -> Tensor:
     dt = cfg.torch_dtype
     b, t, d = x.shape
@@ -123,8 +112,8 @@ def _attn(lp: dict, cfg: LlamaConfig, x: Tensor, positions: Tensor, cos: Tensor,
     # decode and ragged offsets use the masked plain path
     use_kernel = attn_fn is not None and t > 1
     if cache is not None:
-        _write_cache(cache["k"][layer], k.to(dt), cache_index)
-        _write_cache(cache["v"][layer], v.to(dt), cache_index)
+        cache["k"][layer, :, cache_index:cache_index + t] = k.to(dt)
+        cache["v"][layer, :, cache_index:cache_index + t] = v.to(dt)
         k_full, v_full = cache["k"][layer], cache["v"][layer]
         s = k_full.shape[1]
         # query i (absolute pos = positions[:, i]) attends keys j <= pos_i
@@ -155,13 +144,14 @@ def _mlp(lp: dict, cfg: LlamaConfig, x: Tensor) -> Tensor:
 
 def llama_forward(params: dict, cfg: LlamaConfig, ids: Tensor,
                   positions: Optional[Tensor] = None, cache: Optional[Cache] = None,
-                  cache_index=0, pad_mask: Optional[Tensor] = None,
+                  cache_index: int = 0, pad_mask: Optional[Tensor] = None,
                   attn_fn=None) -> tuple[Tensor, Optional[Cache]]:
     """ids [B, T] → (logits [B, T, vocab] float32, cache).
 
     * Training / scoring: ``cache=None`` → causal attention over T.
-    * Prefill: pass a fresh cache, ``positions = arange(T)``, index 0.
-    * Decode: T == 1 with per-row ``positions`` and ``cache_index``.
+    * Prefill: pass a fresh cache, ``positions = arange(T)``, index 0; the
+      T new keys are written at ``cache_index``. (Decode runs over the page
+      pool instead: ``runtime/paged.py``.)
     """
     dt = cfg.torch_dtype
     b, t = ids.shape

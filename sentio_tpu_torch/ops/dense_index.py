@@ -103,13 +103,6 @@ class TorchDenseIndex:
         self._id_to_row = {doc.id: i for i, doc in enumerate(self._documents)}
         self._device_state = None
 
-    def clear(self) -> None:
-        self._embeddings = np.zeros((0, self.dim), np.float32)
-        self._documents = []
-        self._id_to_row = {}
-        self._alive = np.zeros(0, bool)
-        self._device_state = None
-
     # ---------------------------------------------------------------- search
 
     def _ensure_device(self):

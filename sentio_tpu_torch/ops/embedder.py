@@ -19,13 +19,13 @@ from sentio_tpu_torch import resolve_device
 from sentio_tpu_torch.config import EmbedderConfig
 from sentio_tpu_torch.kernels import encoder_attn_fn
 from sentio_tpu_torch.models.tokenizer import ByteTokenizer, batch_encode
-from sentio_tpu_torch.parallel.batcher import bucket_size
 from sentio_tpu_torch.models.transformer import (
     EncoderConfig,
     encoder_forward,
     init_encoder,
     mean_pool,
 )
+from sentio_tpu_torch.parallel.batcher import bucket_size
 from sentio_tpu_torch.runtime.weights import load_encoder
 
 
@@ -34,7 +34,7 @@ class TorchEmbedder:
     BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
 
     def __init__(self, config: Optional[EmbedderConfig] = None, params: Optional[dict] = None,
-                 model_config: Optional[EncoderConfig] = None, tokenizer=None,
+                 model_config: Optional[EncoderConfig] = None,
                  device=None, generator: Optional[torch.Generator] = None) -> None:
         self.config = config or EmbedderConfig()
         self.device = resolve_device(device)
@@ -44,7 +44,7 @@ class TorchEmbedder:
         self.model_config = model_config or (
             EncoderConfig.tiny() if self.config.model_preset == "tiny" else EncoderConfig.base()
         )
-        self.tokenizer = tokenizer or ByteTokenizer(self.model_config.vocab_size)
+        self.tokenizer = ByteTokenizer(self.model_config.vocab_size)
         if params is None:
             if generator is None:
                 generator = torch.Generator(device=self.device)
@@ -63,9 +63,6 @@ class TorchEmbedder:
         for start in range(0, len(texts), step):
             out[start : start + step] = self.embed_tensor(texts[start : start + step]).cpu().numpy()
         return out
-
-    def embed(self, text: str) -> np.ndarray:
-        return self.embed_many([text])[0]
 
     def embed_tensor(self, texts: Sequence[str]) -> torch.Tensor:
         """[n, D] float32 on the device, no host copy (the dense retrieval

@@ -20,18 +20,15 @@ from sentio_tpu_torch.ops.prompts import PromptBuilder
 
 @dataclass
 class EngineProvider:
-    """Chat over the in-process engine; ``last_result`` keeps the last
-    request's :class:`PagedResult` (tokens, finish reason, logprobs)."""
+    """Chat over the in-process engine."""
 
     engine: object  # ContinuousBatchingEngine
     name: str = "torch"
-    last_result: object = None
 
     def chat(self, prompt: str, max_new_tokens: int, temperature: float,
              stats: Optional[dict] = None) -> str:
         result = self.engine.run_all([prompt], max_new_tokens=max_new_tokens,
                                      temperature=temperature)[0]
-        self.last_result = result
         if stats is not None:
             stats.update(result.stats_dict())
         return result.text
@@ -63,11 +60,10 @@ class LLMGenerator:
 
     def generate(self, query: str, documents: Sequence[Document],
                  mode: Optional[str] = None, temperature: Optional[float] = None,
-                 max_new_tokens: Optional[int] = None,
                  stats: Optional[dict] = None) -> str:
         prompt = self.build_prompt(query, documents)
         temp = temperature if temperature is not None else self.config.temperature(mode)
-        return self.provider.chat(prompt, max_new_tokens=max_new_tokens or self.config.max_new_tokens,
+        return self.provider.chat(prompt, max_new_tokens=self.config.max_new_tokens,
                                   temperature=temp, stats=stats)
 
     def chat_raw(self, prompt: str, max_new_tokens: int, temperature: float) -> str:

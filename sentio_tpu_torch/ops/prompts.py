@@ -69,24 +69,6 @@ class PromptBuilder:
     def __init__(self, prompts_dir: Optional[str] = None) -> None:
         self.prompts_dir = Path(prompts_dir) if prompts_dir else PROMPTS_DIR
 
-    def static_head(self, name: str, **values) -> str:
-        """The template's constant leading text — everything before the
-        first request-varying placeholder ({context}/{query}/{answer}) —
-        with the provided static values substituted. The serving layer
-        warms the paged engine's radix prefix cache with this span: every
-        /chat prompt built from this template starts with these exact
-        bytes, so even the first request after boot admits suffix-only."""
-        text = self.load(name)
-        cut = len(text)
-        for dynamic in ("{context}", "{query}", "{answer}"):
-            idx = text.find(dynamic)
-            if idx != -1:
-                cut = min(cut, idx)
-        head = text[:cut]
-        for key, value in values.items():
-            head = head.replace("{" + key + "}", value)
-        return head
-
     def load(self, name: str) -> str:
         cache_key = f"{self.prompts_dir}:{name}"
         cached = self._cache.get(cache_key)
@@ -120,7 +102,3 @@ class PromptBuilder:
             r"\{(instruction|context|query|answer)\}",
             lambda m: values[m.group(1)], template,
         )
-
-    @classmethod
-    def clear_cache(cls) -> None:
-        cls._cache.clear()

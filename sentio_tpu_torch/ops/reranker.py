@@ -40,14 +40,14 @@ class CrossEncoderReranker:
     ROW_BUCKETS = (1, 2, 4, 8, 16, 32)
 
     def __init__(self, config: Optional[RerankConfig] = None, params: Optional[dict] = None,
-                 model_config: Optional[EncoderConfig] = None, tokenizer=None,
+                 model_config: Optional[EncoderConfig] = None,
                  device=None, generator: Optional[torch.Generator] = None) -> None:
         self.config = config or RerankConfig()
         self.device = resolve_device(device)
         # the default container builds the tiny cross-encoder when no
         # checkpoint is configured
         self.model_config = model_config or EncoderConfig.tiny()
-        self.tokenizer = tokenizer or ByteTokenizer(self.model_config.vocab_size)
+        self.tokenizer = ByteTokenizer(self.model_config.vocab_size)
         if params is None:
             if generator is None:
                 generator = torch.Generator(device=self.device)

@@ -22,7 +22,7 @@ import torch
 from sentio_tpu_torch import resolve_device
 from sentio_tpu_torch.config import Settings
 from sentio_tpu_torch.models.document import Document
-from sentio_tpu_torch.models.llama import LlamaConfig
+from sentio_tpu_torch.models.llama import LlamaConfig, init_llama
 from sentio_tpu_torch.models.transformer import EncoderConfig
 from sentio_tpu_torch.ops.dense_index import TorchDenseIndex
 from sentio_tpu_torch.ops.embedder import TorchEmbedder
@@ -88,16 +88,6 @@ class ChatPipeline:
         self.index.add(documents, self.embedder.embed_many([d.content for d in documents]))
         return len(documents)
 
-    def retrieve(self, question: str, top_k: int) -> list[Document]:
-        query = self.embedder.embed_tensor([question])
-        out = []
-        for doc, score in self.index.search_batch(query, top_k)[0]:
-            meta = dict(doc.metadata)
-            meta["score"] = score
-            meta["retriever"] = "dense"
-            out.append(Document(text=doc.text, metadata=meta, id=doc.id))
-        return out
-
     def chat(self, question: str, top_k: Optional[int] = None,
              temperature: Optional[float] = None, mode: str = "balanced") -> dict[str, Any]:
         s = self.settings
@@ -110,10 +100,11 @@ class ChatPipeline:
             stage_ms[name] = (now - t) * 1e3
             t = now
 
-        retrieved = self.retrieve(question, _user_top_k(top_k, s.retrieval.top_k))
+        retrieved = self.index.retrieve(self.embedder.embed_tensor([question])[0],
+                                        _user_top_k(top_k, s.retrieval.top_k))
         lap("retrieve")
         docs = retrieved
-        if self.reranker is not None and s.rerank.enabled and retrieved:
+        if self.reranker is not None and retrieved:
             docs = self.reranker.rerank(
                 question, retrieved, top_k=_user_top_k(top_k, s.rerank.top_k)).documents
             lap("rerank")
@@ -125,7 +116,7 @@ class ChatPipeline:
                                          temperature=temperature, stats=gen_stats)
         lap("generate")
         verification: dict = {}
-        if self.verifier is not None and s.generator.use_verifier:
+        if self.verifier is not None:
             if answer:
                 result = self.verifier.verify(question, answer, best)
                 verification = result.to_dict()
@@ -153,8 +144,7 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
                    reranker_config: Optional[EncoderConfig] = None,
                    llama_params: Optional[dict] = None,
                    embedder_params: Optional[dict] = None,
-                   reranker_params: Optional[dict] = None,
-                   use_kernel: bool = True) -> ChatPipeline:
+                   reranker_params: Optional[dict] = None) -> ChatPipeline:
     """Assemble the pipeline from ``settings`` on ``device`` (the card by
     default). Missing weights are random, made on the device from
     ``seed``; the engine follows the generator settings (slots, page size,
@@ -184,14 +174,12 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
     llama_config = llama_config or (
         LlamaConfig.tiny() if gcfg.model_preset == "tiny" else LlamaConfig.llama3_8b())
     if llama_params is None:
-        from sentio_tpu_torch.models.llama import init_llama
-
         llama_params = init_llama(llama_config, gen(3), dev)
     engine = ContinuousBatchingEngine(
         model_config=llama_config, params=llama_params,
         max_slots=gcfg.max_batch_size, page_size=gcfg.kv_page_size,
         max_pages_per_seq=gcfg.kv_max_pages_per_seq, rng_seed=seed,
-        use_kernel=use_kernel, steps_per_tick=gcfg.decode_steps_per_tick,
+        steps_per_tick=gcfg.decode_steps_per_tick,
         max_tick_steps=gcfg.decode_max_tick_steps, device=dev,
     )
     generator = LLMGenerator(provider=EngineProvider(engine), config=gcfg)

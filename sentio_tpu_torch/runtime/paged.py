@@ -23,8 +23,8 @@ One engine tick:
 The pool is updated in place (the JAX engine donates its buffers to the
 same effect). Decode attention goes through the paged kernel
 (:func:`sentio_tpu_torch.kernels.paged_attn_impl`), or through the plain
-gather path when ``use_kernel=False``. Prefill keeps plain attention, as
-the JAX engine does. Left for later slices: the radix prefix cache,
+gather path when ``attn_impl`` is set to ``_paged_attn_xla``. Prefill keeps
+plain attention, as the JAX engine does. Left for later slices: the radix prefix cache,
 chunked prefill, speculation, int8 pools, ``pipeline_depth=2`` and meshes
 — none of them changes greedy output.
 """
@@ -60,10 +60,6 @@ class PagedPool:
     k: Tensor
     v: Tensor
     page_size: int
-
-    @property
-    def num_pages(self) -> int:
-        return self.k.shape[1]
 
     @property
     def hbm_bytes(self) -> int:
@@ -183,8 +179,6 @@ class _Slot:
     length: int = 0          # tokens currently in cache (prompt + generated)
     prompt_tokens: int = 0
     max_new: int = 0
-    temperature: float = 0.0
-    top_k: int = 0
     emitted: list[int] = field(default_factory=list)
     active: bool = False
 
@@ -195,8 +189,6 @@ class _Request:
     prompt: str
     max_new: int
     temperature: float
-    top_k: int = 0
-    tok_ids: Optional[list] = None
 
 
 @dataclass
@@ -233,8 +225,12 @@ class ContinuousBatchingEngine:
     """Slot-based continuous batching over the paged pool.
 
     ``max_slots`` decode lanes run one fused multi-step tick per ``step()``;
-    requests are admitted into free lanes and retired on EOS / length.
-    Single-threaded: one caller drives ``step()``."""
+    requests are admitted into free lanes in arrival order and retired on
+    EOS / length. The pool holds ``max_pages_per_seq`` pages for every slot
+    (plus scratch), so a free slot always finds its pages. ``attn_impl`` is
+    the decode-attention seam: the paged kernel by default, the plain
+    gather path (``_paged_attn_xla``) when set to it. Single-threaded: one
+    caller drives ``step()``."""
 
     PREFILL_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
     ADMIT_BUCKETS = (1, 2, 4, 8)
@@ -246,21 +242,17 @@ class ContinuousBatchingEngine:
         self,
         model_config: Optional[LlamaConfig] = None,
         params: Optional[dict] = None,
-        tokenizer=None,
         max_slots: int = 8,
         page_size: int = 16,
-        num_pages: Optional[int] = None,
         max_pages_per_seq: int = 16,
         rng_seed: int = 0,
-        use_kernel: bool = True,
         steps_per_tick: int = 8,
         max_tick_steps: Optional[int] = None,
-        ignore_eos: bool = False,
         device=None,
     ) -> None:
         self.device = resolve_device(device)
         self.cfg = model_config or LlamaConfig.tiny()
-        self.tokenizer = tokenizer or ByteTokenizer(self.cfg.vocab_size)
+        self.tokenizer = ByteTokenizer(self.cfg.vocab_size)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(rng_seed + 1)
         if params is None:
@@ -274,27 +266,20 @@ class ContinuousBatchingEngine:
         self.steps_per_tick = max(int(steps_per_tick), 1)
         self.max_tick_steps = (max(int(max_tick_steps), self.steps_per_tick)
                                if max_tick_steps is not None else self.steps_per_tick)
-        self.ignore_eos = bool(ignore_eos)
-        if num_pages is None:
-            num_pages = 1 + max_slots * max_pages_per_seq
+        num_pages = 1 + max_slots * max_pages_per_seq
         self.pool = init_pool(self.cfg, num_pages, page_size, self.device)
         self.allocator = PageAllocator(num_pages)
-        self.attn_impl = paged_attn_impl if use_kernel else _paged_attn_xla
+        self.attn_impl = paged_attn_impl
 
         self.slots = [_Slot() for _ in range(max_slots)]
         self._queue: list[_Request] = []
         self._finished: list[PagedResult] = []
         self._next_id = itertools.count()
-        self.head_skip_bound = 16
-        self._head_skips = 0
         self.total_sub_steps = 0
-        self.prefill_tokens_total = 0
-        self.decode_tokens_total = 0
         # host mirrors of per-slot decode state
         self._page_table = np.zeros((max_slots, max_pages_per_seq), np.int32)
         self._lens = np.zeros(max_slots, np.int32)
         self._temps = np.zeros(max_slots, np.float32)
-        self._top_ks = np.zeros(max_slots, np.int32)
         self._last_tok = np.zeros(max_slots, np.int64)
         self._lp_sum = np.zeros(max_slots, np.float32)
         self._lp_min = np.zeros(max_slots, np.float32)
@@ -302,11 +287,9 @@ class ContinuousBatchingEngine:
 
     # --------------------------------------------------------------- public
 
-    def submit(self, prompt: str, max_new_tokens: int = 64, temperature: float = 0.0,
-               top_k: int = 0) -> int:
+    def submit(self, prompt: str, max_new_tokens: int = 64, temperature: float = 0.0) -> int:
         rid = next(self._next_id)
-        self._queue.append(_Request(rid, prompt, max_new_tokens, temperature,
-                                    top_k=max(int(top_k), 0)))
+        self._queue.append(_Request(rid, prompt, max_new_tokens, temperature))
         return rid
 
     @property
@@ -332,20 +315,6 @@ class ContinuousBatchingEngine:
             self._tick()
         out, self._finished = self._finished, []
         return out
-
-    def stats(self) -> dict:
-        return {
-            "active_slots": sum(s.active for s in self.slots),
-            "max_slots": self.max_slots,
-            "queued": len(self._queue),
-            "free_pages": self.allocator.free_pages,
-            "total_pages": self.allocator.num_pages,
-            "page_size": self.page_size,
-            "pool_hbm_bytes": self.pool.hbm_bytes,
-            "prefill_tokens": self.prefill_tokens_total,
-            "decode_tokens": self.decode_tokens_total,
-            "sub_steps": self.total_sub_steps,
-        }
 
     # -------------------------------------------------------- device calls
 
@@ -383,51 +352,33 @@ class ContinuousBatchingEngine:
         return ((width + self.page_size - 1) // self.page_size) * self.page_size
 
     def _admit(self) -> None:
-        free = [i for i, s in enumerate(self.slots) if not s.active]
-        if not free or not self._queue:
-            return
-        batch: list[tuple[int, _Request, list[int]]] = []
+        """Admit queued requests into free slots, then prefill them grouped
+        by width bucket, in chunks of up to max(ADMIT_BUCKETS) rows."""
         window = self.max_pages_per_seq * self.page_size
-        qi = 0
-        while qi < len(self._queue) and free:
-            req = self._queue[qi]
-            if req.tok_ids is None:
-                # generation gets its tokens up to HALF the window; the
-                # prompt always keeps at least the other half
-                reserve = min(req.max_new + 2, window // 2)
-                req.tok_ids = self.tokenizer.encode(req.prompt, add_bos=True)[: window - reserve]
-            tok_ids = req.tok_ids
-            need = min((len(tok_ids) + req.max_new + self.page_size - 1) // self.page_size,
-                       self.max_pages_per_seq)
-            if need > self.allocator.free_pages:
-                # skip-ahead past a too-large head, at most head_skip_bound times
-                if qi == 0 and self._head_skips >= self.head_skip_bound:
-                    break
-                qi += 1
+        batch: list[tuple[int, _Request, list[int]]] = []
+        for slot_idx, slot in enumerate(self.slots):
+            if slot.active or not self._queue:
                 continue
-            pages = self.allocator.alloc(need)
-            slot_idx = free.pop(0)
-            self._queue.pop(qi)
-            self._head_skips = 0 if qi == 0 else self._head_skips + 1
+            req = self._queue.pop(0)
+            # generation gets its tokens up to HALF the window; the prompt
+            # always keeps at least the other half
+            reserve = min(req.max_new + 2, window // 2)
+            tok_ids = self.tokenizer.encode(req.prompt, add_bos=True)[: window - reserve]
+            pages = self.allocator.alloc(min(
+                (len(tok_ids) + req.max_new + self.page_size - 1) // self.page_size,
+                self.max_pages_per_seq))
             batch.append((slot_idx, req, tok_ids))
-            slot = self.slots[slot_idx]
             slot.request_id = req.request_id
             slot.pages = pages
             slot.prompt_tokens = slot.length = len(tok_ids)
             slot.max_new = req.max_new
-            slot.temperature = req.temperature
-            slot.top_k = req.top_k
             slot.emitted = []
             slot.active = True
-            row = np.zeros(self.max_pages_per_seq, np.int32)
-            row[: len(pages)] = pages
-            self._page_table[slot_idx] = row
+            self._page_table[slot_idx] = 0
+            self._page_table[slot_idx, : len(pages)] = pages
             self._lens[slot_idx] = len(tok_ids)
             self._temps[slot_idx] = req.temperature
-            self._top_ks[slot_idx] = req.top_k
 
-        # rows group by prefill-width bucket; each group prefills in chunks
-        # of up to max(ADMIT_BUCKETS) rows
         groups: dict[int, list] = {}
         for item in batch:
             groups.setdefault(self._prefill_width(len(item[2])), []).append(item)
@@ -446,24 +397,20 @@ class ContinuousBatchingEngine:
                 self._prefill_chunk(width, chunk[start : start + rows_per])
             return
         rows = min(bucket_size(len(chunk), self.ADMIT_BUCKETS), max(rows_per, len(chunk)))
-        nb = width // self.page_size
         ids = np.full((rows, width), self.tokenizer.pad_id, np.int64)
         lens = np.ones(rows, np.int64)
         temps = np.zeros(rows, np.float32)
-        top_ks = np.zeros(rows, np.int64)
-        scat = np.zeros((rows, nb), np.int64)
+        scat = np.zeros((rows, width // self.page_size), np.int64)
         for r, (slot_idx, req, tok_ids) in enumerate(chunk):
             ids[r, : len(tok_ids)] = tok_ids
             lens[r] = len(tok_ids)
             temps[r] = req.temperature
-            top_ks[r] = req.top_k
             used = (len(tok_ids) + self.page_size - 1) // self.page_size
             scat[r, :used] = self.slots[slot_idx].pages[:used]
         last = self.prefill_forward(ids, lens, scat)
-        first, first_lp = sample_tokens(last, self._gen, temps, top_ks)
+        first, first_lp = sample_tokens(last, self._gen, temps)
         first = first.cpu().numpy()
         first_lp = first_lp.cpu().numpy()
-        self.prefill_tokens_total += sum(len(t) for _i, _r, t in chunk)
         for r, (slot_idx, _req, _t) in enumerate(chunk):
             self._last_tok[slot_idx] = int(first[r])
             self._lp_sum[slot_idx] = self._lp_min[slot_idx] = first_lp[r]
@@ -506,19 +453,18 @@ class ContinuousBatchingEngine:
         lp_sum = torch.as_tensor(self._lp_sum, device=dev)
         lp_min = torch.as_tensor(self._lp_min, device=dev)
         lp_cnt = torch.as_tensor(self._lp_cnt, device=dev)
-        temps, top_ks = self._temps.copy(), self._top_ks.astype(np.int64)
+        temps = self._temps.copy()
         sampled = []
         for idx in range(n_steps):
             active = (~halted) & (idx < budgets_t)
             logits = self.decode_forward(tok, lens, table, write_mask=active)
-            nxt, lp = sample_tokens(logits, self._gen, temps, top_ks)
+            nxt, lp = sample_tokens(logits, self._gen, temps)
             tok = torch.where(active, nxt, tok)
             lens = torch.where(active, lens + 1, lens)
             lp_sum = torch.where(active, lp_sum + lp, lp_sum)
             lp_min = torch.where(active, torch.minimum(lp_min, lp), lp_min)
             lp_cnt = torch.where(active, lp_cnt + 1, lp_cnt)
-            if not self.ignore_eos:
-                halted = halted | (active & (nxt == self.tokenizer.eos_id))
+            halted = halted | (active & (nxt == self.tokenizer.eos_id))
             sampled.append(nxt)
         self.total_sub_steps += n_steps
         # the one host fetch of the tick
@@ -545,8 +491,7 @@ class ContinuousBatchingEngine:
         budget / page capacity — the one place these conditions live."""
         slot = self.slots[i]
         tok = int(self._last_tok[i])
-        self.decode_tokens_total += 1
-        hit_eos = tok == self.tokenizer.eos_id and not self.ignore_eos
+        hit_eos = tok == self.tokenizer.eos_id
         if not hit_eos:
             slot.emitted.append(tok)
         hit_len = len(slot.emitted) >= slot.max_new
@@ -573,7 +518,6 @@ class ContinuousBatchingEngine:
         self._page_table[i] = 0
         self._lens[i] = 0
         self._temps[i] = 0.0
-        self._top_ks[i] = 0
         self._last_tok[i] = 0
         self._lp_sum[i] = self._lp_min[i] = 0.0
         self._lp_cnt[i] = 0

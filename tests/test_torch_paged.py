@@ -23,7 +23,7 @@ from sentio_tpu.models.llama import init_llama
 from sentio_tpu.runtime.paged import ContinuousBatchingEngine as JaxEngine
 from sentio_tpu.runtime.sampling import sample_tokens as jax_sample
 from sentio_tpu_torch.models.llama import LlamaConfig
-from sentio_tpu_torch.runtime.paged import ContinuousBatchingEngine
+from sentio_tpu_torch.runtime.paged import ContinuousBatchingEngine, _paged_attn_xla
 from sentio_tpu_torch.runtime.sampling import sample_tokens
 from sentio_tpu_torch.runtime.weights import llama_from_jax
 
@@ -103,11 +103,12 @@ def test_pages_reclaimed_after_drain(engines):
 
 
 def test_kernel_and_plain_paths_agree(engines):
-    """use_kernel=False swaps in the plain gather path; on the CPU the kernel
-    wrapper takes the plain version too, so both give the same tokens."""
+    """attn_impl=_paged_attn_xla swaps in the plain gather path; on the CPU
+    the kernel wrapper takes the plain version too: the same tokens."""
     _ref, port = engines
     plain = ContinuousBatchingEngine(model_config=port.cfg, params=port.params,
-                                     use_kernel=False, device="cpu", **ENGINE_KW)
+                                     device="cpu", **ENGINE_KW)
+    plain.attn_impl = _paged_attn_xla
     prompts = PROMPT_SETS["mixed_lengths"]
     assert ([r.tokens for r in plain.run_all(prompts, max_new_tokens=8)]
             == [r.tokens for r in port.run_all(prompts, max_new_tokens=8)])
