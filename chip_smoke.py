@@ -19,6 +19,8 @@ line each:
    must have run, and the paged kernel once per layer per decode sub-step.
 5. logits — one prompt's prefill and 4 teacher-forced decode steps through
    the kernel path and the plain path.
+6. profile — one more chat under the CUDA profiler: device time by kernel
+   family and the device's idle share.
 
 The last lines are the nvidia-smi line, one {"kernels": [...]} line, and
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
@@ -337,6 +339,34 @@ def logits_check(torch, dev, pipeline, question: str) -> dict:
     return result
 
 
+def profile_chat(torch, pipeline, question: str) -> dict:
+    """One more chat (after the counted window) under the CUDA profiler:
+    device time by kernel family and the device's idle share of the wall
+    time. Tracing adds host overhead, so the idle share is an upper bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pipeline.chat(question)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
+               for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy_ms = sum(ms for _, ms, _ in kernels)
+    families = {"paged_decode_kernel": 0.0, "flash_fwd_kernel": 0.0, "gemm": 0.0, "other": 0.0}
+    for name, ms, _ in kernels:
+        family = next((f for f in ("paged_decode_kernel", "flash_fwd_kernel") if f in name),
+                      "gemm" if "gemm" in name.lower() else "other")
+        families[family] += ms
+    top = sorted(kernels, key=lambda k: -k[1])[:8]
+    result = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+              "idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
+              "device_ms_by_family": families,
+              "top_kernels": [{"name": n[:90], "ms": ms, "count": c} for n, ms, c in top]}
+    emit("profile", **result)
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -369,6 +399,7 @@ def main() -> int:
 
     sl = run_slice(torch, dev)
     logits_check(torch, dev, sl["pipeline"], sl["questions"][1])
+    profile_chat(torch, sl["pipeline"], sl["questions"][2])
 
     main_flash = flash[0]  # the embedder's bidirectional shape
     kernels = [
