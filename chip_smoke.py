@@ -353,10 +353,14 @@ def profile_chat(torch, pipeline, question: str) -> dict:
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
                for e in prof.key_averages() if e.self_device_time_total > 0]
     busy_ms = sum(ms for _, ms, _ in kernels)
-    families = {"paged_decode_kernel": 0.0, "flash_fwd_kernel": 0.0, "gemm": 0.0, "other": 0.0}
+    families = {"paged_decode_kernel": 0.0, "flash_fwd_kernel": 0.0, "matmul": 0.0,
+                "other": 0.0}
     for name, ms, _ in kernels:
         family = next((f for f in ("paged_decode_kernel", "flash_fwd_kernel") if f in name),
-                      "gemm" if "gemm" in name.lower() else "other")
+                      None)
+        if family is None:  # cuBLAS names its products gemm / nvjet / xmma kernels
+            matmul = any(tag in name.lower() for tag in ("gemm", "nvjet", "xmma", "cutlass"))
+            family = "matmul" if matmul else "other"
         families[family] += ms
     top = sorted(kernels, key=lambda k: -k[1])[:8]
     result = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
