@@ -5,22 +5,37 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases, one JSON
 line each:
 
 1. device — the card's name and power limit (nvidia-smi); no CUDA, no run.
-2. build — both CUDA kernels built from csrc/ with nvcc, in parallel.
+2. build — the three CUDA kernels built from csrc/ with nvcc, in parallel,
+   and the BM25 core with g++ (host code; without a compiler the hybrid
+   retriever scores with numpy, as the JAX package does, and the phase
+   says which backend ran).
 3. kernels — each kernel against its plain PyTorch version on the card at
-   the shapes the main path gives it (bf16 kernel vs float32 plain: max abs
-   error <= 2e-2 and mean <= 2e-3, since bf16 outputs carry ~3 significant
-   digits and the sums run in another order), timed beside its plain
-   version, the bound the card could reach, and one PyTorch call computing
-   the same function (scaled_dot_product_attention, a yardstick only).
+   the shapes the main path gives it (bf16-output kernel vs float32 plain
+   on the same inputs: max abs error <= 2e-2 and mean <= 2e-3, since bf16
+   outputs carry ~3 significant digits and the sums run in another order),
+   timed beside its plain version, the bound the card could reach, and one
+   PyTorch call computing the same function (scaled_dot_product_attention,
+   a yardstick only).
 4. slice — the /chat pipeline at full width (Llama-3-8B, the base
    embedder, the default cross-encoder) with random weights made on the
-   card from a seed: ingest 2,048 chunks, then answer 3 chats with every
-   launch count set to 0 just before and read just after; both kernels
-   must have run, and the paged kernel once per layer per decode sub-step.
+   card from a seed, dense retrieval and bf16 pages: ingest 2,048 chunks,
+   then answer 3 chats with every launch count set to 0 just before and
+   read just after; the bf16 paged kernel must have run once per layer per
+   decode sub-step, the flash kernel too, the int8 kernel never.
 5. logits — one prompt's prefill and 4 teacher-forced decode steps through
    the kernel path and the plain path.
 6. profile — one more chat under the CUDA profiler: device time by kernel
    family and the device's idle share.
+7. slice_int8 — a second pipeline under the default settings plus
+   KV_QUANT=int8 (hybrid retrieval: dense + BM25 fused by rrf), on the same
+   weight tensors with its own int8 page pool: the same ingest and chats;
+   the int8 kernel once per layer per decode sub-step, the bf16 paged
+   kernel never, the flash kernel at least once, and the BM25 leg's hits
+   in every fused list.
+8. logits_int8 — phase 5 on the int8 engine, and (reported, not gated)
+   how far its logits lie from the bf16 engine's on the same forced tokens:
+   quantization's own error.
+9. profile_int8 — phase 6 on the int8 pipeline.
 
 The last lines are the nvidia-smi line, one {"kernels": [...]} line, and
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
@@ -36,6 +51,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
+INT8_OPS_PER_S = 1979e12    # H100 SXM dense int8 tensor-core peak
 MAX_ABS_LIMIT, MEAN_ABS_LIMIT = 2e-2, 2e-3
 # kernel vs plain decode attention inside a 32-layer bf16 model: the two
 # attention outputs round to bf16 from float32 sums taken in another order,
@@ -50,8 +66,9 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / BF16_FLOPS_PER_S
+def bound_ms(n_bytes: float, n_ops: float,
+             ops_per_s: float = BF16_FLOPS_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -85,15 +102,13 @@ def check_limits(name: str, max_err: float, mean_err: float) -> None:
 # ------------------------------------------------------------ kernel checks
 
 
-def paged_check(torch, dev) -> dict:
-    """Serving shapes: B=8, H=32, Hkv=8, D=128, page 128, NB 64, 513 pages;
-    ragged lengths with a scratch row at length 0 on page 0 and partial
-    last pages; NaN in every owned page past a row's length and in each
-    current page's tail (the kernel must never read them)."""
-    import torch.nn.functional as F
-
-    from sentio_tpu_torch.kernels.paged_attention import paged_attention, paged_attention_plain
-
+def paged_problem(torch, dev):
+    """The decode shape of the serving batch: B=8, H=32, Hkv=8, D=128, page
+    128, NB 64, 513 pages of random bf16 K/V; ragged lengths with a scratch
+    row at length 0 on page 0 and partial last pages. Returns q, the pools,
+    table, lens, the lengths as a list, and (page id, first unowned slot)
+    for every owned page past a row's length (slot 0) and each current
+    page's tail."""
     b, h, hkv, d, page, nb, num_pages = 8, 32, 8, 128, 128, 64, 513
     gen = torch.Generator(device=dev).manual_seed(SEED + 10)
     lens_list = [0, 5, 127, 128, 1000, 2047, 3000, 8191]
@@ -101,18 +116,32 @@ def paged_check(torch, dev) -> dict:
     vp = torch.randn((num_pages, page, hkv, d), generator=gen, device=dev, dtype=torch.bfloat16)
     table = torch.zeros((b, nb), dtype=torch.int32)
     perm = (torch.randperm(num_pages - 1, generator=torch.Generator().manual_seed(SEED)) + 1).tolist()
+    unowned = []
     for row in range(1, b):
         owned = [perm.pop() for _ in range(nb)]
         table[row] = torch.tensor(owned, dtype=torch.int32)
         used, tail = lens_list[row] // page + 1, lens_list[row] % page + 1
-        kp[owned[used - 1], tail:] = float("nan")
-        vp[owned[used - 1], tail:] = float("nan")
-        for pid in owned[used:]:
-            kp[pid] = float("nan")
-            vp[pid] = float("nan")
-    table = table.to(dev)
+        unowned += [(owned[used - 1], tail)] + [(pid, 0) for pid in owned[used:]]
     lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
     q = torch.randn((b, h, d), generator=gen, device=dev, dtype=torch.bfloat16)
+    return q, kp, vp, table.to(dev), lens, lens_list, unowned
+
+
+def paged_check(torch, dev) -> dict:
+    """The bf16 kernel at the serving shape of :func:`paged_problem`, with
+    NaN in every owned page past a row's length and in each current page's
+    tail (the kernel must never read them)."""
+    import torch.nn.functional as F
+
+    from sentio_tpu_torch.kernels.paged_attention import paged_attention, paged_attention_plain
+
+    q, kp, vp, table, lens, lens_list, unowned = paged_problem(torch, dev)
+    b, h, d = q.shape
+    _, page, hkv, _ = kp.shape
+    nb = table.shape[1]
+    for pid, tail in unowned:
+        kp[pid, tail:] = float("nan")
+        vp[pid, tail:] = float("nan")
 
     out = paged_attention(q, kp, vp, table, lens)
     torch.cuda.synchronize()
@@ -134,13 +163,75 @@ def paged_check(torch, dev) -> dict:
     mask = valid[:, None, None, :]
     library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
         q[:, :, None, :], dense_k, dense_v, attn_mask=mask))
-    keys = sum(n + 1 for n in lens_list)
+    keys = sum(n + 1 for n in lens_list)  # 14,506 at these lengths
     n_bytes = keys * hkv * d * 2 * 2 + 2 * q.numel() * 2 + table.numel() * 4 + b * 4
     b_ms, b_by = bound_ms(n_bytes, 4 * h * d * keys)
     case = {"case": "decode_b8_h32_hkv8_d128_page128", "max_abs_err": max_err,
             "mean_abs_err": mean_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": library_ms}
     emit("kernel", name="paged_attention", **case)
+    return case
+
+
+def paged_quant_check(torch, dev) -> dict:
+    """The int8 kernel at the same serving shape: the random bf16 pools
+    quantized with the port's quantize_kv, then random int8 codes and NaN
+    f16 scales in every owned page past a row's length and in each current
+    page's tail (the kernel must never read them), held against the
+    float32 plain version on the same int8 pool."""
+    import torch.nn.functional as F
+
+    from sentio_tpu_torch.kernels.paged_attention import (
+        paged_attention_quant,
+        paged_attention_quant_plain,
+    )
+    from sentio_tpu_torch.runtime.paged import dequantize_kv, quantize_kv
+
+    q, kp, vp, table, lens, lens_list, unowned = paged_problem(torch, dev)
+    b, h, d = q.shape
+    _, page, hkv, _ = kp.shape
+    nb = table.shape[1]
+    (k_q, k_s), (v_q, v_s) = quantize_kv(kp), quantize_kv(vp)
+    del kp, vp
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    for pid, tail in unowned:
+        for codes, scales in ((k_q, k_s), (v_q, v_s)):
+            codes[pid, tail:] = torch.randint(-128, 128, codes[pid, tail:].shape, generator=gen,
+                                              device=dev, dtype=torch.int8)
+            scales[pid, tail:] = float("nan")
+    args = (k_q, k_s, v_q, v_s, table, lens)
+
+    out = paged_attention_quant(q, *args)
+    torch.cuda.synchronize()
+    ref = paged_attention_quant_plain(q.float(), *args)
+    max_err, mean_err = errors(out, ref)
+    check_limits("paged_attention_quant", max_err, mean_err)
+
+    ms = time_ms(torch, lambda: paged_attention_quant(q, *args))
+    plain_ms = time_ms(torch, lambda: paged_attention_quant_plain(q, *args), iters=5)
+    # yardstick: SDPA over the rows' pages dequantized and gathered densely
+    # beforehand
+    window = nb * page
+    valid = torch.arange(window, device=dev)[None, :] <= lens[:, None].long()
+    tl = table.long()
+
+    def dense(codes, scales):
+        x = dequantize_kv(codes[tl], scales[tl], torch.bfloat16).reshape(b, window, hkv, d)
+        x = torch.where(valid[:, :, None, None], x, 0).transpose(1, 2)
+        return x.repeat_interleave(h // hkv, dim=1)
+
+    dense_k, dense_v = dense(k_q, k_s), dense(v_q, v_s)
+    mask = valid[:, None, None, :]
+    library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q[:, :, None, :], dense_k, dense_v, attn_mask=mask))
+    keys = sum(n + 1 for n in lens_list)
+    # codes and f16 scales of the owned keys, K and V; q in, out; table, lens
+    n_bytes = keys * hkv * (d + 2) * 2 + 2 * q.numel() * 2 + table.numel() * 4 + b * 4
+    b_ms, b_by = bound_ms(n_bytes, 4 * h * d * keys, INT8_OPS_PER_S)
+    case = {"case": "decode_int8_b8_h32_hkv8_d128_page128", "max_abs_err": max_err,
+            "mean_abs_err": mean_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": library_ms, "bound_bytes": n_bytes}
+    emit("kernel", name="paged_attention_quant", **case)
     return case
 
 
@@ -222,36 +313,47 @@ def corpus(n: int):
     return docs, words
 
 
-def run_slice(torch, dev) -> dict:
-    from sentio_tpu_torch.config import GeneratorConfig, RetrievalConfig, Settings
-    from sentio_tpu_torch.kernels import FLASH_KERNEL, PAGED_KERNEL
+def run_slice(torch, dev, phase: str, settings, shared=None) -> dict:
+    """Build the pipeline (on ``shared``'s weight tensors when given), ingest
+    the corpus, and answer 3 chats with every launch count set to 0 just
+    before and read just after."""
+    from sentio_tpu_torch.kernels import FLASH_KERNEL, PAGED_KERNEL, PAGED_QUANT_KERNEL
     from sentio_tpu_torch.pipeline import build_pipeline
 
-    settings = Settings(
-        retrieval=RetrievalConfig(strategy="dense"),
-        generator=GeneratorConfig(max_new_tokens=MAX_TOKENS, verifier_max_tokens=MAX_TOKENS),
-    )
+    reuse = {}
+    if shared is not None:
+        engine = shared.generator.provider.engine
+        reuse = dict(llama_config=engine.cfg, llama_params=engine.params,
+                     embedder_config=shared.embedder.model_config,
+                     embedder_params=shared.embedder.params,
+                     reranker_config=shared.reranker.model_config,
+                     reranker_params=shared.reranker.params)
     t0 = time.perf_counter()
-    pipeline = build_pipeline(settings, device=dev, seed=SEED)
+    pipeline = build_pipeline(settings, device=dev, seed=SEED, **reuse)
     torch.cuda.synchronize()
     engine = pipeline.generator.provider.engine
-    emit("slice_build", seconds=time.perf_counter() - t0,
+    emit(f"{phase}_build", seconds=time.perf_counter() - t0,
          llama=engine.cfg.__dict__, embedder=pipeline.embedder.model_config.__dict__,
          cross_encoder=pipeline.reranker.model_config.__dict__,
-         pool_bytes=engine.pool.hbm_bytes, memory_allocated=torch.cuda.memory_allocated())
+         retrieval=settings.retrieval.strategy, fusion=settings.retrieval.fusion_method,
+         bm25_backend=type(pipeline.bm25_index).__name__ if pipeline.bm25_index else None,
+         kv_quant=engine.kv_quant, pool_bytes=engine.pool.hbm_bytes,
+         memory_allocated=torch.cuda.memory_allocated())
 
     docs, words = corpus(N_CHUNKS)
     t0 = time.perf_counter()
     pipeline.ingest(docs)
     torch.cuda.synchronize()
-    emit("ingest", chunks=len(docs), seconds=time.perf_counter() - t0,
+    emit(f"{phase}_ingest", chunks=len(docs), seconds=time.perf_counter() - t0,
          index_size=pipeline.index.size)
 
     questions = [docs[17].text,
                  f"What does the corpus say about {words[3]} and {words[40]}?",
                  f"Summarize the passages that mention {words[100]}."]
-    PAGED_KERNEL.launches = 0
-    FLASH_KERNEL.launches = 0
+    counters = {"paged_attention": PAGED_KERNEL, "paged_attention_quant": PAGED_QUANT_KERNEL,
+                "flash_attention": FLASH_KERNEL}
+    for kernel in counters.values():
+        kernel.launches = 0
     sub_steps0 = engine.total_sub_steps
     chats = []
     t_all = time.perf_counter()
@@ -261,38 +363,72 @@ def run_slice(torch, dev) -> dict:
         torch.cuda.synchronize()
         chats.append((response, time.perf_counter() - t0))
     total_s = time.perf_counter() - t_all
-    launches = {"paged_attention": PAGED_KERNEL.launches,
-                "flash_attention": FLASH_KERNEL.launches}
+    launches = {name: kernel.launches for name, kernel in counters.items()}
     sub_steps = engine.total_sub_steps - sub_steps0
 
     for i, (response, seconds) in enumerate(chats):
         meta = response["metadata"]
-        emit("chat", index=i, seconds=seconds, stage_ms=meta["stage_ms"],
+        emit(f"{phase}_chat", index=i, seconds=seconds, stage_ms=meta["stage_ms"],
              generated_tokens=meta["generated_tokens"], answer_chars=len(response["answer"]),
              verdict=response["verification"].get("verdict"),
              sources=[s["id"] for s in response["sources"]])
         if not response["answer"]:
-            raise AssertionError(f"chat {i} returned an empty answer")
+            raise AssertionError(f"{phase} chat {i} returned an empty answer")
         notes = response["verification"].get("notes", [])
         if any(str(n).startswith("verifier error") for n in notes):
-            raise AssertionError(f"chat {i}: verification failed: {notes}")
+            raise AssertionError(f"{phase} chat {i}: verification failed: {notes}")
     if chats[0][0]["metadata"]["retrieved_ids"][0] != docs[17].id:
-        raise AssertionError("a chunk's own text did not retrieve that chunk first")
+        raise AssertionError(f"{phase}: a chunk's own text did not retrieve that chunk first")
     n_layers = engine.cfg.n_layers
-    emit("slice", chats=len(chats), seconds=total_s, decode_sub_steps=sub_steps,
-         launches=launches, expected_paged_launches=n_layers * sub_steps,
+    emit(phase, chats=len(chats), seconds=total_s, decode_sub_steps=sub_steps,
+         launches=launches, expected_decode_launches=n_layers * sub_steps,
          peak_memory=torch.cuda.max_memory_allocated())
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
-    if launches["paged_attention"] != n_layers * sub_steps:
-        raise AssertionError("a decode sub-step bypassed the paged kernel")
-    return {"pipeline": pipeline, "launches": launches, "questions": questions}
+    if launches["flash_attention"] <= 0:
+        raise AssertionError(f"{phase}: the flash kernel never launched: {launches}")
+    decode = "paged_attention_quant" if engine.pool.quantized else "paged_attention"
+    other = "paged_attention" if engine.pool.quantized else "paged_attention_quant"
+    if launches[decode] != n_layers * sub_steps or sub_steps <= 0:
+        raise AssertionError(f"{phase}: a decode sub-step bypassed {decode}: {launches}")
+    if launches[other] != 0:
+        raise AssertionError(f"{phase}: {other} ran on a {engine.kv_quant!r} pool: {launches}")
+    return {"pipeline": pipeline, "launches": launches, "questions": questions,
+            "chats": [response for response, _ in chats]}
 
 
-def logits_check(torch, dev, pipeline, question: str) -> dict:
+def check_int8_slice(sl: dict) -> dict:
+    """The int8 slice's own checks: the pool's bytes are L·P·page·Hkv·(D+2)·2
+    (int8 codes plus f16 scales, K and V), and the BM25 leg's hits reach
+    every fused list."""
+    pipeline = sl["pipeline"]
+    engine = pipeline.generator.provider.engine
+    cfg, pool = engine.cfg, engine.pool
+    expected = (cfg.n_layers * pool.k.q.shape[1] * pool.page_size * cfg.n_kv_heads
+                * (cfg.head_dim + 2) * 2)
+    dense_leg, sparse_leg = pipeline.retriever.retrievers
+    pool_k = max(2 * pipeline.settings.retrieval.top_k, 10)
+    overlaps = []
+    for question, response in zip(sl["questions"], sl["chats"]):
+        sparse_ids = [d.id for d in sparse_leg.retrieve(question, pool_k)]
+        fused = response["metadata"]["retrieved_ids"]
+        overlaps.append({"sparse_hits": len(sparse_ids),
+                         "fused_from_sparse": len(set(sparse_ids) & set(fused))})
+    result = {"pool_bytes": pool.hbm_bytes, "expected_pool_bytes": expected,
+              "legs": [dense_leg.name, sparse_leg.name],
+              "bm25_backend": type(pipeline.bm25_index).__name__, "per_chat": overlaps}
+    emit("slice_int8_checks", **result)
+    if pool.hbm_bytes != expected:
+        raise AssertionError(f"int8 pool holds {pool.hbm_bytes} bytes, expected {expected}")
+    if not all(o["fused_from_sparse"] > 0 for o in overlaps):
+        raise AssertionError(f"the BM25 leg reached no fused list: {overlaps}")
+    return result
+
+
+def logits_check(torch, dev, pipeline, question: str, phase: str = "logits",
+                 forced: list | None = None) -> dict:
     """Prefill + 4 teacher-forced decode steps of the generate prompt through
     the kernel path and the plain path; the forced tokens are the kernel
-    path's greedy picks, fed to both."""
+    path's greedy picks (or ``forced``), fed to both. Returns the result
+    with the kernel path's logits and the forced tokens."""
     import numpy as np
 
     from sentio_tpu_torch.kernels import paged_attn_impl
@@ -311,7 +447,7 @@ def logits_check(torch, dev, pipeline, question: str) -> dict:
     table = row.to(dev)
     id_arr = np.full((1, width), engine.tokenizer.pad_id, np.int64)
     id_arr[0, : len(ids)] = ids
-    runs, forced = [], []
+    runs, forced = [], list(forced or [])
     try:
         for impl in (paged_attn_impl, _paged_attn_xla):
             engine.attn_impl = impl
@@ -333,13 +469,25 @@ def logits_check(torch, dev, pipeline, question: str) -> dict:
               "logit_std": float(runs[1].std()),
               "greedy_agree": [int(a) == int(b) for a, b in
                                zip(runs[0].argmax(-1).tolist(), runs[1].argmax(-1).tolist())]}
-    emit("logits", **result)
+    emit(phase, **result)
     if not bool(torch.isfinite(runs[0]).all()) or max(diff) > LOGITS_LIMIT:
-        raise AssertionError(f"kernel vs plain logits differ by {max(diff)} > {LOGITS_LIMIT}")
+        raise AssertionError(f"{phase}: kernel vs plain logits differ by {max(diff)} > "
+                             f"{LOGITS_LIMIT}")
+    return {**result, "kernel_logits": runs[0], "forced": forced}
+
+
+def quantization_error(torch, bf16: dict, int8: dict) -> dict:
+    """The int8 engine's kernel-path logits against the bf16 engine's on the
+    same prompt and forced tokens: quantization's own error, which the JAX
+    package accepts; reported, not gated."""
+    diff = (bf16["kernel_logits"] - int8["kernel_logits"]).abs().amax(dim=-1).tolist()
+    agree = (bf16["kernel_logits"].argmax(-1) == int8["kernel_logits"].argmax(-1)).tolist()
+    result = {"max_abs_diff_per_step": diff, "greedy_agree": agree}
+    emit("int8_vs_bf16_logits", **result)
     return result
 
 
-def profile_chat(torch, pipeline, question: str) -> dict:
+def profile_chat(torch, pipeline, question: str, phase: str = "profile") -> dict:
     """One more chat (after the counted window) under the CUDA profiler:
     device time by kernel family and the device's idle share of the wall
     time. Tracing adds host overhead, so the idle share is an upper bound."""
@@ -353,11 +501,10 @@ def profile_chat(torch, pipeline, question: str) -> dict:
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
                for e in prof.key_averages() if e.self_device_time_total > 0]
     busy_ms = sum(ms for _, ms, _ in kernels)
-    families = {"paged_decode_kernel": 0.0, "flash_fwd_kernel": 0.0, "matmul": 0.0,
-                "other": 0.0}
+    own = ("paged_decode_kernel", "paged_decode_int8_kernel", "flash_fwd_kernel")
+    families = dict.fromkeys((*own, "matmul", "other"), 0.0)
     for name, ms, _ in kernels:
-        family = next((f for f in ("paged_decode_kernel", "flash_fwd_kernel") if f in name),
-                      None)
+        family = next((f for f in own if f in name), None)
         if family is None:  # cuBLAS names its products gemm / nvjet / xmma kernels
             matmul = any(tag in name.lower() for tag in ("gemm", "nvjet", "xmma", "cutlass"))
             family = "matmul" if matmul else "other"
@@ -367,7 +514,7 @@ def profile_chat(torch, pipeline, question: str) -> dict:
               "idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
               "device_ms_by_family": families,
               "top_kernels": [{"name": n[:90], "ms": ms, "count": c} for n, ms, c in top]}
-    emit("profile", **result)
+    emit(phase, **result)
     return result
 
 
@@ -377,6 +524,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    from sentio_tpu_torch import native
+    from sentio_tpu_torch.config import GeneratorConfig, RetrievalConfig, Settings
     from sentio_tpu_torch.kernels import KERNELS
     from sentio_tpu_torch.kernels._build import build_all
 
@@ -392,18 +541,34 @@ def main() -> int:
          count=torch.cuda.device_count(), torch=torch.__version__, cuda=torch.version.cuda)
 
     seconds = build_all(KERNELS)
-    emit("build", seconds=seconds, ptxas={
-        k.name: [ln.strip() for ln in k.build_log.splitlines() if "registers" in ln
-                 or "spill" in ln] for k in KERNELS})
+    t0 = time.perf_counter()
+    bm25_core = native.load_bm25() is not None
+    emit("build", seconds=seconds, bm25_core_built=bm25_core,
+         bm25_core_seconds=time.perf_counter() - t0, ptxas={
+             k.name: [ln.strip() for ln in k.build_log.splitlines() if "registers" in ln
+                      or "spill" in ln] for k in KERNELS})
 
     paged = paged_check(torch, dev)
+    paged_quant = paged_quant_check(torch, dev)
     flash = flash_checks(torch, dev)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
-    sl = run_slice(torch, dev)
-    logits_check(torch, dev, sl["pipeline"], sl["questions"][1])
+    caps = dict(max_new_tokens=MAX_TOKENS, verifier_max_tokens=MAX_TOKENS)
+    sl = run_slice(torch, dev, "slice", Settings(retrieval=RetrievalConfig(strategy="dense"),
+                                                 generator=GeneratorConfig(**caps)))
+    logits = logits_check(torch, dev, sl["pipeline"], sl["questions"][1])
     profile_chat(torch, sl["pipeline"], sl["questions"][2])
+
+    # the default settings (hybrid retrieval, rrf) plus KV_QUANT=int8
+    sl8 = run_slice(torch, dev, "slice_int8",
+                    Settings(generator=GeneratorConfig(kv_quant="int8", **caps)),
+                    shared=sl["pipeline"])
+    check_int8_slice(sl8)
+    logits8 = logits_check(torch, dev, sl8["pipeline"], sl["questions"][1], "logits_int8",
+                           forced=logits["forced"])
+    quantization_error(torch, logits, logits8)
+    profile_chat(torch, sl8["pipeline"], sl["questions"][2], "profile_int8")
 
     main_flash = flash[0]  # the embedder's bidirectional shape
     kernels = [
@@ -414,10 +579,19 @@ def main() -> int:
          **{k: paged[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                   "bound_by", "library_ms")},
          "cases": [paged]},
+        {"name": "paged_attention_quant", "route": "cuda",
+         "source": "sentio_tpu_torch/csrc/paged_attention_quant.cu",
+         "replaces": "sentio_tpu/kernels/paged_attention.py:167",
+         "launches": sl8["launches"]["paged_attention_quant"],
+         **{k: paged_quant[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")},
+         "cases": [paged_quant]},
         {"name": "flash_attention", "route": "cuda",
          "source": "sentio_tpu_torch/csrc/flash_attention.cu",
          "replaces": "sentio_tpu/kernels/flash_attention.py:41",
-         "launches": sl["launches"]["flash_attention"],
+         "launches": sl["launches"]["flash_attention"] + sl8["launches"]["flash_attention"],
+         "launches_by_path": {"slice": sl["launches"]["flash_attention"],
+                              "slice_int8": sl8["launches"]["flash_attention"]},
          "max_abs_err": max(c["max_abs_err"] for c in flash),
          **{k: main_flash[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                        "library_ms")},

@@ -3,9 +3,12 @@
 Builds the ``/chat`` pipeline on the card (or ``--device cpu``), ingests the
 given text files cut into ~512-character chunks (a few built-in passages
 when none are given), answers the question and prints the response as
-JSON. Weights are random, made from ``--seed``: no checkpoint of the
-default sizes is available to this package. ``--tiny`` swaps in the
-CPU-test presets of every model.
+JSON. Settings come from the environment as in the JAX service:
+``RETRIEVAL_STRATEGY`` (``hybrid`` by default, or ``dense`` / ``bm25``),
+``KV_QUANT=int8`` for an int8 KV page pool, and the rest of
+``sentio_tpu_torch.config``. Weights are random, made from ``--seed``: no
+checkpoint of the default sizes is available to this package. ``--tiny``
+swaps in the CPU-test presets of every model.
 """
 
 from __future__ import annotations
@@ -51,8 +54,6 @@ def main(argv=None) -> int:
     from sentio_tpu_torch.pipeline import build_pipeline
 
     settings = Settings.from_env()
-    # the one retrieval strategy this package implements
-    settings.retrieval = replace(settings.retrieval, strategy="dense")
     if args.tiny:
         settings.embedder = replace(settings.embedder, model_preset="tiny")
         settings.generator = replace(settings.generator, model_preset="tiny",

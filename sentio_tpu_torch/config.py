@@ -60,8 +60,11 @@ def _env_bool(names: Sequence[str], default: bool) -> bool:
 @dataclass
 class RetrievalConfig:
     """Retriever strategy + fusion knobs. This package implements the
-    ``dense`` strategy only; the other fields are kept so a settings tree
-    reads the same in both packages."""
+    ``dense``, ``bm25`` and ``hybrid`` strategies with every fusion method
+    and BM25 backend; ``use_scorers`` and ``web_cache_path`` are not ported
+    (``build_pipeline`` raises when they are set), and the index backend is
+    the in-process index. The other fields are kept so a settings tree reads
+    the same in both packages."""
 
     strategy: str = "hybrid"  # dense | bm25 | hybrid
     top_k: int = 10

@@ -12,14 +12,19 @@ from __future__ import annotations
 from sentio_tpu_torch.kernels.flash_attention import KERNEL as FLASH_KERNEL
 from sentio_tpu_torch.kernels.flash_attention import flash_attention
 from sentio_tpu_torch.kernels.paged_attention import KERNEL as PAGED_KERNEL
-from sentio_tpu_torch.kernels.paged_attention import paged_attention
+from sentio_tpu_torch.kernels.paged_attention import KERNEL_QUANT as PAGED_QUANT_KERNEL
+from sentio_tpu_torch.kernels.paged_attention import (
+    QuantPages,
+    paged_attention,
+    paged_attention_quant,
+)
 
 __all__ = [
-    "flash_attention", "paged_attention", "encoder_attn_fn",
-    "paged_attn_impl", "KERNELS", "FLASH_KERNEL", "PAGED_KERNEL",
+    "flash_attention", "paged_attention", "paged_attention_quant", "encoder_attn_fn",
+    "paged_attn_impl", "KERNELS", "FLASH_KERNEL", "PAGED_KERNEL", "PAGED_QUANT_KERNEL",
 ]
 
-KERNELS = (PAGED_KERNEL, FLASH_KERNEL)
+KERNELS = (PAGED_KERNEL, PAGED_QUANT_KERNEL, FLASH_KERNEL)
 
 
 def encoder_attn_fn(q, k, v, kv_lens=None):
@@ -30,6 +35,15 @@ def encoder_attn_fn(q, k, v, kv_lens=None):
 
 def paged_attn_impl(q, k_pages_l, v_pages_l, page_table, lens, n_rep):
     """Adapter with the ``paged_decode_forward(attn_impl=...)`` signature:
-    (q [B,1,H,D], k/v pages [P,page,Hkv,D], table, lens, n_rep) → [B,1,H,D]."""
-    return paged_attention(q[:, 0].contiguous(), k_pages_l, v_pages_l,
-                           page_table, lens)[:, None]
+    (q [B,1,H,D], one layer's k/v pages, table, lens, n_rep) → [B,1,H,D].
+
+    Routes on the pool's representation, as ``make_paged_attn_impl`` does:
+    bf16 pages ``[P,page,Hkv,D]`` to the bf16 kernel, :class:`QuantPages`
+    (the ``kv_quant="int8"`` pool) to the int8 kernel."""
+    q = q[:, 0].contiguous()
+    if isinstance(k_pages_l, QuantPages):
+        out = paged_attention_quant(q, k_pages_l.q, k_pages_l.s, v_pages_l.q, v_pages_l.s,
+                                    page_table, lens)
+    else:
+        out = paged_attention(q, k_pages_l, v_pages_l, page_table, lens)
+    return out[:, None]

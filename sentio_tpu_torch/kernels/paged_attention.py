@@ -1,27 +1,35 @@
-"""Paged decode attention: the CUDA kernel's wrapper and its plain version.
+"""Paged decode attention: the CUDA kernels' wrappers and their plain
+versions.
 
-Replaces ``sentio_tpu/kernels/paged_attention.py::_paged_kernel`` (bf16
-pages; the int8 variant is not ported yet). The kernel is
-``csrc/paged_attention.cu``: grid (B, Hkv), one block per (row, kv head)
-walking the row's page table with an fp32 online softmax, each page's K/V
-rows staged in shared memory; see the source for its geometry and what
-bounds it.
+Replaces both variants of ``sentio_tpu/kernels/paged_attention.py``:
 
-:func:`paged_attention` launches the kernel for CUDA tensors and runs
-:func:`paged_attention_plain` only for CPU tensors. There is no fallback
-from the kernel to the plain version.
+* ``_paged_kernel`` (bf16 pages) by ``csrc/paged_attention.cu``;
+* ``_paged_kernel_quant`` (int8 pages with f16 per-vector scales, the
+  ``KV_QUANT=int8`` pool) by ``csrc/paged_attention_quant.cu``.
+
+Both kernels use grid (B, Hkv): one block per (row, kv head) walks the
+row's page table with an fp32 online softmax, each page's K/V rows staged in
+shared memory; see the sources for their geometry and what bounds them.
+
+:func:`paged_attention` and :func:`paged_attention_quant` launch their
+kernels for CUDA tensors and run the plain versions only for CPU tensors.
+There is no fallback from a kernel to its plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from sentio_tpu_torch.kernels._build import CudaKernel, ptr, stream_of
 
-__all__ = ["paged_attention", "paged_attention_plain", "KERNEL"]
+__all__ = [
+    "QuantPages", "paged_attention", "paged_attention_plain", "paged_attention_quant",
+    "paged_attention_quant_plain", "KERNEL", "KERNEL_QUANT",
+]
 
 NEG_INF = float(np.finfo(np.float32).min)
 
@@ -29,6 +37,19 @@ KERNEL = CudaKernel(
     "paged_attention", "paged_attention.cu", "paged_attention_bf16",
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
 )
+KERNEL_QUANT = CudaKernel(
+    "paged_attention_quant", "paged_attention_quant.cu", "paged_attention_int8",
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
+)
+
+
+class QuantPages(NamedTuple):
+    """An int8 page pool: codes ``q`` int8 ``[..., page, Hkv, D]`` and their
+    per-vector absmax scales ``s`` f16 ``[..., page, Hkv]`` (the JAX
+    package's ``{"q": ..., "s": ...}`` pytree)."""
+
+    q: torch.Tensor
+    s: torch.Tensor
 
 
 def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
@@ -41,17 +62,26 @@ def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
     row's pages, masks key positions > lens (and zeroes them, so a poisoned
     page past a row's length cannot leak, as the kernel never reads it),
     softmax in fp32, and 0 for a row with l == 0."""
-    b, h, d = q.shape
-    _, page, hkv, _ = k_pages.shape
-    nb = page_table.shape[1]
-    rep = h // hkv
+    b = q.shape[0]
+    _, page, hkv, d = k_pages.shape
+    window = page_table.shape[1] * page
     table = page_table.long()
-    window = nb * page
+    return _attend(q, k_pages[table].reshape(b, window, hkv, d),
+                   v_pages[table].reshape(b, window, hkv, d), lens)
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            lens: torch.Tensor) -> torch.Tensor:
+    """q [B, H, D] over gathered windows k/v [B, S, Hkv, D], keys at
+    positions <= lens; float32 softmax, 0 for a row with nothing to attend."""
+    b, h, d = q.shape
+    window, hkv = k.shape[1], k.shape[2]
+    rep = h // hkv
     valid = (torch.arange(window, device=q.device)[None, :]
              <= lens.long()[:, None])  # [B, S]
     vmask = valid[:, :, None, None]
-    kc = torch.where(vmask, k_pages[table].reshape(b, window, hkv, d).float(), 0.0)
-    vc = torch.where(vmask, v_pages[table].reshape(b, window, hkv, d).float(), 0.0)
+    kc = torch.where(vmask, k.float(), 0.0)
+    vc = torch.where(vmask, v.float(), 0.0)
     qf = q.float().reshape(b, hkv, rep, d)
     s = torch.einsum("bgrd,bsgd->bgrs", qf, kc) / float(np.sqrt(d))
     keep = valid[:, None, None, :]
@@ -71,29 +101,92 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
     table and lens, contiguous); CPU tensors take the plain version."""
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pages, v_pages, page_table, lens)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_attention: unsupported device {q.device}")
+    _check("paged_attention", q, k_pages, v_pages, page_table, lens, d_multiple=8,
+           tensors=(("k_pages", k_pages, torch.bfloat16),
+                    ("v_pages", v_pages, torch.bfloat16)))
     b, h, d = q.shape
-    if k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
-        raise ValueError(f"k/v pages must be [P, page, Hkv, D], got "
-                         f"{tuple(k_pages.shape)} / {tuple(v_pages.shape)}")
-    num_pages, page, hkv, dk = k_pages.shape
-    if dk != d or h % hkv or h // hkv > 8 or d % 8 or d > 256:
-        raise ValueError(f"unsupported heads/dims: H={h} Hkv={hkv} D={d}")
-    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
-        raise ValueError("paged_attention: page pools must be 16-byte aligned")
-    if page_table.dim() != 2 or page_table.shape[0] != b or lens.shape != (b,):
-        raise ValueError("page_table must be [B, NB] and lens [B]")
-    for name, t, dtype in (("q", q, torch.bfloat16), ("k_pages", k_pages, torch.bfloat16),
-                           ("v_pages", v_pages, torch.bfloat16),
-                           ("page_table", page_table, torch.int32),
-                           ("lens", lens, torch.int32)):
-        if t.dtype != dtype or t.device != q.device or not t.is_contiguous():
-            raise ValueError(f"paged_attention: {name} must be a contiguous "
-                             f"{dtype} tensor on {q.device}")
+    num_pages, page, hkv, _ = k_pages.shape
     out = torch.empty_like(q)
     KERNEL.launch(
         ptr(q), ptr(k_pages), ptr(v_pages), ptr(page_table), ptr(lens), ptr(out),
+        b, h, hkv, d, page, page_table.shape[1], num_pages,
+        ctypes.c_float(1.0 / float(np.sqrt(d))), stream_of(q),
+    )
+    return out
+
+
+def _check(fn: str, q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+           page_table: torch.Tensor, lens: torch.Tensor, d_multiple: int,
+           tensors: tuple) -> None:
+    """Raise ``ValueError`` unless the inputs are what a paged kernel takes:
+    CUDA tensors, K/V payloads [P, page, Hkv, D] aligned to 16 bytes, at
+    most 8 query heads per kv head, D a multiple of ``d_multiple`` up to
+    256, and bf16 q, int32 table and lens plus ``tensors`` (name, tensor,
+    dtype), all contiguous on q's device."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {q.device}")
+    b, h, d = q.shape
+    if k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
+        raise ValueError(f"{fn}: k/v pages must be [P, page, Hkv, D], got "
+                         f"{tuple(k_pages.shape)} / {tuple(v_pages.shape)}")
+    hkv, dk = k_pages.shape[2:]
+    if dk != d or h % hkv or h // hkv > 8 or d % d_multiple or d > 256:
+        raise ValueError(f"{fn}: unsupported heads/dims: H={h} Hkv={hkv} D={d}")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError(f"{fn}: page pools must be 16-byte aligned")
+    if page_table.dim() != 2 or page_table.shape[0] != b or lens.shape != (b,):
+        raise ValueError(f"{fn}: page_table must be [B, NB] and lens [B]")
+    for name, t, dtype in (("q", q, torch.bfloat16), *tensors,
+                           ("page_table", page_table, torch.int32),
+                           ("lens", lens, torch.int32)):
+        if t.dtype != dtype or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be a contiguous {dtype} tensor on {q.device}")
+
+
+def paged_attention_quant_plain(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
+                                v_q: torch.Tensor, v_s: torch.Tensor,
+                                page_table: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """The int8 kernel's function in plain PyTorch, in float32.
+
+    q [B, H, D]; k_q/v_q int8 [P, page, Hkv, D]; k_s/v_s f16 [P, page, Hkv];
+    page_table [B, NB]; lens [B] → [B, H, D] in q's dtype. Gathers each
+    row's pages, dequantizes them (codes × scale) and attends as
+    :func:`paged_attention_plain` does. Positions past a row's length are
+    masked with ``torch.where`` on the dequantized values, so a NaN scale
+    there cannot leak (``0 × NaN`` would)."""
+    b = q.shape[0]
+    _, page, hkv, d = k_q.shape
+    window = page_table.shape[1] * page
+    table = page_table.long()
+
+    def dense(codes, scales):
+        x = codes[table].float() * scales[table].float()[..., None]
+        return x.reshape(b, window, hkv, d)
+
+    return _attend(q, dense(k_q, k_s), dense(v_q, v_s), lens)
+
+
+def paged_attention_quant(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
+                          v_q: torch.Tensor, v_s: torch.Tensor,
+                          page_table: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """Decode attention over one layer's int8 page pool → [B, H, D].
+
+    CUDA tensors launch the hand-written kernel (bf16 q, int8 payloads
+    aligned to 16 bytes, f16 scales, int32 table and lens, all contiguous);
+    CPU tensors take the plain version."""
+    if q.device.type == "cpu":
+        return paged_attention_quant_plain(q, k_q, k_s, v_q, v_s, page_table, lens)
+    _check("paged_attention_quant", q, k_q, v_q, page_table, lens, d_multiple=16,
+           tensors=(("k_q", k_q, torch.int8), ("k_s", k_s, torch.float16),
+                    ("v_q", v_q, torch.int8), ("v_s", v_s, torch.float16)))
+    if k_s.shape != k_q.shape[:-1] or v_s.shape != k_q.shape[:-1]:
+        raise ValueError(f"paged_attention_quant: k/v scales must be [P, page, Hkv], got "
+                         f"{tuple(k_s.shape)} / {tuple(v_s.shape)}")
+    b, h, d = q.shape
+    num_pages, page, hkv, _ = k_q.shape
+    out = torch.empty_like(q)
+    KERNEL_QUANT.launch(
+        ptr(q), ptr(k_q), ptr(k_s), ptr(v_q), ptr(v_s), ptr(page_table), ptr(lens), ptr(out),
         b, h, hkv, d, page, page_table.shape[1], num_pages,
         ctypes.c_float(1.0 / float(np.sqrt(d))), stream_of(q),
     )

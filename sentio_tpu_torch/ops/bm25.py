@@ -1,0 +1,519 @@
+"""Host-side BM25 over a CSR postings index — a copy of
+``sentio_tpu/ops/bm25.py``.
+
+A term→postings CSR layout in numpy (vectorized scoring, ``argpartition``
+top-k), with the C++ core of ``sentio_tpu_torch.native`` swapped in by
+:func:`make_bm25_index`. Same tokenizer, idf floor, ``k1``/``b`` defaults,
+Okapi and BM25+ scoring, tie-break (score desc, doc id asc) and the same
+npz + json persistence, so an index saved by either package loads in the
+other. Scoring runs on the host CPU; the hybrid retriever fuses it with the
+dense leg that runs on the card.
+"""
+
+from __future__ import annotations
+
+import json
+import re
+import threading
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Callable, NamedTuple, Optional, Sequence
+
+import numpy as np
+
+from sentio_tpu_torch.models.document import Document
+
+_TOKEN_RE = re.compile(r"\w+", re.UNICODE)
+
+
+def default_tokenizer(text: str) -> list[str]:
+    """Lowercase unicode word tokenizer: \\w keeps accented and CJK text
+    indexable, unlike an ASCII class."""
+    return _TOKEN_RE.findall(text.lower())
+
+
+@dataclass
+class BM25Params:
+    k1: float = 1.5
+    b: float = 0.75
+    delta: float = 0.0  # >0 → BM25+ lower-bounding
+    variant: str = "okapi"  # okapi | plus
+
+
+class _Postings(NamedTuple):
+    """One consistent, immutable snapshot of the index state. ``build()``
+    publishes a new snapshot in a single reference assignment AFTER all
+    arrays are final, so concurrent queries read either the old or the new
+    corpus — never a torn mix. Arrays referenced by a published snapshot
+    are never written again."""
+
+    term_offsets: np.ndarray
+    post_docs: np.ndarray
+    post_tfs: np.ndarray
+    idf: np.ndarray
+    norm: np.ndarray
+    avgdl: float
+    doc_ids: list
+    documents: list
+
+
+class BM25Index:
+    """Immutable-after-build BM25 index.
+
+    Layout: ``term_offsets[t]:term_offsets[t+1]`` slices ``post_docs``/
+    ``post_tfs`` — the postings of term ``t``. Per-term slices have unique doc
+    ids, so score accumulation is a vectorized fancy-index add per query term
+    (cost: O(sum of query-term posting lengths), the same work Lucene does,
+    without the JVM).
+
+    Queries read only the :class:`_Postings` snapshot (``self._epoch``), so
+    they are lock-free and safe against a concurrent ``build()``; the vocab
+    is shared across rebuilds and append-only, and snapshot readers bounds-
+    check term ids against their own snapshot's term count.
+    """
+
+    def __init__(
+        self,
+        params: BM25Params | None = None,
+        tokenizer: Callable[[str], list[str]] = default_tokenizer,
+    ) -> None:
+        self.params = params or BM25Params()
+        if self.params.variant == "plus" and self.params.delta == 0.0:
+            self.params.delta = 1.0
+        self.tokenizer = tokenizer
+        self._norm: Optional[np.ndarray] = None  # k1*(1-b+b*dl/avgdl), built once
+        self.vocab: dict[str, int] = {}
+        self.doc_ids: list[str] = []
+        self.doc_lens = np.zeros(0, dtype=np.float32)
+        self.avgdl: float = 0.0
+        self.term_offsets = np.zeros(1, dtype=np.int64)
+        self.post_docs = np.zeros(0, dtype=np.int32)
+        self.post_tfs = np.zeros(0, dtype=np.float32)
+        self.idf = np.zeros(0, dtype=np.float32)
+        self._documents: list[Document] = []
+        self._epoch = self._snapshot()
+
+    # ------------------------------------------------------------------ build
+
+    def build(self, documents: Sequence[Document]) -> "BM25Index":
+        self._documents = list(documents)
+        self.doc_ids = [d.id for d in documents]
+        n_docs = len(documents)
+        term_postings: dict[int, dict[int, int]] = {}
+        doc_lens = np.zeros(n_docs, dtype=np.float32)
+        for di, doc in enumerate(documents):
+            tokens = self.tokenizer(doc.content)
+            doc_lens[di] = len(tokens)
+            for tok in tokens:
+                tid = self.vocab.setdefault(tok, len(self.vocab))
+                postings = term_postings.setdefault(tid, {})
+                postings[di] = postings.get(di, 0) + 1
+        self.doc_lens = doc_lens
+        self.avgdl = float(doc_lens.mean()) if n_docs else 0.0
+
+        n_terms = len(self.vocab)
+        lengths = np.zeros(n_terms, dtype=np.int64)
+        for tid, postings in term_postings.items():
+            lengths[tid] = len(postings)
+        self.term_offsets = np.concatenate([[0], np.cumsum(lengths)])
+        total = int(self.term_offsets[-1])
+        self.post_docs = np.zeros(total, dtype=np.int32)
+        self.post_tfs = np.zeros(total, dtype=np.float32)
+        for tid, postings in term_postings.items():
+            start = self.term_offsets[tid]
+            docs = np.fromiter(postings.keys(), dtype=np.int32, count=len(postings))
+            tfs = np.fromiter(postings.values(), dtype=np.float32, count=len(postings))
+            order = np.argsort(docs)
+            self.post_docs[start : start + len(docs)] = docs[order]
+            self.post_tfs[start : start + len(docs)] = tfs[order]
+        # Robertson-Sparck-Jones idf with 0.5 smoothing, floored at 0 like Lucene
+        df = lengths.astype(np.float64)
+        with np.errstate(divide="ignore"):
+            idf = np.log(1.0 + (n_docs - df + 0.5) / (df + 0.5))
+        self.idf = np.maximum(idf, 0.0).astype(np.float32)
+        self._finalize_norm()
+        # single atomic publish: queries in flight keep the old snapshot
+        self._epoch = self._snapshot()
+        return self
+
+    def _finalize_norm(self) -> None:
+        k1, b = self.params.k1, self.params.b
+        if self.avgdl > 0:
+            self._norm = (k1 * (1.0 - b + b * self.doc_lens / self.avgdl)).astype(np.float32)
+        else:
+            self._norm = np.zeros_like(self.doc_lens)
+
+    def _snapshot(self) -> _Postings:
+        return _Postings(
+            term_offsets=self.term_offsets,
+            post_docs=self.post_docs,
+            post_tfs=self.post_tfs,
+            idf=self.idf,
+            norm=self._norm if self._norm is not None else np.zeros(0, np.float32),
+            avgdl=self.avgdl,
+            doc_ids=self.doc_ids,
+            documents=self._documents,
+        )
+
+    @property
+    def size(self) -> int:
+        return len(self.doc_ids)
+
+    # ------------------------------------------------------------------ score
+
+    def scores(self, query: str, _e: Optional[_Postings] = None) -> np.ndarray:
+        """Dense score vector over the whole corpus for one query."""
+        e = _e if _e is not None else self._epoch
+        n = len(e.doc_ids)
+        out = np.zeros(n, dtype=np.float32)
+        if n == 0 or e.avgdl == 0:
+            return out
+        k1, delta = self.params.k1, self.params.delta
+        n_terms = len(e.term_offsets) - 1
+        for tok in self.tokenizer(query):
+            tid = self.vocab.get(tok)
+            # vocab is shared/append-only; ids minted after this snapshot
+            # have no postings here
+            if tid is None or tid >= n_terms:
+                continue
+            start, end = e.term_offsets[tid], e.term_offsets[tid + 1]
+            docs = e.post_docs[start:end]
+            tfs = e.post_tfs[start:end]
+            denom = tfs + e.norm[docs]
+            contrib = e.idf[tid] * (tfs * (k1 + 1.0) / denom + delta)
+            np.add.at(out, docs, contrib)  # repeated query terms hit same docs
+        return out
+
+    def search(
+        self, query: str, top_k: int = 10, _e: Optional[_Postings] = None
+    ) -> list[tuple[int, float]]:
+        """Top-k under the total order (score desc, doc id asc) — the
+        deterministic tie-break the native core uses, so backends agree.
+        Work stays O(n + k log k) even when a huge fraction of the corpus
+        ties at the k-th score (boilerplate tokens): only the ``need``
+        smallest doc ids among boundary ties are materialized, never the
+        whole tie set sorted."""
+        e = _e if _e is not None else self._epoch
+        scores = self.scores(query, e)
+        k = min(top_k, len(e.doc_ids))
+        if k == 0:
+            return []
+        idx = np.argpartition(-scores, k - 1)[:k]
+        kth = scores[idx].min()
+        if kth <= 0.0:
+            # sparse match set: fewer than k docs score positive
+            cand = np.nonzero(scores > 0.0)[0]
+            cand = cand[np.lexsort((cand, -scores[cand]))][:k]
+            return [(int(i), float(scores[i])) for i in cand]
+        above = np.nonzero(scores > kth)[0]  # < k elements
+        above = above[np.lexsort((above, -scores[above]))]
+        ties = np.nonzero(scores == kth)[0]  # ascending already (nonzero order)
+        need = k - len(above)
+        cand = np.concatenate([above, ties[:need]])
+        return [(int(i), float(scores[i])) for i in cand]
+
+    def retrieve(self, query: str, top_k: int = 10) -> list[Document]:
+        e = self._epoch  # one snapshot: indices resolve against the same docs
+        out = []
+        for di, score in self.search(query, top_k, e):
+            doc = e.documents[di]
+            meta = dict(doc.metadata)
+            meta["score"] = score
+            meta["retriever"] = "bm25"
+            out.append(Document(text=doc.text, metadata=meta, id=doc.id))
+        return out
+
+    # ------------------------------------------------------------ persistence
+
+    def save(self, path: str | Path) -> None:
+        path = Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        np.savez_compressed(
+            path.with_suffix(".npz"),
+            doc_lens=self.doc_lens,
+            term_offsets=self.term_offsets,
+            post_docs=self.post_docs,
+            post_tfs=self.post_tfs,
+            idf=self.idf,
+        )
+        meta = {
+            "custom_tokenizer": self.tokenizer is not default_tokenizer,
+            "vocab": self.vocab,
+            "doc_ids": self.doc_ids,
+            "avgdl": self.avgdl,
+            "params": {
+                "k1": self.params.k1,
+                "b": self.params.b,
+                "delta": self.params.delta,
+                "variant": self.params.variant,
+            },
+            "documents": [d.to_dict() for d in self._documents],
+        }
+        path.with_suffix(".json").write_text(json.dumps(meta))
+
+    @classmethod
+    def load(
+        cls,
+        path: str | Path,
+        tokenizer: Optional[Callable[[str], list[str]]] = None,
+    ) -> "BM25Index":
+        """Load a saved index. An index built with a custom tokenizer MUST be
+        loaded with that same tokenizer — the vocab was produced by it, and a
+        mismatched query tokenizer silently returns empty results."""
+        path = Path(path)
+        meta = json.loads(path.with_suffix(".json").read_text())
+        if meta.get("custom_tokenizer") and tokenizer is None:
+            raise ValueError(
+                f"index at {path} was built with a custom tokenizer; "
+                "pass the same tokenizer= to BM25Index.load"
+            )
+        params = BM25Params(**meta["params"])
+        index = cls(params=params, tokenizer=tokenizer or default_tokenizer)
+        index.vocab = {str(k): int(v) for k, v in meta["vocab"].items()}
+        index.doc_ids = list(meta["doc_ids"])
+        index.avgdl = float(meta["avgdl"])
+        index._documents = [Document.from_dict(d) for d in meta["documents"]]
+        arrays = np.load(path.with_suffix(".npz"))
+        index.doc_lens = arrays["doc_lens"]
+        index.term_offsets = arrays["term_offsets"]
+        index.post_docs = arrays["post_docs"]
+        index.post_tfs = arrays["post_tfs"]
+        index.idf = arrays["idf"]
+        index._finalize_norm()
+        index._epoch = index._snapshot()
+        return index
+
+
+class _NativeHandle:
+    """Refcounted wrapper around one C++ index handle + a SNAPSHOT of the
+    Python-side state it must stay consistent with.
+
+    The C++ core is stateless per call (caller-owned scratch), so any number
+    of threads may score through one handle concurrently — the hazards are
+    lifecycle and consistency: a rebuild must not destroy the handle while a
+    search is mid-flight (use-after-free), the borrowed numpy buffers must
+    outlive it, AND a query running against an old handle must size its
+    output by the OLD corpus (the C++ core writes ``n_docs`` floats — a
+    buffer sized from post-rebuild ``self.size`` would overflow) and map
+    result indices through the OLD document list. ``n_docs``/``documents``
+    are snapshotted here for that; the vocab is safe to share because
+    ``build`` only ever APPENDS term ids (setdefault) and the core
+    bounds-checks ids ≥ its n_terms. ``acquire``/``release`` bracket each
+    call; ``retire`` marks the handle dead and the LAST releaser (or retire
+    itself when idle) frees it.
+    """
+
+    def __init__(self, lib, handle, pinned: tuple, n_docs: int, documents: list) -> None:
+        self.lib = lib
+        self.handle = handle
+        self.n_docs = n_docs
+        self.documents = documents  # the list object this handle indexed
+        self._pinned = pinned
+        self._refs = 0
+        self._dead = False
+        self._lock = threading.Lock()
+
+    def acquire(self) -> bool:
+        with self._lock:
+            if self._dead:
+                return False
+            self._refs += 1
+            return True
+
+    def release(self) -> None:
+        with self._lock:
+            self._refs -= 1
+            free_now = self._dead and self._refs == 0
+        if free_now:
+            self._destroy()
+
+    def retire(self) -> None:
+        with self._lock:
+            if self._dead:
+                return
+            self._dead = True
+            free_now = self._refs == 0
+        if free_now:
+            self._destroy()
+
+    def _destroy(self) -> None:
+        try:
+            self.lib.sbm25_destroy(self.handle)
+        finally:
+            self._pinned = ()
+
+
+class NativeBM25Index(BM25Index):
+    """BM25Index scored by the C++ core (sentio_tpu_torch/native/bm25.cpp).
+
+    Python keeps tokenization, vocab, and the CSR build (so persistence and
+    scores are identical to the numpy path); the per-query hot loop —
+    postings traversal, accumulation, top-k selection — runs native. The
+    index buffers are shared zero-copy; the handle borrows them, so they
+    are pinned for the handle's lifetime (``_NativeHandle``). Queries run
+    lock-free and concurrent; ``_native_lock`` only serializes handle
+    creation/retirement (build/rebuild). If the native library is
+    unavailable (no toolchain), every call transparently degrades to the
+    numpy implementation, which reads the lock-free ``_Postings`` snapshot
+    — concurrent rebuilds can't tear it either.
+    """
+
+    def __init__(self, *args, **kwargs) -> None:
+        super().__init__(*args, **kwargs)
+        self._box: Optional[_NativeHandle] = None
+        self._native_lock = threading.Lock()
+
+    # build() swaps the CSR arrays out from under a live handle — retire it
+    # (in-flight searches finish against the old buffers, then it frees)
+    def build(self, documents: Sequence[Document]) -> "NativeBM25Index":
+        with self._native_lock:
+            if self._box is not None:
+                self._box.retire()
+                self._box = None
+            super().build(documents)
+        return self
+
+    def __del__(self) -> None:  # noqa: D105
+        try:
+            if self._box is not None:
+                self._box.retire()
+        except Exception:  # noqa: BLE001 — interpreter teardown
+            pass
+
+    def _get_box(self) -> Optional[_NativeHandle]:
+        """The live handle, creating it on first use. Lock covers creation
+        only; callers bracket actual use with acquire/release."""
+        box = self._box
+        if box is not None:
+            return box
+        with self._native_lock:
+            if self._box is not None:
+                return self._box
+            if self.size == 0 or self._norm is None:
+                return None
+            from sentio_tpu_torch import native
+
+            lib = native.load_bm25()
+            if lib is None:
+                return None
+            import ctypes as C
+
+            to = np.ascontiguousarray(self.term_offsets, dtype=np.int64)
+            pd = np.ascontiguousarray(self.post_docs, dtype=np.int32)
+            pt = np.ascontiguousarray(self.post_tfs, dtype=np.float32)
+            idf = np.ascontiguousarray(self.idf, dtype=np.float32)
+            norm = np.ascontiguousarray(self._norm, dtype=np.float32)
+            handle = lib.sbm25_create(
+                self.size, len(self.vocab),
+                to.ctypes.data_as(C.POINTER(C.c_int64)),
+                pd.ctypes.data_as(C.POINTER(C.c_int32)),
+                pt.ctypes.data_as(C.POINTER(C.c_float)),
+                idf.ctypes.data_as(C.POINTER(C.c_float)),
+                norm.ctypes.data_as(C.POINTER(C.c_float)),
+                self.params.k1, self.params.delta,
+            )
+            if handle is None:
+                return None
+            self._box = _NativeHandle(
+                lib, handle, (to, pd, pt, idf, norm),
+                n_docs=self.size, documents=self._documents,
+            )
+            return self._box
+
+    def _query_ids(self, query: str) -> np.ndarray:
+        """Vocab ids of query tokens, repeats preserved (np.add.at parity)."""
+        ids = [self.vocab[t] for t in self.tokenizer(query) if t in self.vocab]
+        return np.asarray(ids, dtype=np.int32)
+
+    def scores(self, query: str, _e: Optional[_Postings] = None) -> np.ndarray:
+        import ctypes as C
+
+        if _e is not None:
+            # caller pinned a snapshot (fallback search mid-rebuild): the
+            # native box may index a different corpus — stay consistent
+            return super().scores(query, _e)
+        box = self._get_box()
+        if box is None or not box.acquire():
+            return super().scores(query)
+        try:
+            # size the buffer by the handle's snapshot, not live self.size —
+            # a concurrent rebuild may have changed the corpus under us
+            qids = self._query_ids(query)
+            out = np.zeros(box.n_docs, dtype=np.float32)
+            box.lib.sbm25_scores(
+                box.handle, qids.ctypes.data_as(C.POINTER(C.c_int32)), len(qids),
+                out.ctypes.data_as(C.POINTER(C.c_float)),
+            )
+            return out
+        finally:
+            box.release()
+
+    def search(
+        self, query: str, top_k: int = 10, _e: Optional[_Postings] = None
+    ) -> list[tuple[int, float]]:
+        if _e is not None:
+            return super().search(query, top_k, _e)
+        box = self._get_box()
+        if box is None or not box.acquire():
+            return super().search(query, top_k)
+        try:
+            return self._native_search(box, query, top_k)
+        finally:
+            box.release()
+
+    def _native_search(self, box: _NativeHandle, query: str, top_k: int) -> list[tuple[int, float]]:
+        import ctypes as C
+
+        qids = self._query_ids(query)
+        k = min(top_k, box.n_docs)
+        if k == 0:
+            return []
+        idx = np.zeros(k, dtype=np.int32)
+        sc = np.zeros(k, dtype=np.float32)
+        n = box.lib.sbm25_search(
+            box.handle, qids.ctypes.data_as(C.POINTER(C.c_int32)), len(qids), k,
+            idx.ctypes.data_as(C.POINTER(C.c_int32)),
+            sc.ctypes.data_as(C.POINTER(C.c_float)),
+        )
+        return [(int(idx[i]), float(sc[i])) for i in range(n)]
+
+    def retrieve(self, query: str, top_k: int = 10) -> list[Document]:
+        box = self._get_box()
+        if box is None or not box.acquire():
+            return super().retrieve(query, top_k)
+        try:
+            # one box snapshot for the whole operation: indices from the
+            # native search resolve against the SAME document list the
+            # handle indexed, even mid-rebuild
+            out = []
+            for di, score in self._native_search(box, query, top_k):
+                doc = box.documents[di]
+                meta = dict(doc.metadata)
+                meta["score"] = score
+                meta["retriever"] = "bm25"
+                out.append(Document(text=doc.text, metadata=meta, id=doc.id))
+            return out
+        finally:
+            box.release()
+
+
+def make_bm25_index(
+    params: BM25Params | None = None,
+    tokenizer: Callable[[str], list[str]] = default_tokenizer,
+    backend: str = "auto",
+) -> BM25Index:
+    """BM25 factory honoring ``retrieval.bm25_backend``: ``native`` requires
+    the C++ core (raises if the toolchain can't produce it), ``numpy`` forces
+    pure Python, ``auto`` uses native when it builds and numpy otherwise."""
+    if backend not in ("auto", "numpy", "native"):
+        raise ValueError(f"unknown bm25 backend {backend!r}")
+    if backend == "numpy":
+        return BM25Index(params=params, tokenizer=tokenizer)
+    from sentio_tpu_torch import native
+
+    available = native.load_bm25() is not None
+    if backend == "native" and not available:
+        raise RuntimeError("bm25_backend=native but the C++ core failed to build/load")
+    if available:
+        return NativeBM25Index(params=params, tokenizer=tokenizer)
+    return BM25Index(params=params, tokenizer=tokenizer)

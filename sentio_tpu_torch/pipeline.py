@@ -2,11 +2,14 @@
 ``sentio_tpu/graph/factory.py::build_basic_graph``:
 retrieve → rerank → select → generate → verify.
 
-Retrieval is the dense strategy (``RETRIEVAL_STRATEGY=dense``): the
-bi-encoder embeds the query and an exact top-k runs over the index.
-BM25, fusion and the hybrid retriever are not part of this package yet.
+Retrieval follows ``RETRIEVAL_STRATEGY``: ``dense`` (the bi-encoder embeds
+the query and an exact top-k runs over the index on the card), ``bm25``
+(host BM25) or ``hybrid``, the default (both legs fused by
+``FUSION_METHOD``, rrf by default). ``KV_QUANT=int8`` gives the engine an
+int8 page pool.
 
-* :meth:`ChatPipeline.ingest` embeds documents and adds them to the index;
+* :meth:`ChatPipeline.ingest` embeds documents, adds them to the index and
+  rebuilds the BM25 index over the index's documents;
 * :meth:`ChatPipeline.chat` answers one question and returns ``answer``,
   ``sources`` and ``verification`` as ``/chat`` does, plus per-stage times.
 """
@@ -24,10 +27,12 @@ from sentio_tpu_torch.config import Settings
 from sentio_tpu_torch.models.document import Document
 from sentio_tpu_torch.models.llama import LlamaConfig, init_llama
 from sentio_tpu_torch.models.transformer import EncoderConfig
+from sentio_tpu_torch.ops.bm25 import BM25Index, BM25Params, make_bm25_index
 from sentio_tpu_torch.ops.dense_index import TorchDenseIndex
 from sentio_tpu_torch.ops.embedder import TorchEmbedder
 from sentio_tpu_torch.ops.generator import EngineProvider, LLMGenerator
 from sentio_tpu_torch.ops.reranker import CrossEncoderReranker
+from sentio_tpu_torch.ops.retrievers import BaseRetriever, create_retriever
 from sentio_tpu_torch.ops.verifier import AnswerVerifier
 from sentio_tpu_torch.runtime.paged import ContinuousBatchingEngine
 
@@ -77,15 +82,20 @@ def serialize_sources(docs: Sequence[Document]) -> list[dict[str, Any]]:
 class ChatPipeline:
     embedder: TorchEmbedder
     index: TorchDenseIndex
+    retriever: BaseRetriever
     generator: LLMGenerator
+    bm25_index: Optional[BM25Index] = None
     reranker: Optional[CrossEncoderReranker] = None
     verifier: Optional[AnswerVerifier] = None
     settings: Settings = field(default_factory=Settings)
 
     def ingest(self, documents: Sequence[Document]) -> int:
-        """Embed ``documents`` and add them to the index; returns the count."""
+        """Embed ``documents``, add them to the index and rebuild the BM25
+        index over every document the index holds; returns the count."""
         documents = list(documents)
         self.index.add(documents, self.embedder.embed_many([d.content for d in documents]))
+        if self.bm25_index is not None:
+            self.bm25_index.build(self.index.documents())
         return len(documents)
 
     def chat(self, question: str, top_k: Optional[int] = None,
@@ -100,8 +110,7 @@ class ChatPipeline:
             stage_ms[name] = (now - t) * 1e3
             t = now
 
-        retrieved = self.index.retrieve(self.embedder.embed_tensor([question])[0],
-                                        _user_top_k(top_k, s.retrieval.top_k))
+        retrieved = self.retriever.retrieve(question, _user_top_k(top_k, s.retrieval.top_k))
         lap("retrieve")
         docs = retrieved
         if self.reranker is not None and retrieved:
@@ -147,14 +156,16 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
                    reranker_params: Optional[dict] = None) -> ChatPipeline:
     """Assemble the pipeline from ``settings`` on ``device`` (the card by
     default). Missing weights are random, made on the device from
-    ``seed``; the engine follows the generator settings (slots, page size,
-    pages per sequence)."""
+    ``seed``; the retriever follows the retrieval settings (strategy,
+    fusion, BM25 backend) and the engine the generator settings (slots,
+    page size, pages per sequence, ``kv_quant``). Settings this package
+    cannot honour raise ``NotImplementedError``."""
     settings = settings or Settings()
-    if settings.retrieval.strategy != "dense":
-        raise NotImplementedError(
-            f"retrieval strategy {settings.retrieval.strategy!r}: this package "
-            "implements RETRIEVAL_STRATEGY=dense only"
-        )
+    rcfg = settings.retrieval
+    if rcfg.use_scorers:
+        raise NotImplementedError("USE_SCORERS: post-fusion scorers are not ported")
+    if rcfg.web_cache_path:
+        raise NotImplementedError("WEB_CACHE_PATH: the web-cache retrieval leg is not ported")
     dev = resolve_device(device)
     gcfg = settings.generator
 
@@ -165,7 +176,13 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
 
     embedder = TorchEmbedder(settings.embedder, params=embedder_params,
                              model_config=embedder_config, device=dev, generator=gen(1))
-    index = TorchDenseIndex(embedder.dimension, device=dev)
+    # the corpus is held in the generator dtype, as the JAX container holds it
+    index = TorchDenseIndex(embedder.dimension, device=dev, dtype=gcfg.dtype)
+    bm25 = None
+    if rcfg.strategy in ("bm25", "sparse", "hybrid"):
+        bm25 = make_bm25_index(BM25Params(k1=rcfg.bm25_k1, b=rcfg.bm25_b),
+                               backend=rcfg.bm25_backend)
+    retriever = create_retriever(settings, embedder, index, bm25)
     reranker = None
     if settings.rerank.enabled:
         reranker = CrossEncoderReranker(settings.rerank, params=reranker_params,
@@ -180,9 +197,10 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
         max_slots=gcfg.max_batch_size, page_size=gcfg.kv_page_size,
         max_pages_per_seq=gcfg.kv_max_pages_per_seq, rng_seed=seed,
         steps_per_tick=gcfg.decode_steps_per_tick,
-        max_tick_steps=gcfg.decode_max_tick_steps, device=dev,
+        max_tick_steps=gcfg.decode_max_tick_steps, kv_quant=gcfg.kv_quant, device=dev,
     )
     generator = LLMGenerator(provider=EngineProvider(engine), config=gcfg)
     verifier = AnswerVerifier(generator=generator, config=gcfg) if gcfg.use_verifier else None
-    return ChatPipeline(embedder=embedder, index=index, generator=generator,
-                        reranker=reranker, verifier=verifier, settings=settings)
+    return ChatPipeline(embedder=embedder, index=index, retriever=retriever,
+                        generator=generator, bm25_index=bm25, reranker=reranker,
+                        verifier=verifier, settings=settings)

@@ -1,8 +1,11 @@
-"""Paged KV cache + continuous batching in PyTorch — the counterpart of the
-bf16 pool path of ``sentio_tpu/runtime/paged.py``.
+"""Paged KV cache + continuous batching in PyTorch — the counterpart of
+``sentio_tpu/runtime/paged.py`` with bf16 or int8 (``kv_quant="int8"``)
+pools.
 
-The device holds one pool of fixed-size pages ``[L, P, page, Hkv, D]``;
-every live sequence owns a page table mapping its logical blocks to
+The device holds one pool of fixed-size pages ``[L, P, page, Hkv, D]``
+(or, quantized, int8 codes of that shape plus f16 per-vector scales
+``[L, P, page, Hkv]``: half the bytes to hold and to read at decode); every
+live sequence owns a page table mapping its logical blocks to
 physical pages. Requests join and leave decode slots without touching
 anyone else's cache, and finishing one frees integer page ids. Page 0 is
 a scratch page: free slots' tables point at it, and rows frozen inside a
@@ -21,26 +24,33 @@ One engine tick:
 * **retirement** on EOS / length, freeing pages.
 
 The pool is updated in place (the JAX engine donates its buffers to the
-same effect). Decode attention goes through the paged kernel
-(:func:`sentio_tpu_torch.kernels.paged_attn_impl`), or through the plain
-gather path when ``attn_impl`` is set to ``_paged_attn_xla``. Prefill keeps
-plain attention, as the JAX engine does. Left for later slices: the radix prefix cache,
-chunked prefill, speculation, int8 pools, ``pipeline_depth=2`` and meshes
-— none of them changes greedy output.
+same effect). Decode attention goes through the paged kernel of the pool's
+representation (:func:`sentio_tpu_torch.kernels.paged_attn_impl`), or
+through the plain gather path when ``attn_impl`` is set to
+``_paged_attn_xla``. Prefill keeps plain attention over the dense,
+unquantized cache, as the JAX engine does: an int8 pool quantizes what is
+written into its pages, so the first token is sampled from an unquantized
+prefill. Left for later slices: the radix prefix cache, chunked prefill,
+speculation, ``pipeline_depth=2`` and meshes — none of them changes greedy
+output.
 """
 
 from __future__ import annotations
 
 import itertools
 from dataclasses import dataclass, field
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from sentio_tpu_torch import resolve_device
 from sentio_tpu_torch.kernels import paged_attn_impl
-from sentio_tpu_torch.kernels.paged_attention import paged_attention_plain
+from sentio_tpu_torch.kernels.paged_attention import (
+    QuantPages,
+    paged_attention_plain,
+    paged_attention_quant_plain,
+)
 from sentio_tpu_torch.models import layers as L
 from sentio_tpu_torch.models.llama import LlamaConfig, init_cache, init_llama, llama_forward
 from sentio_tpu_torch.models.tokenizer import ByteTokenizer
@@ -48,6 +58,7 @@ from sentio_tpu_torch.parallel.batcher import bucket_size
 from sentio_tpu_torch.runtime.sampling import sample_tokens
 
 Tensor = torch.Tensor
+Pages = Union[Tensor, QuantPages]  # a pool's k or v, or one layer of it
 
 
 # --------------------------------------------------------------------- pool
@@ -55,24 +66,76 @@ Tensor = torch.Tensor
 
 @dataclass
 class PagedPool:
-    """Device page pool: k/v ``[L, P, page, Hkv, D]``. Page id 0 = scratch."""
+    """Device page pool: k/v ``[L, P, page, Hkv, D]`` in the model dtype, or
+    :class:`QuantPages` (int8 codes of that shape, f16 scales ``[L, P, page,
+    Hkv]``). Page id 0 = scratch."""
 
-    k: Tensor
-    v: Tensor
+    k: Pages
+    v: Pages
     page_size: int
 
     @property
+    def quantized(self) -> bool:
+        return isinstance(self.k, QuantPages)
+
+    @property
     def hbm_bytes(self) -> int:
-        return 2 * self.k.numel() * self.k.element_size()
+        """Device bytes of the k+v pools, payload plus scales."""
+        leaves = (*self.k, *self.v) if self.quantized else (self.k, self.v)
+        return sum(t.numel() * t.element_size() for t in leaves)
 
 
-def init_pool(cfg: LlamaConfig, num_pages: int, page_size: int, device) -> PagedPool:
+def init_pool(cfg: LlamaConfig, num_pages: int, page_size: int, device,
+              quantized: bool = False) -> PagedPool:
     shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
-    return PagedPool(
-        k=torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
-        v=torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
-        page_size=page_size,
-    )
+
+    def pages() -> Pages:
+        if quantized:
+            return QuantPages(q=torch.zeros(shape, dtype=torch.int8, device=device),
+                              s=torch.zeros(shape[:-1], dtype=torch.float16, device=device))
+        return torch.zeros(shape, dtype=cfg.torch_dtype, device=device)
+
+    return PagedPool(k=pages(), v=pages(), page_size=page_size)
+
+
+def quantize_kv(x: Tensor) -> tuple[Tensor, Tensor]:
+    """[..., D] float → (int8 [..., D], f16 scale [...]): symmetric absmax per
+    vector, a copy of the JAX ``quantize_kv``. The codes come from the
+    float32 scale (only the stored scale is cast to f16), and ``torch.round``
+    rounds half to even as ``jnp.round`` does, so the same float inputs give
+    bit-identical codes and scales. A zero vector gets scale 0 and
+    dequantizes to exact zeros."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1) / 127.0
+    q = torch.round(xf / scale.clamp_min(1e-8)[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale.to(torch.float16)
+
+
+def dequantize_kv(q: Tensor, scale: Tensor, dtype: torch.dtype) -> Tensor:
+    return (q.float() * scale[..., None].float()).to(dtype)
+
+
+def _page_write(pages: Pages, layer: int, page_ids: Tensor, offsets: Tensor,
+                val: Tensor) -> None:
+    """Write val [B, Hkv, D] at (layer, page_ids[b], offsets[b]) per row, in
+    place, quantizing for an int8 pool."""
+    if isinstance(pages, QuantPages):
+        q, s = quantize_kv(val)
+        pages.q[layer, page_ids, offsets] = q
+        pages.s[layer, page_ids, offsets] = s
+    else:
+        pages[layer, page_ids, offsets] = val
+
+
+def _layer_pages(pages: Pages, layer: int) -> Pages:
+    """One layer's pages, a view (contiguous, no copy)."""
+    if isinstance(pages, QuantPages):
+        return QuantPages(pages.q[layer], pages.s[layer])
+    return pages[layer]
+
+
+def _page_dim(pages: Pages) -> int:
+    return (pages.q if isinstance(pages, QuantPages) else pages).shape[-3]
 
 
 class PageAllocator:
@@ -101,26 +164,33 @@ class PageAllocator:
 
 
 def _paged_attn_xla(q, k_pages_l, v_pages_l, page_table, lens, n_rep):
-    """Decode attention over a page table by the plain gather path — the
-    counterpart of the JAX engine's XLA fallback and the reference the
-    kernel is held against. Same signature as ``paged_attn_impl``."""
-    return paged_attention_plain(q[:, 0], k_pages_l, v_pages_l, page_table, lens)[:, None]
+    """Decode attention over a page table by the plain gather path (an int8
+    pool is gathered and dequantized) — the counterpart of the JAX engine's
+    XLA fallback and the reference the kernels are held against. Same
+    signature as ``paged_attn_impl``."""
+    if isinstance(k_pages_l, QuantPages):
+        out = paged_attention_quant_plain(q[:, 0], k_pages_l.q, k_pages_l.s,
+                                          v_pages_l.q, v_pages_l.s, page_table, lens)
+    else:
+        out = paged_attention_plain(q[:, 0], k_pages_l, v_pages_l, page_table, lens)
+    return out[:, None]
 
 
 def paged_decode_forward(params: dict, cfg: LlamaConfig, tok: Tensor, lens: Tensor,
-                         page_table: Tensor, k_pages: Tensor, v_pages: Tensor,
+                         page_table: Tensor, k_pages: Pages, v_pages: Pages,
                          attn_impl=None, write_mask: Optional[Tensor] = None) -> Tensor:
     """One decode step over the paged pool → logits [B, V] float32.
 
     tok [B] (last sampled token per slot); lens [B] int32, the absolute
     position the new token occupies; page_table [B, NB] int32. This step's
     k/v are written into each row's current page in place before attention
-    reads them. ``write_mask`` [B] bool redirects masked rows' writes to the
+    reads them (quantized first for an int8 pool). ``write_mask`` [B] bool
+    redirects masked rows' writes to the
     scratch page, freezing rows that hit EOS or their budget mid-tick."""
     dt = cfg.torch_dtype
     b = tok.shape[0]
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    page = k_pages.shape[2]
+    page = _page_dim(k_pages)
     nb = page_table.shape[1]
     positions = lens.long()[:, None]  # [B, 1]
     cos, sin = L.rope_frequencies(hd, max(nb * page, cfg.max_len), cfg.rope_theta,
@@ -143,10 +213,11 @@ def paged_decode_forward(params: dict, cfg: LlamaConfig, tok: Tensor, lens: Tens
         v = L.dense(lp["attn"]["wv"], xn, dt).reshape(b, 1, hkv, hd)
         q = L.apply_rope(q, positions, cos, sin)
         k = L.apply_rope(k, positions, cos, sin)
-        k_pages[i, page_ids, offsets] = k[:, 0].to(dt)
-        v_pages[i, page_ids, offsets] = v[:, 0].to(dt)
+        _page_write(k_pages, i, page_ids, offsets, k[:, 0].to(dt))
+        _page_write(v_pages, i, page_ids, offsets, v[:, 0].to(dt))
 
-        out = impl(q, k_pages[i], v_pages[i], page_table, lens, h // hkv)
+        out = impl(q, _layer_pages(k_pages, i), _layer_pages(v_pages, i), page_table, lens,
+                   h // hkv)
         x = x + L.dense(lp["attn"]["wo"], out.reshape(b, 1, cfg.dim), dt)
         xm = L.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
         gate = torch.nn.functional.silu(L.dense(lp["mlp"]["w_gate"], xm, dt))
@@ -156,17 +227,24 @@ def paged_decode_forward(params: dict, cfg: LlamaConfig, tok: Tensor, lens: Tens
     return L.dense(params["lm_head"], x, dt)[:, 0].float()
 
 
-def scatter_prefill(k_pages: Tensor, v_pages: Tensor, k_cache: Tensor,
+def scatter_prefill(k_pages: Pages, v_pages: Pages, k_cache: Tensor,
                     v_cache: Tensor, page_table: Tensor) -> None:
-    """Copy a contiguous prefill cache into the pool, in place.
+    """Copy a contiguous prefill cache into the pool, in place, quantizing
+    it for an int8 pool.
 
     k/v_cache [L, B, S, Hkv, D] (S a multiple of the page size), page_table
     [B, S/page]. Blocks past a row's prompt map to scratch page 0."""
     lcount, b, s, hkv, hd = k_cache.shape
-    page = k_pages.shape[2]
+    page = _page_dim(k_pages)
     table = page_table.long()
-    k_pages[:, table] = k_cache.reshape(lcount, b, s // page, page, hkv, hd)
-    v_pages[:, table] = v_cache.reshape(lcount, b, s // page, page, hkv, hd)
+    for pages, cache in ((k_pages, k_cache), (v_pages, v_cache)):
+        blocks = cache.reshape(lcount, b, s // page, page, hkv, hd)
+        if isinstance(pages, QuantPages):
+            q, scale = quantize_kv(blocks)
+            pages.q[:, table] = q
+            pages.s[:, table] = scale
+        else:
+            pages[:, table] = blocks
 
 
 # ---------------------------------------------------------------- the engine
@@ -229,8 +307,10 @@ class ContinuousBatchingEngine:
     EOS / length. The pool holds ``max_pages_per_seq`` pages for every slot
     (plus scratch), so a free slot always finds its pages. ``attn_impl`` is
     the decode-attention seam: the paged kernel by default, the plain
-    gather path (``_paged_attn_xla``) when set to it. Single-threaded: one
-    caller drives ``step()``."""
+    gather path (``_paged_attn_xla``) when set to it. ``kv_quant="int8"``
+    stores the pool as int8 codes plus f16 scales (``KV_QUANT``), which
+    routes decode to the int8 kernel. Single-threaded: one caller drives
+    ``step()``."""
 
     PREFILL_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
     ADMIT_BUCKETS = (1, 2, 4, 8)
@@ -248,8 +328,11 @@ class ContinuousBatchingEngine:
         rng_seed: int = 0,
         steps_per_tick: int = 8,
         max_tick_steps: Optional[int] = None,
+        kv_quant: str = "none",
         device=None,
     ) -> None:
+        if kv_quant not in ("none", "int8"):
+            raise ValueError(f"kv_quant must be 'none' or 'int8', got {kv_quant!r}")
         self.device = resolve_device(device)
         self.cfg = model_config or LlamaConfig.tiny()
         self.tokenizer = ByteTokenizer(self.cfg.vocab_size)
@@ -267,7 +350,9 @@ class ContinuousBatchingEngine:
         self.max_tick_steps = (max(int(max_tick_steps), self.steps_per_tick)
                                if max_tick_steps is not None else self.steps_per_tick)
         num_pages = 1 + max_slots * max_pages_per_seq
-        self.pool = init_pool(self.cfg, num_pages, page_size, self.device)
+        self.kv_quant = kv_quant
+        self.pool = init_pool(self.cfg, num_pages, page_size, self.device,
+                              quantized=kv_quant == "int8")
         self.allocator = PageAllocator(num_pages)
         self.attn_impl = paged_attn_impl
 

@@ -3,15 +3,22 @@
 Marked ``cuda``: on a host without a CUDA device every test here skips
 (the decision is made in a fixture, at run time). On the card:
 ``python -m pytest tests/test_torch_cuda.py -q -m cuda``. Tolerance: the
-bf16 kernel against the float32 plain version on bf16 inputs, max abs
-error 2e-2 (bf16 outputs carry ~3 significant digits)."""
+bf16-output kernels against the float32 plain versions on the same
+inputs (bf16 pages, or int8 codes with f16 scales), max abs error 2e-2
+(bf16 outputs carry ~3 significant digits)."""
 
 import pytest
 import torch
 
-from sentio_tpu_torch.kernels import FLASH_KERNEL, PAGED_KERNEL
+from sentio_tpu_torch.kernels import FLASH_KERNEL, PAGED_KERNEL, PAGED_QUANT_KERNEL
 from sentio_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_plain
-from sentio_tpu_torch.kernels.paged_attention import paged_attention, paged_attention_plain
+from sentio_tpu_torch.kernels.paged_attention import (
+    paged_attention,
+    paged_attention_plain,
+    paged_attention_quant,
+    paged_attention_quant_plain,
+)
+from sentio_tpu_torch.runtime.paged import quantize_kv
 
 pytestmark = pytest.mark.cuda
 ATOL = 2e-2
@@ -48,6 +55,29 @@ def test_paged_kernel_matches_plain(dev, rep, d):
     assert (out.float() - ref).abs().max().item() <= ATOL
 
 
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("d", [64, 128])
+def test_paged_quant_kernel_matches_plain(dev, rep, d):
+    """The bf16 cases' pools quantized, with NaN scales and random codes in
+    the tail of each row's current page, which the kernel must not read."""
+    q, kp, vp, table, lens = _paged_inputs(dev, rep, d=d)
+    page = kp.shape[1]
+    (k_q, k_s), (v_q, v_s) = quantize_kv(kp), quantize_kv(vp)
+    for row, n in enumerate(lens.tolist()):
+        pid, tail = int(table[row, n // page]), n % page + 1
+        if pid:
+            for codes, scales in ((k_q, k_s), (v_q, v_s)):
+                codes[pid, tail:] = torch.randint_like(codes[pid, tail:], -128, 128)
+                scales[pid, tail:] = float("nan")
+    before = PAGED_QUANT_KERNEL.launches
+    out = paged_attention_quant(q, k_q, k_s, v_q, v_s, table, lens)
+    torch.cuda.synchronize()
+    assert PAGED_QUANT_KERNEL.launches == before + 1
+    ref = paged_attention_quant_plain(q.float(), k_q, k_s, v_q, v_s, table, lens)
+    assert bool(out.isfinite().all())
+    assert (out.float() - ref).abs().max().item() <= ATOL
+
+
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 def test_flash_kernel_matches_plain(dev, d, causal):
@@ -71,6 +101,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         paged_attention(q.float(), kp, vp, table, lens)
     with pytest.raises(ValueError):
         paged_attention(q, kp, vp, table.long(), lens)
+    (k_q, k_s), (v_q, v_s) = quantize_kv(kp), quantize_kv(vp)
+    with pytest.raises(ValueError):  # bf16 pages where int8 codes belong
+        paged_attention_quant(q, kp, k_s, v_q, v_s, table, lens)
+    with pytest.raises(ValueError):  # float32 scales
+        paged_attention_quant(q, k_q, k_s.float(), v_q, v_s, table, lens)
+    shifted = torch.empty(k_q.numel() + 1, dtype=torch.int8, device=dev)[1:].view(k_q.shape)
+    with pytest.raises(ValueError, match="16-byte"):  # a payload off its alignment
+        paged_attention_quant(q, shifted, k_s, v_q, v_s, table, lens)
     x = torch.zeros((1, 8, 2, 48), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         flash_attention(x, x, x)

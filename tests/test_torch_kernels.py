@@ -14,10 +14,17 @@ import torch
 
 from sentio_tpu.kernels.flash_attention import flash_attention as jax_flash
 from sentio_tpu.kernels.paged_attention import paged_attention as jax_paged
+from sentio_tpu.kernels.paged_attention import paged_attention_quant as jax_paged_quant
+from sentio_tpu.runtime.paged import quantize_kv as jax_quantize
 from sentio_tpu_torch import resolve_device
-from sentio_tpu_torch.kernels import FLASH_KERNEL, PAGED_KERNEL
+from sentio_tpu_torch.kernels import FLASH_KERNEL, PAGED_KERNEL, PAGED_QUANT_KERNEL
 from sentio_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_plain
-from sentio_tpu_torch.kernels.paged_attention import paged_attention, paged_attention_plain
+from sentio_tpu_torch.kernels.paged_attention import (
+    paged_attention,
+    paged_attention_plain,
+    paged_attention_quant,
+    paged_attention_quant_plain,
+)
 
 ATOL = 2e-5
 
@@ -93,11 +100,56 @@ def test_paged_plain_matches_pallas_interpret(rep):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
 
 
+def _quant_problem(rep, seed=0, tail_scale=np.nan):
+    """The ragged rows of :func:`_paged_problem` over an int8 pool quantized
+    by the JAX ``quantize_kv``: random int8 codes and NaN scales on every
+    page past a row's length, random codes and ``tail_scale`` in the
+    current page's tail."""
+    q, kp, vp, table, lens = _paged_problem(rep, seed)
+    rng = np.random.default_rng(seed + 100)
+    page = kp.shape[1]
+    pools = []
+    for pages in (kp, vp):
+        codes, scales = (np.array(a) for a in jax_quantize(jnp.asarray(np.nan_to_num(pages))))
+        for row in range(1, len(lens)):
+            used, tail = lens[row] // page + 1, lens[row] % page + 1
+            owned = table[row]
+            codes[owned[used - 1], tail:] = rng.integers(-128, 128, codes[0, tail:].shape)
+            scales[owned[used - 1], tail:] = tail_scale
+            for pid in owned[used:]:
+                codes[pid] = rng.integers(-128, 128, codes[pid].shape)
+                scales[pid] = np.nan
+        pools += [codes, scales]
+    return (q, *pools, table, lens)
+
+
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+def test_paged_quant_plain_matches_pallas_interpret(rep):
+    """Same int8 pool in, atol 2e-5 out. The Pallas kernel multiplies its
+    probabilities by the value scales of the whole current page, so its
+    tail scales are finite garbage here (a NaN there is 0 × NaN for it);
+    pages past a row's length hold NaN scales, which neither reads."""
+    args = _quant_problem(rep, seed=rep, tail_scale=1e3)
+    ref = jax_paged_quant(*(jnp.asarray(a) for a in args), interpret=True)
+    got = paged_attention_quant_plain(*(torch.from_numpy(a) for a in args))
+    assert np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+    # the port's plain version masks by torch.where: NaN tail scales give
+    # the very same output
+    nan_tail = _quant_problem(rep, seed=rep, tail_scale=np.nan)
+    torch.testing.assert_close(paged_attention_quant_plain(*(torch.from_numpy(a)
+                                                             for a in nan_tail)),
+                               got, rtol=0, atol=0)
+
+
 def test_wrappers_take_the_plain_version_for_cpu_tensors():
     q, kp, vp, table, lens = (torch.from_numpy(a) for a in _paged_problem(2))
-    launches = (PAGED_KERNEL.launches, FLASH_KERNEL.launches)
+    launches = (PAGED_KERNEL.launches, PAGED_QUANT_KERNEL.launches, FLASH_KERNEL.launches)
     torch.testing.assert_close(paged_attention(q, kp, vp, table, lens),
                                paged_attention_plain(q, kp, vp, table, lens), rtol=0, atol=0)
+    quant = [torch.from_numpy(a) for a in _quant_problem(2)]
+    torch.testing.assert_close(paged_attention_quant(*quant),
+                               paged_attention_quant_plain(*quant), rtol=0, atol=0)
     fq, fk, fv = (torch.from_numpy(a) for a in _qkv(2, 20, 20, 2, 16, seed=3))
     fl = torch.tensor([20, 7], dtype=torch.int32)
     for causal in (False, True):
@@ -105,7 +157,8 @@ def test_wrappers_take_the_plain_version_for_cpu_tensors():
                                    flash_attention_plain(fq, fk, fv, fl, causal=causal),
                                    rtol=0, atol=0)
     # the plain path is not a kernel launch
-    assert (PAGED_KERNEL.launches, FLASH_KERNEL.launches) == launches
+    assert (PAGED_KERNEL.launches, PAGED_QUANT_KERNEL.launches,
+            FLASH_KERNEL.launches) == launches
 
 
 def test_cuda_request_without_cuda_raises(monkeypatch):
@@ -121,6 +174,8 @@ def test_wrappers_refuse_other_devices():
     q = torch.empty((2, 4, 16), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         paged_attention(q, q, q, q, q)
+    with pytest.raises(ValueError, match="unsupported device"):
+        paged_attention_quant(q, q, q, q, q, q, q)
     x = torch.empty((1, 4, 2, 16), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         flash_attention(x, x, x)

@@ -1,14 +1,20 @@
 """``ChatPipeline.chat`` against the JAX graph on carried tiny weights.
 
-The JAX side is ``build_basic_graph`` over TpuEmbedder, TpuDenseIndex (the
-dense retriever), CrossEncoderReranker and TpuProvider over the JAX paged
-engine with its Pallas kernel in interpret mode; the port gets the same
-float32 weights through sentio_tpu_torch.runtime.weights. Both retrieve
-densely, decode greedily (mode "fast") under a small token budget, and
-must return the same retrieved and reranked ids, the same sources, the
-same answer text and the same verdict."""
+The JAX side is ``build_basic_graph`` over TpuEmbedder, TpuDenseIndex, the
+retriever JAX's ``create_retriever`` makes for the strategy (dense, or
+hybrid: the dense leg and a BM25 leg fused by rrf), CrossEncoderReranker
+and TpuProvider over the JAX paged engine with its Pallas kernel in
+interpret mode; the port gets the same float32 weights through
+sentio_tpu_torch.runtime.weights and builds its own retriever from the same
+settings. Both decode greedily (mode "fast") under a small token budget,
+and must return the same retrieved and reranked ids, the same sources, the
+same answer text and the same verdict — with bf16 pools (float32 here) and
+with int8 pools on both sides. Also: the settings this package cannot
+honour raise, and the CLI honours ``RETRIEVAL_STRATEGY`` and
+``KV_QUANT``."""
 
 import dataclasses
+import json
 
 import jax
 import numpy as np
@@ -27,15 +33,18 @@ from sentio_tpu.models.llama import LlamaConfig as JLlamaConfig
 from sentio_tpu.models.llama import init_llama
 from sentio_tpu.models.transformer import EncoderConfig as JEncoderConfig
 from sentio_tpu.models.transformer import init_encoder
+from sentio_tpu.ops.bm25 import BM25Index as JBM25Index
 from sentio_tpu.ops.dense_index import TpuDenseIndex
 from sentio_tpu.ops.embedder import TpuEmbedder
 from sentio_tpu.ops.generator import LLMGenerator as JLLMGenerator
 from sentio_tpu.ops.generator import TpuProvider
 from sentio_tpu.ops.reranker import CrossEncoderReranker as JReranker
-from sentio_tpu.ops.retrievers import DenseRetriever
+from sentio_tpu.ops.retrievers import create_retriever
 from sentio_tpu.ops.verifier import AnswerVerifier as JVerifier
 from sentio_tpu.runtime.paged import ContinuousBatchingEngine as JEngine
 from sentio_tpu.serve.handlers import ChatHandler
+from sentio_tpu_torch import __main__ as cli
+from sentio_tpu_torch import pipeline as pipeline_module
 from sentio_tpu_torch.config import (
     EmbedderConfig,
     GeneratorConfig,
@@ -46,7 +55,6 @@ from sentio_tpu_torch.config import (
 from sentio_tpu_torch.models.document import Document
 from sentio_tpu_torch.models.llama import LlamaConfig
 from sentio_tpu_torch.models.transformer import EncoderConfig
-from sentio_tpu_torch.ops.dense_index import TorchDenseIndex
 from sentio_tpu_torch.pipeline import build_pipeline
 from sentio_tpu_torch.runtime import weights
 
@@ -68,63 +76,85 @@ class _PagedAsEngine:
 
 
 @pytest.fixture(scope="module")
-def both():
+def shared():
     enc = dataclasses.replace(JEncoderConfig.tiny(), dtype="float32")
     lcfg = dataclasses.replace(JLlamaConfig.tiny(), dtype="float32")
     np_tree = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
-    enc_tree = np_tree(init_encoder(jax.random.PRNGKey(21), enc))
-    ce_tree = np_tree(init_cross_encoder(jax.random.PRNGKey(22), enc))
-    llama_tree = np_tree(init_llama(jax.random.PRNGKey(23), lcfg))
-    docs = build_bundle(n_docs=16, n_queries=1, seed=3).documents
+    return dict(
+        enc=enc, lcfg=lcfg,
+        enc_tree=np_tree(init_encoder(jax.random.PRNGKey(21), enc)),
+        ce_tree=np_tree(init_cross_encoder(jax.random.PRNGKey(22), enc)),
+        llama_tree=np_tree(init_llama(jax.random.PRNGKey(23), lcfg)),
+        docs=build_bundle(n_docs=16, n_queries=1, seed=3).documents,
+    )
+
+
+def _build(shared, strategy, kv_quant):
+    enc, lcfg, docs = shared["enc"], shared["lcfg"], shared["docs"]
+    # float32 corpus on both sides (the index follows the generator dtype):
+    # a bf16 corpus rounds scores to 8 bits and reorders near-ties
+    gen = dict(GEN, **ENGINE, dtype="float32", kv_quant=kv_quant)
 
     # ---- JAX reference graph
     js = JSettings(
-        retrieval=JRetrievalConfig(strategy="dense", top_k=6),
+        retrieval=JRetrievalConfig(strategy=strategy, top_k=6),
         rerank=JRerankConfig(top_k=3),
         embedder=JEmbedderConfig(model_preset="tiny", coalesce=False, cache_size=0),
-        generator=JGeneratorConfig(model_preset="tiny", **GEN, **ENGINE),
+        generator=JGeneratorConfig(model_preset="tiny", **gen),
     )
-    embedder = TpuEmbedder(js.embedder, params=enc_tree, model_config=enc)
+    embedder = TpuEmbedder(js.embedder, params=shared["enc_tree"], model_config=enc)
     index = TpuDenseIndex(dim=enc.dim, dtype="float32")
     index.add(docs, embedder.embed_many([d.text for d in docs]))
-    engine = JEngine(model_config=lcfg, params=llama_tree, max_slots=4, page_size=16,
+    engine = JEngine(model_config=lcfg, params=shared["llama_tree"], max_slots=4, page_size=16,
                      max_pages_per_seq=32, use_pallas=True, prefix_cache=False,
-                     steps_per_tick=8)
+                     steps_per_tick=8, kv_quant=kv_quant)
     generator = JLLMGenerator(provider=TpuProvider(engine=_PagedAsEngine(engine)),
                               config=js.generator)
+    retriever = create_retriever(settings=js, embedder=embedder, dense_index=index,
+                                 bm25_index=JBM25Index().build(index.documents()))
     graph = build_basic_graph(
-        DenseRetriever(embedder, index), generator,
-        reranker=JReranker(js.rerank, params=ce_tree, model_config=enc),
+        retriever, generator,
+        reranker=JReranker(js.rerank, params=shared["ce_tree"], model_config=enc),
         verifier=JVerifier(generator=generator, config=js.generator),
         config=GraphConfig(settings=js),
     )
 
-    # ---- the port, same weights
+    # ---- the port, same weights and settings
     ts = Settings(
-        retrieval=RetrievalConfig(strategy="dense", top_k=6),
+        retrieval=RetrievalConfig(strategy=strategy, top_k=6),
         rerank=RerankConfig(top_k=3),
         embedder=EmbedderConfig(model_preset="tiny"),
-        generator=GeneratorConfig(model_preset="tiny", **GEN, **ENGINE),
+        generator=GeneratorConfig(model_preset="tiny", **gen),
     )
     pipeline = build_pipeline(
         ts, device="cpu",
         llama_config=LlamaConfig(**dataclasses.asdict(lcfg)),
         embedder_config=EncoderConfig(**dataclasses.asdict(enc)),
         reranker_config=EncoderConfig(**dataclasses.asdict(enc)),
-        llama_params=weights.llama_from_jax(llama_tree),
-        embedder_params=weights.encoder_from_jax(enc_tree),
-        reranker_params=weights.cross_encoder_from_jax(ce_tree),
+        llama_params=weights.llama_from_jax(shared["llama_tree"]),
+        embedder_params=weights.encoder_from_jax(shared["enc_tree"]),
+        reranker_params=weights.cross_encoder_from_jax(shared["ce_tree"]),
     )
-    # float32 corpus on both sides (the JAX index above): a bf16 corpus rounds
-    # scores to 8 bits and reorders near-ties
-    pipeline.index = TorchDenseIndex(enc.dim, device="cpu", dtype="float32")
     pipeline.ingest([Document(text=d.text, metadata=dict(d.metadata), id=d.id) for d in docs])
     return graph, pipeline
 
 
-@pytest.mark.parametrize("question", QUESTIONS)
-def test_chat_matches_jax_graph(both, question):
-    graph, pipeline = both
+@pytest.fixture(scope="module")
+def both(shared):
+    return _build(shared, "dense", "none")
+
+
+@pytest.fixture(scope="module")
+def hybrid(shared):
+    return _build(shared, "hybrid", "none")
+
+
+@pytest.fixture(scope="module")
+def hybrid_int8(shared):
+    return _build(shared, "hybrid", "int8")
+
+
+def _assert_same_chat(graph, pipeline, question):
     state = graph.invoke(create_initial_state(question, metadata={"mode": "fast"}))
     got = pipeline.chat(question, mode="fast")
     meta = got["metadata"]
@@ -139,3 +169,67 @@ def test_chat_matches_jax_graph(both, question):
     assert got["verification"]["verdict"] == state["evaluation"]["verdict"]
     assert got["verification"]["notes"] == state["evaluation"]["notes"]
     assert meta["generated_tokens"] > 0
+    return state, got
+
+
+@pytest.mark.parametrize("question", QUESTIONS)
+def test_chat_matches_jax_graph(both, question):
+    _assert_same_chat(*both, question)
+
+
+@pytest.mark.parametrize("question", QUESTIONS)
+def test_hybrid_chat_matches_jax_graph(hybrid, question):
+    """RETRIEVAL_STRATEGY=hybrid (rrf over the dense and BM25 legs): the
+    BM25 leg has hits that reach the fused list, and the chat is
+    token-exact."""
+    _state, got = _assert_same_chat(*hybrid, question)
+    dense_leg, sparse_leg = hybrid[1].retriever.retrievers
+    assert (dense_leg.name, sparse_leg.name) == ("dense", "bm25")
+    sparse_ids = {d.id for d in sparse_leg.retrieve(question, 12)}
+    assert sparse_ids & set(got["metadata"]["retrieved_ids"])
+
+
+@pytest.mark.parametrize("question", QUESTIONS)
+def test_int8_chat_matches_jax_graph(hybrid_int8, question):
+    """Hybrid retrieval with KV_QUANT=int8 on both sides: the same ids, and
+    the answer held to the int8 greedy drain's criterion
+    (tests/test_torch_kv_quant.py), token-exact; an int8 pool is in use."""
+    _graph, pipeline = hybrid_int8
+    assert pipeline.generator.provider.engine.pool.quantized
+    _assert_same_chat(*hybrid_int8, question)
+
+
+@pytest.mark.parametrize("field,value", [("use_scorers", True),
+                                         ("web_cache_path", "/nonexistent/cache")])
+def test_build_pipeline_refuses_what_it_cannot_honour(field, value):
+    settings = Settings(retrieval=RetrievalConfig(**{field: value}))
+    with pytest.raises(NotImplementedError):
+        build_pipeline(settings, device="cpu")
+
+
+@pytest.mark.parametrize("strategy,kv_quant", [("hybrid", "none"), ("bm25", "int8"),
+                                               ("dense", "int8")])
+def test_cli_honours_strategy_and_kv_quant(monkeypatch, capsys, strategy, kv_quant):
+    """``python -m sentio_tpu_torch chat`` reads RETRIEVAL_STRATEGY and
+    KV_QUANT from the environment and hands them to the retriever and the
+    engine."""
+    built = []
+    real = pipeline_module.build_pipeline
+
+    def spy(*args, **kwargs):
+        built.append(real(*args, **kwargs))
+        return built[-1]
+
+    monkeypatch.setattr(pipeline_module, "build_pipeline", spy)
+    monkeypatch.setenv("RETRIEVAL_STRATEGY", strategy)
+    monkeypatch.setenv("KV_QUANT", kv_quant)
+    monkeypatch.setenv("USE_VERIFIER", "0")
+    assert cli.main(["chat", "what does a page table map?", "--tiny", "--device", "cpu",
+                     "--max-tokens", "4"]) == 0
+    response = json.loads(capsys.readouterr().out)
+    (pipeline,) = built
+    assert pipeline.settings.retrieval.strategy == strategy
+    assert pipeline.retriever.name == strategy
+    assert pipeline.generator.provider.engine.kv_quant == kv_quant
+    assert pipeline.generator.provider.engine.pool.quantized == (kv_quant == "int8")
+    assert response["metadata"]["retrieved_ids"]
