@@ -6,16 +6,22 @@ line each:
 
 1. device — the card's name and power limit (nvidia-smi); no CUDA, no run.
 2. build — the three CUDA kernels built from csrc/ with nvcc, in parallel,
-   and the BM25 core with g++ (host code; without a compiler the hybrid
-   retriever scores with numpy, as the JAX package does, and the phase
-   says which backend ran).
+   with each library's count of tensor-core instructions (HGMMA, HMMA) in
+   its SASS (the flash kernel must have some), and the BM25 core with g++
+   (host code; without a compiler the hybrid retriever scores with numpy,
+   as the JAX package does, and the phase says which backend ran).
 3. kernels — each kernel against its plain PyTorch version on the card at
    the shapes the main path gives it (bf16-output kernel vs float32 plain
    on the same inputs: max abs error <= 2e-2 and mean <= 2e-3, since bf16
    outputs carry ~3 significant digits and the sums run in another order),
    timed beside its plain version, the bound the card could reach, and one
    PyTorch call computing the same function (scaled_dot_product_attention,
-   a yardstick only).
+   a yardstick only). The bf16 paged kernel runs at the serving batch's
+   ragged lengths and at a chat's decode shape (one live row, seven idle),
+   each with its pages-per-span sweep; the flash kernel at the embedder's
+   and cross-encoder's shapes and at ingest's full lengths. Kernel and
+   SDPA times are device times: 20 calls captured in a CUDA graph and
+   replayed, so the host's launch cost is not counted.
 4. slice — the /chat pipeline at full width (Llama-3-8B, the base
    embedder, the default cross-encoder) with random weights made on the
    card from a seed, dense retrieval and bf16 pages: ingest 2,048 chunks,
@@ -45,6 +51,7 @@ then non-zero and no result line is printed.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -72,15 +79,28 @@ def bound_ms(n_bytes: float, n_ops: float,
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+def time_ms(torch, fn, iters: int = 20, warmup: int = 3, graph: bool = False) -> float:
+    """Mean ms per call of ``fn`` over ``iters`` calls between two CUDA
+    events; with ``graph`` the calls are captured once in a CUDA graph and
+    the replay is timed (device time, without the host's launch cost)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    def run():
+        for _ in range(iters):
+            fn()
+
+    if graph:
+        captured = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(captured):
+            run()
+        run = captured.replay
+        run()
+        torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    run()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -102,22 +122,32 @@ def check_limits(name: str, max_err: float, mean_err: float) -> None:
 # ------------------------------------------------------------ kernel checks
 
 
-def paged_problem(torch, dev):
+# decode lengths (index of each row's current token) of the serving batch
+# in the smoke: ragged, a scratch row at length 0, partial last pages
+SERVING_LENS = [0, 5, 127, 128, 1000, 2047, 3000, 8191]
+# a /chat's decode: one live slot of ~3,300 tokens (26 pages), the seven
+# idle slots at length 0 on the scratch page, as the engine keeps them
+CHAT_LENS = [3299, 0, 0, 0, 0, 0, 0, 0]
+PAGES_PER_SPAN_SWEEP = (1, 2, 4)
+
+
+def paged_problem(torch, dev, lens_list=SERVING_LENS):
     """The decode shape of the serving batch: B=8, H=32, Hkv=8, D=128, page
-    128, NB 64, 513 pages of random bf16 K/V; ragged lengths with a scratch
-    row at length 0 on page 0 and partial last pages. Returns q, the pools,
+    128, NB 64, 513 pages of random bf16 K/V; rows at length 0 sit on
+    scratch page 0, the others own 64 shuffled pages. Returns q, the pools,
     table, lens, the lengths as a list, and (page id, first unowned slot)
     for every owned page past a row's length (slot 0) and each current
     page's tail."""
     b, h, hkv, d, page, nb, num_pages = 8, 32, 8, 128, 128, 64, 513
     gen = torch.Generator(device=dev).manual_seed(SEED + 10)
-    lens_list = [0, 5, 127, 128, 1000, 2047, 3000, 8191]
     kp = torch.randn((num_pages, page, hkv, d), generator=gen, device=dev, dtype=torch.bfloat16)
     vp = torch.randn((num_pages, page, hkv, d), generator=gen, device=dev, dtype=torch.bfloat16)
     table = torch.zeros((b, nb), dtype=torch.int32)
     perm = (torch.randperm(num_pages - 1, generator=torch.Generator().manual_seed(SEED)) + 1).tolist()
     unowned = []
-    for row in range(1, b):
+    for row in range(b):
+        if lens_list[row] == 0:
+            continue
         owned = [perm.pop() for _ in range(nb)]
         table[row] = torch.tensor(owned, dtype=torch.int32)
         used, tail = lens_list[row] // page + 1, lens_list[row] % page + 1
@@ -127,15 +157,22 @@ def paged_problem(torch, dev):
     return q, kp, vp, table.to(dev), lens, lens_list, unowned
 
 
-def paged_check(torch, dev) -> dict:
-    """The bf16 kernel at the serving shape of :func:`paged_problem`, with
-    NaN in every owned page past a row's length and in each current page's
-    tail (the kernel must never read them)."""
+def paged_check(torch, dev, name: str = "decode_b8_h32_hkv8_d128_page128",
+                lens_list=SERVING_LENS) -> dict:
+    """The bf16 kernel at a decode shape of :func:`paged_problem`, with NaN
+    in every owned page past a row's length and in each current page's tail
+    (the kernel must never read them), and its time at each span size of
+    the sweep (each held to the same limits)."""
     import torch.nn.functional as F
 
-    from sentio_tpu_torch.kernels.paged_attention import paged_attention, paged_attention_plain
+    from sentio_tpu_torch.kernels.paged_attention import (
+        PAGES_PER_SPAN,
+        _launch_split,
+        paged_attention,
+        paged_attention_plain,
+    )
 
-    q, kp, vp, table, lens, lens_list, unowned = paged_problem(torch, dev)
+    q, kp, vp, table, lens, lens_list, unowned = paged_problem(torch, dev, lens_list)
     b, h, d = q.shape
     _, page, hkv, _ = kp.shape
     nb = table.shape[1]
@@ -147,9 +184,15 @@ def paged_check(torch, dev) -> dict:
     torch.cuda.synchronize()
     ref = paged_attention_plain(q.float(), kp.float(), vp.float(), table, lens)
     max_err, mean_err = errors(out, ref)
-    check_limits("paged_attention", max_err, mean_err)
+    check_limits(f"paged_attention {name}", max_err, mean_err)
+    sweep = {}
+    for pps in PAGES_PER_SPAN_SWEEP:
+        check_limits(f"paged_attention {name} pages_per_span={pps}",
+                     *errors(_launch_split(q, kp, vp, table, lens, pps), ref))
+        sweep[pps] = time_ms(torch, lambda: _launch_split(q, kp, vp, table, lens, pps),
+                             graph=True)
 
-    ms = time_ms(torch, lambda: paged_attention(q, kp, vp, table, lens))
+    ms = time_ms(torch, lambda: paged_attention(q, kp, vp, table, lens), graph=True)
     plain_ms = time_ms(torch, lambda: paged_attention_plain(q, kp, vp, table, lens), iters=5)
     # yardstick: SDPA over the rows' pages gathered densely beforehand
     window = nb * page
@@ -162,13 +205,17 @@ def paged_check(torch, dev) -> dict:
     dense_v = dense_v.repeat_interleave(h // hkv, dim=1)
     mask = valid[:, None, None, :]
     library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q[:, :, None, :], dense_k, dense_v, attn_mask=mask))
-    keys = sum(n + 1 for n in lens_list)  # 14,506 at these lengths
+        q[:, :, None, :], dense_k, dense_v, attn_mask=mask), graph=True)
+    keys = sum(n + 1 for n in lens_list)  # 14,506 at the serving lengths
     n_bytes = keys * hkv * d * 2 * 2 + 2 * q.numel() * 2 + table.numel() * 4 + b * 4
     b_ms, b_by = bound_ms(n_bytes, 4 * h * d * keys)
-    case = {"case": "decode_b8_h32_hkv8_d128_page128", "max_abs_err": max_err,
+    n_spans = -(-nb // PAGES_PER_SPAN)
+    live_blocks = hkv * sum(-(-(n // page + 1) // PAGES_PER_SPAN) for n in lens_list)
+    case = {"case": name, "lens": lens_list, "max_abs_err": max_err,
             "mean_abs_err": mean_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": library_ms}
+            "bound_by": b_by, "library_ms": library_ms, "pages_per_span": PAGES_PER_SPAN,
+            "blocks": b * hkv * n_spans, "live_blocks": live_blocks,
+            "ms_by_pages_per_span": sweep}
     emit("kernel", name="paged_attention", **case)
     return case
 
@@ -207,7 +254,7 @@ def paged_quant_check(torch, dev) -> dict:
     max_err, mean_err = errors(out, ref)
     check_limits("paged_attention_quant", max_err, mean_err)
 
-    ms = time_ms(torch, lambda: paged_attention_quant(q, *args))
+    ms = time_ms(torch, lambda: paged_attention_quant(q, *args), graph=True)
     plain_ms = time_ms(torch, lambda: paged_attention_quant_plain(q, *args), iters=5)
     # yardstick: SDPA over the rows' pages dequantized and gathered densely
     # beforehand
@@ -223,7 +270,7 @@ def paged_quant_check(torch, dev) -> dict:
     dense_k, dense_v = dense(k_q, k_s), dense(v_q, v_s)
     mask = valid[:, None, None, :]
     library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q[:, :, None, :], dense_k, dense_v, attn_mask=mask))
+        q[:, :, None, :], dense_k, dense_v, attn_mask=mask), graph=True)
     keys = sum(n + 1 for n in lens_list)
     # codes and f16 scales of the owned keys, K and V; q in, out; table, lens
     n_bytes = keys * hkv * (d + 2) * 2 + 2 * q.numel() * 2 + table.numel() * 4 + b * 4
@@ -252,7 +299,7 @@ def flash_case(torch, dev, name, b, t, h, d, causal, lens_list) -> dict:
     if not bool((out[lens == 0] == 0).all()):
         raise AssertionError(f"{name}: rows with kv_lens == 0 must be exactly 0")
 
-    ms = time_ms(torch, lambda: flash_attention(q, k, v, lens, causal=causal))
+    ms = time_ms(torch, lambda: flash_attention(q, k, v, lens, causal=causal), graph=True)
     plain_ms = time_ms(torch, lambda: flash_attention_plain(q, k, v, lens, causal=causal),
                        iters=5)
     pos = torch.arange(t, device=dev)
@@ -261,7 +308,8 @@ def flash_case(torch, dev, name, b, t, h, d, causal, lens_list) -> dict:
         mask = mask & (pos[None, :] <= pos[:, None])[None, None]
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                                       attn_mask=mask))
+                                                                       attn_mask=mask),
+                         graph=True)
     # operations this data needs: the attendable (query, key) pairs only
     pairs = sum(min(q_pos + 1, n) if causal else n for n in lens_list for q_pos in range(t))
     n_bytes = 4 * q.numel() * 2 + b * 4
@@ -276,7 +324,9 @@ def flash_case(torch, dev, name, b, t, h, d, causal, lens_list) -> dict:
 def flash_checks(torch, dev) -> list[dict]:
     """The embedder's ingest batch (B=128, T=512, H=16, D=64) and the tiny
     cross-encoder's rerank batch (B=32, T=128, H=2, D=32), bidirectional as
-    the main path runs them and causal, with ragged and zero lengths."""
+    the main path runs them and causal, with ragged and zero lengths; then
+    the ingest batch at its real lengths: ~512-byte chunks under the byte
+    tokenizer fill every row to 512."""
     rng = torch.Generator().manual_seed(SEED + 1)
     emb_lens = [0, 512, 1, 64] + torch.randint(0, 513, (124,), generator=rng).tolist()
     ce_lens = [0, 128, 3] + torch.randint(0, 129, (29,), generator=rng).tolist()
@@ -287,7 +337,23 @@ def flash_checks(torch, dev) -> list[dict]:
                                 128, 512, 16, 64, causal, emb_lens))
         cases.append(flash_case(torch, dev, f"cross_encoder_b32_t128_h2_d32_{tag}",
                                 32, 128, 2, 32, causal, ce_lens))
+    cases.append(flash_case(torch, dev, "ingest_full_b128_t512_h16_d64_bidirectional",
+                            128, 512, 16, 64, False, [512] * 128))
     return cases
+
+
+def sass_counts(kernel) -> dict:
+    """Tensor-core instructions in the SASS of a kernel's library:
+    ``HGMMA`` (Hopper's warpgroup products) and ``HMMA`` (warp products)."""
+    import shutil
+    from pathlib import Path
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        raise RuntimeError("cuobjdump not found: the build check reads each library's SASS")
+    sass = subprocess.run([tool, "-sass", str(kernel.library)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\.", sass)) for op in ("HGMMA", "HMMA")}
 
 
 # -------------------------------------------------------------- the slice
@@ -501,10 +567,14 @@ def profile_chat(torch, pipeline, question: str, phase: str = "profile") -> dict
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
                for e in prof.key_averages() if e.self_device_time_total > 0]
     busy_ms = sum(ms for _, ms, _ in kernels)
-    own = ("paged_decode_kernel", "paged_decode_int8_kernel", "flash_fwd_kernel")
-    families = dict.fromkeys((*own, "matmul", "other"), 0.0)
+    # each hand-written kernel's family by its device functions' names: the
+    # bf16 paged family is its split kernel and the combine it launches
+    own = {"paged_decode_kernel": "paged_attention", "paged_combine_kernel": "paged_attention",
+           "paged_decode_int8_kernel": "paged_attention_quant",
+           "flash_fwd_kernel": "flash_attention"}
+    families = dict.fromkeys((*own.values(), "matmul", "other"), 0.0)
     for name, ms, _ in kernels:
-        family = next((f for f in own if f in name), None)
+        family = next((f for fn, f in own.items() if fn in name), None)
         if family is None:  # cuBLAS names its products gemm / nvjet / xmma kernels
             matmul = any(tag in name.lower() for tag in ("gemm", "nvjet", "xmma", "cutlass"))
             family = "matmul" if matmul else "other"
@@ -543,12 +613,17 @@ def main() -> int:
     seconds = build_all(KERNELS)
     t0 = time.perf_counter()
     bm25_core = native.load_bm25() is not None
+    tensor_core = {k.name: sass_counts(k) for k in KERNELS}
     emit("build", seconds=seconds, bm25_core_built=bm25_core,
-         bm25_core_seconds=time.perf_counter() - t0, ptxas={
+         bm25_core_seconds=time.perf_counter() - t0, sass_tensor_core=tensor_core, ptxas={
              k.name: [ln.strip() for ln in k.build_log.splitlines() if "registers" in ln
                       or "spill" in ln] for k in KERNELS})
+    if not tensor_core["flash_attention"]["HGMMA"]:
+        raise AssertionError(f"the flash kernel's products are not on the tensor cores: "
+                             f"{tensor_core['flash_attention']}")
 
     paged = paged_check(torch, dev)
+    paged_chat = paged_check(torch, dev, "chat_decode_b8_h32_hkv8_d128_page128", CHAT_LENS)
     paged_quant = paged_quant_check(torch, dev)
     flash = flash_checks(torch, dev)
     torch.cuda.empty_cache()
@@ -578,7 +653,7 @@ def main() -> int:
          "launches": sl["launches"]["paged_attention"],
          **{k: paged[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                   "bound_by", "library_ms")},
-         "cases": [paged]},
+         "cases": [paged, paged_chat]},
         {"name": "paged_attention_quant", "route": "cuda",
          "source": "sentio_tpu_torch/csrc/paged_attention_quant.cu",
          "replaces": "sentio_tpu/kernels/paged_attention.py:167",

@@ -1,269 +1,406 @@
-// Paged decode attention for Hopper (sm_90a), bf16 page pool.
+// Paged decode attention for Hopper (sm_90a), bf16 page pool, split over
+// the pages of each row (flash-decoding), scores and values on the tensor
+// cores.
 //
 // Replaces sentio_tpu/kernels/paged_attention.py::_paged_kernel (the Pallas
 // kernel behind paged_attention / make_paged_attn_impl). Same function: one
 // new token per row attends over the row's own scattered pages, online
 // softmax in fp32, GQA folded (the rep query heads of a kv group share every
-// K/V read), pages past the row's length never read, keys masked to
-// pos <= lens[b] (the new token's KV is already written at index lens[b]),
-// and a row with nothing to attend (l == 0) writes 0.
+// K/V read), P rounded to bf16 before P V (the TPU kernel's
+// p.astype(v.dtype)), pages past the row's length never read, keys masked
+// to pos <= lens[b] (the new token's KV is already written at index
+// lens[b]), and a row with nothing to attend (l == 0) writes 0.
 //
-// Launch geometry: grid (B, Hkv), 128 threads. One block per (row, kv head)
-// handles that group's rep query heads. The block reads page_table[b, i]
-// itself (the TPU kernel had it by scalar prefetch) and walks pages
-// 0 .. lens[b] / page in order, carrying (m, l, acc) in fp32. Per page:
-//   1. the page's K and V rows of this kv head (each D contiguous bf16) are
-//      staged in shared memory with 16-byte loads, 8 K and 8 V loads in
-//      flight per thread (rows past the current token are not read);
-//   2. scores: thread t owns token t and takes q . k_t for all rep heads
-//      from shared memory (q is read as a broadcast);
-//   3. softmax update: one warp per head row, over this page's tokens;
-//   4. acc update: thread d owns output column d (for every rep head) and
-//      sums p[r][t] * v[t][d] over the staged V rows.
+// What bounds it on the H100 SXM (published peaks, 700 W): the K/V bytes
+// the rows own, B * (lens + 1) * Hkv * D * 2 B * 2 (K and V), at ~1 FLOP
+// per byte — memory, 3.35 TB/s. A 128-token page of one kv head is 64 KB,
+// so a decode step reads a few MB to a few hundred MB: microseconds of HBM
+// time. Walking a row's pages in order in one block, as the TPU kernel's
+// sequential grid axis does, would put a long row on one SM: a launch would
+// take the longest row's page count times one page's latency, with most SMs
+// idle.
+//
+// The design, two kernels launched by one entry point:
+//   1. paged_decode_kernel, grid (B, Hkv, n_spans), 128 threads. A span is
+//      `pages_per_span` consecutive pages of one row (n_spans =
+//      ceil(NB / pages_per_span), known without reading lens); a block
+//      whose span starts past its row's last page exits at once, so a long
+//      row spreads over many SMs and idle rows cost one early exit each.
+//      Pages are copied into shared memory with cp.async 16-byte copies,
+//      double-buffered when a span holds two pages or more (the next page
+//      in flight while this one is scored), one __syncthreads a page; only
+//      the valid rows are read, never the tail past the current token, and
+//      the rows up to the next multiple of 32 are zero-filled.
+//      Warp w takes tokens 32w .. 32w + 31 of the page and runs both
+//      products as mma.sync m16n8k16 (bf16 in, fp32 sums): the rep query
+//      heads are the 16 rows of A (rows past rep are zero; A is built once
+//      from q), K and V rows come in by ldmatrix (V transposed by it), and
+//      the scores stay in registers, where the softmax runs with two quad
+//      shuffles a row. Each warp keeps its own (m, l, acc); the four merge
+//      in shared memory and the block writes its unnormalised partial (m,
+//      l, acc[rep][D]) in fp32 to scratch.
+//   2. paged_combine_kernel, grid (B * H), merges a row's live spans in
+//      span order (no atomics: the same output every run) by the
+//      log-sum-exp rule and writes bf16 out; a row with one span goes
+//      through the same merge, a row with none writes 0.
 // Reads: q [B, H, D], the owned K/V pages [P, page, Hkv, D], page_table
-// [B, NB] int32, lens [B] int32. Writes: out [B, H, D].
-//
-// Bound on the H100: the K/V bytes the rows own, B * (lens + 1) * Hkv * D *
-// 2 B * 2 (K and V) — about 67 MB per layer at 2K-token rows, ~20 us at
-// 3.35 TB/s; the arithmetic is ~1 FLOP per byte. The design reads each
-// owned K/V byte exactly once and nothing past lens. What it does not do
-// yet: overlap one page's loads with the previous page's math (cp.async /
-// TMA double buffering), or split a long row over several blocks — so a
-// row's time grows with its length on one SM, and B * Hkv blocks (64 at the
-// serving batch) leave most of the 132 SMs idle.
+// [B, NB] int32, lens [B] int32. Writes: out [B, H, D]; scratch
+// B * H * n_spans * (D + 2) floats, allocated by the caller.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <float.h>
+#include <math.h>
+
+#include "cuda_common.cuh"
 
 namespace {
 
+using sentio::cp_async16;
+using sentio::cp_async_commit;
+using sentio::cp_async_wait;
+using sentio::exp2_approx;
+using sentio::smem_addr;
+
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxRep = 8;            // query heads per kv head
-constexpr int kMaxColsPerThread = 2;  // D <= 256
-constexpr int kVec = 8;               // bf16 per 16-byte load
-constexpr int kBatch = 8;             // 16-byte loads in flight per thread
-constexpr float kNegInf = -FLT_MAX;
+constexpr int kChunk = 32;   // tokens a warp takes per page (4 mma columns of 8)
+constexpr int kMaxRep = 8;   // query heads per kv head: the 8 live rows of A
+constexpr int kVec = 8;      // bf16 per 16-byte copy and per ldmatrix row
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// A page buffer holds rows_per_page(page) rows of K then as many of V, each
+// row D + kVec bf16 (the padding puts the 8 rows an ldmatrix reads on
+// distinct banks).
+__host__ __device__ inline int rows_per_page(int page) {
+  return (page + kChunk - 1) / kChunk * kChunk;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+__host__ __device__ inline size_t buffer_bytes(int D, int page) {
+  return 2 * (size_t)rows_per_page(page) * (D + kVec) * 2;
 }
 
-// Shared memory, in order: K rows [page][D + kVec] bf16 (padded so 16-byte
-// reads of consecutive rows fall on different banks), V rows [page][D]
-// bf16, then fp32 q [rep][D], scores [rep][page], m, l, alpha [rep].
-__host__ __device__ inline size_t smem_bytes(int rep, int D, int page) {
-  return (size_t)page * (D + kVec) * 2 + (size_t)page * D * 2 +
-         sizeof(float) * ((size_t)rep * D + (size_t)rep * page + 3 * rep);
+// The page buffers, or (after the last page) the warps' states for the
+// merge: [kWarps][rep] m, l and [kWarps][rep][D] acc.
+__host__ __device__ inline size_t smem_bytes(int rep, int D, int page, int n_buf) {
+  const size_t merge = sizeof(float) * (size_t)kWarps * rep * (D + 2);
+  const size_t pages = n_buf * buffer_bytes(D, page);
+  return pages > merge ? pages : merge;
 }
 
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t& r0, uint32_t& r1,
+                                            uint32_t& r2, uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr, uint32_t& r0, uint32_t& r1,
+                                                  uint32_t& r2, uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(addr));
+}
+
+// d[4] += A[16 x 16] * B[16 x 8]; A rows 8..15 are zero here, so a[1] and
+// a[3] are 0 and d[2], d[3] (rows g + 8) are never read.
+__device__ __forceinline__ void mma_16816(float (&d)[4], uint32_t a0, uint32_t a2,
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k_pages,
                     const __nv_bfloat16* __restrict__ v_pages,
                     const int* __restrict__ page_table,
                     const int* __restrict__ lens,
-                    __nv_bfloat16* __restrict__ out,
-                    int H, int Hkv, int D, int page, int NB, int P,
-                    float sm_scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int rep = H / Hkv;
-  const int kp = D + kVec;  // K row pitch in bf16
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* v_s = k_s + (size_t)page * kp;
-  float* q_s = reinterpret_cast<float*>(v_s + (size_t)page * D);  // [rep][D]
-  float* s_s = q_s + rep * D;      // [rep][page] scores, then probabilities
-  float* m_s = s_s + rep * page;   // [rep] running max
-  float* l_s = m_s + rep;          // [rep] running normalizer
-  float* a_s = l_s + rep;          // [rep] this page's rescale factor
-
+                    float* __restrict__ part_acc,  // [B * H][n_spans][D]
+                    float* __restrict__ part_ml,   // [B * H][n_spans][2]
+                    int H, int Hkv, int page, int NB, int P,
+                    int pages_per_span, int n_buf, float sm_scale) {
+  constexpr int kp = D + kVec;  // row pitch in bf16
   const int b = blockIdx.x;
   const int g = blockIdx.y;
+  const int span = blockIdx.z;
+  const int n_spans = gridDim.z;
+  const int cur = lens[b];  // the new token sits at absolute index cur
+  const int n_pages = cur < 0 ? 0 : min(cur / page + 1, NB);
+  const int p_begin = span * pages_per_span;
+  if (p_begin >= n_pages) return;  // the combine never reads this span
+  const int p_end = min(p_begin + pages_per_span, n_pages);
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t smem0 = smem_addr(smem_raw);
+  const int rows = rows_per_page(page);
+  const uint32_t buf_bytes = (uint32_t)buffer_bytes(D, page);
+  const int rep = H / Hkv;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int cur = lens[b];  // the new token sits at absolute index cur
-
-  const size_t q_row0 = (size_t)b * H + (size_t)g * rep;
-  for (int i = tid; i < rep * D; i += kThreads) {
-    q_s[i] = __bfloat162float(q[q_row0 * D + i]);
-  }
-  if (tid < rep) {
-    m_s[tid] = kNegInf;
-    l_s[tid] = 0.f;
-  }
-  float acc[kMaxRep][kMaxColsPerThread];
-#pragma unroll
-  for (int r = 0; r < kMaxRep; ++r)
-#pragma unroll
-    for (int j = 0; j < kMaxColsPerThread; ++j) acc[r][j] = 0.f;
-
+  const int gr = lane >> 2;  // fragment row: query head gr of the group
+  const int t = lane & 3;    // fragment columns 2t, 2t + 1 of each 8
   const size_t tok_stride = (size_t)Hkv * D;  // between tokens of a page
-  const int vecs = D / kVec;                  // 16-byte chunks per row
-  const int n_pages = cur < 0 ? 0 : min(cur / page + 1, NB);
-  for (int i = 0; i < n_pages; ++i) {
+
+  // tokens of page i this row may read (0 for an id outside the pool)
+  auto valid_tokens = [&](int i) -> int {
     const int pid = page_table[b * NB + i];
-    if (pid < 0 || pid >= P) continue;  // never read outside the pool
-    const int n_valid = min(page, cur + 1 - i * page);
-    const size_t page_off = (size_t)pid * page * tok_stride + (size_t)g * D;
-
-    // 1. stage the valid K and V rows (consecutive threads read consecutive
-    //    16-byte chunks of a row: each row is one contiguous D * 2 bytes).
-    //    Each thread issues kBatch K and kBatch V loads before it stores
-    //    any, so a page costs a few HBM round trips, not one per chunk.
-    const int n_chunks = n_valid * vecs;
-    for (int c0 = tid; c0 < n_chunks; c0 += kThreads * kBatch) {
-      uint4 kr[kBatch], vr[kBatch];
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int c = c0 + u * kThreads;
-        if (c < n_chunks) {
-          const int t = c / vecs;
-          const size_t src = page_off + (size_t)t * tok_stride + (c - t * vecs) * kVec;
-          kr[u] = *reinterpret_cast<const uint4*>(k_pages + src);
-          vr[u] = *reinterpret_cast<const uint4*>(v_pages + src);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int c = c0 + u * kThreads;
-        if (c < n_chunks) {
-          const int t = c / vecs;
-          const int x = (c - t * vecs) * kVec;
-          *reinterpret_cast<uint4*>(k_s + t * kp + x) = kr[u];
-          *reinterpret_cast<uint4*>(v_s + t * D + x) = vr[u];
-        }
-      }
+    return (pid < 0 || pid >= P) ? 0 : min(page, cur + 1 - i * page);
+  };
+  // start the copies of page i's valid K and V rows into buffer buf, and
+  // zero-fill the rows after them up to the next multiple of kChunk
+  auto issue = [&](int i, int buf) {
+    const int n_valid = valid_tokens(i);
+    const int n_rows = min(rows, (n_valid + kChunk - 1) / kChunk * kChunk);
+    const size_t page_off =
+        (size_t)(n_valid > 0 ? page_table[b * NB + i] : 0) * page * tok_stride + (size_t)g * D;
+    const uint32_t k_dst = smem0 + buf * buf_bytes;
+    const uint32_t v_dst = k_dst + rows * kp * 2;
+    for (int c = tid; c < n_rows * (D / kVec); c += kThreads) {
+      const int r = c / (D / kVec);
+      const int x = (c - r * (D / kVec)) * kVec;
+      const bool ok = r < n_valid;
+      const size_t src = ok ? page_off + (size_t)r * tok_stride + x : 0;
+      cp_async16(k_dst + (r * kp + x) * 2, k_pages + src, ok ? 16 : 0);
+      cp_async16(v_dst + (r * kp + x) * 2, v_pages + src, ok ? 16 : 0);
     }
-    __syncthreads();
+    cp_async_commit();
+  };
 
-    // 2. scores s[r][t] = (q_r . k_t) * sm_scale, one token per thread
-    for (int t = tid; t < n_valid; t += kThreads) {
-      float part[kMaxRep];
+  issue(p_begin, 0);
+
+  // A fragments of q: row gr (a query head of this group) at columns
+  // 16ks + 2t (a0) and 16ks + 8 + 2t (a2); heads past rep are zero rows
+  uint32_t qa[D / 16][2];
+  const __nv_bfloat16* q_row = q + ((size_t)b * H + (size_t)g * rep + gr) * D;
 #pragma unroll
-      for (int r = 0; r < kMaxRep; ++r) part[r] = 0.f;
-      const __nv_bfloat16* krow = k_s + t * kp;
-      for (int x = 0; x < D; x += kVec) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(krow + x);
-        const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-        float kf[kVec];
+  for (int ks = 0; ks < D / 16; ++ks) {
+    qa[ks][0] = gr < rep ? *reinterpret_cast<const uint32_t*>(q_row + 16 * ks + 2 * t) : 0u;
+    qa[ks][1] = gr < rep ? *reinterpret_cast<const uint32_t*>(q_row + 16 * ks + 8 + 2 * t) : 0u;
+  }
+  const float scale = sm_scale * kLog2e;  // scores in log2 units: exp2 below
+  float m = -INFINITY, l = 0.f;           // row gr: m quad-uniform, l this lane's share
+  float acc[D / 8][4];                    // P V: columns 8n + 2t, 8n + 2t + 1 (and rows gr + 8)
 #pragma unroll
-        for (int e = 0; e < kVec / 2; ++e) {
-          const float2 f = __bfloat1622float2(k2[e]);
-          kf[2 * e] = f.x;
-          kf[2 * e + 1] = f.y;
-        }
+  for (int n = 0; n < D / 8; ++n)
 #pragma unroll
-        for (int r = 0; r < kMaxRep; ++r) {
-          if (r < rep) {
-            const float* qr = q_s + r * D + x;
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  // ldmatrix row addresses of this lane (row lane % 8 of matrix lane / 8)
+  const uint32_t k_lane = ((lane & 7) * kp + 8 * (lane >> 3)) * 2;
+  const uint32_t v_lane = ((8 * ((lane >> 3) & 1) + (lane & 7)) * kp + 8 * (lane >> 4)) * 2;
+
+  for (int i = p_begin; i < p_end; ++i) {
+    const int buf = n_buf == 2 ? (i - p_begin) & 1 : 0;
+    cp_async_wait<0>();
+    __syncthreads();  // page i is visible; every warp is done with the other buffer
+    if (n_buf == 2 && i + 1 < p_end) issue(i + 1, buf ^ 1);
+
+    const int n_valid = valid_tokens(i);
+    const uint32_t kb = smem0 + buf * buf_bytes;
+    const uint32_t vb = kb + rows * kp * 2;
+    for (int base = warp * kChunk; base < n_valid; base += kWarps * kChunk) {
+      // S[16 x 32] = Q K^T over this warp's 32 tokens: 4 column blocks of 8
+      float s[4][4];
 #pragma unroll
-            for (int e = 0; e < kVec; ++e) part[r] += qr[e] * kf[e];
-          }
+      for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+        const uint32_t k_rows = kb + (base + 8 * nt) * kp * 2 + k_lane;
+#pragma unroll
+        for (int kk = 0; kk < D / 32; ++kk) {
+          uint32_t b0, b1, b2, b3;
+          ldmatrix_x4(k_rows + kk * 64, b0, b1, b2, b3);
+          mma_16816(s[nt], qa[2 * kk][0], qa[2 * kk][1], b0, b1);
+          mma_16816(s[nt], qa[2 * kk + 1][0], qa[2 * kk + 1][1], b2, b3);
         }
       }
+      // online softmax of row gr over the 32 tokens: 8 here, the rest in
+      // the quad; the chunk's first token is valid, so m stays finite
+      float mx = -INFINITY;
 #pragma unroll
-      for (int r = 0; r < kMaxRep; ++r) {
-        if (r < rep) s_s[r * page + t] = part[r] * sm_scale;
-      }
-    }
-    __syncthreads();
-
-    // 3. online-softmax update, one warp per head row
-    for (int r = warp; r < rep; r += kWarps) {
-      float mx = kNegInf;
-      for (int t = lane; t < n_valid; t += 32) mx = fmaxf(mx, s_s[r * page + t]);
-      mx = warp_max(mx);
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      const bool live = m_new > kNegInf * 0.5f;
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (base + 8 * nt + 2 * t + e < n_valid) mx = fmaxf(mx, s[nt][e]);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m, mx * scale);
+      const float alpha = exp2_approx(m - m_new);
+      m = m_new;
+      float p[4][2];
       float sum = 0.f;
-      for (int t = lane; t < n_valid; t += 32) {
-        const float p = live ? expf(s_s[r * page + t] - m_new) : 0.f;
-        s_s[r * page + t] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = live ? expf(m_prev - m_new) : 1.f;
-        l_s[r] = l_s[r] * alpha + sum;
-        m_s[r] = m_new;
-        a_s[r] = alpha;
-      }
-    }
-    __syncthreads();
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool ok = base + 8 * nt + 2 * t + e < n_valid;
+          p[nt][e] = ok ? exp2_approx(fmaf(s[nt][e], scale, -m_new)) : 0.f;
+          sum += p[nt][e];
+        }
+      l = l * alpha + sum;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] *= alpha;
 
-    // 4. acc[r][d] = acc[r][d] * alpha[r] + sum_t p[r][t] * v[t][d]
+      // acc += P V: P as bf16 A fragments (tokens 16kc .. 16kc + 15 are the
+      // S column blocks 2kc and 2kc + 1), V rows transposed by ldmatrix
 #pragma unroll
-    for (int j = 0; j < kMaxColsPerThread; ++j) {
-      const int d = tid + j * kThreads;
-      if (d < D) {
+      for (int kc = 0; kc < 2; ++kc) {
+        const uint32_t pa0 = pack_bf16(p[2 * kc][0], p[2 * kc][1]);
+        const uint32_t pa2 = pack_bf16(p[2 * kc + 1][0], p[2 * kc + 1][1]);
+        const uint32_t v_rows = vb + (base + 16 * kc) * kp * 2 + v_lane;
 #pragma unroll
-        for (int r = 0; r < kMaxRep; ++r) {
-          if (r < rep) acc[r][j] *= a_s[r];
-        }
-#pragma unroll 4
-        for (int t = 0; t < n_valid; ++t) {
-          const float vv = __bfloat162float(v_s[t * D + d]);
-#pragma unroll
-          for (int r = 0; r < kMaxRep; ++r) {
-            if (r < rep) acc[r][j] += s_s[r * page + t] * vv;
-          }
+        for (int n2 = 0; n2 < D / 16; ++n2) {
+          uint32_t b0, b1, b2, b3;
+          ldmatrix_x4_trans(v_rows + n2 * 32, b0, b1, b2, b3);
+          mma_16816(acc[2 * n2], pa0, pa2, b0, b1);
+          mma_16816(acc[2 * n2 + 1], pa0, pa2, b2, b3);
         }
       }
     }
-    __syncthreads();  // the next page overwrites k_s, v_s and s_s
+    if (n_buf == 1 && i + 1 < p_end) {
+      __syncthreads();  // every warp is done with the only buffer
+      issue(i + 1, 0);
+    }
   }
 
+  // merge the four warps' states, then write this span's partial
+  l += __shfl_xor_sync(0xffffffffu, l, 1);
+  l += __shfl_xor_sync(0xffffffffu, l, 2);
+  float* mw_s = reinterpret_cast<float*>(smem_raw);  // [kWarps][rep]
+  float* lw_s = mw_s + kWarps * rep;                 // [kWarps][rep]
+  float* aw_s = lw_s + kWarps * rep;                 // [kWarps][rep][D]
+  __syncthreads();  // the page buffers become the merge area
+  if (gr < rep) {
+    if (t == 0) {
+      mw_s[warp * rep + gr] = m;
+      lw_s[warp * rep + gr] = l;
+    }
 #pragma unroll
-  for (int j = 0; j < kMaxColsPerThread; ++j) {
-    const int d = tid + j * kThreads;
-    if (d < D) {
-#pragma unroll
-      for (int r = 0; r < kMaxRep; ++r) {
-        if (r < rep) {
-          const float l = l_s[r];
-          out[(q_row0 + r) * D + d] = __float2bfloat16(acc[r][j] / (l == 0.f ? 1.f : l));
-        }
-      }
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<float2*>(aw_s + (warp * rep + gr) * D + 8 * n + 2 * t) =
+          make_float2(acc[n][0], acc[n][1]);
     }
   }
+  __syncthreads();
+  const size_t q_row0 = (size_t)b * H + (size_t)g * rep;
+  for (int idx = tid; idx < rep * D; idx += kThreads) {
+    const int r = idx / D;
+    const int d = idx - r * D;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, mw_s[w * rep + r]);
+    float lsum = 0.f, a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float mw = mw_s[w * rep + r];
+      const float wgt = mw == -INFINITY ? 0.f : exp2_approx(mw - mx);
+      lsum += wgt * lw_s[w * rep + r];
+      a += wgt * aw_s[(w * rep + r) * D + d];
+    }
+    const size_t slot = (q_row0 + r) * n_spans + span;
+    part_acc[slot * D + d] = a;
+    if (d == 0) {
+      part_ml[slot * 2] = mx;
+      part_ml[slot * 2 + 1] = lsum;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+paged_combine_kernel(const float* __restrict__ part_acc,
+                     const float* __restrict__ part_ml,
+                     const int* __restrict__ lens,
+                     __nv_bfloat16* __restrict__ out,
+                     int H, int D, int page, int NB, int pages_per_span,
+                     int n_spans) {
+  const int bh = blockIdx.x;
+  const int cur = lens[bh / H];
+  const int n_pages = cur < 0 ? 0 : min(cur / page + 1, NB);
+  const int live = (n_pages + pages_per_span - 1) / pages_per_span;
+  const float* ml = part_ml + (size_t)bh * n_spans * 2;
+  const float* pa = part_acc + (size_t)bh * n_spans * D;
+  float mx = -INFINITY;
+  for (int s = 0; s < live; ++s) mx = fmaxf(mx, ml[2 * s]);
+  for (int d = threadIdx.x; d < D; d += kThreads) {
+    float lsum = 0.f, a = 0.f;
+    for (int s = 0; s < live; ++s) {
+      const float ms = ml[2 * s];
+      const float wgt = ms == -INFINITY ? 0.f : exp2_approx(ms - mx);
+      lsum += wgt * ml[2 * s + 1];
+      a += wgt * pa[(size_t)s * D + d];
+    }
+    out[(size_t)bh * D + d] = __float2bfloat16(lsum == 0.f ? 0.f : a / lsum);
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* k_pages, const void* v_pages, const void* page_table,
+           const void* lens, void* out, float* part_acc, float* part_ml, int B, int H,
+           int Hkv, int page, int NB, int P, int pages_per_span, float sm_scale,
+           cudaStream_t stream) {
+  const int rep = H / Hkv;
+  // two page buffers when a span has a next page to prefetch and they fit
+  const int n_buf = pages_per_span > 1 && smem_bytes(rep, D, page, 2) <= 227 * 1024 ? 2 : 1;
+  const size_t smem = smem_bytes(rep, D, page, n_buf);
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  static size_t smem_allowed = 48 * 1024;  // raised once, to the largest asked
+  if (smem > smem_allowed) {
+    cudaError_t e = cudaFuncSetAttribute(
+        paged_decode_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_allowed = smem;
+  }
+  const int n_spans = (NB + pages_per_span - 1) / pages_per_span;
+  paged_decode_kernel<D><<<dim3(B, Hkv, n_spans), kThreads, smem, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_pages,
+      (const __nv_bfloat16*)v_pages, (const int*)page_table, (const int*)lens,
+      part_acc, part_ml, H, Hkv, page, NB, P, pages_per_span, n_buf, sm_scale);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  paged_combine_kernel<<<B * H, kThreads, 0, stream>>>(
+      part_acc, part_ml, (const int*)lens, (__nv_bfloat16*)out, H, D, page, NB,
+      pages_per_span, n_spans);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int paged_attention_bf16(const void* q, const void* k_pages,
                                     const void* v_pages, const void* page_table,
-                                    const void* lens, void* out, int B, int H,
-                                    int Hkv, int D, int page, int NB, int P,
+                                    const void* lens, void* out, void* scratch,
+                                    int B, int H, int Hkv, int D, int page,
+                                    int NB, int P, int pages_per_span,
                                     float sm_scale, void* stream) {
   if (B <= 0) return 0;
-  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > kMaxRep || D % kVec != 0 ||
-      D > kThreads * kMaxColsPerThread || page <= 0 || NB <= 0 || P <= 0) {
+  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > kMaxRep || page <= 0 || NB <= 0 || P <= 0 ||
+      pages_per_span <= 0) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = smem_bytes(H / Hkv, D, page);
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        paged_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  const int n_spans = (NB + pages_per_span - 1) / pages_per_span;
+  float* part_acc = static_cast<float*>(scratch);
+  float* part_ml = part_acc + (size_t)B * H * n_spans * D;
+  cudaStream_t s = (cudaStream_t)stream;
+#define SENTIO_PAGED_ARGS q, k_pages, v_pages, page_table, lens, out, part_acc, part_ml, B, H, \
+                          Hkv, page, NB, P, pages_per_span, sm_scale, s
+  switch (D) {
+    case 32: return launch<32>(SENTIO_PAGED_ARGS);
+    case 64: return launch<64>(SENTIO_PAGED_ARGS);
+    case 128: return launch<128>(SENTIO_PAGED_ARGS);
+    case 256: return launch<256>(SENTIO_PAGED_ARGS);
+    default: return (int)cudaErrorInvalidValue;
   }
-  dim3 grid(B, Hkv);
-  paged_decode_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_pages,
-      (const __nv_bfloat16*)v_pages, (const int*)page_table, (const int*)lens,
-      (__nv_bfloat16*)out, H, Hkv, D, page, NB, P, sm_scale);
-  return (int)cudaGetLastError();
+#undef SENTIO_PAGED_ARGS
 }
 
 extern "C" const char* sentio_cuda_error_string(int code) {

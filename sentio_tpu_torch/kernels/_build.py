@@ -2,8 +2,9 @@
 
 Each ``csrc/*.cu`` file exports a plain C launcher. It is compiled with
 ``nvcc`` for ``sm_90a`` into its own shared library under ``build/`` at the
-root of the checkout (named by a hash of source and flags, so an edited
-source rebuilds) and loaded with ``ctypes``. Nothing is built at import:
+root of the checkout (named by a hash of the source, the headers it
+includes from ``csrc/`` and the flags, so an edited source or header
+rebuilds) and loaded with ``ctypes``. Nothing is built at import:
 the first launch builds, or :func:`build_all` builds every kernel with one
 ``nvcc`` process per source, all started together.
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -25,6 +27,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 
 def nvcc_path() -> str:
@@ -52,12 +55,26 @@ class CudaKernel:
         self._fn = None
         self._err = None
 
+    def sources(self) -> list[Path]:
+        """The ``.cu`` file and every header it includes with quotes,
+        followed through headers, each once, in the order first met."""
+        found, queue = [], [self.source]
+        while queue:
+            path = queue.pop(0)
+            if path in found:
+                continue
+            found.append(path)
+            queue += [path.parent / name
+                      for name in _INCLUDE.findall(path.read_text())]
+        return found
+
     @property
     def library(self) -> Path:
-        digest = hashlib.sha256(
-            self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:12]
-        return BUILD_DIR / f"{self.source.stem}-{digest}.so"
+        digest = hashlib.sha256()
+        for path in self.sources():
+            digest.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+        digest.update(" ".join(NVCC_FLAGS).encode())
+        return BUILD_DIR / f"{self.source.stem}-{digest.hexdigest()[:12]}.so"
 
     def start_build(self) -> Optional[subprocess.Popen]:
         """Start ``nvcc`` unless the library is already built."""

@@ -2,9 +2,11 @@
 
 Replaces ``sentio_tpu/kernels/flash_attention.py::_flash_kernel``, both
 forms: non-causal (the embedder and the cross-encoder) and causal. The
-kernel is ``csrc/flash_attention.cu``: grid (B*H, T/64), one block per
-(batch-head, 64-row query tile) looping over 64-key tiles with an fp32
-online softmax; see the source for its geometry and what bounds it.
+kernel is ``csrc/flash_attention.cu``: one block per (batch-head, 128-row
+query tile), two warpgroups of 64 rows each looping over key tiles with
+both products on the tensor cores (wgmma, bf16 in, fp32 sums) and an fp32
+online softmax in registers; see the source for its geometry and what
+bounds it.
 
 :func:`flash_attention` launches the kernel for CUDA tensors and runs
 :func:`flash_attention_plain` only for CPU tensors. There is no fallback
@@ -74,8 +76,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """q [B, T, H, D], k/v [B, S, H, D] (kv heads expanded) → [B, T, H, D].
 
-    CUDA tensors launch the hand-written kernel (bf16, contiguous, D in
-    16/32/64/128, int32 ``kv_lens``); CPU tensors take the plain version."""
+    CUDA tensors launch the hand-written kernel (bf16, contiguous, 16-byte
+    aligned, D in 16/32/64/128, int32 ``kv_lens``); CPU tensors take the
+    plain version."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, kv_lens, causal=causal)
     if q.device.type != "cuda":
@@ -94,6 +97,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if x.dtype != dtype or x.device != q.device or not x.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be a contiguous "
                              f"{dtype} tensor on {q.device}")
+    if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("flash_attention: q, k and v must be 16-byte aligned")
     out = torch.empty_like(q)
     KERNEL.launch(
         ptr(q), ptr(k), ptr(v), ptr(lens), ptr(out),

@@ -7,9 +7,14 @@ Replaces both variants of ``sentio_tpu/kernels/paged_attention.py``:
 * ``_paged_kernel_quant`` (int8 pages with f16 per-vector scales, the
   ``KV_QUANT=int8`` pool) by ``csrc/paged_attention_quant.cu``.
 
-Both kernels use grid (B, Hkv): one block per (row, kv head) walks the
-row's page table with an fp32 online softmax, each page's K/V rows staged in
-shared memory; see the sources for their geometry and what bounds them.
+The bf16 kernel splits each row's pages into spans of
+:data:`PAGES_PER_SPAN` pages: grid (B, Hkv, spans), each block an fp32
+online softmax over its span's pages with both products on the tensor
+cores, then a combine kernel (launched by the same C entry point) merges a
+row's spans into bf16 out; the wrapper allocates the partials' scratch.
+The int8 kernel uses grid (B, Hkv): one block per (row, kv head) walks the
+row's whole page table. See the sources for their geometry and what
+bounds them.
 
 :func:`paged_attention` and :func:`paged_attention_quant` launch their
 kernels for CUDA tensors and run the plain versions only for CPU tensors.
@@ -32,10 +37,16 @@ __all__ = [
 ]
 
 NEG_INF = float(np.finfo(np.float32).min)
+# consecutive pages of one row per block of the bf16 kernel, chosen by
+# measuring 1, 2 and 4 on the card (chip_smoke.py's sweep, PERF.md): one
+# page a block was fastest at a chat's decode shape (one live row), and one
+# page's buffer lets three blocks share an SM
+PAGES_PER_SPAN = 1
+PAGED_HEAD_DIMS = (32, 64, 128, 256)  # the bf16 kernel's tensor-core tiles
 
 KERNEL = CudaKernel(
     "paged_attention", "paged_attention.cu", "paged_attention_bf16",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p],
 )
 KERNEL_QUANT = CudaKernel(
     "paged_attention_quant", "paged_attention_quant.cu", "paged_attention_int8",
@@ -97,19 +108,32 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
                     page_table: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
     """Decode attention over one layer's page pool → [B, H, D].
 
-    CUDA tensors launch the hand-written kernel (bf16 q and pages, int32
-    table and lens, contiguous); CPU tensors take the plain version."""
+    CUDA tensors launch the hand-written kernel (bf16 q and pages, D in
+    32/64/128/256, int32 table and lens, contiguous); CPU tensors take the
+    plain version."""
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pages, v_pages, page_table, lens)
     _check("paged_attention", q, k_pages, v_pages, page_table, lens, d_multiple=8,
            tensors=(("k_pages", k_pages, torch.bfloat16),
                     ("v_pages", v_pages, torch.bfloat16)))
+    if q.shape[2] not in PAGED_HEAD_DIMS:
+        raise ValueError(f"paged_attention: head_dim {q.shape[2]} not in {PAGED_HEAD_DIMS}")
+    return _launch_split(q, k_pages, v_pages, page_table, lens, PAGES_PER_SPAN)
+
+
+def _launch_split(q, k_pages, v_pages, page_table, lens, pages_per_span: int) -> torch.Tensor:
+    """Launch the bf16 kernel on checked inputs with spans of
+    ``pages_per_span`` pages, its partials in fp32 scratch [B, H, spans,
+    D + 2]; :func:`paged_attention` passes :data:`PAGES_PER_SPAN`."""
     b, h, d = q.shape
     num_pages, page, hkv, _ = k_pages.shape
+    nb = page_table.shape[1]
+    n_spans = -(-nb // pages_per_span)
     out = torch.empty_like(q)
+    scratch = torch.empty(b * h * n_spans * (d + 2), dtype=torch.float32, device=q.device)
     KERNEL.launch(
-        ptr(q), ptr(k_pages), ptr(v_pages), ptr(page_table), ptr(lens), ptr(out),
-        b, h, hkv, d, page, page_table.shape[1], num_pages,
+        ptr(q), ptr(k_pages), ptr(v_pages), ptr(page_table), ptr(lens), ptr(out), ptr(scratch),
+        b, h, hkv, d, page, nb, num_pages, pages_per_span,
         ctypes.c_float(1.0 / float(np.sqrt(d))), stream_of(q),
     )
     return out

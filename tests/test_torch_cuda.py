@@ -13,6 +13,8 @@ import torch
 from sentio_tpu_torch.kernels import FLASH_KERNEL, PAGED_KERNEL, PAGED_QUANT_KERNEL
 from sentio_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 from sentio_tpu_torch.kernels.paged_attention import (
+    PAGES_PER_SPAN,
+    _launch_split,
     paged_attention,
     paged_attention_plain,
     paged_attention_quant,
@@ -44,7 +46,7 @@ def _paged_inputs(dev, rep, d=64, page=16, nb=6, b=5, hkv=2, seed=0):
 
 
 @pytest.mark.parametrize("rep", [1, 2, 4, 8])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
 def test_paged_kernel_matches_plain(dev, rep, d):
     q, kp, vp, table, lens = _paged_inputs(dev, rep, d=d)
     before = PAGED_KERNEL.launches
@@ -53,6 +55,72 @@ def test_paged_kernel_matches_plain(dev, rep, d):
     assert PAGED_KERNEL.launches == before + 1
     ref = paged_attention_plain(q.float(), kp.float(), vp.float(), table, lens)
     assert (out.float() - ref).abs().max().item() <= ATOL
+
+
+def _poison_unowned(kp, vp, table, lens):
+    """NaN in every slot past each row's current token: the tail of its
+    current page and every page after it that the row owns."""
+    page = kp.shape[1]
+    for row, n in enumerate(lens.tolist()):
+        for i, pid in enumerate(table[row].tolist()):
+            first = 0 if i * page > n else n - i * page + 1
+            if pid and first < page:
+                kp[pid, first:] = float("nan")
+                vp[pid, first:] = float("nan")
+
+
+def _split_case(dev, lens_list, rep, d, page, nb, seed):
+    """Rows over private shuffled pages (page 0 a scratch page for rows at
+    length 0), NaN planted in every unowned slot."""
+    b, hkv = len(lens_list), 2
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    num_pages = 1 + b * nb
+    kp = torch.randn((num_pages, page, hkv, d), generator=gen, device=dev, dtype=torch.bfloat16)
+    vp = torch.randn((num_pages, page, hkv, d), generator=gen, device=dev, dtype=torch.bfloat16)
+    perm = torch.randperm(num_pages - 1, generator=torch.Generator().manual_seed(seed)) + 1
+    table = perm.to(torch.int32).reshape(b, nb).to(dev)
+    lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+    table[lens == 0] = 0
+    _poison_unowned(kp, vp, table, lens)
+    q = torch.randn((b, hkv * rep, d), generator=gen, device=dev, dtype=torch.bfloat16)
+    return q, kp, vp, table, lens
+
+
+def _check_paged(q, kp, vp, table, lens, out):
+    ref = paged_attention_plain(q.float(), kp.float(), vp.float(), table, lens)
+    assert bool(out.isfinite().all())
+    assert (out.float() - ref).abs().max().item() <= ATOL
+
+
+@pytest.mark.parametrize("pages_per_span", [1, 2, 4])
+def test_paged_kernel_rows_at_span_boundaries(dev, pages_per_span):
+    """Lengths one short of, at and one past a span's last token (and the
+    last slot of the table), for the committed span and its alternatives."""
+    page, nb = 16, 12
+    span = pages_per_span * page
+    lens = [span - 1, span, span + 1, nb * page - 1, 2 * span - 1, 0]
+    q, kp, vp, table, lens = _split_case(dev, lens, 4, 128, page, nb, seed=pages_per_span)
+    before = PAGED_KERNEL.launches
+    out = _launch_split(q, kp, vp, table, lens, pages_per_span)
+    torch.cuda.synchronize()
+    assert PAGED_KERNEL.launches == before + 1
+    _check_paged(q, kp, vp, table, lens, out)
+    if pages_per_span == PAGES_PER_SPAN:
+        torch.testing.assert_close(paged_attention(q, kp, vp, table, lens), out, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("d", [64, 128])
+def test_paged_kernel_one_long_row(dev, rep, d):
+    """The chat's decode shape: one live row of ~3,300 tokens over
+    128-token pages, seven idle slots at length 0, NaN in unowned slots."""
+    lens = [0, 0, 0, 3299, 0, 0, 0, 0]
+    q, kp, vp, table, lens = _split_case(dev, lens, rep, d, page=128, nb=32, seed=rep + d)
+    out = paged_attention(q, kp, vp, table, lens)
+    torch.cuda.synchronize()
+    _check_paged(q, kp, vp, table, lens, out)
+    out2 = paged_attention(q, kp, vp, table, lens)
+    assert torch.equal(out, out2)  # fixed merge order: the same bits every run
 
 
 @pytest.mark.parametrize("rep", [1, 2, 4, 8])
@@ -80,19 +148,26 @@ def test_paged_quant_kernel_matches_plain(dev, rep, d):
 
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
-def test_flash_kernel_matches_plain(dev, d, causal):
-    gen = torch.Generator(device=dev).manual_seed(d)
-    b, t, h = 3, 100, 2
+@pytest.mark.parametrize("t", [100, 512])
+def test_flash_kernel_matches_plain(dev, t, d, causal):
+    """T a multiple of the 128-row query tile and not, several key tiles
+    (causal: tiles past the diagonal skipped), a kv_lens == 0 entry, full
+    rows and lengths that end inside a tile; mean error within 2e-3."""
+    gen = torch.Generator(device=dev).manual_seed(t + d)
+    b, h = 4, 2
     q, k, v = (torch.randn((b, t, h, d), generator=gen, device=dev, dtype=torch.bfloat16)
                for _ in range(3))
-    lens = torch.tensor([0, 100, 37], dtype=torch.int32, device=dev)
+    lens = torch.tensor([0, t, t // 2 + 1, 65], dtype=torch.int32, device=dev)
     before = FLASH_KERNEL.launches
     out = flash_attention(q, k, v, lens, causal=causal)
     torch.cuda.synchronize()
     assert FLASH_KERNEL.launches == before + 1
     ref = flash_attention_plain(q.float(), k.float(), v.float(), lens, causal=causal)
-    assert (out.float() - ref).abs().max().item() <= ATOL
+    diff = (out.float() - ref).abs()
+    assert diff.max().item() <= ATOL and diff.mean().item() <= 2e-3
     assert not out[0].any()  # kv_lens == 0: exactly zero
+    assert torch.equal(flash_attention(q, k, v, None, causal=causal),
+                       flash_attention(q, k, v, torch.full_like(lens, t), causal=causal))
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -112,3 +187,6 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x = torch.zeros((1, 8, 2, 48), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         flash_attention(x, x, x)
+    pages48 = torch.zeros((2, 16, 1, 48), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):  # no tensor-core tile for D 48
+        paged_attention(x[:, 0, :1], pages48, pages48, table[:1], lens[:1])

@@ -18,6 +18,7 @@ from sentio_tpu.kernels.paged_attention import paged_attention_quant as jax_page
 from sentio_tpu.runtime.paged import quantize_kv as jax_quantize
 from sentio_tpu_torch import resolve_device
 from sentio_tpu_torch.kernels import FLASH_KERNEL, PAGED_KERNEL, PAGED_QUANT_KERNEL
+from sentio_tpu_torch.kernels._build import CudaKernel
 from sentio_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 from sentio_tpu_torch.kernels.paged_attention import (
     paged_attention,
@@ -98,6 +99,86 @@ def test_paged_plain_matches_pallas_interpret(rep):
                                 torch.from_numpy(lens))
     assert np.isfinite(got.numpy()).all()
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+
+
+def _span_partials(q, kp, vp, table, lens, span_tokens):
+    """Each row's keys cut into spans of ``span_tokens`` consecutive
+    positions (the split kernel's spans of pages), and per span the
+    unnormalised softmax state over its keys only: m [H], l [H], acc
+    [H, D], in float32. A row with no key (lens < 0) has no span."""
+    b, h, d = q.shape
+    _, page, hkv, _ = kp.shape
+    window = table.shape[1] * page
+    k = kp[table.long()].reshape(b, window, hkv, d).repeat_interleave(h // hkv, dim=2)
+    v = vp[table.long()].reshape(b, window, hkv, d).repeat_interleave(h // hkv, dim=2)
+    parts = []
+    for row in range(b):
+        n_keys = int(lens[row]) + 1
+        spans = []
+        for lo in range(0, max(n_keys, 0), span_tokens):
+            hi = min(lo + span_tokens, n_keys)
+            sc = torch.einsum("hd,thd->ht", q[row], k[row, lo:hi]) / float(np.sqrt(d))
+            m = sc.amax(dim=-1)
+            p = torch.exp(sc - m[:, None])
+            spans.append((m, p.sum(dim=-1), torch.einsum("ht,thd->hd", p, v[row, lo:hi])))
+        parts.append(spans)
+    return parts
+
+
+def _merge_spans(spans, h, d):
+    """The combine pass's log-sum-exp rule, spans in order: out = sum_s
+    w_s acc_s / sum_s w_s l_s with w_s = exp(m_s - max m); 0 with no span."""
+    if not spans:
+        return torch.zeros((h, d))
+    m_all = torch.stack([m for m, _, _ in spans]).amax(dim=0)
+    l_tot, acc_tot = torch.zeros(h), torch.zeros((h, d))
+    for m, l, acc in spans:
+        w = torch.exp(m - m_all)
+        l_tot = l_tot + w * l
+        acc_tot = acc_tot + w[:, None] * acc
+    return acc_tot / l_tot[:, None]
+
+
+@pytest.mark.parametrize("pages_per_span", [1, 2])
+@pytest.mark.parametrize("rep", [1, 2, 4])
+def test_span_merge_matches_plain_and_pallas_interpret(rep, pages_per_span):
+    """The split kernel's arithmetic on the CPU: per-span partials merged
+    by the log-sum-exp rule equal the one-pass softmax of the plain version
+    and the Pallas kernel. Rows: no key at all (lens -1, no span), one key
+    (a single span of one token), a last span of one token (lens 16), and
+    several full spans; NaN pages past every row's length stay unread."""
+    q, kp, vp, table, _ = _paged_problem(rep, seed=rep)
+    lens = np.asarray([-1, 0, 16, 39], np.int32)  # each <= _paged_problem's
+    page = kp.shape[1]
+    tq, tk, tv, tt, tl = (torch.from_numpy(a) for a in (q, kp, vp, table, lens))
+    parts = _span_partials(tq, tk, tv, tt, tl, pages_per_span * page)
+    assert [len(p) for p in parts] == [0, 1, -(-17 // (pages_per_span * page)),
+                                       -(-40 // (pages_per_span * page))]
+    got = torch.stack([_merge_spans(p, q.shape[1], q.shape[2]) for p in parts])
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), paged_attention_plain(tq, tk, tv, tt, tl).numpy(),
+                               atol=ATOL, rtol=0)
+    ref = jax_paged(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(table),
+                    jnp.asarray(lens), interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+    assert not got[0].any()  # nothing to attend: exactly 0
+
+
+def test_library_hash_covers_included_headers(tmp_path):
+    """An edited header rebuilds: the library's name hashes the source and
+    every header it includes with quotes, through nested includes."""
+    (tmp_path / "k.cu").write_text('#include <cuda_runtime.h>\n#include "a.cuh"\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n  #  include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("#pragma once\nconstexpr int kTile = 64;\n")
+    kernel = CudaKernel("k", str(tmp_path / "k.cu"), "k_launch", [])
+    assert [p.name for p in kernel.sources()] == ["k.cu", "a.cuh", "b.cuh"]
+    before = kernel.library
+    (tmp_path / "b.cuh").write_text("#pragma once\nconstexpr int kTile = 128;\n")
+    assert kernel.library != before
+    assert kernel.library.parent == before.parent
+    # the repo's kernels: the shared helpers and the wgmma header are hashed
+    assert "cuda_common.cuh" in [p.name for p in PAGED_KERNEL.sources()]
+    assert {"cuda_common.cuh", "wgmma.cuh"} <= {p.name for p in FLASH_KERNEL.sources()}
 
 
 def _quant_problem(rep, seed=0, tail_scale=np.nan):
