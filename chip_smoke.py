@@ -5,9 +5,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases, one JSON
 line each:
 
 1. device — the card's name and power limit (nvidia-smi); no CUDA, no run.
-2. build — the three CUDA kernels built from csrc/ with nvcc, in parallel,
-   with each library's count of tensor-core instructions (HGMMA, HMMA) in
-   its SASS (the flash kernel must have some), and the BM25 core with g++
+2. build — the three CUDA kernels built from csrc/ with nvcc, in parallel
+   with the bf16 paged kernel's source at the other span sizes of its
+   sweep, with each kernel library's count of tensor-core instructions
+   (HGMMA, HMMA) in its SASS (the flash kernel must have some), and the
+   BM25 core with g++
    (host code; without a compiler the hybrid retriever scores with numpy,
    as the JAX package does, and the phase says which backend ran).
 3. kernels — each kernel against its plain PyTorch version on the card at
@@ -16,12 +18,13 @@ line each:
    outputs carry ~3 significant digits and the sums run in another order),
    timed beside its plain version, the bound the card could reach, and one
    PyTorch call computing the same function (scaled_dot_product_attention,
-   a yardstick only). The bf16 paged kernel runs at the serving batch's
-   ragged lengths and at a chat's decode shape (one live row, seven idle),
-   each with its pages-per-span sweep; the flash kernel at the embedder's
-   and cross-encoder's shapes and at ingest's full lengths. Kernel and
-   SDPA times are device times: 20 calls captured in a CUDA graph and
-   replayed, so the host's launch cost is not counted.
+   a yardstick only, unmasked where every key is attended). The bf16 paged
+   kernel runs at the serving batch's ragged lengths and at a chat's
+   decode shape (one live row, seven idle), each with its pages-per-span
+   sweep (one build of the source per span size); the flash kernel at the
+   embedder's and cross-encoder's shapes and at ingest's full lengths.
+   Kernel and SDPA times are device times: 20 calls captured in a CUDA
+   graph and replayed, so the host's launch cost is not counted.
 4. slice — the /chat pipeline at full width (Llama-3-8B, the base
    embedder, the default cross-encoder) with random weights made on the
    card from a seed, dense retrieval and bf16 pages: ingest 2,048 chunks,
@@ -137,14 +140,14 @@ def paged_problem(torch, dev, lens_list=SERVING_LENS):
     scratch page 0, the others own 64 shuffled pages. Returns q, the pools,
     table, lens, the lengths as a list, and (page id, first unowned slot)
     for every owned page past a row's length (slot 0) and each current
-    page's tail."""
+    page's tail, the scratch page's included."""
     b, h, hkv, d, page, nb, num_pages = 8, 32, 8, 128, 128, 64, 513
     gen = torch.Generator(device=dev).manual_seed(SEED + 10)
     kp = torch.randn((num_pages, page, hkv, d), generator=gen, device=dev, dtype=torch.bfloat16)
     vp = torch.randn((num_pages, page, hkv, d), generator=gen, device=dev, dtype=torch.bfloat16)
     table = torch.zeros((b, nb), dtype=torch.int32)
     perm = (torch.randperm(num_pages - 1, generator=torch.Generator().manual_seed(SEED)) + 1).tolist()
-    unowned = []
+    unowned = [(0, 1)] if 0 in lens_list else []  # the scratch page past slot 0
     for row in range(b):
         if lens_list[row] == 0:
             continue
@@ -157,17 +160,26 @@ def paged_problem(torch, dev, lens_list=SERVING_LENS):
     return q, kp, vp, table.to(dev), lens, lens_list, unowned
 
 
-def paged_check(torch, dev, name: str = "decode_b8_h32_hkv8_d128_page128",
+def span_sweep() -> dict:
+    """The bf16 paged kernel's source built at each span size of the sweep:
+    the committed build where the size is :data:`PAGES_PER_SPAN`."""
+    from sentio_tpu_torch.kernels.paged_attention import KERNEL, PAGES_PER_SPAN, span_kernel
+
+    return {pps: KERNEL if pps == PAGES_PER_SPAN else span_kernel(pps)
+            for pps in PAGES_PER_SPAN_SWEEP}
+
+
+def paged_check(torch, dev, sweep: dict, name: str = "decode_b8_h32_hkv8_d128_page128",
                 lens_list=SERVING_LENS) -> dict:
     """The bf16 kernel at a decode shape of :func:`paged_problem`, with NaN
     in every owned page past a row's length and in each current page's tail
     (the kernel must never read them), and its time at each span size of
-    the sweep (each held to the same limits)."""
+    ``sweep`` (:func:`span_sweep`; each build held to the same limits)."""
     import torch.nn.functional as F
 
     from sentio_tpu_torch.kernels.paged_attention import (
         PAGES_PER_SPAN,
-        _launch_split,
+        _launch,
         paged_attention,
         paged_attention_plain,
     )
@@ -185,12 +197,12 @@ def paged_check(torch, dev, name: str = "decode_b8_h32_hkv8_d128_page128",
     ref = paged_attention_plain(q.float(), kp.float(), vp.float(), table, lens)
     max_err, mean_err = errors(out, ref)
     check_limits(f"paged_attention {name}", max_err, mean_err)
-    sweep = {}
-    for pps in PAGES_PER_SPAN_SWEEP:
+    sweep_ms = {}
+    for pps, kernel in sweep.items():
         check_limits(f"paged_attention {name} pages_per_span={pps}",
-                     *errors(_launch_split(q, kp, vp, table, lens, pps), ref))
-        sweep[pps] = time_ms(torch, lambda: _launch_split(q, kp, vp, table, lens, pps),
-                             graph=True)
+                     *errors(_launch(kernel, q, kp, vp, table, lens), ref))
+        sweep_ms[pps] = time_ms(torch, lambda: _launch(kernel, q, kp, vp, table, lens),
+                                graph=True)
 
     ms = time_ms(torch, lambda: paged_attention(q, kp, vp, table, lens), graph=True)
     plain_ms = time_ms(torch, lambda: paged_attention_plain(q, kp, vp, table, lens), iters=5)
@@ -215,7 +227,7 @@ def paged_check(torch, dev, name: str = "decode_b8_h32_hkv8_d128_page128",
             "mean_abs_err": mean_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": library_ms, "pages_per_span": PAGES_PER_SPAN,
             "blocks": b * hkv * n_spans, "live_blocks": live_blocks,
-            "ms_by_pages_per_span": sweep}
+            "ms_by_pages_per_span": sweep_ms}
     emit("kernel", name="paged_attention", **case)
     return case
 
@@ -302,21 +314,26 @@ def flash_case(torch, dev, name, b, t, h, d, causal, lens_list) -> dict:
     ms = time_ms(torch, lambda: flash_attention(q, k, v, lens, causal=causal), graph=True)
     plain_ms = time_ms(torch, lambda: flash_attention_plain(q, k, v, lens, causal=causal),
                        iters=5)
-    pos = torch.arange(t, device=dev)
-    mask = (pos[None, :] < lens[:, None].long())[:, None, None, :]
-    if causal:
-        mask = mask & (pos[None, :] <= pos[:, None])[None, None]
+    # yardstick: SDPA with the kernel's mask, or with none (its flash path)
+    # where every row attends to all T keys
+    mask = None
+    if any(n < t for n in lens_list):
+        pos = torch.arange(t, device=dev)
+        mask = (pos[None, :] < lens[:, None].long())[:, None, None, :]
+        if causal:
+            mask = mask & (pos[None, :] <= pos[:, None])[None, None]
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                                       attn_mask=mask),
-                         graph=True)
-    # operations this data needs: the attendable (query, key) pairs only
+    library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None), graph=True)
+    # what this data needs: the attendable (query, key) pairs' operations;
+    # q and out in full, K and V rows below each kv_len (the kernel never
+    # reads the others), the lengths
     pairs = sum(min(q_pos + 1, n) if causal else n for n in lens_list for q_pos in range(t))
-    n_bytes = 4 * q.numel() * 2 + b * 4
+    n_bytes = 2 * q.numel() * 2 + 2 * sum(lens_list) * h * d * 2 + b * 4
     b_ms, b_by = bound_ms(n_bytes, 4 * h * d * pairs)
     case = {"case": name, "max_abs_err": max_err, "mean_abs_err": mean_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "library_masked": mask is not None}
     emit("kernel", name="flash_attention", **case)
     return case
 
@@ -610,7 +627,8 @@ def main() -> int:
     emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__, cuda=torch.version.cuda)
 
-    seconds = build_all(KERNELS)
+    sweep = span_sweep()
+    seconds = build_all([*KERNELS, *(k for k in sweep.values() if k not in KERNELS)])
     t0 = time.perf_counter()
     bm25_core = native.load_bm25() is not None
     tensor_core = {k.name: sass_counts(k) for k in KERNELS}
@@ -622,8 +640,9 @@ def main() -> int:
         raise AssertionError(f"the flash kernel's products are not on the tensor cores: "
                              f"{tensor_core['flash_attention']}")
 
-    paged = paged_check(torch, dev)
-    paged_chat = paged_check(torch, dev, "chat_decode_b8_h32_hkv8_d128_page128", CHAT_LENS)
+    paged = paged_check(torch, dev, sweep)
+    paged_chat = paged_check(torch, dev, sweep, "chat_decode_b8_h32_hkv8_d128_page128",
+                             CHAT_LENS)
     paged_quant = paged_quant_check(torch, dev)
     flash = flash_checks(torch, dev)
     torch.cuda.empty_cache()

@@ -22,15 +22,20 @@
 //
 // The design, two kernels launched by one entry point:
 //   1. paged_decode_kernel, grid (B, Hkv, n_spans), 128 threads. A span is
-//      `pages_per_span` consecutive pages of one row (n_spans =
-//      ceil(NB / pages_per_span), known without reading lens); a block
+//      kPagesPerSpan consecutive pages of one row (n_spans =
+//      ceil(NB / kPagesPerSpan), known without reading lens); a block
 //      whose span starts past its row's last page exits at once, so a long
 //      row spreads over many SMs and idle rows cost one early exit each.
-//      Pages are copied into shared memory with cp.async 16-byte copies,
-//      double-buffered when a span holds two pages or more (the next page
-//      in flight while this one is scored), one __syncthreads a page; only
-//      the valid rows are read, never the tail past the current token, and
-//      the rows up to the next multiple of 32 are zero-filled.
+//      kPagesPerSpan is SENTIO_PAGES_PER_SPAN, which the wrapper's build
+//      defines from its PAGES_PER_SPAN (kernels/paged_attention.py): two
+//      pages, chosen from 1, 2 and 4 by timing each build at a chat's
+//      decode shape and a full serving batch (chip_smoke.py's sweep). A
+//      block holds one page buffer and loads its span's pages one after
+//      another into it, so three blocks share an SM and one block's loads
+//      overlap another's math. A page is copied into shared
+//      memory with cp.async 16-byte copies; only the valid rows are read,
+//      never the tail past the current token, and the rows up to the next
+//      multiple of 32 are zero-filled.
 //      Warp w takes tokens 32w .. 32w + 31 of the page and runs both
 //      products as mma.sync m16n8k16 (bf16 in, fp32 sums): the rep query
 //      heads are the 16 rows of A (rows past rep are zero; A is built once
@@ -44,14 +49,18 @@
 //      log-sum-exp rule and writes bf16 out; a row with one span goes
 //      through the same merge, a row with none writes 0.
 // Reads: q [B, H, D], the owned K/V pages [P, page, Hkv, D], page_table
-// [B, NB] int32, lens [B] int32. Writes: out [B, H, D]; scratch
-// B * H * n_spans * (D + 2) floats, allocated by the caller.
+// [B, NB] int32, lens [B] int32. Writes: out [B, H, D]; scratch of at
+// least B * H * n_spans * (D + 2) floats, allocated by the caller.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "cuda_common.cuh"
+
+#ifndef SENTIO_PAGES_PER_SPAN
+#error "build with -DSENTIO_PAGES_PER_SPAN=<pages a block takes>"
+#endif
 
 namespace {
 
@@ -67,6 +76,8 @@ constexpr int kChunk = 32;   // tokens a warp takes per page (4 mma columns of 8
 constexpr int kMaxRep = 8;   // query heads per kv head: the 8 live rows of A
 constexpr int kVec = 8;      // bf16 per 16-byte copy and per ldmatrix row
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kPagesPerSpan = SENTIO_PAGES_PER_SPAN;
+static_assert(kPagesPerSpan >= 1, "a span holds at least one page");
 
 // A page buffer holds rows_per_page(page) rows of K then as many of V, each
 // row D + kVec bf16 (the padding puts the 8 rows an ldmatrix reads on
@@ -79,11 +90,11 @@ __host__ __device__ inline size_t buffer_bytes(int D, int page) {
   return 2 * (size_t)rows_per_page(page) * (D + kVec) * 2;
 }
 
-// The page buffers, or (after the last page) the warps' states for the
+// The page buffer, or (after the last page) the warps' states for the
 // merge: [kWarps][rep] m, l and [kWarps][rep][D] acc.
-__host__ __device__ inline size_t smem_bytes(int rep, int D, int page, int n_buf) {
+__host__ __device__ inline size_t smem_bytes(int rep, int D, int page) {
   const size_t merge = sizeof(float) * (size_t)kWarps * rep * (D + 2);
-  const size_t pages = n_buf * buffer_bytes(D, page);
+  const size_t pages = buffer_bytes(D, page);
   return pages > merge ? pages : merge;
 }
 
@@ -124,8 +135,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     const int* __restrict__ lens,
                     float* __restrict__ part_acc,  // [B * H][n_spans][D]
                     float* __restrict__ part_ml,   // [B * H][n_spans][2]
-                    int H, int Hkv, int page, int NB, int P,
-                    int pages_per_span, int n_buf, float sm_scale) {
+                    int H, int Hkv, int page, int NB, int P, float sm_scale) {
   constexpr int kp = D + kVec;  // row pitch in bf16
   const int b = blockIdx.x;
   const int g = blockIdx.y;
@@ -133,14 +143,13 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   const int n_spans = gridDim.z;
   const int cur = lens[b];  // the new token sits at absolute index cur
   const int n_pages = cur < 0 ? 0 : min(cur / page + 1, NB);
-  const int p_begin = span * pages_per_span;
+  const int p_begin = span * kPagesPerSpan;
   if (p_begin >= n_pages) return;  // the combine never reads this span
-  const int p_end = min(p_begin + pages_per_span, n_pages);
+  const int p_end = min(p_begin + kPagesPerSpan, n_pages);
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t smem0 = smem_addr(smem_raw);
   const int rows = rows_per_page(page);
-  const uint32_t buf_bytes = (uint32_t)buffer_bytes(D, page);
   const int rep = H / Hkv;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -154,14 +163,14 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
     const int pid = page_table[b * NB + i];
     return (pid < 0 || pid >= P) ? 0 : min(page, cur + 1 - i * page);
   };
-  // start the copies of page i's valid K and V rows into buffer buf, and
+  // start the copies of page i's valid K and V rows into the buffer, and
   // zero-fill the rows after them up to the next multiple of kChunk
-  auto issue = [&](int i, int buf) {
+  auto issue = [&](int i) {
     const int n_valid = valid_tokens(i);
     const int n_rows = min(rows, (n_valid + kChunk - 1) / kChunk * kChunk);
     const size_t page_off =
         (size_t)(n_valid > 0 ? page_table[b * NB + i] : 0) * page * tok_stride + (size_t)g * D;
-    const uint32_t k_dst = smem0 + buf * buf_bytes;
+    const uint32_t k_dst = smem0;
     const uint32_t v_dst = k_dst + rows * kp * 2;
     for (int c = tid; c < n_rows * (D / kVec); c += kThreads) {
       const int r = c / (D / kVec);
@@ -174,7 +183,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async_commit();
   };
 
-  issue(p_begin, 0);
+  issue(p_begin);
 
   // A fragments of q: row gr (a query head of this group) at columns
   // 16ks + 2t (a0) and 16ks + 8 + 2t (a2); heads past rep are zero rows
@@ -198,13 +207,11 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   const uint32_t v_lane = ((8 * ((lane >> 3) & 1) + (lane & 7)) * kp + 8 * (lane >> 4)) * 2;
 
   for (int i = p_begin; i < p_end; ++i) {
-    const int buf = n_buf == 2 ? (i - p_begin) & 1 : 0;
     cp_async_wait<0>();
-    __syncthreads();  // page i is visible; every warp is done with the other buffer
-    if (n_buf == 2 && i + 1 < p_end) issue(i + 1, buf ^ 1);
+    __syncthreads();  // page i is visible to every warp
 
     const int n_valid = valid_tokens(i);
-    const uint32_t kb = smem0 + buf * buf_bytes;
+    const uint32_t kb = smem0;
     const uint32_t vb = kb + rows * kp * 2;
     for (int base = warp * kChunk; base < n_valid; base += kWarps * kChunk) {
       // S[16 x 32] = Q K^T over this warp's 32 tokens: 4 column blocks of 8
@@ -268,9 +275,9 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
         }
       }
     }
-    if (n_buf == 1 && i + 1 < p_end) {
-      __syncthreads();  // every warp is done with the only buffer
-      issue(i + 1, 0);
+    if (i + 1 < p_end) {
+      __syncthreads();  // every warp is done with the buffer
+      issue(i + 1);
     }
   }
 
@@ -322,12 +329,11 @@ paged_combine_kernel(const float* __restrict__ part_acc,
                      const float* __restrict__ part_ml,
                      const int* __restrict__ lens,
                      __nv_bfloat16* __restrict__ out,
-                     int H, int D, int page, int NB, int pages_per_span,
-                     int n_spans) {
+                     int H, int D, int page, int NB, int n_spans) {
   const int bh = blockIdx.x;
   const int cur = lens[bh / H];
   const int n_pages = cur < 0 ? 0 : min(cur / page + 1, NB);
-  const int live = (n_pages + pages_per_span - 1) / pages_per_span;
+  const int live = (n_pages + kPagesPerSpan - 1) / kPagesPerSpan;
   const float* ml = part_ml + (size_t)bh * n_spans * 2;
   const float* pa = part_acc + (size_t)bh * n_spans * D;
   float mx = -INFINITY;
@@ -347,12 +353,9 @@ paged_combine_kernel(const float* __restrict__ part_acc,
 template <int D>
 int launch(const void* q, const void* k_pages, const void* v_pages, const void* page_table,
            const void* lens, void* out, float* part_acc, float* part_ml, int B, int H,
-           int Hkv, int page, int NB, int P, int pages_per_span, float sm_scale,
+           int Hkv, int page, int NB, int P, int n_spans, float sm_scale,
            cudaStream_t stream) {
-  const int rep = H / Hkv;
-  // two page buffers when a span has a next page to prefetch and they fit
-  const int n_buf = pages_per_span > 1 && smem_bytes(rep, D, page, 2) <= 227 * 1024 ? 2 : 1;
-  const size_t smem = smem_bytes(rep, D, page, n_buf);
+  const size_t smem = smem_bytes(H / Hkv, D, page);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   static size_t smem_allowed = 48 * 1024;  // raised once, to the largest asked
   if (smem > smem_allowed) {
@@ -361,16 +364,14 @@ int launch(const void* q, const void* k_pages, const void* v_pages, const void* 
     if (e != cudaSuccess) return (int)e;
     smem_allowed = smem;
   }
-  const int n_spans = (NB + pages_per_span - 1) / pages_per_span;
   paged_decode_kernel<D><<<dim3(B, Hkv, n_spans), kThreads, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_pages,
       (const __nv_bfloat16*)v_pages, (const int*)page_table, (const int*)lens,
-      part_acc, part_ml, H, Hkv, page, NB, P, pages_per_span, n_buf, sm_scale);
+      part_acc, part_ml, H, Hkv, page, NB, P, sm_scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   paged_combine_kernel<<<B * H, kThreads, 0, stream>>>(
-      part_acc, part_ml, (const int*)lens, (__nv_bfloat16*)out, H, D, page, NB,
-      pages_per_span, n_spans);
+      part_acc, part_ml, (const int*)lens, (__nv_bfloat16*)out, H, D, page, NB, n_spans);
   return (int)cudaGetLastError();
 }
 
@@ -380,19 +381,17 @@ extern "C" int paged_attention_bf16(const void* q, const void* k_pages,
                                     const void* v_pages, const void* page_table,
                                     const void* lens, void* out, void* scratch,
                                     int B, int H, int Hkv, int D, int page,
-                                    int NB, int P, int pages_per_span,
-                                    float sm_scale, void* stream) {
+                                    int NB, int P, float sm_scale, void* stream) {
   if (B <= 0) return 0;
-  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > kMaxRep || page <= 0 || NB <= 0 || P <= 0 ||
-      pages_per_span <= 0) {
+  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > kMaxRep || page <= 0 || NB <= 0 || P <= 0) {
     return (int)cudaErrorInvalidValue;
   }
-  const int n_spans = (NB + pages_per_span - 1) / pages_per_span;
+  const int n_spans = (NB + kPagesPerSpan - 1) / kPagesPerSpan;
   float* part_acc = static_cast<float*>(scratch);
   float* part_ml = part_acc + (size_t)B * H * n_spans * D;
   cudaStream_t s = (cudaStream_t)stream;
 #define SENTIO_PAGED_ARGS q, k_pages, v_pages, page_table, lens, out, part_acc, part_ml, B, H, \
-                          Hkv, page, NB, P, pages_per_span, sm_scale, s
+                          Hkv, page, NB, P, n_spans, sm_scale, s
   switch (D) {
     case 32: return launch<32>(SENTIO_PAGED_ARGS);
     case 64: return launch<64>(SENTIO_PAGED_ARGS);

@@ -3,8 +3,8 @@
 Each ``csrc/*.cu`` file exports a plain C launcher. It is compiled with
 ``nvcc`` for ``sm_90a`` into its own shared library under ``build/`` at the
 root of the checkout (named by a hash of the source, the headers it
-includes from ``csrc/`` and the flags, so an edited source or header
-rebuilds) and loaded with ``ctypes``. Nothing is built at import:
+includes from ``csrc/``, the flags and the kernel's ``-D`` defines, so an
+edited source or header rebuilds) and loaded with ``ctypes``. Nothing is built at import:
 the first launch builds, or :func:`build_all` builds every kernel with one
 ``nvcc`` process per source, all started together.
 """
@@ -41,15 +41,17 @@ def nvcc_path() -> str:
 
 
 class CudaKernel:
-    """One kernel: its source, its C launcher's signature, and ``launches``,
-    a plain count of successful launches that callers may read and reset."""
+    """One kernel: its source, its C launcher's signature, the ``defines``
+    (``NAME=VALUE``) its source is compiled with, and ``launches``, a plain
+    count of successful launches that callers may read and reset."""
 
     def __init__(self, name: str, source: str, symbol: str,
-                 argtypes: Sequence) -> None:
+                 argtypes: Sequence, defines: Sequence[str] = ()) -> None:
         self.name = name
         self.source = CSRC / source
         self.symbol = symbol
         self.argtypes = list(argtypes)
+        self.flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
         self.launches = 0
         self.build_log = ""
         self._fn = None
@@ -73,7 +75,7 @@ class CudaKernel:
         digest = hashlib.sha256()
         for path in self.sources():
             digest.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
-        digest.update(" ".join(NVCC_FLAGS).encode())
+        digest.update(" ".join(self.flags).encode())
         return BUILD_DIR / f"{self.source.stem}-{digest.hexdigest()[:12]}.so"
 
     def start_build(self) -> Optional[subprocess.Popen]:
@@ -83,7 +85,7 @@ class CudaKernel:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = self.library.with_name(f"{self.library.stem}.{os.getpid()}.tmp.so")
         return subprocess.Popen(
-            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
+            [nvcc_path(), *self.flags, "-o", str(tmp), str(self.source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
 

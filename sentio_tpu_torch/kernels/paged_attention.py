@@ -33,21 +33,33 @@ from sentio_tpu_torch.kernels._build import CudaKernel, ptr, stream_of
 
 __all__ = [
     "QuantPages", "paged_attention", "paged_attention_plain", "paged_attention_quant",
-    "paged_attention_quant_plain", "KERNEL", "KERNEL_QUANT",
+    "paged_attention_quant_plain", "span_kernel", "KERNEL", "KERNEL_QUANT",
 ]
 
 NEG_INF = float(np.finfo(np.float32).min)
-# consecutive pages of one row per block of the bf16 kernel, chosen by
-# measuring 1, 2 and 4 on the card (chip_smoke.py's sweep, PERF.md): one
-# page a block was fastest at a chat's decode shape (one live row), and one
-# page's buffer lets three blocks share an SM
-PAGES_PER_SPAN = 1
+# consecutive pages of one row per block of the bf16 kernel, compiled into
+# it; chosen by measuring 1, 2 and 4 on the card (chip_smoke.py's sweep,
+# PERF.md): two pages a block were as fast as one at a chat's decode shape
+# (one live row) and faster at a full serving batch, where four were
+# slower at the chat's
+PAGES_PER_SPAN = 2
 PAGED_HEAD_DIMS = (32, 64, 128, 256)  # the bf16 kernel's tensor-core tiles
 
-KERNEL = CudaKernel(
-    "paged_attention", "paged_attention.cu", "paged_attention_bf16",
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p],
-)
+
+def span_kernel(pages_per_span: int) -> CudaKernel:
+    """The bf16 kernel compiled with spans of ``pages_per_span`` pages (its
+    own library). :data:`KERNEL` is the one built at :data:`PAGES_PER_SPAN`;
+    the others exist to time the choice."""
+    name = "paged_attention" if pages_per_span == PAGES_PER_SPAN else \
+        f"paged_attention_span{pages_per_span}"
+    return CudaKernel(
+        name, "paged_attention.cu", "paged_attention_bf16",
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
+        defines=(f"SENTIO_PAGES_PER_SPAN={pages_per_span}",),
+    )
+
+
+KERNEL = span_kernel(PAGES_PER_SPAN)
 KERNEL_QUANT = CudaKernel(
     "paged_attention_quant", "paged_attention_quant.cu", "paged_attention_int8",
     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
@@ -118,22 +130,21 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
                     ("v_pages", v_pages, torch.bfloat16)))
     if q.shape[2] not in PAGED_HEAD_DIMS:
         raise ValueError(f"paged_attention: head_dim {q.shape[2]} not in {PAGED_HEAD_DIMS}")
-    return _launch_split(q, k_pages, v_pages, page_table, lens, PAGES_PER_SPAN)
+    return _launch(KERNEL, q, k_pages, v_pages, page_table, lens)
 
 
-def _launch_split(q, k_pages, v_pages, page_table, lens, pages_per_span: int) -> torch.Tensor:
-    """Launch the bf16 kernel on checked inputs with spans of
-    ``pages_per_span`` pages, its partials in fp32 scratch [B, H, spans,
-    D + 2]; :func:`paged_attention` passes :data:`PAGES_PER_SPAN`."""
+def _launch(kernel: CudaKernel, q, k_pages, v_pages, page_table, lens) -> torch.Tensor:
+    """Launch a build of the bf16 kernel (:func:`span_kernel`) on checked
+    inputs. Its partials go to fp32 scratch of [B, H, NB, D + 2]: room for
+    spans of one page, so enough at any span size."""
     b, h, d = q.shape
     num_pages, page, hkv, _ = k_pages.shape
     nb = page_table.shape[1]
-    n_spans = -(-nb // pages_per_span)
     out = torch.empty_like(q)
-    scratch = torch.empty(b * h * n_spans * (d + 2), dtype=torch.float32, device=q.device)
-    KERNEL.launch(
+    scratch = torch.empty(b * h * nb * (d + 2), dtype=torch.float32, device=q.device)
+    kernel.launch(
         ptr(q), ptr(k_pages), ptr(v_pages), ptr(page_table), ptr(lens), ptr(out), ptr(scratch),
-        b, h, hkv, d, page, nb, num_pages, pages_per_span,
+        b, h, hkv, d, page, nb, num_pages,
         ctypes.c_float(1.0 / float(np.sqrt(d))), stream_of(q),
     )
     return out

@@ -14,11 +14,12 @@ from sentio_tpu_torch.kernels import FLASH_KERNEL, PAGED_KERNEL, PAGED_QUANT_KER
 from sentio_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 from sentio_tpu_torch.kernels.paged_attention import (
     PAGES_PER_SPAN,
-    _launch_split,
+    _launch,
     paged_attention,
     paged_attention_plain,
     paged_attention_quant,
     paged_attention_quant_plain,
+    span_kernel,
 )
 from sentio_tpu_torch.runtime.paged import quantize_kv
 
@@ -71,7 +72,8 @@ def _poison_unowned(kp, vp, table, lens):
 
 def _split_case(dev, lens_list, rep, d, page, nb, seed):
     """Rows over private shuffled pages (page 0 a scratch page for rows at
-    length 0), NaN planted in every unowned slot."""
+    length 0, which read its slot 0 only), NaN planted in every unowned
+    slot."""
     b, hkv = len(lens_list), 2
     gen = torch.Generator(device=dev).manual_seed(seed)
     num_pages = 1 + b * nb
@@ -82,6 +84,8 @@ def _split_case(dev, lens_list, rep, d, page, nb, seed):
     lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
     table[lens == 0] = 0
     _poison_unowned(kp, vp, table, lens)
+    kp[0, 1:] = float("nan")
+    vp[0, 1:] = float("nan")
     q = torch.randn((b, hkv * rep, d), generator=gen, device=dev, dtype=torch.bfloat16)
     return q, kp, vp, table, lens
 
@@ -100,10 +104,11 @@ def test_paged_kernel_rows_at_span_boundaries(dev, pages_per_span):
     span = pages_per_span * page
     lens = [span - 1, span, span + 1, nb * page - 1, 2 * span - 1, 0]
     q, kp, vp, table, lens = _split_case(dev, lens, 4, 128, page, nb, seed=pages_per_span)
-    before = PAGED_KERNEL.launches
-    out = _launch_split(q, kp, vp, table, lens, pages_per_span)
+    kernel = PAGED_KERNEL if pages_per_span == PAGES_PER_SPAN else span_kernel(pages_per_span)
+    before = kernel.launches
+    out = _launch(kernel, q, kp, vp, table, lens)
     torch.cuda.synchronize()
-    assert PAGED_KERNEL.launches == before + 1
+    assert kernel.launches == before + 1
     _check_paged(q, kp, vp, table, lens, out)
     if pages_per_span == PAGES_PER_SPAN:
         torch.testing.assert_close(paged_attention(q, kp, vp, table, lens), out, rtol=0, atol=0)

@@ -21,10 +21,12 @@ from sentio_tpu_torch.kernels import FLASH_KERNEL, PAGED_KERNEL, PAGED_QUANT_KER
 from sentio_tpu_torch.kernels._build import CudaKernel
 from sentio_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 from sentio_tpu_torch.kernels.paged_attention import (
+    PAGES_PER_SPAN,
     paged_attention,
     paged_attention_plain,
     paged_attention_quant,
     paged_attention_quant_plain,
+    span_kernel,
 )
 
 ATOL = 2e-5
@@ -179,6 +181,21 @@ def test_library_hash_covers_included_headers(tmp_path):
     # the repo's kernels: the shared helpers and the wgmma header are hashed
     assert "cuda_common.cuh" in [p.name for p in PAGED_KERNEL.sources()]
     assert {"cuda_common.cuh", "wgmma.cuh"} <= {p.name for p in FLASH_KERNEL.sources()}
+
+
+def test_library_name_covers_defines(tmp_path):
+    """A build of one source with other ``-D`` defines is its own library;
+    the bf16 paged kernel's span size is such a define, so each size of the
+    sweep builds apart from the committed one."""
+    (tmp_path / "k.cu").write_text("constexpr int kSpan = SPAN;\n")
+    libs = {CudaKernel("k", str(tmp_path / "k.cu"), "k_launch", [], defines=d).library
+            for d in ((), ("SPAN=1",), ("SPAN=2",))}
+    assert len(libs) == 3 and len({lib.parent for lib in libs}) == 1
+    assert f"-DSENTIO_PAGES_PER_SPAN={PAGES_PER_SPAN}" in PAGED_KERNEL.flags
+    others = [span_kernel(n) for n in (1, 2, 4) if n != PAGES_PER_SPAN]
+    assert all(k.source == PAGED_KERNEL.source and k.launches == 0 for k in others)
+    assert len({PAGED_KERNEL.library, *(k.library for k in others)}) == 1 + len(others)
+    assert span_kernel(PAGES_PER_SPAN).library == PAGED_KERNEL.library
 
 
 def _quant_problem(rep, seed=0, tail_scale=np.nan):
