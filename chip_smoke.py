@@ -6,10 +6,10 @@ line each:
 
 1. device — the card's name and power limit (nvidia-smi); no CUDA, no run.
 2. build — the three CUDA kernels built from csrc/ with nvcc, in parallel
-   with the bf16 paged kernel's source at the other span sizes of its
-   sweep, with each kernel library's count of tensor-core instructions
-   (HGMMA, HMMA) in its SASS (the flash kernel must have some), and the
-   BM25 core with g++
+   with both paged kernels' sources at the other span sizes of their
+   sweeps, with each kernel library's count of tensor-core instructions
+   (HGMMA, HMMA) in its SASS (the flash kernel must have HGMMA, the int8
+   paged kernel HMMA), and the BM25 core with g++
    (host code; without a compiler the hybrid retriever scores with numpy,
    as the JAX package does, and the phase says which backend ran).
 3. kernels — each kernel against its plain PyTorch version on the card at
@@ -18,11 +18,12 @@ line each:
    outputs carry ~3 significant digits and the sums run in another order),
    timed beside its plain version, the bound the card could reach, and one
    PyTorch call computing the same function (scaled_dot_product_attention,
-   a yardstick only, unmasked where every key is attended). The bf16 paged
-   kernel runs at the serving batch's ragged lengths and at a chat's
-   decode shape (one live row, seven idle), each with its pages-per-span
-   sweep (one build of the source per span size); the flash kernel at the
-   embedder's and cross-encoder's shapes and at ingest's full lengths.
+   a yardstick only, unmasked where every key is attended). Each paged
+   kernel (bf16 and int8) runs at the serving batch's ragged lengths and at
+   a chat's decode shape (one live row, seven idle), each with its
+   pages-per-span sweep (one build of the source per span size; the int8
+   kernel's blocks per SM too); the flash kernel at the embedder's and
+   cross-encoder's shapes and at ingest's full lengths.
    Kernel and SDPA times are device times: 20 calls captured in a CUDA
    graph and replayed, so the host's launch cost is not counted.
 4. slice — the /chat pipeline at full width (Llama-3-8B, the base
@@ -61,7 +62,6 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
-INT8_OPS_PER_S = 1979e12    # H100 SXM dense int8 tensor-core peak
 MAX_ABS_LIMIT, MEAN_ABS_LIMIT = 2e-2, 2e-3
 # kernel vs plain decode attention inside a 32-layer bf16 model: the two
 # attention outputs round to bf16 from float32 sums taken in another order,
@@ -76,9 +76,8 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def bound_ms(n_bytes: float, n_ops: float,
-             ops_per_s: float = BF16_FLOPS_PER_S) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
+def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / BF16_FLOPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -160,137 +159,123 @@ def paged_problem(torch, dev, lens_list=SERVING_LENS):
     return q, kp, vp, table.to(dev), lens, lens_list, unowned
 
 
-def span_sweep() -> dict:
-    """The bf16 paged kernel's source built at each span size of the sweep:
-    the committed build where the size is :data:`PAGES_PER_SPAN`."""
-    from sentio_tpu_torch.kernels.paged_attention import KERNEL, PAGES_PER_SPAN, span_kernel
+def span_sweep(quant: bool = False) -> dict:
+    """A paged kernel's source (bf16, or the int8 one with ``quant``) built
+    at each span size of the sweep: the committed build at its size."""
+    from sentio_tpu_torch.kernels.paged_attention import (
+        KERNEL,
+        KERNEL_QUANT,
+        PAGES_PER_SPAN,
+        PAGES_PER_SPAN_QUANT,
+        span_kernel,
+    )
 
-    return {pps: KERNEL if pps == PAGES_PER_SPAN else span_kernel(pps)
+    committed, kernel = (PAGES_PER_SPAN_QUANT, KERNEL_QUANT) if quant else (PAGES_PER_SPAN, KERNEL)
+    return {pps: kernel if pps == committed else span_kernel(pps, quant)
             for pps in PAGES_PER_SPAN_SWEEP}
 
 
-def paged_check(torch, dev, sweep: dict, name: str = "decode_b8_h32_hkv8_d128_page128",
-                lens_list=SERVING_LENS) -> dict:
-    """The bf16 kernel at a decode shape of :func:`paged_problem`, with NaN
-    in every owned page past a row's length and in each current page's tail
-    (the kernel must never read them), and its time at each span size of
-    ``sweep`` (:func:`span_sweep`; each build held to the same limits)."""
+def sdpa_decode_ms(torch, q, k, v, lens) -> float:
+    """The paged kernels' yardstick: SDPA over each row's window gathered
+    densely beforehand (k, v [B, S, Hkv, D] bf16), keys past a row's length
+    zeroed and masked."""
     import torch.nn.functional as F
 
+    b, h, d = q.shape
+    window, hkv = k.shape[1], k.shape[2]
+    valid = torch.arange(window, device=q.device)[None, :] <= lens[:, None].long()
+
+    def dense(x):
+        x = torch.where(valid[:, :, None, None], x, 0).transpose(1, 2)
+        return x.repeat_interleave(h // hkv, dim=1)
+
+    dense_k, dense_v, mask = dense(k), dense(v), valid[:, None, None, :]
+    return time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q[:, :, None, :], dense_k, dense_v, attn_mask=mask), graph=True)
+
+
+def paged_check(torch, dev, sweep: dict, name: str, lens_list=SERVING_LENS,
+                quant: bool = False) -> dict:
+    """A paged kernel at a decode shape of :func:`paged_problem`: the bf16
+    kernel with NaN in every owned page past a row's length and in each
+    current page's tail, or (``quant``) the int8 kernel over those pools
+    quantized with the port's quantize_kv, with random int8 codes and NaN
+    f16 scales in the same slots (the kernel must never read them). Held
+    against the float32 plain version on the same inputs, and timed at each
+    span size of ``sweep`` (:func:`span_sweep`; each build held to the same
+    limits) beside the plain version and SDPA."""
     from sentio_tpu_torch.kernels.paged_attention import (
+        KERNEL_QUANT,
         PAGES_PER_SPAN,
+        PAGES_PER_SPAN_QUANT,
         _launch,
         paged_attention,
         paged_attention_plain,
+        paged_attention_quant,
+        paged_attention_quant_plain,
+        quant_occupancy,
     )
+    from sentio_tpu_torch.runtime.paged import dequantize_kv, quantize_kv
 
     q, kp, vp, table, lens, lens_list, unowned = paged_problem(torch, dev, lens_list)
     b, h, d = q.shape
     _, page, hkv, _ = kp.shape
     nb = table.shape[1]
-    for pid, tail in unowned:
-        kp[pid, tail:] = float("nan")
-        vp[pid, tail:] = float("nan")
+    tl = table.long()
+    if quant:
+        (k_q, k_s), (v_q, v_s) = quantize_kv(kp), quantize_kv(vp)
+        del kp, vp
+        gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+        for pid, tail in unowned:
+            for codes, scales in ((k_q, k_s), (v_q, v_s)):
+                codes[pid, tail:] = torch.randint(-128, 128, codes[pid, tail:].shape,
+                                                  generator=gen, device=dev, dtype=torch.int8)
+                scales[pid, tail:] = float("nan")
+        pools = (k_q, k_s, v_q, v_s)
+        kernel_fn, plain_fn = paged_attention_quant, paged_attention_quant_plain
+        dense_k, dense_v = (dequantize_kv(c[tl], sc[tl], torch.bfloat16).reshape(b, -1, hkv, d)
+                            for c, sc in ((k_q, k_s), (v_q, v_s)))
+        key_bytes, committed = hkv * (d + 2) * 2, PAGES_PER_SPAN_QUANT  # codes + f16 scale
+    else:
+        for pid, tail in unowned:
+            kp[pid, tail:] = float("nan")
+            vp[pid, tail:] = float("nan")
+        pools = (kp, vp)
+        kernel_fn, plain_fn = paged_attention, paged_attention_plain
+        dense_k, dense_v = (x[tl].reshape(b, -1, hkv, d) for x in (kp, vp))
+        key_bytes, committed = hkv * d * 2 * 2, PAGES_PER_SPAN
+    kernel_name = "paged_attention_quant" if quant else "paged_attention"
 
-    out = paged_attention(q, kp, vp, table, lens)
+    out = kernel_fn(q, *pools, table, lens)
     torch.cuda.synchronize()
-    ref = paged_attention_plain(q.float(), kp.float(), vp.float(), table, lens)
+    ref = plain_fn(q.float(), *pools, table, lens)
     max_err, mean_err = errors(out, ref)
-    check_limits(f"paged_attention {name}", max_err, mean_err)
+    check_limits(f"{kernel_name} {name}", max_err, mean_err)
     sweep_ms = {}
     for pps, kernel in sweep.items():
-        check_limits(f"paged_attention {name} pages_per_span={pps}",
-                     *errors(_launch(kernel, q, kp, vp, table, lens), ref))
-        sweep_ms[pps] = time_ms(torch, lambda: _launch(kernel, q, kp, vp, table, lens),
+        check_limits(f"{kernel_name} {name} pages_per_span={pps}",
+                     *errors(_launch(kernel, q, *pools, table, lens), ref))
+        sweep_ms[pps] = time_ms(torch, lambda: _launch(kernel, q, *pools, table, lens),
                                 graph=True)
 
-    ms = time_ms(torch, lambda: paged_attention(q, kp, vp, table, lens), graph=True)
-    plain_ms = time_ms(torch, lambda: paged_attention_plain(q, kp, vp, table, lens), iters=5)
-    # yardstick: SDPA over the rows' pages gathered densely beforehand
-    window = nb * page
-    valid = torch.arange(window, device=dev)[None, :] <= lens[:, None].long()
-    dense_k = torch.where(valid[:, :, None, None],
-                          kp[table.long()].reshape(b, window, hkv, d), 0).transpose(1, 2)
-    dense_v = torch.where(valid[:, :, None, None],
-                          vp[table.long()].reshape(b, window, hkv, d), 0).transpose(1, 2)
-    dense_k = dense_k.repeat_interleave(h // hkv, dim=1)
-    dense_v = dense_v.repeat_interleave(h // hkv, dim=1)
-    mask = valid[:, None, None, :]
-    library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q[:, :, None, :], dense_k, dense_v, attn_mask=mask), graph=True)
+    ms = time_ms(torch, lambda: kernel_fn(q, *pools, table, lens), graph=True)
+    plain_ms = time_ms(torch, lambda: plain_fn(q, *pools, table, lens), iters=5)
+    library_ms = sdpa_decode_ms(torch, q, dense_k, dense_v, lens)
     keys = sum(n + 1 for n in lens_list)  # 14,506 at the serving lengths
-    n_bytes = keys * hkv * d * 2 * 2 + 2 * q.numel() * 2 + table.numel() * 4 + b * 4
+    # the owned keys' K and V, q in, out, table, lens; the products in
+    # bf16 on the tensor cores (the int8 kernel's too)
+    n_bytes = keys * key_bytes + 2 * q.numel() * 2 + table.numel() * 4 + b * 4
     b_ms, b_by = bound_ms(n_bytes, 4 * h * d * keys)
-    n_spans = -(-nb // PAGES_PER_SPAN)
-    live_blocks = hkv * sum(-(-(n // page + 1) // PAGES_PER_SPAN) for n in lens_list)
+    n_spans = -(-nb // committed)
+    live_blocks = hkv * sum(-(-(n // page + 1) // committed) for n in lens_list)
     case = {"case": name, "lens": lens_list, "max_abs_err": max_err,
             "mean_abs_err": mean_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": library_ms, "pages_per_span": PAGES_PER_SPAN,
-            "blocks": b * hkv * n_spans, "live_blocks": live_blocks,
-            "ms_by_pages_per_span": sweep_ms}
-    emit("kernel", name="paged_attention", **case)
-    return case
-
-
-def paged_quant_check(torch, dev) -> dict:
-    """The int8 kernel at the same serving shape: the random bf16 pools
-    quantized with the port's quantize_kv, then random int8 codes and NaN
-    f16 scales in every owned page past a row's length and in each current
-    page's tail (the kernel must never read them), held against the
-    float32 plain version on the same int8 pool."""
-    import torch.nn.functional as F
-
-    from sentio_tpu_torch.kernels.paged_attention import (
-        paged_attention_quant,
-        paged_attention_quant_plain,
-    )
-    from sentio_tpu_torch.runtime.paged import dequantize_kv, quantize_kv
-
-    q, kp, vp, table, lens, lens_list, unowned = paged_problem(torch, dev)
-    b, h, d = q.shape
-    _, page, hkv, _ = kp.shape
-    nb = table.shape[1]
-    (k_q, k_s), (v_q, v_s) = quantize_kv(kp), quantize_kv(vp)
-    del kp, vp
-    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
-    for pid, tail in unowned:
-        for codes, scales in ((k_q, k_s), (v_q, v_s)):
-            codes[pid, tail:] = torch.randint(-128, 128, codes[pid, tail:].shape, generator=gen,
-                                              device=dev, dtype=torch.int8)
-            scales[pid, tail:] = float("nan")
-    args = (k_q, k_s, v_q, v_s, table, lens)
-
-    out = paged_attention_quant(q, *args)
-    torch.cuda.synchronize()
-    ref = paged_attention_quant_plain(q.float(), *args)
-    max_err, mean_err = errors(out, ref)
-    check_limits("paged_attention_quant", max_err, mean_err)
-
-    ms = time_ms(torch, lambda: paged_attention_quant(q, *args), graph=True)
-    plain_ms = time_ms(torch, lambda: paged_attention_quant_plain(q, *args), iters=5)
-    # yardstick: SDPA over the rows' pages dequantized and gathered densely
-    # beforehand
-    window = nb * page
-    valid = torch.arange(window, device=dev)[None, :] <= lens[:, None].long()
-    tl = table.long()
-
-    def dense(codes, scales):
-        x = dequantize_kv(codes[tl], scales[tl], torch.bfloat16).reshape(b, window, hkv, d)
-        x = torch.where(valid[:, :, None, None], x, 0).transpose(1, 2)
-        return x.repeat_interleave(h // hkv, dim=1)
-
-    dense_k, dense_v = dense(k_q, k_s), dense(v_q, v_s)
-    mask = valid[:, None, None, :]
-    library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q[:, :, None, :], dense_k, dense_v, attn_mask=mask), graph=True)
-    keys = sum(n + 1 for n in lens_list)
-    # codes and f16 scales of the owned keys, K and V; q in, out; table, lens
-    n_bytes = keys * hkv * (d + 2) * 2 + 2 * q.numel() * 2 + table.numel() * 4 + b * 4
-    b_ms, b_by = bound_ms(n_bytes, 4 * h * d * keys, INT8_OPS_PER_S)
-    case = {"case": "decode_int8_b8_h32_hkv8_d128_page128", "max_abs_err": max_err,
-            "mean_abs_err": mean_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": library_ms, "bound_bytes": n_bytes}
-    emit("kernel", name="paged_attention_quant", **case)
+            "bound_by": b_by, "bound_bytes": n_bytes, "library_ms": library_ms,
+            "pages_per_span": committed, "blocks": b * hkv * n_spans,
+            "live_blocks": live_blocks, "ms_by_pages_per_span": sweep_ms}
+    if quant:
+        case["blocks_per_sm"] = quant_occupancy(KERNEL_QUANT, h // hkv, d, page)
+    emit("kernel", name=kernel_name, **case)
     return case
 
 
@@ -584,10 +569,12 @@ def profile_chat(torch, pipeline, question: str, phase: str = "profile") -> dict
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
                for e in prof.key_averages() if e.self_device_time_total > 0]
     busy_ms = sum(ms for _, ms, _ in kernels)
-    # each hand-written kernel's family by its device functions' names: the
-    # bf16 paged family is its split kernel and the combine it launches
+    # each hand-written kernel's family by its device functions' names: a
+    # paged family is its split kernel and the combine it launches (no name
+    # contains another's)
     own = {"paged_decode_kernel": "paged_attention", "paged_combine_kernel": "paged_attention",
            "paged_decode_int8_kernel": "paged_attention_quant",
+           "paged_combine_int8_kernel": "paged_attention_quant",
            "flash_fwd_kernel": "flash_attention"}
     families = dict.fromkeys((*own.values(), "matmul", "other"), 0.0)
     for name, ms, _ in kernels:
@@ -627,8 +614,9 @@ def main() -> int:
     emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__, cuda=torch.version.cuda)
 
-    sweep = span_sweep()
-    seconds = build_all([*KERNELS, *(k for k in sweep.values() if k not in KERNELS)])
+    sweep, sweep_quant = span_sweep(), span_sweep(quant=True)
+    seconds = build_all([*KERNELS, *(k for k in (*sweep.values(), *sweep_quant.values())
+                                     if k not in KERNELS)])
     t0 = time.perf_counter()
     bm25_core = native.load_bm25() is not None
     tensor_core = {k.name: sass_counts(k) for k in KERNELS}
@@ -636,14 +624,17 @@ def main() -> int:
          bm25_core_seconds=time.perf_counter() - t0, sass_tensor_core=tensor_core, ptxas={
              k.name: [ln.strip() for ln in k.build_log.splitlines() if "registers" in ln
                       or "spill" in ln] for k in KERNELS})
-    if not tensor_core["flash_attention"]["HGMMA"]:
-        raise AssertionError(f"the flash kernel's products are not on the tensor cores: "
-                             f"{tensor_core['flash_attention']}")
+    for name, op in (("flash_attention", "HGMMA"), ("paged_attention_quant", "HMMA")):
+        if not tensor_core[name][op]:
+            raise AssertionError(f"{name}'s products are not on the tensor cores: "
+                                 f"{tensor_core[name]}")
 
-    paged = paged_check(torch, dev, sweep)
-    paged_chat = paged_check(torch, dev, sweep, "chat_decode_b8_h32_hkv8_d128_page128",
-                             CHAT_LENS)
-    paged_quant = paged_quant_check(torch, dev)
+    shape = "b8_h32_hkv8_d128_page128"
+    paged = paged_check(torch, dev, sweep, f"decode_{shape}")
+    paged_chat = paged_check(torch, dev, sweep, f"chat_decode_{shape}", CHAT_LENS)
+    paged_quant = paged_check(torch, dev, sweep_quant, f"decode_int8_{shape}", quant=True)
+    paged_quant_chat = paged_check(torch, dev, sweep_quant, f"chat_decode_int8_{shape}",
+                                   CHAT_LENS, quant=True)
     flash = flash_checks(torch, dev)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -679,7 +670,7 @@ def main() -> int:
          "launches": sl8["launches"]["paged_attention_quant"],
          **{k: paged_quant[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")},
-         "cases": [paged_quant]},
+         "cases": [paged_quant, paged_quant_chat]},
         {"name": "flash_attention", "route": "cuda",
          "source": "sentio_tpu_torch/csrc/flash_attention.cu",
          "replaces": "sentio_tpu/kernels/flash_attention.py:41",

@@ -50,13 +50,16 @@
 //      through the same merge, a row with none writes 0.
 // Reads: q [B, H, D], the owned K/V pages [P, page, Hkv, D], page_table
 // [B, NB] int32, lens [B] int32. Writes: out [B, H, D]; scratch of at
-// least B * H * n_spans * (D + 2) floats, allocated by the caller.
+// least B * H * n_spans * (D + 2) floats, allocated by the caller. The
+// tensor-core helpers, the span merge and the combine's body live in
+// paged_common.cuh, shared with the int8 kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "cuda_common.cuh"
+#include "paged_common.cuh"
 
 #ifndef SENTIO_PAGES_PER_SPAN
 #error "build with -DSENTIO_PAGES_PER_SPAN=<pages a block takes>"
@@ -68,6 +71,11 @@ using sentio::cp_async16;
 using sentio::cp_async_commit;
 using sentio::cp_async_wait;
 using sentio::exp2_approx;
+using sentio::ldmatrix_x4;
+using sentio::ldmatrix_x4_trans;
+using sentio::live_pages;
+using sentio::mma_16816;
+using sentio::pack_bf16;
 using sentio::smem_addr;
 
 constexpr int kThreads = 128;
@@ -98,34 +106,6 @@ __host__ __device__ inline size_t smem_bytes(int rep, int D, int page) {
   return pages > merge ? pages : merge;
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t& r0, uint32_t& r1,
-                                            uint32_t& r2, uint32_t& r3) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr, uint32_t& r0, uint32_t& r1,
-                                                  uint32_t& r2, uint32_t& r3) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(addr));
-}
-
-// d[4] += A[16 x 16] * B[16 x 8]; A rows 8..15 are zero here, so a[1] and
-// a[3] are 0 and d[2], d[3] (rows g + 8) are never read.
-__device__ __forceinline__ void mma_16816(float (&d)[4], uint32_t a0, uint32_t a2,
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
@@ -142,7 +122,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   const int span = blockIdx.z;
   const int n_spans = gridDim.z;
   const int cur = lens[b];  // the new token sits at absolute index cur
-  const int n_pages = cur < 0 ? 0 : min(cur / page + 1, NB);
+  const int n_pages = live_pages(cur, page, NB);
   const int p_begin = span * kPagesPerSpan;
   if (p_begin >= n_pages) return;  // the combine never reads this span
   const int p_end = min(p_begin + kPagesPerSpan, n_pages);
@@ -301,27 +281,8 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   }
   __syncthreads();
   const size_t q_row0 = (size_t)b * H + (size_t)g * rep;
-  for (int idx = tid; idx < rep * D; idx += kThreads) {
-    const int r = idx / D;
-    const int d = idx - r * D;
-    float mx = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, mw_s[w * rep + r]);
-    float lsum = 0.f, a = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float mw = mw_s[w * rep + r];
-      const float wgt = mw == -INFINITY ? 0.f : exp2_approx(mw - mx);
-      lsum += wgt * lw_s[w * rep + r];
-      a += wgt * aw_s[(w * rep + r) * D + d];
-    }
-    const size_t slot = (q_row0 + r) * n_spans + span;
-    part_acc[slot * D + d] = a;
-    if (d == 0) {
-      part_ml[slot * 2] = mx;
-      part_ml[slot * 2 + 1] = lsum;
-    }
-  }
+  sentio::write_span_partial<kWarps, kThreads>(mw_s, lw_s, aw_s, rep, D, q_row0, n_spans,
+                                               span, part_acc, part_ml);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -330,24 +291,8 @@ paged_combine_kernel(const float* __restrict__ part_acc,
                      const int* __restrict__ lens,
                      __nv_bfloat16* __restrict__ out,
                      int H, int D, int page, int NB, int n_spans) {
-  const int bh = blockIdx.x;
-  const int cur = lens[bh / H];
-  const int n_pages = cur < 0 ? 0 : min(cur / page + 1, NB);
-  const int live = (n_pages + kPagesPerSpan - 1) / kPagesPerSpan;
-  const float* ml = part_ml + (size_t)bh * n_spans * 2;
-  const float* pa = part_acc + (size_t)bh * n_spans * D;
-  float mx = -INFINITY;
-  for (int s = 0; s < live; ++s) mx = fmaxf(mx, ml[2 * s]);
-  for (int d = threadIdx.x; d < D; d += kThreads) {
-    float lsum = 0.f, a = 0.f;
-    for (int s = 0; s < live; ++s) {
-      const float ms = ml[2 * s];
-      const float wgt = ms == -INFINITY ? 0.f : exp2_approx(ms - mx);
-      lsum += wgt * ml[2 * s + 1];
-      a += wgt * pa[(size_t)s * D + d];
-    }
-    out[(size_t)bh * D + d] = __float2bfloat16(lsum == 0.f ? 0.f : a / lsum);
-  }
+  sentio::combine_spans<kPagesPerSpan, kThreads>(part_acc, part_ml, lens, out, H, D, page, NB,
+                                                 n_spans);
 }
 
 template <int D>

@@ -1,83 +1,154 @@
 // Paged decode attention for Hopper (sm_90a), int8 page pool with f16
-// per-vector scales (the KV_QUANT=int8 pool).
+// per-vector scales (the KV_QUANT=int8 pool), split over the pages of each
+// row (flash-decoding), scores and values on the tensor cores.
 //
 // Replaces sentio_tpu/kernels/paged_attention.py::_paged_kernel_quant (the
 // Pallas kernel behind paged_attention_quant / make_paged_attn_impl for an
 // int8 pool). Same function as the bf16 kernel in paged_attention.cu, over
-// codes and scales that are dequantized in registers:
+// codes and scales, the scales folded where the TPU kernel folds them:
 //   score  s[r][t] = (q_r . Kq_t) * ks_t * sm_scale   (dot over raw codes)
-//   value  acc[r] += (p[r][t] * vs_t) * Vq_t          (p kept in fp32)
-// One new token per row attends over the row's own scattered pages, keys
-// at positions <= lens[b] (the new token's K/V is already written at index
-// lens[b]), pages past lens[b] / page never read, GQA folded, and a row
-// with nothing to attend (l == 0) writes 0. The scale of a token past the
-// row's length is never read, so a NaN there cannot reach the output.
+//   value  acc[r] += (p[r][t] * vs_t) * Vq_t
+// One new token per row attends over the row's own scattered pages, fp32
+// online softmax, keys at positions <= lens[b] (the new token's K/V is
+// already written at index lens[b]), pages past lens[b] / page never read,
+// GQA folded, and a row with nothing to attend (l == 0) writes 0.
 //
-// Launch geometry: grid (B, Hkv), 128 threads, as paged_attention.cu. The
-// block reads page_table[b, i] itself and walks pages 0 .. lens[b] / page in
-// order, carrying (m, l, acc) in fp32. Per page:
-//   1. the page's int8 K and V rows of this kv head (each D contiguous
-//      bytes; at D = 128 a row is 8 loads of 16 codes) are staged in shared
-//      memory, 8 K and 8 V 16-byte loads in flight per thread, and each
-//      valid token's two f16 scales (strided by Hkv within the page) are
-//      staged as fp32;
-//   2. scores: thread t owns token t, converts its K codes to float 16 at
-//      a time and takes (q . k_t) * ks_t * sm_scale for all rep heads;
-//   3. softmax update: one warp per head row; the page's probabilities are
-//      folded with the value scales (p * vs_t) where they are stored;
-//   4. acc update: thread d owns output column d (for every rep head) and
-//      sums (p * vs)[r][t] * Vq[t][d] over the staged V codes.
+// Arithmetic. Codes lie in [-127, 127] (-128 only in unowned garbage), and
+// every such integer is exact in bf16; q is bf16. So q . Kq on bf16
+// mma.sync with fp32 sums is the TPU kernel's f32 dot up to summation
+// order. The one change: p * vs_t, which the TPU kernel keeps in fp32, is
+// rounded to bf16 to enter P V (the rounding the bf16 kernel applies to P;
+// |error| <= 2^-9 * max |V| over the row's keys, tests/test_torch_kernels.py
+// emulates it).
+//
+// What bounds it on the H100 SXM (published peaks, 700 W): the bytes the
+// rows own, sum(lens + 1) * Hkv * (D + 2) * 2 (codes plus f16 scales, K and
+// V) at ~2 FLOP per byte: memory, 3.35 TB/s, about half the bf16 pool's
+// bytes. A 128-token page of one kv head is 32 KB of codes.
+//
+// The design, two kernels launched by one entry point (the bf16 kernel's,
+// whose shared pieces are in paged_common.cuh):
+//   1. paged_decode_int8_kernel, grid (B, Hkv, n_spans), 128 threads. A
+//      span is kPagesPerSpan consecutive pages of one row (n_spans =
+//      ceil(NB / kPagesPerSpan)); a block whose span starts past its row's
+//      last page exits at once. kPagesPerSpan is SENTIO_PAGES_PER_SPAN,
+//      which the wrapper's build defines from its PAGES_PER_SPAN_QUANT
+//      (kernels/paged_attention.py), chosen from 1, 2 and 4 by
+//      chip_smoke.py's sweep. A block holds one page buffer and loads its
+//      span's pages one after another into it. A page's valid K and V code
+//      rows of this kv head are copied with cp.async 16-byte copies, never
+//      the tail past the current token; the rows after them up to the next
+//      multiple of 32 are zero-filled. The valid tokens' scales (2 bytes,
+//      strided by Hkv) are loaded one a thread and staged as fp32, K's
+//      premultiplied by sm_scale * log2(e); the padded rows' scales are
+//      written as 0, and the softmax selects them out besides, so a NaN
+//      scale past the row's length never meets the arithmetic.
+//      Warp w takes tokens 32w .. 32w + 31 of the page. Both products are
+//      mma.sync m16n8k16 (bf16 in, fp32 sums), the rep query heads the 16
+//      rows of A (rows past rep zero), codes converted to bf16 in registers
+//      (2^23 + code + 128 built by byte_perm, minus the offset, packed):
+//      - S = Q K^T: ldmatrix on int8 rows gives a lane 4 consecutive codes
+//        of one token, d = 4t .. 4t + 3 of a 16-wide group, so the k index
+//        of the product runs over d permuted within each group (2t, 2t + 1,
+//        2t + 8, 2t + 9 <-> 4t .. 4t + 3); q's A fragment is read in the
+//        same order (one 8-byte load), and the dot does not care. The
+//        scores stay in registers, are scaled by ks column by column, and
+//        the softmax runs with two quad shuffles a row.
+//      - acc += (P * vs) V: P is folded with vs in fp32, rounded to bf16 as
+//        the A fragment. ldmatrix.trans on the int8 V rows (as 16-bit
+//        pairs) gives a lane the codes of tokens 2t, 2t + 1 at columns 2g,
+//        2g + 1; byte_perm splits them into the B fragments of an "even"
+//        (d = 2g) and an "odd" (d = 2g + 1) column block. So no bf16 copy
+//        of V is staged (that tile would take ~64 KB more shared memory a
+//        block at page 128, D 128), and the accumulator holds d permuted
+//        within each 16 (a lane: 4t .. 4t + 3), unpermuted when written.
+//      Each warp keeps its own (m, l, acc); the four merge in shared memory
+//      and the block writes its unnormalised partial (m, l, acc[rep][D]) in
+//      fp32 to scratch.
+//   2. paged_combine_int8_kernel, grid (B * H), merges a row's live spans
+//      in span order (no atomics: the same output every run) and writes
+//      bf16 out; a row with none writes 0.
 // Reads: q [B, H, D] bf16, the owned codes [P, page, Hkv, D] int8 and
 // scales [P, page, Hkv] f16, page_table [B, NB] int32, lens [B] int32.
-// Writes: out [B, H, D] bf16.
-//
-// Bound on the H100: the bytes the rows own, sum(lens + 1) * Hkv * (D + 2)
-// * 2 (codes plus scales, K and V) — about half the bf16 pool's bytes; the
-// arithmetic is ~2 FLOP per byte. Like the bf16 kernel this design is
-// latency-bound, not bandwidth-bound: one 4-warp block per (row, kv head)
-// walks a whole row on one SM, a page's loads are not overlapped with the
-// previous page's math (no cp.async / TMA double buffering), and B * Hkv
-// blocks (64 at the serving batch) leave most of the 132 SMs idle. Split-K
-// over the pages of a long row is the known next step.
+// Writes: out [B, H, D] bf16; scratch of at least B * H * n_spans * (D + 2)
+// floats, allocated by the caller.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
-#include <float.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "cuda_common.cuh"
+#include "paged_common.cuh"
+
+#ifndef SENTIO_PAGES_PER_SPAN
+#error "build with -DSENTIO_PAGES_PER_SPAN=<pages a block takes>"
+#endif
 
 namespace {
 
+using sentio::cp_async16;
+using sentio::cp_async_commit;
+using sentio::cp_async_wait;
+using sentio::exp2_approx;
+using sentio::ldmatrix_x2;
+using sentio::ldmatrix_x4;
+using sentio::ldmatrix_x4_trans;
+using sentio::live_pages;
+using sentio::mma_16816;
+using sentio::pack_bf16;
+using sentio::smem_addr;
+
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxRep = 8;            // query heads per kv head
-constexpr int kMaxColsPerThread = 2;  // D <= 256
-constexpr int kVec = 16;              // int8 codes per 16-byte load
-constexpr int kBatch = 8;             // 16-byte loads in flight per thread
-constexpr float kNegInf = -FLT_MAX;
+constexpr int kChunk = 32;   // tokens a warp takes per page (4 mma columns of 8)
+constexpr int kMaxRep = 8;   // query heads per kv head: the 8 live rows of A
+constexpr int kVec = 16;     // int8 codes per 16-byte copy and per ldmatrix row
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kPagesPerSpan = SENTIO_PAGES_PER_SPAN;
+static_assert(kPagesPerSpan >= 1, "a span holds at least one page");
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+__host__ __device__ inline int rows_per_page(int page) {
+  return (page + kChunk - 1) / kChunk * kChunk;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// A page buffer holds rows_per_page(page) rows of K codes then as many of
+// V codes, each row D + kVec bytes (the padding puts the 8 rows an ldmatrix
+// reads on distinct banks), then the rows' K and V scales as fp32.
+__host__ __device__ inline size_t buffer_bytes(int D, int page) {
+  const size_t rows = rows_per_page(page);
+  return 2 * rows * (D + kVec) + 2 * rows * sizeof(float);
 }
 
-// Shared memory, in order: K codes [page][D + kVec] int8 (padded so 16-byte
-// reads of consecutive rows fall on different banks), V codes [page][D]
-// int8, then fp32 K scales [page], V scales [page], q [rep][D], scores
-// [rep][page], m, l, alpha [rep]. D % 16 == 0 keeps every part 16-byte
-// aligned.
+// The page buffer, or (after the last page) the warps' states for the
+// merge: [kWarps][rep] m, l and [kWarps][rep][D] acc.
 __host__ __device__ inline size_t smem_bytes(int rep, int D, int page) {
-  return (size_t)page * (D + kVec) + (size_t)page * D +
-         sizeof(float) * (2 * (size_t)page + (size_t)rep * D + (size_t)rep * page + 3 * rep);
+  const size_t merge = sizeof(float) * (size_t)kWarps * rep * (D + 2);
+  const size_t pages = buffer_bytes(D, page);
+  return pages > merge ? pages : merge;
 }
 
+// The four int8 codes of a 32-bit word as exact floats: byte k, offset by
+// 128, becomes the low byte of the float 2^23 + (code + 128).
+__device__ __forceinline__ void codes_to_float(uint32_t w, float (&f)[4]) {
+  const uint32_t u = w ^ 0x80808080u;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    f[k] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540u | k)) - 8388736.f;
+  }
+}
+
+// S fragment of 8 tokens over one 16-wide d group: the word holds codes
+// d = 4t .. 4t + 3 of token g, b0 the product's k = 2t, 2t + 1, b1 2t + 8,
+// 2t + 9.
+__device__ __forceinline__ void score_step(float (&s)[4], const uint32_t (&qa)[2], uint32_t w) {
+  float f[4];
+  codes_to_float(w, f);
+  mma_16816(s, qa[0], qa[1], pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]));
+}
+
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_int8_kernel(const __nv_bfloat16* __restrict__ q,
                          const int8_t* __restrict__ k_q,
@@ -86,175 +157,270 @@ paged_decode_int8_kernel(const __nv_bfloat16* __restrict__ q,
                          const __half* __restrict__ v_s,
                          const int* __restrict__ page_table,
                          const int* __restrict__ lens,
-                         __nv_bfloat16* __restrict__ out,
-                         int H, int Hkv, int D, int page, int NB, int P,
-                         float sm_scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int rep = H / Hkv;
-  const int kp = D + kVec;  // K row pitch in bytes
-  int8_t* kq_s = reinterpret_cast<int8_t*>(smem_raw);
-  int8_t* vq_s = kq_s + (size_t)page * kp;
-  float* ks_s = reinterpret_cast<float*>(vq_s + (size_t)page * D);  // [page]
-  float* vs_s = ks_s + page;       // [page]
-  float* q_s = vs_s + page;        // [rep][D]
-  float* s_s = q_s + rep * D;      // [rep][page] scores, then p * vs
-  float* m_s = s_s + rep * page;   // [rep] running max
-  float* l_s = m_s + rep;          // [rep] running normalizer
-  float* a_s = l_s + rep;          // [rep] this page's rescale factor
-
+                         float* __restrict__ part_acc,  // [B * H][n_spans][D]
+                         float* __restrict__ part_ml,   // [B * H][n_spans][2]
+                         int H, int Hkv, int page, int NB, int P, float sm_scale) {
+  constexpr int kp = D + kVec;  // row pitch in bytes
   const int b = blockIdx.x;
   const int g = blockIdx.y;
+  const int span = blockIdx.z;
+  const int n_spans = gridDim.z;
+  const int cur = lens[b];  // the new token sits at absolute index cur
+  const int n_pages = live_pages(cur, page, NB);
+  const int p_begin = span * kPagesPerSpan;
+  if (p_begin >= n_pages) return;  // the combine never reads this span
+  const int p_end = min(p_begin + kPagesPerSpan, n_pages);
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t smem0 = smem_addr(smem_raw);
+  const int rows = rows_per_page(page);
+  float* ks_s = reinterpret_cast<float*>(smem_raw + 2 * (size_t)rows * kp);  // [rows]
+  float* vs_s = ks_s + rows;                                                 // [rows]
+  const int rep = H / Hkv;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int cur = lens[b];  // the new token sits at absolute index cur
-
-  const size_t q_row0 = (size_t)b * H + (size_t)g * rep;
-  for (int i = tid; i < rep * D; i += kThreads) {
-    q_s[i] = __bfloat162float(q[q_row0 * D + i]);
-  }
-  if (tid < rep) {
-    m_s[tid] = kNegInf;
-    l_s[tid] = 0.f;
-  }
-  float acc[kMaxRep][kMaxColsPerThread];
-#pragma unroll
-  for (int r = 0; r < kMaxRep; ++r)
-#pragma unroll
-    for (int j = 0; j < kMaxColsPerThread; ++j) acc[r][j] = 0.f;
-
+  const int gr = lane >> 2;  // fragment row: query head gr of the group
+  const int t = lane & 3;    // fragment columns 2t, 2t + 1 of each 8
   const size_t tok_stride = (size_t)Hkv * D;  // codes between tokens of a page
-  const int vecs = D / kVec;                  // 16-byte chunks per row
-  const int n_pages = cur < 0 ? 0 : min(cur / page + 1, NB);
-  for (int i = 0; i < n_pages; ++i) {
+  const float scale = sm_scale * kLog2e;      // scores in log2 units: exp2 below
+
+  // tokens of page i this row may read (0 for an id outside the pool)
+  auto valid_tokens = [&](int i) -> int {
     const int pid = page_table[b * NB + i];
-    if (pid < 0 || pid >= P) continue;  // never read outside the pool
-    const int n_valid = min(page, cur + 1 - i * page);
-    const size_t page_off = (size_t)pid * page * tok_stride + (size_t)g * D;
-
-    // 1. stage the valid K and V code rows (consecutive threads read
-    //    consecutive 16-byte chunks of a row) and the valid tokens' scales.
-    //    Each thread issues kBatch K and kBatch V loads before it stores any.
-    const int n_chunks = n_valid * vecs;
-    for (int c0 = tid; c0 < n_chunks; c0 += kThreads * kBatch) {
-      int4 kr[kBatch], vr[kBatch];
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int c = c0 + u * kThreads;
-        if (c < n_chunks) {
-          const int t = c / vecs;
-          const size_t src = page_off + (size_t)t * tok_stride + (c - t * vecs) * kVec;
-          kr[u] = *reinterpret_cast<const int4*>(k_q + src);
-          vr[u] = *reinterpret_cast<const int4*>(v_q + src);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int c = c0 + u * kThreads;
-        if (c < n_chunks) {
-          const int t = c / vecs;
-          const int x = (c - t * vecs) * kVec;
-          *reinterpret_cast<int4*>(kq_s + t * kp + x) = kr[u];
-          *reinterpret_cast<int4*>(vq_s + t * D + x) = vr[u];
-        }
-      }
+    return (pid < 0 || pid >= P) ? 0 : min(page, cur + 1 - i * page);
+  };
+  // start the copies of page i's valid K and V code rows into the buffer
+  // (zero-filling the rows after them up to the next multiple of kChunk),
+  // and stage the valid tokens' scales (0 for the padded rows)
+  auto issue = [&](int i) {
+    const int n_valid = valid_tokens(i);
+    const int n_rows = min(rows, (n_valid + kChunk - 1) / kChunk * kChunk);
+    const size_t pid = n_valid > 0 ? (size_t)page_table[b * NB + i] : 0;
+    const size_t page_off = pid * page * tok_stride + (size_t)g * D;
+    const uint32_t k_dst = smem0;
+    const uint32_t v_dst = k_dst + rows * kp;
+    for (int c = tid; c < n_rows * (D / kVec); c += kThreads) {
+      const int r = c / (D / kVec);
+      const int x = (c - r * (D / kVec)) * kVec;
+      const bool ok = r < n_valid;
+      const size_t src = ok ? page_off + (size_t)r * tok_stride + x : 0;
+      cp_async16(k_dst + r * kp + x, k_q + src, ok ? 16 : 0);
+      cp_async16(v_dst + r * kp + x, v_q + src, ok ? 16 : 0);
     }
-    for (int t = tid; t < n_valid; t += kThreads) {
-      const size_t si = ((size_t)pid * page + t) * Hkv + g;
-      ks_s[t] = __half2float(k_s[si]);
-      vs_s[t] = __half2float(v_s[si]);
+    cp_async_commit();
+    for (int r = tid; r < n_rows; r += kThreads) {
+      const size_t si = (pid * page + r) * Hkv + g;
+      const bool ok = r < n_valid;
+      ks_s[r] = ok ? __half2float(k_s[si]) * scale : 0.f;
+      vs_s[r] = ok ? __half2float(v_s[si]) : 0.f;
     }
-    __syncthreads();
+  };
 
-    // 2. scores s[r][t] = (q_r . kq_t) * ks_t * sm_scale, one token per thread
-    for (int t = tid; t < n_valid; t += kThreads) {
-      float part[kMaxRep];
+  issue(p_begin);
+
+  // A fragments of q: row gr (a query head of this group); for d group ks,
+  // a0 = q[16ks + 4t], q[16ks + 4t + 1] and a2 = q[16ks + 4t + 2], q[16ks +
+  // 4t + 3] (the permuted k order of score_step); heads past rep are zero
+  uint32_t qa[D / 16][2];
+  const __nv_bfloat16* q_row = q + ((size_t)b * H + (size_t)g * rep + gr) * D;
 #pragma unroll
-      for (int r = 0; r < kMaxRep; ++r) part[r] = 0.f;
-      const int8_t* krow = kq_s + t * kp;
-      for (int x = 0; x < D; x += kVec) {
-        const int4 raw = *reinterpret_cast<const int4*>(krow + x);
-        const int8_t* codes = reinterpret_cast<const int8_t*>(&raw);
-        float kf[kVec];
+  for (int ks = 0; ks < D / 16; ++ks) {
+    const uint2 v = gr < rep ? *reinterpret_cast<const uint2*>(q_row + 16 * ks + 4 * t)
+                             : make_uint2(0u, 0u);
+    qa[ks][0] = v.x;
+    qa[ks][1] = v.y;
+  }
+  float m = -INFINITY, l = 0.f;  // row gr: m quad-uniform, l this lane's share
+  // P V: column block n = 2c + parity of d group c holds d = 16c + 4t +
+  // parity (e = 0) and 16c + 4t + 2 + parity (e = 1), rows gr (and gr + 8)
+  float acc[D / 8][4];
 #pragma unroll
-        for (int e = 0; e < kVec; ++e) kf[e] = static_cast<float>(codes[e]);
+  for (int n = 0; n < D / 8; ++n)
 #pragma unroll
-        for (int r = 0; r < kMaxRep; ++r) {
-          if (r < rep) {
-            const float* qr = q_s + r * D + x;
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  // ldmatrix row addresses of this lane (row lane % 8 of matrix lane / 8):
+  // K, 8 tokens by four 16-byte groups; V, tokens 0-7 and 8-15 by two
+  const uint32_t k_lane = (lane & 7) * kp + kVec * (lane >> 3);
+  const uint32_t v_lane = (8 * ((lane >> 3) & 1) + (lane & 7)) * kp + kVec * (lane >> 4);
+
+  for (int i = p_begin; i < p_end; ++i) {
+    cp_async_wait<0>();
+    __syncthreads();  // page i and its scales are visible to every warp
+
+    const int n_valid = valid_tokens(i);
+    const uint32_t kb = smem0;
+    const uint32_t vb = kb + rows * kp;
+    for (int base = warp * kChunk; base < n_valid; base += kWarps * kChunk) {
+      // S[16 x 32] = Q K^T over this warp's 32 tokens: 4 column blocks of 8
+      float s[4][4];
 #pragma unroll
-            for (int e = 0; e < kVec; ++e) part[r] += qr[e] * kf[e];
-          }
+      for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+        const uint32_t k_rows = kb + (base + 8 * nt) * kp + k_lane;
+#pragma unroll
+        for (int kk = 0; kk < D / 64; ++kk) {
+          uint32_t w0, w1, w2, w3;
+          ldmatrix_x4(k_rows + kk * 64, w0, w1, w2, w3);
+          score_step(s[nt], qa[4 * kk], w0);
+          score_step(s[nt], qa[4 * kk + 1], w1);
+          score_step(s[nt], qa[4 * kk + 2], w2);
+          score_step(s[nt], qa[4 * kk + 3], w3);
         }
+        if constexpr (D % 64 != 0) {  // the last 32 codes of a row
+          uint32_t w0, w1;
+          ldmatrix_x2(k_rows + (D / 64) * 64, w0, w1);
+          score_step(s[nt], qa[D / 16 - 2], w0);
+          score_step(s[nt], qa[D / 16 - 1], w1);
+        }
+        // column scale ks * sm_scale * log2(e) of tokens 8nt + 2t, + 1
+        const float2 ksc = *reinterpret_cast<const float2*>(ks_s + base + 8 * nt + 2 * t);
+        s[nt][0] *= ksc.x;
+        s[nt][1] *= ksc.y;
       }
-      const float ks = ks_s[t];
+      // online softmax of row gr over the 32 tokens: 8 here, the rest in
+      // the quad; the chunk's first token is valid, so m stays finite
+      float mx = -INFINITY;
 #pragma unroll
-      for (int r = 0; r < kMaxRep; ++r) {
-        if (r < rep) s_s[r * page + t] = part[r] * ks * sm_scale;
-      }
-    }
-    __syncthreads();
-
-    // 3. online-softmax update, one warp per head row; l sums p, and the
-    //    stored weight is p * vs_t for the value step
-    for (int r = warp; r < rep; r += kWarps) {
-      float mx = kNegInf;
-      for (int t = lane; t < n_valid; t += 32) mx = fmaxf(mx, s_s[r * page + t]);
-      mx = warp_max(mx);
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      const bool live = m_new > kNegInf * 0.5f;
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (base + 8 * nt + 2 * t + e < n_valid) mx = fmaxf(mx, s[nt][e]);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m, mx);
+      const float alpha = exp2_approx(m - m_new);
+      m = m_new;
+      float pv[4][2];  // p * vs_t, 0 past the valid tokens (a select)
       float sum = 0.f;
-      for (int t = lane; t < n_valid; t += 32) {
-        const float p = live ? expf(s_s[r * page + t] - m_new) : 0.f;
-        s_s[r * page + t] = p * vs_s[t];
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = live ? expf(m_prev - m_new) : 1.f;
-        l_s[r] = l_s[r] * alpha + sum;
-        m_s[r] = m_new;
-        a_s[r] = alpha;
-      }
-    }
-    __syncthreads();
-
-    // 4. acc[r][d] = acc[r][d] * alpha[r] + sum_t (p * vs)[r][t] * vq[t][d]
 #pragma unroll
-    for (int j = 0; j < kMaxColsPerThread; ++j) {
-      const int d = tid + j * kThreads;
-      if (d < D) {
+      for (int nt = 0; nt < 4; ++nt) {
+        const float2 vsc = *reinterpret_cast<const float2*>(vs_s + base + 8 * nt + 2 * t);
 #pragma unroll
-        for (int r = 0; r < kMaxRep; ++r) {
-          if (r < rep) acc[r][j] *= a_s[r];
+        for (int e = 0; e < 2; ++e) {
+          const bool ok = base + 8 * nt + 2 * t + e < n_valid;
+          const float p = ok ? exp2_approx(s[nt][e] - m_new) : 0.f;
+          sum += p;
+          pv[nt][e] = ok ? p * (e ? vsc.y : vsc.x) : 0.f;
         }
-#pragma unroll 4
-        for (int t = 0; t < n_valid; ++t) {
-          const float vv = static_cast<float>(vq_s[t * D + d]);
+      }
+      l = l * alpha + sum;
 #pragma unroll
-          for (int r = 0; r < kMaxRep; ++r) {
-            if (r < rep) acc[r][j] += s_s[r * page + t] * vv;
+      for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] *= alpha;
+
+      // acc += (P vs) V: P vs as bf16 A fragments (tokens 16kc .. 16kc + 15
+      // are the S column blocks 2kc and 2kc + 1); per 32 d, one transposed
+      // ldmatrix gives the V codes of 16 tokens for four column blocks
+#pragma unroll
+      for (int kc = 0; kc < 2; ++kc) {
+        const uint32_t pa0 = pack_bf16(pv[2 * kc][0], pv[2 * kc][1]);
+        const uint32_t pa2 = pack_bf16(pv[2 * kc + 1][0], pv[2 * kc + 1][1]);
+        const uint32_t v_rows = vb + (base + 16 * kc) * kp + v_lane;
+#pragma unroll
+        for (int n2 = 0; n2 < D / 32; ++n2) {
+          uint32_t w[4];  // tokens 0-7 / 8-15 of d group 2n2, then of 2n2 + 1
+          ldmatrix_x4_trans(v_rows + n2 * 32, w[0], w[1], w[2], w[3]);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            // codes of tokens 0-7 (f0) and 8-15 (f8) of the 16, each
+            // (2t, d 2g), (2t, 2g + 1), (2t + 1, 2g), (2t + 1, 2g + 1)
+            float f0[4], f8[4];
+            codes_to_float(w[2 * h], f0);
+            codes_to_float(w[2 * h + 1], f8);
+            const int c = 2 * n2 + h;
+            mma_16816(acc[2 * c], pa0, pa2, pack_bf16(f0[0], f0[2]), pack_bf16(f8[0], f8[2]));
+            mma_16816(acc[2 * c + 1], pa0, pa2, pack_bf16(f0[1], f0[3]),
+                      pack_bf16(f8[1], f8[3]));
           }
         }
       }
     }
-    __syncthreads();  // the next page overwrites the staged codes, scales and s_s
-  }
-
-#pragma unroll
-  for (int j = 0; j < kMaxColsPerThread; ++j) {
-    const int d = tid + j * kThreads;
-    if (d < D) {
-#pragma unroll
-      for (int r = 0; r < kMaxRep; ++r) {
-        if (r < rep) {
-          const float l = l_s[r];
-          out[(q_row0 + r) * D + d] = __float2bfloat16(acc[r][j] / (l == 0.f ? 1.f : l));
-        }
-      }
+    if (i + 1 < p_end) {
+      __syncthreads();  // every warp is done with the buffer
+      issue(i + 1);
     }
   }
+
+  // merge the four warps' states, then write this span's partial
+  l += __shfl_xor_sync(0xffffffffu, l, 1);
+  l += __shfl_xor_sync(0xffffffffu, l, 2);
+  float* mw_s = reinterpret_cast<float*>(smem_raw);  // [kWarps][rep]
+  float* lw_s = mw_s + kWarps * rep;                 // [kWarps][rep]
+  float* aw_s = lw_s + kWarps * rep;                 // [kWarps][rep][D]
+  __syncthreads();  // the page buffer becomes the merge area
+  if (gr < rep) {
+    if (t == 0) {
+      mw_s[warp * rep + gr] = m;
+      lw_s[warp * rep + gr] = l;
+    }
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) {  // d = 16c + 4t .. 16c + 4t + 3
+      *reinterpret_cast<float4*>(aw_s + (warp * rep + gr) * D + 16 * c + 4 * t) =
+          make_float4(acc[2 * c][0], acc[2 * c + 1][0], acc[2 * c][1], acc[2 * c + 1][1]);
+    }
+  }
+  __syncthreads();
+  const size_t q_row0 = (size_t)b * H + (size_t)g * rep;
+  sentio::write_span_partial<kWarps, kThreads>(mw_s, lw_s, aw_s, rep, D, q_row0, n_spans,
+                                               span, part_acc, part_ml);
+}
+
+__global__ void __launch_bounds__(kThreads)
+paged_combine_int8_kernel(const float* __restrict__ part_acc,
+                          const float* __restrict__ part_ml,
+                          const int* __restrict__ lens,
+                          __nv_bfloat16* __restrict__ out,
+                          int H, int D, int page, int NB, int n_spans) {
+  sentio::combine_spans<kPagesPerSpan, kThreads>(part_acc, part_ml, lens, out, H, D, page, NB,
+                                                 n_spans);
+}
+
+// Raise the kernel's dynamic shared memory limit to smem bytes once (to the
+// largest asked).
+template <int D>
+cudaError_t allow_smem(size_t smem) {
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  static size_t smem_allowed = 48 * 1024;
+  if (smem > smem_allowed) {
+    cudaError_t e = cudaFuncSetAttribute(
+        paged_decode_int8_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    smem_allowed = smem;
+  }
+  return cudaSuccess;
+}
+
+template <int D>
+int launch(const void* q, const void* k_q, const void* k_s, const void* v_q, const void* v_s,
+           const void* page_table, const void* lens, void* out, float* part_acc,
+           float* part_ml, int B, int H, int Hkv, int page, int NB, int P, int n_spans,
+           float sm_scale, cudaStream_t stream) {
+  const size_t smem = smem_bytes(H / Hkv, D, page);
+  cudaError_t e = allow_smem<D>(smem);
+  if (e != cudaSuccess) return (int)e;
+  paged_decode_int8_kernel<D><<<dim3(B, Hkv, n_spans), kThreads, smem, stream>>>(
+      (const __nv_bfloat16*)q, (const int8_t*)k_q, (const __half*)k_s, (const int8_t*)v_q,
+      (const __half*)v_s, (const int*)page_table, (const int*)lens, part_acc, part_ml, H, Hkv,
+      page, NB, P, sm_scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  paged_combine_int8_kernel<<<B * H, kThreads, 0, stream>>>(
+      part_acc, part_ml, (const int*)lens, (__nv_bfloat16*)out, H, D, page, NB, n_spans);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int occupancy(int rep, int page, int* blocks) {
+  const size_t smem = smem_bytes(rep, D, page);
+  cudaError_t e = allow_smem<D>(smem);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, paged_decode_int8_kernel<D>, kThreads, smem);
 }
 
 }  // namespace
@@ -262,26 +428,38 @@ paged_decode_int8_kernel(const __nv_bfloat16* __restrict__ q,
 extern "C" int paged_attention_int8(const void* q, const void* k_q, const void* k_s,
                                     const void* v_q, const void* v_s,
                                     const void* page_table, const void* lens, void* out,
-                                    int B, int H, int Hkv, int D, int page, int NB, int P,
-                                    float sm_scale, void* stream) {
+                                    void* scratch, int B, int H, int Hkv, int D, int page,
+                                    int NB, int P, float sm_scale, void* stream) {
   if (B <= 0) return 0;
-  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > kMaxRep || D % kVec != 0 ||
-      D > kThreads * kMaxColsPerThread || page <= 0 || NB <= 0 || P <= 0) {
+  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > kMaxRep || page <= 0 || NB <= 0 || P <= 0) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = smem_bytes(H / Hkv, D, page);
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        paged_decode_int8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  const int n_spans = (NB + kPagesPerSpan - 1) / kPagesPerSpan;
+  float* part_acc = static_cast<float*>(scratch);
+  float* part_ml = part_acc + (size_t)B * H * n_spans * D;
+  cudaStream_t s = (cudaStream_t)stream;
+#define SENTIO_PAGED_ARGS q, k_q, k_s, v_q, v_s, page_table, lens, out, part_acc, part_ml, B, H, \
+                          Hkv, page, NB, P, n_spans, sm_scale, s
+  switch (D) {
+    case 32: return launch<32>(SENTIO_PAGED_ARGS);
+    case 64: return launch<64>(SENTIO_PAGED_ARGS);
+    case 128: return launch<128>(SENTIO_PAGED_ARGS);
+    case 256: return launch<256>(SENTIO_PAGED_ARGS);
+    default: return (int)cudaErrorInvalidValue;
   }
-  dim3 grid(B, Hkv);
-  paged_decode_int8_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const int8_t*)k_q, (const __half*)k_s,
-      (const int8_t*)v_q, (const __half*)v_s, (const int*)page_table, (const int*)lens,
-      (__nv_bfloat16*)out, H, Hkv, D, page, NB, P, sm_scale);
-  return (int)cudaGetLastError();
+#undef SENTIO_PAGED_ARGS
+}
+
+// Blocks of the split kernel one SM holds at once (registers and shared
+// memory both counted by the CUDA runtime), into *blocks.
+extern "C" int paged_attention_int8_occupancy(int rep, int D, int page, int* blocks) {
+  switch (D) {
+    case 32: return occupancy<32>(rep, page, blocks);
+    case 64: return occupancy<64>(rep, page, blocks);
+    case 128: return occupancy<128>(rep, page, blocks);
+    case 256: return occupancy<256>(rep, page, blocks);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* sentio_cuda_error_string(int code) {

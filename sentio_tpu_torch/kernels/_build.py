@@ -54,6 +54,7 @@ class CudaKernel:
         self.flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
         self.launches = 0
         self.build_log = ""
+        self._lib = None
         self._fn = None
         self._err = None
 
@@ -110,8 +111,17 @@ class CudaKernel:
             err = lib.sentio_cuda_error_string
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
-            self._fn, self._err = fn, err
+            self._lib, self._fn, self._err = lib, fn, err
         return self._fn
+
+    def function(self, symbol: str, argtypes: Sequence):
+        """Another C function of the kernel's library (built and loaded on
+        first use), returning int."""
+        self._load()
+        fn = getattr(self._lib, symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        return fn
 
     def launch(self, *args) -> None:
         """Call the C launcher (which launches on the given stream and

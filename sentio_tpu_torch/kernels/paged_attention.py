@@ -7,14 +7,14 @@ Replaces both variants of ``sentio_tpu/kernels/paged_attention.py``:
 * ``_paged_kernel_quant`` (int8 pages with f16 per-vector scales, the
   ``KV_QUANT=int8`` pool) by ``csrc/paged_attention_quant.cu``.
 
-The bf16 kernel splits each row's pages into spans of
-:data:`PAGES_PER_SPAN` pages: grid (B, Hkv, spans), each block an fp32
-online softmax over its span's pages with both products on the tensor
-cores, then a combine kernel (launched by the same C entry point) merges a
-row's spans into bf16 out; the wrapper allocates the partials' scratch.
-The int8 kernel uses grid (B, Hkv): one block per (row, kv head) walks the
-row's whole page table. See the sources for their geometry and what
-bounds them.
+Both kernels split each row's pages into spans (:data:`PAGES_PER_SPAN`
+pages for the bf16 kernel, :data:`PAGES_PER_SPAN_QUANT` for the int8 one):
+grid (B, Hkv, spans), each block an fp32 online softmax over its span's
+pages with both products on the tensor cores, then a combine kernel
+(launched by the same C entry point) merges a row's spans into bf16 out;
+the wrapper allocates the partials' scratch. The int8 kernel takes the
+codes into bf16 products and folds the scales as the TPU kernel does. See
+the sources for their geometry and what bounds them.
 
 :func:`paged_attention` and :func:`paged_attention_quant` launch their
 kernels for CUDA tensors and run the plain versions only for CPU tensors.
@@ -34,6 +34,7 @@ from sentio_tpu_torch.kernels._build import CudaKernel, ptr, stream_of
 __all__ = [
     "QuantPages", "paged_attention", "paged_attention_plain", "paged_attention_quant",
     "paged_attention_quant_plain", "span_kernel", "KERNEL", "KERNEL_QUANT",
+    "PAGES_PER_SPAN", "PAGES_PER_SPAN_QUANT",
 ]
 
 NEG_INF = float(np.finfo(np.float32).min)
@@ -43,27 +44,31 @@ NEG_INF = float(np.finfo(np.float32).min)
 # (one live row) and faster at a full serving batch, where four were
 # slower at the chat's
 PAGES_PER_SPAN = 2
-PAGED_HEAD_DIMS = (32, 64, 128, 256)  # the bf16 kernel's tensor-core tiles
+# the same for the int8 kernel, chosen by the same sweep (PERF.md)
+PAGES_PER_SPAN_QUANT = 2
+PAGED_HEAD_DIMS = (32, 64, 128, 256)  # the kernels' tensor-core tiles
 
 
-def span_kernel(pages_per_span: int) -> CudaKernel:
-    """The bf16 kernel compiled with spans of ``pages_per_span`` pages (its
-    own library). :data:`KERNEL` is the one built at :data:`PAGES_PER_SPAN`;
-    the others exist to time the choice."""
-    name = "paged_attention" if pages_per_span == PAGES_PER_SPAN else \
-        f"paged_attention_span{pages_per_span}"
+def span_kernel(pages_per_span: int, quant: bool = False) -> CudaKernel:
+    """The bf16 (or, with ``quant``, the int8) kernel compiled with spans of
+    ``pages_per_span`` pages (its own library). :data:`KERNEL` and
+    :data:`KERNEL_QUANT` are the builds at :data:`PAGES_PER_SPAN` and
+    :data:`PAGES_PER_SPAN_QUANT`; the others exist to time the choice."""
+    name, source, symbol, n_ptrs, committed = (
+        ("paged_attention_quant", "paged_attention_quant.cu", "paged_attention_int8", 9,
+         PAGES_PER_SPAN_QUANT) if quant else
+        ("paged_attention", "paged_attention.cu", "paged_attention_bf16", 7, PAGES_PER_SPAN))
+    if pages_per_span != committed:
+        name = f"{name}_span{pages_per_span}"
     return CudaKernel(
-        name, "paged_attention.cu", "paged_attention_bf16",
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
+        name, source, symbol,
+        [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
         defines=(f"SENTIO_PAGES_PER_SPAN={pages_per_span}",),
     )
 
 
 KERNEL = span_kernel(PAGES_PER_SPAN)
-KERNEL_QUANT = CudaKernel(
-    "paged_attention_quant", "paged_attention_quant.cu", "paged_attention_int8",
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
-)
+KERNEL_QUANT = span_kernel(PAGES_PER_SPAN_QUANT, quant=True)
 
 
 class QuantPages(NamedTuple):
@@ -125,25 +130,25 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
     plain version."""
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pages, v_pages, page_table, lens)
-    _check("paged_attention", q, k_pages, v_pages, page_table, lens, d_multiple=8,
+    _check("paged_attention", q, k_pages, v_pages, page_table, lens,
            tensors=(("k_pages", k_pages, torch.bfloat16),
                     ("v_pages", v_pages, torch.bfloat16)))
-    if q.shape[2] not in PAGED_HEAD_DIMS:
-        raise ValueError(f"paged_attention: head_dim {q.shape[2]} not in {PAGED_HEAD_DIMS}")
     return _launch(KERNEL, q, k_pages, v_pages, page_table, lens)
 
 
-def _launch(kernel: CudaKernel, q, k_pages, v_pages, page_table, lens) -> torch.Tensor:
-    """Launch a build of the bf16 kernel (:func:`span_kernel`) on checked
-    inputs. Its partials go to fp32 scratch of [B, H, NB, D + 2]: room for
+def _launch(kernel: CudaKernel, q: torch.Tensor, *inputs: torch.Tensor) -> torch.Tensor:
+    """Launch a build of a paged kernel (:func:`span_kernel`) on checked
+    inputs, in its entry point's order: q, the pools (k_pages, v_pages for
+    the bf16 kernel; k_q, k_s, v_q, v_s for the int8 one), page_table,
+    lens. The partials go to fp32 scratch of [B, H, NB, D + 2]: room for
     spans of one page, so enough at any span size."""
     b, h, d = q.shape
-    num_pages, page, hkv, _ = k_pages.shape
-    nb = page_table.shape[1]
+    num_pages, page, hkv, _ = inputs[0].shape
+    nb = inputs[-2].shape[1]
     out = torch.empty_like(q)
     scratch = torch.empty(b * h * nb * (d + 2), dtype=torch.float32, device=q.device)
     kernel.launch(
-        ptr(q), ptr(k_pages), ptr(v_pages), ptr(page_table), ptr(lens), ptr(out), ptr(scratch),
+        ptr(q), *(ptr(x) for x in inputs), ptr(out), ptr(scratch),
         b, h, hkv, d, page, nb, num_pages,
         ctypes.c_float(1.0 / float(np.sqrt(d))), stream_of(q),
     )
@@ -151,13 +156,12 @@ def _launch(kernel: CudaKernel, q, k_pages, v_pages, page_table, lens) -> torch.
 
 
 def _check(fn: str, q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
-           page_table: torch.Tensor, lens: torch.Tensor, d_multiple: int,
-           tensors: tuple) -> None:
+           page_table: torch.Tensor, lens: torch.Tensor, tensors: tuple) -> None:
     """Raise ``ValueError`` unless the inputs are what a paged kernel takes:
     CUDA tensors, K/V payloads [P, page, Hkv, D] aligned to 16 bytes, at
-    most 8 query heads per kv head, D a multiple of ``d_multiple`` up to
-    256, and bf16 q, int32 table and lens plus ``tensors`` (name, tensor,
-    dtype), all contiguous on q's device."""
+    most 8 query heads per kv head, D one of :data:`PAGED_HEAD_DIMS`, and
+    bf16 q, int32 table and lens plus ``tensors`` (name, tensor, dtype), all
+    contiguous on q's device."""
     if q.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {q.device}")
     b, h, d = q.shape
@@ -165,8 +169,10 @@ def _check(fn: str, q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
         raise ValueError(f"{fn}: k/v pages must be [P, page, Hkv, D], got "
                          f"{tuple(k_pages.shape)} / {tuple(v_pages.shape)}")
     hkv, dk = k_pages.shape[2:]
-    if dk != d or h % hkv or h // hkv > 8 or d % d_multiple or d > 256:
+    if dk != d or h % hkv or h // hkv > 8:
         raise ValueError(f"{fn}: unsupported heads/dims: H={h} Hkv={hkv} D={d}")
+    if d not in PAGED_HEAD_DIMS:
+        raise ValueError(f"{fn}: head_dim {d} not in {PAGED_HEAD_DIMS}")
     if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
         raise ValueError(f"{fn}: page pools must be 16-byte aligned")
     if page_table.dim() != 2 or page_table.shape[0] != b or lens.shape != (b,):
@@ -207,22 +213,26 @@ def paged_attention_quant(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
     """Decode attention over one layer's int8 page pool → [B, H, D].
 
     CUDA tensors launch the hand-written kernel (bf16 q, int8 payloads
-    aligned to 16 bytes, f16 scales, int32 table and lens, all contiguous);
-    CPU tensors take the plain version."""
+    aligned to 16 bytes, f16 scales, D in 32/64/128/256, int32 table and
+    lens, all contiguous); CPU tensors take the plain version."""
     if q.device.type == "cpu":
         return paged_attention_quant_plain(q, k_q, k_s, v_q, v_s, page_table, lens)
-    _check("paged_attention_quant", q, k_q, v_q, page_table, lens, d_multiple=16,
+    _check("paged_attention_quant", q, k_q, v_q, page_table, lens,
            tensors=(("k_q", k_q, torch.int8), ("k_s", k_s, torch.float16),
                     ("v_q", v_q, torch.int8), ("v_s", v_s, torch.float16)))
     if k_s.shape != k_q.shape[:-1] or v_s.shape != k_q.shape[:-1]:
         raise ValueError(f"paged_attention_quant: k/v scales must be [P, page, Hkv], got "
                          f"{tuple(k_s.shape)} / {tuple(v_s.shape)}")
-    b, h, d = q.shape
-    num_pages, page, hkv, _ = k_q.shape
-    out = torch.empty_like(q)
-    KERNEL_QUANT.launch(
-        ptr(q), ptr(k_q), ptr(k_s), ptr(v_q), ptr(v_s), ptr(page_table), ptr(lens), ptr(out),
-        b, h, hkv, d, page, page_table.shape[1], num_pages,
-        ctypes.c_float(1.0 / float(np.sqrt(d))), stream_of(q),
-    )
-    return out
+    return _launch(KERNEL_QUANT, q, k_q, k_s, v_q, v_s, page_table, lens)
+
+
+def quant_occupancy(kernel: CudaKernel, rep: int, head_dim: int, page: int) -> int:
+    """Blocks of a build of the int8 split kernel that one SM holds at once,
+    by the CUDA runtime's count of its registers and shared memory."""
+    fn = kernel.function("paged_attention_int8_occupancy", [ctypes.c_int] * 3
+                         + [ctypes.POINTER(ctypes.c_int)])
+    blocks = ctypes.c_int(0)
+    code = fn(rep, head_dim, page, ctypes.byref(blocks))
+    if code != 0:
+        raise RuntimeError(f"{kernel.name}: occupancy query failed with error {code}")
+    return blocks.value

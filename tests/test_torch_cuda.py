@@ -14,6 +14,7 @@ from sentio_tpu_torch.kernels import FLASH_KERNEL, PAGED_KERNEL, PAGED_QUANT_KER
 from sentio_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 from sentio_tpu_torch.kernels.paged_attention import (
     PAGES_PER_SPAN,
+    PAGES_PER_SPAN_QUANT,
     _launch,
     paged_attention,
     paged_attention_plain,
@@ -58,16 +59,17 @@ def test_paged_kernel_matches_plain(dev, rep, d):
     assert (out.float() - ref).abs().max().item() <= ATOL
 
 
-def _poison_unowned(kp, vp, table, lens):
-    """NaN in every slot past each row's current token: the tail of its
-    current page and every page after it that the row owns."""
-    page = kp.shape[1]
+def _unowned(table, lens, page):
+    """(page id, first unowned slot) for every slot past each row's current
+    token: the tail of its current page and every page after it that the
+    row owns, and scratch page 0 past slot 0."""
+    slots = [(0, 1)]
     for row, n in enumerate(lens.tolist()):
         for i, pid in enumerate(table[row].tolist()):
             first = 0 if i * page > n else n - i * page + 1
             if pid and first < page:
-                kp[pid, first:] = float("nan")
-                vp[pid, first:] = float("nan")
+                slots.append((pid, first))
+    return slots
 
 
 def _split_case(dev, lens_list, rep, d, page, nb, seed):
@@ -83,9 +85,9 @@ def _split_case(dev, lens_list, rep, d, page, nb, seed):
     table = perm.to(torch.int32).reshape(b, nb).to(dev)
     lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
     table[lens == 0] = 0
-    _poison_unowned(kp, vp, table, lens)
-    kp[0, 1:] = float("nan")
-    vp[0, 1:] = float("nan")
+    for pid, first in _unowned(table, lens, page):
+        kp[pid, first:] = float("nan")
+        vp[pid, first:] = float("nan")
     q = torch.randn((b, hkv * rep, d), generator=gen, device=dev, dtype=torch.bfloat16)
     return q, kp, vp, table, lens
 
@@ -129,7 +131,7 @@ def test_paged_kernel_one_long_row(dev, rep, d):
 
 
 @pytest.mark.parametrize("rep", [1, 2, 4, 8])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
 def test_paged_quant_kernel_matches_plain(dev, rep, d):
     """The bf16 cases' pools quantized, with NaN scales and random codes in
     the tail of each row's current page, which the kernel must not read."""
@@ -149,6 +151,64 @@ def test_paged_quant_kernel_matches_plain(dev, rep, d):
     ref = paged_attention_quant_plain(q.float(), k_q, k_s, v_q, v_s, table, lens)
     assert bool(out.isfinite().all())
     assert (out.float() - ref).abs().max().item() <= ATOL
+
+
+def _quant_split_case(dev, lens_list, rep, d, page, nb, seed):
+    """:func:`_split_case`'s rows over an int8 pool: the pools quantized,
+    then random codes (-128 included) and NaN scales in every unowned slot,
+    the scratch page's and each current page's whole tail included."""
+    q, kp, vp, table, lens = _split_case(dev, lens_list, rep, d, page, nb, seed)
+    (k_q, k_s), (v_q, v_s) = quantize_kv(kp), quantize_kv(vp)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    for pid, first in _unowned(table, lens, page):
+        for codes, scales in ((k_q, k_s), (v_q, v_s)):
+            codes[pid, first:] = torch.randint(-128, 128, codes[pid, first:].shape,
+                                               generator=gen, device=dev, dtype=torch.int8)
+            scales[pid, first:] = float("nan")
+    return q, (k_q, k_s, v_q, v_s), table, lens
+
+
+def _check_quant(q, pools, table, lens, out):
+    ref = paged_attention_quant_plain(q.float(), *pools, table, lens)
+    assert bool(out.isfinite().all())
+    diff = (out.float() - ref).abs()
+    assert diff.max().item() <= ATOL and diff.mean().item() <= 2e-3
+
+
+@pytest.mark.parametrize("pages_per_span", [1, 2, 4])
+def test_paged_quant_kernel_rows_at_span_boundaries(dev, pages_per_span):
+    """The int8 kernel's span builds at 128-token pages: lengths one short
+    of, at and one past a span's last token (a current page of one valid
+    token, whose tail runs past the 32-row padding), and the table's last
+    slot."""
+    page, nb = 128, 12
+    span = pages_per_span * page
+    lens = [span - 1, span, span + 1, nb * page - 1, 2 * span - 1, 0]
+    q, pools, table, lens = _quant_split_case(dev, lens, 4, 128, page, nb, seed=pages_per_span)
+    kernel = (PAGED_QUANT_KERNEL if pages_per_span == PAGES_PER_SPAN_QUANT
+              else span_kernel(pages_per_span, quant=True))
+    before = kernel.launches
+    out = _launch(kernel, q, *pools, table, lens)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    _check_quant(q, pools, table, lens, out)
+    if pages_per_span == PAGES_PER_SPAN_QUANT:
+        torch.testing.assert_close(paged_attention_quant(q, *pools, table, lens), out,
+                                   rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("d", [64, 128])
+def test_paged_quant_kernel_one_long_row(dev, rep, d):
+    """The chat's decode shape over an int8 pool: one live row of ~3,300
+    tokens, seven idle slots at length 0, garbage in unowned slots; two
+    launches give the same bits."""
+    lens = [0, 0, 0, 3299, 0, 0, 0, 0]
+    q, pools, table, lens = _quant_split_case(dev, lens, rep, d, page=128, nb=32, seed=rep + d)
+    out = paged_attention_quant(q, *pools, table, lens)
+    torch.cuda.synchronize()
+    _check_quant(q, pools, table, lens, out)
+    assert torch.equal(out, paged_attention_quant(q, *pools, table, lens))
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -195,3 +255,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     pages48 = torch.zeros((2, 16, 1, 48), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):  # no tensor-core tile for D 48
         paged_attention(x[:, 0, :1], pages48, pages48, table[:1], lens[:1])
+    codes48 = torch.zeros((2, 16, 1, 48), device=dev, dtype=torch.int8)
+    scales48 = torch.zeros((2, 16, 1), device=dev, dtype=torch.float16)
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_attention_quant(x[:, 0, :1], codes48, scales48, codes48, scales48, table[:1],
+                              lens[:1])

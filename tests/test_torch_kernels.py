@@ -22,6 +22,7 @@ from sentio_tpu_torch.kernels._build import CudaKernel
 from sentio_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 from sentio_tpu_torch.kernels.paged_attention import (
     PAGES_PER_SPAN,
+    PAGES_PER_SPAN_QUANT,
     paged_attention,
     paged_attention_plain,
     paged_attention_quant,
@@ -64,15 +65,16 @@ def test_flash_plain_matches_pallas_interpret(case, causal):
         assert not got[lens == 0].any()
 
 
-def _paged_problem(rep, seed=0):
+def _paged_problem(rep, seed=0, lens=(0, 5, 17, 39)):
     """Ragged rows over a shuffled pool: a partial last page, a row sitting
     on scratch page 0 at length 0, NaN pages past every row's length (which
     neither version may touch) and large finite garbage in the current
-    page's tail (which the position mask must hide)."""
+    page's tail (which the position mask must hide). ``lens`` holds each
+    row's current token; row 0 stays on the scratch page."""
     rng = np.random.default_rng(seed)
     b, hkv, d, page, nb, num_pages = 4, 2, 16, 8, 5, 24
     h = hkv * rep
-    lens = np.asarray([0, 5, 17, 39], np.int32)  # index of the current token
+    lens = np.asarray(lens, np.int32)
     k_pages = rng.standard_normal((num_pages, page, hkv, d)).astype(np.float32)
     v_pages = rng.standard_normal((num_pages, page, hkv, d)).astype(np.float32)
     table = np.zeros((b, nb), np.int32)
@@ -179,31 +181,36 @@ def test_library_hash_covers_included_headers(tmp_path):
     assert kernel.library != before
     assert kernel.library.parent == before.parent
     # the repo's kernels: the shared helpers and the wgmma header are hashed
-    assert "cuda_common.cuh" in [p.name for p in PAGED_KERNEL.sources()]
+    assert {"cuda_common.cuh", "paged_common.cuh"} <= {p.name for p in PAGED_KERNEL.sources()}
+    assert {"cuda_common.cuh", "paged_common.cuh"} <= {
+        p.name for p in PAGED_QUANT_KERNEL.sources()}
     assert {"cuda_common.cuh", "wgmma.cuh"} <= {p.name for p in FLASH_KERNEL.sources()}
 
 
 def test_library_name_covers_defines(tmp_path):
     """A build of one source with other ``-D`` defines is its own library;
-    the bf16 paged kernel's span size is such a define, so each size of the
+    each paged kernel's span size is such a define, so each size of the
     sweep builds apart from the committed one."""
     (tmp_path / "k.cu").write_text("constexpr int kSpan = SPAN;\n")
     libs = {CudaKernel("k", str(tmp_path / "k.cu"), "k_launch", [], defines=d).library
             for d in ((), ("SPAN=1",), ("SPAN=2",))}
     assert len(libs) == 3 and len({lib.parent for lib in libs}) == 1
-    assert f"-DSENTIO_PAGES_PER_SPAN={PAGES_PER_SPAN}" in PAGED_KERNEL.flags
-    others = [span_kernel(n) for n in (1, 2, 4) if n != PAGES_PER_SPAN]
-    assert all(k.source == PAGED_KERNEL.source and k.launches == 0 for k in others)
-    assert len({PAGED_KERNEL.library, *(k.library for k in others)}) == 1 + len(others)
-    assert span_kernel(PAGES_PER_SPAN).library == PAGED_KERNEL.library
+    for quant, kernel, committed in ((False, PAGED_KERNEL, PAGES_PER_SPAN),
+                                     (True, PAGED_QUANT_KERNEL, PAGES_PER_SPAN_QUANT)):
+        assert f"-DSENTIO_PAGES_PER_SPAN={committed}" in kernel.flags
+        others = [span_kernel(n, quant) for n in (1, 2, 4) if n != committed]
+        assert all(k.source == kernel.source and k.launches == 0 for k in others)
+        assert len({kernel.library, *(k.library for k in others)}) == 1 + len(others)
+        assert span_kernel(committed, quant).library == kernel.library
+    assert PAGED_KERNEL.source != PAGED_QUANT_KERNEL.source
 
 
-def _quant_problem(rep, seed=0, tail_scale=np.nan):
+def _quant_problem(rep, seed=0, tail_scale=np.nan, lens=(0, 5, 17, 39)):
     """The ragged rows of :func:`_paged_problem` over an int8 pool quantized
     by the JAX ``quantize_kv``: random int8 codes and NaN scales on every
     page past a row's length, random codes and ``tail_scale`` in the
     current page's tail."""
-    q, kp, vp, table, lens = _paged_problem(rep, seed)
+    q, kp, vp, table, lens = _paged_problem(rep, seed, lens)
     rng = np.random.default_rng(seed + 100)
     page = kp.shape[1]
     pools = []
@@ -238,6 +245,86 @@ def test_paged_quant_plain_matches_pallas_interpret(rep):
     torch.testing.assert_close(paged_attention_quant_plain(*(torch.from_numpy(a)
                                                              for a in nan_tail)),
                                got, rtol=0, atol=0)
+
+
+# The int8 kernel's order of d within each 16-wide group: the product's k
+# indices 2t, 2t + 1, 2t + 8, 2t + 9 take d = 4t .. 4t + 3, the four codes
+# an ldmatrix gives lane t (csrc/paged_attention_quant.cu).
+_D_ORDER16 = [4 * (k % 8 // 2) + 2 * (k // 8) + k % 2 for k in range(16)]
+
+
+def _quant_span_partials(q, k_q, k_s, v_q, v_s, table, lens, span_tokens, round_pv):
+    """The int8 split kernel's arithmetic in float32: each row's keys cut
+    into spans of ``span_tokens`` positions, per span the scores over the
+    raw codes with d in the kernel's order (q and K permuted alike) times
+    ks * sm_scale, m, l = sum p, and acc = sum (p * vs) Vq, with p * vs
+    rounded to bf16 (the kernel's P V operand) when ``round_pv``. A row
+    with no key has no span; slots past a row's length are never read."""
+    b, h, d = q.shape
+    _, page, hkv, _ = k_q.shape
+    window = table.shape[1] * page
+    order = [16 * (j // 16) + _D_ORDER16[j % 16] for j in range(d)]
+
+    def gather(x):  # [P, page, Hkv, ...] -> [B, window, H, ...]
+        x = x[table.long()].reshape(b, window, hkv, *x.shape[3:]).float()
+        return x.repeat_interleave(h // hkv, dim=2)
+
+    kq, ks, vq, vs = gather(k_q)[..., order], gather(k_s), gather(v_q), gather(v_s)
+    qp = q[..., order]
+    parts = []
+    for row in range(b):
+        n_keys = int(lens[row]) + 1
+        spans = []
+        for lo in range(0, max(n_keys, 0), span_tokens):
+            hi = min(lo + span_tokens, n_keys)
+            sc = (torch.einsum("hd,thd->ht", qp[row], kq[row, lo:hi]) * ks[row, lo:hi].T
+                  / float(np.sqrt(d)))
+            m = sc.amax(dim=-1)
+            p = torch.exp(sc - m[:, None])
+            pv = p * vs[row, lo:hi].T
+            if round_pv:
+                pv = pv.bfloat16().float()
+            spans.append((m, p.sum(dim=-1), torch.einsum("ht,thd->hd", pv, vq[row, lo:hi])))
+        parts.append(spans)
+    return parts
+
+
+@pytest.mark.parametrize("pv", ["fp32", "bf16"])
+@pytest.mark.parametrize("pages_per_span", [1, 2])
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+def test_quant_span_merge_matches_plain_and_pallas_interpret(rep, pages_per_span, pv):
+    """The int8 split kernel's arithmetic on the CPU: per-span partials with
+    ks on the scores and vs folded into P, merged by the log-sum-exp rule,
+    against the plain version and the Pallas kernel. Rows: no key, one key,
+    a last span of one token (lens 16), several full spans. Tolerance: atol
+    2e-5 with p * vs in fp32 (the TPU kernel's arithmetic); with p * vs
+    rounded to bf16 (relative error <= 2^-8), |error| <= 2^-8 * max |V|
+    over the row's keys of its kv head, plus 2e-5."""
+    lens = (-1, 0, 16, 39)  # row 0 has no key
+    tq, *pools, tt, tl = (torch.from_numpy(a) for a in _quant_problem(rep, seed=rep, lens=lens))
+    page, span_tokens = pools[0].shape[1], pages_per_span * pools[0].shape[1]
+    parts = _quant_span_partials(tq, *pools, tt, tl, span_tokens, pv == "bf16")
+    assert [len(p) for p in parts] == [0, 1, -(-17 // span_tokens), -(-40 // span_tokens)]
+    b, h, d = tq.shape
+    got = torch.stack([_merge_spans(p, h, d) for p in parts])
+    assert torch.isfinite(got).all() and not got[0].any()  # nothing to attend: exactly 0
+    atol = torch.full((b, h, 1), ATOL)
+    if pv == "bf16":
+        hkv = pools[0].shape[2]
+        v = pools[2].float() * pools[3].float()[..., None]  # NaN past each row's length
+        for row in range(1, b):
+            n = int(tl[row]) + 1
+            keys = v[tt[row].long()].reshape(-1, hkv, d)[:n].nan_to_num(0.0)
+            vmax = keys.abs().amax(dim=(0, 2)).repeat_interleave(h // hkv)
+            atol[row, :, 0] += 2.0 ** -8 * vmax
+    plain = paged_attention_quant_plain(tq, *pools, tt, tl)
+    assert ((got - plain).abs() <= atol).all()
+    # the Pallas kernel multiplies the whole current page's vs: finite
+    # garbage there for it, the same rows otherwise
+    args = _quant_problem(rep, seed=rep, tail_scale=1e3, lens=lens)
+    ref = torch.from_numpy(np.array(jax_paged_quant(*(jnp.asarray(a) for a in args),
+                                                    interpret=True)))
+    assert ((got - ref).abs() <= atol).all()
 
 
 def test_wrappers_take_the_plain_version_for_cpu_tensors():
