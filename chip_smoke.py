@@ -35,7 +35,8 @@ line each:
 5. logits — one prompt's prefill and 4 teacher-forced decode steps through
    the kernel path and the plain path.
 6. profile — one more chat under the CUDA profiler: device time by kernel
-   family and the device's idle share.
+   family (and by each hand-written device function), and the device's
+   idle share.
 7. slice_int8 — a second pipeline under the default settings plus
    KV_QUANT=int8 (hybrid retrieval: dense + BM25 fused by rrf), on the same
    weight tensors with its own int8 page pool: the same ingest and chats;
@@ -577,16 +578,20 @@ def profile_chat(torch, pipeline, question: str, phase: str = "profile") -> dict
            "paged_combine_int8_kernel": "paged_attention_quant",
            "flash_fwd_kernel": "flash_attention"}
     families = dict.fromkeys((*own.values(), "matmul", "other"), 0.0)
+    by_function = dict.fromkeys(own, 0.0)  # a paged family split into its two kernels
     for name, ms, _ in kernels:
-        family = next((f for fn, f in own.items() if fn in name), None)
-        if family is None:  # cuBLAS names its products gemm / nvjet / xmma kernels
+        fn = next((fn for fn in own if fn in name), None)
+        if fn is not None:
+            by_function[fn] += ms
+            family = own[fn]
+        else:  # cuBLAS names its products gemm / nvjet / xmma kernels
             matmul = any(tag in name.lower() for tag in ("gemm", "nvjet", "xmma", "cutlass"))
             family = "matmul" if matmul else "other"
         families[family] += ms
     top = sorted(kernels, key=lambda k: -k[1])[:8]
     result = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
               "idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
-              "device_ms_by_family": families,
+              "device_ms_by_family": families, "device_ms_by_function": by_function,
               "top_kernels": [{"name": n[:90], "ms": ms, "count": c} for n, ms, c in top]}
     emit(phase, **result)
     return result

@@ -75,7 +75,6 @@ using sentio::ldmatrix_x4;
 using sentio::ldmatrix_x4_trans;
 using sentio::live_pages;
 using sentio::mma_16816;
-using sentio::pack_bf16;
 using sentio::smem_addr;
 
 constexpr int kThreads = 128;
@@ -104,6 +103,11 @@ __host__ __device__ inline size_t smem_bytes(int rep, int D, int page) {
   const size_t merge = sizeof(float) * (size_t)kWarps * rep * (D + 2);
   const size_t pages = buffer_bytes(D, page);
   return pages > merge ? pages : merge;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 template <int D>

@@ -16,10 +16,15 @@
 // Arithmetic. Codes lie in [-127, 127] (-128 only in unowned garbage), and
 // every such integer is exact in bf16; q is bf16. So q . Kq on bf16
 // mma.sync with fp32 sums is the TPU kernel's f32 dot up to summation
-// order. The one change: p * vs_t, which the TPU kernel keeps in fp32, is
-// rounded to bf16 to enter P V (the rounding the bf16 kernel applies to P;
-// |error| <= 2^-9 * max |V| over the row's keys, tests/test_torch_kernels.py
-// emulates it).
+// order. The one change: p * vs_t, which the TPU kernel keeps in fp32,
+// enters P V as two bf16 terms, hi (its upper 16 bits) and lo (the upper
+// 16 bits of the remainder), each in its own mma, so it loses less than
+// 2^-14 of itself. One bf16 term (the rounding the bf16 kernel applies to
+// P) lost up to 2^-8: on a row of one key, whose output is that key's
+// value, it doubled the bf16 output's rounding error (mean 1.5e-3 against
+// the 2e-3 limit at a chat's decode shape). The second product costs
+// little: the kernel waits on memory. tests/test_torch_kernels.py emulates
+// the split.
 //
 // What bounds it on the H100 SXM (published peaks, 700 W): the bytes the
 // rows own, sum(lens + 1) * Hkv * (D + 2) * 2 (codes plus f16 scales, K and
@@ -46,7 +51,8 @@
 //      Warp w takes tokens 32w .. 32w + 31 of the page. Both products are
 //      mma.sync m16n8k16 (bf16 in, fp32 sums), the rep query heads the 16
 //      rows of A (rows past rep zero), codes converted to bf16 in registers
-//      (2^23 + code + 128 built by byte_perm, minus the offset, packed):
+//      (the float 2^23 + code + 128 built by byte_perm, minus the offset;
+//      the exact float's upper half is its bf16, packed by byte_perm):
 //      - S = Q K^T: ldmatrix on int8 rows gives a lane 4 consecutive codes
 //        of one token, d = 4t .. 4t + 3 of a 16-wide group, so the k index
 //        of the product runs over d permuted within each group (2t, 2t + 1,
@@ -54,8 +60,8 @@
 //        same order (one 8-byte load), and the dot does not care. The
 //        scores stay in registers, are scaled by ks column by column, and
 //        the softmax runs with two quad shuffles a row.
-//      - acc += (P * vs) V: P is folded with vs in fp32, rounded to bf16 as
-//        the A fragment. ldmatrix.trans on the int8 V rows (as 16-bit
+//      - acc += (P * vs) V: P is folded with vs in fp32 and split into the
+//        hi and lo A fragments. ldmatrix.trans on the int8 V rows (as 16-bit
 //        pairs) gives a lane the codes of tokens 2t, 2t + 1 at columns 2g,
 //        2g + 1; byte_perm splits them into the B fragments of an "even"
 //        (d = 2g) and an "odd" (d = 2g + 1) column block. So no bf16 copy
@@ -92,12 +98,10 @@ using sentio::cp_async16;
 using sentio::cp_async_commit;
 using sentio::cp_async_wait;
 using sentio::exp2_approx;
-using sentio::ldmatrix_x2;
 using sentio::ldmatrix_x4;
 using sentio::ldmatrix_x4_trans;
 using sentio::live_pages;
 using sentio::mma_16816;
-using sentio::pack_bf16;
 using sentio::smem_addr;
 
 constexpr int kThreads = 128;
@@ -129,6 +133,11 @@ __host__ __device__ inline size_t smem_bytes(int rep, int D, int page) {
   return pages > merge ? pages : merge;
 }
 
+__device__ __forceinline__ void ldmatrix_x2(uint32_t addr, uint32_t& r0, uint32_t& r1) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1) : "r"(addr));
+}
+
 // The four int8 codes of a 32-bit word as exact floats: byte k, offset by
 // 128, becomes the low byte of the float 2^23 + (code + 128).
 __device__ __forceinline__ void codes_to_float(uint32_t w, float (&f)[4]) {
@@ -139,13 +148,25 @@ __device__ __forceinline__ void codes_to_float(uint32_t w, float (&f)[4]) {
   }
 }
 
+// The bf16 pair (lo, hi) of two floats' upper 16 bits: exact for a float
+// whose low half is 0 (an integer of at most 8 significant bits), else
+// truncated toward zero.
+__device__ __forceinline__ uint32_t pack_upper(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632u);
+}
+
+// The remainder of a float past its upper 16 bits (exact in fp32).
+__device__ __forceinline__ float lower_part(float x) {
+  return x - __uint_as_float(__float_as_uint(x) & 0xFFFF0000u);
+}
+
 // S fragment of 8 tokens over one 16-wide d group: the word holds codes
 // d = 4t .. 4t + 3 of token g, b0 the product's k = 2t, 2t + 1, b1 2t + 8,
 // 2t + 9.
 __device__ __forceinline__ void score_step(float (&s)[4], const uint32_t (&qa)[2], uint32_t w) {
   float f[4];
   codes_to_float(w, f);
-  mma_16816(s, qa[0], qa[1], pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]));
+  mma_16816(s, qa[0], qa[1], pack_upper(f[0], f[1]), pack_upper(f[2], f[3]));
 }
 
 template <int D>
@@ -313,13 +334,17 @@ paged_decode_int8_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[n][e] *= alpha;
 
-      // acc += (P vs) V: P vs as bf16 A fragments (tokens 16kc .. 16kc + 15
-      // are the S column blocks 2kc and 2kc + 1); per 32 d, one transposed
-      // ldmatrix gives the V codes of 16 tokens for four column blocks
+      // acc += (P vs) V: P vs as hi and lo bf16 A fragments (tokens 16kc ..
+      // 16kc + 15 are the S column blocks 2kc and 2kc + 1); per 32 d, one
+      // transposed ldmatrix gives the V codes of 16 tokens for four column
+      // blocks, each taken by a hi and a lo product
 #pragma unroll
       for (int kc = 0; kc < 2; ++kc) {
-        const uint32_t pa0 = pack_bf16(pv[2 * kc][0], pv[2 * kc][1]);
-        const uint32_t pa2 = pack_bf16(pv[2 * kc + 1][0], pv[2 * kc + 1][1]);
+        const uint32_t pa0 = pack_upper(pv[2 * kc][0], pv[2 * kc][1]);
+        const uint32_t pa2 = pack_upper(pv[2 * kc + 1][0], pv[2 * kc + 1][1]);
+        const uint32_t pl0 = pack_upper(lower_part(pv[2 * kc][0]), lower_part(pv[2 * kc][1]));
+        const uint32_t pl2 =
+            pack_upper(lower_part(pv[2 * kc + 1][0]), lower_part(pv[2 * kc + 1][1]));
         const uint32_t v_rows = vb + (base + 16 * kc) * kp + v_lane;
 #pragma unroll
         for (int n2 = 0; n2 < D / 32; ++n2) {
@@ -333,9 +358,12 @@ paged_decode_int8_kernel(const __nv_bfloat16* __restrict__ q,
             codes_to_float(w[2 * h], f0);
             codes_to_float(w[2 * h + 1], f8);
             const int c = 2 * n2 + h;
-            mma_16816(acc[2 * c], pa0, pa2, pack_bf16(f0[0], f0[2]), pack_bf16(f8[0], f8[2]));
-            mma_16816(acc[2 * c + 1], pa0, pa2, pack_bf16(f0[1], f0[3]),
-                      pack_bf16(f8[1], f8[3]));
+            const uint32_t even0 = pack_upper(f0[0], f0[2]), even1 = pack_upper(f8[0], f8[2]);
+            const uint32_t odd0 = pack_upper(f0[1], f0[3]), odd1 = pack_upper(f8[1], f8[3]);
+            mma_16816(acc[2 * c], pa0, pa2, even0, even1);
+            mma_16816(acc[2 * c], pl0, pl2, even0, even1);
+            mma_16816(acc[2 * c + 1], pa0, pa2, odd0, odd1);
+            mma_16816(acc[2 * c + 1], pl0, pl2, odd0, odd1);
           }
         }
       }

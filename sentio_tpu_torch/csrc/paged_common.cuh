@@ -1,9 +1,10 @@
 // Pieces shared by the two paged-decode kernels (paged_attention.cu, bf16
 // pages, and paged_attention_quant.cu, int8 pages): the warp-level
-// tensor-core helpers (ldmatrix, mma.sync m16n8k16 with the rep query heads
-// as the live rows of A), a row's live page count, the block's merge of its
-// warps' softmax states into one span partial, and the combine pass that
-// merges a row's span partials in span order.
+// tensor-core helpers (ldmatrix x4, plain and transposed; mma.sync m16n8k16
+// with the rep query heads as the live rows of A), a row's live page
+// count, the block's merge of its warps' softmax states into one span
+// partial, and the combine pass that merges a row's span partials in span
+// order.
 //
 // Partials live in scratch the caller allocates: part_acc [B * H][n_spans][D]
 // and, after it, part_ml [B * H][n_spans][2] (m in log2 units, l), fp32.
@@ -23,11 +24,6 @@ namespace sentio {
 // has none).
 __device__ __forceinline__ int live_pages(int cur, int page, int NB) {
   return cur < 0 ? 0 : min(cur / page + 1, NB);
-}
-
-__device__ __forceinline__ void ldmatrix_x2(uint32_t addr, uint32_t& r0, uint32_t& r1) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1) : "r"(addr));
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t& r0, uint32_t& r1,
@@ -51,11 +47,6 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], uint32_t a0, uint32_t a
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // After the warps of a block have left their states in shared memory

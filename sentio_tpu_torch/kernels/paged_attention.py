@@ -34,7 +34,7 @@ from sentio_tpu_torch.kernels._build import CudaKernel, ptr, stream_of
 __all__ = [
     "QuantPages", "paged_attention", "paged_attention_plain", "paged_attention_quant",
     "paged_attention_quant_plain", "span_kernel", "KERNEL", "KERNEL_QUANT",
-    "PAGES_PER_SPAN", "PAGES_PER_SPAN_QUANT",
+    "PAGES_PER_SPAN", "PAGES_PER_SPAN_QUANT", "quant_occupancy",
 ]
 
 NEG_INF = float(np.finfo(np.float32).min)
@@ -44,7 +44,9 @@ NEG_INF = float(np.finfo(np.float32).min)
 # (one live row) and faster at a full serving batch, where four were
 # slower at the chat's
 PAGES_PER_SPAN = 2
-# the same for the int8 kernel, chosen by the same sweep (PERF.md)
+# the same for the int8 kernel, by the same sweep (PERF.md): one page a
+# block was ~5% faster at a chat's decode shape but ~18% slower at a full
+# serving batch, four pages ~7% faster there and ~25% slower at the chat's
 PAGES_PER_SPAN_QUANT = 2
 PAGED_HEAD_DIMS = (32, 64, 128, 256)  # the kernels' tensor-core tiles
 

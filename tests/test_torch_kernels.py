@@ -253,13 +253,19 @@ def test_paged_quant_plain_matches_pallas_interpret(rep):
 _D_ORDER16 = [4 * (k % 8 // 2) + 2 * (k // 8) + k % 2 for k in range(16)]
 
 
-def _quant_span_partials(q, k_q, k_s, v_q, v_s, table, lens, span_tokens, round_pv):
+def _upper_bf16(x):
+    """The bf16 value of a float's upper 16 bits (truncation toward 0)."""
+    return (x.view(torch.int32) & -65536).view(torch.float32)
+
+
+def _quant_span_partials(q, k_q, k_s, v_q, v_s, table, lens, span_tokens, split_pv):
     """The int8 split kernel's arithmetic in float32: each row's keys cut
     into spans of ``span_tokens`` positions, per span the scores over the
     raw codes with d in the kernel's order (q and K permuted alike) times
     ks * sm_scale, m, l = sum p, and acc = sum (p * vs) Vq, with p * vs
-    rounded to bf16 (the kernel's P V operand) when ``round_pv``. A row
-    with no key has no span; slots past a row's length are never read."""
+    taken as the kernel's two bf16 operands, hi (its upper 16 bits) plus lo
+    (the remainder's), when ``split_pv``. A row with no key has no span;
+    slots past a row's length are never read."""
     b, h, d = q.shape
     _, page, hkv, _ = k_q.shape
     window = table.shape[1] * page
@@ -282,14 +288,15 @@ def _quant_span_partials(q, k_q, k_s, v_q, v_s, table, lens, span_tokens, round_
             m = sc.amax(dim=-1)
             p = torch.exp(sc - m[:, None])
             pv = p * vs[row, lo:hi].T
-            if round_pv:
-                pv = pv.bfloat16().float()
+            if split_pv:
+                pv_hi = _upper_bf16(pv)
+                pv = pv_hi + _upper_bf16(pv - pv_hi)
             spans.append((m, p.sum(dim=-1), torch.einsum("ht,thd->hd", pv, vq[row, lo:hi])))
         parts.append(spans)
     return parts
 
 
-@pytest.mark.parametrize("pv", ["fp32", "bf16"])
+@pytest.mark.parametrize("pv", ["fp32", "hi_lo"])
 @pytest.mark.parametrize("pages_per_span", [1, 2])
 @pytest.mark.parametrize("rep", [1, 2, 4, 8])
 def test_quant_span_merge_matches_plain_and_pallas_interpret(rep, pages_per_span, pv):
@@ -297,26 +304,26 @@ def test_quant_span_merge_matches_plain_and_pallas_interpret(rep, pages_per_span
     ks on the scores and vs folded into P, merged by the log-sum-exp rule,
     against the plain version and the Pallas kernel. Rows: no key, one key,
     a last span of one token (lens 16), several full spans. Tolerance: atol
-    2e-5 with p * vs in fp32 (the TPU kernel's arithmetic); with p * vs
-    rounded to bf16 (relative error <= 2^-8), |error| <= 2^-8 * max |V|
-    over the row's keys of its kv head, plus 2e-5."""
+    2e-5 with p * vs in fp32 (the TPU kernel's arithmetic); with p * vs as
+    the kernel's hi + lo bf16 terms (which lose less than 2^-14 of it),
+    2e-5 plus 2^-14 * max |V| over the row's keys of its kv head."""
     lens = (-1, 0, 16, 39)  # row 0 has no key
     tq, *pools, tt, tl = (torch.from_numpy(a) for a in _quant_problem(rep, seed=rep, lens=lens))
     page, span_tokens = pools[0].shape[1], pages_per_span * pools[0].shape[1]
-    parts = _quant_span_partials(tq, *pools, tt, tl, span_tokens, pv == "bf16")
+    parts = _quant_span_partials(tq, *pools, tt, tl, span_tokens, pv == "hi_lo")
     assert [len(p) for p in parts] == [0, 1, -(-17 // span_tokens), -(-40 // span_tokens)]
     b, h, d = tq.shape
     got = torch.stack([_merge_spans(p, h, d) for p in parts])
     assert torch.isfinite(got).all() and not got[0].any()  # nothing to attend: exactly 0
     atol = torch.full((b, h, 1), ATOL)
-    if pv == "bf16":
+    if pv == "hi_lo":
         hkv = pools[0].shape[2]
         v = pools[2].float() * pools[3].float()[..., None]  # NaN past each row's length
         for row in range(1, b):
             n = int(tl[row]) + 1
             keys = v[tt[row].long()].reshape(-1, hkv, d)[:n].nan_to_num(0.0)
             vmax = keys.abs().amax(dim=(0, 2)).repeat_interleave(h // hkv)
-            atol[row, :, 0] += 2.0 ** -8 * vmax
+            atol[row, :, 0] += 2.0 ** -14 * vmax
     plain = paged_attention_quant_plain(tq, *pools, tt, tl)
     assert ((got - plain).abs() <= atol).all()
     # the Pallas kernel multiplies the whole current page's vs: finite
