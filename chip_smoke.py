@@ -28,25 +28,40 @@ line each:
    graph and replayed, so the host's launch cost is not counted.
 4. slice — the /chat pipeline at full width (Llama-3-8B, the base
    embedder, the default cross-encoder) with random weights made on the
-   card from a seed, dense retrieval and bf16 pages: ingest 2,048 chunks,
-   then answer 3 chats with every launch count set to 0 just before and
-   read just after; the bf16 paged kernel must have run once per layer per
-   decode sub-step, the flash kernel too, the int8 kernel never.
+   card from a seed, dense retrieval and bf16 pages, under the engine's
+   serving defaults (radix prefix cache, pipeline depth 2, each decode
+   sub-step a CUDA graph replay): ingest 2,048 chunks, then answer 3 chats
+   with every launch count set to 0 just before and read just after. Each
+   chat reports its generate and verify admissions (prefix-hit against
+   prefilled tokens) and the graphs' captures, replays and capture seconds.
+   Gates: the bf16 paged kernel ran once per layer per decode sub-step
+   (counted through the graph replays), the flash kernel too, the int8
+   kernel never, and every chat's verify admission hit the radix tree.
 5. logits — one prompt's prefill and 4 teacher-forced decode steps through
    the kernel path and the plain path.
-6. profile — one more chat under the CUDA profiler: device time by kernel
+6. graph — the generate prompt of chat 1, greedy, decoded from graph
+   replays and from the same sub-step run eagerly on the card, over the
+   same cached prefix: the tokens must be equal.
+7. profile — one more chat under the CUDA profiler: device time by kernel
    family (and by each hand-written device function), and the device's
    idle share.
-7. slice_int8 — a second pipeline under the default settings plus
+8. slice_int8 — a second pipeline under the default settings plus
    KV_QUANT=int8 (hybrid retrieval: dense + BM25 fused by rrf), on the same
-   weight tensors with its own int8 page pool: the same ingest and chats;
-   the int8 kernel once per layer per decode sub-step, the bf16 paged
-   kernel never, the flash kernel at least once, and the BM25 leg's hits
-   in every fused list.
-8. logits_int8 — phase 5 on the int8 engine, and (reported, not gated)
+   weight tensors with its own int8 page pool: the same ingest, chats and
+   gates with the int8 kernel in the bf16 kernel's place, and the BM25
+   leg's hits in every fused list.
+9. logits_int8 — phase 5 on the int8 engine, and (reported, not gated)
    how far its logits lie from the bf16 engine's on the same forced tokens:
    quantization's own error.
-9. profile_int8 — phase 6 on the int8 pipeline.
+10. graph_int8 — phase 6 on the int8 engine.
+11. profile_int8 — phase 7 on the int8 pipeline.
+12. chunked — the generate prompt of chat 1 (~3,300 tokens) admitted with
+    PREFILL_CHUNK=512 and whole, greedy: the same tokens and the same
+    prefilled token count. In float32 at Llama-3-8B width cut to 2 layers,
+    with the plain decode attention (the paged kernels take bf16): two
+    prefills of different shapes round differently in bf16, which can flip
+    a near-tied greedy token of a random-weight model, and the point here
+    is the admission, not the kernels.
 
 The last lines are the nvidia-smi line, one {"kernels": [...]} line, and
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
@@ -382,10 +397,43 @@ def corpus(n: int):
     return docs, words
 
 
+ENGINE_COUNTERS = ("prefix_hit_tokens", "prefill_tokens", "sub_steps", "graph_captures",
+                   "graph_replays", "graph_capture_s")
+
+
+def counter_deltas(before: dict, after: dict) -> dict:
+    """How the engine's counters (``engine.stats()``) moved."""
+    return {f"{k}_delta": after[k] - before[k] for k in ENGINE_COUNTERS}
+
+
+def record_admissions(engine) -> list:
+    """Wrap ``engine.run_all`` (the provider's one call for each generate
+    and each verify) to record every request's prompt, its prefix-hit and
+    prefilled tokens, and how the engine's counters moved during it."""
+    calls = []
+    run_all = engine.run_all
+
+    def recorded(prompts, **kwargs):
+        before = engine.stats()
+        results = run_all(prompts, **kwargs)
+        after = engine.stats()
+        for prompt, result in zip(prompts, results):
+            calls.append({"prompt": prompt, "prompt_tokens": result.prompt_tokens,
+                          "prefill_tokens": result.prefill_tokens,
+                          "prefix_hit_tokens": result.prefix_hit_tokens,
+                          "generated_tokens": len(result.tokens),
+                          **counter_deltas(before, after)})
+        return results
+
+    engine.run_all = recorded
+    return calls
+
+
 def run_slice(torch, dev, phase: str, settings, shared=None) -> dict:
     """Build the pipeline (on ``shared``'s weight tensors when given), ingest
     the corpus, and answer 3 chats with every launch count set to 0 just
-    before and read just after."""
+    before and read just after; each chat's generate and verify admissions
+    are recorded (:func:`record_admissions`)."""
     from sentio_tpu_torch.kernels import FLASH_KERNEL, PAGED_KERNEL, PAGED_QUANT_KERNEL
     from sentio_tpu_torch.pipeline import build_pipeline
 
@@ -421,6 +469,8 @@ def run_slice(torch, dev, phase: str, settings, shared=None) -> dict:
                  f"Summarize the passages that mention {words[100]}."]
     counters = {"paged_attention": PAGED_KERNEL, "paged_attention_quant": PAGED_QUANT_KERNEL,
                 "flash_attention": FLASH_KERNEL}
+    calls = record_admissions(engine)
+    stats0 = engine.stats()
     for kernel in counters.values():
         kernel.launches = 0
     sub_steps0 = engine.total_sub_steps
@@ -434,13 +484,22 @@ def run_slice(torch, dev, phase: str, settings, shared=None) -> dict:
     total_s = time.perf_counter() - t_all
     launches = {name: kernel.launches for name, kernel in counters.items()}
     sub_steps = engine.total_sub_steps - sub_steps0
+    stats = engine.stats()
 
+    if len(calls) != 2 * len(chats):
+        raise AssertionError(f"{phase}: expected a generate and a verify per chat, got "
+                             f"{len(calls)} engine calls")
     for i, (response, seconds) in enumerate(chats):
         meta = response["metadata"]
+        generate, verify = ({k: v for k, v in c.items() if k != "prompt"}
+                            for c in calls[2 * i : 2 * i + 2])
         emit(f"{phase}_chat", index=i, seconds=seconds, stage_ms=meta["stage_ms"],
              generated_tokens=meta["generated_tokens"], answer_chars=len(response["answer"]),
              verdict=response["verification"].get("verdict"),
-             sources=[s["id"] for s in response["sources"]])
+             sources=[s["id"] for s in response["sources"]], generate=generate, verify=verify)
+        if verify["prefix_hit_tokens_delta"] <= 0:
+            raise AssertionError(f"{phase} chat {i}: the verify admission missed the radix "
+                                 f"tree: {verify}")
         if not response["answer"]:
             raise AssertionError(f"{phase} chat {i} returned an empty answer")
         notes = response["verification"].get("notes", [])
@@ -451,7 +510,12 @@ def run_slice(torch, dev, phase: str, settings, shared=None) -> dict:
     n_layers = engine.cfg.n_layers
     emit(phase, chats=len(chats), seconds=total_s, decode_sub_steps=sub_steps,
          launches=launches, expected_decode_launches=n_layers * sub_steps,
+         pipeline_depth=engine.pipeline_depth, prefix_cache=engine._radix is not None,
+         **{k: stats[k] - stats0[k] for k in ENGINE_COUNTERS},
+         prefix_cache_pages=stats["prefix_cache_pages"],
          peak_memory=torch.cuda.max_memory_allocated())
+    if stats["graph_replays"] - stats0["graph_replays"] <= 0:
+        raise AssertionError(f"{phase}: no decode sub-step was a graph replay")
     if launches["flash_attention"] <= 0:
         raise AssertionError(f"{phase}: the flash kernel never launched: {launches}")
     decode = "paged_attention_quant" if engine.pool.quantized else "paged_attention"
@@ -461,7 +525,7 @@ def run_slice(torch, dev, phase: str, settings, shared=None) -> dict:
     if launches[other] != 0:
         raise AssertionError(f"{phase}: {other} ran on a {engine.kv_quant!r} pool: {launches}")
     return {"pipeline": pipeline, "launches": launches, "questions": questions,
-            "chats": [response for response, _ in chats]}
+            "chats": [response for response, _ in chats], "generate_prompt": calls[0]["prompt"]}
 
 
 def check_int8_slice(sl: dict) -> dict:
@@ -553,6 +617,85 @@ def quantization_error(torch, bf16: dict, int8: dict) -> dict:
     agree = (bf16["kernel_logits"].argmax(-1) == int8["kernel_logits"].argmax(-1)).tolist()
     result = {"max_abs_diff_per_step": diff, "greedy_agree": agree}
     emit("int8_vs_bf16_logits", **result)
+    return result
+
+
+def graph_check(torch, pipeline, prompt: str, phase: str = "graph") -> dict:
+    """``prompt`` decoded greedily twice on the slice's engine: from graph
+    replays, then with the same sub-step run eagerly. The prompt's full
+    pages are warmed into the radix tree first, so both runs admit the same
+    suffix over the same cached pages and run the same sub-steps; their
+    tokens must be equal."""
+    engine = pipeline.generator.provider.engine
+    warmed = engine.warm_prefix(prompt)
+    runs, tokens = [], []
+    try:
+        for graphs in (True, False):
+            engine.cuda_graphs = graphs
+            before = engine.stats()
+            t0 = time.perf_counter()
+            (result,) = engine.run_all([prompt], max_new_tokens=MAX_TOKENS, temperature=0.0)
+            torch.cuda.synchronize()
+            after = engine.stats()
+            tokens.append(result.tokens)
+            runs.append({"graphs": graphs, "seconds": time.perf_counter() - t0,
+                         "tokens": len(result.tokens), "prompt_tokens": result.prompt_tokens,
+                         "prefix_hit_tokens": result.prefix_hit_tokens,
+                         **counter_deltas(before, after)})
+    finally:
+        engine.cuda_graphs = True
+    differ = [i for i, (a, b) in enumerate(zip(*tokens)) if a != b]
+    result = {"warmed_tokens": warmed, "runs": runs, "tokens_equal": tokens[0] == tokens[1],
+              "first_difference": differ[0] if differ else None}
+    emit(phase, **result)
+    if tokens[0] != tokens[1] or runs[0]["prefix_hit_tokens"] != runs[1]["prefix_hit_tokens"]:
+        raise AssertionError(f"{phase}: graph and eager decoding differ: {result}")
+    if runs[0]["graph_replays_delta"] <= 0 or runs[1]["graph_replays_delta"] != 0:
+        raise AssertionError(f"{phase}: the graph run must replay and the eager one not: {runs}")
+    return result
+
+
+def chunked_check(torch, dev, prompt: str, chunk: int = 512) -> dict:
+    """``prompt`` admitted whole and with ``prefill_chunk=chunk``, greedy:
+    the same tokens and the same prefilled token count. Float32 at
+    Llama-3-8B width cut to 2 layers (random weights from the seed), one
+    slot, plain decode attention: see the module docstring."""
+    import dataclasses
+
+    from sentio_tpu_torch.models.llama import LlamaConfig, init_llama
+    from sentio_tpu_torch.runtime.paged import ContinuousBatchingEngine, _paged_attn_xla
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=2, dtype="float32")
+    params = init_llama(cfg, torch.Generator(device=dev).manual_seed(SEED + 5), dev)
+    runs, tokens = [], []
+    for prefill_chunk in (None, chunk):
+        engine = ContinuousBatchingEngine(model_config=cfg, params=params, max_slots=1,
+                                          page_size=128, max_pages_per_seq=64,
+                                          steps_per_tick=16, max_tick_steps=64,
+                                          pipeline_depth=2, prefill_chunk=prefill_chunk,
+                                          device=dev)
+        engine.attn_impl = _paged_attn_xla
+        t0 = time.perf_counter()
+        (result,) = engine.run_all([prompt], max_new_tokens=MAX_TOKENS, temperature=0.0)
+        torch.cuda.synchronize()
+        tokens.append(result.tokens)
+        runs.append({"prefill_chunk": prefill_chunk, "seconds": time.perf_counter() - t0,
+                     "prompt_tokens": result.prompt_tokens, "tokens": len(result.tokens),
+                     "prefill_tokens": engine.prefill_tokens_total,
+                     "segments": -(-result.prompt_tokens // chunk) if prefill_chunk else 1,
+                     "graph_replays": engine.graph_replays})
+        del engine
+    del params
+    torch.cuda.empty_cache()
+    differ = [i for i, (a, b) in enumerate(zip(*tokens)) if a != b]
+    result = {"model": {"dim": cfg.dim, "n_layers": cfg.n_layers, "dtype": cfg.dtype},
+              "runs": runs, "tokens_equal": tokens[0] == tokens[1],
+              "first_difference": differ[0] if differ else None}
+    emit("chunked", **result)
+    if tokens[0] != tokens[1] or runs[0]["prefill_tokens"] != runs[1]["prefill_tokens"]:
+        raise AssertionError(f"chunked: chunked and whole-prompt admission differ: {result}")
+    if runs[1]["segments"] < 2:
+        raise AssertionError(f"chunked: the prompt took one segment: {runs}")
     return result
 
 
@@ -648,6 +791,7 @@ def main() -> int:
     sl = run_slice(torch, dev, "slice", Settings(retrieval=RetrievalConfig(strategy="dense"),
                                                  generator=GeneratorConfig(**caps)))
     logits = logits_check(torch, dev, sl["pipeline"], sl["questions"][1])
+    graph_check(torch, sl["pipeline"], sl["generate_prompt"])
     profile_chat(torch, sl["pipeline"], sl["questions"][2])
 
     # the default settings (hybrid retrieval, rrf) plus KV_QUANT=int8
@@ -658,7 +802,9 @@ def main() -> int:
     logits8 = logits_check(torch, dev, sl8["pipeline"], sl["questions"][1], "logits_int8",
                            forced=logits["forced"])
     quantization_error(torch, logits, logits8)
+    graph_check(torch, sl8["pipeline"], sl8["generate_prompt"], "graph_int8")
     profile_chat(torch, sl8["pipeline"], sl["questions"][2], "profile_int8")
+    chunked_check(torch, dev, sl["generate_prompt"])
 
     main_flash = flash[0]  # the embedder's bidirectional shape
     kernels = [

@@ -5,8 +5,9 @@ given text files cut into ~512-character chunks (a few built-in passages
 when none are given), answers the question and prints the response as
 JSON. Settings come from the environment as in the JAX service:
 ``RETRIEVAL_STRATEGY`` (``hybrid`` by default, or ``dense`` / ``bm25``),
-``KV_QUANT=int8`` for an int8 KV page pool, and the rest of
-``sentio_tpu_torch.config``. Weights are random, made from ``--seed``: no
+``KV_QUANT=int8`` for an int8 KV page pool, ``PREFIX_CACHE``,
+``DECODE_PIPELINE_DEPTH`` and ``PREFILL_CHUNK`` for the engine, and the
+rest of ``sentio_tpu_torch.config``. Weights are random, made from ``--seed``: no
 checkpoint of the default sizes is available to this package. ``--tiny``
 swaps in the CPU-test presets of every model.
 """

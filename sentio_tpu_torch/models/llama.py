@@ -12,7 +12,7 @@ copied an 8B model's prefill cache per layer would double its memory.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -95,8 +95,24 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: int, device) -> Cache:
             "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device)}
 
 
+def _write_cache(cache_layer: Tensor, kv: Tensor, index: Union[int, Tensor]) -> None:
+    """Write kv [B, T, Hkv, D] into cache_layer [B, S, Hkv, D] in place at
+    sequence offset ``index``: an int, or a [B] tensor with each row's own
+    offset. As JAX's ``dynamic_update_slice`` does, a start that would
+    overhang the cache is clamped to S - T."""
+    b, t = kv.shape[:2]
+    s = cache_layer.shape[1]
+    if isinstance(index, int):
+        start = min(max(index, 0), s - t)
+        cache_layer[:, start:start + t] = kv
+        return
+    start = index.long().clamp(0, s - t)
+    cols = start[:, None] + torch.arange(t, device=kv.device)[None, :]
+    cache_layer[torch.arange(b, device=kv.device)[:, None], cols] = kv
+
+
 def _attn(lp: dict, cfg: LlamaConfig, x: Tensor, positions: Tensor, cos: Tensor,
-          sin: Tensor, layer: int, cache: Optional[Cache], cache_index: int,
+          sin: Tensor, layer: int, cache: Optional[Cache], cache_index: Union[int, Tensor],
           pad_mask: Optional[Tensor], attn_fn=None) -> Tensor:
     dt = cfg.torch_dtype
     b, t, d = x.shape
@@ -112,8 +128,10 @@ def _attn(lp: dict, cfg: LlamaConfig, x: Tensor, positions: Tensor, cos: Tensor,
     # decode and ragged offsets use the masked plain path
     use_kernel = attn_fn is not None and t > 1
     if cache is not None:
-        cache["k"][layer, :, cache_index:cache_index + t] = k.to(dt)
-        cache["v"][layer, :, cache_index:cache_index + t] = v.to(dt)
+        # pad_mask is not read here, as in JAX: the causal mask over
+        # absolute positions already hides the cache's unwritten tail
+        _write_cache(cache["k"][layer], k.to(dt), cache_index)
+        _write_cache(cache["v"][layer], v.to(dt), cache_index)
         k_full, v_full = cache["k"][layer], cache["v"][layer]
         s = k_full.shape[1]
         # query i (absolute pos = positions[:, i]) attends keys j <= pos_i
@@ -144,14 +162,16 @@ def _mlp(lp: dict, cfg: LlamaConfig, x: Tensor) -> Tensor:
 
 def llama_forward(params: dict, cfg: LlamaConfig, ids: Tensor,
                   positions: Optional[Tensor] = None, cache: Optional[Cache] = None,
-                  cache_index: int = 0, pad_mask: Optional[Tensor] = None,
+                  cache_index: Union[int, Tensor] = 0, pad_mask: Optional[Tensor] = None,
                   attn_fn=None) -> tuple[Tensor, Optional[Cache]]:
     """ids [B, T] → (logits [B, T, vocab] float32, cache).
 
     * Training / scoring: ``cache=None`` → causal attention over T.
     * Prefill: pass a fresh cache, ``positions = arange(T)``, index 0; the
-      T new keys are written at ``cache_index``. (Decode runs over the page
-      pool instead: ``runtime/paged.py``.)
+      T new keys are written at ``cache_index``. A prefill over prior KV
+      (a cache primed with each row's earlier tokens) passes ``cache_index``
+      as a [B] tensor of per-row offsets and ``positions`` from there.
+      (Decode runs over the page pool instead: ``runtime/paged.py``.)
     """
     dt = cfg.torch_dtype
     b, t = ids.shape

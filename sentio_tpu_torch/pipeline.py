@@ -6,7 +6,9 @@ Retrieval follows ``RETRIEVAL_STRATEGY``: ``dense`` (the bi-encoder embeds
 the query and an exact top-k runs over the index on the card), ``bm25``
 (host BM25) or ``hybrid``, the default (both legs fused by
 ``FUSION_METHOD``, rrf by default). ``KV_QUANT=int8`` gives the engine an
-int8 page pool.
+int8 page pool; ``PREFIX_CACHE``, ``DECODE_PIPELINE_DEPTH`` and
+``PREFILL_CHUNK`` reach the engine as in the JAX service (the radix prefix
+cache and depth 2 by default).
 
 * :meth:`ChatPipeline.ingest` embeds documents, adds them to the index and
   rebuilds the BM25 index over the index's documents;
@@ -158,16 +160,24 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
     default). Missing weights are random, made on the device from
     ``seed``; the retriever follows the retrieval settings (strategy,
     fusion, BM25 backend) and the engine the generator settings (slots,
-    page size, pages per sequence, ``kv_quant``). Settings this package
-    cannot honour raise ``NotImplementedError``."""
+    page size, pages per sequence, ``kv_quant``, the prefix cache, the
+    decode pipeline depth and chunked prefill, as the JAX service hands
+    them to its engine). Settings this package cannot honour raise
+    ``NotImplementedError``."""
     settings = settings or Settings()
-    rcfg = settings.retrieval
+    rcfg, gcfg = settings.retrieval, settings.generator
     if rcfg.use_scorers:
         raise NotImplementedError("USE_SCORERS: post-fusion scorers are not ported")
     if rcfg.web_cache_path:
         raise NotImplementedError("WEB_CACHE_PATH: the web-cache retrieval leg is not ported")
+    if gcfg.draft_checkpoint_path:
+        raise NotImplementedError("LLM_DRAFT_CHECKPOINT: speculative decoding is not ported")
+    if not gcfg.use_paged_decode:
+        raise NotImplementedError("USE_PAGED_KV=0: the contiguous engine is not ported")
+    if gcfg.verify_mode != "sync":
+        raise NotImplementedError(f"VERIFY_MODE={gcfg.verify_mode}: only sync verification "
+                                  "is ported")
     dev = resolve_device(device)
-    gcfg = settings.generator
 
     def gen(offset: int) -> torch.Generator:
         g = torch.Generator(device=dev)
@@ -197,7 +207,9 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
         max_slots=gcfg.max_batch_size, page_size=gcfg.kv_page_size,
         max_pages_per_seq=gcfg.kv_max_pages_per_seq, rng_seed=seed,
         steps_per_tick=gcfg.decode_steps_per_tick,
-        max_tick_steps=gcfg.decode_max_tick_steps, kv_quant=gcfg.kv_quant, device=dev,
+        max_tick_steps=gcfg.decode_max_tick_steps, kv_quant=gcfg.kv_quant,
+        prefix_cache=gcfg.prefix_cache, pipeline_depth=gcfg.decode_pipeline_depth,
+        prefill_chunk=gcfg.prefill_chunk or None, device=dev,
     )
     generator = LLMGenerator(provider=EngineProvider(engine), config=gcfg)
     verifier = AnswerVerifier(generator=generator, config=gcfg) if gcfg.use_verifier else None

@@ -11,17 +11,30 @@ anyone else's cache, and finishing one frees integer page ids. Page 0 is
 a scratch page: free slots' tables point at it, and rows frozen inside a
 tick write their KV there.
 
-One engine tick:
+One engine tick (``step()``):
 
-* **admission** — queued requests prefill as width-bucketed batches (one
-  contiguous prefill forward, a scatter of the cache into each row's pages,
-  the first token sampled from each row's last prompt logit);
-* **one fused multi-step decode** — a Python loop of sub-steps over the
-  slot batch with per-row budgets (token budget and page capacity), EOS
-  halting and running logprob accumulators; the tokens come back to the
-  host in one fetch at the end of the tick, and the host replays the
-  halting rule to fold them;
-* **retirement** on EOS / length, freeing pages.
+* **admission** — queued requests are tokenized, matched against the
+  radix prefix cache (:mod:`.radix`; ``prefix_cache``), given pages (LRU
+  eviction of unpinned cached prefixes when short, skip-ahead past a
+  request too large for the free pages) and prefilled as batches grouped
+  by (suffix width, prior-page bucket). A hit prefills only the unmatched
+  suffix over a dense cache primed from the matched pages; every prompt's
+  full-page span is inserted back into the tree. With ``prefill_chunk`` a
+  long suffix admits one segment per tick instead. The first token is
+  sampled on the device and stays there;
+* **one fused multi-step decode** — per-row budgets (token budget and
+  page capacity, counting sub-steps still in flight), the admitted rows'
+  first tokens merged into the device-carried decode state, then
+  ``budgets.max()`` sub-steps over the slot batch with EOS halting and
+  running logprob accumulators. On the card each sub-step is a replay of a
+  captured CUDA graph; on the CPU the same function runs eagerly. The
+  tick ends with one asynchronous copy of its tokens and logprob state to
+  pinned host memory and an event;
+* **harvest** — the host waits on that event, replays the halting rule to
+  fold the tokens, and retires rows on EOS / length, freeing their pages.
+  With ``pipeline_depth=2`` a tick's harvest waits until after the next
+  tick is dispatched, so the host's work overlaps the device's (results
+  lag one tick, as in JAX).
 
 The pool is updated in place (the JAX engine donates its buffers to the
 same effect). Decode attention goes through the paged kernel of the pool's
@@ -30,14 +43,14 @@ through the plain gather path when ``attn_impl`` is set to
 ``_paged_attn_xla``. Prefill keeps plain attention over the dense,
 unquantized cache, as the JAX engine does: an int8 pool quantizes what is
 written into its pages, so the first token is sampled from an unquantized
-prefill. Left for later slices: the radix prefix cache, chunked prefill,
-speculation, ``pipeline_depth=2`` and meshes — none of them changes greedy
-output.
+prefill (a prefix hit attends to the dequantized prior pages). Left for
+later slices: speculation, ``ignore_eos``, deadlines and meshes.
 """
 
 from __future__ import annotations
 
 import itertools
+import time
 from dataclasses import dataclass, field
 from typing import Optional, Sequence, Union
 
@@ -45,7 +58,7 @@ import numpy as np
 import torch
 
 from sentio_tpu_torch import resolve_device
-from sentio_tpu_torch.kernels import paged_attn_impl
+from sentio_tpu_torch.kernels import KERNELS, paged_attn_impl
 from sentio_tpu_torch.kernels.paged_attention import (
     QuantPages,
     paged_attention_plain,
@@ -55,6 +68,7 @@ from sentio_tpu_torch.models import layers as L
 from sentio_tpu_torch.models.llama import LlamaConfig, init_cache, init_llama, llama_forward
 from sentio_tpu_torch.models.tokenizer import ByteTokenizer
 from sentio_tpu_torch.parallel.batcher import bucket_size
+from sentio_tpu_torch.runtime.radix import RadixPrefixCache
 from sentio_tpu_torch.runtime.sampling import sample_tokens
 
 Tensor = torch.Tensor
@@ -138,6 +152,17 @@ def _page_dim(pages: Pages) -> int:
     return (pages.q if isinstance(pages, QuantPages) else pages).shape[-3]
 
 
+def _gather_prior(pages: Pages, table: Tensor, dtype: torch.dtype) -> Tensor:
+    """Every layer's pages of ``table`` [B, NB] as a dense [L, B, NB*page,
+    Hkv, D] in ``dtype``, dequantized from an int8 pool."""
+    if isinstance(pages, QuantPages):
+        dense = dequantize_kv(pages.q[:, table], pages.s[:, table], dtype)
+    else:
+        dense = pages[:, table]
+    lcount, b, nb, page, hkv, hd = dense.shape
+    return dense.reshape(lcount, b, nb * page, hkv, hd)
+
+
 class PageAllocator:
     """Host free-list over page ids 1..P-1 (0 is the shared scratch page)."""
 
@@ -178,7 +203,8 @@ def _paged_attn_xla(q, k_pages_l, v_pages_l, page_table, lens, n_rep):
 
 def paged_decode_forward(params: dict, cfg: LlamaConfig, tok: Tensor, lens: Tensor,
                          page_table: Tensor, k_pages: Pages, v_pages: Pages,
-                         attn_impl=None, write_mask: Optional[Tensor] = None) -> Tensor:
+                         attn_impl=None, write_mask: Optional[Tensor] = None,
+                         rope: Optional[tuple[Tensor, Tensor]] = None) -> Tensor:
     """One decode step over the paged pool → logits [B, V] float32.
 
     tok [B] (last sampled token per slot); lens [B] int32, the absolute
@@ -186,15 +212,17 @@ def paged_decode_forward(params: dict, cfg: LlamaConfig, tok: Tensor, lens: Tens
     k/v are written into each row's current page in place before attention
     reads them (quantized first for an int8 pool). ``write_mask`` [B] bool
     redirects masked rows' writes to the
-    scratch page, freezing rows that hit EOS or their budget mid-tick."""
+    scratch page, freezing rows that hit EOS or their budget mid-tick.
+    ``rope`` is the (cos, sin) table pair covering the window; the engine
+    builds it once, so a captured sub-step reads a static tensor."""
     dt = cfg.torch_dtype
     b = tok.shape[0]
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     page = _page_dim(k_pages)
     nb = page_table.shape[1]
     positions = lens.long()[:, None]  # [B, 1]
-    cos, sin = L.rope_frequencies(hd, max(nb * page, cfg.max_len), cfg.rope_theta,
-                                  tok.device)
+    cos, sin = rope or L.rope_frequencies(hd, max(nb * page, cfg.max_len), cfg.rope_theta,
+                                          tok.device)
 
     block = (lens.long() // page).clamp_max(nb - 1)
     page_ids = page_table.long().gather(1, block[:, None])[:, 0]
@@ -253,12 +281,35 @@ def scatter_prefill(k_pages: Pages, v_pages: Pages, k_cache: Tensor,
 @dataclass
 class _Slot:
     request_id: int = -1
-    pages: list[int] = field(default_factory=list)
+    pages: list[int] = field(default_factory=list)  # own pages, after the shared ones
     length: int = 0          # tokens currently in cache (prompt + generated)
     prompt_tokens: int = 0
     max_new: int = 0
+    temperature: float = 0.0
+    top_k: int = 0
     emitted: list[int] = field(default_factory=list)
     active: bool = False
+    # the first sampled token is still on the device (admission does not
+    # fetch it; the next tick's packed output brings it to the host)
+    pending_first: bool = False
+    # decode sub-steps granted to dispatched, unharvested ticks: the budget
+    # counts them, or a pipelined tick would run past the limits
+    inflight_steps: int = 0
+    # tokens served from shared, read-only prefix-cache pages at the front
+    # of this slot's page table: counted in capacity, never freed by retire
+    shared_tokens: int = 0
+    # the radix node chain this slot pins, its truncated prompt ids (the
+    # insert key once the prompt KV is written) and the own pages whose
+    # ownership moved to the cache (retire must not free them)
+    prefix_node: object = None
+    prompt_ids: Optional[list] = None
+    donated: list = field(default_factory=list)
+    submit_t: float = 0.0
+    # chunked prefill: suffix tokens not yet written, and how many own
+    # tokens already are; while prefill_todo is set the slot holds pages
+    # but takes no decode budget
+    prefill_todo: Optional[list] = None
+    prefill_done: int = 0
 
 
 @dataclass
@@ -267,6 +318,10 @@ class _Request:
     prompt: str
     max_new: int
     temperature: float
+    top_k: int = 0
+    submit_t: float = 0.0
+    # tokenized once: skip-ahead may look at a queued request many times
+    tok_ids: Optional[list] = None
 
 
 @dataclass
@@ -276,6 +331,10 @@ class PagedResult:
     tokens: list[int]
     prompt_tokens: int
     finish_reason: str  # "stop" | "length"
+    # prompt tokens forwarded at admission vs served from the radix prefix
+    # cache (prefill_tokens + prefix_hit_tokens == prompt_tokens)
+    prefill_tokens: int = 0
+    prefix_hit_tokens: int = 0
     # sampled-token logprob accumulators (sum / min / count over every token
     # this request sampled, EOS included)
     logprob_sum: float = 0.0
@@ -299,23 +358,55 @@ class PagedResult:
         }
 
 
+class _DecodeState:
+    """The decode state carried on the device from tick to tick (the JAX
+    engine's ``_dev_state``) and the tick's inputs, in buffers that never
+    move: a decode sub-step reads and updates them in place, so one CUDA
+    graph of it replays against the same addresses every tick."""
+
+    def __init__(self, max_slots: int, max_pages_per_seq: int, max_steps: int,
+                 device) -> None:
+        def zeros(*shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        self.tok = zeros(max_slots, dtype=torch.int64)
+        self.lens = zeros(max_slots, dtype=torch.int32)
+        self.halted = zeros(max_slots, dtype=torch.bool)
+        self.lp_sum = zeros(max_slots, dtype=torch.float32)
+        self.lp_min = zeros(max_slots, dtype=torch.float32)
+        self.lp_cnt = zeros(max_slots, dtype=torch.int32)
+        self.table = zeros(max_slots, max_pages_per_seq, dtype=torch.int32)
+        self.budgets = zeros(max_slots, dtype=torch.int32)
+        self.temps = zeros(max_slots, dtype=torch.float32)
+        self.top_ks = zeros(max_slots, dtype=torch.int64)
+        self.idx = zeros(1, dtype=torch.int64)  # the sub-step within the tick
+        # row 0 echoes the tick's input tokens, row 1 + s is sub-step s's
+        self.packed = zeros(1 + max_steps, max_slots, dtype=torch.int64)
+
+
 class ContinuousBatchingEngine:
     """Slot-based continuous batching over the paged pool.
 
     ``max_slots`` decode lanes run one fused multi-step tick per ``step()``;
-    requests are admitted into free lanes in arrival order and retired on
-    EOS / length. The pool holds ``max_pages_per_seq`` pages for every slot
-    (plus scratch), so a free slot always finds its pages. ``attn_impl`` is
-    the decode-attention seam: the paged kernel by default, the plain
-    gather path (``_paged_attn_xla``) when set to it. ``kv_quant="int8"``
-    stores the pool as int8 codes plus f16 scales (``KV_QUANT``), which
-    routes decode to the int8 kernel. Single-threaded: one caller drives
-    ``step()``."""
+    requests are admitted into free lanes in arrival order (skipping ahead
+    of one too large for the free pages at most ``head_skip_bound`` times)
+    and retired on EOS / length. ``attn_impl`` is the decode-attention
+    seam: the paged kernel by default, the plain gather path
+    (``_paged_attn_xla``) when set to it. ``kv_quant="int8"`` stores the
+    pool as int8 codes plus f16 scales (``KV_QUANT``), which routes decode
+    to the int8 kernel. ``prefix_cache`` (``PREFIX_CACHE``),
+    ``pipeline_depth`` (``DECODE_PIPELINE_DEPTH``, 1 or 2) and
+    ``prefill_chunk`` (``PREFILL_CHUNK``, a multiple of the page size)
+    behave as in the JAX engine. ``cuda_graphs`` (on for a CUDA device)
+    runs each decode sub-step as a CUDA graph replay; turning it off runs
+    the same sub-step eagerly, which is how the graphs are held to it.
+    Single-threaded: one caller drives ``step()``."""
 
     PREFILL_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
     ADMIT_BUCKETS = (1, 2, 4, 8)
     # transient f32 score bytes one prefill dispatch may materialize
-    # ([rows, H, W, W] in plain attention); wider batches prefill in parts
+    # ([rows, H, W, prior + W] in plain attention); wider batches prefill in
+    # parts
     PREFILL_SCORE_BYTES = 2 << 30
 
     def __init__(
@@ -324,15 +415,24 @@ class ContinuousBatchingEngine:
         params: Optional[dict] = None,
         max_slots: int = 8,
         page_size: int = 16,
+        num_pages: Optional[int] = None,
         max_pages_per_seq: int = 16,
         rng_seed: int = 0,
         steps_per_tick: int = 8,
         max_tick_steps: Optional[int] = None,
+        pipeline_depth: int = 1,
         kv_quant: str = "none",
+        prefill_chunk: Optional[int] = None,
+        prefix_cache: bool = True,
         device=None,
     ) -> None:
         if kv_quant not in ("none", "int8"):
             raise ValueError(f"kv_quant must be 'none' or 'int8', got {kv_quant!r}")
+        if prefill_chunk is not None:
+            prefill_chunk = int(prefill_chunk)
+            if prefill_chunk <= 0 or prefill_chunk % page_size:
+                raise ValueError(f"prefill_chunk must be a positive multiple of page_size "
+                                 f"({page_size}), got {prefill_chunk}")
         self.device = resolve_device(device)
         self.cfg = model_config or LlamaConfig.tiny()
         self.tokenizer = ByteTokenizer(self.cfg.vocab_size)
@@ -349,37 +449,138 @@ class ContinuousBatchingEngine:
         self.steps_per_tick = max(int(steps_per_tick), 1)
         self.max_tick_steps = (max(int(max_tick_steps), self.steps_per_tick)
                                if max_tick_steps is not None else self.steps_per_tick)
-        num_pages = 1 + max_slots * max_pages_per_seq
+        self.pipeline_depth = min(max(int(pipeline_depth), 1), 2)
+        self.prefill_chunk = prefill_chunk
+        if num_pages is None:
+            num_pages = 1 + max_slots * max_pages_per_seq
         self.kv_quant = kv_quant
         self.pool = init_pool(self.cfg, num_pages, page_size, self.device,
                               quantized=kv_quant == "int8")
         self.allocator = PageAllocator(num_pages)
+        self._radix = RadixPrefixCache(page_size, self.allocator) if prefix_cache else None
         self.attn_impl = paged_attn_impl
+        self.cuda_graphs = self.device.type == "cuda"
 
         self.slots = [_Slot() for _ in range(max_slots)]
         self._queue: list[_Request] = []
         self._finished: list[PagedResult] = []
         self._next_id = itertools.count()
+        # skip-ahead: a request too large for the free pages may be jumped
+        # by later ones, but only head_skip_bound times; then the head is
+        # strict FIFO again until its pages free
+        self.head_skip_bound = 16
+        self._head_skips = 0
+        # decode sub-steps run on the device, fully masked ones included
+        # (a graph's warmup before its capture is one)
         self.total_sub_steps = 0
+        self.prefill_tokens_total = 0
+        self.decode_tokens_total = 0
+        # admissions against a non-empty cache that hit / missed it, and the
+        # prompt tokens served from it / forwarded
+        self.prefix_hits = 0
+        self.prefix_misses = 0
+        self.prefix_hit_tokens_total = 0
+        self.prefix_miss_tokens_total = 0
+        self.graph_captures = 0
+        self.graph_replays = 0
+        self.graph_capture_s = 0.0
+        # (first tokens, their logprobs) on the device per admission
+        # dispatch, with their slots; merged into the decode state by the
+        # next tick
+        self._pending_first: list[tuple[Tensor, Tensor, list[int]]] = []
+        self._inflight: Optional[dict] = None  # the unharvested tick at depth 2
+        # lanes retired since the last dispatch: their device lens go back
+        # to 0 so an idle lane's attention reads one key of scratch page 0
+        self._stale_lanes: set[int] = set()
         # host mirrors of per-slot decode state
         self._page_table = np.zeros((max_slots, max_pages_per_seq), np.int32)
-        self._lens = np.zeros(max_slots, np.int32)
         self._temps = np.zeros(max_slots, np.float32)
+        self._top_ks = np.zeros(max_slots, np.int64)
         self._last_tok = np.zeros(max_slots, np.int64)
         self._lp_sum = np.zeros(max_slots, np.float32)
         self._lp_min = np.zeros(max_slots, np.float32)
         self._lp_cnt = np.zeros(max_slots, np.int32)
 
+        self._st = _DecodeState(max_slots, max_pages_per_seq, self.max_tick_steps,
+                                self.device)
+        self._rope = L.rope_frequencies(
+            self.cfg.head_dim, max(max_pages_per_seq * page_size, self.cfg.max_len),
+            self.cfg.rope_theta, self.device)
+        # the tick's fetch lands in one of two pinned host buffer pairs: at
+        # depth 2 the next tick's fetch goes to the other while this one
+        # waits for its harvest
+        pin = self.device.type == "cuda"
+        self._fetch = [(torch.zeros((1 + self.max_tick_steps, max_slots), dtype=torch.int64,
+                                    pin_memory=pin),
+                        torch.zeros((3, max_slots), dtype=torch.float32, pin_memory=pin))
+                       for _ in range(2)]
+        self._fetch_next = 0
+        # one CUDA graph per sampling variant, captured on first use into
+        # one shared memory pool, with each graph's launches per kernel
+        self._graphs: dict[tuple[bool, bool], tuple] = {}
+        self._graph_pool = None
+
     # --------------------------------------------------------------- public
 
-    def submit(self, prompt: str, max_new_tokens: int = 64, temperature: float = 0.0) -> int:
+    def submit(self, prompt: str, max_new_tokens: int = 64, temperature: float = 0.0,
+               top_k: int = 0) -> int:
+        """Queue a request; ``top_k`` (0 = off) is per request, carried by
+        every sampling call of its row."""
         rid = next(self._next_id)
-        self._queue.append(_Request(rid, prompt, max_new_tokens, temperature))
+        self._queue.append(_Request(rid, prompt, max_new_tokens, temperature,
+                                    top_k=max(int(top_k), 0), submit_t=time.perf_counter()))
         return rid
+
+    def warm_prefix(self, text: str) -> int:
+        """Put ``text``'s full-page KV into the radix cache, so even the
+        first request that starts with it prefills only its suffix. Returns
+        the tokens now cached (0 with the cache off, for a text shorter than
+        a page, or when live slots pin the pool). Warmed nodes are unpinned:
+        eviction reclaims them like any other cached prefix."""
+        if self._radix is None:
+            return 0
+        toks = self.tokenizer.encode(text, add_bos=True)
+        # leave at least one page of table room for suffix + decode
+        n_blocks = min(len(toks) // self.page_size, self.max_pages_per_seq - 1)
+        if n_blocks <= 0:
+            return 0
+        full = n_blocks * self.page_size
+        matched, _pages, _node = self._radix.match(toks[:full])
+        if matched >= full:
+            return full
+        need = (full - matched) // self.page_size
+        if need > self.allocator.free_pages:
+            self._radix.evict(need - self.allocator.free_pages)
+            matched, _pages, _node = self._radix.match(toks[:full])
+            need = (full - matched) // self.page_size
+            if need > self.allocator.free_pages:
+                return 0
+        pages = self.allocator.alloc(need)
+        # prefill the whole span cold and scatter only the uncovered blocks
+        # (cached blocks go to scratch page 0); nothing is sampled
+        self._prefill_rows(self._prefill_width(full), 0,
+                           [(toks[:full], 0.0, 0, [0] * (matched // self.page_size) + pages)],
+                           [0], None, do_sample=False)
+        _node, donated = self._radix.insert(toks[:full], matched, pages)
+        leftover = set(pages) - set(donated)
+        if leftover:
+            self.allocator.free(list(leftover))
+        return full
+
+    def peek_prefix(self, tok_ids: Sequence[int]) -> int:
+        """How many leading tokens of ``tok_ids`` the radix cache could
+        serve, clamped as admission clamps a match (one suffix token must
+        remain). Takes no refcounts and touches no LRU state."""
+        if self._radix is None or not tok_ids:
+            return 0
+        matched = self._radix.peek_prefix(tok_ids)
+        max_shared = ((len(tok_ids) - 1) // self.page_size) * self.page_size
+        return max(min(matched, max_shared), 0)
 
     @property
     def has_work(self) -> bool:
-        return bool(self._queue) or any(s.active for s in self.slots)
+        return bool(self._queue) or any(s.active for s in self.slots) \
+            or self._inflight is not None
 
     def run_all(self, prompts: Sequence[str], max_new_tokens: int = 64,
                 temperature: float = 0.0) -> list[PagedResult]:
@@ -392,41 +593,193 @@ class ContinuousBatchingEngine:
         return [done[i] for i in ids]
 
     def step(self) -> list[PagedResult]:
-        """One tick: admit waiting requests, run one fused multi-step decode
-        over the active slots, retire finished ones. Returns the results
+        """One tick: admit waiting requests (their prefill dispatches do not
+        wait), advance one chunked-prefill segment, dispatch one fused
+        decode tick, harvest. At ``pipeline_depth`` 2 the harvest is of the
+        previous tick, after this one is dispatched. Returns the results
         completed this tick."""
         self._admit()
-        if any(s.active for s in self.slots):
-            self._tick()
+        if self.prefill_chunk is not None:
+            self._advance_prefill()
+        record = self._dispatch_tick() if any(s.active for s in self.slots) else None
+        # results of retires made while budgeting ride this step's return
         out, self._finished = self._finished, []
+        if self.pipeline_depth <= 1:
+            if record is not None:
+                out.extend(self._harvest(record))
+        else:
+            prev, self._inflight = self._inflight, record
+            if prev is not None:
+                out.extend(self._harvest(prev))
+        return out
+
+    def stats(self) -> dict:
+        out = {
+            "active_slots": sum(s.active for s in self.slots),
+            "max_slots": self.max_slots,
+            "queued": len(self._queue),
+            "free_pages": self.allocator.free_pages,
+            "total_pages": self.allocator.num_pages,
+            "page_size": self.page_size,
+            "kv_quant": self.kv_quant,
+            "pool_hbm_bytes": self.pool.hbm_bytes,
+            "head_skips": self._head_skips,
+            "prefill_tokens": self.prefill_tokens_total,
+            "decode_tokens": self.decode_tokens_total,
+            "sub_steps": self.total_sub_steps,
+            "graph_captures": self.graph_captures,
+            "graph_replays": self.graph_replays,
+            "graph_capture_s": self.graph_capture_s,
+        }
+        if self._radix is not None:
+            hit, miss = self.prefix_hit_tokens_total, self.prefix_miss_tokens_total
+            out["prefix_hits"] = self.prefix_hits
+            out["prefix_misses"] = self.prefix_misses
+            out["prefix_hit_tokens"] = hit
+            out["prefix_miss_tokens"] = miss
+            if hit + miss:
+                out["prefix_hit_token_ratio"] = round(hit / (hit + miss), 4)
+            out["prefix_cache_pages"] = self._radix.pages_held
+            out["prefix_cache_nodes"] = self._radix.node_count
         return out
 
     # -------------------------------------------------------- device calls
 
-    def prefill_forward(self, ids: np.ndarray, lens: np.ndarray,
-                        scat: np.ndarray) -> Tensor:
+    def _stage(self, arr: np.ndarray) -> Tensor:
+        """A host array as a tensor to copy to the device with
+        ``non_blocking=True``: on the card in pinned memory from PyTorch's
+        caching host allocator, which records the copy's event and hands
+        the block out again only after it has fired, so no staging buffer
+        is rewritten under a copy in flight; on the CPU a private copy."""
+        t = torch.from_numpy(np.array(arr))
+        return t.pin_memory() if self.device.type == "cuda" else t
+
+    def _to_device(self, arr: np.ndarray) -> Tensor:
+        return self._stage(arr).to(self.device, non_blocking=True)
+
+    def prefill_forward(self, ids: np.ndarray, lens: np.ndarray, scat: np.ndarray,
+                        prior_table: Optional[np.ndarray] = None,
+                        n_prior: Optional[np.ndarray] = None) -> Tensor:
         """Prefill rows ``ids`` [b, W] (true lengths ``lens``) with plain
-        attention, scatter their KV into the pages ``scat`` [b, W/page],
-        and return each row's last prompt logit [b, V]."""
+        attention, scatter their KV into the pages ``scat`` [b, W/page], and
+        return each row's last prompt logit [b, V].
+
+        With ``prior_table`` [b, PNB] and ``n_prior`` [b], row r's first
+        ``n_prior[r]`` tokens are already in the pool on those pages (a
+        prefix-cache hit, or a chunked prompt's earlier segments): a dense
+        cache is primed from them (dequantized from an int8 pool), the row's
+        tokens run at positions from ``n_prior[r]``, and only its new window
+        is scattered. Pad pages of a prior table point at scratch page 0;
+        every key past a row's prior lies past its queries' positions."""
+        dev, cfg = self.device, self.cfg
         b, width = ids.shape
-        ids_t = torch.as_tensor(ids, device=self.device)
-        positions = torch.arange(width, device=self.device)[None, :].expand(b, width)
-        cache = init_cache(self.cfg, b, width, self.device)
-        logits, cache = llama_forward(self.params, self.cfg, ids_t,
-                                      positions=positions, cache=cache, cache_index=0)
-        scatter_prefill(self.pool.k, self.pool.v, cache["k"], cache["v"],
-                        torch.as_tensor(scat, device=self.device))
-        last = torch.as_tensor(lens - 1, device=self.device).long()
-        return logits[torch.arange(b, device=self.device), last]
+        ids_t = self._to_device(ids)
+        positions = torch.arange(width, device=dev)[None, :].expand(b, width)
+        if prior_table is None:
+            cache = init_cache(cfg, b, width, dev)
+            logits, cache = llama_forward(self.params, cfg, ids_t, positions=positions,
+                                          cache=cache, cache_index=0)
+            k_new, v_new = cache["k"], cache["v"]
+        else:
+            prior_w = prior_table.shape[1] * self.page_size
+            n_prior_t = self._to_device(n_prior.astype(np.int64))
+            cache = init_cache(cfg, b, prior_w + width, dev)
+            if prior_w:
+                table = self._to_device(prior_table.astype(np.int64))
+                for name, pages in (("k", self.pool.k), ("v", self.pool.v)):
+                    cache[name][:, :, :prior_w] = _gather_prior(pages, table, cfg.torch_dtype)
+            logits, cache = llama_forward(self.params, cfg, ids_t,
+                                          positions=positions + n_prior_t[:, None],
+                                          cache=cache, cache_index=n_prior_t)
+            # each row's new KV starts at its own offset in the primed cache
+            window = n_prior_t[:, None] + torch.arange(width, device=dev)[None, :]
+            rows = torch.arange(b, device=dev)[:, None]
+            k_new, v_new = cache["k"][:, rows, window], cache["v"][:, rows, window]
+        scatter_prefill(self.pool.k, self.pool.v, k_new, v_new,
+                        self._to_device(scat.astype(np.int64)))
+        last = self._to_device(lens.astype(np.int64) - 1)
+        return logits[torch.arange(b, device=dev), last]
 
     def decode_forward(self, tok: Tensor, lens: Tensor, page_table: Tensor,
                        write_mask: Optional[Tensor] = None) -> Tensor:
         """One decode sub-step over the pool → logits [B, V]."""
         return paged_decode_forward(self.params, self.cfg, tok, lens, page_table,
                                     self.pool.k, self.pool.v, attn_impl=self.attn_impl,
-                                    write_mask=write_mask)
+                                    write_mask=write_mask, rope=self._rope)
+
+    def _sub_step(self, all_greedy: bool, any_top_k: bool) -> None:
+        """One decode sub-step of the slot batch on the static buffers: the
+        forward, sampling and the state update, all in place. Rows that are
+        halted or past their budget are frozen (their KV write goes to
+        scratch page 0). This is what a CUDA graph captures; it reads
+        nothing back to the host."""
+        st = self._st
+        active = (~st.halted) & (st.idx < st.budgets)
+        logits = self.decode_forward(st.tok, st.lens, st.table, write_mask=active)
+        nxt, lp = sample_tokens(logits, self._gen, st.temps, st.top_ks,
+                                all_greedy=all_greedy, any_top_k=any_top_k)
+        st.tok.copy_(torch.where(active, nxt, st.tok))
+        st.lens.copy_(torch.where(active, st.lens + 1, st.lens))
+        st.lp_sum.copy_(torch.where(active, st.lp_sum + lp, st.lp_sum))
+        st.lp_min.copy_(torch.where(active, torch.minimum(st.lp_min, lp), st.lp_min))
+        st.lp_cnt.copy_(torch.where(active, st.lp_cnt + 1, st.lp_cnt))
+        st.halted.copy_(st.halted | (active & (nxt == self.tokenizer.eos_id)))
+        st.packed.index_copy_(0, st.idx + 1, nxt[None, :])
+        st.idx.add_(1)
+
+    def _capture(self, variant: tuple[bool, bool]) -> None:
+        """Capture :meth:`_sub_step` for one sampling variant into a CUDA
+        graph. The warmup before it runs on a side stream with every row
+        masked (budgets 0), so it writes only scratch page 0 and moves no
+        live state; it is a real sub-step and counts as one. The capture
+        launches nothing, so the kernels' launch counts are put back and
+        the graph's launches per kernel are kept, to be added at each
+        replay."""
+        t0 = time.perf_counter()
+        st = self._st
+        st.budgets.zero_()
+        st.idx.zero_()
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            self._sub_step(*variant)
+        current.wait_stream(side)
+        self.total_sub_steps += 1
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        if not variant[0]:
+            # the sampled variants draw from the engine's own generator
+            graph.register_generator_state(self._gen)
+        before = [k.launches for k in KERNELS]
+        st.idx.zero_()
+        with torch.cuda.graph(graph, pool=self._graph_pool):
+            self._sub_step(*variant)
+        launches = []
+        for kernel, n in zip(KERNELS, before):
+            launches.append((kernel, kernel.launches - n))
+            kernel.launches = n
+        self._graphs[variant] = (graph, launches)
+        self.graph_captures += 1
+        self.graph_capture_s += time.perf_counter() - t0
+
+    def _run_sub_steps(self, n_steps: int, variant: tuple[bool, bool]) -> None:
+        if not (self.device.type == "cuda" and self.cuda_graphs):
+            for _ in range(n_steps):
+                self._sub_step(*variant)
+            return
+        graph, launches = self._graphs[variant]
+        for _ in range(n_steps):
+            graph.replay()
+        for kernel, n in launches:
+            kernel.launches += n * n_steps
+        self.graph_replays += n_steps
 
     # -------------------------------------------------------------- private
+
+    def _free_slot_indices(self) -> list[int]:
+        return [i for i, s in enumerate(self.slots) if not s.active]
 
     def _prefill_width(self, n_tokens: int) -> int:
         width = bucket_size(
@@ -436,85 +789,264 @@ class ContinuousBatchingEngine:
         )
         return ((width + self.page_size - 1) // self.page_size) * self.page_size
 
+    def _prior_bucket(self, n_blocks: int) -> int:
+        """Prior-table width for ``n_blocks`` prior pages: the next power of
+        two, capped at the window, as the JAX engine buckets it (admission
+        groups rows by it); 0 stays 0."""
+        if n_blocks <= 0:
+            return 0
+        return min(1 << (n_blocks - 1).bit_length(), self.max_pages_per_seq)
+
+    def _match_radix(self, tok_ids: Sequence[int]):
+        """Longest-prefix match, clamped so at least one suffix token
+        remains to prefill (the first token comes from the last prompt
+        logit). → (shared, pages, node)."""
+        if self._radix is None or self._radix.empty:
+            return 0, [], None
+        matched, pages, node = self._radix.match(tok_ids)
+        max_shared = ((len(tok_ids) - 1) // self.page_size) * self.page_size
+        if matched > max_shared:
+            matched = max_shared
+            pages = pages[: matched // self.page_size]
+        if matched <= 0:
+            return 0, [], None
+        return matched, pages, node
+
+    def _radix_insert(self, slot_idx: int, tok_ids, shared: int) -> None:
+        """Move slot ``slot_idx``'s freshly prefilled full-page prompt span
+        ``[shared, full)`` into the radix cache, after the dispatch that
+        writes it (later admissions' reads are ordered behind the write on
+        the stream). Donated pages change owner; the slot re-pins the
+        deepest node so eviction cannot take pages its table references."""
+        if self._radix is None:
+            return
+        slot = self.slots[slot_idx]
+        full = (len(tok_ids) // self.page_size) * self.page_size
+        if full <= shared:
+            return
+        own = slot.pages[: (full - shared) // self.page_size]
+        node, donated = self._radix.insert(list(tok_ids[:full]), shared, own)
+        slot.donated.extend(donated)
+        if node is not None and node is not slot.prefix_node:
+            self._radix.lock(node)
+            self._radix.unlock(slot.prefix_node)
+            slot.prefix_node = node
+
     def _admit(self) -> None:
-        """Admit queued requests into free slots, then prefill them grouped
-        by width bucket, in chunks of up to max(ADMIT_BUCKETS) rows."""
+        """Admit queued requests into free slots (radix match, pages,
+        skip-ahead), then prefill them grouped by (suffix width, prior
+        bucket) in chunks of up to max(ADMIT_BUCKETS) rows."""
+        free = self._free_slot_indices()
+        if not free or not self._queue:
+            return
         window = self.max_pages_per_seq * self.page_size
-        batch: list[tuple[int, _Request, list[int]]] = []
-        for slot_idx, slot in enumerate(self.slots):
-            if slot.active or not self._queue:
+        batch: list[tuple[int, _Request, list[int], int]] = []
+        qi = 0
+        while qi < len(self._queue) and free:
+            req = self._queue[qi]
+            if req.tok_ids is None:
+                # generation gets its tokens up to HALF the window; the
+                # prompt always keeps at least the other half
+                reserve = min(req.max_new + 2, window // 2)
+                req.tok_ids = self.tokenizer.encode(req.prompt, add_bos=True)[: window - reserve]
+            tok_ids = req.tok_ids
+            cache_live = self._radix is not None and not self._radix.empty
+            shared, match_pages, match_node = self._match_radix(tok_ids)
+
+            def pages_needed(sh: int) -> int:
+                return min((len(tok_ids) - sh + req.max_new + self.page_size - 1)
+                           // self.page_size, self.max_pages_per_seq - sh // self.page_size)
+
+            need = pages_needed(shared)
+            if need > self.allocator.free_pages and self._radix is not None:
+                # reclaim unpinned cached prefixes, LRU first; the match may
+                # have walked nodes that were just freed, so match again
+                if self._radix.evict(need - self.allocator.free_pages):
+                    shared, match_pages, match_node = self._match_radix(tok_ids)
+                    need = pages_needed(shared)
+            if need > self.allocator.free_pages:
+                if qi == 0 and self._head_skips >= self.head_skip_bound:
+                    break
+                qi += 1
                 continue
-            req = self._queue.pop(0)
-            # generation gets its tokens up to HALF the window; the prompt
-            # always keeps at least the other half
-            reserve = min(req.max_new + 2, window // 2)
-            tok_ids = self.tokenizer.encode(req.prompt, add_bos=True)[: window - reserve]
-            pages = self.allocator.alloc(min(
-                (len(tok_ids) + req.max_new + self.page_size - 1) // self.page_size,
-                self.max_pages_per_seq))
-            batch.append((slot_idx, req, tok_ids))
+            pages = self.allocator.alloc(need)
+            slot_idx = free.pop(0)
+            self._queue.pop(qi)
+            if qi == 0:
+                self._head_skips = 0
+            else:
+                self._head_skips += 1
+            if cache_live:
+                if shared:
+                    self.prefix_hits += 1
+                else:
+                    self.prefix_misses += 1
+            if self._radix is not None:
+                self.prefix_hit_tokens_total += shared
+                self.prefix_miss_tokens_total += len(tok_ids) - shared
+                self._radix.lock(match_node)
+            chunked = (self.prefill_chunk is not None
+                       and len(tok_ids) - shared > self.prefill_chunk)
+            if not chunked:
+                batch.append((slot_idx, req, tok_ids, shared))
+            slot = self.slots[slot_idx]
             slot.request_id = req.request_id
             slot.pages = pages
             slot.prompt_tokens = slot.length = len(tok_ids)
             slot.max_new = req.max_new
+            slot.temperature = req.temperature
+            slot.top_k = req.top_k
             slot.emitted = []
+            slot.inflight_steps = 0
+            slot.shared_tokens = shared
+            slot.prefix_node = match_node
+            slot.prompt_ids = list(tok_ids) if self._radix is not None else None
+            slot.donated = []
+            slot.submit_t = req.submit_t
+            slot.prefill_todo = list(tok_ids[shared:]) if chunked else None
+            slot.prefill_done = 0
             slot.active = True
+            shared_blocks = shared // self.page_size
             self._page_table[slot_idx] = 0
-            self._page_table[slot_idx, : len(pages)] = pages
-            self._lens[slot_idx] = len(tok_ids)
+            self._page_table[slot_idx, :shared_blocks] = match_pages
+            self._page_table[slot_idx, shared_blocks : shared_blocks + len(pages)] = pages
             self._temps[slot_idx] = req.temperature
+            self._top_ks[slot_idx] = req.top_k
 
-        groups: dict[int, list] = {}
+        # rows with a prefix hit group by (suffix width, prior-page bucket);
+        # cold rows (bucket 0) take the plain prefill
+        groups: dict[tuple[int, int], list] = {}
         for item in batch:
-            groups.setdefault(self._prefill_width(len(item[2])), []).append(item)
+            shared = item[3]
+            key = (self._prefill_width(len(item[2]) - shared),
+                   self._prior_bucket(shared // self.page_size))
+            groups.setdefault(key, []).append(item)
         max_rows = max(self.ADMIT_BUCKETS)
-        for width, members in sorted(groups.items()):
+        for (width, pnb), members in sorted(groups.items()):
             for start in range(0, len(members), max_rows):
-                self._prefill_chunk(width, members[start : start + max_rows])
+                chunk = members[start : start + max_rows]
+                self._prefill_admitted(width, pnb, chunk)
 
-    def _prefill_chunk(self, width: int, chunk: list) -> None:
-        """Prefill + scatter + first-token sample for same-width rows, padded
-        to a row bucket; split so no dispatch exceeds PREFILL_SCORE_BYTES."""
-        score_bytes = self.cfg.n_heads * width * width * 4
+    def _prefill_admitted(self, width: int, pnb: int, chunk: list) -> None:
+        """One admission group's prefill: suffix-only over the matched pages
+        when ``pnb``, whole prompts otherwise. The first tokens stay on the
+        device; each row's full-page span then enters the radix cache."""
+        rows_data, n_prior, prior_rows = [], [], []
+        for slot_idx, req, tok_ids, shared in chunk:
+            rows_data.append((tok_ids[shared:], req.temperature, req.top_k,
+                              self.slots[slot_idx].pages))
+            n_prior.append(shared)
+            prior_rows.append(self._page_table[slot_idx, : shared // self.page_size])
+        first, first_lp = self._prefill_rows(width, pnb, rows_data, n_prior,
+                                             prior_rows if pnb else None, do_sample=True)
+        self.prefill_tokens_total += sum(len(t) - s for _i, _r, t, s in chunk)
+        slot_idxs = [slot_idx for slot_idx, _r, _t, _s in chunk]
+        for slot_idx in slot_idxs:
+            self.slots[slot_idx].pending_first = True
+        self._pending_first.append((first, first_lp, slot_idxs))
+        for slot_idx, _req, tok_ids, shared in chunk:
+            self._radix_insert(slot_idx, tok_ids, shared)
+
+    def _prefill_rows(self, width: int, pnb: int, rows_data: list, n_prior: list,
+                      prior_rows: Optional[list], do_sample: bool
+                      ) -> tuple[Optional[Tensor], Optional[Tensor]]:
+        """Prefill dispatch(es) for rows of one (width, prior bucket):
+        rows_data [(token ids, temperature, top_k, own pages)], each row's
+        prior length and (with ``prior_rows``) prior page ids. Rows pad to a
+        batch bucket (pad rows scatter to scratch page 0) and split so that
+        no dispatch's scores exceed PREFILL_SCORE_BYTES. Returns the first
+        tokens and their logprobs on the device, one per row, when
+        ``do_sample``."""
+        prior_w = pnb * self.page_size
+        score_bytes = self.cfg.n_heads * width * (prior_w + width) * 4
         rows_per = max(1, self.PREFILL_SCORE_BYTES // score_bytes)
-        if len(chunk) > rows_per:
-            for start in range(0, len(chunk), rows_per):
-                self._prefill_chunk(width, chunk[start : start + rows_per])
-            return
-        rows = min(bucket_size(len(chunk), self.ADMIT_BUCKETS), max(rows_per, len(chunk)))
+        if len(rows_data) > rows_per:
+            parts = [self._prefill_rows(
+                width, pnb, rows_data[s : s + rows_per], n_prior[s : s + rows_per],
+                prior_rows[s : s + rows_per] if prior_rows is not None else None, do_sample)
+                for s in range(0, len(rows_data), rows_per)]
+            if not do_sample:
+                return None, None
+            return (torch.cat([f for f, _lp in parts]), torch.cat([lp for _f, lp in parts]))
+        n = len(rows_data)
+        rows = min(bucket_size(n, self.ADMIT_BUCKETS), max(rows_per, n))
         ids = np.full((rows, width), self.tokenizer.pad_id, np.int64)
         lens = np.ones(rows, np.int64)
         temps = np.zeros(rows, np.float32)
+        top_ks = np.zeros(rows, np.int64)
         scat = np.zeros((rows, width // self.page_size), np.int64)
-        for r, (slot_idx, req, tok_ids) in enumerate(chunk):
+        for r, (tok_ids, temp, top_k, pages) in enumerate(rows_data):
             ids[r, : len(tok_ids)] = tok_ids
             lens[r] = len(tok_ids)
-            temps[r] = req.temperature
+            temps[r] = temp
+            top_ks[r] = top_k
             used = (len(tok_ids) + self.page_size - 1) // self.page_size
-            scat[r, :used] = self.slots[slot_idx].pages[:used]
-        last = self.prefill_forward(ids, lens, scat)
-        first, first_lp = sample_tokens(last, self._gen, temps)
-        first = first.cpu().numpy()
-        first_lp = first_lp.cpu().numpy()
-        for r, (slot_idx, _req, _t) in enumerate(chunk):
-            self._last_tok[slot_idx] = int(first[r])
-            self._lp_sum[slot_idx] = self._lp_min[slot_idx] = first_lp[r]
-            self._lp_cnt[slot_idx] = 1
-            result = self._fold_and_maybe_retire(slot_idx)
-            if result is not None:
-                self._finished.append(result)
+            scat[r, :used] = pages[:used]
+        prior_table = n_prior_arr = None
+        if prior_rows is not None:
+            prior_table = np.zeros((rows, pnb), np.int64)
+            for r, prior in enumerate(prior_rows):
+                prior_table[r, : len(prior)] = prior
+            n_prior_arr = np.zeros(rows, np.int64)
+            n_prior_arr[:n] = n_prior
+        last = self.prefill_forward(ids, lens, scat, prior_table, n_prior_arr)
+        if not do_sample:
+            return None, None
+        first, first_lp = sample_tokens(
+            last, self._gen, self._to_device(temps), self._to_device(top_ks),
+            all_greedy=bool((temps <= 0).all()), any_top_k=bool((top_ks > 0).any()))
+        return first[:n], first_lp[:n]
 
-    def _tick(self) -> None:
-        """Per-row budgets, then up to ``steps`` fused decode sub-steps,
-        one host fetch, and the host replay of the device halting rule."""
+    def _advance_prefill(self) -> None:
+        """Dispatch ONE chunked-prefill segment per tick, for the slot with
+        the oldest submit time (index order would let long prompts landing
+        in lower slots starve a higher one)."""
+        waiting = [(slot.submit_t, i) for i, slot in enumerate(self.slots)
+                   if slot.active and slot.prefill_todo is not None]
+        if not waiting:
+            return
+        i = min(waiting)[1]
+        slot = self.slots[i]
+        seg = slot.prefill_todo[: self.prefill_chunk]
+        is_last = len(slot.prefill_todo) <= self.prefill_chunk
+        prior = slot.shared_tokens + slot.prefill_done
+        # the segment's own pages follow the prior blocks in the table
+        # (prior is page-aligned: shared and every non-final segment are)
+        pb = prior // self.page_size
+        nb = (len(seg) + self.page_size - 1) // self.page_size
+        first, first_lp = self._prefill_rows(
+            self._prefill_width(len(seg)), self._prior_bucket(pb),
+            [(seg, slot.temperature, slot.top_k, self._page_table[i, pb : pb + nb].tolist())],
+            [prior], [self._page_table[i, :pb]], do_sample=is_last)
+        self.prefill_tokens_total += len(seg)
+        if is_last:
+            slot.prefill_todo = None
+            slot.pending_first = True
+            self._pending_first.append((first, first_lp, [i]))
+            # the last segment completes the prompt's KV
+            self._radix_insert(i, slot.prompt_ids, slot.shared_tokens)
+        else:
+            slot.prefill_todo = slot.prefill_todo[self.prefill_chunk :]
+            slot.prefill_done += len(seg)
+
+    def _dispatch_tick(self) -> Optional[dict]:
+        """Per-row budgets, the admitted rows merged into the device decode
+        state, ``budgets.max()`` sub-steps, and the asynchronous fetch of
+        the tick's tokens. Nothing here waits for the device; the returned
+        record is harvested later (at once at depth 1, one step later at
+        depth 2)."""
+        pending, self._pending_first = self._pending_first, []
         remaining = np.zeros(self.max_slots, np.int32)
         for i, slot in enumerate(self.slots):
-            if not slot.active:
-                continue
-            capacity = len(slot.pages) * self.page_size
-            remaining[i] = max(min(slot.max_new - len(slot.emitted),
-                                   capacity - 1 - slot.length), 0)
-            if remaining[i] == 0:
+            if not slot.active or slot.prefill_todo is not None:
+                continue  # mid-chunked-prefill: no decode budget, no retire
+            capacity = slot.shared_tokens + len(slot.pages) * self.page_size
+            # a pending first token and sub-steps granted to an unharvested
+            # tick count as if they had been folded
+            base_emit = len(slot.emitted) + slot.inflight_steps + int(slot.pending_first)
+            written = slot.length + slot.inflight_steps
+            remaining[i] = max(min(slot.max_new - base_emit, capacity - 1 - written), 0)
+            if remaining[i] == 0 and not slot.pending_first and slot.inflight_steps == 0:
                 self._finished.append(self._retire(i, "length"))
         # an idle queue runs the big tick; waiting requests shrink it so
         # freed slots refill sooner
@@ -525,67 +1057,148 @@ class ContinuousBatchingEngine:
             shrink = 1 << min(waiting // max(self.max_slots, 1), 2)
             steps = max(self.steps_per_tick // shrink, 2)
         budgets = np.minimum(remaining, steps).astype(np.int32)
+        pending_slots = {i for _f, _lp, idxs in pending for i in idxs if self.slots[i].active}
+        if not budgets.any():
+            if pending_slots:
+                self._fold_pending(pending)
+            return None
+
+        st = self._st
+        # the sampling variant: all rows greedy, or sampled with / without
+        # some top-k row
+        all_greedy = bool((self._temps <= 0).all())
+        variant = (all_greedy, not all_greedy and bool((self._top_ks > 0).any()))
+        if self.device.type == "cuda" and self.cuda_graphs and variant not in self._graphs:
+            self._capture(variant)
+        st.table.copy_(self._stage(self._page_table), non_blocking=True)
+        st.budgets.copy_(self._stage(budgets), non_blocking=True)
+        st.temps.copy_(self._stage(self._temps), non_blocking=True)
+        st.top_ks.copy_(self._stage(self._top_ks), non_blocking=True)
+        self._merge_admitted(pending)
+        # rows whose deferred first token is already EOS never run
+        st.halted.copy_(st.halted | (st.tok == self.tokenizer.eos_id))
+        st.packed[0].copy_(st.tok)
+        st.idx.zero_()
         n_steps = int(budgets.max())
-        if n_steps == 0:
-            return
-
-        dev = self.device
-        tok = torch.as_tensor(self._last_tok, device=dev)
-        lens = torch.as_tensor(self._lens, device=dev)
-        table = torch.as_tensor(self._page_table, device=dev)
-        budgets_t = torch.as_tensor(budgets, device=dev)
-        halted = torch.zeros(self.max_slots, dtype=torch.bool, device=dev)
-        lp_sum = torch.as_tensor(self._lp_sum, device=dev)
-        lp_min = torch.as_tensor(self._lp_min, device=dev)
-        lp_cnt = torch.as_tensor(self._lp_cnt, device=dev)
-        temps = self._temps.copy()
-        sampled = []
-        for idx in range(n_steps):
-            active = (~halted) & (idx < budgets_t)
-            logits = self.decode_forward(tok, lens, table, write_mask=active)
-            nxt, lp = sample_tokens(logits, self._gen, temps)
-            tok = torch.where(active, nxt, tok)
-            lens = torch.where(active, lens + 1, lens)
-            lp_sum = torch.where(active, lp_sum + lp, lp_sum)
-            lp_min = torch.where(active, torch.minimum(lp_min, lp), lp_min)
-            lp_cnt = torch.where(active, lp_cnt + 1, lp_cnt)
-            halted = halted | (active & (nxt == self.tokenizer.eos_id))
-            sampled.append(nxt)
+        self._run_sub_steps(n_steps, variant)
         self.total_sub_steps += n_steps
-        # the one host fetch of the tick
-        toks = torch.stack(sampled).cpu().numpy()
-        lp_state = torch.stack([lp_sum, lp_min, lp_cnt.float()]).cpu().numpy()
-
+        # the tick's one fetch: tokens [1 + n_steps, B] and logprob state
+        # [3, B] into pinned host buffers, behind an event
+        host_packed, host_lp = self._fetch[self._fetch_next]
+        self._fetch_next ^= 1
+        host_packed[: 1 + n_steps].copy_(st.packed[: 1 + n_steps], non_blocking=True)
+        host_lp.copy_(torch.stack([st.lp_sum, st.lp_min, st.lp_cnt.float()]),
+                      non_blocking=True)
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
         for i, slot in enumerate(self.slots):
-            n = int(budgets[i])
-            if not slot.active or n == 0:
-                continue
-            self._lp_sum[i], self._lp_min[i] = lp_state[0, i], lp_state[1, i]
-            self._lp_cnt[i] = int(lp_state[2, i])
-            for s in range(n):
-                slot.length += 1
-                self._lens[i] = slot.length
-                self._last_tok[i] = int(toks[s, i])
+            if slot.active:
+                slot.inflight_steps += int(budgets[i])
+        return {"packed": host_packed[: 1 + n_steps], "lp_state": host_lp, "event": event,
+                "budgets": budgets, "pending_slots": pending_slots,
+                # a lane retired and re-admitted before this record is
+                # harvested must not get the old request's tokens
+                "rids": [s.request_id for s in self.slots]}
+
+    def _merge_admitted(self, pending: list) -> None:
+        """Scatter the admitted rows' device-resident first tokens, prompt
+        lengths, a cleared halt flag and the first logprob seeding the
+        accumulators into the decode state; zero the lens of lanes retired
+        since the last tick."""
+        st = self._st
+        idxs = [i for _f, _lp, slot_idxs in pending for i in slot_idxs]
+        stale = sorted(self._stale_lanes - set(idxs))
+        self._stale_lanes.clear()
+        if stale:
+            st.lens.index_fill_(0, self._to_device(np.asarray(stale, np.int64)), 0)
+        if not idxs:
+            return
+        idx = self._to_device(np.asarray(idxs, np.int64))
+        first = torch.cat([f for f, _lp, _s in pending])
+        first_lp = torch.cat([lp for _f, lp, _s in pending])
+        st.tok.index_copy_(0, idx, first)
+        st.lens.index_copy_(0, idx, self._to_device(
+            np.asarray([self.slots[i].length for i in idxs], np.int32)))
+        st.halted.index_fill_(0, idx, False)
+        st.lp_sum.index_copy_(0, idx, first_lp)
+        st.lp_min.index_copy_(0, idx, first_lp)
+        st.lp_cnt.index_fill_(0, idx, 1)
+
+    def _fold_pending(self, pending: list) -> None:
+        """Nothing can decode, but deferred first tokens need folding (a
+        max_new_tokens=1 burst): fetch them directly instead of running a
+        fully masked tick. The fetch waits for the device."""
+        for first, first_lp, slot_idxs in pending:
+            vals, lps = first.cpu().numpy(), first_lp.cpu().numpy()
+            for r, i in enumerate(slot_idxs):
+                slot = self.slots[i]
+                if not slot.active:
+                    continue
+                slot.pending_first = False
+                self._last_tok[i] = int(vals[r])
+                self._lp_sum[i] = self._lp_min[i] = lps[r]
+                self._lp_cnt[i] = 1
                 result = self._fold_and_maybe_retire(i)
                 if result is not None:
                     self._finished.append(result)
+
+    def _harvest(self, record: dict) -> list[PagedResult]:
+        """Wait for a tick's fetch (its event, nothing else) and replay the
+        device's halting rule on the host: a row runs until its budget or
+        the sub-step after its first EOS; each executed sub-step folds one
+        token and checks retirement."""
+        if record["event"] is not None:
+            record["event"].synchronize()
+        budgets = record["budgets"]
+        packed = record["packed"].numpy()
+        lp_rows = record["lp_state"].numpy()
+        finished: list[PagedResult] = []
+        for i, slot in enumerate(self.slots):
+            if not slot.active or slot.request_id != record["rids"][i]:
+                continue  # lane retired (and maybe reused) since dispatch
+            consumed = int(budgets[i])
+            if not consumed and i not in record["pending_slots"]:
+                continue
+            slot.inflight_steps = max(slot.inflight_steps - consumed, 0)
+            self._lp_sum[i], self._lp_min[i] = lp_rows[0, i], lp_rows[1, i]
+            self._lp_cnt[i] = int(lp_rows[2, i])
+            if slot.pending_first and i in record["pending_slots"]:
+                slot.pending_first = False
+                self._last_tok[i] = int(packed[0, i])
+                result = self._fold_and_maybe_retire(i)
+                if result is not None:
+                    finished.append(result)
+                    continue
+            for s in range(consumed):
+                slot.length += 1
+                self._last_tok[i] = int(packed[1 + s, i])
+                result = self._fold_and_maybe_retire(i)
+                if result is not None:
+                    finished.append(result)
                     break
+        return finished
 
     def _fold_and_maybe_retire(self, i: int) -> Optional[PagedResult]:
         """Fold ``_last_tok[i]`` into slot ``i``; retire on EOS / token
         budget / page capacity — the one place these conditions live."""
         slot = self.slots[i]
         tok = int(self._last_tok[i])
+        self.decode_tokens_total += 1
         hit_eos = tok == self.tokenizer.eos_id
         if not hit_eos:
             slot.emitted.append(tok)
         hit_len = len(slot.emitted) >= slot.max_new
-        out_of_pages = slot.length + 1 >= len(slot.pages) * self.page_size
+        capacity = slot.shared_tokens + len(slot.pages) * self.page_size
+        out_of_pages = slot.length + 1 >= capacity
         if hit_eos or hit_len or out_of_pages:
             return self._retire(i, "stop" if hit_eos else "length")
         return None
 
     def _retire(self, i: int, reason: str) -> PagedResult:
+        """Free a slot's pages (minus those donated to the radix cache),
+        drop its prefix pin and zero its host mirror row."""
         slot = self.slots[i]
         result = PagedResult(
             request_id=slot.request_id,
@@ -593,16 +1206,21 @@ class ContinuousBatchingEngine:
             tokens=list(slot.emitted),
             prompt_tokens=slot.prompt_tokens,
             finish_reason=reason,
+            prefill_tokens=slot.prompt_tokens - slot.shared_tokens,
+            prefix_hit_tokens=slot.shared_tokens,
             logprob_sum=float(self._lp_sum[i]),
             logprob_min=float(self._lp_min[i]),
             logprob_count=int(self._lp_cnt[i]),
         )
-        self.allocator.free(slot.pages)
-        slot.active = False
-        slot.pages = []
+        donated = set(slot.donated)
+        self.allocator.free([p for p in slot.pages if p not in donated])
+        if self._radix is not None:
+            self._radix.unlock(slot.prefix_node)
+        self.slots[i] = _Slot()
+        self._stale_lanes.add(i)
         self._page_table[i] = 0
-        self._lens[i] = 0
         self._temps[i] = 0.0
+        self._top_ks[i] = 0
         self._last_tok[i] = 0
         self._lp_sum[i] = self._lp_min[i] = 0.0
         self._lp_cnt[i] = 0

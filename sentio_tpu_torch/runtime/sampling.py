@@ -22,6 +22,9 @@ def sample_tokens(
     temperature: Union[Tensor, np.ndarray, float] = 0.0,
     top_k: Union[Tensor, np.ndarray, int] = 0,
     top_p: float = 1.0,
+    *,
+    all_greedy: Optional[bool] = None,
+    any_top_k: Optional[bool] = None,
 ) -> tuple[Tensor, Tensor]:
     """[B, V] → ([B] int64 tokens, [B] float32 logprobs).
 
@@ -29,28 +32,33 @@ def sample_tokens(
     ``top_k`` is a scalar or per-row [B] vector; rows with k <= 0 keep the
     whole distribution. ``top_p`` applies to every row. The logprob is the
     chosen token's log-probability under the UNMODIFIED distribution (the
-    log-softmax of the raw logits, before temperature or filtering)."""
+    log-softmax of the raw logits, before temperature or filtering).
+
+    ``all_greedy`` (every row has temperature <= 0) and ``any_top_k`` (some
+    row has k > 0) are host flags that decide which work runs. Left unset
+    they are read from host values; a ``temperature`` tensor counts as not
+    all greedy, and a ``top_k`` tensor is read from the device. A caller
+    that passes device tensors and both flags reads nothing back from the
+    device, so the call can be captured in a CUDA graph."""
     logits = logits.float()
     b, v = logits.shape
     device = logits.device
     greedy = logits.argmax(dim=-1)
-    temp = torch.as_tensor(temperature, dtype=torch.float32, device=device)
-    temp_rows = temp.expand(b) if temp.dim() == 0 else temp
-
-    # all-greedy batches (the common temperature-0 tick) skip the sampler:
-    # decided from host values when the caller passes host values
-    host_temp = temperature if not isinstance(temperature, Tensor) else None
-    all_greedy = (host_temp is not None
-                  and bool(np.all(np.asarray(host_temp) <= 0.0)))
+    if all_greedy is None:
+        all_greedy = (not isinstance(temperature, Tensor)
+                      and bool(np.all(np.asarray(temperature) <= 0.0)))
     if all_greedy:
         chosen = greedy
     else:
+        temp = torch.as_tensor(temperature, dtype=torch.float32, device=device)
+        temp_rows = temp.expand(b) if temp.dim() == 0 else temp
         scaled = logits / temp_rows.clamp_min(1e-6)[:, None]
         k_rows = torch.as_tensor(top_k, dtype=torch.int64, device=device)
         k_rows = k_rows.expand(b) if k_rows.dim() == 0 else k_rows
-        any_k = (bool(np.any(np.asarray(top_k) > 0)) if not isinstance(top_k, Tensor)
-                 else bool((k_rows > 0).any()))
-        if any_k:
+        if any_top_k is None:
+            any_top_k = (bool(np.any(np.asarray(top_k) > 0)) if not isinstance(top_k, Tensor)
+                         else bool((k_rows > 0).any()))
+        if any_top_k:
             # kth-largest per row via one ascending sort; values == kth
             # survive, rows with k <= 0 keep everything
             srt = scaled.sort(dim=-1).values

@@ -1,4 +1,6 @@
-"""The CUDA kernels against their plain versions on the card.
+"""The CUDA kernels against their plain versions on the card, and the
+engine's decode sub-steps replayed from CUDA graphs against the same
+sub-steps run eagerly.
 
 Marked ``cuda``: on a host without a CUDA device every test here skips
 (the decision is made in a fixture, at run time). On the card:
@@ -22,7 +24,8 @@ from sentio_tpu_torch.kernels.paged_attention import (
     paged_attention_quant_plain,
     span_kernel,
 )
-from sentio_tpu_torch.runtime.paged import quantize_kv
+from sentio_tpu_torch.models.llama import LlamaConfig
+from sentio_tpu_torch.runtime.paged import ContinuousBatchingEngine, quantize_kv
 
 pytestmark = pytest.mark.cuda
 ATOL = 2e-2
@@ -260,3 +263,73 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="head_dim"):
         paged_attention_quant(x[:, 0, :1], codes48, scales48, codes48, scales48, table[:1],
                               lens[:1])
+
+
+# ------------------------------------------------ the engine's CUDA graphs
+
+# a small Llama whose head_dim (64) the paged kernels take
+SMALL = LlamaConfig(vocab_size=512, dim=256, n_layers=2, n_heads=4, n_kv_heads=2, mlp_dim=512,
+                    max_len=512, rope_theta=10_000.0)
+PROMPTS = ["graph replay check", "a second prompt that spans more than one page " * 2, "x"]
+
+
+def _engine(dev, kv_quant="none", params=None, **kw):
+    kw = dict(dict(max_slots=4, page_size=16, max_pages_per_seq=8, steps_per_tick=8), **kw)
+    return ContinuousBatchingEngine(model_config=SMALL, params=params, device=dev,
+                                    kv_quant=kv_quant, **kw)
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_graph_ticks_match_eager_ticks(dev, kv_quant, depth):
+    """Greedy tokens of graph-replayed ticks equal those of the same
+    sub-step run eagerly on the card (same weights, same admissions), with
+    the prefix cache on: the later prompts hit the earlier ones' pages."""
+    graph = _engine(dev, kv_quant, pipeline_depth=depth)
+    eager = _engine(dev, kv_quant, params=graph.params, pipeline_depth=depth)
+    eager.cuda_graphs = False
+    prompts = PROMPTS + [PROMPTS[1] + " again"]
+    got, want = graph.run_all(prompts, 20), eager.run_all(prompts, 20)
+    assert [r.tokens for r in got] == [r.tokens for r in want]
+    assert graph.prefix_hit_tokens_total == eager.prefix_hit_tokens_total
+    assert graph.graph_captures == 1 and eager.graph_captures == eager.graph_replays == 0
+    # every sub-step after the capture's warmup was a replay
+    assert graph.graph_replays == graph.total_sub_steps - 1
+    assert graph.total_sub_steps == eager.total_sub_steps + 1
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_launch_counts_through_replays(dev, kv_quant):
+    """The paged kernel of the pool's type is counted once per layer per
+    sub-step, replays and the warmup included (a capture itself launches
+    nothing); the other paged kernel never."""
+    engine = _engine(dev, kv_quant)
+    ran, other = ((PAGED_QUANT_KERNEL, PAGED_KERNEL) if kv_quant == "int8"
+                  else (PAGED_KERNEL, PAGED_QUANT_KERNEL))
+    ran.launches = other.launches = 0
+    engine.run_all(PROMPTS, 12)
+    torch.cuda.synchronize()
+    assert engine.graph_replays > 0
+    assert ran.launches == SMALL.n_layers * engine.total_sub_steps
+    assert other.launches == 0
+
+
+def test_capture_with_sampled_rows(dev):
+    """A tick with sampled rows replays the sampled graph variants, which
+    draw from the engine's own generator: a row at temperature 0.8 with
+    top_k 1 must still give the greedy tokens, and one with top_k 5 valid
+    tokens."""
+    engine = _engine(dev)
+    greedy = _engine(dev, params=engine.params)
+    greedy.cuda_graphs = False
+    ids = [engine.submit(PROMPTS[0], 12, 0.0), engine.submit(PROMPTS[0], 12, 0.8, top_k=1),
+           engine.submit(PROMPTS[1], 12, 0.8, top_k=5)]
+    done = {}
+    while engine.has_work:
+        for r in engine.step():
+            done[r.request_id] = r
+    # the same batch shapes, all greedy
+    want = [r.tokens for r in greedy.run_all([PROMPTS[0], PROMPTS[0], PROMPTS[1]], 12)]
+    assert done[ids[0]].tokens == want[0] and done[ids[1]].tokens == want[1]
+    assert len(done[ids[2]].tokens) == 12 and max(done[ids[2]].tokens) < SMALL.vocab_size
+    assert (False, True) in engine._graphs and engine.graph_replays > 0

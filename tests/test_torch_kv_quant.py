@@ -4,8 +4,9 @@
   codes and f16 scales bit-identical, zero vectors and values exactly on a
   .5 code boundary included (both round half to even).
 * The engine with an int8 pool against the JAX engine (Pallas int8 kernel
-  in interpret mode, prefix cache off) on shared float32 tiny-Llama
-  weights: one decode step over a carried pool, and greedy drains.
+  in interpret mode) on shared float32 tiny-Llama weights: one decode step
+  over a carried pool, and greedy drains in the four engine configurations
+  (prefix cache off and on, pipeline depth 1 and 2, chunked prefill).
 * The engine's own behaviour: pool bytes, the ``kv_quant`` check, and
   decode routed through ``paged_attention_quant``.
 """
@@ -81,13 +82,19 @@ def weights():
     return jcfg, tree
 
 
-def _engines(weights):
+# (prefix_cache, pipeline_depth, prefill_chunk), as in test_torch_paged.py
+CONFIGS = [(False, 1, None), (True, 1, None), (True, 2, None), (True, 2, 32)]
+CONFIG_IDS = ["plain", "prefix", "prefix_depth2", "prefix_depth2_chunk32"]
+
+
+def _engines(weights, config=(False, 1, None)):
     jcfg, tree = weights
-    ref = JaxEngine(model_config=jcfg, params=tree, use_pallas=True, prefix_cache=False,
-                    kv_quant="int8", **ENGINE_KW)
+    prefix_cache, depth, chunk = config
+    kw = dict(ENGINE_KW, kv_quant="int8", prefix_cache=prefix_cache, pipeline_depth=depth,
+              prefill_chunk=chunk)
+    ref = JaxEngine(model_config=jcfg, params=tree, use_pallas=True, **kw)
     port = ContinuousBatchingEngine(model_config=LlamaConfig(**dataclasses.asdict(jcfg)),
-                                    params=llama_from_jax(tree), device="cpu",
-                                    kv_quant="int8", **ENGINE_KW)
+                                    params=llama_from_jax(tree), device="cpu", **kw)
     return ref, port
 
 
@@ -140,30 +147,75 @@ def test_one_decode_step_over_a_carried_pool(weights):
           f"{2 * cfg.n_layers * 4 * cfg.n_kv_heads * cfg.head_dim}")
 
 
+HEAD = "You answer from the numbered sources below and cite them. " * 2
 PROMPT_SETS = {
     "single": ["paged equivalence check"],
     "mixed_lengths": ["a", "a much longer prompt that spans several pages of cache " * 2,
                       "mid size prompt"],
     "more_than_slots": [f"request number {i} " * (i % 3 + 1) for i in range(7)],
+    "shared_heads": [HEAD + q for q in ("what is a page?", "who owns a slot?",
+                                        "why a radix tree?", "where is scratch?",
+                                        "how do ticks pipeline?")],
 }
 
 
-@pytest.mark.parametrize("name", sorted(PROMPT_SETS))
-def test_greedy_drain_matches_jax_int8_engine(weights, name):
-    """Greedy output token-exact against the JAX int8 engine, logprob
-    accumulators within 1e-4. The two pools are quantized from float32 K/V
-    that agree to ~1e-6, so a 1-code flip could in principle move a greedy
-    token; these prompts show none."""
-    ref, port = _engines(weights)
-    prompts = PROMPT_SETS[name]
-    want = ref.run_all(prompts, max_new_tokens=MAX_NEW, temperature=0.0)
-    got = port.run_all(prompts, max_new_tokens=MAX_NEW, temperature=0.0)
-    for r, p in zip(want, got):
+def _assert_same(want, got, ref, port):
+    for r, p in zip(want, got, strict=True):
         assert p.tokens == r.tokens
         assert p.finish_reason == r.finish_reason
+        assert p.prompt_tokens == r.prompt_tokens
+        assert (p.prefill_tokens, p.prefix_hit_tokens) == (r.prefill_tokens,
+                                                           r.prefix_hit_tokens)
         assert p.logprob_count == r.logprob_count
         np.testing.assert_allclose([p.logprob_sum, p.logprob_min],
                                    [r.logprob_sum, r.logprob_min], atol=1e-4, rtol=0)
+    assert port.prefill_tokens_total == ref.prefill_tokens_total
+    assert port.prefix_hit_tokens_total == ref.prefix_hit_tokens_total
+
+
+@pytest.fixture(scope="module", params=CONFIGS, ids=CONFIG_IDS)
+def int8_engines(request, weights):
+    return _engines(weights, request.param)
+
+
+@pytest.mark.parametrize("name", sorted(PROMPT_SETS))
+def test_greedy_drain_matches_jax_int8_engine(int8_engines, name):
+    """Greedy output token-exact against the JAX int8 engine in each engine
+    configuration, logprob accumulators within 1e-4, the same prefix-hit
+    and prefill token counts. The two pools are quantized from float32 K/V
+    that agree to ~1e-6, so a 1-code flip could in principle move a greedy
+    token; these prompts show none. A prefix hit attends to the matched
+    pages dequantized, on both sides."""
+    ref, port = int8_engines
+    prompts = PROMPT_SETS[name]
+    want = ref.run_all(prompts, max_new_tokens=MAX_NEW, temperature=0.0)
+    got = port.run_all(prompts, max_new_tokens=MAX_NEW, temperature=0.0)
+    _assert_same(want, got, ref, port)
+
+
+def test_staggered_shared_heads_match_jax_int8_engine(int8_engines):
+    """Requests with a shared head join while others decode, and a verify
+    style prompt embeds an earlier prompt: the later admissions hit the
+    int8 pages the earlier ones wrote."""
+    ref, port = int8_engines
+    first = "[1] Source: notes.md\nPages hold sixteen tokens each.\nQ: what is a page?"
+    # the empty wave gives a chunked first prompt the tick its last
+    # segment needs before it is in the tree
+    waves = ([first], [HEAD + "second"], [], [first + "\nAnswer: pages.\nAudit it.", "x"])
+    results = []
+    for engine in (ref, port):
+        ids, done = [], {}
+        for wave in waves:
+            ids += [engine.submit(p, MAX_NEW, 0.0) for p in wave]
+            for r in engine.step():
+                done[r.request_id] = r
+        while engine.has_work:
+            for r in engine.step():
+                done[r.request_id] = r
+        results.append([done[i] for i in ids])
+    _assert_same(*results, ref, port)
+    if port._radix is not None:
+        assert results[1][2].prefix_hit_tokens >= 64
 
 
 def test_int8_pool_bytes():

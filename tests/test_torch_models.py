@@ -141,6 +141,54 @@ def test_llama_scoring_path_with_padding_f32():
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
 
 
+def test_llama_prefill_at_per_row_offsets_f32():
+    """``cache_index`` as a [B] tensor (the prior-prefix prefill): each row's
+    tokens are written at its own offset into a cache already holding
+    earlier KV, at positions from there, against JAX's ``llama_forward``
+    with a [B] cache_index. Logits and the whole cache agree."""
+    jcfg, tcfg, tree, params = _llama("float32")
+    rng = np.random.default_rng(9)
+    b, t, s = 3, 8, 40
+    offsets = np.asarray([0, 13, 32], np.int32)
+    shape = (tcfg.n_layers, b, s, tcfg.n_kv_heads, tcfg.head_dim)
+    prior = {key: rng.standard_normal(shape).astype(np.float32) for key in ("k", "v")}
+    ids = rng.integers(0, 512, (b, t)).astype(np.int32)
+    positions = offsets[:, None] + np.arange(t, dtype=np.int32)[None, :]
+    pad = np.arange(t)[None, :] < np.asarray([8, 5, 8])[:, None]
+    ref, jcache = jllama.llama_forward(
+        tree, jcfg, jnp.asarray(ids), positions=jnp.asarray(positions),
+        cache={key: jnp.asarray(v) for key, v in prior.items()},
+        cache_index=jnp.asarray(offsets), pad_mask=jnp.asarray(pad))
+    got, tcache = tllama.llama_forward(
+        params, tcfg, torch.from_numpy(ids), positions=torch.from_numpy(positions),
+        cache={key: torch.from_numpy(v.copy()) for key, v in prior.items()},
+        cache_index=torch.from_numpy(offsets), pad_mask=torch.from_numpy(pad))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+    for key in ("k", "v"):
+        np.testing.assert_allclose(tcache[key].numpy(), np.asarray(jcache[key]),
+                                   atol=ATOL, rtol=0)
+        # nothing outside each row's window moved
+        for row, off in enumerate(offsets):
+            outside = np.r_[0:off, off + t:s]
+            np.testing.assert_array_equal(tcache[key].numpy()[:, row, outside],
+                                          prior[key][:, row, outside])
+
+
+@pytest.mark.parametrize("index", [0, 5, 36, -3])
+def test_cache_write_clamps_like_dynamic_update_slice(index):
+    """A start that would overhang the cache is clamped to S - T, as JAX's
+    ``dynamic_update_slice`` does (an int and a per-row tensor alike)."""
+    cache = torch.zeros((2, 40, 1, 1))
+    kv = torch.ones((2, 8, 1, 1))
+    tllama._write_cache(cache, kv, index)
+    start = min(max(index, 0), 32)
+    assert cache[:, start : start + 8].eq(1).all() and cache.sum() == 16
+    per_row = torch.zeros((2, 40, 1, 1))
+    tllama._write_cache(per_row, kv, torch.tensor([index, 3]))
+    assert torch.equal(per_row[0], cache[0])
+    assert per_row[1, 3:11].eq(1).all() and per_row[1].sum() == 8
+
+
 def test_llama_prefill_logits_bf16():
     jcfg, tcfg, tree, params = _llama("bfloat16")
     ids = np.random.default_rng(8).integers(0, 512, (2, 19)).astype(np.int32)

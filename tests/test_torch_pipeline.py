@@ -9,9 +9,10 @@ sentio_tpu_torch.runtime.weights and builds its own retriever from the same
 settings. Both decode greedily (mode "fast") under a small token budget,
 and must return the same retrieved and reranked ids, the same sources, the
 same answer text and the same verdict — with bf16 pools (float32 here) and
-with int8 pools on both sides. Also: the settings this package cannot
-honour raise, and the CLI honours ``RETRIEVAL_STRATEGY`` and
-``KV_QUANT``."""
+with int8 pools on both sides, each engine under the default serving
+settings (radix prefix cache, pipeline depth 2). Also: the settings this
+package cannot honour raise, the engine settings reach the engine, and the
+CLI honours ``RETRIEVAL_STRATEGY`` and ``KV_QUANT``."""
 
 import dataclasses
 import json
@@ -105,9 +106,14 @@ def _build(shared, strategy, kv_quant):
     embedder = TpuEmbedder(js.embedder, params=shared["enc_tree"], model_config=enc)
     index = TpuDenseIndex(dim=enc.dim, dtype="float32")
     index.add(docs, embedder.embed_many([d.text for d in docs]))
+    # the JAX service hands its engine these generator settings (the radix
+    # prefix cache and pipeline depth 2 by default), as build_pipeline does
+    jg = js.generator
     engine = JEngine(model_config=lcfg, params=shared["llama_tree"], max_slots=4, page_size=16,
-                     max_pages_per_seq=32, use_pallas=True, prefix_cache=False,
-                     steps_per_tick=8, kv_quant=kv_quant)
+                     max_pages_per_seq=32, use_pallas=True, prefix_cache=jg.prefix_cache,
+                     pipeline_depth=jg.decode_pipeline_depth,
+                     prefill_chunk=jg.prefill_chunk or None, steps_per_tick=8,
+                     kv_quant=kv_quant)
     generator = JLLMGenerator(provider=TpuProvider(engine=_PagedAsEngine(engine)),
                               config=js.generator)
     retriever = create_retriever(settings=js, embedder=embedder, dense_index=index,
@@ -199,12 +205,36 @@ def test_int8_chat_matches_jax_graph(hybrid_int8, question):
     _assert_same_chat(*hybrid_int8, question)
 
 
-@pytest.mark.parametrize("field,value", [("use_scorers", True),
-                                         ("web_cache_path", "/nonexistent/cache")])
-def test_build_pipeline_refuses_what_it_cannot_honour(field, value):
-    settings = Settings(retrieval=RetrievalConfig(**{field: value}))
+@pytest.mark.parametrize("section,field,value", [
+    ("retrieval", "use_scorers", True),
+    ("retrieval", "web_cache_path", "/nonexistent/cache"),
+    ("generator", "draft_checkpoint_path", "/nonexistent/draft"),  # LLM_DRAFT_CHECKPOINT
+    ("generator", "use_paged_decode", False),  # USE_PAGED_KV=0
+    ("generator", "verify_mode", "gated"),
+])
+def test_build_pipeline_refuses_what_it_cannot_honour(section, field, value):
+    config = {"retrieval": RetrievalConfig, "generator": GeneratorConfig}[section]
+    settings = Settings(**{section: config(**{field: value})})
     with pytest.raises(NotImplementedError):
         build_pipeline(settings, device="cpu")
+
+
+@pytest.mark.parametrize("prefix_cache,depth,chunk", [(True, 2, 0), (False, 1, 0), (True, 1, 64)])
+def test_engine_settings_reach_the_engine(monkeypatch, prefix_cache, depth, chunk):
+    """PREFIX_CACHE, DECODE_PIPELINE_DEPTH and PREFILL_CHUNK (0 = off) from
+    the environment reach the engine that build_pipeline makes, as the JAX
+    service hands them to its engine."""
+    monkeypatch.setenv("PREFIX_CACHE", "1" if prefix_cache else "0")
+    monkeypatch.setenv("DECODE_PIPELINE_DEPTH", str(depth))
+    monkeypatch.setenv("PREFILL_CHUNK", str(chunk))
+    settings = Settings.from_env()
+    settings.embedder = dataclasses.replace(settings.embedder, model_preset="tiny")
+    settings.generator = dataclasses.replace(settings.generator, model_preset="tiny",
+                                             kv_page_size=16, kv_max_pages_per_seq=8)
+    engine = build_pipeline(settings, device="cpu").generator.provider.engine
+    assert (engine._radix is not None) == prefix_cache
+    assert engine.pipeline_depth == depth
+    assert engine.prefill_chunk == (chunk or None)
 
 
 @pytest.mark.parametrize("strategy,kv_quant", [("hybrid", "none"), ("bm25", "int8"),
