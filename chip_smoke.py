@@ -397,8 +397,8 @@ def corpus(n: int):
     return docs, words
 
 
-ENGINE_COUNTERS = ("prefix_hit_tokens", "prefill_tokens", "sub_steps", "graph_captures",
-                   "graph_replays", "graph_capture_s")
+ENGINE_COUNTERS = ("prefix_hits", "prefix_hit_tokens", "prefill_tokens", "sub_steps",
+                   "graph_captures", "graph_replays", "graph_capture_s")
 
 
 def counter_deltas(before: dict, after: dict) -> dict:
