@@ -42,19 +42,27 @@ line each:
 6. graph — the generate prompt of chat 1, greedy, decoded from graph
    replays and from the same sub-step run eagerly on the card, over the
    same cached prefix: the tokens must be equal.
-7. profile — one more chat under the CUDA profiler: device time by kernel
-   family (and by each hand-written device function), and the device's
-   idle share.
-8. slice_int8 — a second pipeline under the default settings plus
+7. chunked_slice — one chunked admission (PREFILL_CHUNK=512) of a fresh
+   ~3,000-token prompt on the slice's own engine, pool, kernels and graphs:
+   prefilled and hit tokens make the prompt, several segments, the pool's
+   paged kernel once per layer per replayed sub-step.
+8. profile — one more chat under the CUDA profiler: device time by kernel
+   family (and by each hand-written device function), the device's idle
+   share, and the card's own launch counts: the profiler counts each
+   device function (inside graph replays too), and the pool's paged split
+   kernel and its combine must each have run once per layer per sub-step,
+   the other paged family never, the flash kernel as often as its wrapper
+   counted.
+9. slice_int8 — a second pipeline under the default settings plus
    KV_QUANT=int8 (hybrid retrieval: dense + BM25 fused by rrf), on the same
    weight tensors with its own int8 page pool: the same ingest, chats and
    gates with the int8 kernel in the bf16 kernel's place, and the BM25
    leg's hits in every fused list.
-9. logits_int8 — phase 5 on the int8 engine, and (reported, not gated)
+10. logits_int8 — phase 5 on the int8 engine, and (reported, not gated)
    how far its logits lie from the bf16 engine's on the same forced tokens:
    quantization's own error.
-10. graph_int8 — phase 6 on the int8 engine.
-11. profile_int8 — phase 7 on the int8 pipeline.
+11. graph_int8, chunked_slice_int8, profile_int8 — phases 6–8 on the int8
+    pipeline.
 12. chunked — the generate prompt of chat 1 (~3,300 tokens) admitted with
     PREFILL_CHUNK=512 and whole, greedy: the same tokens and the same
     prefilled token count. In float32 at Llama-3-8B width cut to 2 layers,
@@ -63,8 +71,10 @@ line each:
     a near-tied greedy token of a random-weight model, and the point here
     is the admission, not the kernels.
 
-The last lines are the nvidia-smi line, one {"kernels": [...]} line, and
-{"ok": true, "device": {...}}. Any failed check raises: the exit code is
+The last lines are the nvidia-smi line, one {"kernels": [...]} line (each
+kernel's ``launches`` from the counted chats, through the wrappers' counts
+added per graph replay, and beside them the profiled chat's launches as
+the card counted them), and {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 then non-zero and no result line is printed.
 """
 
@@ -699,45 +709,132 @@ def chunked_check(torch, dev, prompt: str, chunk: int = 512) -> dict:
     return result
 
 
+def chunked_slice_check(torch, pipeline, phase: str = "chunked_slice",
+                        chunk: int = 512) -> dict:
+    """One chunked admission on the slice's own engine (its pool, its
+    kernels, its graphs): a prompt of ~3,000 tokens the radix tree does not
+    hold past its template head, admitted with ``prefill_chunk=chunk``.
+    Gates: prefilled and prefix-hit tokens sum to the prompt, the suffix
+    took two segments or more, every decode sub-step was a graph replay
+    that ran the pool's paged kernel once per layer, and the other paged
+    kernel never ran. Tokens are not held to a whole admission's here (two
+    bf16 prefills of different shapes round differently): :func:`chunked_check`
+    does that in float32."""
+    from sentio_tpu_torch.kernels import PAGED_KERNEL, PAGED_QUANT_KERNEL
+
+    engine = pipeline.generator.provider.engine
+    ran, other = ((PAGED_QUANT_KERNEL, PAGED_KERNEL) if engine.pool.quantized
+                  else (PAGED_KERNEL, PAGED_QUANT_KERNEL))
+    docs = pipeline.index.documents()[1000:1005]  # chunks no chat retrieved
+    prompt = pipeline.generator.build_prompt("Which passages repeat a word?", docs)
+    before, launches0 = engine.stats(), (ran.launches, other.launches)
+    engine.prefill_chunk = chunk
+    try:
+        t0 = time.perf_counter()
+        (res,) = engine.run_all([prompt], max_new_tokens=MAX_TOKENS, temperature=0.0)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        engine.prefill_chunk = None
+    deltas = counter_deltas(before, engine.stats())
+    launches = {"decode": ran.launches - launches0[0], "other": other.launches - launches0[1]}
+    result = {"prompt_tokens": res.prompt_tokens, "prefill_tokens": res.prefill_tokens,
+              "prefix_hit_tokens": res.prefix_hit_tokens,
+              "segments": -(-res.prefill_tokens // chunk), "tokens": len(res.tokens),
+              "seconds": seconds, "launches": launches, **deltas}
+    emit(phase, **result)
+    if (res.prefill_tokens + res.prefix_hit_tokens != res.prompt_tokens
+            or deltas["prefill_tokens_delta"] != res.prefill_tokens):
+        raise AssertionError(f"{phase}: prefilled and hit tokens do not make the prompt: {result}")
+    if result["segments"] < 2 or not res.tokens:
+        raise AssertionError(f"{phase}: expected a multi-segment admission and tokens: {result}")
+    sub_steps = deltas["sub_steps_delta"]
+    if deltas["graph_replays_delta"] != sub_steps or sub_steps <= 0:
+        raise AssertionError(f"{phase}: a decode sub-step was not a graph replay: {result}")
+    if launches["decode"] != engine.cfg.n_layers * sub_steps or launches["other"]:
+        raise AssertionError(f"{phase}: decode launches are not one per layer per sub-step: "
+                             f"{result}")
+    return result
+
+
+# each hand-written kernel's device functions by name (no name contains
+# another's): a paged entry point launches its split kernel and the combine
+DEVICE_FUNCTIONS = {"paged_decode_kernel": "paged_attention",
+                    "paged_combine_kernel": "paged_attention",
+                    "paged_decode_int8_kernel": "paged_attention_quant",
+                    "paged_combine_int8_kernel": "paged_attention_quant",
+                    "flash_fwd_kernel": "flash_attention"}
+
+
 def profile_chat(torch, pipeline, question: str, phase: str = "profile") -> dict:
     """One more chat (after the counted window) under the CUDA profiler:
     device time by kernel family and the device's idle share of the wall
-    time. Tracing adds host overhead, so the idle share is an upper bound."""
+    time (tracing adds host overhead, so the idle share is an upper bound).
+    It also holds the launch counts to the card's own: the profiler's count
+    of each device function, kernels inside graph replays included. The
+    pool's paged split kernel and its combine each ran exactly once per
+    layer per decode sub-step of the chat, as often as the wrapper's count
+    says; the other paged family never ran; the flash kernel ran as often
+    as its wrapper counted."""
     from torch.profiler import ProfilerActivity, profile
 
+    from sentio_tpu_torch.kernels import FLASH_KERNEL, PAGED_KERNEL, PAGED_QUANT_KERNEL
+
+    engine = pipeline.generator.provider.engine
+    wrappers = {"paged_attention": PAGED_KERNEL, "paged_attention_quant": PAGED_QUANT_KERNEL,
+                "flash_attention": FLASH_KERNEL}
+    counts0 = {name: k.launches for name, k in wrappers.items()}
+    sub_steps0 = engine.total_sub_steps
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         pipeline.chat(question)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    sub_steps = engine.total_sub_steps - sub_steps0
+    counted = {name: k.launches - counts0[name] for name, k in wrappers.items()}
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
                for e in prof.key_averages() if e.self_device_time_total > 0]
     busy_ms = sum(ms for _, ms, _ in kernels)
-    # each hand-written kernel's family by its device functions' names: a
-    # paged family is its split kernel and the combine it launches (no name
-    # contains another's)
-    own = {"paged_decode_kernel": "paged_attention", "paged_combine_kernel": "paged_attention",
-           "paged_decode_int8_kernel": "paged_attention_quant",
-           "paged_combine_int8_kernel": "paged_attention_quant",
-           "flash_fwd_kernel": "flash_attention"}
-    families = dict.fromkeys((*own.values(), "matmul", "other"), 0.0)
-    by_function = dict.fromkeys(own, 0.0)  # a paged family split into its two kernels
-    for name, ms, _ in kernels:
-        fn = next((fn for fn in own if fn in name), None)
+    families = dict.fromkeys((*DEVICE_FUNCTIONS.values(), "matmul", "other"), 0.0)
+    by_function = dict.fromkeys(DEVICE_FUNCTIONS, 0.0)  # a paged family split in two
+    device_launches = dict.fromkeys(DEVICE_FUNCTIONS, 0)
+    for name, ms, count in kernels:
+        fn = next((fn for fn in DEVICE_FUNCTIONS if fn in name), None)
         if fn is not None:
             by_function[fn] += ms
-            family = own[fn]
+            device_launches[fn] += count
+            family = DEVICE_FUNCTIONS[fn]
         else:  # cuBLAS names its products gemm / nvjet / xmma kernels
             matmul = any(tag in name.lower() for tag in ("gemm", "nvjet", "xmma", "cutlass"))
             family = "matmul" if matmul else "other"
         families[family] += ms
     top = sorted(kernels, key=lambda k: -k[1])[:8]
+    decode = "paged_attention_quant" if engine.pool.quantized else "paged_attention"
+    expected = {fn: (engine.cfg.n_layers * sub_steps if family == decode
+                     else counted["flash_attention"] if family == "flash_attention" else 0)
+                for fn, family in DEVICE_FUNCTIONS.items()}
     result = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
               "idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
               "device_ms_by_family": families, "device_ms_by_function": by_function,
+              "decode_sub_steps": sub_steps, "launches_counted": counted,
+              "device_launches": device_launches, "expected_device_launches": expected,
               "top_kernels": [{"name": n[:90], "ms": ms, "count": c} for n, ms, c in top]}
     emit(phase, **result)
+    if sub_steps <= 0 or device_launches != expected \
+            or counted[decode] != engine.cfg.n_layers * sub_steps:
+        raise AssertionError(f"{phase}: the card's launch counts disagree with the wrappers' "
+                             f"or with one per layer per sub-step: {result}")
     return result
+
+
+def device_launches(profile: dict, family: str) -> dict:
+    """A profiled chat's launches of one kernel's device functions, as the
+    card counted them, beside the wrapper's count and the chat's
+    sub-steps."""
+    return {"sub_steps": profile["decode_sub_steps"],
+            "counted": profile["launches_counted"][family],
+            **{fn: n for fn, n in profile["device_launches"].items()
+               if DEVICE_FUNCTIONS[fn] == family}}
 
 
 def main() -> int:
@@ -792,7 +889,8 @@ def main() -> int:
                                                  generator=GeneratorConfig(**caps)))
     logits = logits_check(torch, dev, sl["pipeline"], sl["questions"][1])
     graph_check(torch, sl["pipeline"], sl["generate_prompt"])
-    profile_chat(torch, sl["pipeline"], sl["questions"][2])
+    chunked_slice_check(torch, sl["pipeline"])
+    profile = profile_chat(torch, sl["pipeline"], sl["questions"][2])
 
     # the default settings (hybrid retrieval, rrf) plus KV_QUANT=int8
     sl8 = run_slice(torch, dev, "slice_int8",
@@ -803,7 +901,8 @@ def main() -> int:
                            forced=logits["forced"])
     quantization_error(torch, logits, logits8)
     graph_check(torch, sl8["pipeline"], sl8["generate_prompt"], "graph_int8")
-    profile_chat(torch, sl8["pipeline"], sl["questions"][2], "profile_int8")
+    chunked_slice_check(torch, sl8["pipeline"], "chunked_slice_int8")
+    profile8 = profile_chat(torch, sl8["pipeline"], sl["questions"][2], "profile_int8")
     chunked_check(torch, dev, sl["generate_prompt"])
 
     main_flash = flash[0]  # the embedder's bidirectional shape
@@ -812,6 +911,7 @@ def main() -> int:
          "source": "sentio_tpu_torch/csrc/paged_attention.cu",
          "replaces": "sentio_tpu/kernels/paged_attention.py:58",
          "launches": sl["launches"]["paged_attention"],
+         "device_launches_profiled_chat": device_launches(profile, "paged_attention"),
          **{k: paged[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                   "bound_by", "library_ms")},
          "cases": [paged, paged_chat]},
@@ -819,6 +919,7 @@ def main() -> int:
          "source": "sentio_tpu_torch/csrc/paged_attention_quant.cu",
          "replaces": "sentio_tpu/kernels/paged_attention.py:167",
          "launches": sl8["launches"]["paged_attention_quant"],
+         "device_launches_profiled_chat": device_launches(profile8, "paged_attention_quant"),
          **{k: paged_quant[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")},
          "cases": [paged_quant, paged_quant_chat]},
@@ -828,6 +929,9 @@ def main() -> int:
          "launches": sl["launches"]["flash_attention"] + sl8["launches"]["flash_attention"],
          "launches_by_path": {"slice": sl["launches"]["flash_attention"],
                               "slice_int8": sl8["launches"]["flash_attention"]},
+         "device_launches_profiled_chat": {
+             path: device_launches(prof, "flash_attention")
+             for path, prof in (("slice", profile), ("slice_int8", profile8))},
          "max_abs_err": max(c["max_abs_err"] for c in flash),
          **{k: main_flash[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                        "library_ms")},

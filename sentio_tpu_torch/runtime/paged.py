@@ -17,7 +17,7 @@ One engine tick (``step()``):
   radix prefix cache (:mod:`.radix`; ``prefix_cache``), given pages (LRU
   eviction of unpinned cached prefixes when short, skip-ahead past a
   request too large for the free pages) and prefilled as batches grouped
-  by (suffix width, prior-page bucket). A hit prefills only the unmatched
+  by suffix width, hits apart from cold rows. A hit prefills only the unmatched
   suffix over a dense cache primed from the matched pages; every prompt's
   full-page span is inserted back into the tree. With ``prefill_chunk`` a
   long suffix admits one segment per tick instead. The first token is
@@ -506,15 +506,6 @@ class ContinuousBatchingEngine:
         self._rope = L.rope_frequencies(
             self.cfg.head_dim, max(max_pages_per_seq * page_size, self.cfg.max_len),
             self.cfg.rope_theta, self.device)
-        # the tick's fetch lands in one of two pinned host buffer pairs: at
-        # depth 2 the next tick's fetch goes to the other while this one
-        # waits for its harvest
-        pin = self.device.type == "cuda"
-        self._fetch = [(torch.zeros((1 + self.max_tick_steps, max_slots), dtype=torch.int64,
-                                    pin_memory=pin),
-                        torch.zeros((3, max_slots), dtype=torch.float32, pin_memory=pin))
-                       for _ in range(2)]
-        self._fetch_next = 0
         # one CUDA graph per sampling variant, captured on first use into
         # one shared memory pool, with each graph's launches per kernel
         self._graphs: dict[tuple[bool, bool], tuple] = {}
@@ -789,14 +780,6 @@ class ContinuousBatchingEngine:
         )
         return ((width + self.page_size - 1) // self.page_size) * self.page_size
 
-    def _prior_bucket(self, n_blocks: int) -> int:
-        """Prior-table width for ``n_blocks`` prior pages: the next power of
-        two, capped at the window, as the JAX engine buckets it (admission
-        groups rows by it); 0 stays 0."""
-        if n_blocks <= 0:
-            return 0
-        return min(1 << (n_blocks - 1).bit_length(), self.max_pages_per_seq)
-
     def _match_radix(self, tok_ids: Sequence[int]):
         """Longest-prefix match, clamped so at least one suffix token
         remains to prefill (the first token comes from the last prompt
@@ -834,8 +817,8 @@ class ContinuousBatchingEngine:
 
     def _admit(self) -> None:
         """Admit queued requests into free slots (radix match, pages,
-        skip-ahead), then prefill them grouped by (suffix width, prior
-        bucket) in chunks of up to max(ADMIT_BUCKETS) rows."""
+        skip-ahead), then prefill them grouped by suffix width, hits apart
+        from cold rows, in chunks of up to max(ADMIT_BUCKETS) rows."""
         free = self._free_slot_indices()
         if not free or not self._queue:
             return
@@ -913,18 +896,19 @@ class ContinuousBatchingEngine:
             self._temps[slot_idx] = req.temperature
             self._top_ks[slot_idx] = req.top_k
 
-        # rows with a prefix hit group by (suffix width, prior-page bucket);
-        # cold rows (bucket 0) take the plain prefill
-        groups: dict[tuple[int, int], list] = {}
+        # rows group by suffix width, rows with a prefix hit apart from cold
+        # ones (which take the plain prefill); nothing is compiled per shape,
+        # so a chunk's prior table is as wide as its largest prior
+        groups: dict[tuple[int, bool], list] = {}
         for item in batch:
             shared = item[3]
-            key = (self._prefill_width(len(item[2]) - shared),
-                   self._prior_bucket(shared // self.page_size))
-            groups.setdefault(key, []).append(item)
+            groups.setdefault((self._prefill_width(len(item[2]) - shared), shared > 0),
+                              []).append(item)
         max_rows = max(self.ADMIT_BUCKETS)
-        for (width, pnb), members in sorted(groups.items()):
+        for (width, _hit), members in sorted(groups.items()):
             for start in range(0, len(members), max_rows):
                 chunk = members[start : start + max_rows]
+                pnb = max(shared for _i, _r, _t, shared in chunk) // self.page_size
                 self._prefill_admitted(width, pnb, chunk)
 
     def _prefill_admitted(self, width: int, pnb: int, chunk: list) -> None:
@@ -950,8 +934,8 @@ class ContinuousBatchingEngine:
     def _prefill_rows(self, width: int, pnb: int, rows_data: list, n_prior: list,
                       prior_rows: Optional[list], do_sample: bool
                       ) -> tuple[Optional[Tensor], Optional[Tensor]]:
-        """Prefill dispatch(es) for rows of one (width, prior bucket):
-        rows_data [(token ids, temperature, top_k, own pages)], each row's
+        """Prefill dispatch(es) for rows of one width over ``pnb`` prior
+        pages: rows_data [(token ids, temperature, top_k, own pages)], each row's
         prior length and (with ``prior_rows``) prior page ids. Rows pad to a
         batch bucket (pad rows scatter to scratch page 0) and split so that
         no dispatch's scores exceed PREFILL_SCORE_BYTES. Returns the first
@@ -1015,7 +999,7 @@ class ContinuousBatchingEngine:
         pb = prior // self.page_size
         nb = (len(seg) + self.page_size - 1) // self.page_size
         first, first_lp = self._prefill_rows(
-            self._prefill_width(len(seg)), self._prior_bucket(pb),
+            self._prefill_width(len(seg)), pb,
             [(seg, slot.temperature, slot.top_k, self._page_table[i, pb : pb + nb].tolist())],
             [prior], [self._page_table[i, :pb]], do_sample=is_last)
         self.prefill_tokens_total += len(seg)
@@ -1083,10 +1067,13 @@ class ContinuousBatchingEngine:
         self._run_sub_steps(n_steps, variant)
         self.total_sub_steps += n_steps
         # the tick's one fetch: tokens [1 + n_steps, B] and logprob state
-        # [3, B] into pinned host buffers, behind an event
-        host_packed, host_lp = self._fetch[self._fetch_next]
-        self._fetch_next ^= 1
-        host_packed[: 1 + n_steps].copy_(st.packed[: 1 + n_steps], non_blocking=True)
+        # [3, B] into pinned blocks of the caching host allocator, behind an
+        # event; the record holds them until its harvest
+        pin = self.device.type == "cuda"
+        host_packed = torch.empty((1 + n_steps, self.max_slots), dtype=torch.int64,
+                                  pin_memory=pin)
+        host_lp = torch.empty((3, self.max_slots), dtype=torch.float32, pin_memory=pin)
+        host_packed.copy_(st.packed[: 1 + n_steps], non_blocking=True)
         host_lp.copy_(torch.stack([st.lp_sum, st.lp_min, st.lp_cnt.float()]),
                       non_blocking=True)
         event = None
@@ -1096,7 +1083,7 @@ class ContinuousBatchingEngine:
         for i, slot in enumerate(self.slots):
             if slot.active:
                 slot.inflight_steps += int(budgets[i])
-        return {"packed": host_packed[: 1 + n_steps], "lp_state": host_lp, "event": event,
+        return {"packed": host_packed, "lp_state": host_lp, "event": event,
                 "budgets": budgets, "pending_slots": pending_slots,
                 # a lane retired and re-admitted before this record is
                 # harvested must not get the old request's tokens

@@ -302,16 +302,33 @@ def test_graph_ticks_match_eager_ticks(dev, kv_quant, depth):
 def test_launch_counts_through_replays(dev, kv_quant):
     """The paged kernel of the pool's type is counted once per layer per
     sub-step, replays and the warmup included (a capture itself launches
-    nothing); the other paged kernel never."""
+    nothing); the other paged kernel never. The profiler's count of each
+    device function, read from the card, agrees: the split kernel and its
+    combine each ran once per layer per sub-step inside the replays."""
+    from torch.profiler import ProfilerActivity, profile
+
     engine = _engine(dev, kv_quant)
     ran, other = ((PAGED_QUANT_KERNEL, PAGED_KERNEL) if kv_quant == "int8"
                   else (PAGED_KERNEL, PAGED_QUANT_KERNEL))
     ran.launches = other.launches = 0
-    engine.run_all(PROMPTS, 12)
+    engine.run_all(PROMPTS[:1], 12)  # captures the greedy graph
     torch.cuda.synchronize()
+    captured_steps = engine.total_sub_steps
+    assert engine.graph_captures == 1
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        engine.run_all(PROMPTS, 12)
+        torch.cuda.synchronize()
     assert engine.graph_replays > 0
     assert ran.launches == SMALL.n_layers * engine.total_sub_steps
     assert other.launches == 0
+    replayed = engine.total_sub_steps - captured_steps
+    # no device function's name contains another's
+    fns = ["paged_decode_kernel", "paged_combine_kernel",
+           "paged_decode_int8_kernel", "paged_combine_int8_kernel"]
+    device = {fn: sum(e.count for e in prof.key_averages() if fn in e.key) for fn in fns}
+    ours, others = (fns[2:], fns[:2]) if kv_quant == "int8" else (fns[:2], fns[2:])
+    assert device == {**dict.fromkeys(ours, SMALL.n_layers * replayed),
+                      **dict.fromkeys(others, 0)}
 
 
 def test_capture_with_sampled_rows(dev):
