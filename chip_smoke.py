@@ -407,6 +407,48 @@ def corpus(n: int):
     return docs, words
 
 
+# each hand-written kernel's device functions by name (no name contains
+# another's), with the wrapper that launches them and the function's slot in
+# the library's device-side count: a paged entry point launches its split
+# kernel (slot 0) and the combine (slot 1)
+DEVICE_FUNCTIONS = {"paged_decode_kernel": ("paged_attention", 0),
+                    "paged_combine_kernel": ("paged_attention", 1),
+                    "paged_decode_int8_kernel": ("paged_attention_quant", 0),
+                    "paged_combine_int8_kernel": ("paged_attention_quant", 1),
+                    "flash_fwd_kernel": ("flash_attention", 0)}
+
+
+def wrappers() -> dict:
+    """The three kernels' wrappers (their launch counts) by name."""
+    from sentio_tpu_torch.kernels import FLASH_KERNEL, PAGED_KERNEL, PAGED_QUANT_KERNEL
+
+    return {"paged_attention": PAGED_KERNEL, "paged_attention_quant": PAGED_QUANT_KERNEL,
+            "flash_attention": FLASH_KERNEL}
+
+
+def card_launches(torch) -> dict:
+    """Each device function's launches as the card itself counted them
+    (every kernel adds one from its first thread, graph replays included),
+    since its library was loaded; waits for the device."""
+    torch.cuda.synchronize()
+    counts = {name: k.device_launches() for name, k in wrappers().items()}
+    return {fn: counts[name][slot] for fn, (name, slot) in DEVICE_FUNCTIONS.items()}
+
+
+def card_delta(torch, before: dict) -> dict:
+    return {fn: n - before[fn] for fn, n in card_launches(torch).items()}
+
+
+def check_card(phase: str, card: dict, launches: dict) -> None:
+    """Every device function ran on the card as often as its wrapper
+    counted launches (a paged wrapper's one count stands for its split
+    kernel and its combine)."""
+    want = {fn: launches[name] for fn, (name, _) in DEVICE_FUNCTIONS.items()}
+    if card != want:
+        raise AssertionError(f"{phase}: the card's launch counts {card} disagree with the "
+                             f"wrappers' {want}")
+
+
 ENGINE_COUNTERS = ("prefix_hits", "prefix_hit_tokens", "prefill_tokens", "sub_steps",
                    "graph_captures", "graph_replays", "graph_capture_s")
 
@@ -444,7 +486,6 @@ def run_slice(torch, dev, phase: str, settings, shared=None) -> dict:
     the corpus, and answer 3 chats with every launch count set to 0 just
     before and read just after; each chat's generate and verify admissions
     are recorded (:func:`record_admissions`)."""
-    from sentio_tpu_torch.kernels import FLASH_KERNEL, PAGED_KERNEL, PAGED_QUANT_KERNEL
     from sentio_tpu_torch.pipeline import build_pipeline
 
     reuse = {}
@@ -477,10 +518,10 @@ def run_slice(torch, dev, phase: str, settings, shared=None) -> dict:
     questions = [docs[17].text,
                  f"What does the corpus say about {words[3]} and {words[40]}?",
                  f"Summarize the passages that mention {words[100]}."]
-    counters = {"paged_attention": PAGED_KERNEL, "paged_attention_quant": PAGED_QUANT_KERNEL,
-                "flash_attention": FLASH_KERNEL}
+    counters = wrappers()
     calls = record_admissions(engine)
     stats0 = engine.stats()
+    card0 = card_launches(torch)
     for kernel in counters.values():
         kernel.launches = 0
     sub_steps0 = engine.total_sub_steps
@@ -493,6 +534,7 @@ def run_slice(torch, dev, phase: str, settings, shared=None) -> dict:
         chats.append((response, time.perf_counter() - t0))
     total_s = time.perf_counter() - t_all
     launches = {name: kernel.launches for name, kernel in counters.items()}
+    card = card_delta(torch, card0)
     sub_steps = engine.total_sub_steps - sub_steps0
     stats = engine.stats()
 
@@ -519,7 +561,7 @@ def run_slice(torch, dev, phase: str, settings, shared=None) -> dict:
         raise AssertionError(f"{phase}: a chunk's own text did not retrieve that chunk first")
     n_layers = engine.cfg.n_layers
     emit(phase, chats=len(chats), seconds=total_s, decode_sub_steps=sub_steps,
-         launches=launches, expected_decode_launches=n_layers * sub_steps,
+         launches=launches, device_launches=card, expected_decode_launches=n_layers * sub_steps,
          pipeline_depth=engine.pipeline_depth, prefix_cache=engine._radix is not None,
          **{k: stats[k] - stats0[k] for k in ENGINE_COUNTERS},
          prefix_cache_pages=stats["prefix_cache_pages"],
@@ -534,7 +576,9 @@ def run_slice(torch, dev, phase: str, settings, shared=None) -> dict:
         raise AssertionError(f"{phase}: a decode sub-step bypassed {decode}: {launches}")
     if launches[other] != 0:
         raise AssertionError(f"{phase}: {other} ran on a {engine.kv_quant!r} pool: {launches}")
-    return {"pipeline": pipeline, "launches": launches, "questions": questions,
+    check_card(phase, card, launches)
+    return {"pipeline": pipeline, "launches": launches, "device_launches": card,
+            "questions": questions,
             "chats": [response for response, _ in chats], "generate_prompt": calls[0]["prompt"]}
 
 
@@ -720,14 +764,15 @@ def chunked_slice_check(torch, pipeline, phase: str = "chunked_slice",
     kernel never ran. Tokens are not held to a whole admission's here (two
     bf16 prefills of different shapes round differently): :func:`chunked_check`
     does that in float32."""
-    from sentio_tpu_torch.kernels import PAGED_KERNEL, PAGED_QUANT_KERNEL
-
     engine = pipeline.generator.provider.engine
-    ran, other = ((PAGED_QUANT_KERNEL, PAGED_KERNEL) if engine.pool.quantized
-                  else (PAGED_KERNEL, PAGED_QUANT_KERNEL))
+    counters = wrappers()
+    ran, other = (counters["paged_attention_quant"], counters["paged_attention"])
+    if not engine.pool.quantized:
+        ran, other = other, ran
     docs = pipeline.index.documents()[1000:1005]  # chunks no chat retrieved
     prompt = pipeline.generator.build_prompt("Which passages repeat a word?", docs)
-    before, launches0 = engine.stats(), (ran.launches, other.launches)
+    before, launches0 = engine.stats(), {name: k.launches for name, k in counters.items()}
+    card0 = card_launches(torch)
     engine.prefill_chunk = chunk
     try:
         t0 = time.perf_counter()
@@ -737,11 +782,13 @@ def chunked_slice_check(torch, pipeline, phase: str = "chunked_slice",
     finally:
         engine.prefill_chunk = None
     deltas = counter_deltas(before, engine.stats())
-    launches = {"decode": ran.launches - launches0[0], "other": other.launches - launches0[1]}
+    counted = {name: k.launches - launches0[name] for name, k in counters.items()}
+    card = card_delta(torch, card0)
+    launches = {"decode": counted[ran.name], "other": counted[other.name]}
     result = {"prompt_tokens": res.prompt_tokens, "prefill_tokens": res.prefill_tokens,
               "prefix_hit_tokens": res.prefix_hit_tokens,
               "segments": -(-res.prefill_tokens // chunk), "tokens": len(res.tokens),
-              "seconds": seconds, "launches": launches, **deltas}
+              "seconds": seconds, "launches": launches, "device_launches": card, **deltas}
     emit(phase, **result)
     if (res.prefill_tokens + res.prefix_hit_tokens != res.prompt_tokens
             or deltas["prefill_tokens_delta"] != res.prefill_tokens):
@@ -754,87 +801,93 @@ def chunked_slice_check(torch, pipeline, phase: str = "chunked_slice",
     if launches["decode"] != engine.cfg.n_layers * sub_steps or launches["other"]:
         raise AssertionError(f"{phase}: decode launches are not one per layer per sub-step: "
                              f"{result}")
+    check_card(phase, card, counted)
     return result
 
 
-# each hand-written kernel's device functions by name (no name contains
-# another's): a paged entry point launches its split kernel and the combine
-DEVICE_FUNCTIONS = {"paged_decode_kernel": "paged_attention",
-                    "paged_combine_kernel": "paged_attention",
-                    "paged_decode_int8_kernel": "paged_attention_quant",
-                    "paged_combine_int8_kernel": "paged_attention_quant",
-                    "flash_fwd_kernel": "flash_attention"}
 
 
 def profile_chat(torch, pipeline, question: str, phase: str = "profile") -> dict:
     """One more chat (after the counted window) under the CUDA profiler:
     device time by kernel family and the device's idle share of the wall
     time (tracing adds host overhead, so the idle share is an upper bound).
-    It also holds the launch counts to the card's own: the profiler's count
-    of each device function, kernels inside graph replays included. The
-    pool's paged split kernel and its combine each ran exactly once per
-    layer per decode sub-step of the chat, as often as the wrapper's count
-    says; the other paged family never ran; the flash kernel ran as often
-    as its wrapper counted."""
+    It also holds the launch counts to the card's own (each kernel's
+    device-side count): the pool's paged split kernel and its combine each
+    ran exactly once per layer per decode sub-step of the chat, as often as
+    the wrapper's count says; the other paged family never ran; the flash
+    kernel ran as often as its wrapper counted. The profiler's count of each
+    device function is reported beside it: the profiler can drop records
+    under a chat's ~10^5 kernels, so it is held only to no more than the
+    card's count (and the busy time it sums can read low by as much)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from sentio_tpu_torch.kernels import FLASH_KERNEL, PAGED_KERNEL, PAGED_QUANT_KERNEL
-
     engine = pipeline.generator.provider.engine
-    wrappers = {"paged_attention": PAGED_KERNEL, "paged_attention_quant": PAGED_QUANT_KERNEL,
-                "flash_attention": FLASH_KERNEL}
-    counts0 = {name: k.launches for name, k in wrappers.items()}
+    counters = wrappers()
+    counts0 = {name: k.launches for name, k in counters.items()}
     sub_steps0 = engine.total_sub_steps
+    card0 = card_launches(torch)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         pipeline.chat(question)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    card = card_delta(torch, card0)
     sub_steps = engine.total_sub_steps - sub_steps0
-    counted = {name: k.launches - counts0[name] for name, k in wrappers.items()}
+    counted = {name: k.launches - counts0[name] for name, k in counters.items()}
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
                for e in prof.key_averages() if e.self_device_time_total > 0]
     busy_ms = sum(ms for _, ms, _ in kernels)
-    families = dict.fromkeys((*DEVICE_FUNCTIONS.values(), "matmul", "other"), 0.0)
+    families = dict.fromkeys((*counters, "matmul", "other"), 0.0)
     by_function = dict.fromkeys(DEVICE_FUNCTIONS, 0.0)  # a paged family split in two
-    device_launches = dict.fromkeys(DEVICE_FUNCTIONS, 0)
+    profiled = dict.fromkeys(DEVICE_FUNCTIONS, 0)
     for name, ms, count in kernels:
         fn = next((fn for fn in DEVICE_FUNCTIONS if fn in name), None)
         if fn is not None:
             by_function[fn] += ms
-            device_launches[fn] += count
-            family = DEVICE_FUNCTIONS[fn]
+            profiled[fn] += count
+            family = DEVICE_FUNCTIONS[fn][0]
         else:  # cuBLAS names its products gemm / nvjet / xmma kernels
             matmul = any(tag in name.lower() for tag in ("gemm", "nvjet", "xmma", "cutlass"))
             family = "matmul" if matmul else "other"
         families[family] += ms
     top = sorted(kernels, key=lambda k: -k[1])[:8]
     decode = "paged_attention_quant" if engine.pool.quantized else "paged_attention"
-    expected = {fn: (engine.cfg.n_layers * sub_steps if family == decode
-                     else counted["flash_attention"] if family == "flash_attention" else 0)
-                for fn, family in DEVICE_FUNCTIONS.items()}
+    expected = {fn: (engine.cfg.n_layers * sub_steps if name == decode
+                     else counted["flash_attention"] if name == "flash_attention" else 0)
+                for fn, (name, _) in DEVICE_FUNCTIONS.items()}
     result = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
               "idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
               "device_ms_by_family": families, "device_ms_by_function": by_function,
               "decode_sub_steps": sub_steps, "launches_counted": counted,
-              "device_launches": device_launches, "expected_device_launches": expected,
+              "device_launches": card, "expected_device_launches": expected,
+              "profiler_launches": profiled,
+              "profiler_missed": {fn: card[fn] - profiled[fn] for fn in card},
               "top_kernels": [{"name": n[:90], "ms": ms, "count": c} for n, ms, c in top]}
     emit(phase, **result)
-    if sub_steps <= 0 or device_launches != expected \
+    if sub_steps <= 0 or card != expected \
             or counted[decode] != engine.cfg.n_layers * sub_steps:
         raise AssertionError(f"{phase}: the card's launch counts disagree with the wrappers' "
                              f"or with one per layer per sub-step: {result}")
+    if any(profiled[fn] > card[fn] for fn in card):
+        raise AssertionError(f"{phase}: the profiler saw launches the card did not count: "
+                             f"{result}")
     return result
+
+
+def family_launches(card: dict, family: str) -> dict:
+    """The card's counts (:func:`card_launches`) of one kernel's device
+    functions."""
+    return {fn: n for fn, n in card.items() if DEVICE_FUNCTIONS[fn][0] == family}
 
 
 def device_launches(profile: dict, family: str) -> dict:
     """A profiled chat's launches of one kernel's device functions, as the
-    card counted them, beside the wrapper's count and the chat's
-    sub-steps."""
+    card counted them and as the profiler recorded them, beside the
+    wrapper's count and the chat's sub-steps."""
     return {"sub_steps": profile["decode_sub_steps"],
             "counted": profile["launches_counted"][family],
-            **{fn: n for fn, n in profile["device_launches"].items()
-               if DEVICE_FUNCTIONS[fn] == family}}
+            **family_launches(profile["device_launches"], family),
+            "profiler": family_launches(profile["profiler_launches"], family)}
 
 
 def main() -> int:
@@ -911,6 +964,7 @@ def main() -> int:
          "source": "sentio_tpu_torch/csrc/paged_attention.cu",
          "replaces": "sentio_tpu/kernels/paged_attention.py:58",
          "launches": sl["launches"]["paged_attention"],
+         "device_launches": family_launches(sl["device_launches"], "paged_attention"),
          "device_launches_profiled_chat": device_launches(profile, "paged_attention"),
          **{k: paged[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                   "bound_by", "library_ms")},
@@ -919,6 +973,7 @@ def main() -> int:
          "source": "sentio_tpu_torch/csrc/paged_attention_quant.cu",
          "replaces": "sentio_tpu/kernels/paged_attention.py:167",
          "launches": sl8["launches"]["paged_attention_quant"],
+         "device_launches": family_launches(sl8["device_launches"], "paged_attention_quant"),
          "device_launches_profiled_chat": device_launches(profile8, "paged_attention_quant"),
          **{k: paged_quant[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")},
@@ -929,6 +984,8 @@ def main() -> int:
          "launches": sl["launches"]["flash_attention"] + sl8["launches"]["flash_attention"],
          "launches_by_path": {"slice": sl["launches"]["flash_attention"],
                               "slice_int8": sl8["launches"]["flash_attention"]},
+         "device_launches": {path: family_launches(x["device_launches"], "flash_attention")
+                             for path, x in (("slice", sl), ("slice_int8", sl8))},
          "device_launches_profiled_chat": {
              path: device_launches(prof, "flash_attention")
              for path, prof in (("slice", profile), ("slice_int8", profile8))},

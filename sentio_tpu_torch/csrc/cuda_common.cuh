@@ -1,5 +1,7 @@
-// Device helpers shared by the bf16 paged-decode and flash kernels: the
-// cp.async 16-byte copy with its group fences, and a fast 2^x.
+// Device helpers shared by the paged-decode and flash kernels: the card's
+// own launch count, the cp.async 16-byte copy with its group fences, and a
+// fast 2^x. Each kernel library is one translation unit, so this header is
+// compiled once into each.
 
 #pragma once
 
@@ -7,6 +9,20 @@
 #include <stdint.h>
 
 namespace sentio {
+
+// Launches of this library's kernels as the card counted them, one slot
+// each: 0 the split (or flash) kernel, 1 the paged combine. A launch from a
+// CUDA graph replay counts like any other; a capture runs nothing and adds
+// nothing. Read with sentio_device_launches.
+__device__ unsigned long long device_launches[2];
+
+// The first thread of block (0, 0, 0) adds one to slot's count: called first
+// thing in a kernel, before any early return.
+__device__ __forceinline__ void count_launch(int slot) {
+  if ((blockIdx.x | blockIdx.y | blockIdx.z | threadIdx.x) == 0) {
+    atomicAdd(&device_launches[slot], 1ull);
+  }
+}
 
 // 2^x on the special-function unit (one MUFU.EX2; 2^-inf = 0).
 __device__ __forceinline__ float exp2_approx(float x) {
@@ -37,3 +53,10 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 }  // namespace sentio
+
+// Copy the library's launch counts (sentio::device_launches) into counts[2];
+// waits for the device.
+extern "C" int sentio_device_launches(unsigned long long* counts) {
+  return (int)cudaMemcpyFromSymbol(counts, sentio::device_launches,
+                                   sizeof(sentio::device_launches));
+}

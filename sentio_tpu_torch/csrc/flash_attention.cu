@@ -147,6 +147,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const int* __restrict__ kv_lens,
                  __nv_bfloat16* __restrict__ out,
                  int T, int S, int H, float sm_scale, int causal) {
+  sentio::count_launch(0);
   constexpr int BK = key_tile<D>();
   using QTile = Tile<D, kBQ>;
   using KTile = Tile<D, BK>;

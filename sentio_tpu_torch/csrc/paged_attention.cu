@@ -120,6 +120,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     float* __restrict__ part_acc,  // [B * H][n_spans][D]
                     float* __restrict__ part_ml,   // [B * H][n_spans][2]
                     int H, int Hkv, int page, int NB, int P, float sm_scale) {
+  sentio::count_launch(0);
   constexpr int kp = D + kVec;  // row pitch in bf16
   const int b = blockIdx.x;
   const int g = blockIdx.y;
@@ -295,6 +296,7 @@ paged_combine_kernel(const float* __restrict__ part_acc,
                      const int* __restrict__ lens,
                      __nv_bfloat16* __restrict__ out,
                      int H, int D, int page, int NB, int n_spans) {
+  sentio::count_launch(1);
   sentio::combine_spans<kPagesPerSpan, kThreads>(part_acc, part_ml, lens, out, H, D, page, NB,
                                                  n_spans);
 }

@@ -123,6 +123,19 @@ class CudaKernel:
         fn.restype = ctypes.c_int
         return fn
 
+    def device_launches(self) -> tuple[int, int]:
+        """The card's own count of this library's launches since it was
+        loaded: (split or flash kernel, paged combine). Each kernel adds one
+        from its first thread, so launches from CUDA graph replays count.
+        Waits for the device; never reset."""
+        counts = (ctypes.c_ulonglong * 2)()
+        code = self.function("sentio_device_launches",
+                             [ctypes.POINTER(ctypes.c_ulonglong)])(counts)
+        if code != 0:
+            raise RuntimeError(f"{self.name}: reading the device's launch count failed with "
+                               f"error {code} ({self._err(code).decode()})")
+        return counts[0], counts[1]
+
     def launch(self, *args) -> None:
         """Call the C launcher (which launches on the given stream and
         returns ``cudaGetLastError()``); raise on a non-zero code."""

@@ -302,15 +302,16 @@ def test_graph_ticks_match_eager_ticks(dev, kv_quant, depth):
 def test_launch_counts_through_replays(dev, kv_quant):
     """The paged kernel of the pool's type is counted once per layer per
     sub-step, replays and the warmup included (a capture itself launches
-    nothing); the other paged kernel never. The profiler's count of each
-    device function, read from the card, agrees: the split kernel and its
-    combine each ran once per layer per sub-step inside the replays."""
+    nothing); the other paged kernel never. The card's own counts agree:
+    each kernel's device-side count of its split kernel and its combine,
+    and the profiler's count of each device function inside the replays."""
     from torch.profiler import ProfilerActivity, profile
 
     engine = _engine(dev, kv_quant)
     ran, other = ((PAGED_QUANT_KERNEL, PAGED_KERNEL) if kv_quant == "int8"
                   else (PAGED_KERNEL, PAGED_QUANT_KERNEL))
     ran.launches = other.launches = 0
+    card0 = ran.device_launches(), other.device_launches()
     engine.run_all(PROMPTS[:1], 12)  # captures the greedy graph
     torch.cuda.synchronize()
     captured_steps = engine.total_sub_steps
@@ -321,6 +322,9 @@ def test_launch_counts_through_replays(dev, kv_quant):
     assert engine.graph_replays > 0
     assert ran.launches == SMALL.n_layers * engine.total_sub_steps
     assert other.launches == 0
+    card = [tuple(n - n0 for n, n0 in zip(k.device_launches(), before))
+            for k, before in zip((ran, other), card0)]
+    assert card == [(ran.launches, ran.launches), (0, 0)]
     replayed = engine.total_sub_steps - captured_steps
     # no device function's name contains another's
     fns = ["paged_decode_kernel", "paged_combine_kernel",
@@ -329,6 +333,39 @@ def test_launch_counts_through_replays(dev, kv_quant):
     ours, others = (fns[2:], fns[:2]) if kv_quant == "int8" else (fns[:2], fns[2:])
     assert device == {**dict.fromkeys(ours, SMALL.n_layers * replayed),
                       **dict.fromkeys(others, 0)}
+
+
+@pytest.mark.parametrize("name", ["paged_attention", "paged_attention_quant", "flash_attention"])
+def test_card_counts_each_launch(dev, name):
+    """A kernel's device-side count (and its combine's) grows by one per
+    launch: a direct call, and each replay of a CUDA graph holding the call,
+    while the capture itself adds nothing."""
+    q, kp, vp, table, lens = _paged_inputs(dev, 2)
+    (k_q, k_s), (v_q, v_s) = quantize_kv(kp), quantize_kv(vp)
+    x = torch.randn((2, 64, 2, 64), device=dev, dtype=torch.bfloat16)
+    kernel, call, per_call = {
+        "paged_attention": (PAGED_KERNEL, lambda: paged_attention(q, kp, vp, table, lens),
+                            (1, 1)),
+        "paged_attention_quant": (PAGED_QUANT_KERNEL, lambda: paged_attention_quant(
+            q, k_q, k_s, v_q, v_s, table, lens), (1, 1)),
+        "flash_attention": (FLASH_KERNEL, lambda: flash_attention(x, x, x), (1, 0)),
+    }[name]
+
+    def grown(before):
+        torch.cuda.synchronize()
+        return tuple(n - n0 for n, n0 in zip(kernel.device_launches(), before))
+
+    before = kernel.device_launches()
+    call()
+    assert grown(before) == per_call
+    before = kernel.device_launches()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        call()
+    assert grown(before) == (0, 0)
+    for _ in range(3):
+        graph.replay()
+    assert grown(before) == tuple(3 * n for n in per_call)
 
 
 def test_capture_with_sampled_rows(dev):
