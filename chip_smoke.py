@@ -36,7 +36,9 @@ line each:
    prefilled tokens) and the graphs' captures, replays and capture seconds.
    Gates: the bf16 paged kernel ran once per layer per decode sub-step
    (counted through the graph replays), the flash kernel too, the int8
-   kernel never, and every chat's verify admission hit the radix tree.
+   kernel never, each wrapper's count equal to the card's own count of its
+   device functions (every kernel adds one to a device-side counter as it
+   starts), and every chat's verify admission hit the radix tree.
 5. logits — one prompt's prefill and 4 teacher-forced decode steps through
    the kernel path and the plain path.
 6. graph — the generate prompt of chat 1, greedy, decoded from graph
@@ -48,11 +50,11 @@ line each:
    paged kernel once per layer per replayed sub-step.
 8. profile — one more chat under the CUDA profiler: device time by kernel
    family (and by each hand-written device function), the device's idle
-   share, and the card's own launch counts: the profiler counts each
-   device function (inside graph replays too), and the pool's paged split
-   kernel and its combine must each have run once per layer per sub-step,
-   the other paged family never, the flash kernel as often as its wrapper
-   counted.
+   share, and the card's own launch counts: the pool's paged split kernel
+   and its combine must each have run once per layer per sub-step, the
+   other paged family never, the flash kernel as often as its wrapper
+   counted. The profiler's counts are reported beside them; it can drop
+   records, so they are held only to no more than the card's.
 9. slice_int8 — a second pipeline under the default settings plus
    KV_QUANT=int8 (hybrid retrieval: dense + BM25 fused by rrf), on the same
    weight tensors with its own int8 page pool: the same ingest, chats and
@@ -73,8 +75,8 @@ line each:
 
 The last lines are the nvidia-smi line, one {"kernels": [...]} line (each
 kernel's ``launches`` from the counted chats, through the wrappers' counts
-added per graph replay, and beside them the profiled chat's launches as
-the card counted them), and {"ok": true, "device": {...}}. Any failed check raises: the exit code is
+added per graph replay, and beside them the card's own counts of the same
+chats and of the profiled chat), and {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 then non-zero and no result line is printed.
 """
 
