@@ -351,6 +351,51 @@ def flash_case(torch, dev, name, b, t, h, d, causal, lens_list) -> dict:
     return case
 
 
+def prefill_flash_case(torch, dev, name, b, t, s, h, d, lens_list=None) -> dict:
+    """The causal kernel at the contiguous engine's prefill shape: T new
+    queries against the whole cache window (S > T keys, kv heads expanded,
+    ``kv_lens`` None as the engine passes it, or ragged). The window's tail
+    (keys at or past T, unwritten in the engine) is NaN here: the kernel
+    must read none of it. Held to the float32 plain version, timed beside
+    it and beside SDPA with ``is_causal`` over the first T keys."""
+    import torch.nn.functional as F
+
+    from sentio_tpu_torch.kernels import flash_attn_fn
+    from sentio_tpu_torch.kernels.flash_attention import flash_attention_plain
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + t + s + h)
+    q = torch.randn((b, t, h, d), generator=gen, device=dev, dtype=torch.bfloat16)
+    k, v = (torch.randn((b, s, h, d), generator=gen, device=dev, dtype=torch.bfloat16)
+            for _ in range(2))
+    k[:, t:] = float("nan")
+    v[:, t:] = float("nan")
+    lens = (torch.tensor(lens_list, dtype=torch.int32, device=dev)
+            if lens_list is not None else None)
+    out = flash_attn_fn(q, k, v, lens)
+    torch.cuda.synchronize()
+    ref = flash_attention_plain(q.float(), k.float(), v.float(), lens, causal=True)
+    max_err, mean_err = errors(out, ref)
+    check_limits(name, max_err, mean_err)
+    ms = time_ms(torch, lambda: flash_attn_fn(q, k, v, lens), graph=True)
+    plain_ms = time_ms(torch, lambda: flash_attention_plain(q, k, v, lens, causal=True),
+                       iters=3, warmup=1)
+    qt, kt, vt = (x[:, :t].transpose(1, 2).contiguous() for x in (q, k, v))
+    library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), graph=True)
+    # what this data needs: each row's causal keys below its kv_len (the
+    # window's tail is never read), q and out, those K and V rows
+    row_lens = [min(n, t) for n in (lens_list or [s] * b)]
+    pairs = sum(min(q_pos + 1, n) for n in row_lens for q_pos in range(t))
+    n_bytes = 2 * q.numel() * 2 + 2 * sum(row_lens) * h * d * 2 + b * 4
+    b_ms, b_by = bound_ms(n_bytes, 4 * h * d * pairs)
+    case = {"case": name, "kv_lens": lens_list, "max_abs_err": max_err,
+            "mean_abs_err": mean_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "bound_operations": 4 * h * d * pairs,
+            "library_ms": library_ms, "library_masked": False}
+    emit("kernel", name="flash_attention", **case)
+    return case
+
+
 def flash_checks(torch, dev) -> list[dict]:
     """The embedder's ingest batch (B=128, T=512, H=16, D=64) and the tiny
     cross-encoder's rerank batch (B=32, T=128, H=2, D=32), bidirectional as
@@ -369,6 +414,13 @@ def flash_checks(torch, dev) -> list[dict]:
                                 32, 128, 2, 32, causal, ce_lens))
     cases.append(flash_case(torch, dev, "ingest_full_b128_t512_h16_d64_bidirectional",
                             128, 512, 16, 64, False, [512] * 128))
+    # Llama-3-8B's prefill in the contiguous engine: a ~3,300-3,700-token
+    # chat prompt pads to 4096 in a window of 8192; then a batch of four at
+    # the 1024 bucket (window 2048) with ragged kv_lens, a zero among them
+    cases.append(prefill_flash_case(torch, dev, "llama8b_prefill_b1_t4096_s8192_h32_d128_causal",
+                                    1, 4096, 8192, 32, 128))
+    cases.append(prefill_flash_case(torch, dev, "llama8b_prefill_b4_t1024_s2048_h32_d128_causal",
+                                    4, 1024, 2048, 32, 128, [2048, 700, 1, 0]))
     return cases
 
 
@@ -460,34 +512,33 @@ def counter_deltas(before: dict, after: dict) -> dict:
     return {f"{k}_delta": after[k] - before[k] for k in ENGINE_COUNTERS}
 
 
-def record_admissions(engine) -> list:
-    """Wrap ``engine.run_all`` (the provider's one call for each generate
+def record_admissions(service) -> list:
+    """Wrap ``service.generate`` (the provider's one call for each generate
     and each verify) to record every request's prompt, its prefix-hit and
     prefilled tokens, and how the engine's counters moved during it."""
     calls = []
-    run_all = engine.run_all
+    engine, generate = service.engine, service.generate
 
-    def recorded(prompts, **kwargs):
+    def recorded(prompt, **kwargs):
         before = engine.stats()
-        results = run_all(prompts, **kwargs)
+        result = generate(prompt, **kwargs)
+        service.wait_idle()
         after = engine.stats()
-        for prompt, result in zip(prompts, results):
-            calls.append({"prompt": prompt, "prompt_tokens": result.prompt_tokens,
-                          "prefill_tokens": result.prefill_tokens,
-                          "prefix_hit_tokens": result.prefix_hit_tokens,
-                          "generated_tokens": len(result.tokens),
-                          **counter_deltas(before, after)})
-        return results
+        calls.append({"prompt": prompt, "prompt_tokens": result.prompt_tokens,
+                      "prefill_tokens": result.prefill_tokens,
+                      "prefix_hit_tokens": result.prefix_hit_tokens,
+                      "generated_tokens": len(result.tokens),
+                      **counter_deltas(before, after)})
+        return result
 
-    engine.run_all = recorded
+    service.generate = recorded
     return calls
 
 
-def run_slice(torch, dev, phase: str, settings, shared=None) -> dict:
-    """Build the pipeline (on ``shared``'s weight tensors when given), ingest
-    the corpus, and answer 3 chats with every launch count set to 0 just
-    before and read just after; each chat's generate and verify admissions
-    are recorded (:func:`record_admissions`)."""
+def build_slice(torch, dev, phase: str, settings, shared=None):
+    """Build the pipeline (on ``shared``'s weight tensors when given), warm
+    its service up as the entry point does, and ingest the corpus. Returns
+    the pipeline, the documents, the corpus words and the warmup's stats."""
     from sentio_tpu_torch.pipeline import build_pipeline
 
     reuse = {}
@@ -502,13 +553,24 @@ def run_slice(torch, dev, phase: str, settings, shared=None) -> dict:
     pipeline = build_pipeline(settings, device=dev, seed=SEED, **reuse)
     torch.cuda.synchronize()
     engine = pipeline.generator.provider.engine
+    paged = pipeline.service is not None
     emit(f"{phase}_build", seconds=time.perf_counter() - t0,
-         llama=engine.cfg.__dict__, embedder=pipeline.embedder.model_config.__dict__,
+         llama=(engine.cfg if paged else engine.model_config).__dict__,
+         embedder=pipeline.embedder.model_config.__dict__,
          cross_encoder=pipeline.reranker.model_config.__dict__,
          retrieval=settings.retrieval.strategy, fusion=settings.retrieval.fusion_method,
          bm25_backend=type(pipeline.bm25_index).__name__ if pipeline.bm25_index else None,
-         kv_quant=engine.kv_quant, pool_bytes=engine.pool.hbm_bytes,
+         engine=type(engine).__name__, kv_quant=engine.kv_quant if paged else None,
+         pool_bytes=engine.pool.hbm_bytes if paged else 0,
          memory_allocated=torch.cuda.memory_allocated())
+    warm = None
+    if paged:
+        warm = pipeline.warmup()
+        torch.cuda.synchronize()
+        emit(f"{phase}_warmup", **warm, graphs_frozen=engine.graphs_frozen)
+        if warm["graph_captures"] != len(engine.GRAPH_VARIANTS) or not engine.graphs_frozen:
+            raise AssertionError(f"{phase}: warmup must capture every graph variant "
+                                 f"({len(engine.GRAPH_VARIANTS)}): {warm}")
 
     docs, words = corpus(N_CHUNKS)
     t0 = time.perf_counter()
@@ -516,17 +578,17 @@ def run_slice(torch, dev, phase: str, settings, shared=None) -> dict:
     torch.cuda.synchronize()
     emit(f"{phase}_ingest", chunks=len(docs), seconds=time.perf_counter() - t0,
          index_size=pipeline.index.size)
+    return pipeline, docs, words, warm
 
-    questions = [docs[17].text,
-                 f"What does the corpus say about {words[3]} and {words[40]}?",
-                 f"Summarize the passages that mention {words[100]}."]
+
+def chat_window(torch, pipeline, questions) -> dict:
+    """Answer ``questions`` one after another with every launch count set to
+    0 just before and read just after: the chats with their seconds, the
+    wrappers' counts and the card's."""
     counters = wrappers()
-    calls = record_admissions(engine)
-    stats0 = engine.stats()
     card0 = card_launches(torch)
     for kernel in counters.values():
         kernel.launches = 0
-    sub_steps0 = engine.total_sub_steps
     chats = []
     t_all = time.perf_counter()
     for question in questions:
@@ -536,7 +598,46 @@ def run_slice(torch, dev, phase: str, settings, shared=None) -> dict:
         chats.append((response, time.perf_counter() - t0))
     total_s = time.perf_counter() - t_all
     launches = {name: kernel.launches for name, kernel in counters.items()}
-    card = card_delta(torch, card0)
+    return {"chats": chats, "seconds": total_s, "launches": launches,
+            "card": card_delta(torch, card0)}
+
+
+def check_answered(phase: str, i: int, response: dict) -> None:
+    """A chat answered with nothing degraded: an answer, no retrieval or
+    generation error, no rerank fallback, a verification that ran."""
+    meta = response["metadata"]
+    if not response["answer"]:
+        raise AssertionError(f"{phase} chat {i} returned an empty answer: {meta}")
+    degraded = {k: meta[k] for k in ("retrieval_error", "generation_error") if k in meta}
+    if degraded or meta.get("rerank_fallback"):
+        raise AssertionError(f"{phase} chat {i} degraded: {degraded}, rerank_fallback "
+                             f"{meta.get('rerank_fallback')}")
+    notes = response["verification"].get("notes", [])
+    if any(str(n).startswith("verifier error") for n in notes):
+        raise AssertionError(f"{phase} chat {i}: verification failed: {notes}")
+
+
+def slice_questions(docs, words) -> list:
+    return [docs[17].text, f"What does the corpus say about {words[3]} and {words[40]}?",
+            f"Summarize the passages that mention {words[100]}."]
+
+
+def run_slice(torch, dev, phase: str, settings, shared=None) -> dict:
+    """The paged slice: build, warm up, ingest, then 3 chats in a counted
+    window (:func:`chat_window`), each chat's generate and verify
+    admissions recorded (:func:`record_admissions`)."""
+    pipeline, docs, words, warm = build_slice(torch, dev, phase, settings, shared)
+    engine = pipeline.generator.provider.engine
+    questions = slice_questions(docs, words)
+    calls = record_admissions(pipeline.service)
+    pipeline.service.wait_idle()
+    stats0 = engine.stats()
+    sub_steps0 = engine.total_sub_steps
+    try:
+        window = chat_window(torch, pipeline, questions)
+    finally:
+        del pipeline.service.generate  # the recording wrapper
+    chats, launches, card = window["chats"], window["launches"], window["card"]
     sub_steps = engine.total_sub_steps - sub_steps0
     stats = engine.stats()
 
@@ -554,15 +655,11 @@ def run_slice(torch, dev, phase: str, settings, shared=None) -> dict:
         if verify["prefix_hit_tokens_delta"] <= 0:
             raise AssertionError(f"{phase} chat {i}: the verify admission missed the radix "
                                  f"tree: {verify}")
-        if not response["answer"]:
-            raise AssertionError(f"{phase} chat {i} returned an empty answer")
-        notes = response["verification"].get("notes", [])
-        if any(str(n).startswith("verifier error") for n in notes):
-            raise AssertionError(f"{phase} chat {i}: verification failed: {notes}")
+        check_answered(phase, i, response)
     if chats[0][0]["metadata"]["retrieved_ids"][0] != docs[17].id:
         raise AssertionError(f"{phase}: a chunk's own text did not retrieve that chunk first")
     n_layers = engine.cfg.n_layers
-    emit(phase, chats=len(chats), seconds=total_s, decode_sub_steps=sub_steps,
+    emit(phase, chats=len(chats), seconds=window["seconds"], decode_sub_steps=sub_steps,
          launches=launches, device_launches=card, expected_decode_launches=n_layers * sub_steps,
          pipeline_depth=engine.pipeline_depth, prefix_cache=engine._radix is not None,
          **{k: stats[k] - stats0[k] for k in ENGINE_COUNTERS},
@@ -570,6 +667,8 @@ def run_slice(torch, dev, phase: str, settings, shared=None) -> dict:
          peak_memory=torch.cuda.max_memory_allocated())
     if stats["graph_replays"] - stats0["graph_replays"] <= 0:
         raise AssertionError(f"{phase}: no decode sub-step was a graph replay")
+    if stats["graph_captures"] != stats0["graph_captures"]:
+        raise AssertionError(f"{phase}: a graph was captured after warmup")
     if launches["flash_attention"] <= 0:
         raise AssertionError(f"{phase}: the flash kernel never launched: {launches}")
     decode = "paged_attention_quant" if engine.pool.quantized else "paged_attention"
@@ -580,8 +679,115 @@ def run_slice(torch, dev, phase: str, settings, shared=None) -> dict:
         raise AssertionError(f"{phase}: {other} ran on a {engine.kv_quant!r} pool: {launches}")
     check_card(phase, card, launches)
     return {"pipeline": pipeline, "launches": launches, "device_launches": card,
-            "questions": questions,
+            "questions": questions, "warmup": warm, "words": words,
             "chats": [response for response, _ in chats], "generate_prompt": calls[0]["prompt"]}
+
+
+def run_contig_slice(torch, dev, settings, shared) -> dict:
+    """USE_PAGED_KV=0 at full width on the shared weights, default hybrid
+    retrieval: 3 chats on the contiguous engine, each prefill through the
+    causal flash kernel at D 128. Gates: every engine call's flash launches
+    are one per layer per prefill, the paged kernels never ran, and the
+    wrappers' counts equal the card's."""
+    phase = "slice_contig"
+    pipeline, docs, words, _ = build_slice(torch, dev, phase, settings, shared)
+    engine = pipeline.generator.provider.engine
+    flash = wrappers()["flash_attention"]
+    calls, generate = [], engine.generate
+
+    def recorded(prompts, **kwargs):
+        torch.cuda.synchronize()
+        f0, p0, d0, t0 = flash.launches, engine.prefills, engine.decode_steps, time.perf_counter()
+        results = generate(prompts, **kwargs)
+        torch.cuda.synchronize()
+        calls.append({"prompt": prompts[0], "prompt_tokens": [r.prompt_tokens for r in results],
+                      "tokens": [len(r.tokens) for r in results],
+                      "finish_reason": [r.finish_reason for r in results],
+                      "prefills": engine.prefills - p0, "decode_steps": engine.decode_steps - d0,
+                      "flash_launches": flash.launches - f0,
+                      "seconds": time.perf_counter() - t0})
+        return results
+
+    engine.generate = recorded
+    try:
+        window = chat_window(torch, pipeline, slice_questions(docs, words))
+    finally:
+        engine.generate = generate
+    chats, launches, card = window["chats"], window["launches"], window["card"]
+    n_layers = engine.model_config.n_layers
+    for i, (response, seconds) in enumerate(chats):
+        meta = response["metadata"]
+        emit(f"{phase}_chat", index=i, seconds=seconds, stage_ms=meta["stage_ms"],
+             generated_tokens=meta["generated_tokens"], answer_chars=len(response["answer"]),
+             verdict=response["verification"].get("verdict"),
+             calls=[{k: v for k, v in c.items() if k != "prompt"}
+                    for c in calls[2 * i : 2 * i + 2]])
+        check_answered(phase, i, response)
+    prefills = sum(c["prefills"] for c in calls)
+    llm_flash = sum(c["flash_launches"] for c in calls)
+    emit(phase, chats=len(chats), seconds=window["seconds"], engine_calls=len(calls),
+         prefills=prefills, llm_flash_launches=llm_flash, launches=launches,
+         device_launches=card, peak_memory=torch.cuda.max_memory_allocated())
+    if len(calls) != 2 * len(chats) or any(c["prefills"] != 1 for c in calls):
+        raise AssertionError(f"{phase}: expected one prefill per generate and verify: {calls}")
+    if any(c["flash_launches"] != n_layers * c["prefills"] for c in calls):
+        raise AssertionError(f"{phase}: a prefill layer bypassed the flash kernel: {calls}")
+    if launches["paged_attention"] or launches["paged_attention_quant"]:
+        raise AssertionError(f"{phase}: a paged kernel ran on the contiguous engine: "
+                             f"{launches}")
+    check_card(phase, card, launches)
+    return {"pipeline": pipeline, "launches": launches, "device_launches": card,
+            "llm_flash_launches": llm_flash, "prefills": prefills,
+            "generate_prompt": calls[0]["prompt"]}
+
+
+def contig_logits_check(torch, pipeline, prompt: str) -> dict:
+    """The contiguous engine's prefill of ``prompt`` through the flash
+    kernel and through plain attention, then 4 teacher-forced decode steps
+    (plain attention over each run's own cache; the forced tokens are the
+    kernel run's greedy picks): the last prompt logit and the 4 steps held
+    to LOGITS_LIMIT. Also times one decode step (16 in a row, CUDA
+    events)."""
+    from sentio_tpu_torch.kernels import flash_attn_fn
+    from sentio_tpu_torch.models.llama import llama_forward
+
+    engine = pipeline.generator.provider.engine
+    cfg = engine.model_config
+    runs, forced = [], []
+    for attn_fn in (flash_attn_fn, None):
+        engine.attn_fn = attn_fn
+        ids, pos, lens, cache, _n, window, mask = engine._encode_batch([prompt], MAX_TOKENS)
+        with torch.inference_mode():
+            logits = engine._prefill(ids, pos, cache, mask)
+            steps = [logits[0, int(lens[0]) - 1]]
+            del logits
+            at = torch.tensor(lens[:1].astype("int64"), device=cache["k"].device)
+            for s in range(4):
+                if len(forced) <= s:
+                    forced.append(int(steps[-1].argmax()))
+                tok = torch.tensor([[forced[s]]], device=at.device)
+                out, _ = llama_forward(engine.params, cfg, tok, positions=at[:, None],
+                                       cache=cache, cache_index=at)
+                steps.append(out[0, -1])
+                at = at + 1
+        runs.append(torch.stack(steps))
+        if attn_fn is not None:
+            decode_ms = time_ms(torch, lambda: engine._decode_step(
+                torch.tensor(forced[:1], device=at.device), at, cache, 0.0, 0),
+                iters=16, warmup=2)
+        del cache
+    engine.attn_fn = flash_attn_fn
+    diff = (runs[0] - runs[1]).abs().amax(dim=-1).tolist()
+    result = {"prompt_tokens": int(lens[0]), "prefill_width": int(ids.shape[1]),
+              "window": window, "max_abs_diff_per_step": diff,
+              "logit_std": float(runs[1].std()), "decode_step_ms": decode_ms,
+              "greedy_agree": [int(a) == int(b) for a, b in
+                               zip(runs[0].argmax(-1).tolist(), runs[1].argmax(-1).tolist())]}
+    emit("logits_contig", **result)
+    if not bool(torch.isfinite(runs[0]).all()) or max(diff) > LOGITS_LIMIT:
+        raise AssertionError(f"logits_contig: kernel vs plain logits differ by {max(diff)} > "
+                             f"{LOGITS_LIMIT}")
+    return result
 
 
 def check_int8_slice(sl: dict) -> dict:
@@ -624,12 +830,16 @@ def logits_check(torch, dev, pipeline, question: str, phase: str = "logits",
     from sentio_tpu_torch.runtime.paged import _paged_attn_xla
 
     engine = pipeline.generator.provider.engine
+    pipeline.service.wait_idle()  # the engine is driven directly below
     docs = pipeline.index.documents()[:5]
     prompt = pipeline.generator.build_prompt(question, docs)
     window = engine.max_pages_per_seq * engine.page_size
     ids = engine.tokenizer.encode(prompt, add_bos=True)[: window - 8]
     width = engine._prefill_width(len(ids))
     n_pages = width // engine.page_size
+    if n_pages > engine.allocator.free_pages and engine._radix is not None:
+        # warmup and the chats left cached prefixes in the pool
+        engine._radix.evict(n_pages - engine.allocator.free_pages)
     pages = engine.allocator.alloc(n_pages)
     row = torch.zeros((1, engine.max_pages_per_seq), dtype=torch.int32)
     row[0, :n_pages] = torch.tensor(pages, dtype=torch.int32)
@@ -683,6 +893,7 @@ def graph_check(torch, pipeline, prompt: str, phase: str = "graph") -> dict:
     suffix over the same cached pages and run the same sub-steps; their
     tokens must be equal."""
     engine = pipeline.generator.provider.engine
+    pipeline.service.wait_idle()  # the engine is driven directly below
     warmed = engine.warm_prefix(prompt)
     runs, tokens = [], []
     try:
@@ -755,6 +966,125 @@ def chunked_check(torch, dev, prompt: str, chunk: int = 512) -> dict:
     return result
 
 
+def contig_vs_paged_check(torch, dev, prompt: str) -> dict:
+    """``prompt`` decoded greedily by the contiguous engine and by the paged
+    engine: the same tokens. Float32 at Llama-3-8B width cut to 2 layers,
+    plain attention on both (the kernels take bf16): see the module
+    docstring's ``chunked``."""
+    import dataclasses
+
+    from sentio_tpu_torch.config import GeneratorConfig
+    from sentio_tpu_torch.models.llama import LlamaConfig, init_llama
+    from sentio_tpu_torch.runtime.engine import GeneratorEngine
+    from sentio_tpu_torch.runtime.paged import ContinuousBatchingEngine, _paged_attn_xla
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=2, dtype="float32")
+    params = init_llama(cfg, torch.Generator(device=dev).manual_seed(SEED + 6), dev)
+    contig = GeneratorEngine(config=GeneratorConfig(max_new_tokens=MAX_TOKENS, dtype="float32"),
+                             model_config=cfg, params=params, device=dev)
+    contig.attn_fn = None
+    t0 = time.perf_counter()
+    (ref,) = contig.generate([prompt], max_new_tokens=MAX_TOKENS, temperature=0.0)
+    torch.cuda.synchronize()
+    contig_s = time.perf_counter() - t0
+    paged = ContinuousBatchingEngine(model_config=cfg, params=params, max_slots=1,
+                                     page_size=128, max_pages_per_seq=64, steps_per_tick=16,
+                                     max_tick_steps=64, pipeline_depth=2, device=dev)
+    paged.attn_impl = _paged_attn_xla
+    t0 = time.perf_counter()
+    (got,) = paged.run_all([prompt], max_new_tokens=MAX_TOKENS, temperature=0.0)
+    torch.cuda.synchronize()
+    paged_s = time.perf_counter() - t0
+    del contig, paged, params
+    torch.cuda.empty_cache()
+    differ = [i for i, (a, b) in enumerate(zip(ref.tokens, got.tokens)) if a != b]
+    result = {"model": {"dim": cfg.dim, "n_layers": cfg.n_layers, "dtype": cfg.dtype},
+              "prompt_tokens": [ref.prompt_tokens, got.prompt_tokens],
+              "tokens": [len(ref.tokens), len(got.tokens)],
+              "finish_reason": [ref.finish_reason, got.finish_reason],
+              "seconds": {"contiguous": contig_s, "paged": paged_s},
+              "tokens_equal": ref.tokens == got.tokens,
+              "first_difference": differ[0] if differ else None}
+    emit("contig_vs_paged", **result)
+    if ref.tokens != got.tokens or ref.prompt_tokens != got.prompt_tokens:
+        raise AssertionError(f"contig_vs_paged: the engines' greedy tokens differ: {result}")
+    return result
+
+
+SERVICE_CHATS = 8
+
+
+def service_check(torch, pipeline, words) -> dict:
+    """SERVICE_CHATS chats from as many threads at once through the warmed
+    service: every chat answered, no graph captured, some tick shared by
+    more than one live row, the pool's paged kernel once per layer per
+    replayed sub-step, every count equal to the card's. Reports chat
+    latencies (p50, p95)."""
+    import threading
+
+    service, engine = pipeline.service, pipeline.generator.provider.engine
+    counters = wrappers()
+    service.wait_idle()
+    before, svc0 = engine.stats(), service.stats()
+    card0 = card_launches(torch)
+    for kernel in counters.values():
+        kernel.launches = 0
+    questions = [f"What links {words[5 * i + 1]} to {words[5 * i + 2]}?"
+                 for i in range(SERVICE_CHATS)]
+    out: list = [None] * SERVICE_CHATS
+    start = threading.Barrier(SERVICE_CHATS)
+
+    def chat(i: int) -> None:
+        start.wait(timeout=60)
+        t0 = time.perf_counter()
+        try:
+            out[i] = (pipeline.chat(questions[i]), time.perf_counter() - t0)
+        except Exception as exc:  # noqa: BLE001 — raised below, on the main thread
+            out[i] = exc
+
+    threads = [threading.Thread(target=chat, args=(i,), name=f"smoke-chat-{i}", daemon=True)
+               for i in range(SERVICE_CHATS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall_s = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("service: a chat did not return within 600 s")
+    service.wait_idle()
+    launches = {name: kernel.launches for name, kernel in counters.items()}
+    card = card_delta(torch, card0)
+    after, svc1 = engine.stats(), service.stats()
+    for i, item in enumerate(out):
+        if isinstance(item, Exception):
+            raise AssertionError(f"service chat {i} raised: {item!r}") from item
+        check_answered("service", i, item[0])
+    seconds = sorted(sec for _r, sec in out)
+    sub_steps = after["sub_steps"] - before["sub_steps"]
+    decode = "paged_attention_quant" if engine.pool.quantized else "paged_attention"
+    other = "paged_attention" if engine.pool.quantized else "paged_attention_quant"
+    result = {"chats": SERVICE_CHATS, "wall_s": wall_s, "chat_s": seconds,
+              "p50_s": seconds[len(seconds) // 2],
+              "p95_s": seconds[min(int(len(seconds) * 0.95), len(seconds) - 1)],
+              "ticks": svc1["ticks"] - svc0["ticks"],
+              "shared_ticks": svc1["shared_ticks"] - svc0["shared_ticks"],
+              "max_active_slots": svc1["max_active_slots"], "decode_sub_steps": sub_steps,
+              "graph_captures_delta": after["graph_captures"] - before["graph_captures"],
+              "completed": svc1["completed"] - svc0["completed"], "shed": svc1["shed"],
+              "duty_cycle": svc1["duty_cycle"], "launches": launches, "device_launches": card}
+    emit("service", **result)
+    if result["graph_captures_delta"] or result["shared_ticks"] <= 0:
+        raise AssertionError(f"service: a capture under traffic, or no tick shared: {result}")
+    if result["completed"] != 2 * SERVICE_CHATS:
+        raise AssertionError(f"service: expected a generate and a verify per chat: {result}")
+    if launches[decode] != engine.cfg.n_layers * sub_steps or launches[other]:
+        raise AssertionError(f"service: decode launches are not one per layer per sub-step: "
+                             f"{result}")
+    check_card("service", card, launches)
+    return result
+
+
 def chunked_slice_check(torch, pipeline, phase: str = "chunked_slice",
                         chunk: int = 512) -> dict:
     """One chunked admission on the slice's own engine (its pool, its
@@ -767,6 +1097,7 @@ def chunked_slice_check(torch, pipeline, phase: str = "chunked_slice",
     bf16 prefills of different shapes round differently): :func:`chunked_check`
     does that in float32."""
     engine = pipeline.generator.provider.engine
+    pipeline.service.wait_idle()  # the engine is driven directly below
     counters = wrappers()
     ran, other = (counters["paged_attention_quant"], counters["paged_attention"])
     if not engine.pool.quantized:
@@ -827,10 +1158,12 @@ def profile_chat(torch, pipeline, question: str, phase: str = "profile") -> dict
     counters = wrappers()
     counts0 = {name: k.launches for name, k in counters.items()}
     sub_steps0 = engine.total_sub_steps
+    pipeline.service.wait_idle()
     card0 = card_launches(torch)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         pipeline.chat(question)
+        pipeline.service.wait_idle()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     card = card_delta(torch, card0)
@@ -958,7 +1291,14 @@ def main() -> int:
     graph_check(torch, sl8["pipeline"], sl8["generate_prompt"], "graph_int8")
     chunked_slice_check(torch, sl8["pipeline"], "chunked_slice_int8")
     profile8 = profile_chat(torch, sl8["pipeline"], sl["questions"][2], "profile_int8")
+    service = service_check(torch, sl8["pipeline"], sl8["words"])
     chunked_check(torch, dev, sl["generate_prompt"])
+
+    # USE_PAGED_KV=0 with the default hybrid retrieval, on the same weights
+    sc = run_contig_slice(torch, dev, Settings(generator=GeneratorConfig(
+        use_paged_decode=False, **caps)), shared=sl["pipeline"])
+    contig_logits_check(torch, sc["pipeline"], sc["generate_prompt"])
+    contig_vs_paged_check(torch, dev, sl["generate_prompt"])
 
     main_flash = flash[0]  # the embedder's bidirectional shape
     kernels = [
@@ -983,11 +1323,15 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": "sentio_tpu_torch/csrc/flash_attention.cu",
          "replaces": "sentio_tpu/kernels/flash_attention.py:41",
-         "launches": sl["launches"]["flash_attention"] + sl8["launches"]["flash_attention"],
+         "launches": sum(x["launches"]["flash_attention"] for x in (sl, sl8, sc)),
          "launches_by_path": {"slice": sl["launches"]["flash_attention"],
-                              "slice_int8": sl8["launches"]["flash_attention"]},
+                              "slice_int8": sl8["launches"]["flash_attention"],
+                              "slice_contig": sc["launches"]["flash_attention"],
+                              "slice_contig_llm_prefills": sc["llm_flash_launches"],
+                              "service": service["launches"]["flash_attention"]},
          "device_launches": {path: family_launches(x["device_launches"], "flash_attention")
-                             for path, x in (("slice", sl), ("slice_int8", sl8))},
+                             for path, x in (("slice", sl), ("slice_int8", sl8),
+                                             ("slice_contig", sc), ("service", service))},
          "device_launches_profiled_chat": {
              path: device_launches(prof, "flash_attention")
              for path, prof in (("slice", profile), ("slice_int8", profile8))},

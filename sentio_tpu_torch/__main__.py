@@ -6,10 +6,14 @@ when none are given), answers the question and prints the response as
 JSON. Settings come from the environment as in the JAX service:
 ``RETRIEVAL_STRATEGY`` (``hybrid`` by default, or ``dense`` / ``bm25``),
 ``KV_QUANT=int8`` for an int8 KV page pool, ``PREFIX_CACHE``,
-``DECODE_PIPELINE_DEPTH`` and ``PREFILL_CHUNK`` for the engine, and the
-rest of ``sentio_tpu_torch.config``. Weights are random, made from ``--seed``: no
-checkpoint of the default sizes is available to this package. ``--tiny``
-swaps in the CPU-test presets of every model.
+``DECODE_PIPELINE_DEPTH`` and ``PREFILL_CHUNK`` for the engine,
+``USE_PAGED_KV=0`` for the contiguous engine, ``LLM_CHECKPOINT`` /
+``RERANKER_CHECKPOINT`` / ``EMBEDDER_CHECKPOINT`` for ``save_pytree``
+checkpoints, and the rest of ``sentio_tpu_torch.config``. Weights not
+loaded from a checkpoint are random, made from ``--seed``. The generation
+service is warmed up before the question, as the JAX server does at
+start-up (on the card: every decode graph captured). ``--tiny`` swaps in
+the CPU-test presets of every model.
 """
 
 from __future__ import annotations
@@ -63,6 +67,7 @@ def main(argv=None) -> int:
         settings.generator = replace(settings.generator, max_new_tokens=args.max_tokens,
                                      verifier_max_tokens=args.max_tokens)
     pipeline = build_pipeline(settings, device=args.device, seed=args.seed)
+    pipeline.warmup()
 
     texts = [(Path(p).name, Path(p).read_text()) for p in args.docs]
     if not texts:
@@ -70,7 +75,10 @@ def main(argv=None) -> int:
     docs = [Document(text=chunk, metadata={"source": name})
             for name, text in texts for chunk in _chunks(text)]
     pipeline.ingest(docs)
-    response = pipeline.chat(args.question)
+    try:
+        response = pipeline.chat(args.question)
+    finally:
+        pipeline.close()
     json.dump(response, sys.stdout, indent=1)
     sys.stdout.write("\n")
     return 0

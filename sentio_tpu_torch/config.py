@@ -2,9 +2,11 @@
 that the ``/chat`` main path reads.
 
 Same dataclasses, fields, defaults and environment variable names as the
-JAX package's tree (retrieval, rerank, embedder, generator); the mesh,
-serve, auth and cache sections are left out because nothing in this
-package reads them. Plain dataclasses, no import-time work.
+JAX package's tree (retrieval, rerank, embedder, generator, and of the
+serve section the generation service's overload controls); the mesh,
+auth and cache sections and the rest of serve are left out because
+nothing in this package reads them. Plain dataclasses, no import-time
+work.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ __all__ = [
     "RerankConfig",
     "EmbedderConfig",
     "GeneratorConfig",
+    "ServeConfig",
     "Settings",
 ]
 
@@ -257,13 +260,39 @@ class GeneratorConfig:
 
 
 @dataclass
+class ServeConfig:
+    """The generation service's overload and deadline controls, named and
+    defaulted as in the JAX ``ServeConfig``."""
+
+    # default per-request deadline (ms) for callers that send none; 0 = none
+    default_deadline_ms: float = 0.0
+    # bound on waiting decode work (inbox + admitted); 0 = derive from the
+    # engine (max(8 * max_slots, 64))
+    admission_max_queue: int = 0
+    # requeues granted per request after a failed tick whose reset worked
+    crash_retry_budget: int = 1
+    # how long in-flight requests get to finish once a drain starts
+    drain_deadline_s: float = 10.0
+
+    @classmethod
+    def from_env(cls) -> "ServeConfig":
+        return cls(
+            default_deadline_ms=_env_float(["DEADLINE_MS", "DEFAULT_DEADLINE_MS"], 0.0),
+            admission_max_queue=_env_int(["ADMISSION_MAX_QUEUE"], 0),
+            crash_retry_budget=_env_int(["CRASH_RETRY_BUDGET"], 1),
+            drain_deadline_s=_env_float(["DRAIN_DEADLINE_S"], 10.0),
+        )
+
+
+@dataclass
 class Settings:
-    """The four sections the slice reads."""
+    """The five sections the port reads."""
 
     retrieval: RetrievalConfig = field(default_factory=RetrievalConfig)
     rerank: RerankConfig = field(default_factory=RerankConfig)
     embedder: EmbedderConfig = field(default_factory=EmbedderConfig)
     generator: GeneratorConfig = field(default_factory=GeneratorConfig)
+    serve: ServeConfig = field(default_factory=ServeConfig)
 
     @classmethod
     def from_env(cls) -> "Settings":
@@ -272,4 +301,5 @@ class Settings:
             rerank=RerankConfig.from_env(),
             embedder=EmbedderConfig.from_env(),
             generator=GeneratorConfig.from_env(),
+            serve=ServeConfig.from_env(),
         )

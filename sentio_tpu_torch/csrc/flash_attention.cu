@@ -42,7 +42,8 @@
 //   - At most 128 registers a thread, so two blocks (four warpgroups) share
 //     an SM and one's softmax runs while another's products do.
 // The key loop ends at each row's kv_len; when causal, at the block's last
-// query row, and a warpgroup skips the tiles wholly past its own rows.
+// query row (and at T, whatever S is), and a warpgroup skips the tiles
+// wholly past its own rows.
 // Reads: q once; k and v once per (b, h) from HBM; kv_lens. Writes: out.
 
 #include <cuda_bf16.h>
@@ -176,13 +177,16 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* ob = out + ((size_t)b * T * H + h) * D;
 
   const int kv_len = max(0, min(kv_lens[b], S));
-  const int k_end = causal ? min(kv_len, q0 + kBQ) : kv_len;
+  // causal: no row of this block attends a key past its last row, nor any
+  // key at or past T (a prefill over a cache window passes S > T, and the
+  // window's tail is unwritten); keys past k_end are zero-filled, not read
+  const int k_end = causal ? min(kv_len, min(q0 + kBQ, T)) : kv_len;
   const int n_tiles = (k_end + BK - 1) / BK;
 
   load_tile<D, kBQ>(q_s, qb, row_stride, q0, T);
   if (n_tiles > 0) {
-    load_tile<D, BK>(k_s, kb, row_stride, 0, kv_len);
-    load_tile<D, BK>(v_s, vb, row_stride, 0, kv_len);
+    load_tile<D, BK>(k_s, kb, row_stride, 0, k_end);
+    load_tile<D, BK>(v_s, vb, row_stride, 0, k_end);
   }
   cp_async_commit();
 
@@ -204,8 +208,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();  // tile it is visible; stage ^ 1 is free again
     if (it + 1 < n_tiles) {
       const uint32_t next = (stage ^ 1) * KTile::kBytes;
-      load_tile<D, BK>(k_s + next, kb, row_stride, (it + 1) * BK, kv_len);
-      load_tile<D, BK>(v_s + next, vb, row_stride, (it + 1) * BK, kv_len);
+      load_tile<D, BK>(k_s + next, kb, row_stride, (it + 1) * BK, k_end);
+      load_tile<D, BK>(v_s + next, vb, row_stride, (it + 1) * BK, k_end);
     }
     cp_async_commit();
     const int k0 = it * BK;

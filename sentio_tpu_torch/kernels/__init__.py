@@ -9,6 +9,8 @@ engine accept, like ``sentio_tpu/kernels/__init__.py``'s.
 
 from __future__ import annotations
 
+import torch
+
 from sentio_tpu_torch.kernels.flash_attention import KERNEL as FLASH_KERNEL
 from sentio_tpu_torch.kernels.flash_attention import flash_attention
 from sentio_tpu_torch.kernels.paged_attention import KERNEL as PAGED_KERNEL
@@ -20,11 +22,25 @@ from sentio_tpu_torch.kernels.paged_attention import (
 )
 
 __all__ = [
-    "flash_attention", "paged_attention", "paged_attention_quant", "encoder_attn_fn",
-    "paged_attn_impl", "KERNELS", "FLASH_KERNEL", "PAGED_KERNEL", "PAGED_QUANT_KERNEL",
+    "flash_attention", "paged_attention", "paged_attention_quant", "flash_attn_fn",
+    "encoder_attn_fn", "default_attn_fn", "paged_attn_impl", "KERNELS", "FLASH_KERNEL", "PAGED_KERNEL", "PAGED_QUANT_KERNEL",
 ]
 
 KERNELS = (PAGED_KERNEL, PAGED_QUANT_KERNEL, FLASH_KERNEL)
+
+
+def flash_attn_fn(q, k, v, kv_lens=None):
+    """Causal adapter for ``llama_forward(attn_fn=...)``: query i attends
+    keys 0..i. The keys may run past the queries (a prefill over a cache
+    window: S >= T); no query attends them, and the kernel reads none."""
+    return flash_attention(q, k, v, kv_lens, causal=True)
+
+
+def default_attn_fn(device):
+    """The prefill attention for ``device``, as JAX's ``default_attn_fn``
+    picks it for the backend: the causal flash kernel on the card, None
+    (the model's plain masked attention) on the CPU."""
+    return flash_attn_fn if torch.device(device).type == "cuda" else None
 
 
 def encoder_attn_fn(q, k, v, kv_lens=None):

@@ -17,6 +17,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Optional, Sequence
@@ -42,8 +43,10 @@ def nvcc_path() -> str:
 
 class CudaKernel:
     """One kernel: its source, its C launcher's signature, the ``defines``
-    (``NAME=VALUE``) its source is compiled with, and ``launches``, a plain
-    count of successful launches that callers may read and reset."""
+    (``NAME=VALUE``) its source is compiled with, and ``launches``, a count
+    of successful launches that callers may read and reset. Launches from
+    several threads (the service's pump and its callers) all count:
+    :meth:`add_launches` adds under a lock."""
 
     def __init__(self, name: str, source: str, symbol: str,
                  argtypes: Sequence, defines: Sequence[str] = ()) -> None:
@@ -53,6 +56,7 @@ class CudaKernel:
         self.argtypes = list(argtypes)
         self.flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
         self.launches = 0
+        self._count_lock = threading.Lock()
         self.build_log = ""
         self._lib = None
         self._fn = None
@@ -145,7 +149,11 @@ class CudaKernel:
                 f"{self.name}: CUDA launch failed with error {code} "
                 f"({self._err(code).decode()})"
             )
-        self.launches += 1
+        self.add_launches(1)
+
+    def add_launches(self, n: int) -> None:
+        with self._count_lock:
+            self.launches += n
 
 
 def build_all(kernels: Sequence[CudaKernel]) -> float:

@@ -49,11 +49,14 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q [B, T, H, D], k/v [B, S, H, D] → [B, T, H, D] in q's dtype. Keys at
     positions >= kv_lens[b] are masked (and zeroed), ``causal`` also masks
-    k_pos > q_pos, and a query row with no key left to attend is 0 — unlike
-    ``layers.attention``, which averages every key for such a row."""
+    k_pos > q_pos (so no key at or past T is read when S > T), and a query
+    row with no key left to attend is 0 — unlike ``layers.attention``,
+    which averages every key for such a row."""
     b, t, h, d = q.shape
     s_len = k.shape[1]
     lens = _lens_or_full(kv_lens, b, s_len, q.device).long()
+    if causal:
+        lens = lens.clamp_max(t)
     k_pos = torch.arange(s_len, device=q.device)
     valid = (k_pos[None, :] < lens[:, None])[:, None, None, :]  # [B,1,1,S]
     if causal:

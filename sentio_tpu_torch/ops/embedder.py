@@ -26,7 +26,7 @@ from sentio_tpu_torch.models.transformer import (
     mean_pool,
 )
 from sentio_tpu_torch.parallel.batcher import bucket_size
-from sentio_tpu_torch.runtime.weights import load_encoder
+from sentio_tpu_torch.runtime.weights import load_encoder, refuse_tokenizer
 
 
 class TorchEmbedder:
@@ -38,6 +38,7 @@ class TorchEmbedder:
                  device=None, generator: Optional[torch.Generator] = None) -> None:
         self.config = config or EmbedderConfig()
         self.device = resolve_device(device)
+        refuse_tokenizer("EMBEDDER_TOKENIZER", self.config.tokenizer_path)
         if params is None and self.config.checkpoint_path:
             params, model_config = load_encoder(self.config.checkpoint_path,
                                                 device=self.device)

@@ -1,11 +1,13 @@
-"""Citation-grounded answer generation over the paged engine — the
-``LLMGenerator.build_prompt`` / ``generate`` path of
-``sentio_tpu/ops/generator.py``.
+"""Citation-grounded answer generation — the ``LLMGenerator.build_prompt``
+/ ``generate`` path of ``sentio_tpu/ops/generator.py``.
 
 Numbered ``[n] Source: … (score …)`` context assembly, the retrieve
 template, temperature by mode, and one provider: :class:`EngineProvider`,
-which submits the prompt to a :class:`ContinuousBatchingEngine` and drains
-it. The echo and OpenAI providers are not part of this package.
+which submits the prompt to the generation service over the paged engine
+(``USE_PAGED_KV=1``, the default: concurrent chats share one decode batch)
+or, with no service, runs the contiguous engine's ``generate``, as JAX's
+``TpuProvider`` does. The echo and OpenAI providers are not part of this
+package.
 """
 
 from __future__ import annotations
@@ -20,15 +22,25 @@ from sentio_tpu_torch.ops.prompts import PromptBuilder
 
 @dataclass
 class EngineProvider:
-    """Chat over the in-process engine."""
+    """Chat over the in-process engine. ``engine`` is the paged engine that
+    ``service`` drives, or, with no service, the contiguous
+    ``GeneratorEngine``. Nothing falls back: a service's ``error`` result
+    raises, as in JAX with no contiguous engine behind the service."""
 
-    engine: object  # ContinuousBatchingEngine
+    engine: object
+    service: object = None  # PagedGenerationService
     name: str = "torch"
 
     def chat(self, prompt: str, max_new_tokens: int, temperature: float,
-             stats: Optional[dict] = None) -> str:
-        result = self.engine.run_all([prompt], max_new_tokens=max_new_tokens,
-                                     temperature=temperature)[0]
+             stats: Optional[dict] = None, deadline_ts: Optional[float] = None) -> str:
+        if self.service is not None:
+            result = self.service.generate(prompt, max_new_tokens=max_new_tokens,
+                                           temperature=temperature, deadline_ts=deadline_ts)
+            if result.finish_reason == "error":
+                raise RuntimeError("paged decode failed and no contiguous engine")
+        else:
+            result = self.engine.generate([prompt], max_new_tokens=max_new_tokens,
+                                          temperature=temperature)[0]
         if stats is not None:
             stats.update(result.stats_dict())
         return result.text

@@ -69,6 +69,23 @@ class PromptBuilder:
     def __init__(self, prompts_dir: Optional[str] = None) -> None:
         self.prompts_dir = Path(prompts_dir) if prompts_dir else PROMPTS_DIR
 
+    def static_head(self, name: str, **values) -> str:
+        """The template's constant leading text — everything before the
+        first request-varying placeholder ({context}/{query}/{answer}) —
+        with the given static values substituted. Every ``/chat`` prompt
+        built from the template starts with these exact bytes, so
+        ``build_pipeline`` warms the engine's radix prefix cache with them."""
+        text = self.load(name)
+        cut = len(text)
+        for dynamic in ("{context}", "{query}", "{answer}"):
+            idx = text.find(dynamic)
+            if idx != -1:
+                cut = min(cut, idx)
+        head = text[:cut]
+        for key, value in values.items():
+            head = head.replace("{" + key + "}", value)
+        return head
+
     def load(self, name: str) -> str:
         cache_key = f"{self.prompts_dir}:{name}"
         cached = self._cache.get(cache_key)

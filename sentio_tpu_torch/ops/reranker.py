@@ -3,13 +3,16 @@
 
 (query, doc) pairs are encoded as ``[CLS] q [SEP] d [SEP]``, padded to the
 JAX reranker's row buckets, and scored in batches of ``config.batch_size``
-through the cross-encoder with the flash kernel as its attention. Unlike
-the JAX service, which keeps the original order when scoring fails, a
-failure here raises: this package has no degradation ladder yet.
+through the cross-encoder with the flash kernel as its attention. When
+scoring fails the reranker keeps the original order with decaying scores
+and sets ``fallback_used``, as the JAX reranker does; ``/chat`` reports it
+as ``metadata.rerank_fallback``. ``RERANKER_CHECKPOINT`` loads a
+``save_pytree`` cross-encoder checkpoint.
 """
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -24,6 +27,9 @@ from sentio_tpu_torch.models.document import Document
 from sentio_tpu_torch.models.tokenizer import ByteTokenizer, batch_encode_pairs
 from sentio_tpu_torch.models.transformer import EncoderConfig
 from sentio_tpu_torch.parallel.batcher import bucket_size
+from sentio_tpu_torch.runtime.weights import load_model, refuse_tokenizer
+
+logger = logging.getLogger(__name__)
 
 
 @dataclass
@@ -31,6 +37,7 @@ class RerankingResult:
     documents: list[Document]
     scores: list[float]
     model: str
+    fallback_used: bool = False
 
 
 class CrossEncoderReranker:
@@ -44,6 +51,11 @@ class CrossEncoderReranker:
                  device=None, generator: Optional[torch.Generator] = None) -> None:
         self.config = config or RerankConfig()
         self.device = resolve_device(device)
+        refuse_tokenizer("RERANKER_TOKENIZER", self.config.tokenizer_path)
+        if params is None and self.config.checkpoint_path:
+            params, model_config = load_model(
+                self.config.checkpoint_path, expect_family="cross-encoder",
+                setting="RERANKER_CHECKPOINT", device=self.device)
         # the default container builds the tiny cross-encoder when no
         # checkpoint is configured
         self.model_config = model_config or EncoderConfig.tiny()
@@ -61,7 +73,11 @@ class CrossEncoderReranker:
         if not documents:
             return RerankingResult([], [], self.name)
         top_k = top_k if top_k is not None else len(documents)
-        scores = self._score(query, documents)
+        try:
+            scores = self._score(query, documents)
+        except Exception:  # noqa: BLE001 — the JAX reranker's degradation
+            logger.exception("%s rerank failed; keeping original order", self.name)
+            return self._default_ranking(documents, top_k)
         order = np.argsort(-scores, kind="stable")[:top_k]
         out_docs, out_scores = [], []
         for i in order:
@@ -74,6 +90,19 @@ class CrossEncoderReranker:
             out_docs.append(Document(text=doc.text, metadata=meta, id=doc.id))
             out_scores.append(float(scores[int(i)]))
         return RerankingResult(out_docs, out_scores, self.name)
+
+    def _default_ranking(self, documents: list[Document], top_k: int) -> RerankingResult:
+        """Original order, decaying scores 1.0 − 0.1·idx floored at 0.1."""
+        docs, scores = [], []
+        for i, doc in enumerate(documents[:top_k]):
+            score = max(1.0 - 0.1 * i, 0.1)
+            meta = dict(doc.metadata)
+            meta.pop("hybrid_score", None)
+            meta["rerank_score"] = score
+            meta["score"] = score
+            docs.append(Document(text=doc.text, metadata=meta, id=doc.id))
+            scores.append(score)
+        return RerankingResult(docs, scores, self.name, fallback_used=True)
 
     def _score(self, query: str, documents: Sequence[Document]) -> np.ndarray:
         max_len = min(self.config.max_pair_tokens, self.model_config.max_len)

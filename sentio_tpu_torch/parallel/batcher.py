@@ -12,3 +12,13 @@ def bucket_size(n: int, buckets: Sequence[int]) -> int:
         if n <= b:
             return b
     return n
+
+
+def floor_bucket(n: int, buckets: Sequence[int]) -> int:
+    """Largest bucket <= n (min(buckets) if none fit) — for quantities that
+    must round DOWN, like decode step counts bounded by cache headroom."""
+    best = min(buckets)
+    for b in sorted(buckets):
+        if b <= n:
+            best = b
+    return best

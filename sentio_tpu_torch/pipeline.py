@@ -8,16 +8,29 @@ the query and an exact top-k runs over the index on the card), ``bm25``
 ``FUSION_METHOD``, rrf by default). ``KV_QUANT=int8`` gives the engine an
 int8 page pool; ``PREFIX_CACHE``, ``DECODE_PIPELINE_DEPTH`` and
 ``PREFILL_CHUNK`` reach the engine as in the JAX service (the radix prefix
-cache and depth 2 by default).
+cache and depth 2 by default). Generation runs on the paged engine behind
+the generation service (``runtime/service.py``), so concurrent ``chat``
+calls share one decode batch; with ``PREFIX_CACHE`` on, the ``/chat``
+template head is warmed into the engine's radix tree at build time.
+``USE_PAGED_KV=0`` generates on the contiguous engine instead
+(``runtime/engine.py``: causal flash prefill, one call at a time).
+``LLM_CHECKPOINT`` and ``RERANKER_CHECKPOINT`` load ``save_pytree``
+checkpoints.
 
 * :meth:`ChatPipeline.ingest` embeds documents, adds them to the index and
   rebuilds the BM25 index over the index's documents;
 * :meth:`ChatPipeline.chat` answers one question and returns ``answer``,
   ``sources`` and ``verification`` as ``/chat`` does, plus per-stage times.
+  As the JAX graph's nodes do, a failed retrieval gives no documents and
+  ``metadata.retrieval_error``, a failed generation an empty answer and
+  ``metadata.generation_error`` (errors marked ``soft_fail_exempt`` —
+  shed, expired, service down — raise), and a failed rerank keeps the
+  retrieval order (``metadata.rerank_fallback``).
 """
 
 from __future__ import annotations
 
+import logging
 import time
 from dataclasses import dataclass, field
 from typing import Any, Optional, Sequence
@@ -33,10 +46,16 @@ from sentio_tpu_torch.ops.bm25 import BM25Index, BM25Params, make_bm25_index
 from sentio_tpu_torch.ops.dense_index import TorchDenseIndex
 from sentio_tpu_torch.ops.embedder import TorchEmbedder
 from sentio_tpu_torch.ops.generator import EngineProvider, LLMGenerator
+from sentio_tpu_torch.ops.prompts import PromptBuilder
 from sentio_tpu_torch.ops.reranker import CrossEncoderReranker
 from sentio_tpu_torch.ops.retrievers import BaseRetriever, create_retriever
 from sentio_tpu_torch.ops.verifier import AnswerVerifier
+from sentio_tpu_torch.runtime.engine import GeneratorEngine
 from sentio_tpu_torch.runtime.paged import ContinuousBatchingEngine
+from sentio_tpu_torch.runtime.service import PagedGenerationService
+from sentio_tpu_torch.runtime.weights import load_llama, refuse_tokenizer
+
+logger = logging.getLogger(__name__)
 
 CHARS_PER_TOKEN = 4  # the selector's ≈4-chars/token budget heuristic
 
@@ -112,19 +131,31 @@ class ChatPipeline:
             stage_ms[name] = (now - t) * 1e3
             t = now
 
-        retrieved = self.retriever.retrieve(question, _user_top_k(top_k, s.retrieval.top_k))
+        meta: dict[str, Any] = {}
+        try:
+            retrieved = self.retriever.retrieve(question, _user_top_k(top_k, s.retrieval.top_k))
+        except Exception as exc:  # noqa: BLE001 — the JAX retrieve node's degradation
+            logger.exception("retrieval failed")
+            retrieved, meta["retrieval_error"] = [], str(exc)
         lap("retrieve")
         docs = retrieved
         if self.reranker is not None and retrieved:
-            docs = self.reranker.rerank(
-                question, retrieved, top_k=_user_top_k(top_k, s.rerank.top_k)).documents
+            reranked = self.reranker.rerank(question, retrieved,
+                                            top_k=_user_top_k(top_k, s.rerank.top_k))
+            docs, meta["rerank_fallback"] = reranked.documents, reranked.fallback_used
             lap("rerank")
         selected, _used = select_documents(docs, s.generator.context_token_budget)
         best = selected or docs
         lap("select")
         gen_stats: dict = {}
-        answer = self.generator.generate(question, best, mode=mode,
-                                         temperature=temperature, stats=gen_stats)
+        try:
+            answer = self.generator.generate(question, best, mode=mode,
+                                             temperature=temperature, stats=gen_stats)
+        except Exception as exc:  # noqa: BLE001 — the JAX generate node's degradation
+            if getattr(exc, "soft_fail_exempt", False):
+                raise  # shed / expired / service down surface typed
+            logger.exception("generation failed")
+            answer, meta["generation_error"] = "", str(exc)
         lap("generate")
         verification: dict = {}
         if self.verifier is not None:
@@ -145,8 +176,24 @@ class ChatPipeline:
                 "reranked_ids": [d.id for d in docs],
                 "stage_ms": stage_ms,
                 "generated_tokens": gen_stats.get("tokens", 0),
+                **meta,
             },
         }
+
+    @property
+    def service(self) -> Optional[PagedGenerationService]:
+        """The generation service (None on the contiguous engine)."""
+        return self.generator.provider.service
+
+    def warmup(self) -> Optional[dict]:
+        """Run the service's warmup (every graph variant captured on the
+        card) before traffic; None on the contiguous engine."""
+        return self.service.warmup() if self.service is not None else None
+
+    def close(self) -> None:
+        """Stop the generation service's pump, if any."""
+        if self.service is not None:
+            self.service.close()
 
 
 def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int = 0,
@@ -157,13 +204,16 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
                    embedder_params: Optional[dict] = None,
                    reranker_params: Optional[dict] = None) -> ChatPipeline:
     """Assemble the pipeline from ``settings`` on ``device`` (the card by
-    default). Missing weights are random, made on the device from
-    ``seed``; the retriever follows the retrieval settings (strategy,
-    fusion, BM25 backend) and the engine the generator settings (slots,
-    page size, pages per sequence, ``kv_quant``, the prefix cache, the
-    decode pipeline depth and chunked prefill, as the JAX service hands
-    them to its engine). Settings this package cannot honour raise
-    ``NotImplementedError``."""
+    default). Weights not passed in come from the configured checkpoints or
+    are random, made on the device from ``seed``; the retriever follows
+    the retrieval settings (strategy, fusion, BM25 backend) and the engine
+    the generator settings: with ``USE_PAGED_KV`` (the default) the paged
+    engine (slots, page size, pages per sequence, ``kv_quant``, the prefix
+    cache, the decode pipeline depth and chunked prefill, as the JAX
+    service hands them to its engine) behind a generation service with the
+    serve section's admission bound, default deadline and retry budget;
+    without it the contiguous engine. Settings this package cannot honour
+    raise ``NotImplementedError``."""
     settings = settings or Settings()
     rcfg, gcfg = settings.retrieval, settings.generator
     if rcfg.use_scorers:
@@ -172,8 +222,6 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
         raise NotImplementedError("WEB_CACHE_PATH: the web-cache retrieval leg is not ported")
     if gcfg.draft_checkpoint_path:
         raise NotImplementedError("LLM_DRAFT_CHECKPOINT: speculative decoding is not ported")
-    if not gcfg.use_paged_decode:
-        raise NotImplementedError("USE_PAGED_KV=0: the contiguous engine is not ported")
     if gcfg.verify_mode != "sync":
         raise NotImplementedError(f"VERIFY_MODE={gcfg.verify_mode}: only sync verification "
                                   "is ported")
@@ -198,20 +246,41 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
         reranker = CrossEncoderReranker(settings.rerank, params=reranker_params,
                                         model_config=reranker_config, device=dev,
                                         generator=gen(2))
+    refuse_tokenizer("LLM_TOKENIZER", gcfg.tokenizer_path)
+    if llama_params is None and gcfg.checkpoint_path:
+        llama_params, llama_config = load_llama(gcfg.checkpoint_path, device=dev)
     llama_config = llama_config or (
         LlamaConfig.tiny() if gcfg.model_preset == "tiny" else LlamaConfig.llama3_8b())
     if llama_params is None:
         llama_params = init_llama(llama_config, gen(3), dev)
-    engine = ContinuousBatchingEngine(
-        model_config=llama_config, params=llama_params,
-        max_slots=gcfg.max_batch_size, page_size=gcfg.kv_page_size,
-        max_pages_per_seq=gcfg.kv_max_pages_per_seq, rng_seed=seed,
-        steps_per_tick=gcfg.decode_steps_per_tick,
-        max_tick_steps=gcfg.decode_max_tick_steps, kv_quant=gcfg.kv_quant,
-        prefix_cache=gcfg.prefix_cache, pipeline_depth=gcfg.decode_pipeline_depth,
-        prefill_chunk=gcfg.prefill_chunk or None, device=dev,
-    )
-    generator = LLMGenerator(provider=EngineProvider(engine), config=gcfg)
+    prompts = PromptBuilder()
+    if gcfg.use_paged_decode:
+        engine = ContinuousBatchingEngine(
+            model_config=llama_config, params=llama_params,
+            max_slots=gcfg.max_batch_size, page_size=gcfg.kv_page_size,
+            max_pages_per_seq=gcfg.kv_max_pages_per_seq, rng_seed=seed,
+            steps_per_tick=gcfg.decode_steps_per_tick,
+            max_tick_steps=gcfg.decode_max_tick_steps, kv_quant=gcfg.kv_quant,
+            prefix_cache=gcfg.prefix_cache, pipeline_depth=gcfg.decode_pipeline_depth,
+            prefill_chunk=gcfg.prefill_chunk or None, device=dev,
+        )
+        if gcfg.prefix_cache:
+            # spares the first /chat its cold prefill of the template head,
+            # as the JAX container warms each engine's tree
+            engine.warm_prefix(prompts.static_head("retrieve",
+                                                   instruction=prompts.load("profile")))
+        serve = settings.serve
+        service = PagedGenerationService(
+            engine, max_queue=serve.admission_max_queue or None,
+            default_deadline_s=(serve.default_deadline_ms / 1e3
+                                if serve.default_deadline_ms > 0 else None),
+            retry_budget=serve.crash_retry_budget)
+        provider = EngineProvider(engine, service=service)
+    else:
+        provider = EngineProvider(GeneratorEngine(config=gcfg, model_config=llama_config,
+                                                  params=llama_params, rng_seed=seed,
+                                                  device=dev))
+    generator = LLMGenerator(provider=provider, config=gcfg, prompts=prompts)
     verifier = AnswerVerifier(generator=generator, config=gcfg) if gcfg.use_verifier else None
     return ChatPipeline(embedder=embedder, index=index, retriever=retriever,
                         generator=generator, bm25_index=bm25, reranker=reranker,

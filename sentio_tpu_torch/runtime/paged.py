@@ -43,14 +43,25 @@ through the plain gather path when ``attn_impl`` is set to
 ``_paged_attn_xla``. Prefill keeps plain attention over the dense,
 unquantized cache, as the JAX engine does: an int8 pool quantizes what is
 written into its pages, so the first token is sampled from an unquantized
-prefill (a prefix hit attends to the dequantized prior pages). Left for
-later slices: speculation, ``ignore_eos``, deadlines and meshes.
+prefill (a prefix hit attends to the dequantized prior pages).
+
+The parts the generation service (:mod:`.service`) drives are the JAX
+engine's: per-request deadlines (``submit(deadline_ts=...)``: a request
+still queued when its deadline passes comes back ``expired``), ``cancel``,
+``reset`` after a failed tick, ``spawn_fresh``, ``ignore_eos``,
+prior-token admission and per-request seeds (:func:`fold_seed`), the tick ladder
+(``tick_step_sizes``, ``force_tick_steps``, ``pressure_hint``), TTFT
+samples, and ``step()``'s split into the phases of
+:mod:`sentio_tpu_torch.infra.phases`. Left for later slices: speculation
+and meshes.
 """
 
 from __future__ import annotations
 
+import hashlib
 import itertools
 import time
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Optional, Sequence, Union
 
@@ -58,6 +69,7 @@ import numpy as np
 import torch
 
 from sentio_tpu_torch import resolve_device
+from sentio_tpu_torch.infra.phases import ENGINE_PHASES, PhaseTimer
 from sentio_tpu_torch.kernels import KERNELS, paged_attn_impl
 from sentio_tpu_torch.kernels.paged_attention import (
     QuantPages,
@@ -73,6 +85,16 @@ from sentio_tpu_torch.runtime.sampling import sample_tokens
 
 Tensor = torch.Tensor
 Pages = Union[Tensor, QuantPages]  # a pool's k or v, or one layer of it
+
+
+def fold_seed(generator: torch.Generator, seed: int) -> None:
+    """Reseed ``generator`` from its current state and ``seed`` — JAX's
+    ``fold_in`` of a request's seed into the engine key: engines in the same
+    state draw alike for one seed, and a repeat draws anew."""
+    state = generator.get_state().numpy().tobytes()
+    digest = hashlib.blake2b(state + int(seed).to_bytes(8, "little", signed=True),
+                             digest_size=8).digest()
+    generator.manual_seed(int.from_bytes(digest, "little") & 0x7FFF_FFFF_FFFF_FFFF)
 
 
 # --------------------------------------------------------------------- pool
@@ -320,8 +342,18 @@ class _Request:
     temperature: float
     top_k: int = 0
     submit_t: float = 0.0
+    # absolute time.perf_counter() deadline (None = none): a request still
+    # queued when it passes is dropped before its prefill
+    deadline_ts: Optional[float] = None
     # tokenized once: skip-ahead may look at a queued request many times
     tok_ids: Optional[list] = None
+    # token ids admitted after the truncated prompt as context already
+    # generated; the truncation reserve counts them as if they were part
+    # of max_new, so the prompt truncates as it would without them
+    prior_tokens: Optional[list] = None
+    # per-request seed, applied to the engine's generator once, at the first
+    # admission scan: reproducible draws for a lone sampled request only
+    seed: Optional[int] = None
 
 
 @dataclass
@@ -330,7 +362,7 @@ class PagedResult:
     text: str
     tokens: list[int]
     prompt_tokens: int
-    finish_reason: str  # "stop" | "length"
+    finish_reason: str  # "stop" | "length" | "cancelled" | "expired" | "error"
     # prompt tokens forwarded at admission vs served from the radix prefix
     # cache (prefill_tokens + prefix_hit_tokens == prompt_tokens)
     prefill_tokens: int = 0
@@ -404,6 +436,10 @@ class ContinuousBatchingEngine:
 
     PREFILL_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
     ADMIT_BUCKETS = (1, 2, 4, 8)
+    # the sampling variants a tick can ask for, (all rows greedy, some row
+    # with top-k): a greedy batch ignores top-k, so (True, True) is never
+    # asked for and three graphs cover every tick
+    GRAPH_VARIANTS = ((True, False), (False, False), (False, True))
     # transient f32 score bytes one prefill dispatch may materialize
     # ([rows, H, W, prior + W] in plain attention); wider batches prefill in
     # parts
@@ -420,6 +456,7 @@ class ContinuousBatchingEngine:
         rng_seed: int = 0,
         steps_per_tick: int = 8,
         max_tick_steps: Optional[int] = None,
+        ignore_eos: bool = False,
         pipeline_depth: int = 1,
         kv_quant: str = "none",
         prefill_chunk: Optional[int] = None,
@@ -449,6 +486,9 @@ class ContinuousBatchingEngine:
         self.steps_per_tick = max(int(steps_per_tick), 1)
         self.max_tick_steps = (max(int(max_tick_steps), self.steps_per_tick)
                                if max_tick_steps is not None else self.steps_per_tick)
+        # fixed-length generation (benchmarks): EOS neither halts a row nor
+        # retires it
+        self.ignore_eos = bool(ignore_eos)
         self.pipeline_depth = min(max(int(pipeline_depth), 1), 2)
         self.prefill_chunk = prefill_chunk
         if num_pages is None:
@@ -457,6 +497,7 @@ class ContinuousBatchingEngine:
         self.pool = init_pool(self.cfg, num_pages, page_size, self.device,
                               quantized=kv_quant == "int8")
         self.allocator = PageAllocator(num_pages)
+        self._prefix_cache_enabled = bool(prefix_cache)
         self._radix = RadixPrefixCache(page_size, self.allocator) if prefix_cache else None
         self.attn_impl = paged_attn_impl
         self.cuda_graphs = self.device.type == "cuda"
@@ -470,6 +511,22 @@ class ContinuousBatchingEngine:
         # strict FIFO again until its pages free
         self.head_skip_bound = 16
         self._head_skips = 0
+        # rows that shared the last decode tick (budget > 0 or a first token
+        # folded by it)
+        self.last_tick_active = 0
+        # seconds per phase of the last step() (infra/phases.py); the
+        # service adds its own inbox_drain / deliver sections
+        self._phase = PhaseTimer(ENGINE_PHASES)
+        self.last_step_phases: dict = dict.fromkeys(ENGINE_PHASES, 0.0)
+        # submit() → first token visible on the host, seconds
+        self.ttft_samples: deque = deque(maxlen=1024)
+        self.ttft_count = 0
+        # set by the service: how many callers wait upstream of the queue,
+        # so ticks stay short while they do
+        self.pressure_hint = None
+        # pins the next ticks' length to one rung of tick_step_sizes()
+        # (the service's warmup); ignored for any other value
+        self.force_tick_steps: Optional[int] = None
         # decode sub-steps run on the device, fully masked ones included
         # (a graph's warmup before its capture is one)
         self.total_sub_steps = 0
@@ -484,10 +541,13 @@ class ContinuousBatchingEngine:
         self.graph_captures = 0
         self.graph_replays = 0
         self.graph_capture_s = 0.0
+        # set by the service's warmup once every variant of GRAPH_VARIANTS
+        # is captured: a tick that would capture another is an error
+        self.graphs_frozen = False
         # (first tokens, their logprobs) on the device per admission
-        # dispatch, with their slots; merged into the decode state by the
-        # next tick
-        self._pending_first: list[tuple[Tensor, Tensor, list[int]]] = []
+        # dispatch, with their slots and those slots' request ids; merged
+        # into the decode state by the next tick
+        self._pending_first: list[tuple[Tensor, Tensor, list[int], list[int]]] = []
         self._inflight: Optional[dict] = None  # the unharvested tick at depth 2
         # lanes retired since the last dispatch: their device lens go back
         # to 0 so an idle lane's attention reads one key of scratch page 0
@@ -514,12 +574,21 @@ class ContinuousBatchingEngine:
     # --------------------------------------------------------------- public
 
     def submit(self, prompt: str, max_new_tokens: int = 64, temperature: float = 0.0,
-               top_k: int = 0) -> int:
-        """Queue a request; ``top_k`` (0 = off) is per request, carried by
-        every sampling call of its row."""
+               deadline_ts: Optional[float] = None, top_k: int = 0,
+               prior_tokens: Optional[Sequence[int]] = None,
+               seed: Optional[int] = None) -> int:
+        """Queue a request. ``deadline_ts`` is an absolute
+        ``time.perf_counter()`` deadline: a request still waiting for a slot
+        when it passes comes back with ``finish_reason="expired"``. ``top_k``
+        (0 = off) is per request, carried by every sampling call of its row.
+        ``prior_tokens`` are token ids admitted after the prompt as context
+        already generated; only tokens after them are emitted. ``seed``
+        (None = off) reseeds the engine's generator at admission."""
         rid = next(self._next_id)
-        self._queue.append(_Request(rid, prompt, max_new_tokens, temperature,
-                                    top_k=max(int(top_k), 0), submit_t=time.perf_counter()))
+        self._queue.append(_Request(
+            rid, prompt, max_new_tokens, temperature, top_k=max(int(top_k), 0),
+            submit_t=time.perf_counter(), deadline_ts=deadline_ts,
+            prior_tokens=list(prior_tokens) if prior_tokens else None, seed=seed))
         return rid
 
     def warm_prefix(self, text: str) -> int:
@@ -568,6 +637,89 @@ class ContinuousBatchingEngine:
         max_shared = ((len(tok_ids) - 1) // self.page_size) * self.page_size
         return max(min(matched, max_shared), 0)
 
+    def cancel(self, request_id: int) -> bool:
+        """Abandon a request: queued → dropped; admitted → its slot retires
+        ``"cancelled"`` and frees its pages (the tokens so far are
+        dropped). Returns whether the request was found."""
+        for idx, req in enumerate(self._queue):
+            if req.request_id == request_id:
+                del self._queue[idx]
+                if idx == 0:
+                    # the skip budget belongs to the departed head
+                    self._head_skips = 0
+                return True
+        for i, slot in enumerate(self.slots):
+            if slot.active and slot.request_id == request_id:
+                self._retire(i, "cancelled")
+                return True
+        return False
+
+    def reset(self) -> None:
+        """Rebuild the decode state after a failed tick: queued and admitted
+        requests are dropped (the service already answered their callers),
+        the pool, the allocator, the radix tree and the decode state are
+        cleared, and the generator is reseeded. The pool and the decode
+        state are zeroed in place, so the weights and the captured graphs,
+        which hold their addresses, are kept."""
+        for pages in (self.pool.k, self.pool.v):
+            for t in (pages if isinstance(pages, QuantPages) else (pages,)):
+                t.zero_()
+        self.allocator = PageAllocator(self.allocator.num_pages)
+        self.slots = [_Slot() for _ in range(self.max_slots)]
+        self._queue.clear()
+        self._head_skips = 0
+        self._finished.clear()
+        self._pending_first.clear()
+        self._inflight = None
+        self._stale_lanes.clear()
+        if self._prefix_cache_enabled:
+            self._radix = RadixPrefixCache(self.page_size, self.allocator)
+        for arr in (self._page_table, self._temps, self._top_ks, self._last_tok,
+                    self._lp_sum, self._lp_min, self._lp_cnt):
+            arr[:] = 0
+        for t in vars(self._st).values():
+            t.zero_()
+        self._gen.manual_seed(int(np.random.default_rng().integers(2**31)))
+
+    def spawn_fresh(self) -> "ContinuousBatchingEngine":
+        """A new engine sharing only this one's weights and settings: its
+        own pool, allocator, radix tree, slots and graphs."""
+        return ContinuousBatchingEngine(
+            model_config=self.cfg, params=self.params, max_slots=self.max_slots,
+            page_size=self.page_size, num_pages=self.allocator.num_pages,
+            max_pages_per_seq=self.max_pages_per_seq, steps_per_tick=self.steps_per_tick,
+            max_tick_steps=self.max_tick_steps, ignore_eos=self.ignore_eos,
+            pipeline_depth=self.pipeline_depth, kv_quant=self.kv_quant,
+            prefill_chunk=self.prefill_chunk, prefix_cache=self._prefix_cache_enabled,
+            device=self.device,
+        )
+
+    def partial_step_phases(self) -> dict:
+        """The current step's phase seconds so far: what a step that raised
+        spent (``last_step_phases`` still holds the step before)."""
+        return dict(self._phase.acc)
+
+    def prefill_shapes(self) -> tuple[list[int], list[int]]:
+        """The prefill widths admission can choose, and the JAX engine's
+        prior-page buckets (powers of two up to the window): the shapes the
+        service's warmup admits once each. The port compiles nothing per
+        shape; these admissions take each shape's first allocations out of
+        the first requests."""
+        window = self.max_pages_per_seq * self.page_size
+        # reserve = min(max_new + 2, window // 2) >= 3 tokens
+        widths = sorted({self._prefill_width(n) for n in range(1, max(window - 3, 1) + 1)})
+        priors = sorted({min(1 << (n - 1).bit_length(), self.max_pages_per_seq)
+                         for n in range(1, self.max_pages_per_seq)})
+        return widths, priors
+
+    def tick_step_sizes(self) -> tuple[int, ...]:
+        """Every tick length ``_dispatch_tick`` can choose: the idle queue's
+        big tick and the three rungs of the pressure ladder."""
+        sizes = {self.max_tick_steps}
+        for shrink in (1, 2, 4):
+            sizes.add(max(self.steps_per_tick // shrink, 2))
+        return tuple(sorted(sizes))
+
     @property
     def has_work(self) -> bool:
         return bool(self._queue) or any(s.active for s in self.slots) \
@@ -588,11 +740,20 @@ class ContinuousBatchingEngine:
         wait), advance one chunked-prefill segment, dispatch one fused
         decode tick, harvest. At ``pipeline_depth`` 2 the harvest is of the
         previous tick, after this one is dispatched. Returns the results
-        completed this tick."""
+        completed this tick; ``last_step_phases`` holds its seconds by
+        phase."""
+        acc = self._phase.acc
+        self._phase.reset()
+        t0 = time.perf_counter()
+        self.last_tick_active = 0
         self._admit()
         if self.prefill_chunk is not None:
             self._advance_prefill()
+        t_admit = time.perf_counter()
+        acc["admission_build"] += (t_admit - t0) - acc["prefill_dispatch"]
         record = self._dispatch_tick() if any(s.active for s in self.slots) else None
+        t_dispatch = time.perf_counter()
+        acc["decode_dispatch"] += (t_dispatch - t_admit) - acc["device_wait"]
         # results of retires made while budgeting ride this step's return
         out, self._finished = self._finished, []
         if self.pipeline_depth <= 1:
@@ -602,6 +763,12 @@ class ContinuousBatchingEngine:
             prev, self._inflight = self._inflight, record
             if prev is not None:
                 out.extend(self._harvest(prev))
+        t_harvest = time.perf_counter()
+        # the harvest waits on its tick's event: at depth 2 that tick was
+        # dispatched one step earlier, but this is where the wall clock goes
+        acc["device_wait"] += t_harvest - t_dispatch
+        acc["other"] += time.perf_counter() - t_harvest
+        self.last_step_phases = dict(acc)
         return out
 
     def stats(self) -> dict:
@@ -615,6 +782,7 @@ class ContinuousBatchingEngine:
             "kv_quant": self.kv_quant,
             "pool_hbm_bytes": self.pool.hbm_bytes,
             "head_skips": self._head_skips,
+            "ttft_count": self.ttft_count,
             "prefill_tokens": self.prefill_tokens_total,
             "decode_tokens": self.decode_tokens_total,
             "sub_steps": self.total_sub_steps,
@@ -632,6 +800,10 @@ class ContinuousBatchingEngine:
                 out["prefix_hit_token_ratio"] = round(hit / (hit + miss), 4)
             out["prefix_cache_pages"] = self._radix.pages_held
             out["prefix_cache_nodes"] = self._radix.node_count
+        if self.ttft_samples:
+            ttft = sorted(self.ttft_samples)
+            out["ttft_p50_ms"] = round(ttft[len(ttft) // 2] * 1e3, 2)
+            out["ttft_p95_ms"] = round(ttft[int(len(ttft) * 0.95)] * 1e3, 2)
         return out
 
     # -------------------------------------------------------- device calls
@@ -714,7 +886,8 @@ class ContinuousBatchingEngine:
         st.lp_sum.copy_(torch.where(active, st.lp_sum + lp, st.lp_sum))
         st.lp_min.copy_(torch.where(active, torch.minimum(st.lp_min, lp), st.lp_min))
         st.lp_cnt.copy_(torch.where(active, st.lp_cnt + 1, st.lp_cnt))
-        st.halted.copy_(st.halted | (active & (nxt == self.tokenizer.eos_id)))
+        if not self.ignore_eos:
+            st.halted.copy_(st.halted | (active & (nxt == self.tokenizer.eos_id)))
         st.packed.index_copy_(0, st.idx + 1, nxt[None, :])
         st.idx.add_(1)
 
@@ -725,7 +898,8 @@ class ContinuousBatchingEngine:
         live state; it is a real sub-step and counts as one. The capture
         launches nothing, so the kernels' launch counts are put back and
         the graph's launches per kernel are kept, to be added at each
-        replay."""
+        replay. No other thread may launch work during a capture: the
+        service captures every variant in its warmup, before traffic."""
         t0 = time.perf_counter()
         st = self._st
         st.budgets.zero_()
@@ -749,8 +923,9 @@ class ContinuousBatchingEngine:
             self._sub_step(*variant)
         launches = []
         for kernel, n in zip(KERNELS, before):
-            launches.append((kernel, kernel.launches - n))
-            kernel.launches = n
+            captured = kernel.launches - n
+            launches.append((kernel, captured))
+            kernel.add_launches(-captured)
         self._graphs[variant] = (graph, launches)
         self.graph_captures += 1
         self.graph_capture_s += time.perf_counter() - t0
@@ -764,7 +939,7 @@ class ContinuousBatchingEngine:
         for _ in range(n_steps):
             graph.replay()
         for kernel, n in launches:
-            kernel.launches += n * n_steps
+            kernel.add_launches(n * n_steps)
         self.graph_replays += n_steps
 
     # -------------------------------------------------------------- private
@@ -824,14 +999,30 @@ class ContinuousBatchingEngine:
             return
         window = self.max_pages_per_seq * self.page_size
         batch: list[tuple[int, _Request, list[int], int]] = []
+        now = time.perf_counter()
         qi = 0
         while qi < len(self._queue) and free:
             req = self._queue[qi]
+            if req.deadline_ts is not None and now >= req.deadline_ts:
+                # the caller's deadline passed while queued: drop it before
+                # paying for its prefill
+                self._queue.pop(qi)
+                if qi == 0:
+                    self._head_skips = 0
+                self._finished.append(PagedResult(
+                    request_id=req.request_id, text="", tokens=[], prompt_tokens=0,
+                    finish_reason="expired"))
+                continue
             if req.tok_ids is None:
                 # generation gets its tokens up to HALF the window; the
-                # prompt always keeps at least the other half
-                reserve = min(req.max_new + 2, window // 2)
-                req.tok_ids = self.tokenizer.encode(req.prompt, add_bos=True)[: window - reserve]
+                # prompt always keeps at least the other half (prior tokens
+                # count as generation, so the prompt truncates as without)
+                prior = req.prior_tokens or []
+                reserve = min(req.max_new + len(prior) + 2, window // 2)
+                req.tok_ids = (self.tokenizer.encode(req.prompt, add_bos=True)[: window - reserve]
+                               + list(prior))
+                if req.seed is not None:
+                    fold_seed(self._gen, req.seed)
             tok_ids = req.tok_ids
             cache_live = self._radix is not None and not self._radix.empty
             shared, match_pages, match_node = self._match_radix(tok_ids)
@@ -927,7 +1118,8 @@ class ContinuousBatchingEngine:
         slot_idxs = [slot_idx for slot_idx, _r, _t, _s in chunk]
         for slot_idx in slot_idxs:
             self.slots[slot_idx].pending_first = True
-        self._pending_first.append((first, first_lp, slot_idxs))
+        self._pending_first.append((first, first_lp, slot_idxs,
+                                    [self.slots[i].request_id for i in slot_idxs]))
         for slot_idx, _req, tok_ids, shared in chunk:
             self._radix_insert(slot_idx, tok_ids, shared)
 
@@ -973,12 +1165,13 @@ class ContinuousBatchingEngine:
                 prior_table[r, : len(prior)] = prior
             n_prior_arr = np.zeros(rows, np.int64)
             n_prior_arr[:n] = n_prior
-        last = self.prefill_forward(ids, lens, scat, prior_table, n_prior_arr)
-        if not do_sample:
-            return None, None
-        first, first_lp = sample_tokens(
-            last, self._gen, self._to_device(temps), self._to_device(top_ks),
-            all_greedy=bool((temps <= 0).all()), any_top_k=bool((top_ks > 0).any()))
+        with self._phase.phase("prefill_dispatch"):
+            last = self.prefill_forward(ids, lens, scat, prior_table, n_prior_arr)
+            if not do_sample:
+                return None, None
+            first, first_lp = sample_tokens(
+                last, self._gen, self._to_device(temps), self._to_device(top_ks),
+                all_greedy=bool((temps <= 0).all()), any_top_k=bool((top_ks > 0).any()))
         return first[:n], first_lp[:n]
 
     def _advance_prefill(self) -> None:
@@ -1006,7 +1199,7 @@ class ContinuousBatchingEngine:
         if is_last:
             slot.prefill_todo = None
             slot.pending_first = True
-            self._pending_first.append((first, first_lp, [i]))
+            self._pending_first.append((first, first_lp, [i], [slot.request_id]))
             # the last segment completes the prompt's KV
             self._radix_insert(i, slot.prompt_ids, slot.shared_tokens)
         else:
@@ -1032,19 +1225,32 @@ class ContinuousBatchingEngine:
             remaining[i] = max(min(slot.max_new - base_emit, capacity - 1 - written), 0)
             if remaining[i] == 0 and not slot.pending_first and slot.inflight_steps == 0:
                 self._finished.append(self._retire(i, "length"))
-        # an idle queue runs the big tick; waiting requests shrink it so
-        # freed slots refill sooner
+        # an idle queue runs the big tick; waiting requests (the engine's
+        # queue and, through pressure_hint, the service's inbox) shrink it
+        # so freed slots refill sooner
         waiting = len(self._queue)
+        if self.pressure_hint is not None:
+            waiting += int(self.pressure_hint())
         if waiting == 0:
             steps = self.max_tick_steps
         else:
             shrink = 1 << min(waiting // max(self.max_slots, 1), 2)
             steps = max(self.steps_per_tick // shrink, 2)
+        if self.force_tick_steps in self.tick_step_sizes():
+            steps = self.force_tick_steps
         budgets = np.minimum(remaining, steps).astype(np.int32)
-        pending_slots = {i for _f, _lp, idxs in pending for i in idxs if self.slots[i].active}
+        # a lane cancelled after its admission keeps no pending first token
+        pending = [(first, first_lp, idxs, [self._live(i, rid) for i, rid in zip(idxs, rids)])
+                   for first, first_lp, idxs, rids in pending]
+        pending_slots = {i for _f, _lp, idxs, live in pending
+                         for i, ok in zip(idxs, live) if ok}
+        self.last_tick_active = int(((budgets > 0)
+                                     | np.isin(np.arange(self.max_slots),
+                                               list(pending_slots))).sum())
         if not budgets.any():
             if pending_slots:
-                self._fold_pending(pending)
+                with self._phase.phase("device_wait"):
+                    self._fold_pending(pending)
             return None
 
         st = self._st
@@ -1053,14 +1259,18 @@ class ContinuousBatchingEngine:
         all_greedy = bool((self._temps <= 0).all())
         variant = (all_greedy, not all_greedy and bool((self._top_ks > 0).any()))
         if self.device.type == "cuda" and self.cuda_graphs and variant not in self._graphs:
+            if self.graphs_frozen:
+                raise RuntimeError(f"decode tick needs a CUDA graph for sampling variant "
+                                   f"{variant}, which warmup did not capture")
             self._capture(variant)
         st.table.copy_(self._stage(self._page_table), non_blocking=True)
         st.budgets.copy_(self._stage(budgets), non_blocking=True)
         st.temps.copy_(self._stage(self._temps), non_blocking=True)
         st.top_ks.copy_(self._stage(self._top_ks), non_blocking=True)
         self._merge_admitted(pending)
-        # rows whose deferred first token is already EOS never run
-        st.halted.copy_(st.halted | (st.tok == self.tokenizer.eos_id))
+        if not self.ignore_eos:
+            # rows whose deferred first token is already EOS never run
+            st.halted.copy_(st.halted | (st.tok == self.tokenizer.eos_id))
         st.packed[0].copy_(st.tok)
         st.idx.zero_()
         n_steps = int(budgets.max())
@@ -1089,13 +1299,19 @@ class ContinuousBatchingEngine:
                 # harvested must not get the old request's tokens
                 "rids": [s.request_id for s in self.slots]}
 
+    def _live(self, i: int, request_id: int) -> bool:
+        """Slot ``i`` still serves ``request_id``."""
+        return self.slots[i].active and self.slots[i].request_id == request_id
+
     def _merge_admitted(self, pending: list) -> None:
         """Scatter the admitted rows' device-resident first tokens, prompt
         lengths, a cleared halt flag and the first logprob seeding the
         accumulators into the decode state; zero the lens of lanes retired
         since the last tick."""
         st = self._st
-        idxs = [i for _f, _lp, slot_idxs in pending for i in slot_idxs]
+        keep = [ok for _f, _lp, _s, live in pending for ok in live]
+        idxs = [i for _f, _lp, slot_idxs, live in pending
+                for i, ok in zip(slot_idxs, live) if ok]
         stale = sorted(self._stale_lanes - set(idxs))
         self._stale_lanes.clear()
         if stale:
@@ -1103,8 +1319,11 @@ class ContinuousBatchingEngine:
         if not idxs:
             return
         idx = self._to_device(np.asarray(idxs, np.int64))
-        first = torch.cat([f for f, _lp, _s in pending])
-        first_lp = torch.cat([lp for _f, lp, _s in pending])
+        first = torch.cat([f for f, _lp, _s, _l in pending])
+        first_lp = torch.cat([lp for _f, lp, _s, _l in pending])
+        if not all(keep):
+            picked = self._to_device(np.flatnonzero(keep))
+            first, first_lp = first[picked], first_lp[picked]
         st.tok.index_copy_(0, idx, first)
         st.lens.index_copy_(0, idx, self._to_device(
             np.asarray([self.slots[i].length for i in idxs], np.int32)))
@@ -1117,13 +1336,14 @@ class ContinuousBatchingEngine:
         """Nothing can decode, but deferred first tokens need folding (a
         max_new_tokens=1 burst): fetch them directly instead of running a
         fully masked tick. The fetch waits for the device."""
-        for first, first_lp, slot_idxs in pending:
+        for first, first_lp, slot_idxs, live in pending:
             vals, lps = first.cpu().numpy(), first_lp.cpu().numpy()
             for r, i in enumerate(slot_idxs):
                 slot = self.slots[i]
-                if not slot.active:
+                if not live[r]:
                     continue
                 slot.pending_first = False
+                self._note_ttft(slot)
                 self._last_tok[i] = int(vals[r])
                 self._lp_sum[i] = self._lp_min[i] = lps[r]
                 self._lp_cnt[i] = 1
@@ -1153,6 +1373,7 @@ class ContinuousBatchingEngine:
             self._lp_cnt[i] = int(lp_rows[2, i])
             if slot.pending_first and i in record["pending_slots"]:
                 slot.pending_first = False
+                self._note_ttft(slot)
                 self._last_tok[i] = int(packed[0, i])
                 result = self._fold_and_maybe_retire(i)
                 if result is not None:
@@ -1173,7 +1394,7 @@ class ContinuousBatchingEngine:
         slot = self.slots[i]
         tok = int(self._last_tok[i])
         self.decode_tokens_total += 1
-        hit_eos = tok == self.tokenizer.eos_id
+        hit_eos = tok == self.tokenizer.eos_id and not self.ignore_eos
         if not hit_eos:
             slot.emitted.append(tok)
         hit_len = len(slot.emitted) >= slot.max_new
@@ -1182,6 +1403,13 @@ class ContinuousBatchingEngine:
         if hit_eos or hit_len or out_of_pages:
             return self._retire(i, "stop" if hit_eos else "length")
         return None
+
+    def _note_ttft(self, slot: _Slot) -> None:
+        """Called where ``pending_first`` flips False: the moment the first
+        sampled token is visible on the host."""
+        if slot.submit_t > 0.0:
+            self.ttft_samples.append(time.perf_counter() - slot.submit_t)
+            self.ttft_count += 1
 
     def _retire(self, i: int, reason: str) -> PagedResult:
         """Free a slot's pages (minus those donated to the radix cache),

@@ -10,10 +10,17 @@
   format (``arrays.npz`` + ``manifest.json``, bf16 stored as a uint16 view)
   with numpy alone, so a checkpoint such as ``artifacts/encoder-ck`` loads
   without JAX.
+* :func:`load_model` resolves a checkpoint to (params, config) by the
+  family its meta records, as ``sentio_tpu/runtime/weights.py::load_model``
+  does, with the same :class:`WeightsError` messages; :func:`load_llama`
+  is the generator's (``LLM_CHECKPOINT``). A ``moe`` checkpoint and every
+  tokenizer path raise ``NotImplementedError``: MoE serving is not ported,
+  and the JAX package's tokenizer for a path needs ``transformers``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 from pathlib import Path
 from typing import Any, Optional
@@ -21,6 +28,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from sentio_tpu_torch.models.llama import LlamaConfig
 from sentio_tpu_torch.models.transformer import EncoderConfig
 
 FORMAT_VERSION = 1
@@ -127,3 +135,67 @@ def load_encoder(path, dtype: Optional[torch.dtype] = None,
     if meta.get("family") != "encoder":
         raise ValueError(f"{path} is a {meta.get('family')!r} checkpoint, not an encoder")
     return encoder_from_jax(tree, dtype, device), EncoderConfig(**meta["config"])
+
+
+class WeightsError(Exception):
+    pass
+
+
+# family → (config class, parameter-tree converter)
+_FAMILIES = {
+    "llama": (LlamaConfig, llama_from_jax),
+    "encoder": (EncoderConfig, encoder_from_jax),
+    "cross-encoder": (EncoderConfig, cross_encoder_from_jax),
+}
+
+
+def refuse_tokenizer(setting: str, path: str) -> None:
+    """A ``*_TOKENIZER`` path names a Hugging Face tokenizer directory; the
+    JAX package loads it through ``transformers``, which this package does
+    not use."""
+    if path:
+        raise NotImplementedError(f"{setting}={path!r}: tokenizers other than the byte "
+                                  "tokenizer are not ported")
+
+
+def load_model(path, expect_family: Optional[str] = None, setting: str = "checkpoint",
+               dtype: Optional[torch.dtype] = None, device="cpu") -> tuple[dict, Any]:
+    """A ``save_pytree`` checkpoint → (params, config): the meta's family
+    picks the config class, rebuilt from the meta's recorded config, and the
+    converter. ``setting`` names the setting in the ``NotImplementedError``
+    a ``moe`` checkpoint raises."""
+    try:
+        tree, meta = load_pytree(path)
+    except (OSError, ValueError, KeyError) as exc:
+        raise WeightsError(f"cannot load checkpoint {str(path)!r}: {exc}") from exc
+    family = meta.get("family")
+    if expect_family and family and family != expect_family:
+        raise WeightsError(f"checkpoint {str(path)!r} holds a {family!r} model, "
+                           f"expected {expect_family!r}")
+    cfg_dict = meta.get("config")
+    if not cfg_dict:
+        raise WeightsError(f"checkpoint {str(path)!r} has no config in meta")
+    lookup = family or expect_family
+    if lookup == "moe":
+        raise NotImplementedError(f"{setting}={str(path)!r} holds a 'moe' model: MoE "
+                                  "serving is not ported")
+    if lookup not in _FAMILIES:
+        raise WeightsError(f"unknown model family {lookup!r} in {str(path)!r}")
+    cfg_cls, convert = _FAMILIES[lookup]
+    # JSON stores tuples as lists; frozen configs keep tuples hashable
+    fields = {f.name: str(f.type).lower() for f in dataclasses.fields(cfg_cls)}
+    kwargs = {k: tuple(v) if isinstance(v, list) and "tuple" in fields[k] else v
+              for k, v in cfg_dict.items() if k in fields}
+    return convert(tree, dtype, device), cfg_cls(**kwargs)
+
+
+def load_llama(path, tokenizer_path: str = "", device="cpu") -> tuple[dict, LlamaConfig]:
+    """``LLM_CHECKPOINT`` → (params, LlamaConfig), checked as the JAX
+    generator engine checks it: a checkpoint of another family is a
+    :class:`WeightsError`."""
+    refuse_tokenizer("LLM_TOKENIZER", tokenizer_path)
+    params, cfg = load_model(path, setting="LLM_CHECKPOINT", device=device)
+    if not isinstance(cfg, LlamaConfig):
+        raise WeightsError(f"checkpoint {str(path)!r} holds a {type(cfg).__name__} model "
+                           "— the generator engine serves decoder families (llama, moe)")
+    return params, cfg

@@ -387,3 +387,77 @@ def test_capture_with_sampled_rows(dev):
     assert done[ids[0]].tokens == want[0] and done[ids[1]].tokens == want[1]
     assert len(done[ids[2]].tokens) == 12 and max(done[ids[2]].tokens) < SMALL.vocab_size
     assert (False, True) in engine._graphs and engine.graph_replays > 0
+
+
+# ------------------------------------- the contiguous engine and the service
+
+
+@pytest.mark.parametrize("t,s", [(40, 96), (200, 384), (256, 512)])
+def test_causal_flash_d128_over_a_cache_window(dev, t, s):
+    """The contiguous engine's prefill: D 128, keys over the whole window
+    (kv_lens None, S > T), the window's tail NaN (unwritten in the engine):
+    the kernel reads none of it, with T a multiple of the query tile and
+    not."""
+    from sentio_tpu_torch.kernels import flash_attn_fn
+
+    gen = torch.Generator(device=dev).manual_seed(t + s)
+    b, h, d = 2, 4, 128
+    q = torch.randn((b, t, h, d), generator=gen, device=dev, dtype=torch.bfloat16)
+    k, v = (torch.randn((b, s, h, d), generator=gen, device=dev, dtype=torch.bfloat16)
+            for _ in range(2))
+    k[:, t:] = float("nan")
+    v[:, t:] = float("nan")
+    out = flash_attn_fn(q, k, v)
+    torch.cuda.synchronize()
+    ref = flash_attention_plain(q.float(), k.float(), v.float(), None, causal=True)
+    diff = (out.float() - ref).abs()
+    assert bool(out.isfinite().all())
+    assert diff.max().item() <= ATOL and diff.mean().item() <= 2e-3
+
+
+# head_dim 128, as Llama-3-8B's
+WIDE_HEADS = LlamaConfig(vocab_size=512, dim=256, n_layers=2, n_heads=2, n_kv_heads=1,
+                         mlp_dim=512, max_len=1024, rope_theta=10_000.0)
+
+
+def test_contiguous_engine_launches_flash_per_layer_per_prefill(dev):
+    """GeneratorEngine on the card: each prefill launches the flash kernel
+    once per layer (the card's own count agrees), decode never; ``stream``
+    gives ``generate``'s greedy text."""
+    from sentio_tpu_torch.config import GeneratorConfig
+    from sentio_tpu_torch.runtime.engine import GeneratorEngine
+
+    engine = GeneratorEngine(config=GeneratorConfig(max_new_tokens=8),
+                             model_config=WIDE_HEADS, device=dev)
+    FLASH_KERNEL.launches = 0
+    card0 = FLASH_KERNEL.device_launches()[0]
+    results = engine.generate(PROMPTS, max_new_tokens=8, temperature=0.0)
+    results += engine.generate(PROMPTS[:1], max_new_tokens=8, temperature=0.0)
+    torch.cuda.synchronize()
+    assert engine.prefills == 2
+    assert FLASH_KERNEL.launches == WIDE_HEADS.n_layers * engine.prefills
+    assert FLASH_KERNEL.device_launches()[0] - card0 == FLASH_KERNEL.launches
+    assert all(len(r.tokens) <= 8 for r in results)
+    assert "".join(engine.stream(PROMPTS[0], max_new_tokens=8, temperature=0.0)) \
+        == results[0].text
+
+
+def test_no_capture_after_warmup(dev):
+    """The service's warmup captures every graph variant; greedy, sampled
+    and top-k traffic afterwards replays them and captures nothing."""
+    from sentio_tpu_torch.runtime.service import PagedGenerationService
+
+    engine = _engine(dev)
+    service = PagedGenerationService(engine, default_timeout_s=120)
+    try:
+        stats = service.warmup()
+        assert stats["graph_captures"] == len(engine.GRAPH_VARIANTS) == 3
+        assert engine.graphs_frozen
+        replays = engine.graph_replays
+        for temperature, top_k in ((0.0, 0), (0.8, 0), (0.8, 5)):
+            result = service.generate(PROMPTS[1], max_new_tokens=10,
+                                      temperature=temperature, top_k=top_k)
+            assert result.finish_reason in ("stop", "length")
+        assert engine.graph_captures == 3 and engine.graph_replays > replays
+    finally:
+        service.close()

@@ -118,12 +118,13 @@ def _build(shared, strategy, kv_quant):
                               config=js.generator)
     retriever = create_retriever(settings=js, embedder=embedder, dense_index=index,
                                  bm25_index=JBM25Index().build(index.documents()))
+    reranker = JReranker(js.rerank, params=shared["ce_tree"], model_config=enc)
     graph = build_basic_graph(
-        retriever, generator,
-        reranker=JReranker(js.rerank, params=shared["ce_tree"], model_config=enc),
+        retriever, generator, reranker=reranker,
         verifier=JVerifier(generator=generator, config=js.generator),
         config=GraphConfig(settings=js),
     )
+    graph.parts = {"retriever": retriever, "reranker": reranker, "generator": generator}
 
     # ---- the port, same weights and settings
     ts = Settings(
@@ -209,7 +210,7 @@ def test_int8_chat_matches_jax_graph(hybrid_int8, question):
     ("retrieval", "use_scorers", True),
     ("retrieval", "web_cache_path", "/nonexistent/cache"),
     ("generator", "draft_checkpoint_path", "/nonexistent/draft"),  # LLM_DRAFT_CHECKPOINT
-    ("generator", "use_paged_decode", False),  # USE_PAGED_KV=0
+    ("generator", "tokenizer_path", "/nonexistent/tokenizer"),  # LLM_TOKENIZER
     ("generator", "verify_mode", "gated"),
 ])
 def test_build_pipeline_refuses_what_it_cannot_honour(section, field, value):
@@ -263,3 +264,124 @@ def test_cli_honours_strategy_and_kv_quant(monkeypatch, capsys, strategy, kv_qua
     assert pipeline.generator.provider.engine.kv_quant == kv_quant
     assert pipeline.generator.provider.engine.pool.quantized == (kv_quant == "int8")
     assert response["metadata"]["retrieved_ids"]
+
+
+# ---- the /chat template head (C2) and the degradation ladder (C3)
+
+
+def _port_pipeline(shared, **gen):
+    """A fresh port pipeline on the shared weights (dense retrieval)."""
+    enc, lcfg = shared["enc"], shared["lcfg"]
+    ts = Settings(retrieval=RetrievalConfig(strategy="dense", top_k=6),
+                  rerank=RerankConfig(top_k=3), embedder=EmbedderConfig(model_preset="tiny"),
+                  generator=GeneratorConfig(model_preset="tiny",
+                                            **{**GEN, **ENGINE, "dtype": "float32", **gen}))
+    pipeline = build_pipeline(
+        ts, device="cpu", llama_config=LlamaConfig(**dataclasses.asdict(lcfg)),
+        embedder_config=EncoderConfig(**dataclasses.asdict(enc)),
+        reranker_config=EncoderConfig(**dataclasses.asdict(enc)),
+        llama_params=weights.llama_from_jax(shared["llama_tree"]),
+        embedder_params=weights.encoder_from_jax(shared["enc_tree"]),
+        reranker_params=weights.cross_encoder_from_jax(shared["ce_tree"]))
+    pipeline.ingest([Document(text=d.text, metadata=dict(d.metadata), id=d.id)
+                     for d in shared["docs"]])
+    return pipeline
+
+
+def test_template_head_is_warmed_as_jax_warms_it(shared):
+    """build_pipeline warms JAX's static_head of the retrieve template into
+    the radix tree, so chat 1's generate hits as many prompt tokens as on a
+    JAX engine warmed with the same head."""
+    from sentio_tpu.ops.prompts import PromptBuilder as JPromptBuilder
+
+    jp = JPromptBuilder()
+    head = jp.static_head("retrieve", instruction=jp.load("profile"))
+    pipeline = _port_pipeline(shared)
+    try:
+        prompts = pipeline.generator.prompts
+        assert prompts.static_head("retrieve", instruction=prompts.load("profile")) == head
+        engine = pipeline.generator.provider.engine
+        head_ids = engine.tokenizer.encode(head, add_bos=True)
+        full = len(head_ids) // engine.page_size * engine.page_size
+        assert full > 0 and engine._radix.peek_prefix(head_ids) == full
+        results = []
+        generate = pipeline.service.generate
+        pipeline.service.generate = lambda *a, **kw: results.append(generate(*a, **kw)) \
+            or results[-1]
+        question = QUESTIONS[0]
+        docs = pipeline.retriever.retrieve(question, 6)
+        docs = pipeline.reranker.rerank(question, docs, top_k=3).documents
+        prompt = pipeline.generator.build_prompt(question, docs)
+        pipeline.chat(question, mode="fast")
+    finally:
+        pipeline.close()
+    jengine = JEngine(model_config=shared["lcfg"], params=shared["llama_tree"], max_slots=4,
+                      page_size=16, max_pages_per_seq=32, steps_per_tick=8)
+    assert jengine.warm_prefix(head) == full
+    (ref,) = jengine.run_all([prompt], max_new_tokens=GEN["max_new_tokens"], temperature=0.0)
+    assert results[0].prefix_hit_tokens == ref.prefix_hit_tokens == full
+    assert results[0].tokens == ref.tokens
+
+
+@pytest.mark.parametrize("leg", ["retrieval", "rerank", "generation"])
+def test_failing_leg_degrades_as_jax(both, monkeypatch, leg):
+    """A retrieval or generation error gives an empty list or answer and
+    the JAX metadata key with the error's text; a rerank error keeps the
+    retrieval order and sets rerank_fallback — on both sides."""
+    graph, pipeline = both
+    question = QUESTIONS[0]
+    exc = RuntimeError(f"{leg} leg down")
+
+    def boom(*_a, **_kw):
+        raise exc
+
+    async def aboom(*_a, **_kw):
+        raise exc
+
+    parts = graph.parts
+    if leg == "retrieval":
+        monkeypatch.setattr(pipeline.retriever, "retrieve", boom)
+        monkeypatch.setattr(parts["retriever"], "aretrieve", aboom)
+    elif leg == "rerank":
+        monkeypatch.setattr(pipeline.reranker, "_score", boom)
+        monkeypatch.setattr(parts["reranker"], "_score", boom)
+    else:
+        monkeypatch.setattr(pipeline.generator.provider, "chat", boom)
+        monkeypatch.setattr(parts["generator"].provider, "chat", boom)
+    state = graph.invoke(create_initial_state(question, metadata={"mode": "fast"}))
+    got = pipeline.chat(question, mode="fast")
+    meta, ref_meta = got["metadata"], state["metadata"]
+    if leg == "retrieval":
+        assert meta["retrieval_error"] == ref_meta["retrieval_error"] == str(exc)
+        assert meta["retrieved_ids"] == [] == state["retrieved_documents"]
+    elif leg == "rerank":
+        assert meta["rerank_fallback"] is True and ref_meta["rerank_fallback"] is True
+        assert meta["reranked_ids"] == [d.id for d in state["reranked_documents"]]
+        assert meta["reranked_ids"] == meta["retrieved_ids"][:3]
+        assert [s["score"] for s in got["sources"]] == pytest.approx(
+            [s["score"] for s in ChatHandler._serialize_sources(state)])
+    else:
+        assert meta["generation_error"] == ref_meta["generation_error"] == str(exc)
+        assert got["answer"] == state["response"] == ""
+    assert got["answer"] == state["response"]
+
+
+def test_soft_fail_exempt_errors_raise(both, monkeypatch):
+    """A shed (soft_fail_exempt) is not degraded into an empty answer."""
+    from sentio_tpu.infra.exceptions import ServiceOverloaded as JOverloaded
+    from sentio_tpu_torch.infra.exceptions import ServiceOverloaded
+
+    graph, pipeline = both
+
+    def shed(*_a, **_kw):
+        raise ServiceOverloaded("decode queue full")
+
+    def jshed(*_a, **_kw):
+        raise JOverloaded("decode queue full")
+
+    monkeypatch.setattr(pipeline.generator.provider, "chat", shed)
+    monkeypatch.setattr(graph.parts["generator"].provider, "chat", jshed)
+    with pytest.raises(ServiceOverloaded):
+        pipeline.chat(QUESTIONS[0], mode="fast")
+    with pytest.raises(JOverloaded):
+        graph.invoke(create_initial_state(QUESTIONS[0], metadata={"mode": "fast"}))
