@@ -568,9 +568,11 @@ def build_slice(torch, dev, phase: str, settings, shared=None):
         warm = pipeline.warmup()
         torch.cuda.synchronize()
         emit(f"{phase}_warmup", **warm, graphs_frozen=engine.graphs_frozen)
-        if warm["graph_captures"] != len(engine.GRAPH_VARIANTS) or not engine.graphs_frozen:
+        if (warm["graph_captures"] != len(engine.GRAPH_VARIANTS) or not engine.graphs_frozen
+                or warm["head_tokens"] <= 0):
             raise AssertionError(f"{phase}: warmup must capture every graph variant "
-                                 f"({len(engine.GRAPH_VARIANTS)}): {warm}")
+                                 f"({len(engine.GRAPH_VARIANTS)}) and leave the template "
+                                 f"head warm: {warm}")
 
     docs, words = corpus(N_CHUNKS)
     t0 = time.perf_counter()
@@ -658,6 +660,9 @@ def run_slice(torch, dev, phase: str, settings, shared=None) -> dict:
         check_answered(phase, i, response)
     if chats[0][0]["metadata"]["retrieved_ids"][0] != docs[17].id:
         raise AssertionError(f"{phase}: a chunk's own text did not retrieve that chunk first")
+    if calls[0]["prefix_hit_tokens"] <= 0:
+        raise AssertionError(f"{phase}: chat 1's generate missed the warmed template head: "
+                             f"{calls[0]}")
     n_layers = engine.cfg.n_layers
     emit(phase, chats=len(chats), seconds=window["seconds"], decode_sub_steps=sub_steps,
          launches=launches, device_launches=card, expected_decode_launches=n_layers * sub_steps,
@@ -746,8 +751,10 @@ def contig_logits_check(torch, pipeline, prompt: str) -> dict:
     kernel and through plain attention, then 4 teacher-forced decode steps
     (plain attention over each run's own cache; the forced tokens are the
     kernel run's greedy picks): the last prompt logit and the 4 steps held
-    to LOGITS_LIMIT. Also times one decode step (16 in a row, CUDA
-    events)."""
+    to LOGITS_LIMIT. Also times one eager decode step (16 in a row, CUDA
+    events) and, under the profiler, its device busy time."""
+    from torch.profiler import ProfilerActivity, profile
+
     from sentio_tpu_torch.kernels import flash_attn_fn
     from sentio_tpu_torch.models.llama import llama_forward
 
@@ -772,15 +779,24 @@ def contig_logits_check(torch, pipeline, prompt: str) -> dict:
                 at = at + 1
         runs.append(torch.stack(steps))
         if attn_fn is not None:
-            decode_ms = time_ms(torch, lambda: engine._decode_step(
-                torch.tensor(forced[:1], device=at.device), at, cache, 0.0, 0),
-                iters=16, warmup=2)
+            def step():
+                engine._decode_step(torch.tensor(forced[:1], device=at.device), at, cache,
+                                    0.0, 0)
+
+            decode_ms = time_ms(torch, step, iters=16, warmup=2)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(4):
+                    step()
+                torch.cuda.synchronize()
+            decode_busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                                 if e.self_device_time_total > 0) / 4e3
         del cache
     engine.attn_fn = flash_attn_fn
     diff = (runs[0] - runs[1]).abs().amax(dim=-1).tolist()
     result = {"prompt_tokens": int(lens[0]), "prefill_width": int(ids.shape[1]),
               "window": window, "max_abs_diff_per_step": diff,
               "logit_std": float(runs[1].std()), "decode_step_ms": decode_ms,
+              "decode_step_device_busy_ms": decode_busy_ms,
               "greedy_agree": [int(a) == int(b) for a, b in
                                zip(runs[0].argmax(-1).tolist(), runs[1].argmax(-1).tolist())]}
     emit("logits_contig", **result)
@@ -1061,6 +1077,8 @@ def service_check(torch, pipeline, words) -> dict:
             raise AssertionError(f"service chat {i} raised: {item!r}") from item
         check_answered("service", i, item[0])
     seconds = sorted(sec for _r, sec in out)
+    phase_s = {k: svc1["phase_seconds"][k] - svc0["phase_seconds"][k]
+               for k in svc1["phase_seconds"]}
     sub_steps = after["sub_steps"] - before["sub_steps"]
     decode = "paged_attention_quant" if engine.pool.quantized else "paged_attention"
     other = "paged_attention" if engine.pool.quantized else "paged_attention_quant"
@@ -1072,7 +1090,9 @@ def service_check(torch, pipeline, words) -> dict:
               "max_active_slots": svc1["max_active_slots"], "decode_sub_steps": sub_steps,
               "graph_captures_delta": after["graph_captures"] - before["graph_captures"],
               "completed": svc1["completed"] - svc0["completed"], "shed": svc1["shed"],
-              "duty_cycle": svc1["duty_cycle"], "launches": launches, "device_launches": card}
+              "pump_phase_s": phase_s,
+              "stage_ms": [item[0]["metadata"]["stage_ms"] for item in out],
+              "launches": launches, "device_launches": card}
     emit("service", **result)
     if result["graph_captures_delta"] or result["shared_ticks"] <= 0:
         raise AssertionError(f"service: a capture under traffic, or no tick shared: {result}")

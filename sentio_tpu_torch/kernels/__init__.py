@@ -32,8 +32,11 @@ KERNELS = (PAGED_KERNEL, PAGED_QUANT_KERNEL, FLASH_KERNEL)
 def flash_attn_fn(q, k, v, kv_lens=None):
     """Causal adapter for ``llama_forward(attn_fn=...)``: query i attends
     keys 0..i. The keys may run past the queries (a prefill over a cache
-    window: S >= T); no query attends them, and the kernel reads none."""
-    return flash_attention(q, k, v, kv_lens, causal=True)
+    window: S >= T); no query attends them, and the kernel reads none.
+    Inputs are made contiguous (a no-op on the main path): with one kv
+    head, ``repeat_kv`` returns a stride-0 view."""
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), kv_lens,
+                           causal=True)
 
 
 def default_attn_fn(device):

@@ -109,6 +109,8 @@ class ChatPipeline:
     reranker: Optional[CrossEncoderReranker] = None
     verifier: Optional[AnswerVerifier] = None
     settings: Settings = field(default_factory=Settings)
+    # the /chat template head warmed into the paged engine's radix tree
+    warm_head: str = ""
 
     def ingest(self, documents: Sequence[Document]) -> int:
         """Embed ``documents``, add them to the index and rebuild the BM25
@@ -187,8 +189,16 @@ class ChatPipeline:
 
     def warmup(self) -> Optional[dict]:
         """Run the service's warmup (every graph variant captured on the
-        card) before traffic; None on the contiguous engine."""
-        return self.service.warmup() if self.service is not None else None
+        card) before traffic, then warm the template head again: warmup's
+        own prompts fill the radix tree and can evict it. None on the
+        contiguous engine."""
+        if self.service is None:
+            return None
+        stats = self.service.warmup()
+        if self.warm_head:
+            self.service.wait_idle()
+            stats["head_tokens"] = self.service.engine.warm_prefix(self.warm_head)
+        return stats
 
     def close(self) -> None:
         """Stop the generation service's pump, if any."""
@@ -254,6 +264,7 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
     if llama_params is None:
         llama_params = init_llama(llama_config, gen(3), dev)
     prompts = PromptBuilder()
+    warm_head = ""
     if gcfg.use_paged_decode:
         engine = ContinuousBatchingEngine(
             model_config=llama_config, params=llama_params,
@@ -267,8 +278,8 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
         if gcfg.prefix_cache:
             # spares the first /chat its cold prefill of the template head,
             # as the JAX container warms each engine's tree
-            engine.warm_prefix(prompts.static_head("retrieve",
-                                                   instruction=prompts.load("profile")))
+            warm_head = prompts.static_head("retrieve", instruction=prompts.load("profile"))
+            engine.warm_prefix(warm_head)
         serve = settings.serve
         service = PagedGenerationService(
             engine, max_queue=serve.admission_max_queue or None,
@@ -284,4 +295,4 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
     verifier = AnswerVerifier(generator=generator, config=gcfg) if gcfg.use_verifier else None
     return ChatPipeline(embedder=embedder, index=index, retriever=retriever,
                         generator=generator, bm25_index=bm25, reranker=reranker,
-                        verifier=verifier, settings=settings)
+                        verifier=verifier, settings=settings, warm_head=warm_head)

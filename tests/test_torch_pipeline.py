@@ -10,9 +10,14 @@ settings. Both decode greedily (mode "fast") under a small token budget,
 and must return the same retrieved and reranked ids, the same sources, the
 same answer text and the same verdict — with bf16 pools (float32 here) and
 with int8 pools on both sides, each engine under the default serving
-settings (radix prefix cache, pipeline depth 2). Also: the settings this
-package cannot honour raise, the engine settings reach the engine, and the
-CLI honours ``RETRIEVAL_STRATEGY`` and ``KV_QUANT``."""
+settings (radix prefix cache, pipeline depth 2; the port's behind its
+generation service). Also: the settings this package cannot honour raise,
+the engine settings reach the engine, the CLI honours
+``RETRIEVAL_STRATEGY`` and ``KV_QUANT``, the ``/chat`` template head is
+warmed as the JAX container warms it (chat 1 hits as many tokens as a JAX
+engine warmed with the same head), and a failing retrieval, rerank or
+generation degrades with the JAX graph's metadata while a
+``soft_fail_exempt`` error raises."""
 
 import dataclasses
 import json

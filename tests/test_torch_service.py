@@ -438,3 +438,23 @@ def test_warmup_runs_every_shape_and_resets_the_ema(weights):
             "stop", "length")
     finally:
         svc.close()
+
+
+@pytest.mark.parametrize("side", SIDES)
+def test_reset_and_spawn_fresh_serve_as_new(weights, side):
+    """After reset() (a failed tick's recovery) and on spawn_fresh() (a new
+    engine on the same weights), greedy requests give the tokens a fresh
+    engine gives; reset drops what was queued or admitted."""
+    engine = make_engine(weights, side)
+    want = [r.tokens for r in engine.run_all(PROMPTS[:3], max_new_tokens=8)]
+    engine.submit("dropped by the reset", max_new_tokens=8)
+    engine.step()
+    engine.reset()
+    assert not engine.has_work
+    s = engine.stats()
+    assert s["free_pages"] == s["total_pages"] - 1 and s["active_slots"] == 0
+    assert [r.tokens for r in engine.run_all(PROMPTS[:3], max_new_tokens=8)] == want
+    fresh = engine.spawn_fresh()
+    assert fresh is not engine and fresh.params is engine.params
+    assert fresh.allocator is not engine.allocator
+    assert [r.tokens for r in fresh.run_all(PROMPTS[:3], max_new_tokens=8)] == want
