@@ -271,8 +271,6 @@ class ServeConfig:
     admission_max_queue: int = 0
     # requeues granted per request after a failed tick whose reset worked
     crash_retry_budget: int = 1
-    # how long in-flight requests get to finish once a drain starts
-    drain_deadline_s: float = 10.0
 
     @classmethod
     def from_env(cls) -> "ServeConfig":
@@ -280,7 +278,6 @@ class ServeConfig:
             default_deadline_ms=_env_float(["DEADLINE_MS", "DEFAULT_DEADLINE_MS"], 0.0),
             admission_max_queue=_env_int(["ADMISSION_MAX_QUEUE"], 0),
             crash_retry_budget=_env_int(["CRASH_RETRY_BUDGET"], 1),
-            drain_deadline_s=_env_float(["DRAIN_DEADLINE_S"], 10.0),
         )
 
 

@@ -32,10 +32,10 @@ class EngineProvider:
     name: str = "torch"
 
     def chat(self, prompt: str, max_new_tokens: int, temperature: float,
-             stats: Optional[dict] = None, deadline_ts: Optional[float] = None) -> str:
+             stats: Optional[dict] = None) -> str:
         if self.service is not None:
             result = self.service.generate(prompt, max_new_tokens=max_new_tokens,
-                                           temperature=temperature, deadline_ts=deadline_ts)
+                                           temperature=temperature)
             if result.finish_reason == "error":
                 raise RuntimeError("paged decode failed and no contiguous engine")
         else:

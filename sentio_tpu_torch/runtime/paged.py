@@ -49,9 +49,9 @@ The parts the generation service (:mod:`.service`) drives are the JAX
 engine's: per-request deadlines (``submit(deadline_ts=...)``: a request
 still queued when its deadline passes comes back ``expired``), ``cancel``,
 ``reset`` after a failed tick, ``spawn_fresh``, ``ignore_eos``,
-prior-token admission and per-request seeds (:func:`fold_seed`), the tick ladder
-(``tick_step_sizes``, ``force_tick_steps``, ``pressure_hint``), TTFT
-samples, and ``step()``'s split into the phases of
+prior-token admission and per-request seeds (:func:`fold_seed`), the tick
+ladder (``tick_step_sizes``, ``force_tick_steps``, ``pressure_hint``),
+TTFT samples, and ``step()``'s split into the phases of
 :mod:`sentio_tpu_torch.infra.phases`. Left for later slices: speculation
 and meshes.
 """
@@ -351,8 +351,8 @@ class _Request:
     # generated; the truncation reserve counts them as if they were part
     # of max_new, so the prompt truncates as it would without them
     prior_tokens: Optional[list] = None
-    # per-request seed, applied to the engine's generator once, at the first
-    # admission scan: reproducible draws for a lone sampled request only
+    # per-request seed, folded into the engine's generator once, at the
+    # first admission scan (fold_seed)
     seed: Optional[int] = None
 
 

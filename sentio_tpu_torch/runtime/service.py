@@ -286,11 +286,6 @@ class PagedGenerationService:
         with self._mutex:
             return self._closed
 
-    @property
-    def tick_failure_count(self) -> int:
-        with self._mutex:
-            return self._tick_failures
-
     def check_admission(self, deadline_ts: Optional[float] = None) -> None:
         """Raise what a submit right now would raise, without enqueuing."""
         with self._mutex:
@@ -560,8 +555,8 @@ class PagedGenerationService:
                     if self._closed:
                         self._fail_all_locked()
                     return
-            # the tick runs without any lock: the pump is the engine's only
-            # driver, and submitters never wait on a tick
+            # the tick runs without any lock: only the pump thread drives the
+            # engine, and submitters never wait on a tick
             t_drain = time.perf_counter()
             try:
                 finished = self.engine.step()

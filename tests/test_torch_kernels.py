@@ -371,3 +371,28 @@ def test_wrappers_refuse_other_devices():
     x = torch.empty((1, 4, 2, 16), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         flash_attention(x, x, x)
+
+
+def test_launch_counts_survive_concurrent_threads():
+    """The service's pump and the chat threads count launches at once: no
+    count is lost (a short switch interval makes an unlocked
+    read-modify-write lose some)."""
+    import sys
+    import threading
+
+    kernel = CudaKernel("stress", "flash_attention.cu", "flash_attention_bf16", [])
+    per_thread, n_threads = 2000, 16
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(
+            target=lambda: [kernel.add_launches(1) for _ in range(per_thread)], daemon=True)
+            for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert kernel.launches == per_thread * n_threads
