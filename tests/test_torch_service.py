@@ -108,11 +108,14 @@ def pages_reclaimed(svc):
 
 
 def concurrent(fn, args_list):
-    """Run ``fn(*args)`` for each args on its own thread; results in order."""
+    """Run ``fn(*args)`` for each args on its own thread, all released at
+    once; results in order."""
     out = [None] * len(args_list)
+    start = threading.Barrier(len(args_list))
 
     def run(i, args):
         try:
+            start.wait(timeout=JOIN_S)
             out[i] = fn(*args)
         except Exception as exc:  # noqa: BLE001 — re-raised below
             out[i] = exc
@@ -139,7 +142,7 @@ def test_concurrent_greedy_tokens_match_jax(weights, jax_engine):
         svc = make_service(engine_for(side, weights, jax_engine), side)
         try:
             results[side] = concurrent(
-                lambda p: svc.generate(p, max_new_tokens=12, temperature=0.0),
+                lambda p: svc.generate(p, max_new_tokens=24, temperature=0.0),
                 [(p,) for p in PROMPTS])
             stats = svc.stats()
         finally:
