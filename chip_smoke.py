@@ -535,10 +535,11 @@ def record_admissions(service) -> list:
     return calls
 
 
-def build_slice(torch, dev, phase: str, settings, shared=None):
+def build_slice(torch, dev, phase: str, settings, shared=None, ingest: bool = True):
     """Build the pipeline (on ``shared``'s weight tensors when given), warm
-    its service up as the entry point does, and ingest the corpus. Returns
-    the pipeline, the documents, the corpus words and the warmup's stats."""
+    its service up as the entry point does, and ingest the corpus (unless
+    not ``ingest``). Returns the pipeline, the documents, the corpus words
+    and the warmup's stats."""
     from sentio_tpu_torch.pipeline import build_pipeline
 
     reuse = {}
@@ -575,11 +576,12 @@ def build_slice(torch, dev, phase: str, settings, shared=None):
                                  f"head warm: {warm}")
 
     docs, words = corpus(N_CHUNKS)
-    t0 = time.perf_counter()
-    pipeline.ingest(docs)
-    torch.cuda.synchronize()
-    emit(f"{phase}_ingest", chunks=len(docs), seconds=time.perf_counter() - t0,
-         index_size=pipeline.index.size)
+    if ingest:
+        t0 = time.perf_counter()
+        pipeline.ingest(docs)
+        torch.cuda.synchronize()
+        emit(f"{phase}_ingest", chunks=len(docs), seconds=time.perf_counter() - t0,
+             index_size=pipeline.index.size)
     return pipeline, docs, words, warm
 
 
@@ -1105,6 +1107,415 @@ def service_check(torch, pipeline, words) -> dict:
     return result
 
 
+# ------------------------------------------------------------ the HTTP server
+
+HTTP_TIMEOUT_S = 300.0
+HTTP_CONCURRENT = 8  # 4 JSON + 4 SSE, released together
+_PROM_LINE = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{(.*)\})? (\S+)$')
+_PROM_LABEL = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+
+
+def parse_prometheus(text: str) -> dict:
+    """Prometheus text format 0.0.4 → {(name, ((label, value), ...)): value};
+    raises on a line that does not parse."""
+    samples = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = _PROM_LINE.match(line)
+        if m is None:
+            raise AssertionError(f"/metrics: unparseable line {line!r}")
+        labels = tuple(_PROM_LABEL.findall(m.group(3) or ""))
+        samples[(m.group(1), labels)] = float(m.group(4))
+    return samples
+
+
+class HttpClient:
+    """http.client against the smoke's server; every read has a timeout."""
+
+    def __init__(self, port: int) -> None:
+        self.port = port
+
+    def request(self, method: str, path: str, body=None, headers=None):
+        import http.client
+
+        conn = http.client.HTTPConnection("127.0.0.1", self.port, timeout=HTTP_TIMEOUT_S)
+        headers = dict(headers or {})
+        if isinstance(body, dict):
+            body = json.dumps(body).encode()
+            headers["Content-Type"] = "application/json"
+        try:
+            conn.request(method, path, body=body, headers=headers)
+            resp = conn.getresponse()
+            return resp.status, dict(resp.getheaders()), resp.read()
+        finally:
+            conn.close()
+
+    def json(self, method: str, path: str, body=None, headers=None):
+        status, hdrs, data = self.request(method, path, body, headers)
+        return status, hdrs, json.loads(data) if data else None
+
+    def sse(self, payload: dict, close_after_first_token: bool = False) -> dict:
+        """One streamed /chat: the events in order, the seconds to the
+        first ``token`` event and to the end."""
+        import http.client
+
+        t0 = time.perf_counter()
+        conn = http.client.HTTPConnection("127.0.0.1", self.port, timeout=HTTP_TIMEOUT_S)
+        conn.request("POST", "/chat", body=json.dumps({**payload, "stream": True}),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        events, first_token_s = [], None
+        try:
+            while resp.status == 200:
+                line = resp.fp.readline()
+                if not line:
+                    break
+                line = line.decode().strip()
+                if not line.startswith("data: "):
+                    continue  # chunk sizes, keepalives, blank lines
+                raw = line[len("data: "):]
+                event = raw if raw == "[DONE]" else json.loads(raw)
+                events.append(event)
+                if isinstance(event, dict) and "token" in event and first_token_s is None:
+                    first_token_s = time.perf_counter() - t0
+                    if close_after_first_token:
+                        conn.sock.shutdown(2)
+                        break
+                if event == "[DONE]":
+                    break
+        finally:
+            conn.close()
+        return {"status": resp.status, "events": events, "first_token_s": first_token_s,
+                "seconds": time.perf_counter() - t0}
+
+
+def docx_bytes(paragraphs) -> bytes:
+    """A minimal .docx: word/document.xml with one run per paragraph."""
+    import io
+    import zipfile
+    from xml.sax.saxutils import escape
+
+    body = "".join(f"<w:p><w:r><w:t>{escape(p)}</w:t></w:r></w:p>" for p in paragraphs)
+    buf = io.BytesIO()
+    with zipfile.ZipFile(buf, "w", zipfile.ZIP_DEFLATED) as zf:
+        zf.writestr("[Content_Types].xml", "<Types/>")
+        zf.writestr("word/document.xml", f"<w:document><w:body>{body}</w:body></w:document>")
+    return buf.getvalue()
+
+
+def upload_body(files) -> tuple[bytes, dict]:
+    boundary = "sentio-smoke-boundary"
+    body = b""
+    for name, data in files:
+        body += (f'--{boundary}\r\nContent-Disposition: form-data; name="file"; '
+                 f'filename="{name}"\r\nContent-Type: application/octet-stream\r\n\r\n'
+                 ).encode() + data + b"\r\n"
+    return body + f"--{boundary}--\r\n".encode(), {
+        "Content-Type": f"multipart/form-data; boundary={boundary}"}
+
+
+def expected_chunks(settings, files) -> int:
+    """Chunks the port's readers and TextChunker make of ``files`` on the
+    host, empty ones dropped, as the ingestor stores them."""
+    import tempfile
+    from pathlib import Path
+
+    from sentio_tpu_torch.ops.chunking import TextChunker
+    from sentio_tpu_torch.ops.ingest import DocumentIngestor
+
+    reader = DocumentIngestor(embedder=object(), dense_index=object(), settings=settings)
+    chunker = TextChunker(settings.chunking)
+    n = 0
+    with tempfile.TemporaryDirectory(prefix="smoke-chunks-") as tmp:
+        for name, data in files:
+            path = Path(tmp) / name
+            path.write_bytes(data)
+            n += sum(1 for c in chunker.split(reader.load_file(path)) if c.text.strip())
+    return n
+
+
+def check_http_chat(phase: str, i: int, status: int, body: dict) -> None:
+    """A /chat answered with a 200, nothing degraded, sources cited."""
+    meta = (body or {}).get("metadata", {})
+    bad = {k: meta[k] for k in ("retrieval_error", "generation_error") if k in meta}
+    if status != 200 or meta.get("degraded") is not False or bad or not body.get("sources") \
+            or not body.get("answer"):
+        raise AssertionError(f"{phase} chat {i}: status {status}, degraded "
+                             f"{meta.get('degraded')}, {bad}, {len(body.get('sources', []))} "
+                             f"sources, answer {body.get('answer')!r:.80}")
+
+
+def check_sse_chat(phase: str, i: int, result: dict) -> str:
+    """sources → ≥1 token → verdict → [DONE]; returns the joined tokens."""
+    events = result["events"]
+    kinds = [e if e == "[DONE]" else next(iter(e)) for e in events]
+    tokens = "".join(e["token"] for e in events if isinstance(e, dict) and "token" in e)
+    ok = (result["status"] == 200 and kinds[:1] == ["sources"] and kinds[-2:] == ["verdict",
+          "[DONE]"] and set(kinds[1:-2]) == {"token"} and tokens and events[0]["sources"])
+    if not ok:
+        raise AssertionError(f"{phase} SSE chat {i}: status {result['status']}, events {kinds}")
+    return tokens
+
+
+def serve_http_check(torch, dev, shared) -> dict:
+    """The path ``python -m sentio_tpu_torch serve`` takes, minus weight
+    loading: a pipeline under ``Settings()`` (the JAX defaults: hybrid rrf,
+    bf16 pool, prefix cache, depth 2, the embedding cache and the query
+    coalescer on; answers and verdicts capped at MAX_TOKENS) on ``shared``'s
+    weights, warmed up, served by ``create_server`` on 127.0.0.1 from a
+    thread. Ingest only over HTTP (one multipart /upload of the corpus as
+    4 .txt files, an .html and a .docx, then one /embed), 3 JSON chats,
+    then 4 JSON and 4 SSE chats at once, every launch count set to 0 just
+    before the chats and read just after; then the error paths, /metrics,
+    /clear and the shutdown."""
+    import gc
+    import tempfile
+    import threading
+
+    from sentio_tpu_torch.config import GeneratorConfig, Settings
+    from sentio_tpu_torch.infra.resilience import FallbackResponseCache, LLMFallback
+    from sentio_tpu_torch.serve.app import create_server
+
+    phase = "serve_http"
+    settings = Settings(generator=GeneratorConfig(max_new_tokens=MAX_TOKENS,
+                                                  verifier_max_tokens=MAX_TOKENS))
+    pipeline, docs, words, _warm = build_slice(torch, dev, phase, settings, shared,
+                                               ingest=False)
+    engine, service = pipeline.generator.provider.engine, pipeline.service
+    fallback_dir = tempfile.mkdtemp(prefix="smoke-fallback-")
+    server = create_server(settings, pipeline, host="127.0.0.1", port=0,
+                           fallback=(FallbackResponseCache(fallback_dir), LLMFallback()))
+    thread = threading.Thread(target=server.serve_forever, name="smoke-http", daemon=True)
+    thread.start()
+    client = HttpClient(server.server_address[1])
+    result: dict = {}
+    try:
+        # ---- health
+        live = client.json("GET", "/health/live")
+        ready = client.json("GET", "/health/ready")
+        info0 = client.json("GET", "/info")[2]
+        if live[0] != 200 or ready[2].get("ready") is not True \
+                or info0["retrieval"]["corpus_size"] != 0:
+            raise AssertionError(f"{phase}: health {live}, ready {ready}, info {info0}")
+
+        # ---- ingest over HTTP only, launches counted
+        per_file = len(docs) // 4
+        files = [(f"corpus-{k}.txt", "\n\n".join(d.text for d in docs[k * per_file:
+                                                                      (k + 1) * per_file]
+                                                 ).encode()) for k in range(4)]
+        files.append(("guide.html", ("<html><head><style>p{}</style></head><body>" + "".join(
+            f"<p>{d.text}</p>" for d in docs[:24]) + "</body></html>").encode()))
+        files.append(("notes.docx", docx_bytes([d.text for d in docs[24:40]])))
+        want_chunks = expected_chunks(settings, files)
+        body, headers = upload_body(files)
+        counters = wrappers()
+        card0 = card_launches(torch)
+        for kernel in counters.values():
+            kernel.launches = 0
+        t0 = time.perf_counter()
+        status, _, upload = client.json("POST", "/upload", body, headers)
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - t0
+        info1 = client.json("GET", "/info")[2]
+        embed = client.json("POST", "/embed", {"content": docs[7].text + " " + docs[9].text,
+                                               "metadata": {"source": "smoke-embed"}})
+        ingest_launches = {name: k.launches for name, k in counters.items()}
+        ingest_card = card_delta(torch, card0)
+        stored = sum(f.get("chunks_stored", 0) for f in upload["files"])
+        result["ingest"] = {"status": status, "files": upload["files"], "seconds": ingest_s,
+                            "chunks": stored, "chunks_per_s": stored / ingest_s,
+                            "upload_bytes": len(body), "expected_chunks": want_chunks,
+                            "corpus_size": info1["retrieval"]["corpus_size"],
+                            "embed": embed[2], "launches": ingest_launches,
+                            "device_launches": ingest_card}
+        emit(f"{phase}_ingest", **result["ingest"])
+        if status != 200 or any("error" in f for f in upload["files"]) \
+                or len(upload["files"]) != len(files):
+            raise AssertionError(f"{phase}: upload failed: {status} {upload}")
+        if not stored == info1["retrieval"]["corpus_size"] == want_chunks:
+            raise AssertionError(f"{phase}: {stored} chunks stored, /info says "
+                                 f"{info1['retrieval']['corpus_size']}, the host's chunker "
+                                 f"{want_chunks}")
+        if embed[0] != 200 or embed[2]["stats"]["chunks_stored"] <= 0:
+            raise AssertionError(f"{phase}: /embed failed: {embed}")
+        if ingest_launches["flash_attention"] <= 0:
+            raise AssertionError(f"{phase}: ingest never launched the flash kernel")
+        check_card(f"{phase}_ingest", ingest_card, ingest_launches)
+
+        # ---- chats: 3 in a row, then 4 JSON + 4 SSE at once
+        embed0 = pipeline.embedder.get_stats()
+        service.wait_idle()
+        stats0, svc0 = engine.stats(), service.stats()
+        sub_steps0 = engine.total_sub_steps
+        card0 = card_launches(torch)
+        for kernel in counters.values():
+            kernel.launches = 0
+        sequential = []
+        for i in range(3):
+            t0 = time.perf_counter()
+            st, _, out = client.json("POST", "/chat", {
+                "question": f"What does the corpus say about {words[60 + i]} and "
+                            f"{words[90 + i]}?"})
+            sequential.append((st, out, time.perf_counter() - t0))
+        start = threading.Barrier(HTTP_CONCURRENT)
+        concurrent: list = [None] * HTTP_CONCURRENT
+
+        def chat(i: int) -> None:
+            question = f"How is {words[5 * i + 200]} related to {words[5 * i + 201]}?"
+            try:
+                start.wait(timeout=60)
+                t0 = time.perf_counter()
+                if i % 2:
+                    concurrent[i] = ("sse", client.sse({"question": question}))
+                else:
+                    st, _, out = client.json("POST", "/chat", {"question": question})
+                    concurrent[i] = ("json", (st, out, time.perf_counter() - t0))
+            except Exception as exc:  # noqa: BLE001 — raised below, on the main thread
+                concurrent[i] = ("raised", exc)
+
+        threads = [threading.Thread(target=chat, args=(i,), name=f"smoke-http-chat-{i}",
+                                    daemon=True) for i in range(HTTP_CONCURRENT)]
+        t_burst = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=HTTP_TIMEOUT_S)
+        burst_s = time.perf_counter() - t_burst
+        if any(t.is_alive() for t in threads):
+            raise AssertionError(f"{phase}: a concurrent chat did not return in time")
+        service.wait_idle()
+        launches = {name: k.launches for name, k in counters.items()}
+        card = card_delta(torch, card0)
+        stats1, svc1 = engine.stats(), service.stats()
+        sub_steps = engine.total_sub_steps - sub_steps0
+        embed1 = pipeline.embedder.get_stats()
+        json_s, first_token_s, sse_s = [], [], []
+        for i, (st, out, sec) in enumerate(sequential):
+            check_http_chat(phase, i, st, out)
+            json_s.append(sec)
+        for i, (kind, item) in enumerate(concurrent):
+            if kind == "raised":
+                raise AssertionError(f"{phase} concurrent chat {i} raised: {item!r}") from item
+            if kind == "json":
+                check_http_chat(phase, 3 + i, item[0], item[1])
+                json_s.append(item[2])
+            else:
+                check_sse_chat(phase, 3 + i, item)
+                first_token_s.append(item["first_token_s"])
+                sse_s.append(item["seconds"])
+        json_sorted = sorted(json_s)
+        result["chats"] = {
+            "json": len(json_s), "sse": len(sse_s), "json_s": json_s,
+            "p50_s": json_sorted[len(json_sorted) // 2],
+            "p95_s": json_sorted[min(int(len(json_sorted) * 0.95), len(json_sorted) - 1)],
+            "sse_first_token_s": first_token_s, "sse_s": sse_s, "burst_s": burst_s,
+            "stage_ms": [out["metadata"]["node_timings_ms"] for _, out, _ in sequential],
+            "decode_sub_steps": sub_steps,
+            "graph_captures_delta": stats1["graph_captures"] - stats0["graph_captures"],
+            "ticks": svc1["ticks"] - svc0["ticks"],
+            "shared_ticks": svc1["shared_ticks"] - svc0["shared_ticks"],
+            "pump_phase_s": {k: svc1["phase_seconds"][k] - svc0["phase_seconds"][k]
+                             for k in svc1["phase_seconds"]},
+            "coalescer": {k: embed1["coalescer"][k] - embed0["coalescer"].get(k, 0)
+                          for k in ("batches", "items")},
+            "coalescer_max_batch": embed1["coalescer"]["max_batch"],
+            "embed_cache_hits": embed1["cache"]["hits"] - embed0["cache"]["hits"],
+            "query_cache_hits": embed1.get("cache_hits", 0) - embed0.get("cache_hits", 0),
+            "launches": launches, "device_launches": card,
+            "expected_decode_launches": engine.cfg.n_layers * sub_steps}
+        emit(f"{phase}_chats", **result["chats"])
+        if result["chats"]["graph_captures_delta"]:
+            raise AssertionError(f"{phase}: a graph was captured after warmup")
+        if launches["paged_attention"] != engine.cfg.n_layers * sub_steps or sub_steps <= 0 \
+                or launches["paged_attention_quant"]:
+            raise AssertionError(f"{phase}: decode launches are not one bf16 paged launch per "
+                                 f"layer per sub-step: {launches}, {sub_steps} sub-steps")
+        if launches["flash_attention"] <= 0:
+            raise AssertionError(f"{phase}: the flash kernel never launched: {launches}")
+        check_card(phase, card, launches)
+
+        # ---- errors, a client that goes away
+        bad = client.json("POST", "/chat", {})
+        late = client.json("POST", "/chat", {"question": "anything at all", "deadline_ms": 1})
+        gone = client.sse({"question": f"Tell me about {words[300]}."},
+                          close_after_first_token=True)
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < 30.0:
+            s = service.stats()
+            if s["active_slots"] == 0 and s["queued"] == 0 and s["queued_inbox"] == 0:
+                break
+            time.sleep(0.05)
+        idle_s = time.perf_counter() - t0
+        after = client.json("POST", "/chat", {"question": f"What is {words[301]}?"})
+        svc2 = service.stats()
+        result["errors"] = {"empty_status": bad[0], "empty_body": bad[2],
+                            "deadline_status": late[0], "deadline_code": late[2]["error"]["code"],
+                            "disconnect_events": len(gone["events"]),
+                            "disconnect_first_token_s": gone["first_token_s"],
+                            "idle_after_disconnect_s": idle_s,
+                            "cancelled": svc2["cancelled"] - svc1["cancelled"],
+                            "after_status": after[0]}
+        emit(f"{phase}_errors", **result["errors"])
+        if bad[0] != 422 or bad[2].get("error") != "validation_error" \
+                or bad[2]["details"][0]["field"] != "question":
+            raise AssertionError(f"{phase}: {{}} gave {bad}")
+        if late[0] != 504 or late[2]["error"]["code"] != "DEADLINE_EXCEEDED":
+            raise AssertionError(f"{phase}: deadline_ms 1 gave {late}")
+        if gone["first_token_s"] is None or idle_s >= 30.0:
+            raise AssertionError(f"{phase}: after an SSE client left, the service still had "
+                                 f"live rows 30 s later: {service.stats()}")
+        check_http_chat(phase, 12, after[0], after[2])
+
+        # ---- /metrics: every chat sent is counted (a stream once its
+        # handler has noticed the client left)
+        sent = 3 + HTTP_CONCURRENT + 4
+        t0 = time.perf_counter()
+        while True:
+            status, _, text = client.request("GET", "/metrics")
+            samples = parse_prometheus(text.decode())
+            chats = sum(v for (name, labels), v in samples.items()
+                        if name == "sentio_requests_total" and ("endpoint", "/chat") in labels)
+            if chats >= sent or time.perf_counter() - t0 > 10.0:
+                break
+            time.sleep(0.1)
+        serving = sorted(dict(labels)["stat"] for (name, labels) in samples
+                         if name == "sentio_tpu_serving_stat")
+        result["metrics"] = {"status": status, "samples": len(samples), "chat_requests": chats,
+                             "chats_sent": sent, "serving_stats": serving}
+        emit(f"{phase}_metrics", **result["metrics"])
+        if status != 200 or chats != sent or not serving:
+            raise AssertionError(f"{phase}: /metrics counts {chats} /chat requests of {sent} "
+                                 f"sent, serving stats {serving}")
+
+        # ---- clear, shutdown
+        size = client.json("GET", "/info")[2]["retrieval"]["corpus_size"]
+        cleared = client.json("POST", "/clear")
+        size_after = client.json("GET", "/info")[2]["retrieval"]["corpus_size"]
+        if cleared[2].get("documents_removed") != size or size_after != 0:
+            raise AssertionError(f"{phase}: /clear removed {cleared} of {size}; "
+                                 f"{size_after} left")
+    finally:
+        t0 = time.perf_counter()
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10.0)
+        shutdown_s = time.perf_counter() - t0
+        pipeline.close()
+    result["shutdown_s"] = shutdown_s
+    if thread.is_alive() or shutdown_s >= 10.0:
+        raise AssertionError(f"{phase}: the server took {shutdown_s:.1f} s to shut down")
+    result["pool_bytes"] = engine.pool.hbm_bytes
+    del pipeline, engine, service, server
+    gc.collect()
+    torch.cuda.empty_cache()
+    result["memory_allocated_after_close"] = torch.cuda.memory_allocated()
+    emit(phase, cleared=cleared[2]["documents_removed"], shutdown_s=shutdown_s,
+         pool_bytes=result["pool_bytes"],
+         memory_allocated_after_close=result["memory_allocated_after_close"])
+    return result
+
+
 def chunked_slice_check(torch, pipeline, phase: str = "chunked_slice",
                         chunk: int = 512) -> dict:
     """One chunked admission on the slice's own engine (its pool, its
@@ -1312,6 +1723,7 @@ def main() -> int:
     chunked_slice_check(torch, sl8["pipeline"], "chunked_slice_int8")
     profile8 = profile_chat(torch, sl8["pipeline"], sl["questions"][2], "profile_int8")
     service = service_check(torch, sl8["pipeline"], sl8["words"])
+    http = serve_http_check(torch, dev, sl["pipeline"])
     chunked_check(torch, dev, sl["generate_prompt"])
 
     # USE_PAGED_KV=0 with the default hybrid retrieval, on the same weights
@@ -1326,7 +1738,11 @@ def main() -> int:
          "source": "sentio_tpu_torch/csrc/paged_attention.cu",
          "replaces": "sentio_tpu/kernels/paged_attention.py:58",
          "launches": sl["launches"]["paged_attention"],
+         "launches_by_path": {"slice": sl["launches"]["paged_attention"],
+                              "serve_http": http["chats"]["launches"]["paged_attention"]},
          "device_launches": family_launches(sl["device_launches"], "paged_attention"),
+         "device_launches_serve_http": family_launches(http["chats"]["device_launches"],
+                                                       "paged_attention"),
          "device_launches_profiled_chat": device_launches(profile, "paged_attention"),
          **{k: paged[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                   "bound_by", "library_ms")},
@@ -1348,10 +1764,14 @@ def main() -> int:
                               "slice_int8": sl8["launches"]["flash_attention"],
                               "slice_contig": sc["launches"]["flash_attention"],
                               "slice_contig_llm_prefills": sc["llm_flash_launches"],
-                              "service": service["launches"]["flash_attention"]},
+                              "service": service["launches"]["flash_attention"],
+                              "serve_http_ingest": http["ingest"]["launches"]["flash_attention"],
+                              "serve_http": http["chats"]["launches"]["flash_attention"]},
          "device_launches": {path: family_launches(x["device_launches"], "flash_attention")
                              for path, x in (("slice", sl), ("slice_int8", sl8),
-                                             ("slice_contig", sc), ("service", service))},
+                                             ("slice_contig", sc), ("service", service),
+                                             ("serve_http_ingest", http["ingest"]),
+                                             ("serve_http", http["chats"]))},
          "device_launches_profiled_chat": {
              path: device_launches(prof, "flash_attention")
              for path, prof in (("slice", profile), ("slice_int8", profile8))},

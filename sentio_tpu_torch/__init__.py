@@ -13,7 +13,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__version__ = "0.1.0"
+
+__all__ = ["__version__", "resolve_device"]
 
 
 def resolve_device(device=None) -> torch.device:

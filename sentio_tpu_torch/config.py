@@ -1,12 +1,15 @@
 """Configuration for the PyTorch port: the slice of ``sentio_tpu.config``
-that the ``/chat`` main path reads.
+that the ``/chat`` main path, ingestion and the HTTP server read.
 
 Same dataclasses, fields, defaults and environment variable names as the
-JAX package's tree (retrieval, rerank, embedder, generator, and of the
-serve section the generation service's overload controls); the mesh,
-auth and cache sections and the rest of serve are left out because
-nothing in this package reads them. Plain dataclasses, no import-time
-work.
+JAX package's tree (chunking, retrieval, rerank, embedder, generator, the
+serve section's HTTP surface and the generation service's overload
+controls, the cache section, and of auth the switch); the mesh section,
+the replica tier's serve fields and the rest of auth are left out because
+nothing in this package reads them. Settings the port cannot honour
+(``AUTH_ENABLED=1``, ``CACHE_BACKEND=multi_tier``, ``VERIFY_MODE`` other
+than ``sync``) raise ``NotImplementedError`` where they would be used.
+Plain dataclasses, no import-time work.
 """
 
 from __future__ import annotations
@@ -16,11 +19,14 @@ from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
 __all__ = [
+    "ChunkingConfig",
     "RetrievalConfig",
     "RerankConfig",
     "EmbedderConfig",
     "GeneratorConfig",
     "ServeConfig",
+    "CacheConfig",
+    "AuthConfig",
     "Settings",
 ]
 
@@ -58,6 +64,23 @@ def _env_bool(names: Sequence[str], default: bool) -> bool:
     if not raw:
         return default
     return raw in ("1", "true", "yes", "on")
+
+
+@dataclass
+class ChunkingConfig:
+    """Splitter settings."""
+
+    strategy: str = "recursive"  # recursive | fixed | sentence
+    chunk_size: int = 512
+    chunk_overlap: int = 64
+
+    @classmethod
+    def from_env(cls) -> "ChunkingConfig":
+        return cls(
+            strategy=_env_str(["CHUNKING_STRATEGY"], "recursive"),
+            chunk_size=_env_int(["CHUNK_SIZE"], 512),
+            chunk_overlap=_env_int(["CHUNK_OVERLAP"], 64),
+        )
 
 
 @dataclass
@@ -261,9 +284,21 @@ class GeneratorConfig:
 
 @dataclass
 class ServeConfig:
-    """The generation service's overload and deadline controls, named and
-    defaulted as in the JAX ``ServeConfig``."""
+    """The HTTP surface and the generation service's overload and deadline
+    controls, named and defaulted as in the JAX ``ServeConfig``."""
 
+    host: str = "0.0.0.0"
+    port: int = 8000
+    # per-IP sliding-window limits: /embed and /upload share the tight one
+    rate_limit_embed_per_min: int = 10
+    rate_limit_default_per_min: int = 100
+    max_question_chars: int = 2000
+    max_embed_chars: int = 50_000
+    top_k_max: int = 20
+    # only honor X-Forwarded-For when deployed behind a trusted proxy
+    trust_proxy_headers: bool = False
+    # /upload multipart body cap (every part's bytes count)
+    max_upload_mb: int = 32
     # default per-request deadline (ms) for callers that send none; 0 = none
     default_deadline_ms: float = 0.0
     # bound on waiting decode work (inbox + admitted); 0 = derive from the
@@ -271,32 +306,93 @@ class ServeConfig:
     admission_max_queue: int = 0
     # requeues granted per request after a failed tick whose reset worked
     crash_retry_budget: int = 1
+    # graceful-shutdown drain window for in-flight requests
+    drain_deadline_s: float = 10.0
+    # SSE liveness: a comment keepalive after this long without an event;
+    # 0 disables
+    sse_keepalive_s: float = 15.0
 
     @classmethod
     def from_env(cls) -> "ServeConfig":
         return cls(
+            host=_env_str(["SENTIO_HOST", "API_HOST", "HOST"], "0.0.0.0"),
+            port=_env_int(["SENTIO_PORT", "API_PORT", "PORT"], 8000),
+            rate_limit_embed_per_min=_env_int(
+                ["RATE_LIMIT_EMBED_PER_MIN", "RATE_LIMIT_EMBED"], 10
+            ),
+            rate_limit_default_per_min=_env_int(
+                ["RATE_LIMIT_DEFAULT_PER_MIN", "RATE_LIMIT_DEFAULT"], 100
+            ),
+            max_question_chars=_env_int(["MAX_QUESTION_CHARS"], 2000),
+            max_embed_chars=_env_int(["MAX_EMBED_CHARS"], 50_000),
+            top_k_max=_env_int(["TOP_K_MAX"], 20),
+            trust_proxy_headers=_env_bool(["TRUST_PROXY_HEADERS"], False),
+            max_upload_mb=_env_int(["MAX_UPLOAD_MB"], 32),
             default_deadline_ms=_env_float(["DEADLINE_MS", "DEFAULT_DEADLINE_MS"], 0.0),
             admission_max_queue=_env_int(["ADMISSION_MAX_QUEUE"], 0),
             crash_retry_budget=_env_int(["CRASH_RETRY_BUDGET"], 1),
+            drain_deadline_s=_env_float(["DRAIN_DEADLINE_S"], 10.0),
+            sse_keepalive_s=_env_float(["SSE_KEEPALIVE_S"], 15.0),
         )
 
 
 @dataclass
-class Settings:
-    """The five sections the port reads."""
+class CacheConfig:
+    """The query-response cache: ``memory`` (an LRU with a TTL, the
+    default) or ``off``; ``multi_tier`` (the Redis L2) is not ported."""
 
+    backend: str = "memory"  # memory | multi_tier | off
+    max_entries: int = 10_000
+    default_ttl_s: float = 3600.0
+    query_cache_ttl_s: float = 600.0
+    redis_url: str = "redis://localhost:6379/0"
+    redis_key_prefix: str = "sentio:"
+
+    @classmethod
+    def from_env(cls) -> "CacheConfig":
+        return cls(
+            backend=_env_str(["CACHE_BACKEND"], "memory"),
+            max_entries=_env_int(["CACHE_MAX_ENTRIES"], 10_000),
+            default_ttl_s=_env_float(["CACHE_TTL"], 3600.0),
+            query_cache_ttl_s=_env_float(["QUERY_CACHE_TTL"], 600.0),
+            redis_url=_env_str(["REDIS_URL"], "redis://localhost:6379/0"),
+            redis_key_prefix=_env_str(["REDIS_KEY_PREFIX"], "sentio:"),
+        )
+
+
+@dataclass
+class AuthConfig:
+    """Only the switch: auth is not ported, so ``AUTH_ENABLED=1`` raises."""
+
+    enabled: bool = False
+
+    @classmethod
+    def from_env(cls) -> "AuthConfig":
+        return cls(enabled=_env_bool(["AUTH_ENABLED"], False))
+
+
+@dataclass
+class Settings:
+    """The sections the port reads."""
+
+    chunking: ChunkingConfig = field(default_factory=ChunkingConfig)
     retrieval: RetrievalConfig = field(default_factory=RetrievalConfig)
     rerank: RerankConfig = field(default_factory=RerankConfig)
     embedder: EmbedderConfig = field(default_factory=EmbedderConfig)
     generator: GeneratorConfig = field(default_factory=GeneratorConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
+    cache: CacheConfig = field(default_factory=CacheConfig)
+    auth: AuthConfig = field(default_factory=AuthConfig)
 
     @classmethod
     def from_env(cls) -> "Settings":
         return cls(
+            chunking=ChunkingConfig.from_env(),
             retrieval=RetrievalConfig.from_env(),
             rerank=RerankConfig.from_env(),
             embedder=EmbedderConfig.from_env(),
             generator=GeneratorConfig.from_env(),
             serve=ServeConfig.from_env(),
+            cache=CacheConfig.from_env(),
+            auth=AuthConfig.from_env(),
         )

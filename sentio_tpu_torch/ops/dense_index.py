@@ -8,11 +8,19 @@ XLA, outside any Pallas kernel). The host keeps the float32 master copy and
 the documents, with the same add / upsert / tombstone / compaction rules
 and the same ``.npz`` + ``.json`` persistence, so an index saved by either
 package loads in the other.
+
+Writes may run while other threads search (``/upload`` during ``/chat``):
+a lock serializes the mutations and the building of the device snapshot,
+and a search reads one snapshot — the corpus matrix, its valid mask and
+the document list it was built from — so it sees the index whole before a
+write or whole after it, never a matrix and a document list of different
+lengths.
 """
 
 from __future__ import annotations
 
 import json
+import threading
 from pathlib import Path
 from typing import Sequence
 
@@ -39,7 +47,8 @@ class TorchDenseIndex:
         self._documents: list[Document] = []
         self._id_to_row: dict[str, int] = {}
         self._alive = np.zeros(0, bool)
-        self._device_state = None  # (corpus, valid) — rebuilt lazily
+        self._device_state = None  # (corpus, valid, documents, alive) — rebuilt lazily
+        self._lock = threading.RLock()
 
     # ------------------------------------------------------------------ crud
 
@@ -48,9 +57,14 @@ class TorchDenseIndex:
         return int(self._alive.sum())
 
     def documents(self) -> list[Document]:
-        return [doc for doc, ok in zip(self._documents, self._alive) if ok]
+        with self._lock:
+            return [doc for doc, ok in zip(self._documents, self._alive) if ok]
 
     def add(self, documents: Sequence[Document], embeddings: np.ndarray) -> None:
+        with self._lock:
+            self._add(documents, embeddings)
+
+    def _add(self, documents: Sequence[Document], embeddings: np.ndarray) -> None:
         embeddings = np.asarray(embeddings, np.float32)
         if embeddings.ndim != 2 or embeddings.shape[1] != self.dim:
             raise DenseIndexError(
@@ -80,15 +94,30 @@ class TorchDenseIndex:
 
     def delete(self, ids: Sequence[str]) -> int:
         n = 0
-        for doc_id in ids:
-            row = self._id_to_row.pop(doc_id, None)
-            if row is not None and self._alive[row]:
-                self._alive[row] = False
-                n += 1
-        if n:
-            self._device_state = None
-            self._maybe_compact()
+        with self._lock:
+            for doc_id in ids:
+                row = self._id_to_row.pop(doc_id, None)
+                if row is not None and self._alive[row]:
+                    self._alive[row] = False
+                    n += 1
+            if n:
+                self._device_state = None
+                self._maybe_compact()
         return n
+
+    def embeddings(self) -> np.ndarray:
+        """[size, D] float32 host vectors of the live documents, in
+        :meth:`documents` order."""
+        with self._lock:
+            return self._embeddings[self._alive]
+
+    def clear(self) -> None:
+        with self._lock:
+            self._embeddings = np.zeros((0, self.dim), np.float32)
+            self._documents = []
+            self._id_to_row = {}
+            self._alive = np.zeros(0, bool)
+            self._device_state = None
 
     def _maybe_compact(self, dead_fraction: float = 0.25) -> None:
         """Drop tombstoned rows once they pass ``dead_fraction`` of the table."""
@@ -106,21 +135,26 @@ class TorchDenseIndex:
     # ---------------------------------------------------------------- search
 
     def _ensure_device(self):
-        """Upload the corpus (dead rows zeroed and masked) with 25% growth
-        padding so appends amortize uploads."""
-        if self._device_state is None:
-            n = len(self._documents)
-            n_pad = max(1, int(np.ceil(n * 1.25)))
-            corpus = np.zeros((n_pad, self.dim), np.float32)
-            if n:
-                corpus[:n] = self._embeddings * self._alive[:, None]
-            valid = np.zeros(n_pad, bool)
-            valid[:n] = self._alive
-            self._device_state = (
-                torch.as_tensor(corpus, device=self.device).to(getattr(torch, self.dtype)),
-                torch.as_tensor(valid, device=self.device),
-            )
-        return self._device_state
+        """The search snapshot ``(corpus, valid, documents, alive)``: the
+        corpus uploaded (dead rows zeroed and masked) with 25% growth
+        padding so appends amortize uploads, the document list its rows
+        index, and its count of live rows."""
+        with self._lock:
+            if self._device_state is None:
+                n = len(self._documents)
+                n_pad = max(1, int(np.ceil(n * 1.25)))
+                corpus = np.zeros((n_pad, self.dim), np.float32)
+                if n:
+                    corpus[:n] = self._embeddings * self._alive[:, None]
+                valid = np.zeros(n_pad, bool)
+                valid[:n] = self._alive
+                self._device_state = (
+                    torch.as_tensor(corpus, device=self.device).to(getattr(torch, self.dtype)),
+                    torch.as_tensor(valid, device=self.device),
+                    list(self._documents),
+                    int(self._alive.sum()),
+                )
+            return self._device_state
 
     def search_batch(self, queries, top_k: int = 10) -> list[list[tuple[Document, float]]]:
         """queries [Q, D] (host array or device tensor) → per-query
@@ -128,11 +162,11 @@ class TorchDenseIndex:
         q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
         if q.dim() != 2 or q.shape[1] != self.dim:
             raise DenseIndexError(f"expected queries [Q, {self.dim}], got {tuple(q.shape)}")
-        if self.size == 0:
+        corpus, valid, documents, alive = self._ensure_device()
+        if alive == 0:
             return [[] for _ in range(q.shape[0])]
         qn = q / q.norm(dim=1, keepdim=True).clamp_min(1e-9)
-        corpus, valid = self._ensure_device()
-        k = min(top_k, self.size)
+        k = min(top_k, alive)
         scores = torch.matmul(qn.to(corpus.dtype), corpus.t()).float()
         scores = torch.where(valid[None, :], scores, float("-inf"))
         best, rows = torch.topk(scores, k, dim=1)
@@ -143,7 +177,7 @@ class TorchDenseIndex:
             for s, r in zip(best[qi], rows[qi]):
                 if s <= -1e29 or len(hits) >= k:
                     break
-                hits.append((self._documents[int(r)], float(s)))
+                hits.append((documents[int(r)], float(s)))
             out.append(hits)
         return out
 
@@ -164,9 +198,11 @@ class TorchDenseIndex:
     def save(self, path) -> None:
         path = Path(path)
         path.parent.mkdir(parents=True, exist_ok=True)
-        keep = self._alive
-        np.savez_compressed(path.with_suffix(".npz"), embeddings=self._embeddings[keep])
-        docs = [self._documents[i].to_dict() for i in np.flatnonzero(keep)]
+        with self._lock:
+            keep = self._alive
+            embeddings = self._embeddings[keep]
+            docs = [self._documents[i].to_dict() for i in np.flatnonzero(keep)]
+        np.savez_compressed(path.with_suffix(".npz"), embeddings=embeddings)
         path.with_suffix(".json").write_text(json.dumps({"dim": self.dim, "documents": docs}))
 
     @classmethod

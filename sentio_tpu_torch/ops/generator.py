@@ -6,14 +6,17 @@ template, temperature by mode, and one provider: :class:`EngineProvider`,
 which submits the prompt to the generation service over the paged engine
 (``USE_PAGED_KV=1``, the default: concurrent chats share one decode batch)
 or, with no service, runs the contiguous engine's ``generate``, as JAX's
-``TpuProvider`` does. The echo and OpenAI providers are not part of this
+``TpuProvider`` does; ``stream`` yields the answer's text increments over
+the service's ``generate_stream`` or the contiguous engine's ``stream``.
+A caller's ``deadline_ts`` (absolute ``time.perf_counter()``) reaches the
+service's ticket. The echo and OpenAI providers are not part of this
 package.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional, Sequence
+from typing import Iterator, Optional, Sequence
 
 from sentio_tpu_torch.config import GeneratorConfig
 from sentio_tpu_torch.models.document import Document
@@ -32,10 +35,10 @@ class EngineProvider:
     name: str = "torch"
 
     def chat(self, prompt: str, max_new_tokens: int, temperature: float,
-             stats: Optional[dict] = None) -> str:
+             deadline_ts: Optional[float] = None, stats: Optional[dict] = None) -> str:
         if self.service is not None:
             result = self.service.generate(prompt, max_new_tokens=max_new_tokens,
-                                           temperature=temperature)
+                                           temperature=temperature, deadline_ts=deadline_ts)
             if result.finish_reason == "error":
                 raise RuntimeError("paged decode failed and no contiguous engine")
         else:
@@ -44,6 +47,19 @@ class EngineProvider:
         if stats is not None:
             stats.update(result.stats_dict())
         return result.text
+
+    def stream(self, prompt: str, max_new_tokens: int, temperature: float,
+               deadline_ts: Optional[float] = None,
+               stats: Optional[dict] = None) -> Iterator[str]:
+        """Text increments of one answer. Closing the iterator early
+        cancels the service's ticket."""
+        if self.service is not None:
+            yield from self.service.generate_stream(
+                prompt, max_new_tokens=max_new_tokens, temperature=temperature,
+                deadline_ts=deadline_ts, stats_out=stats)
+            return
+        yield from self.engine.stream(prompt, max_new_tokens=max_new_tokens,
+                                      temperature=temperature)
 
 
 @dataclass
@@ -72,13 +88,23 @@ class LLMGenerator:
 
     def generate(self, query: str, documents: Sequence[Document],
                  mode: Optional[str] = None, temperature: Optional[float] = None,
-                 stats: Optional[dict] = None) -> str:
+                 deadline_ts: Optional[float] = None, stats: Optional[dict] = None) -> str:
         prompt = self.build_prompt(query, documents)
         temp = temperature if temperature is not None else self.config.temperature(mode)
         return self.provider.chat(prompt, max_new_tokens=self.config.max_new_tokens,
-                                  temperature=temp, stats=stats)
+                                  temperature=temp, deadline_ts=deadline_ts, stats=stats)
 
-    def chat_raw(self, prompt: str, max_new_tokens: int, temperature: float) -> str:
+    def stream(self, query: str, documents: Sequence[Document], mode: Optional[str] = None,
+               temperature: Optional[float] = None, deadline_ts: Optional[float] = None,
+               stats: Optional[dict] = None) -> Iterator[str]:
+        prompt = self.build_prompt(query, documents)
+        temp = temperature if temperature is not None else self.config.temperature(mode)
+        yield from self.provider.stream(prompt, max_new_tokens=self.config.max_new_tokens,
+                                        temperature=temp, deadline_ts=deadline_ts,
+                                        stats=stats)
+
+    def chat_raw(self, prompt: str, max_new_tokens: int, temperature: float,
+                 deadline_ts: Optional[float] = None) -> str:
         """Direct provider access (the verifier path — shares the weights)."""
         return self.provider.chat(prompt, max_new_tokens=max_new_tokens,
-                                  temperature=temperature)
+                                  temperature=temperature, deadline_ts=deadline_ts)

@@ -43,15 +43,16 @@ class BaseRetriever:
 
 @dataclass
 class DenseRetriever(BaseRetriever):
-    """The query embedding stays on the device and feeds the index's top-k;
-    hits carry ``score`` and ``retriever="dense"`` metadata."""
+    """The query embedding (through the embedder's cache and coalescer)
+    stays on the device and feeds the index's top-k; hits carry ``score``
+    and ``retriever="dense"`` metadata."""
 
     embedder: TorchEmbedder
     index: TorchDenseIndex
     name: str = "dense"
 
     def retrieve(self, query: str, top_k: int = 10) -> list[Document]:
-        return self.index.retrieve(self.embedder.embed_tensor([query])[0], top_k)
+        return self.index.retrieve(self.embedder.embed_device([query])[0], top_k)
 
 
 @dataclass

@@ -45,8 +45,8 @@ class AnswerVerifier:
     config: GeneratorConfig = field(default_factory=GeneratorConfig)
     prompts: PromptBuilder = field(default_factory=PromptBuilder)
 
-    def verify(self, query: str, answer: str,
-               documents: Sequence[Document]) -> VerifyResult:
+    def verify(self, query: str, answer: str, documents: Sequence[Document],
+               deadline_ts: Optional[float] = None) -> VerifyResult:
         try:
             # the audit prompt embeds the generate prompt verbatim as its head
             prompt = self.prompts.build(
@@ -58,6 +58,7 @@ class AnswerVerifier:
             )
             reply = self.generator.chat_raw(
                 prompt, max_new_tokens=self.config.verifier_max_tokens, temperature=0.0,
+                deadline_ts=deadline_ts,
             )
             return self._normalize(reply)
         except Exception as exc:  # noqa: BLE001 — the audit must never fail the answer

@@ -17,19 +17,26 @@ template head is warmed into the engine's radix tree at build time.
 ``LLM_CHECKPOINT`` and ``RERANKER_CHECKPOINT`` load ``save_pytree``
 checkpoints.
 
-* :meth:`ChatPipeline.ingest` embeds documents, adds them to the index and
-  rebuilds the BM25 index over the index's documents;
+* :meth:`ChatPipeline.ingest` embeds pre-chunked documents, adds them to
+  the index and rebuilds the BM25 index over the index's documents, under
+  the ingestor's write lock (``pipeline.ingestor``, a ``DocumentIngestor``
+  over the same embedder and indexes, chunks and ingests files and texts);
+* :meth:`ChatPipeline.run` runs one question through the stages and
+  returns the JAX graph's final state (documents of each stage, response,
+  evaluation, and the metadata each JAX node and the executor write);
 * :meth:`ChatPipeline.chat` answers one question and returns ``answer``,
   ``sources`` and ``verification`` as ``/chat`` does, plus per-stage times.
   As the JAX graph's nodes do, a failed retrieval gives no documents and
   ``metadata.retrieval_error``, a failed generation an empty answer and
   ``metadata.generation_error`` (errors marked ``soft_fail_exempt`` —
-  shed, expired, service down — raise), and a failed rerank keeps the
-  retrieval order (``metadata.rerank_fallback``).
+  shed, expired, service down — raise), a failed rerank keeps the
+  retrieval order (``metadata.rerank_fallback``), and a caller's deadline
+  that has passed before verify skips it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 from dataclasses import dataclass, field
@@ -46,6 +53,7 @@ from sentio_tpu_torch.ops.bm25 import BM25Index, BM25Params, make_bm25_index
 from sentio_tpu_torch.ops.dense_index import TorchDenseIndex
 from sentio_tpu_torch.ops.embedder import TorchEmbedder
 from sentio_tpu_torch.ops.generator import EngineProvider, LLMGenerator
+from sentio_tpu_torch.ops.ingest import DocumentIngestor
 from sentio_tpu_torch.ops.prompts import PromptBuilder
 from sentio_tpu_torch.ops.reranker import CrossEncoderReranker
 from sentio_tpu_torch.ops.retrievers import BaseRetriever, create_retriever
@@ -91,6 +99,14 @@ def _user_top_k(raw: Optional[int], default: int, cap: int = 50) -> int:
     return max(1, min(int(raw), cap))
 
 
+def best_documents(state: dict) -> list[Document]:
+    """The most-processed document list: selected → reranked → retrieved."""
+    for key in ("selected_documents", "reranked_documents", "retrieved_documents"):
+        if state.get(key):
+            return state[key]
+    return []
+
+
 def serialize_sources(docs: Sequence[Document]) -> list[dict[str, Any]]:
     """Cited sources in the ``/chat`` response shape."""
     keep = ("source", "filename", "score", "hybrid_score", "rerank_score")
@@ -112,73 +128,141 @@ class ChatPipeline:
     # the /chat template head warmed into the paged engine's radix tree
     warm_head: str = ""
 
+    ingestor: Optional[DocumentIngestor] = None
+    # set once warmup() has run: the server's readiness
+    ready: bool = False
+
     def ingest(self, documents: Sequence[Document]) -> int:
-        """Embed ``documents``, add them to the index and rebuild the BM25
-        index over every document the index holds; returns the count."""
+        """Embed ``documents`` (already chunks), add them to the index and
+        rebuild the BM25 index over every document the index holds, under
+        the ingestor's write lock; returns the count."""
         documents = list(documents)
-        self.index.add(documents, self.embedder.embed_many([d.content for d in documents]))
-        if self.bm25_index is not None:
-            self.bm25_index.build(self.index.documents())
+        lock = self.ingestor._write_lock if self.ingestor is not None else contextlib.nullcontext()
+        with lock:
+            self.index.add(documents, self.embedder.embed_many([d.content for d in documents]))
+            if self.bm25_index is not None:
+                self.bm25_index.build(self.index.documents())
         return len(documents)
 
-    def chat(self, question: str, top_k: Optional[int] = None,
-             temperature: Optional[float] = None, mode: str = "balanced") -> dict[str, Any]:
+    def run(self, question: str, top_k: Optional[int] = None,
+            temperature: Optional[float] = None, mode: str = "balanced",
+            metadata: Optional[dict] = None, deadline_ts: Optional[float] = None) -> dict:
+        """retrieve → rerank → select → generate → verify, as the JAX
+        graph runs them. ``metadata`` seeds the state's metadata (the
+        ``/chat`` handler's query id and request fields); ``deadline_ts``
+        (absolute ``time.perf_counter()``) reaches the service's tickets,
+        and verify is skipped once it has passed. Returns the final state:
+        ``query``, ``retrieved_documents``, ``reranked_documents``,
+        ``selected_documents``, ``response``, ``evaluation``, ``metadata``
+        and ``generated_tokens``."""
         s = self.settings
-        stage_ms: dict[str, float] = {}
-        t = time.perf_counter()
+        meta: dict[str, Any] = dict(metadata or {})
+        state: dict[str, Any] = {"query": question, "retrieved_documents": [],
+                                 "reranked_documents": [], "selected_documents": [],
+                                 "response": "", "evaluation": {}, "metadata": meta}
+        timings: dict[str, float] = {}
+        path: list[str] = []
 
-        def lap(name: str) -> None:
-            nonlocal t
-            now = time.perf_counter()
-            stage_ms[name] = (now - t) * 1e3
-            t = now
+        def node(name: str, t0: float) -> None:
+            path.append(name)
+            timings[name] = round((time.perf_counter() - t0) * 1e3, 3)
 
-        meta: dict[str, Any] = {}
+        t0 = time.perf_counter()
         try:
             retrieved = self.retriever.retrieve(question, _user_top_k(top_k, s.retrieval.top_k))
         except Exception as exc:  # noqa: BLE001 — the JAX retrieve node's degradation
             logger.exception("retrieval failed")
-            retrieved, meta["retrieval_error"] = [], str(exc)
-        lap("retrieve")
-        docs = retrieved
-        if self.reranker is not None and retrieved:
-            reranked = self.reranker.rerank(question, retrieved,
-                                            top_k=_user_top_k(top_k, s.rerank.top_k))
-            docs, meta["rerank_fallback"] = reranked.documents, reranked.fallback_used
-            lap("rerank")
-        selected, _used = select_documents(docs, s.generator.context_token_budget)
-        best = selected or docs
-        lap("select")
+            meta["retrieval_error"] = str(exc)
+        else:
+            state["retrieved_documents"] = retrieved
+            meta.update(num_retrieved=len(retrieved),
+                        retrieval_ms=round((time.perf_counter() - t0) * 1000, 2),
+                        retriever=self.retriever.name)
+        node("retrieve", t0)
+        if self.reranker is not None:
+            t0 = time.perf_counter()
+            docs = state["retrieved_documents"]
+            if not docs:
+                meta["num_reranked"] = 0
+            else:
+                result = self.reranker.rerank(question, docs,
+                                              top_k=_user_top_k(top_k, s.rerank.top_k))
+                state["reranked_documents"] = result.documents
+                meta.update(num_reranked=len(result.documents),
+                            rerank_ms=round((time.perf_counter() - t0) * 1000, 2),
+                            reranker=result.model, rerank_fallback=result.fallback_used)
+            node("rerank", t0)
+        t0 = time.perf_counter()
+        selected, used = select_documents(
+            state["reranked_documents"] or state["retrieved_documents"],
+            s.generator.context_token_budget)
+        state["selected_documents"] = selected
+        meta.update(num_selected=len(selected), context_chars=used,
+                    context_budget_chars=s.generator.context_token_budget * CHARS_PER_TOKEN)
+        node("select", t0)
+        best = best_documents(state)
+        t0 = time.perf_counter()
         gen_stats: dict = {}
         try:
-            answer = self.generator.generate(question, best, mode=mode,
-                                             temperature=temperature, stats=gen_stats)
+            answer = self.generator.generate(question, best, mode=mode or s.generator.mode,
+                                             temperature=temperature, deadline_ts=deadline_ts,
+                                             stats=gen_stats)
         except Exception as exc:  # noqa: BLE001 — the JAX generate node's degradation
             if getattr(exc, "soft_fail_exempt", False):
                 raise  # shed / expired / service down surface typed
             logger.exception("generation failed")
-            answer, meta["generation_error"] = "", str(exc)
-        lap("generate")
-        verification: dict = {}
+            meta["generation_error"] = str(exc)
+        else:
+            state["response"] = answer
+            meta.update(generation_ms=round((time.perf_counter() - t0) * 1000, 2),
+                        generation_mode=mode or s.generator.mode,
+                        generator=self.generator.provider.name)
+            if gen_stats.get("logprob_count"):
+                meta.update(logprob_mean=round(gen_stats["logprob_mean"], 4),
+                            logprob_min=round(gen_stats["logprob_min"], 4),
+                            logprob_count=gen_stats["logprob_count"])
+        state["generated_tokens"] = gen_stats.get("tokens", 0)
+        node("generate", t0)
         if self.verifier is not None:
-            if answer:
-                result = self.verifier.verify(question, answer, best)
-                verification = result.to_dict()
-                if result.verdict == "fail" and result.revised_answer:
-                    answer = result.revised_answer
+            t0 = time.perf_counter()
+            answer = state["response"]
+            if not answer:
+                state["evaluation"] = {"verdict": "warn", "notes": ["empty answer"]}
+            elif deadline_ts is not None and time.perf_counter() >= deadline_ts:
+                state["evaluation"] = {"verdict": "skip",
+                                       "notes": ["deadline expired; verification skipped"]}
+                meta["verify_skipped"] = "deadline"
             else:
-                verification = {"verdict": "warn", "notes": ["empty answer"]}
-            lap("verify")
+                result = self.verifier.verify(question, answer, best, deadline_ts=deadline_ts)
+                state["evaluation"] = result.to_dict()
+                meta.update(verify_ms=round((time.perf_counter() - t0) * 1000, 2),
+                            verdict=result.verdict)
+                if result.verdict == "fail" and result.revised_answer:
+                    state["response"] = result.revised_answer
+                    meta["answer_revised"] = True
+            node("verify", t0)
+        meta["node_timings_ms"] = timings
+        meta["graph_path"] = path
+        return state
+
+    def chat(self, question: str, top_k: Optional[int] = None,
+             temperature: Optional[float] = None, mode: str = "balanced",
+             deadline_ts: Optional[float] = None) -> dict[str, Any]:
+        state = self.run(question, top_k=top_k, temperature=temperature, mode=mode,
+                         deadline_ts=deadline_ts)
+        meta = state["metadata"]
         return {
-            "answer": answer,
-            "sources": serialize_sources(best),
-            "verification": verification,
+            "answer": state["response"],
+            "sources": serialize_sources(best_documents(state)),
+            "verification": state["evaluation"],
             "metadata": {
-                "retrieved_ids": [d.id for d in retrieved],
-                "reranked_ids": [d.id for d in docs],
-                "stage_ms": stage_ms,
-                "generated_tokens": gen_stats.get("tokens", 0),
-                **meta,
+                "retrieved_ids": [d.id for d in state["retrieved_documents"]],
+                "reranked_ids": [d.id for d in (state["reranked_documents"]
+                                                or state["retrieved_documents"])],
+                "stage_ms": meta["node_timings_ms"],
+                "generated_tokens": state["generated_tokens"],
+                **{k: meta[k] for k in ("retrieval_error", "rerank_fallback",
+                                        "generation_error") if k in meta},
             },
         }
 
@@ -187,23 +271,57 @@ class ChatPipeline:
         """The generation service (None on the contiguous engine)."""
         return self.generator.provider.service
 
+    def load_index(self, path) -> int:
+        """Add a dense index saved by ``TorchDenseIndex.save`` (or the JAX
+        index's ``save``) to this pipeline's index and rebuild BM25 over it;
+        returns the documents loaded. The saved vectors must have the
+        embedder's width."""
+        loaded = TorchDenseIndex.load(path, device=self.index.device, dtype=self.index.dtype)
+        if loaded.dim != self.embedder.dimension:
+            raise ValueError(f"persisted dense index at {path} has dim={loaded.dim} but the "
+                             f"configured embedder produces dim={self.embedder.dimension}")
+        documents, embeddings = loaded.documents(), loaded.embeddings()
+        lock = self.ingestor._write_lock if self.ingestor is not None else contextlib.nullcontext()
+        with lock:
+            if documents:
+                self.index.add(documents, embeddings)
+            if self.bm25_index is not None:
+                self.bm25_index.build(self.index.documents())
+        return len(documents)
+
     def warmup(self) -> Optional[dict]:
         """Run the service's warmup (every graph variant captured on the
         card) before traffic, then warm the template head again: warmup's
         own prompts fill the radix tree and can evict it. None on the
-        contiguous engine."""
-        if self.service is None:
-            return None
-        stats = self.service.warmup()
-        if self.warm_head:
-            self.service.wait_idle()
-            stats["head_tokens"] = self.service.engine.warm_prefix(self.warm_head)
+        contiguous engine. Sets ``ready``."""
+        stats = None
+        if self.service is not None:
+            stats = self.service.warmup()
+            if self.warm_head:
+                self.service.wait_idle()
+                stats["head_tokens"] = self.service.engine.warm_prefix(self.warm_head)
+        self.ready = True
         return stats
 
     def close(self) -> None:
-        """Stop the generation service's pump, if any."""
+        """Stop the generation service's pump, if any, and the embedder's
+        coalescer."""
         if self.service is not None:
             self.service.close()
+        self.embedder.close()
+
+
+def make_embedder(settings: Settings, device, seed: int = 0, params: Optional[dict] = None,
+                  model_config: Optional[EncoderConfig] = None) -> TorchEmbedder:
+    """The embedder ``build_pipeline`` makes for ``seed``: the checkpoint's
+    weights, or random ones drawn from ``seed + 1`` on ``device`` — so an
+    index that ``ingest`` saves is searched with the same weights by a
+    server built from the same settings and seed."""
+    dev = resolve_device(device)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 1)
+    return TorchEmbedder(settings.embedder, params=params, model_config=model_config,
+                         device=dev, generator=g)
 
 
 def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int = 0,
@@ -242,8 +360,8 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
         g.manual_seed(seed + offset)
         return g
 
-    embedder = TorchEmbedder(settings.embedder, params=embedder_params,
-                             model_config=embedder_config, device=dev, generator=gen(1))
+    embedder = make_embedder(settings, dev, seed, params=embedder_params,
+                             model_config=embedder_config)
     # the corpus is held in the generator dtype, as the JAX container holds it
     index = TorchDenseIndex(embedder.dimension, device=dev, dtype=gcfg.dtype)
     bm25 = None
@@ -293,6 +411,9 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
                                                   device=dev))
     generator = LLMGenerator(provider=provider, config=gcfg, prompts=prompts)
     verifier = AnswerVerifier(generator=generator, config=gcfg) if gcfg.use_verifier else None
+    ingestor = DocumentIngestor(embedder=embedder, dense_index=index, sparse_index=bm25,
+                                settings=settings)
     return ChatPipeline(embedder=embedder, index=index, retriever=retriever,
                         generator=generator, bm25_index=bm25, reranker=reranker,
-                        verifier=verifier, settings=settings, warm_head=warm_head)
+                        verifier=verifier, settings=settings, warm_head=warm_head,
+                        ingestor=ingestor)

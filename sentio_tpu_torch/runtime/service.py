@@ -31,8 +31,11 @@ Overload and failure, as in JAX:
 :meth:`~PagedGenerationService.warmup` runs before traffic: one admission
 per prefill shape and tick rung, a concurrent burst, and on the card every
 CUDA graph variant the engine can ask for, after which a capture under
-traffic is an error. Left out, with the replica tier: resumable streams,
-inbox handoff and adoption, the stall watchdog, tenants, tracing.
+traffic is an error. Each shed or expiry is counted in
+``sentio_tpu_shed_total`` by reason and each pump iteration's phases in
+``sentio_tpu_tick_phase_seconds`` (``infra/metrics.py``). Left out, with
+the replica tier: resumable streams, inbox handoff and adoption, the stall
+watchdog, tenants, tracing.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from sentio_tpu_torch.infra.exceptions import (
     ReplicaUnavailable,
     ServiceOverloaded,
 )
+from sentio_tpu_torch.infra.metrics import get_metrics
 from sentio_tpu_torch.infra.phases import TICK_PHASES, duty_fractions
 from sentio_tpu_torch.runtime.paged import ContinuousBatchingEngine, PagedResult
 
@@ -310,11 +314,13 @@ class PagedGenerationService:
         finish; every rejection is counted."""
         if self._draining:
             self._shed += 1
+            get_metrics().record_shed("draining")
             raise ServiceOverloaded("generation service is draining", status=503,
                                     retry_after_s=5.0)
         pending = len(self._inbox) + len(self._tickets)
         if pending >= self.max_queue:
             self._shed += 1
+            get_metrics().record_shed("queue_full")
             raise ServiceOverloaded(
                 f"decode queue full ({pending}/{self.max_queue} waiting)", status=429,
                 retry_after_s=max(self._projected_wait_locked(pending) or 0.0, 1.0))
@@ -322,10 +328,12 @@ class PagedGenerationService:
             remaining = deadline_ts - time.perf_counter()
             if remaining <= 0:
                 self._shed += 1
+                get_metrics().record_shed("deadline")
                 raise DeadlineExceededError("deadline expired before submit")
             projected = self._projected_wait_locked(pending)
             if projected is not None and projected > remaining:
                 self._shed += 1
+                get_metrics().record_shed("deadline")
                 raise ServiceOverloaded(
                     f"projected wait {projected:.2f}s exceeds remaining deadline budget "
                     f"{remaining:.2f}s", status=503, retry_after_s=1.0)
@@ -526,6 +534,7 @@ class PagedGenerationService:
                         continue
                     if ticket.deadline_ts is not None and now >= ticket.deadline_ts:
                         self._expired += 1
+                        get_metrics().record_shed("expired")
                         finish_ticket_error(ticket, DeadlineExceededError(
                             "deadline expired before admission"))
                         continue
@@ -546,6 +555,7 @@ class PagedGenerationService:
                         self.engine.cancel(rid)
                         self._tickets.pop(rid, None)
                         self._expired += 1
+                        get_metrics().record_shed("expired")
                         finish_ticket_error(ticket, DeadlineExceededError(
                             "deadline expired mid-decode; request cancelled"))
                 if self._closed or not self.engine.has_work:
@@ -595,6 +605,7 @@ class PagedGenerationService:
                     if result.finish_reason == "expired":
                         # the engine dropped it while queued for a slot
                         self._expired += 1
+                        get_metrics().record_shed("expired")
                         finish_ticket_error(ticket, DeadlineExceededError(
                             "deadline expired while queued for a slot"))
                         continue
@@ -616,6 +627,7 @@ class PagedGenerationService:
             self._add_phases(phase_s)
 
     def _add_phases(self, phase_s: dict) -> None:
+        get_metrics().record_tick_phases(phase_s)
         for key, val in phase_s.items():
             self._phase_totals[key] += val
 
@@ -652,6 +664,7 @@ class PagedGenerationService:
                     self._requeued += 1
                     survivors.append(ticket)
                 else:
+                    get_metrics().record_shed("crash")
                     self._fail_ticket_locked(ticket)
             for ticket in self._inbox:
                 if ticket.cancelled:

@@ -461,3 +461,66 @@ def test_no_capture_after_warmup(dev):
         assert engine.graph_captures == 3 and engine.graph_replays > replays
     finally:
         service.close()
+
+
+def test_http_server_on_the_card(dev):
+    """A 2-layer pipeline behind ``create_server`` on the card answers one
+    JSON and one SSE ``/chat`` after warmup: both 200 and not degraded,
+    the SSE stream ends with ``[DONE]``, each wrapper's count equals the
+    card's own count of its device functions, and no graph is captured."""
+    import http.client
+    import json
+    import tempfile
+    import threading
+
+    from sentio_tpu_torch.config import EmbedderConfig, GeneratorConfig, Settings
+    from sentio_tpu_torch.infra.resilience import FallbackResponseCache, LLMFallback
+    from sentio_tpu_torch.pipeline import build_pipeline
+    from sentio_tpu_torch.serve.app import create_server
+
+    settings = Settings(embedder=EmbedderConfig(model_preset="tiny"),
+                        generator=GeneratorConfig(kv_page_size=16, kv_max_pages_per_seq=32,
+                                                  max_new_tokens=12, verifier_max_tokens=12))
+    pipeline = build_pipeline(settings, device=dev, llama_config=SMALL)
+    pipeline.warmup()
+    server = create_server(settings, pipeline, host="127.0.0.1", port=0,
+                           fallback=(FallbackResponseCache(tempfile.mkdtemp()), LLMFallback()))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+
+    def post(path, payload):
+        conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=120)
+        try:
+            conn.request("POST", path, body=json.dumps(payload),
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            return resp.status, resp.read().decode()
+        finally:
+            conn.close()
+
+    try:
+        assert post("/embed", {"content": " ".join(PROMPTS) * 4})[0] == 200
+        engine = pipeline.service.engine
+        captures = engine.graph_captures
+        kernels = {"paged": PAGED_KERNEL, "quant": PAGED_QUANT_KERNEL, "flash": FLASH_KERNEL}
+        torch.cuda.synchronize()
+        card0 = {k: kernel.device_launches() for k, kernel in kernels.items()}
+        for kernel in kernels.values():
+            kernel.launches = 0
+        status, body = post("/chat", {"question": PROMPTS[1]})
+        assert status == 200 and json.loads(body)["metadata"]["degraded"] is False
+        status, body = post("/chat", {"question": PROMPTS[0], "stream": True})
+        assert status == 200 and '"token"' in body and body.rstrip().endswith("data: [DONE]")
+        pipeline.service.wait_idle()
+        torch.cuda.synchronize()
+        for name, kernel in kernels.items():
+            card = [n - n0 for n, n0 in zip(kernel.device_launches(), card0[name])]
+            assert card[0] == kernel.launches, name
+        assert PAGED_KERNEL.launches > 0 and FLASH_KERNEL.launches > 0
+        assert PAGED_QUANT_KERNEL.launches == 0
+        assert engine.graph_captures == captures
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+        pipeline.close()

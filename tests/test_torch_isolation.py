@@ -1,7 +1,9 @@
 """The port stands alone: no module of sentio_tpu_torch, and not
-chip_smoke.py, imports JAX (or flax/optax) or anything of the JAX package
-— checked statically on every file, then by importing every module in a
-fresh interpreter where those imports are blocked."""
+chip_smoke.py, imports JAX (or flax/optax) or anything of the JAX package,
+nor an HTTP or metrics package the machine with the card lacks (aiohttp,
+httpx, pydantic, prometheus_client) — checked statically on every file,
+then by importing every module in a fresh interpreter where those imports
+are blocked."""
 
 import ast
 import subprocess
@@ -12,7 +14,8 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "sentio_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "sentio_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "sentio_tpu", "aiohttp", "httpx", "pydantic",
+             "prometheus_client"}
 
 
 def _port_files():
