@@ -1411,6 +1411,10 @@ def serve_http_check(torch, dev, shared) -> dict:
             "p95_s": json_sorted[min(int(len(json_sorted) * 0.95), len(json_sorted) - 1)],
             "sse_first_token_s": first_token_s, "sse_s": sse_s, "burst_s": burst_s,
             "stage_ms": [out["metadata"]["node_timings_ms"] for _, out, _ in sequential],
+            "stage_ms_concurrent": [item[1]["metadata"]["node_timings_ms"]
+                                    for kind, item in concurrent if kind == "json"],
+            "generated_tokens": [out["metadata"].get("logprob_count")
+                                 for _, out, _ in sequential],
             "decode_sub_steps": sub_steps,
             "graph_captures_delta": stats1["graph_captures"] - stats0["graph_captures"],
             "ticks": svc1["ticks"] - svc0["ticks"],

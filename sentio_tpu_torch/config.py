@@ -345,8 +345,6 @@ class CacheConfig:
     max_entries: int = 10_000
     default_ttl_s: float = 3600.0
     query_cache_ttl_s: float = 600.0
-    redis_url: str = "redis://localhost:6379/0"
-    redis_key_prefix: str = "sentio:"
 
     @classmethod
     def from_env(cls) -> "CacheConfig":
@@ -355,8 +353,6 @@ class CacheConfig:
             max_entries=_env_int(["CACHE_MAX_ENTRIES"], 10_000),
             default_ttl_s=_env_float(["CACHE_TTL"], 3600.0),
             query_cache_ttl_s=_env_float(["QUERY_CACHE_TTL"], 600.0),
-            redis_url=_env_str(["REDIS_URL"], "redis://localhost:6379/0"),
-            redis_key_prefix=_env_str(["REDIS_KEY_PREFIX"], "sentio:"),
         )
 
 

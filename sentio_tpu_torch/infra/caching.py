@@ -9,7 +9,6 @@ good answer and replays it as the first tier of its degradation ladder.
 
 from __future__ import annotations
 
-import fnmatch
 import threading
 import time
 from collections import OrderedDict
@@ -55,32 +54,6 @@ class MemoryCache:
                 self._store.popitem(last=False)
                 self.evictions += 1
 
-    def delete(self, key: str) -> bool:
-        with self._lock:
-            return self._store.pop(key, None) is not None
-
-    def clear(self, pattern: str = "*") -> int:
-        with self._lock:
-            if pattern == "*":
-                n = len(self._store)
-                self._store.clear()
-                return n
-            doomed = [k for k in self._store if fnmatch.fnmatch(k, pattern)]
-            for k in doomed:
-                del self._store[k]
-            return len(doomed)
-
-    def stats(self) -> dict[str, Any]:
-        with self._lock:
-            total = self.hits + self.misses
-            return {
-                "entries": len(self._store),
-                "max_entries": self.max_entries,
-                "hits": self.hits,
-                "misses": self.misses,
-                "evictions": self.evictions,
-                "hit_rate": round(self.hits / total, 4) if total else 0.0,
-            }
 
 
 class CacheManager:
@@ -110,6 +83,3 @@ class CacheManager:
 
     def set_query_response(self, query: str, response: dict) -> None:
         self.set(f"query:{query.strip().lower()}", response, self.config.query_cache_ttl_s)
-
-    def stats(self) -> dict[str, Any]:
-        return {"backend": self.config.backend, "l1": self.l1.stats(), "multi_tier": False}

@@ -76,10 +76,6 @@ class Counter(_Family):
         with self._lock:
             self._children[key] = self._children.get(key, 0.0) + amount
 
-    def get(self, *labels) -> float:
-        with self._lock:
-            return float(self._children.get(self._key(labels), 0.0))
-
     def render(self) -> list[str]:
         with self._lock:
             items = sorted(self._children.items())

@@ -91,9 +91,6 @@ class LLMFallback:
     def __init__(self, prompts_dir: Optional[str] = None) -> None:
         self._prompts = PromptBuilder(prompts_dir)
 
-    def no_retrieval(self, query: str) -> str:
-        return self._prompts.build("fallback_no_retrieval", query=query)
-
     def no_llm(self, context: str) -> str:
         return self._prompts.build("fallback_no_llm", context=context)
 

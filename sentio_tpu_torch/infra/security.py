@@ -24,12 +24,10 @@ SECURITY_HEADERS = {
 @dataclass
 class RateLimitConfig:
     per_minute: int = 100
-    burst: int = 20
 
 
 class IPRateLimiter:
-    """Per-IP sliding window of one minute per endpoint bucket, with a load
-    factor (< 1.0 tightens every limit)."""
+    """Per-IP sliding window of one minute per endpoint bucket."""
 
     def __init__(self, default: Optional[RateLimitConfig] = None) -> None:
         self.default = default or RateLimitConfig()
@@ -37,7 +35,6 @@ class IPRateLimiter:
         self._events: dict[tuple[str, str], list[float]] = {}
         self._lock = threading.Lock()
         self._checks_since_sweep = 0
-        self.load_factor = 1.0
 
     def _maybe_sweep(self, now: float) -> None:
         """Drop idle (ip, endpoint) keys so rotating IPs cannot grow the
@@ -50,14 +47,11 @@ class IPRateLimiter:
         for k in doomed:
             del self._events[k]
 
-    def configure(self, endpoint: str, per_minute: int, burst: Optional[int] = None) -> None:
-        self.per_endpoint[endpoint] = RateLimitConfig(
-            per_minute=per_minute, burst=burst or max(per_minute // 5, 1)
-        )
+    def configure(self, endpoint: str, per_minute: int) -> None:
+        self.per_endpoint[endpoint] = RateLimitConfig(per_minute=per_minute)
 
     def check(self, ip: str, endpoint: str = "*") -> None:
-        cfg = self.per_endpoint.get(endpoint, self.default)
-        limit = max(int(cfg.per_minute * self.load_factor), 1)
+        limit = max(int(self.per_endpoint.get(endpoint, self.default).per_minute), 1)
         now = time.perf_counter()
         key = (ip, endpoint)
         with self._lock:
@@ -71,11 +65,3 @@ class IPRateLimiter:
                 )
             window.append(now)
             self._events[key] = window
-
-    def remaining(self, ip: str, endpoint: str = "*") -> int:
-        cfg = self.per_endpoint.get(endpoint, self.default)
-        limit = max(int(cfg.per_minute * self.load_factor), 1)
-        now = time.perf_counter()
-        with self._lock:
-            window = [t for t in self._events.get((ip, endpoint), []) if now - t < 60.0]
-        return max(limit - len(window), 0)

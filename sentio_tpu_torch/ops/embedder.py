@@ -175,9 +175,6 @@ class TorchEmbedder:
             self.stats["time_s"] += time.perf_counter() - t0
         return out
 
-    def embed(self, text: str) -> np.ndarray:
-        return self.embed_many([text])[0]
-
     def embed_device(self, texts: Sequence[str]):
         """[n, D] query vectors for the index: a full cache hit returns the
         cached host vectors (no device work); a single text is coalesced

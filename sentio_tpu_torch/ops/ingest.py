@@ -199,15 +199,15 @@ class IngestStats:
 
 class DocumentIngestor:
     """load → chunk → embed (device batches) → index. The serving pipeline
-    shares its embedder, dense index and BM25 index with the ingestor;
-    components not given are built from ``settings`` on the card."""
+    shares its embedder, dense index and BM25 index with the ingestor; the
+    chunker, when not given, is built from ``settings``."""
 
     def __init__(self, chunker=None, embedder=None, dense_index=None, sparse_index=None,
                  settings: Optional[Settings] = None) -> None:
         self.settings = settings or Settings()
         self._chunker = chunker
-        self._embedder = embedder
-        self._dense_index = dense_index
+        self.embedder = embedder
+        self.dense_index = dense_index
         self._sparse_index = sparse_index
         self.stats = IngestStats()  # lifetime totals; per-call stats are returned
         # ingest and clear (embed, dense add, BM25 rebuild) serialize here
@@ -222,28 +222,6 @@ class DocumentIngestor:
 
             self._chunker = TextChunker(config=self.settings.chunking)
         return self._chunker
-
-    @property
-    def embedder(self):
-        if self._embedder is None:
-            from sentio_tpu_torch.ops.embedder import TorchEmbedder
-
-            self._embedder = TorchEmbedder(self.settings.embedder)
-        return self._embedder
-
-    @property
-    def dense_index(self):
-        if self._dense_index is None:
-            from sentio_tpu_torch.ops.dense_index import TorchDenseIndex
-
-            self._dense_index = TorchDenseIndex(self.embedder.dimension,
-                                                device=self.embedder.device,
-                                                dtype=self.settings.generator.dtype)
-        return self._dense_index
-
-    @property
-    def sparse_index(self):
-        return self._sparse_index
 
     # ----------------------------------------------------------------- load
 
@@ -286,20 +264,18 @@ class DocumentIngestor:
             )
         ]
 
-    def load_directory(self, path: str | Path, recursive: bool = True,
-                       suffixes: Optional[Sequence[str]] = None) -> list[Document]:
+    def load_directory(self, path: str | Path, recursive: bool = True) -> list[Document]:
         """Every supported file under ``path``, in sorted order; unsupported
         and unreadable files are counted, not fatal."""
         path = Path(path)
         if not path.is_dir():
             raise IngestError(f"not a directory: {path}")
-        allowed = tuple(suffixes) if suffixes else SUPPORTED_SUFFIXES
         pattern = "**/*" if recursive else "*"
         docs: list[Document] = []
         for file in sorted(path.glob(pattern)):
             if not file.is_file():
                 continue
-            if file.suffix.lower() not in allowed:
+            if file.suffix.lower() not in SUPPORTED_SUFFIXES:
                 self.stats.files_skipped += 1
                 continue
             try:

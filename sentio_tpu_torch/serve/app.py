@@ -282,6 +282,8 @@ class _Handler(BaseHTTPRequestHandler):
                     response.headers["Allow"] = route[0]
                 else:
                     response = route[1]()
+            except _TooLarge as exc:
+                response = exc.response()
             except SchemaError as exc:
                 response = _json({"error": "validation_error", "details": exc.errors}, 422)
             except SentioError as exc:
@@ -359,12 +361,8 @@ class _Handler(BaseHTTPRequestHandler):
     # ------------------------------------------------------------- routes
 
     def _chat(self):
-        try:
-            body = self._json_body()
-        except _TooLarge as exc:
-            return exc.response()
         settings = self.server.settings
-        req = parse_chat_request(body, settings.serve)
+        req = parse_chat_request(self._json_body(), settings.serve)
         deadline_ts = _resolve_deadline_ts(self.headers, req, settings.serve)
         if req.stream:
             # shed before the 200 is committed: after it a stream can only
@@ -478,12 +476,8 @@ class _Handler(BaseHTTPRequestHandler):
             return True
 
     def _embed(self):
-        try:
-            body = self._json_body()
-        except _TooLarge as exc:
-            return exc.response()
         server = self.server
-        req = parse_embed_request(body, server.settings.serve)
+        req = parse_embed_request(self._json_body(), server.settings.serve)
         stats = server.pipeline.ingestor.ingest_document(req.content, req.metadata)
         get_metrics().record_embeddings(server.settings.embedder.provider, stats.chunks_embedded)
         return _json({"status": "ok", "stats": stats.to_dict()})

@@ -24,8 +24,12 @@ from typing import Any, Iterator, Optional
 
 from sentio_tpu_torch.infra.caching import CacheManager
 from sentio_tpu_torch.infra.metrics import get_metrics
-from sentio_tpu_torch.pipeline import ChatPipeline, select_documents, serialize_sources
-from sentio_tpu_torch.pipeline import best_documents
+from sentio_tpu_torch.pipeline import (
+    ChatPipeline,
+    best_documents,
+    select_documents,
+    serialize_sources,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -140,7 +144,7 @@ class ChatHandler:
             chunks: list[str] = []
             for piece in pipeline.generator.stream(question, selected, mode=mode,
                                                    temperature=temperature,
-                                                   deadline_ts=deadline_ts, stats={}):
+                                                   deadline_ts=deadline_ts):
                 chunks.append(piece)
                 yield ("token", piece)
             answer = "".join(chunks)
@@ -171,9 +175,9 @@ class ChatHandler:
 class HealthHandler:
     """basic / live / ready. Ready means the pipeline's warmup has run."""
 
-    def __init__(self, pipeline: ChatPipeline, started_at: Optional[float] = None) -> None:
+    def __init__(self, pipeline: ChatPipeline) -> None:
         self.pipeline = pipeline
-        self.started_at = time.perf_counter() if started_at is None else started_at
+        self.started_at = time.perf_counter()
 
     def basic(self) -> dict[str, Any]:
         return {

@@ -81,3 +81,51 @@ def test_bf16_corpus_and_input_checks():
     with pytest.raises(DenseIndexError):
         index.search_batch(np.zeros((1, DIM + 1), np.float32))
     assert TorchDenseIndex(DIM, device="cpu").search(embs[0]) == []
+
+
+def test_search_sees_each_write_whole():
+    """One thread adds batches (with upserts, so rows are tombstoned and
+    compacted) while another searches: every hit's score is the inner
+    product of the query with that document's own vector, so no search
+    pairs a matrix row with another write's document. Joins time out."""
+    import sys
+    import threading
+
+    port = TorchDenseIndex(DIM, device="cpu", dtype="float32")
+    rng = np.random.default_rng(7)
+    vectors: dict[str, np.ndarray] = {}
+    stop, errors = threading.Event(), []
+
+    def write():
+        for step in range(300):
+            ids = [f"d{(step * 5 + j) % 90}" for j in range(12)]
+            embs = rng.standard_normal((len(ids), DIM)).astype(np.float32)
+            embs /= np.linalg.norm(embs, axis=1, keepdims=True)
+            docs = [Document(text=i, id=i, metadata={"v": e.tolist()}) for i, e in zip(ids, embs)]
+            port.add(docs, embs)
+        stop.set()
+
+    def read():
+        q = np.ones((1, DIM), np.float32) / np.sqrt(DIM)
+        while not stop.is_set():
+            try:
+                for doc, score in port.search_batch(q, 8)[0]:
+                    want = float(q[0] @ np.asarray(doc.metadata["v"], np.float32))
+                    assert abs(score - want) < 1e-5, (doc.id, score, want)
+            except Exception as exc:  # noqa: BLE001 — reported below
+                errors.append(exc)
+                return
+
+    threads = [threading.Thread(target=write), threading.Thread(target=read)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)  # switch threads as often as the interpreter can
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors[0]
+    assert port.size == 90 and len(port.embeddings()) == 90

@@ -240,12 +240,12 @@ def test_ingest_path_matches_jax(encoder, files_dir):
     assert strip(got) == strip(want)
     assert got.files_skipped >= 3 and got.errors  # image.bin, broken.docx, scan.pdf
     assert _chunks_of(port.dense_index) == _chunks_of(ref.dense_index)
-    assert port.sparse_index.doc_ids == ref._sparse_index.doc_ids
+    assert port._sparse_index.doc_ids == ref._sparse_index.doc_ids
     np.testing.assert_allclose(port.dense_index.embeddings(),
                                ref.dense_index._embeddings[ref.dense_index._alive],
                                atol=VECTOR_ATOL, rtol=0)
     assert port.clear() == ref.clear()
-    assert port.dense_index.size == 0 and port.sparse_index.size == 0
+    assert port.dense_index.size == 0 and port._sparse_index.size == 0
     # ingesting a file again: the cache serves every chunk
     hits0 = port_embed.cache.hits
     stats = port.ingest_path(files_dir / "nested")

@@ -464,10 +464,12 @@ def test_embed_matches_jax(servers):
 
 
 @pytest.mark.parametrize("case", ["empty", "not_json", "over_cap", "not_multipart",
-                                  "no_file_parts", "unknown_route", "deadline_1ms"])
+                                  "no_file_parts", "unknown_route", "deadline_1ms",
+                                  "deadline_header"])
 def test_refusals_match_jax(servers, case):
     """422 bodies, 413 over the upload cap (with the files so far), the
-    non-multipart refusal, 404, and a 1 ms deadline's typed error."""
+    non-multipart refusal, 404, and a 1 ms deadline's typed error (from the
+    body field and from ``X-Deadline-Ms``)."""
     jc, pc = servers["jax"], servers["port"]
     json_headers = {"Content-Type": "application/json"}
     request = {
@@ -479,6 +481,7 @@ def test_refusals_match_jax(servers, case):
         "no_file_parts": ("POST", "/upload", *multipart([(None, b"just a field")])),
         "unknown_route": ("GET", "/nowhere", None, None),
         "deadline_1ms": ("POST", "/chat", {"question": QUESTIONS[0], "deadline_ms": 1}, None),
+        "deadline_header": ("POST", "/chat", {"question": QUESTIONS[1]}, {"X-Deadline-Ms": "1"}),
     }[case]
     with fixed_uuids():
         js, jh, jdata = jc.request(*request)
@@ -493,7 +496,7 @@ def test_refusals_match_jax(servers, case):
         assert ps == 413
         pbody["files"] = [_no_elapsed(f) for f in pbody["files"]]
         jbody["files"] = [_no_elapsed(f) for f in jbody["files"]]
-    if case == "deadline_1ms":
+    if case.startswith("deadline"):
         assert ps == 504
         pbody["error"].pop("error_id"), jbody["error"].pop("error_id")
         assert pbody["error"]["code"] == jbody["error"]["code"] == "DEADLINE_EXCEEDED"
@@ -612,6 +615,40 @@ def test_sse_disconnect_cancels_the_ticket(servers, monkeypatch):
     status, _, body = servers["port"].json("POST", "/chat", {"question": QUESTIONS[1],
                                                              "mode": "fast"})
     assert status == 200 and body["answer"]
+
+
+def test_sse_keepalive_during_silence(servers, monkeypatch):
+    """While the decode is silent longer than ``sse_keepalive_s``, the
+    stream carries ``: keepalive`` comments between its events."""
+    pserver = servers["server"]
+    engine = pserver.pipeline.service.engine
+    step = engine.step
+
+    def slow_step():
+        time.sleep(0.5)
+        return step()
+
+    monkeypatch.setattr(engine, "step", slow_step)
+    monkeypatch.setattr(pserver, "settings", dataclasses.replace(
+        pserver.settings, serve=dataclasses.replace(pserver.settings.serve,
+                                                    sse_keepalive_s=0.2)))
+    status, headers, data = servers["port"].request(
+        "POST", "/chat", {"question": QUESTIONS[0], "stream": True, "mode": "fast"})
+    text = data.decode()
+    assert status == 200 and ": keepalive\n\n" in text
+    assert text.index('data: {"sources"') < text.index(": keepalive")
+    assert text.rstrip().endswith("data: [DONE]")
+
+
+def test_clear_matches_jax(servers):
+    """Last of the server tests: ``/clear`` empties both indexes and
+    reports the same count; ``/info`` then shows 0."""
+    jc, pc = servers["jax"], servers["port"]
+    js, _, jbody = jc.json("POST", "/clear")
+    ps, _, pbody = pc.json("POST", "/clear")
+    assert ps == js == 200
+    assert pbody == jbody and pbody["documents_removed"] > 4
+    assert pc.json("GET", "/info")[2]["retrieval"]["corpus_size"] == 0
 
 
 # ------------------------------------------------------------------- the CLI
