@@ -683,7 +683,8 @@ def test_cli_ingest_and_serve(tmp_path, monkeypatch, capsys):
     assert port_stats["chunks_stored"] > 3 and port_stats["files_skipped"] == 1
 
     env = {k: v for k, v in os.environ.items() if not k.startswith("PALLAS")}
-    env.update(LLM_MAX_TOKENS="8", PYTHONUNBUFFERED="1")
+    # the server's disk fallback cache lives under HOME
+    env.update(LLM_MAX_TOKENS="8", PYTHONUNBUFFERED="1", HOME=str(tmp_path))
     proc = subprocess.Popen(
         [sys.executable, "-m", "sentio_tpu_torch", "serve", "--index", str(index), "--host",
          "127.0.0.1", "--port", "0", "--tiny", "--device", "cpu"],
