@@ -82,6 +82,7 @@ then non-zero and no result line is printed.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -1111,6 +1112,7 @@ def service_check(torch, pipeline, words) -> dict:
 
 HTTP_TIMEOUT_S = 300.0
 HTTP_CONCURRENT = 8  # 4 JSON + 4 SSE, released together
+DISCONNECT_TOKENS = 1024  # the stream whose client leaves: still decoding then
 _PROM_LINE = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{(.*)\})? (\S+)$')
 _PROM_LABEL = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
 
@@ -1236,18 +1238,29 @@ def expected_chunks(settings, files) -> int:
 
 
 def check_http_chat(phase: str, i: int, status: int, body: dict) -> None:
-    """A /chat answered with a 200, nothing degraded, sources cited."""
+    """A /chat answered with a 200 and nothing degraded, as
+    ``check_answered`` holds a slice's chats: sources cited, no retrieval
+    or generation error, no rerank fallback, a verification that ran."""
     meta = (body or {}).get("metadata", {})
-    bad = {k: meta[k] for k in ("retrieval_error", "generation_error") if k in meta}
+    bad = {k: meta[k] for k in ("retrieval_error", "generation_error", "rerank_fallback")
+           if meta.get(k)}
     if status != 200 or meta.get("degraded") is not False or bad or not body.get("sources") \
             or not body.get("answer"):
         raise AssertionError(f"{phase} chat {i}: status {status}, degraded "
                              f"{meta.get('degraded')}, {bad}, {len(body.get('sources', []))} "
                              f"sources, answer {body.get('answer')!r:.80}")
+    check_verdict(phase, i, meta.get("evaluation"))
+
+
+def check_verdict(phase: str, i: int, evaluation) -> None:
+    notes = (evaluation or {}).get("notes", [])
+    if not evaluation or any(str(n).startswith("verifier error") for n in notes):
+        raise AssertionError(f"{phase} chat {i}: verification failed: {evaluation}")
 
 
 def check_sse_chat(phase: str, i: int, result: dict) -> str:
-    """sources → ≥1 token → verdict → [DONE]; returns the joined tokens."""
+    """sources → ≥1 token → verdict → [DONE] (so no ``rerank_fallback``
+    event), a verification that ran; returns the joined tokens."""
     events = result["events"]
     kinds = [e if e == "[DONE]" else next(iter(e)) for e in events]
     tokens = "".join(e["token"] for e in events if isinstance(e, dict) and "token" in e)
@@ -1255,6 +1268,7 @@ def check_sse_chat(phase: str, i: int, result: dict) -> str:
           "[DONE]"] and set(kinds[1:-2]) == {"token"} and tokens and events[0]["sources"])
     if not ok:
         raise AssertionError(f"{phase} SSE chat {i}: status {result['status']}, events {kinds}")
+    check_verdict(phase, i, events[-2]["verdict"])
     return tokens
 
 
@@ -1442,23 +1456,35 @@ def serve_http_check(torch, dev, shared) -> dict:
         # ---- errors, a client that goes away
         bad = client.json("POST", "/chat", {})
         late = client.json("POST", "/chat", {"question": "anything at all", "deadline_ms": 1})
-        gone = client.sse({"question": f"Tell me about {words[300]}."},
-                          close_after_first_token=True)
-        t0 = time.perf_counter()
-        while time.perf_counter() - t0 < 30.0:
-            s = service.stats()
-            if s["active_slots"] == 0 and s["queued"] == 0 and s["queued_inbox"] == 0:
-                break
-            time.sleep(0.05)
-        idle_s = time.perf_counter() - t0
+        # the stream that is left is given DISCONNECT_TOKENS, so it is still
+        # decoding when the server sees its client gone
+        gen_config = pipeline.generator.config
+        pipeline.generator.config = dataclasses.replace(gen_config,
+                                                        max_new_tokens=DISCONNECT_TOKENS)
+        try:
+            sub_steps0, cancelled0 = engine.total_sub_steps, service.stats()["cancelled"]
+            gone = client.sse({"question": f"Tell me about {words[300]}."},
+                              close_after_first_token=True)
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < 30.0:
+                s = service.stats()
+                if s["active_slots"] == 0 and s["queued"] == 0 and s["queued_inbox"] == 0:
+                    break
+                time.sleep(0.05)
+            idle_s = time.perf_counter() - t0
+            gone_sub_steps = engine.total_sub_steps - sub_steps0
+            gone_cancelled = service.stats()["cancelled"] - cancelled0
+        finally:
+            pipeline.generator.config = gen_config
         after = client.json("POST", "/chat", {"question": f"What is {words[301]}?"})
-        svc2 = service.stats()
         result["errors"] = {"empty_status": bad[0], "empty_body": bad[2],
                             "deadline_status": late[0], "deadline_code": late[2]["error"]["code"],
                             "disconnect_events": len(gone["events"]),
                             "disconnect_first_token_s": gone["first_token_s"],
                             "idle_after_disconnect_s": idle_s,
-                            "cancelled": svc2["cancelled"] - svc1["cancelled"],
+                            "disconnect_sub_steps": gone_sub_steps,
+                            "disconnect_max_new_tokens": DISCONNECT_TOKENS,
+                            "cancelled": gone_cancelled,
                             "after_status": after[0]}
         emit(f"{phase}_errors", **result["errors"])
         if bad[0] != 422 or bad[2].get("error") != "validation_error" \
@@ -1466,9 +1492,12 @@ def serve_http_check(torch, dev, shared) -> dict:
             raise AssertionError(f"{phase}: {{}} gave {bad}")
         if late[0] != 504 or late[2]["error"]["code"] != "DEADLINE_EXCEEDED":
             raise AssertionError(f"{phase}: deadline_ms 1 gave {late}")
-        if gone["first_token_s"] is None or idle_s >= 30.0:
-            raise AssertionError(f"{phase}: after an SSE client left, the service still had "
-                                 f"live rows 30 s later: {service.stats()}")
+        if gone["first_token_s"] is None or idle_s >= 30.0 or gone_cancelled != 1 \
+                or gone_sub_steps >= DISCONNECT_TOKENS // 4:
+            raise AssertionError(f"{phase}: an SSE client that left after its first token was "
+                                 f"not cancelled: {gone_cancelled} cancelled, {gone_sub_steps} "
+                                 f"of {DISCONNECT_TOKENS} sub-steps decoded, idle after "
+                                 f"{idle_s:.1f} s: {service.stats()}")
         check_http_chat(phase, 12, after[0], after[2])
 
         # ---- /metrics: every chat sent is counted (a stream once its

@@ -139,8 +139,6 @@ def main(argv=None) -> int:
     serve.add_argument("--port", type=int, default=None, help="0 picks a free port")
     serve.add_argument("--index", default="",
                        help="load a persisted dense index (from ingest --save)")
-    serve.add_argument("--max-tokens", type=int, default=None,
-                       help="cap on answer and verify tokens (LLM_MAX_TOKENS)")
     common(serve)
     serve.set_defaults(fn=_cmd_serve)
 

@@ -99,6 +99,12 @@ def _user_top_k(raw: Optional[int], default: int, cap: int = 50) -> int:
     return max(1, min(int(raw), cap))
 
 
+def _node(meta: dict, name: str, t0: float) -> None:
+    """Record a finished stage as the JAX executor does."""
+    meta.setdefault("graph_path", []).append(name)
+    meta.setdefault("node_timings_ms", {})[name] = round((time.perf_counter() - t0) * 1e3, 3)
+
+
 def best_documents(state: dict) -> list[Document]:
     """The most-processed document list: selected → reranked → retrieved."""
     for key in ("selected_documents", "reranked_documents", "retrieved_documents"):
@@ -157,49 +163,10 @@ class ChatPipeline:
         and ``generated_tokens``."""
         s = self.settings
         meta: dict[str, Any] = dict(metadata or {})
-        state: dict[str, Any] = {"query": question, "retrieved_documents": [],
-                                 "reranked_documents": [], "selected_documents": [],
-                                 "response": "", "evaluation": {}, "metadata": meta}
-        timings: dict[str, float] = {}
-        path: list[str] = []
-
-        def node(name: str, t0: float) -> None:
-            path.append(name)
-            timings[name] = round((time.perf_counter() - t0) * 1e3, 3)
-
-        t0 = time.perf_counter()
-        try:
-            retrieved = self.retriever.retrieve(question, _user_top_k(top_k, s.retrieval.top_k))
-        except Exception as exc:  # noqa: BLE001 — the JAX retrieve node's degradation
-            logger.exception("retrieval failed")
-            meta["retrieval_error"] = str(exc)
-        else:
-            state["retrieved_documents"] = retrieved
-            meta.update(num_retrieved=len(retrieved),
-                        retrieval_ms=round((time.perf_counter() - t0) * 1000, 2),
-                        retriever=self.retriever.name)
-        node("retrieve", t0)
-        if self.reranker is not None:
-            t0 = time.perf_counter()
-            docs = state["retrieved_documents"]
-            if not docs:
-                meta["num_reranked"] = 0
-            else:
-                result = self.reranker.rerank(question, docs,
-                                              top_k=_user_top_k(top_k, s.rerank.top_k))
-                state["reranked_documents"] = result.documents
-                meta.update(num_reranked=len(result.documents),
-                            rerank_ms=round((time.perf_counter() - t0) * 1000, 2),
-                            reranker=result.model, rerank_fallback=result.fallback_used)
-            node("rerank", t0)
-        t0 = time.perf_counter()
-        selected, used = select_documents(
-            state["reranked_documents"] or state["retrieved_documents"],
-            s.generator.context_token_budget)
-        state["selected_documents"] = selected
-        meta.update(num_selected=len(selected), context_chars=used,
-                    context_budget_chars=s.generator.context_token_budget * CHARS_PER_TOKEN)
-        node("select", t0)
+        state: dict[str, Any] = {"query": question, "response": "", "evaluation": {},
+                                 "metadata": meta}
+        state.update(self.context(question, _user_top_k(top_k, s.retrieval.top_k),
+                                  _user_top_k(top_k, s.rerank.top_k), meta))
         best = best_documents(state)
         t0 = time.perf_counter()
         gen_stats: dict = {}
@@ -222,7 +189,7 @@ class ChatPipeline:
                             logprob_min=round(gen_stats["logprob_min"], 4),
                             logprob_count=gen_stats["logprob_count"])
         state["generated_tokens"] = gen_stats.get("tokens", 0)
-        node("generate", t0)
+        _node(meta, "generate", t0)
         if self.verifier is not None:
             t0 = time.perf_counter()
             answer = state["response"]
@@ -240,10 +207,54 @@ class ChatPipeline:
                 if result.verdict == "fail" and result.revised_answer:
                     state["response"] = result.revised_answer
                     meta["answer_revised"] = True
-            node("verify", t0)
-        meta["node_timings_ms"] = timings
-        meta["graph_path"] = path
+            _node(meta, "verify", t0)
         return state
+
+    def context(self, question: str, retrieve_k: int, rerank_k: int,
+                meta: dict) -> dict[str, list[Document]]:
+        """retrieve → rerank → select, degrading as the JAX graph's nodes
+        do: a failed retrieval leaves no documents and sets
+        ``meta["retrieval_error"]``, a failed rerank keeps the retrieval
+        order and sets ``meta["rerank_fallback"]``. Each stage's time goes
+        to ``meta["node_timings_ms"]`` and its name to ``meta["graph_path"]``.
+        Returns ``retrieved_documents``, ``reranked_documents`` and
+        ``selected_documents``."""
+        docs: dict[str, list[Document]] = {"retrieved_documents": [], "reranked_documents": [],
+                                           "selected_documents": []}
+        t0 = time.perf_counter()
+        try:
+            retrieved = self.retriever.retrieve(question, retrieve_k)
+        except Exception as exc:  # noqa: BLE001 — the JAX retrieve node's degradation
+            logger.exception("retrieval failed")
+            meta["retrieval_error"] = str(exc)
+        else:
+            docs["retrieved_documents"] = retrieved
+            meta.update(num_retrieved=len(retrieved),
+                        retrieval_ms=round((time.perf_counter() - t0) * 1000, 2),
+                        retriever=self.retriever.name)
+        _node(meta, "retrieve", t0)
+        if self.reranker is not None:
+            t0 = time.perf_counter()
+            if not docs["retrieved_documents"]:
+                meta["num_reranked"] = 0
+            else:
+                result = self.reranker.rerank(question, docs["retrieved_documents"],
+                                              top_k=rerank_k)
+                docs["reranked_documents"] = result.documents
+                meta.update(num_reranked=len(result.documents),
+                            rerank_ms=round((time.perf_counter() - t0) * 1000, 2),
+                            reranker=result.model, rerank_fallback=result.fallback_used)
+            _node(meta, "rerank", t0)
+        t0 = time.perf_counter()
+        selected, used = select_documents(
+            docs["reranked_documents"] or docs["retrieved_documents"],
+            self.settings.generator.context_token_budget)
+        docs["selected_documents"] = selected
+        meta.update(num_selected=len(selected), context_chars=used,
+                    context_budget_chars=(self.settings.generator.context_token_budget
+                                          * CHARS_PER_TOKEN))
+        _node(meta, "select", t0)
+        return docs
 
     def chat(self, question: str, top_k: Optional[int] = None,
              temperature: Optional[float] = None, mode: str = "balanced",

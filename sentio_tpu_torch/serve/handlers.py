@@ -11,8 +11,10 @@ failure walks the ladder: query cache → disk cache → template → apology,
 so ``/chat`` never answers 500 for a pipeline fault. Errors marked
 ``soft_fail_exempt`` (shed, expired, service down) raise and become typed
 429/503/504 responses. :meth:`ChatHandler.stream_chat_sync` is the SSE
-path: ``sources``, ``token`` increments, ``verdict`` (sync verification
-only), or a typed ``error`` event for shed or expired work.
+path over the same retrieve → rerank → select stages
+(:meth:`~sentio_tpu_torch.pipeline.ChatPipeline.context`): ``sources``,
+``token`` increments, ``verdict`` (sync verification only), or a typed
+``error`` event for shed or expired work.
 """
 
 from __future__ import annotations
@@ -24,12 +26,7 @@ from typing import Any, Iterator, Optional
 
 from sentio_tpu_torch.infra.caching import CacheManager
 from sentio_tpu_torch.infra.metrics import get_metrics
-from sentio_tpu_torch.pipeline import (
-    ChatPipeline,
-    best_documents,
-    select_documents,
-    serialize_sources,
-)
+from sentio_tpu_torch.pipeline import ChatPipeline, best_documents, serialize_sources
 
 logger = logging.getLogger(__name__)
 
@@ -128,19 +125,23 @@ class ChatHandler:
         """Typed events for SSE over the same stages as ``/chat``:
         ``("sources", [...])`` once, ``("token", str)`` per increment and
         ``("verdict", {...})`` after the answer when the verifier is on.
-        A shed or expired request ends with ``("error", {...})``; any other
-        failure degrades to the ladder's text as one ``token``. Closing the
-        generator (a client that went away) cancels the decode."""
+        A reranker that failed (the retrieval order kept) adds
+        ``("rerank_fallback", True)`` after ``sources``. A shed or expired
+        request ends with ``("error", {...})``; a failed retrieval and any
+        other failure degrade to the ladder's text as one ``token``.
+        Closing the generator (a client that went away) cancels the
+        decode."""
         pipeline, settings = self.pipeline, self.settings
         try:
-            docs = pipeline.retriever.retrieve(question, top_k=top_k or settings.retrieval.top_k)
-            if pipeline.reranker is not None and docs:
-                docs = pipeline.reranker.rerank(question, docs,
-                                                top_k=settings.rerank.top_k).documents
-            selected, _used = select_documents(list(docs),
-                                               settings.generator.context_token_budget)
+            meta: dict[str, Any] = {}
+            selected = pipeline.context(question, top_k or settings.retrieval.top_k,
+                                        settings.rerank.top_k, meta)["selected_documents"]
+            if "retrieval_error" in meta:
+                raise RuntimeError(meta["retrieval_error"])
             yield ("sources", [{"id": d.id, "source": d.metadata.get("source", d.id),
                                 "score": d.score()} for d in selected])
+            if meta.get("rerank_fallback"):
+                yield ("rerank_fallback", True)
             chunks: list[str] = []
             for piece in pipeline.generator.stream(question, selected, mode=mode,
                                                    temperature=temperature,

@@ -465,8 +465,8 @@ def test_no_capture_after_warmup(dev):
 
 def test_http_server_on_the_card(dev):
     """A 2-layer pipeline behind ``create_server`` on the card answers one
-    JSON and one SSE ``/chat`` after warmup: both 200 and not degraded,
-    the SSE stream ends with ``[DONE]``, each wrapper's count equals the
+    JSON and one SSE ``/chat`` after warmup: both 200 and not degraded
+    (no rerank fallback, no verifier error), the SSE stream ends with ``[DONE]``, each wrapper's count equals the
     card's own count of its device functions, and no graph is captured."""
     import http.client
     import json
@@ -508,9 +508,13 @@ def test_http_server_on_the_card(dev):
         for kernel in kernels.values():
             kernel.launches = 0
         status, body = post("/chat", {"question": PROMPTS[1]})
-        assert status == 200 and json.loads(body)["metadata"]["degraded"] is False
+        meta = json.loads(body)["metadata"]
+        assert status == 200 and meta["degraded"] is False and not meta.get("rerank_fallback")
+        assert not any(n.startswith("verifier error") for n in meta["evaluation"]["notes"])
         status, body = post("/chat", {"question": PROMPTS[0], "stream": True})
         assert status == 200 and '"token"' in body and body.rstrip().endswith("data: [DONE]")
+        assert '"verdict"' in body and "rerank_fallback" not in body \
+            and "verifier error" not in body
         pipeline.service.wait_idle()
         torch.cuda.synchronize()
         for name, kernel in kernels.items():

@@ -558,6 +558,43 @@ def test_ladder_tier_matches_jax(servers, monkeypatch):
     assert pbody["metadata"]["error"] == jbody["metadata"]["error"]
 
 
+@pytest.mark.parametrize("leg", ["retrieval", "rerank"])
+def test_sse_degrades_as_jax(servers, monkeypatch, leg):
+    """A failed retrieval turns both streams into the ladder's text as one
+    token. A failed rerank keeps the retrieval order on both, and the
+    port's stream says so with a ``rerank_fallback`` event after
+    ``sources``, as its JSON answer does in ``metadata.rerank_fallback``."""
+    jc, pc = servers["jax"], servers["port"]
+    container, pipeline = servers["container"], servers["server"].pipeline
+
+    def boom(*args, **kwargs):
+        raise RuntimeError(f"{leg} leg down")
+
+    if leg == "retrieval":
+        monkeypatch.setattr(container.retriever, "retrieve", boom)
+        monkeypatch.setattr(pipeline.retriever, "retrieve", boom)
+    else:
+        monkeypatch.setattr(container.reranker, "_score", boom)
+        monkeypatch.setattr(pipeline.reranker, "_score", boom)
+    payload = {"question": f"What happens when the {leg} leg is down?", "mode": "fast"}
+    js, _, jevents = jc.sse(payload)
+    ps, _, pevents = pc.sse(payload)
+    assert ps == js == 200
+    if leg == "retrieval":
+        assert pevents == jevents and len(pevents) == 2 and pevents[1] == "[DONE]"
+        assert pevents[0]["token"]
+        return
+    assert pevents[1] == {"rerank_fallback": True}
+    assert all(e == "[DONE]" or "rerank_fallback" not in e for e in jevents)
+    assert [s["id"] for s in pevents[0]["sources"]] == [s["id"] for s in jevents[0]["sources"]]
+    tokens = lambda evs: "".join(e["token"] for e in evs if e != "[DONE]" and "token" in e)  # noqa: E731
+    assert tokens(pevents) == tokens(jevents) and tokens(pevents)
+    assert pevents[-2] == jevents[-2] and "verdict" in pevents[-2]
+    _, _, jbody = jc.json("POST", "/chat", payload)
+    _, _, pbody = pc.json("POST", "/chat", payload)
+    assert pbody["metadata"]["rerank_fallback"] is jbody["metadata"]["rerank_fallback"] is True
+
+
 def test_metrics_parse_and_count(servers):
     from prometheus_client.parser import text_string_to_metric_families
 
