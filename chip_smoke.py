@@ -1112,7 +1112,9 @@ def service_check(torch, pipeline, words) -> dict:
 
 HTTP_TIMEOUT_S = 300.0
 HTTP_CONCURRENT = 8  # 4 JSON + 4 SSE, released together
-DISCONNECT_TOKENS = 1024  # the stream whose client leaves: still decoding then
+# the stream whose client leaves asks for this many tokens: still decoding
+# when the server sees it gone, some ticks of up to 64 sub-steps later
+DISCONNECT_TOKENS = 2048
 _PROM_LINE = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{(.*)\})? (\S+)$')
 _PROM_LABEL = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
 
@@ -1493,7 +1495,7 @@ def serve_http_check(torch, dev, shared) -> dict:
         if late[0] != 504 or late[2]["error"]["code"] != "DEADLINE_EXCEEDED":
             raise AssertionError(f"{phase}: deadline_ms 1 gave {late}")
         if gone["first_token_s"] is None or idle_s >= 30.0 or gone_cancelled != 1 \
-                or gone_sub_steps >= DISCONNECT_TOKENS // 4:
+                or gone_sub_steps >= DISCONNECT_TOKENS // 2:
             raise AssertionError(f"{phase}: an SSE client that left after its first token was "
                                  f"not cancelled: {gone_cancelled} cancelled, {gone_sub_steps} "
                                  f"of {DISCONNECT_TOKENS} sub-steps decoded, idle after "

@@ -24,6 +24,8 @@ checkpoints.
 * :meth:`ChatPipeline.run` runs one question through the stages and
   returns the JAX graph's final state (documents of each stage, response,
   evaluation, and the metadata each JAX node and the executor write);
+  :meth:`ChatPipeline.context` is its retrieve → rerank → select part,
+  which the SSE handler runs too;
 * :meth:`ChatPipeline.chat` answers one question and returns ``answer``,
   ``sources`` and ``verification`` as ``/chat`` does, plus per-stage times.
   As the JAX graph's nodes do, a failed retrieval gives no documents and
