@@ -73,6 +73,32 @@ line each:
     a near-tied greedy token of a random-weight model, and the point here
     is the admission, not the kernels.
 
+13. slice_spec — speculative decoding at full width and depth: a pipeline
+    under the default settings (hybrid rrf, bf16 pool, prefix cache, depth
+    2) with bench.py phase E's draft (dim 2048, 4 layers, 16 / 4 heads, MLP
+    7,168, random from the seed) passed to ``build_pipeline``, k 4, on the
+    slices' Llama-3-8B tensors (the earlier pipelines' pools freed first).
+    Warmup captures both spec round variants. 3 chats in a counted window
+    (generate at 0.3, the rejection rule; verify at 0, the greedy rule),
+    then 4 at once through the service (``slice_spec_service``) and one
+    under the profiler (``profile_spec``). Gates: no chat degraded, no
+    paged kernel launched (every decode tick a spec tick), flash equal to
+    the card's count, spec verifies with 1 to k+1 tokens each, no capture
+    after warmup, every round a graph replay. Reported: rounds, replays,
+    tokens per verify, the densified and draft-cache bytes, peak memory.
+14. spec_int8 — KV_QUANT=int8 with the draft, the target cut to 4 layers:
+    3 greedy chats, no paged kernel; reported: how many codes and scales
+    of pages wholly before each tick's first write the dequantize /
+    quantize round trip changed, and how many greedy tokens of a bf16 spec
+    engine agree with a bf16 plain engine's before the first difference.
+15. spec_exact — float32 at Llama-3-8B width cut to 2 layers, 4 prompts of
+    64 tokens, 64 new tokens each, greedy, on both engines with a perfect
+    draft (the target's own tensors) and a weak one (phase E's geometry at
+    2 layers): every spec run's tokens equal its engine's plain tokens, the
+    perfect draft gives at least k tokens a verify on both engines;
+    then the contiguous decoder in bf16: its target and draft prefills
+    launch flash once per layer each, the card's count the same.
+
 The last lines are the nvidia-smi line, one {"kernels": [...]} line (each
 kernel's ``launches`` from the counted chats, through the wrappers' counts
 added per graph replay, and beside them the card's own counts of the same
@@ -536,23 +562,29 @@ def record_admissions(service) -> list:
     return calls
 
 
-def build_slice(torch, dev, phase: str, settings, shared=None, ingest: bool = True):
-    """Build the pipeline (on ``shared``'s weight tensors when given), warm
-    its service up as the entry point does, and ingest the corpus (unless
-    not ``ingest``). Returns the pipeline, the documents, the corpus words
-    and the warmup's stats."""
+def shared_weights(pipeline) -> dict:
+    """``build_pipeline``'s keyword arguments that reuse ``pipeline``'s
+    weight tensors (Llama, embedder, cross-encoder): later phases share
+    them, and the pipeline itself can be freed."""
+    engine = pipeline.generator.provider.engine
+    return dict(llama_config=engine.cfg, llama_params=engine.params,
+                embedder_config=pipeline.embedder.model_config,
+                embedder_params=pipeline.embedder.params,
+                reranker_config=pipeline.reranker.model_config,
+                reranker_params=pipeline.reranker.params)
+
+
+def build_slice(torch, dev, phase: str, settings, shared=None, ingest: bool = True,
+                **weights):
+    """Build the pipeline (on the weight tensors of ``shared``, a
+    :func:`shared_weights` dict, when given, and on ``weights``, such as a
+    draft), warm its service up as the entry point does, and ingest the
+    corpus (unless not ``ingest``). Returns the pipeline, the documents, the
+    corpus words and the warmup's stats."""
     from sentio_tpu_torch.pipeline import build_pipeline
 
-    reuse = {}
-    if shared is not None:
-        engine = shared.generator.provider.engine
-        reuse = dict(llama_config=engine.cfg, llama_params=engine.params,
-                     embedder_config=shared.embedder.model_config,
-                     embedder_params=shared.embedder.params,
-                     reranker_config=shared.reranker.model_config,
-                     reranker_params=shared.reranker.params)
     t0 = time.perf_counter()
-    pipeline = build_pipeline(settings, device=dev, seed=SEED, **reuse)
+    pipeline = build_pipeline(settings, device=dev, seed=SEED, **{**(shared or {}), **weights})
     torch.cuda.synchronize()
     engine = pipeline.generator.provider.engine
     paged = pipeline.service is not None
@@ -564,16 +596,17 @@ def build_slice(torch, dev, phase: str, settings, shared=None, ingest: bool = Tr
          bm25_backend=type(pipeline.bm25_index).__name__ if pipeline.bm25_index else None,
          engine=type(engine).__name__, kv_quant=engine.kv_quant if paged else None,
          pool_bytes=engine.pool.hbm_bytes if paged else 0,
+         draft=pipeline.speculative_info,
          memory_allocated=torch.cuda.memory_allocated())
     warm = None
     if paged:
         warm = pipeline.warmup()
         torch.cuda.synchronize()
         emit(f"{phase}_warmup", **warm, graphs_frozen=engine.graphs_frozen)
-        if (warm["graph_captures"] != len(engine.GRAPH_VARIANTS) or not engine.graphs_frozen
+        if (warm["graph_captures"] != len(engine.graph_variants) or not engine.graphs_frozen
                 or warm["head_tokens"] <= 0):
             raise AssertionError(f"{phase}: warmup must capture every graph variant "
-                                 f"({len(engine.GRAPH_VARIANTS)}) and leave the template "
+                                 f"({len(engine.graph_variants)}) and leave the template "
                                  f"head warm: {warm}")
 
     docs, words = corpus(N_CHUNKS)
@@ -1033,12 +1066,14 @@ def contig_vs_paged_check(torch, dev, prompt: str) -> dict:
 SERVICE_CHATS = 8
 
 
-def service_check(torch, pipeline, words) -> dict:
-    """SERVICE_CHATS chats from as many threads at once through the warmed
+def service_check(torch, pipeline, words, phase: str = "service",
+                  n_chats: int = SERVICE_CHATS) -> dict:
+    """``n_chats`` chats from as many threads at once through the warmed
     service: every chat answered, no graph captured, some tick shared by
     more than one live row, the pool's paged kernel once per layer per
-    replayed sub-step, every count equal to the card's. Reports chat
-    latencies (p50, p95)."""
+    replayed sub-step (with a draft: no paged kernel at all, every tick a
+    spec tick), every count equal to the card's. Reports chat latencies
+    (p50, p95)."""
     import threading
 
     service, engine = pipeline.service, pipeline.generator.provider.engine
@@ -1049,9 +1084,9 @@ def service_check(torch, pipeline, words) -> dict:
     for kernel in counters.values():
         kernel.launches = 0
     questions = [f"What links {words[5 * i + 1]} to {words[5 * i + 2]}?"
-                 for i in range(SERVICE_CHATS)]
-    out: list = [None] * SERVICE_CHATS
-    start = threading.Barrier(SERVICE_CHATS)
+                 for i in range(n_chats)]
+    out: list = [None] * n_chats
+    start = threading.Barrier(n_chats)
 
     def chat(i: int) -> None:
         start.wait(timeout=60)
@@ -1062,7 +1097,7 @@ def service_check(torch, pipeline, words) -> dict:
             out[i] = exc
 
     threads = [threading.Thread(target=chat, args=(i,), name=f"smoke-chat-{i}", daemon=True)
-               for i in range(SERVICE_CHATS)]
+               for i in range(n_chats)]
     t0 = time.perf_counter()
     for t in threads:
         t.start()
@@ -1070,22 +1105,22 @@ def service_check(torch, pipeline, words) -> dict:
         t.join(timeout=600)
     wall_s = time.perf_counter() - t0
     if any(t.is_alive() for t in threads):
-        raise AssertionError("service: a chat did not return within 600 s")
+        raise AssertionError(f"{phase}: a chat did not return within 600 s")
     service.wait_idle()
     launches = {name: kernel.launches for name, kernel in counters.items()}
     card = card_delta(torch, card0)
     after, svc1 = engine.stats(), service.stats()
     for i, item in enumerate(out):
         if isinstance(item, Exception):
-            raise AssertionError(f"service chat {i} raised: {item!r}") from item
-        check_answered("service", i, item[0])
+            raise AssertionError(f"{phase} chat {i} raised: {item!r}") from item
+        check_answered(phase, i, item[0])
     seconds = sorted(sec for _r, sec in out)
     phase_s = {k: svc1["phase_seconds"][k] - svc0["phase_seconds"][k]
                for k in svc1["phase_seconds"]}
     sub_steps = after["sub_steps"] - before["sub_steps"]
     decode = "paged_attention_quant" if engine.pool.quantized else "paged_attention"
     other = "paged_attention" if engine.pool.quantized else "paged_attention_quant"
-    result = {"chats": SERVICE_CHATS, "wall_s": wall_s, "chat_s": seconds,
+    result = {"chats": n_chats, "wall_s": wall_s, "chat_s": seconds,
               "p50_s": seconds[len(seconds) // 2],
               "p95_s": seconds[min(int(len(seconds) * 0.95), len(seconds) - 1)],
               "ticks": svc1["ticks"] - svc0["ticks"],
@@ -1096,15 +1131,20 @@ def service_check(torch, pipeline, words) -> dict:
               "pump_phase_s": phase_s,
               "stage_ms": [item[0]["metadata"]["stage_ms"] for item in out],
               "launches": launches, "device_launches": card}
-    emit("service", **result)
+    spec = engine.draft_params is not None
+    if spec:
+        result["spec"] = {"verifies": after.get("spec_verifies", 0)
+                          - before.get("spec_verifies", 0),
+                          "emitted": after.get("spec_emitted", 0) - before.get("spec_emitted", 0)}
+    emit(phase, **result)
     if result["graph_captures_delta"] or result["shared_ticks"] <= 0:
-        raise AssertionError(f"service: a capture under traffic, or no tick shared: {result}")
-    if result["completed"] != 2 * SERVICE_CHATS:
-        raise AssertionError(f"service: expected a generate and a verify per chat: {result}")
-    if launches[decode] != engine.cfg.n_layers * sub_steps or launches[other]:
-        raise AssertionError(f"service: decode launches are not one per layer per sub-step: "
-                             f"{result}")
-    check_card("service", card, launches)
+        raise AssertionError(f"{phase}: a capture under traffic, or no tick shared: {result}")
+    if result["completed"] != 2 * n_chats:
+        raise AssertionError(f"{phase}: expected a generate and a verify per chat: {result}")
+    if launches[decode] != (0 if spec else engine.cfg.n_layers * sub_steps) or launches[other]:
+        raise AssertionError(f"{phase}: decode launches are not one per layer per sub-step "
+                             f"(none under a draft): {result}")
+    check_card(phase, card, launches)
     return result
 
 
@@ -1612,8 +1652,9 @@ def profile_chat(torch, pipeline, question: str, phase: str = "profile") -> dict
     time (tracing adds host overhead, so the idle share is an upper bound).
     It also holds the launch counts to the card's own (each kernel's
     device-side count): the pool's paged split kernel and its combine each
-    ran exactly once per layer per decode sub-step of the chat, as often as
-    the wrapper's count says; the other paged family never ran; the flash
+    ran exactly once per layer per decode sub-step of the chat (never under
+    a draft, whose spec ticks run no paged kernel), as often as the
+    wrapper's count says; the other paged family never ran; the flash
     kernel ran as often as its wrapper counted. The profiler's count of each
     device function is reported beside it: the profiler can drop records
     under a chat's ~10^5 kernels, so it is held only to no more than the
@@ -1653,7 +1694,9 @@ def profile_chat(torch, pipeline, question: str, phase: str = "profile") -> dict
         families[family] += ms
     top = sorted(kernels, key=lambda k: -k[1])[:8]
     decode = "paged_attention_quant" if engine.pool.quantized else "paged_attention"
-    expected = {fn: (engine.cfg.n_layers * sub_steps if name == decode
+    # under a draft every tick is a spec tick: no paged kernel runs
+    per_decode = 0 if engine.draft_params is not None else engine.cfg.n_layers * sub_steps
+    expected = {fn: (per_decode if name == decode
                      else counted["flash_attention"] if name == "flash_attention" else 0)
                 for fn, (name, _) in DEVICE_FUNCTIONS.items()}
     result = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
@@ -1665,13 +1708,358 @@ def profile_chat(torch, pipeline, question: str, phase: str = "profile") -> dict
               "profiler_missed": {fn: card[fn] - profiled[fn] for fn in card},
               "top_kernels": [{"name": n[:90], "ms": ms, "count": c} for n, ms, c in top]}
     emit(phase, **result)
-    if sub_steps <= 0 or card != expected \
-            or counted[decode] != engine.cfg.n_layers * sub_steps:
+    if sub_steps <= 0 or card != expected or counted[decode] != per_decode:
         raise AssertionError(f"{phase}: the card's launch counts disagree with the wrappers' "
                              f"or with one per layer per sub-step: {result}")
     if any(profiled[fn] > card[fn] for fn in card):
         raise AssertionError(f"{phase}: the profiler saw launches the card did not count: "
                              f"{result}")
+    return result
+
+
+# ------------------------------------------------------------- speculation
+
+SPEC_K = 4
+SPEC_EXACT_TOKENS = 64
+
+
+def bench_draft_config(target, n_layers: int = 4):
+    """bench.py phase E's draft for ``target``: half its width, heads, KV
+    heads and MLP, ``n_layers`` layers, its vocabulary, window and rope."""
+    from sentio_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig(vocab_size=target.vocab_size, dim=target.dim // 2, n_layers=n_layers,
+                       n_heads=target.n_heads // 2, n_kv_heads=max(target.n_kv_heads // 2, 1),
+                       mlp_dim=target.mlp_dim // 2, max_len=target.max_len,
+                       rope_theta=target.rope_theta, dtype=target.dtype)
+
+
+def spec_counters(engine) -> dict:
+    return {"verifies": engine.spec_verifies_total, "emitted": engine.spec_emitted_total,
+            "rounds": engine.spec_rounds_total, "replays": engine.graph_replays,
+            "captures": engine.graph_captures, "sub_steps": engine.total_sub_steps}
+
+
+def close_pipeline(torch, pipeline) -> int:
+    """Stop a pipeline's service and free what only it held (its pool, its
+    spec caches); returns the bytes the card then holds."""
+    import gc
+
+    pipeline.close()
+    del pipeline
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def run_spec_slice(torch, dev, settings, weights: dict, draft: dict) -> dict:
+    """slice_spec: the /chat pipeline of ``settings`` with a draft, at full
+    width and depth, on the slices' Llama-3-8B tensors: build, warm up (both
+    spec round variants captured), ingest, then 3 chats in a counted window
+    (each a generate at temperature 0.3, the rejection rule, and a verify at
+    0, the greedy rule). Gates: no chat degraded, no paged kernel launched
+    (every tick a spec tick), each count equal to the card's (flash), spec
+    verifies ran with 1 to k+1 tokens each, every verify admission hit the
+    radix tree, no graph captured after warmup."""
+    phase = "slice_spec"
+    torch.cuda.reset_peak_memory_stats()
+    pipeline, docs, words, warm = build_slice(torch, dev, phase, settings, weights, **draft)
+    engine = pipeline.generator.provider.engine
+    questions = slice_questions(docs, words)
+    calls = record_admissions(pipeline.service)
+    pipeline.service.wait_idle()
+    before = spec_counters(engine)
+    try:
+        window = chat_window(torch, pipeline, questions)
+    finally:
+        del pipeline.service.generate  # the recording wrapper
+    chats, launches, card = window["chats"], window["launches"], window["card"]
+    after = spec_counters(engine)
+    moved = {k: after[k] - before[k] for k in after}
+    if len(calls) != 2 * len(chats):
+        raise AssertionError(f"{phase}: expected a generate and a verify per chat, got "
+                             f"{len(calls)} engine calls")
+    for i, (response, seconds) in enumerate(chats):
+        meta = response["metadata"]
+        generate, verify = ({k: v for k, v in c.items() if k != "prompt"}
+                            for c in calls[2 * i : 2 * i + 2])
+        emit(f"{phase}_chat", index=i, seconds=seconds, stage_ms=meta["stage_ms"],
+             generated_tokens=meta["generated_tokens"], answer_chars=len(response["answer"]),
+             verdict=response["verification"].get("verdict"), generate=generate, verify=verify)
+        check_answered(phase, i, response)
+        if verify["prefix_hit_tokens_delta"] <= 0:
+            raise AssertionError(f"{phase} chat {i}: the verify admission missed the radix "
+                                 f"tree: {verify}")
+    spec = engine._spec
+    per_verify = moved["emitted"] / moved["verifies"] if moved["verifies"] else 0.0
+    result = {"chats": len(chats), "seconds": window["seconds"],
+              "chat_s": [sec for _r, sec in chats], "spec_k": engine.spec_k,
+              "draft": dataclasses.asdict(engine.draft_cfg), **moved,
+              "tokens_per_verify": per_verify, "launches": launches, "device_launches": card,
+              "pool_bytes": engine.pool.hbm_bytes, "dense_cache_bytes": spec.dense_bytes,
+              "draft_cache_bytes": spec.draft_bytes,
+              "engine_stats": {k: v for k, v in engine.stats().items() if k.startswith("spec_")},
+              "peak_memory": torch.cuda.max_memory_allocated()}
+    emit(phase, **result)
+    if launches["paged_attention"] or launches["paged_attention_quant"]:
+        raise AssertionError(f"{phase}: a paged kernel ran under speculation: {launches}")
+    if launches["flash_attention"] <= 0:
+        raise AssertionError(f"{phase}: the flash kernel never launched: {launches}")
+    check_card(phase, card, launches)
+    if moved["verifies"] <= 0 or not 1.0 <= per_verify <= engine.spec_k + 1:
+        raise AssertionError(f"{phase}: no spec verify ran, or tokens per verify outside "
+                             f"[1, k+1]: {result}")
+    if moved["captures"] or moved["replays"] != moved["rounds"]:
+        raise AssertionError(f"{phase}: a capture after warmup, or a round that was not a "
+                             f"graph replay: {result}")
+    return {"pipeline": pipeline, "launches": launches, "device_launches": card,
+            "questions": questions, "words": words, "result": result,
+            "generate_prompts": [c["prompt"] for c in calls[0::2]]}
+
+
+class RoundTrip:
+    """Around each spec tick of ``engine`` (an int8 pool): the codes and
+    scales of every page lying wholly before its row's first write of the
+    tick (the row's length when the tick begins), held before the densify
+    and after the scatter back. JAX calls the round trip idempotent."""
+
+    def __init__(self, torch, engine) -> None:
+        self.torch, self.spec = torch, engine._ensure_spec()
+        self.counts = {"ticks": 0, "pages": 0, "codes": 0, "codes_changed": 0,
+                       "max_code_change": 0, "scales": 0, "scales_changed": 0}
+        self._begin, self._end, self._held = self.spec.begin, self.spec.end, None
+        self.spec.begin, self.spec.end = self.begin, self.end
+
+    def begin(self, st, pool) -> None:
+        torch = self.torch
+        page = pool.page_size
+        table, lens = st.table.tolist(), st.lens.tolist()
+        ids = sorted({row[b] for row, n in zip(table, lens) for b in range(n // page) if row[b]})
+        idx = torch.tensor(ids, dtype=torch.long, device=st.table.device)
+        self._held = (idx, [(p.q[:, idx].clone(), p.s[:, idx].clone())
+                            for p in (pool.k, pool.v)])
+        self._begin(st, pool)
+
+    def end(self, st, pool) -> None:
+        self._end(st, pool)
+        idx, held = self._held
+        c = self.counts
+        c["ticks"] += 1
+        c["pages"] += int(idx.numel())
+        for (q0, s0), p in zip(held, (pool.k, pool.v)):
+            dq = (p.q[:, idx].int() - q0.int()).abs()
+            c["codes"] += dq.numel()
+            c["codes_changed"] += int((dq != 0).sum())
+            c["max_code_change"] = max(c["max_code_change"], int(dq.max()) if dq.numel() else 0)
+            c["scales"] += s0.numel()
+            c["scales_changed"] += int((p.s[:, idx].view(self.torch.int16)
+                                        != s0.view(self.torch.int16)).sum())
+
+    def close(self) -> dict:
+        self.spec.begin, self.spec.end = self._begin, self._end
+        return self.counts
+
+
+def agreeing_prefix(a: list, b: list) -> int:
+    n = 0
+    for x, y in zip(a, b):
+        if x != y:
+            break
+        n += 1
+    return n
+
+
+def spec_int8_check(torch, dev, weights: dict, draft: dict, n_layers: int = 4) -> dict:
+    """spec_int8: KV_QUANT=int8 with the draft, the slices' target tensors
+    cut to ``n_layers`` layers (views, no copy): build, warm up, ingest, 3
+    greedy chats. Gates: tokens come out, no paged kernel launched (an int8
+    spec tick dequantizes into the dense cache). Reported: how many codes
+    and scales of pages wholly before each tick's first write changed over
+    the round trip, and, for the chats' generate prompts, how many greedy
+    tokens of a bf16 spec engine agree with a bf16 plain engine's before
+    the first difference (same cut weights, the paged kernel on the plain
+    side)."""
+    from sentio_tpu_torch.config import GeneratorConfig, Settings
+    from sentio_tpu_torch.runtime.paged import ContinuousBatchingEngine
+
+    phase = "spec_int8"
+    cfg = dataclasses.replace(weights["llama_config"], n_layers=n_layers)
+    params = {k: v for k, v in weights["llama_params"].items()
+              if not k.startswith("layers_") or int(k.split("_")[1]) < n_layers}
+    cut = {**weights, "llama_config": cfg, "llama_params": params}
+    settings = Settings(generator=GeneratorConfig(kv_quant="int8", max_new_tokens=MAX_TOKENS,
+                                                  verifier_max_tokens=MAX_TOKENS))
+    pipeline, docs, words, _warm = build_slice(torch, dev, phase, settings, cut, **draft)
+    engine = pipeline.generator.provider.engine
+    calls = record_admissions(pipeline.service)
+    pipeline.service.wait_idle()
+    trip = RoundTrip(torch, engine)
+    counters = wrappers()
+    card0 = card_launches(torch)
+    for kernel in counters.values():
+        kernel.launches = 0
+    chats = []
+    try:
+        for question in slice_questions(docs, words):
+            t0 = time.perf_counter()
+            response = pipeline.chat(question, temperature=0.0)
+            torch.cuda.synchronize()
+            chats.append((response, time.perf_counter() - t0))
+    finally:
+        del pipeline.service.generate
+        drift = trip.close()
+    launches = {name: kernel.launches for name, kernel in counters.items()}
+    card = card_delta(torch, card0)
+    prompts = [c["prompt"] for c in calls[0::2]]
+    close_pipeline(torch, pipeline)
+
+    # bf16 spec against bf16 plain on the chats' generate prompts
+    geometry = dict(max_slots=8, page_size=128, max_pages_per_seq=64, steps_per_tick=16,
+                    max_tick_steps=64, pipeline_depth=2, device=dev)
+    agree = []
+    for use_draft in (False, True):
+        kw = draft if use_draft else {}
+        eng = ContinuousBatchingEngine(model_config=cfg, params=params, **geometry, **kw)
+        agree.append([r.tokens for r in eng.run_all(prompts, max_new_tokens=MAX_TOKENS)])
+        del eng
+    torch.cuda.empty_cache()
+    result = {"model": {"n_layers": n_layers, "kv_quant": "int8"},
+              "chats": [{"seconds": sec, "generated_tokens": r["metadata"]["generated_tokens"],
+                         "answer_chars": len(r["answer"])} for r, sec in chats],
+              "launches": launches, "device_launches": card, "round_trip": drift,
+              "bf16_spec_vs_plain": {
+                  "tokens": [len(t) for t in agree[1]],
+                  "agreeing_prefix": [agreeing_prefix(a, b) for a, b in zip(*agree)],
+                  "equal": [a == b for a, b in zip(*agree)]}}
+    emit(phase, **result)
+    if any(not r["metadata"]["generated_tokens"] or not r["answer"] for r, _s in chats):
+        raise AssertionError(f"{phase}: a chat generated no tokens: {result}")
+    if launches["paged_attention_quant"] or launches["paged_attention"]:
+        raise AssertionError(f"{phase}: a paged kernel ran under speculation: {launches}")
+    check_card(phase, card, launches)
+    if drift["ticks"] <= 0 or drift["pages"] <= 0:
+        raise AssertionError(f"{phase}: no spec tick held a page to measure: {drift}")
+    return result
+
+
+def spec_exact_check(torch, dev, prompts: list) -> dict:
+    """spec_exact: float32 at Llama-3-8B width cut to 2 layers, greedy, on
+    both engines, each prompt decoded SPEC_EXACT_TOKENS tokens: a perfect
+    draft (the target's own tensors) and a weak one (bench.py's draft
+    geometry at 2 layers). Gates: every spec run's tokens equal its
+    engine's plain tokens; the perfect draft gives at least k tokens a
+    verify on both engines (a row's tokens over the contiguous decoder's
+    rounds). Plain attention (the kernels take bf16):
+    the paged engine's plain decode, the contiguous prefills plain. Then
+    the contiguous decoder in bf16 with the flash kernel: its target and
+    draft prefills launch flash once per layer each, the card's count the
+    same."""
+    from sentio_tpu_torch.config import GeneratorConfig
+    from sentio_tpu_torch.models.llama import LlamaConfig, init_llama
+    from sentio_tpu_torch.runtime.engine import GeneratorEngine
+    from sentio_tpu_torch.runtime.paged import ContinuousBatchingEngine, _paged_attn_xla
+    from sentio_tpu_torch.runtime.speculative import SpeculativeDecoder
+
+    phase = "spec_exact"
+    n = SPEC_EXACT_TOKENS
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=2, dtype="float32")
+    params = init_llama(cfg, torch.Generator(device=dev).manual_seed(SEED + 7), dev)
+    dcfg = bench_draft_config(cfg, n_layers=2)
+    dparams = init_llama(dcfg, torch.Generator(device=dev).manual_seed(SEED + 8), dev)
+    drafts = {"perfect": (params, cfg), "weak": (dparams, dcfg)}
+    geometry = dict(max_slots=8, page_size=128, max_pages_per_seq=64, steps_per_tick=16,
+                    max_tick_steps=64, pipeline_depth=2, device=dev)
+    runs, tokens = {}, {}
+
+    def paged(name):
+        kw = {}
+        if name != "plain":
+            kw = dict(draft_params=drafts[name][0], draft_config=drafts[name][1], spec_k=SPEC_K)
+        eng = ContinuousBatchingEngine(model_config=cfg, params=params, **geometry, **kw)
+        eng.attn_impl = _paged_attn_xla
+        t0 = time.perf_counter()
+        results = eng.run_all(prompts, max_new_tokens=n, temperature=0.0)
+        torch.cuda.synchronize()
+        runs[f"paged_{name}"] = {"seconds": time.perf_counter() - t0,
+                                 "tokens": [len(r.tokens) for r in results],
+                                 "finish_reason": [r.finish_reason for r in results],
+                                 **({k: v for k, v in eng.stats().items()
+                                     if k.startswith("spec_")}),
+                                 "rounds": eng.spec_rounds_total,
+                                 "graph_replays": eng.graph_replays}
+        tokens[f"paged_{name}"] = [r.tokens for r in results]
+
+    contig = GeneratorEngine(config=GeneratorConfig(max_new_tokens=n, dtype="float32"),
+                             model_config=cfg, params=params, device=dev)
+    contig.attn_fn = None
+
+    def contiguous(name):
+        gen = contig if name == "plain" else SpeculativeDecoder(contig, *drafts[name], k=SPEC_K)
+        t0 = time.perf_counter()
+        results = gen.generate(prompts, max_new_tokens=n, temperature=0.0)
+        torch.cuda.synchronize()
+        runs[f"contig_{name}"] = {"seconds": time.perf_counter() - t0,
+                                  "tokens": [len(r.tokens) for r in results],
+                                  "finish_reason": [r.finish_reason for r in results],
+                                  **({"stats": gen.stats,
+                                      "tokens_per_verify": gen.tokens_per_round / len(prompts)}
+                                     if name != "plain" else {})}
+        tokens[f"contig_{name}"] = [r.tokens for r in results]
+
+    for name in ("plain", "perfect", "weak"):
+        paged(name)
+        contiguous(name)
+    del contig
+    torch.cuda.empty_cache()
+
+    del params, dparams, drafts
+    torch.cuda.empty_cache()
+    # the contiguous decoder with flash prefills, in bf16 (random from the
+    # same seeds; the kernel takes bf16)
+    bf = dataclasses.replace(cfg, dtype="bfloat16")
+    bdcfg = dataclasses.replace(dcfg, dtype="bfloat16")
+    bf_params = init_llama(bf, torch.Generator(device=dev).manual_seed(SEED + 7), dev)
+    bf_draft = init_llama(bdcfg, torch.Generator(device=dev).manual_seed(SEED + 8), dev)
+    engine = GeneratorEngine(config=GeneratorConfig(max_new_tokens=n), model_config=bf,
+                             params=bf_params, device=dev)
+    decoder = SpeculativeDecoder(engine, bf_draft, bdcfg, k=SPEC_K)
+    flash = wrappers()["flash_attention"]
+    torch.cuda.synchronize()
+    card0 = card_launches(torch)
+    flash.launches = 0
+    results = decoder.generate(prompts, max_new_tokens=n, temperature=0.0)
+    flash_launches = flash.launches
+    card = card_delta(torch, card0)
+    runs["contig_bf16_flash"] = {"prefills": decoder.prefills, "stats": decoder.stats,
+                                 "flash_launches": flash_launches,
+                                 "device_launches": family_launches(card, "flash_attention"),
+                                 "tokens": [len(r.tokens) for r in results]}
+    prefills = decoder.prefills
+    del engine, decoder, bf_params, bf_draft
+    torch.cuda.empty_cache()
+
+    equal = {key: tokens[key] == tokens[key.split("_")[0] + "_plain"]
+             for key in tokens if not key.endswith("plain")}
+    result = {"model": {"dim": cfg.dim, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+                        "draft_dim": dcfg.dim, "draft_layers": dcfg.n_layers},
+              "prompts": len(prompts), "new_tokens": n, "spec_k": SPEC_K, "runs": runs,
+              "tokens_equal": equal,
+              "first_difference": {key: next((i for i, (a, b) in enumerate(
+                  zip(tokens[key], tokens[key.split("_")[0] + "_plain"])) if a != b), None)
+                  for key in equal},
+              "launches": {"flash_attention": flash_launches}, "device_launches": card}
+    emit(phase, **result)
+    if not all(equal.values()):
+        raise AssertionError(f"{phase}: speculative tokens differ from plain tokens: {equal}")
+    if (runs["paged_perfect"].get("spec_tokens_per_verify", 0) < SPEC_K
+            or runs["contig_perfect"]["tokens_per_verify"] < SPEC_K):
+        raise AssertionError(f"{phase}: the perfect draft gave fewer than k tokens a verify: "
+                             f"{runs['paged_perfect']}, {runs['contig_perfect']}")
+    if flash_launches != bf.n_layers + bdcfg.n_layers or prefills != 2:
+        raise AssertionError(f"{phase}: the contiguous decoder's prefills did not launch flash "
+                             f"once per layer each: {runs['contig_bf16_flash']}")
+    check_card(phase, card, {"paged_attention": 0, "paged_attention_quant": 0,
+                             "flash_attention": flash_launches})
     return result
 
 
@@ -1701,6 +2089,7 @@ def main() -> int:
     from sentio_tpu_torch.config import GeneratorConfig, RetrievalConfig, Settings
     from sentio_tpu_torch.kernels import KERNELS
     from sentio_tpu_torch.kernels._build import build_all
+    from sentio_tpu_torch.models.llama import init_llama
 
     # float32 comparisons below run in full float32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1747,9 +2136,10 @@ def main() -> int:
     profile = profile_chat(torch, sl["pipeline"], sl["questions"][2])
 
     # the default settings (hybrid retrieval, rrf) plus KV_QUANT=int8
+    weights = shared_weights(sl["pipeline"])
     sl8 = run_slice(torch, dev, "slice_int8",
                     Settings(generator=GeneratorConfig(kv_quant="int8", **caps)),
-                    shared=sl["pipeline"])
+                    shared=weights)
     check_int8_slice(sl8)
     logits8 = logits_check(torch, dev, sl8["pipeline"], sl["questions"][1], "logits_int8",
                            forced=logits["forced"])
@@ -1758,14 +2148,34 @@ def main() -> int:
     chunked_slice_check(torch, sl8["pipeline"], "chunked_slice_int8")
     profile8 = profile_chat(torch, sl8["pipeline"], sl["questions"][2], "profile_int8")
     service = service_check(torch, sl8["pipeline"], sl8["words"])
-    http = serve_http_check(torch, dev, sl["pipeline"])
+    http = serve_http_check(torch, dev, weights)
     chunked_check(torch, dev, sl["generate_prompt"])
 
     # USE_PAGED_KV=0 with the default hybrid retrieval, on the same weights
     sc = run_contig_slice(torch, dev, Settings(generator=GeneratorConfig(
-        use_paged_decode=False, **caps)), shared=sl["pipeline"])
+        use_paged_decode=False, **caps)), shared=weights)
     contig_logits_check(torch, sc["pipeline"], sc["generate_prompt"])
     contig_vs_paged_check(torch, dev, sl["generate_prompt"])
+
+    # speculation: the earlier pipelines' pools go first; the weights stay
+    freed = {name: close_pipeline(torch, x.pop("pipeline"))
+             for name, x in (("slice", sl), ("slice_int8", sl8), ("slice_contig", sc))}
+    emit("spec_memory", memory_allocated_after_close=freed)
+    dcfg = bench_draft_config(weights["llama_config"])
+    draft = {"draft_config": dcfg,
+             "draft_params": init_llama(dcfg, torch.Generator(device=dev).manual_seed(SEED + 9),
+                                        dev)}
+    ss = run_spec_slice(torch, dev, Settings(generator=GeneratorConfig(speculative_k=SPEC_K,
+                                                                       **caps)),
+                        weights, draft)
+    spec_service = service_check(torch, ss["pipeline"], ss["words"], "slice_spec_service",
+                                 n_chats=4)
+    profile_spec = profile_chat(torch, ss["pipeline"], ss["questions"][2], "profile_spec")
+    close_pipeline(torch, ss.pop("pipeline"))
+    spec_int8 = spec_int8_check(torch, dev, weights, draft)
+    del draft
+    spec_exact = spec_exact_check(torch, dev, [q[:63] for q in (*sl["questions"],
+                                                                  sl["generate_prompt"])])
 
     main_flash = flash[0]  # the embedder's bidirectional shape
     kernels = [
@@ -1774,7 +2184,13 @@ def main() -> int:
          "replaces": "sentio_tpu/kernels/paged_attention.py:58",
          "launches": sl["launches"]["paged_attention"],
          "launches_by_path": {"slice": sl["launches"]["paged_attention"],
-                              "serve_http": http["chats"]["launches"]["paged_attention"]},
+                              "serve_http": http["chats"]["launches"]["paged_attention"],
+                              "slice_spec": ss["launches"]["paged_attention"],
+                              "slice_spec_service": spec_service["launches"]["paged_attention"],
+                              "profile_spec": profile_spec["launches_counted"][
+                                  "paged_attention"]},
+         "device_launches_slice_spec": family_launches(ss["device_launches"],
+                                                       "paged_attention"),
          "device_launches": family_launches(sl["device_launches"], "paged_attention"),
          "device_launches_serve_http": family_launches(http["chats"]["device_launches"],
                                                        "paged_attention"),
@@ -1786,7 +2202,13 @@ def main() -> int:
          "source": "sentio_tpu_torch/csrc/paged_attention_quant.cu",
          "replaces": "sentio_tpu/kernels/paged_attention.py:167",
          "launches": sl8["launches"]["paged_attention_quant"],
+         "launches_by_path": {"slice_int8": sl8["launches"]["paged_attention_quant"],
+                              "service": service["launches"]["paged_attention_quant"],
+                              "slice_spec": ss["launches"]["paged_attention_quant"],
+                              "spec_int8": spec_int8["launches"]["paged_attention_quant"]},
          "device_launches": family_launches(sl8["device_launches"], "paged_attention_quant"),
+         "device_launches_spec_int8": family_launches(spec_int8["device_launches"],
+                                                      "paged_attention_quant"),
          "device_launches_profiled_chat": device_launches(profile8, "paged_attention_quant"),
          **{k: paged_quant[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")},
@@ -1801,15 +2223,24 @@ def main() -> int:
                               "slice_contig_llm_prefills": sc["llm_flash_launches"],
                               "service": service["launches"]["flash_attention"],
                               "serve_http_ingest": http["ingest"]["launches"]["flash_attention"],
-                              "serve_http": http["chats"]["launches"]["flash_attention"]},
+                              "serve_http": http["chats"]["launches"]["flash_attention"],
+                              "slice_spec": ss["launches"]["flash_attention"],
+                              "slice_spec_service": spec_service["launches"]["flash_attention"],
+                              "spec_int8": spec_int8["launches"]["flash_attention"],
+                              "spec_exact_contig_prefills":
+                                  spec_exact["launches"]["flash_attention"]},
          "device_launches": {path: family_launches(x["device_launches"], "flash_attention")
                              for path, x in (("slice", sl), ("slice_int8", sl8),
                                              ("slice_contig", sc), ("service", service),
                                              ("serve_http_ingest", http["ingest"]),
-                                             ("serve_http", http["chats"]))},
+                                             ("serve_http", http["chats"]), ("slice_spec", ss),
+                                             ("slice_spec_service", spec_service),
+                                             ("spec_int8", spec_int8),
+                                             ("spec_exact", spec_exact))},
          "device_launches_profiled_chat": {
              path: device_launches(prof, "flash_attention")
-             for path, prof in (("slice", profile), ("slice_int8", profile8))},
+             for path, prof in (("slice", profile), ("slice_int8", profile8),
+                                ("slice_spec", profile_spec))},
          "max_abs_err": max(c["max_abs_err"] for c in flash),
          **{k: main_flash[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                        "library_ms")},

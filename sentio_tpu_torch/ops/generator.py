@@ -5,9 +5,11 @@ Numbered ``[n] Source: … (score …)`` context assembly, the retrieve
 template, temperature by mode, and one provider: :class:`EngineProvider`,
 which submits the prompt to the generation service over the paged engine
 (``USE_PAGED_KV=1``, the default: concurrent chats share one decode batch)
-or, with no service, runs the contiguous engine's ``generate``, as JAX's
-``TpuProvider`` does; ``stream`` yields the answer's text increments over
-the service's ``generate_stream`` or the contiguous engine's ``stream``.
+or, with no service, runs the contiguous engine's ``generate`` (through
+its ``SpeculativeDecoder`` when a draft is configured, greedy and sampled
+alike), as JAX's ``TpuProvider`` does; ``stream`` yields the answer's text
+increments over the service's ``generate_stream`` or the contiguous
+engine's ``stream``.
 A caller's ``deadline_ts`` (absolute ``time.perf_counter()``) reaches the
 service's ticket. The echo and OpenAI providers are not part of this
 package.
@@ -27,11 +29,15 @@ from sentio_tpu_torch.ops.prompts import PromptBuilder
 class EngineProvider:
     """Chat over the in-process engine. ``engine`` is the paged engine that
     ``service`` drives, or, with no service, the contiguous
-    ``GeneratorEngine``. Nothing falls back: a service's ``error`` result
-    raises, as in JAX with no contiguous engine behind the service."""
+    ``GeneratorEngine``, whose chats go through ``speculative`` when set.
+    Nothing falls back: a service's ``error`` result raises, as in JAX with
+    no contiguous engine behind the service."""
 
     engine: object
     service: object = None  # PagedGenerationService
+    # SpeculativeDecoder over the contiguous engine: greedy chats give the
+    # engine's tokens, sampled ones the target's law
+    speculative: object = None
     name: str = "torch"
 
     def chat(self, prompt: str, max_new_tokens: int, temperature: float,
@@ -42,8 +48,9 @@ class EngineProvider:
             if result.finish_reason == "error":
                 raise RuntimeError("paged decode failed and no contiguous engine")
         else:
-            result = self.engine.generate([prompt], max_new_tokens=max_new_tokens,
-                                          temperature=temperature)[0]
+            generate = (self.speculative or self.engine).generate
+            result = generate([prompt], max_new_tokens=max_new_tokens,
+                              temperature=temperature)[0]
         if stats is not None:
             stats.update(result.stats_dict())
         return result.text

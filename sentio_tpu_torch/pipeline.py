@@ -15,7 +15,12 @@ template head is warmed into the engine's radix tree at build time.
 ``USE_PAGED_KV=0`` generates on the contiguous engine instead
 (``runtime/engine.py``: causal flash prefill, one call at a time).
 ``LLM_CHECKPOINT`` and ``RERANKER_CHECKPOINT`` load ``save_pytree``
-checkpoints.
+checkpoints. ``LLM_DRAFT_CHECKPOINT`` (k from ``SPECULATIVE_K``) makes
+generation speculative as in the JAX container: the paged engine runs
+every decode tick as a spec tick (``runtime/paged_spec.py``) unless
+``PREFILL_CHUNK`` is set, which excludes it (a warning, and
+``speculative_info`` says why); the contiguous engine is wrapped in a
+``SpeculativeDecoder`` (``runtime/speculative.py``).
 
 * :meth:`ChatPipeline.ingest` embeds pre-chunked documents, adds them to
   the index and rebuilds the BM25 index over the index's documents, under
@@ -63,7 +68,8 @@ from sentio_tpu_torch.ops.verifier import AnswerVerifier
 from sentio_tpu_torch.runtime.engine import GeneratorEngine
 from sentio_tpu_torch.runtime.paged import ContinuousBatchingEngine
 from sentio_tpu_torch.runtime.service import PagedGenerationService
-from sentio_tpu_torch.runtime.weights import load_llama, refuse_tokenizer
+from sentio_tpu_torch.runtime.speculative import SpeculativeDecoder
+from sentio_tpu_torch.runtime.weights import load_draft, load_llama, refuse_tokenizer
 
 logger = logging.getLogger(__name__)
 
@@ -135,6 +141,10 @@ class ChatPipeline:
     settings: Settings = field(default_factory=Settings)
     # the /chat template head warmed into the paged engine's radix tree
     warm_head: str = ""
+    # /info's generator.speculative: whether a draft was configured, whether
+    # generation speculates, and if not, why
+    speculative_info: dict = field(
+        default_factory=lambda: {"draft_configured": False, "active": False})
 
     ingestor: Optional[DocumentIngestor] = None
     # set once warmup() has run: the server's readiness
@@ -343,7 +353,9 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
                    reranker_config: Optional[EncoderConfig] = None,
                    llama_params: Optional[dict] = None,
                    embedder_params: Optional[dict] = None,
-                   reranker_params: Optional[dict] = None) -> ChatPipeline:
+                   reranker_params: Optional[dict] = None,
+                   draft_params: Optional[dict] = None,
+                   draft_config: Optional[LlamaConfig] = None) -> ChatPipeline:
     """Assemble the pipeline from ``settings`` on ``device`` (the card by
     default). Weights not passed in come from the configured checkpoints or
     are random, made on the device from ``seed``; the retriever follows
@@ -353,20 +365,42 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
     cache, the decode pipeline depth and chunked prefill, as the JAX
     service hands them to its engine) behind a generation service with the
     serve section's admission bound, default deadline and retry budget;
-    without it the contiguous engine. Settings this package cannot honour
-    raise ``NotImplementedError``."""
+    without it the contiguous engine. A draft model (``draft_params`` and
+    ``draft_config``, for callers that hold the weights, or the
+    ``LLM_DRAFT_CHECKPOINT`` checkpoint) makes generation speculative with
+    ``SPECULATIVE_K`` drafted tokens a round: the paged engine speculates in
+    every decode tick unless ``PREFILL_CHUNK`` is set (then the draft is
+    ignored with a warning), the contiguous engine through a
+    ``SpeculativeDecoder``. Settings this package cannot honour raise
+    ``NotImplementedError``."""
     settings = settings or Settings()
     rcfg, gcfg = settings.retrieval, settings.generator
     if rcfg.use_scorers:
         raise NotImplementedError("USE_SCORERS: post-fusion scorers are not ported")
     if rcfg.web_cache_path:
         raise NotImplementedError("WEB_CACHE_PATH: the web-cache retrieval leg is not ported")
-    if gcfg.draft_checkpoint_path:
-        raise NotImplementedError("LLM_DRAFT_CHECKPOINT: speculative decoding is not ported")
     if gcfg.verify_mode != "sync":
         raise NotImplementedError(f"VERIFY_MODE={gcfg.verify_mode}: only sync verification "
                                   "is ported")
     dev = resolve_device(device)
+    if draft_params is not None and draft_config is None:
+        raise ValueError("draft_params requires draft_config")
+    spec_info = {"draft_configured": bool(gcfg.draft_checkpoint_path
+                                          or draft_params is not None)}
+    if spec_info["draft_configured"] and gcfg.use_paged_decode and gcfg.prefill_chunk:
+        logger.warning("LLM_DRAFT_CHECKPOINT ignored: PREFILL_CHUNK is set and paged "
+                       "speculation requires whole-prompt admission (the draft prefills "
+                       "full prompts)")
+        spec_info["ignored_reason"] = ("PREFILL_CHUNK set (chunked prefill excludes paged "
+                                       "speculation)")
+    spec_info["active"] = spec_info["draft_configured"] and "ignored_reason" not in spec_info
+    if spec_info["active"]:
+        if draft_params is None:
+            draft_params, draft_config = load_draft(gcfg.draft_checkpoint_path, device=dev)
+        logger.info("speculative decoding: draft dim=%d L=%d, k=%d", draft_config.dim,
+                    draft_config.n_layers, gcfg.speculative_k)
+    else:
+        draft_params = draft_config = None
 
     def gen(offset: int) -> torch.Generator:
         g = torch.Generator(device=dev)
@@ -404,7 +438,8 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
             steps_per_tick=gcfg.decode_steps_per_tick,
             max_tick_steps=gcfg.decode_max_tick_steps, kv_quant=gcfg.kv_quant,
             prefix_cache=gcfg.prefix_cache, pipeline_depth=gcfg.decode_pipeline_depth,
-            prefill_chunk=gcfg.prefill_chunk or None, device=dev,
+            prefill_chunk=gcfg.prefill_chunk or None, draft_params=draft_params,
+            draft_config=draft_config, spec_k=gcfg.speculative_k, device=dev,
         )
         if gcfg.prefix_cache:
             # spares the first /chat its cold prefill of the template head,
@@ -419,9 +454,13 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
             retry_budget=serve.crash_retry_budget)
         provider = EngineProvider(engine, service=service)
     else:
-        provider = EngineProvider(GeneratorEngine(config=gcfg, model_config=llama_config,
-                                                  params=llama_params, rng_seed=seed,
-                                                  device=dev))
+        engine = GeneratorEngine(config=gcfg, model_config=llama_config, params=llama_params,
+                                 rng_seed=seed, device=dev)
+        speculative = None
+        if draft_params is not None:
+            speculative = SpeculativeDecoder(engine, draft_params, draft_config,
+                                             k=gcfg.speculative_k)
+        provider = EngineProvider(engine, speculative=speculative)
     generator = LLMGenerator(provider=provider, config=gcfg, prompts=prompts)
     verifier = AnswerVerifier(generator=generator, config=gcfg) if gcfg.use_verifier else None
     ingestor = DocumentIngestor(embedder=embedder, dense_index=index, sparse_index=bm25,
@@ -429,4 +468,4 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
     return ChatPipeline(embedder=embedder, index=index, retriever=retriever,
                         generator=generator, bm25_index=bm25, reranker=reranker,
                         verifier=verifier, settings=settings, warm_head=warm_head,
-                        ingestor=ingestor)
+                        speculative_info=spec_info, ingestor=ingestor)

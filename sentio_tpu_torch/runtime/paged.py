@@ -52,8 +52,13 @@ still queued when its deadline passes comes back ``expired``), ``cancel``,
 prior-token admission and per-request seeds (:func:`fold_seed`), the tick
 ladder (``tick_step_sizes``, ``force_tick_steps``, ``pressure_hint``),
 TTFT samples, and ``step()``'s split into the phases of
-:mod:`sentio_tpu_torch.infra.phases`. Left for later slices: speculation
-and meshes.
+:mod:`sentio_tpu_torch.infra.phases`.
+
+With a draft model (``draft_params``, ``draft_config``, ``spec_k``) every
+decode tick is a spec tick (:mod:`.paged_spec`): draft-and-verify rounds
+over the slot batch, each round one CUDA graph replay on the card, with the
+draft prefilled over every admitted prompt. The decode state, the harvest
+and retirement are the plain tick's. Device meshes are not ported.
 """
 
 from __future__ import annotations
@@ -432,7 +437,11 @@ class ContinuousBatchingEngine:
     behave as in the JAX engine. ``cuda_graphs`` (on for a CUDA device)
     runs each decode sub-step as a CUDA graph replay; turning it off runs
     the same sub-step eagerly, which is how the graphs are held to it.
-    Single-threaded: one caller drives ``step()``."""
+    A draft model (``draft_params``, ``draft_config``; ``spec_k`` drafted
+    tokens a round, ``LLM_DRAFT_CHECKPOINT`` / ``SPECULATIVE_K``) makes every
+    decode tick a spec tick (:mod:`.paged_spec`; each round a graph replay
+    on the card), and ``top_k`` is then refused. Single-threaded: one
+    caller drives ``step()``."""
 
     PREFILL_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
     ADMIT_BUCKETS = (1, 2, 4, 8)
@@ -440,6 +449,8 @@ class ContinuousBatchingEngine:
     # with top-k): a greedy batch ignores top-k, so (True, True) is never
     # asked for and three graphs cover every tick
     GRAPH_VARIANTS = ((True, False), (False, False), (False, True))
+    # a spec round's variants, ("spec", all rows greedy): top-k is refused
+    SPEC_GRAPH_VARIANTS = (("spec", True), ("spec", False))
     # transient f32 score bytes one prefill dispatch may materialize
     # ([rows, H, W, prior + W] in plain attention); wider batches prefill in
     # parts
@@ -461,6 +472,9 @@ class ContinuousBatchingEngine:
         kv_quant: str = "none",
         prefill_chunk: Optional[int] = None,
         prefix_cache: bool = True,
+        draft_params: Optional[dict] = None,
+        draft_config: Optional[LlamaConfig] = None,
+        spec_k: int = 4,
         device=None,
     ) -> None:
         if kv_quant not in ("none", "int8"):
@@ -472,6 +486,21 @@ class ContinuousBatchingEngine:
                                  f"({page_size}), got {prefill_chunk}")
         self.device = resolve_device(device)
         self.cfg = model_config or LlamaConfig.tiny()
+        # paged speculation (runtime/paged_spec.py): a draft turns every
+        # decode tick into draft/verify/accept rounds
+        self.draft_params = None
+        self.draft_cfg = draft_config
+        self.spec_k = max(int(spec_k), 1)
+        if draft_params is not None:
+            if draft_config is None:
+                raise ValueError("draft_params requires draft_config")
+            if prefill_chunk is not None:
+                raise ValueError("paged speculation and chunked prefill are mutually "
+                                 "exclusive (the draft prefills whole prompts)")
+            if draft_config.vocab_size != self.cfg.vocab_size:
+                raise ValueError(f"draft vocab {draft_config.vocab_size} != target "
+                                 f"vocab {self.cfg.vocab_size}")
+            self.draft_params = draft_params
         self.tokenizer = ByteTokenizer(self.cfg.vocab_size)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(rng_seed + 1)
@@ -538,6 +567,11 @@ class ContinuousBatchingEngine:
         self.prefix_misses = 0
         self.prefix_hit_tokens_total = 0
         self.prefix_miss_tokens_total = 0
+        # spec ticks: tokens emitted and verifies run per row (their ratio is
+        # tokens per verify), and rounds run over the slot batch
+        self.spec_emitted_total = 0
+        self.spec_verifies_total = 0
+        self.spec_rounds_total = 0
         self.graph_captures = 0
         self.graph_replays = 0
         self.graph_capture_s = 0.0
@@ -568,8 +602,12 @@ class ContinuousBatchingEngine:
             self.cfg.rope_theta, self.device)
         # one CUDA graph per sampling variant, captured on first use into
         # one shared memory pool, with each graph's launches per kernel
-        self._graphs: dict[tuple[bool, bool], tuple] = {}
+        self._graphs: dict[tuple, tuple] = {}
         self._graph_pool = None
+        # the spec tick's buffers (dense target cache, draft cache), made at
+        # the first admission; the host's copy of the rows' done flags
+        self._spec = None
+        self._done_host: Optional[Tensor] = None
 
     # --------------------------------------------------------------- public
 
@@ -583,7 +621,11 @@ class ContinuousBatchingEngine:
         (0 = off) is per request, carried by every sampling call of its row.
         ``prior_tokens`` are token ids admitted after the prompt as context
         already generated; only tokens after them are emitted. ``seed``
-        (None = off) reseeds the engine's generator at admission."""
+        (None = off) reseeds the engine's generator at admission. With a
+        draft, ``top_k > 0`` raises ``ValueError``."""
+        if top_k > 0 and self.draft_params is not None:
+            raise ValueError("top_k sampling is not supported with paged speculation "
+                             "(the spec tick's accept/correct rule is temperature-only)")
         rid = next(self._next_id)
         self._queue.append(_Request(
             rid, prompt, max_new_tokens, temperature, top_k=max(int(top_k), 0),
@@ -657,10 +699,10 @@ class ContinuousBatchingEngine:
     def reset(self) -> None:
         """Rebuild the decode state after a failed tick: queued and admitted
         requests are dropped (the service already answered their callers),
-        the pool, the allocator, the radix tree and the decode state are
-        cleared, and the generator is reseeded. The pool and the decode
-        state are zeroed in place, so the weights and the captured graphs,
-        which hold their addresses, are kept."""
+        the pool, the allocator, the radix tree, the decode state and the
+        spec tick's caches are cleared, and the generator is reseeded. They
+        are zeroed in place, so the weights and the captured graphs, which
+        hold their addresses, are kept."""
         for pages in (self.pool.k, self.pool.v):
             for t in (pages if isinstance(pages, QuantPages) else (pages,)):
                 t.zero_()
@@ -679,6 +721,8 @@ class ContinuousBatchingEngine:
             arr[:] = 0
         for t in vars(self._st).values():
             t.zero_()
+        if self._spec is not None:
+            self._spec.zero_()
         self._gen.manual_seed(int(np.random.default_rng().integers(2**31)))
 
     def spawn_fresh(self) -> "ContinuousBatchingEngine":
@@ -691,6 +735,7 @@ class ContinuousBatchingEngine:
             max_tick_steps=self.max_tick_steps, ignore_eos=self.ignore_eos,
             pipeline_depth=self.pipeline_depth, kv_quant=self.kv_quant,
             prefill_chunk=self.prefill_chunk, prefix_cache=self._prefix_cache_enabled,
+            draft_params=self.draft_params, draft_config=self.draft_cfg, spec_k=self.spec_k,
             device=self.device,
         )
 
@@ -719,6 +764,13 @@ class ContinuousBatchingEngine:
         for shrink in (1, 2, 4):
             sizes.add(max(self.steps_per_tick // shrink, 2))
         return tuple(sorted(sizes))
+
+    @property
+    def graph_variants(self) -> tuple:
+        """The CUDA graphs this engine's ticks can ask for: the decode
+        sub-step's sampling variants, or with a draft the spec round's."""
+        return self.SPEC_GRAPH_VARIANTS if self.draft_params is not None \
+            else self.GRAPH_VARIANTS
 
     @property
     def has_work(self) -> bool:
@@ -800,6 +852,11 @@ class ContinuousBatchingEngine:
                 out["prefix_hit_token_ratio"] = round(hit / (hit + miss), 4)
             out["prefix_cache_pages"] = self._radix.pages_held
             out["prefix_cache_nodes"] = self._radix.node_count
+        if self.spec_verifies_total:
+            out["spec_tokens_per_verify"] = round(
+                self.spec_emitted_total / self.spec_verifies_total, 2)
+            out["spec_verifies"] = self.spec_verifies_total
+            out["spec_emitted"] = self.spec_emitted_total
         if self.ttft_samples:
             ttft = sorted(self.ttft_samples)
             out["ttft_p50_ms"] = round(ttft[len(ttft) // 2] * 1e3, 2)
@@ -900,27 +957,35 @@ class ContinuousBatchingEngine:
         the graph's launches per kernel are kept, to be added at each
         replay. No other thread may launch work during a capture: the
         service captures every variant in its warmup, before traffic."""
-        t0 = time.perf_counter()
         st = self._st
         st.budgets.zero_()
         st.idx.zero_()
+        self._capture_graph(variant, lambda: self._sub_step(*variant),
+                            sampled=not variant[0], after_warmup=st.idx.zero_)
+        self.total_sub_steps += 1
+
+    def _capture_graph(self, variant: tuple, body, sampled: bool, after_warmup=None) -> None:
+        """Run ``body`` once on a side stream (its warmup), then capture it
+        into a CUDA graph in the engine's graph pool, kept as ``variant``
+        with its launches per kernel. ``sampled`` bodies draw from the
+        engine's own generator."""
+        t0 = time.perf_counter()
         current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            self._sub_step(*variant)
+            body()
         current.wait_stream(side)
-        self.total_sub_steps += 1
+        if after_warmup is not None:
+            after_warmup()
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
-        if not variant[0]:
-            # the sampled variants draw from the engine's own generator
+        if sampled:
             graph.register_generator_state(self._gen)
         before = [k.launches for k in KERNELS]
-        st.idx.zero_()
         with torch.cuda.graph(graph, pool=self._graph_pool):
-            self._sub_step(*variant)
+            body()
         launches = []
         for kernel, n in zip(KERNELS, before):
             captured = kernel.launches - n
@@ -935,12 +1000,7 @@ class ContinuousBatchingEngine:
             for _ in range(n_steps):
                 self._sub_step(*variant)
             return
-        graph, launches = self._graphs[variant]
-        for _ in range(n_steps):
-            graph.replay()
-        for kernel, n in launches:
-            kernel.add_launches(n * n_steps)
-        self.graph_replays += n_steps
+        self._replay(variant, n_steps)
 
     # -------------------------------------------------------------- private
 
@@ -998,6 +1058,9 @@ class ContinuousBatchingEngine:
         if not free or not self._queue:
             return
         window = self.max_pages_per_seq * self.page_size
+        # a verify block writes KV up to spec_k + 1 positions past the
+        # accepted length before acceptance is known: pages must back them
+        spec_head = self._spec_head
         batch: list[tuple[int, _Request, list[int], int]] = []
         now = time.perf_counter()
         qi = 0
@@ -1028,7 +1091,7 @@ class ContinuousBatchingEngine:
             shared, match_pages, match_node = self._match_radix(tok_ids)
 
             def pages_needed(sh: int) -> int:
-                return min((len(tok_ids) - sh + req.max_new + self.page_size - 1)
+                return min((len(tok_ids) - sh + req.max_new + spec_head + self.page_size - 1)
                            // self.page_size, self.max_pages_per_seq - sh // self.page_size)
 
             need = pages_needed(shared)
@@ -1101,6 +1164,53 @@ class ContinuousBatchingEngine:
                 chunk = members[start : start + max_rows]
                 pnb = max(shared for _i, _r, _t, shared in chunk) // self.page_size
                 self._prefill_admitted(width, pnb, chunk)
+        if self.draft_params is not None and batch:
+            self._draft_prefill_admitted(batch)
+
+    @property
+    def _spec_head(self) -> int:
+        """Positions past a row's length a spec tick may write."""
+        return self.spec_k + 1 if self.draft_params is not None else 0
+
+    def _ensure_spec(self):
+        """The spec tick's buffers, made on first use."""
+        if self._spec is None:
+            from sentio_tpu_torch.runtime.paged_spec import SpecTick
+
+            self._spec = SpecTick(
+                self.cfg, self.params, self.draft_cfg, self.draft_params, self.spec_k,
+                self.max_slots, self.max_pages_per_seq * self.page_size,
+                self.max_tick_steps + self.spec_k + 1, self.tokenizer.eos_id,
+                self.ignore_eos, self.device)
+        return self._spec
+
+    def _draft_prefill_admitted(self, batch: list) -> None:
+        """Fill the draft cache rows of freshly admitted slots, always over
+        the FULL prompt (prefix pages are target-only), grouped by prefill
+        width like the target's admission; the width is clamped to the
+        draft cache's window (prompts are truncated below it, so the clamp
+        loses nothing). Like :meth:`_prefill_rows`, no dispatch's scores
+        pass PREFILL_SCORE_BYTES."""
+        spec = self._ensure_spec()
+        window = self.max_pages_per_seq * self.page_size
+        groups: dict[int, list] = {}
+        for slot_idx, _req, tok_ids, _shared in batch:
+            width = min(self._prefill_width(len(tok_ids)), window)
+            groups.setdefault(width, []).append((slot_idx, tok_ids))
+        for width, members in sorted(groups.items()):
+            score_bytes = self.draft_cfg.n_heads * width * width * 4
+            rows_per = max(1, min(max(self.ADMIT_BUCKETS),
+                                  self.PREFILL_SCORE_BYTES // score_bytes))
+            for start in range(0, len(members), rows_per):
+                chunk = members[start : start + rows_per]
+                n = len(chunk)
+                rows = min(bucket_size(n, self.ADMIT_BUCKETS), rows_per)
+                ids = np.full((rows, width), self.tokenizer.pad_id, np.int64)
+                for r, (_slot, tok_ids) in enumerate(chunk):
+                    ids[r, : len(tok_ids)] = tok_ids
+                slots = np.asarray([slot_idx for slot_idx, _t in chunk], np.int64)
+                with self._phase.phase("prefill_dispatch"):
+                    spec.draft_prefill(self._to_device(ids), self._to_device(slots), n)
 
     def _prefill_admitted(self, width: int, pnb: int, chunk: list) -> None:
         """One admission group's prefill: suffix-only over the matched pages
@@ -1222,7 +1332,10 @@ class ContinuousBatchingEngine:
             # tick count as if they had been folded
             base_emit = len(slot.emitted) + slot.inflight_steps + int(slot.pending_first)
             written = slot.length + slot.inflight_steps
-            remaining[i] = max(min(slot.max_new - base_emit, capacity - 1 - written), 0)
+            # a spec tick reserves its verify headroom inside the capacity; a
+            # request at max_pages_per_seq pays it from its budget
+            remaining[i] = max(min(slot.max_new - base_emit,
+                                   capacity - 1 - self._spec_head - written), 0)
             if remaining[i] == 0 and not slot.pending_first and slot.inflight_steps == 0:
                 self._finished.append(self._retire(i, "length"))
         # an idle queue runs the big tick; waiting requests (the engine's
@@ -1257,6 +1370,8 @@ class ContinuousBatchingEngine:
         # the sampling variant: all rows greedy, or sampled with / without
         # some top-k row
         all_greedy = bool((self._temps <= 0).all())
+        if self.draft_params is not None:
+            return self._dispatch_spec_tick(pending, pending_slots, budgets, all_greedy)
         variant = (all_greedy, not all_greedy and bool((self._top_ks > 0).any()))
         if self.device.type == "cuda" and self.cuda_graphs and variant not in self._graphs:
             if self.graphs_frozen:
@@ -1298,6 +1413,95 @@ class ContinuousBatchingEngine:
                 # a lane retired and re-admitted before this record is
                 # harvested must not get the old request's tokens
                 "rids": [s.request_id for s in self.slots]}
+
+    def _dispatch_spec_tick(self, pending: list, pending_slots: set, budgets: np.ndarray,
+                            all_greedy: bool) -> dict:
+        """A spec tick (:class:`~.paged_spec.SpecTick`): the admitted rows
+        merged into the decode state, the pool densified, rounds until every
+        row is done (a graph replay each on the card; the host reads the
+        rows' done flags after each), the dense cache scattered back, and
+        the asynchronous fetch of the packed block. The logprob accumulators
+        pass through unchanged: spec results report ``logprob_count == 0``."""
+        st, spec = self._st, self._ensure_spec()
+        st.table.copy_(self._stage(self._page_table), non_blocking=True)
+        st.budgets.copy_(self._stage(budgets), non_blocking=True)
+        st.temps.copy_(self._stage(self._temps), non_blocking=True)
+        self._merge_admitted(pending)
+        spec.begin(st, self.pool)
+        variant = ("spec", all_greedy)
+        graphs = self.device.type == "cuda" and self.cuda_graphs
+        if graphs and variant not in self._graphs:
+            if self.graphs_frozen:
+                raise RuntimeError(f"spec tick needs a CUDA graph for variant {variant}, "
+                                   f"which warmup did not capture")
+            self._capture_spec(variant)
+        # every live row emits at least one token a round
+        limit = int(budgets.max())
+        rounds = 0
+        while True:
+            if graphs:
+                self._replay(variant)
+            else:
+                spec.round(st, all_greedy, self._gen)
+            rounds += 1
+            with self._phase.phase("device_wait"):
+                if self._all_done(spec.done):
+                    break
+            if rounds >= limit:
+                raise RuntimeError(f"spec tick: rows still live after {rounds} rounds")
+        self.spec_rounds_total += rounds
+        spec.end(st, self.pool)
+        packed = spec.packed()
+        pin = self.device.type == "cuda"
+        host_packed = torch.empty(packed.shape, dtype=torch.int64, pin_memory=pin)
+        host_packed.copy_(packed, non_blocking=True)
+        event = None
+        if pin:
+            event = torch.cuda.Event()
+            event.record()
+        for i, slot in enumerate(self.slots):
+            if slot.active:
+                slot.inflight_steps += int(budgets[i])
+        return {"packed": host_packed, "lp_state": None, "event": event, "spec": True,
+                "budgets": budgets, "pending_slots": pending_slots,
+                "rids": [s.request_id for s in self.slots]}
+
+    def _all_done(self, done: Tensor) -> bool:
+        """Every row of the spec tick is done; on the card through a
+        pinned copy and an event, which waits for the round."""
+        if self.device.type != "cuda":
+            return bool(done.all())
+        if self._done_host is None:
+            self._done_host = torch.empty(done.shape, dtype=torch.bool, pin_memory=True)
+        self._done_host.copy_(done, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        event.synchronize()
+        return bool(self._done_host.all())
+
+    def _capture_spec(self, variant: tuple) -> None:
+        """Capture one spec round (:meth:`SpecTick.round`) into a CUDA
+        graph, as :meth:`_capture` captures a sub-step. The warmup before it
+        runs with every row marked done, so it moves no state (its cache
+        writes land past each row's length, which the next round writes
+        before any query reads); the rows' done flags are then put back.
+        The sampled variant draws from the engine's generator."""
+        st, spec = self._st, self._spec
+        all_greedy = variant[1]
+        live_done = spec.done.clone()
+        spec.done.fill_(True)
+        self._capture_graph(variant, lambda: spec.round(st, all_greedy, self._gen),
+                            sampled=not all_greedy)
+        spec.done.copy_(live_done)
+
+    def _replay(self, variant: tuple, n: int = 1) -> None:
+        """Replay a captured graph ``n`` times, adding its launches."""
+        graph, launches = self._graphs[variant]
+        for _ in range(n):
+            graph.replay()
+        for kernel, count in launches:
+            kernel.add_launches(count * n)
+        self.graph_replays += n
 
     def _live(self, i: int, request_id: int) -> bool:
         """Slot ``i`` still serves ``request_id``."""
@@ -1360,7 +1564,8 @@ class ContinuousBatchingEngine:
             record["event"].synchronize()
         budgets = record["budgets"]
         packed = record["packed"].numpy()
-        lp_rows = record["lp_state"].numpy()
+        spec = record.get("spec", False)
+        lp_rows = None if spec else record["lp_state"].numpy()
         finished: list[PagedResult] = []
         for i, slot in enumerate(self.slots):
             if not slot.active or slot.request_id != record["rids"][i]:
@@ -1369,19 +1574,32 @@ class ContinuousBatchingEngine:
             if not consumed and i not in record["pending_slots"]:
                 continue
             slot.inflight_steps = max(slot.inflight_steps - consumed, 0)
-            self._lp_sum[i], self._lp_min[i] = lp_rows[0, i], lp_rows[1, i]
-            self._lp_cnt[i] = int(lp_rows[2, i])
+            if lp_rows is not None:
+                self._lp_sum[i], self._lp_min[i] = lp_rows[0, i], lp_rows[1, i]
+                self._lp_cnt[i] = int(lp_rows[2, i])
             if slot.pending_first and i in record["pending_slots"]:
                 slot.pending_first = False
                 self._note_ttft(slot)
-                self._last_tok[i] = int(packed[0, i])
+                self._last_tok[i] = int(packed[i, 0] if spec else packed[0, i])
                 result = self._fold_and_maybe_retire(i)
                 if result is not None:
                     finished.append(result)
                     continue
-            for s in range(consumed):
+            if spec:
+                # a spec row: [echo, emitted, verifies, tokens...], budgets
+                # and EOS already applied on the device; total_sub_steps
+                # counts emitted tokens (the spec analogue of sub-steps)
+                n = int(packed[i, 1])
+                toks = packed[i, 3 : 3 + n]
+                self.total_sub_steps += n
+                self.spec_emitted_total += n
+                self.spec_verifies_total += int(packed[i, 2])
+            else:
+                n = consumed
+                toks = packed[1 : 1 + n, i]
+            for s in range(n):
                 slot.length += 1
-                self._last_tok[i] = int(packed[1 + s, i])
+                self._last_tok[i] = int(toks[s])
                 result = self._fold_and_maybe_retire(i)
                 if result is not None:
                     finished.append(result)

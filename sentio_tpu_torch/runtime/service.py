@@ -156,7 +156,9 @@ class PagedGenerationService:
         (relative) bound the wait: admission sheds an unmeetable deadline
         and the pump cancels the request once it passes. Raises
         :class:`ServiceOverloaded`, :class:`DeadlineExceededError` or
-        :class:`GenerationTimeout`."""
+        :class:`GenerationTimeout`; with a draft on the engine, ``top_k > 0``
+        raises ``ValueError``."""
+        self._check_top_k(top_k)
         deadline_ts = self._resolve_deadline(deadline_s, deadline_ts)
         ticket = _Ticket(prompt, max_new_tokens, temperature, top_k=top_k,
                          t_submit=time.perf_counter(), deadline_ts=deadline_ts,
@@ -195,6 +197,7 @@ class PagedGenerationService:
         admitted after the prompt as context already generated, and only
         what follows them is yielded. A deadline that passes mid-stream
         raises :class:`DeadlineExceededError` from the iterator."""
+        self._check_top_k(top_k)
         deadline_ts = self._resolve_deadline(deadline_s, deadline_ts)
         ticket = _Ticket(prompt, max_new_tokens, temperature, top_k=top_k,
                          stream_q=_queue.Queue(), t_submit=time.perf_counter(),
@@ -248,6 +251,13 @@ class PagedGenerationService:
                 ticket.cancelled = True
 
     # ------------------------------------------------------------ admission
+
+    def _check_top_k(self, top_k: int) -> None:
+        """The engine's submit-time rule, raised at the service's API instead
+        of inside the pump."""
+        if top_k > 0 and self.engine.draft_params is not None:
+            raise ValueError("top_k sampling is not supported with paged speculation "
+                             "(the spec tick's accept/correct rule is temperature-only)")
 
     def _resolve_deadline(self, deadline_s: Optional[float],
                           deadline_ts: Optional[float]) -> Optional[float]:
@@ -436,9 +446,9 @@ class PagedGenerationService:
         * a radix head chain, then one admission per (prior pages × suffix
           width) pair sharing that many pages with the head;
         * one short generation per tick-ladder rung (``force_tick_steps``);
-        * one sampled generation without and one with top-k, so that on
-          the card every variant of ``GRAPH_VARIANTS`` is captured — after
-          which a tick that would capture another raises;
+        * one sampled generation without and (with no draft) one with
+          top-k, so that on the card every variant of ``graph_variants`` is
+          captured — after which a tick that would capture another raises;
         * a concurrent burst for the multi-row admission buckets.
 
         Returns the prompt count, the seconds, and the graph captures and
@@ -489,7 +499,8 @@ class PagedGenerationService:
         finally:
             eng.force_tick_steps = None
         run("s" * n_short, temperature=0.7)
-        run("k" * n_short, temperature=0.7, top_k=4)
+        if eng.draft_params is None:
+            run("k" * n_short, temperature=0.7, top_k=4)
         burst_n = min(3 * eng.max_slots, 4 * max(eng.ADMIT_BUCKETS))
         threads = [threading.Thread(target=self.generate, args=("b" * n_short,),
                                     kwargs={"max_new_tokens": max_new_tokens, "deadline_s": 0},
@@ -501,7 +512,7 @@ class PagedGenerationService:
             t.join(timeout=self.default_timeout_s + 60.0)
         prompts += len(threads)
         if eng.device.type == "cuda" and eng.cuda_graphs:
-            missing = [v for v in eng.GRAPH_VARIANTS if v not in eng._graphs]
+            missing = [v for v in eng.graph_variants if v not in eng._graphs]
             if missing:
                 raise RuntimeError(f"warmup left graph variants uncaptured: {missing}")
             eng.graphs_frozen = True

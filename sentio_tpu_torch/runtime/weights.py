@@ -199,3 +199,16 @@ def load_llama(path, tokenizer_path: str = "", device="cpu") -> tuple[dict, Llam
         raise WeightsError(f"checkpoint {str(path)!r} holds a {type(cfg).__name__} model "
                            "— the generator engine serves decoder families (llama, moe)")
     return params, cfg
+
+
+def load_draft(path, device="cpu") -> tuple[dict, LlamaConfig]:
+    """``LLM_DRAFT_CHECKPOINT`` → (params, LlamaConfig), loaded as the JAX
+    container loads a paged engine's draft (``expect_family="llama"``, so a
+    checkpoint of another family, ``moe`` included, is refused). A refusal
+    is a :class:`WeightsError` that names the setting before the JAX
+    message."""
+    try:
+        return load_model(path, expect_family="llama", setting="LLM_DRAFT_CHECKPOINT",
+                          device=device)
+    except WeightsError as exc:
+        raise WeightsError(f"LLM_DRAFT_CHECKPOINT: {exc}") from exc

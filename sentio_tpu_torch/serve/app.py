@@ -195,12 +195,12 @@ def _device_stats(pipeline: ChatPipeline) -> dict:
 
 
 _SERVING_STATS = ("active_slots", "queued", "queued_inbox", "free_pages", "avg_active_slots",
-                  "max_active_slots", "ttft_p50_ms", "ttft_p95_ms", "prefix_hit_token_ratio",
-                  "prefix_cache_pages", "prefix_cache_nodes", "max_queue", "draining",
-                  "pool_hbm_bytes")
+                  "max_active_slots", "ttft_p50_ms", "ttft_p95_ms", "spec_tokens_per_verify",
+                  "prefix_hit_token_ratio", "prefix_cache_pages", "prefix_cache_nodes",
+                  "max_queue", "draining", "pool_hbm_bytes")
 _SERVING_EVENTS = ("ticks", "completed", "ttft_count", "prefix_hits", "prefix_misses",
-                   "prefix_hit_tokens", "prefix_miss_tokens", "shed", "expired", "cancelled",
-                   "requeued", "tick_failures", "pump_leaked")
+                   "prefix_hit_tokens", "prefix_miss_tokens", "spec_verifies", "spec_emitted",
+                   "shed", "expired", "cancelled", "requeued", "tick_failures", "pump_leaked")
 
 
 def publish_serving_gauges(pipeline: ChatPipeline) -> Optional[dict]:
@@ -573,8 +573,7 @@ class _Handler(BaseHTTPRequestHandler):
                 "provider": settings.generator.provider,
                 "preset": settings.generator.model_preset,
                 "verifier": settings.generator.use_verifier,
-                # draft checkpoints are refused by build_pipeline
-                "speculative": {"draft_configured": False, "active": False},
+                "speculative": pipeline.speculative_info,
             },
             "device": _device_stats(pipeline),
         })

@@ -528,3 +528,97 @@ def test_http_server_on_the_card(dev):
         server.server_close()
         thread.join(timeout=10)
         pipeline.close()
+
+
+# ------------------------------------------------------------- speculation
+
+DRAFT = LlamaConfig(vocab_size=512, dim=128, n_layers=1, n_heads=2, n_kv_heads=1, mlp_dim=256,
+                    max_len=512, rope_theta=10_000.0)
+
+
+def _spec_engine(dev, params=None, draft_params=None, **kw):
+    from sentio_tpu_torch.models.llama import init_llama
+
+    if draft_params is None:
+        draft_params = init_llama(DRAFT, torch.Generator(device=dev).manual_seed(9), dev)
+    return _engine(dev, params=params, draft_params=draft_params, draft_config=DRAFT, spec_k=3,
+                   **kw)
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_spec_round_graph_matches_eager_round(dev, depth):
+    """Spec ticks whose rounds replay a CUDA graph give the tokens of the
+    same rounds run eagerly on the card (same weights and admissions),
+    greedy and with a sampled row beside greedy ones; the paged kernels
+    never launch."""
+    graph = _spec_engine(dev, pipeline_depth=depth, ignore_eos=True)
+    eager = _spec_engine(dev, params=graph.params, draft_params=graph.draft_params,
+                         pipeline_depth=depth, ignore_eos=True)
+    eager.cuda_graphs = False
+    PAGED_KERNEL.launches = PAGED_QUANT_KERNEL.launches = 0
+    prompts = PROMPTS + [PROMPTS[1] + " again"]
+    got, want = graph.run_all(prompts, 20), eager.run_all(prompts, 20)
+    assert [r.tokens for r in got] == [r.tokens for r in want]
+    assert (graph.spec_verifies_total, graph.spec_emitted_total) == \
+        (eager.spec_verifies_total, eager.spec_emitted_total)
+    assert graph.graph_captures == 1 and graph.graph_replays == graph.spec_rounds_total
+    assert eager.graph_captures == eager.graph_replays == 0
+    assert PAGED_KERNEL.launches == PAGED_QUANT_KERNEL.launches == 0
+    # a sampled row rides the sampled variant and still ends its budget
+    ids = [graph.submit(PROMPTS[0], 12, 0.0), graph.submit(PROMPTS[2], 12, 0.8)]
+    done = {}
+    while graph.has_work:
+        for r in graph.step():
+            done[r.request_id] = r
+    assert [len(done[i].tokens) for i in ids] == [12, 12]
+    assert ("spec", False) in graph._graphs and graph.graph_captures == 2
+
+
+def test_spec_capture_after_warmup_raises(dev):
+    """The service's warmup captures both spec round variants (no top-k
+    request: a draft refuses top-k); traffic then replays them, and a tick
+    that would capture a round afterwards raises."""
+    from sentio_tpu_torch.runtime.service import PagedGenerationService
+
+    engine = _spec_engine(dev)
+    service = PagedGenerationService(engine, default_timeout_s=120)
+    try:
+        stats = service.warmup()
+        assert stats["graph_captures"] == len(engine.graph_variants) == 2
+        assert engine.graphs_frozen and set(engine._graphs) == set(engine.SPEC_GRAPH_VARIANTS)
+        replays = engine.graph_replays
+        for temperature in (0.0, 0.8):
+            result = service.generate(PROMPTS[1], max_new_tokens=10, temperature=temperature)
+            assert result.finish_reason in ("stop", "length")
+        assert engine.graph_captures == 2 and engine.graph_replays > replays
+        service.wait_idle()
+        del engine._graphs[("spec", False)]
+        engine.submit(PROMPTS[0], 8, 0.8)
+        with pytest.raises(RuntimeError, match="warmup did not capture"):
+            while engine.has_work:
+                engine.step()
+    finally:
+        service.close()
+
+
+def test_contiguous_spec_prefills_launch_flash(dev):
+    """The contiguous SpeculativeDecoder prefills the target and the draft
+    through the flash kernel: one launch per layer each, the card's count
+    the same."""
+    from sentio_tpu_torch.config import GeneratorConfig
+    from sentio_tpu_torch.models.llama import init_llama
+    from sentio_tpu_torch.runtime.engine import GeneratorEngine
+    from sentio_tpu_torch.runtime.speculative import SpeculativeDecoder
+
+    engine = GeneratorEngine(config=GeneratorConfig(max_new_tokens=8),
+                             model_config=WIDE_HEADS, device=dev)
+    draft = init_llama(WIDE_HEADS, torch.Generator(device=dev).manual_seed(3), dev)
+    spec = SpeculativeDecoder(engine, draft, WIDE_HEADS, k=3)
+    FLASH_KERNEL.launches = 0
+    card0 = FLASH_KERNEL.device_launches()[0]
+    got = spec.generate(PROMPTS, max_new_tokens=8)
+    torch.cuda.synchronize()
+    assert spec.prefills == 2 and spec.stats["rounds"] > 0
+    assert FLASH_KERNEL.launches == 2 * WIDE_HEADS.n_layers
+    assert FLASH_KERNEL.device_launches()[0] - card0 == FLASH_KERNEL.launches
+    assert all(len(g.tokens) <= 8 for g in got)

@@ -50,6 +50,8 @@ def test_no_forbidden_import_statement(path):
 def test_every_module_imports_with_jax_blocked():
     modules = list(_modules())
     assert len(modules) >= 20, modules
+    assert {"sentio_tpu_torch.runtime.speculative",
+            "sentio_tpu_torch.runtime.paged_spec"} <= set(modules)
     script = (
         "import sys, importlib\n"
         f"for name in {sorted(FORBIDDEN)!r}:\n"

@@ -219,8 +219,15 @@ def test_int8_chat_matches_jax_graph(hybrid_int8, question):
     ("generator", "verify_mode", "gated"),
 ])
 def test_build_pipeline_refuses_what_it_cannot_honour(section, field, value):
+    """Settings of parts that are not ported raise NotImplementedError; a
+    draft checkpoint (speculation is ported) that cannot be loaded raises
+    the loader's WeightsError, naming LLM_DRAFT_CHECKPOINT."""
     config = {"retrieval": RetrievalConfig, "generator": GeneratorConfig}[section]
     settings = Settings(**{section: config(**{field: value})})
+    if field == "draft_checkpoint_path":
+        with pytest.raises(weights.WeightsError, match="LLM_DRAFT_CHECKPOINT: cannot load"):
+            build_pipeline(settings, device="cpu")
+        return
     with pytest.raises(NotImplementedError):
         build_pipeline(settings, device="cpu")
 
