@@ -23,7 +23,10 @@ line each:
    a chat's decode shape (one live row, seven idle), each with its
    pages-per-span sweep (one build of the source per span size; the int8
    kernel's blocks per SM too); the flash kernel at the embedder's and
-   cross-encoder's shapes and at ingest's full lengths.
+   cross-encoder's shapes and at ingest's full lengths. Both paged kernels
+   also run at the eval engine's shape (B 8, H 8, Hkv 4, D 64, 16-token
+   pages, 128 a row; rows of 1, 17 and 2,048 keys): a page is half of the
+   kernels' 32-row chunk, and the other half must never be read.
    Kernel and SDPA times are device times: 20 calls captured in a CUDA
    graph and replayed, so the host's launch cost is not counted.
 4. slice — the /chat pipeline at full width (Llama-3-8B, the base
@@ -98,6 +101,37 @@ line each:
     perfect draft gives at least k tokens a verify on both engines;
     then the contiguous decoder in bf16: its target and draft prefills
     launch flash once per layer each, the card's count the same.
+16. train_encoder — the bi-encoder trained in-tree at train-encoder's CLI
+    defaults (dim 256, 4 layers, 600 steps of 64 pairs; float32 masters,
+    bf16 compute, AdamW): loss at step 0 and at the end, median step ms,
+    peak memory, recall@10 on the eval bundle trained and untrained (the
+    serving embedder: flash launches held to the card's). Gates: the loss
+    fell, trained recall above untrained, the checkpoint reads back equal
+    and serves through EMBEDDER_CHECKPOINT in build_pipeline.
+17. train_encoder_wide — 20 steps at the serving embedder's width (dim
+    1,024, 24 layers) in bf16 compute (step ms, peak memory) and in
+    float32 from the same masters: every loss finite, step 0's losses
+    agree, every layer trained (the losses reported: JAX's recipe
+    collapses at this depth within these steps).
+18. eval — run_eval at bench scale and its defaults (1,024 documents, 64
+    queries, concurrency 8, 48 new tokens) with the trained encoder: the
+    five rows, the loopback baseline and the north star; each
+    configuration's kernel launches counted (flash in dense and
+    hybrid_rerank, the bf16 paged kernel in full_paged and batched), each
+    equal to the card's; every row 64 queries and no error.
+19. quality_gates — full_paged over 16 queries: bf16 against int8 held to
+    eval/quant_gate.json (the int8 run through the int8 kernel), sync
+    against gated held to eval/verify_gate.json.
+20. verify_modes — VERIFY_MODE on the HTTP server at Llama-3-8B width
+    (Settings(): hybrid, bf16 pool), the mode switched between rounds:
+    sync; async (each JSON chat back with verify_pending, its verdict in
+    /debug/flight/{id} within 30 s; an SSE chat's [DONE] before its verify
+    event); gated at 0.75 (skip rate reported) and at 0 (every verdict
+    skipped_confident, no verify admission). Reported: time to the answer
+    under each mode against sync's.
+
+``--only-new`` runs the build, the kernel checks and phases 16-20 only
+(random Llama-3-8B weights) and ends without the result lines.
 
 The last lines are the nvidia-smi line, one {"kernels": [...]} line (each
 kernel's ``launches`` from the counted chats, through the wrappers' counts
@@ -113,6 +147,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
@@ -186,24 +221,36 @@ SERVING_LENS = [0, 5, 127, 128, 1000, 2047, 3000, 8191]
 # idle slots at length 0 on the scratch page, as the engine keeps them
 CHAT_LENS = [3299, 0, 0, 0, 0, 0, 0, 0]
 PAGES_PER_SPAN_SWEEP = (1, 2, 4)
+# (B, H, Hkv, D, page, pages a row): Llama-3-8B's decode in the serving
+# engine, and the eval's bench LLM (dim 512, 8 / 4 heads) on its engine of
+# 16-token pages and 2,048-token windows
+SERVING_GEOMETRY = (8, 32, 8, 128, 128, 64)
+EVAL_GEOMETRY = (8, 8, 4, 64, 16, 128)
+# the eval engine's rows: 1, 17 and 2,048 keys (a whole window) among
+# ragged others, every row on pages of its own
+EVAL_LENS = [0, 16, 2047, 5, 700, 1023, 1500, 31]
 
 
-def paged_problem(torch, dev, lens_list=SERVING_LENS):
-    """The decode shape of the serving batch: B=8, H=32, Hkv=8, D=128, page
-    128, NB 64, 513 pages of random bf16 K/V; rows at length 0 sit on
-    scratch page 0, the others own 64 shuffled pages. Returns q, the pools,
-    table, lens, the lengths as a list, and (page id, first unowned slot)
-    for every owned page past a row's length (slot 0) and each current
-    page's tail, the scratch page's included."""
-    b, h, hkv, d, page, nb, num_pages = 8, 32, 8, 128, 128, 64, 513
+def paged_problem(torch, dev, lens_list=SERVING_LENS, geometry=SERVING_GEOMETRY,
+                  scratch_idle: bool = True):
+    """A decode shape (``geometry`` as (B, H, Hkv, D, page, NB)) over
+    1 + B·NB pages of random bf16 K/V; with ``scratch_idle`` rows at length
+    0 sit on scratch page 0, the others (all of them without it) own NB
+    shuffled pages. Returns q, the pools, table, lens, the lengths as a
+    list, and (page id, first unowned slot) for every owned page past a
+    row's length (slot 0) and each current page's tail, the scratch page's
+    included."""
+    b, h, hkv, d, page, nb = geometry
+    num_pages = 1 + b * nb
     gen = torch.Generator(device=dev).manual_seed(SEED + 10)
     kp = torch.randn((num_pages, page, hkv, d), generator=gen, device=dev, dtype=torch.bfloat16)
     vp = torch.randn((num_pages, page, hkv, d), generator=gen, device=dev, dtype=torch.bfloat16)
     table = torch.zeros((b, nb), dtype=torch.int32)
     perm = (torch.randperm(num_pages - 1, generator=torch.Generator().manual_seed(SEED)) + 1).tolist()
-    unowned = [(0, 1)] if 0 in lens_list else []  # the scratch page past slot 0
+    idle = [row for row in range(b) if scratch_idle and lens_list[row] == 0]
+    unowned = [(0, 1)] if idle else []  # the scratch page past slot 0
     for row in range(b):
-        if lens_list[row] == 0:
+        if row in idle:
             continue
         owned = [perm.pop() for _ in range(nb)]
         table[row] = torch.tensor(owned, dtype=torch.int32)
@@ -250,7 +297,8 @@ def sdpa_decode_ms(torch, q, k, v, lens) -> float:
 
 
 def paged_check(torch, dev, sweep: dict, name: str, lens_list=SERVING_LENS,
-                quant: bool = False) -> dict:
+                quant: bool = False, geometry=SERVING_GEOMETRY,
+                scratch_idle: bool = True) -> dict:
     """A paged kernel at a decode shape of :func:`paged_problem`: the bf16
     kernel with NaN in every owned page past a row's length and in each
     current page's tail, or (``quant``) the int8 kernel over those pools
@@ -272,7 +320,8 @@ def paged_check(torch, dev, sweep: dict, name: str, lens_list=SERVING_LENS,
     )
     from sentio_tpu_torch.runtime.paged import dequantize_kv, quantize_kv
 
-    q, kp, vp, table, lens, lens_list, unowned = paged_problem(torch, dev, lens_list)
+    q, kp, vp, table, lens, lens_list, unowned = paged_problem(torch, dev, lens_list, geometry,
+                                                               scratch_idle)
     b, h, d = q.shape
     _, page, hkv, _ = kp.shape
     nb = table.shape[1]
@@ -323,7 +372,8 @@ def paged_check(torch, dev, sweep: dict, name: str, lens_list=SERVING_LENS,
     b_ms, b_by = bound_ms(n_bytes, 4 * h * d * keys)
     n_spans = -(-nb // committed)
     live_blocks = hkv * sum(-(-(n // page + 1) // committed) for n in lens_list)
-    case = {"case": name, "lens": lens_list, "max_abs_err": max_err,
+    case = {"case": name, "lens": lens_list, "geometry": dict(zip(
+                ("b", "h", "hkv", "d", "page", "pages_per_row"), geometry)), "max_abs_err": max_err,
             "mean_abs_err": mean_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "bound_bytes": n_bytes, "library_ms": library_ms,
             "pages_per_span": committed, "blocks": b * hkv * n_spans,
@@ -1199,9 +1249,12 @@ class HttpClient:
         status, hdrs, data = self.request(method, path, body, headers)
         return status, hdrs, json.loads(data) if data else None
 
-    def sse(self, payload: dict, close_after_first_token: bool = False) -> dict:
+    def sse(self, payload: dict, close_after_first_token: bool = False,
+            after_done: bool = False) -> dict:
         """One streamed /chat: the events in order, the seconds to the
-        first ``token`` event and to the end."""
+        first ``token`` event and to the end. With ``after_done`` the
+        stream is read past ``[DONE]`` (a trailing ``verify`` event) to the
+        chunked body's end, and the seconds to ``[DONE]`` are kept."""
         import http.client
 
         t0 = time.perf_counter()
@@ -1209,13 +1262,15 @@ class HttpClient:
         conn.request("POST", "/chat", body=json.dumps({**payload, "stream": True}),
                      headers={"Content-Type": "application/json"})
         resp = conn.getresponse()
-        events, first_token_s = [], None
+        events, first_token_s, done_s = [], None, None
         try:
             while resp.status == 200:
                 line = resp.fp.readline()
                 if not line:
                     break
                 line = line.decode().strip()
+                if line == "0":
+                    break  # the chunked body's last chunk
                 if not line.startswith("data: "):
                     continue  # chunk sizes, keepalives, blank lines
                 raw = line[len("data: "):]
@@ -1227,11 +1282,13 @@ class HttpClient:
                         conn.sock.shutdown(2)
                         break
                 if event == "[DONE]":
-                    break
+                    done_s = time.perf_counter() - t0
+                    if not after_done:
+                        break
         finally:
             conn.close()
         return {"status": resp.status, "events": events, "first_token_s": first_token_s,
-                "seconds": time.perf_counter() - t0}
+                "done_s": done_s, "seconds": time.perf_counter() - t0}
 
 
 def docx_bytes(paragraphs) -> bytes:
@@ -2063,6 +2120,495 @@ def spec_exact_check(torch, dev, prompts: list) -> dict:
     return result
 
 
+# ------------------------------------------------- training and the eval
+
+
+# train-encoder's CLI defaults (JAX's): dim 256, 4 layers, 600 steps of 64
+TRAIN_DIM, TRAIN_LAYERS = 256, 4
+# the serving embedder's width (EncoderConfig.base()), a few steps
+WIDE_DIM, WIDE_LAYERS, WIDE_STEPS = 1024, 24, 20
+EVAL_QUERIES_GATES = 16
+VERDICT_WAIT_S = 30.0
+
+
+def encoder_config(dim: int, layers: int):
+    """The encoder ``python -m sentio_tpu_torch train-encoder`` trains."""
+    from sentio_tpu_torch.models.transformer import EncoderConfig
+
+    return EncoderConfig(vocab_size=512, dim=dim, n_layers=layers, n_heads=max(dim // 64, 2),
+                         mlp_dim=dim * 4, max_len=512)
+
+
+class LaunchWindow:
+    """Every wrapper's count set to 0 at the start and read at the end,
+    beside the card's own counts of the same window."""
+
+    def __init__(self, torch) -> None:
+        self.torch = torch
+        self.counters = wrappers()
+        self.card0 = card_launches(torch)
+        for kernel in self.counters.values():
+            kernel.launches = 0
+
+    def read(self) -> tuple[dict, dict]:
+        launches = {name: k.launches for name, k in self.counters.items()}
+        return launches, card_delta(self.torch, self.card0)
+
+
+def train_encoder_check(torch, dev, out_dir: str) -> dict:
+    """train_encoder at JAX's CLI defaults on the card: float32 master
+    weights, bf16 compute, AdamW, 600 steps of 64 pairs; the checkpoint to
+    ``out_dir``. Reported: the loss at step 0 and at the end, the median
+    step ms, wall seconds, peak memory, recall@10 on the eval bundle for
+    the trained encoder and for the same config untrained (each through the
+    serving embedder: the flash kernel, its launches held to the card's).
+    Gates: the loss fell; trained recall above untrained; the checkpoint
+    reads back equal through the port's reader and serves through
+    ``EMBEDDER_CHECKPOINT`` in ``build_pipeline``."""
+    import statistics
+
+    from sentio_tpu_torch.config import EmbedderConfig, GeneratorConfig, Settings
+    from sentio_tpu_torch.eval.train_encoder import (
+        TrainConfig,
+        eval_recall,
+        param_leaves,
+        train_encoder,
+    )
+    from sentio_tpu_torch.models.transformer import init_encoder
+    from sentio_tpu_torch.pipeline import build_pipeline
+    from sentio_tpu_torch.runtime.weights import load_model
+
+    phase = "train_encoder"
+    cfg = encoder_config(TRAIN_DIM, TRAIN_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params, cfg, hist = train_encoder(enc_cfg=cfg, train_cfg=TrainConfig(), out_path=out_dir,
+                                      seed=SEED, device=dev)
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    window = LaunchWindow(torch)
+    trained = eval_recall(params, cfg, device=dev)
+    launches, card = window.read()
+    untrained = eval_recall(init_encoder(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                                         dev, dtype=torch.float32), cfg, device=dev)
+    loaded, loaded_cfg = load_model(out_dir, expect_family="encoder", device=dev)
+    same = all(torch.equal(a, b) for a, b in zip(param_leaves(params), param_leaves(loaded)))
+    settings = Settings(embedder=EmbedderConfig(checkpoint_path=out_dir),
+                        generator=GeneratorConfig(model_preset="tiny", kv_page_size=16,
+                                                  kv_max_pages_per_seq=64))
+    pipeline = build_pipeline(settings, device=dev, seed=SEED)
+    try:
+        served_cfg = pipeline.embedder.model_config
+        served = all(torch.equal(a, b) for a, b in zip(param_leaves(params),
+                                                       param_leaves(pipeline.embedder.params)))
+        probe = "who designed the aurora compiler?"
+        direct = eval_embed(torch, params, cfg, dev, probe)
+        via_pipeline = torch.as_tensor(pipeline.embedder.embed_many([probe])[0])
+        embed_err = float((direct - via_pipeline).abs().max())
+    finally:
+        pipeline.close()
+    step_ms = hist["step_ms"]
+    result = {"config": dataclasses.asdict(cfg), "steps": hist["steps"], "pairs": hist["pairs"],
+              "loss_first": hist["loss"][0][1], "loss_last": hist["loss"][-1][1],
+              "loss": hist["loss"], "step_ms_median": statistics.median(step_ms),
+              "step_ms_first": step_ms[0], "wall_s": wall_s, "peak_memory": peak,
+              "recall_at_10_trained": trained, "recall_at_10_untrained": untrained,
+              "eval_recall_launches": launches, "eval_recall_device_launches": card,
+              "checkpoint_reads_back_equal": same, "checkpoint_config_equal": loaded_cfg == cfg,
+              "embedder_checkpoint_params_equal": served,
+              "embedder_checkpoint_config_equal": served_cfg == cfg,
+              "embedder_checkpoint_embed_err": embed_err}
+    emit(phase, **result)
+    if not result["loss_last"] < result["loss_first"]:
+        raise AssertionError(f"{phase}: the loss did not fall: {hist['loss']}")
+    if not trained > untrained:
+        raise AssertionError(f"{phase}: trained recall@10 {trained} is not above the "
+                             f"untrained {untrained}")
+    if not (same and loaded_cfg == cfg and served and served_cfg == cfg and embed_err == 0.0):
+        raise AssertionError(f"{phase}: the checkpoint does not read back or serve as "
+                             f"trained: {result}")
+    if launches["flash_attention"] <= 0:
+        raise AssertionError(f"{phase}: eval_recall never launched the flash kernel")
+    check_card(phase, card, launches)
+    return {**result, "params": params, "cfg": cfg}
+
+
+def eval_embed(torch, params, cfg, dev, text: str):
+    """One text through a fresh serving embedder over ``params``."""
+    from sentio_tpu_torch.config import EmbedderConfig
+    from sentio_tpu_torch.ops.embedder import TorchEmbedder
+
+    embedder = TorchEmbedder(EmbedderConfig(), params=params, model_config=cfg, device=dev)
+    try:
+        return torch.as_tensor(embedder.embed_many([text])[0])
+    finally:
+        embedder.close()
+
+
+def train_encoder_wide_check(torch, dev) -> dict:
+    """20 training steps at the serving embedder's width (dim 1,024, 24
+    layers, 16 heads) with train-encoder's other defaults, in bf16 compute
+    (step ms, peak memory) and again in float32 compute from the same
+    float32 masters. JAX's recipe collapses at this depth within these 20
+    steps (every embedding alike, the loss at ln(batch)), in float32 as in
+    bf16, so the loss is reported, not required to fall. Gates: every loss
+    finite in both runs; step 0's loss in bf16 within 5e-2 of float32's
+    (the same batch and weights; step 0 has lr 0); the masters of every
+    layer moved in both (gradients reach all 24 layers)."""
+    import math
+    import statistics
+
+    from sentio_tpu_torch.eval.train_encoder import TrainConfig, param_leaves, train_encoder
+    from sentio_tpu_torch.models.transformer import init_encoder
+
+    phase = "train_encoder_wide"
+    cfg = encoder_config(WIDE_DIM, WIDE_LAYERS)
+    init = init_encoder(cfg, torch.Generator(device=dev).manual_seed(SEED), dev,
+                        dtype=torch.float32)
+
+    def run(dtype: str) -> dict:
+        run_cfg = dataclasses.replace(cfg, dtype=dtype)
+        params = {k: _clone(v) for k, v in init.items()}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        params, _cfg, hist = train_encoder(enc_cfg=run_cfg,
+                                           train_cfg=TrainConfig(steps=WIDE_STEPS), seed=SEED,
+                                           log_every=1, device=dev, params=params)
+        moved = [i for i in range(WIDE_LAYERS) if not torch.equal(
+            params[f"layers_{i}"]["attn"]["wq"]["weight"],
+            init[f"layers_{i}"]["attn"]["wq"]["weight"])]
+        out = {"loss": [v for _i, v in hist["loss"]],
+               "step_ms_median": statistics.median(hist["step_ms"][1:]),
+               "step_ms_first": hist["step_ms"][0], "wall_s": time.perf_counter() - t0,
+               "peak_memory": torch.cuda.max_memory_allocated() - base,
+               "layers_moved": len(moved)}
+        out["collapsed"] = abs(out["loss"][-1] - math.log(TrainConfig().batch)) < 1e-3
+        del params
+        return out
+
+    runs = {"bfloat16": run("bfloat16"), "float32": run("float32")}
+    result = {"config": dataclasses.asdict(cfg), "steps": WIDE_STEPS,
+              "params": sum(x.numel() for x in param_leaves(init)), **runs["bfloat16"],
+              "float32": runs["float32"]}
+    del init
+    torch.cuda.empty_cache()
+    emit(phase, **result)
+    for dtype, r in runs.items():
+        if not all(math.isfinite(v) for v in r["loss"]) or r["layers_moved"] != WIDE_LAYERS:
+            raise AssertionError(f"{phase} {dtype}: a loss is not finite, or a layer did not "
+                                 f"train: {r}")
+    if abs(runs["bfloat16"]["loss"][0] - runs["float32"]["loss"][0]) > 5e-2:
+        raise AssertionError(f"{phase}: step 0's loss in bf16 {runs['bfloat16']['loss'][0]} "
+                             f"against float32 {runs['float32']['loss'][0]}")
+    return result
+
+
+def _clone(tree):
+    return {k: _clone(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.clone()
+
+
+def eval_check(torch, dev, checkpoint: str) -> dict:
+    """run_eval(scale="bench") at its defaults (1,024 documents, 64
+    queries, concurrency 8, 48 new tokens) with the trained encoder, each
+    configuration in a launch window of its own. Gates: every row has 64
+    queries and no error; flash launched in ``dense`` and
+    ``hybrid_rerank``, the bf16 paged kernel in ``full_paged`` and
+    ``batched`` (the int8 one never), each count equal to the card's."""
+    from sentio_tpu_torch.eval.runner import run_eval
+
+    phase = "eval"
+    windows: dict = {}
+    counts: dict = {}
+
+    def on_config(name: str, starting: bool) -> None:
+        if starting:
+            windows[name] = LaunchWindow(torch)
+        else:
+            launches, card = windows.pop(name).read()
+            counts[name] = {"launches": launches, "device_launches": card}
+
+    payload = run_eval(scale="bench", encoder_checkpoint=checkpoint, device=dev,
+                       on_config=on_config)
+    for row in payload["rows"]:
+        emit(f"{phase}_row", **row)
+    emit(f"{phase}_baseline", **(payload["baseline"] or {}))
+    emit(f"{phase}_north_star", **payload.get("north_star", {}))
+    emit(phase, **{k: v for k, v in payload.items() if k not in ("rows", "baseline")},
+         launches=counts)
+    rows = {r["config"]: r for r in payload["rows"]}
+    if len(rows) != 5 or any(r["n"] != 64 or r.get("errors", 0) for r in rows.values()):
+        raise AssertionError(f"{phase}: rows {payload['rows']}")
+    if payload["platform"]["backend"] != "gpu" or not payload.get("north_star"):
+        raise AssertionError(f"{phase}: platform {payload['platform']}, "
+                             f"north star {payload.get('north_star')}")
+    for name, kernel in (("dense", "flash_attention"), ("hybrid_rerank", "flash_attention"),
+                         ("full_paged", "paged_attention"), ("batched", "paged_attention")):
+        launches = counts[name]["launches"]
+        if launches[kernel] <= 0 or launches["paged_attention_quant"]:
+            raise AssertionError(f"{phase} {name}: {kernel} never launched, or the int8 "
+                                 f"kernel did: {launches}")
+    for name, c in counts.items():
+        check_card(f"{phase} {name}", c["device_launches"], c["launches"])
+    return {"payload": payload, "counts": counts}
+
+
+def quality_gates_check(torch, dev, checkpoint: str) -> dict:
+    """The JAX package's two committed quality gates, held on the card
+    against the port's copies of the files, at bench scale over
+    ``full_paged`` with 16 queries: bf16 (sync) against int8
+    (``quant_gate.json``; the int8 run's decode through the int8 kernel,
+    its count equal to the card's), and sync against gated
+    (``verify_gate.json``)."""
+    from pathlib import Path
+
+    import sentio_tpu_torch.eval as eval_pkg
+    from sentio_tpu_torch.eval.runner import run_eval
+
+    phase = "quality_gates"
+    gate_dir = Path(eval_pkg.__file__).parent
+    quant_gate = json.loads((gate_dir / "quant_gate.json").read_text())
+    verify_gate = json.loads((gate_dir / "verify_gate.json").read_text())
+    args = dict(scale="bench", n_queries=EVAL_QUERIES_GATES, skip_baseline=True,
+                configs={"full_paged"}, encoder_checkpoint=checkpoint, device=dev)
+    runs, counts = {}, {}
+    for name, extra in (("bf16", {}), ("int8", {"kv_quant": "int8"}),
+                        ("gated", {"verify_mode": "gated"})):
+        window = {}
+
+        def on_config(_config: str, starting: bool, window=window) -> None:
+            if starting:
+                window["w"] = LaunchWindow(torch)
+            else:
+                window["counts"] = window.pop("w").read()
+
+        runs[name] = run_eval(**args, **extra, on_config=on_config)["rows"][0]
+        launches, card = window["counts"]
+        counts[name] = {"launches": launches, "device_launches": card}
+        check_card(f"{phase} {name}", card, launches)
+    bf, i8, gated = runs["bf16"], runs["int8"], runs["gated"]
+    drop = bf["recall@10"] - i8["recall@10"]
+    ratio = i8.get("answer_chars_mean", 0.0) / max(bf.get("answer_chars_mean", 0.0), 1e-9)
+    sync_v, gated_v = bf.get("verdicts") or {}, gated.get("verdicts") or {}
+    common = set(sync_v) & set(gated_v)
+    agree = sum(1 for q in common if gated_v[q] == sync_v[q]
+                or (gated_v[q] == "skipped_confident" and sync_v[q] == "pass"))
+    agreement = agree / len(common) if common else 0.0
+    skip_rate = gated.get("verify_skip_rate", 0.0)
+    result = {"rows": runs, "launches": counts,
+              "quant": {"recall_drop": drop, "answer_chars_ratio": ratio,
+                        "int8_errors": i8.get("errors", 0), "gate": quant_gate},
+              "verify": {"agreement": agreement, "common": len(common), "skip_rate": skip_rate,
+                         "gated_errors": gated.get("errors", 0), "gate": verify_gate}}
+    emit(phase, **result)
+    if counts["int8"]["launches"]["paged_attention_quant"] <= 0 \
+            or counts["int8"]["launches"]["paged_attention"] \
+            or counts["bf16"]["launches"]["paged_attention"] <= 0:
+        raise AssertionError(f"{phase}: decode did not go through the pool's kernel: {counts}")
+    if i8.get("errors", 0) > quant_gate["errors_max"] \
+            or drop > quant_gate["recall_at_10_max_drop"] \
+            or bf.get("answer_chars_mean", 0.0) <= 0 \
+            or ratio < quant_gate["answer_chars_min_ratio"]:
+        raise AssertionError(f"{phase}: the int8 quality gate failed: {result['quant']}, "
+                             f"{bf} vs {i8}")
+    if not common or gated.get("errors", 0) > verify_gate["errors_max"] \
+            or agreement < verify_gate["min_verdict_agreement"] \
+            or skip_rate > verify_gate["max_skip_rate"]:
+        raise AssertionError(f"{phase}: the verify gate failed: {result['verify']}, "
+                             f"{sync_v} vs {gated_v}")
+    return result
+
+
+def flight_verdict(client, query_id: str, timeout_s: float = VERDICT_WAIT_S):
+    """Poll ``/debug/flight/{query_id}`` until its verify section has an
+    outcome; returns (seconds waited, the verify section) or (None, the
+    last record)."""
+    t0 = time.perf_counter()
+    record = None
+    while time.perf_counter() - t0 < timeout_s:
+        status, _, record = client.json("GET", f"/debug/flight/{query_id}")
+        if status == 200 and (record or {}).get("verify", {}).get("outcome"):
+            return time.perf_counter() - t0, record["verify"]
+        time.sleep(0.05)
+    return None, record
+
+
+def verify_modes_check(torch, dev, shared) -> dict:
+    """VERIFY_MODE on the HTTP server at Llama-3-8B width: one pipeline
+    under ``Settings()`` (hybrid, bf16 pool) on ``shared``'s weights, its
+    mode switched between rounds (the pipeline and the handlers read it at
+    each chat; nothing is in flight at a switch). ``sync``: 3 JSON chats.
+    ``async``: 3 JSON chats, each back with ``verify_pending`` and its
+    verdict in ``/debug/flight/{id}`` within 30 s, and one SSE chat whose
+    ``[DONE]`` comes before its ``verify`` event. ``gated`` at the default
+    threshold (the skip rate reported), then at threshold 0: every verdict
+    ``skipped_confident`` and no verify admission on the service. Reported:
+    time to the answer under each mode against ``sync``'s."""
+    import tempfile
+    import threading
+
+    from sentio_tpu_torch.config import GeneratorConfig, Settings
+    from sentio_tpu_torch.infra.resilience import FallbackResponseCache, LLMFallback
+    from sentio_tpu_torch.pipeline import wait_detached
+    from sentio_tpu_torch.serve.app import create_server
+
+    phase = "verify_modes"
+    settings = Settings(generator=GeneratorConfig(max_new_tokens=MAX_TOKENS,
+                                                  verifier_max_tokens=MAX_TOKENS))
+    pipeline, _docs, words, _warm = build_slice(torch, dev, phase, settings, shared)
+    service, gcfg = pipeline.service, settings.generator
+    server = create_server(settings, pipeline, host="127.0.0.1", port=0,
+                           fallback=(FallbackResponseCache(tempfile.mkdtemp(
+                               prefix="smoke-fallback-")), LLMFallback()))
+    thread = threading.Thread(target=server.serve_forever, name="smoke-verify-http",
+                              daemon=True)
+    thread.start()
+    client = HttpClient(server.server_address[1])
+    # every admission through the service's one blocking entry point (each
+    # JSON chat's generate and each verify)
+    generates: list = []
+    generate = service.generate
+
+    def counted(prompt, **kwargs):
+        generates.append(prompt)
+        return generate(prompt, **kwargs)
+
+    service.generate = counted
+    rounds: dict = {}
+    window = LaunchWindow(torch)
+
+    def round_of(mode: str, threshold: float, offset: int) -> dict:
+        gcfg.verify_mode, gcfg.verify_confidence_threshold = mode, threshold
+        service.wait_idle()
+        calls0, done0 = len(generates), service.stats()["completed"]
+        chats = []
+        for i in range(3):
+            question = f"What does the corpus say about {words[(offset + i) % len(words)]}?"
+            t0 = time.perf_counter()
+            status, _, body = client.json("POST", "/chat", {"question": question})
+            chats.append({"status": status, "answer_s": time.perf_counter() - t0,
+                          "body": body})
+        return {"mode": mode, "threshold": threshold, "chats": chats,
+                "calls0": calls0, "completed0": done0}
+
+    try:
+        rounds["sync"] = round_of("sync", 0.75, 400)
+        rounds["async"] = round_of("async", 0.75, 410)
+        for chat in rounds["async"]["chats"]:
+            chat["verdict_wait_s"], chat["flight_verify"] = flight_verdict(
+                client, chat["body"]["metadata"]["query_id"])
+        wait_detached()
+        sse = client.sse({"question": f"Tell me about {words[420 % len(words)]}."},
+                         after_done=True)
+        wait_detached()
+        rounds["gated"] = round_of("gated", 0.75, 430)
+        for chat in rounds["gated"]["chats"]:
+            meta = chat["body"]["metadata"]
+            if meta.get("verify_pending"):
+                chat["verdict_wait_s"], chat["flight_verify"] = flight_verdict(
+                    client, meta["query_id"])
+        wait_detached()
+        rounds["gated_0"] = round_of("gated", 0.0, 440)
+        wait_detached()
+        service.wait_idle()
+        gated0_admissions = len(generates) - rounds["gated_0"]["calls0"]
+        gated0_completed = service.stats()["completed"] - rounds["gated_0"]["completed0"]
+        flights = {chat["body"]["metadata"]["query_id"]: client.json(
+            "GET", f"/debug/flight/{chat['body']['metadata']['query_id']}")[2]
+            for chat in rounds["gated_0"]["chats"]}
+        launches, card = window.read()
+    finally:
+        del service.generate  # the counting wrapper
+        gcfg.verify_mode, gcfg.verify_confidence_threshold = "sync", 0.75
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10.0)
+        pipeline.close()
+
+    for i, chat in enumerate(rounds["sync"]["chats"]):
+        check_http_chat(f"{phase} sync", i, chat["status"], chat["body"])
+    summary = {}
+    for name, r in rounds.items():
+        answer_s = [c["answer_s"] for c in r["chats"]]
+        summary[name] = {
+            "threshold": r["threshold"], "answer_s": answer_s,
+            "verdicts": [(c["body"]["metadata"].get("evaluation") or {}).get("verdict")
+                         for c in r["chats"]],
+            "verify_pending": [bool(c["body"]["metadata"].get("verify_pending"))
+                               for c in r["chats"]],
+            "confidence": [c["body"]["metadata"].get("verify_confidence") for c in r["chats"]],
+            "flight_verify": [c.get("flight_verify") for c in r["chats"]],
+            "verdict_wait_s": [c.get("verdict_wait_s") for c in r["chats"]],
+            "stage_ms": [c["body"]["metadata"].get("node_timings_ms") for c in r["chats"]]}
+    sync_s = sorted(summary["sync"]["answer_s"])[1]
+    gated_default = summary["gated"]
+    skips = sum(v == "skipped_confident" for v in gated_default["verdicts"])
+    kinds = [e if e == "[DONE]" else next(iter(e)) for e in sse["events"]]
+    result = {"rounds": summary, "answer_s_median": {
+                  name: sorted(s["answer_s"])[1] for name, s in summary.items()},
+              "answer_s_vs_sync": {name: sorted(s["answer_s"])[1] / sync_s
+                                   for name, s in summary.items()},
+              "gated_skip_rate": skips / 3, "gated_0_verify_admissions": gated0_admissions,
+              "gated_0_completed": gated0_completed,
+              "gated_0_flight": [f.get("verify") for f in flights.values()],
+              "sse": {"status": sse["status"], "events": kinds,
+                      "first_token_s": sse["first_token_s"], "done_s": sse.get("done_s"),
+                      "seconds": sse["seconds"]},
+              "launches": launches, "device_launches": card}
+    emit(phase, **result)
+    for i, chat in enumerate(rounds["async"]["chats"]):
+        meta = chat["body"]["metadata"]
+        if chat["status"] != 200 or meta.get("degraded") or not chat["body"].get("answer") \
+                or meta.get("verify_pending") is not True or "evaluation" in meta:
+            raise AssertionError(f"{phase} async chat {i}: not answered before its audit: "
+                                 f"{chat['status']} {meta}")
+        if chat["verdict_wait_s"] is None or chat["flight_verify"].get("mode") != "async":
+            raise AssertionError(f"{phase} async chat {i}: no verdict in /debug/flight "
+                                 f"within {VERDICT_WAIT_S} s: {chat['flight_verify']}")
+    if sse["status"] != 200 or "[DONE]" not in kinds or kinds[-1] != "verify" \
+            or kinds.index("[DONE]") > kinds.index("verify") or "token" not in kinds:
+        raise AssertionError(f"{phase}: the async SSE chat's events {kinds}")
+    for i, chat in enumerate(rounds["gated"]["chats"]):
+        meta = chat["body"]["metadata"]
+        pending = meta.get("verify_pending") is True
+        skipped = (meta.get("evaluation") or {}).get("verdict") == "skipped_confident"
+        if chat["status"] != 200 or meta.get("degraded") or pending == skipped \
+                or (pending and chat.get("verdict_wait_s") is None):
+            raise AssertionError(f"{phase} gated chat {i}: {chat['status']} {meta}")
+    for i, chat in enumerate(rounds["gated_0"]["chats"]):
+        meta = chat["body"]["metadata"]
+        if chat["status"] != 200 or meta.get("evaluation", {}).get("verdict") \
+                != "skipped_confident" or meta.get("verify_pending"):
+            raise AssertionError(f"{phase} gated threshold 0 chat {i}: {meta}")
+    if gated0_admissions != 3 or gated0_completed != 3 or any(
+            (f.get("verify") or {}).get("outcome") != "skipped_confident"
+            for f in flights.values()):
+        raise AssertionError(f"{phase}: threshold 0 made verify admissions: "
+                             f"{gated0_admissions} admissions for 3 chats, {flights}")
+    if launches["paged_attention"] <= 0 or launches["flash_attention"] <= 0:
+        raise AssertionError(f"{phase}: a kernel never launched: {launches}")
+    check_card(phase, card, launches)
+    return result
+
+
+def new_phases(torch, dev, weights) -> dict:
+    """train_encoder, train_encoder_wide, eval, quality_gates (the trained
+    checkpoint in a temporary directory), then verify_modes on ``weights``
+    (random ones from the seed when None)."""
+    with tempfile.TemporaryDirectory(prefix="smoke-encoder-") as tmp:
+        checkpoint = f"{tmp}/encoder"
+        trained = train_encoder_check(torch, dev, checkpoint)
+        del trained["params"]
+        out = {"train_encoder": trained, "train_encoder_wide": train_encoder_wide_check(torch, dev),
+               "eval": eval_check(torch, dev, checkpoint),
+               "quality_gates": quality_gates_check(torch, dev, checkpoint)}
+    out["verify_modes"] = verify_modes_check(torch, dev, weights)
+    return out
+
+
 def family_launches(card: dict, family: str) -> dict:
     """The card's counts (:func:`card_launches`) of one kernel's device
     functions."""
@@ -2079,9 +2625,17 @@ def device_launches(profile: dict, family: str) -> dict:
             "profiler": family_launches(profile["profiler_launches"], family)}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--only-new", action="store_true",
+                        help="build, the kernel checks, then only the training, eval and "
+                             "verify-mode phases (random 8B weights); ends without the "
+                             "result lines")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -2123,9 +2677,20 @@ def main() -> int:
     paged_quant = paged_check(torch, dev, sweep_quant, f"decode_int8_{shape}", quant=True)
     paged_quant_chat = paged_check(torch, dev, sweep_quant, f"chat_decode_int8_{shape}",
                                    CHAT_LENS, quant=True)
+    eval_shape = "b8_h8_hkv4_d64_page16"
+    paged_eval = paged_check(torch, dev, sweep, f"eval_decode_{eval_shape}", EVAL_LENS,
+                             geometry=EVAL_GEOMETRY, scratch_idle=False)
+    paged_quant_eval = paged_check(torch, dev, sweep_quant, f"eval_decode_int8_{eval_shape}",
+                                   EVAL_LENS, quant=True, geometry=EVAL_GEOMETRY,
+                                   scratch_idle=False)
     flash = flash_checks(torch, dev)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+
+    if args.only_new:
+        new = new_phases(torch, dev, None)
+        emit("partial", phases=sorted(new))
+        return 0
 
     caps = dict(max_new_tokens=MAX_TOKENS, verifier_max_tokens=MAX_TOKENS)
     sl = run_slice(torch, dev, "slice", Settings(retrieval=RetrievalConfig(strategy="dense"),
@@ -2176,6 +2741,8 @@ def main() -> int:
     del draft
     spec_exact = spec_exact_check(torch, dev, [q[:63] for q in (*sl["questions"],
                                                                   sl["generate_prompt"])])
+    new = new_phases(torch, dev, weights)
+    ev, gates, vm = new["eval"]["counts"], new["quality_gates"]["launches"], new["verify_modes"]
 
     main_flash = flash[0]  # the embedder's bidirectional shape
     kernels = [
@@ -2188,7 +2755,18 @@ def main() -> int:
                               "slice_spec": ss["launches"]["paged_attention"],
                               "slice_spec_service": spec_service["launches"]["paged_attention"],
                               "profile_spec": profile_spec["launches_counted"][
-                                  "paged_attention"]},
+                                  "paged_attention"],
+                              **{f"eval_{name}": ev[name]["launches"]["paged_attention"]
+                                 for name in ("full_paged", "batched")},
+                              "quality_gates_bf16": gates["bf16"]["launches"]["paged_attention"],
+                              "quality_gates_gated":
+                                  gates["gated"]["launches"]["paged_attention"],
+                              "verify_modes": vm["launches"]["paged_attention"]},
+         "device_launches_eval": {name: family_launches(ev[name]["device_launches"],
+                                                        "paged_attention")
+                                  for name in ("full_paged", "batched")},
+         "device_launches_verify_modes": family_launches(vm["device_launches"],
+                                                         "paged_attention"),
          "device_launches_slice_spec": family_launches(ss["device_launches"],
                                                        "paged_attention"),
          "device_launches": family_launches(sl["device_launches"], "paged_attention"),
@@ -2197,7 +2775,7 @@ def main() -> int:
          "device_launches_profiled_chat": device_launches(profile, "paged_attention"),
          **{k: paged[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                   "bound_by", "library_ms")},
-         "cases": [paged, paged_chat]},
+         "cases": [paged, paged_chat, paged_eval]},
         {"name": "paged_attention_quant", "route": "cuda",
          "source": "sentio_tpu_torch/csrc/paged_attention_quant.cu",
          "replaces": "sentio_tpu/kernels/paged_attention.py:167",
@@ -2205,14 +2783,18 @@ def main() -> int:
          "launches_by_path": {"slice_int8": sl8["launches"]["paged_attention_quant"],
                               "service": service["launches"]["paged_attention_quant"],
                               "slice_spec": ss["launches"]["paged_attention_quant"],
-                              "spec_int8": spec_int8["launches"]["paged_attention_quant"]},
+                              "spec_int8": spec_int8["launches"]["paged_attention_quant"],
+                              "quality_gates_int8":
+                                  gates["int8"]["launches"]["paged_attention_quant"]},
+         "device_launches_quality_gates_int8": family_launches(
+             gates["int8"]["device_launches"], "paged_attention_quant"),
          "device_launches": family_launches(sl8["device_launches"], "paged_attention_quant"),
          "device_launches_spec_int8": family_launches(spec_int8["device_launches"],
                                                       "paged_attention_quant"),
          "device_launches_profiled_chat": device_launches(profile8, "paged_attention_quant"),
          **{k: paged_quant[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")},
-         "cases": [paged_quant, paged_quant_chat]},
+         "cases": [paged_quant, paged_quant_chat, paged_quant_eval]},
         {"name": "flash_attention", "route": "cuda",
          "source": "sentio_tpu_torch/csrc/flash_attention.cu",
          "replaces": "sentio_tpu/kernels/flash_attention.py:41",
@@ -2228,7 +2810,13 @@ def main() -> int:
                               "slice_spec_service": spec_service["launches"]["flash_attention"],
                               "spec_int8": spec_int8["launches"]["flash_attention"],
                               "spec_exact_contig_prefills":
-                                  spec_exact["launches"]["flash_attention"]},
+                                  spec_exact["launches"]["flash_attention"],
+                              "train_encoder_eval_recall":
+                                  new["train_encoder"]["eval_recall_launches"]["flash_attention"],
+                              **{f"eval_{name}": ev[name]["launches"]["flash_attention"]
+                                 for name in ("dense", "hybrid_rerank", "full_paged",
+                                              "batched")},
+                              "verify_modes": vm["launches"]["flash_attention"]},
          "device_launches": {path: family_launches(x["device_launches"], "flash_attention")
                              for path, x in (("slice", sl), ("slice_int8", sl8),
                                              ("slice_contig", sc), ("service", service),
@@ -2236,7 +2824,11 @@ def main() -> int:
                                              ("serve_http", http["chats"]), ("slice_spec", ss),
                                              ("slice_spec_service", spec_service),
                                              ("spec_int8", spec_int8),
-                                             ("spec_exact", spec_exact))},
+                                             ("spec_exact", spec_exact), ("verify_modes", vm))},
+         "device_launches_eval": {name: family_launches(ev[name]["device_launches"],
+                                                        "flash_attention")
+                                  for name in ("dense", "hybrid_rerank", "full_paged",
+                                               "batched")},
          "device_launches_profiled_chat": {
              path: device_launches(prof, "flash_attention")
              for path, prof in (("slice", profile), ("slice_int8", profile8),

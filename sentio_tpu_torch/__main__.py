@@ -1,4 +1,4 @@
-"""``python -m sentio_tpu_torch {chat,serve,ingest}``
+"""``python -m sentio_tpu_torch {chat,serve,ingest,eval,train-encoder}``
 
 * ``chat "question" [--docs FILE ...]`` builds the ``/chat`` pipeline,
   ingests the given files (a few built-in passages when none are given)
@@ -14,6 +14,16 @@
 * ``ingest PATH [--no-recursive] [--save PATH]`` chunks, embeds and
   indexes a file or a directory, prints the ingest stats as JSON (exit 1
   if a file failed) and saves the dense index.
+* ``eval`` runs the eval matrix (``eval/runner.py``: the five
+  configurations over the seeded bundle and the loopback baseline) and
+  prints the payload as JSON (``--out`` writes it too); JAX's flags and
+  defaults (``--scale bench``, 1,024 documents, 64 queries, concurrency 8,
+  48 new tokens).
+* ``train-encoder OUT`` trains the bi-encoder in-tree
+  (``eval/train_encoder.py``; 600 steps of 64 pairs, dim 256, 4 layers by
+  default), saves the checkpoint to ``OUT`` (for ``EMBEDDER_CHECKPOINT``
+  and ``eval --encoder-checkpoint``) and prints its history as JSON, with
+  recall@10 on the eval bundle under ``--eval-recall``.
 
 Each runs on the card unless ``--device cpu``. Settings come from the
 environment as in the JAX service: ``RETRIEVAL_STRATEGY`` (``hybrid`` by
@@ -32,6 +42,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 from dataclasses import replace
 
@@ -117,6 +128,42 @@ def _cmd_ingest(args) -> int:
     return 0 if not stats.errors else 1
 
 
+def _cmd_eval(args) -> int:
+    from sentio_tpu_torch.eval.runner import run_eval
+
+    payload = run_eval(
+        scale=args.scale, n_docs=args.docs, n_queries=args.queries,
+        concurrency=args.concurrency, new_tokens=args.new_tokens, rtt_ms=args.rtt_ms,
+        seed=args.seed, skip_baseline=args.skip_baseline,
+        configs={c.strip() for c in args.configs.split(",") if c.strip()} or None,
+        encoder_checkpoint=args.encoder_checkpoint, kv_quant=args.kv_quant,
+        device=args.device)
+    text = json.dumps(payload, indent=2)
+    if args.out:
+        with open(args.out, "w") as fh:
+            fh.write(text + "\n")
+        print(f"wrote {args.out}", file=sys.stderr)
+    print(text)
+    return 0
+
+
+def _cmd_train_encoder(args) -> int:
+    from sentio_tpu_torch.eval.train_encoder import TrainConfig, eval_recall, train_encoder
+    from sentio_tpu_torch.models.transformer import EncoderConfig
+
+    enc_cfg = EncoderConfig(vocab_size=512, dim=args.dim, n_layers=args.layers,
+                            n_heads=max(args.dim // 64, 2), mlp_dim=args.dim * 4, max_len=512)
+    params, enc_cfg, history = train_encoder(
+        enc_cfg=enc_cfg, train_cfg=TrainConfig(steps=args.steps, batch=args.batch, lr=args.lr),
+        out_path=args.out, seed=args.seed, device=args.device)
+    history.pop("step_ms")
+    payload = {"checkpoint": args.out, "history": history}
+    if args.eval_recall:
+        payload["recall_at_10"] = round(eval_recall(params, enc_cfg, device=args.device), 3)
+    print(json.dumps(payload))
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="python -m sentio_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -148,6 +195,39 @@ def main(argv=None) -> int:
     ingest.add_argument("--save", default="", help="persist the dense index to this path")
     common(ingest)
     ingest.set_defaults(fn=_cmd_ingest)
+
+    ev = sub.add_parser("eval", help="run the eval matrix and print its payload")
+    ev.add_argument("--scale", default="bench", choices=["tiny", "bench"])
+    ev.add_argument("--docs", type=int, default=1024)
+    ev.add_argument("--queries", type=int, default=64)
+    ev.add_argument("--concurrency", type=int, default=8)
+    ev.add_argument("--new-tokens", type=int, default=48)
+    ev.add_argument("--rtt-ms", type=float, default=0.0,
+                    help="per-hop delay of the loopback baseline's model APIs")
+    ev.add_argument("--seed", type=int, default=0)
+    ev.add_argument("--skip-baseline", action="store_true")
+    ev.add_argument("--configs", default="",
+                    help="comma list: sparse_api,dense,hybrid_rerank,full_paged,batched")
+    ev.add_argument("--out", default="", help="also write the JSON here")
+    ev.add_argument("--kv-quant", default=os.environ.get("KV_QUANT", "none"),
+                    choices=["none", "int8"], help="KV page quantization of the paged configs")
+    ev.add_argument("--encoder-checkpoint", default="",
+                    help="trained bi-encoder checkpoint for the dense leg (train-encoder)")
+    ev.add_argument("--device", default=None, help="default: cuda")
+    ev.set_defaults(fn=_cmd_eval)
+
+    tr = sub.add_parser("train-encoder", help="train the bi-encoder on the synthetic bundle")
+    tr.add_argument("out", help="checkpoint output directory")
+    tr.add_argument("--steps", type=int, default=600)
+    tr.add_argument("--batch", type=int, default=64)
+    tr.add_argument("--lr", type=float, default=3e-4)
+    tr.add_argument("--dim", type=int, default=256)
+    tr.add_argument("--layers", type=int, default=4)
+    tr.add_argument("--seed", type=int, default=0)
+    tr.add_argument("--eval-recall", action="store_true",
+                    help="measure recall@10 on the eval bundle (seed 0) after training")
+    tr.add_argument("--device", default=None, help="default: cuda")
+    tr.set_defaults(fn=_cmd_train_encoder)
 
     args = parser.parse_args(argv)
     return args.fn(args)

@@ -158,9 +158,15 @@ class MetricsCollector:
             "sentio_tpu_tick_phase_seconds", "pump-iteration time per named phase", ["phase"],
             buckets=(1e-5, 1e-4, 5e-4, 1e-3, 2.5e-3, 5e-3, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
                      1, 5))
+        self.verify = Counter("sentio_tpu_verify_total",
+                              "answer verifications by mode and outcome", ["mode", "outcome"])
+        self.verify_confidence = Histogram(
+            "sentio_tpu_verify_confidence", "confidence-gate score per scored answer",
+            buckets=(0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.75, 0.8, 0.85, 0.9, 0.95, 1.0))
         self._families = (self.requests, self.request_latency, self.embeddings,
                           self.retrieval_latency, self.serving_stat, self.serving_total,
-                          self.shed, self.inflight, self.pump_duty_cycle, self.tick_phase)
+                          self.shed, self.inflight, self.pump_duty_cycle, self.tick_phase,
+                          self.verify, self.verify_confidence)
         self._inflight = 0
         self._inflight_lock = threading.Lock()
         self._serving_last: dict[str, float] = {}
@@ -175,6 +181,16 @@ class MetricsCollector:
 
     def record_retrieval(self, strategy: str, latency_s: float) -> None:
         self.retrieval_latency.observe(strategy, value=latency_s)
+
+    def record_verify(self, mode: str, outcome: str,
+                      confidence: Optional[float] = None) -> None:
+        """One verification outcome (``mode``: sync | async | gated;
+        ``outcome``: pass | warn | fail | skipped_confident |
+        skipped_deadline | skipped_empty) and the gate's confidence score
+        when one was computed."""
+        self.verify.inc(mode, outcome)
+        if confidence is not None:
+            self.verify_confidence.observe(value=float(confidence))
 
     def record_shed(self, reason: str, n: int = 1) -> None:
         """``reason``: queue_full | draining | deadline | expired | crash."""

@@ -175,3 +175,15 @@ def stream_of(tensor) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(tensor.device).cuda_stream)
+
+
+def refuse_autograd(fn: str, *inputs) -> None:
+    """Raise ``RuntimeError`` when autograd would record a kernel call: the
+    kernels write into fresh outputs through ctypes, so their result has no
+    ``grad_fn`` and a backward pass would silently train nothing upstream
+    of them."""
+    import torch
+
+    if torch.is_grad_enabled() and any(getattr(x, "requires_grad", False) for x in inputs):
+        raise RuntimeError(f"{fn}: the kernel has no backward; call it under torch.no_grad() "
+                           "or train through the plain attention (attn_fn=None)")

@@ -21,7 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from sentio_tpu_torch.kernels._build import CudaKernel, ptr, stream_of
+from sentio_tpu_torch.kernels._build import CudaKernel, ptr, refuse_autograd, stream_of
 
 __all__ = ["flash_attention", "flash_attention_plain", "KERNEL"]
 
@@ -81,11 +81,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CUDA tensors launch the hand-written kernel (bf16, contiguous, 16-byte
     aligned, D in 16/32/64/128, int32 ``kv_lens``); CPU tensors take the
-    plain version."""
+    plain version. The kernel has no backward: under autograd, an input
+    that requires grad raises ``RuntimeError`` instead of training nothing
+    upstream of attention."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, kv_lens, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    refuse_autograd("flash_attention", q, k, v)
     b, t, h, d = q.shape
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, d):
         raise ValueError(f"k/v must be [B, S, H, D] matching q {tuple(q.shape)}, "

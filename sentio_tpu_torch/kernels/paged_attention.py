@@ -29,7 +29,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from sentio_tpu_torch.kernels._build import CudaKernel, ptr, stream_of
+from sentio_tpu_torch.kernels._build import CudaKernel, ptr, refuse_autograd, stream_of
 
 __all__ = [
     "QuantPages", "paged_attention", "paged_attention_plain", "paged_attention_quant",
@@ -163,9 +163,11 @@ def _check(fn: str, q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
     CUDA tensors, K/V payloads [P, page, Hkv, D] aligned to 16 bytes, at
     most 8 query heads per kv head, D one of :data:`PAGED_HEAD_DIMS`, and
     bf16 q, int32 table and lens plus ``tensors`` (name, tensor, dtype), all
-    contiguous on q's device."""
+    contiguous on q's device; ``RuntimeError`` under autograd when an input
+    requires grad (the kernels have no backward)."""
     if q.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {q.device}")
+    refuse_autograd(fn, q, k_pages, v_pages, *(t for _name, t, _dtype in tensors))
     b, h, d = q.shape
     if k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
         raise ValueError(f"{fn}: k/v pages must be [P, page, Hkv, D], got "

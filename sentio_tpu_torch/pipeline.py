@@ -1,6 +1,7 @@
-"""The ``/chat`` pipeline on the card — the sync graph of
+"""The ``/chat`` pipeline on the card — the graph of
 ``sentio_tpu/graph/factory.py::build_basic_graph``:
-retrieve → rerank → select → generate → verify.
+retrieve → rerank → select → generate → verify, with verify synchronous,
+detached (``VERIFY_MODE=async``) or behind a confidence gate (``gated``).
 
 Retrieval follows ``RETRIEVAL_STRATEGY``: ``dense`` (the bi-encoder embeds
 the query and an exact top-k runs over the index on the card), ``bm25``
@@ -45,7 +46,9 @@ from __future__ import annotations
 
 import contextlib
 import logging
+import threading
 import time
+import uuid
 from dataclasses import dataclass, field
 from typing import Any, Optional, Sequence
 
@@ -53,10 +56,13 @@ import torch
 
 from sentio_tpu_torch import resolve_device
 from sentio_tpu_torch.config import Settings
+from sentio_tpu_torch.infra.flight import get_flight_recorder
+from sentio_tpu_torch.infra.metrics import get_metrics
 from sentio_tpu_torch.models.document import Document
 from sentio_tpu_torch.models.llama import LlamaConfig, init_llama
 from sentio_tpu_torch.models.transformer import EncoderConfig
 from sentio_tpu_torch.ops.bm25 import BM25Index, BM25Params, make_bm25_index
+from sentio_tpu_torch.ops.confidence import confidence_score
 from sentio_tpu_torch.ops.dense_index import TorchDenseIndex
 from sentio_tpu_torch.ops.embedder import TorchEmbedder
 from sentio_tpu_torch.ops.generator import EngineProvider, LLMGenerator
@@ -74,6 +80,64 @@ from sentio_tpu_torch.runtime.weights import load_draft, load_llama, refuse_toke
 logger = logging.getLogger(__name__)
 
 CHARS_PER_TOKEN = 4  # the selector's ≈4-chars/token budget heuristic
+VERIFY_MODES = ("sync", "async", "gated")
+
+# live detached verify threads (VERIFY_MODE=async|gated), joined by
+# wait_detached() before a service is closed under them
+_detached_lock = threading.Lock()
+_detached_threads: list[threading.Thread] = []
+
+
+def wait_detached(timeout_s: float = 30.0) -> bool:
+    """Join every live detached verify thread, all within ``timeout_s``;
+    returns whether all finished. Whatever closes a generation service right
+    after a chat (eval, tests, ``ChatPipeline.close``) calls it first, or
+    the trailing verify decode races the shutdown."""
+    deadline = time.perf_counter() + max(timeout_s, 0.0)
+    while True:
+        with _detached_lock:
+            _detached_threads[:] = [t for t in _detached_threads if t.is_alive()]
+            live = list(_detached_threads)
+        if not live:
+            return True
+        if time.perf_counter() >= deadline:
+            return False
+        live[0].join(timeout=min(max(deadline - time.perf_counter(), 0.0), 0.5))
+
+
+def check_verify_mode(mode: str) -> str:
+    if mode not in VERIFY_MODES:
+        raise ValueError(f"verify_mode must be one of {VERIFY_MODES}, got {mode!r}")
+    return mode
+
+
+def record_verify(request_id: Optional[str], mode: str, outcome: str,
+                  confidence: Optional[float] = None, verdict_ms: Optional[float] = None,
+                  skipped: Optional[str] = None) -> None:
+    """One verify outcome, published to ``/metrics`` (by mode and outcome,
+    and the confidence score) and to the request's flight record (its
+    ``verify`` section) — the JAX graph's ``_record_verify``. Best effort:
+    telemetry never fails a verdict."""
+    try:
+        get_metrics().record_verify(mode, outcome, confidence=confidence)
+        if request_id:
+            fields: dict[str, Any] = {"mode": mode, "outcome": outcome}
+            if confidence is not None:
+                fields["confidence"] = round(float(confidence), 4)
+            if verdict_ms is not None:
+                fields["verdict_ms"] = round(float(verdict_ms), 2)
+            if skipped is not None:
+                fields["skipped"] = skipped
+            get_flight_recorder().note_verify(str(request_id), **fields)
+    except Exception:  # noqa: BLE001 — telemetry must never fail a verdict
+        logger.debug("verify telemetry failed", exc_info=True)
+
+
+def confidence_skip_evaluation(confidence: float) -> dict[str, Any]:
+    """The typed ``skipped_confident`` verdict, shared by ``run`` and the
+    SSE handler."""
+    return {"verdict": "skipped_confident", "citations_ok": True,
+            "confidence": round(float(confidence), 4), "notes": []}
 
 
 def select_documents(docs: list, budget_tokens: int) -> tuple[list[Document], int]:
@@ -169,10 +233,18 @@ class ChatPipeline:
         graph runs them. ``metadata`` seeds the state's metadata (the
         ``/chat`` handler's query id and request fields); ``deadline_ts``
         (absolute ``time.perf_counter()``) reaches the service's tickets,
-        and verify is skipped once it has passed. Returns the final state:
-        ``query``, ``retrieved_documents``, ``reranked_documents``,
-        ``selected_documents``, ``response``, ``evaluation``, ``metadata``
-        and ``generated_tokens``."""
+        and verify is skipped once it has passed. Verification follows
+        ``VERIFY_MODE`` (read at each call): ``sync`` audits before
+        returning; ``async`` runs the audit on a thread of its own and
+        returns at once with ``metadata.verify_pending``; ``gated`` scores
+        the answer's confidence first (``metadata.verify_confidence``) and,
+        at or above ``VERIFY_CONFIDENCE_THRESHOLD``, returns the typed
+        ``skipped_confident`` verdict with no audit at all, else detaches
+        the audit as ``async`` does. A detached verdict lands on the flight
+        record of ``metadata.query_id`` (made when the caller gave none).
+        Returns the final state: ``query``, ``retrieved_documents``,
+        ``reranked_documents``, ``selected_documents``, ``response``,
+        ``evaluation``, ``metadata`` and ``generated_tokens``."""
         s = self.settings
         meta: dict[str, Any] = dict(metadata or {})
         state: dict[str, Any] = {"query": question, "response": "", "evaluation": {},
@@ -203,24 +275,100 @@ class ChatPipeline:
         state["generated_tokens"] = gen_stats.get("tokens", 0)
         _node(meta, "generate", t0)
         if self.verifier is not None:
-            t0 = time.perf_counter()
-            answer = state["response"]
-            if not answer:
-                state["evaluation"] = {"verdict": "warn", "notes": ["empty answer"]}
-            elif deadline_ts is not None and time.perf_counter() >= deadline_ts:
-                state["evaluation"] = {"verdict": "skip",
-                                       "notes": ["deadline expired; verification skipped"]}
-                meta["verify_skipped"] = "deadline"
-            else:
-                result = self.verifier.verify(question, answer, best, deadline_ts=deadline_ts)
-                state["evaluation"] = result.to_dict()
-                meta.update(verify_ms=round((time.perf_counter() - t0) * 1000, 2),
-                            verdict=result.verdict)
-                if result.verdict == "fail" and result.revised_answer:
-                    state["response"] = result.revised_answer
-                    meta["answer_revised"] = True
-            _node(meta, "verify", t0)
+            mode = check_verify_mode(s.generator.verify_mode)
+            if mode != "sync" and not meta.get("query_id"):
+                # the flight record a detached verdict lands on
+                meta["query_id"] = uuid.uuid4().hex[:12]
+            skipped = False
+            if mode == "gated":
+                t0 = time.perf_counter()
+                skipped = self._gate(state, best, s.generator.verify_confidence_threshold)
+                _node(meta, "verify_gate", t0)
+            if mode == "sync":
+                t0 = time.perf_counter()
+                self._verify(state, best, deadline_ts, mode)
+                _node(meta, "verify", t0)
+            elif not skipped:
+                self._detach_verify(state, best, deadline_ts, mode)
+        if meta.get("query_id"):
+            get_flight_recorder().add_node_timings(str(meta["query_id"]),
+                                                   meta["node_timings_ms"],
+                                                   graph_path=meta["graph_path"])
         return state
+
+    def _gate(self, state: dict, docs: list[Document], threshold: float) -> bool:
+        """The confidence gate (``VERIFY_MODE=gated``): score the answer's
+        logprobs and the retrieval margin; at or above ``threshold`` the
+        typed ``skipped_confident`` verdict replaces verification (no verify
+        admission) and this returns True. No answer, or no logprob signal,
+        never skips."""
+        meta = state["metadata"]
+        if not state["response"]:
+            meta["verify_confidence"] = None
+            return False
+        conf = confidence_score(meta.get("logprob_mean"), meta.get("logprob_min"), docs)
+        meta["verify_confidence"] = None if conf is None else round(conf, 4)
+        if conf is None or conf < threshold:
+            return False
+        record_verify(meta.get("query_id"), "gated", "skipped_confident", confidence=conf,
+                      skipped="confident")
+        state["evaluation"] = confidence_skip_evaluation(conf)
+        meta["verify_skipped"] = "confident"
+        return True
+
+    def _verify(self, state: dict, docs: list[Document], deadline_ts: Optional[float],
+                mode: str) -> None:
+        """The verify stage, writing its verdict into ``state`` and the
+        flight record: an empty answer is a ``warn``, a caller's deadline
+        that has passed skips the audit, a ``fail`` with a revision
+        replaces the answer."""
+        meta = state["metadata"]
+        request_id = meta.get("query_id")
+        answer = state["response"]
+        if not answer:
+            record_verify(request_id, mode, "skipped_empty", skipped="empty")
+            state["evaluation"] = {"verdict": "warn", "notes": ["empty answer"]}
+            return
+        if deadline_ts is not None and time.perf_counter() >= deadline_ts:
+            record_verify(request_id, mode, "skipped_deadline", skipped="deadline")
+            state["evaluation"] = {"verdict": "skip",
+                                   "notes": ["deadline expired; verification skipped"]}
+            meta["verify_skipped"] = "deadline"
+            return
+        t0 = time.perf_counter()
+        result = self.verifier.verify(state["query"], answer, docs, deadline_ts=deadline_ts)
+        verdict_ms = round((time.perf_counter() - t0) * 1000, 2)
+        record_verify(request_id, mode, result.verdict,
+                      confidence=meta.get("verify_confidence"), verdict_ms=verdict_ms)
+        state["evaluation"] = result.to_dict()
+        meta.update(verify_ms=verdict_ms, verdict=result.verdict)
+        if result.verdict == "fail" and result.revised_answer:
+            state["response"] = result.revised_answer
+            meta["answer_revised"] = True
+
+    def _detach_verify(self, state: dict, docs: list[Document],
+                       deadline_ts: Optional[float], mode: str) -> None:
+        """Run the verify stage on a thread of its own over a snapshot of
+        ``state`` and return at once with ``metadata.verify_pending``: the
+        verdict lands on the flight record only (a late revision has no
+        answer left to replace)."""
+        snapshot = dict(state)
+        snapshot["metadata"] = dict(state["metadata"])
+
+        def run() -> None:
+            try:
+                self._verify(snapshot, docs, deadline_ts, mode)
+            except Exception:  # noqa: BLE001 — the answer has shipped; log, never crash
+                logger.exception("detached verify failed")
+
+        thread = threading.Thread(target=run, name="graph-detached-verify", daemon=True)
+        with _detached_lock:
+            _detached_threads[:] = [t for t in _detached_threads if t.is_alive()]
+            _detached_threads.append(thread)
+        thread.start()
+        meta = state["metadata"]
+        meta["verify_pending"] = True
+        meta.setdefault("graph_path", []).append("verify")
 
     def context(self, question: str, retrieve_k: int, rerank_k: int,
                 meta: dict) -> dict[str, list[Document]]:
@@ -285,7 +433,8 @@ class ChatPipeline:
                 "stage_ms": meta["node_timings_ms"],
                 "generated_tokens": state["generated_tokens"],
                 **{k: meta[k] for k in ("retrieval_error", "rerank_fallback",
-                                        "generation_error") if k in meta},
+                                        "generation_error", "query_id", "verify_pending")
+                   if k in meta},
             },
         }
 
@@ -326,9 +475,13 @@ class ChatPipeline:
         self.ready = True
         return stats
 
-    def close(self) -> None:
-        """Stop the generation service's pump, if any, and the embedder's
-        coalescer."""
+    def close(self, detached_timeout_s: float = 30.0) -> None:
+        """Join the detached verify threads (up to ``detached_timeout_s``;
+        one still running then ends with the closed service's error as a
+        ``warn`` verdict), stop the generation service's pump, if any, and
+        the embedder's coalescer."""
+        if not wait_detached(detached_timeout_s):
+            logger.warning("closing with detached verifies still running")
         if self.service is not None:
             self.service.close()
         self.embedder.close()
@@ -379,9 +532,7 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
         raise NotImplementedError("USE_SCORERS: post-fusion scorers are not ported")
     if rcfg.web_cache_path:
         raise NotImplementedError("WEB_CACHE_PATH: the web-cache retrieval leg is not ported")
-    if gcfg.verify_mode != "sync":
-        raise NotImplementedError(f"VERIFY_MODE={gcfg.verify_mode}: only sync verification "
-                                  "is ported")
+    check_verify_mode(gcfg.verify_mode)
     dev = resolve_device(device)
     if draft_params is not None and draft_config is None:
         raise ValueError("draft_params requires draft_config")

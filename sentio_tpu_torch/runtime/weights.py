@@ -9,7 +9,10 @@
 * :func:`load_pytree` reads the JAX package's ``save_pytree`` directory
   format (``arrays.npz`` + ``manifest.json``, bf16 stored as a uint16 view)
   with numpy alone, so a checkpoint such as ``artifacts/encoder-ck`` loads
-  without JAX.
+  without JAX; :func:`save_pytree` writes the same format, and
+  :func:`encoder_to_jax` turns an encoder back into the JAX tree (the one
+  transpose undone), so an encoder trained here
+  (``eval/train_encoder.py``) loads in the JAX package's ``load_model``.
 * :func:`load_model` resolves a checkpoint to (params, config) by the
   family its meta records, as ``sentio_tpu/runtime/weights.py::load_model``
   does, with the same :class:`WeightsError` messages; :func:`load_llama`
@@ -22,6 +25,10 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import shutil
+import tempfile
+import time
 from pathlib import Path
 from typing import Any, Optional
 
@@ -94,7 +101,105 @@ def cross_encoder_from_jax(tree: dict, dtype: Optional[torch.dtype] = None,
     return _carry(tree, dtype, device)
 
 
+def _to_numpy(x: torch.Tensor) -> np.ndarray:
+    x = x.detach().cpu().contiguous()
+    if x.dtype == torch.bfloat16:
+        # numpy has no bf16: the bits as uint16, as save_pytree stores them
+        return x.view(torch.int16).numpy().view(np.uint16)
+    return x.numpy()
+
+
+def encoder_to_jax(params: dict) -> dict:
+    """The inverse of :func:`encoder_from_jax`: ``weight`` [out, in] back to
+    ``kernel`` [in, out] — the JAX parameter tree, with detached tensors in
+    their dtypes as leaves (:func:`save_pytree` writes it)."""
+    _check_keys(params, ("embed_tokens", "embed_positions", "embed_norm", "layers_0"),
+                "encoder")
+
+    def back(tree: dict) -> dict:
+        out = {}
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                out[key] = back(value)
+            elif key == "weight":
+                out["kernel"] = value.detach().cpu().t()
+            else:
+                out[key] = value.detach().cpu()
+        return out
+
+    return back(params)
+
+
 # ------------------------------------------------------------ checkpoints
+
+
+def _flatten(tree: Any, prefix: str = "") -> dict[str, Any]:
+    if isinstance(tree, dict):
+        flat: dict[str, Any] = {}
+        for key in sorted(tree):
+            if not isinstance(key, str) or "/" in key or key == _TUPLE_TAG:
+                raise ValueError(f"checkpoint key {key!r} is not allowed")
+            flat.update(_flatten(tree[key], f"{prefix}{key}/"))
+        return flat
+    if isinstance(tree, (list, tuple)):
+        flat = {}
+        for i, value in enumerate(tree):
+            flat.update(_flatten(value, f"{prefix}{i}/"))
+        return flat
+    return {prefix.rstrip("/"): tree}
+
+
+def _structure_of(tree: Any, prefix: str = "") -> Any:
+    if isinstance(tree, dict):
+        return {k: _structure_of(tree[k], f"{prefix}{k}/") for k in sorted(tree)}
+    if isinstance(tree, tuple):
+        return {_TUPLE_TAG: [_structure_of(v, f"{prefix}{i}/") for i, v in enumerate(tree)]}
+    if isinstance(tree, list):
+        return [_structure_of(v, f"{prefix}{i}/") for i, v in enumerate(tree)]
+    return prefix.rstrip("/")
+
+
+def save_pytree(path, tree: Any, meta: Optional[dict] = None) -> Path:
+    """Write ``tree`` (nested dicts / lists of tensors or numpy arrays) as a
+    ``save_pytree`` checkpoint directory — the JAX package's format, which
+    both its ``load_pytree`` and :func:`load_pytree` read. Written to a
+    temporary directory beside ``path`` and renamed into place, so a crash
+    leaves the old checkpoint or the new one."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    arrays: dict[str, np.ndarray] = {}
+    dtypes: dict[str, str] = {}
+    keys: dict[str, str] = {}
+    for i, (key, leaf) in enumerate(_flatten(tree).items()):
+        if isinstance(leaf, torch.Tensor):
+            dtypes[key] = "bfloat16" if leaf.dtype == torch.bfloat16 else str(
+                _to_numpy(leaf).dtype)
+            arr = _to_numpy(leaf)
+        else:
+            arr = np.asarray(leaf)
+            dtypes[key] = str(arr.dtype)
+        arrays[f"a{i}"] = arr
+        keys[f"a{i}"] = key
+    manifest = {"format_version": FORMAT_VERSION, "created_unix": time.time(),
+                "structure": _structure_of(tree), "keys": keys, "dtypes": dtypes,
+                "meta": meta or {}}
+    tmp = Path(tempfile.mkdtemp(prefix=".tmp-ckpt-", dir=str(path.parent)))
+    try:
+        with open(tmp / "arrays.npz", "wb") as f:
+            np.savez(f, **arrays)
+        (tmp / "manifest.json").write_text(json.dumps(manifest, indent=1))
+        old = None
+        if path.exists():
+            old = path.parent / f".old-{path.name}-{os.getpid()}"
+            shutil.rmtree(old, ignore_errors=True)
+            os.replace(path, old)
+        os.replace(tmp, path)
+        if old is not None:
+            shutil.rmtree(old, ignore_errors=True)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    return path
 
 
 def _unflatten(flat: dict, structure: Any) -> Any:

@@ -5,7 +5,8 @@ per connection; the machine with the card has no aiohttp).
 Routes: ``POST /chat`` (JSON, or SSE with ``"stream": true``), ``POST
 /embed``, ``POST /upload`` (multipart, parsed with ``email.parser``),
 ``POST /clear``, ``GET /health``, ``/health/ready``, ``/health/live``,
-``/info`` and ``/metrics`` (Prometheus text). As in JAX: per-IP
+``/info``, ``/metrics`` (Prometheus text) and ``/debug/flight/{id}`` (a
+request's flight record in JSON, where a detached verdict lands). As in JAX: per-IP
 sliding-window rate limits (``/embed`` and ``/upload`` share the tight
 bucket), security headers on every response, 422 bodies listing each bad
 field, typed errors mapped by ``ErrorHandler`` with ``Retry-After`` on
@@ -15,7 +16,9 @@ recorded by endpoint and status.
 
 SSE: admission is checked before the 200 is committed; the body is
 chunked, one flush per event (``data: {"sources": ...}``, ``data:
-{"token": ...}``…, ``data: {"verdict": ...}``, ``data: [DONE]``), with a
+{"token": ...}``…, ``data: {"verdict": ...}``, ``data: [DONE]``; under
+``VERIFY_MODE=async|gated`` ``data: [DONE]`` as soon as the answer is
+complete, then ``data: {"verify": ...}``), with a
 ``: keepalive`` comment after ``SSE_KEEPALIVE_S`` of silence. A client
 that goes away closes the event generator, which cancels the service's
 ticket and frees its slot.
@@ -24,8 +27,9 @@ ticket and frees its slot.
 (``python -m sentio_tpu_torch serve``) builds the pipeline, warms it up,
 loads ``--index`` / ``INDEX_PATH``, serves until SIGINT or SIGTERM, then
 drains the generation service. Left out: auth, the UI page, the flight
-recorder and ``/debug``, ``/health/detailed`` and ``/metrics/performance``;
-``AUTH_ENABLED=1`` raises.
+recorder's tick ring, ``/debug/flight``'s Chrome format, ``/debug/profile``,
+``/health/detailed`` and ``/metrics/performance``; ``AUTH_ENABLED=1``
+raises.
 """
 
 from __future__ import annotations
@@ -56,7 +60,8 @@ from sentio_tpu_torch.infra.exceptions import ErrorHandler, SentioError
 from sentio_tpu_torch.infra.metrics import get_metrics
 from sentio_tpu_torch.infra.security import SECURITY_HEADERS, IPRateLimiter, RateLimitConfig
 from sentio_tpu_torch.ops.ingest import SUPPORTED_SUFFIXES
-from sentio_tpu_torch.pipeline import ChatPipeline
+from sentio_tpu_torch.infra.flight import get_flight_recorder
+from sentio_tpu_torch.pipeline import ChatPipeline, check_verify_mode
 from sentio_tpu_torch.serve.handlers import ChatHandler, HealthHandler
 from sentio_tpu_torch.serve.schemas import (
     MAX_DEADLINE_MS,
@@ -76,6 +81,7 @@ MAX_JSON_BODY = 1024 ** 2
 UPLOAD_SLACK = 1024 ** 2
 # how often a silent SSE stream checks whether its client went away
 SSE_POLL_S = 0.25
+FLIGHT_PREFIX = "/debug/flight/"
 _REQUEST_ID_RE = re.compile(r"[A-Za-z0-9._:-]{1,128}")
 
 
@@ -107,9 +113,7 @@ def check_serve_settings(settings: Settings) -> None:
         raise NotImplementedError("AUTH_ENABLED=1: auth and /auth/token are not ported")
     if settings.cache.backend == "multi_tier":
         raise NotImplementedError("CACHE_BACKEND=multi_tier: the Redis L2 cache is not ported")
-    if settings.generator.verify_mode != "sync":
-        raise NotImplementedError(f"VERIFY_MODE={settings.generator.verify_mode}: only sync "
-                                  "verification is ported")
+    check_verify_mode(settings.generator.verify_mode)
 
 
 class SentioHTTPServer(ThreadingHTTPServer):
@@ -226,6 +230,10 @@ def publish_serving_gauges(pipeline: ChatPipeline) -> Optional[dict]:
 class _Handler(BaseHTTPRequestHandler):
     protocol_version = "HTTP/1.1"
     server: SentioHTTPServer
+    # a response's headers and body are two writes; with Nagle's algorithm
+    # the body would wait for the client's delayed ACK (aiohttp, the JAX
+    # server, sets TCP_NODELAY as well)
+    disable_nagle_algorithm = True
 
     # ------------------------------------------------------------ plumbing
 
@@ -275,6 +283,8 @@ class _Handler(BaseHTTPRequestHandler):
                     endpoint = "/embed" if path in ("/embed", "/upload") else "*"
                     self.server.rate_limiter.check(self._client_ip(), endpoint)
                 route = self._routes().get(path)
+                if route is None and path.startswith(FLIGHT_PREFIX):
+                    route = ("GET", lambda: self._debug_flight(path[len(FLIGHT_PREFIX):]))
                 if route is None:
                     response = _text("404: Not Found", 404)
                 elif route[0] != method:
@@ -405,7 +415,7 @@ class _Handler(BaseHTTPRequestHandler):
         def produce() -> None:
             stream = self.server.chat_handler.stream_chat_sync(
                 question=req.question, top_k=req.top_k, temperature=req.temperature,
-                mode=req.mode, deadline_ts=deadline_ts)
+                mode=req.mode, deadline_ts=deadline_ts, request_id=request_id)
             try:
                 for item in stream:
                     if not put(item):
@@ -423,7 +433,7 @@ class _Handler(BaseHTTPRequestHandler):
         producer.start()
         keepalive_s = self.server.settings.serve.sse_keepalive_s
         last_write = time.perf_counter()
-        ended = False
+        ended = wrote_done = False
         try:
             while True:
                 try:
@@ -436,8 +446,16 @@ class _Handler(BaseHTTPRequestHandler):
                         self._write_chunk(b": keepalive\n\n")
                         last_write = time.perf_counter()
                     continue
-                if kind == "eos":
+                if kind == "done":
+                    # the answer is complete; the connection stays open for
+                    # the trailing verify event (keepalives bridge the audit)
                     self._write_chunk(b"data: [DONE]\n\n")
+                    wrote_done = True
+                    last_write = time.perf_counter()
+                    continue
+                if kind == "eos":
+                    if not wrote_done:
+                        self._write_chunk(b"data: [DONE]\n\n")
                     ended = True
                     break
                 self._write_chunk(f"data: {json.dumps({kind: payload})}\n\n".encode())
@@ -577,6 +595,14 @@ class _Handler(BaseHTTPRequestHandler):
             },
             "device": _device_stats(pipeline),
         })
+
+    def _debug_flight(self, request_id: str):
+        """One request's flight record: its node timings, status, latency
+        and the verify section a detached verdict lands in."""
+        record = get_flight_recorder().get(request_id)
+        if record is None:
+            return _json({"error": f"no flight record for {request_id!r}"}, 404)
+        return _json(record)
 
     def _metrics(self):
         publish_serving_gauges(self.server.pipeline)

@@ -13,8 +13,11 @@ so ``/chat`` never answers 500 for a pipeline fault. Errors marked
 429/503/504 responses. :meth:`ChatHandler.stream_chat_sync` is the SSE
 path over the same retrieve → rerank → select stages
 (:meth:`~sentio_tpu_torch.pipeline.ChatPipeline.context`): ``sources``,
-``token`` increments, ``verdict`` (sync verification only), or a typed
-``error`` event for shed or expired work.
+``token`` increments and the verdict — ``verdict``, or under
+``VERIFY_MODE=async|gated`` a ``done`` as soon as the answer is complete
+and a trailing ``verify`` — or a typed ``error`` event for shed or
+expired work. Both open and close the request's flight record, which
+``GET /debug/flight/{id}`` serves.
 """
 
 from __future__ import annotations
@@ -25,8 +28,16 @@ import uuid
 from typing import Any, Iterator, Optional
 
 from sentio_tpu_torch.infra.caching import CacheManager
+from sentio_tpu_torch.infra.flight import get_flight_recorder
 from sentio_tpu_torch.infra.metrics import get_metrics
-from sentio_tpu_torch.pipeline import ChatPipeline, best_documents, serialize_sources
+from sentio_tpu_torch.ops.confidence import confidence_score
+from sentio_tpu_torch.pipeline import (
+    ChatPipeline,
+    best_documents,
+    confidence_skip_evaluation,
+    record_verify,
+    serialize_sources,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -65,6 +76,13 @@ class ChatHandler:
             metadata["user_top_k"] = top_k
         if temperature is not None:
             metadata["temperature"] = temperature
+        # the flight record opens here; the pipeline and a detached verify
+        # add to it under the same id
+        recorder = get_flight_recorder()
+        recorder.start_request(
+            query_id, endpoint="/chat", mode=mode, question_chars=len(question),
+            **({"deadline_ms": round((deadline_ts - t0) * 1e3, 1)}
+               if deadline_ts is not None else {}))
         try:
             state = self.pipeline.run(question, top_k=top_k, temperature=temperature,
                                       mode=mode, metadata=metadata, deadline_ts=deadline_ts)
@@ -86,14 +104,26 @@ class ChatHandler:
             }
             if state.get("evaluation"):
                 result["metadata"]["evaluation"] = state["evaluation"]
-            self.cache_manager.set_query_response(question, result)
+            # under VERIFY_MODE=async|gated the live answer carries
+            # verify_pending (the verdict comes at /debug/flight/{query_id});
+            # a cached replay has no verify behind it, so its copy drops it
+            self.cache_manager.set_query_response(question, {
+                **result, "metadata": {k: v for k, v in result["metadata"].items()
+                                       if k != "verify_pending"}})
             disk_cache, _ = self.fallback
             disk_cache.put(question, answer)
+            recorder.finish_request(query_id, status="done",
+                                    latency_ms=result["metadata"]["latency_ms"])
             return result
         except Exception as exc:  # noqa: BLE001 — ladder, never a 500
+            latency_ms = round((time.perf_counter() - t0) * 1000.0, 1)
             if getattr(exc, "soft_fail_exempt", False):
+                recorder.finish_request(query_id, status="shed", error=str(exc),
+                                        latency_ms=latency_ms)
                 raise  # typed shed / deadline errors: 429/503/504 + Retry-After
             logger.warning("chat pipeline failed (%s); degrading", exc)
+            recorder.finish_request(query_id, status="degraded", error=str(exc),
+                                    latency_ms=latency_ms)
             return self._degraded_response(question, query_id, str(exc), t0)
 
     def _degraded_response(self, question: str, query_id: str, error: str,
@@ -121,21 +151,49 @@ class ChatHandler:
 
     def stream_chat_sync(self, question: str, top_k: Optional[int] = None,
                          temperature: Optional[float] = None, mode: str = "balanced",
-                         deadline_ts: Optional[float] = None) -> Iterator[tuple[str, Any]]:
+                         deadline_ts: Optional[float] = None,
+                         request_id: Optional[str] = None) -> Iterator[tuple[str, Any]]:
         """Typed events for SSE over the same stages as ``/chat``:
-        ``("sources", [...])`` once, ``("token", str)`` per increment and
-        ``("verdict", {...})`` after the answer when the verifier is on.
-        A reranker that failed (the retrieval order kept) adds
-        ``("rerank_fallback", True)`` after ``sources``. A shed or expired
-        request ends with ``("error", {...})``; a failed retrieval and any
-        other failure degrade to the ladder's text as one ``token``.
-        Closing the generator (a client that went away) cancels the
-        decode."""
+        ``("sources", [...])`` once, ``("token", str)`` per increment, then
+        by ``VERIFY_MODE``: ``sync`` — ``("verdict", {...})``; ``gated``
+        with a confident answer — ``("verdict", skipped_confident)`` and no
+        audit; ``async`` or ``gated`` below the threshold — ``("done",
+        "")`` as soon as the answer is complete (its flight record closes
+        then), the audit, and a trailing ``("verify", {...})``, which a
+        failure around the audit degrades to a ``warn`` verdict and never
+        to the ladder. A reranker that failed (the retrieval order kept)
+        adds ``("rerank_fallback", True)`` after ``sources``. A shed or
+        expired request ends with ``("error", {...})``; a failed retrieval
+        and any other failure before the answer degrade to the ladder's
+        text as one ``token``. ``request_id`` names the stream's flight
+        record. Closing the generator (a client that went away) cancels
+        the decode."""
         pipeline, settings = self.pipeline, self.settings
+        recorder = get_flight_recorder()
+        t0 = time.perf_counter()
+        if request_id:
+            recorder.start_request(
+                request_id, endpoint="/chat?stream", mode=mode, question_chars=len(question),
+                **({"deadline_ms": round((deadline_ts - t0) * 1e3, 1)}
+                   if deadline_ts is not None else {}))
+        timings: dict[str, float] = {}
+        # set once the answer's record is finished (async / gated close it
+        # at [DONE]); later failures must not re-finish it
+        record_closed = False
+
+        def finish(status: str, **fields) -> None:
+            if request_id:
+                recorder.add_node_timings(request_id, timings)
+                recorder.finish_request(
+                    request_id, status=status,
+                    latency_ms=round((time.perf_counter() - t0) * 1e3, 1), **fields)
+
         try:
             meta: dict[str, Any] = {}
             selected = pipeline.context(question, top_k or settings.retrieval.top_k,
                                         settings.rerank.top_k, meta)["selected_documents"]
+            timings.update({k: v for k, v in meta["node_timings_ms"].items()
+                            if k in ("retrieve", "rerank")})
             if "retrieval_error" in meta:
                 raise RuntimeError(meta["retrieval_error"])
             yield ("sources", [{"id": d.id, "source": d.metadata.get("source", d.id),
@@ -143,24 +201,75 @@ class ChatHandler:
             if meta.get("rerank_fallback"):
                 yield ("rerank_fallback", True)
             chunks: list[str] = []
+            gen_stats: dict = {}
+            t = time.perf_counter()
             for piece in pipeline.generator.stream(question, selected, mode=mode,
                                                    temperature=temperature,
-                                                   deadline_ts=deadline_ts):
+                                                   deadline_ts=deadline_ts, stats=gen_stats):
                 chunks.append(piece)
                 yield ("token", piece)
+            timings["generate"] = round((time.perf_counter() - t) * 1e3, 3)
             answer = "".join(chunks)
             # skip the optional audit once the caller's budget is spent
             deadline_ok = deadline_ts is None or time.perf_counter() < deadline_ts
-            if pipeline.verifier is not None and answer and deadline_ok:
-                result = pipeline.verifier.verify(question, answer, selected,
-                                                  deadline_ts=deadline_ts)
-                yield ("verdict", result.to_dict())
+            verifier = pipeline.verifier
+            verify_mode = settings.generator.verify_mode
+            if verifier is not None and answer and deadline_ok:
+                conf = None
+                if verify_mode == "gated":
+                    conf = confidence_score(gen_stats.get("logprob_mean"),
+                                            gen_stats.get("logprob_min"), selected)
+                if conf is not None and conf >= settings.generator.verify_confidence_threshold:
+                    record_verify(request_id, "gated", "skipped_confident", confidence=conf,
+                                  skipped="confident")
+                    yield ("verdict", confidence_skip_evaluation(conf))
+                elif verify_mode in ("async", "gated"):
+                    yield ("done", "")
+                    finish("done")
+                    record_closed = True
+                    try:
+                        t = time.perf_counter()
+                        result = verifier.verify(question, answer, selected,
+                                                 deadline_ts=deadline_ts)
+                        verdict_ms = round((time.perf_counter() - t) * 1e3, 3)
+                        if request_id:
+                            recorder.add_node_timings(request_id, {"verify": verdict_ms})
+                        record_verify(request_id, verify_mode, result.verdict,
+                                      confidence=conf, verdict_ms=verdict_ms)
+                        trailing = result.to_dict()
+                    except Exception as exc:  # noqa: BLE001 — the answer is delivered
+                        logger.warning("trailing verify failed (%s)", exc)
+                        trailing = {"verdict": "warn", "citations_ok": True,
+                                    "notes": [f"verify failed: {exc}"]}
+                    if conf is not None:
+                        trailing["confidence"] = round(conf, 4)
+                    yield ("verify", trailing)
+                    return
+                else:
+                    t = time.perf_counter()
+                    result = verifier.verify(question, answer, selected,
+                                             deadline_ts=deadline_ts)
+                    timings["verify"] = round((time.perf_counter() - t) * 1e3, 3)
+                    record_verify(request_id, "sync", result.verdict,
+                                  verdict_ms=timings["verify"])
+                    yield ("verdict", result.to_dict())
+            finish("done")
         except GeneratorExit:
+            # a client that left after the answer was delivered keeps the
+            # answer's 'done' record
+            if not record_closed:
+                finish("disconnected")
             raise
         except Exception as exc:  # noqa: BLE001 — ladder, never a raw error
+            if record_closed:
+                # the answer is delivered and its record closed: nothing
+                # may follow [DONE]
+                logger.warning("post-answer stream stage failed (%s)", exc)
+                return
             if getattr(exc, "soft_fail_exempt", False):
                 # the SSE status is already on the wire: a typed error
                 # event, never an apology appended to real tokens
+                finish("shed", error=str(exc))
                 code = getattr(exc, "code", None)
                 yield ("error", {
                     "code": getattr(code, "value", "OVERLOADED"),
@@ -169,6 +278,7 @@ class ChatHandler:
                 })
                 return
             logger.warning("stream pipeline failed (%s); degrading", exc)
+            finish("degraded", error=str(exc))
             result = self._degraded_response(question, "stream", str(exc), time.perf_counter())
             yield ("token", result["answer"])
 

@@ -75,11 +75,11 @@ def _unowned(table, lens, page):
     return slots
 
 
-def _split_case(dev, lens_list, rep, d, page, nb, seed):
+def _split_case(dev, lens_list, rep, d, page, nb, seed, hkv=2):
     """Rows over private shuffled pages (page 0 a scratch page for rows at
     length 0, which read its slot 0 only), NaN planted in every unowned
     slot."""
-    b, hkv = len(lens_list), 2
+    b = len(lens_list)
     gen = torch.Generator(device=dev).manual_seed(seed)
     num_pages = 1 + b * nb
     kp = torch.randn((num_pages, page, hkv, d), generator=gen, device=dev, dtype=torch.bfloat16)
@@ -156,11 +156,11 @@ def test_paged_quant_kernel_matches_plain(dev, rep, d):
     assert (out.float() - ref).abs().max().item() <= ATOL
 
 
-def _quant_split_case(dev, lens_list, rep, d, page, nb, seed):
+def _quant_split_case(dev, lens_list, rep, d, page, nb, seed, hkv=2):
     """:func:`_split_case`'s rows over an int8 pool: the pools quantized,
     then random codes (-128 included) and NaN scales in every unowned slot,
     the scratch page's and each current page's whole tail included."""
-    q, kp, vp, table, lens = _split_case(dev, lens_list, rep, d, page, nb, seed)
+    q, kp, vp, table, lens = _split_case(dev, lens_list, rep, d, page, nb, seed, hkv)
     (k_q, k_s), (v_q, v_s) = quantize_kv(kp), quantize_kv(vp)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     for pid, first in _unowned(table, lens, page):
@@ -263,6 +263,92 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="head_dim"):
         paged_attention_quant(x[:, 0, :1], codes48, scales48, codes48, scales48, table[:1],
                               lens[:1])
+
+
+def test_wrappers_refuse_autograd(dev):
+    """The kernels write fresh outputs through ctypes, so their result has
+    no ``grad_fn``: with grad enabled, an input that requires grad raises
+    (the guard runs before the launch), and under ``no_grad`` the same call
+    launches."""
+    q, kp, vp, table, lens = _paged_inputs(dev, 2)
+    (k_q, k_s), (v_q, v_s) = quantize_kv(kp), quantize_kv(vp)
+    x = torch.randn((2, 32, 2, 64), device=dev, dtype=torch.bfloat16)
+    calls = [
+        (FLASH_KERNEL, lambda a: flash_attention(a, x, x, causal=False), x),
+        (PAGED_KERNEL, lambda a: paged_attention(a, kp, vp, table, lens), q),
+        (PAGED_QUANT_KERNEL, lambda a: paged_attention_quant(a, k_q, k_s, v_q, v_s, table,
+                                                             lens), q),
+    ]
+    for kernel, call, arg in calls:
+        before = kernel.launches
+        with pytest.raises(RuntimeError, match="no backward"):
+            call(arg.clone().requires_grad_(True))
+        assert kernel.launches == before
+        with torch.no_grad():
+            call(arg.clone().requires_grad_(True))
+        call(arg)
+        assert kernel.launches == before + 2
+    with pytest.raises(RuntimeError, match="no backward"):  # a pool that wants grad
+        paged_attention(q, kp.clone().requires_grad_(True), vp, table, lens)
+
+
+# the eval's paged engine: B 8, H 8, Hkv 4, D 64, 16-token pages, 128 pages
+# a row; rows of 1, 17 and 2,048 keys among ragged others
+EVAL_LENS = [0, 16, 2047, 5, 700, 1023, 1500, 31]
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_kernels_at_the_eval_engine_shape(dev, quant):
+    """Both paged kernels at 16-token pages and D 64: a page is half of the
+    kernels' 32-row chunk, the other half padding that must never be read
+    (NaN K/V, or random codes and NaN scales, in every unowned slot)."""
+    if quant:
+        q, pools, table, lens = _quant_split_case(dev, EVAL_LENS, 2, 64, page=16, nb=128,
+                                                  seed=16, hkv=4)
+        out = paged_attention_quant(q, *pools, table, lens)
+        torch.cuda.synchronize()
+        _check_quant(q, pools, table, lens, out)
+    else:
+        q, kp, vp, table, lens = _split_case(dev, EVAL_LENS, 2, 64, page=16, nb=128, seed=16,
+                                             hkv=4)
+        out = paged_attention(q, kp, vp, table, lens)
+        torch.cuda.synchronize()
+        _check_paged(q, kp, vp, table, lens, out)
+        assert (out.float() - paged_attention_plain(q.float(), kp.float(), vp.float(), table,
+                                                    lens)).abs().mean().item() <= 2e-3
+
+
+def test_training_step_on_the_card_matches_the_cpu(dev):
+    """Two steps of ``train_encoder`` (step 0 at lr 0, step 1 at the peak
+    lr) on the tiny encoder in bf16 compute from the same float32 masters,
+    on the card and on the CPU: the losses agree within 5e-2 (bf16
+    products summed in other orders) and the masters within 1e-3 (two Adam
+    steps move an element by at most ~lr = 3e-4 each)."""
+    from sentio_tpu_torch.eval.train_encoder import TrainConfig, param_leaves, train_encoder
+    from sentio_tpu_torch.models.transformer import EncoderConfig, init_encoder
+
+    cfg = EncoderConfig.tiny()
+    tc = TrainConfig(steps=2, batch=8, warmup=1, d_len=128, n_docs=32, n_queries=16,
+                     seeds=(7,))
+    init = init_encoder(cfg, torch.Generator().manual_seed(0), "cpu", dtype=torch.float32)
+
+    def copy(tree, device):
+        return {k: copy(v, device) if isinstance(v, dict) else v.clone().to(device)
+                for k, v in tree.items()}
+
+    runs = {}
+    for device in ("cpu", dev):
+        params, _cfg, hist = train_encoder(enc_cfg=cfg, train_cfg=tc, log_every=1,
+                                           device=device, params=copy(init, device))
+        runs[str(torch.device(device).type)] = (params, [v for _i, v in hist["loss"]])
+    (cpu_params, cpu_loss), (gpu_params, gpu_loss) = runs["cpu"], runs["cuda"]
+    assert all(abs(a - b) <= 5e-2 for a, b in zip(cpu_loss, gpu_loss)), (cpu_loss, gpu_loss)
+
+    moved = max((a - b.cpu()).abs().max().item() for a, b in zip(param_leaves(cpu_params),
+                                                               param_leaves(gpu_params)))
+    assert moved <= 1e-3, moved
+    assert any(not torch.equal(a, b) for a, b in zip(param_leaves(cpu_params),
+                                                     param_leaves(init)))
 
 
 # ------------------------------------------------ the engine's CUDA graphs

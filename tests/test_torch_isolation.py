@@ -51,7 +51,10 @@ def test_every_module_imports_with_jax_blocked():
     modules = list(_modules())
     assert len(modules) >= 20, modules
     assert {"sentio_tpu_torch.runtime.speculative",
-            "sentio_tpu_torch.runtime.paged_spec"} <= set(modules)
+            "sentio_tpu_torch.runtime.paged_spec", "sentio_tpu_torch.eval.runner",
+            "sentio_tpu_torch.eval.baseline", "sentio_tpu_torch.eval.train_encoder",
+            "sentio_tpu_torch.infra.flight", "sentio_tpu_torch.infra.http_client",
+            "sentio_tpu_torch.ops.confidence"} <= set(modules)
     script = (
         "import sys, importlib\n"
         f"for name in {sorted(FORBIDDEN)!r}:\n"

@@ -221,9 +221,24 @@ def test_int8_chat_matches_jax_graph(hybrid_int8, question):
 def test_build_pipeline_refuses_what_it_cannot_honour(section, field, value):
     """Settings of parts that are not ported raise NotImplementedError; a
     draft checkpoint (speculation is ported) that cannot be loaded raises
-    the loader's WeightsError, naming LLM_DRAFT_CHECKPOINT."""
+    the loader's WeightsError, naming LLM_DRAFT_CHECKPOINT; VERIFY_MODE
+    (ported) builds, and an unknown mode raises JAX's ValueError before
+    anything is built."""
     config = {"retrieval": RetrievalConfig, "generator": GeneratorConfig}[section]
     settings = Settings(**{section: config(**{field: value})})
+    if field == "verify_mode":
+        with pytest.raises(ValueError, match="verify_mode must be one of"):
+            build_pipeline(Settings(generator=GeneratorConfig(verify_mode="eventually")),
+                           device="cpu")
+        tiny = Settings(embedder=EmbedderConfig(model_preset="tiny"),
+                        generator=GeneratorConfig(verify_mode=value, model_preset="tiny",
+                                                  kv_page_size=16, kv_max_pages_per_seq=64))
+        pipeline = build_pipeline(tiny, device="cpu")
+        try:
+            assert pipeline.settings.generator.verify_mode == value
+        finally:
+            pipeline.close()
+        return
     if field == "draft_checkpoint_path":
         with pytest.raises(weights.WeightsError, match="LLM_DRAFT_CHECKPOINT: cannot load"):
             build_pipeline(settings, device="cpu")

@@ -753,8 +753,16 @@ def test_cli_ingest_and_serve(tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("env,value", [("AUTH_ENABLED", "1"), ("CACHE_BACKEND", "multi_tier"),
                                        ("VERIFY_MODE", "async"), ("VERIFY_MODE", "gated")])
 def test_server_refuses_unported_settings(monkeypatch, env, value):
+    """Auth and the Redis cache are refused; VERIFY_MODE=async|gated are
+    ported and pass, and an unknown mode is JAX's ValueError."""
     from sentio_tpu_torch.serve.app import check_serve_settings
 
     monkeypatch.setenv(env, value)
+    if env == "VERIFY_MODE":
+        check_serve_settings(Settings.from_env())
+        monkeypatch.setenv(env, "eventually")
+        with pytest.raises(ValueError, match="verify_mode must be one of"):
+            check_serve_settings(Settings.from_env())
+        return
     with pytest.raises(NotImplementedError, match=env):
         check_serve_settings(Settings.from_env())
