@@ -130,7 +130,46 @@ line each:
     skipped_confident, no verify admission). Reported: time to the answer
     under each mode against sync's.
 
-``--only-new`` runs the build, the kernel checks and phases 16-20 only
+21. replicas_1, replicas_2 — the replica tier behind the HTTP server at
+    full width (``Settings()`` with REPLICAS=1, then 2): warmup of every
+    replica at once (seconds, each
+    replica's captures), then 3 rounds of 8 JSON and 2 SSE chats at once
+    from tenants ``a`` and ``b`` (X-Tenant), each round in a counted window
+    and on questions of its own, with AFFINITY_STICKINESS 0.5: the router
+    takes the first of replicas tied at the best prefix hit, as JAX's does,
+    every burst prompt ties them (the same first 512 tokens), and replica 0
+    keeps them while its backlog is within 0.5 x its slots, the rest going
+    to the least loaded. Gates, in each round: no chat degraded, each
+    replica served a chat, every verify admission a radix hit on its
+    replica, one bf16 paged launch per layer per sub-step of every replica
+    (the card's count the same), no capture, no tenant reservation
+    pending; ``/health`` healthy, a ``sentio_tpu_replica_stat`` row set per
+    replica, ``/info`` naming the count. Reported: each round's p50 / p95 and those of all 30 chats at
+    each count, each replica's duty cycle, peak memory.
+22. replica_rebuild — on the two replicas: replica 0's ticks fail (a fault
+    point on its engine's step) until its breaker trips (3 tick failures):
+    quarantine, then a rebuild that frees the old pool and graphs and warms
+    a fresh engine (every variant captured) while JSON chats keep coming.
+    Gates: every chat answered, those back while replica 0 was out of
+    rotation by replica 1; ``/health`` degraded then healthy with one
+    rebuild; the launch counts equal to the card's over the whole phase.
+    Reported: rebuild seconds, peak memory.
+23. replica_stall — replica 0's pump wedges in a tick (a stall event): the
+    watchdog (TICK_STALL_BUDGET_S 5 s for the phase) quarantines it, its
+    admitted request fails typed,
+    its 3 queued requests are handed to replica 1 and answered; the wedged
+    pump is counted leaked (its pool kept), the replica is rebuilt beside
+    it, then the event is released. Reported: pump_leaked, peak memory.
+24. stream_resume — a greedy stream whose replica dies (``paged.step``)
+    right after its first delivered piece resumes on the survivor: in
+    float32 at Llama-3-8B width cut to 2 layers with the plain decode
+    attention (two engines behind a set), the text must equal an
+    uninterrupted run's; in bf16 at full depth on the two replicas through
+    the kernel, how many characters agree is reported (replaying the
+    delivered prefix through prefill rounds differently from decode).
+    Both gated on one resume and a balanced tenant.
+
+``--only-new`` runs the build, the kernel checks and phases 21-24 only
 (random Llama-3-8B weights) and ends without the result lines.
 
 The last lines are the nvidia-smi line, one {"kernels": [...]} line (each
@@ -654,7 +693,7 @@ def build_slice(torch, dev, phase: str, settings, shared=None, ingest: bool = Tr
         torch.cuda.synchronize()
         emit(f"{phase}_warmup", **warm, graphs_frozen=engine.graphs_frozen)
         if (warm["graph_captures"] != len(engine.graph_variants) or not engine.graphs_frozen
-                or warm["head_tokens"] <= 0):
+                or min(warm["head_tokens"]) <= 0):
             raise AssertionError(f"{phase}: warmup must capture every graph variant "
                                  f"({len(engine.graph_variants)}) and leave the template "
                                  f"head warm: {warm}")
@@ -1250,7 +1289,7 @@ class HttpClient:
         return status, hdrs, json.loads(data) if data else None
 
     def sse(self, payload: dict, close_after_first_token: bool = False,
-            after_done: bool = False) -> dict:
+            after_done: bool = False, headers=None) -> dict:
         """One streamed /chat: the events in order, the seconds to the
         first ``token`` event and to the end. With ``after_done`` the
         stream is read past ``[DONE]`` (a trailing ``verify`` event) to the
@@ -1260,7 +1299,7 @@ class HttpClient:
         t0 = time.perf_counter()
         conn = http.client.HTTPConnection("127.0.0.1", self.port, timeout=HTTP_TIMEOUT_S)
         conn.request("POST", "/chat", body=json.dumps({**payload, "stream": True}),
-                     headers={"Content-Type": "application/json"})
+                     headers={"Content-Type": "application/json", **(headers or {})})
         resp = conn.getresponse()
         events, first_token_s, done_s = [], None, None
         try:
@@ -2594,6 +2633,636 @@ def verify_modes_check(torch, dev, shared) -> dict:
     return result
 
 
+# ------------------------------------------------------------ the replica tier
+
+REPLICA_JSON_CHATS = 8   # with REPLICA_SSE_CHATS, released together from two tenants
+REPLICA_SSE_CHATS = 2
+REPLICA_ROUNDS = 3       # bursts of each replica count, each on questions of its own
+# AFFINITY_STICKINESS of the replica phases: a replica keeps the chats its
+# radix tree serves best while its backlog is within 0.5 x its 8 slots. The
+# router takes the first of replicas tied at the best hit, as JAX's does,
+# and every burst prompt shares its first ROUTE_PREFIX_TOKENS (512) with
+# the others on random weights (the template head, then the same top
+# document), so at JAX's default of 4 (32 requests) replica 0 would take
+# the whole burst
+REPLICA_STICKINESS = 0.5
+STALL_BUDGET_S = 5.0     # TICK_STALL_BUDGET_S in the replica_stall phase
+RESUME_TOKENS = 256      # the float32 resume stream; its ticks are 16 sub-steps
+RESUME_TOKENS_BF16 = 128
+
+
+def percentile(values: list, q: float) -> float:
+    values = sorted(values)
+    return values[min(int(len(values) * q), len(values) - 1)]
+
+
+def wait_for(predicate, timeout_s: float, what: str, poll_s: float = 0.05):
+    end = time.perf_counter() + timeout_s
+    while time.perf_counter() < end:
+        value = predicate()
+        if value:
+            return value
+        time.sleep(poll_s)
+    raise AssertionError(f"timed out after {timeout_s:.0f} s waiting for {what}")
+
+
+def replica_health(client) -> tuple[int, dict]:
+    status, _, body = client.json("GET", "/health")
+    return status, body
+
+
+def fail_replica_steps(engine, point: str) -> None:
+    """A fault point of ``engine``'s own ticks, hit where ``paged.step``
+    is (before any device work): the drills below arm it to fail or wedge
+    one replica while its sibling serves (``paged.step`` is shared by every
+    engine of the process)."""
+    from sentio_tpu_torch.infra import faults
+
+    step = engine.step
+
+    def step_with_fault():
+        faults.hit(point)
+        return step()
+
+    engine.step = step_with_fault
+
+
+def http_burst(client, words, n_json: int, n_sse: int, offset: int) -> list:
+    """``n_json`` JSON and ``n_sse`` SSE chats at once, alternating tenants
+    ``a`` and ``b`` (``X-Tenant``); each result with its seconds."""
+    import threading
+
+    total = n_json + n_sse
+    out: list = [None] * total
+    start = threading.Barrier(total)
+
+    def run(i: int) -> None:
+        question = f"What links {words[offset + 3 * i]} to {words[offset + 3 * i + 1]}?"
+        headers = {"X-Tenant": "ab"[i % 2]}
+        start.wait(timeout=60)
+        t0 = time.perf_counter()
+        try:
+            if i < n_json:
+                status, _, body = client.json("POST", "/chat", {"question": question},
+                                              headers)
+                out[i] = ("json", status, body, time.perf_counter() - t0)
+            else:
+                out[i] = ("sse", client.sse({"question": question}, headers=headers), None,
+                          time.perf_counter() - t0)
+        except Exception as exc:  # noqa: BLE001 — raised below, on the main thread
+            out[i] = ("raised", exc, None, time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=run, args=(i,), name=f"smoke-burst-{i}", daemon=True)
+               for i in range(total)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=HTTP_TIMEOUT_S)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError(f"a burst chat did not return within {HTTP_TIMEOUT_S:.0f} s")
+    return out
+
+
+def check_burst(phase: str, out: list) -> dict:
+    for i, (kind, a, b, _s) in enumerate(out):
+        if kind == "raised":
+            raise AssertionError(f"{phase} chat {i} raised: {a!r}") from a
+        if kind == "json":
+            check_http_chat(phase, i, a, b)
+        else:
+            check_sse_chat(phase, i, a)
+    seconds = [s for *_x, s in out]
+    json_s = [s for kind, *_x, s in out if kind == "json"]
+    return {"chat_s": seconds, "p50_s": percentile(seconds, 0.5),
+            "p95_s": percentile(seconds, 0.95), "json_p50_s": percentile(json_s, 0.5),
+            "json_p95_s": percentile(json_s, 0.95),
+            "sse_first_token_s": [a["first_token_s"] for kind, a, *_x in out if kind == "sse"],
+            "json_replicas": [b["metadata"].get("replica_id") for kind, _a, b, _s in out
+                              if kind == "json"]}
+
+
+def record_verifies(rs) -> dict:
+    """Wrap each replica service's ``generate`` (every JSON generate and
+    every verify goes through it; a stream's answer does not) to keep, per
+    replica, each greedy (verify) admission's prefix-hit tokens. Returns
+    {replica: [hit tokens]}."""
+    hits: dict = {i: [] for i in range(rs.replicas)}
+    for i, svc in enumerate(rs.services):
+        generate = svc.generate
+
+        def recorded(prompt, _generate=generate, _i=i, **kwargs):
+            result = _generate(prompt, **kwargs)
+            if kwargs.get("temperature", 0.0) == 0.0:
+                hits[_i].append(result.prefix_hit_tokens)
+            return result
+
+        svc.generate = recorded
+    return hits
+
+
+def replica_server(torch, dev, phase: str, weights, n_replicas: int, docs):
+    """A pipeline under ``Settings()`` with ``REPLICAS=n_replicas`` and
+    ``AFFINITY_STICKINESS=REPLICA_STICKINESS`` on ``weights``, warmed up
+    (every replica at once) and ingested, behind ``create_server`` on
+    127.0.0.1."""
+    import gc
+    import threading
+
+    from sentio_tpu_torch.config import GeneratorConfig, ServeConfig, Settings
+    from sentio_tpu_torch.pipeline import build_pipeline
+    from sentio_tpu_torch.serve.app import create_server
+
+    settings = Settings(generator=GeneratorConfig(max_new_tokens=MAX_TOKENS,
+                                                  verifier_max_tokens=MAX_TOKENS),
+                        serve=ServeConfig(replicas=n_replicas,
+                                          affinity_stickiness=REPLICA_STICKINESS))
+    # earlier phases' pipelines may wait in reference cycles for the
+    # collector: free their pools before two replicas need the room
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    memory0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    pipeline = build_pipeline(settings, device=dev, seed=SEED, **(weights or {}))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    warm = pipeline.warmup()
+    torch.cuda.synchronize()
+    rs = pipeline.replica_set
+    variants = len(rs.services[0].engine.graph_variants)
+    per = warm["per_replica"]
+    emit(f"{phase}_warmup", memory_allocated_before=memory0, build_s=build_s,
+         seconds=warm["seconds"],
+         replica_seconds=[r["seconds"] for r in per],
+         captures=[r["graph_captures"] for r in per],
+         capture_s=[r["graph_capture_s"] for r in per], prompts=warm["prompts"],
+         head_tokens=warm["head_tokens"], peak_memory=torch.cuda.max_memory_allocated())
+    if rs.replicas != n_replicas or any(r["graph_captures"] != variants for r in per) \
+            or not all(svc.engine.graphs_frozen for svc in rs.services) \
+            or min(warm["head_tokens"]) <= 0:
+        raise AssertionError(f"{phase}: every replica must capture its {variants} graph "
+                             f"variants and hold the template head: {warm}")
+    pipeline.ingest(docs)
+    server = create_server(settings, pipeline, host="127.0.0.1", port=0)
+    thread = threading.Thread(target=server.serve_forever, name=f"smoke-{phase}", daemon=True)
+    thread.start()
+    return pipeline, server, thread, warm
+
+
+def replica_burst(torch, phase: str, pipeline, client, words, offset: int) -> dict:
+    """The burst of :func:`http_burst` in a counted window on a warmed
+    replica set: no chat degraded, each replica served a chat, every
+    verify admission a radix hit on its replica, each replica's decode
+    sub-steps one paged launch per layer each (the bf16 kernel, counted by
+    its wrapper and by the card), no capture, no tenant reservation left;
+    reported: p50 / p95, each replica's chats and duty cycle."""
+    rs = pipeline.replica_set
+    rs.wait_idle()
+    hits = record_verifies(rs)
+    engines = [svc.engine for svc in rs.services]
+    sub0 = [e.total_sub_steps for e in engines]
+    cap0 = [e.graph_captures for e in engines]
+    done0 = [svc.stats()["completed"] for svc in rs.services]
+    routing0 = rs.stats()["routing"]
+    for svc in rs.services:
+        svc.reset_duty_cycle()
+    window = LaunchWindow(torch)
+    t0 = time.perf_counter()
+    out = http_burst(client, words, REPLICA_JSON_CHATS, REPLICA_SSE_CHATS, offset)
+    wall_s = time.perf_counter() - t0
+    rs.wait_idle()
+    launches, card = window.read()
+    for svc in rs.services:
+        del svc.generate  # the recording wrapper
+    result = check_burst(phase, out)
+    sub_steps = [e.total_sub_steps - s for e, s in zip(engines, sub0)]
+    tenants = rs.tenants.stats()["per_tenant"]
+    routing = rs.stats()["routing"]
+    result.update(
+        wall_s=wall_s, replicas=rs.replicas, decode_sub_steps=sub_steps,
+        completed=[svc.stats()["completed"] - d for svc, d in zip(rs.services, done0)],
+        duty_cycle=[svc.duty_cycle() for svc in rs.services],
+        verify_prefix_hit_tokens=hits, launches=launches, device_launches=card,
+        tenants={t: tenants[t] for t in ("a", "b")},
+        routing={k: routing[k] - routing0[k] for k in routing},
+        graph_captures_delta=[e.graph_captures - c for e, c in zip(engines, cap0)],
+        peak_memory=torch.cuda.max_memory_allocated())
+    emit(phase, offset=offset, **result)
+    n_layers = engines[0].cfg.n_layers
+    verifies = [h for per in hits.values() for h in per]
+    if len(verifies) != REPLICA_JSON_CHATS + REPLICA_SSE_CHATS or min(verifies) <= 0:
+        raise AssertionError(f"{phase}: every chat's verify admission must hit its replica's "
+                             f"radix tree: {hits}")
+    if any(result["graph_captures_delta"]) or min(result["completed"]) <= 0:
+        raise AssertionError(f"{phase}: a capture under traffic, or a replica served no chat: "
+                             f"{result}")
+    if launches["paged_attention"] != n_layers * sum(sub_steps) or sum(sub_steps) <= 0 \
+            or launches["paged_attention_quant"]:
+        raise AssertionError(f"{phase}: decode launches are not one per layer per sub-step: "
+                             f"{launches}, sub-steps {sub_steps}")
+    if any(t["pending"] for t in result["tenants"].values()):
+        raise AssertionError(f"{phase}: a tenant reservation was left pending: {tenants}")
+    check_card(phase, card, launches)
+    return result
+
+
+def replica_rounds(torch, phase: str, pipeline, client, words) -> dict:
+    """:func:`replica_burst` ``REPLICA_ROUNDS`` times, each on questions of
+    its own (the same rounds at each replica count): each round's p50 and
+    p95, the p50 and p95 of every chat of every round, and the launch
+    counts of all rounds together."""
+    total = REPLICA_JSON_CHATS + REPLICA_SSE_CHATS
+    rounds = [replica_burst(torch, phase, pipeline, client, words, offset=3 * total * r)
+              for r in range(REPLICA_ROUNDS)]
+    seconds = [x for r in rounds for x in r["chat_s"]]
+
+    def summed(key: str) -> dict:
+        return {k: sum(r[key][k] for r in rounds) for k in rounds[0][key]}
+
+    return {"rounds": rounds, "chat_s": seconds, "p50_s": percentile(seconds, 0.5),
+            "p95_s": percentile(seconds, 0.95), "round_p50_s": [r["p50_s"] for r in rounds],
+            "round_p95_s": [r["p95_s"] for r in rounds],
+            "completed": [sum(c) for c in zip(*(r["completed"] for r in rounds))],
+            "duty_cycle": [r["duty_cycle"] for r in rounds],
+            "peak_memory": max(r["peak_memory"] for r in rounds),
+            "launches": summed("launches"), "device_launches": summed("device_launches")}
+
+
+def stop_server(server, thread) -> None:
+    server.shutdown()
+    server.server_close()
+    thread.join(timeout=10.0)
+
+
+def replica_surfaces(phase: str, client, n_replicas: int) -> dict:
+    """``/health`` healthy, a ``sentio_tpu_replica_stat`` row set per replica
+    in ``/metrics``, ``/info`` naming the replicas."""
+    status, health = replica_health(client)
+    samples = parse_prometheus(client.request("GET", "/metrics")[2].decode())
+    rows = sorted({dict(labels)["replica"] for (name, labels) in samples
+                   if name == "sentio_tpu_replica_stat"})
+    info = client.json("GET", "/info")[2]["generator"]["replicas"]
+    detailed = client.json("GET", "/health/detailed")
+    result = {"health": (status, health["status"]), "replica_stat_rows": rows, "info": info,
+              "detailed": (detailed[0], detailed[2]["status"],
+                           sorted(detailed[2]["components"]["breakers"]))}
+    emit(f"{phase}_surfaces", **result)
+    if (status, health["status"]) != (200, "healthy") or \
+            rows != [str(i) for i in range(n_replicas)] or info["count"] != n_replicas:
+        raise AssertionError(f"{phase}: /health, /metrics or /info: {result}")
+    return result
+
+
+def rebuild_window(recorder, replica: int, since_seq: int) -> dict:
+    """Seconds from the replica's REBUILDING transition to its HEALTHY one
+    on the flight recorder, after event ``since_seq``."""
+    events = [e for e in recorder.events("replica_health")
+              if e["seq"] > since_seq and e["replica"] == replica]
+    t = {e["state_to"]: e["t_s"] for e in events}
+    return {"states": [e["state_to"] for e in events],
+            "rebuild_s": t.get("HEALTHY", 0.0) - t.get("REBUILDING", 0.0)}
+
+
+def replica_rebuild_check(torch, pipeline, client, words) -> dict:
+    """Replica 0's ticks fail until its breaker trips
+    (``REPLICA_BREAKER_TICK_FAILURES``, 3): quarantine, then an in-place
+    rebuild — the old engine's pool and graphs freed, a fresh engine on the
+    same weights warmed up (every graph variant captured) — while chats keep
+    coming over HTTP. Gates: every chat answered, those sent while replica 0
+    was out of rotation by replica 1; ``/health`` degraded (200), then
+    healthy with one rebuild; the fresh engine captured every variant while
+    replica 1 served; every kernel's wrapper count equal to the card's over
+    the whole phase. Reported: rebuild seconds, peak memory."""
+    import threading
+
+    from sentio_tpu_torch.infra import faults
+    from sentio_tpu_torch.infra.flight import get_flight_recorder
+
+    phase = "replica_rebuild"
+    rs = pipeline.replica_set
+    rs.wait_idle()
+    recorder = get_flight_recorder()
+    seq0 = recorder.record_tick(event="smoke_mark", phase=phase)
+    old = rs.services[0]
+    fail_replica_steps(old.engine, "smoke.replica0.step")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    memory0 = torch.cuda.memory_allocated()
+    window = LaunchWindow(torch)
+    faults.arm("smoke.replica0.step", faults.FaultRule(
+        error=RuntimeError("replica 0 tick fails"), times=rs.breaker_tick_failures))
+    failed = []
+    # the failing ticks: work straight on replica 0 (each ticket ends with
+    # an error result once its requeue is spent)
+    while old.tick_failure_count < rs.breaker_tick_failures:
+        failed.append(old.generate("a doomed tick on replica zero", max_new_tokens=4,
+                                   timeout_s=60).finish_reason)
+    faults.disarm("smoke.replica0.step")
+    wait_for(lambda: rs.health_summary()["replicas"][0]["state"]
+             in ("QUARANTINED", "REBUILDING"), 30, "the breaker to quarantine replica 0")
+    t_quarantined = time.perf_counter()
+    status = replica_health(client)
+    chats, health_seen = [], {status[1]["status"]}
+    stop = threading.Event()
+
+    def traffic(k: int) -> None:
+        i = 0
+        while not stop.is_set():
+            question = f"During the rebuild, what about {words[200 + 7 * k + i]}?"
+            t0 = time.perf_counter()
+            code, _, body = client.json("POST", "/chat", {"question": question})
+            # out of rotation when the answer came back: so it was when the
+            # chat was routed
+            state = rs.health_summary()["replicas"][0]["state"]
+            chats.append((state, code, body, time.perf_counter() - t0))
+            i += 1
+
+    threads = [threading.Thread(target=traffic, args=(k,), name=f"smoke-rebuild-{k}",
+                                daemon=True) for k in range(2)]
+    for t in threads:
+        t.start()
+    try:
+        while rs.health_summary()["replicas"][0]["state"] != "HEALTHY":
+            health_seen.add(replica_health(client)[1]["status"])
+            time.sleep(0.5)
+            if time.perf_counter() - t_quarantined > 300:
+                raise AssertionError(f"{phase}: replica 0 not rebuilt within 300 s")
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=HTTP_TIMEOUT_S)
+    rs.wait_idle()
+    launches, card = window.read()
+    fresh = rs.services[0]
+    summary = rs.health_summary()
+    timing = rebuild_window(recorder, 0, seq0)
+    during = [c for c in chats if c[0] != "HEALTHY"]
+    for i, (_state, code, body, _s) in enumerate(chats):
+        check_http_chat(phase, i, code, body)
+    result = {"failed_ticks": old.tick_failure_count, "failed_results": failed,
+              "states": timing["states"], "rebuild_s": timing["rebuild_s"],
+              "health_seen": sorted(health_seen), "status_after": summary["status"],
+              "rebuilds": summary["replicas"][0]["rebuilds"], "chats": len(chats),
+              "chats_during_rebuild": len(during),
+              "chats_during_rebuild_replicas": sorted({c[2]["metadata"]["replica_id"]
+                                                       for c in during}),
+              "chat_s": [c[3] for c in chats], "old_pool_released": old.engine.pool is None,
+              "fresh_captures": fresh.engine.graph_captures,
+              "fresh_capture_s": fresh.engine.graph_capture_s,
+              "memory_before": memory0, "memory_after": torch.cuda.memory_allocated(),
+              "peak_memory": torch.cuda.max_memory_allocated(),
+              "pump_leaked": rs.stats()["pump_leaked"], "launches": launches,
+              "device_launches": card}
+    emit(phase, **result)
+    variants = len(fresh.engine.graph_variants)
+    if fresh is old or result["rebuilds"] != 1 or summary["status"] != "healthy" \
+            or "degraded" not in health_seen or not result["old_pool_released"]:
+        raise AssertionError(f"{phase}: quarantine → rebuild → healthy did not happen: {result}")
+    if fresh.engine.graph_captures != variants or not fresh.engine.graphs_frozen:
+        raise AssertionError(f"{phase}: the fresh engine captured {fresh.engine.graph_captures} "
+                             f"of {variants} graph variants")
+    if not during or result["chats_during_rebuild_replicas"] != [1]:
+        raise AssertionError(f"{phase}: chats during the rebuild must be answered by replica 1 "
+                             f"while it served: {result}")
+    check_card(phase, card, launches)
+    return result
+
+
+def replica_stall_check(torch, pipeline, client) -> dict:
+    """Replica 0's pump wedges in a tick (a ``stall_event`` where
+    ``paged.step`` is): with ``TICK_STALL_BUDGET_S`` 5 s (set on the live
+    services for the phase: a sibling's tick can outlast 5 s while a
+    rebuilt replica warms up beside it) the watchdog
+    quarantines it with no exception seen, abandons its admitted request
+    (a typed 503) and hands its queued requests to replica 1, which
+    answers them; the wedged pump is counted leaked and keeps its pool, the
+    replica is rebuilt beside it, and the event is then released. Gates:
+    the queued requests answered by replica 1, the stall quarantine, one
+    more rebuild, healthy after, launch counts equal to the card's.
+    Reported: pump_leaked, rebuild seconds, peak memory."""
+    import threading
+
+    from sentio_tpu_torch.infra import faults
+    from sentio_tpu_torch.infra.flight import get_flight_recorder
+
+    phase = "replica_stall"
+    rs = pipeline.replica_set
+    rs.wait_idle()
+    recorder = get_flight_recorder()
+    seq0 = recorder.record_tick(event="smoke_mark", phase=phase)
+    wedged = rs.services[0]
+    fail_replica_steps(wedged.engine, "smoke.replica0.step")
+    leaked0, rebuilds0 = rs.stats()["pump_leaked"], rs.health_summary()["replicas"][0]["rebuilds"]
+    budget0 = wedged.tick_stall_budget_s
+    for svc in rs.services:
+        svc.tick_stall_budget_s = STALL_BUDGET_S
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    window = LaunchWindow(torch)
+    release = threading.Event()
+    rule = faults.FaultRule(stall_event=release, stall_s=600.0, times=1)
+    faults.arm("smoke.replica0.step", rule)
+    outcomes: dict = {}
+
+    def submit(k: int) -> None:
+        try:
+            outcomes[k] = wedged.generate(f"queued behind a wedged pump {k}",
+                                          max_new_tokens=8, timeout_s=300)
+        except Exception as exc:  # noqa: BLE001 — the wedged ticket's typed error
+            outcomes[k] = exc
+
+    try:
+        first = threading.Thread(target=submit, args=(0,), name="smoke-wedged", daemon=True)
+        first.start()
+        wait_for(lambda: rule.stalled == 1, 60, "replica 0's pump to wedge")
+        pump = wedged._pump
+        queued = [threading.Thread(target=submit, args=(k,), name=f"smoke-queued-{k}",
+                                   daemon=True) for k in (1, 2, 3)]
+        for t in queued:
+            t.start()
+        wait_for(lambda: len(wedged._inbox) >= 3, 30, "the queued requests in the inbox")
+        t_stall = time.perf_counter()
+        for t in [first, *queued]:
+            t.join(timeout=120)
+        detected_s = time.perf_counter() - t_stall
+        wait_for(lambda: rs.health_summary()["replicas"][0]["rebuilds"] > rebuilds0
+                 and rs.health_summary()["status"] == "healthy", 300,
+                 "replica 0 to be rebuilt after the stall")
+        leaked = rs.stats()["pump_leaked"] - leaked0
+    finally:
+        release.set()
+        faults.disarm("smoke.replica0.step")
+        for svc in rs.services:
+            svc.tick_stall_budget_s = budget0
+    pump.join(timeout=120)
+    if pump.is_alive():
+        raise AssertionError(f"{phase}: the wedged pump did not exit once released")
+    rs.wait_idle()
+    launches, card = window.read()
+    stats = rs.stats()
+    timing = rebuild_window(recorder, 0, seq0)
+    answered = {k: v.replica_id for k, v in outcomes.items() if not isinstance(v, Exception)}
+    result = {"stall_budget_s": STALL_BUDGET_S, "detected_and_handed_off_s": detected_s,
+              "wedged_outcome": type(outcomes.get(0)).__name__,
+              "queued_answered_by": answered, "stall_quarantines": stats["stall_quarantines"],
+              "handed_off": stats["handed_off"], "pump_leaked": leaked,
+              "states": timing["states"], "rebuild_s": timing["rebuild_s"],
+              "wedged_pool_kept": wedged.engine.pool is not None,
+              "peak_memory": torch.cuda.max_memory_allocated(), "launches": launches,
+              "device_launches": card, "status_after": rs.health_summary()["status"],
+              "health_after": replica_health(client)[0]}
+    emit(phase, **result)
+    if not isinstance(outcomes.get(0), Exception) or answered != {1: 1, 2: 1, 3: 1}:
+        raise AssertionError(f"{phase}: the wedged request must fail typed and the queued ones "
+                             f"be answered by replica 1: {outcomes}")
+    if stats["stall_quarantines"] < 1 or leaked != 1 or "QUARANTINED" not in result["states"]:
+        raise AssertionError(f"{phase}: no stall quarantine or no leaked pump: {result}")
+    check_card(phase, card, launches)
+    return result
+
+
+def stream_resume_f32(torch, dev) -> dict:
+    """A greedy stream whose replica dies after delivering tokens resumes
+    on the survivor: float32 at Llama-3-8B width cut to 2 layers, plain
+    decode attention (as ``chunked``), two engines behind a set; the
+    delivered text must equal an uninterrupted greedy run's, with one
+    resume and the tenant balanced."""
+    import dataclasses
+
+    from sentio_tpu_torch.models.llama import LlamaConfig, init_llama
+    from sentio_tpu_torch.runtime.paged import ContinuousBatchingEngine, _paged_attn_xla
+    from sentio_tpu_torch.runtime.replica import ReplicaSet
+    from sentio_tpu_torch.runtime.service import PagedGenerationService
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=2, dtype="float32")
+    params = init_llama(cfg, torch.Generator(device=dev).manual_seed(SEED + 5), dev)
+    engines = [ContinuousBatchingEngine(model_config=cfg, params=params, max_slots=2,
+                                        page_size=128, max_pages_per_seq=16,
+                                        steps_per_tick=16, max_tick_steps=16, device=dev)
+               for _ in range(2)]
+    for e in engines:
+        e.attn_impl = _paged_attn_xla
+    rs = ReplicaSet([PagedGenerationService(e, default_timeout_s=300) for e in engines],
+                    supervise=False, failover_budget=1)
+    try:
+        prompt = "resume drill: " + " ".join(f"word{i}" for i in range(60))
+        result = resume_drill(torch, rs, prompt, RESUME_TOKENS, "f32")
+    finally:
+        rs.close()
+        del rs, engines, params
+        torch.cuda.empty_cache()
+    if result["text_equal"] is not True:
+        raise AssertionError(f"stream_resume: the resumed float32 text differs from the "
+                             f"uninterrupted run: {result}")
+    return result
+
+
+def die_after_delivery(svc, point: str) -> None:
+    """Hit fault ``point`` at the top of each tick of ``svc``'s engine once
+    a stream of that service has delivered tokens: armed to fail once, the
+    death lands on the first tick after the first delivered piece, however
+    the pump and the caller interleave."""
+    from sentio_tpu_torch.infra import faults
+
+    step = svc.engine.step
+
+    def step_after_delivery():
+        if any(t.sent_tokens for t in list(svc._tickets.values())):
+            faults.hit(point)
+        return step()
+
+    svc.engine.step = step_after_delivery
+
+
+def resume_drill(torch, rs, prompt: str, n_tokens: int, tag: str, tenant: str = "resume"):
+    """The uninterrupted greedy reference, then the same stream with the
+    replica that serves it dying (its tick fails) on the first tick after
+    its first delivered piece. Gates: one death, one resume, the tenant
+    balanced (one admission per attempt, nothing pending); returns the
+    texts' agreement."""
+    from sentio_tpu_torch.infra import faults
+
+    rs.wait_idle()
+    reference = rs.generate(prompt, max_new_tokens=n_tokens, temperature=0.0, timeout_s=300)
+    rs.wait_idle()
+    stats0 = rs.stats()
+    point = f"smoke.{tag}.step_after_delivery"
+    for svc in rs.services:
+        die_after_delivery(svc, point)
+    rule = faults.FaultRule(error=RuntimeError("mid-stream replica death"), times=1)
+    faults.arm(point, rule)
+    try:
+        pieces = list(rs.generate_stream(prompt, max_new_tokens=n_tokens, temperature=0.0,
+                                         timeout_s=300, tenant=tenant))
+    finally:
+        faults.disarm(point)
+        for svc in rs.services:
+            del svc.engine.step  # the wrapper
+    text = "".join(pieces)
+    stats = rs.stats()
+    tenant_stats = stats["tenants"]["per_tenant"][tenant]
+    agree = 0
+    for x, y in zip(text, reference.text):
+        if x != y:
+            break
+        agree += 1
+    result = {"tokens": n_tokens, "reference_tokens": len(reference.tokens),
+              "pieces": len(pieces), "fired": rule.fired,
+              "stream_resumes": stats["stream_resumes"] - stats0["stream_resumes"],
+              "replayed_tokens": stats["resume_replayed_tokens"]
+              - stats0["resume_replayed_tokens"],
+              "tenant": {k: tenant_stats[k] for k in ("admitted", "pending")},
+              "text_equal": text == reference.text, "agreeing_chars": agree,
+              "chars": len(reference.text)}
+    emit(f"stream_resume_{tag}", **result)
+    if rule.fired != 1 or result["stream_resumes"] != 1 or tenant_stats["pending"] \
+            or tenant_stats["admitted"] != 2:
+        raise AssertionError(f"stream_resume_{tag}: expected one death, one resume and a "
+                             f"balanced tenant: {result}")
+    return result
+
+
+def replica_phases(torch, dev, weights) -> dict:
+    """replicas (REPLICAS=1 then 2 behind the HTTP server), replica_rebuild,
+    replica_stall and stream_resume (float32, then bf16 at full depth on the
+    two replicas) on ``weights`` (random ones from the seed when None)."""
+    docs, words = corpus(N_CHUNKS)
+    out: dict = {}
+    for n in (1, 2):
+        phase = f"replicas_{n}"
+        pipeline, server, thread, warm = replica_server(torch, dev, phase, weights, n, docs)
+        try:
+            client = HttpClient(server.server_address[1])
+            out[phase] = {"warmup": warm, **replica_rounds(torch, phase, pipeline, client,
+                                                           words)}
+            out[f"{phase}_surfaces"] = replica_surfaces(phase, client, n)
+            if n == 2:
+                out["replica_rebuild"] = replica_rebuild_check(torch, pipeline, client, words)
+                out["replica_stall"] = replica_stall_check(torch, pipeline, client)
+                window = LaunchWindow(torch)
+                bf16 = resume_drill(torch, pipeline.replica_set, docs[5].text[:400],
+                                    RESUME_TOKENS_BF16, "bf16")
+                bf16["launches"], bf16["device_launches"] = window.read()
+                check_card("stream_resume_bf16", bf16["device_launches"], bf16["launches"])
+                out["stream_resume_bf16"] = bf16
+        finally:
+            stop_server(server, thread)
+            if weights is None:
+                weights = shared_weights(pipeline)
+            close_pipeline(torch, pipeline)
+            del pipeline
+    out["stream_resume_f32"] = stream_resume_f32(torch, dev)
+    one, two = out["replicas_1"], out["replicas_2"]
+    emit("replicas", p50_s=(one["p50_s"], two["p50_s"]), p95_s=(one["p95_s"], two["p95_s"]),
+         round_p50_s=(one["round_p50_s"], two["round_p50_s"]),
+         round_p95_s=(one["round_p95_s"], two["round_p95_s"]),
+         round_p50_ratio=[b / a for a, b in zip(one["round_p50_s"], two["round_p50_s"])],
+         warmup_s=(one["warmup"]["seconds"], two["warmup"]["seconds"]),
+         peak_memory=(one["peak_memory"], two["peak_memory"]),
+         duty_cycle=two["duty_cycle"], completed=two["completed"])
+    return out
+
+
 def new_phases(torch, dev, weights) -> dict:
     """train_encoder, train_encoder_wide, eval, quality_gates (the trained
     checkpoint in a temporary directory), then verify_modes on ``weights``
@@ -2632,9 +3301,8 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only-new", action="store_true",
-                        help="build, the kernel checks, then only the training, eval and "
-                             "verify-mode phases (random 8B weights); ends without the "
-                             "result lines")
+                        help="build, the kernel checks, then only the replica tier's phases "
+                             "(random 8B weights); ends without the result lines")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2688,8 +3356,8 @@ def main(argv=None) -> int:
     torch.cuda.reset_peak_memory_stats()
 
     if args.only_new:
-        new = new_phases(torch, dev, None)
-        emit("partial", phases=sorted(new))
+        rep = replica_phases(torch, dev, None)
+        emit("partial", phases=sorted(rep))
         return 0
 
     caps = dict(max_new_tokens=MAX_TOKENS, verifier_max_tokens=MAX_TOKENS)
@@ -2743,6 +3411,9 @@ def main(argv=None) -> int:
                                                                   sl["generate_prompt"])])
     new = new_phases(torch, dev, weights)
     ev, gates, vm = new["eval"]["counts"], new["quality_gates"]["launches"], new["verify_modes"]
+    rep = replica_phases(torch, dev, weights)
+    rep_paths = ("replicas_1", "replicas_2", "replica_rebuild", "replica_stall",
+                 "stream_resume_bf16")
 
     main_flash = flash[0]  # the embedder's bidirectional shape
     kernels = [
@@ -2761,7 +3432,11 @@ def main(argv=None) -> int:
                               "quality_gates_bf16": gates["bf16"]["launches"]["paged_attention"],
                               "quality_gates_gated":
                                   gates["gated"]["launches"]["paged_attention"],
-                              "verify_modes": vm["launches"]["paged_attention"]},
+                              "verify_modes": vm["launches"]["paged_attention"],
+                              **{path: rep[path]["launches"]["paged_attention"]
+                                 for path in rep_paths}},
+         "device_launches_replica_tier": {path: family_launches(
+             rep[path]["device_launches"], "paged_attention") for path in rep_paths},
          "device_launches_eval": {name: family_launches(ev[name]["device_launches"],
                                                         "paged_attention")
                                   for name in ("full_paged", "batched")},
@@ -2816,7 +3491,9 @@ def main(argv=None) -> int:
                               **{f"eval_{name}": ev[name]["launches"]["flash_attention"]
                                  for name in ("dense", "hybrid_rerank", "full_paged",
                                               "batched")},
-                              "verify_modes": vm["launches"]["flash_attention"]},
+                              "verify_modes": vm["launches"]["flash_attention"],
+                              **{path: rep[path]["launches"]["flash_attention"]
+                                 for path in rep_paths}},
          "device_launches": {path: family_launches(x["device_launches"], "flash_attention")
                              for path, x in (("slice", sl), ("slice_int8", sl8),
                                              ("slice_contig", sc), ("service", service),
@@ -2824,7 +3501,8 @@ def main(argv=None) -> int:
                                              ("serve_http", http["chats"]), ("slice_spec", ss),
                                              ("slice_spec_service", spec_service),
                                              ("spec_int8", spec_int8),
-                                             ("spec_exact", spec_exact), ("verify_modes", vm))},
+                                             ("spec_exact", spec_exact), ("verify_modes", vm),
+                                             *((path, rep[path]) for path in rep_paths))},
          "device_launches_eval": {name: family_launches(ev[name]["device_launches"],
                                                         "flash_attention")
                                   for name in ("dense", "hybrid_rerank", "full_paged",

@@ -3,13 +3,14 @@ that the ``/chat`` main path, ingestion and the HTTP server read.
 
 Same dataclasses, fields, defaults and environment variable names as the
 JAX package's tree (chunking, retrieval, rerank, embedder, generator, the
-serve section's HTTP surface and the generation service's overload
-controls, the cache section, and of auth the switch); the mesh section,
-the replica tier's serve fields and the rest of auth are left out because
-nothing in this package reads them. Settings the port cannot honour
-(``AUTH_ENABLED=1``, ``CACHE_BACKEND=multi_tier``, ``VERIFY_MODE`` other
-than ``sync``) raise ``NotImplementedError`` where they would be used.
-Plain dataclasses, no import-time work.
+serve section's HTTP surface, the generation service's overload controls
+and the thread-mode replica tier, the cache section, and of auth the
+switch); the mesh section, the socket tier's and the autoscaler's tuning
+fields and the rest of auth are left out because nothing in this package
+reads them. Settings the port cannot honour (``AUTH_ENABLED=1``,
+``CACHE_BACKEND=multi_tier``, ``REPLICA_MODE=process|socket``, a non-empty
+``REPLICA_WORKERS``, ``AUTOSCALE=1``) raise ``NotImplementedError`` where
+they would be used. Plain dataclasses, no import-time work.
 """
 
 from __future__ import annotations
@@ -311,6 +312,56 @@ class ServeConfig:
     # SSE liveness: a comment keepalive after this long without an event;
     # 0 disables
     sse_keepalive_s: float = 15.0
+    # ---- the replica tier (runtime/replica.py, thread mode) ----
+    # independent engine + service replicas behind the router, all on one
+    # card; 1 = one engine behind a one-replica set
+    replicas: int = 1
+    # "thread" (the port's tier); "process" and "socket" are not ported and
+    # raise; an unknown value warns and uses thread mode
+    replica_mode: str = "thread"
+    # a prefix-hit replica keeps a request while its backlog <= stickiness
+    # x its slot count; 0 = least-loaded routing only
+    affinity_stickiness: float = 4.0
+    # prompt-head tokens the router matches against each replica's tree
+    route_prefix_tokens: int = 512
+    # per-tenant WFQ: "tenantA:4,tenantB:1"; unlisted tenants get the default
+    tenant_weights: str = ""
+    tenant_default_weight: float = 1.0
+    # token-weighted deficit refill per unit weight (0 = quota-only) and cap
+    tenant_refill_tokens_per_s: float = 0.0
+    tenant_burst_tokens: int = 8192
+    # queue slots no one tenant may take; < 0 = max(1, capacity // 8)
+    tenant_headroom: int = -1
+    # batch-tier requests shed once pending crosses this share of capacity
+    batch_shed_fraction: float = 0.8
+    # the supervisor thread (breaker, stall watchdog, in-place rebuild)
+    replica_supervise: bool = True
+    replica_probe_interval_s: float = 0.25
+    # breaker window, error rate over at least min samples, tick failures
+    replica_breaker_window_s: float = 30.0
+    replica_breaker_error_rate: float = 0.5
+    replica_breaker_min_samples: int = 4
+    replica_breaker_tick_failures: int = 3
+    # backoff after a failed rebuild (doubles, 60 s cap); attempts past the
+    # budget wait the cap; drain grace before a rebuild swaps a service out
+    replica_quarantine_backoff_s: float = 0.5
+    replica_rebuild_budget: int = 3
+    replica_rebuild_drain_s: float = 5.0
+    # cross-replica retries of a request whose replica died under it
+    replica_failover_budget: int = 1
+    # resume-by-replay of delivered-token streams: -1 follows the failover
+    # budget, 0 keeps the typed mid-stream error
+    stream_resume_budget: int = -1
+    # a pump iteration longer than this with pending work is a stall
+    # (0 disables); the warmup stand-down ends after warmup_budget_s
+    tick_stall_budget_s: float = 120.0
+    warmup_budget_s: float = 600.0
+    # rebuild worker threads (0 = rebuild on the supervisor thread)
+    replica_rebuild_workers: int = 1
+    # the socket tier's remote workers and the autoscaler: not ported, a
+    # non-empty value (or AUTOSCALE=1) raises
+    replica_workers: str = ""
+    autoscale: bool = False
 
     @classmethod
     def from_env(cls) -> "ServeConfig":
@@ -333,7 +384,61 @@ class ServeConfig:
             crash_retry_budget=_env_int(["CRASH_RETRY_BUDGET"], 1),
             drain_deadline_s=_env_float(["DRAIN_DEADLINE_S"], 10.0),
             sse_keepalive_s=_env_float(["SSE_KEEPALIVE_S"], 15.0),
+            replicas=_env_int(["REPLICAS", "SENTIO_REPLICAS"], 1),
+            replica_mode=_env_str(["REPLICA_MODE"], "thread").strip().lower(),
+            affinity_stickiness=_env_float(["AFFINITY_STICKINESS"], 4.0),
+            route_prefix_tokens=_env_int(["ROUTE_PREFIX_TOKENS"], 512),
+            tenant_weights=_env_str(["TENANT_WEIGHTS"], ""),
+            tenant_default_weight=_env_float(["TENANT_DEFAULT_WEIGHT"], 1.0),
+            tenant_refill_tokens_per_s=_env_float(["TENANT_REFILL_TOKENS_PER_S"], 0.0),
+            tenant_burst_tokens=_env_int(["TENANT_BURST_TOKENS"], 8192),
+            tenant_headroom=_env_int(["TENANT_HEADROOM"], -1),
+            batch_shed_fraction=_env_float(["BATCH_SHED_FRACTION"], 0.8),
+            replica_supervise=_env_bool(["REPLICA_SUPERVISE"], True),
+            replica_probe_interval_s=_env_float(["REPLICA_PROBE_INTERVAL_S"], 0.25),
+            replica_breaker_window_s=_env_float(["REPLICA_BREAKER_WINDOW_S"], 30.0),
+            replica_breaker_error_rate=_env_float(["REPLICA_BREAKER_ERROR_RATE"], 0.5),
+            replica_breaker_min_samples=_env_int(["REPLICA_BREAKER_MIN_SAMPLES"], 4),
+            replica_breaker_tick_failures=_env_int(["REPLICA_BREAKER_TICK_FAILURES"], 3),
+            replica_quarantine_backoff_s=_env_float(["REPLICA_QUARANTINE_BACKOFF_S"], 0.5),
+            replica_rebuild_budget=_env_int(["REPLICA_REBUILD_BUDGET"], 3),
+            replica_rebuild_drain_s=_env_float(["REPLICA_REBUILD_DRAIN_S"], 5.0),
+            replica_failover_budget=_env_int(["REPLICA_FAILOVER_BUDGET"], 1),
+            stream_resume_budget=_env_int(["STREAM_RESUME_BUDGET"], -1),
+            tick_stall_budget_s=_env_float(["TICK_STALL_BUDGET_S"], 120.0),
+            warmup_budget_s=_env_float(["WARMUP_BUDGET_S"], 600.0),
+            replica_rebuild_workers=_env_int(["REPLICA_REBUILD_WORKERS"], 1),
+            replica_workers=_env_str(["REPLICA_WORKERS"], ""),
+            autoscale=_env_bool(["AUTOSCALE"], False),
         )
+
+    def parsed_replica_workers(self) -> list[tuple[str, int]]:
+        """``"hostA:9101,hostB:9101"`` → [("hostA", 9101), ...]; a malformed
+        entry raises. The port reads it only to refuse a non-empty value."""
+        out: list[tuple[str, int]] = []
+        for part in self.replica_workers.split(","):
+            part = part.strip()
+            if not part:
+                continue
+            host, sep, port = part.rpartition(":")
+            if not sep or not host:
+                raise ValueError(f"REPLICA_WORKERS entry {part!r} is not host:port")
+            out.append((host, int(port)))
+        return out
+
+    def parsed_tenant_weights(self) -> dict[str, float]:
+        """``"a:4,b:1"`` → {"a": 4.0, "b": 1.0}; malformed entries skipped."""
+        out: dict[str, float] = {}
+        for part in self.tenant_weights.split(","):
+            part = part.strip()
+            if not part or ":" not in part:
+                continue
+            name, _, raw = part.partition(":")
+            try:
+                out[name.strip()] = float(raw)
+            except ValueError:
+                continue
+        return out
 
 
 @dataclass

@@ -12,7 +12,8 @@ reference-architecture baseline, as one payload (the keys of JAX's
 3. ``hybrid_rerank`` — dense + BM25 fused by rrf, then the cross-encoder;
 4. ``full_paged``    — the whole pipeline (retrieve → rerank → select →
                        generate → verify) on the paged engine behind the
-                       generation service, one caller at a time;
+                       generation service and a one-replica replica tier,
+                       as JAX routes it, one caller at a time;
 5. ``batched``       — the same, ``concurrency`` callers sharing the decode
                        batch.
 
@@ -100,6 +101,7 @@ def run_eval(scale: str = "bench", n_docs: int = 1024, n_queries: int = 64,
     from sentio_tpu_torch.ops.verifier import AnswerVerifier
     from sentio_tpu_torch.pipeline import ChatPipeline, check_verify_mode, wait_detached
     from sentio_tpu_torch.runtime.paged import ContinuousBatchingEngine
+    from sentio_tpu_torch.runtime.replica import ReplicaSet
     from sentio_tpu_torch.runtime.service import PagedGenerationService
 
     t_start = time.perf_counter()
@@ -234,10 +236,10 @@ def run_eval(scale: str = "bench", n_docs: int = 1024, n_queries: int = 64,
                 # random weights emit EOS almost at once: fixed-length
                 # answers pay the full decode and verify cost
                 ignore_eos=True, rng_seed=seed, device=dev)
-            # JAX fronts the service with a one-replica ReplicaSet, a
-            # pass-through; the port has no replica tier
-            service = PagedGenerationService(paged)
-            generator = LLMGenerator(provider=EngineProvider(paged, service=service),
+            # the serving tier's front end at one replica, as JAX measures
+            # the routed path; no supervisor, as in JAX's eval
+            service = ReplicaSet([PagedGenerationService(paged)], supervise=False)
+            generator = LLMGenerator(provider=EngineProvider(service=service),
                                      config=settings.generator)
             pipeline = ChatPipeline(embedder=embedder, index=dense_index, retriever=hybrid,
                                     generator=generator, bm25_index=bm25, reranker=reranker,
@@ -278,7 +280,7 @@ def run_eval(scale: str = "bench", n_docs: int = 1024, n_queries: int = 64,
                 rows.append(res4.row())
             if "batched" in want:
                 _log(f"eval: [5/5] batched x{concurrency} ...")
-                before = service.stats()  # the service's lifetime stats
+                before = service.stats()  # the replicas' lifetime stats
                 answer_chars.clear()
                 result = timed("batched", "5-batched-dp", full, concurrent=concurrency)
                 if answer_chars:

@@ -9,15 +9,21 @@ outcome, confidence, verdict ms, why it was skipped). Under
 detached audit lands, so :meth:`FlightRecorder.note_verify` works on
 finished records too: ``GET /debug/flight/{id}`` is where a caller holding
 ``verify_pending`` reads the late verdict. Records are LRU-evicted past
-``max_requests``. The JAX recorder's tick ring (one event per engine tick)
-is not part of this copy.
+``max_requests``.
+
+Beside the request table, a bounded ring of serving events
+(:meth:`FlightRecorder.record_tick`): the replica tier's health
+transitions (``replica_health``), inbox handoffs (``inbox_handoff``),
+stall detections (``pump_stall``) and stream resumes (``stream_resumed``),
+each with a sequence number and a time. The JAX recorder also puts one
+event per engine tick there; the port's pumps do not yet.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from typing import Any, Optional
 
 __all__ = ["FlightRecorder", "get_flight_recorder", "set_flight_recorder"]
@@ -28,12 +34,28 @@ class FlightRecorder:
     operation under one lock, safe from HTTP threads, pipeline threads and
     detached verify threads at once."""
 
-    def __init__(self, max_requests: int = 512) -> None:
+    def __init__(self, max_requests: int = 512, max_events: int = 4096) -> None:
         self._lock = threading.Lock()
         self._records: "OrderedDict[str, dict]" = OrderedDict()
         self.max_requests = max_requests
         self.dropped_requests = 0
+        self._events: deque = deque(maxlen=max_events)
+        self._seq = 0
         self._t0 = time.perf_counter()
+
+    def record_tick(self, **fields: Any) -> int:
+        """Append one serving event (``event=`` names its kind) to the
+        ring; returns its sequence number."""
+        with self._lock:
+            self._seq += 1
+            self._events.append({"seq": self._seq, "t_s": round(self._now(), 6), **fields})
+            return self._seq
+
+    def events(self, kind: Optional[str] = None) -> list[dict]:
+        """Copies of the retained events, oldest first; only ``kind``'s
+        when given."""
+        with self._lock:
+            return [dict(e) for e in self._events if kind is None or e.get("event") == kind]
 
     def _ensure_locked(self, request_id: str) -> dict:
         """Fetch or create a record (lock held): any layer may be the first
@@ -125,6 +147,7 @@ class FlightRecorder:
     def clear(self) -> None:
         with self._lock:
             self._records.clear()
+            self._events.clear()
             self.dropped_requests = 0
 
     def _now(self) -> float:

@@ -11,7 +11,14 @@ retrieve stage), ``sentio_tpu_serving_stat`` and
 ``sentio_tpu_serving_events_total`` (published from ``service.stats()``
 at scrape time), ``sentio_tpu_shed_total`` (the service's sheds and
 expiries by reason), ``sentio_tpu_tick_phase_seconds`` (each pump
-iteration by phase) and ``sentio_tpu_pump_duty_cycle``.
+iteration by phase) and ``sentio_tpu_pump_duty_cycle``; and the replica
+tier's: ``sentio_tpu_tenant_admitted_total`` and
+``sentio_tpu_tenant_shed_total`` (WFQ outcomes by tenant and reason),
+``sentio_tpu_replica_stat`` (per-replica occupancy, queue and pool rows
+published at scrape time), ``sentio_tpu_replica_health`` (1 on each
+replica's current health state), ``sentio_tpu_pump_heartbeat_age_seconds``
+(the stall watchdog's reading) and ``sentio_tpu_stream_resumes_total``
+(by outcome).
 """
 
 from __future__ import annotations
@@ -163,10 +170,33 @@ class MetricsCollector:
         self.verify_confidence = Histogram(
             "sentio_tpu_verify_confidence", "confidence-gate score per scored answer",
             buckets=(0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.75, 0.8, 0.85, 0.9, 0.95, 1.0))
+        self.tenant_admitted = Counter("sentio_tpu_tenant_admitted_total",
+                                       "requests admitted through weighted fair queueing",
+                                       ["tenant"])
+        self.tenant_shed = Counter("sentio_tpu_tenant_shed_total",
+                                   "requests shed by weighted fair queueing",
+                                   ["tenant", "reason"])
+        self.replica_stat = Gauge("sentio_tpu_replica_stat",
+                                  "per-replica decode service point-in-time stats",
+                                  ["replica", "stat"])
+        self.replica_health = Gauge(
+            "sentio_tpu_replica_health",
+            "replica health state machine position (1 = current state)", ["replica", "state"])
+        self.pump_heartbeat_age = Gauge("sentio_tpu_pump_heartbeat_age_seconds",
+                                        "decode pump heartbeat age under pending work",
+                                        ["replica"])
+        self.stream_resumes = Counter(
+            "sentio_tpu_stream_resumes_total",
+            "mid-flight stream resume outcomes (resumed = delivered prefix spliced onto a "
+            "survivor; exhausted = resume budget spent, typed error surfaced; failed = no "
+            "survivor could take the splice; opt_out = caller disabled resumption)",
+            ["outcome"])
         self._families = (self.requests, self.request_latency, self.embeddings,
                           self.retrieval_latency, self.serving_stat, self.serving_total,
                           self.shed, self.inflight, self.pump_duty_cycle, self.tick_phase,
-                          self.verify, self.verify_confidence)
+                          self.verify, self.verify_confidence, self.tenant_admitted,
+                          self.tenant_shed, self.replica_stat, self.replica_health,
+                          self.pump_heartbeat_age, self.stream_resumes)
         self._inflight = 0
         self._inflight_lock = threading.Lock()
         self._serving_last: dict[str, float] = {}
@@ -207,6 +237,30 @@ class MetricsCollector:
     def record_duty_cycle(self, replica: int, fractions: dict) -> None:
         for state in ("host", "device", "idle"):
             self.pump_duty_cycle.set(str(replica), state, value=float(fractions.get(state, 0.0)))
+
+    def record_tenant_admitted(self, tenant: str) -> None:
+        self.tenant_admitted.inc(tenant)
+
+    def record_tenant_shed(self, tenant: str, reason: str) -> None:
+        """``reason``: tenant_quota | priority_batch | tenant_deficit."""
+        self.tenant_shed.inc(tenant, reason)
+
+    def set_replica_stat(self, replica: int, key: str, value: float) -> None:
+        self.replica_stat.set(str(replica), key, value=value)
+
+    def record_replica_health(self, replica: int, state: str) -> None:
+        """The new state's series goes to 1, every other state's to 0."""
+        from sentio_tpu_torch.runtime.replica import HEALTH_STATES
+
+        for name in HEALTH_STATES:
+            self.replica_health.set(str(replica), name, value=1.0 if name == state else 0.0)
+
+    def record_heartbeat_age(self, replica: int, age_s: float) -> None:
+        self.pump_heartbeat_age.set(str(replica), value=float(age_s))
+
+    def record_stream_resume(self, outcome: str) -> None:
+        """``outcome``: resumed | exhausted | failed | opt_out."""
+        self.stream_resumes.inc(outcome)
 
     def adjust_inflight(self, delta: int) -> None:
         with self._inflight_lock:

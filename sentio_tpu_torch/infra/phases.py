@@ -131,6 +131,19 @@ class PhaseTimer:
         return sum(self.acc.values())
 
 
+def sum_phase_totals(rows) -> tuple:
+    """Fold per-replica stats rows (each with cumulative ``phase_seconds``
+    and ``duty_elapsed_s``) into ``(phase_totals, duty_elapsed_s)`` for the
+    set; a row without phase data adds nothing."""
+    totals: dict[str, float] = {}
+    elapsed = 0.0
+    for row in rows:
+        for key, val in (row.get("phase_seconds") or {}).items():
+            totals[key] = totals.get(key, 0.0) + float(val)
+        elapsed += float(row.get("duty_elapsed_s", 0.0))
+    return totals, elapsed
+
+
 def duty_fractions(phase_totals: dict, elapsed_s: float) -> dict:
     """Fold cumulative phase seconds into host/device/idle fractions of
     ``elapsed_s`` wall time, summing to exactly 1.0. Measurement skew

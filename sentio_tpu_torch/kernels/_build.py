@@ -19,6 +19,7 @@ import shutil
 import subprocess
 import threading
 import time
+from contextlib import contextmanager
 from pathlib import Path
 from typing import Optional, Sequence
 
@@ -29,6 +30,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
+# the calling thread's open launch tally, if any (launch_tally)
+_tally = threading.local()
 
 
 def nvcc_path() -> str:
@@ -45,8 +48,9 @@ class CudaKernel:
     """One kernel: its source, its C launcher's signature, the ``defines``
     (``NAME=VALUE``) its source is compiled with, and ``launches``, a count
     of successful launches that callers may read and reset. Launches from
-    several threads (the service's pump and its callers) all count:
-    :meth:`add_launches` adds under a lock."""
+    several threads (the services' pumps and their callers) all count:
+    :meth:`add_launches` adds under a lock, and also to the calling
+    thread's :func:`launch_tally` when one is open."""
 
     def __init__(self, name: str, source: str, symbol: str,
                  argtypes: Sequence, defines: Sequence[str] = ()) -> None:
@@ -154,6 +158,22 @@ class CudaKernel:
     def add_launches(self, n: int) -> None:
         with self._count_lock:
             self.launches += n
+        tally = getattr(_tally, "counts", None)
+        if tally is not None:
+            tally[self] = tally.get(self, 0) + n
+
+
+@contextmanager
+def launch_tally():
+    """Yield a dict that counts, per kernel, the launches made by THIS
+    thread inside the block: what a CUDA graph capture charges to its
+    graph while other threads launch on their own streams."""
+    outer = getattr(_tally, "counts", None)
+    _tally.counts = counts = {}
+    try:
+        yield counts
+    finally:
+        _tally.counts = outer
 
 
 def build_all(kernels: Sequence[CudaKernel]) -> float:

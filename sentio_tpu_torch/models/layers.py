@@ -86,11 +86,30 @@ def apply_rope(x: Tensor, positions: Tensor, cos: Tensor, sin: Tensor) -> Tensor
     return out.to(x.dtype)
 
 
+# float32 scores one plain-attention pass may hold; more queries than fit
+# run in blocks of them (each query row's softmax is its own)
+ATTENTION_SCORE_BYTES = 1 << 30
+
+
 def attention(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor],
               dtype: torch.dtype = torch.bfloat16) -> Tensor:
     """Plain batched MHA core: q [B,T,H,D], k/v [B,S,H,D], mask broadcastable
     to [B,H,T,S] (True = attend). Softmax in fp32. A row with no key to
-    attend averages all keys uniformly, as the JAX version does."""
+    attend averages all keys uniformly, as the JAX version does. Queries go
+    in blocks whose float32 scores stay within ``ATTENTION_SCORE_BYTES``:
+    one 8,192-token prefill row at Llama-3-8B (32 heads) would otherwise
+    hold ~8.6 GB of scores several times over, and two engines sharing a
+    card each hold their own."""
+    b, t, h, _ = q.shape
+    rows = max(ATTENTION_SCORE_BYTES // (b * h * k.shape[1] * 4), 1)
+    if t > rows:
+        def block(i: int) -> Optional[Tensor]:
+            if mask is None or mask.shape[2] == 1:
+                return mask
+            return mask[:, :, i:i + rows]
+
+        return torch.cat([attention(q[:, i:i + rows], k, v, block(i), dtype)
+                          for i in range(0, t, rows)], dim=1)
     scale = 1.0 / np.sqrt(q.shape[-1])
     logits = torch.einsum("bthd,bshd->bhts", q.to(dtype), k.to(dtype))
     logits = logits.float() * scale

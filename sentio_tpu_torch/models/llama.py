@@ -163,8 +163,13 @@ def _mlp(lp: dict, cfg: LlamaConfig, x: Tensor) -> Tensor:
 def llama_forward(params: dict, cfg: LlamaConfig, ids: Tensor,
                   positions: Optional[Tensor] = None, cache: Optional[Cache] = None,
                   cache_index: Union[int, Tensor] = 0, pad_mask: Optional[Tensor] = None,
-                  attn_fn=None) -> tuple[Tensor, Optional[Cache]]:
-    """ids [B, T] → (logits [B, T, vocab] float32, cache).
+                  attn_fn=None, logit_index: Optional[Tensor] = None
+                  ) -> tuple[Tensor, Optional[Cache]]:
+    """ids [B, T] → (logits [B, T, vocab] float32, cache); with
+    ``logit_index`` (a [B] tensor of positions) only those rows' logits,
+    [B, 1, vocab]: a prefill that samples from its last prompt token
+    spares the LM head's product over every other position (at Llama-3-8B
+    a 4,096-token row's full logits are 2 GB in float32).
 
     * Training / scoring: ``cache=None`` → causal attention over T.
     * Prefill: pass a fresh cache, ``positions = arange(T)``, index 0; the
@@ -187,6 +192,8 @@ def llama_forward(params: dict, cfg: LlamaConfig, ids: Tensor,
         x = x + _attn(lp["attn"], cfg, L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps),
                       positions, cos, sin, i, cache, cache_index, pad_mask, attn_fn)
         x = x + _mlp(lp["mlp"], cfg, L.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps))
+    if logit_index is not None:
+        x = x[torch.arange(b, device=x.device), logit_index][:, None]
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = L.dense(params["lm_head"], x, dt)
     return logits.float(), cache

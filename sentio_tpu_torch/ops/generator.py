@@ -11,7 +11,9 @@ alike), as JAX's ``TpuProvider`` does; ``stream`` yields the answer's text
 increments over the service's ``generate_stream`` or the contiguous
 engine's ``stream``.
 A caller's ``deadline_ts`` (absolute ``time.perf_counter()``) reaches the
-service's ticket.
+service's ticket, and so do the request's WFQ ``tenant`` and ``priority``
+and a stream's ``resumable=False`` opt-out, which the replica tier in
+front of the paged engines reads.
 
 :class:`OpenAIProvider` is JAX's OpenAI-compatible remote provider on the
 standard library (``infra/http_client.py``: one keep-alive connection per
@@ -40,28 +42,40 @@ from sentio_tpu_torch.ops.prompts import PromptBuilder
 
 @dataclass
 class EngineProvider:
-    """Chat over the in-process engine. ``engine`` is the paged engine that
-    ``service`` drives, or, with no service, the contiguous
-    ``GeneratorEngine``, whose chats go through ``speculative`` when set.
-    Nothing falls back: a service's ``error`` result raises, as in JAX with
-    no contiguous engine behind the service."""
+    """Chat over the in-process engine: through ``service``, the replica
+    tier over paged engines, or, with no service, through the contiguous
+    ``GeneratorEngine`` ``contiguous``, whose chats go through
+    ``speculative`` when set. Nothing falls back: a service's ``error``
+    result raises, as in JAX with no contiguous engine behind the service.
+    ``routing`` (``tenant``, ``priority``, a stream's ``resumable``) goes
+    to the service as given; the contiguous engine has no tier to take
+    it."""
 
-    engine: object
-    service: object = None  # PagedGenerationService
+    contiguous: object = None
+    service: object = None  # ReplicaSet
     # SpeculativeDecoder over the contiguous engine: greedy chats give the
     # engine's tokens, sampled ones the target's law
     speculative: object = None
     name: str = "torch"
 
+    @property
+    def engine(self):
+        """The contiguous engine, or the first replica's current paged
+        engine (a rebuild replaces it)."""
+        return self.service.services[0].engine if self.service is not None \
+            else self.contiguous
+
     def chat(self, prompt: str, max_new_tokens: int, temperature: float,
-             deadline_ts: Optional[float] = None, stats: Optional[dict] = None) -> str:
+             deadline_ts: Optional[float] = None, stats: Optional[dict] = None,
+             **routing) -> str:
         if self.service is not None:
             result = self.service.generate(prompt, max_new_tokens=max_new_tokens,
-                                           temperature=temperature, deadline_ts=deadline_ts)
+                                           temperature=temperature, deadline_ts=deadline_ts,
+                                           **routing)
             if result.finish_reason == "error":
                 raise RuntimeError("paged decode failed and no contiguous engine")
         else:
-            generate = (self.speculative or self.engine).generate
+            generate = (self.speculative or self.contiguous).generate
             result = generate([prompt], max_new_tokens=max_new_tokens,
                               temperature=temperature)[0]
         if stats is not None:
@@ -69,17 +83,17 @@ class EngineProvider:
         return result.text
 
     def stream(self, prompt: str, max_new_tokens: int, temperature: float,
-               deadline_ts: Optional[float] = None,
-               stats: Optional[dict] = None) -> Iterator[str]:
+               deadline_ts: Optional[float] = None, stats: Optional[dict] = None,
+               **routing) -> Iterator[str]:
         """Text increments of one answer. Closing the iterator early
         cancels the service's ticket."""
         if self.service is not None:
             yield from self.service.generate_stream(
                 prompt, max_new_tokens=max_new_tokens, temperature=temperature,
-                deadline_ts=deadline_ts, stats_out=stats)
+                deadline_ts=deadline_ts, stats_out=stats, **routing)
             return
-        yield from self.engine.stream(prompt, max_new_tokens=max_new_tokens,
-                                      temperature=temperature)
+        yield from self.contiguous.stream(prompt, max_new_tokens=max_new_tokens,
+                                          temperature=temperature)
 
 
 @dataclass
@@ -275,25 +289,45 @@ class LLMGenerator:
         return self.prompts.build("retrieve", instruction=instruction, context=context,
                                   query=query)
 
+    def _routing(self, tenant: Optional[str], priority: Optional[str],
+                 resumable: Optional[bool] = None) -> dict:
+        """The WFQ and resume kwargs, only when set and only for the engine
+        provider (a remote OpenAIProvider has no replica tier)."""
+        if not isinstance(self.provider, EngineProvider):
+            return {}
+        out = {k: v for k, v in (("tenant", tenant), ("priority", priority)) if v is not None}
+        if resumable is False:
+            out["resumable"] = False
+        return out
+
     def generate(self, query: str, documents: Sequence[Document],
                  mode: Optional[str] = None, temperature: Optional[float] = None,
-                 deadline_ts: Optional[float] = None, stats: Optional[dict] = None) -> str:
+                 deadline_ts: Optional[float] = None, stats: Optional[dict] = None,
+                 tenant: Optional[str] = None, priority: Optional[str] = None) -> str:
         prompt = self.build_prompt(query, documents)
         temp = temperature if temperature is not None else self.config.temperature(mode)
         return self.provider.chat(prompt, max_new_tokens=self.config.max_new_tokens,
-                                  temperature=temp, deadline_ts=deadline_ts, stats=stats)
+                                  temperature=temp, deadline_ts=deadline_ts, stats=stats,
+                                  **self._routing(tenant, priority))
 
     def stream(self, query: str, documents: Sequence[Document], mode: Optional[str] = None,
                temperature: Optional[float] = None, deadline_ts: Optional[float] = None,
-               stats: Optional[dict] = None) -> Iterator[str]:
+               stats: Optional[dict] = None, tenant: Optional[str] = None,
+               priority: Optional[str] = None,
+               resumable: Optional[bool] = None) -> Iterator[str]:
         prompt = self.build_prompt(query, documents)
         temp = temperature if temperature is not None else self.config.temperature(mode)
         yield from self.provider.stream(prompt, max_new_tokens=self.config.max_new_tokens,
                                         temperature=temp, deadline_ts=deadline_ts,
-                                        stats=stats)
+                                        stats=stats, **self._routing(tenant, priority,
+                                                                     resumable))
 
     def chat_raw(self, prompt: str, max_new_tokens: int, temperature: float,
-                 deadline_ts: Optional[float] = None) -> str:
-        """Direct provider access (the verifier path — shares the weights)."""
+                 deadline_ts: Optional[float] = None, tenant: Optional[str] = None,
+                 priority: Optional[str] = None) -> str:
+        """Direct provider access (the verifier path — shares the weights);
+        ``tenant`` / ``priority`` charge the audit to the requesting
+        tenant."""
         return self.provider.chat(prompt, max_new_tokens=max_new_tokens,
-                                  temperature=temperature, deadline_ts=deadline_ts)
+                                  temperature=temperature, deadline_ts=deadline_ts,
+                                  **self._routing(tenant, priority))

@@ -46,7 +46,11 @@ class AnswerVerifier:
     prompts: PromptBuilder = field(default_factory=PromptBuilder)
 
     def verify(self, query: str, answer: str, documents: Sequence[Document],
-               deadline_ts: Optional[float] = None) -> VerifyResult:
+               deadline_ts: Optional[float] = None, tenant: Optional[str] = None,
+               priority: Optional[str] = None) -> VerifyResult:
+        """The audit, charged to the requesting ``tenant`` / ``priority`` on
+        the replica tier (a tenant's audits must not ride the shared
+        tenant's quota)."""
         try:
             # the audit prompt embeds the generate prompt verbatim as its head
             prompt = self.prompts.build(
@@ -58,7 +62,7 @@ class AnswerVerifier:
             )
             reply = self.generator.chat_raw(
                 prompt, max_new_tokens=self.config.verifier_max_tokens, temperature=0.0,
-                deadline_ts=deadline_ts,
+                deadline_ts=deadline_ts, tenant=tenant, priority=priority,
             )
             return self._normalize(reply)
         except Exception as exc:  # noqa: BLE001 — the audit must never fail the answer

@@ -9,10 +9,15 @@ the query and an exact top-k runs over the index on the card), ``bm25``
 ``FUSION_METHOD``, rrf by default). ``KV_QUANT=int8`` gives the engine an
 int8 page pool; ``PREFIX_CACHE``, ``DECODE_PIPELINE_DEPTH`` and
 ``PREFILL_CHUNK`` reach the engine as in the JAX service (the radix prefix
-cache and depth 2 by default). Generation runs on the paged engine behind
-the generation service (``runtime/service.py``), so concurrent ``chat``
-calls share one decode batch; with ``PREFIX_CACHE`` on, the ``/chat``
-template head is warmed into the engine's radix tree at build time.
+cache and depth 2 by default). Generation runs on ``REPLICAS`` paged
+engines (one by default), each behind its own generation service
+(``runtime/service.py``), fronted by the replica tier
+(``runtime/replica.py``: tenant WFQ, radix-affinity routing, supervision
+with in-place rebuild, failover, resumable streams), as the JAX container
+builds it; concurrent ``chat`` calls share each replica's decode batch. The
+replicas share the weights and own their pools, radix trees, CUDA streams
+and graphs. With ``PREFIX_CACHE`` on, the ``/chat`` template head is warmed
+into every replica's radix tree at build time.
 ``USE_PAGED_KV=0`` generates on the contiguous engine instead
 (``runtime/engine.py``: causal flash prefill, one call at a time).
 ``LLM_CHECKPOINT`` and ``RERANKER_CHECKPOINT`` load ``save_pytree``
@@ -73,6 +78,7 @@ from sentio_tpu_torch.ops.retrievers import BaseRetriever, create_retriever
 from sentio_tpu_torch.ops.verifier import AnswerVerifier
 from sentio_tpu_torch.runtime.engine import GeneratorEngine
 from sentio_tpu_torch.runtime.paged import ContinuousBatchingEngine
+from sentio_tpu_torch.runtime.replica import ReplicaSet
 from sentio_tpu_torch.runtime.service import PagedGenerationService
 from sentio_tpu_torch.runtime.speculative import SpeculativeDecoder
 from sentio_tpu_torch.runtime.weights import load_draft, load_llama, refuse_tokenizer
@@ -165,6 +171,21 @@ def select_documents(docs: list, budget_tokens: int) -> tuple[list[Document], in
     return selected, used
 
 
+def check_replica_settings(serve) -> None:
+    """Refuse the replica settings the port cannot honour, naming each;
+    an unknown ``REPLICA_MODE`` warns and means thread mode, as in JAX."""
+    if serve.replica_mode in ("process", "socket"):
+        raise NotImplementedError(f"REPLICA_MODE={serve.replica_mode}: process and socket "
+                                  "replicas are not ported (thread mode is)")
+    if serve.parsed_replica_workers():
+        raise NotImplementedError("REPLICA_WORKERS: remote socket workers are not ported")
+    if serve.autoscale:
+        raise NotImplementedError("AUTOSCALE=1: the replica autoscaler is not ported")
+    if serve.replica_mode != "thread":
+        logger.warning("REPLICA_MODE=%r unknown (expected thread|process|socket); using "
+                       "thread mode", serve.replica_mode)
+
+
 def _user_top_k(raw: Optional[int], default: int, cap: int = 50) -> int:
     if raw is None:
         return default
@@ -228,7 +249,8 @@ class ChatPipeline:
 
     def run(self, question: str, top_k: Optional[int] = None,
             temperature: Optional[float] = None, mode: str = "balanced",
-            metadata: Optional[dict] = None, deadline_ts: Optional[float] = None) -> dict:
+            metadata: Optional[dict] = None, deadline_ts: Optional[float] = None,
+            tenant: Optional[str] = None, priority: Optional[str] = None) -> dict:
         """retrieve → rerank → select → generate → verify, as the JAX
         graph runs them. ``metadata`` seeds the state's metadata (the
         ``/chat`` handler's query id and request fields); ``deadline_ts``
@@ -242,6 +264,8 @@ class ChatPipeline:
         ``skipped_confident`` verdict with no audit at all, else detaches
         the audit as ``async`` does. A detached verdict lands on the flight
         record of ``metadata.query_id`` (made when the caller gave none).
+        ``tenant`` and ``priority`` (``X-Tenant``, ``X-Priority``) charge
+        the generate and the verify admissions to that tenant's fair share.
         Returns the final state: ``query``, ``retrieved_documents``,
         ``reranked_documents``, ``selected_documents``, ``response``,
         ``evaluation``, ``metadata`` and ``generated_tokens``."""
@@ -257,7 +281,7 @@ class ChatPipeline:
         try:
             answer = self.generator.generate(question, best, mode=mode or s.generator.mode,
                                              temperature=temperature, deadline_ts=deadline_ts,
-                                             stats=gen_stats)
+                                             stats=gen_stats, tenant=tenant, priority=priority)
         except Exception as exc:  # noqa: BLE001 — the JAX generate node's degradation
             if getattr(exc, "soft_fail_exempt", False):
                 raise  # shed / expired / service down surface typed
@@ -272,6 +296,8 @@ class ChatPipeline:
                 meta.update(logprob_mean=round(gen_stats["logprob_mean"], 4),
                             logprob_min=round(gen_stats["logprob_min"], 4),
                             logprob_count=gen_stats["logprob_count"])
+            if gen_stats.get("replica_id") is not None:
+                meta["replica_id"] = gen_stats["replica_id"]  # which replica decoded it
         state["generated_tokens"] = gen_stats.get("tokens", 0)
         _node(meta, "generate", t0)
         if self.verifier is not None:
@@ -284,12 +310,13 @@ class ChatPipeline:
                 t0 = time.perf_counter()
                 skipped = self._gate(state, best, s.generator.verify_confidence_threshold)
                 _node(meta, "verify_gate", t0)
+            charge = {"tenant": tenant, "priority": priority}
             if mode == "sync":
                 t0 = time.perf_counter()
-                self._verify(state, best, deadline_ts, mode)
+                self._verify(state, best, deadline_ts, mode, **charge)
                 _node(meta, "verify", t0)
             elif not skipped:
-                self._detach_verify(state, best, deadline_ts, mode)
+                self._detach_verify(state, best, deadline_ts, mode, **charge)
         if meta.get("query_id"):
             get_flight_recorder().add_node_timings(str(meta["query_id"]),
                                                    meta["node_timings_ms"],
@@ -317,7 +344,8 @@ class ChatPipeline:
         return True
 
     def _verify(self, state: dict, docs: list[Document], deadline_ts: Optional[float],
-                mode: str) -> None:
+                mode: str, tenant: Optional[str] = None,
+                priority: Optional[str] = None) -> None:
         """The verify stage, writing its verdict into ``state`` and the
         flight record: an empty answer is a ``warn``, a caller's deadline
         that has passed skips the audit, a ``fail`` with a revision
@@ -336,7 +364,8 @@ class ChatPipeline:
             meta["verify_skipped"] = "deadline"
             return
         t0 = time.perf_counter()
-        result = self.verifier.verify(state["query"], answer, docs, deadline_ts=deadline_ts)
+        result = self.verifier.verify(state["query"], answer, docs, deadline_ts=deadline_ts,
+                                      tenant=tenant, priority=priority)
         verdict_ms = round((time.perf_counter() - t0) * 1000, 2)
         record_verify(request_id, mode, result.verdict,
                       confidence=meta.get("verify_confidence"), verdict_ms=verdict_ms)
@@ -347,7 +376,8 @@ class ChatPipeline:
             meta["answer_revised"] = True
 
     def _detach_verify(self, state: dict, docs: list[Document],
-                       deadline_ts: Optional[float], mode: str) -> None:
+                       deadline_ts: Optional[float], mode: str, tenant: Optional[str] = None,
+                       priority: Optional[str] = None) -> None:
         """Run the verify stage on a thread of its own over a snapshot of
         ``state`` and return at once with ``metadata.verify_pending``: the
         verdict lands on the flight record only (a late revision has no
@@ -357,7 +387,7 @@ class ChatPipeline:
 
         def run() -> None:
             try:
-                self._verify(snapshot, docs, deadline_ts, mode)
+                self._verify(snapshot, docs, deadline_ts, mode, tenant, priority)
             except Exception:  # noqa: BLE001 — the answer has shipped; log, never crash
                 logger.exception("detached verify failed")
 
@@ -418,9 +448,10 @@ class ChatPipeline:
 
     def chat(self, question: str, top_k: Optional[int] = None,
              temperature: Optional[float] = None, mode: str = "balanced",
-             deadline_ts: Optional[float] = None) -> dict[str, Any]:
+             deadline_ts: Optional[float] = None, tenant: Optional[str] = None,
+             priority: Optional[str] = None) -> dict[str, Any]:
         state = self.run(question, top_k=top_k, temperature=temperature, mode=mode,
-                         deadline_ts=deadline_ts)
+                         deadline_ts=deadline_ts, tenant=tenant, priority=priority)
         meta = state["metadata"]
         return {
             "answer": state["response"],
@@ -439,9 +470,19 @@ class ChatPipeline:
         }
 
     @property
+    def replica_set(self) -> Optional[ReplicaSet]:
+        """The replica tier generation goes through (None on the contiguous
+        engine)."""
+        service = self.generator.provider.service
+        return service if isinstance(service, ReplicaSet) else None
+
+    @property
     def service(self) -> Optional[PagedGenerationService]:
-        """The generation service (None on the contiguous engine)."""
-        return self.generator.provider.service
+        """The first replica's current generation service (a rebuild swaps
+        it; the only one at ``REPLICAS=1``), for callers that drive its
+        engine directly; None on the contiguous engine."""
+        replicas = self.replica_set
+        return replicas.services[0] if replicas is not None else None
 
     def load_index(self, path) -> int:
         """Add a dense index saved by ``TorchDenseIndex.save`` (or the JAX
@@ -462,16 +503,19 @@ class ChatPipeline:
         return len(documents)
 
     def warmup(self) -> Optional[dict]:
-        """Run the service's warmup (every graph variant captured on the
-        card) before traffic, then warm the template head again: warmup's
-        own prompts fill the radix tree and can evict it. None on the
-        contiguous engine. Sets ``ready``."""
+        """Warm every replica at once (each captures every graph variant on
+        the card) before traffic, then warm the template head into every
+        replica's tree again: warmup's own prompts fill the trees and can
+        evict it. None on the contiguous engine. Sets ``ready``."""
         stats = None
-        if self.service is not None:
-            stats = self.service.warmup()
+        replicas = self.replica_set
+        if replicas is not None:
+            stats = replicas.warmup()
             if self.warm_head:
-                self.service.wait_idle()
-                stats["head_tokens"] = self.service.engine.warm_prefix(self.warm_head)
+                stats["head_tokens"] = []
+                for svc in replicas.services:
+                    svc.wait_idle()
+                    stats["head_tokens"].append(svc.engine.warm_prefix(self.warm_head))
         self.ready = True
         return stats
 
@@ -482,8 +526,9 @@ class ChatPipeline:
         the embedder's coalescer."""
         if not wait_detached(detached_timeout_s):
             logger.warning("closing with detached verifies still running")
-        if self.service is not None:
-            self.service.close()
+        service = self.generator.provider.service
+        if service is not None:
+            service.close()
         self.embedder.close()
 
 
@@ -513,12 +558,14 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
     default). Weights not passed in come from the configured checkpoints or
     are random, made on the device from ``seed``; the retriever follows
     the retrieval settings (strategy, fusion, BM25 backend) and the engine
-    the generator settings: with ``USE_PAGED_KV`` (the default) the paged
-    engine (slots, page size, pages per sequence, ``kv_quant``, the prefix
-    cache, the decode pipeline depth and chunked prefill, as the JAX
-    service hands them to its engine) behind a generation service with the
-    serve section's admission bound, default deadline and retry budget;
-    without it the contiguous engine. A draft model (``draft_params`` and
+    the generator settings: with ``USE_PAGED_KV`` (the default)
+    ``REPLICAS`` paged engines (slots, page size, pages per sequence,
+    ``kv_quant``, the prefix cache, the decode pipeline depth and chunked
+    prefill, as the JAX service hands them to its engine) on the shared
+    weights, each behind a generation service with the serve section's
+    admission bound, default deadline, retry budget and stall budgets, all
+    behind a ``ReplicaSet`` with every serve knob of the tier; without it
+    the contiguous engine. A draft model (``draft_params`` and
     ``draft_config``, for callers that hold the weights, or the
     ``LLM_DRAFT_CHECKPOINT`` checkpoint) makes generation speculative with
     ``SPECULATIVE_K`` drafted tokens a round: the paged engine speculates in
@@ -533,6 +580,7 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
     if rcfg.web_cache_path:
         raise NotImplementedError("WEB_CACHE_PATH: the web-cache retrieval leg is not ported")
     check_verify_mode(gcfg.verify_mode)
+    check_replica_settings(settings.serve)
     dev = resolve_device(device)
     if draft_params is not None and draft_config is None:
         raise ValueError("draft_params requires draft_config")
@@ -582,28 +630,55 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
     prompts = PromptBuilder()
     warm_head = ""
     if gcfg.use_paged_decode:
-        engine = ContinuousBatchingEngine(
-            model_config=llama_config, params=llama_params,
-            max_slots=gcfg.max_batch_size, page_size=gcfg.kv_page_size,
-            max_pages_per_seq=gcfg.kv_max_pages_per_seq, rng_seed=seed,
-            steps_per_tick=gcfg.decode_steps_per_tick,
-            max_tick_steps=gcfg.decode_max_tick_steps, kv_quant=gcfg.kv_quant,
-            prefix_cache=gcfg.prefix_cache, pipeline_depth=gcfg.decode_pipeline_depth,
-            prefill_chunk=gcfg.prefill_chunk or None, draft_params=draft_params,
-            draft_config=draft_config, spec_k=gcfg.speculative_k, device=dev,
-        )
+        serve = settings.serve
         if gcfg.prefix_cache:
             # spares the first /chat its cold prefill of the template head,
-            # as the JAX container warms each engine's tree
+            # as the JAX container warms each replica's tree
             warm_head = prompts.static_head("retrieve", instruction=prompts.load("profile"))
-            engine.warm_prefix(warm_head)
-        serve = settings.serve
-        service = PagedGenerationService(
-            engine, max_queue=serve.admission_max_queue or None,
-            default_deadline_s=(serve.default_deadline_ms / 1e3
-                                if serve.default_deadline_ms > 0 else None),
-            retry_budget=serve.crash_retry_budget)
-        provider = EngineProvider(engine, service=service)
+        services = []
+        for i in range(max(serve.replicas, 1)):
+            engine = ContinuousBatchingEngine(
+                model_config=llama_config, params=llama_params,
+                max_slots=gcfg.max_batch_size, page_size=gcfg.kv_page_size,
+                max_pages_per_seq=gcfg.kv_max_pages_per_seq, rng_seed=seed,
+                steps_per_tick=gcfg.decode_steps_per_tick,
+                max_tick_steps=gcfg.decode_max_tick_steps, kv_quant=gcfg.kv_quant,
+                prefix_cache=gcfg.prefix_cache, pipeline_depth=gcfg.decode_pipeline_depth,
+                prefill_chunk=gcfg.prefill_chunk or None, draft_params=draft_params,
+                draft_config=draft_config, spec_k=gcfg.speculative_k, device=dev,
+            )
+            if warm_head:
+                engine.warm_prefix(warm_head)
+            services.append(PagedGenerationService(
+                engine, max_queue=serve.admission_max_queue or None,
+                default_deadline_s=(serve.default_deadline_ms / 1e3
+                                    if serve.default_deadline_ms > 0 else None),
+                retry_budget=serve.crash_retry_budget, replica_id=i,
+                tick_stall_budget_s=serve.tick_stall_budget_s,
+                warmup_budget_s=serve.warmup_budget_s))
+        replicas = ReplicaSet(
+            services, tenant_weights=serve.parsed_tenant_weights(),
+            tenant_default_weight=serve.tenant_default_weight,
+            tenant_refill_tokens_per_s=serve.tenant_refill_tokens_per_s,
+            tenant_burst_tokens=serve.tenant_burst_tokens,
+            tenant_headroom=serve.tenant_headroom if serve.tenant_headroom >= 0 else None,
+            batch_shed_fraction=serve.batch_shed_fraction,
+            affinity_stickiness=serve.affinity_stickiness,
+            route_prefix_tokens=serve.route_prefix_tokens,
+            supervise=serve.replica_supervise,
+            probe_interval_s=serve.replica_probe_interval_s,
+            breaker_window_s=serve.replica_breaker_window_s,
+            breaker_error_rate=serve.replica_breaker_error_rate,
+            breaker_min_samples=serve.replica_breaker_min_samples,
+            breaker_tick_failures=serve.replica_breaker_tick_failures,
+            quarantine_backoff_s=serve.replica_quarantine_backoff_s,
+            rebuild_budget=serve.replica_rebuild_budget,
+            rebuild_drain_s=serve.replica_rebuild_drain_s,
+            failover_budget=serve.replica_failover_budget,
+            stream_resume_budget=(serve.stream_resume_budget
+                                  if serve.stream_resume_budget >= 0 else None),
+            rebuild_workers=serve.replica_rebuild_workers)
+        provider = EngineProvider(service=replicas)
     else:
         engine = GeneratorEngine(config=gcfg, model_config=llama_config, params=llama_params,
                                  rng_seed=seed, device=dev)

@@ -48,7 +48,10 @@ prefill (a prefix hit attends to the dequantized prior pages).
 The parts the generation service (:mod:`.service`) drives are the JAX
 engine's: per-request deadlines (``submit(deadline_ts=...)``: a request
 still queued when its deadline passes comes back ``expired``), ``cancel``,
-``reset`` after a failed tick, ``spawn_fresh``, ``ignore_eos``,
+``reset`` after a failed tick, ``spawn_fresh`` (and ``release``, which
+frees a replaced engine's memory before its successor allocates), the
+fault points ``paged.step``, ``paged.admit_scatter`` and ``engine.reset``
+(:mod:`sentio_tpu_torch.infra.faults`), ``ignore_eos``,
 prior-token admission and per-request seeds (:func:`fold_seed`), the tick
 ladder (``tick_step_sizes``, ``force_tick_steps``, ``pressure_hint``),
 TTFT samples, and ``step()``'s split into the phases of
@@ -63,8 +66,10 @@ and retirement are the plain tick's. Device meshes are not ported.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import itertools
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -74,8 +79,10 @@ import numpy as np
 import torch
 
 from sentio_tpu_torch import resolve_device
+from sentio_tpu_torch.infra import faults
 from sentio_tpu_torch.infra.phases import ENGINE_PHASES, PhaseTimer
 from sentio_tpu_torch.kernels import KERNELS, paged_attn_impl
+from sentio_tpu_torch.kernels._build import launch_tally
 from sentio_tpu_torch.kernels.paged_attention import (
     QuantPages,
     paged_attention_plain,
@@ -90,6 +97,12 @@ from sentio_tpu_torch.runtime.sampling import sample_tokens
 
 Tensor = torch.Tensor
 Pages = Union[Tensor, QuantPages]  # a pool's k or v, or one layer of it
+
+# one card, several engines (the replica tier): a graph capture and the
+# release of a rebuilt engine's memory take this lock. ``torch.cuda.graph``
+# synchronizes the device and empties the allocator's cache before it
+# begins, and neither may run while another thread's capture is open.
+CAPTURE_LOCK = threading.Lock()
 
 
 def fold_seed(generator: torch.Generator, seed: int) -> None:
@@ -377,6 +390,8 @@ class PagedResult:
     logprob_sum: float = 0.0
     logprob_min: float = 0.0
     logprob_count: int = 0
+    # the replica whose service finished it (-1: a bare engine)
+    replica_id: int = -1
 
     @property
     def logprob_mean(self) -> Optional[float]:
@@ -385,7 +400,7 @@ class PagedResult:
         return self.logprob_sum / self.logprob_count
 
     def stats_dict(self) -> dict:
-        return {
+        out = {
             "logprob_sum": self.logprob_sum,
             "logprob_min": self.logprob_min,
             "logprob_count": self.logprob_count,
@@ -393,6 +408,9 @@ class PagedResult:
             "tokens": len(self.tokens),
             "finish_reason": self.finish_reason,
         }
+        if self.replica_id >= 0:
+            out["replica_id"] = self.replica_id
+        return out
 
 
 class _DecodeState:
@@ -441,7 +459,9 @@ class ContinuousBatchingEngine:
     tokens a round, ``LLM_DRAFT_CHECKPOINT`` / ``SPECULATIVE_K``) makes every
     decode tick a spec tick (:mod:`.paged_spec`; each round a graph replay
     on the card), and ``top_k`` is then refused. Single-threaded: one
-    caller drives ``step()``."""
+    caller drives ``step()``. On the card the engine's device work runs on
+    its own stream (``stream``, :meth:`on_stream`) and its graphs live in
+    its own graph pool, so several engines (replicas) can share the card."""
 
     PREFILL_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
     ADMIT_BUCKETS = (1, 2, 4, 8)
@@ -485,6 +505,14 @@ class ContinuousBatchingEngine:
                 raise ValueError(f"prefill_chunk must be a positive multiple of page_size "
                                  f"({page_size}), got {prefill_chunk}")
         self.device = resolve_device(device)
+        # the engine's own CUDA stream: its ticks, prefills, warmup and graph
+        # captures all run on it (on_stream()), so engines sharing the card
+        # (replicas) never meet on the legacy default stream, and its device
+        # buffers are allocated on it; it first waits for the caller's work
+        # (the weights)
+        self.stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        if self.stream is not None:
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
         self.cfg = model_config or LlamaConfig.tiny()
         # paged speculation (runtime/paged_spec.py): a draft turns every
         # decode tick into draft/verify/accept rounds
@@ -507,7 +535,8 @@ class ContinuousBatchingEngine:
         if params is None:
             init_gen = torch.Generator(device=self.device)
             init_gen.manual_seed(rng_seed)
-            params = init_llama(self.cfg, init_gen, self.device)
+            with self.on_stream():
+                params = init_llama(self.cfg, init_gen, self.device)
         self.params = params
         self.max_slots = max_slots
         self.page_size = page_size
@@ -523,8 +552,9 @@ class ContinuousBatchingEngine:
         if num_pages is None:
             num_pages = 1 + max_slots * max_pages_per_seq
         self.kv_quant = kv_quant
-        self.pool = init_pool(self.cfg, num_pages, page_size, self.device,
-                              quantized=kv_quant == "int8")
+        with self.on_stream():
+            self.pool = init_pool(self.cfg, num_pages, page_size, self.device,
+                                  quantized=kv_quant == "int8")
         self.allocator = PageAllocator(num_pages)
         self._prefix_cache_enabled = bool(prefix_cache)
         self._radix = RadixPrefixCache(page_size, self.allocator) if prefix_cache else None
@@ -595,11 +625,12 @@ class ContinuousBatchingEngine:
         self._lp_min = np.zeros(max_slots, np.float32)
         self._lp_cnt = np.zeros(max_slots, np.int32)
 
-        self._st = _DecodeState(max_slots, max_pages_per_seq, self.max_tick_steps,
-                                self.device)
-        self._rope = L.rope_frequencies(
-            self.cfg.head_dim, max(max_pages_per_seq * page_size, self.cfg.max_len),
-            self.cfg.rope_theta, self.device)
+        with self.on_stream():
+            self._st = _DecodeState(max_slots, max_pages_per_seq, self.max_tick_steps,
+                                    self.device)
+            self._rope = L.rope_frequencies(
+                self.cfg.head_dim, max(max_pages_per_seq * page_size, self.cfg.max_len),
+                self.cfg.rope_theta, self.device)
         # one CUDA graph per sampling variant, captured on first use into
         # one shared memory pool, with each graph's launches per kernel
         self._graphs: dict[tuple, tuple] = {}
@@ -660,9 +691,10 @@ class ContinuousBatchingEngine:
         pages = self.allocator.alloc(need)
         # prefill the whole span cold and scatter only the uncovered blocks
         # (cached blocks go to scratch page 0); nothing is sampled
-        self._prefill_rows(self._prefill_width(full), 0,
-                           [(toks[:full], 0.0, 0, [0] * (matched // self.page_size) + pages)],
-                           [0], None, do_sample=False)
+        with self.on_stream():
+            self._prefill_rows(self._prefill_width(full), 0,
+                               [(toks[:full], 0.0, 0, [0] * (matched // self.page_size) + pages)],
+                               [0], None, do_sample=False)
         _node, donated = self._radix.insert(toks[:full], matched, pages)
         leftover = set(pages) - set(donated)
         if leftover:
@@ -703,9 +735,13 @@ class ContinuousBatchingEngine:
         spec tick's caches are cleared, and the generator is reseeded. They
         are zeroed in place, so the weights and the captured graphs, which
         hold their addresses, are kept."""
-        for pages in (self.pool.k, self.pool.v):
-            for t in (pages if isinstance(pages, QuantPages) else (pages,)):
-                t.zero_()
+        # chaos seam: lets a drill make the reset itself fail (the path that
+        # latches a service broken and quarantines its replica)
+        faults.hit("engine.reset")
+        with self.on_stream():
+            for pages in (self.pool.k, self.pool.v):
+                for t in (pages if isinstance(pages, QuantPages) else (pages,)):
+                    t.zero_()
         self.allocator = PageAllocator(self.allocator.num_pages)
         self.slots = [_Slot() for _ in range(self.max_slots)]
         self._queue.clear()
@@ -719,10 +755,11 @@ class ContinuousBatchingEngine:
         for arr in (self._page_table, self._temps, self._top_ks, self._last_tok,
                     self._lp_sum, self._lp_min, self._lp_cnt):
             arr[:] = 0
-        for t in vars(self._st).values():
-            t.zero_()
-        if self._spec is not None:
-            self._spec.zero_()
+        with self.on_stream():
+            for t in vars(self._st).values():
+                t.zero_()
+            if self._spec is not None:
+                self._spec.zero_()
         self._gen.manual_seed(int(np.random.default_rng().integers(2**31)))
 
     def spawn_fresh(self) -> "ContinuousBatchingEngine":
@@ -738,6 +775,39 @@ class ContinuousBatchingEngine:
             draft_params=self.draft_params, draft_config=self.draft_cfg, spec_k=self.spec_k,
             device=self.device,
         )
+
+    def release(self) -> None:
+        """Free this engine's device memory — the pool, the decode state,
+        the graphs and their pool, the spec tick's caches — once nothing
+        will drive it again. A rebuilt replica's old incarnation calls it
+        before the fresh engine allocates, so the card never holds both
+        pools; the weights are shared and stay. The engine is unusable
+        afterwards."""
+        if self.stream is not None:
+            self.stream.synchronize()
+        self.pool = self._st = self._rope = self._spec = self._done_host = None
+        self._graphs.clear()
+        self._graph_pool = None
+        self._pending_first.clear()
+        self._inflight = None
+        self.trim_cache()
+
+    def trim_cache(self) -> None:
+        """Return the caching allocator's unused blocks to the card (each
+        engine's stream keeps its own, which no other stream reuses), under
+        the capture lock; a rebuild calls it before the fresh engine
+        allocates."""
+        if self.device.type == "cuda":
+            with CAPTURE_LOCK:
+                torch.cuda.empty_cache()
+
+    def on_stream(self):
+        """The context this engine's device work runs in: its own stream on
+        the card, nothing on the CPU. ``step``, ``warm_prefix``, ``reset``,
+        ``prefill_forward`` and ``decode_forward`` enter it themselves."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
 
     def partial_step_phases(self) -> dict:
         """The current step's phase seconds so far: what a step that raised
@@ -794,8 +864,17 @@ class ContinuousBatchingEngine:
         previous tick, after this one is dispatched. Returns the results
         completed this tick; ``last_step_phases`` holds its seconds by
         phase."""
+        with self.on_stream():
+            return self._step()
+
+    def _step(self) -> list[PagedResult]:
         acc = self._phase.acc
+        # the timer resets before the injection point, so a failed step's
+        # partial phases belong to it alone
         self._phase.reset()
+        # chaos seam: a raised fault propagates as a failed device dispatch
+        # would (the service resets and requeues); a stall wedges the pump
+        faults.hit("paged.step")
         t0 = time.perf_counter()
         self.last_tick_active = 0
         self._admit()
@@ -832,7 +911,7 @@ class ContinuousBatchingEngine:
             "total_pages": self.allocator.num_pages,
             "page_size": self.page_size,
             "kv_quant": self.kv_quant,
-            "pool_hbm_bytes": self.pool.hbm_bytes,
+            "pool_hbm_bytes": self.pool.hbm_bytes if self.pool is not None else 0,
             "head_skips": self._head_skips,
             "ttft_count": self.ttft_count,
             "prefill_tokens": self.prefill_tokens_total,
@@ -877,9 +956,45 @@ class ContinuousBatchingEngine:
     def _to_device(self, arr: np.ndarray) -> Tensor:
         return self._stage(arr).to(self.device, non_blocking=True)
 
+    @contextlib.contextmanager
+    def _called(self):
+        """A public device call's context: on the card, the engine's stream
+        waits for the caller's (the inputs), runs the call, and the
+        caller's stream waits for it before the results come back; a call
+        already on the engine's stream (a tick, a capture) runs as it is."""
+        caller = torch.cuda.current_stream(self.device) if self.stream is not None else None
+        if caller is None or caller == self.stream:
+            yield None
+            return
+        self.stream.wait_stream(caller)
+        with torch.cuda.stream(self.stream):
+            yield caller
+        caller.wait_stream(self.stream)
+
     def prefill_forward(self, ids: np.ndarray, lens: np.ndarray, scat: np.ndarray,
                         prior_table: Optional[np.ndarray] = None,
                         n_prior: Optional[np.ndarray] = None) -> Tensor:
+        """:meth:`_prefill_forward` on the engine's stream, its logits ready
+        on the caller's."""
+        with self._called() as caller:
+            logits = self._prefill_forward(ids, lens, scat, prior_table, n_prior)
+            if caller is not None:
+                logits.record_stream(caller)
+        return logits
+
+    def decode_forward(self, tok: Tensor, lens: Tensor, page_table: Tensor,
+                       write_mask: Optional[Tensor] = None) -> Tensor:
+        """:meth:`_decode_forward` on the engine's stream, its logits ready
+        on the caller's."""
+        with self._called() as caller:
+            logits = self._decode_forward(tok, lens, page_table, write_mask)
+            if caller is not None:
+                logits.record_stream(caller)
+        return logits
+
+    def _prefill_forward(self, ids: np.ndarray, lens: np.ndarray, scat: np.ndarray,
+                         prior_table: Optional[np.ndarray] = None,
+                         n_prior: Optional[np.ndarray] = None) -> Tensor:
         """Prefill rows ``ids`` [b, W] (true lengths ``lens``) with plain
         attention, scatter their KV into the pages ``scat`` [b, W/page], and
         return each row's last prompt logit [b, V].
@@ -895,10 +1010,12 @@ class ContinuousBatchingEngine:
         b, width = ids.shape
         ids_t = self._to_device(ids)
         positions = torch.arange(width, device=dev)[None, :].expand(b, width)
+        # only the last prompt token's logits are sampled from
+        last = self._to_device(lens.astype(np.int64) - 1)
         if prior_table is None:
             cache = init_cache(cfg, b, width, dev)
             logits, cache = llama_forward(self.params, cfg, ids_t, positions=positions,
-                                          cache=cache, cache_index=0)
+                                          cache=cache, cache_index=0, logit_index=last)
             k_new, v_new = cache["k"], cache["v"]
         else:
             prior_w = prior_table.shape[1] * self.page_size
@@ -910,18 +1027,18 @@ class ContinuousBatchingEngine:
                     cache[name][:, :, :prior_w] = _gather_prior(pages, table, cfg.torch_dtype)
             logits, cache = llama_forward(self.params, cfg, ids_t,
                                           positions=positions + n_prior_t[:, None],
-                                          cache=cache, cache_index=n_prior_t)
+                                          cache=cache, cache_index=n_prior_t,
+                                          logit_index=last)
             # each row's new KV starts at its own offset in the primed cache
             window = n_prior_t[:, None] + torch.arange(width, device=dev)[None, :]
             rows = torch.arange(b, device=dev)[:, None]
             k_new, v_new = cache["k"][:, rows, window], cache["v"][:, rows, window]
         scatter_prefill(self.pool.k, self.pool.v, k_new, v_new,
                         self._to_device(scat.astype(np.int64)))
-        last = self._to_device(lens.astype(np.int64) - 1)
-        return logits[torch.arange(b, device=dev), last]
+        return logits[:, 0]
 
-    def decode_forward(self, tok: Tensor, lens: Tensor, page_table: Tensor,
-                       write_mask: Optional[Tensor] = None) -> Tensor:
+    def _decode_forward(self, tok: Tensor, lens: Tensor, page_table: Tensor,
+                        write_mask: Optional[Tensor] = None) -> Tensor:
         """One decode sub-step over the pool → logits [B, V]."""
         return paged_decode_forward(self.params, self.cfg, tok, lens, page_table,
                                     self.pool.k, self.pool.v, attn_impl=self.attn_impl,
@@ -935,7 +1052,7 @@ class ContinuousBatchingEngine:
         nothing back to the host."""
         st = self._st
         active = (~st.halted) & (st.idx < st.budgets)
-        logits = self.decode_forward(st.tok, st.lens, st.table, write_mask=active)
+        logits = self._decode_forward(st.tok, st.lens, st.table, write_mask=active)
         nxt, lp = sample_tokens(logits, self._gen, st.temps, st.top_ks,
                                 all_greedy=all_greedy, any_top_k=any_top_k)
         st.tok.copy_(torch.where(active, nxt, st.tok))
@@ -966,34 +1083,39 @@ class ContinuousBatchingEngine:
 
     def _capture_graph(self, variant: tuple, body, sampled: bool, after_warmup=None) -> None:
         """Run ``body`` once on a side stream (its warmup), then capture it
-        into a CUDA graph in the engine's graph pool, kept as ``variant``
-        with its launches per kernel. ``sampled`` bodies draw from the
-        engine's own generator."""
-        t0 = time.perf_counter()
-        current = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            body()
-        current.wait_stream(side)
-        if after_warmup is not None:
-            after_warmup()
-        if self._graph_pool is None:
-            self._graph_pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
-        if sampled:
-            graph.register_generator_state(self._gen)
-        before = [k.launches for k in KERNELS]
-        with torch.cuda.graph(graph, pool=self._graph_pool):
-            body()
-        launches = []
-        for kernel, n in zip(KERNELS, before):
-            captured = kernel.launches - n
-            launches.append((kernel, captured))
-            kernel.add_launches(-captured)
-        self._graphs[variant] = (graph, launches)
-        self.graph_captures += 1
-        self.graph_capture_s += time.perf_counter() - t0
+        on the engine's stream into a CUDA graph in the engine's graph
+        pool, kept as ``variant`` with its launches per kernel. ``sampled``
+        bodies draw from the engine's own generator. The capture's mode is
+        ``thread_local``: sibling engines' pumps keep launching, replaying
+        and waiting on their own streams meanwhile, and only this thread's
+        launches (:func:`launch_tally`) are charged to the graph."""
+        with CAPTURE_LOCK:
+            t0 = time.perf_counter()
+            current = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                body()
+            current.wait_stream(side)
+            if after_warmup is not None:
+                after_warmup()
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            if sampled:
+                graph.register_generator_state(self._gen)
+            with launch_tally() as tally, torch.cuda.graph(
+                    graph, pool=self._graph_pool, stream=self.stream,
+                    capture_error_mode="thread_local"):
+                body()
+            # the capture launched nothing: take its launches back off the
+            # counts and keep them to add at each replay
+            launches = [(kernel, tally.get(kernel, 0)) for kernel in KERNELS]
+            for kernel, captured in launches:
+                kernel.add_launches(-captured)
+            self._graphs[variant] = (graph, launches)
+            self.graph_captures += 1
+            self.graph_capture_s += time.perf_counter() - t0
 
     def _run_sub_steps(self, n_steps: int, variant: tuple[bool, bool]) -> None:
         if not (self.device.type == "cuda" and self.cuda_graphs):
@@ -1216,6 +1338,7 @@ class ContinuousBatchingEngine:
         """One admission group's prefill: suffix-only over the matched pages
         when ``pnb``, whole prompts otherwise. The first tokens stay on the
         device; each row's full-page span then enters the radix cache."""
+        faults.hit("paged.admit_scatter")
         rows_data, n_prior, prior_rows = [], [], []
         for slot_idx, req, tok_ids, shared in chunk:
             rows_data.append((tok_ids[shared:], req.temperature, req.top_k,
@@ -1276,7 +1399,7 @@ class ContinuousBatchingEngine:
             n_prior_arr = np.zeros(rows, np.int64)
             n_prior_arr[:n] = n_prior
         with self._phase.phase("prefill_dispatch"):
-            last = self.prefill_forward(ids, lens, scat, prior_table, n_prior_arr)
+            last = self._prefill_forward(ids, lens, scat, prior_table, n_prior_arr)
             if not do_sample:
                 return None, None
             first, first_lp = sample_tokens(
@@ -1293,6 +1416,7 @@ class ContinuousBatchingEngine:
         if not waiting:
             return
         i = min(waiting)[1]
+        faults.hit("paged.admit_scatter")
         slot = self.slots[i]
         seg = slot.prefill_todo[: self.prefill_chunk]
         is_last = len(slot.prefill_todo) <= self.prefill_chunk

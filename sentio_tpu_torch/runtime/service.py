@@ -33,9 +33,22 @@ per prefill shape and tick rung, a concurrent burst, and on the card every
 CUDA graph variant the engine can ask for, after which a capture under
 traffic is an error. Each shed or expiry is counted in
 ``sentio_tpu_shed_total`` by reason and each pump iteration's phases in
-``sentio_tpu_tick_phase_seconds`` (``infra/metrics.py``). Left out, with
-the replica tier: resumable streams, inbox handoff and adoption, the stall
-watchdog, tenants, tracing.
+``sentio_tpu_tick_phase_seconds`` (``infra/metrics.py``).
+
+The replica-facing half (a fronting :class:`~sentio_tpu_torch.runtime.
+replica.ReplicaSet`): each service has a ``replica_id``; the pump stamps a
+heartbeat every loop iteration, which :meth:`~PagedGenerationService.
+heartbeat_age` reports while work is pending (the stall watchdog's signal,
+stood down during warmup up to ``warmup_budget_s``); tickets carry the
+WFQ metadata (``tenant``, ``priority``, ``cost_tokens``) the quarantine
+handoff needs; :meth:`~PagedGenerationService.extract_inbox`,
+:meth:`~PagedGenerationService.adopt` and
+:meth:`~PagedGenerationService.abandon` move never-dispatched tickets to a
+sibling or give up on a wedged pump; a stream mirrors its delivered token
+ids into a caller-owned :class:`StreamProgress` and admits ``prior_tokens``
+after the prompt, which is how a stream is resumed on a survivor. The pump
+runs on the engine's own CUDA stream (``engine.step`` enters it). The
+flight recorder's tick ring and tracing are not ported.
 """
 
 from __future__ import annotations
@@ -52,6 +65,7 @@ from sentio_tpu_torch.infra.exceptions import (
     ReplicaUnavailable,
     ServiceOverloaded,
 )
+from sentio_tpu_torch.infra.flight import get_flight_recorder
 from sentio_tpu_torch.infra.metrics import get_metrics
 from sentio_tpu_torch.infra.phases import TICK_PHASES, duty_fractions
 from sentio_tpu_torch.runtime.paged import ContinuousBatchingEngine, PagedResult
@@ -59,11 +73,29 @@ from sentio_tpu_torch.runtime.paged import ContinuousBatchingEngine, PagedResult
 logger = logging.getLogger(__name__)
 
 __all__ = ["PagedGenerationService", "GenerationTimeout", "ServiceOverloaded",
-           "DeadlineExceededError", "ReplicaUnavailable"]
+           "DeadlineExceededError", "ReplicaUnavailable", "StreamProgress",
+           "finish_ticket_error"]
 
 
 class GenerationTimeout(Exception):
     pass
+
+
+class StreamProgress:
+    """The token ids behind every text piece one stream has yielded so far.
+    The stream rebinds ``tokens`` right before each yield (and to the
+    result's tokens at completion), so a consumer that sees a yield, or
+    catches the stream's mid-stream error, reads the exact delivered
+    prefix: what a resume re-admits on a survivor as ``prior_tokens``.
+    Producer and consumer are the same caller thread, so no lock."""
+
+    __slots__ = ("tokens",)
+
+    def __init__(self) -> None:
+        self.tokens: list[int] = []
+
+    def reset(self) -> None:
+        self.tokens = []
 
 
 @dataclass
@@ -89,15 +121,26 @@ class _Ticket:
     t_first: float = 0.0
     prior_tokens: Optional[list] = None
     seed: Optional[int] = None
+    # the serving layer's flight-record id (None: untraced)
+    request_id: Optional[str] = None
+    # WFQ metadata a fronting ReplicaSet stamps; the service never reads
+    # it, a quarantine handoff re-charges the reservation with it
+    tenant: Optional[str] = None
+    priority: Optional[str] = None
+    cost_tokens: int = 0
 
 
-def finish_ticket_error(ticket: _Ticket, exc: Exception) -> None:
-    """End a ticket with a typed error, exactly once: the error, a stream's
-    ``("err", exc)``, the event. The caller owns the ticket (holds the
-    service's mutex)."""
+def finish_ticket_error(ticket: _Ticket, exc: Exception, finish_reason: str) -> None:
+    """End a ticket with a typed error, exactly once: the error, the flight
+    record's engine outcome, a stream's ``("err", exc)``, the event. The
+    caller owns the ticket: it holds the owning service's mutex, or holds
+    the ticket off every service's books (a quarantine handoff)."""
     if ticket.event.is_set():
         return
     ticket.error = exc
+    if ticket.request_id:
+        get_flight_recorder().annotate(ticket.request_id, engine_finish=finish_reason,
+                                       engine_error=str(exc))
     if ticket.stream_q is not None:
         ticket.stream_q.put(("err", exc))
     ticket.event.set()
@@ -108,9 +151,17 @@ class PagedGenerationService:
 
     def __init__(self, engine: ContinuousBatchingEngine, default_timeout_s: float = 600.0,
                  max_queue: Optional[int] = None, default_deadline_s: Optional[float] = None,
-                 retry_budget: int = 1) -> None:
+                 retry_budget: int = 1, replica_id: int = 0,
+                 tick_stall_budget_s: float = 120.0, warmup_budget_s: float = 600.0) -> None:
         self.engine = engine
         self.default_timeout_s = default_timeout_s
+        # position in a ReplicaSet (0 for a standalone service)
+        self.replica_id = int(replica_id)
+        # a pump iteration longer than this with work pending reads as a
+        # wedged dispatch to the watchdog (0 disables); warmup ticks are
+        # exempt for up to warmup_budget_s (0: for all of warmup)
+        self.tick_stall_budget_s = max(float(tick_stall_budget_s), 0.0)
+        self.warmup_budget_s = max(float(warmup_budget_s), 0.0)
         # deep by default (8x the slots): shedding protects the tail against
         # pile-ups, it is not routine backpressure
         self.max_queue = (int(max_queue) if max_queue is not None
@@ -131,6 +182,13 @@ class PagedGenerationService:
         self._requeued = 0
         self._tick_failures = 0
         self._pump_leaked = 0
+        # the pump's liveness stamp (perf_counter), set each loop iteration
+        self._heartbeat_ts = 0.0
+        # latched by abandon(): the replica tier gave up on a wedged pump
+        self._abandoned = False
+        # warmup in progress: the watchdog stands down (warmup_budget_s)
+        self._warming = False
+        self._warming_since = 0.0
         # EMA of recent TTFT seconds: the projected wait admission weighs
         # against a deadline
         self._ttft_ema = 0.0
@@ -149,7 +207,9 @@ class PagedGenerationService:
     def generate(self, prompt: str, max_new_tokens: int = 64, temperature: float = 0.0,
                  timeout_s: Optional[float] = None, deadline_s: Optional[float] = None,
                  deadline_ts: Optional[float] = None, top_k: int = 0,
-                 seed: Optional[int] = None) -> PagedResult:
+                 seed: Optional[int] = None, request_id: Optional[str] = None,
+                 tenant: Optional[str] = None, priority: Optional[str] = None,
+                 cost_tokens: int = 0) -> PagedResult:
         """Submit one request and block until it is done; any number of
         threads may call at once (that concurrency is the batch).
         ``deadline_ts`` (absolute ``time.perf_counter()``) or ``deadline_s``
@@ -157,12 +217,15 @@ class PagedGenerationService:
         and the pump cancels the request once it passes. Raises
         :class:`ServiceOverloaded`, :class:`DeadlineExceededError` or
         :class:`GenerationTimeout`; with a draft on the engine, ``top_k > 0``
-        raises ``ValueError``."""
+        raises ``ValueError``. ``tenant``, ``priority`` and ``cost_tokens``
+        are a fronting ReplicaSet's WFQ metadata, kept on the ticket for a
+        quarantine handoff; a bare service ignores them."""
         self._check_top_k(top_k)
         deadline_ts = self._resolve_deadline(deadline_s, deadline_ts)
         ticket = _Ticket(prompt, max_new_tokens, temperature, top_k=top_k,
                          t_submit=time.perf_counter(), deadline_ts=deadline_ts,
-                         retries_left=self.retry_budget, seed=seed)
+                         retries_left=self.retry_budget, seed=seed, request_id=request_id,
+                         tenant=tenant, priority=priority, cost_tokens=int(cost_tokens))
         with self._mutex:
             self._admit_ticket_locked(ticket)
         wait_s = self._wait_budget(timeout_s, deadline_ts)
@@ -189,20 +252,38 @@ class PagedGenerationService:
                         deadline_ts: Optional[float] = None, top_k: int = 0,
                         stats_out: Optional[dict] = None,
                         prior_tokens: Optional[list] = None,
-                        seed: Optional[int] = None) -> Iterator[str]:
+                        seed: Optional[int] = None, request_id: Optional[str] = None,
+                        tenant: Optional[str] = None, priority: Optional[str] = None,
+                        cost_tokens: int = 0,
+                        progress: Optional[StreamProgress] = None) -> Iterator[str]:
         """Yield decoded text increments as the shared decode batch makes
-        them (up to a tick's tokens at a time), UTF-8 safe. Admission runs
-        at the first ``next()``. ``stats_out`` gets the finished request's
-        ``stats_dict()`` before the last piece; ``prior_tokens`` are
-        admitted after the prompt as context already generated, and only
-        what follows them is yielded. A deadline that passes mid-stream
-        raises :class:`DeadlineExceededError` from the iterator."""
+        them (up to a tick's tokens at a time), UTF-8 safe. ``top_k`` is
+        checked at the call; admission runs at the first ``next()``.
+        ``stats_out`` gets the finished request's ``stats_dict()`` before
+        the last piece; ``prior_tokens`` are admitted after the prompt as
+        context already generated, and only what follows them is yielded;
+        ``progress`` mirrors the token ids behind every yield. A deadline
+        that passes mid-stream raises :class:`DeadlineExceededError` from
+        the iterator; a decode failure after delivered tokens raises a
+        typed :class:`ReplicaUnavailable`, which a fronting ReplicaSet
+        resumes on a sibling."""
+        # here, not in the generator body, which runs only at the first
+        # next(): an SSE handler would have committed its 200 by then
         self._check_top_k(top_k)
-        deadline_ts = self._resolve_deadline(deadline_s, deadline_ts)
         ticket = _Ticket(prompt, max_new_tokens, temperature, top_k=top_k,
-                         stream_q=_queue.Queue(), t_submit=time.perf_counter(),
-                         deadline_ts=deadline_ts, retries_left=self.retry_budget,
-                         prior_tokens=list(prior_tokens) if prior_tokens else None, seed=seed)
+                         stream_q=_queue.Queue(),
+                         retries_left=self.retry_budget,
+                         prior_tokens=list(prior_tokens) if prior_tokens else None, seed=seed,
+                         request_id=request_id, tenant=tenant, priority=priority,
+                         cost_tokens=int(cost_tokens))
+        return self._stream(ticket, timeout_s, deadline_s, deadline_ts, stats_out, progress)
+
+    def _stream(self, ticket: _Ticket, timeout_s: Optional[float],
+                deadline_s: Optional[float], deadline_ts: Optional[float],
+                stats_out: Optional[dict],
+                progress: Optional[StreamProgress]) -> Iterator[str]:
+        ticket.deadline_ts = deadline_ts = self._resolve_deadline(deadline_s, deadline_ts)
+        ticket.t_submit = time.perf_counter()
         with self._mutex:
             self._admit_ticket_locked(ticket)
         tokenizer = self.engine.tokenizer
@@ -226,11 +307,19 @@ class PagedGenerationService:
                 else:  # "done"
                     result: PagedResult = payload
                     if result.finish_reason == "error":
-                        raise ReplicaUnavailable("paged decode failed mid-stream",
-                                                 retry_after_s=2.0)
+                        # this service cannot restart a stream that has
+                        # delivered tokens; a fronting ReplicaSet resumes it
+                        # on a sibling from ``progress``
+                        raise ReplicaUnavailable(
+                            "paged decode failed mid-stream", retry_after_s=2.0,
+                            details={"replica": self.replica_id, "reason": "mid_stream"})
                     emitted = list(result.tokens)
                     if stats_out is not None:
                         stats_out.update(result.stats_dict())
+                if progress is not None:
+                    # rebound before the yield: a consumer of this piece (or
+                    # of this iteration's error) reads exactly its tokens
+                    progress.tokens = list(emitted)
                 text = tokenizer.decode(emitted)
                 if kind == "done":
                     if len(text) > len(flushed):
@@ -289,9 +378,77 @@ class PagedGenerationService:
         with self._mutex:
             return self._projected_wait_locked(len(self._inbox) + len(self._tickets))
 
+    def heartbeat_age(self) -> Optional[float]:
+        """Seconds since the pump last began a loop iteration, or None when
+        there is nothing to detect: no pump, an abandoned service, no
+        pending work, or warmup within ``warmup_budget_s``. An age past
+        ``tick_stall_budget_s`` means a pump wedged inside a dispatch that
+        raises nothing: the watchdog's only signal for a hang."""
+        with self._mutex:
+            if not self._pump_running or self._abandoned:
+                return None
+            if self._warming and not (
+                    self.warmup_budget_s > 0 and self._warming_since > 0.0
+                    and time.perf_counter() - self._warming_since > self.warmup_budget_s):
+                return None
+            if not self._inbox and not self._tickets:
+                return None
+            if self._heartbeat_ts <= 0.0:
+                return None
+            return max(time.perf_counter() - self._heartbeat_ts, 0.0)
+
+    def extract_inbox(self) -> list[_Ticket]:
+        """Remove and return every inbox ticket not yet handed to the engine
+        (the quarantine handoff: they hold no KV, a sibling can adopt them
+        whole). Cancelled and expired ones are closed here instead. Safe
+        against a wedged pump, which blocks outside the mutex."""
+        now = time.perf_counter()
+        out: list[_Ticket] = []
+        with self._mutex:
+            for ticket in self._inbox:
+                if ticket.event.is_set():
+                    continue
+                if ticket.cancelled:
+                    self._cancelled += 1
+                    continue
+                if ticket.deadline_ts is not None and now >= ticket.deadline_ts:
+                    self._expired += 1
+                    get_metrics().record_shed("expired")
+                    finish_ticket_error(ticket, DeadlineExceededError(
+                        "deadline expired before admission"), "expired")
+                    continue
+                out.append(ticket)
+            self._inbox.clear()
+        return out
+
+    def adopt(self, ticket: _Ticket) -> None:
+        """Admit a ticket handed off from a quarantined sibling, through
+        the normal admission checks (which raise the typed errors a fresh
+        submit would)."""
+        with self._mutex:
+            self._admit_ticket_locked(ticket)
+
+    def abandon(self, reason: str) -> list[_Ticket]:
+        """Give up on this service because its pump is wedged: latch broken
+        (admissions answer 503), fail every admitted ticket with a typed
+        :class:`ReplicaUnavailable` (their KV dies with the engine: callers
+        fail over, delivered-token streams resume), and return the inbox
+        tickets for handoff. Never joins the pump; ``close()`` counts it in
+        ``pump_leaked`` if it outlives the join."""
+        exc = ReplicaUnavailable(f"replica abandoned: {reason}", retry_after_s=2.0,
+                                 details={"replica": self.replica_id, "reason": "stalled"})
+        with self._mutex:
+            self._abandoned = True
+            self._broken = True
+            for ticket in list(self._tickets.values()):
+                finish_ticket_error(ticket, exc, "stalled")
+            self._tickets.clear()
+        return self.extract_inbox()
+
     @property
     def broken(self) -> bool:
-        """Latched after a failed tick whose engine reset also failed."""
+        """Latched after a failed tick whose engine reset also failed, or by
+        :meth:`abandon`."""
         with self._mutex:
             return self._broken
 
@@ -299,6 +456,18 @@ class PagedGenerationService:
     def closed(self) -> bool:
         with self._mutex:
             return self._closed
+
+    @property
+    def tick_failure_count(self) -> int:
+        """Lifetime failed decode ticks (the supervisor's burst breaker)."""
+        with self._mutex:
+            return self._tick_failures
+
+    @property
+    def pump_leaked_count(self) -> int:
+        """Pumps that outlived their close() join (a wedged dispatch)."""
+        with self._mutex:
+            return self._pump_leaked
 
     def check_admission(self, deadline_ts: Optional[float] = None) -> None:
         """Raise what a submit right now would raise, without enqueuing."""
@@ -308,10 +477,12 @@ class PagedGenerationService:
 
     def _check_available_locked(self) -> None:
         if self._closed:
-            raise ReplicaUnavailable("generation service is closed", retry_after_s=5.0)
+            raise ReplicaUnavailable("generation service is closed", retry_after_s=5.0,
+                                     details={"replica": self.replica_id, "reason": "closed"})
         if self._broken:
-            raise ReplicaUnavailable("paged decode engine is down (reset failed)",
-                                     retry_after_s=5.0)
+            raise ReplicaUnavailable(
+                "paged decode engine is down (reset failed; awaiting supervised rebuild)",
+                retry_after_s=5.0, details={"replica": self.replica_id, "reason": "broken"})
 
     def _admit_ticket_locked(self, ticket: _Ticket) -> None:
         self._check_available_locked()
@@ -415,9 +586,11 @@ class PagedGenerationService:
         engine_stats = self.engine.stats()
         phase_seconds = {k: round(v, 6) for k, v in self._phase_totals.items()}
         duty = self.duty_cycle()
+        duty_elapsed = round(time.perf_counter() - self._duty_t0, 6)
         with self._mutex:
             return {
                 **engine_stats,
+                "replica": self.replica_id,
                 "queued_inbox": len(self._inbox),
                 "ticks": self._ticks,
                 "completed": self._completed,
@@ -434,7 +607,11 @@ class PagedGenerationService:
                 "tick_failures": self._tick_failures,
                 "pump_leaked": self._pump_leaked,
                 "broken": int(self._broken),
+                "abandoned": int(self._abandoned),
+                "tick_stall_budget_s": self.tick_stall_budget_s,
+                "warmup_budget_s": self.warmup_budget_s,
                 "phase_seconds": phase_seconds,
+                "duty_elapsed_s": duty_elapsed,
                 "duty_cycle": duty,
             }
 
@@ -452,7 +629,19 @@ class PagedGenerationService:
         * a concurrent burst for the multi-row admission buckets.
 
         Returns the prompt count, the seconds, and the graph captures and
-        capture seconds it took."""
+        capture seconds it took. The stall watchdog stands down meanwhile
+        (for up to ``warmup_budget_s``)."""
+        with self._mutex:
+            self._warming = True
+            self._warming_since = time.perf_counter()
+        try:
+            return self._warmup(max_new_tokens)
+        finally:
+            with self._mutex:
+                self._warming = False
+                self._warming_since = 0.0
+
+    def _warmup(self, max_new_tokens: int) -> dict:
         eng = self.engine
         t0 = time.perf_counter()
         captures0, capture_s0 = eng.graph_captures, eng.graph_capture_s
@@ -528,6 +717,9 @@ class PagedGenerationService:
     def _ensure_pump(self) -> None:
         if not self._pump_running:
             self._pump_running = True
+            # a fresh burst's liveness: the previous burst's last stamp would
+            # read as a stall in the new pump's spawn window
+            self._heartbeat_ts = time.perf_counter()
             self._pump = threading.Thread(target=self._run, name="paged-decode-pump",
                                           daemon=True)
             self._pump.start()
@@ -539,6 +731,9 @@ class PagedGenerationService:
         while True:
             t_iter = now = time.perf_counter()
             with self._mutex:
+                # the watchdog's liveness stamp: a tick wedged in the dispatch
+                # below leaves it ageing while work waits
+                self._heartbeat_ts = now
                 for ticket in self._inbox:
                     if ticket.cancelled:
                         self._cancelled += 1
@@ -547,7 +742,7 @@ class PagedGenerationService:
                         self._expired += 1
                         get_metrics().record_shed("expired")
                         finish_ticket_error(ticket, DeadlineExceededError(
-                            "deadline expired before admission"))
+                            "deadline expired before admission"), "expired")
                         continue
                     rid = self.engine.submit(
                         ticket.prompt, max_new_tokens=ticket.max_new_tokens,
@@ -568,7 +763,7 @@ class PagedGenerationService:
                         self._expired += 1
                         get_metrics().record_shed("expired")
                         finish_ticket_error(ticket, DeadlineExceededError(
-                            "deadline expired mid-decode; request cancelled"))
+                            "deadline expired mid-decode; request cancelled"), "expired")
                 if self._closed or not self.engine.has_work:
                     # flips under the mutex: a racing submit either landed
                     # above or sees the pump stopped and starts a new one
@@ -595,6 +790,7 @@ class PagedGenerationService:
             active = self.engine.last_tick_active
             t_deliver = now = time.perf_counter()
             with self._mutex:
+                self._heartbeat_ts = now  # the tick came back
                 self._ticks += 1
                 self._active_sum += active
                 self._max_active = max(self._max_active, active)
@@ -610,6 +806,7 @@ class PagedGenerationService:
                         ticket.stream_q.put(("toks", list(slot.emitted[ticket.sent_tokens:])))
                         ticket.sent_tokens = len(slot.emitted)
                 for result in finished:
+                    result.replica_id = self.replica_id
                     ticket = self._tickets.pop(result.request_id, None)
                     if ticket is None:
                         continue
@@ -618,7 +815,7 @@ class PagedGenerationService:
                         self._expired += 1
                         get_metrics().record_shed("expired")
                         finish_ticket_error(ticket, DeadlineExceededError(
-                            "deadline expired while queued for a slot"))
+                            "deadline expired while queued for a slot"), "expired")
                         continue
                     self._completed += 1
                     if ticket.t_first == 0.0:

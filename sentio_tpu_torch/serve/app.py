@@ -5,16 +5,25 @@ per connection; the machine with the card has no aiohttp).
 Routes: ``POST /chat`` (JSON, or SSE with ``"stream": true``), ``POST
 /embed``, ``POST /upload`` (multipart, parsed with ``email.parser``),
 ``POST /clear``, ``GET /health``, ``/health/ready``, ``/health/live``,
-``/info``, ``/metrics`` (Prometheus text) and ``/debug/flight/{id}`` (a
-request's flight record in JSON, where a detached verdict lands). As in JAX: per-IP
+``/health/detailed``, ``/info``, ``/metrics`` (Prometheus text) and
+``/debug/flight/{id}`` (a request's flight record in JSON, where a detached
+verdict lands). As in JAX: per-IP
 sliding-window rate limits (``/embed`` and ``/upload`` share the tight
 bucket), security headers on every response, 422 bodies listing each bad
 field, typed errors mapped by ``ErrorHandler`` with ``Retry-After`` on
 sheds and rate limits, the caller's deadline from ``deadline_ms`` or
 ``X-Deadline-Ms`` (else ``DEADLINE_MS``), request counts and latencies
-recorded by endpoint and status.
+recorded by endpoint and status. The replica tier's request headers:
+``X-Tenant`` (a header-safe key; else the shared tenant) and ``X-Priority:
+batch`` pick the WFQ tenant and tier a chat's admissions charge;
+``X-Resumable: 0`` (or the body's ``resumable: false``) opts a stream out
+of resume-by-replay. ``/health`` is ``degraded`` (200) while some replica
+serves and ``unhealthy`` (503) at none; ``/metrics`` carries a
+``sentio_tpu_replica_stat`` row set per replica; ``/info`` names the
+replica count and mode under ``generator.replicas``.
 
-SSE: admission is checked before the 200 is committed; the body is
+SSE: admission (the tenant's WFQ test and the routed replica's own
+check) is checked before the 200 is committed; the body is
 chunked, one flush per event (``data: {"sources": ...}``, ``data:
 {"token": ...}``…, ``data: {"verdict": ...}``, ``data: [DONE]``; under
 ``VERIFY_MODE=async|gated`` ``data: [DONE]`` as soon as the answer is
@@ -27,9 +36,8 @@ ticket and frees its slot.
 (``python -m sentio_tpu_torch serve``) builds the pipeline, warms it up,
 loads ``--index`` / ``INDEX_PATH``, serves until SIGINT or SIGTERM, then
 drains the generation service. Left out: auth, the UI page, the flight
-recorder's tick ring, ``/debug/flight``'s Chrome format, ``/debug/profile``,
-``/health/detailed`` and ``/metrics/performance``; ``AUTH_ENABLED=1``
-raises.
+recorder's tick ring, ``/debug/flight``'s Chrome format, ``/debug/profile``
+and ``/metrics/performance``; ``AUTH_ENABLED=1`` raises.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ import re
 import select
 import signal
 import socket
+import sys
 import tempfile
 import threading
 import time
@@ -61,7 +70,12 @@ from sentio_tpu_torch.infra.metrics import get_metrics
 from sentio_tpu_torch.infra.security import SECURITY_HEADERS, IPRateLimiter, RateLimitConfig
 from sentio_tpu_torch.ops.ingest import SUPPORTED_SUFFIXES
 from sentio_tpu_torch.infra.flight import get_flight_recorder
-from sentio_tpu_torch.pipeline import ChatPipeline, check_verify_mode
+from sentio_tpu_torch.pipeline import ChatPipeline, check_replica_settings, check_verify_mode
+from sentio_tpu_torch.runtime.replica import (
+    DEFAULT_TENANT,
+    PRIORITY_BATCH,
+    PRIORITY_INTERACTIVE,
+)
 from sentio_tpu_torch.serve.handlers import ChatHandler, HealthHandler
 from sentio_tpu_torch.serve.schemas import (
     MAX_DEADLINE_MS,
@@ -114,6 +128,7 @@ def check_serve_settings(settings: Settings) -> None:
     if settings.cache.backend == "multi_tier":
         raise NotImplementedError("CACHE_BACKEND=multi_tier: the Redis L2 cache is not ported")
     check_verify_mode(settings.generator.verify_mode)
+    check_replica_settings(settings.serve)
 
 
 class SentioHTTPServer(ThreadingHTTPServer):
@@ -121,6 +136,18 @@ class SentioHTTPServer(ThreadingHTTPServer):
 
     daemon_threads = True
     allow_reuse_address = True
+    # the listen backlog: socketserver's 5 resets connections of a burst
+    # that arrives while the accept loop waits for the interpreter lock
+    # (aiohttp, the JAX server, listens with 128)
+    request_queue_size = 128
+
+    def handle_error(self, request, client_address) -> None:
+        """A client that went away between requests (an SSE client closes
+        after ``[DONE]``) is not a server error."""
+        if isinstance(sys.exc_info()[1], (ConnectionResetError, BrokenPipeError)):
+            logger.debug("client %s went away", client_address)
+            return
+        super().handle_error(request, client_address)
 
     def __init__(self, address, settings: Settings, pipeline: ChatPipeline,
                  cache_manager: Optional[CacheManager] = None,
@@ -180,6 +207,27 @@ def _resolve_deadline_ts(headers, req, serve_cfg) -> Optional[float]:
     return time.perf_counter() + deadline_ms / 1e3
 
 
+_TENANT_RE = re.compile(r"[A-Za-z0-9._:-]{1,64}")
+
+
+def _request_tenant(headers) -> tuple[str, str]:
+    """(tenant, priority): a header-safe ``X-Tenant`` value, else the
+    shared tenant (auth principals are not ported); ``X-Priority: batch``
+    picks the shed-earlier tier, anything else is interactive."""
+    raw = headers.get("X-Tenant", "").strip()
+    tenant = raw if raw and _TENANT_RE.fullmatch(raw) else DEFAULT_TENANT
+    batch = headers.get("X-Priority", "").strip().lower() == "batch"
+    return tenant, PRIORITY_BATCH if batch else PRIORITY_INTERACTIVE
+
+
+def _resolve_resumable(headers, req) -> bool:
+    """The body's ``resumable`` beats ``X-Resumable`` beats the default
+    (resume); only the explicit falsy header values opt out."""
+    if req.resumable is not None:
+        return bool(req.resumable)
+    return headers.get("X-Resumable", "").strip().lower() not in ("0", "false", "no", "off")
+
+
 def _device_stats(pipeline: ChatPipeline) -> dict:
     """``/info``'s device section, in the JAX engine's ``device_stats``
     shape."""
@@ -204,14 +252,19 @@ _SERVING_STATS = ("active_slots", "queued", "queued_inbox", "free_pages", "avg_a
                   "max_queue", "draining", "pool_hbm_bytes")
 _SERVING_EVENTS = ("ticks", "completed", "ttft_count", "prefix_hits", "prefix_misses",
                    "prefix_hit_tokens", "prefix_miss_tokens", "spec_verifies", "spec_emitted",
-                   "shed", "expired", "cancelled", "requeued", "tick_failures", "pump_leaked")
+                   "shed", "expired", "cancelled", "requeued", "tick_failures", "pump_leaked",
+                   "failovers")
+_REPLICA_STATS = ("active_slots", "queued", "queued_inbox", "free_pages", "prefix_cache_pages",
+                  "prefix_hit_token_ratio", "pool_hbm_bytes", "ttft_p50_ms", "completed",
+                  "shed")
 
 
 def publish_serving_gauges(pipeline: ChatPipeline) -> Optional[dict]:
-    """Refresh the service's metrics at scrape time (occupancy, queue depth,
-    free pages, lifetime totals, the pump's duty cycle); returns the stats
-    (None without a service)."""
-    service = pipeline.service
+    """Refresh the generation tier's metrics at scrape time (occupancy,
+    queue depth, free pages, lifetime totals, each replica's duty cycle and
+    its ``sentio_tpu_replica_stat`` rows); returns the stats (None without
+    a service)."""
+    service = pipeline.generator.provider.service
     if service is None:
         return None
     stats = service.stats()
@@ -222,8 +275,13 @@ def publish_serving_gauges(pipeline: ChatPipeline) -> Optional[dict]:
     for event in _SERVING_EVENTS:
         if event in stats:
             m.bump_serving_total(event, float(stats[event]))
-    if stats.get("duty_cycle"):
-        m.record_duty_cycle(0, stats["duty_cycle"])
+    for row in stats.get("replicas") or [stats]:
+        if row.get("duty_cycle"):
+            m.record_duty_cycle(row.get("replica", 0), row["duty_cycle"])
+    for row in stats.get("replicas", ()):
+        for key in _REPLICA_STATS:
+            if key in row:
+                m.set_replica_stat(row.get("replica", 0), key, float(row[key]))
     return stats
 
 
@@ -255,6 +313,7 @@ class _Handler(BaseHTTPRequestHandler):
             "/health": ("GET", self._health),
             "/health/ready": ("GET", self._health_ready),
             "/health/live": ("GET", self._health_live),
+            "/health/detailed": ("GET", self._health_detailed),
             "/info": ("GET", self._info),
             "/metrics": ("GET", self._metrics),
         }
@@ -374,18 +433,25 @@ class _Handler(BaseHTTPRequestHandler):
         settings = self.server.settings
         req = parse_chat_request(self._json_body(), settings.serve)
         deadline_ts = _resolve_deadline_ts(self.headers, req, settings.serve)
+        tenant, priority = _request_tenant(self.headers)
         if req.stream:
             # shed before the 200 is committed: after it a stream can only
             # end with a typed error event
-            service = self.server.pipeline.service
+            service = self.server.pipeline.generator.provider.service
             if service is not None:
-                service.check_admission(deadline_ts)
-            return self._chat_stream(req, deadline_ts)
+                # the tenant's WFQ test and the routed replica's admission,
+                # as the submit will see them
+                service.check_admission(deadline_ts, tenant=tenant, priority=priority,
+                                        prompt=req.question)
+            return self._chat_stream(req, deadline_ts, tenant, priority,
+                                     _resolve_resumable(self.headers, req))
         return _json(self.server.chat_handler.process_chat_request_sync(
             question=req.question, top_k=req.top_k, temperature=req.temperature,
-            mode=req.mode, thread_id=req.thread_id, deadline_ts=deadline_ts))
+            mode=req.mode, thread_id=req.thread_id, deadline_ts=deadline_ts,
+            tenant=tenant, priority=priority))
 
-    def _chat_stream(self, req, deadline_ts: Optional[float]) -> _Streamed:
+    def _chat_stream(self, req, deadline_ts: Optional[float], tenant: str, priority: str,
+                     resumable: bool) -> _Streamed:
         """SSE: the handler's events are produced on a thread of their own
         into a bounded queue; this thread writes them, one chunk and one
         flush each, with a keepalive comment after ``sse_keepalive_s`` of
@@ -415,7 +481,8 @@ class _Handler(BaseHTTPRequestHandler):
         def produce() -> None:
             stream = self.server.chat_handler.stream_chat_sync(
                 question=req.question, top_k=req.top_k, temperature=req.temperature,
-                mode=req.mode, deadline_ts=deadline_ts, request_id=request_id)
+                mode=req.mode, deadline_ts=deadline_ts, request_id=request_id,
+                tenant=tenant, priority=priority, resumable=resumable)
             try:
                 for item in stream:
                     if not put(item):
@@ -575,6 +642,9 @@ class _Handler(BaseHTTPRequestHandler):
     def _health_live(self):
         return _json(self.server.health_handler.live())
 
+    def _health_detailed(self):
+        return _json(self.server.health_handler.detailed(_device_stats(self.server.pipeline)))
+
     def _info(self):
         settings, pipeline = self.server.settings, self.server.pipeline
         return _json({
@@ -592,6 +662,9 @@ class _Handler(BaseHTTPRequestHandler):
                 "preset": settings.generator.model_preset,
                 "verifier": settings.generator.use_verifier,
                 "speculative": pipeline.speculative_info,
+                "replicas": ({"count": pipeline.replica_set.replicas,
+                              "mode": "thread"} if pipeline.replica_set is not None
+                             else None),
             },
             "device": _device_stats(pipeline),
         })
@@ -651,8 +724,8 @@ def run_server(settings: Optional[Settings] = None, device=None, seed: int = 0,
         server.shutdown()
         server.server_close()
         thread.join(timeout=10.0)
-        if pipeline.service is not None:
-            outcome = pipeline.service.drain(settings.serve.drain_deadline_s)
+        if pipeline.generator.provider.service is not None:
+            outcome = pipeline.generator.provider.service.drain(settings.serve.drain_deadline_s)
             if not outcome.get("drained", True):
                 logger.warning("shutdown drain abandoned %d in-flight request(s)",
                                outcome.get("abandoned", 0))

@@ -17,12 +17,15 @@ path over the same retrieve → rerank → select stages
 ``VERIFY_MODE=async|gated`` a ``done`` as soon as the answer is complete
 and a trailing ``verify`` — or a typed ``error`` event for shed or
 expired work. Both open and close the request's flight record, which
-``GET /debug/flight/{id}`` serves.
+``GET /debug/flight/{id}`` serves. :class:`HealthHandler` answers
+``/health`` from the replica tier's health summary and ``/health/detailed``
+from each component's probe.
 """
 
 from __future__ import annotations
 
 import logging
+import threading
 import time
 import uuid
 from typing import Any, Iterator, Optional
@@ -67,7 +70,9 @@ class ChatHandler:
     def process_chat_request_sync(self, question: str, top_k: Optional[int] = None,
                                   temperature: Optional[float] = None, mode: str = "balanced",
                                   thread_id: Optional[str] = None,
-                                  deadline_ts: Optional[float] = None) -> dict[str, Any]:
+                                  deadline_ts: Optional[float] = None,
+                                  tenant: Optional[str] = None,
+                                  priority: Optional[str] = None) -> dict[str, Any]:
         t0 = time.perf_counter()
         query_id = thread_id or uuid.uuid4().hex[:12]
         metadata: dict[str, Any] = {"query_id": query_id, "mode": mode,
@@ -76,6 +81,11 @@ class ChatHandler:
             metadata["user_top_k"] = top_k
         if temperature is not None:
             metadata["temperature"] = temperature
+        # the WFQ tenant and tier the generate and verify admissions charge
+        if tenant is not None:
+            metadata["tenant"] = tenant
+        if priority is not None:
+            metadata["priority"] = priority
         # the flight record opens here; the pipeline and a detached verify
         # add to it under the same id
         recorder = get_flight_recorder()
@@ -85,7 +95,8 @@ class ChatHandler:
                if deadline_ts is not None else {}))
         try:
             state = self.pipeline.run(question, top_k=top_k, temperature=temperature,
-                                      mode=mode, metadata=metadata, deadline_ts=deadline_ts)
+                                      mode=mode, metadata=metadata, deadline_ts=deadline_ts,
+                                      tenant=tenant, priority=priority)
             get_metrics().record_retrieval(self.settings.retrieval.strategy,
                                            state["metadata"]["node_timings_ms"]["retrieve"]
                                            / 1e3)
@@ -152,7 +163,9 @@ class ChatHandler:
     def stream_chat_sync(self, question: str, top_k: Optional[int] = None,
                          temperature: Optional[float] = None, mode: str = "balanced",
                          deadline_ts: Optional[float] = None,
-                         request_id: Optional[str] = None) -> Iterator[tuple[str, Any]]:
+                         request_id: Optional[str] = None, tenant: Optional[str] = None,
+                         priority: Optional[str] = None,
+                         resumable: bool = True) -> Iterator[tuple[str, Any]]:
         """Typed events for SSE over the same stages as ``/chat``:
         ``("sources", [...])`` once, ``("token", str)`` per increment, then
         by ``VERIFY_MODE``: ``sync`` — ``("verdict", {...})``; ``gated``
@@ -166,8 +179,11 @@ class ChatHandler:
         expired request ends with ``("error", {...})``; a failed retrieval
         and any other failure before the answer degrade to the ladder's
         text as one ``token``. ``request_id`` names the stream's flight
-        record. Closing the generator (a client that went away) cancels
-        the decode."""
+        record; ``tenant`` and ``priority`` charge the answer's admission
+        (as in JAX, not the trailing audit's); ``resumable=False`` keeps a
+        mid-stream replica death a typed ``error`` event instead of a
+        resume on a survivor. Closing the generator (a client that went
+        away) cancels the decode."""
         pipeline, settings = self.pipeline, self.settings
         recorder = get_flight_recorder()
         t0 = time.perf_counter()
@@ -205,7 +221,9 @@ class ChatHandler:
             t = time.perf_counter()
             for piece in pipeline.generator.stream(question, selected, mode=mode,
                                                    temperature=temperature,
-                                                   deadline_ts=deadline_ts, stats=gen_stats):
+                                                   deadline_ts=deadline_ts, stats=gen_stats,
+                                                   tenant=tenant, priority=priority,
+                                                   resumable=resumable):
                 chunks.append(piece)
                 yield ("token", piece)
             timings["generate"] = round((time.perf_counter() - t) * 1e3, 3)
@@ -284,18 +302,33 @@ class ChatHandler:
 
 
 class HealthHandler:
-    """basic / live / ready. Ready means the pipeline's warmup has run."""
+    """basic / detailed / live / ready. Ready means the pipeline's warmup
+    has run; basic folds in the replica tier's health (``degraded`` while
+    at least one replica serves, ``unhealthy`` at none); detailed probes
+    each component, cached for ``CACHE_TTL_S``."""
+
+    CACHE_TTL_S = 10.0
 
     def __init__(self, pipeline: ChatPipeline) -> None:
         self.pipeline = pipeline
         self.started_at = time.perf_counter()
+        self._cached: Optional[dict[str, Any]] = None
+        self._cached_at = 0.0
+        self._lock = threading.Lock()
 
     def basic(self) -> dict[str, Any]:
-        return {
+        out = {
             "status": "healthy",
             "service": "sentio-tpu",
             "uptime_s": round(time.perf_counter() - self.started_at, 1),
         }
+        replicas = self.pipeline.replica_set
+        if replicas is not None:
+            summary = replicas.health_summary()
+            out["status"] = summary["status"]
+            out["replicas"] = {k: summary[k] for k in ("healthy_replicas", "serving_replicas",
+                                                       "total_replicas", "replicas")}
+        return out
 
     def live(self) -> dict[str, Any]:
         return {"status": "alive"}
@@ -303,3 +336,46 @@ class HealthHandler:
     def ready(self) -> dict[str, Any]:
         ready = bool(self.pipeline.ready)
         return {"status": "ready" if ready else "initializing", "ready": ready}
+
+    def detailed(self, engine: dict[str, Any]) -> dict[str, Any]:
+        """JAX's ``/health/detailed``: the basic report, each component's
+        probe (``engine`` is the device section the caller computed), and
+        ``breakers``: the replica tier's breakers (JAX's registry of
+        ``CircuitBreaker`` objects is empty on the default path and not
+        ported). The status is ``degraded`` when a component is not
+        healthy."""
+        with self._lock:
+            now = time.perf_counter()
+            if self._cached is not None and now - self._cached_at < self.CACHE_TTL_S:
+                return {**self._cached, "cached": True}
+            components = self._components(engine)
+            healthy = all(c.get("healthy", True) for c in components.values()
+                          if isinstance(c, dict))
+            basic = self.basic()
+            components["breakers"] = {
+                f"replica_{r['replica']}": {"name": f"replica_{r['replica']}",
+                                            "state": r["state"], "rebuilds": r["rebuilds"]}
+                for r in basic.get("replicas", {}).get("replicas", [])}
+            report = {**basic, "status": "healthy" if healthy else "degraded",
+                      "components": components, "cached": False}
+            self._cached, self._cached_at = report, now
+            return report
+
+    def _components(self, engine: dict[str, Any]) -> dict[str, Any]:
+        pipeline = self.pipeline
+        out: dict[str, Any] = {"dense_index": {"healthy": True, "size": pipeline.index.size}}
+        if pipeline.bm25_index is not None:
+            out["sparse_index"] = {"healthy": True, "size": pipeline.bm25_index.size}
+        try:
+            vec = pipeline.embedder.embed_many(["health probe"])[0]
+            out["embedder"] = {"healthy": len(vec) == pipeline.embedder.dimension}
+        except Exception as exc:  # noqa: BLE001 — a probe reports, never raises
+            out["embedder"] = {"healthy": False, "error": str(exc)}
+        out["engine"] = {"healthy": True, **engine}
+        service = pipeline.generator.provider.service
+        if service is not None:
+            try:
+                out["generation_service"] = {"healthy": True, **service.stats()}
+            except Exception as exc:  # noqa: BLE001
+                out["generation_service"] = {"healthy": False, "error": str(exc)}
+        return out

@@ -43,8 +43,10 @@ class ChatRequest:
     # header and the serve default fill it when absent) — the decode service
     # sheds/cancels work that cannot finish inside it
     deadline_ms: Optional[float] = None
-    # streaming session continuity opt-out, validated as in JAX; this
-    # package has no replica tier, so no stream is ever resumed
+    # stream resumption opt-out: False keeps a mid-stream replica death a
+    # typed error event instead of a resume of the delivered prefix on a
+    # survivor. None = the server default (the X-Resumable header, else
+    # resume)
     resumable: Optional[bool] = None
 
 

@@ -549,6 +549,44 @@ def test_no_capture_after_warmup(dev):
         service.close()
 
 
+def test_forward_calls_need_no_stream_context(dev):
+    """``prefill_forward`` and ``decode_forward`` called with no stream
+    context run on the engine's stream (queued here behind a sleep there)
+    and hand back logits the caller's stream can read at once: equal to the
+    same calls made inside ``on_stream()`` and synchronized, with the
+    caller's stream current again after."""
+    import numpy as np
+
+    engine = _engine(dev)
+    n = 40
+    width = engine._prefill_width(n)
+    pages = engine.allocator.alloc(width // engine.page_size)
+    ids = np.full((1, width), engine.tokenizer.pad_id, np.int64)
+    ids[0, :n] = np.arange(n) % 200 + 10
+    scat = np.asarray([pages], np.int64)
+    row = torch.zeros((1, engine.max_pages_per_seq), dtype=torch.int32)
+    row[0, :len(pages)] = torch.tensor(pages, dtype=torch.int32)
+
+    def run():
+        table = row.to(dev)
+        out = [engine.prefill_forward(ids, np.asarray([n]), scat)]
+        for s in range(3):
+            lens = torch.tensor([n + s], dtype=torch.int32, device=dev)
+            out.append(engine.decode_forward(out[-1].argmax(-1), lens, table))
+        return torch.stack([x[0] for x in out])
+
+    caller = torch.cuda.current_stream(dev)
+    assert caller != engine.stream
+    with torch.cuda.stream(engine.stream):
+        torch.cuda._sleep(100_000_000)
+    free = run().cpu()
+    assert torch.cuda.current_stream(dev) == caller
+    with engine.on_stream():
+        ref = run()
+    torch.cuda.synchronize()
+    assert torch.isfinite(free).all() and torch.equal(free, ref.cpu())
+
+
 def test_http_server_on_the_card(dev):
     """A 2-layer pipeline behind ``create_server`` on the card answers one
     JSON and one SSE ``/chat`` after warmup: both 200 and not degraded

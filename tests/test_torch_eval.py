@@ -325,3 +325,21 @@ def test_verify_quality_gate():
                 or (gated_v[q] == "skipped_confident" and sync_v[q] == "pass"))
     assert agree / len(common) >= gate["min_verdict_agreement"]
     assert gated_row.get("verify_skip_rate", 0.0) <= gate["max_skip_rate"]
+
+
+def test_full_paged_rows_unchanged_by_the_replica_wrapper(monkeypatch):
+    """``full_paged`` runs on a one-replica ``ReplicaSet``, as JAX's eval
+    does; its rows (recall, answers, verdicts, errors) equal a run on the
+    bare service, timings aside."""
+    from sentio_tpu_torch.runtime import replica
+
+    def untimed(payload):
+        (row,) = payload["rows"]
+        return {k: v for k, v in row.items()
+                if not any(t in k for t in ("_ms", "qps", "_s", "seconds"))}
+
+    wrapped = run_eval(**GATE_ARGS)
+    monkeypatch.setattr(replica, "ReplicaSet", lambda services, **kw: services[0])
+    bare = run_eval(**GATE_ARGS)
+    assert untimed(wrapped) == untimed(bare)
+    assert untimed(wrapped)["recall@10"] > 0 and untimed(wrapped)["answer_chars_mean"] > 0

@@ -54,7 +54,8 @@ def test_every_module_imports_with_jax_blocked():
             "sentio_tpu_torch.runtime.paged_spec", "sentio_tpu_torch.eval.runner",
             "sentio_tpu_torch.eval.baseline", "sentio_tpu_torch.eval.train_encoder",
             "sentio_tpu_torch.infra.flight", "sentio_tpu_torch.infra.http_client",
-            "sentio_tpu_torch.ops.confidence"} <= set(modules)
+            "sentio_tpu_torch.ops.confidence", "sentio_tpu_torch.runtime.replica",
+            "sentio_tpu_torch.infra.faults"} <= set(modules)
     script = (
         "import sys, importlib\n"
         f"for name in {sorted(FORBIDDEN)!r}:\n"

@@ -104,6 +104,22 @@ def test_attention(masked):
            J.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jm, jnp.float32))
 
 
+@pytest.mark.parametrize("masked", ["none", "causal", "per_row"])
+def test_attention_in_query_blocks_is_unchanged(masked, monkeypatch):
+    """Past ``ATTENTION_SCORE_BYTES`` the queries go in blocks (here of 2):
+    every query row's result is the unblocked one's (the products' sums may
+    run in another order), whatever the mask's shape."""
+    rng = _rng(7)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 9, 3, 8)).astype(np.float32))
+               for _ in range(3))
+    mask = {"none": None, "causal": T.causal_mask(9),
+            "per_row": torch.from_numpy(rng.random((2, 1, 9, 9)) < 0.7)}[masked]
+    whole = T.attention(q, k, v, mask, torch.float32)
+    monkeypatch.setattr(T, "ATTENTION_SCORE_BYTES", 2 * 3 * 9 * 4 * 2)
+    np.testing.assert_allclose(T.attention(q, k, v, mask, torch.float32).numpy(),
+                               whole.numpy(), atol=ATOL, rtol=0)
+
+
 @pytest.mark.parametrize("n_rep", [1, 2, 4])
 def test_repeat_kv(n_rep):
     x = _rng(7).standard_normal((2, 5, 2, 4)).astype(np.float32)

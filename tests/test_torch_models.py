@@ -130,6 +130,19 @@ def test_llama_prefill_logits_and_cache_f32():
                                    atol=ATOL, rtol=0)
 
 
+def test_llama_logit_index_gives_those_rows_logits_f32():
+    """``logit_index`` (what a prefill samples from: each row's last prompt
+    token) gives exactly those positions' rows of the full logits."""
+    _jcfg, tcfg, _tree, params = _llama("float32")
+    ids = torch.from_numpy(np.random.default_rng(8).integers(0, 512, (3, 11)))
+    full, _ = tllama.llama_forward(params, tcfg, ids)
+    index = torch.tensor([10, 0, 6])
+    got, _ = tllama.llama_forward(params, tcfg, ids, logit_index=index)
+    assert got.shape == (3, 1, tcfg.vocab_size)
+    np.testing.assert_allclose(got[:, 0].numpy(), full[torch.arange(3), index].numpy(),
+                               atol=ATOL, rtol=0)
+
+
 def test_llama_scoring_path_with_padding_f32():
     jcfg, tcfg, tree, params = _llama("float32")
     ids = np.random.default_rng(7).integers(0, 512, (2, 12)).astype(np.int32)

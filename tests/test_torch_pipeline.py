@@ -151,19 +151,29 @@ def _build(shared, strategy, kv_quant):
     return graph, pipeline
 
 
+def _built(shared, strategy, kv_quant):
+    """``_build``'s pair, the port's pipeline closed after the module (its
+    replica supervisor thread stops)."""
+    graph, pipeline = _build(shared, strategy, kv_quant)
+    try:
+        yield graph, pipeline
+    finally:
+        pipeline.close()
+
+
 @pytest.fixture(scope="module")
 def both(shared):
-    return _build(shared, "dense", "none")
+    yield from _built(shared, "dense", "none")
 
 
 @pytest.fixture(scope="module")
 def hybrid(shared):
-    return _build(shared, "hybrid", "none")
+    yield from _built(shared, "hybrid", "none")
 
 
 @pytest.fixture(scope="module")
 def hybrid_int8(shared):
-    return _build(shared, "hybrid", "int8")
+    yield from _built(shared, "hybrid", "int8")
 
 
 def _assert_same_chat(graph, pipeline, question):
@@ -259,10 +269,14 @@ def test_engine_settings_reach_the_engine(monkeypatch, prefix_cache, depth, chun
     settings.embedder = dataclasses.replace(settings.embedder, model_preset="tiny")
     settings.generator = dataclasses.replace(settings.generator, model_preset="tiny",
                                              kv_page_size=16, kv_max_pages_per_seq=8)
-    engine = build_pipeline(settings, device="cpu").generator.provider.engine
-    assert (engine._radix is not None) == prefix_cache
-    assert engine.pipeline_depth == depth
-    assert engine.prefill_chunk == (chunk or None)
+    pipeline = build_pipeline(settings, device="cpu")
+    try:
+        engine = pipeline.generator.provider.engine
+        assert (engine._radix is not None) == prefix_cache
+        assert engine.pipeline_depth == depth
+        assert engine.prefill_chunk == (chunk or None)
+    finally:
+        pipeline.close()
 
 
 @pytest.mark.parametrize("strategy,kv_quant", [("hybrid", "none"), ("bm25", "int8"),
@@ -412,3 +426,118 @@ def test_soft_fail_exempt_errors_raise(both, monkeypatch):
         pipeline.chat(QUESTIONS[0], mode="fast")
     with pytest.raises(JOverloaded):
         graph.invoke(create_initial_state(QUESTIONS[0], metadata={"mode": "fast"}))
+
+
+# ---- the replica tier behind build_pipeline
+
+
+def _replica_pipeline(shared, **serve):
+    enc, lcfg = shared["enc"], shared["lcfg"]
+    from sentio_tpu_torch.config import ServeConfig
+
+    ts = Settings(retrieval=RetrievalConfig(strategy="dense", top_k=6),
+                  rerank=RerankConfig(top_k=3), embedder=EmbedderConfig(model_preset="tiny"),
+                  generator=GeneratorConfig(model_preset="tiny",
+                                            **{**GEN, **ENGINE, "dtype": "float32"}),
+                  serve=ServeConfig(**serve))
+    return build_pipeline(
+        ts, device="cpu", llama_config=LlamaConfig(**dataclasses.asdict(lcfg)),
+        embedder_config=EncoderConfig(**dataclasses.asdict(enc)),
+        reranker_config=EncoderConfig(**dataclasses.asdict(enc)),
+        llama_params=weights.llama_from_jax(shared["llama_tree"]),
+        embedder_params=weights.encoder_from_jax(shared["enc_tree"]),
+        reranker_params=weights.cross_encoder_from_jax(shared["ce_tree"]))
+
+
+@pytest.mark.parametrize("replicas", [1, 2])
+def test_replicas_share_weights_and_own_their_decode_state(shared, replicas):
+    """``build_pipeline`` fronts ``REPLICAS`` engines with a ``ReplicaSet``
+    (one by default): the weights are one dict; each replica owns its
+    engine, pool, allocator, radix tree (the template head warmed in each),
+    graphs, stream and service, and is configured with the serve
+    section's knobs."""
+    pipeline = _replica_pipeline(shared, replicas=replicas, tick_stall_budget_s=7.0,
+                                 replica_failover_budget=2, tenant_weights="gold:3")
+    try:
+        rs = pipeline.replica_set
+        assert rs is not None and rs.replicas == replicas
+        services = rs.services
+        assert pipeline.service is services[0]
+        assert pipeline.generator.provider.service is rs
+        engines = [svc.engine for svc in services]
+        assert all(e.params is engines[0].params for e in engines)
+        for part in ("pool", "allocator", "_radix", "_graphs"):
+            assert len({id(getattr(e, part)) for e in engines}) == replicas, part
+        assert all(e.stream is None for e in engines)  # the CPU
+        head = pipeline.warm_head
+        for e in engines:
+            ids = e.tokenizer.encode(head, add_bos=True)
+            assert e._radix.peek_prefix(ids) == len(ids) // e.page_size * e.page_size > 0
+        assert [svc.replica_id for svc in services] == list(range(replicas))
+        assert {svc.tick_stall_budget_s for svc in services} == {7.0}
+        assert rs.failover_budget == rs.stream_resume_budget == 2
+        assert rs.tenants.stats()["capacity"] == sum(svc.max_queue for svc in services)
+        assert rs._supervisor is not None and rs._supervisor.is_alive()
+    finally:
+        pipeline.close()
+    assert not rs._supervisor.is_alive()
+
+
+def test_chat_charges_generate_and_verify_to_the_tenant(shared):
+    """One chat of tenant ``team-v`` makes two admissions (generate and
+    verify, JAX's ``TestVerifyTenantCharging``), both released; the shared
+    tenant is not charged."""
+    pipeline = _replica_pipeline(shared)
+    pipeline.ingest([Document(text=d.text, metadata=dict(d.metadata), id=d.id)
+                     for d in shared["docs"]])
+    try:
+        tenants = pipeline.replica_set.tenants
+        shared_before = tenants.stats()["per_tenant"].get("shared", {}).get("admitted", 0)
+        out = pipeline.chat(QUESTIONS[0], mode="fast", tenant="team-v", priority="batch")
+        assert out["answer"] and out["verification"]["verdict"]
+        per = tenants.stats()["per_tenant"]
+        assert (per["team-v"]["admitted"], per["team-v"]["pending"]) == (2, 0)
+        assert per.get("shared", {}).get("admitted", 0) == shared_before
+    finally:
+        pipeline.close()
+
+
+@pytest.mark.parametrize("field,value,named", [
+    ("replica_mode", "process", "REPLICA_MODE=process"),
+    ("replica_mode", "socket", "REPLICA_MODE=socket"),
+    ("replica_workers", "host-a:9101", "REPLICA_WORKERS"),
+    ("autoscale", True, "AUTOSCALE=1"),
+])
+def test_unported_replica_settings_raise_naming_the_setting(field, value, named):
+    from sentio_tpu_torch.config import ServeConfig
+
+    with pytest.raises(NotImplementedError, match=named):
+        build_pipeline(Settings(serve=ServeConfig(**{field: value})), device="cpu")
+
+
+def test_unknown_replica_mode_warns_and_serves_in_threads(shared, caplog):
+    with caplog.at_level("WARNING"):
+        pipeline = _replica_pipeline(shared, replica_mode="threads")
+    try:
+        assert pipeline.replica_set.replicas == 1
+        assert any("REPLICA_MODE='threads' unknown" in r.message for r in caplog.records)
+    finally:
+        pipeline.close()
+
+
+def test_replica_settings_read_the_environment(monkeypatch):
+    from sentio_tpu.config import ServeConfig as JServeConfig
+    from sentio_tpu_torch.config import ServeConfig
+
+    env = {"REPLICAS": "3", "REPLICA_MODE": " Thread ", "TENANT_WEIGHTS": "a:4, b:x,c:1.5,bad",
+           "TENANT_HEADROOM": "2", "STREAM_RESUME_BUDGET": "0", "TICK_STALL_BUDGET_S": "9",
+           "REPLICA_SUPERVISE": "0", "REPLICA_BREAKER_TICK_FAILURES": "5",
+           "REPLICA_WORKERS": "h1:1, h2:2", "AUTOSCALE": "1"}
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    ours, theirs = ServeConfig.from_env(), JServeConfig.from_env()
+    for name in ServeConfig.__dataclass_fields__:
+        assert getattr(ours, name) == getattr(theirs, name), name
+    assert ours.parsed_tenant_weights() == theirs.parsed_tenant_weights() == \
+        {"a": 4.0, "c": 1.5}
+    assert ours.parsed_replica_workers() == theirs.parsed_replica_workers()

@@ -5,16 +5,17 @@ with ``http.client`` on the same tiny float32 weights.
 The JAX side is a ``DependencyContainer`` whose parts are the tiny JAX
 graph that ``tests/test_torch_pipeline.py`` builds (hybrid retrieval, the
 cross-encoder, the verifier), with its paged engine behind JAX's
-``PagedGenerationService``, in an aiohttp ``TestServer`` on a background
-loop; the port side is ``create_server`` over ``build_pipeline`` on the
-same weights. Both ingest the same corpus over ``/upload`` (document ids
+``PagedGenerationService`` and a one-replica ``ReplicaSet`` (what JAX's
+container builds under the default settings), in an aiohttp ``TestServer``
+on a background loop; the port side is ``create_server`` over
+``build_pipeline`` on the same weights. Both ingest the same corpus over ``/upload`` (document ids
 made deterministic by one uuid sequence) and must answer alike:
 
 * the request schemas and ``ErrorHandler``'s statuses, bodies and
   ``Retry-After`` on tables of payloads and errors;
 * ``/embed`` stats, the greedy (``mode: fast``) ``/chat`` JSON — answer,
   sources, status, ``degraded``, ``evaluation`` and the metadata keys but
-  those of features left out of the port (``LEFT_OUT_META``) — the SSE
+  those of features left out of the port (``LEFT_OUT_META``, now none) — the SSE
   event sequence and its joined tokens, ``/upload`` per-file results, 413
   over the cap, the non-multipart refusal, ``/embed``'s 429 and
   ``Retry-After`` past its limit, ``/clear``, the keys of ``/health`` and
@@ -78,6 +79,7 @@ from sentio_tpu.ops.reranker import CrossEncoderReranker as JReranker
 from sentio_tpu.ops.retrievers import create_retriever
 from sentio_tpu.ops.verifier import AnswerVerifier as JVerifier
 from sentio_tpu.runtime.paged import ContinuousBatchingEngine as JEngine
+from sentio_tpu.runtime.replica import ReplicaSet as JReplicaSet
 from sentio_tpu.runtime.service import PagedGenerationService as JService
 from sentio_tpu.serve import schemas as jschemas
 from sentio_tpu.serve.app import create_app
@@ -109,9 +111,9 @@ ENGINE = dict(max_batch_size=4, kv_page_size=16, kv_max_pages_per_seq=32)
 GEN = dict(max_new_tokens=16, verifier_max_tokens=12, context_token_budget=120,
            decode_steps_per_tick=8, decode_max_tick_steps=8, dtype="float32")
 SERVE = dict(max_upload_mb=1)
-# metadata the JAX server writes for features the port leaves out: the
-# tenant tier's WFQ key and priority, and the replica tier's replica id
-LEFT_OUT_META = frozenset({"tenant", "priority", "replica_id"})
+# metadata the JAX server writes for features the port leaves out (the
+# tenant tier's WFQ key and priority and the replica id are ported)
+LEFT_OUT_META = frozenset()
 QUESTIONS = ["Who maintains the ingest pipeline?", "what changed in the scheduler"]
 
 
@@ -284,7 +286,7 @@ def _jax_container(shared, tmp):
                      page_size=16, max_pages_per_seq=32, prefix_cache=jg.prefix_cache,
                      pipeline_depth=jg.decode_pipeline_depth, steps_per_tick=8,
                      max_tick_steps=8)
-    service = JService(engine, default_timeout_s=TIMEOUT_S)
+    service = JReplicaSet([JService(engine, default_timeout_s=TIMEOUT_S)], supervise=False)
     generator = JLLMGenerator(provider=TpuProvider(service=service), config=jg)
     retriever = create_retriever(settings=js, embedder=embedder, dense_index=index,
                                  bm25_index=bm25)
@@ -336,7 +338,9 @@ def _port_pipeline(shared):
     ts = Settings(retrieval=RetrievalConfig(top_k=6), rerank=RerankConfig(top_k=3),
                   embedder=EmbedderConfig(model_preset="tiny"),
                   generator=GeneratorConfig(model_preset="tiny", **GEN, **ENGINE),
-                  serve=ServeConfig(**SERVE))
+                  # unsupervised, as the JAX container's set: a state a test
+                  # seeds holds until it restores it
+                  serve=ServeConfig(replica_supervise=False, **SERVE))
     return build_pipeline(
         ts, device="cpu", llama_config=LlamaConfig(**dataclasses.asdict(lcfg)),
         embedder_config=EncoderConfig(**dataclasses.asdict(enc)),
@@ -766,3 +770,184 @@ def test_server_refuses_unported_settings(monkeypatch, env, value):
         return
     with pytest.raises(NotImplementedError, match=env):
         check_serve_settings(Settings.from_env())
+
+
+# ------------------------------------------------------------- the replica tier
+
+
+class _AiohttpRequest(dict):
+    """What JAX's header helpers read off an aiohttp request: ``headers``
+    and ``get("auth")``."""
+
+    def __init__(self, headers) -> None:
+        super().__init__()
+        self.headers = headers
+
+
+@pytest.mark.parametrize("headers,resumable", [
+    ({}, None),
+    ({"X-Tenant": "team-a"}, None),
+    ({"X-Tenant": "bad tenant!"}, None),
+    ({"X-Tenant": "t" * 65}, None),
+    ({"X-Tenant": "a.b:c-d_e", "X-Priority": "batch"}, None),
+    ({"X-Priority": " BATCH "}, None),
+    ({"X-Priority": "urgent"}, None),
+    ({"X-Resumable": "0"}, None),
+    ({"X-Resumable": "off"}, None),
+    ({"X-Resumable": "maybe"}, None),
+    ({"X-Resumable": "0"}, True),
+    ({}, False),
+], ids=lambda v: json.dumps(v)[:30])
+def test_tenant_priority_and_resumable_resolve_as_jax(headers, resumable):
+    from sentio_tpu.serve import app as japp
+    from sentio_tpu_torch.serve import app as tapp
+
+    req = dataclasses.replace(tschemas.ChatRequest(question="q"), resumable=resumable)
+    jreq = dataclasses.replace(jschemas.ChatRequest(question="q"), resumable=resumable)
+    assert tapp._request_tenant(headers) == japp._request_tenant(_AiohttpRequest(headers))
+    assert tapp._resolve_resumable(headers, req) == \
+        japp._resolve_resumable(_AiohttpRequest(headers), jreq)
+
+
+def _sets(servers):
+    return servers["container"].generation_service, servers["server"].pipeline.replica_set
+
+
+def test_chat_charges_the_header_tenant_as_jax(servers):
+    """``X-Tenant`` / ``X-Priority`` reach the answer's metadata and the
+    tenant's WFQ ledger alike: the generate and the verify admissions are
+    both charged to it and nothing stays pending."""
+    jc, pc = servers["jax"], servers["port"]
+    headers = {"X-Tenant": "team-h", "X-Priority": "batch"}
+    payload = {"question": QUESTIONS[0], "mode": "fast"}
+    (js, _, jbody), (ps, _, pbody) = (jc.json("POST", "/chat", payload, headers),
+                                      pc.json("POST", "/chat", payload, headers))
+    assert ps == js == 200
+    for key in ("tenant", "priority", "replica_id"):
+        assert pbody["metadata"][key] == jbody["metadata"][key], key
+    assert pbody["metadata"]["tenant"] == "team-h"
+    jset, tset = _sets(servers)
+    jt = jset.tenants.stats()["per_tenant"]["team-h"]
+    tt = tset.tenants.stats()["per_tenant"]["team-h"]
+    assert (tt["admitted"], tt["pending"], tt["shed"]) == \
+        (jt["admitted"], jt["pending"], jt["shed"]) == (2, 0, 0)
+
+
+def test_sse_precheck_sheds_the_tenant_before_200_as_jax(servers, monkeypatch):
+    """A tenant at its quota is refused before the SSE status line: 429
+    with the same body and ``Retry-After`` as JAX's."""
+    got = []
+    for client, rs in zip((servers["jax"], servers["port"]), _sets(servers)):
+        monkeypatch.setattr(rs.tenants, "capacity", 1)
+        monkeypatch.setattr(rs.tenants, "headroom", 0)
+        rs.tenants.admit("hog", 1)
+        try:
+            status, headers, data = client.request(
+                "POST", "/chat", {"question": QUESTIONS[0], "stream": True},
+                {"X-Tenant": "hog"})
+        finally:
+            rs.tenants.release("hog", 1)
+        body = json.loads(data)
+        body["error"].pop("error_id")
+        got.append((status, headers["retry-after"], headers["content-type"], body))
+    assert got[1] == got[0]
+    assert got[1][0] == 429 and got[1][3]["error"]["details"]["shed_reason"] == "tenant_quota"
+
+
+def test_health_and_detailed_follow_replica_health_as_jax(servers):
+    """A quarantined sole replica makes ``/health`` 503 ``unhealthy`` on
+    both servers (back to 200 once healthy); ``/health/detailed`` has
+    JAX's keys, components and a breaker per replica."""
+    jc, pc = servers["jax"], servers["port"]
+    sets = _sets(servers)
+    for rs in sets:
+        rs._transition(0, "QUARANTINED", "seeded")
+    try:
+        (js, _, jbody), (ps, _, pbody) = jc.json("GET", "/health"), pc.json("GET", "/health")
+        assert ps == js == 503
+        assert pbody["status"] == jbody["status"] == "unhealthy"
+        assert pbody["replicas"].keys() == jbody["replicas"].keys()
+        assert [r["state"] for r in pbody["replicas"]["replicas"]] == ["QUARANTINED"]
+    finally:
+        for rs in sets:
+            rs._transition(0, "HEALTHY", "restored")
+    assert pc.json("GET", "/health")[0] == jc.json("GET", "/health")[0] == 200
+    (js, _, jbody), (ps, _, pbody) = (jc.json("GET", "/health/detailed"),
+                                      pc.json("GET", "/health/detailed"))
+    assert ps == js == 200
+    assert pbody.keys() == jbody.keys()
+    assert pbody["components"].keys() == jbody["components"].keys()
+    assert pbody["status"] == jbody["status"] == "healthy"
+    assert pbody["components"]["breakers"]["replica_0"]["state"] == "HEALTHY"
+    assert pc.json("GET", "/health/detailed")[2]["cached"] is True
+
+
+def test_metrics_have_replica_rows_as_jax(servers):
+    from prometheus_client.parser import text_string_to_metric_families
+
+    rows = []
+    for client in (servers["jax"], servers["port"]):
+        client.json("POST", "/chat", {"question": QUESTIONS[1], "mode": "fast"})
+        status, _, data = client.request("GET", "/metrics")
+        assert status == 200
+        families = {f.name: f for f in text_string_to_metric_families(data.decode())}
+        rows.append({(s.labels["replica"], s.labels["stat"])
+                     for s in families["sentio_tpu_replica_stat"].samples})
+    assert rows[1] == rows[0]
+    assert ("0", "active_slots") in rows[1] and ("0", "pool_hbm_bytes") in rows[1]
+
+
+def test_info_names_the_replica_tier(servers):
+    info = servers["port"].json("GET", "/info")[2]
+    assert info["generator"]["replicas"] == {"count": 1, "mode": "thread"}
+
+
+def test_two_replicas_degrade_and_recover_over_http(shared):
+    """``REPLICAS=2``: one quarantined replica is ``degraded`` with 200, both
+    ``unhealthy`` with 503; chats go on while one serves; ``/metrics`` has
+    a row set per replica and ``/info`` names two."""
+    enc, lcfg = shared["enc"], shared["lcfg"]
+    ts = Settings(retrieval=RetrievalConfig(top_k=6), rerank=RerankConfig(top_k=3),
+                  embedder=EmbedderConfig(model_preset="tiny"),
+                  generator=GeneratorConfig(model_preset="tiny", **GEN, **ENGINE),
+                  serve=ServeConfig(replicas=2, replica_supervise=False, **SERVE))
+    pipeline = build_pipeline(
+        ts, device="cpu", llama_config=LlamaConfig(**dataclasses.asdict(lcfg)),
+        embedder_config=EncoderConfig(**dataclasses.asdict(enc)),
+        reranker_config=EncoderConfig(**dataclasses.asdict(enc)),
+        llama_params=weights.llama_from_jax(shared["llama_tree"]),
+        embedder_params=weights.encoder_from_jax(shared["enc_tree"]),
+        reranker_params=weights.cross_encoder_from_jax(shared["ce_tree"]))
+    server = create_server(None, pipeline, host="127.0.0.1", port=0)
+    thread = threading.Thread(target=server.serve_forever, name="two-replica-server",
+                              daemon=True)
+    thread.start()
+    client, rs = Client(server.server_address[1]), pipeline.replica_set
+    try:
+        client.json("POST", "/embed", {"content": shared["corpus"][:4000]})
+        rs._transition(1, "QUARANTINED", "seeded")
+        status, _, body = client.json("GET", "/health")
+        assert (status, body["status"], body["replicas"]["serving_replicas"]) == \
+            (200, "degraded", 1)
+        status, _, answer = client.json("POST", "/chat", {"question": QUESTIONS[0],
+                                                          "mode": "fast"})
+        assert status == 200 and answer["metadata"]["replica_id"] == 0
+        assert not answer["metadata"]["degraded"]
+        rs._transition(0, "QUARANTINED", "seeded")
+        status, _, body = client.json("GET", "/health")
+        assert (status, body["status"]) == (503, "unhealthy")
+        status, headers, body = client.json("POST", "/chat", {"question": QUESTIONS[1]})
+        assert status == 503 and headers["retry-after"]
+        assert body["error"]["code"] == "SERVICE_UNAVAILABLE"
+        for i in (0, 1):
+            rs._transition(i, "HEALTHY", "restored")
+        assert client.json("GET", "/health")[2]["status"] == "healthy"
+        text = client.request("GET", "/metrics")[2].decode()
+        for i in (0, 1):
+            assert f'sentio_tpu_replica_stat{{replica="{i}",stat="active_slots"}}' in text
+        assert client.json("GET", "/info")[2]["generator"]["replicas"]["count"] == 2
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=TIMEOUT_S)
+        pipeline.close()
