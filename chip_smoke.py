@@ -169,8 +169,41 @@ line each:
     delivered prefix through prefill rounds differently from decode).
     Both gated on one resume and a balanced tenant.
 
-``--only-new`` runs the build, the kernel checks and phases 21-24 only
+25. observability — on replicas_1's warmed server: a JSON and an SSE chat
+    alone, then 4 JSON + 2 SSE at once, each under a thread_id, in a
+    counted window. Gates: each chat's /debug/flight record has the answer's
+    and the verify's admissions on replica 0, a tick window whose ticks'
+    phase_ms sum to pump_ms (within 0.01 ms) and whose decode tokens are
+    the two admissions' (alone; at least that beside others), and parses in
+    its Chrome form; /metrics' TTFT count grew by the admissions, TPOT's by
+    those with tokens after their first tick, the tick-duration count by
+    the pump's ticks, the nine families JAX registers all present; the tick
+    events' decode tokens equal the engine's growth, no capture in a tick,
+    one paged launch per layer per sub-step (the card's the same). Then
+    the server's first /debug/profile?seconds=3 (create_server warmed the
+    profiler) while 4 chats of 256 tokens decode: 200, a trace file naming
+    the paged kernel's device functions inside the graph replays and
+    holding the pump's decode_tick#N ranges (turned on by hand: tracing
+    needs OpenTelemetry), a concurrent call 409; reported beside the paged
+    wrapper's tally and the pump's ticks over the request, with the trace's
+    event categories.
+26. escape_hatch_bf16, escape_hatch_f32 — the paged path's fallback to the
+    contiguous engine: with the failover budget at 0 the replica's ticks
+    fail (the answer and its crash retry) and the provider answers from the
+    contiguous engine: on replicas_1's pipeline at full width (bf16, flash
+    once per layer for its prefill, no paged launch; the agreeing
+    characters and the peak memory reported), and in float32 at 8B width
+    cut to 2 layers (plain attention), where the text must equal the
+    uninterrupted paged answer.
+27. cli — ``python -m sentio_tpu_torch info`` names the card; ``trace`` at
+    the default settings answers on the card and writes a Chrome trace with
+    tick slices (the tiny presets' head dims are not among the kernels').
+
+``--only-new`` runs the build, the kernel checks and phases 21-27 only
 (random Llama-3-8B weights) and ends without the result lines.
+``--rounds-only`` runs the build and replicas_1's warmup and rounds only,
+to compare two trees' round times in one call (copied into the other
+tree's root, it drives that tree's package), and ends the same way.
 
 The last lines are the nvidia-smi line, one {"kernels": [...]} line (each
 kernel's ``launches`` from the counted chats, through the wrappers' counts
@@ -2913,11 +2946,11 @@ def replica_surfaces(phase: str, client, n_replicas: int) -> dict:
     return result
 
 
-def rebuild_window(recorder, replica: int, since_seq: int) -> dict:
+def rebuild_window(recorder, replica: int, since_tick: int) -> dict:
     """Seconds from the replica's REBUILDING transition to its HEALTHY one
-    on the flight recorder, after event ``since_seq``."""
+    on the flight recorder, after event ``since_tick``."""
     events = [e for e in recorder.events("replica_health")
-              if e["seq"] > since_seq and e["replica"] == replica]
+              if e["tick"] > since_tick and e["replica"] == replica]
     t = {e["state_to"]: e["t_s"] for e in events}
     return {"states": [e["state_to"] for e in events],
             "rebuild_s": t.get("HEALTHY", 0.0) - t.get("REBUILDING", 0.0)}
@@ -2942,7 +2975,7 @@ def replica_rebuild_check(torch, pipeline, client, words) -> dict:
     rs = pipeline.replica_set
     rs.wait_idle()
     recorder = get_flight_recorder()
-    seq0 = recorder.record_tick(event="smoke_mark", phase=phase)
+    tick0 = recorder.record_tick(event="smoke_mark", phase=phase)
     old = rs.services[0]
     fail_replica_steps(old.engine, "smoke.replica0.step")
     torch.cuda.empty_cache()
@@ -2995,7 +3028,7 @@ def replica_rebuild_check(torch, pipeline, client, words) -> dict:
     launches, card = window.read()
     fresh = rs.services[0]
     summary = rs.health_summary()
-    timing = rebuild_window(recorder, 0, seq0)
+    timing = rebuild_window(recorder, 0, tick0)
     during = [c for c in chats if c[0] != "HEALTHY"]
     for i, (_state, code, body, _s) in enumerate(chats):
         check_http_chat(phase, i, code, body)
@@ -3049,7 +3082,7 @@ def replica_stall_check(torch, pipeline, client) -> dict:
     rs = pipeline.replica_set
     rs.wait_idle()
     recorder = get_flight_recorder()
-    seq0 = recorder.record_tick(event="smoke_mark", phase=phase)
+    tick0 = recorder.record_tick(event="smoke_mark", phase=phase)
     wedged = rs.services[0]
     fail_replica_steps(wedged.engine, "smoke.replica0.step")
     leaked0, rebuilds0 = rs.stats()["pump_leaked"], rs.health_summary()["replicas"][0]["rebuilds"]
@@ -3100,7 +3133,7 @@ def replica_stall_check(torch, pipeline, client) -> dict:
     rs.wait_idle()
     launches, card = window.read()
     stats = rs.stats()
-    timing = rebuild_window(recorder, 0, seq0)
+    timing = rebuild_window(recorder, 0, tick0)
     answered = {k: v.replica_id for k, v in outcomes.items() if not isinstance(v, Exception)}
     result = {"stall_budget_s": STALL_BUDGET_S, "detected_and_handed_off_s": detected_s,
               "wedged_outcome": type(outcomes.get(0)).__name__,
@@ -3222,10 +3255,466 @@ def resume_drill(torch, rs, prompt: str, n_tokens: int, tag: str, tenant: str = 
     return result
 
 
+# ------------------------------------------------------------ observability
+
+OBS_JSON_CHATS = 4       # with OBS_SSE_CHATS, released together after the two lone chats
+OBS_SSE_CHATS = 2
+PROFILE_S = 3.0          # /debug/profile's window, opened while PROFILE_CHATS run
+PROFILE_CHATS = 4
+PROFILE_TOKENS = 256     # their answers: the window falls inside their decode
+ESCAPE_TOKENS = 64       # the float32 escape-hatch chat
+# the families JAX's collector registers whatever the settings, which the
+# port's /metrics gained in this slice
+NINE_FAMILIES = ("sentio_llm_tokens_total", "sentio_llm_latency_seconds",
+                 "sentio_circuit_breaker_state", "sentio_tpu_hbm_bytes_in_use",
+                 "sentio_tpu_batch_occupancy", "sentio_tpu_decode_tokens_per_second",
+                 "sentio_tpu_ttft_seconds", "sentio_tpu_tpot_seconds",
+                 "sentio_tpu_tick_duration_seconds")
+
+
+def metric_sum(samples: dict, name: str) -> float:
+    """The sum of a parsed /metrics sample over all its label sets."""
+    return sum(v for (n, _labels), v in samples.items() if n == name)
+
+
+def obs_chats(client, words, offset: int, n_json: int, n_sse: int, tag: str) -> list:
+    """``n_json`` JSON and ``n_sse`` SSE chats released together, each
+    under a ``thread_id`` of its own (its flight record's id); returns
+    (kind, request id, answer check's result, seconds) for each."""
+    import threading
+
+    total = n_json + n_sse
+    out: list = [None] * total
+    start = threading.Barrier(total)
+
+    def run(i: int) -> None:
+        rid = f"obs-{tag}-{'json' if i < n_json else 'sse'}-{i}"
+        question = (f"What ties {words[(offset + 3 * i) % len(words)]} to "
+                    f"{words[(offset + 3 * i + 1) % len(words)]}?")
+        start.wait(timeout=60)
+        t0 = time.perf_counter()
+        try:
+            if i < n_json:
+                status, _, body = client.json("POST", "/chat",
+                                              {"question": question, "thread_id": rid})
+                check_http_chat(f"observability {rid}", i, status, body)
+                out[i] = ("json", rid, body["answer"], time.perf_counter() - t0)
+            else:
+                result = client.sse({"question": question, "thread_id": rid})
+                out[i] = ("sse", rid, check_sse_chat(f"observability {rid}", i, result),
+                          time.perf_counter() - t0)
+        except Exception as exc:  # noqa: BLE001 — raised below, on the main thread
+            out[i] = ("raised", rid, exc, time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=run, args=(i,), name=f"smoke-obs-{tag}-{i}",
+                                daemon=True) for i in range(total)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=HTTP_TIMEOUT_S)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError(f"observability: a chat did not return within {HTTP_TIMEOUT_S} s")
+    for kind, rid, payload, _s in out:
+        if kind == "raised":
+            raise AssertionError(f"observability chat {rid} raised: {payload!r}") from payload
+    return out
+
+
+def check_flight_record(client, rid: str, alone: bool) -> dict:
+    """``/debug/flight/{rid}``: the engine section with the answer's and the
+    verify's admissions on replica 0, a non-empty tick window whose ticks'
+    phases sum to their pump_ms (within 0.01 ms), and decode tokens summed
+    over the window equal to the tokens the two admissions folded (each
+    token, and the EOS a "stop" folded unseen) when the chat ran alone, at
+    least that beside other chats; its Chrome form parses with a tick
+    slice and the request's span."""
+    status, _, record = client.json("GET", f"/debug/flight/{rid}")
+    if status != 200:
+        raise AssertionError(f"observability: no flight record for {rid}: {status}")
+    engine, ticks = record.get("engine") or {}, record.get("ticks") or []
+    admissions = engine.get("admissions") or []
+    folded = sum(a.get("tokens", 0) + (a.get("finish_reason") == "stop") for a in admissions)
+    decoded = sum(t.get("decode_tokens", 0) for t in ticks)
+    phase_err = max((abs(sum(t["phase_ms"].values()) - t["pump_ms"]) for t in ticks),
+                    default=None)
+    status_c, _, chrome = client.json("GET", f"/debug/flight/{rid}?format=chrome")
+    names = [e["name"] for e in (chrome or {}).get("traceEvents", [])]
+    out = {"admissions": len(admissions), "replica": engine.get("replica_id"),
+           "ticks": len(ticks), "ticks_truncated": record.get("ticks_truncated", 0),
+           "decode_tokens": decoded, "folded_tokens": folded,
+           "ttft_ms": [a.get("ttft_ms") for a in admissions],
+           "tpot_ms": [a.get("tpot_ms") for a in admissions],
+           "max_phase_sum_err_ms": phase_err, "engine_window": record.get("engine_window"),
+           "chrome_events": len(names),
+           "chrome_tick_slices": sum(n.startswith("tick ") for n in names)}
+    if len(admissions) != 2 or engine.get("replica_id") != 0 or not ticks \
+            or record.get("engine_window") != "local":
+        raise AssertionError(f"observability: {rid}'s engine section: {out}")
+    if any("phase_ms" not in t or "pump_ms" not in t for t in ticks) or phase_err > 0.01:
+        raise AssertionError(f"observability: {rid}'s ticks' phases do not sum to pump_ms: "
+                             f"{out}")
+    if (decoded != folded) if alone else (decoded < folded):
+        raise AssertionError(f"observability: {rid}'s window decoded {decoded} tokens "
+                             f"against its admissions' {folded}")
+    if status_c != 200 or not out["chrome_tick_slices"] or f"request {rid}" not in names:
+        raise AssertionError(f"observability: {rid}'s Chrome trace: {status_c}, {out}")
+    return out
+
+
+def profiled_chats(torch, pipeline, client, words, offset: int, tag: str) -> dict:
+    """``/debug/profile?seconds=PROFILE_S`` while PROFILE_CHATS JSON chats
+    run (a second call meanwhile must get 409): the Chrome trace it wrote,
+    its launches of each hand-written device function beside the paged
+    wrapper's tally over the same request, and its ``decode_tick#N``
+    ranges (the pump's ``record_function``, opened on another thread than
+    the profiler's)."""
+    import collections
+    import dataclasses
+    import shutil
+    import threading
+    from pathlib import Path
+
+    paged = wrappers()["paged_attention"]
+    log_dir = tempfile.mkdtemp(prefix="smoke-profile-")
+    out: dict = {}
+    config = pipeline.generator.config
+    pipeline.generator.config = dataclasses.replace(config, max_new_tokens=PROFILE_TOKENS)
+    chats = threading.Thread(target=lambda: out.update(
+        chats=obs_chats(client, words, offset, PROFILE_CHATS, 0, tag)), daemon=True)
+    chats.start()
+    decoded0 = pipeline.replica_set.services[0].engine.decode_tokens_total
+    # the chats' prefills first: the window opens once they decode
+    wait_for(lambda: pipeline.replica_set.services[0].engine.decode_tokens_total > decoded0,
+             HTTP_TIMEOUT_S, "the profiled chats to decode")
+    second: dict = {}
+
+    def again() -> None:
+        time.sleep(0.5)
+        second["status"], _, second["body"] = client.json(
+            "GET", f"/debug/profile?seconds=0.5&dir={log_dir}/second")
+
+    other = threading.Thread(target=again, daemon=True)
+    other.start()
+    svc = pipeline.replica_set.services[0]
+    tally0, ticks0 = paged.launches, svc.stats()["ticks"]
+    t0 = time.perf_counter()
+    status, _, body = client.json("GET", f"/debug/profile?seconds={PROFILE_S}&dir={log_dir}")
+    request_s = time.perf_counter() - t0
+    tally, pump_ticks = paged.launches - tally0, svc.stats()["ticks"] - ticks0
+    other.join(timeout=HTTP_TIMEOUT_S)
+    chats.join(timeout=HTTP_TIMEOUT_S)
+    pipeline.generator.config = config
+    try:
+        files = sorted(Path(log_dir).glob("profile-*.json"))
+        events = json.loads(files[0].read_text())["traceEvents"] if files else []
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+
+    def ranges(cat: str) -> int:
+        return sum(e.get("cat") == cat and str(e.get("name", "")).startswith("decode_tick#")
+                   for e in events)
+
+    result = {"status": status, "body": body, "request_s": request_s,
+              "second_status": second.get("status"), "trace_files": len(files),
+              "kernel_events": len(kernels),
+              "categories": dict(collections.Counter(str(e.get("cat")) for e in events)),
+              "device_functions": {fn: sum(fn in e.get("name", "") for e in kernels)
+                                   for fn in DEVICE_FUNCTIONS},
+              "paged_wrapper_tally": tally, "pump_ticks": pump_ticks,
+              # each range once on the pump thread's timeline, and once more
+              # on the device's around the kernels it launched
+              "decode_tick_ranges": ranges("user_annotation"),
+              "decode_tick_device_ranges": ranges("gpu_user_annotation"),
+              "chats": len(out.get("chats") or [])}
+    if status != 200 or not body.get("started") or not files or second.get("status") != 409:
+        raise AssertionError(f"observability: /debug/profile: {result}")
+    if result["chats"] != PROFILE_CHATS:
+        raise AssertionError(f"observability: the profiled chats did not all answer: {result}")
+    return result
+
+
+def observability_check(torch, pipeline, client, words) -> dict:
+    """The pump's flight ticks, /metrics' TTFT / TPOT / tick families, the
+    Chrome export and the profile window on a warmed one-replica server
+    (``replicas_1``'s). In a counted window: a JSON chat and an SSE chat
+    alone, then OBS_JSON_CHATS + OBS_SSE_CHATS at once. Gates: every chat
+    answered; each chat's flight record (:func:`check_flight_record`); the
+    TTFT count grew by the admissions (answer and verify a chat), the TPOT
+    count by those with tokens after their first tick, the tick-duration
+    count by the pump's ticks; the nine families present; the ticks' decode
+    tokens equal to the engine's decode_tokens_total growth, no capture in
+    a tick, the paged kernel once per layer per sub-step (the card's count
+    the same). Then the server's first /debug/profile window, over
+    PROFILE_CHATS chats of PROFILE_TOKENS, must write a trace naming the
+    paged kernel's split and combine functions inside the graph replays
+    and holding the pump's ``decode_tick#N`` ranges; a concurrent call
+    409."""
+    from sentio_tpu_torch.config import ObservabilityConfig
+    from sentio_tpu_torch.infra import tracing
+    from sentio_tpu_torch.infra.flight import get_flight_recorder
+
+    phase = "observability"
+    rs = pipeline.replica_set
+    svc, engine = rs.services[0], rs.services[0].engine
+    recorder = get_flight_recorder()
+    rs.wait_idle()
+    text0 = client.request("GET", "/metrics")[2].decode()
+    m0 = parse_prometheus(text0)
+    tick0 = recorder.record_tick(event="smoke_mark", phase=phase)
+    ticks0, decode0, sub0 = svc.stats()["ticks"], engine.decode_tokens_total, \
+        engine.total_sub_steps
+    window = LaunchWindow(torch)
+    t0 = time.perf_counter()
+    lone = obs_chats(client, words, 300, 1, 0, "lone") + obs_chats(client, words, 303, 0, 1,
+                                                                   "lone")
+    burst = obs_chats(client, words, 310, OBS_JSON_CHATS, OBS_SSE_CHATS, "burst")
+    wall_s = time.perf_counter() - t0
+    rs.wait_idle()
+    launches, card = window.read()
+    text = client.request("GET", "/metrics")[2].decode()
+    m1 = parse_prometheus(text)
+    alone = {rid for _kind, rid, *_x in lone}
+    records = {rid: check_flight_record(client, rid, alone=rid in alone)
+               for _kind, rid, *_x in lone + burst}
+    ticks = [e for e in recorder.timeline() if e["tick"] > tick0 and "event" not in e
+             and e.get("replica") == 0]
+    n_ticks = svc.stats()["ticks"] - ticks0
+    admissions = 2 * len(records)
+    with_tpot = sum(x is not None for r in records.values() for x in r["tpot_ms"])
+    delta = {name: metric_sum(m1, name) - metric_sum(m0, name)
+             for name in ("sentio_tpu_ttft_seconds_count", "sentio_tpu_tpot_seconds_count",
+                          "sentio_tpu_tick_duration_seconds_count")}
+    sub_steps = engine.total_sub_steps - sub0
+    result = {"chats": len(records), "wall_s": wall_s,
+              "chat_s": [s for *_x, s in lone + burst], "records": records,
+              "admissions": admissions, "admissions_with_tpot": with_tpot,
+              "metric_deltas": delta, "pump_ticks": n_ticks, "tick_events": len(ticks),
+              "tick_decode_tokens": sum(t.get("decode_tokens", 0) for t in ticks),
+              "engine_decode_tokens": engine.decode_tokens_total - decode0,
+              "tick_graph_captures": sum(t.get("graph_captures", 0) for t in ticks),
+              "tick_dur_ms_p50": percentile([t["dur_ms"] for t in ticks], 0.5) if ticks else None,
+              "tick_pump_ms_p50": percentile([t["pump_ms"] for t in ticks], 0.5)
+              if ticks else None,
+              "decode_sub_steps": sub_steps, "launches": launches, "device_launches": card,
+              "families_present": {name: f"# TYPE {name} " in text for name in NINE_FAMILIES}}
+    if delta["sentio_tpu_ttft_seconds_count"] != admissions \
+            or delta["sentio_tpu_tpot_seconds_count"] != with_tpot \
+            or delta["sentio_tpu_tick_duration_seconds_count"] != n_ticks:
+        emit(phase, **result)
+        raise AssertionError(f"{phase}: /metrics' TTFT / TPOT / tick counts disagree with the "
+                             f"admissions and ticks: {delta}, {admissions}, {with_tpot}, "
+                             f"{n_ticks}")
+    if not all(result["families_present"].values()) or len(ticks) != n_ticks \
+            or result["tick_decode_tokens"] != result["engine_decode_tokens"] \
+            or result["tick_graph_captures"]:
+        emit(phase, **result)
+        raise AssertionError(f"{phase}: the tick events disagree with the engine: {result}")
+    if launches["paged_attention"] != engine.cfg.n_layers * sub_steps or sub_steps <= 0:
+        emit(phase, **result)
+        raise AssertionError(f"{phase}: decode launches are not one per layer per sub-step: "
+                             f"{launches}, sub-steps {sub_steps}")
+    check_card(phase, card, launches)
+    # the pump's record_function ranges need tracing on; with no
+    # OpenTelemetry SDK on the card's machine TRACING_ENABLED alone leaves
+    # it off, so the window's check turns the ranges on by hand
+    previous = tracing.get_tracing()
+    ranges = tracing.TracingManager(ObservabilityConfig())
+    ranges.enabled = True
+    tracing.set_tracing(ranges)
+    try:
+        result["profile"] = profiled_chats(torch, pipeline, client, words, 340, "profile")
+    finally:
+        tracing.set_tracing(previous)
+    emit(phase, **result)
+    window = result["profile"]
+    # create_server warmed the profiler: the server's first window opens at
+    # once and records the card's kernels inside the graph replays and the
+    # pump thread's ranges
+    if not window["kernel_events"] or not window["device_functions"]["paged_decode_kernel"] \
+            or not window["device_functions"]["paged_combine_kernel"]:
+        raise AssertionError(f"{phase}: the first profile window's trace names no paged "
+                             f"kernel: {window}")
+    if not window["decode_tick_ranges"]:
+        raise AssertionError(f"{phase}: the profile window holds no decode_tick#N range of "
+                             f"the pump: {window}")
+    return result
+
+
+def escape_hatch_bf16(torch, pipeline) -> dict:
+    """The paged path's escape hatch at full width and depth on
+    ``replicas_1``'s pipeline (bf16, the flash prefill): with the failover
+    budget at 0, replica 0's ticks fail (the answer's admission and its
+    crash retry) and the provider answers from the contiguous engine.
+    Gates: the fault fired twice, the contiguous engine prefilled, flash
+    once per layer for it and no paged launch in the window (the card's
+    counts the same). Reported: the seconds, peak memory over the pool,
+    and how many characters agree with the uninterrupted paged answer
+    before the first difference (bf16 prefill and decode round
+    differently)."""
+    from sentio_tpu_torch.infra import faults
+
+    rs = pipeline.replica_set
+    provider = pipeline.generator.provider
+    engine, contiguous = rs.services[0].engine, provider.contiguous
+    prompt = pipeline.generator.build_prompt("Where does the escape hatch lead?", [])
+    rs.wait_idle()
+    reference = provider.chat(prompt, max_new_tokens=MAX_TOKENS, temperature=0.0)
+    rs.wait_idle()
+    point = "smoke.escape.step"
+    fail_replica_steps(engine, point)
+    budget, rs.failover_budget = rs.failover_budget, 0
+    rule = faults.FaultRule(error=RuntimeError("escape hatch drill"), times=2)
+    torch.cuda.synchronize()
+    memory0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    prefills0 = contiguous.prefills
+    window = LaunchWindow(torch)
+    faults.arm(point, rule)
+    try:
+        t0 = time.perf_counter()
+        text = provider.chat(prompt, max_new_tokens=MAX_TOKENS, temperature=0.0)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        faults.disarm(point)
+        rs.failover_budget = budget
+        del engine.step  # the wrapper
+    launches, card = window.read()
+    agree = agreeing_prefix(list(text), list(reference))
+    result = {"fired": rule.fired, "seconds": seconds,
+              "contiguous_prefills": contiguous.prefills - prefills0,
+              "memory_before": memory0, "peak_memory": torch.cuda.max_memory_allocated(),
+              "peak_over_before": torch.cuda.max_memory_allocated() - memory0,
+              "agreeing_chars": agree, "chars": len(reference), "text_equal": text == reference,
+              "launches": launches, "device_launches": card}
+    emit("escape_hatch_bf16", **result)
+    if rule.fired != 2 or result["contiguous_prefills"] < 1 or not text \
+            or launches["paged_attention"] \
+            or launches["flash_attention"] != engine.cfg.n_layers * result["contiguous_prefills"]:
+        raise AssertionError(f"escape_hatch_bf16: the chat must fall back to the contiguous "
+                             f"engine: {result}")
+    check_card("escape_hatch_bf16", card, launches)
+    return result
+
+
+def escape_hatch_f32(torch, dev) -> dict:
+    """The escape hatch held to exact greedy text: float32 at Llama-3-8B
+    width cut to 2 layers, plain attention on both engines (the kernels
+    take bf16), one paged replica behind a set with no failover budget and
+    the contiguous engine on the same weights behind the provider. The
+    replica's ticks fail (the answer and its crash retry); the provider's
+    answer must equal the uninterrupted paged answer. Reported: seconds
+    and peak memory of the fallback chat."""
+    import dataclasses
+
+    from sentio_tpu_torch.config import GeneratorConfig
+    from sentio_tpu_torch.infra import faults
+    from sentio_tpu_torch.models.llama import LlamaConfig, init_llama
+    from sentio_tpu_torch.ops.generator import EngineProvider
+    from sentio_tpu_torch.runtime.engine import GeneratorEngine
+    from sentio_tpu_torch.runtime.paged import ContinuousBatchingEngine, _paged_attn_xla
+    from sentio_tpu_torch.runtime.replica import ReplicaSet
+    from sentio_tpu_torch.runtime.service import PagedGenerationService
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=2, dtype="float32")
+    params = init_llama(cfg, torch.Generator(device=dev).manual_seed(SEED + 7), dev)
+    engine = ContinuousBatchingEngine(model_config=cfg, params=params, max_slots=2,
+                                      page_size=128, max_pages_per_seq=16, steps_per_tick=16,
+                                      max_tick_steps=16, device=dev)
+    engine.attn_impl = _paged_attn_xla
+    contiguous = GeneratorEngine(config=GeneratorConfig(dtype="float32"), model_config=cfg,
+                                 params=params, device=dev)
+    contiguous.attn_fn = None
+    rs = ReplicaSet([PagedGenerationService(engine, default_timeout_s=300)], supervise=False,
+                    failover_budget=0)
+    provider = EngineProvider(contiguous=contiguous, service=rs)
+    point = "smoke.escape_f32.step"
+    prompt = "escape hatch drill: " + " ".join(f"word{i}" for i in range(60))
+    try:
+        reference = provider.chat(prompt, max_new_tokens=ESCAPE_TOKENS, temperature=0.0)
+        rs.wait_idle()
+        fail_replica_steps(engine, point)
+        rule = faults.FaultRule(error=RuntimeError("escape hatch drill"), times=2)
+        torch.cuda.synchronize()
+        memory0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        faults.arm(point, rule)
+        try:
+            t0 = time.perf_counter()
+            text = provider.chat(prompt, max_new_tokens=ESCAPE_TOKENS, temperature=0.0)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            faults.disarm(point)
+        result = {"fired": rule.fired, "seconds": seconds, "prefills": contiguous.prefills,
+                  "tick_failures": rs.services[0].stats()["tick_failures"],
+                  "memory_before": memory0, "peak_memory": torch.cuda.max_memory_allocated(),
+                  "text_equal": text == reference, "chars": len(reference)}
+    finally:
+        rs.close()
+        del rs, engine, contiguous, provider, params
+        torch.cuda.empty_cache()
+    emit("escape_hatch_f32", **result)
+    if result["fired"] != 2 or result["tick_failures"] != 2 or result["prefills"] != 1 \
+            or result["text_equal"] is not True:
+        raise AssertionError(f"escape_hatch_f32: the contiguous engine's answer must equal "
+                             f"the uninterrupted paged one: {result}")
+    return result
+
+
+def cli_check(torch) -> dict:
+    """``python -m sentio_tpu_torch info`` names the card, and ``trace`` (the
+    default settings at full width, answers and verdicts of MAX_TOKENS)
+    answers on it with its flight record's two admissions and writes a
+    Chrome trace with tick slices. The tiny presets cannot run on the card:
+    their head dims (16) are not among the kernels' tiles."""
+    import os
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, LLM_MAX_TOKENS=str(MAX_TOKENS), VERIFIER_MAX_TOKENS=str(MAX_TOKENS))
+    cmd = [sys.executable, "-m", "sentio_tpu_torch"]
+    t0 = time.perf_counter()
+    proc = subprocess.run([*cmd, "info"], cwd=root, env=env, capture_output=True, text=True,
+                          timeout=300)
+    info_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"cli info: exit {proc.returncode}: {proc.stderr[-2000:]}")
+    info = json.loads(proc.stdout)
+    with tempfile.TemporaryDirectory(prefix="smoke-trace-") as tmp:
+        chrome_path = Path(tmp) / "trace.json"
+        t0 = time.perf_counter()
+        proc = subprocess.run([*cmd, "trace", "What does the paged cache hold?", "--chrome",
+                               str(chrome_path)], cwd=root, env=env, capture_output=True,
+                              text=True, timeout=600)
+        trace_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"cli trace: exit {proc.returncode}: {proc.stderr[-3000:]}")
+        trace = json.loads(proc.stdout)
+        chrome = json.loads(chrome_path.read_text())
+    flight = trace.get("flight") or {}
+    names = [e["name"] for e in chrome.get("traceEvents", [])]
+    result = {"info": info, "info_s": info_s, "trace_s": trace_s,
+              "trace_keys": sorted(trace), "answer_chars": len(trace.get("answer") or ""),
+              "admissions": len((flight.get("engine") or {}).get("admissions") or []),
+              "flight_ticks": len(flight.get("ticks") or []),
+              "chrome_events": len(names),
+              "chrome_tick_slices": sum(n.startswith("tick ") for n in names)}
+    emit("cli", **result)
+    if info["devices"][0] != {"platform": "gpu", "kind": torch.cuda.get_device_name(0)} \
+            or not result["answer_chars"] or result["admissions"] != 2 \
+            or not result["flight_ticks"] or not result["chrome_tick_slices"]:
+        raise AssertionError(f"cli: info or trace on the card: {result}")
+    return result
+
+
 def replica_phases(torch, dev, weights) -> dict:
-    """replicas (REPLICAS=1 then 2 behind the HTTP server), replica_rebuild,
+    """replicas (REPLICAS=1 then 2 behind the HTTP server; observability and
+    escape_hatch_bf16 on the one replica's server), replica_rebuild,
     replica_stall and stream_resume (float32, then bf16 at full depth on the
-    two replicas) on ``weights`` (random ones from the seed when None)."""
+    two replicas), then escape_hatch_f32, on ``weights`` (random ones from
+    the seed when None)."""
     docs, words = corpus(N_CHUNKS)
     out: dict = {}
     for n in (1, 2):
@@ -3236,6 +3725,9 @@ def replica_phases(torch, dev, weights) -> dict:
             out[phase] = {"warmup": warm, **replica_rounds(torch, phase, pipeline, client,
                                                            words)}
             out[f"{phase}_surfaces"] = replica_surfaces(phase, client, n)
+            if n == 1:
+                out["observability"] = observability_check(torch, pipeline, client, words)
+                out["escape_hatch_bf16"] = escape_hatch_bf16(torch, pipeline)
             if n == 2:
                 out["replica_rebuild"] = replica_rebuild_check(torch, pipeline, client, words)
                 out["replica_stall"] = replica_stall_check(torch, pipeline, client)
@@ -3252,6 +3744,7 @@ def replica_phases(torch, dev, weights) -> dict:
             close_pipeline(torch, pipeline)
             del pipeline
     out["stream_resume_f32"] = stream_resume_f32(torch, dev)
+    out["escape_hatch_f32"] = escape_hatch_f32(torch, dev)
     one, two = out["replicas_1"], out["replicas_2"]
     emit("replicas", p50_s=(one["p50_s"], two["p50_s"]), p95_s=(one["p95_s"], two["p95_s"]),
          round_p50_s=(one["round_p50_s"], two["round_p50_s"]),
@@ -3260,6 +3753,23 @@ def replica_phases(torch, dev, weights) -> dict:
          warmup_s=(one["warmup"]["seconds"], two["warmup"]["seconds"]),
          peak_memory=(one["peak_memory"], two["peak_memory"]),
          duty_cycle=two["duty_cycle"], completed=two["completed"])
+    return out
+
+
+def replicas_1_rounds(torch, dev) -> dict:
+    """replicas_1's warmup and rounds alone, on random weights: each
+    round's p50 and each pump's duty cycle."""
+    docs, words = corpus(N_CHUNKS)
+    pipeline, server, thread, warm = replica_server(torch, dev, "replicas_1", None, 1, docs)
+    try:
+        out = replica_rounds(torch, "replicas_1", pipeline,
+                             HttpClient(server.server_address[1]), words)
+    finally:
+        stop_server(server, thread)
+        close_pipeline(torch, pipeline)
+    emit("replicas_1_rounds", round_p50_s=out["round_p50_s"], p50_s=out["p50_s"],
+         duty_cycle=out["duty_cycle"], warmup_s=warm["seconds"],
+         sub_steps=[r["decode_sub_steps"] for r in out["rounds"]])
     return out
 
 
@@ -3303,6 +3813,9 @@ def main(argv=None) -> int:
     parser.add_argument("--only-new", action="store_true",
                         help="build, the kernel checks, then only the replica tier's phases "
                              "(random 8B weights); ends without the result lines")
+    parser.add_argument("--rounds-only", action="store_true",
+                        help="build, then only replicas_1's warmup and rounds (random 8B "
+                             "weights); ends without the result lines")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3323,6 +3836,11 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__, cuda=torch.version.cuda)
+
+    if args.rounds_only:
+        build_all(KERNELS)
+        replicas_1_rounds(torch, dev)
+        return 0
 
     sweep, sweep_quant = span_sweep(), span_sweep(quant=True)
     seconds = build_all([*KERNELS, *(k for k in (*sweep.values(), *sweep_quant.values())
@@ -3357,6 +3875,7 @@ def main(argv=None) -> int:
 
     if args.only_new:
         rep = replica_phases(torch, dev, None)
+        rep["cli"] = cli_check(torch)
         emit("partial", phases=sorted(rep))
         return 0
 
@@ -3412,8 +3931,9 @@ def main(argv=None) -> int:
     new = new_phases(torch, dev, weights)
     ev, gates, vm = new["eval"]["counts"], new["quality_gates"]["launches"], new["verify_modes"]
     rep = replica_phases(torch, dev, weights)
+    cli_check(torch)
     rep_paths = ("replicas_1", "replicas_2", "replica_rebuild", "replica_stall",
-                 "stream_resume_bf16")
+                 "stream_resume_bf16", "observability", "escape_hatch_bf16")
 
     main_flash = flash[0]  # the embedder's bidirectional shape
     kernels = [

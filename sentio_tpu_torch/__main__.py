@@ -1,4 +1,4 @@
-"""``python -m sentio_tpu_torch {chat,serve,ingest,eval,train-encoder}``
+"""``python -m sentio_tpu_torch {chat,serve,ingest,eval,train-encoder,trace,info}``
 
 * ``chat "question" [--docs FILE ...]`` builds the ``/chat`` pipeline,
   ingests the given files (a few built-in passages when none are given)
@@ -8,7 +8,8 @@
   captured).
 * ``serve [--host H] [--port P] [--index PATH]`` runs the HTTP server
   (``/chat`` with SSE, ``/embed``, ``/upload``, ``/clear``, ``/health``,
-  ``/info``, ``/metrics``), loading a dense index saved by ``ingest
+  ``/info``, ``/metrics``, ``/metrics/performance``, ``/debug/flight``,
+  ``/debug/profile``), loading a dense index saved by ``ingest
   --save``; it prints the address it listens on and stops on SIGINT or
   SIGTERM.
 * ``ingest PATH [--no-recursive] [--save PATH]`` chunks, embeds and
@@ -24,6 +25,16 @@
   default), saves the checkpoint to ``OUT`` (for ``EMBEDDER_CHECKPOINT``
   and ``eval --encoder-checkpoint``) and prints its history as JSON, with
   recall@10 on the eval bundle under ``--eval-recall``.
+* ``trace QUERY [--index PATH] [--ingest PATH] [--mode M] [--documents]
+  [--chrome FILE]`` runs one question through the pipeline and prints the
+  execution trace as JSON (JAX's keys: the stages' path and times, the
+  document counts, the answer, the verdict, the metadata, and the request's
+  flight record with its engine section and tick window); ``--chrome``
+  writes the recorder's whole timeline as a Chrome / Perfetto trace.
+  ``--fleet`` (the process tier's fleet trace) raises: not ported.
+* ``info`` prints the version, the devices (``{"platform": "gpu", "kind":
+  <the card's name>}``, or ``cpu``), the retrieval strategy, the
+  generator preset and the mesh sizes.
 
 Each runs on the card unless ``--device cpu``. Settings come from the
 environment as in the JAX service: ``RETRIEVAL_STRATEGY`` (``hybrid`` by
@@ -128,6 +139,85 @@ def _cmd_ingest(args) -> int:
     return 0 if not stats.errors else 1
 
 
+def _cmd_trace(args) -> int:
+    import uuid
+
+    from sentio_tpu_torch.infra.flight import get_flight_recorder
+    from sentio_tpu_torch.pipeline import build_pipeline, wait_detached
+
+    if args.fleet:
+        raise NotImplementedError("--fleet: fleet traces of process and socket replicas are "
+                                  "not ported")
+    settings = _settings(args)
+    pipeline = build_pipeline(settings, device=args.device, seed=args.seed)
+    try:
+        if args.index:
+            pipeline.load_index(args.index)
+        if args.ingest:
+            pipeline.ingestor.ingest_path(args.ingest)
+        query_id = f"trace-{uuid.uuid4().hex[:8]}"
+        state = pipeline.run(args.query, mode=args.mode,
+                             metadata={"mode": args.mode, "query_id": query_id})
+        # a detached verify: wait for its verdict to land on the record
+        if state["metadata"].get("verify_pending"):
+            wait_detached()
+        meta = state["metadata"]
+        trace = {
+            "query": args.query,
+            "request_id": query_id,
+            "graph_path": meta.get("graph_path"),
+            "node_timings_ms": meta.get("node_timings_ms"),
+            "num_retrieved": len(state.get("retrieved_documents") or []),
+            "num_reranked": len(state.get("reranked_documents") or []),
+            "num_selected": len(state.get("selected_documents") or []),
+            "answer": state.get("response"),
+            "evaluation": state.get("evaluation") or None,
+            "metadata": {k: v for k, v in meta.items()
+                         if k not in ("graph_path", "node_timings_ms")},
+        }
+        flight = get_flight_recorder().get(query_id)
+        if flight is not None:
+            trace["flight"] = {k: v for k, v in flight.items()
+                               if k not in ("node_timings_ms", "graph_path", "request_id")}
+        if args.chrome:
+            from sentio_tpu_torch.infra.chrome_trace import flight_to_chrome
+
+            with open(args.chrome, "w") as fh:
+                json.dump(flight_to_chrome(), fh)
+            print(f"chrome trace written to {args.chrome} (open in ui.perfetto.dev)",
+                  file=sys.stderr)
+        if args.documents:
+            trace["selected_documents"] = [
+                {"id": d.id, "text": d.text[:200], "metadata": d.metadata}
+                for d in (state.get("selected_documents") or [])]
+    finally:
+        pipeline.close()
+    print(json.dumps(trace, indent=2, default=str))
+    return 0
+
+
+def _cmd_info(args) -> int:
+    import torch
+
+    from sentio_tpu_torch import __version__, resolve_device
+
+    settings = _settings(args)
+    if resolve_device(args.device).type == "cuda":
+        devices = [{"platform": "gpu", "kind": torch.cuda.get_device_name(i)}
+                   for i in range(torch.cuda.device_count())]
+    else:
+        devices = [{"platform": "cpu", "kind": "cpu"}]
+    print(json.dumps({
+        "version": __version__,
+        "devices": devices,
+        "retrieval": settings.retrieval.strategy,
+        "generator": settings.generator.model_preset,
+        "mesh": {"dp": settings.mesh.dp_size, "tp": settings.mesh.tp_size,
+                 "sp": settings.mesh.sp_size},
+    }, indent=2))
+    return 0
+
+
 def _cmd_eval(args) -> int:
     from sentio_tpu_torch.eval.runner import run_eval
 
@@ -228,6 +318,25 @@ def main(argv=None) -> int:
                     help="measure recall@10 on the eval bundle (seed 0) after training")
     tr.add_argument("--device", default=None, help="default: cuda")
     tr.set_defaults(fn=_cmd_train_encoder)
+
+    trace = sub.add_parser("trace", help="run one query and print its execution trace")
+    trace.add_argument("query")
+    trace.add_argument("--ingest", default="", help="ingest this path first")
+    trace.add_argument("--index", default="", help="load a persisted dense index")
+    trace.add_argument("--mode", default="balanced",
+                       choices=["fast", "balanced", "quality", "creative"])
+    trace.add_argument("--documents", action="store_true",
+                       help="include the selected documents in the output")
+    trace.add_argument("--chrome", default="", metavar="OUT_JSON",
+                       help="also write the flight timeline as a Chrome/Perfetto trace")
+    trace.add_argument("--fleet", action="store_true",
+                       help="a fleet trace of worker replicas (not ported: raises)")
+    common(trace)
+    trace.set_defaults(fn=_cmd_trace)
+
+    info = sub.add_parser("info", help="print version, device and config info")
+    common(info)
+    info.set_defaults(fn=_cmd_info)
 
     args = parser.parse_args(argv)
     return args.fn(args)

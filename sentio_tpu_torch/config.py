@@ -5,12 +5,14 @@ Same dataclasses, fields, defaults and environment variable names as the
 JAX package's tree (chunking, retrieval, rerank, embedder, generator, the
 serve section's HTTP surface, the generation service's overload controls
 and the thread-mode replica tier, the cache section, and of auth the
-switch); the mesh section, the socket tier's and the autoscaler's tuning
-fields and the rest of auth are left out because nothing in this package
-reads them. Settings the port cannot honour (``AUTH_ENABLED=1``,
+switch, observability, and of the mesh section its dp / tp / sp sizes);
+the socket tier's and the autoscaler's tuning fields and the rest of auth
+and of the mesh are left out because nothing in this package reads them.
+Settings the port cannot honour (``AUTH_ENABLED=1``,
 ``CACHE_BACKEND=multi_tier``, ``REPLICA_MODE=process|socket``, a non-empty
-``REPLICA_WORKERS``, ``AUTOSCALE=1``) raise ``NotImplementedError`` where
-they would be used. Plain dataclasses, no import-time work.
+``REPLICA_WORKERS``, ``AUTOSCALE=1``, an ``INDEX_BACKEND`` other than
+``tpu``, a mesh of more than one device) raise where they would be used.
+Plain dataclasses, no import-time work.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ __all__ = [
     "ServeConfig",
     "CacheConfig",
     "AuthConfig",
+    "MeshConfig",
+    "ObservabilityConfig",
     "Settings",
 ]
 
@@ -473,6 +477,55 @@ class AuthConfig:
 
 
 @dataclass
+class MeshConfig:
+    """The mesh sizes ``info`` reports (``MESH_DP``, ``MESH_TP``,
+    ``MESH_SP``); the port runs on one card, so ``build_pipeline`` refuses
+    any size above 1 (0 for dp means "infer": one card)."""
+
+    dp_size: int = 0
+    tp_size: int = 1
+    sp_size: int = 1
+
+    @classmethod
+    def from_env(cls) -> "MeshConfig":
+        return cls(
+            dp_size=_env_int(["MESH_DP"], 0),
+            tp_size=_env_int(["MESH_TP"], 1),
+            sp_size=_env_int(["MESH_SP"], 1),
+        )
+
+
+@dataclass
+class ObservabilityConfig:
+    """Tracing and metrics: ``TRACING_ENABLED`` (or ``OTEL_ENABLED``) turns
+    on OpenTelemetry spans around the pipeline's stages and a
+    ``torch.profiler.record_function`` range around each pump tick;
+    ``PROFILER_DIR`` (or JAX's ``JAX_PROFILER_DIR``) is where
+    ``/debug/profile`` writes its trace when the request names none.
+    ``METRICS_ENABLED=0`` is refused by the server (every family is always
+    recorded); JAX's ``MONITOR_INTERVAL_S`` is read by nothing in either
+    package and is left out."""
+
+    tracing_enabled: bool = False
+    otlp_endpoint: str = ""
+    console_exporter: bool = False
+    service_name: str = "sentio-tpu"
+    metrics_enabled: bool = True
+    profiler_dir: str = ""
+
+    @classmethod
+    def from_env(cls) -> "ObservabilityConfig":
+        return cls(
+            tracing_enabled=_env_bool(["TRACING_ENABLED", "OTEL_ENABLED"], False),
+            otlp_endpoint=_env_str(["OTEL_EXPORTER_OTLP_ENDPOINT"], ""),
+            console_exporter=_env_bool(["OTEL_CONSOLE"], False),
+            service_name=_env_str(["OTEL_SERVICE_NAME"], "sentio-tpu"),
+            metrics_enabled=_env_bool(["METRICS_ENABLED"], True),
+            profiler_dir=_env_str(["PROFILER_DIR", "JAX_PROFILER_DIR"], ""),
+        )
+
+
+@dataclass
 class Settings:
     """The sections the port reads."""
 
@@ -484,6 +537,8 @@ class Settings:
     serve: ServeConfig = field(default_factory=ServeConfig)
     cache: CacheConfig = field(default_factory=CacheConfig)
     auth: AuthConfig = field(default_factory=AuthConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    observability: ObservabilityConfig = field(default_factory=ObservabilityConfig)
 
     @classmethod
     def from_env(cls) -> "Settings":
@@ -496,4 +551,6 @@ class Settings:
             serve=ServeConfig.from_env(),
             cache=CacheConfig.from_env(),
             auth=AuthConfig.from_env(),
+            mesh=MeshConfig.from_env(),
+            observability=ObservabilityConfig.from_env(),
         )

@@ -100,6 +100,7 @@ def run_eval(scale: str = "bench", n_docs: int = 1024, n_queries: int = 64,
     from sentio_tpu_torch.ops.retrievers import DenseRetriever, HybridRetriever, SparseRetriever
     from sentio_tpu_torch.ops.verifier import AnswerVerifier
     from sentio_tpu_torch.pipeline import ChatPipeline, check_verify_mode, wait_detached
+    from sentio_tpu_torch.runtime.engine import GeneratorEngine
     from sentio_tpu_torch.runtime.paged import ContinuousBatchingEngine
     from sentio_tpu_torch.runtime.replica import ReplicaSet
     from sentio_tpu_torch.runtime.service import PagedGenerationService
@@ -226,8 +227,9 @@ def run_eval(scale: str = "bench", n_docs: int = 1024, n_queries: int = 64,
             rows.append(timed("hybrid_rerank", "3-hybrid+rerank", cfg3).row())
 
         if want & {"full_paged", "batched"}:
+            llm_params = init_llama(llm_cfg, gen(3), dev)
             paged = ContinuousBatchingEngine(
-                model_config=llm_cfg, params=init_llama(llm_cfg, gen(3), dev),
+                model_config=llm_cfg, params=llm_params,
                 max_slots=max(concurrency, 4), page_size=16,
                 # a sequence's window is the model's context: prompts sized
                 # by context_token_budget always fit
@@ -239,7 +241,12 @@ def run_eval(scale: str = "bench", n_docs: int = 1024, n_queries: int = 64,
             # the serving tier's front end at one replica, as JAX measures
             # the routed path; no supervisor, as in JAX's eval
             service = ReplicaSet([PagedGenerationService(paged)], supervise=False)
-            generator = LLMGenerator(provider=EngineProvider(service=service),
+            # the contiguous engine on the same weights behind the tier, as
+            # JAX's eval builds it: the provider's escape hatch
+            contiguous = GeneratorEngine(config=settings.generator, model_config=llm_cfg,
+                                         params=llm_params, rng_seed=seed, device=dev)
+            generator = LLMGenerator(provider=EngineProvider(contiguous=contiguous,
+                                                             service=service),
                                      config=settings.generator)
             pipeline = ChatPipeline(embedder=embedder, index=dense_index, retriever=hybrid,
                                     generator=generator, bm25_index=bm25, reranker=reranker,

@@ -9,7 +9,8 @@ the JSON error body and :meth:`ErrorHandler.handle` maps any exception to
 errors are ``soft_fail_exempt``: the ``/chat`` degradation ladder lets
 them raise (a shed or an expired caller gets a typed 429/503/504 with
 ``Retry-After``, not an empty answer), where any other generation error
-degrades.
+degrades. :class:`VectorStoreError` is the vector-store registry's
+refusal of an unknown store name.
 """
 
 from __future__ import annotations
@@ -164,6 +165,12 @@ class ReplicaUnavailable(ServiceUnavailableError):
         kw.setdefault("retryable", True)
         super().__init__(message, **kw)
         self.details.setdefault("retry_after_s", retry_after_s)
+
+
+class VectorStoreError(Exception):
+    """An unknown ``INDEX_BACKEND`` / ``VECTOR_STORE`` name —
+    ``sentio_tpu/ops/vector_store.py::VectorStoreError``, a plain
+    exception as there."""
 
 
 class ErrorHandler:

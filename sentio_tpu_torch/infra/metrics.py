@@ -18,16 +18,38 @@ tier's: ``sentio_tpu_tenant_admitted_total`` and
 published at scrape time), ``sentio_tpu_replica_health`` (1 on each
 replica's current health state), ``sentio_tpu_pump_heartbeat_age_seconds``
 (the stall watchdog's reading) and ``sentio_tpu_stream_resumes_total``
-(by outcome).
+(by outcome); and the LLM and device families, registered whatever the
+settings as JAX registers them: ``sentio_llm_tokens_total`` and
+``sentio_llm_latency_seconds`` (the remote provider's calls),
+``sentio_circuit_breaker_state``, ``sentio_tpu_hbm_bytes_in_use``
+(:meth:`MetricsCollector.collect_device_memory`: the card's allocated
+bytes), ``sentio_tpu_batch_occupancy``,
+``sentio_tpu_decode_tokens_per_second``, ``sentio_tpu_ttft_seconds`` and
+``sentio_tpu_tpot_seconds`` (each engine admission, by ``path``: paged or
+stream) and ``sentio_tpu_tick_duration_seconds`` (each pump tick). A family
+JAX feeds nowhere on the default path (the breaker, the batch occupancy,
+device memory) stays registered and empty here too. The process tier's
+families (``worker_*``, ``fleet_*``, ``autoscale_*``,
+``replica_worker_deaths``) and ``xla_compiles`` are not ported.
+
+A family without labels has its one series from the start (at 0), as
+``prometheus_client`` renders it. :meth:`MetricsCollector.export_json`
+is the JSON snapshot ``/metrics/performance`` serves: counters and gauges
+by ``name(labels)``, histograms with their count, mean and the p50 / p95
+of the last ``WINDOW`` observations.
 """
 
 from __future__ import annotations
 
 import math
 import threading
-from typing import Optional, Sequence
+from collections import deque
+from typing import Any, Optional, Sequence
 
 from sentio_tpu_torch.infra.phases import TICK_PHASES
+
+# observations per histogram series kept for export_json's quantiles
+WINDOW = 1000
 
 # prometheus_client's default histogram buckets
 DEFAULT_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.075, 0.1, 0.25, 0.5, 0.75, 1.0, 2.5, 5.0,
@@ -62,12 +84,22 @@ class _Family:
         self.name, self.doc, self.label_names = name, doc, tuple(labels)
         self._children: dict[tuple[str, ...], object] = {}
         self._lock = threading.Lock()
+        if not self.label_names:
+            self._children[()] = self._zero()
+
+    def _zero(self):
+        return 0.0
 
     def _key(self, values: Sequence) -> tuple[str, ...]:
         key = tuple(str(v) for v in values)
         if len(key) != len(self.label_names):
             raise ValueError(f"{self.name} takes labels {self.label_names}, got {key}")
         return key
+
+    def values(self) -> dict:
+        """{label values: the series' value} (a histogram's: counts, sum)."""
+        with self._lock:
+            return dict(self._children)
 
     def header(self) -> list[str]:
         return [f"# HELP {self.name} {self.doc}", f"# TYPE {self.name} {self.kind}"]
@@ -110,17 +142,39 @@ class Histogram(_Family):
 
     def __init__(self, name: str, doc: str, labels: Sequence[str] = (),
                  buckets: Sequence[float] = DEFAULT_BUCKETS) -> None:
-        super().__init__(name, doc, labels)
         self.buckets = tuple(sorted(float(b) for b in buckets)) + (math.inf,)
+        self._window: dict[tuple[str, ...], deque] = {}
+        super().__init__(name, doc, labels)
+
+    def _zero(self):
+        return ([0] * len(self.buckets), 0.0)
 
     def observe(self, *labels, value: float) -> None:
         key = self._key(labels)
         with self._lock:
-            counts, total = self._children.get(key, ([0] * len(self.buckets), 0.0))
+            counts, total = self._children.get(key) or self._zero()
             for i, bound in enumerate(self.buckets):
                 if value <= bound:
                     counts[i] += 1
             self._children[key] = (counts, total + float(value))
+            self._window.setdefault(key, deque(maxlen=WINDOW)).append(float(value))
+
+    def summary(self) -> dict:
+        """{labels: count, mean, the p50 / p95 of the retained window and
+        how many observations fell out of it} for every observed series."""
+        out = {}
+        with self._lock:
+            for key, (counts, total) in self._children.items():
+                if not counts[-1]:
+                    continue
+                window = sorted(self._window.get(key, ()))
+                out[key] = {"count": counts[-1], "window": len(window),
+                            "dropped": counts[-1] - len(window),
+                            "p50": window[len(window) // 2] if window else 0.0,
+                            "p95": window[min(int(len(window) * 0.95), len(window) - 1)]
+                            if window else 0.0,
+                            "mean": total / counts[-1]}
+        return out
 
     def render(self) -> list[str]:
         with self._lock:
@@ -191,12 +245,44 @@ class MetricsCollector:
             "survivor; exhausted = resume budget spent, typed error surfaced; failed = no "
             "survivor could take the splice; opt_out = caller disabled resumption)",
             ["outcome"])
-        self._families = (self.requests, self.request_latency, self.embeddings,
-                          self.retrieval_latency, self.serving_stat, self.serving_total,
-                          self.shed, self.inflight, self.pump_duty_cycle, self.tick_phase,
-                          self.verify, self.verify_confidence, self.tenant_admitted,
-                          self.tenant_shed, self.replica_stat, self.replica_health,
-                          self.pump_heartbeat_age, self.stream_resumes)
+        self.llm_tokens = Counter("sentio_llm_tokens_total", "tokens generated", ["kind"])
+        self.llm_latency = Histogram("sentio_llm_latency_seconds", "LLM call latency", ["op"])
+        self.breaker_state = Gauge("sentio_circuit_breaker_state",
+                                   "0 closed / 1 half-open / 2 open", ["name"])
+        self.hbm_bytes = Gauge("sentio_tpu_hbm_bytes_in_use", "device memory in use",
+                               ["device"])
+        self.batch_occupancy = Histogram("sentio_tpu_batch_occupancy",
+                                         "coalesced batch fill fraction", ["batcher"],
+                                         buckets=(0.125, 0.25, 0.5, 0.75, 1.0))
+        self.tokens_per_s = Gauge("sentio_tpu_decode_tokens_per_second", "decode throughput")
+        # TTFT: submit → the first sampled token visible on the host; TPOT:
+        # mean seconds per output token after the first
+        self.ttft = Histogram("sentio_tpu_ttft_seconds", "time to first token", ["path"],
+                              buckets=(0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10, 30))
+        self.tpot = Histogram("sentio_tpu_tpot_seconds", "time per output token", ["path"],
+                              buckets=(0.002, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1,
+                                       2.5))
+        self.tick_duration = Histogram("sentio_tpu_tick_duration_seconds",
+                                       "engine pump tick wall time",
+                                       buckets=(0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
+                                                0.5, 1, 5))
+        # JAX's keys for each family (its collector's and export_json's)
+        self._families = {
+            "requests": self.requests, "request_latency": self.request_latency,
+            "embeddings": self.embeddings, "retrieval_latency": self.retrieval_latency,
+            "llm_tokens": self.llm_tokens, "llm_latency": self.llm_latency,
+            "breaker_state": self.breaker_state, "hbm_bytes": self.hbm_bytes,
+            "batch_occupancy": self.batch_occupancy, "serving_stat": self.serving_stat,
+            "serving_total": self.serving_total, "tokens_per_s": self.tokens_per_s,
+            "ttft": self.ttft, "tpot": self.tpot, "tick_duration": self.tick_duration,
+            "shed": self.shed, "inflight": self.inflight,
+            "tenant_admitted": self.tenant_admitted, "tenant_shed": self.tenant_shed,
+            "replica_stat": self.replica_stat, "replica_health": self.replica_health,
+            "verify_total": self.verify, "verify_confidence": self.verify_confidence,
+            "pump_heartbeat_age": self.pump_heartbeat_age,
+            "pump_duty_cycle": self.pump_duty_cycle, "tick_phase": self.tick_phase,
+            "stream_resumes": self.stream_resumes,
+        }
         self._inflight = 0
         self._inflight_lock = threading.Lock()
         self._serving_last: dict[str, float] = {}
@@ -211,6 +297,56 @@ class MetricsCollector:
 
     def record_retrieval(self, strategy: str, latency_s: float) -> None:
         self.retrieval_latency.observe(strategy, value=latency_s)
+
+    def record_llm(self, op: str, latency_s: float, tokens: int = 0) -> None:
+        """One LLM call (``op``: ``remote_chat`` from the remote provider)
+        and the tokens it generated; the throughput gauge is tokens over the
+        call's seconds."""
+        self.llm_latency.observe(op, value=latency_s)
+        if tokens:
+            self.llm_tokens.inc(op, amount=tokens)
+            if latency_s > 0:
+                self.tokens_per_s.set(value=tokens / latency_s)
+
+    def record_ttft(self, seconds: float, path: str = "paged") -> None:
+        """Time to the first token of one admission (``path``: paged |
+        stream)."""
+        self.ttft.observe(path, value=seconds)
+
+    def record_tpot(self, seconds: float, path: str = "paged") -> None:
+        """Mean time per output token of one admission, the first token
+        excluded."""
+        self.tpot.observe(path, value=seconds)
+
+    def record_tick(self, duration_s: float, active_slots: int, queue_depth: int) -> None:
+        """One pump tick: its wall time, and the occupancy and queue depth
+        as point-in-time serving stats."""
+        self.tick_duration.observe(value=duration_s)
+        self.set_serving_stat("tick_active_slots", float(active_slots))
+        self.set_serving_stat("tick_queue_depth", float(queue_depth))
+
+    def record_breaker(self, name: str, state: str) -> None:
+        self.breaker_state.set(name, value={"closed": 0.0, "half_open": 1.0,
+                                            "open": 2.0}.get(state, 0.0))
+
+    def record_batch_occupancy(self, batcher: str, occupancy: float) -> None:
+        self.batch_occupancy.observe(batcher, value=occupancy)
+
+    def collect_device_memory(self) -> None:
+        """Each card's allocated bytes (``torch.cuda.memory_stats()``'s
+        current allocation, in place of JAX's ``bytes_in_use``) into the
+        device-memory gauge; nothing without a card."""
+        try:
+            import torch
+
+            if not torch.cuda.is_available():
+                return
+            for dev in range(torch.cuda.device_count()):
+                stats = torch.cuda.memory_stats(dev)
+                if "allocated_bytes.all.current" in stats:
+                    self.hbm_bytes.set(str(dev), value=stats["allocated_bytes.all.current"])
+        except Exception:  # noqa: BLE001 — a device-memory scrape is best-effort telemetry
+            pass
 
     def record_verify(self, mode: str, outcome: str,
                       confidence: Optional[float] = None) -> None:
@@ -281,8 +417,22 @@ class MetricsCollector:
             self.serving_total.inc(event, amount=delta)
 
     def export_prometheus(self) -> bytes:
-        lines = [line for family in self._families for line in family.render()]
+        lines = [line for family in self._families.values() for line in family.render()]
         return ("\n".join(lines) + "\n").encode()
+
+    def export_json(self) -> dict[str, Any]:
+        """``{"counters", "histograms", "gauges"}``, each series keyed
+        ``name(labels)`` under JAX's family keys."""
+        out: dict[str, Any] = {"counters": {}, "histograms": {}, "gauges": {}}
+        for name, family in self._families.items():
+            if isinstance(family, Histogram):
+                for key, summary in family.summary().items():
+                    out["histograms"][f"{name}{key}"] = summary
+            else:
+                section = out["counters" if isinstance(family, Counter) else "gauges"]
+                for key, value in family.values().items():
+                    section[f"{name}{key}"] = value
+        return out
 
 
 _collector: Optional[MetricsCollector] = None

@@ -52,6 +52,7 @@ __all__ = [
     "DUTY_STATES",
     "PhaseTimer",
     "duty_fractions",
+    "phases_to_ms",
 ]
 
 # the one bounded key set
@@ -129,6 +130,12 @@ class PhaseTimer:
 
     def total(self) -> float:
         return sum(self.acc.values())
+
+
+def phases_to_ms(phase_s: dict) -> dict:
+    """Seconds per phase → the flight records' ``phase_ms`` (ms, 3
+    decimals)."""
+    return {k: round(v * 1e3, 3) for k, v in phase_s.items()}
 
 
 def sum_phase_totals(rows) -> tuple:

@@ -3,17 +3,18 @@
 
 Numbered ``[n] Source: … (score …)`` context assembly, the retrieve
 template, temperature by mode, and one provider: :class:`EngineProvider`,
-which submits the prompt to the generation service over the paged engine
-(``USE_PAGED_KV=1``, the default: concurrent chats share one decode batch)
-or, with no service, runs the contiguous engine's ``generate`` (through
-its ``SpeculativeDecoder`` when a draft is configured, greedy and sampled
-alike), as JAX's ``TpuProvider`` does; ``stream`` yields the answer's text
-increments over the service's ``generate_stream`` or the contiguous
-engine's ``stream``.
+JAX's ``TpuProvider``, which submits the prompt to the replica tier over
+the paged engines (``USE_PAGED_KV=1``, the default: concurrent chats share
+one decode batch) with the contiguous engine behind it as the escape
+hatch, or, with no tier, runs the contiguous engine's ``generate``
+(through its ``SpeculativeDecoder`` when a draft is configured, greedy and
+sampled alike); ``stream`` yields the answer's text increments over the
+tier's ``generate_stream`` or the contiguous engine's ``stream``.
 A caller's ``deadline_ts`` (absolute ``time.perf_counter()``) reaches the
-service's ticket, and so do the request's WFQ ``tenant`` and ``priority``
-and a stream's ``resumable=False`` opt-out, which the replica tier in
-front of the paged engines reads.
+service's ticket, and so do the request's flight-record id
+(``request_id``), its WFQ ``tenant`` and ``priority`` and a stream's
+``resumable=False`` opt-out, which the replica tier in front of the paged
+engines reads.
 
 :class:`OpenAIProvider` is JAX's OpenAI-compatible remote provider on the
 standard library (``infra/http_client.py``: one keep-alive connection per
@@ -42,14 +43,20 @@ from sentio_tpu_torch.ops.prompts import PromptBuilder
 
 @dataclass
 class EngineProvider:
-    """Chat over the in-process engine: through ``service``, the replica
-    tier over paged engines, or, with no service, through the contiguous
-    ``GeneratorEngine`` ``contiguous``, whose chats go through
-    ``speculative`` when set. Nothing falls back: a service's ``error``
-    result raises, as in JAX with no contiguous engine behind the service.
-    ``routing`` (``tenant``, ``priority``, a stream's ``resumable``) goes
-    to the service as given; the contiguous engine has no tier to take
-    it."""
+    """Chat over the in-process engines, by ``TpuProvider``'s rules: through
+    ``service``, the replica tier over paged engines, with the contiguous
+    ``GeneratorEngine`` ``contiguous`` as the escape hatch — a chat is
+    answered by it after the tier gives an ``error`` result or raises
+    anything not ``soft_fail_exempt`` (a shed, an expired deadline or a
+    replica the tier gave up on re-raise: the caller gave up or the load
+    was being protected), a stream only while it has yielded nothing
+    (after that a restart would repeat the answer); with no contiguous
+    engine those raise. The escape hatch is the plain contiguous engine,
+    never ``speculative`` (JAX builds no decoder beside paged engines).
+    With no service, chats go to the contiguous engine, through
+    ``speculative`` when set. ``routing`` (``request_id``, ``tenant``,
+    ``priority``, a stream's ``resumable``) goes to the tier as given; the
+    contiguous engine has no tier to take it."""
 
     contiguous: object = None
     service: object = None  # ReplicaSet
@@ -69,15 +76,24 @@ class EngineProvider:
              deadline_ts: Optional[float] = None, stats: Optional[dict] = None,
              **routing) -> str:
         if self.service is not None:
-            result = self.service.generate(prompt, max_new_tokens=max_new_tokens,
-                                           temperature=temperature, deadline_ts=deadline_ts,
-                                           **routing)
-            if result.finish_reason == "error":
+            try:
+                result = self.service.generate(prompt, max_new_tokens=max_new_tokens,
+                                               temperature=temperature,
+                                               deadline_ts=deadline_ts, **routing)
+                if result.finish_reason != "error":
+                    if stats is not None:
+                        stats.update(result.stats_dict())
+                    return result.text
+            except Exception as exc:  # noqa: BLE001 — the contiguous engine is the escape hatch
+                if getattr(exc, "soft_fail_exempt", False) or self.contiguous is None:
+                    raise
+            if self.contiguous is None:
                 raise RuntimeError("paged decode failed and no contiguous engine")
-        else:
-            generate = (self.speculative or self.contiguous).generate
-            result = generate([prompt], max_new_tokens=max_new_tokens,
-                              temperature=temperature)[0]
+            return self.contiguous.generate([prompt], max_new_tokens=max_new_tokens,
+                                            temperature=temperature)[0].text
+        generate = (self.speculative or self.contiguous).generate
+        result = generate([prompt], max_new_tokens=max_new_tokens,
+                          temperature=temperature)[0]
         if stats is not None:
             stats.update(result.stats_dict())
         return result.text
@@ -86,12 +102,20 @@ class EngineProvider:
                deadline_ts: Optional[float] = None, stats: Optional[dict] = None,
                **routing) -> Iterator[str]:
         """Text increments of one answer. Closing the iterator early
-        cancels the service's ticket."""
+        cancels the tier's ticket."""
         if self.service is not None:
-            yield from self.service.generate_stream(
-                prompt, max_new_tokens=max_new_tokens, temperature=temperature,
-                deadline_ts=deadline_ts, stats_out=stats, **routing)
-            return
+            yielded = False
+            try:
+                for piece in self.service.generate_stream(
+                        prompt, max_new_tokens=max_new_tokens, temperature=temperature,
+                        deadline_ts=deadline_ts, stats_out=stats, **routing):
+                    yielded = True
+                    yield piece
+                return
+            except Exception as exc:  # noqa: BLE001 — the contiguous engine is the escape hatch
+                if yielded or self.contiguous is None \
+                        or getattr(exc, "soft_fail_exempt", False):
+                    raise
         yield from self.contiguous.stream(prompt, max_new_tokens=max_new_tokens,
                                           temperature=temperature)
 
@@ -175,7 +199,11 @@ class OpenAIProvider:
         ``usage``."""
         return max(int(len(text.split()) * 4 / 3), 1)
 
-    def _note_usage(self, body: dict, prompt: str, reply: str) -> None:
+    def _note_usage(self, body: dict, prompt: str, reply: str, latency_s: float) -> None:
+        """The call's token usage (as reported, else counted) into
+        ``last_usage``, and the call into ``/metrics`` (``remote_chat``)."""
+        from sentio_tpu_torch.infra.metrics import get_metrics
+
         usage = body.get("usage") or {}
         completion = usage.get("completion_tokens")
         if completion is None:
@@ -185,6 +213,7 @@ class OpenAIProvider:
             prompt_tokens = self.count_tokens(prompt)
         self.last_usage = {"prompt_tokens": int(prompt_tokens),
                            "completion_tokens": int(completion)}
+        get_metrics().record_llm("remote_chat", latency_s, tokens=int(completion))
 
     def chat(self, prompt: str, max_new_tokens: int, temperature: float,
              deadline_ts: Optional[float] = None, stats: Optional[dict] = None) -> str:
@@ -192,6 +221,7 @@ class OpenAIProvider:
         last_exc: Optional[Exception] = None
         for attempt in range(self.max_retries + 1):
             try:
+                t0 = time.perf_counter()
                 resp = self._client().post("/chat/completions", payload)
                 if resp.status_code == 404 and not resp.url.startswith(
                         self.base_url.rstrip("/")):
@@ -215,7 +245,7 @@ class OpenAIProvider:
                 resp.raise_for_status()
                 body = resp.json()
                 reply = body["choices"][0]["message"]["content"]
-                self._note_usage(body, prompt, reply)
+                self._note_usage(body, prompt, reply, time.perf_counter() - t0)
                 return reply
             except Exception as exc:  # noqa: BLE001 — retry transport errors, 5xx, 429
                 status = getattr(getattr(exc, "response", None), "status_code", None)
@@ -290,12 +320,15 @@ class LLMGenerator:
                                   query=query)
 
     def _routing(self, tenant: Optional[str], priority: Optional[str],
-                 resumable: Optional[bool] = None) -> dict:
-        """The WFQ and resume kwargs, only when set and only for the engine
-        provider (a remote OpenAIProvider has no replica tier)."""
+                 resumable: Optional[bool] = None,
+                 request_id: Optional[str] = None) -> dict:
+        """The flight-record id and the WFQ and resume kwargs, only when set
+        and only for the engine provider (a remote OpenAIProvider has no
+        replica tier)."""
         if not isinstance(self.provider, EngineProvider):
             return {}
-        out = {k: v for k, v in (("tenant", tenant), ("priority", priority)) if v is not None}
+        out = {k: v for k, v in (("tenant", tenant), ("priority", priority),
+                                 ("request_id", request_id)) if v is not None}
         if resumable is False:
             out["resumable"] = False
         return out
@@ -303,31 +336,34 @@ class LLMGenerator:
     def generate(self, query: str, documents: Sequence[Document],
                  mode: Optional[str] = None, temperature: Optional[float] = None,
                  deadline_ts: Optional[float] = None, stats: Optional[dict] = None,
-                 tenant: Optional[str] = None, priority: Optional[str] = None) -> str:
+                 tenant: Optional[str] = None, priority: Optional[str] = None,
+                 request_id: Optional[str] = None) -> str:
         prompt = self.build_prompt(query, documents)
         temp = temperature if temperature is not None else self.config.temperature(mode)
         return self.provider.chat(prompt, max_new_tokens=self.config.max_new_tokens,
                                   temperature=temp, deadline_ts=deadline_ts, stats=stats,
-                                  **self._routing(tenant, priority))
+                                  **self._routing(tenant, priority, request_id=request_id))
 
     def stream(self, query: str, documents: Sequence[Document], mode: Optional[str] = None,
                temperature: Optional[float] = None, deadline_ts: Optional[float] = None,
                stats: Optional[dict] = None, tenant: Optional[str] = None,
                priority: Optional[str] = None,
-               resumable: Optional[bool] = None) -> Iterator[str]:
+               resumable: Optional[bool] = None,
+               request_id: Optional[str] = None) -> Iterator[str]:
         prompt = self.build_prompt(query, documents)
         temp = temperature if temperature is not None else self.config.temperature(mode)
         yield from self.provider.stream(prompt, max_new_tokens=self.config.max_new_tokens,
                                         temperature=temp, deadline_ts=deadline_ts,
                                         stats=stats, **self._routing(tenant, priority,
-                                                                     resumable))
+                                                                     resumable, request_id))
 
     def chat_raw(self, prompt: str, max_new_tokens: int, temperature: float,
                  deadline_ts: Optional[float] = None, tenant: Optional[str] = None,
-                 priority: Optional[str] = None) -> str:
+                 priority: Optional[str] = None, request_id: Optional[str] = None) -> str:
         """Direct provider access (the verifier path — shares the weights);
         ``tenant`` / ``priority`` charge the audit to the requesting
-        tenant."""
+        tenant, and ``request_id`` puts its admission on the same flight
+        record as the answer's."""
         return self.provider.chat(prompt, max_new_tokens=max_new_tokens,
                                   temperature=temperature, deadline_ts=deadline_ts,
-                                  **self._routing(tenant, priority))
+                                  **self._routing(tenant, priority, request_id=request_id))

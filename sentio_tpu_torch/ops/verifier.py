@@ -47,10 +47,12 @@ class AnswerVerifier:
 
     def verify(self, query: str, answer: str, documents: Sequence[Document],
                deadline_ts: Optional[float] = None, tenant: Optional[str] = None,
-               priority: Optional[str] = None) -> VerifyResult:
+               priority: Optional[str] = None,
+               request_id: Optional[str] = None) -> VerifyResult:
         """The audit, charged to the requesting ``tenant`` / ``priority`` on
         the replica tier (a tenant's audits must not ride the shared
-        tenant's quota)."""
+        tenant's quota); ``request_id`` puts its engine admission on the
+        answer's flight record."""
         try:
             # the audit prompt embeds the generate prompt verbatim as its head
             prompt = self.prompts.build(
@@ -63,6 +65,7 @@ class AnswerVerifier:
             reply = self.generator.chat_raw(
                 prompt, max_new_tokens=self.config.verifier_max_tokens, temperature=0.0,
                 deadline_ts=deadline_ts, tenant=tenant, priority=priority,
+                request_id=request_id,
             )
             return self._normalize(reply)
         except Exception as exc:  # noqa: BLE001 — the audit must never fail the answer

@@ -62,7 +62,9 @@ import torch
 from sentio_tpu_torch import resolve_device
 from sentio_tpu_torch.config import Settings
 from sentio_tpu_torch.infra.flight import get_flight_recorder
+from sentio_tpu_torch.infra.exceptions import VectorStoreError
 from sentio_tpu_torch.infra.metrics import get_metrics
+from sentio_tpu_torch.infra.tracing import get_tracing
 from sentio_tpu_torch.models.document import Document
 from sentio_tpu_torch.models.llama import LlamaConfig, init_llama
 from sentio_tpu_torch.models.transformer import EncoderConfig
@@ -186,6 +188,18 @@ def check_replica_settings(serve) -> None:
                        "thread mode", serve.replica_mode)
 
 
+def check_index_backend(name: str) -> None:
+    """``INDEX_BACKEND`` / ``VECTOR_STORE``: ``tpu`` is the in-memory exact
+    index on the card; ``qdrant`` (JAX's external store) is not ported; any
+    other name is refused as JAX's vector-store registry refuses it."""
+    if name == "tpu":
+        return
+    if name == "qdrant":
+        raise NotImplementedError("INDEX_BACKEND=qdrant: the Qdrant vector store is not "
+                                  "ported")
+    raise VectorStoreError(f"unknown vector store {name!r} (expected: tpu, qdrant)")
+
+
 def _user_top_k(raw: Optional[int], default: int, cap: int = 50) -> int:
     if raw is None:
         return default
@@ -278,10 +292,13 @@ class ChatPipeline:
         best = best_documents(state)
         t0 = time.perf_counter()
         gen_stats: dict = {}
+        request_id = str(meta["query_id"]) if meta.get("query_id") else None
         try:
-            answer = self.generator.generate(question, best, mode=mode or s.generator.mode,
-                                             temperature=temperature, deadline_ts=deadline_ts,
-                                             stats=gen_stats, tenant=tenant, priority=priority)
+            with self._span("generate"):
+                answer = self.generator.generate(
+                    question, best, mode=mode or s.generator.mode, temperature=temperature,
+                    deadline_ts=deadline_ts, stats=gen_stats, tenant=tenant,
+                    priority=priority, request_id=request_id)
         except Exception as exc:  # noqa: BLE001 — the JAX generate node's degradation
             if getattr(exc, "soft_fail_exempt", False):
                 raise  # shed / expired / service down surface typed
@@ -313,7 +330,8 @@ class ChatPipeline:
             charge = {"tenant": tenant, "priority": priority}
             if mode == "sync":
                 t0 = time.perf_counter()
-                self._verify(state, best, deadline_ts, mode, **charge)
+                with self._span("verify"):
+                    self._verify(state, best, deadline_ts, mode, **charge)
                 _node(meta, "verify", t0)
             elif not skipped:
                 self._detach_verify(state, best, deadline_ts, mode, **charge)
@@ -365,7 +383,8 @@ class ChatPipeline:
             return
         t0 = time.perf_counter()
         result = self.verifier.verify(state["query"], answer, docs, deadline_ts=deadline_ts,
-                                      tenant=tenant, priority=priority)
+                                      tenant=tenant, priority=priority,
+                                      request_id=str(request_id) if request_id else None)
         verdict_ms = round((time.perf_counter() - t0) * 1000, 2)
         record_verify(request_id, mode, result.verdict,
                       confidence=meta.get("verify_confidence"), verdict_ms=verdict_ms)
@@ -413,7 +432,8 @@ class ChatPipeline:
                                            "selected_documents": []}
         t0 = time.perf_counter()
         try:
-            retrieved = self.retriever.retrieve(question, retrieve_k)
+            with self._span("retrieve"):
+                retrieved = self.retriever.retrieve(question, retrieve_k)
         except Exception as exc:  # noqa: BLE001 — the JAX retrieve node's degradation
             logger.exception("retrieval failed")
             meta["retrieval_error"] = str(exc)
@@ -428,8 +448,9 @@ class ChatPipeline:
             if not docs["retrieved_documents"]:
                 meta["num_reranked"] = 0
             else:
-                result = self.reranker.rerank(question, docs["retrieved_documents"],
-                                              top_k=rerank_k)
+                with self._span("rerank"):
+                    result = self.reranker.rerank(question, docs["retrieved_documents"],
+                                                  top_k=rerank_k)
                 docs["reranked_documents"] = result.documents
                 meta.update(num_reranked=len(result.documents),
                             rerank_ms=round((time.perf_counter() - t0) * 1000, 2),
@@ -445,6 +466,18 @@ class ChatPipeline:
                                           * CHARS_PER_TOKEN))
         _node(meta, "select", t0)
         return docs
+
+    @contextlib.contextmanager
+    def _span(self, node: str):
+        """A ``graph.node.{node}`` span around one stage when tracing is on
+        (``TRACING_ENABLED`` and OpenTelemetry importable), as the JAX
+        executor wraps its nodes; nothing otherwise."""
+        tracing = get_tracing()
+        if not tracing.enabled:
+            yield
+            return
+        with tracing.span(f"graph.node.{node}", node=node):
+            yield
 
     def chat(self, question: str, top_k: Optional[int] = None,
              temperature: Optional[float] = None, mode: str = "balanced",
@@ -579,6 +612,12 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
         raise NotImplementedError("USE_SCORERS: post-fusion scorers are not ported")
     if rcfg.web_cache_path:
         raise NotImplementedError("WEB_CACHE_PATH: the web-cache retrieval leg is not ported")
+    check_index_backend(rcfg.index_backend)
+    mesh = settings.mesh
+    if max(mesh.dp_size, mesh.tp_size, mesh.sp_size) > 1:
+        raise NotImplementedError(f"MESH_DP={mesh.dp_size} MESH_TP={mesh.tp_size} "
+                                  f"MESH_SP={mesh.sp_size}: device meshes are not ported "
+                                  "(one card)")
     check_verify_mode(gcfg.verify_mode)
     check_replica_settings(settings.serve)
     dev = resolve_device(device)
@@ -678,7 +717,12 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
             stream_resume_budget=(serve.stream_resume_budget
                                   if serve.stream_resume_budget >= 0 else None),
             rebuild_workers=serve.replica_rebuild_workers)
-        provider = EngineProvider(service=replicas)
+        # the escape hatch, as JAX's container builds it beside the tier: a
+        # contiguous engine on the same weights, whose cache is allocated
+        # per call (no memory until a chat falls back to it)
+        contiguous = GeneratorEngine(config=gcfg, model_config=llama_config,
+                                     params=llama_params, rng_seed=seed, device=dev)
+        provider = EngineProvider(contiguous=contiguous, service=replicas)
     else:
         engine = GeneratorEngine(config=gcfg, model_config=llama_config, params=llama_params,
                                  rng_seed=seed, device=dev)

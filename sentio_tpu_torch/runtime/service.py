@@ -47,8 +47,26 @@ handoff needs; :meth:`~PagedGenerationService.extract_inbox`,
 sibling or give up on a wedged pump; a stream mirrors its delivered token
 ids into a caller-owned :class:`StreamProgress` and admits ``prior_tokens``
 after the prompt, which is how a stream is resumed on a survivor. The pump
-runs on the engine's own CUDA stream (``engine.step`` enters it). The
-flight recorder's tick ring and tracing are not ported.
+runs on the engine's own CUDA stream (``engine.step`` enters it).
+
+Telemetry, as in JAX: an admission under a ``request_id`` opens the
+request's engine section on the flight recorder (``note_engine_submit``,
+the replica id); every tick records one event before delivery — the
+replica, the step's seconds, occupancy, queue and inbox depth, the tick's
+prefill / decode / spec / prefix-hit / prefix-miss token deltas, the radix
+cache's and the pool's pages, the overload totals and ``graph_captures``
+(CUDA graphs captured in the tick, in place of JAX's ``xla_compiles``; 0
+under traffic once warmup froze the graphs) — and amends it after delivery
+with ``pump_ms`` and its ``phase_ms`` split (which sums to ``pump_ms``); a
+failed tick records a ``tick_failure`` event with its partial phases.
+Each admission's TTFT and TPOT (by ``path``: paged or stream) go to
+``/metrics`` and, with its tokens and finish reason, to ``finish_engine``
+on every path that ends a ticket (a result, an error, an expiry, a cancel,
+a failed handoff, an abandon). Every field is a host integer or time the
+engine already keeps: no device read. The telemetry is best-effort and
+never stops the pump. With tracing on (``TRACING_ENABLED``) each
+``engine.step()`` runs inside a ``record_function`` range
+``decode_tick#N``.
 """
 
 from __future__ import annotations
@@ -67,7 +85,8 @@ from sentio_tpu_torch.infra.exceptions import (
 )
 from sentio_tpu_torch.infra.flight import get_flight_recorder
 from sentio_tpu_torch.infra.metrics import get_metrics
-from sentio_tpu_torch.infra.phases import TICK_PHASES, duty_fractions
+from sentio_tpu_torch.infra.phases import TICK_PHASES, duty_fractions, phases_to_ms
+from sentio_tpu_torch.infra.tracing import get_tracing
 from sentio_tpu_torch.runtime.paged import ContinuousBatchingEngine, PagedResult
 
 logger = logging.getLogger(__name__)
@@ -119,6 +138,9 @@ class _Ticket:
     retries_left: int = 0
     t_submit: float = 0.0
     t_first: float = 0.0
+    # tokens visible when t_first was stamped: TPOT divides the interval
+    # after it by the tokens made in it (a tick emits several at once)
+    tokens_first: int = 0
     prior_tokens: Optional[list] = None
     seed: Optional[int] = None
     # the serving layer's flight-record id (None: untraced)
@@ -128,6 +150,11 @@ class _Ticket:
     tenant: Optional[str] = None
     priority: Optional[str] = None
     cost_tokens: int = 0
+
+    @property
+    def path(self) -> str:
+        """The TTFT / TPOT label: a blocking call or a stream."""
+        return "stream" if self.stream_q is not None else "paged"
 
 
 def finish_ticket_error(ticket: _Ticket, exc: Exception, finish_reason: str) -> None:
@@ -139,8 +166,8 @@ def finish_ticket_error(ticket: _Ticket, exc: Exception, finish_reason: str) -> 
         return
     ticket.error = exc
     if ticket.request_id:
-        get_flight_recorder().annotate(ticket.request_id, engine_finish=finish_reason,
-                                       engine_error=str(exc))
+        get_flight_recorder().finish_engine(ticket.request_id, finish_reason=finish_reason,
+                                            error=str(exc))
     if ticket.stream_q is not None:
         ticket.stream_q.put(("err", exc))
     ticket.event.set()
@@ -226,8 +253,7 @@ class PagedGenerationService:
                          t_submit=time.perf_counter(), deadline_ts=deadline_ts,
                          retries_left=self.retry_budget, seed=seed, request_id=request_id,
                          tenant=tenant, priority=priority, cost_tokens=int(cost_tokens))
-        with self._mutex:
-            self._admit_ticket_locked(ticket)
+        self._submit(ticket)
         wait_s = self._wait_budget(timeout_s, deadline_ts)
         if not ticket.event.wait(wait_s):
             # completion happens under the mutex, so deciding under it is
@@ -284,8 +310,7 @@ class PagedGenerationService:
                 progress: Optional[StreamProgress]) -> Iterator[str]:
         ticket.deadline_ts = deadline_ts = self._resolve_deadline(deadline_s, deadline_ts)
         ticket.t_submit = time.perf_counter()
-        with self._mutex:
-            self._admit_ticket_locked(ticket)
+        self._submit(ticket)
         tokenizer = self.engine.tokenizer
         wait_s = self._wait_budget(timeout_s, deadline_ts)
         emitted: list[int] = []
@@ -340,6 +365,21 @@ class PagedGenerationService:
                 ticket.cancelled = True
 
     # ------------------------------------------------------------ admission
+
+    def _submit(self, ticket: _Ticket) -> None:
+        """Open the request's engine window on the flight recorder and admit
+        the ticket; a refused admission closes the window again (an open
+        one would absorb every later tick)."""
+        recorder = get_flight_recorder()
+        if ticket.request_id:
+            recorder.note_engine_submit(ticket.request_id, replica_id=self.replica_id)
+        try:
+            with self._mutex:
+                self._admit_ticket_locked(ticket)
+        except Exception:
+            if ticket.request_id:
+                recorder.finish_engine(ticket.request_id, finish_reason="rejected")
+            raise
 
     def _check_top_k(self, top_k: int) -> None:
         """The engine's submit-time rule, raised at the service's API instead
@@ -409,7 +449,7 @@ class PagedGenerationService:
                 if ticket.event.is_set():
                     continue
                 if ticket.cancelled:
-                    self._cancelled += 1
+                    self._close_cancelled_locked(ticket)
                     continue
                 if ticket.deadline_ts is not None and now >= ticket.deadline_ts:
                     self._expired += 1
@@ -424,7 +464,11 @@ class PagedGenerationService:
     def adopt(self, ticket: _Ticket) -> None:
         """Admit a ticket handed off from a quarantined sibling, through
         the normal admission checks (which raise the typed errors a fresh
-        submit would)."""
+        submit would). The request's engine section keeps its first
+        replica."""
+        if ticket.request_id:
+            get_flight_recorder().note_engine_submit(ticket.request_id,
+                                                     replica_id=self.replica_id)
         with self._mutex:
             self._admit_ticket_locked(ticket)
 
@@ -728,6 +772,13 @@ class PagedGenerationService:
         # short ticks while callers wait in the inbox, not just the engine
         # queue (a GIL-atomic length read: a hint, not a lock)
         self.engine.pressure_hint = lambda: len(self._inbox)
+        recorder = get_flight_recorder()
+        metrics = get_metrics()
+        # resolved once a pump: with tracing off a tick pays one bool test
+        tracing = get_tracing()
+        # the engine's lifetime counters at this pump's start: each tick
+        # records its own deltas
+        last = self._engine_totals()
         while True:
             t_iter = now = time.perf_counter()
             with self._mutex:
@@ -736,11 +787,11 @@ class PagedGenerationService:
                 self._heartbeat_ts = now
                 for ticket in self._inbox:
                     if ticket.cancelled:
-                        self._cancelled += 1
+                        self._close_cancelled_locked(ticket)
                         continue
                     if ticket.deadline_ts is not None and now >= ticket.deadline_ts:
                         self._expired += 1
-                        get_metrics().record_shed("expired")
+                        metrics.record_shed("expired")
                         finish_ticket_error(ticket, DeadlineExceededError(
                             "deadline expired before admission"), "expired")
                         continue
@@ -756,12 +807,12 @@ class PagedGenerationService:
                     if ticket.cancelled:
                         self.engine.cancel(rid)
                         self._tickets.pop(rid, None)
-                        self._cancelled += 1
+                        self._close_cancelled_locked(ticket)
                     elif ticket.deadline_ts is not None and now >= ticket.deadline_ts:
                         self.engine.cancel(rid)
                         self._tickets.pop(rid, None)
                         self._expired += 1
-                        get_metrics().record_shed("expired")
+                        metrics.record_shed("expired")
                         finish_ticket_error(ticket, DeadlineExceededError(
                             "deadline expired mid-decode; request cancelled"), "expired")
                 if self._closed or not self.engine.has_work:
@@ -769,25 +820,46 @@ class PagedGenerationService:
                     # above or sees the pump stopped and starts a new one
                     self._pump_running = False
                     if self._closed:
-                        self._fail_all_locked()
+                        self._fail_all_locked("service closed")
                     return
             # the tick runs without any lock: only the pump thread drives the
             # engine, and submitters never wait on a tick
             t_drain = time.perf_counter()
             try:
-                finished = self.engine.step()
+                if tracing.enabled:
+                    with tracing.profile_step("decode_tick", step=self._ticks + 1):
+                        finished = self.engine.step()
+                else:
+                    finished = self.engine.step()
+                tick_dur_s = time.perf_counter() - t_drain
             except Exception:  # noqa: BLE001 — crash containment below
+                t_fail = time.perf_counter()
                 logger.exception("paged decode tick failed; attempting crash containment")
                 phase_s = dict.fromkeys(TICK_PHASES, 0.0)
                 phase_s.update(self.engine.partial_step_phases())
                 phase_s["inbox_drain"] = t_drain - t_iter
-                phase_s["other"] += max(time.perf_counter() - t_iter - sum(phase_s.values()),
-                                        0.0)
+                phase_s["other"] += max(t_fail - t_iter - sum(phase_s.values()), 0.0)
+                try:
+                    recorder.record_tick(event="tick_failure", replica=self.replica_id,
+                                         dur_ms=round((t_fail - t_drain) * 1e3, 3),
+                                         pump_ms=round((t_fail - t_iter) * 1e3, 3),
+                                         phase_ms=phases_to_ms(phase_s))
+                except Exception:  # noqa: BLE001 — telemetry is best-effort
+                    logger.debug("failed-tick telemetry failed", exc_info=True)
                 self._add_phases(phase_s)
                 if self._contain_crash():
                     continue
                 return
             active = self.engine.last_tick_active
+            # the tick's event goes on the ring BEFORE delivery: a request
+            # finishing in this tick pins a tick_last that includes it; the
+            # phase split is amended once delivery is done
+            tick_seq = None
+            try:
+                tick_seq, last = self._record_tick(recorder, metrics, last, tick_dur_s,
+                                                   active)
+            except Exception:  # noqa: BLE001 — telemetry is best-effort
+                logger.debug("tick telemetry failed", exc_info=True)
             t_deliver = now = time.perf_counter()
             with self._mutex:
                 self._heartbeat_ts = now  # the tick came back
@@ -801,6 +873,8 @@ class PagedGenerationService:
                         continue
                     if slot.emitted and ticket.t_first == 0.0:
                         ticket.t_first = now
+                        ticket.tokens_first = len(slot.emitted)
+                        metrics.record_ttft(now - ticket.t_submit, path=ticket.path)
                         self._note_ttft_locked(now - ticket.t_submit)
                     if ticket.stream_q is not None and len(slot.emitted) > ticket.sent_tokens:
                         ticket.stream_q.put(("toks", list(slot.emitted[ticket.sent_tokens:])))
@@ -813,13 +887,14 @@ class PagedGenerationService:
                     if result.finish_reason == "expired":
                         # the engine dropped it while queued for a slot
                         self._expired += 1
-                        get_metrics().record_shed("expired")
+                        metrics.record_shed("expired")
                         finish_ticket_error(ticket, DeadlineExceededError(
                             "deadline expired while queued for a slot"), "expired")
                         continue
                     self._completed += 1
                     if ticket.t_first == 0.0:
                         self._note_ttft_locked(now - ticket.t_submit)
+                    self._note_finished(ticket, result, now, metrics, recorder)
                     ticket.result = result
                     if ticket.stream_q is not None:
                         ticket.stream_q.put(("done", result))
@@ -829,10 +904,82 @@ class PagedGenerationService:
             phase_s.update(self.engine.last_step_phases)
             phase_s["inbox_drain"] = t_drain - t_iter
             phase_s["deliver"] = t_end - t_deliver
-            # the residual (call overhead, mutex waits) is "other", so the
-            # phases sum to the iteration by construction
+            # the residual (the tick record, call overhead, mutex waits) is
+            # "other", so the phases sum to the iteration by construction
             phase_s["other"] += max(t_end - t_iter - sum(phase_s.values()), 0.0)
+            try:
+                if tick_seq is not None:
+                    recorder.amend_tick(tick_seq, pump_ms=round((t_end - t_iter) * 1e3, 3),
+                                        phase_ms=phases_to_ms(phase_s))
+            except Exception:  # noqa: BLE001 — telemetry is best-effort
+                logger.debug("phase telemetry failed", exc_info=True)
+            # the amend's own cost rides the duty cycle's totals as "other"
+            phase_s["other"] += time.perf_counter() - t_end
             self._add_phases(phase_s)
+
+    def _engine_totals(self) -> dict:
+        """The engine's lifetime counters a tick event records deltas of."""
+        eng = self.engine
+        return {"prefill_tokens": eng.prefill_tokens_total,
+                "decode_tokens": eng.decode_tokens_total,
+                "spec_accepted": eng.spec_emitted_total,
+                "prefix_hit_tokens": eng.prefix_hit_tokens_total,
+                "prefix_miss_tokens": eng.prefix_miss_tokens_total,
+                "graph_captures": eng.graph_captures}
+
+    def _record_tick(self, recorder, metrics, last: dict, tick_dur_s: float,
+                     active: int) -> tuple[int, dict]:
+        """Put one tick's event on the flight recorder (JAX's fields, with
+        ``graph_captures`` for ``xla_compiles``) and its wall time into
+        ``/metrics``; host integers only. Returns the event's number and
+        the counters the next tick's deltas start from."""
+        eng = self.engine
+        totals = self._engine_totals()
+        queued = len(eng._queue)
+        inbox = len(self._inbox)  # a GIL-atomic depth read
+        free = eng.allocator.free_pages
+        radix = eng._radix
+        seq = recorder.record_tick(
+            replica=self.replica_id, dur_ms=round(tick_dur_s * 1e3, 3),
+            active_slots=int(active), queue_depth=queued, inbox_depth=inbox,
+            **{k: totals[k] - last[k] for k in totals},
+            prefix_cache_pages=radix.pages_held if radix is not None else 0,
+            free_pages=free, used_pages=eng.allocator.num_pages - 1 - free,
+            # lifetime totals, GIL-atomic reads: the difference between two
+            # ticks attributes sheds to a window
+            shed_total=self._shed, expired_total=self._expired,
+            cancelled_total=self._cancelled)
+        metrics.record_tick(tick_dur_s, int(active), queued + inbox)
+        return seq, totals
+
+    @staticmethod
+    def _note_finished(ticket: _Ticket, result: PagedResult, now: float, metrics,
+                       recorder) -> None:
+        """One admission's completion telemetry: its TTFT if it finished
+        within its first tick, its TPOT over the tokens after the first
+        tick (none for an answer that ended there), and the flight record's
+        engine admission. Best-effort."""
+        try:
+            n = len(result.tokens)
+            if ticket.t_first == 0.0:
+                ticket.t_first = now
+                ticket.tokens_first = n
+                metrics.record_ttft(now - ticket.t_submit, path=ticket.path)
+            tail = n - ticket.tokens_first
+            tpot_s = (now - ticket.t_first) / tail if tail > 0 else None
+            if tpot_s is not None:
+                metrics.record_tpot(tpot_s, path=ticket.path)
+            if ticket.request_id:
+                recorder.finish_engine(
+                    ticket.request_id,
+                    ttft_ms=round((ticket.t_first - ticket.t_submit) * 1e3, 2),
+                    tpot_ms=round(tpot_s * 1e3, 3) if tpot_s is not None else None,
+                    tokens=n, prompt_tokens=result.prompt_tokens,
+                    prefill_tokens=result.prefill_tokens,
+                    prefix_hit_tokens=result.prefix_hit_tokens,
+                    finish_reason=result.finish_reason)
+        except Exception:  # noqa: BLE001 — telemetry is best-effort
+            logger.debug("completion telemetry failed", exc_info=True)
 
     def _add_phases(self, phase_s: dict) -> None:
         get_metrics().record_tick_phases(phase_s)
@@ -855,14 +1002,14 @@ class PagedGenerationService:
             if not reset_ok:
                 self._pump_running = False
                 self._broken = True
-                self._fail_all_locked()
+                self._fail_all_locked("decode tick failed; engine reset failed")
                 return False
             survivors: list[_Ticket] = []
             for ticket in self._tickets.values():
                 if ticket.event.is_set():
                     continue
                 if ticket.cancelled:
-                    self._cancelled += 1
+                    self._close_cancelled_locked(ticket)
                     continue
                 # a stream that delivered tokens cannot restart without
                 # duplicating them
@@ -873,17 +1020,17 @@ class PagedGenerationService:
                     survivors.append(ticket)
                 else:
                     get_metrics().record_shed("crash")
-                    self._fail_ticket_locked(ticket)
+                    self._fail_ticket_locked(ticket, "decode tick failed")
             for ticket in self._inbox:
                 if ticket.cancelled:
-                    self._cancelled += 1
+                    self._close_cancelled_locked(ticket)
                 elif not ticket.event.is_set():
                     survivors.append(ticket)
             self._tickets.clear()
             self._inbox[:] = survivors
             if self._closed:
                 self._pump_running = False
-                self._fail_all_locked()
+                self._fail_all_locked("service closed")
                 return False
             if not self._inbox:
                 self._pump_running = False
@@ -897,19 +1044,30 @@ class PagedGenerationService:
         else:
             self._ttft_ema = 0.8 * self._ttft_ema + 0.2 * ttft_s
 
-    def _fail_ticket_locked(self, ticket: _Ticket) -> None:
+    def _close_cancelled_locked(self, ticket: _Ticket) -> None:
+        """Count one ticket its caller gave up on and pin the end of its
+        engine window (an open one would absorb every later tick)."""
+        self._cancelled += 1
+        if ticket.request_id:
+            get_flight_recorder().finish_engine(ticket.request_id,
+                                                finish_reason="cancelled")
+
+    def _fail_ticket_locked(self, ticket: _Ticket, reason: str) -> None:
         """End a ticket with the ``finish_reason="error"`` result."""
         if ticket.event.is_set():
             return
         ticket.result = PagedResult(request_id=-1, text="", tokens=[], prompt_tokens=0,
                                     finish_reason="error")
+        if ticket.request_id:
+            get_flight_recorder().finish_engine(ticket.request_id, finish_reason="error",
+                                                error=reason)
         if ticket.stream_q is not None:
             ticket.stream_q.put(("done", ticket.result))
         ticket.event.set()
 
-    def _fail_all_locked(self) -> None:
+    def _fail_all_locked(self, reason: str) -> None:
         """A stopping pump leaves no caller waiting."""
         for ticket in list(self._tickets.values()) + self._inbox:
-            self._fail_ticket_locked(ticket)
+            self._fail_ticket_locked(ticket, reason)
         self._tickets.clear()
         self._inbox.clear()

@@ -5,9 +5,19 @@ per connection; the machine with the card has no aiohttp).
 Routes: ``POST /chat`` (JSON, or SSE with ``"stream": true``), ``POST
 /embed``, ``POST /upload`` (multipart, parsed with ``email.parser``),
 ``POST /clear``, ``GET /health``, ``/health/ready``, ``/health/live``,
-``/health/detailed``, ``/info``, ``/metrics`` (Prometheus text) and
-``/debug/flight/{id}`` (a request's flight record in JSON, where a detached
-verdict lands). As in JAX: per-IP
+``/health/detailed``, ``/info``, ``/metrics`` (Prometheus text),
+``/metrics/performance`` (the metrics' JSON snapshot, the host's and the
+card's memory, the resource monitor's verdict and the serving stats),
+``/debug/flight/{id}`` (a request's flight record in JSON — its node
+timings, the ``verify`` section a detached verdict lands in, the
+``engine`` section with each admission's TTFT, TPOT and tokens, and the
+pump ticks of its window, ``engine_window: "local"``; with
+``?format=chrome`` the same as a Chrome / Perfetto trace) and
+``/debug/profile?seconds=N&dir=D`` (a ``torch.profiler`` window of N
+seconds, 0.1–60, 3 by default, over the whole process — CPU and the card's
+kernels — written as a Chrome trace under D, ``PROFILER_DIR`` or a
+temporary directory; 409 while another window is open; it runs on the
+request's own thread, so the server keeps answering). As in JAX: per-IP
 sliding-window rate limits (``/embed`` and ``/upload`` share the tight
 bucket), security headers on every response, 422 bodies listing each bad
 field, typed errors mapped by ``ErrorHandler`` with ``Retry-After`` on
@@ -35,9 +45,9 @@ ticket and frees its slot.
 :func:`create_server` builds the server over a pipeline; :func:`run_server`
 (``python -m sentio_tpu_torch serve``) builds the pipeline, warms it up,
 loads ``--index`` / ``INDEX_PATH``, serves until SIGINT or SIGTERM, then
-drains the generation service. Left out: auth, the UI page, the flight
-recorder's tick ring, ``/debug/flight``'s Chrome format, ``/debug/profile``
-and ``/metrics/performance``; ``AUTH_ENABLED=1`` raises.
+drains the generation service. Left out: auth and ``/auth/token``, and
+the UI page at ``/``; ``AUTH_ENABLED=1`` raises, as does
+``METRICS_ENABLED=0``.
 """
 
 from __future__ import annotations
@@ -60,14 +70,17 @@ from email.parser import BytesParser
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
 from typing import Any, Callable, Optional
-from urllib.parse import urlsplit
+from urllib.parse import parse_qsl, urlsplit
 
 from sentio_tpu_torch import __version__
 from sentio_tpu_torch.config import Settings
 from sentio_tpu_torch.infra.caching import CacheManager
+from sentio_tpu_torch.infra.chrome_trace import build_chrome_trace
 from sentio_tpu_torch.infra.exceptions import ErrorHandler, SentioError
 from sentio_tpu_torch.infra.metrics import get_metrics
+from sentio_tpu_torch.infra.monitoring import performance_monitor, resource_monitor
 from sentio_tpu_torch.infra.security import SECURITY_HEADERS, IPRateLimiter, RateLimitConfig
+from sentio_tpu_torch.infra.tracing import profile_window, warm_profiler
 from sentio_tpu_torch.ops.ingest import SUPPORTED_SUFFIXES
 from sentio_tpu_torch.infra.flight import get_flight_recorder
 from sentio_tpu_torch.pipeline import ChatPipeline, check_replica_settings, check_verify_mode
@@ -125,6 +138,8 @@ def check_serve_settings(settings: Settings) -> None:
     """Refuse the settings the port's server cannot honour."""
     if settings.auth.enabled:
         raise NotImplementedError("AUTH_ENABLED=1: auth and /auth/token are not ported")
+    if not settings.observability.metrics_enabled:
+        raise NotImplementedError("METRICS_ENABLED=0: the metric families are always recorded")
     if settings.cache.backend == "multi_tier":
         raise NotImplementedError("CACHE_BACKEND=multi_tier: the Redis L2 cache is not ported")
     check_verify_mode(settings.generator.verify_mode)
@@ -174,9 +189,12 @@ def create_server(settings: Optional[Settings], pipeline: ChatPipeline,
                   fallback: Optional[tuple] = None) -> SentioHTTPServer:
     """A server over ``pipeline`` bound to ``host``:``port`` (the serve
     settings' by default; port 0 picks a free one), not yet serving: run
-    ``serve_forever()`` on a thread and ``shutdown()`` from another."""
+    ``serve_forever()`` on a thread and ``shutdown()`` from another. The
+    profiler is warmed first (once a process), so ``/debug/profile``'s
+    first window opens when it is asked for."""
     settings = settings or pipeline.settings
     check_serve_settings(settings)
+    warm_profiler()
     host = settings.serve.host if host is None else host
     port = settings.serve.port if port is None else port
     return SentioHTTPServer((host, port), settings, pipeline, cache_manager=cache_manager,
@@ -316,7 +334,12 @@ class _Handler(BaseHTTPRequestHandler):
             "/health/detailed": ("GET", self._health_detailed),
             "/info": ("GET", self._info),
             "/metrics": ("GET", self._metrics),
+            "/metrics/performance": ("GET", self._metrics_performance),
+            "/debug/profile": ("GET", self._debug_profile),
         }
+
+    def _query(self) -> dict:
+        return dict(parse_qsl(urlsplit(self.path).query))
 
     def _client_ip(self) -> str:
         ip = self.client_address[0] if self.client_address else "unknown"
@@ -670,16 +693,45 @@ class _Handler(BaseHTTPRequestHandler):
         })
 
     def _debug_flight(self, request_id: str):
-        """One request's flight record: its node timings, status, latency
-        and the verify section a detached verdict lands in."""
+        """One request's flight record: its node timings, status, latency,
+        the verify section a detached verdict lands in, and the engine
+        section with the ticks of its window (thread-mode replicas share
+        the process's recorder: ``engine_window`` is ``local``); with
+        ``?format=chrome`` a Chrome trace of the window and the request."""
         record = get_flight_recorder().get(request_id)
         if record is None:
             return _json({"error": f"no flight record for {request_id!r}"}, 404)
+        record["engine_window"] = "local"
+        if self._query().get("format") == "chrome":
+            return _json(build_chrome_trace(record.pop("ticks", []), [record]))
         return _json(record)
+
+    def _debug_profile(self):
+        """A profiler window of ``?seconds=`` (0.1–60, default 3) written
+        under ``?dir=``, ``PROFILER_DIR`` or a temporary directory; 409 when
+        one is already open."""
+        query = self._query()
+        try:
+            seconds = float(query.get("seconds", "3"))
+        except ValueError:
+            raise SchemaError([{"field": "seconds", "error": "must be a number"}]) from None
+        if not 0.1 <= seconds <= 60.0:
+            raise SchemaError([{"field": "seconds", "error": "must be within [0.1, 60]"}])
+        log_dir = (query.get("dir") or self.server.settings.observability.profiler_dir
+                   or tempfile.mkdtemp(prefix="sentio-torch-profile-"))
+        outcome = profile_window(seconds, log_dir)
+        return _json(outcome, 200 if outcome.get("started") else 409)
 
     def _metrics(self):
         publish_serving_gauges(self.server.pipeline)
         return _Response(200, get_metrics().export_prometheus(), "text/plain; charset=utf-8")
+
+    def _metrics_performance(self):
+        serving = publish_serving_gauges(self.server.pipeline)
+        system = performance_monitor.collect_system()
+        return _json({"metrics": get_metrics().export_json(), "system": system,
+                      "verdict": resource_monitor.health_verdict(system),
+                      "serving": serving})
 
 
 class _TooLarge(Exception):

@@ -223,7 +223,8 @@ class ChatHandler:
                                                    temperature=temperature,
                                                    deadline_ts=deadline_ts, stats=gen_stats,
                                                    tenant=tenant, priority=priority,
-                                                   resumable=resumable):
+                                                   resumable=resumable,
+                                                   request_id=request_id):
                 chunks.append(piece)
                 yield ("token", piece)
             timings["generate"] = round((time.perf_counter() - t) * 1e3, 3)
@@ -248,7 +249,8 @@ class ChatHandler:
                     try:
                         t = time.perf_counter()
                         result = verifier.verify(question, answer, selected,
-                                                 deadline_ts=deadline_ts)
+                                                 deadline_ts=deadline_ts,
+                                                 request_id=request_id)
                         verdict_ms = round((time.perf_counter() - t) * 1e3, 3)
                         if request_id:
                             recorder.add_node_timings(request_id, {"verify": verdict_ms})
@@ -266,7 +268,7 @@ class ChatHandler:
                 else:
                     t = time.perf_counter()
                     result = verifier.verify(question, answer, selected,
-                                             deadline_ts=deadline_ts)
+                                             deadline_ts=deadline_ts, request_id=request_id)
                     timings["verify"] = round((time.perf_counter() - t) * 1e3, 3)
                     record_verify(request_id, "sync", result.verdict,
                                   verdict_ms=timings["verify"])
