@@ -199,8 +199,48 @@ line each:
     the default settings answers on the card and writes a Chrome trace with
     tick slices (the tiny presets' head dims are not among the kernels').
 
-``--only-new`` runs the build, the kernel checks and phases 21-27 only
-(random Llama-3-8B weights) and ends without the result lines.
+28. replicas_2_process — REPLICA_MODE=process, REPLICAS=2 behind the HTTP
+    server at full width, with replicas_2's settings and traffic: two
+    worker processes, each with its own engine, pool, radix tree, CUDA
+    graphs and pump, on the router's weight tensors (passed to each spawn
+    as CUDA IPC handles). Each spawn is metered: the card's used memory
+    (``torch.cuda.mem_get_info``, every process's) before and after it,
+    beside the worker's own allocator. Gates: each worker's rise at spawn
+    less its reserved bytes at most 2 GB (its CUDA context), its reserved
+    bytes below the weights' (a private copy would show in one or the
+    other); every worker captured every graph variant and holds the head;
+    in each of 3 rounds no chat degraded, each worker served a chat, every
+    verify a radix hit, each worker's paged launches one per layer per
+    sub-step and equal to its own card counts (read in its process, through
+    its ``stats``), the router's flash launches equal to the card's and no
+    paged launch in the router; a lone greedy request's text equal to
+    thread mode's; /info and /health/detailed name both workers. Reported:
+    round p50 / p95 beside thread-mode replicas_2's from the same run,
+    each worker's duty cycle, chats and memory, the card's used bytes.
+29. worker_kill — on that server: worker 0 SIGKILLed once it holds work in
+    a burst (no caller fails: its unanswered tickets are handed to the
+    survivor, its delivered streams resume there; respawned, healthy, one
+    death in /metrics), then a 128-token greedy stream whose worker
+    SIGKILLs itself after the first delivered piece (``kill_process`` at
+    the worker's stream-chunk fault point) resumes on the survivor with
+    the uninterrupted run's text. Reported: seconds to respawn.
+30. replicas_2_socket — REPLICA_MODE=socket, the spawned workers
+    registering with the router's WorkerRegistry on 127.0.0.1: one round
+    (gated as 28), the lone greedy text, then the half-open partition: once
+    a stream delivered its first piece the router's reads from its worker
+    stall at the recv frame point (``faults.hit_frame``) while its writes
+    land. Gates: detected within SOCKET_PARTITION_TIMEOUT_S plus one status
+    interval and one supervisor pass, the stream's text equal to the
+    uninterrupted run's, the worker healed (the same pid) at a higher
+    epoch, its old-epoch frames counted stale.
+31. remote_worker — ``worker_serve`` started as its own process with its
+    own weights made from the seed, a router dialing it
+    (REPLICA_WORKERS=127.0.0.1:<port>, a shared SOCKET_AUTH_TOKEN): the lone
+    greedy text equal to thread mode's, its launches equal to its card's.
+
+``--only-new`` runs the build, the kernel checks, thread-mode replicas_2
+(the reference of 28-31) and phases 28-31 only (random Llama-3-8B
+weights) and ends without the result lines.
 ``--rounds-only`` runs the build and replicas_1's warmup and rounds only,
 to compare two trees' round times in one call (copied into the other
 tree's root, it drives that tree's package), and ends the same way.
@@ -2766,7 +2806,13 @@ def check_burst(phase: str, out: list) -> dict:
             check_sse_chat(phase, i, a)
     seconds = [s for *_x, s in out]
     json_s = [s for kind, *_x, s in out if kind == "json"]
+    stages = [b["metadata"].get("node_timings_ms", {}) for kind, _a, b, _s in out
+              if kind == "json"]
     return {"chat_s": seconds, "p50_s": percentile(seconds, 0.5),
+            # each stage's mean ms over the JSON chats (retrieve, rerank and
+            # select in the router; generate and verify through the tier)
+            "stage_ms": {k: sum(t.get(k, 0.0) for t in stages) / len(stages)
+                         for k in sorted({k for t in stages for k in t})},
             "p95_s": percentile(seconds, 0.95), "json_p50_s": percentile(json_s, 0.5),
             "json_p95_s": percentile(json_s, 0.95),
             "sse_first_token_s": [a["first_token_s"] for kind, a, *_x in out if kind == "sse"],
@@ -3709,6 +3755,574 @@ def cli_check(torch) -> dict:
     return result
 
 
+# ------------------------------------------------ the process and socket tier
+
+# a worker's CUDA context and its allocator's slack: what a worker may add
+# to the card's used memory beyond its own reserved peak. A private copy of
+# the weights would add ~16 GB more.
+WORKER_SLACK_BYTES = 2 << 30
+SOCKET_TOKEN = "chip-smoke-socket-token"
+LONE_PROMPT = ("Zyx vault 17: a lone greedy request that no radix tree holds, "
+               "decoded alone on one replica")
+RESUME_PROMPT_CHARS = 400
+
+
+def card_used(torch) -> int:
+    """The card's used bytes, every process's (the router's allocator sees
+    only its own)."""
+    free, total = torch.cuda.mem_get_info()
+    return total - free
+
+
+class CardPeak:
+    """The card's largest used bytes (:func:`card_used`), sampled every
+    ``interval_s`` on a thread of its own until :meth:`stop`."""
+
+    def __init__(self, torch, interval_s: float = 0.05) -> None:
+        import threading
+
+        self.torch, self.interval_s, self.peak = torch, interval_s, card_used(torch)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="smoke-card-peak", daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            self.peak = max(self.peak, card_used(self.torch))
+
+    def stop(self) -> int:
+        self._stop.set()
+        self._thread.join(timeout=10.0)
+        return self.peak
+
+
+def tensor_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tensor_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def lone_greedy(rs) -> dict:
+    """One greedy request alone on the set (no radix hit anywhere): the
+    text every mode must give on the same weights."""
+    rs.wait_idle()
+    result = rs.generate(LONE_PROMPT, max_new_tokens=MAX_TOKENS, temperature=0.0,
+                         timeout_s=300)
+    return {"text": result.text, "tokens": list(result.tokens), "replica": result.replica_id}
+
+
+def worker_reports(rs) -> list:
+    """Each worker's stats: its service's counters with its own process's
+    launch tallies, device counts and memory under ``worker``."""
+    return [svc.stats() for svc in rs.services]
+
+
+def worker_deltas(before: list, after: list) -> list:
+    """Per worker: sub-steps, captures, completed chats, each wrapper's
+    launches and the card's split / combine counts of the paged kernels."""
+    rows = []
+    for b, a in zip(before, after):
+        wb, wa = b["worker"], a["worker"]
+        launches = {k: wa["launches"][k] - wb["launches"][k] for k in wa["launches"]}
+        card = {k: [x - y for x, y in zip(wa["device_launches"][k],
+                                           wb["device_launches"].get(k, [0, 0]))]
+                for k in wa.get("device_launches", {})}
+        rows.append({"pid": wa["pid"], "sub_steps": a["sub_steps"] - b["sub_steps"],
+                     "graph_captures": a["graph_captures"] - b["graph_captures"],
+                     "completed": a["completed"] - b["completed"], "launches": launches,
+                     "device_launches": card})
+    return rows
+
+
+def check_worker_launches(phase: str, rows: list, n_layers: int,
+                          kernel: str = "paged_attention") -> None:
+    """In each worker: one paged launch per layer per decode sub-step (the
+    wrapper's count, added per graph replay), the card's split and combine
+    counts equal to it, no other kernel launched, no capture."""
+    for i, r in enumerate(rows):
+        want = n_layers * r["sub_steps"]
+        others = {k: n for k, n in r["launches"].items() if k != kernel and n}
+        card = r["device_launches"].get(kernel, [0, 0])
+        if r["launches"][kernel] != want or card != [want, want] or others \
+                or r["graph_captures"]:
+            raise AssertionError(f"{phase}: worker {i} launched {r['launches']} (card {card}) "
+                                 f"for {r['sub_steps']} sub-steps x {n_layers} layers, "
+                                 f"captures {r['graph_captures']}")
+
+
+def worker_settings(n_replicas: int, mode: str, **serve):
+    from sentio_tpu_torch.config import GeneratorConfig, ServeConfig, Settings
+
+    return Settings(generator=GeneratorConfig(max_new_tokens=MAX_TOKENS,
+                                              verifier_max_tokens=MAX_TOKENS),
+                    serve=ServeConfig(replicas=n_replicas, replica_mode=mode,
+                                      affinity_stickiness=REPLICA_STICKINESS, **serve))
+
+
+def worker_server(torch, dev, phase: str, settings, weights: dict, docs):
+    """``build_pipeline`` under ``settings`` (a worker mode) on the shared
+    ``weights``, each worker's spawn metered (the card's used memory before
+    and after it, beside the worker's own allocator at ready), the
+    workers warmed at once, then ingested and behind ``create_server``.
+    Gates: every worker captured every graph variant and holds the head;
+    each worker's rise at spawn is its reserved memory plus at most
+    ``WORKER_SLACK_BYTES``, and its reserved memory at ready is less than
+    the weights' bytes (a private copy shows in one or the other)."""
+    import gc
+    import threading
+
+    from sentio_tpu_torch.pipeline import build_pipeline
+    from sentio_tpu_torch.runtime import worker
+    from sentio_tpu_torch.serve.app import create_server
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    weight_bytes = tensor_bytes(weights["llama_params"])
+    spawns: list = []
+    init = worker.ProcessReplica.__init__
+
+    def metered(self, *args, **kwargs):
+        used0 = card_used(torch)
+        t0 = time.perf_counter()
+        init(self, *args, **kwargs)
+        mem = self.ready_info["worker"].get("memory", {})
+        spawns.append({"replica": self.replica_id, "pid": self.pid,
+                       "seconds": time.perf_counter() - t0,
+                       "card_rise": card_used(torch) - used0, "reserved": mem.get("reserved"),
+                       "allocated": mem.get("allocated")})
+
+    used0 = card_used(torch)
+    peak = CardPeak(torch)
+    worker.ProcessReplica.__init__ = metered
+    t0 = time.perf_counter()
+    try:
+        pipeline = build_pipeline(settings, device=dev, seed=SEED, **weights)
+    finally:
+        worker.ProcessReplica.__init__ = init
+    build_s = time.perf_counter() - t0
+    used_built = card_used(torch)
+    try:
+        warm = pipeline.warmup()
+        used_warm = card_used(torch)
+        rs = pipeline.replica_set
+        reports = worker_reports(rs)
+        per = warm["per_replica"]
+        result = {"build_s": build_s, "warmup_s": warm["seconds"],
+                  "replica_seconds": [r["seconds"] for r in per],
+                  "captures": [r["graph_captures"] for r in per],
+                  "head_tokens": warm.get("head_tokens"), "spawns": spawns,
+                  "weights_bytes": weight_bytes, "card_used_before": used0,
+                  "card_used_built": used_built, "card_used_warm": used_warm,
+                  "worker_memory": [r["worker"].get("memory") for r in reports],
+                  "workers": rs.workers(), "router_allocated": torch.cuda.memory_allocated()}
+        emit(f"{phase}_warmup", **result)
+        for r in reports:
+            w = r["worker"]
+            if w["graphs_captured"] != w["graph_variants"] or not w["graphs_frozen"] \
+                    or w["foreign_modules"]:
+                raise AssertionError(f"{phase}: a worker left graph variants uncaptured or "
+                                     f"loaded JAX: {w}")
+        if warm.get("head_tokens") is not None and min(warm["head_tokens"]) <= 0:
+            raise AssertionError(f"{phase}: a worker does not hold the template head: {warm}")
+        for s in spawns:
+            if s["reserved"] is None or s["card_rise"] - s["reserved"] > WORKER_SLACK_BYTES \
+                    or s["reserved"] >= weight_bytes:
+                raise AssertionError(f"{phase}: worker {s['replica']} is not on the shared "
+                                     f"weights: {s} against {weight_bytes} weight bytes")
+        pipeline.ingest(docs)
+    except BaseException:
+        peak.stop()
+        pipeline.close()
+        raise
+    result["card_peak"] = peak
+    server = create_server(settings, pipeline, host="127.0.0.1", port=0)
+    thread = threading.Thread(target=server.serve_forever, name=f"smoke-{phase}", daemon=True)
+    thread.start()
+    return pipeline, server, thread, result
+
+
+def worker_burst(torch, phase: str, pipeline, client, words, offset: int) -> dict:
+    """:func:`http_burst` on a worker set, in a counted window read from
+    the workers' own stats: no chat degraded, each worker served a chat,
+    every verify admission a radix hit, each worker's paged launches one per
+    layer per sub-step and equal to its card counts, no capture, the
+    router's flash launches (embedder, cross-encoder) equal to the card's
+    and no paged launch in the router, no tenant reservation pending;
+    reported: p50 / p95, each worker's chats, duty cycle and launches."""
+    rs = pipeline.replica_set
+    rs.wait_idle()
+    hits = record_verifies(rs)
+    for svc in rs.services:
+        svc.reset_duty_cycle()
+    before = worker_reports(rs)
+    window = LaunchWindow(torch)
+    t0 = time.perf_counter()
+    out = http_burst(client, words, REPLICA_JSON_CHATS, REPLICA_SSE_CHATS, offset)
+    wall_s = time.perf_counter() - t0
+    rs.wait_idle()
+    router, router_card = window.read()
+    for svc in rs.services:
+        del svc.generate  # the recording wrapper
+    after = worker_reports(rs)
+    rows = worker_deltas(before, after)
+    result = check_burst(phase, out)
+    tenants = rs.tenants.stats()["per_tenant"]
+    result.update(wall_s=wall_s, workers=rows, completed=[r["completed"] for r in rows],
+                  router_view=[a["router_view"] for a in after],
+                  duty_cycle=[svc.duty_cycle() for svc in rs.services],
+                  telemetry_duty_cycle=[(svc._telemetry.get("stats") or {}).get("duty_cycle")
+                                        for svc in rs.services],
+                  verify_prefix_hit_tokens=hits, router_launches=router,
+                  router_device_launches=router_card,
+                  tenants={t: tenants[t] for t in ("a", "b")})
+    emit(phase, offset=offset, **result)
+    verifies = [h for per in hits.values() for h in per]
+    if len(verifies) != REPLICA_JSON_CHATS + REPLICA_SSE_CHATS or min(verifies) <= 0:
+        raise AssertionError(f"{phase}: every verify admission must hit its worker's radix "
+                             f"tree: {hits}")
+    if min(result["completed"]) <= 0 or sum(r["sub_steps"] for r in rows) <= 0:
+        raise AssertionError(f"{phase}: a worker served no chat: {rows}")
+    check_worker_launches(phase, rows, pipeline.replica_set.services[0].engine.cfg.n_layers)
+    if router["paged_attention"] or router["paged_attention_quant"] \
+            or router["flash_attention"] <= 0:
+        raise AssertionError(f"{phase}: the router decoded, or its encoders never launched "
+                             f"flash: {router}")
+    check_card(f"{phase}_router", router_card, router)
+    if any(t["pending"] for t in result["tenants"].values()):
+        raise AssertionError(f"{phase}: a tenant reservation was left pending: {tenants}")
+    return result
+
+
+def check_lone(phase: str, got: dict, ref: dict) -> None:
+    if got["text"] != ref["text"]:
+        raise AssertionError(f"{phase}: the lone greedy text differs from thread mode's: "
+                             f"{got['text']!r:.120} vs {ref['text']!r:.120}")
+
+
+def wait_healthy(rs, replica: int, rebuilds: int, timeout_s: float = 300.0) -> float:
+    """Seconds until ``replica`` is HEALTHY again with ``rebuilds``
+    rebuilds (and the set healthy)."""
+    t0 = time.perf_counter()
+
+    def done():
+        health = rs.health_summary()
+        row = health["replicas"][replica]
+        return health["status"] == "healthy" and row["rebuilds"] >= rebuilds
+
+    wait_for(done, timeout_s, f"replica {replica}'s rebuild #{rebuilds}")
+    return time.perf_counter() - t0
+
+
+def kill_burst(torch, pipeline, client, words, offset: int) -> dict:
+    """SIGKILL worker 0 once it holds work in the middle of a burst: no
+    caller fails (its shadowed tickets go to the survivor, its delivered
+    streams resume there), the supervisor respawns it (healthy, one
+    rebuild), its death is counted once in /metrics."""
+    import threading
+
+    rs = pipeline.replica_set
+    rs.wait_idle()
+    victim = rs.services[0]
+    out: dict = {}
+
+    def burst() -> None:
+        out["burst"] = http_burst(client, words, REPLICA_JSON_CHATS, REPLICA_SSE_CHATS, offset)
+
+    t = threading.Thread(target=burst, name="smoke-kill-burst", daemon=True)
+    t.start()
+    wait_for(lambda: victim.backlog() >= 2, 120.0, "worker 0 to hold work")
+    time.sleep(0.5)  # into its decode
+    backlog = victim.backlog()
+    t_kill = time.perf_counter()
+    victim.kill()
+    t.join(timeout=HTTP_TIMEOUT_S + 60)
+    if t.is_alive():
+        raise AssertionError("worker_kill: the burst did not return")
+    result = check_burst("worker_kill", out["burst"])
+    respawn_s = wait_healthy(rs, 0, 1)
+    samples = parse_prometheus(client.request("GET", "/metrics")[2].decode())
+    deaths = {dict(labels)["replica"]: v for (name, labels), v in samples.items()
+              if name == "sentio_tpu_replica_worker_deaths_total"}
+    stats = rs.stats()
+    result.update(victim_backlog_at_kill=backlog, respawn_s=respawn_s,
+                  kill_to_healthy_s=time.perf_counter() - t_kill, worker_deaths=deaths,
+                  handed_off=stats["handed_off"], failovers=stats["failovers"],
+                  stream_resumes=stats["stream_resumes"],
+                  pids=(victim.pid, rs.services[0].pid))
+    emit("worker_kill_burst", **result)
+    if deaths.get("0") != 1.0 or rs.services[0] is victim or rs.services[0].pid == victim.pid:
+        raise AssertionError(f"worker_kill: one death counted and a fresh worker expected: "
+                             f"{result}")
+    return result
+
+
+def kill_stream(torch, rs, prompt: str, n_tokens: int) -> dict:
+    """A greedy stream whose worker SIGKILLs itself (``kill_process`` at
+    the worker's stream-chunk fault point, armed through its
+    ``inject_fault`` RPC) after its first delivered piece resumes on the
+    survivor with the uninterrupted run's text; one resume, the tenant
+    balanced, the worker respawned."""
+    from sentio_tpu_torch.runtime.worker import STREAM_CHUNK_POINT
+
+    rs.wait_idle()
+    reference = rs.generate(prompt, max_new_tokens=n_tokens, temperature=0.0, timeout_s=300)
+    victim_idx = reference.replica_id
+    rs.wait_idle()
+    stats0 = rs.stats()
+    rebuilds0 = rs.health_summary()["replicas"][victim_idx]["rebuilds"]
+    victim = rs.services[victim_idx]
+    victim.inject_fault(STREAM_CHUNK_POINT, kill_process=True, times=1)
+    pieces = list(rs.generate_stream(prompt, max_new_tokens=n_tokens, temperature=0.0,
+                                     timeout_s=300, tenant="resume"))
+    text = "".join(pieces)
+    stats = rs.stats()
+    tenant = stats["tenants"]["per_tenant"]["resume"]
+    result = {"tokens": n_tokens, "victim": victim_idx, "pieces": len(pieces),
+              "stream_resumes": stats["stream_resumes"] - stats0["stream_resumes"],
+              "replayed_tokens": stats["resume_replayed_tokens"]
+              - stats0["resume_replayed_tokens"],
+              "tenant": {k: tenant[k] for k in ("admitted", "pending")},
+              "text_equal": text == reference.text, "chars": len(reference.text),
+              "routing": {k: stats["routing"][k] - stats0["routing"][k]
+                          for k in stats["routing"]}}
+    if result["stream_resumes"] == 1:
+        result["respawn_s"] = wait_healthy(rs, victim_idx, rebuilds0 + 1)
+    emit("worker_kill_stream", **result)
+    if not result["text_equal"] or result["stream_resumes"] != 1 or tenant["pending"] \
+            or tenant["admitted"] != 2:
+        raise AssertionError(f"worker_kill: the killed stream must resume once with the "
+                             f"uninterrupted text and a balanced tenant: {result}")
+    return result
+
+
+def partition_drill(torch, rs, prompt: str, n_tokens: int, settings) -> dict:
+    """The half-open partition on a socket set: once a stream delivered its
+    first piece, the router's reads from its worker stall at the recv
+    frame point (``faults.hit_frame``) while its writes still land. Gates:
+    the partition is detected within SOCKET_PARTITION_TIMEOUT_S plus one
+    status interval (and one supervisor pass); the stream resumes on the
+    survivor with the uninterrupted text; the worker heals (the same pid)
+    at a higher epoch; its frames of the old epoch are counted stale, none
+    delivered."""
+    import threading
+
+    from sentio_tpu_torch.infra import faults
+
+    rs.wait_idle()
+    reference = rs.generate(prompt, max_new_tokens=n_tokens, temperature=0.0, timeout_s=300)
+    idx = reference.replica_id
+    rs.wait_idle()
+    stats0 = rs.stats()
+    old = rs.services[idx]
+    registry = rs.registry
+    stale0, epoch0, pid0 = registry.stale_frames(idx), old.epoch, old.pid
+    release = threading.Event()
+    point = f"transport.recv.r{idx}"
+    it = rs.generate_stream(prompt, max_new_tokens=n_tokens, temperature=0.0, timeout_s=300,
+                            tenant="partition")
+    pieces = [next(it)]
+    faults.arm(point, faults.FaultRule(stall_event=release, stall_s=120.0, times=1))
+    t_arm = time.perf_counter()
+    try:
+        box: dict = {}
+
+        def consume() -> None:
+            try:
+                box["rest"] = list(it)
+            except Exception as exc:  # noqa: BLE001 — raised below, on the main thread
+                box["error"] = exc
+
+        t = threading.Thread(target=consume, name="smoke-partition-stream", daemon=True)
+        t.start()
+        wait_for(lambda: old._dead, 60.0, "the partition to be detected", poll_s=0.005)
+        detected_s = time.perf_counter() - t_arm
+        t.join(timeout=300)
+        if "error" in box or t.is_alive():
+            raise AssertionError(f"partition: the stream failed: {box.get('error')!r}")
+        pieces += box["rest"]
+        heal_s = wait_healthy(rs, idx, 1)
+    finally:
+        release.set()
+        faults.disarm(point)
+    wait_for(lambda: registry.stale_frames(idx) > stale0, 60.0, "stale frames to be counted")
+    healed = rs.services[idx]
+    text = "".join(pieces)
+    stats = rs.stats()
+    tenant = stats["tenants"]["per_tenant"]["partition"]
+    budget = (settings.serve.socket_partition_timeout_s + old.spec.status_interval_s
+              + settings.serve.replica_probe_interval_s)
+    result = {"replica": idx, "detected_s": detected_s, "detect_budget_s": budget,
+              "heal_s": heal_s, "epochs": (epoch0, healed.epoch), "pids": (pid0, healed.pid),
+              "stale_frames": registry.stale_frames(idx) - stale0,
+              "stream_resumes": stats["stream_resumes"] - stats0["stream_resumes"],
+              "tenant": {k: tenant[k] for k in ("admitted", "pending")},
+              "text_equal": text == reference.text, "chars": len(reference.text),
+              "death": old._death_reason}
+    emit("replicas_2_socket_partition", **result)
+    if detected_s > budget or healed.epoch <= epoch0 or healed.pid != pid0 \
+            or result["stale_frames"] <= 0 or not result["text_equal"] \
+            or result["stream_resumes"] != 1 or tenant["pending"]:
+        raise AssertionError(f"partition drill: {result}")
+    return result
+
+
+def remote_worker_check(torch, dev, weights: dict, docs, ref: dict) -> dict:
+    """``worker_serve`` started as its own process with its own weights
+    made from the seed, and a router dialing it (``REPLICA_WORKERS`` with a
+    shared ``SOCKET_AUTH_TOKEN``): the lone greedy text equals thread
+    mode's, the worker's paged launches equal its card counts."""
+    import os
+
+    from sentio_tpu_torch.ops.prompts import PromptBuilder
+
+    settings = worker_settings(1, "socket", socket_auth_token=SOCKET_TOKEN)
+    prompts = PromptBuilder()
+    head = prompts.static_head("retrieve", instruction=prompts.load("profile"))
+    code = (
+        "import sys\n"
+        "from sentio_tpu_torch.config import GeneratorConfig, ServeConfig, Settings\n"
+        "from sentio_tpu_torch.models.llama import LlamaConfig\n"
+        "from sentio_tpu_torch.pipeline import worker_spec\n"
+        "from sentio_tpu_torch.runtime.worker import worker_serve\n"
+        f"settings = Settings(generator=GeneratorConfig(max_new_tokens={MAX_TOKENS}, "
+        f"verifier_max_tokens={MAX_TOKENS}))\n"
+        f"spec = worker_spec(settings, LlamaConfig.llama3_8b(), 0, seed={SEED}, "
+        f"device='cuda', warm_head={head!r}, auth_token={SOCKET_TOKEN!r}, socket=True)\n"
+        "worker_serve('127.0.0.1', 0, spec, bound_cb=lambda a: print('bound', a[1], "
+        "flush=True))\n")
+    proc = subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        line = proc.stdout.readline()
+        if not line.startswith("bound"):
+            raise AssertionError(f"remote_worker: worker_serve did not start: {line!r}")
+        port = int(line.split()[1])
+        settings.serve.replica_workers = f"127.0.0.1:{port}"
+        t0 = time.perf_counter()
+        from sentio_tpu_torch.pipeline import build_pipeline
+
+        pipeline = build_pipeline(settings, device=dev, seed=SEED, **weights)
+        try:
+            build_s = time.perf_counter() - t0
+            warm = pipeline.warmup()
+            rs = pipeline.replica_set
+            before = worker_reports(rs)
+            lone = lone_greedy(rs)
+            after = worker_reports(rs)
+            rows = worker_deltas(before, after)
+            result = {"build_s": build_s, "warmup_s": warm["seconds"],
+                      "workers": rs.workers(), "lone": lone, "launches": rows,
+                      "worker_memory": after[0]["worker"].get("memory"),
+                      "foreign_modules": after[0]["worker"]["foreign_modules"]}
+            emit("remote_worker", **result)
+            check_lone("remote_worker", lone, ref)
+            check_worker_launches("remote_worker", rows, rs.services[0].engine.cfg.n_layers)
+            if rs.workers()[0]["pid"] != proc.pid or result["foreign_modules"]:
+                raise AssertionError(f"remote_worker: not the dialed worker: {result}")
+        finally:
+            close_pipeline(torch, pipeline)
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+    return result
+
+
+def worker_phases(torch, dev, weights: dict, ref: dict) -> dict:
+    """replicas_2_process and worker_kill (REPLICA_MODE=process, two
+    workers on the router's weights behind the HTTP server), then
+    replicas_2_socket (REPLICA_MODE=socket: one round and the partition
+    drill) and remote_worker; ``ref`` holds thread-mode replicas_2's round
+    times and its lone greedy text."""
+    docs, words = corpus(N_CHUNKS)
+    out: dict = {}
+    total = REPLICA_JSON_CHATS + REPLICA_SSE_CHATS
+    settings = worker_settings(2, "process")
+    pipeline, server, thread, warm = worker_server(torch, dev, "replicas_2_process", settings,
+                                                   weights, docs)
+    try:
+        client = HttpClient(server.server_address[1])
+        rs = pipeline.replica_set
+        rounds = [worker_burst(torch, "replicas_2_process", pipeline, client, words,
+                               offset=3 * total * r) for r in range(REPLICA_ROUNDS)]
+        seconds = [x for r in rounds for x in r["chat_s"]]
+        card_peak = warm.pop("card_peak").stop()
+        lone = lone_greedy(rs)
+        reports = worker_reports(rs)
+        surfaces = client.json("GET", "/info")[2]["generator"]["replicas"]
+        detailed = client.json("GET", "/health/detailed")[2]["components"]["workers"]
+        out["replicas_2_process"] = {
+            "warmup": warm, "rounds": rounds, "round_p50_s": [r["p50_s"] for r in rounds],
+            "round_p95_s": [r["p95_s"] for r in rounds], "p50_s": percentile(seconds, 0.5),
+            "p95_s": percentile(seconds, 0.95),
+            "completed": [sum(c) for c in zip(*(r["completed"] for r in rounds))],
+            "duty_cycle": [r["duty_cycle"] for r in rounds], "lone": lone,
+            "worker_memory": [r["worker"].get("memory") for r in reports],
+            "card_used": card_used(torch), "card_peak": card_peak,
+            "worker_max_reserved": [r["worker"].get("memory", {}).get("max_reserved")
+                                    for r in reports],
+            "info": surfaces, "health_workers": detailed,
+            "launches": {k: sum(w["launches"][k] for r in rounds for w in r["workers"])
+                         for k in rounds[0]["workers"][0]["launches"]},
+            "device_launches": {k: [sum(w["device_launches"].get(k, [0, 0])[s]
+                                        for r in rounds for w in r["workers"])
+                                    for s in (0, 1)]
+                                for k in ("paged_attention",)},
+            "launches_by_worker": [
+                {k: sum(r["workers"][i]["launches"][k] for r in rounds)
+                 for k in rounds[0]["workers"][i]["launches"]} for i in range(rs.replicas)]}
+        emit("replicas_2_process_summary", thread_round_p50_s=ref["round_p50_s"],
+             process_round_p50_s=out["replicas_2_process"]["round_p50_s"],
+             thread_round_p95_s=ref["round_p95_s"],
+             process_round_p95_s=out["replicas_2_process"]["round_p95_s"],
+             round_p50_ratio=[b / a for a, b in zip(ref["round_p50_s"],
+                                                    out["replicas_2_process"]["round_p50_s"])],
+             **{k: out["replicas_2_process"][k] for k in ("p50_s", "p95_s", "completed",
+                                                          "duty_cycle", "card_used",
+                                                          "card_peak", "worker_max_reserved",
+                                                          "info", "health_workers",
+                                                          "launches_by_worker")},
+             weights_bytes=warm["weights_bytes"])
+        check_lone("replicas_2_process", lone, ref["lone"])
+        if surfaces["mode"] != "process" or len(surfaces["workers"]) != 2 \
+                or not detailed["healthy"]:
+            raise AssertionError(f"replicas_2_process: /info or /health/detailed: {surfaces}, "
+                                 f"{detailed}")
+        out["worker_kill"] = {
+            "burst": kill_burst(torch, pipeline, client, words, offset=3 * total * 3),
+            "stream": kill_stream(torch, rs, docs[7].text[:RESUME_PROMPT_CHARS],
+                                  RESUME_TOKENS_BF16)}
+    finally:
+        stop_server(server, thread)
+        close_pipeline(torch, pipeline)
+        del pipeline
+    settings = worker_settings(2, "socket")
+    pipeline, server, thread, warm = worker_server(torch, dev, "replicas_2_socket", settings,
+                                                   weights, docs)
+    try:
+        client = HttpClient(server.server_address[1])
+        rs = pipeline.replica_set
+        burst = worker_burst(torch, "replicas_2_socket", pipeline, client, words, offset=0)
+        warm["card_peak"] = warm["card_peak"].stop()
+        lone = lone_greedy(rs)
+        check_lone("replicas_2_socket", lone, ref["lone"])
+        out["replicas_2_socket"] = {
+            "warmup": warm, "round": burst, "lone": lone,
+            "partition": partition_drill(torch, rs, docs[9].text[:RESUME_PROMPT_CHARS],
+                                         RESUME_TOKENS_BF16, settings),
+            "launches": {k: sum(w["launches"][k] for w in burst["workers"])
+                         for k in burst["workers"][0]["launches"]}}
+    finally:
+        stop_server(server, thread)
+        close_pipeline(torch, pipeline)
+        del pipeline
+    out["remote_worker"] = remote_worker_check(torch, dev, weights, docs, ref["lone"])
+    return out
+
+
 def replica_phases(torch, dev, weights) -> dict:
     """replicas (REPLICAS=1 then 2 behind the HTTP server; observability and
     escape_hatch_bf16 on the one replica's server), replica_rebuild,
@@ -3729,6 +4343,7 @@ def replica_phases(torch, dev, weights) -> dict:
                 out["observability"] = observability_check(torch, pipeline, client, words)
                 out["escape_hatch_bf16"] = escape_hatch_bf16(torch, pipeline)
             if n == 2:
+                out["replicas_2"]["lone"] = lone_greedy(pipeline.replica_set)
                 out["replica_rebuild"] = replica_rebuild_check(torch, pipeline, client, words)
                 out["replica_stall"] = replica_stall_check(torch, pipeline, client)
                 window = LaunchWindow(torch)
@@ -3753,6 +4368,62 @@ def replica_phases(torch, dev, weights) -> dict:
          warmup_s=(one["warmup"]["seconds"], two["warmup"]["seconds"]),
          peak_memory=(one["peak_memory"], two["peak_memory"]),
          duty_cycle=two["duty_cycle"], completed=two["completed"])
+    return out
+
+
+def thread_reference(torch, dev) -> tuple[dict, dict]:
+    """replicas_2 in thread mode (warmup, its rounds, the lone greedy
+    chat), the reference of the worker phases under ``--only-new``; returns
+    it and the weights it made from the seed."""
+    docs, words = corpus(N_CHUNKS)
+    pipeline, server, thread, warm = replica_server(torch, dev, "replicas_2", None, 2, docs)
+    try:
+        out = replica_rounds(torch, "replicas_2", pipeline,
+                             HttpClient(server.server_address[1]), words)
+        out["lone"] = lone_greedy(pipeline.replica_set)
+        weights = shared_weights(pipeline)
+    finally:
+        stop_server(server, thread)
+        close_pipeline(torch, pipeline)
+    return out, weights
+
+
+def worker_rounds(torch, dev) -> dict:
+    """The rounds of replicas_1 and replicas_2 in thread mode and in
+    process mode, on one set of random weights, each after its own
+    warmup: each round's p50 and the JSON chats' mean stage ms, to tell
+    the process boundary's cost (one replica) from two workers sharing the
+    card (two)."""
+    docs, words = corpus(N_CHUNKS)
+    out: dict = {}
+    weights = None
+    for n in (1, 2):
+        phase = f"replicas_{n}"
+        pipeline, server, thread, _warm = replica_server(torch, dev, phase, weights, n, docs)
+        try:
+            out[phase] = replica_rounds(torch, phase, pipeline,
+                                        HttpClient(server.server_address[1]), words)
+            weights = weights or shared_weights(pipeline)
+        finally:
+            stop_server(server, thread)
+            close_pipeline(torch, pipeline)
+        phase = f"replicas_{n}_process"
+        pipeline, server, thread, _warm = worker_server(
+            torch, dev, phase, worker_settings(n, "process"), weights, docs)
+        try:
+            client = HttpClient(server.server_address[1])
+            total = REPLICA_JSON_CHATS + REPLICA_SSE_CHATS
+            rounds = [worker_burst(torch, phase, pipeline, client, words, offset=3 * total * r)
+                      for r in range(REPLICA_ROUNDS)]
+            out[phase] = {"round_p50_s": [r["p50_s"] for r in rounds],
+                          "card_peak": _warm.pop("card_peak").stop(), "rounds": rounds}
+        finally:
+            stop_server(server, thread)
+            close_pipeline(torch, pipeline)
+    emit("worker_rounds", **{phase: {"round_p50_s": x["round_p50_s"],
+                                     "stage_ms": [r["stage_ms"] for r in x["rounds"]],
+                                     "duty_cycle": [r["duty_cycle"] for r in x["rounds"]]}
+                             for phase, x in out.items()})
     return out
 
 
@@ -3813,6 +4484,10 @@ def main(argv=None) -> int:
     parser.add_argument("--only-new", action="store_true",
                         help="build, the kernel checks, then only the replica tier's phases "
                              "(random 8B weights); ends without the result lines")
+    parser.add_argument("--worker-rounds", action="store_true",
+                        help="build, then the rounds of one and two replicas in thread and "
+                             "in process mode (random 8B weights); ends without the result "
+                             "lines")
     parser.add_argument("--rounds-only", action="store_true",
                         help="build, then only replicas_1's warmup and rounds (random 8B "
                              "weights); ends without the result lines")
@@ -3840,6 +4515,10 @@ def main(argv=None) -> int:
     if args.rounds_only:
         build_all(KERNELS)
         replicas_1_rounds(torch, dev)
+        return 0
+    if args.worker_rounds:
+        build_all(KERNELS)
+        worker_rounds(torch, dev)
         return 0
 
     sweep, sweep_quant = span_sweep(), span_sweep(quant=True)
@@ -3874,9 +4553,12 @@ def main(argv=None) -> int:
     torch.cuda.reset_peak_memory_stats()
 
     if args.only_new:
-        rep = replica_phases(torch, dev, None)
-        rep["cli"] = cli_check(torch)
-        emit("partial", phases=sorted(rep))
+        t0 = time.perf_counter()
+        ref, weights = thread_reference(torch, dev)
+        t1 = time.perf_counter()
+        workers = worker_phases(torch, dev, weights, ref)
+        emit("partial", phases=sorted(workers), thread_reference_s=t1 - t0,
+             worker_phases_s=time.perf_counter() - t1)
         return 0
 
     caps = dict(max_new_tokens=MAX_TOKENS, verifier_max_tokens=MAX_TOKENS)
@@ -3932,6 +4614,14 @@ def main(argv=None) -> int:
     ev, gates, vm = new["eval"]["counts"], new["quality_gates"]["launches"], new["verify_modes"]
     rep = replica_phases(torch, dev, weights)
     cli_check(torch)
+    t_workers = time.perf_counter()
+    workers = worker_phases(torch, dev, weights, rep["replicas_2"])
+    emit("worker_phases", seconds=time.perf_counter() - t_workers)
+    worker_paths = {"replicas_2_process": workers["replicas_2_process"]["launches"],
+                    "replicas_2_socket": workers["replicas_2_socket"]["launches"],
+                    "remote_worker": {k: sum(w["launches"][k] for w in
+                                             workers["remote_worker"]["launches"])
+                                      for k in wrappers()}}
     rep_paths = ("replicas_1", "replicas_2", "replica_rebuild", "replica_stall",
                  "stream_resume_bf16", "observability", "escape_hatch_bf16")
 
@@ -3954,7 +4644,22 @@ def main(argv=None) -> int:
                                   gates["gated"]["launches"]["paged_attention"],
                               "verify_modes": vm["launches"]["paged_attention"],
                               **{path: rep[path]["launches"]["paged_attention"]
-                                 for path in rep_paths}},
+                                 for path in rep_paths},
+                              **{path: launches["paged_attention"]
+                                 for path, launches in worker_paths.items()}},
+         "launches_by_worker": {
+             "replicas_2_process": workers["replicas_2_process"]["launches_by_worker"],
+             "replicas_2_socket": [w["launches"] for w in
+                                   workers["replicas_2_socket"]["round"]["workers"]],
+             "remote_worker": [w["launches"] for w in workers["remote_worker"]["launches"]]},
+         "device_launches_by_worker": {
+             "replicas_2_process": [w["device_launches"] for r in
+                                    workers["replicas_2_process"]["rounds"]
+                                    for w in r["workers"]],
+             "replicas_2_socket": [w["device_launches"] for w in
+                                   workers["replicas_2_socket"]["round"]["workers"]],
+             "remote_worker": [w["device_launches"] for w in
+                               workers["remote_worker"]["launches"]]},
          "device_launches_replica_tier": {path: family_launches(
              rep[path]["device_launches"], "paged_attention") for path in rep_paths},
          "device_launches_eval": {name: family_launches(ev[name]["device_launches"],
@@ -4013,7 +4718,12 @@ def main(argv=None) -> int:
                                               "batched")},
                               "verify_modes": vm["launches"]["flash_attention"],
                               **{path: rep[path]["launches"]["flash_attention"]
-                                 for path in rep_paths}},
+                                 for path in rep_paths},
+                              "replicas_2_process_router": sum(
+                                  r["router_launches"]["flash_attention"]
+                                  for r in workers["replicas_2_process"]["rounds"]),
+                              "replicas_2_socket_router": workers["replicas_2_socket"][
+                                  "round"]["router_launches"]["flash_attention"]},
          "device_launches": {path: family_launches(x["device_launches"], "flash_attention")
                              for path, x in (("slice", sl), ("slice_int8", sl8),
                                              ("slice_contig", sc), ("service", service),

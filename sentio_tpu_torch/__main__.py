@@ -147,7 +147,7 @@ def _cmd_trace(args) -> int:
 
     if args.fleet:
         raise NotImplementedError("--fleet: fleet traces of process and socket replicas are "
-                                  "not ported")
+                                  "not ported (ROADMAP item 9c)")
     settings = _settings(args)
     pipeline = build_pipeline(settings, device=args.device, seed=args.seed)
     try:

@@ -4,14 +4,14 @@ that the ``/chat`` main path, ingestion and the HTTP server read.
 Same dataclasses, fields, defaults and environment variable names as the
 JAX package's tree (chunking, retrieval, rerank, embedder, generator, the
 serve section's HTTP surface, the generation service's overload controls
-and the thread-mode replica tier, the cache section, and of auth the
-switch, observability, and of the mesh section its dp / tp / sp sizes);
-the socket tier's and the autoscaler's tuning fields and the rest of auth
-and of the mesh are left out because nothing in this package reads them.
-Settings the port cannot honour (``AUTH_ENABLED=1``,
-``CACHE_BACKEND=multi_tier``, ``REPLICA_MODE=process|socket``, a non-empty
-``REPLICA_WORKERS``, ``AUTOSCALE=1``, an ``INDEX_BACKEND`` other than
-``tpu``, a mesh of more than one device) raise where they would be used.
+and the replica tier in its thread, process and socket modes, the cache
+section, and of auth the switch, observability, and of the mesh section
+its dp / tp / sp sizes); the autoscaler's tuning fields and the rest of
+auth and of the mesh are left out because nothing in this package reads
+them. Settings the port cannot honour (``AUTH_ENABLED=1``,
+``CACHE_BACKEND=multi_tier``, ``AUTOSCALE=1``, an ``INDEX_BACKEND`` other
+than ``tpu``, a mesh of more than one device) raise where they would be
+used.
 Plain dataclasses, no import-time work.
 """
 
@@ -316,12 +316,13 @@ class ServeConfig:
     # SSE liveness: a comment keepalive after this long without an event;
     # 0 disables
     sse_keepalive_s: float = 15.0
-    # ---- the replica tier (runtime/replica.py, thread mode) ----
+    # ---- the replica tier (runtime/replica.py, runtime/worker.py) ----
     # independent engine + service replicas behind the router, all on one
     # card; 1 = one engine behind a one-replica set
     replicas: int = 1
-    # "thread" (the port's tier); "process" and "socket" are not ported and
-    # raise; an unknown value warns and uses thread mode
+    # "thread" (engines in this process), "process" (a worker process per
+    # replica over a spawn pipe) or "socket" (workers over TCP); an unknown
+    # value warns and uses thread mode
     replica_mode: str = "thread"
     # a prefix-hit replica keeps a request while its backlog <= stickiness
     # x its slot count; 0 = least-loaded routing only
@@ -362,9 +363,30 @@ class ServeConfig:
     warmup_budget_s: float = 600.0
     # rebuild worker threads (0 = rebuild on the supervisor thread)
     replica_rebuild_workers: int = 1
-    # the socket tier's remote workers and the autoscaler: not ported, a
-    # non-empty value (or AUTOSCALE=1) raises
+    # ---- the socket tier (REPLICA_MODE=socket) ----
+    # advertised remote workers "host:port,host:port" the router dials, one
+    # replica per address (overrides REPLICAS); empty = spawn local socket
+    # workers that register with the router's listener
     replica_workers: str = ""
+    # shared secret of the registration handshake; spawned workers get a
+    # random one when empty, REPLICA_WORKERS needs it set on both sides
+    socket_auth_token: str = ""
+    # the worker registry's listener
+    socket_bind_host: str = "127.0.0.1"
+    socket_bind_port: int = 0
+    # no frame from a worker for this long latches the typed partition death
+    socket_partition_timeout_s: float = 2.0
+    # frame bounds: an oversized frame is refused on both sides; a partial
+    # frame (or a write the peer stopped draining) past the timeout drops
+    # the connection
+    socket_frame_max_bytes: int = 32 * 1024 * 1024
+    socket_frame_timeout_s: float = 30.0
+    # how long a rebuild waits for a partitioned live worker to re-register
+    # (heal) before it reaps and respawns
+    socket_heal_grace_s: float = 5.0
+    # a worker's telemetry frames (metrics deltas, duty); 0 turns them off
+    telemetry_interval_s: float = 1.0
+    # the autoscaler (ROADMAP 9c): AUTOSCALE=1 raises
     autoscale: bool = False
 
     @classmethod
@@ -413,12 +435,20 @@ class ServeConfig:
             warmup_budget_s=_env_float(["WARMUP_BUDGET_S"], 600.0),
             replica_rebuild_workers=_env_int(["REPLICA_REBUILD_WORKERS"], 1),
             replica_workers=_env_str(["REPLICA_WORKERS"], ""),
+            socket_auth_token=_env_str(["SOCKET_AUTH_TOKEN"], ""),
+            socket_bind_host=_env_str(["SOCKET_BIND_HOST"], "127.0.0.1"),
+            socket_bind_port=_env_int(["SOCKET_BIND_PORT"], 0),
+            socket_partition_timeout_s=_env_float(["SOCKET_PARTITION_TIMEOUT_S"], 2.0),
+            socket_frame_max_bytes=_env_int(["SOCKET_FRAME_MAX_BYTES"], 32 * 1024 * 1024),
+            socket_frame_timeout_s=_env_float(["SOCKET_FRAME_TIMEOUT_S"], 30.0),
+            socket_heal_grace_s=_env_float(["SOCKET_HEAL_GRACE_S"], 5.0),
+            telemetry_interval_s=_env_float(["TELEMETRY_INTERVAL_S"], 1.0),
             autoscale=_env_bool(["AUTOSCALE"], False),
         )
 
     def parsed_replica_workers(self) -> list[tuple[str, int]]:
         """``"hostA:9101,hostB:9101"`` → [("hostA", 9101), ...]; a malformed
-        entry raises. The port reads it only to refuse a non-empty value."""
+        entry raises."""
         out: list[tuple[str, int]] = []
         for part in self.replica_workers.split(","):
             part = part.strip()

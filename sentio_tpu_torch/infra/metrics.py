@@ -28,9 +28,21 @@ bytes), ``sentio_tpu_batch_occupancy``,
 ``sentio_tpu_tpot_seconds`` (each engine admission, by ``path``: paged or
 stream) and ``sentio_tpu_tick_duration_seconds`` (each pump tick). A family
 JAX feeds nowhere on the default path (the breaker, the batch occupancy,
-device memory) stays registered and empty here too. The process tier's
-families (``worker_*``, ``fleet_*``, ``autoscale_*``,
-``replica_worker_deaths``) and ``xla_compiles`` are not ported.
+device memory) stays registered and empty here too. The worker tier's
+(``runtime/worker.py``): ``sentio_tpu_replica_worker_deaths_total``,
+``sentio_tpu_worker_incarnation``, ``..._worker_stale_frames_total`` and
+``..._worker_reconnects_total``, and the families a router merges from its
+workers' telemetry frames (:meth:`MetricsCollector.merge_worker_series`,
+under ``{replica}``): ``..._worker_tick_phase_seconds_total`` /
+``..._ticks_total``, ``..._worker_verify_total``,
+``..._worker_events_total``, ``..._worker_observed_sum_total`` /
+``..._count_total``, ``..._worker_telemetry_age_seconds`` and
+``..._worker_telemetry_dropped_total``. Not registered: JAX's XLA compile
+counters (``sentio_tpu_xla_compiles_total``,
+``sentio_tpu_worker_compiles_total``), whose place the CUDA graph captures
+take (a tick's ``graph_captures``, a worker's ``sentio_tpu_replica_stat``
+row ``graph_captures``), and the elastic fleet's (``fleet_*``,
+``autoscale_*``; ROADMAP 9c).
 
 A family without labels has its one series from the start (at 0), as
 ``prometheus_client`` renders it. :meth:`MetricsCollector.export_json`
@@ -41,6 +53,7 @@ of the last ``WINDOW`` observations.
 
 from __future__ import annotations
 
+import ast
 import math
 import threading
 from collections import deque
@@ -50,6 +63,9 @@ from sentio_tpu_torch.infra.phases import TICK_PHASES
 
 # observations per histogram series kept for export_json's quantiles
 WINDOW = 1000
+
+# distinct series one worker may ship before the merge drops new ones
+MAX_WORKER_SERIES_PER_REPLICA = 512
 
 # prometheus_client's default histogram buckets
 DEFAULT_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.075, 0.1, 0.25, 0.5, 0.75, 1.0, 2.5, 5.0,
@@ -66,6 +82,21 @@ def _value(v: float) -> str:
 
 def _escape(value: str) -> str:
     return value.replace("\\", r"\\").replace("\n", r"\n").replace('"', r'\"')
+
+
+def _parse_series_key(key: str):
+    """``"name('a', 'b')"`` → ``("name", ("a", "b"))``; ``(None, ())`` for a
+    key that does not parse (a damaged frame's is dropped, not fatal)."""
+    cut = key.find("(")
+    if cut < 0:
+        return key, ()
+    try:
+        labels = ast.literal_eval(key[cut:])
+    except (ValueError, SyntaxError):
+        return None, ()
+    if not isinstance(labels, tuple):
+        return None, ()
+    return key[:cut], tuple(str(x) for x in labels)
 
 
 def _labels(names: Sequence[str], values: Sequence[str], extra: str = "") -> str:
@@ -266,6 +297,51 @@ class MetricsCollector:
                                        "engine pump tick wall time",
                                        buckets=(0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
                                                 0.5, 1, 5))
+        # the worker tier: deaths, incarnations, stale frames, reconnects
+        self.worker_deaths = Counter("sentio_tpu_replica_worker_deaths_total",
+                                     "replica worker process deaths observed by the router",
+                                     ["replica"])
+        self.worker_incarnation = Gauge(
+            "sentio_tpu_worker_incarnation",
+            "current incarnation epoch of each replica slot's worker (bumped at every "
+            "socket (re)registration)", ["replica"])
+        self.worker_stale_frames = Counter(
+            "sentio_tpu_worker_stale_frames_total",
+            "worker frames dropped for carrying a stale incarnation epoch", ["replica"])
+        self.worker_reconnects = Counter("sentio_tpu_worker_reconnects_total",
+                                         "socket worker reconnection outcomes", ["outcome"])
+        # the fleet merge of the workers' telemetry frames, under {replica}
+        self.worker_tick_phase_seconds = Counter(
+            "sentio_tpu_worker_tick_phase_seconds_total",
+            "cumulative pump-iteration seconds per named phase, per worker replica "
+            "(fleet-merged from telemetry frames)", ["replica", "phase"])
+        self.worker_tick_phase_ticks = Counter(
+            "sentio_tpu_worker_tick_phase_ticks_total",
+            "pump iterations observed per named phase, per worker replica (fleet-merged "
+            "from telemetry frames)", ["replica", "phase"])
+        self.worker_verify = Counter(
+            "sentio_tpu_worker_verify_total",
+            "answer verifications landed inside a worker process, by mode and outcome "
+            "(fleet-merged from telemetry frames)", ["replica", "mode", "outcome"])
+        self.worker_events = Counter(
+            "sentio_tpu_worker_events_total",
+            "other worker-process counter series, flattened to one bounded series label "
+            "(fleet-merged)", ["replica", "series"])
+        self.worker_observed_sum = Counter(
+            "sentio_tpu_worker_observed_sum_total",
+            "worker-process histogram value sums per series (fleet-merged; pairs with "
+            "..._observed_count for means)", ["replica", "series"])
+        self.worker_observed_count = Counter(
+            "sentio_tpu_worker_observed_count_total",
+            "worker-process histogram observation counts per series (fleet-merged)",
+            ["replica", "series"])
+        self.worker_telemetry_age = Gauge(
+            "sentio_tpu_worker_telemetry_age_seconds",
+            "seconds since the router last merged a telemetry frame from this replica's "
+            "worker", ["replica"])
+        self.worker_telemetry_dropped = Counter(
+            "sentio_tpu_worker_telemetry_dropped_total",
+            "worker telemetry frames/series dropped at merge", ["replica", "reason"])
         # JAX's keys for each family (its collector's and export_json's)
         self._families = {
             "requests": self.requests, "request_latency": self.request_latency,
@@ -282,7 +358,21 @@ class MetricsCollector:
             "pump_heartbeat_age": self.pump_heartbeat_age,
             "pump_duty_cycle": self.pump_duty_cycle, "tick_phase": self.tick_phase,
             "stream_resumes": self.stream_resumes,
+            "worker_deaths": self.worker_deaths,
+            "worker_incarnation": self.worker_incarnation,
+            "worker_stale_frames": self.worker_stale_frames,
+            "worker_reconnects": self.worker_reconnects,
+            "worker_tick_phase_seconds": self.worker_tick_phase_seconds,
+            "worker_tick_phase_ticks": self.worker_tick_phase_ticks,
+            "worker_verify": self.worker_verify, "worker_events": self.worker_events,
+            "worker_observed_sum": self.worker_observed_sum,
+            "worker_observed_count": self.worker_observed_count,
+            "worker_telemetry_age": self.worker_telemetry_age,
+            "worker_telemetry_dropped": self.worker_telemetry_dropped,
         }
+        # the last accepted telemetry snapshot of each replica's worker
+        self._worker_last: dict[int, dict] = {}
+        self._worker_lock = threading.Lock()
         self._inflight = 0
         self._inflight_lock = threading.Lock()
         self._serving_last: dict[str, float] = {}
@@ -397,6 +487,141 @@ class MetricsCollector:
     def record_stream_resume(self, outcome: str) -> None:
         """``outcome``: resumed | exhausted | failed | opt_out."""
         self.stream_resumes.inc(outcome)
+
+    def record_worker_death(self, replica: int) -> None:
+        """One worker process death the router saw (a broken pipe, a dead
+        process, a SIGKILL): counted once per corpse."""
+        self.worker_deaths.inc(str(replica))
+
+    def record_worker_incarnation(self, replica: int, epoch: int) -> None:
+        """A slot's current incarnation epoch, set at each socket
+        (re)registration."""
+        self.worker_incarnation.set(str(replica), value=float(epoch))
+
+    def record_stale_frames(self, replica: int, n: int = 1) -> None:
+        """Frames of an earlier incarnation dropped at the epoch fence."""
+        if n > 0:
+            self.worker_stale_frames.inc(str(replica), amount=float(n))
+
+    def record_worker_reconnect(self, outcome: str) -> None:
+        """``outcome``: heal | respawn | reconnected | rejected_auth |
+        rejected_proto."""
+        self.worker_reconnects.inc(outcome)
+
+    # ------------------------------------------------- the fleet telemetry
+
+    # the family keys a worker ships under JAX's series names
+    _SERIES_NAMES = {"verify_total": "verify"}
+    _NOT_SHIPPED = frozenset((
+        "worker_deaths", "worker_incarnation", "worker_stale_frames", "worker_reconnects",
+        "worker_tick_phase_seconds", "worker_tick_phase_ticks", "worker_verify",
+        "worker_events", "worker_observed_sum", "worker_observed_count",
+        "worker_telemetry_age", "worker_telemetry_dropped"))
+
+    def export_worker_series(self) -> dict[str, Any]:
+        """This process's CUMULATIVE counters and histogram counts and sums
+        by ``name(labels)`` — a worker's telemetry payload, in JAX's
+        shape."""
+        out: dict[str, dict] = {"counters": {}, "histo_count": {}, "histo_sum": {}}
+        for key, family in self._families.items():
+            if key in self._NOT_SHIPPED:
+                continue
+            name = self._SERIES_NAMES.get(key, key)
+            if isinstance(family, Counter):
+                for labels, value in family.values().items():
+                    out["counters"][f"{name}{labels}"] = value
+            elif isinstance(family, Histogram):
+                for labels, (counts, total) in family.values().items():
+                    if counts[-1]:
+                        out["histo_count"][f"{name}{labels}"] = counts[-1]
+                        out["histo_sum"][f"{name}{labels}"] = total
+        return out
+
+    def _publish_worker_delta(self, replica: str, name: str, labels: tuple,
+                              delta_sum: float, delta_count: float, is_histo: bool) -> None:
+        """One accepted delta into the ``{replica}`` families: the tick
+        phases, verifies and histograms by their labels, anything else
+        flattened into one ``series`` label."""
+        if is_histo:
+            if name == "tick_phase" and len(labels) == 1:
+                if delta_sum:
+                    self.worker_tick_phase_seconds.inc(replica, labels[0], amount=delta_sum)
+                if delta_count:
+                    self.worker_tick_phase_ticks.inc(replica, labels[0], amount=delta_count)
+                return
+            series = "_".join((name,) + labels) if labels else name
+            if delta_sum > 0:
+                self.worker_observed_sum.inc(replica, series, amount=delta_sum)
+            if delta_count:
+                self.worker_observed_count.inc(replica, series, amount=delta_count)
+            return
+        if name == "verify" and len(labels) == 2:
+            self.worker_verify.inc(replica, labels[0], labels[1], amount=delta_sum)
+            return
+        series = "_".join((name,) + labels) if labels else name
+        self.worker_events.inc(replica, series, amount=delta_sum)
+
+    def merge_worker_series(self, replica: int, series: dict, epoch: int = 0,
+                            pid: Optional[int] = None) -> dict:
+        """Fold one worker's cumulative snapshot (:meth:`export_worker_series`)
+        into the ``{replica}`` families, differenced against the last one
+        accepted. A frame of an older epoch (a healed worker's pre-partition
+        buffer) is dropped and counted ``stale_epoch``; a new pid (a
+        respawn) resets the baselines; a heal (same pid) keeps them."""
+        if not isinstance(series, dict):
+            return {"accepted": False, "merged": 0}
+        rep = str(replica)
+        plan: list[tuple] = []
+        with self._worker_lock:
+            state = self._worker_last.get(replica)
+            if state is None:
+                state = {"pid": None, "epoch": int(epoch), "cum": {}}
+                self._worker_last[replica] = state
+            if int(epoch) < state["epoch"]:
+                self.record_telemetry_dropped(replica, "stale_epoch")
+                return {"accepted": False, "merged": 0}
+            if pid is not None and state["pid"] not in (None, pid):
+                state["cum"] = {}
+            state["epoch"] = int(epoch)
+            if pid is not None:
+                state["pid"] = pid
+            cum = state["cum"]
+            for kind, is_histo in (("counters", False), ("histo_sum", True)):
+                counts = series.get("histo_count", {}) if is_histo else {}
+                for key, value in (series.get(kind) or {}).items():
+                    name, labels = _parse_series_key(str(key))
+                    if name is None:
+                        self.record_telemetry_dropped(replica, "malformed")
+                        continue
+                    scoped = f"{kind}:{key}"
+                    if scoped not in cum and len(cum) >= 2 * MAX_WORKER_SERIES_PER_REPLICA:
+                        self.record_telemetry_dropped(replica, "cardinality")
+                        continue
+                    last_sum, last_count = cum.get(scoped, (0.0, 0.0))
+                    delta_sum = max(float(value) - last_sum, 0.0)
+                    new_count = float(counts.get(key, 0.0))
+                    delta_count = max(new_count - last_count, 0.0)
+                    cum[scoped] = (float(value), new_count)
+                    if delta_sum > 0.0 or delta_count > 0.0:
+                        plan.append((name, labels, delta_sum, delta_count, is_histo))
+        for name, labels, delta_sum, delta_count, is_histo in plan:
+            self._publish_worker_delta(rep, name, labels, delta_sum, delta_count, is_histo)
+        return {"accepted": True, "merged": len(plan)}
+
+    def record_telemetry_age(self, replica: int, age_s: float) -> None:
+        self.worker_telemetry_age.set(str(replica), value=float(age_s))
+
+    def record_telemetry_dropped(self, replica: int, reason: str, n: int = 1) -> None:
+        """``reason``: stale_epoch | cardinality | malformed."""
+        if n > 0:
+            self.worker_telemetry_dropped.inc(str(replica), reason, amount=float(n))
+
+    def worker_telemetry_epoch(self, replica: int) -> Optional[int]:
+        """The last accepted telemetry epoch of a replica (None before
+        one)."""
+        with self._worker_lock:
+            state = self._worker_last.get(replica)
+            return None if state is None else state["epoch"]
 
     def adjust_inflight(self, delta: int) -> None:
         with self._inflight_lock:

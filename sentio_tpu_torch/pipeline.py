@@ -16,8 +16,13 @@ engines (one by default), each behind its own generation service
 with in-place rebuild, failover, resumable streams), as the JAX container
 builds it; concurrent ``chat`` calls share each replica's decode batch. The
 replicas share the weights and own their pools, radix trees, CUDA streams
-and graphs. With ``PREFIX_CACHE`` on, the ``/chat`` template head is warmed
-into every replica's radix tree at build time.
+and graphs. ``REPLICA_MODE=process`` puts each replica in a worker process
+of its own (``runtime/worker.py``) and ``socket`` does so over TCP, the
+workers registering with the router's ``WorkerRegistry``, or, with
+``REPLICA_WORKERS``, dialed where they already serve; the router's weight
+tensors reach each spawned worker through the spawn arguments, so the card
+holds them once. With ``PREFIX_CACHE`` on, the ``/chat`` template head is
+warmed into every replica's radix tree at build time.
 ``USE_PAGED_KV=0`` generates on the contiguous engine instead
 (``runtime/engine.py``: causal flash prefill, one call at a time).
 ``LLM_CHECKPOINT`` and ``RERANKER_CHECKPOINT`` load ``save_pytree``
@@ -89,6 +94,7 @@ logger = logging.getLogger(__name__)
 
 CHARS_PER_TOKEN = 4  # the selector's ≈4-chars/token budget heuristic
 VERIFY_MODES = ("sync", "async", "gated")
+REPLICA_MODES = ("thread", "process", "socket")
 
 # live detached verify threads (VERIFY_MODE=async|gated), joined by
 # wait_detached() before a service is closed under them
@@ -174,18 +180,27 @@ def select_documents(docs: list, budget_tokens: int) -> tuple[list[Document], in
 
 
 def check_replica_settings(serve) -> None:
-    """Refuse the replica settings the port cannot honour, naming each;
-    an unknown ``REPLICA_MODE`` warns and means thread mode, as in JAX."""
-    if serve.replica_mode in ("process", "socket"):
-        raise NotImplementedError(f"REPLICA_MODE={serve.replica_mode}: process and socket "
-                                  "replicas are not ported (thread mode is)")
-    if serve.parsed_replica_workers():
-        raise NotImplementedError("REPLICA_WORKERS: remote socket workers are not ported")
+    """Refuse ``AUTOSCALE=1`` (the autoscaler is ROADMAP item 9c) and, as
+    JAX's container does, ``REPLICA_WORKERS`` under ``REPLICA_MODE=socket``
+    without ``SOCKET_AUTH_TOKEN`` (a ``ValueError``); an unknown
+    ``REPLICA_MODE`` warns and means thread mode, as in JAX."""
+    if serve.replica_mode == "socket" and serve.parsed_replica_workers() \
+            and not serve.socket_auth_token:
+        raise ValueError("REPLICA_WORKERS needs SOCKET_AUTH_TOKEN set identically on router "
+                         "and workers")
     if serve.autoscale:
-        raise NotImplementedError("AUTOSCALE=1: the replica autoscaler is not ported")
-    if serve.replica_mode != "thread":
+        raise NotImplementedError(f"AUTOSCALE=1 (REPLICA_MODE={serve.replica_mode}): the "
+                                  "replica autoscaler and the elastic fleet are not ported "
+                                  "(ROADMAP item 9c)")
+    if serve.replica_mode not in REPLICA_MODES:
         logger.warning("REPLICA_MODE=%r unknown (expected thread|process|socket); using "
                        "thread mode", serve.replica_mode)
+
+
+def replica_mode(serve) -> str:
+    """The mode ``build_pipeline`` runs: the setting, or thread mode for an
+    unknown value."""
+    return serve.replica_mode if serve.replica_mode in REPLICA_MODES else "thread"
 
 
 def check_index_backend(name: str) -> None:
@@ -248,6 +263,8 @@ class ChatPipeline:
     ingestor: Optional[DocumentIngestor] = None
     # set once warmup() has run: the server's readiness
     ready: bool = False
+    # REPLICA_MODE as built: thread, process or socket
+    replica_mode: str = "thread"
 
     def ingest(self, documents: Sequence[Document]) -> int:
         """Embed ``documents`` (already chunks), add them to the index and
@@ -537,16 +554,21 @@ class ChatPipeline:
 
     def warmup(self) -> Optional[dict]:
         """Warm every replica at once (each captures every graph variant on
-        the card) before traffic, then warm the template head into every
-        replica's tree again: warmup's own prompts fill the trees and can
-        evict it. None on the contiguous engine. Sets ``ready``."""
+        the card, a worker in its own process) before traffic, then warm the
+        template head into every replica's tree again: warmup's own prompts
+        fill the trees and can evict it. None on the contiguous engine. Sets
+        ``ready``."""
         stats = None
         replicas = self.replica_set
         if replicas is not None:
             stats = replicas.warmup()
             if self.warm_head:
                 stats["head_tokens"] = []
-                for svc in replicas.services:
+                for svc, result in zip(replicas.services, stats["per_replica"]):
+                    if "head_tokens" in result:
+                        # a worker warmed it again itself, after its warmup
+                        stats["head_tokens"].append(result["head_tokens"])
+                        continue
                     svc.wait_idle()
                     stats["head_tokens"].append(svc.engine.warm_prefix(self.warm_head))
         self.ready = True
@@ -674,29 +696,8 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
             # spares the first /chat its cold prefill of the template head,
             # as the JAX container warms each replica's tree
             warm_head = prompts.static_head("retrieve", instruction=prompts.load("profile"))
-        services = []
-        for i in range(max(serve.replicas, 1)):
-            engine = ContinuousBatchingEngine(
-                model_config=llama_config, params=llama_params,
-                max_slots=gcfg.max_batch_size, page_size=gcfg.kv_page_size,
-                max_pages_per_seq=gcfg.kv_max_pages_per_seq, rng_seed=seed,
-                steps_per_tick=gcfg.decode_steps_per_tick,
-                max_tick_steps=gcfg.decode_max_tick_steps, kv_quant=gcfg.kv_quant,
-                prefix_cache=gcfg.prefix_cache, pipeline_depth=gcfg.decode_pipeline_depth,
-                prefill_chunk=gcfg.prefill_chunk or None, draft_params=draft_params,
-                draft_config=draft_config, spec_k=gcfg.speculative_k, device=dev,
-            )
-            if warm_head:
-                engine.warm_prefix(warm_head)
-            services.append(PagedGenerationService(
-                engine, max_queue=serve.admission_max_queue or None,
-                default_deadline_s=(serve.default_deadline_ms / 1e3
-                                    if serve.default_deadline_ms > 0 else None),
-                retry_budget=serve.crash_retry_budget, replica_id=i,
-                tick_stall_budget_s=serve.tick_stall_budget_s,
-                warmup_budget_s=serve.warmup_budget_s))
-        replicas = ReplicaSet(
-            services, tenant_weights=serve.parsed_tenant_weights(),
+        tier = dict(
+            tenant_weights=serve.parsed_tenant_weights(),
             tenant_default_weight=serve.tenant_default_weight,
             tenant_refill_tokens_per_s=serve.tenant_refill_tokens_per_s,
             tenant_burst_tokens=serve.tenant_burst_tokens,
@@ -717,6 +718,22 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
             stream_resume_budget=(serve.stream_resume_budget
                                   if serve.stream_resume_budget >= 0 else None),
             rebuild_workers=serve.replica_rebuild_workers)
+        mode = replica_mode(serve)
+        if mode == "thread":
+            services = []
+            for i in range(max(serve.replicas, 1)):
+                engine = ContinuousBatchingEngine(
+                    model_config=llama_config, params=llama_params, rng_seed=seed, device=dev,
+                    draft_params=draft_params, draft_config=draft_config,
+                    **engine_settings(gcfg))
+                if warm_head:
+                    engine.warm_prefix(warm_head)
+                services.append(PagedGenerationService(engine, replica_id=i,
+                                                       **service_settings(serve)))
+            replicas = ReplicaSet(services, **tier)
+        else:
+            replicas = _worker_tier(settings, mode, llama_config, llama_params, draft_params,
+                                    draft_config, seed, dev, warm_head, tier)
         # the escape hatch, as JAX's container builds it beside the tier: a
         # contiguous engine on the same weights, whose cache is allocated
         # per call (no memory until a chat falls back to it)
@@ -738,4 +755,120 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
     return ChatPipeline(embedder=embedder, index=index, retriever=retriever,
                         generator=generator, bm25_index=bm25, reranker=reranker,
                         verifier=verifier, settings=settings, warm_head=warm_head,
-                        speculative_info=spec_info, ingestor=ingestor)
+                        speculative_info=spec_info, ingestor=ingestor,
+                        replica_mode=replica_mode(settings.serve))
+
+
+def engine_settings(gcfg) -> dict:
+    """The paged engine's arguments from the generator settings, as the JAX
+    container hands them to its engines."""
+    return dict(max_slots=gcfg.max_batch_size, page_size=gcfg.kv_page_size,
+                max_pages_per_seq=gcfg.kv_max_pages_per_seq,
+                steps_per_tick=gcfg.decode_steps_per_tick,
+                max_tick_steps=gcfg.decode_max_tick_steps, kv_quant=gcfg.kv_quant,
+                prefix_cache=gcfg.prefix_cache, pipeline_depth=gcfg.decode_pipeline_depth,
+                prefill_chunk=gcfg.prefill_chunk or None, spec_k=gcfg.speculative_k)
+
+
+def service_settings(serve) -> dict:
+    """A replica service's arguments from the serve settings."""
+    return dict(max_queue=serve.admission_max_queue or None,
+                default_deadline_s=(serve.default_deadline_ms / 1e3
+                                    if serve.default_deadline_ms > 0 else None),
+                retry_budget=serve.crash_retry_budget,
+                tick_stall_budget_s=serve.tick_stall_budget_s,
+                warmup_budget_s=serve.warmup_budget_s)
+
+
+def worker_spec(settings: Settings, model_config: LlamaConfig, replica_id: int, seed: int = 0,
+                device="cuda", warm_head: str = "", params: Optional[dict] = None,
+                draft_params: Optional[dict] = None,
+                draft_config: Optional[LlamaConfig] = None, auth_token: str = "",
+                socket: bool = False):
+    """One worker's :class:`~sentio_tpu_torch.runtime.worker.WorkerSpec`
+    under ``settings`` — JAX's ``make_spec``: the engine and service
+    arguments the thread tier gives its replicas, the template head, and
+    the weights: ``params`` (tensors, shared through the spawn arguments),
+    else the worker makes them from ``seed`` as ``build_pipeline`` does. A
+    socket worker gets the token, the frame bounds and reconnection."""
+    import dataclasses
+
+    from sentio_tpu_torch.runtime.worker import WorkerSpec
+
+    serve, gcfg = settings.serve, settings.generator
+    kwargs = dict(
+        model_config=dataclasses.asdict(model_config), rng_seed=seed, device=str(device),
+        engine_kwargs=engine_settings(gcfg),
+        service_kwargs={**service_settings(serve), "replica_id": replica_id},
+        warm_prefix_text=warm_head, params=params)
+    if draft_params is not None:
+        kwargs.update(draft_params=draft_params,
+                      draft_config=dataclasses.asdict(draft_config))
+    transport = {} if not socket else dict(
+        auth_token=auth_token, reconnect=True, max_frame_bytes=serve.socket_frame_max_bytes,
+        frame_timeout_s=serve.socket_frame_timeout_s)
+    return WorkerSpec(factory_kwargs=kwargs, telemetry_interval_s=serve.telemetry_interval_s,
+                      **transport)
+
+
+def _worker_tier(settings: Settings, mode: str, llama_config: LlamaConfig, llama_params: dict,
+                 draft_params: Optional[dict], draft_config: Optional[LlamaConfig], seed: int,
+                 dev: torch.device, warm_head: str, tier: dict) -> ReplicaSet:
+    """The process or socket replica tier: a ``ProcessReplica`` per worker
+    behind a ``ReplicaSet`` (JAX's ``dependencies.py`` branch). Spawned
+    workers get the router's weight tensors; ``REPLICA_WORKERS`` (socket
+    mode) dials workers serving elsewhere instead. The kernels are built before the first spawn, so
+    the workers only load them. A failed spawn reaps the workers already
+    running and closes the registry."""
+    import secrets
+
+    from sentio_tpu_torch.models.tokenizer import ByteTokenizer
+    from sentio_tpu_torch.runtime.replica import WorkerRegistry
+    from sentio_tpu_torch.runtime.worker import ProcessReplica
+
+    serve = settings.serve
+    n_replicas = max(serve.replicas, 1)
+    registry = None
+    addrs: list = []
+    token = ""
+    if mode == "socket":
+        addrs = serve.parsed_replica_workers()
+        if addrs:  # check_replica_settings made sure of the token
+            n_replicas = len(addrs)
+        token = serve.socket_auth_token or secrets.token_hex(16)
+        registry = WorkerRegistry(token, slots=n_replicas, bind_host=serve.socket_bind_host,
+                                  bind_port=serve.socket_bind_port,
+                                  max_frame_bytes=serve.socket_frame_max_bytes,
+                                  frame_timeout_s=serve.socket_frame_timeout_s)
+    services: list = []
+    try:
+        if dev.type == "cuda":
+            from sentio_tpu_torch.kernels import KERNELS
+            from sentio_tpu_torch.kernels._build import build_all
+
+            build_all(KERNELS)
+        tokenizer = ByteTokenizer(llama_config.vocab_size)
+        for i in range(n_replicas):
+            spec = worker_spec(settings, llama_config, i, seed=seed, device=dev,
+                               warm_head=warm_head, params=llama_params,
+                               draft_params=draft_params, draft_config=draft_config,
+                               auth_token=token, socket=mode == "socket")
+            transport = {} if mode != "socket" else dict(
+                transport_mode="socket", registry=registry,
+                connect_addr=addrs[i] if addrs else None,
+                partition_timeout_s=serve.socket_partition_timeout_s,
+                heal_grace_s=serve.socket_heal_grace_s)
+            services.append(ProcessReplica(spec, tokenizer, replica_id=i, **transport))
+        logger.info("%s-mode replica tier: %d workers (pids %s%s)", mode, n_replicas,
+                    [svc.pid for svc in services],
+                    f", registry {registry.address}" if registry is not None else "")
+        return ReplicaSet(services, registry=registry, **tier)
+    except BaseException:
+        for svc in services:
+            try:
+                svc.close(join_timeout_s=5.0)
+            except Exception:  # noqa: BLE001 — reaping is best-effort
+                logger.warning("replica %d cleanup failed", svc.replica_id, exc_info=True)
+        if registry is not None:
+            registry.close()
+        raise

@@ -41,10 +41,18 @@ replica serves, ``unhealthy`` at none. Health transitions, handoffs,
 stalls and resumes are events on the flight recorder; the tier's series
 are in :mod:`sentio_tpu_torch.infra.metrics`.
 
-Left for the process and socket tier: ``WorkerRegistry``, the router-side
-shadow handoff, ``respawn``, the membership source, ``add_replica`` and
-``retire`` (the elastic fleet). Their states (RETIRING, RETIRED) are named
-but never entered here.
+The process and socket tier (``REPLICA_MODE=process|socket``): each
+replica is a :class:`~sentio_tpu_torch.runtime.worker.ProcessReplica` over
+a worker process, driven through the same surface. A supervising set arms
+their router-side ticket shadow (``enable_shadow_handoff``), so a dead
+worker's unanswered tickets go through :meth:`ReplicaSet._handoff_inbox`
+to a survivor's ``adopt``, and a rebuild respawns (or, over a socket,
+heals) the worker. :class:`WorkerRegistry` is the socket workers'
+registration listener and incarnation-epoch book for a fixed set of slots.
+The elastic fleet (a join with ``slot=-1``, ``add_replica``, ``retire``,
+the membership source, the autoscaler) is ROADMAP item 9c: the registry
+refuses a join, and the RETIRING / RETIRED states are named but never
+entered.
 """
 
 from __future__ import annotations
@@ -71,7 +79,7 @@ from sentio_tpu_torch.runtime.service import (
 logger = logging.getLogger(__name__)
 
 __all__ = [
-    "ReplicaSet", "TenantFairQueue", "DEFAULT_TENANT", "PRIORITY_INTERACTIVE",
+    "ReplicaSet", "TenantFairQueue", "WorkerRegistry", "DEFAULT_TENANT", "PRIORITY_INTERACTIVE",
     "PRIORITY_BATCH", "HEALTH_HEALTHY", "HEALTH_DEGRADED", "HEALTH_QUARANTINED",
     "HEALTH_REBUILDING", "HEALTH_RETIRING", "HEALTH_RETIRED", "HEALTH_STATES",
 ]
@@ -324,6 +332,224 @@ class TenantFairQueue:
             }
 
 
+class WorkerRegistry:
+    """The router's registry of socket workers (``REPLICA_MODE=socket``) —
+    JAX's ``WorkerRegistry`` for a fixed set of slots: who is connected, at
+    which **incarnation epoch**, and which frames are too old to trust.
+
+    * every (re)registration (a spawned worker's first connect, a
+      partitioned worker's reconnect, the router's dial of a
+      ``REPLICA_WORKERS`` worker) bumps the slot's epoch, stamped into the
+      connection's frame headers;
+    * the dispatcher drops a frame whose epoch is older than the slot's
+      current one (:meth:`note_stale_frame`), so a worker that heals after
+      a partition can neither resurrect a dead ticket nor deliver a stream
+      chunk twice;
+    * the rebuild awaits re-registration here (:meth:`await_registration`)
+      to choose between heal and respawn.
+
+    One listener serves every slot; hellos are authenticated with the
+    shared token (constant-time compare) and version-checked before any
+    epoch is granted. A hello with ``slot=-1`` (an elastic join) is
+    rejected: elastic membership is ROADMAP item 9c."""
+
+    def __init__(self, auth_token: str, slots: int, bind_host: str = "127.0.0.1",
+                 bind_port: int = 0, max_frame_bytes: int = 32 * 1024 * 1024,
+                 frame_timeout_s: float = 30.0, hello_timeout_s: float = 10.0) -> None:
+        import socket as _socket
+
+        if not auth_token:
+            raise ValueError("WorkerRegistry needs a non-empty auth token")
+        self.auth_token = auth_token
+        self.slots = max(int(slots), 1)
+        self.max_frame_bytes = int(max_frame_bytes)
+        self.frame_timeout_s = float(frame_timeout_s)
+        self.hello_timeout_s = float(hello_timeout_s)
+        self._mutex = threading.Lock()
+        self._epochs = [0] * self.slots
+        self._stale = [0] * self.slots
+        self._registrations = 0
+        self._rejections = 0
+        self._pending: list[_queue.Queue] = [_queue.Queue() for _ in range(self.slots)]
+        self._stop = threading.Event()
+        listener = _socket.socket(_socket.AF_INET, _socket.SOCK_STREAM)
+        listener.setsockopt(_socket.SOL_SOCKET, _socket.SO_REUSEADDR, 1)
+        listener.settimeout(0.2)  # close() can stop the accept loop
+        listener.bind((bind_host, int(bind_port)))
+        listener.listen(max(2 * self.slots, 8))
+        self._listener = listener
+        self._addr = listener.getsockname()
+        self._accepter = threading.Thread(target=self._accept_loop,
+                                          name="worker-registry-accept", daemon=True)
+        self._accepter.start()
+
+    @property
+    def address(self) -> tuple:
+        """(host, port) the workers dial to register."""
+        return self._addr
+
+    # ------------------------------------------------------------ epoch book
+
+    def current_epoch(self, slot: int) -> int:
+        with self._mutex:
+            return self._epochs[slot]
+
+    def assign_epoch(self, slot: int) -> int:
+        """Bump and return the slot's epoch: from here on every frame of
+        the previous incarnation is stale. The dial-out path
+        (``REPLICA_WORKERS``) calls it directly."""
+        with self._mutex:
+            self._epochs[slot] += 1
+            epoch = self._epochs[slot]
+        get_metrics().record_worker_incarnation(slot, epoch)
+        return epoch
+
+    def note_stale_frame(self, slot: int) -> None:
+        with self._mutex:
+            self._stale[slot] += 1
+        get_metrics().record_stale_frames(slot)
+
+    def stale_frames(self, slot: int) -> int:
+        with self._mutex:
+            return self._stale[slot]
+
+    # ---------------------------------------------------------- registration
+
+    def _accept_loop(self) -> None:
+        import socket as _socket
+
+        while not self._stop.is_set():
+            try:
+                conn, _peer = self._listener.accept()
+            except _socket.timeout:
+                continue
+            except OSError:
+                return  # the listener closed under us
+            # a connector that never says hello must not stall the loop
+            threading.Thread(target=self._handshake, args=(conn,),
+                             name="worker-registry-handshake", daemon=True).start()
+
+    def _handshake(self, conn) -> None:
+        from sentio_tpu_torch.runtime.transport import (
+            SocketTransport,
+            TransportClosed,
+            TransportError,
+            expect_hello,
+        )
+
+        transport = SocketTransport(conn, max_frame_bytes=self.max_frame_bytes,
+                                    frame_timeout_s=self.frame_timeout_s)
+        try:
+            hello = expect_hello(transport, self.auth_token, timeout_s=self.hello_timeout_s)
+        except TransportClosed as exc:
+            # a connection that never spoke: not a protocol rejection
+            logger.debug("silent connection to the worker registry dropped: %s", exc)
+            with self._mutex:
+                self._rejections += 1
+            transport.close()
+            return
+        except TransportError as exc:
+            self._reject(transport, None, str(exc))
+            return
+        except Exception:  # noqa: BLE001 — a hostile hello must not kill the thread
+            logger.exception("worker registration handshake crashed")
+            transport.close()
+            return
+        slot = hello.get("slot", -1)
+        if isinstance(slot, int) and slot == -1:
+            self._reject(transport, transport, "elastic join (slot -1) is not ported: "
+                                               "elastic membership is ROADMAP item 9c")
+            return
+        if not isinstance(slot, int) or not 0 <= slot < self.slots:
+            self._reject(transport, transport, f"unknown slot {slot!r}")
+            return
+        epoch = self.assign_epoch(slot)
+        transport.fault_scope = f"r{slot}"
+        transport.epoch = epoch
+        try:
+            transport.send((0, "hello_ack", {"epoch": epoch, "slot": slot}))
+        except TransportError:
+            transport.close()
+            return
+        with self._mutex:
+            self._registrations += 1
+        logger.info("worker registered for slot %d at epoch %d (pid %s)", slot, epoch,
+                    hello.get("pid"))
+        q = self._pending[slot]
+        # supersede by epoch, not by arrival: of everything queued plus this
+        # one, only the newest registration stays
+        entries = [(transport, hello, epoch)]
+        while True:
+            try:
+                entries.append(q.get_nowait())
+            except _queue.Empty:
+                break
+        entries.sort(key=lambda e: e[2])
+        for old_transport, _h, _e in entries[:-1]:
+            old_transport.close()
+        q.put(entries[-1])
+
+    def _reject(self, transport, ackable, reason: str) -> None:
+        with self._mutex:
+            self._rejections += 1
+        outcome = "rejected_auth" if "token" in reason else "rejected_proto"
+        logger.warning("worker registration rejected: %s", reason)
+        get_metrics().record_worker_reconnect(outcome)
+        if ackable is not None:
+            from sentio_tpu_torch.runtime.transport import TransportError
+
+            try:
+                ackable.send((0, "hello_reject", {"reason": reason}))
+            except TransportError:
+                pass
+        transport.close()
+
+    def await_registration(self, slot: int, timeout_s: float):
+        """Block until a worker registers for ``slot`` → ``(transport,
+        hello, epoch)`` of the newest registration; a typed
+        :class:`ReplicaUnavailable` after ``timeout_s``."""
+        deadline = time.perf_counter() + max(timeout_s, 0.0)
+        q = self._pending[slot]
+        while True:
+            remaining = deadline - time.perf_counter()
+            if remaining <= 0:
+                raise ReplicaUnavailable(
+                    f"no worker registered for slot {slot} within {timeout_s:.0f}s",
+                    retry_after_s=2.0, details={"replica": slot, "reason": "no_registration"})
+            try:
+                transport, hello, epoch = q.get(timeout=min(remaining, 0.5))
+            except _queue.Empty:
+                continue
+            if epoch < self.current_epoch(slot):
+                transport.close()  # superseded while queued
+                continue
+            return transport, hello, epoch
+
+    # ------------------------------------------------------------- lifecycle
+
+    def stats(self) -> dict:
+        with self._mutex:
+            return {"epochs": list(self._epochs), "stale_frames": list(self._stale),
+                    "registrations": self._registrations, "rejections": self._rejections,
+                    "slots": self.slots}
+
+    def close(self) -> None:
+        self._stop.set()
+        try:
+            self._listener.close()
+        except OSError:
+            pass
+        if self._accepter.is_alive():
+            self._accepter.join(timeout=5.0)
+        for q in self._pending:
+            while True:
+                try:
+                    transport, _h, _e = q.get_nowait()
+                except _queue.Empty:
+                    break
+                transport.close()
+
+
 class ReplicaSet:
     """WFQ admission → affinity / least-loaded routing → the chosen
     replica's service, with supervision, failover and stream resumes. The
@@ -352,6 +578,7 @@ class ReplicaSet:
         failover_budget: int = 1,
         stream_resume_budget: Optional[int] = None,
         rebuild_workers: int = 1,
+        registry: Optional[WorkerRegistry] = None,
     ) -> None:
         services = list(services)
         if not services:
@@ -407,6 +634,8 @@ class ReplicaSet:
         self._stream_resumes = 0
         self._resume_replayed_tokens = 0
         self._resume_exhausted = 0
+        # the socket workers' registry, closed with the set
+        self.registry = registry
         metrics = get_metrics()
         for i in range(len(services)):
             metrics.record_replica_health(i, HEALTH_HEALTHY)
@@ -419,6 +648,13 @@ class ReplicaSet:
         self._rebuild_q: Optional[_queue.Queue] = None
         self._rebuild_pool: list[threading.Thread] = []
         if supervise:
+            # worker replicas (runtime/worker.py) shadow their unanswered
+            # tickets router-side; with a supervisor to extract them, a dead
+            # worker's tickets are handed to survivors instead of failing
+            for svc in services:
+                enable = getattr(svc, "enable_shadow_handoff", None)
+                if enable is not None:
+                    enable()
             if self.rebuild_workers > 0:
                 self._rebuild_q = _queue.Queue()
                 self._rebuild_pool = [
@@ -991,8 +1227,11 @@ class ReplicaSet:
         """Rebuild a quarantined replica in place: drain the old service,
         free its engine's device memory if its pump has exited, spawn a
         fresh engine on the same weights behind a fresh service, warm it
-        fully, and swap it in. Never under ``_mutex``. A failure backs off
-        exponentially and leaves the replica quarantined."""
+        fully, and swap it in. A worker replica (one with ``respawn()``) is
+        reborn as a process instead (socket: healed when it re-registers),
+        with the same drain, warmup and bookkeeping. Never under
+        ``_mutex``. A failure backs off exponentially and leaves the
+        replica quarantined."""
         with self._mutex:
             attempt = self._health[idx].rebuild_attempts + 1
             self._health[idx].rebuild_inflight = True
@@ -1009,20 +1248,28 @@ class ReplicaSet:
                     old.drain(self.rebuild_drain_s)
                 except Exception:  # noqa: BLE001 — drain is best-effort
                     logger.warning("replica %d pre-rebuild drain failed", idx, exc_info=True)
-            engine = old.engine
-            if old.closed and old.pump_leaked_count == 0:
-                # nothing drives the old engine any more: its pool and graphs
-                # go before the fresh engine allocates, so the card never
-                # holds both (a wedged pump keeps them, and is counted leaked)
-                engine.release()
+            respawn = getattr(old, "respawn", None)
+            if respawn is not None:
+                # a worker replica: the drain above closed and reaped the old
+                # process (its pool and graphs went with it), a fresh one
+                # takes the slot
+                fresh = respawn()
             else:
-                engine.trim_cache()
-            fresh = PagedGenerationService(
-                engine.spawn_fresh(), default_timeout_s=old.default_timeout_s,
-                max_queue=old.max_queue, default_deadline_s=old.default_deadline_s,
-                retry_budget=old.retry_budget, replica_id=idx,
-                tick_stall_budget_s=old.tick_stall_budget_s,
-                warmup_budget_s=old.warmup_budget_s)
+                engine = old.engine
+                if old.closed and old.pump_leaked_count == 0:
+                    # nothing drives the old engine any more: its pool and
+                    # graphs go before the fresh engine allocates, so the
+                    # card never holds both (a wedged pump keeps them, and is
+                    # counted leaked)
+                    engine.release()
+                else:
+                    engine.trim_cache()
+                fresh = PagedGenerationService(
+                    engine.spawn_fresh(), default_timeout_s=old.default_timeout_s,
+                    max_queue=old.max_queue, default_deadline_s=old.default_deadline_s,
+                    retry_budget=old.retry_budget, replica_id=idx,
+                    tick_stall_budget_s=old.tick_stall_budget_s,
+                    warmup_budget_s=old.warmup_budget_s)
             self._warm_rebuilt(fresh)
             if self._stop.is_set():
                 fresh.close()  # never swap a pump into a closing rotation
@@ -1179,6 +1426,7 @@ class ReplicaSet:
             per.append({"replica": i, **res})
         with self._mutex:
             self._closed = True
+        self._close_registry()
         return {"drained": all(r["drained"] for r in per),
                 "abandoned": sum(r.get("abandoned", 0) for r in per), "replicas": per}
 
@@ -1191,6 +1439,18 @@ class ReplicaSet:
                 svc.close()
             except Exception:  # noqa: BLE001 — close every replica regardless
                 logger.warning("replica %d close failed", svc.replica_id, exc_info=True)
+        self._close_registry()
+
+    def _close_registry(self) -> None:
+        if self.registry is not None:
+            self.registry.close()
+
+    def workers(self) -> list[dict]:
+        """Each worker replica's process id, incarnation epoch and transport
+        (none in thread mode)."""
+        return [{"replica": i, "pid": svc.pid, "epoch": svc.epoch,
+                 "transport": svc.transport_mode, "alive": not svc.broken}
+                for i, svc in enumerate(list(self._services)) if hasattr(svc, "respawn")]
 
     # ---------------------------------------------------------------- stats
 

@@ -150,6 +150,9 @@ class _Ticket:
     tenant: Optional[str] = None
     priority: Optional[str] = None
     cost_tokens: int = 0
+    # the router's RPC id of a request a worker process serves (runtime/
+    # worker.py): an inbox handoff names its tickets by it
+    shadow_id: Optional[int] = None
 
     @property
     def path(self) -> str:
@@ -236,7 +239,7 @@ class PagedGenerationService:
                  deadline_ts: Optional[float] = None, top_k: int = 0,
                  seed: Optional[int] = None, request_id: Optional[str] = None,
                  tenant: Optional[str] = None, priority: Optional[str] = None,
-                 cost_tokens: int = 0) -> PagedResult:
+                 cost_tokens: int = 0, shadow_id: Optional[int] = None) -> PagedResult:
         """Submit one request and block until it is done; any number of
         threads may call at once (that concurrency is the batch).
         ``deadline_ts`` (absolute ``time.perf_counter()``) or ``deadline_s``
@@ -246,13 +249,15 @@ class PagedGenerationService:
         :class:`GenerationTimeout`; with a draft on the engine, ``top_k > 0``
         raises ``ValueError``. ``tenant``, ``priority`` and ``cost_tokens``
         are a fronting ReplicaSet's WFQ metadata, kept on the ticket for a
-        quarantine handoff; a bare service ignores them."""
+        quarantine handoff (``shadow_id``, a worker's router-side RPC id,
+        too); a bare service ignores them."""
         self._check_top_k(top_k)
         deadline_ts = self._resolve_deadline(deadline_s, deadline_ts)
         ticket = _Ticket(prompt, max_new_tokens, temperature, top_k=top_k,
                          t_submit=time.perf_counter(), deadline_ts=deadline_ts,
                          retries_left=self.retry_budget, seed=seed, request_id=request_id,
-                         tenant=tenant, priority=priority, cost_tokens=int(cost_tokens))
+                         tenant=tenant, priority=priority, cost_tokens=int(cost_tokens),
+                         shadow_id=shadow_id)
         self._submit(ticket)
         wait_s = self._wait_budget(timeout_s, deadline_ts)
         if not ticket.event.wait(wait_s):
@@ -281,7 +286,8 @@ class PagedGenerationService:
                         seed: Optional[int] = None, request_id: Optional[str] = None,
                         tenant: Optional[str] = None, priority: Optional[str] = None,
                         cost_tokens: int = 0,
-                        progress: Optional[StreamProgress] = None) -> Iterator[str]:
+                        progress: Optional[StreamProgress] = None,
+                        shadow_id: Optional[int] = None) -> Iterator[str]:
         """Yield decoded text increments as the shared decode batch makes
         them (up to a tick's tokens at a time), UTF-8 safe. ``top_k`` is
         checked at the call; admission runs at the first ``next()``.
@@ -301,7 +307,7 @@ class PagedGenerationService:
                          retries_left=self.retry_budget,
                          prior_tokens=list(prior_tokens) if prior_tokens else None, seed=seed,
                          request_id=request_id, tenant=tenant, priority=priority,
-                         cost_tokens=int(cost_tokens))
+                         cost_tokens=int(cost_tokens), shadow_id=shadow_id)
         return self._stream(ticket, timeout_s, deadline_s, deadline_ts, stats_out, progress)
 
     def _stream(self, ticket: _Ticket, timeout_s: Optional[float],

@@ -264,6 +264,18 @@ def _device_stats(pipeline: ChatPipeline) -> dict:
     return stats
 
 
+def _replica_info(pipeline: ChatPipeline) -> Optional[dict]:
+    """``/info``'s ``generator.replicas``: the count and the mode, and in a
+    worker mode each worker's pid, epoch and transport."""
+    replicas = pipeline.replica_set
+    if replicas is None:
+        return None
+    out = {"count": replicas.replicas, "mode": pipeline.replica_mode}
+    if pipeline.replica_mode != "thread":
+        out["workers"] = replicas.workers()
+    return out
+
+
 _SERVING_STATS = ("active_slots", "queued", "queued_inbox", "free_pages", "avg_active_slots",
                   "max_active_slots", "ttft_p50_ms", "ttft_p95_ms", "spec_tokens_per_verify",
                   "prefix_hit_token_ratio", "prefix_cache_pages", "prefix_cache_nodes",
@@ -685,9 +697,7 @@ class _Handler(BaseHTTPRequestHandler):
                 "preset": settings.generator.model_preset,
                 "verifier": settings.generator.use_verifier,
                 "speculative": pipeline.speculative_info,
-                "replicas": ({"count": pipeline.replica_set.replicas,
-                              "mode": "thread"} if pipeline.replica_set is not None
-                             else None),
+                "replicas": _replica_info(pipeline),
             },
             "device": _device_stats(pipeline),
         })

@@ -380,4 +380,9 @@ class HealthHandler:
                 out["generation_service"] = {"healthy": True, **service.stats()}
             except Exception as exc:  # noqa: BLE001
                 out["generation_service"] = {"healthy": False, "error": str(exc)}
+        replicas = pipeline.replica_set
+        if replicas is not None and pipeline.replica_mode != "thread":
+            workers = replicas.workers()
+            out["workers"] = {"healthy": all(w["alive"] for w in workers),
+                              "mode": pipeline.replica_mode, "workers": workers}
         return out

@@ -746,3 +746,75 @@ def test_contiguous_spec_prefills_launch_flash(dev):
     assert FLASH_KERNEL.launches == 2 * WIDE_HEADS.n_layers
     assert FLASH_KERNEL.device_launches()[0] - card0 == FLASH_KERNEL.launches
     assert all(len(g.tokens) <= 8 for g in got)
+
+
+def test_two_worker_process_set_on_the_card(dev):
+    """``REPLICA_MODE=process`` on the card at small width: two workers on
+    the router's weight tensors (CUDA IPC through the spawn arguments).
+    Each worker's rise in the card's used memory at its spawn, less its
+    own reserved memory, is under the weights' bytes plus a CUDA context
+    (a private copy would be in one or the other: here the weights are
+    made larger than the pool); its paged launches equal its card counts;
+    the greedy tokens equal a thread-mode engine's on the same weights."""
+    import dataclasses
+    import multiprocessing
+
+    from sentio_tpu_torch.kernels import KERNELS
+    from sentio_tpu_torch.kernels._build import build_all
+    from sentio_tpu_torch.models.llama import init_llama
+    from sentio_tpu_torch.models.tokenizer import ByteTokenizer
+    from sentio_tpu_torch.runtime.replica import ReplicaSet
+    from sentio_tpu_torch.runtime.service import PagedGenerationService
+    from sentio_tpu_torch.runtime.worker import ProcessReplica, WorkerSpec
+
+    cfg = LlamaConfig(vocab_size=32_000, dim=2048, n_layers=4, n_heads=16, n_kv_heads=8,
+                      mlp_dim=5632, max_len=2048)
+    params = init_llama(cfg, torch.Generator(device=dev).manual_seed(4), dev)
+    def nbytes(tree):
+        if isinstance(tree, dict):
+            return sum(nbytes(v) for v in tree.values())
+        return tree.numel() * tree.element_size()
+
+    weight_bytes = nbytes(params)
+    engine_kw = dict(max_slots=4, page_size=128, max_pages_per_seq=4, steps_per_tick=8)
+    build_all(KERNELS)
+    spec = WorkerSpec(factory_kwargs=dict(
+        params=params, model_config=dataclasses.asdict(cfg), device="cuda",
+        engine_kwargs=engine_kw), telemetry_interval_s=0)
+    rises, services = [], []
+    try:
+        for i in range(2):
+            free0, total = torch.cuda.mem_get_info()
+            services.append(ProcessReplica(spec, ByteTokenizer(cfg.vocab_size), replica_id=i,
+                                           build_timeout_s=300))
+            free1, _ = torch.cuda.mem_get_info()
+            reserved = services[-1].ready_info["worker"]["memory"]["reserved"]
+            rises.append((free0 - free1, reserved))
+        rs = ReplicaSet(services, supervise=False)
+        try:
+            rs.warmup()
+            before = [svc.stats()["worker"] for svc in rs.services]
+            got = [rs.services[i].generate(PROMPTS[1], max_new_tokens=16).tokens
+                   for i in range(2)]
+            after = [svc.stats() for svc in rs.services]
+        finally:
+            rs.close()
+    finally:
+        for svc in services:
+            svc.close()
+    for rise, reserved in rises:
+        assert reserved < weight_bytes and rise - reserved < 2 << 30, (rise, reserved)
+    for b, a in zip(before, after):
+        w = a["worker"]
+        n = w["launches"]["paged_attention"] - b["launches"]["paged_attention"]
+        card = [x - y for x, y in zip(w["device_launches"]["paged_attention"],
+                                      b["device_launches"]["paged_attention"])]
+        assert n > 0 and card == [n, n] and w["foreign_modules"] == []
+    local = PagedGenerationService(ContinuousBatchingEngine(model_config=cfg, params=params,
+                                                            device=dev, **engine_kw))
+    try:
+        want = local.generate(PROMPTS[1], max_new_tokens=16).tokens
+    finally:
+        local.close()
+    assert got == [want, want]
+    assert multiprocessing.active_children() == []

@@ -3,7 +3,8 @@ chip_smoke.py, imports JAX (or flax/optax) or anything of the JAX package,
 nor an HTTP or metrics package the machine with the card lacks (aiohttp,
 httpx, pydantic, prometheus_client) — checked statically on every file,
 then by importing every module in a fresh interpreter where those imports
-are blocked."""
+are blocked, and in a spawned replica worker (``runtime/worker.py``), whose
+loaded modules must hold none of JAX or its package."""
 
 import ast
 import subprocess
@@ -55,7 +56,8 @@ def test_every_module_imports_with_jax_blocked():
             "sentio_tpu_torch.eval.baseline", "sentio_tpu_torch.eval.train_encoder",
             "sentio_tpu_torch.infra.flight", "sentio_tpu_torch.infra.http_client",
             "sentio_tpu_torch.ops.confidence", "sentio_tpu_torch.runtime.replica",
-            "sentio_tpu_torch.infra.faults"} <= set(modules)
+            "sentio_tpu_torch.infra.faults", "sentio_tpu_torch.runtime.transport",
+            "sentio_tpu_torch.runtime.worker"} <= set(modules)
     script = (
         "import sys, importlib\n"
         f"for name in {sorted(FORBIDDEN)!r}:\n"
@@ -71,3 +73,28 @@ def test_every_module_imports_with_jax_blocked():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert proc.stdout.startswith("ok")
+
+
+def test_a_spawned_worker_loads_neither_jax_nor_its_package():
+    """A worker's whole import closure, as spawned: after it built its
+    engine and service, ``stats`` lists the foreign modules it loaded."""
+    import dataclasses
+    import multiprocessing
+
+    from sentio_tpu_torch.models.llama import LlamaConfig
+    from sentio_tpu_torch.models.tokenizer import ByteTokenizer
+    from sentio_tpu_torch.runtime.worker import ProcessReplica, WorkerSpec
+
+    spec = WorkerSpec(factory_kwargs=dict(
+        model_config=dataclasses.asdict(LlamaConfig.tiny()), device="cpu",
+        engine_kwargs=dict(max_slots=2, page_size=8, max_pages_per_seq=4)),
+        telemetry_interval_s=0)
+    pr = ProcessReplica(spec, ByteTokenizer(LlamaConfig.tiny().vocab_size),
+                        build_timeout_s=120.0)
+    try:
+        pr.generate("isolated", max_new_tokens=2)
+        report = pr.stats()["worker"]
+    finally:
+        pr.close()
+    assert report["foreign_modules"] == []
+    assert multiprocessing.active_children() == []

@@ -51,19 +51,16 @@ from sentio_tpu_torch.serve.app import create_server
 
 REPO = Path(__file__).resolve().parents[1]
 TIMEOUT_S = 120.0
-# JAX's families the port does not register: the process and socket
-# replica tier's, the fleet's and the autoscaler's (queue A, 9b), and the
-# XLA compile counter (the port counts CUDA graph captures on each tick)
+# JAX's families the port does not register: the elastic fleet's and the
+# autoscaler's (queue A, 9c), and the XLA compile counters, router and
+# worker (the port counts CUDA graph captures on each tick and in each
+# worker's sentio_tpu_replica_stat rows)
 NOT_PORTED = {
-    "sentio_tpu_replica_worker_deaths_total", "sentio_tpu_worker_incarnation",
-    "sentio_tpu_worker_stale_frames_total", "sentio_tpu_worker_reconnects_total",
-    "sentio_tpu_worker_tick_phase_seconds_total", "sentio_tpu_worker_tick_phase_ticks_total",
-    "sentio_tpu_worker_verify_total", "sentio_tpu_worker_compiles_total",
-    "sentio_tpu_worker_events_total", "sentio_tpu_worker_observed_sum_total",
-    "sentio_tpu_worker_observed_count_total", "sentio_tpu_worker_telemetry_age_seconds",
-    "sentio_tpu_worker_telemetry_dropped_total", "sentio_tpu_fleet_live_replicas",
-    "sentio_tpu_autoscale_decisions_total", "sentio_tpu_fleet_at_max_saturated",
-    "sentio_tpu_xla_compiles_total",
+    # the elastic fleet (ROADMAP 9c)
+    "sentio_tpu_fleet_live_replicas", "sentio_tpu_autoscale_decisions_total",
+    "sentio_tpu_fleet_at_max_saturated",
+    # XLA compile counters: CUDA graph captures take their place
+    "sentio_tpu_xla_compiles_total", "sentio_tpu_worker_compiles_total",
 }
 NINE = ("sentio_llm_tokens_total", "sentio_llm_latency_seconds", "sentio_circuit_breaker_state",
         "sentio_tpu_hbm_bytes_in_use", "sentio_tpu_batch_occupancy",
@@ -460,3 +457,40 @@ def test_cli_trace_writes_the_chrome_trace(tmp_path):
 def test_cli_trace_fleet_is_not_ported():
     with pytest.raises(NotImplementedError, match="--fleet"):
         cli.main(["trace", "q", "--fleet", "--device", "cpu"])
+
+
+def test_worker_series_merge_matches_jax():
+    """A router merging workers' cumulative telemetry: the same frames
+    into each package's collector give the same ``{replica}`` fleet
+    series — deltas between frames, a late frame of an older epoch dropped
+    (``stale_epoch``), a new pid (a respawn) restarting the baselines, a
+    heal (same pid, higher epoch) keeping them, a malformed key dropped."""
+    frames = [
+        (1, 10, {"counters": {"verify('sync', 'pass')": 2.0, "shed('queue_full',)": 1.0},
+                 "histo_count": {"tick_phase('admit',)": 3},
+                 "histo_sum": {"tick_phase('admit',)": 0.3}}),
+        (1, 10, {"counters": {"verify('sync', 'pass')": 5.0, "shed('queue_full',)": 1.0,
+                              "bad(key": 1.0},
+                 "histo_count": {"tick_phase('admit',)": 4, "ttft('paged',)": 2},
+                 "histo_sum": {"tick_phase('admit',)": 0.5, "ttft('paged',)": 0.25}}),
+        (0, 10, {"counters": {"verify('sync', 'pass')": 9.0}}),
+        (2, 10, {"counters": {"verify('sync', 'pass')": 6.0}}),
+        (3, 11, {"counters": {"verify('sync', 'pass')": 1.0, "verify('async', 'warn')": 2.0}}),
+    ]
+    ours, theirs = MetricsCollector(), JMetricsCollector()
+    got = [(ours.merge_worker_series(1, s, epoch=e, pid=p),
+            theirs.merge_worker_series(1, s, epoch=e, pid=p)) for e, p, s in frames]
+    assert [a for a, _ in got] == [b for _, b in got]
+    assert ours.worker_telemetry_epoch(1) == theirs.worker_telemetry_epoch(1) == 3
+    names = {"worker_verify": ours.worker_verify, "worker_events": ours.worker_events,
+             "worker_tick_phase_seconds": ours.worker_tick_phase_seconds,
+             "worker_tick_phase_ticks": ours.worker_tick_phase_ticks,
+             "worker_observed_sum": ours.worker_observed_sum,
+             "worker_observed_count": ours.worker_observed_count,
+             "worker_telemetry_dropped": ours.worker_telemetry_dropped}
+    mine = {f"{name}{key}": round(v, 9) for name, fam in names.items()
+            for key, v in fam.values().items()}
+    jax_side = {k: round(v, 9) for k, v in theirs.memory.counters.items()
+                if k.split("(")[0] in names}
+    assert mine == jax_side
+    assert mine["worker_verify('1', 'sync', 'pass')"] == 5.0 + 1.0 + 1.0

@@ -21,6 +21,8 @@ generation degrades with the JAX graph's metadata while a
 
 import dataclasses
 import json
+import threading
+import time
 
 import jax
 import numpy as np
@@ -509,10 +511,80 @@ def test_chat_charges_generate_and_verify_to_the_tenant(shared):
     ("autoscale", True, "AUTOSCALE=1"),
 ])
 def test_unported_replica_settings_raise_naming_the_setting(field, value, named):
+    """What the port still refuses is refused naming the setting: the
+    autoscaler under every mode (``AUTOSCALE=1``, ROADMAP 9c), and, as
+    JAX's container does, ``REPLICA_WORKERS`` without
+    ``SOCKET_AUTH_TOKEN`` (a ``ValueError``)."""
     from sentio_tpu_torch.config import ServeConfig
 
-    with pytest.raises(NotImplementedError, match=named):
-        build_pipeline(Settings(serve=ServeConfig(**{field: value})), device="cpu")
+    if field == "replica_workers":
+        serve, err = ServeConfig(replica_mode="socket", replica_workers=value), ValueError
+    else:
+        serve, err = ServeConfig(**{field: value, "autoscale": True}), NotImplementedError
+    with pytest.raises(err, match=named) as info:
+        build_pipeline(Settings(serve=serve), device="cpu")
+    if err is NotImplementedError:
+        assert "AUTOSCALE=1" in str(info.value) and "9c" in str(info.value)
+    else:
+        assert "SOCKET_AUTH_TOKEN" in str(info.value)
+
+
+@pytest.mark.parametrize("mode", ["process", "socket", "remote"])
+def test_worker_modes_build_and_answer_as_thread_mode(shared, mode):
+    """``REPLICA_MODE=process`` and ``socket`` (spawned workers on the
+    router's weight tensors), and ``REPLICA_WORKERS`` (a worker serving on
+    its own through ``worker_serve``, dialed with the shared token) build,
+    warm up and answer a chat with thread mode's answer; ``workers()``
+    names each worker's pid and epoch; closing leaves no child."""
+    import multiprocessing
+
+    from sentio_tpu_torch.pipeline import worker_spec
+    from sentio_tpu_torch.runtime.worker import worker_serve
+
+    docs = [Document(text=d.text, metadata=dict(d.metadata), id=d.id) for d in shared["docs"]]
+    thread = _replica_pipeline(shared, replicas=2)
+    try:
+        thread.ingest(docs)
+        want = thread.chat(QUESTIONS[0], mode="fast")
+    finally:
+        thread.close()
+    stop, served = threading.Event(), None
+    if mode == "remote":
+        bound: dict = {}
+        spec = worker_spec(thread.settings, thread.generator.provider.contiguous.model_config,
+                           0, device="cpu", warm_head=thread.warm_head,
+                           params=weights.llama_from_jax(shared["llama_tree"]),
+                           auth_token="remote-token", socket=True)
+        served = threading.Thread(target=worker_serve, args=("127.0.0.1", 0, spec, stop,
+                                                             lambda addr: bound.update(a=addr)),
+                                  name="test-worker-serve", daemon=True)
+        served.start()
+        deadline = time.perf_counter() + 30
+        while "a" not in bound and time.perf_counter() < deadline:
+            time.sleep(0.01)
+        serve = dict(replica_mode="socket", replica_workers=f"127.0.0.1:{bound['a'][1]}",
+                     socket_auth_token="remote-token")
+    else:
+        serve = dict(replica_mode=mode, replicas=2)
+    pipeline = _replica_pipeline(shared, **serve)
+    try:
+        assert pipeline.replica_mode == ("socket" if mode == "remote" else mode)
+        workers = pipeline.replica_set.workers()
+        assert len(workers) == (1 if mode == "remote" else 2)
+        assert all(w["pid"] and w["alive"] for w in workers)
+        assert [w["epoch"] for w in workers] == [0 if mode == "process" else 1] * len(workers)
+        warm = pipeline.warmup()
+        assert min(warm["head_tokens"]) > 0
+        pipeline.ingest(docs)
+        got = pipeline.chat(QUESTIONS[0], mode="fast")
+        assert got["answer"] == want["answer"]
+        assert got["metadata"]["reranked_ids"] == want["metadata"]["reranked_ids"]
+    finally:
+        pipeline.close()
+        stop.set()
+        if served is not None:
+            served.join(timeout=30)
+    assert multiprocessing.active_children() == []
 
 
 def test_unknown_replica_mode_warns_and_serves_in_threads(shared, caplog):

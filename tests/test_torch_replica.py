@@ -695,3 +695,78 @@ def test_warmup_is_concurrent_and_wait_idle_covers_every_replica(weights):
         assert rs.wait_idle(JOIN_S)
     finally:
         rs.close()
+
+
+# ------------------------------------------------- the worker tier's hooks
+
+
+def respawnable(side):
+    """A service class with the worker replica's two hooks: ``respawn()``
+    (a fresh service on a fresh engine) and ``enable_shadow_handoff()``."""
+    base = SIDES[side]["Service"]
+
+    class Respawnable(base):
+        armed = 0
+        respawned = 0
+
+        def enable_shadow_handoff(self):
+            type(self).armed += 1
+
+        def respawn(self):
+            type(self).respawned += 1
+            return type(self)(self.engine.spawn_fresh(), default_timeout_s=JOIN_S)
+
+    return Respawnable
+
+
+@pytest.mark.parametrize("supervise", [True, False], ids=["supervised", "stepped"])
+def test_a_supervising_set_arms_the_shadow_handoff_as_jax(weights, supervise):
+    seen = {}
+    for side in SIDES:
+        cls = respawnable(side)
+        services = [cls(make_engine(weights, side), default_timeout_s=JOIN_S) for _ in range(2)]
+        rs = SIDES[side]["Set"](services, supervise=supervise)
+        try:
+            seen[side] = cls.armed
+        finally:
+            rs.close()
+    assert seen["torch"] == seen["jax"] == (2 if supervise else 0)
+
+
+def test_a_replica_with_respawn_is_rebuilt_by_it_as_jax(weights):
+    """The rebuild of a quarantined replica that has ``respawn()`` calls it
+    (the worker tier's respawn) instead of spawning an engine in place:
+    the same health sequence, counters and swap in both packages."""
+    seen = {}
+    for side in SIDES:
+        cls = respawnable(side)
+        services = [cls(make_engine(weights, side), default_timeout_s=JOIN_S) for _ in range(2)]
+        rs = SIDES[side]["Set"](services, supervise=False, quarantine_backoff_s=0.0,
+                                rebuild_drain_s=0.2)
+        try:
+            old = rs._services[0]
+            rs._quarantine(0, "seeded")
+            rs._supervise_once()
+            swapped = rs._services[0] is not old and type(rs._services[0]) is cls
+            health = rs.health_summary()
+            out = rs.generate(PROMPT_A, max_new_tokens=6, temperature=0.0, timeout_s=JOIN_S)
+            seen[side] = (cls.respawned, swapped, health["status"],
+                          [r["rebuilds"] for r in health["replicas"]], out.tokens)
+        finally:
+            rs.close()
+    assert seen["torch"] == seen["jax"]
+    assert seen["torch"][:4] == (1, True, "healthy", [1, 0])
+
+
+def test_the_set_closes_its_worker_registry(weights):
+    import socket
+
+    registry = replica.WorkerRegistry("set-token", slots=2)
+    rs = replica.ReplicaSet([PagedGenerationService(make_engine(weights, "torch"),
+                                                    default_timeout_s=JOIN_S)],
+                            supervise=False, registry=registry)
+    addr = registry.address
+    assert rs.workers() == []  # thread replicas have no worker process
+    rs.close()
+    with pytest.raises(OSError):
+        socket.create_connection(addr, timeout=2.0).close()
