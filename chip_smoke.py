@@ -238,9 +238,38 @@ line each:
     (REPLICA_WORKERS=127.0.0.1:<port>, a shared SOCKET_AUTH_TOKEN): the lone
     greedy text equal to thread mode's, its launches equal to its card's.
 
-``--only-new`` runs the build, the kernel checks, thread-mode replicas_2
-(the reference of 28-31) and phases 28-31 only (random Llama-3-8B
-weights) and ends without the result lines.
+The MoE phases (32–34) run right after the kernel checks, before phase 4:
+their 47 GB of weights cannot sit beside Llama-3-8B's, whose tensors the
+later phases keep to the end (a SIGKILLed worker never releases its CUDA
+IPC handles on them).
+
+32. slice_moe — the /chat pipeline at Mixtral-8x7B's published widths
+    (dim 4,096, MLP 14,336, 32 / 8 heads, 8 experts, top-2, vocab 32,000,
+    rope 1e6; the no-drop capacity factor 4.0) cut to 16 of its 32 layers
+    (46.96 GB of bf16 weights made on the card from the seed), under
+    ``Settings()`` (hybrid rrf, bf16
+    pool, prefix cache, one replica, sync verify): warmup, ingest, 3 chats
+    in a counted window, gated as phase 4, plus the routing of the window
+    (choices routed to each expert, every expert used, none dropped);
+    ``moe_logits`` (phase 5 on its engine), ``moe_sub_step`` (the captured
+    greedy sub-step replayed, device ms beside the bound of reading every
+    weight once), ``moe_prefill_routes`` (chat 1's generate and verify
+    prefills again through each expert dispatch: grouped rows and capacity
+    buffers, device ms) and ``profile_moe`` (phase 8) on its pipeline.
+33. slice_moe_int8 — the same weights under KV_QUANT=int8: one chat, the
+    int8 kernel once per layer per sub-step.
+34. moe_exact — bench.py's moe geometry (dim 1,024, 12 layers, 8 experts,
+    top-2; 1.31 B parameters) in float32 at cf 4.0 with plain attention:
+    greedy tokens equal from graph replays and eagerly, on the contiguous
+    engine, under paged speculation (2-layer llama draft) and contiguous
+    speculation (2-layer MoE draft), through a thread-mode replica's
+    service and one REPLICA_MODE=process worker; meanwhile the geometry
+    in bf16, written first as a ``"family": "moe"`` checkpoint, answers
+    ``python -m sentio_tpu_torch chat`` under LLM_CHECKPOINT in a process
+    of its own.
+
+``--only-new`` runs the build, the kernel checks and phases 32-34 only (the
+encoders random from the seed) and ends without the result lines.
 ``--rounds-only`` runs the build and replicas_1's warmup and rounds only,
 to compare two trees' round times in one call (copied into the other
 tree's root, it drives that tree's package), and ends the same way.
@@ -255,7 +284,9 @@ then non-zero and no result line is printed.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
+import math
 import re
 import subprocess
 import sys
@@ -274,8 +305,13 @@ N_CHUNKS = 2048
 SEED = 0
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line, with the seconds since the script started (``t``)."""
+    print(json.dumps({"phase": phase, "t": round(time.perf_counter() - T_START, 1), **fields}),
+          flush=True)
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -822,13 +858,19 @@ def slice_questions(docs, words) -> list:
             f"Summarize the passages that mention {words[100]}."]
 
 
-def run_slice(torch, dev, phase: str, settings, shared=None) -> dict:
-    """The paged slice: build, warm up, ingest, then 3 chats in a counted
-    window (:func:`chat_window`), each chat's generate and verify
-    admissions recorded (:func:`record_admissions`)."""
+def run_slice(torch, dev, phase: str, settings, shared=None, n_chats: int = 3) -> dict:
+    """The paged slice: build, warm up, ingest, then ``n_chats`` chats in a
+    counted window (:func:`chat_window`), each chat's generate and verify
+    admissions recorded (:func:`record_admissions`). A MoE engine's routing
+    over the window, from its stats, is reported: choices routed to each
+    expert, dropped (must be none at the no-drop capacity factor) and
+    padding's."""
+    from sentio_tpu_torch.models.moe import MoeConfig
+
     pipeline, docs, words, warm = build_slice(torch, dev, phase, settings, shared)
     engine = pipeline.generator.provider.engine
-    questions = slice_questions(docs, words)
+    moe = isinstance(engine.cfg, MoeConfig)
+    questions = slice_questions(docs, words)[:n_chats]
     calls = record_admissions(pipeline.service)
     pipeline.service.wait_idle()
     stats0 = engine.stats()
@@ -839,7 +881,11 @@ def run_slice(torch, dev, phase: str, settings, shared=None) -> dict:
         del pipeline.service.generate  # the recording wrapper
     chats, launches, card = window["chats"], window["launches"], window["card"]
     sub_steps = engine.total_sub_steps - sub_steps0
+    torch.cuda.synchronize()
     stats = engine.stats()
+    routing = ({"routed": [b - a for a, b in zip(stats0["moe_routed"], stats["moe_routed"])],
+                **{k: stats[f"moe_{k}"] - stats0[f"moe_{k}"] for k in ("dropped", "padding")}}
+               if moe else None)
 
     if len(calls) != 2 * len(chats):
         raise AssertionError(f"{phase}: expected a generate and a verify per chat, got "
@@ -867,7 +913,11 @@ def run_slice(torch, dev, phase: str, settings, shared=None) -> dict:
          pipeline_depth=engine.pipeline_depth, prefix_cache=engine._radix is not None,
          **{k: stats[k] - stats0[k] for k in ENGINE_COUNTERS},
          prefix_cache_pages=stats["prefix_cache_pages"],
-         peak_memory=torch.cuda.max_memory_allocated())
+         peak_memory=torch.cuda.max_memory_allocated(),
+         **({"routing": routing} if moe else {}))
+    if moe and (routing["dropped"] or not all(routing["routed"])):
+        raise AssertionError(f"{phase}: a choice was dropped at the no-drop capacity factor, "
+                             f"or an expert got no token: {routing}")
     if stats["graph_replays"] - stats0["graph_replays"] <= 0:
         raise AssertionError(f"{phase}: no decode sub-step was a graph replay")
     if stats["graph_captures"] != stats0["graph_captures"]:
@@ -882,7 +932,8 @@ def run_slice(torch, dev, phase: str, settings, shared=None) -> dict:
         raise AssertionError(f"{phase}: {other} ran on a {engine.kv_quant!r} pool: {launches}")
     check_card(phase, card, launches)
     return {"pipeline": pipeline, "launches": launches, "device_launches": card,
-            "questions": questions, "warmup": warm, "words": words,
+            "questions": questions, "warmup": warm, "words": words, "routing": routing,
+            "seconds": [seconds for _, seconds in chats], "admissions": calls,
             "chats": [response for response, _ in chats], "generate_prompt": calls[0]["prompt"]}
 
 
@@ -1815,6 +1866,21 @@ def chunked_slice_check(torch, pipeline, phase: str = "chunked_slice",
 
 
 
+def device_kernels(prof) -> list:
+    """(name, ms, count) of each device function a finished profile
+    recorded, summed from its raw records (``key_averages()`` would first
+    build the whole event tree in Python: tens of seconds for a chat's
+    ~10^5 kernels)."""
+    from torch.autograd import DeviceType
+
+    acc: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            ms, n = acc.get(e.name(), (0.0, 0))
+            acc[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    return [(name, ms, n) for name, (ms, n) in acc.items() if ms > 0]
+
+
 def profile_chat(torch, pipeline, question: str, phase: str = "profile") -> dict:
     """One more chat (after the counted window) under the CUDA profiler:
     device time by kernel family and the device's idle share of the wall
@@ -1845,8 +1911,7 @@ def profile_chat(torch, pipeline, question: str, phase: str = "profile") -> dict
     card = card_delta(torch, card0)
     sub_steps = engine.total_sub_steps - sub_steps0
     counted = {name: k.launches - counts0[name] for name, k in counters.items()}
-    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
-               for e in prof.key_averages() if e.self_device_time_total > 0]
+    kernels = device_kernels(prof)
     busy_ms = sum(ms for _, ms, _ in kernels)
     families = dict.fromkeys((*counters, "matmul", "other"), 0.0)
     by_function = dict.fromkeys(DEVICE_FUNCTIONS, 0.0)  # a paged family split in two
@@ -3719,6 +3784,10 @@ def cli_check(torch) -> dict:
     from pathlib import Path
 
     root = Path(__file__).resolve().parent
+    # the subprocesses build their own 8B pipeline on the card: hand this
+    # process's cached blocks back first
+    gc.collect()
+    torch.cuda.empty_cache()
     env = dict(os.environ, LLM_MAX_TOKENS=str(MAX_TOKENS), VERIFIER_MAX_TOKENS=str(MAX_TOKENS))
     cmd = [sys.executable, "-m", "sentio_tpu_torch"]
     t0 = time.perf_counter()
@@ -4190,6 +4259,9 @@ def remote_worker_check(torch, dev, weights: dict, docs, ref: dict) -> dict:
         f"device='cuda', warm_head={head!r}, auth_token={SOCKET_TOKEN!r}, socket=True)\n"
         "worker_serve('127.0.0.1', 0, spec, bound_cb=lambda a: print('bound', a[1], "
         "flush=True))\n")
+    # the worker makes its own 8B weights and pool on the card
+    gc.collect()
+    torch.cuda.empty_cache()
     proc = subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE, text=True,
                             cwd=os.path.dirname(os.path.abspath(__file__)))
     try:
@@ -4371,23 +4443,6 @@ def replica_phases(torch, dev, weights) -> dict:
     return out
 
 
-def thread_reference(torch, dev) -> tuple[dict, dict]:
-    """replicas_2 in thread mode (warmup, its rounds, the lone greedy
-    chat), the reference of the worker phases under ``--only-new``; returns
-    it and the weights it made from the seed."""
-    docs, words = corpus(N_CHUNKS)
-    pipeline, server, thread, warm = replica_server(torch, dev, "replicas_2", None, 2, docs)
-    try:
-        out = replica_rounds(torch, "replicas_2", pipeline,
-                             HttpClient(server.server_address[1]), words)
-        out["lone"] = lone_greedy(pipeline.replica_set)
-        weights = shared_weights(pipeline)
-    finally:
-        stop_server(server, thread)
-        close_pipeline(torch, pipeline)
-    return out, weights
-
-
 def worker_rounds(torch, dev) -> dict:
     """The rounds of replicas_1 and replicas_2 in thread mode and in
     process mode, on one set of random weights, each after its own
@@ -4459,6 +4514,365 @@ def new_phases(torch, dev, weights) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ MoE
+
+# Mixtral-8x7B at full width: 16 of its 32 layers fit one 80 GB card
+# (46.96 GB of bf16 weights) with the pool and the encoders
+MOE_LAYERS = 16
+
+
+def mixtral_config(n_layers: int = MOE_LAYERS):
+    """Mixtral-8x7B's published widths (its HF config through JAX's
+    ``moe_config_from_hf``, whose default capacity factor is the no-drop
+    n_experts / experts_per_token = 4.0), cut to ``n_layers``."""
+    from sentio_tpu_torch.models.moe import MoeConfig
+
+    return MoeConfig(vocab_size=32_000, dim=4096, n_layers=n_layers, n_heads=32, n_kv_heads=8,
+                     mlp_dim=14_336, max_len=32_768, rope_theta=1e6, norm_eps=1e-5,
+                     n_experts=8, experts_per_token=2, capacity_factor=4.0)
+
+
+def bench_moe_config(dtype: str = "float32"):
+    """bench.py's ``moe`` geometry (1.31 B parameters, ~0.40 B active a
+    token) at the no-drop capacity factor."""
+    from sentio_tpu_torch.models.moe import MoeConfig
+
+    return MoeConfig(vocab_size=32_000, dim=1024, n_layers=12, n_heads=16, n_kv_heads=8,
+                     mlp_dim=4096, max_len=2048, rope_theta=500_000.0, dtype=dtype,
+                     n_experts=8, experts_per_token=2, capacity_factor=4.0)
+
+
+def sub_step_ms(torch, engine, iters: int = 20) -> float:
+    """One decode sub-step's device time: the captured greedy sub-step
+    replayed ``iters`` times between two CUDA events on the engine's
+    stream, every row masked (a masked row still reads every weight: the
+    expert products run over all of each expert's capacity slots)."""
+    st = engine._st
+    graph = engine._graphs[(True, False)][0]
+    with engine.on_stream():
+        st.budgets.zero_()
+        st.idx.zero_()
+        graph.replay()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            st.idx.zero_()
+            graph.replay()
+        end.record()
+        end.synchronize()
+        st.idx.zero_()
+    return start.elapsed_time(end) / iters
+
+
+def prefill_routes(torch, engine, admissions: list, iters: int = 4) -> dict:
+    """moe_prefill_routes: chat 1's two admissions (the generate, then the
+    verify on its prefix hit) prefilled again through the engine's
+    :meth:`prefill_forward` at their widths and prior lengths, random
+    tokens from the seed, the KV scattered to the scratch page and the
+    prior read from it, through each expert dispatch of models/moe.py: the
+    grouped rows (the default at these sizes) and the capacity buffers
+    (forced). Device ms a call between CUDA events on the caller's stream
+    (the grouped rows' host reads included); the two routes' last logits
+    compared."""
+    import numpy as np
+
+    from sentio_tpu_torch.models import moe
+
+    rng = np.random.default_rng(SEED)
+    default_rows = moe.CAPACITY_DISPATCH_ROWS
+    rows = []
+    for adm in admissions:
+        new, prior = adm["prefill_tokens_delta"], adm["prefix_hit_tokens_delta"]
+        width = engine._prefill_width(new)
+        pnb = prior // engine.page_size
+        ids = rng.integers(0, engine.cfg.vocab_size, (1, width)).astype(np.int64)
+        args = (ids, np.asarray([new]), np.zeros((1, width // engine.page_size), np.int64),
+                np.zeros((1, pnb), np.int64) if pnb else None,
+                np.asarray([prior]) if pnb else None)
+        row = {"prefill_tokens": new, "prior_tokens": prior, "width": width}
+        last = {}
+        for route, limit in (("grouped", default_rows), ("capacity", 1 << 30)):
+            moe.CAPACITY_DISPATCH_ROWS = limit
+            try:
+                with torch.inference_mode():
+                    row[f"{route}_ms"] = time_ms(torch, lambda: engine.prefill_forward(*args),
+                                                 iters=iters, warmup=1)
+                    last[route] = engine.prefill_forward(*args)
+            finally:
+                moe.CAPACITY_DISPATCH_ROWS = default_rows
+        row["logits_max_abs_diff"] = float((last["grouped"] - last["capacity"]).abs().max())
+        rows.append(row)
+    saved = sum(r["capacity_ms"] - r["grouped_ms"] for r in rows)
+    result = {"admissions": rows, "chat_ms_saved_by_grouped": saved}
+    emit("moe_prefill_routes", **result)
+    return result
+
+
+def moe_decode_bound(cfg, slots: int) -> dict:
+    """The least time of one decode sub-step: every weight read once (the
+    capacity buffers run every expert, as JAX's einsums do), against the
+    products' operations at the bf16 peak."""
+    d, f, e = cfg.dim, cfg.mlp_dim, cfg.n_experts
+    kv = cfg.n_kv_heads * cfg.head_dim
+    attn = d * (2 * d + 2 * kv) + d * e
+    experts = e * 3 * d * f
+    per_layer = (attn + experts) * 2
+    n_bytes = cfg.n_layers * per_layer + cfg.vocab_size * d * 2
+    capacity = max(1, math.ceil(slots * cfg.experts_per_token / e * cfg.capacity_factor))
+    ops = (2 * cfg.n_layers * (slots * attn + e * capacity * 3 * d * f)
+           + 2 * slots * d * cfg.vocab_size)
+    ms, by = bound_ms(n_bytes, ops)
+    return {"bound_ms": ms, "bound_by": by, "weight_bytes": n_bytes,
+            "expert_bytes": cfg.n_layers * experts * 2}
+
+
+def moe_phases(torch, dev) -> dict:
+    """slice_moe (with moe_logits, moe_sub_step, moe_prefill_routes and
+    profile_moe on its pipeline) and slice_moe_int8 on Mixtral-8x7B widths at MOE_LAYERS
+    layers, random bf16 weights made on the card from the seed, the
+    encoders random from the seed; then moe_exact."""
+    from sentio_tpu_torch.config import GeneratorConfig, Settings
+    from sentio_tpu_torch.models.moe import init_moe
+
+    out = {}
+    cfg = mixtral_config()
+    t0 = time.perf_counter()
+    params = init_moe(cfg, torch.Generator(device=dev).manual_seed(SEED + 13), dev)
+    torch.cuda.synchronize()
+    n_bytes = tensor_bytes(params)
+    emit("moe_weights", seconds=time.perf_counter() - t0, bytes=n_bytes,
+         config=dataclasses.asdict(cfg), card_free=torch.cuda.mem_get_info()[0])
+    shared = {"llama_config": cfg, "llama_params": params}
+    caps = dict(max_new_tokens=MAX_TOKENS, verifier_max_tokens=MAX_TOKENS)
+    torch.cuda.reset_peak_memory_stats()
+    peak = CardPeak(torch)
+    sl = run_slice(torch, dev, "slice_moe", Settings(generator=GeneratorConfig(**caps)),
+                   shared=shared)
+    try:
+        pipeline = sl["pipeline"]
+        out["moe_logits"] = logits_check(torch, dev, pipeline, sl["questions"][1], "moe_logits")
+        pipeline.service.wait_idle()
+        engine = pipeline.generator.provider.engine
+        step = {"ms": sub_step_ms(torch, engine), "slots": engine.max_slots,
+                **moe_decode_bound(cfg, engine.max_slots)}
+        emit("moe_sub_step", **step)
+        routes = prefill_routes(torch, engine, [{k: v for k, v in c.items() if k != "prompt"}
+                                                for c in sl["admissions"][:2]])
+        out["profile_moe"] = profile_chat(torch, pipeline, sl["questions"][2], "profile_moe")
+    finally:
+        # no frame may keep the pipeline: its engine holds the weights
+        pipeline = engine = None
+        close_pipeline(torch, sl.pop("pipeline"))
+    sl.update(sub_step=step, prefill_routes=routes, peak_memory=torch.cuda.max_memory_allocated(),
+              card_peak=peak.stop())
+    emit("slice_moe_memory", peak_memory=sl["peak_memory"], card_peak=sl["card_peak"],
+         weight_bytes=n_bytes)
+    out["slice_moe"] = sl
+    sl8 = run_slice(torch, dev, "slice_moe_int8",
+                    Settings(generator=GeneratorConfig(kv_quant="int8", **caps)),
+                    shared=shared, n_chats=1)
+    close_pipeline(torch, sl8.pop("pipeline"))
+    out["slice_moe_int8"] = sl8
+    del shared, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["moe_exact"] = moe_exact_check(torch, dev)
+    return out
+
+
+def plain_attention_service(**factory_kwargs):
+    """A worker's service factory: :func:`default_service_factory`'s
+    service with its engine on the plain decode attention (moe_exact's
+    float32 pool, which the paged kernels do not take)."""
+    from sentio_tpu_torch.runtime.paged import _paged_attn_xla
+    from sentio_tpu_torch.runtime.worker import default_service_factory
+
+    svc = default_service_factory(**factory_kwargs)
+    svc.engine.attn_impl = _paged_attn_xla
+    return svc
+
+
+def moe_exact_check(torch, dev) -> dict:
+    """moe_exact: bench.py's moe geometry in float32 at the no-drop capacity
+    factor, plain attention (the kernels take bf16), 4 prompts of 64 tokens
+    decoded SPEC_EXACT_TOKENS tokens greedily. Greedy tokens must be equal
+    on the paged engine from graph replays and eagerly, on the contiguous
+    engine (USE_PAGED_KV=0), under paged speculation with a 2-layer llama
+    draft and contiguous speculation with a 2-layer MoE draft, and through
+    a thread-mode replica's service and one REPLICA_MODE=process worker on
+    the same tensors. First the geometry, cast to bf16, is written as a
+    ``save_pytree`` checkpoint with meta ``"family": "moe"``, and ``python
+    -m sentio_tpu_torch chat`` answers from it under LLM_CHECKPOINT in a
+    process of its own while this one runs the paths above (its seconds
+    are taken beside them)."""
+    import os
+    import threading
+    from pathlib import Path
+
+    from sentio_tpu_torch.config import GeneratorConfig
+    from sentio_tpu_torch.models.llama import init_llama
+    from sentio_tpu_torch.models.moe import init_moe
+    from sentio_tpu_torch.models.tokenizer import ByteTokenizer
+    from sentio_tpu_torch.runtime.engine import GeneratorEngine
+    from sentio_tpu_torch.runtime.paged import ContinuousBatchingEngine, _paged_attn_xla
+    from sentio_tpu_torch.runtime.service import PagedGenerationService
+    from sentio_tpu_torch.runtime.speculative import SpeculativeDecoder
+    from sentio_tpu_torch.runtime.weights import decoder_to_jax, save_pytree
+    from sentio_tpu_torch.runtime.worker import ProcessReplica, WorkerSpec
+
+    phase = "moe_exact"
+    n = SPEC_EXACT_TOKENS
+    docs, _words = corpus(8)
+    prompts = [d.text[:63] for d in docs[:4]]
+    cfg = bench_moe_config()
+    params = init_moe(cfg, torch.Generator(device=dev).manual_seed(SEED + 11), dev)
+    ldcfg = bench_draft_config(cfg, n_layers=2)
+    ldraft = init_llama(ldcfg, torch.Generator(device=dev).manual_seed(SEED + 12), dev)
+    mdcfg = dataclasses.replace(cfg, n_layers=2)
+    mdraft = init_moe(mdcfg, torch.Generator(device=dev).manual_seed(SEED + 14), dev)
+    geometry = dict(max_slots=8, page_size=128, max_pages_per_seq=16, steps_per_tick=16,
+                    max_tick_steps=64, pipeline_depth=2)
+
+    def paged_engine(**kw):
+        eng = ContinuousBatchingEngine(model_config=cfg, params=params, device=dev,
+                                       **geometry, **kw)
+        eng.attn_impl = _paged_attn_xla
+        return eng
+
+    runs, tokens = {}, {}
+    counters = wrappers()
+    card0 = card_launches(torch)
+    for kernel in counters.values():
+        kernel.launches = 0
+
+    def record(name, results, t0, **extra):
+        torch.cuda.synchronize()
+        runs[name] = {"seconds": time.perf_counter() - t0,
+                      "tokens": [len(r.tokens) for r in results], **extra}
+        tokens[name] = [r.tokens for r in results]
+
+    root = Path(__file__).resolve().parent
+    bf = dataclasses.replace(cfg, dtype="bfloat16")
+    cli = {}
+
+    def cli_chat(env):
+        t0 = time.perf_counter()
+        cli["proc"] = subprocess.run([sys.executable, "-m", "sentio_tpu_torch", "chat",
+                                      "What do the passages say about routed experts?",
+                                      "--device", str(dev)], cwd=root, env=env,
+                                     capture_output=True, text=True, timeout=600)
+        cli["chat_s"] = time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory(prefix="smoke-moe-ck-") as tmp:
+        t0 = time.perf_counter()
+        tree = decoder_to_jax(matrices_to_bf16(torch, params))
+        path = save_pytree(Path(tmp) / "moe", tree,
+                           meta={"family": "moe", "config": dataclasses.asdict(bf)})
+        del tree
+        cli["save_s"] = time.perf_counter() - t0
+        cli["checkpoint_bytes"] = sum(f.stat().st_size for f in path.iterdir())
+        chat = threading.Thread(target=cli_chat, daemon=True, args=(dict(
+            os.environ, LLM_CHECKPOINT=str(path), LLM_MAX_TOKENS=str(MAX_TOKENS),
+            VERIFIER_MAX_TOKENS=str(MAX_TOKENS)),))
+        chat.start()
+        try:
+            for name, graphs, draft in (("paged_graph", True, None),
+                                        ("paged_eager", False, None),
+                                        ("paged_spec_llama_draft", True, (ldraft, ldcfg))):
+                eng = paged_engine(**({} if draft is None else dict(
+                    draft_params=draft[0], draft_config=draft[1], spec_k=SPEC_K)))
+                eng.cuda_graphs = graphs
+                t0 = time.perf_counter()
+                results = eng.run_all(prompts, max_new_tokens=n, temperature=0.0)
+                record(name, results, t0, graph_replays=eng.graph_replays,
+                       spec_verifies=eng.spec_verifies_total)
+                del eng
+            contig = GeneratorEngine(config=GeneratorConfig(max_new_tokens=n, dtype="float32"),
+                                     model_config=cfg, params=params, device=dev)
+            contig.attn_fn = None
+            for name, gen in (("contig", contig),
+                              ("contig_spec_moe_draft", SpeculativeDecoder(contig, mdraft, mdcfg,
+                                                                           k=SPEC_K))):
+                t0 = time.perf_counter()
+                results = gen.generate(prompts, max_new_tokens=n, temperature=0.0)
+                record(name, results, t0, **({"stats": gen.stats} if gen is not contig else {}))
+            del contig, gen
+            # a thread-mode replica's service and one worker process on these
+            # tensors
+            svc = PagedGenerationService(paged_engine())
+            t0 = time.perf_counter()
+            try:
+                results = [svc.generate(p, max_new_tokens=n, temperature=0.0)
+                           for p in prompts[:2]]
+            finally:
+                svc.close()
+            record("thread_replica", results, t0)
+            spec = WorkerSpec(factory="chip_smoke:plain_attention_service",
+                              factory_kwargs=dict(model_family="moe",
+                                                  model_config=dataclasses.asdict(cfg),
+                                                  params=params, engine_kwargs=geometry,
+                                                  device=str(dev)))
+            t0 = time.perf_counter()
+            worker = ProcessReplica(spec, ByteTokenizer(cfg.vocab_size), replica_id=0)
+            spawn_s = time.perf_counter() - t0
+            try:
+                t0 = time.perf_counter()
+                results = [worker.generate(p, max_new_tokens=n, temperature=0.0)
+                           for p in prompts[:2]]
+                record("process_worker", results, t0, spawn_s=spawn_s,
+                       family=type(worker.engine.cfg).__name__)
+            finally:
+                worker.close()
+                torch.cuda.ipc_collect()
+        finally:
+            chat.join()
+    launches = {name: k.launches for name, k in counters.items()}
+    card = card_delta(torch, card0)
+    ref = tokens["paged_graph"]
+    equal = {name: toks == ref[: len(toks)] for name, toks in tokens.items()
+             if name != "paged_graph"}
+
+    proc = cli.pop("proc", None)
+    if proc is None or proc.returncode != 0:
+        raise AssertionError(f"{phase}: cli chat from the moe checkpoint: "
+                             + ("did not end" if proc is None else
+                                f"exit {proc.returncode}: {proc.stderr[-3000:]}"))
+    answer = json.loads(proc.stdout)
+    cli.update(answer_chars=len(answer["answer"] or ""),
+               verdict=answer["verification"].get("verdict"),
+               degraded={k: answer["metadata"][k] for k in ("retrieval_error",
+                                                            "generation_error")
+                         if k in answer["metadata"]})
+    result = {"model": dataclasses.asdict(cfg), "prompts": len(prompts), "new_tokens": n,
+              "runs": runs, "tokens_equal": equal,
+              "first_difference": {name: next((i for i, (a, b) in enumerate(zip(
+                  tokens[name], ref)) if a != b), None) for name in equal},
+              "launches": launches, "device_launches": card, "cli_chat": cli}
+    emit(phase, **result)
+    if not all(equal.values()):
+        raise AssertionError(f"{phase}: greedy tokens differ across paths: {equal}")
+    if runs["paged_graph"]["graph_replays"] <= 0 or runs["paged_eager"]["graph_replays"]:
+        raise AssertionError(f"{phase}: the graph run must replay and the eager one not: "
+                             f"{runs}")
+    if runs["paged_spec_llama_draft"]["spec_verifies"] <= 0 \
+            or runs["process_worker"]["family"] != "MoeConfig":
+        raise AssertionError(f"{phase}: no spec verify, or the worker is not MoE: {runs}")
+    if not cli["answer_chars"] or cli["degraded"]:
+        raise AssertionError(f"{phase}: the cli chat from the moe checkpoint: {cli}")
+    # plain attention throughout in this process: no kernel launched
+    check_card(phase, card, launches)
+    if any(launches.values()):
+        raise AssertionError(f"{phase}: a kernel ran on the plain-attention paths: {launches}")
+    return result
+
+
+def matrices_to_bf16(torch, tree):
+    """``tree`` with its matrices and expert stacks in bf16, norms kept."""
+    if isinstance(tree, dict):
+        return {k: matrices_to_bf16(torch, v) for k, v in tree.items()}
+    return tree.to(torch.bfloat16) if tree.dim() > 1 else tree
+
+
 def family_launches(card: dict, family: str) -> dict:
     """The card's counts (:func:`card_launches`) of one kernel's device
     functions."""
@@ -4482,8 +4896,8 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only-new", action="store_true",
-                        help="build, the kernel checks, then only the replica tier's phases "
-                             "(random 8B weights); ends without the result lines")
+                        help="build, the kernel checks, then only the MoE phases; ends "
+                             "without the result lines")
     parser.add_argument("--worker-rounds", action="store_true",
                         help="build, then the rounds of one and two replicas in thread and "
                              "in process mode (random 8B weights); ends without the result "
@@ -4552,14 +4966,24 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
+    # the MoE phases first: their 47 GB of weights cannot sit beside the
+    # 8B's, and the 8B tensors stay referenced to the end (a SIGKILLed
+    # worker never releases its CUDA IPC handles on them)
+    t0 = time.perf_counter()
+    moe = moe_phases(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.ipc_collect()
+    # what stays: moe_exact's float32 weights (5.24 GB), which its worker
+    # took over CUDA IPC and, exiting without teardown, never released
+    emit("moe_phases", seconds=time.perf_counter() - t0,
+         memory_allocated_after=torch.cuda.memory_allocated())
+    if torch.cuda.memory_allocated() > 8 << 30:
+        raise AssertionError("moe_phases: the MoE weights outlived their phases: "
+                             f"{torch.cuda.memory_allocated()} bytes still allocated")
     if args.only_new:
-        t0 = time.perf_counter()
-        ref, weights = thread_reference(torch, dev)
-        t1 = time.perf_counter()
-        workers = worker_phases(torch, dev, weights, ref)
-        emit("partial", phases=sorted(workers), thread_reference_s=t1 - t0,
-             worker_phases_s=time.perf_counter() - t1)
         return 0
+    sm, sm8, pm = moe["slice_moe"], moe["slice_moe_int8"], moe["profile_moe"]
 
     caps = dict(max_new_tokens=MAX_TOKENS, verifier_max_tokens=MAX_TOKENS)
     sl = run_slice(torch, dev, "slice", Settings(retrieval=RetrievalConfig(strategy="dense"),
@@ -4646,7 +5070,9 @@ def main(argv=None) -> int:
                               **{path: rep[path]["launches"]["paged_attention"]
                                  for path in rep_paths},
                               **{path: launches["paged_attention"]
-                                 for path, launches in worker_paths.items()}},
+                                 for path, launches in worker_paths.items()},
+                              "slice_moe": sm["launches"]["paged_attention"],
+                              "profile_moe": pm["launches_counted"]["paged_attention"]},
          "launches_by_worker": {
              "replicas_2_process": workers["replicas_2_process"]["launches_by_worker"],
              "replicas_2_socket": [w["launches"] for w in
@@ -4673,6 +5099,9 @@ def main(argv=None) -> int:
          "device_launches_serve_http": family_launches(http["chats"]["device_launches"],
                                                        "paged_attention"),
          "device_launches_profiled_chat": device_launches(profile, "paged_attention"),
+         "device_launches_slice_moe": family_launches(sm["device_launches"],
+                                                      "paged_attention"),
+         "device_launches_profile_moe": device_launches(pm, "paged_attention"),
          **{k: paged[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                   "bound_by", "library_ms")},
          "cases": [paged, paged_chat, paged_eval]},
@@ -4685,13 +5114,16 @@ def main(argv=None) -> int:
                               "slice_spec": ss["launches"]["paged_attention_quant"],
                               "spec_int8": spec_int8["launches"]["paged_attention_quant"],
                               "quality_gates_int8":
-                                  gates["int8"]["launches"]["paged_attention_quant"]},
+                                  gates["int8"]["launches"]["paged_attention_quant"],
+                              "slice_moe_int8": sm8["launches"]["paged_attention_quant"]},
          "device_launches_quality_gates_int8": family_launches(
              gates["int8"]["device_launches"], "paged_attention_quant"),
          "device_launches": family_launches(sl8["device_launches"], "paged_attention_quant"),
          "device_launches_spec_int8": family_launches(spec_int8["device_launches"],
                                                       "paged_attention_quant"),
          "device_launches_profiled_chat": device_launches(profile8, "paged_attention_quant"),
+         "device_launches_slice_moe_int8": family_launches(sm8["device_launches"],
+                                                           "paged_attention_quant"),
          **{k: paged_quant[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")},
          "cases": [paged_quant, paged_quant_chat, paged_quant_eval]},
@@ -4723,7 +5155,10 @@ def main(argv=None) -> int:
                                   r["router_launches"]["flash_attention"]
                                   for r in workers["replicas_2_process"]["rounds"]),
                               "replicas_2_socket_router": workers["replicas_2_socket"][
-                                  "round"]["router_launches"]["flash_attention"]},
+                                  "round"]["router_launches"]["flash_attention"],
+                              "slice_moe": sm["launches"]["flash_attention"],
+                              "profile_moe": pm["launches_counted"]["flash_attention"],
+                              "slice_moe_int8": sm8["launches"]["flash_attention"]},
          "device_launches": {path: family_launches(x["device_launches"], "flash_attention")
                              for path, x in (("slice", sl), ("slice_int8", sl8),
                                              ("slice_contig", sc), ("service", service),
@@ -4732,7 +5167,8 @@ def main(argv=None) -> int:
                                              ("slice_spec_service", spec_service),
                                              ("spec_int8", spec_int8),
                                              ("spec_exact", spec_exact), ("verify_modes", vm),
-                                             *((path, rep[path]) for path in rep_paths))},
+                                             *((path, rep[path]) for path in rep_paths),
+                                             ("slice_moe", sm), ("slice_moe_int8", sm8))},
          "device_launches_eval": {name: family_launches(ev[name]["device_launches"],
                                                         "flash_attention")
                                   for name in ("dense", "hybrid_rerank", "full_paged",
@@ -4740,7 +5176,7 @@ def main(argv=None) -> int:
          "device_launches_profiled_chat": {
              path: device_launches(prof, "flash_attention")
              for path, prof in (("slice", profile), ("slice_int8", profile8),
-                                ("slice_spec", profile_spec))},
+                                ("slice_spec", profile_spec), ("slice_moe", pm))},
          "max_abs_err": max(c["max_abs_err"] for c in flash),
          **{k: main_flash[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                        "library_ms")},

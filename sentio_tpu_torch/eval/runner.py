@@ -166,7 +166,7 @@ def run_eval(scale: str = "bench", n_docs: int = 1024, n_queries: int = 64,
             from sentio_tpu_torch.runtime.weights import load_model
 
             emb_params, emb_cfg = load_model(encoder_checkpoint, expect_family="encoder",
-                                             setting="--encoder-checkpoint", device=dev)
+                                             device=dev)
             extras["encoder_checkpoint"] = encoder_checkpoint
         _log("eval: embedding corpus on device ...")
         embedder = TorchEmbedder(EmbedderConfig(batch_size=128), params=emb_params,

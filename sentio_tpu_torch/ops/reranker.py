@@ -55,7 +55,7 @@ class CrossEncoderReranker:
         if params is None and self.config.checkpoint_path:
             params, model_config = load_model(
                 self.config.checkpoint_path, expect_family="cross-encoder",
-                setting="RERANKER_CHECKPOINT", device=self.device)
+                device=self.device)
         # the default container builds the tiny cross-encoder when no
         # checkpoint is configured
         self.model_config = model_config or EncoderConfig.tiny()

@@ -71,7 +71,8 @@ from sentio_tpu_torch.infra.exceptions import VectorStoreError
 from sentio_tpu_torch.infra.metrics import get_metrics
 from sentio_tpu_torch.infra.tracing import get_tracing
 from sentio_tpu_torch.models.document import Document
-from sentio_tpu_torch.models.llama import LlamaConfig, init_llama
+from sentio_tpu_torch.models.llama import LlamaConfig
+from sentio_tpu_torch.models.moe import family, init_decoder
 from sentio_tpu_torch.models.transformer import EncoderConfig
 from sentio_tpu_torch.ops.bm25 import BM25Index, BM25Params, make_bm25_index
 from sentio_tpu_torch.ops.confidence import confidence_score
@@ -88,7 +89,7 @@ from sentio_tpu_torch.runtime.paged import ContinuousBatchingEngine
 from sentio_tpu_torch.runtime.replica import ReplicaSet
 from sentio_tpu_torch.runtime.service import PagedGenerationService
 from sentio_tpu_torch.runtime.speculative import SpeculativeDecoder
-from sentio_tpu_torch.runtime.weights import load_draft, load_llama, refuse_tokenizer
+from sentio_tpu_torch.runtime.weights import load_draft, load_generator, refuse_tokenizer
 
 logger = logging.getLogger(__name__)
 
@@ -611,7 +612,10 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
                    draft_config: Optional[LlamaConfig] = None) -> ChatPipeline:
     """Assemble the pipeline from ``settings`` on ``device`` (the card by
     default). Weights not passed in come from the configured checkpoints or
-    are random, made on the device from ``seed``; the retriever follows
+    are random, made on the device from ``seed``; the generator is of
+    either decoder family (``llama_config`` a ``MoeConfig``, or a ``moe``
+    checkpoint, serves the routed decoder on every engine); the retriever
+    follows
     the retrieval settings (strategy, fusion, BM25 backend) and the engine
     the generator settings: with ``USE_PAGED_KV`` (the default)
     ``REPLICAS`` paged engines (slots, page size, pages per sequence,
@@ -625,8 +629,9 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
     ``LLM_DRAFT_CHECKPOINT`` checkpoint) makes generation speculative with
     ``SPECULATIVE_K`` drafted tokens a round: the paged engine speculates in
     every decode tick unless ``PREFILL_CHUNK`` is set (then the draft is
-    ignored with a warning), the contiguous engine through a
-    ``SpeculativeDecoder``. Settings this package cannot honour raise
+    ignored with a warning; its draft is a llama model), the contiguous
+    engine through a ``SpeculativeDecoder`` (a draft of either family).
+    Settings this package cannot honour raise
     ``NotImplementedError``."""
     settings = settings or Settings()
     rcfg, gcfg = settings.retrieval, settings.generator
@@ -655,8 +660,12 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
                                        "speculation)")
     spec_info["active"] = spec_info["draft_configured"] and "ignored_reason" not in spec_info
     if spec_info["active"]:
-        if draft_params is None:
+        if draft_params is None and gcfg.use_paged_decode:
             draft_params, draft_config = load_draft(gcfg.draft_checkpoint_path, device=dev)
+        elif draft_params is None:
+            # the contiguous decoder drafts with either family, as JAX's
+            draft_params, draft_config = load_generator(gcfg.draft_checkpoint_path,
+                                                        device=dev)
         logger.info("speculative decoding: draft dim=%d L=%d, k=%d", draft_config.dim,
                     draft_config.n_layers, gcfg.speculative_k)
     else:
@@ -683,11 +692,11 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
                                         generator=gen(2))
     refuse_tokenizer("LLM_TOKENIZER", gcfg.tokenizer_path)
     if llama_params is None and gcfg.checkpoint_path:
-        llama_params, llama_config = load_llama(gcfg.checkpoint_path, device=dev)
+        llama_params, llama_config = load_generator(gcfg.checkpoint_path, device=dev)
     llama_config = llama_config or (
         LlamaConfig.tiny() if gcfg.model_preset == "tiny" else LlamaConfig.llama3_8b())
     if llama_params is None:
-        llama_params = init_llama(llama_config, gen(3), dev)
+        llama_params = init_decoder(llama_config, gen(3), dev)
     prompts = PromptBuilder()
     warm_head = ""
     if gcfg.use_paged_decode:
@@ -797,7 +806,8 @@ def worker_spec(settings: Settings, model_config: LlamaConfig, replica_id: int, 
 
     serve, gcfg = settings.serve, settings.generator
     kwargs = dict(
-        model_config=dataclasses.asdict(model_config), rng_seed=seed, device=str(device),
+        model_family=family(model_config), model_config=dataclasses.asdict(model_config),
+        rng_seed=seed, device=str(device),
         engine_kwargs=engine_settings(gcfg),
         service_kwargs={**service_settings(serve), "replica_id": replica_id},
         warm_prefix_text=warm_head, params=params)

@@ -7,7 +7,7 @@ Each call is a batch of its own: prompts are right-padded into a
 fresh contiguous KV cache whose window is ``bucket(width + max_new)``
 capped at the model's ``max_len``.
 
-* **prefill** — ``llama_forward`` over the whole block with the causal
+* **prefill** — the family's forward over the whole block with the causal
   flash kernel as its attention on the card (:func:`default_attn_fn`; the
   keys are the whole cache window, S >= T, and the kernel reads none past
   T), the model's plain masked attention on the CPU, as JAX picks flash on
@@ -20,8 +20,12 @@ capped at the model's ``max_len``.
   budget is cut on the host;
 * :meth:`stream` — a host-stepped decode yielding UTF-8-safe text.
 
-Sampling draws from the engine's own ``torch.Generator``. A MoE
-``forward_fn`` and device meshes are not ported: they raise.
+The model family follows the config (a :class:`~..models.moe.MoeConfig`
+serves the routed decoder) or the checkpoint's meta, through JAX's
+``forward_fn`` seam; ``pad_mask`` keeps padding, junk bucket rows and rows
+already done out of routed-expert capacity, as in JAX. Sampling draws from
+the engine's own ``torch.Generator``. Device meshes are not ported: they
+raise.
 """
 
 from __future__ import annotations
@@ -36,11 +40,12 @@ import torch
 from sentio_tpu_torch import resolve_device
 from sentio_tpu_torch.config import GeneratorConfig
 from sentio_tpu_torch.kernels import default_attn_fn
-from sentio_tpu_torch.models.llama import LlamaConfig, init_cache, init_llama, llama_forward
+from sentio_tpu_torch.models.llama import LlamaConfig, init_cache
+from sentio_tpu_torch.models.moe import decoder_forward, init_decoder
 from sentio_tpu_torch.models.tokenizer import ByteTokenizer, batch_encode
 from sentio_tpu_torch.parallel.batcher import bucket_size, floor_bucket
 from sentio_tpu_torch.runtime.sampling import sample_tokens
-from sentio_tpu_torch.runtime.weights import load_llama
+from sentio_tpu_torch.runtime.weights import load_generator
 
 Tensor = torch.Tensor
 
@@ -71,21 +76,23 @@ class GeneratorEngine:
                  mesh=None, rng_seed: int = 0, forward_fn=None, device=None) -> None:
         if mesh is not None:
             raise NotImplementedError("GeneratorEngine: device meshes are not ported")
-        if forward_fn is not None:
-            raise NotImplementedError("GeneratorEngine: forward_fn (the MoE family) is not "
-                                      "ported")
         self.config = config or GeneratorConfig()
         self.device = resolve_device(device)
+        explicit = params is not None
         if params is None and self.config.checkpoint_path:
-            params, model_config = load_llama(self.config.checkpoint_path,
-                                              self.config.tokenizer_path, device=self.device)
+            # the family rides the checkpoint's meta (llama or moe)
+            params, model_config = load_generator(self.config.checkpoint_path,
+                                                  self.config.tokenizer_path,
+                                                  device=self.device)
+            explicit = True
         self.model_config = model_config or (
             LlamaConfig.tiny() if self.config.model_preset == "tiny" else LlamaConfig.llama3_8b())
         self.tokenizer = ByteTokenizer(self.model_config.vocab_size)
+        self.forward_fn = decoder_forward(self.model_config, forward_fn, explicit)
         if params is None:
             init_gen = torch.Generator(device=self.device)
             init_gen.manual_seed(rng_seed)
-            params = init_llama(self.model_config, init_gen, self.device)
+            params = init_decoder(self.model_config, init_gen, self.device)
         self.params = params
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(rng_seed + 17)
@@ -138,18 +145,20 @@ class GeneratorEngine:
     def _prefill(self, ids, positions, cache, pad_mask) -> Tensor:
         """Prefill the block at cache offset 0 → logits [rows, width, V]."""
         self.prefills += 1
-        logits, _ = llama_forward(self.params, self.model_config, self._tensor(ids),
-                                  positions=self._tensor(positions), cache=cache, cache_index=0,
-                                  pad_mask=self._tensor(pad_mask, torch.bool),
-                                  attn_fn=self.attn_fn)
+        logits, _ = self.forward_fn(self.params, self.model_config, self._tensor(ids),
+                                    positions=self._tensor(positions), cache=cache,
+                                    cache_index=0, pad_mask=self._tensor(pad_mask, torch.bool),
+                                    attn_fn=self.attn_fn)
         return logits
 
     def _decode_step(self, tok: Tensor, lens: Tensor, cache, temperature: float,
-                     top_k: int) -> Tensor:
-        """One token per row at position ``lens`` → the sampled next [rows]."""
+                     top_k: int, live: Optional[Tensor] = None) -> Tensor:
+        """One token per row at position ``lens`` → the sampled next [rows].
+        ``live`` [rows] (None: every row) marks the rows that route."""
         self.decode_steps += 1
-        logits, _ = llama_forward(self.params, self.model_config, tok[:, None],
-                                  positions=lens[:, None], cache=cache, cache_index=lens)
+        logits, _ = self.forward_fn(self.params, self.model_config, tok[:, None],
+                                    positions=lens[:, None], cache=cache, cache_index=lens,
+                                    pad_mask=None if live is None else live[:, None])
         return sample_tokens(logits[:, -1], self._gen, temperature, top_k=top_k)[0]
 
     def _generate_fused(self, ids, positions, lens, cache, temperature: float, steps: int,
@@ -171,7 +180,9 @@ class GeneratorEngine:
         for step in range(1, steps):
             if step % self.DONE_CHECK_EVERY == 0 and bool(done.all()):
                 break
-            nxt = self._decode_step(tok, lens_t, cache, temperature, top_k)
+            # done rows (junk rows too) leave routing: a finished row must
+            # not keep claiming expert capacity from live rows
+            nxt = self._decode_step(tok, lens_t, cache, temperature, top_k, live=~done)
             tok = torch.where(done, eos, nxt)
             done = done | (tok == eos)
             lens_t = lens_t + 1

@@ -89,7 +89,16 @@ from sentio_tpu_torch.kernels.paged_attention import (
     paged_attention_quant_plain,
 )
 from sentio_tpu_torch.models import layers as L
-from sentio_tpu_torch.models.llama import LlamaConfig, init_cache, init_llama, llama_forward
+from sentio_tpu_torch.models.llama import LlamaConfig, init_cache
+from sentio_tpu_torch.models.moe import (
+    MoeConfig,
+    decoder_forward,
+    init_decoder,
+    moe_mlp,
+    route_tally,
+    tallied,
+    tally_stats,
+)
 from sentio_tpu_torch.models.tokenizer import ByteTokenizer
 from sentio_tpu_torch.parallel.batcher import bucket_size
 from sentio_tpu_torch.runtime.radix import RadixPrefixCache
@@ -244,7 +253,8 @@ def _paged_attn_xla(q, k_pages_l, v_pages_l, page_table, lens, n_rep):
 def paged_decode_forward(params: dict, cfg: LlamaConfig, tok: Tensor, lens: Tensor,
                          page_table: Tensor, k_pages: Pages, v_pages: Pages,
                          attn_impl=None, write_mask: Optional[Tensor] = None,
-                         rope: Optional[tuple[Tensor, Tensor]] = None) -> Tensor:
+                         rope: Optional[tuple[Tensor, Tensor]] = None,
+                         tally: Optional[Tensor] = None) -> Tensor:
     """One decode step over the paged pool → logits [B, V] float32.
 
     tok [B] (last sampled token per slot); lens [B] int32, the absolute
@@ -252,9 +262,13 @@ def paged_decode_forward(params: dict, cfg: LlamaConfig, tok: Tensor, lens: Tens
     k/v are written into each row's current page in place before attention
     reads them (quantized first for an int8 pool). ``write_mask`` [B] bool
     redirects masked rows' writes to the
-    scratch page, freezing rows that hit EOS or their budget mid-tick.
-    ``rope`` is the (cos, sin) table pair covering the window; the engine
-    builds it once, so a captured sub-step reads a static tensor."""
+    scratch page, freezing rows that hit EOS or their budget mid-tick, and
+    is a MoE layer's routing mask: frozen and free rows take no expert
+    capacity. The family is read per layer (a ``moe`` subtree routes
+    through :func:`~..models.moe.moe_mlp`, adding to ``tally``), as in
+    JAX. ``rope`` is the
+    (cos, sin) table pair covering the window; the engine builds it once,
+    so a captured sub-step reads a static tensor."""
     dt = cfg.torch_dtype
     b = tok.shape[0]
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -288,8 +302,14 @@ def paged_decode_forward(params: dict, cfg: LlamaConfig, tok: Tensor, lens: Tens
                    h // hkv)
         x = x + L.dense(lp["attn"]["wo"], out.reshape(b, 1, cfg.dim), dt)
         xm = L.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
-        gate = torch.nn.functional.silu(L.dense(lp["mlp"]["w_gate"], xm, dt))
-        x = x + L.dense(lp["mlp"]["w_down"], gate * L.dense(lp["mlp"]["w_up"], xm, dt), dt)
+        if "moe" in lp:
+            routed, _ = moe_mlp(lp["moe"], cfg, xm,
+                                None if write_mask is None else write_mask[:, None], tally)
+            x = x + routed
+        else:
+            gate = torch.nn.functional.silu(L.dense(lp["mlp"]["w_gate"], xm, dt))
+            x = x + L.dense(lp["mlp"]["w_down"], gate * L.dense(lp["mlp"]["w_up"], xm, dt),
+                            dt)
 
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return L.dense(params["lm_head"], x, dt)[:, 0].float()
@@ -447,7 +467,11 @@ class ContinuousBatchingEngine:
     of one too large for the free pages at most ``head_skip_bound`` times)
     and retired on EOS / length. ``attn_impl`` is the decode-attention
     seam: the paged kernel by default, the plain gather path
-    (``_paged_attn_xla``) when set to it. ``kv_quant="int8"`` stores the
+    (``_paged_attn_xla``) when set to it.
+    ``forward_fn`` is JAX's model-family seam: by default the config's
+    family (a ``MoeConfig`` routes its layers through experts, and
+    :meth:`stats` reports the engine's routing tally).
+    ``kv_quant="int8"`` stores the
     pool as int8 codes plus f16 scales (``KV_QUANT``), which routes decode
     to the int8 kernel. ``prefix_cache`` (``PREFIX_CACHE``),
     ``pipeline_depth`` (``DECODE_PIPELINE_DEPTH``, 1 or 2) and
@@ -495,6 +519,7 @@ class ContinuousBatchingEngine:
         draft_params: Optional[dict] = None,
         draft_config: Optional[LlamaConfig] = None,
         spec_k: int = 4,
+        forward_fn=None,
         device=None,
     ) -> None:
         if kv_quant not in ("none", "int8"):
@@ -528,15 +553,27 @@ class ContinuousBatchingEngine:
             if draft_config.vocab_size != self.cfg.vocab_size:
                 raise ValueError(f"draft vocab {draft_config.vocab_size} != target "
                                  f"vocab {self.cfg.vocab_size}")
+            if isinstance(draft_config, MoeConfig):
+                # JAX's paged spec tick drafts with llama_forward (its
+                # container loads the draft with expect_family="llama")
+                raise ValueError("the paged engine's draft must be a llama model, got a "
+                                 "MoeConfig")
             self.draft_params = draft_params
         self.tokenizer = ByteTokenizer(self.cfg.vocab_size)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(rng_seed + 1)
+        # the model family: the config's (a MoeConfig routes), or a matching
+        # forward_fn (JAX's seam)
+        self.forward_fn = decoder_forward(self.cfg, forward_fn, params is not None)
         if params is None:
             init_gen = torch.Generator(device=self.device)
             init_gen.manual_seed(rng_seed)
             with self.on_stream():
-                params = init_llama(self.cfg, init_gen, self.device)
+                params = init_decoder(self.cfg, init_gen, self.device)
+        # a MoE engine's routing: choices per expert, dropped, padding's
+        with self.on_stream():
+            self.route_tally = route_tally(self.cfg, self.device)
+        self._forward = tallied(self.forward_fn, self.route_tally)
         self.params = params
         self.max_slots = max_slots
         self.page_size = page_size
@@ -773,7 +810,7 @@ class ContinuousBatchingEngine:
             pipeline_depth=self.pipeline_depth, kv_quant=self.kv_quant,
             prefill_chunk=self.prefill_chunk, prefix_cache=self._prefix_cache_enabled,
             draft_params=self.draft_params, draft_config=self.draft_cfg, spec_k=self.spec_k,
-            device=self.device,
+            forward_fn=self.forward_fn, device=self.device,
         )
 
     def release(self) -> None:
@@ -936,6 +973,8 @@ class ContinuousBatchingEngine:
                 self.spec_emitted_total / self.spec_verifies_total, 2)
             out["spec_verifies"] = self.spec_verifies_total
             out["spec_emitted"] = self.spec_emitted_total
+        if self.route_tally is not None:
+            out.update(tally_stats(self.route_tally))
         if self.ttft_samples:
             ttft = sorted(self.ttft_samples)
             out["ttft_p50_ms"] = round(ttft[len(ttft) // 2] * 1e3, 2)
@@ -1012,10 +1051,14 @@ class ContinuousBatchingEngine:
         positions = torch.arange(width, device=dev)[None, :].expand(b, width)
         # only the last prompt token's logits are sampled from
         last = self._to_device(lens.astype(np.int64) - 1)
+        # pad tails take no routed-expert capacity (a junk admission row's
+        # one pad token does, as in JAX); llama ignores the mask here
+        pad_mask = self._to_device(np.arange(width)[None, :] < lens[:, None])
         if prior_table is None:
             cache = init_cache(cfg, b, width, dev)
-            logits, cache = llama_forward(self.params, cfg, ids_t, positions=positions,
-                                          cache=cache, cache_index=0, logit_index=last)
+            logits, cache = self._forward(self.params, cfg, ids_t, positions=positions,
+                                          cache=cache, cache_index=0, pad_mask=pad_mask,
+                                          logit_index=last)
             k_new, v_new = cache["k"], cache["v"]
         else:
             prior_w = prior_table.shape[1] * self.page_size
@@ -1025,10 +1068,10 @@ class ContinuousBatchingEngine:
                 table = self._to_device(prior_table.astype(np.int64))
                 for name, pages in (("k", self.pool.k), ("v", self.pool.v)):
                     cache[name][:, :, :prior_w] = _gather_prior(pages, table, cfg.torch_dtype)
-            logits, cache = llama_forward(self.params, cfg, ids_t,
+            logits, cache = self._forward(self.params, cfg, ids_t,
                                           positions=positions + n_prior_t[:, None],
                                           cache=cache, cache_index=n_prior_t,
-                                          logit_index=last)
+                                          pad_mask=pad_mask, logit_index=last)
             # each row's new KV starts at its own offset in the primed cache
             window = n_prior_t[:, None] + torch.arange(width, device=dev)[None, :]
             rows = torch.arange(b, device=dev)[:, None]
@@ -1042,7 +1085,8 @@ class ContinuousBatchingEngine:
         """One decode sub-step over the pool → logits [B, V]."""
         return paged_decode_forward(self.params, self.cfg, tok, lens, page_table,
                                     self.pool.k, self.pool.v, attn_impl=self.attn_impl,
-                                    write_mask=write_mask, rope=self._rope)
+                                    write_mask=write_mask, rope=self._rope,
+                                    tally=self.route_tally)
 
     def _sub_step(self, all_greedy: bool, any_top_k: bool) -> None:
         """One decode sub-step of the slot batch on the static buffers: the
@@ -1300,8 +1344,8 @@ class ContinuousBatchingEngine:
             from sentio_tpu_torch.runtime.paged_spec import SpecTick
 
             self._spec = SpecTick(
-                self.cfg, self.params, self.draft_cfg, self.draft_params, self.spec_k,
-                self.max_slots, self.max_pages_per_seq * self.page_size,
+                self.cfg, self.params, self._forward, self.draft_cfg, self.draft_params,
+                self.spec_k, self.max_slots, self.max_pages_per_seq * self.page_size,
                 self.max_tick_steps + self.spec_k + 1, self.tokenizer.eos_id,
                 self.ignore_eos, self.device)
         return self._spec

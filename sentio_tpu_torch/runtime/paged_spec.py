@@ -10,7 +10,9 @@ One tick (:class:`SpecTick`):
 1. **densify** — each row's page table is gathered into a contiguous
    ``[L, S, W, Hkv, D]`` cache over the full window (an int8 pool is
    dequantized on the way in);
-2. **rounds** — draft(k) + verify(k+1) + accept rounds, the math of
+2. **rounds** — draft(k) + verify(k+1) + accept rounds (the verify
+   through the engine's family forward, rows done at the round's start
+   masked out of routing; the draft is a llama model), the math of
    :mod:`.speculative` (greedy rows: the longest agreeing prefix, the plain
    engine's tokens; sampled rows: rejection sampling), both rules selected
    per row by temperature, so mixed batches serve correctly. Per-row tick
@@ -75,10 +77,11 @@ class SpecTick:
     prompt: prefix pages are target-only). ``out_w`` is the widest tick's
     ``steps + k + 1``."""
 
-    def __init__(self, cfg: LlamaConfig, params: dict, dcfg: LlamaConfig, params_d: dict,
-                 k: int, max_slots: int, window: int, out_w: int, eos_id: int,
-                 ignore_eos: bool, device) -> None:
+    def __init__(self, cfg: LlamaConfig, params: dict, forward_fn, dcfg: LlamaConfig,
+                 params_d: dict, k: int, max_slots: int, window: int, out_w: int,
+                 eos_id: int, ignore_eos: bool, device) -> None:
         self.cfg, self.params, self.dcfg, self.params_d = cfg, params, dcfg, params_d
+        self.forward_fn = forward_fn
         self.k, self.eos_id, self.ignore_eos = k, eos_id, ignore_eos
         self.tcache = init_cache(cfg, max_slots, window, device)
         self.dcache = init_cache(dcfg, max_slots, window, device)
@@ -161,7 +164,8 @@ class SpecTick:
 
         drafts, qdists = draft_round(self.params_d, self.dcfg, self.dcache, st.tok, st.lens,
                                      k, scaled)
-        t_logits = verify_logits(self.params, self.cfg, self.tcache, st.tok, drafts, st.lens)
+        t_logits = verify_logits(self.params, self.cfg, self.tcache, st.tok, drafts, st.lens,
+                                 self.forward_fn, live=entry_live)
         n_accept, correction = greedy_accept(drafts, t_logits)
         if not all_greedy:
             tprobs = torch.softmax(t_logits / temps[:, :, None], dim=-1)

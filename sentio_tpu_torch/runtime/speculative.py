@@ -20,9 +20,13 @@ overwrites at the same offsets, so rollback copies nothing.
 :func:`spec_generate` runs JAX's fused program as an eager loop: both
 models prefill through the engine's ``attn_fn`` (the causal flash kernel
 on the card), then draft(k) + verify(k+1) + accept rounds until every row
-is done, the host reading the rows' ``done`` once a round. Randomness comes
-from an explicit ``torch.Generator``, so sampled paths agree with JAX in
-distribution only. The paged engine's spec tick (:mod:`.paged_spec`) runs
+is done, the host reading the rows' ``done`` once a round. Either model
+may be of either decoder family (each forward is the family's, as JAX's
+``target_fwd`` / ``draft_fwd``); rows done at a round's start are masked
+out of routed-expert capacity. A MoE target needs the no-drop capacity
+factor: the verify routes B·(k+1) tokens where plain decode routes B.
+Randomness comes from an explicit ``torch.Generator``, so sampled paths
+agree with JAX in distribution only. The paged engine's spec tick (:mod:`.paged_spec`) runs
 the same round over its slot batch.
 """
 
@@ -34,6 +38,7 @@ from typing import Optional, Sequence
 import torch
 
 from sentio_tpu_torch.models.llama import LlamaConfig, init_cache, llama_forward
+from sentio_tpu_torch.models.moe import MoeConfig, decoder_forward
 
 Tensor = torch.Tensor
 
@@ -83,18 +88,21 @@ def accept_and_correct(generator: Optional[torch.Generator], drafts: Tensor,
 
 
 def draft_round(params_d: dict, dcfg: LlamaConfig, dcache: dict, cur: Tensor, lens: Tensor,
-                k: int, scaled=None) -> tuple[Tensor, Optional[Tensor]]:
+                k: int, scaled=None, draft_fwd=llama_forward, live: Optional[Tensor] = None
+                ) -> tuple[Tensor, Optional[Tensor]]:
     """The draft's k+1 autoregressive T=1 steps from ``cur`` at ``lens``
     (the last step only for its k/v write at ``lens + k``, which a fully
     accepted round advances past: without it the draft cache keeps an
     unwritten, attended slot). ``scaled`` (None = greedy) maps a step's
     logits [B, V] to ``(next tokens, the distribution they were drawn
-    from)``. → (drafts [B, k], qdists [B, k, V] or None)."""
+    from)``; ``live`` [B] (None: every row) marks the rows that route.
+    → (drafts [B, k], qdists [B, k, V] or None)."""
     drafts, qdists = [], []
     tok, dlens = cur, lens
+    pad = None if live is None else live[:, None]
     for _ in range(k + 1):
-        logits, _ = llama_forward(params_d, dcfg, tok[:, None], positions=dlens[:, None],
-                                  cache=dcache, cache_index=dlens)
+        logits, _ = draft_fwd(params_d, dcfg, tok[:, None], positions=dlens[:, None],
+                              cache=dcache, cache_index=dlens, pad_mask=pad)
         last = logits[:, -1]
         if scaled is None:
             tok = last.argmax(dim=-1)
@@ -108,13 +116,16 @@ def draft_round(params_d: dict, dcfg: LlamaConfig, dcache: dict, cur: Tensor, le
 
 
 def verify_logits(params_t: dict, tcfg: LlamaConfig, tcache: dict, cur: Tensor, drafts: Tensor,
-                  lens: Tensor) -> Tensor:
+                  lens: Tensor, target_fwd=llama_forward, live: Optional[Tensor] = None
+                  ) -> Tensor:
     """The target's one T=k+1 forward over ``[cur, d1..dk]`` at ``lens``
-    (plain attention over the cache, as JAX's verify) → logits [B, k+1, V]."""
+    (plain attention over the cache, as JAX's verify), ``live`` [B] (None:
+    every row) the rows that route → logits [B, k+1, V]."""
     block = torch.cat([cur[:, None], drafts], dim=1)
     pos = lens.long()[:, None] + torch.arange(block.shape[1], device=block.device)[None, :]
-    logits, _ = llama_forward(params_t, tcfg, block, positions=pos, cache=tcache,
-                              cache_index=lens)
+    pad = None if live is None else live[:, None].expand(block.shape)
+    logits, _ = target_fwd(params_t, tcfg, block, positions=pos, cache=tcache,
+                           cache_index=lens, pad_mask=pad)
     return logits
 
 
@@ -148,20 +159,22 @@ def write_tokens(out: Tensor, toks: Tensor, offset: Tensor, n: Tensor) -> None:
 def spec_generate(params_t: dict, tcfg: LlamaConfig, params_d: dict, dcfg: LlamaConfig,
                   ids: Tensor, positions: Tensor, lens: Tensor, tcache: dict, dcache: dict,
                   steps: int, k: int, pad_mask: Tensor, generator: Optional[torch.Generator],
-                  temperature: float, eos_id: int, attn_fn=None) -> tuple[Tensor, Tensor, int]:
+                  temperature: float, eos_id: int, attn_fn=None, target_fwd=llama_forward,
+                  draft_fwd=llama_forward) -> tuple[Tensor, Tensor, int]:
     """Both prefills, the first token, then rounds until every row is done
     → (out [B, steps + k + 1] int64, emitted [B], rounds). ``steps`` bounds
     each row's emitted tokens (a round may overrun it by up to k); junk
-    bucket rows (no real cell in ``pad_mask``) start done."""
+    bucket rows (no real cell in ``pad_mask``) start done, and done rows
+    leave routing."""
     b = ids.shape[0]
     sampled = temperature > 0.0
     row_valid = pad_mask.any(dim=1)
     # prefill both models over the prompt through attn_fn: the engine's own
     # prefill numerics (kernel and plain attention can flip an argmax tie)
-    t_logits, _ = llama_forward(params_t, tcfg, ids, positions=positions, cache=tcache,
-                                cache_index=0, pad_mask=pad_mask, attn_fn=attn_fn)
-    llama_forward(params_d, dcfg, ids, positions=positions, cache=dcache, cache_index=0,
-                  pad_mask=pad_mask, attn_fn=attn_fn)
+    t_logits, _ = target_fwd(params_t, tcfg, ids, positions=positions, cache=tcache,
+                             cache_index=0, pad_mask=pad_mask, attn_fn=attn_fn)
+    draft_fwd(params_d, dcfg, ids, positions=positions, cache=dcache, cache_index=0,
+              pad_mask=pad_mask, attn_fn=attn_fn)
     rows = torch.arange(b, device=ids.device)
     last = t_logits[rows, lens.long() - 1]
     del t_logits
@@ -183,8 +196,9 @@ def spec_generate(params_t: dict, tcfg: LlamaConfig, params_d: dict, dcfg: Llama
     rounds = 0
     while not bool(done.all()):
         drafts, qdists = draft_round(params_d, dcfg, dcache, cur, lens, k,
-                                     scaled if sampled else None)
-        t_logits = verify_logits(params_t, tcfg, tcache, cur, drafts, lens)
+                                     scaled if sampled else None, draft_fwd, live=~done)
+        t_logits = verify_logits(params_t, tcfg, tcache, cur, drafts, lens, target_fwd,
+                                 live=~done)
         if sampled:
             tprobs = torch.softmax(t_logits / temperature, dim=-1)
             n_accept, correction = accept_and_correct(generator, drafts, qdists, tprobs)
@@ -220,15 +234,24 @@ class SpeculativeDecoder:
 
     def __init__(self, engine, draft_params: dict, draft_config: LlamaConfig, k: int = 4,
                  draft_fwd=None) -> None:
-        if draft_fwd is not None or not isinstance(draft_config, LlamaConfig):
-            raise NotImplementedError("SpeculativeDecoder: a MoE draft (draft_fwd) is not "
-                                      "ported")
         if draft_config.vocab_size != engine.model_config.vocab_size:
             raise SpeculativeError(
                 f"draft vocab {draft_config.vocab_size} != target "
                 f"{engine.model_config.vocab_size} — same tokenizer required")
         if k < 1:
             raise SpeculativeError(f"k must be >= 1, got {k}")
+        cfg = engine.model_config
+        if isinstance(cfg, MoeConfig):
+            # exactness needs routing independent of the batch: the verify
+            # routes B*(k+1) tokens where plain decode routes B, and cf >=
+            # E/k_experts drops no token (worst case all pick one expert)
+            no_drop_cf = cfg.n_experts / cfg.experts_per_token
+            if cfg.capacity_factor < no_drop_cf:
+                raise SpeculativeError(
+                    f"MoE target needs capacity_factor >= {no_drop_cf:.1f} "
+                    f"(n_experts/experts_per_token) for greedy-exact speculation; got "
+                    f"{cfg.capacity_factor}")
+        self.draft_fwd = draft_fwd or decoder_forward(draft_config)
         self.engine = engine
         self.draft_params = draft_params
         self.draft_config = draft_config
@@ -262,7 +285,8 @@ class SpeculativeDecoder:
             eng._tensor(ids), eng._tensor(positions), eng._tensor(lens), tcache, dcache,
             spec_steps, self.k, eng._tensor(pad_mask, torch.bool),
             eng._gen if temperature > 0.0 else None, float(temperature),
-            eng.tokenizer.eos_id, attn_fn=eng.attn_fn)
+            eng.tokenizer.eos_id, attn_fn=eng.attn_fn, target_fwd=eng.forward_fn,
+            draft_fwd=self.draft_fwd)
         out, emitted = out.cpu().numpy(), emitted.cpu().numpy()
         self.stats["rounds"] += rounds
         self.stats["tokens"] += int(emitted[:n].sum())

@@ -1,24 +1,27 @@
 """Carry weights into the port.
 
-* ``llama_from_jax`` / ``encoder_from_jax`` / ``cross_encoder_from_jax``
-  turn a JAX parameter tree (nested dicts of numpy arrays, dense kernels
-  stored ``[in, out]``) into this package's parameter dicts: dense
-  ``kernel`` [in, out] becomes ``weight`` [out, in] (the one transpose, made
-  here and nowhere else), embedding tables and biases keep their shape,
-  norm parameters stay float32.
+* ``llama_from_jax`` / ``moe_from_jax`` / ``encoder_from_jax`` /
+  ``cross_encoder_from_jax`` turn a JAX parameter tree (nested dicts of
+  numpy arrays, dense kernels stored ``[in, out]``) into this package's
+  parameter dicts: dense ``kernel`` [in, out] becomes ``weight`` [out, in]
+  (the one transpose, made here and nowhere else), embedding tables and
+  biases keep their shape, a MoE layer's expert stacks keep JAX's
+  ``[E, in, out]`` (``torch.bmm`` reads them as is), norm parameters stay
+  float32.
 * :func:`load_pytree` reads the JAX package's ``save_pytree`` directory
   format (``arrays.npz`` + ``manifest.json``, bf16 stored as a uint16 view)
   with numpy alone, so a checkpoint such as ``artifacts/encoder-ck`` loads
   without JAX; :func:`save_pytree` writes the same format, and
   :func:`encoder_to_jax` turns an encoder back into the JAX tree (the one
   transpose undone), so an encoder trained here
-  (``eval/train_encoder.py``) loads in the JAX package's ``load_model``.
+  (``eval/train_encoder.py``) loads in the JAX package's ``load_model``;
+  :func:`decoder_to_jax` does the same for a llama or MoE decoder.
 * :func:`load_model` resolves a checkpoint to (params, config) by the
   family its meta records, as ``sentio_tpu/runtime/weights.py::load_model``
-  does, with the same :class:`WeightsError` messages; :func:`load_llama`
-  is the generator's (``LLM_CHECKPOINT``). A ``moe`` checkpoint and every
-  tokenizer path raise ``NotImplementedError``: MoE serving is not ported,
-  and the JAX package's tokenizer for a path needs ``transformers``.
+  does, with the same :class:`WeightsError` messages; :func:`load_generator`
+  is the generator's (``LLM_CHECKPOINT``: a ``llama`` or ``moe``
+  checkpoint). Every tokenizer path raises ``NotImplementedError``: the
+  JAX package's tokenizer for a path needs ``transformers``.
 """
 
 from __future__ import annotations
@@ -36,10 +39,13 @@ import numpy as np
 import torch
 
 from sentio_tpu_torch.models.llama import LlamaConfig
+from sentio_tpu_torch.models.moe import MoeConfig
 from sentio_tpu_torch.models.transformer import EncoderConfig
 
 FORMAT_VERSION = 1
 _TUPLE_TAG = "__tuple__"
+# a MoE layer's expert stacks: [E, in, out] arrays, not dense-layer dicts
+_EXPERT_STACKS = ("w_gate", "w_up", "w_down")
 
 
 def _tensor(x: Any) -> torch.Tensor:
@@ -53,8 +59,8 @@ def _tensor(x: Any) -> torch.Tensor:
 
 def _carry(tree: dict, dtype: Optional[torch.dtype], device) -> dict:
     """Recursively convert one JAX subtree. ``dtype`` applies to matrices
-    and embedding tables (None keeps the stored dtype); norm parameters
-    and other vectors are float32."""
+    and embedding tables (None keeps the stored dtype), and expert stacks
+    keep their layout; norm parameters and other vectors are float32."""
     if "kernel" in tree:
         out = {"weight": _tensor(tree["kernel"]).t().contiguous()}
         if "bias" in tree:
@@ -69,6 +75,9 @@ def _carry(tree: dict, dtype: Optional[torch.dtype], device) -> dict:
     for key, value in tree.items():
         if isinstance(value, dict):
             out[key] = _carry(value, dtype, device)
+        elif key in _EXPERT_STACKS:
+            stack = _tensor(value)
+            out[key] = (stack.to(dtype) if dtype is not None else stack).to(device)
         else:
             out[key] = _tensor(value).float().to(device)
     return out
@@ -83,6 +92,13 @@ def _check_keys(tree: dict, required: tuple[str, ...], family: str) -> None:
 def llama_from_jax(tree: dict, dtype: Optional[torch.dtype] = None,
                    device="cpu") -> dict:
     _check_keys(tree, ("embed_tokens", "lm_head", "final_norm", "layers_0"), "llama")
+    return _carry(tree, dtype, device)
+
+
+def moe_from_jax(tree: dict, dtype: Optional[torch.dtype] = None,
+                 device="cpu") -> dict:
+    _check_keys(tree, ("embed_tokens", "lm_head", "final_norm", "layers_0"), "moe")
+    _check_keys(tree["layers_0"], ("moe",), "moe")
     return _carry(tree, dtype, device)
 
 
@@ -109,25 +125,33 @@ def _to_numpy(x: torch.Tensor) -> np.ndarray:
     return x.numpy()
 
 
+def _to_jax(tree: dict) -> dict:
+    """``weight`` [out, in] back to ``kernel`` [in, out]; every other leaf
+    (expert stacks included) as it is, detached on the CPU."""
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out[key] = _to_jax(value)
+        elif key == "weight":
+            out["kernel"] = value.detach().cpu().t()
+        else:
+            out[key] = value.detach().cpu()
+    return out
+
+
 def encoder_to_jax(params: dict) -> dict:
-    """The inverse of :func:`encoder_from_jax`: ``weight`` [out, in] back to
-    ``kernel`` [in, out] — the JAX parameter tree, with detached tensors in
-    their dtypes as leaves (:func:`save_pytree` writes it)."""
+    """The inverse of :func:`encoder_from_jax`: the JAX parameter tree, with
+    detached tensors in their dtypes as leaves (:func:`save_pytree` writes
+    it)."""
     _check_keys(params, ("embed_tokens", "embed_positions", "embed_norm", "layers_0"),
                 "encoder")
+    return _to_jax(params)
 
-    def back(tree: dict) -> dict:
-        out = {}
-        for key, value in tree.items():
-            if isinstance(value, dict):
-                out[key] = back(value)
-            elif key == "weight":
-                out["kernel"] = value.detach().cpu().t()
-            else:
-                out[key] = value.detach().cpu()
-        return out
 
-    return back(params)
+def decoder_to_jax(params: dict) -> dict:
+    """The inverse of :func:`llama_from_jax` and :func:`moe_from_jax`."""
+    _check_keys(params, ("embed_tokens", "lm_head", "final_norm", "layers_0"), "decoder")
+    return _to_jax(params)
 
 
 # ------------------------------------------------------------ checkpoints
@@ -249,6 +273,7 @@ class WeightsError(Exception):
 # family → (config class, parameter-tree converter)
 _FAMILIES = {
     "llama": (LlamaConfig, llama_from_jax),
+    "moe": (MoeConfig, moe_from_jax),
     "encoder": (EncoderConfig, encoder_from_jax),
     "cross-encoder": (EncoderConfig, cross_encoder_from_jax),
 }
@@ -263,12 +288,11 @@ def refuse_tokenizer(setting: str, path: str) -> None:
                                   "tokenizer are not ported")
 
 
-def load_model(path, expect_family: Optional[str] = None, setting: str = "checkpoint",
+def load_model(path, expect_family: Optional[str] = None,
                dtype: Optional[torch.dtype] = None, device="cpu") -> tuple[dict, Any]:
     """A ``save_pytree`` checkpoint → (params, config): the meta's family
     picks the config class, rebuilt from the meta's recorded config, and the
-    converter. ``setting`` names the setting in the ``NotImplementedError``
-    a ``moe`` checkpoint raises."""
+    converter."""
     try:
         tree, meta = load_pytree(path)
     except (OSError, ValueError, KeyError) as exc:
@@ -281,9 +305,6 @@ def load_model(path, expect_family: Optional[str] = None, setting: str = "checkp
     if not cfg_dict:
         raise WeightsError(f"checkpoint {str(path)!r} has no config in meta")
     lookup = family or expect_family
-    if lookup == "moe":
-        raise NotImplementedError(f"{setting}={str(path)!r} holds a 'moe' model: MoE "
-                                  "serving is not ported")
     if lookup not in _FAMILIES:
         raise WeightsError(f"unknown model family {lookup!r} in {str(path)!r}")
     cfg_cls, convert = _FAMILIES[lookup]
@@ -294,12 +315,14 @@ def load_model(path, expect_family: Optional[str] = None, setting: str = "checkp
     return convert(tree, dtype, device), cfg_cls(**kwargs)
 
 
-def load_llama(path, tokenizer_path: str = "", device="cpu") -> tuple[dict, LlamaConfig]:
-    """``LLM_CHECKPOINT`` → (params, LlamaConfig), checked as the JAX
+def load_generator(path, tokenizer_path: str = "", device="cpu"
+                   ) -> tuple[dict, LlamaConfig]:
+    """``LLM_CHECKPOINT`` → (params, config) of either decoder family (a
+    :class:`MoeConfig` for a ``moe`` checkpoint), checked as the JAX
     generator engine checks it: a checkpoint of another family is a
     :class:`WeightsError`."""
     refuse_tokenizer("LLM_TOKENIZER", tokenizer_path)
-    params, cfg = load_model(path, setting="LLM_CHECKPOINT", device=device)
+    params, cfg = load_model(path, device=device)
     if not isinstance(cfg, LlamaConfig):
         raise WeightsError(f"checkpoint {str(path)!r} holds a {type(cfg).__name__} model "
                            "— the generator engine serves decoder families (llama, moe)")
@@ -313,7 +336,6 @@ def load_draft(path, device="cpu") -> tuple[dict, LlamaConfig]:
     is a :class:`WeightsError` that names the setting before the JAX
     message."""
     try:
-        return load_model(path, expect_family="llama", setting="LLM_DRAFT_CHECKPOINT",
-                          device=device)
+        return load_model(path, expect_family="llama", device=device)
     except WeightsError as exc:
         raise WeightsError(f"LLM_DRAFT_CHECKPOINT: {exc}") from exc

@@ -72,6 +72,7 @@ from dataclasses import dataclass, field
 from typing import Any, Iterator, Optional
 
 from sentio_tpu_torch.infra import faults
+from sentio_tpu_torch.models.moe import decoder_config, family
 from sentio_tpu_torch.infra.exceptions import (
     DeadlineExceededError,
     ReplicaUnavailable,
@@ -187,33 +188,34 @@ def default_service_factory(
     """Build the worker's engine and service on ``device`` (the card by
     default). The weights are, in order: ``params`` (the router's tensors,
     shared through the spawn arguments), a ``checkpoint_path`` loaded here,
-    or random ones from ``model_config`` drawn as ``build_pipeline`` draws
-    them (``init_llama`` on a generator seeded ``rng_seed + 3`` on the
-    device), so a worker started on its own from the same seed holds the
-    same weights. The draft likewise: ``draft_params`` + ``draft_config``,
-    or ``draft_checkpoint_path``. A ``moe`` family and a tokenizer path
-    raise ``NotImplementedError``, as the port's loaders do."""
+    or random ones from ``model_config`` of ``model_family`` (``llama`` or
+    ``moe``) drawn as ``build_pipeline`` draws them (the family's init on a
+    generator seeded ``rng_seed + 3`` on the device), so a worker started
+    on its own from the same seed holds the same weights. A checkpoint must
+    hold ``model_family`` (JAX's ``expect_family``). The draft likewise:
+    ``draft_params`` + ``draft_config``, or ``draft_checkpoint_path`` (a
+    llama model). A tokenizer path raises ``NotImplementedError``, as the
+    port's loaders do."""
     import torch
 
     from sentio_tpu_torch import resolve_device
-    from sentio_tpu_torch.models.llama import LlamaConfig, init_llama
+    from sentio_tpu_torch.models.llama import LlamaConfig
+    from sentio_tpu_torch.models.moe import init_decoder
     from sentio_tpu_torch.runtime.paged import ContinuousBatchingEngine
     from sentio_tpu_torch.runtime.service import PagedGenerationService
-    from sentio_tpu_torch.runtime.weights import load_draft, load_llama, refuse_tokenizer
+    from sentio_tpu_torch.runtime.weights import load_draft, load_model, refuse_tokenizer
 
-    if model_family == "moe":
-        raise NotImplementedError("model_family='moe': MoE serving is not ported")
     refuse_tokenizer("LLM_TOKENIZER", tokenizer_path)
     dev = resolve_device(device)
-    cfg = LlamaConfig(**model_config) if model_config is not None else None
+    cfg = decoder_config(model_family, model_config) if model_config is not None else None
     if params is None:
         if checkpoint_path:
-            params, cfg = load_llama(checkpoint_path, device=dev)
+            params, cfg = load_model(checkpoint_path, expect_family=model_family, device=dev)
         else:
             cfg = cfg or LlamaConfig.llama3_8b()
             gen = torch.Generator(device=dev)
             gen.manual_seed(rng_seed + 3)
-            params = init_llama(cfg, gen, dev)
+            params = init_decoder(cfg, gen, dev)
     engine_kwargs = dict(engine_kwargs or {})
     if draft_params is not None:
         engine_kwargs.update(draft_params=draft_params,
@@ -522,7 +524,7 @@ class _WorkerServer:
             "retry_budget": self.svc.retry_budget,
             "tick_stall_budget_s": self.svc.tick_stall_budget_s,
             "warmup_budget_s": self.svc.warmup_budget_s,
-            "model_config": dataclasses.asdict(eng.cfg),
+            "model_config": dataclasses.asdict(eng.cfg), "model_family": family(eng.cfg),
             "device": str(eng.device), "worker": worker_report(self.svc),
         })
         threading.Thread(target=self._status_loop, name="worker-status", daemon=True).start()
@@ -775,13 +777,11 @@ class _EngineFacade:
     probe, the tokenizer, the geometry and the model config (``/info``)."""
 
     def __init__(self, owner: "ProcessReplica", tokenizer, ready: dict) -> None:
-        from sentio_tpu_torch.models.llama import LlamaConfig
-
         self._owner = owner
         self.tokenizer = tokenizer
         self.page_size = ready["page_size"]
         self.max_slots = ready["max_slots"]
-        self.cfg = LlamaConfig(**ready["model_config"])
+        self.cfg = decoder_config(ready["model_family"], ready["model_config"])
 
     def peek_prefix(self, toks) -> int:
         return self._owner._peek_prefix(toks)

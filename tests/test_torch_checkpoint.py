@@ -5,9 +5,11 @@ Checkpoints are written to a temp dir by the JAX package's ``save_pytree``
 from weights its init functions make (float32 tiny models), with the meta
 ``cli convert`` writes. Loaded by each package, they give the same greedy
 tokens (exactly) and the same rerank scores (atol 1e-4, float32, as
-tests/test_torch_pipeline.py holds them). A checkpoint of the wrong family
-raises the JAX ``WeightsError`` message; a ``moe`` checkpoint and any
-tokenizer path raise ``NotImplementedError`` naming the setting."""
+tests/test_torch_pipeline.py holds them). A ``moe`` checkpoint serves on
+both engines with JAX's greedy tokens. A checkpoint of the wrong family
+raises the JAX ``WeightsError`` message (a ``moe`` draft for the paged
+engine names the setting first); any tokenizer path raises
+``NotImplementedError`` naming the setting."""
 
 import dataclasses
 
@@ -17,6 +19,7 @@ import pytest
 
 from sentio_tpu.config import GeneratorConfig as JGeneratorConfig
 from sentio_tpu.config import RerankConfig as JRerankConfig
+from sentio_tpu.models import moe as jmoe
 from sentio_tpu.models.cross_encoder import init_cross_encoder
 from sentio_tpu.models.document import Document as JDocument
 from sentio_tpu.models.llama import LlamaConfig as JLlamaConfig
@@ -26,6 +29,7 @@ from sentio_tpu.ops.reranker import CrossEncoderReranker as JReranker
 from sentio_tpu.runtime.checkpoint import save_pytree
 from sentio_tpu.runtime.engine import GeneratorEngine as JEngine
 from sentio_tpu.runtime.weights import WeightsError as JWeightsError
+from sentio_tpu.runtime.weights import load_model as jload_model
 from sentio_tpu_torch.config import (
     EmbedderConfig,
     GeneratorConfig,
@@ -33,6 +37,7 @@ from sentio_tpu_torch.config import (
     Settings,
 )
 from sentio_tpu_torch.models.document import Document
+from sentio_tpu_torch.models.moe import MoeConfig
 from sentio_tpu_torch.ops.embedder import TorchEmbedder
 from sentio_tpu_torch.ops.reranker import CrossEncoderReranker
 from sentio_tpu_torch.pipeline import build_pipeline
@@ -52,8 +57,10 @@ def checkpoints(tmp_path_factory):
     ce = jax.tree.map(np.asarray, init_cross_encoder(jax.random.PRNGKey(32), ecfg))
     save_pytree(root / "llama", llama, meta={"family": "llama", "config": lcfg.__dict__})
     save_pytree(root / "ce", ce, meta={"family": "cross-encoder", "config": ecfg.__dict__})
-    save_pytree(root / "moe", {"w": np.zeros(2, np.float32)},
-                meta={"family": "moe", "config": {"dim": 8}})
+    # no-drop capacity (tiny: 4 experts, top-2), so both engines agree
+    mcfg = dataclasses.replace(jmoe.MoeConfig.tiny(), dtype="float32", capacity_factor=2.0)
+    moe = jax.tree.map(np.asarray, jmoe.init_moe(jax.random.PRNGKey(33), mcfg))
+    save_pytree(root / "moe", moe, meta={"family": "moe", "config": mcfg.__dict__})
     return {name: str(root / name) for name in ("llama", "ce", "moe")}
 
 
@@ -118,13 +125,41 @@ def test_family_mismatch_raises_the_jax_error(checkpoints):
 
 
 def test_moe_checkpoint_raises_naming_the_setting(checkpoints):
-    with pytest.raises(NotImplementedError, match="LLM_CHECKPOINT"):
-        GeneratorEngine(config=GeneratorConfig(checkpoint_path=checkpoints["moe"], **GEN),
-                        device="cpu")
+    """A ``moe`` checkpoint is refused where JAX refuses it: as the paged
+    engine's draft (``expect_family="llama"``), with the setting's name
+    before JAX's message."""
+    with pytest.raises(JWeightsError) as want:
+        jload_model(checkpoints["moe"], expect_family="llama")
     settings = Settings(embedder=EmbedderConfig(model_preset="tiny"),
-                        generator=GeneratorConfig(checkpoint_path=checkpoints["moe"], **GEN))
-    with pytest.raises(NotImplementedError, match="LLM_CHECKPOINT"):
+                        generator=GeneratorConfig(draft_checkpoint_path=checkpoints["moe"],
+                                                  **GEN))
+    with pytest.raises(WeightsError) as got:
         build_pipeline(settings, device="cpu")
+    assert str(got.value) == f"LLM_DRAFT_CHECKPOINT: {want.value}"
+
+
+def test_moe_checkpoint_serves_jax_tokens(checkpoints):
+    """LLM_CHECKPOINT holding a ``moe`` model: the family comes from the
+    meta, and both engines give JAX's greedy tokens."""
+    path = checkpoints["moe"]
+    ref = JEngine(config=JGeneratorConfig(checkpoint_path=path, **GEN))
+    port = GeneratorEngine(config=GeneratorConfig(checkpoint_path=path, **GEN), device="cpu")
+    assert isinstance(port.model_config, MoeConfig) and port.model_config.n_experts == 4
+    want = ref.generate(PROMPTS, max_new_tokens=12, temperature=0.0)
+    assert [p.tokens for p in port.generate(PROMPTS, max_new_tokens=12, temperature=0.0)] == [
+        r.tokens for r in want]
+    for paged in (True, False):
+        settings = Settings(embedder=EmbedderConfig(model_preset="tiny"),
+                            generator=GeneratorConfig(checkpoint_path=path, kv_page_size=16,
+                                                      kv_max_pages_per_seq=8,
+                                                      use_paged_decode=paged, **GEN))
+        pipeline = build_pipeline(settings, device="cpu")
+        try:
+            got = [pipeline.generator.provider.chat(p, max_new_tokens=12, temperature=0.0)
+                   for p in PROMPTS]
+        finally:
+            pipeline.close()
+        assert got == [r.text for r in want]
 
 
 @pytest.mark.parametrize("setting", ["LLM_TOKENIZER", "RERANKER_TOKENIZER",

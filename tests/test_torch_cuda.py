@@ -385,6 +385,72 @@ def test_graph_ticks_match_eager_ticks(dev, kv_quant, depth):
 
 
 @pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_moe_graph_ticks_match_eager_ticks(dev, kv_quant):
+    """The MoE tick on the card (SMALL's attention, 8 experts, top-2, the
+    no-drop cf 4): graph-replayed sub-steps give the eager sub-steps'
+    greedy tokens and launch the pool's paged kernel once per layer per
+    sub-step; the engine's routing tally counts every routed choice and no
+    drop."""
+    from sentio_tpu_torch.models.moe import MoeConfig
+
+    cfg = MoeConfig(**{**SMALL.__dict__, "n_experts": 8, "experts_per_token": 2,
+                       "capacity_factor": 4.0})
+    kw = dict(max_slots=4, page_size=16, max_pages_per_seq=8, steps_per_tick=8,
+              kv_quant=kv_quant)
+    graph = ContinuousBatchingEngine(model_config=cfg, device=dev, **kw)
+    eager = ContinuousBatchingEngine(model_config=cfg, params=graph.params, device=dev, **kw)
+    eager.cuda_graphs = False
+    kernel = PAGED_QUANT_KERNEL if kv_quant == "int8" else PAGED_KERNEL
+    kernel.launches = 0
+    got = graph.run_all(PROMPTS, 20)
+    assert kernel.launches == cfg.n_layers * graph.total_sub_steps
+    want = eager.run_all(PROMPTS, 20)
+    assert [r.tokens for r in got] == [r.tokens for r in want]
+    assert graph.graph_replays == graph.total_sub_steps - 1
+    torch.cuda.synchronize()
+    stats = graph.stats()
+    assert stats["moe_dropped"] == 0 and sum(stats["moe_routed"]) > 0
+
+
+@pytest.mark.parametrize("path", ["decode", "spec"])
+def test_moe_capture_past_the_grouped_size(dev, path):
+    """A captured MoE decode sub-step (264 slots) or spec round (80 slots,
+    k = 3: 320 verified tokens) routes more tokens than
+    CAPACITY_DISPATCH_ROWS. Under capture it takes the capacity buffers
+    (the grouped rows read counts on the host, which capture forbids) and
+    gives the greedy tokens of the same ticks run eagerly, where those
+    calls take the grouped rows. Float32 with plain attention, so that the
+    two routes' rounding cannot flip a token."""
+    import dataclasses
+
+    from sentio_tpu_torch.models import moe
+    from sentio_tpu_torch.runtime.paged import _paged_attn_xla
+
+    cfg = moe.MoeConfig(**{**SMALL.__dict__, "n_experts": 8, "experts_per_token": 2,
+                           "capacity_factor": 4.0, "dtype": "float32"})
+    if path == "decode":
+        kw, rows = dict(max_slots=264), 264
+    else:
+        draft = dataclasses.replace(DRAFT, dtype="float32")
+        kw = dict(max_slots=80, draft_config=draft, spec_k=3, draft_params=moe.init_decoder(
+            draft, torch.Generator(device=dev).manual_seed(9), dev))
+        rows = 80 * 4
+    assert rows > moe.CAPACITY_DISPATCH_ROWS
+    kw.update(page_size=16, max_pages_per_seq=8, steps_per_tick=8, ignore_eos=True)
+    graph = ContinuousBatchingEngine(model_config=cfg, device=dev, **kw)
+    eager = ContinuousBatchingEngine(model_config=cfg, params=graph.params, device=dev, **kw)
+    eager.cuda_graphs = False
+    for engine in (graph, eager):
+        engine.attn_impl = _paged_attn_xla
+    got, want = graph.run_all(PROMPTS, 16), eager.run_all(PROMPTS, 16)
+    assert [r.tokens for r in got] == [r.tokens for r in want]
+    assert graph.graph_captures == 1 and graph.graph_replays > 0
+    assert eager.graph_captures == 0
+    stats = graph.stats()
+    assert stats["moe_dropped"] == 0 and sum(stats["moe_routed"]) > 0
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
 def test_launch_counts_through_replays(dev, kv_quant):
     """The paged kernel of the pool's type is counted once per layer per
     sub-step, replays and the warmup included (a capture itself launches

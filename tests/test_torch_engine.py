@@ -117,7 +117,8 @@ def test_device_stats_and_refusals(engines):
     assert stats["platform"] == "cpu" and stats["model"]["layers"] == 2
     with pytest.raises(NotImplementedError):
         GeneratorEngine(config=GeneratorConfig(**GEN), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
+    # a custom model family needs its params passed in (JAX's ValueError)
+    with pytest.raises(ValueError, match="overrides the model family"):
         GeneratorEngine(config=GeneratorConfig(**GEN), forward_fn=lambda *a: a, device="cpu")
 
 

@@ -228,8 +228,37 @@ def test_validation_raises_the_jax_error(stack, case):
 
 
 def test_moe_draft_is_not_ported(stack):
-    """A draft forward of another family (JAX's MoE draft) raises,
-    naming what is not ported."""
-    port = stack[1]
-    with pytest.raises(NotImplementedError, match="MoE"):
-        SpeculativeDecoder(port, port.params, port.model_config, draft_fwd=lambda *a: None)
+    """A MoE draft is refused where JAX refuses it: the paged engine's spec
+    tick drafts with a llama model (JAX's container loads its draft with
+    ``expect_family="llama"``)."""
+    from sentio_tpu_torch.models.moe import MoeConfig
+    from sentio_tpu_torch.runtime.paged import ContinuousBatchingEngine
+
+    cfg = MoeConfig.tiny()
+    with pytest.raises(ValueError, match="must be a llama model"):
+        ContinuousBatchingEngine(model_config=LlamaConfig.tiny(), draft_params={},
+                                 draft_config=cfg, device="cpu")
+
+
+def test_moe_draft_is_exact(stack):
+    """A MoE draft (``draft_fwd`` picked by its config, as JAX's) on the
+    contiguous decoder: greedy tokens equal the plain engine's and JAX's
+    decoder's on the same draft, with the same stats."""
+    from sentio_tpu.models import moe as jmoe
+    from sentio_tpu_torch.models.moe import MoeConfig, moe_serving_forward
+    from sentio_tpu_torch.runtime.weights import moe_from_jax
+
+    ref, port = stack[:2]
+    jdcfg = _f32(dataclasses.replace(jmoe.MoeConfig.tiny(), n_layers=1))
+    dtree = jax.tree.map(np.asarray, jmoe.init_moe(jax.random.PRNGKey(5), jdcfg))
+    dec = SpeculativeDecoder(port, moe_from_jax(dtree), MoeConfig(**dataclasses.asdict(jdcfg)),
+                             k=3)
+    assert dec.draft_fwd is moe_serving_forward
+    jdec = JDecoder(ref, dtree, jdcfg, k=3)
+    prompts = ["speculate on this", "a routed draft"]
+    got = dec.generate(prompts, max_new_tokens=10, temperature=0.0)
+    assert [r.tokens for r in got] == [r.tokens for r in port.generate(
+        prompts, max_new_tokens=10, temperature=0.0)]
+    assert [r.tokens for r in got] == [r.tokens for r in jdec.generate(
+        prompts, max_new_tokens=10, temperature=0.0)]
+    assert dec.stats == jdec.stats
