@@ -76,11 +76,14 @@ line each:
     a near-tied greedy token of a random-weight model, and the point here
     is the admission, not the kernels.
 
-13. slice_spec — speculative decoding at full width and depth: a pipeline
+13. slice_spec — speculative decoding at full width, the target cut to
+    16 of Llama-3-8B's 32 layers (``SPEC_LAYERS``, to keep the run inside
+    its time limit since serve_settings): a pipeline
     under the default settings (hybrid rrf, bf16 pool, prefix cache, depth
     2) with bench.py phase E's draft (dim 2048, 4 layers, 16 / 4 heads, MLP
     7,168, random from the seed) passed to ``build_pipeline``, k 4, on the
-    slices' Llama-3-8B tensors (the earlier pipelines' pools freed first).
+    slices' Llama-3-8B tensors (views of the first 16 layers; the earlier
+    pipelines' pools freed first).
     Warmup captures both spec round variants. 3 chats in a counted window
     (generate at 0.3, the rejection rule; verify at 0, the greedy rule),
     then 4 at once through the service (``slice_spec_service``) and one
@@ -268,8 +271,37 @@ IPC handles on them).
     ``python -m sentio_tpu_torch chat`` under LLM_CHECKPOINT in a process
     of its own.
 
-``--only-new`` runs the build, the kernel checks and phases 32-34 only (the
-encoders random from the seed) and ends without the result lines.
+35. serve_settings (after serve_http) — the last settings a one-card
+    deployment can set, all at once, behind ``create_server`` on 127.0.0.1
+    at full width on the slices' weights: AUTH_ENABLED=1 with two users,
+    CACHE_BACKEND=multi_tier against a fake Redis on loopback, USE_SCORERS=1,
+    WEB_CACHE_PATH (64 chunks in words the corpus never uses, embedded with
+    the server's weights, saved by the port and loaded by the server),
+    INDEX_BACKEND=qdrant against a fake Qdrant on loopback (standard
+    library and numpy) holding the 2,048 ingested chunks, and
+    METRICS_ENABLED=0. Gates: a chat with no token or a bad one is JAX's
+    401 and launches nothing; /, /health and /metrics answer without one;
+    each user's chats (distinct questions, sent with a spoofed X-Tenant)
+    are answered and charged to ``user:<name>`` in the tenant ledger; in
+    the counted window the bf16 paged kernel ran once per layer per
+    sub-step and the flash kernel as often as the embedder's and the
+    cross-encoder's forwards predict (one layer each a forward; the last
+    chat runs with the embedding cache emptied, so the scorers embed the
+    whole candidate pool at its chunk lengths), every count equal to the
+    card's, every chat's stages with the scorers' own ms; a repeated
+    question leaves its answer in the L1 query cache and its embeddings in
+    the embedder's cache (JAX's /chat reads the query cache only on its
+    degradation ladder, so a repeat runs the pipeline again); a value
+    written through the tiered set is in the fake Redis and, dropped from
+    L1, reads back and is promoted; the web cache's chunk is the first hit
+    for a question it answers; /metrics still counts the chats; then the
+    fake Qdrant stops: every chat is answered from BM25 and the cache leg,
+    its flight record naming the dropped dense leg, the store's breaker
+    opens after its 5th failure (the next chat fails fast) and
+    /health/detailed lists it open beside replica 0.
+
+``--only-new`` runs the build, the kernel checks and phase 35 only (on
+weights made afresh from the seed) and ends without the result lines.
 ``--rounds-only`` runs the build and replicas_1's warmup and rounds only,
 to compare two trees' round times in one call (copied into the other
 tree's root, it drives that tree's package), and ends the same way.
@@ -1811,6 +1843,496 @@ def serve_http_check(torch, dev, shared) -> dict:
     return result
 
 
+# ------------------------------------------------- the last serve settings
+
+SETTINGS_COLLECTION = "smoke"
+WEB_CACHE_CHUNKS = 64
+JWT_SECRET = "smoke-secret"
+SMOKE_USERS = (("ada", "Str0ngPassword!"), ("bob", "An0therPassword!"))
+
+
+class FakeRedis:
+    """A Redis server on loopback for the cache's L2: RESP2 arrays in,
+    PING / AUTH / SELECT / GET / SET (PX) / DEL, on threads, standard
+    library only; every command is recorded."""
+
+    def __init__(self) -> None:
+        import socketserver
+        import threading
+
+        self.store: dict = {}
+        self.commands: list = []
+        outer = self
+
+        class Handler(socketserver.StreamRequestHandler):
+            def handle(self) -> None:
+                while True:
+                    line = self.rfile.readline()
+                    if not line.startswith(b"*"):
+                        return
+                    args = []
+                    for _ in range(int(line[1:])):
+                        size = int(self.rfile.readline()[1:])
+                        args.append(self.rfile.read(size + 2)[:-2])
+                    outer.commands.append(args)
+                    self.wfile.write(outer.reply(args))
+
+        self.server = socketserver.ThreadingTCPServer(("127.0.0.1", 0), Handler)
+        self.server.daemon_threads = True
+        self.port = self.server.server_address[1]
+        self.thread = threading.Thread(target=self.server.serve_forever, name="fake-redis",
+                                       daemon=True)
+        self.thread.start()
+
+    def reply(self, args: list) -> bytes:
+        cmd = args[0].upper()
+        if cmd in (b"PING",):
+            return b"+PONG\r\n"
+        if cmd in (b"AUTH", b"SELECT"):
+            return b"+OK\r\n"
+        if cmd == b"SET":
+            self.store[args[1]] = args[2]
+            return b"+OK\r\n"
+        if cmd == b"GET":
+            val = self.store.get(args[1])
+            return b"$-1\r\n" if val is None else b"$%d\r\n%s\r\n" % (len(val), val)
+        if cmd == b"DEL":
+            return b":%d\r\n" % int(self.store.pop(args[1], None) is not None)
+        return b"-ERR unknown command\r\n"
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=10)
+
+
+class FakeQdrant:
+    """Qdrant's REST API on loopback, as the store uses it: collections,
+    upsert, retrieve by id, count, delete, scroll, search and batch search,
+    with exact cosine scores over a numpy matrix; standard library and
+    numpy only. :meth:`stop` takes it down: the listener closes and every
+    open connection is dropped at its next request."""
+
+    def __init__(self) -> None:
+        import http.server
+        import threading
+
+        self.collections: dict = {}
+        self.down = False
+        self.requests = 0
+        outer = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, *args) -> None:
+                pass
+
+            def _serve(self) -> None:
+                if outer.down:
+                    self.close_connection = True
+                    return
+                n = int(self.headers.get("Content-Length") or 0)
+                body = json.loads(self.rfile.read(n)) if n else {}
+                outer.requests += 1
+                status, payload = outer.handle(self.command, self.path.split("?")[0], body)
+                data = json.dumps(payload).encode()
+                self.send_response(status)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            do_GET = do_POST = do_PUT = do_DELETE = _serve
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.server.daemon_threads = True
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+        self.thread = threading.Thread(target=self.server.serve_forever, name="fake-qdrant",
+                                       daemon=True)
+        self.thread.start()
+
+    @staticmethod
+    def ok(result):
+        return 200, {"status": "ok", "result": result}
+
+    def handle(self, method: str, path: str, body: dict):
+        import numpy as np
+
+        parts = [p for p in path.split("/") if p]
+        if parts == ["collections"]:
+            return self.ok({"collections": [{"name": n} for n in self.collections]})
+        name = parts[1]
+        if len(parts) == 2:
+            if method == "GET":
+                return (self.ok({"status": "green"}) if name in self.collections
+                        else (404, {"status": {"error": "not found"}}))
+            if method == "PUT":
+                self.collections[name] = {"points": {}, "matrix": None}
+                return self.ok(True)
+            if method == "DELETE":
+                self.collections.pop(name, None)
+                return self.ok(True)
+        col = self.collections.get(name)
+        if col is None:
+            return 404, {"status": {"error": "no collection"}}
+        op = parts[-1]
+        if op == "points" and method == "PUT":
+            for pt in body["points"]:
+                col["points"][pt["id"]] = pt
+            col["matrix"] = None
+            return self.ok({"status": "completed"})
+        if op == "points":
+            return self.ok([{"id": pid, "payload": None} for pid in body["ids"]
+                            if pid in col["points"]])
+        if op == "count":
+            return self.ok({"count": len(col["points"])})
+        if op == "delete":
+            for pid in body["points"]:
+                col["points"].pop(pid, None)
+            col["matrix"] = None
+            return self.ok({"status": "completed"})
+        if op == "scroll":
+            ids = sorted(col["points"])
+            start = ids.index(body["offset"]) if "offset" in body else 0
+            page = ids[start:start + body["limit"]]
+            nxt = ids[start + body["limit"]] if start + body["limit"] < len(ids) else None
+            return self.ok({"points": [{"id": pid, "payload": col["points"][pid]["payload"]}
+                                       for pid in page], "next_page_offset": nxt})
+        if col["matrix"] is None and col["points"]:
+            ids = sorted(col["points"])
+            m = np.asarray([col["points"][pid]["vector"] for pid in ids], np.float32)
+            col["matrix"] = (ids, m / np.maximum(np.linalg.norm(m, axis=1, keepdims=True),
+                                                 1e-9))
+
+        def search(query: dict) -> list:
+            if not col["points"]:
+                return []
+            ids, m = col["matrix"]
+            q = np.asarray(query["vector"], np.float32)
+            scores = m @ (q / max(float(np.linalg.norm(q)), 1e-9))
+            order = np.argsort(-scores, kind="stable")[:query["limit"]]
+            return [{"id": ids[i], "score": float(scores[i]),
+                     "payload": col["points"][ids[i]]["payload"]} for i in order]
+
+        if op == "search":
+            return self.ok(search(body))
+        if op == "batch":
+            return self.ok([search(s) for s in body["searches"]])
+        return 400, {"status": {"error": f"unhandled {path}"}}
+
+    def stop(self) -> None:
+        if self.down:
+            return
+        self.down = True
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=10)
+
+
+def settings_weights(torch, dev) -> dict:
+    """:func:`shared_weights`' dict made afresh from the seed, as
+    ``build_pipeline`` makes them (for ``--only-new``)."""
+    from sentio_tpu_torch.config import Settings
+    from sentio_tpu_torch.models.llama import LlamaConfig, init_llama
+    from sentio_tpu_torch.ops.reranker import CrossEncoderReranker
+    from sentio_tpu_torch.pipeline import make_embedder
+
+    settings = Settings()
+    embedder = make_embedder(settings, dev, SEED)
+    reranker = CrossEncoderReranker(settings.rerank, device=dev,
+                                    generator=torch.Generator(device=dev).manual_seed(SEED + 2))
+    cfg = LlamaConfig.llama3_8b()
+    return dict(llama_config=cfg,
+                llama_params=init_llama(cfg, torch.Generator(device=dev).manual_seed(SEED + 3),
+                                        dev),
+                embedder_config=embedder.model_config, embedder_params=embedder.params,
+                reranker_config=reranker.model_config, reranker_params=reranker.params)
+
+
+def web_cache_docs(words) -> list:
+    """The web cache's chunks: corpus-like text in words the corpus never
+    uses, so BM25 finds nothing for a question made of them."""
+    import numpy as np
+
+    from sentio_tpu_torch.models.document import Document
+
+    rng = np.random.default_rng(SEED + 11)
+    letters = ["xy", "bu", "gh", "fw", "jo", "ec", "wh", "yq", "ux", "bz"]
+    corpus_words = set(words)
+    fresh = sorted({"".join(rng.choice(letters, size=3)) for _ in range(400)} - corpus_words)
+    return [Document(text=" ".join(rng.choice(fresh, size=60)), id=f"web-{i:02d}",
+                     metadata={"source": "web-cache"}) for i in range(WEB_CACHE_CHUNKS)]
+
+
+def serve_settings_check(torch, dev, shared) -> dict:
+    """Every setting a one-card deployment can set that the port took last,
+    at once, behind ``create_server`` on 127.0.0.1 at full width on
+    ``shared``'s weights: AUTH_ENABLED=1 (two users), CACHE_BACKEND=
+    multi_tier (a fake Redis on loopback), USE_SCORERS=1, WEB_CACHE_PATH (64
+    chunks saved by the port, loaded by the server), INDEX_BACKEND=qdrant (a
+    fake Qdrant on loopback holding the 2,048 chunks) and METRICS_ENABLED=0.
+    See the module's docstring (phase 35) for the gates."""
+    import gc
+    import tempfile
+    import threading
+
+    from sentio_tpu_torch.config import (
+        AuthConfig,
+        CacheConfig,
+        GeneratorConfig,
+        ObservabilityConfig,
+        RetrievalConfig,
+        Settings,
+    )
+    from sentio_tpu_torch.infra.flight import get_flight_recorder
+    from sentio_tpu_torch.infra.resilience import FallbackResponseCache, LLMFallback
+    from sentio_tpu_torch.ops.dense_index import TorchDenseIndex
+    from sentio_tpu_torch.ops.embedder import TorchEmbedder
+    from sentio_tpu_torch.ops.vector_store import QdrantVectorStore
+    from sentio_tpu_torch.serve.app import create_server
+
+    phase = "serve_settings"
+    t_phase = time.perf_counter()
+    redis, qdrant = FakeRedis(), FakeQdrant()
+    tmp = tempfile.mkdtemp(prefix="smoke-settings-")
+    docs, words = corpus(N_CHUNKS)
+    web_docs = web_cache_docs(words)
+    # the web cache: embedded with the server's embedder weights, saved
+    # by the port, loaded by build_pipeline from WEB_CACHE_PATH
+    t0 = time.perf_counter()
+    saver = TorchEmbedder(Settings().embedder, params=shared["embedder_params"],
+                          model_config=shared["embedder_config"], device=dev)
+    web_index = TorchDenseIndex(saver.dimension, device=dev)
+    web_index.add(web_docs, saver.embed_many([d.text for d in web_docs]))
+    web_index.save(f"{tmp}/web_cache")
+    saver.close()
+    web_cache_s = time.perf_counter() - t0
+    settings = Settings(
+        retrieval=RetrievalConfig(use_scorers=True, web_cache_path=f"{tmp}/web_cache",
+                                  index_backend="qdrant", qdrant_url=qdrant.url,
+                                  collection_name=SETTINGS_COLLECTION),
+        generator=GeneratorConfig(max_new_tokens=MAX_TOKENS, verifier_max_tokens=MAX_TOKENS),
+        cache=CacheConfig(backend="multi_tier", redis_url=f"redis://127.0.0.1:{redis.port}/0"),
+        auth=AuthConfig(enabled=True, jwt_secret=JWT_SECRET),
+        observability=ObservabilityConfig(metrics_enabled=False))
+    pipeline, _docs, _words, warm = build_slice(torch, dev, phase, settings, shared,
+                                                ingest=False)
+    result: dict = {"web_cache_s": web_cache_s, "warmup_s": warm["seconds"]}
+    server = thread = None
+    try:
+        store, retriever = pipeline.index, pipeline.retriever
+        if not isinstance(store, QdrantVectorStore) or retriever.web_cache is None \
+                or [s.name for s in retriever.scorers] != ["keyword", "recency", "semantic",
+                                                            "mmr"] \
+                or pipeline.web_cache_index.size != WEB_CACHE_CHUNKS:
+            raise AssertionError(f"{phase}: the pipeline is not what the settings ask: "
+                                 f"{type(store).__name__}, {retriever}")
+        t0 = time.perf_counter()
+        pipeline.ingest(docs)
+        torch.cuda.synchronize()
+        result["ingest_s"] = time.perf_counter() - t0
+        points = len(qdrant.collections[SETTINGS_COLLECTION]["points"])
+        emit(f"{phase}_ingest", chunks=len(docs), seconds=result["ingest_s"],
+             qdrant_points=points, bm25_size=pipeline.bm25_index.size,
+             qdrant_requests=qdrant.requests, web_cache_s=web_cache_s)
+        if not points == pipeline.bm25_index.size == store.size == N_CHUNKS:
+            raise AssertionError(f"{phase}: {points} points in Qdrant, BM25 holds "
+                                 f"{pipeline.bm25_index.size}, of {N_CHUNKS} chunks")
+        server = create_server(settings, pipeline, host="127.0.0.1", port=0,
+                               fallback=(FallbackResponseCache(f"{tmp}/fallback"),
+                                         LLMFallback()))
+        thread = threading.Thread(target=server.serve_forever, name="smoke-settings",
+                                  daemon=True)
+        thread.start()
+        client = HttpClient(server.server_address[1])
+        auth = server.auth_manager
+        for name, password in SMOKE_USERS:
+            auth.create_user(name, password)
+
+        # ---- auth: no token is a 401 with no kernel launched; open paths
+        counters = wrappers()
+        before = {name: k.launches for name, k in counters.items()}
+        denied = client.json("POST", "/chat", {"question": "who may ask?"})
+        bad = client.json("POST", "/chat", {"question": "who may ask?"},
+                          {"Authorization": "Bearer not.a.token"})
+        leaked = {name: k.launches - before[name] for name, k in counters.items()}
+        open_paths = {path: client.request("GET", path)[0]
+                      for path in ("/", "/health", "/metrics")}
+        tokens = {}
+        for name, password in SMOKE_USERS:
+            status, _, body = client.json("POST", "/auth/token",
+                                          {"username": name, "password": password})
+            if status != 200:
+                raise AssertionError(f"{phase}: /auth/token for {name}: {status} {body}")
+            tokens[name] = {"Authorization": f"Bearer {body['access_token']}"}
+        wrong = client.json("POST", "/auth/token", {"username": "ada", "password": "nope"})
+        result["auth"] = {"no_token": [denied[0], denied[2]], "bad_token": [bad[0], bad[2]],
+                          "launches_without_token": leaked, "open_paths": open_paths,
+                          "wrong_password": wrong[0]}
+        emit(f"{phase}_auth", **result["auth"])
+        if denied[0] != 401 or denied[2] != {"error": "missing credentials"} \
+                or bad[0] != 401 or bad[2] != {"error": "invalid credentials"} \
+                or any(leaked.values()) or set(open_paths.values()) != {200} \
+                or wrong[0] != 401:
+            raise AssertionError(f"{phase}: auth: {result['auth']}")
+
+        # ---- chats: each user's, distinct questions, launches counted; one
+        # with the embedding cache emptied first
+        emb, ce = pipeline.embedder, pipeline.reranker
+        engine, service, rs = pipeline.generator.provider.engine, pipeline.service, \
+            pipeline.replica_set
+        questions = [f"What does the corpus say about {words[400 + 3 * i]} and "
+                     f"{words[401 + 3 * i]}?" for i in range(5)]
+        service.wait_idle()
+        ledger0 = rs.tenants.stats()["per_tenant"]
+        sub_steps0, stats0 = engine.total_sub_steps, engine.stats()
+        fwd0 = (emb.forwards, ce.forwards)
+        card0 = card_launches(torch)
+        for kernel in counters.values():
+            kernel.launches = 0
+        chats, cold = [], None
+        for i, question in enumerate(questions):
+            user = SMOKE_USERS[i % 2][0]
+            headers = {**tokens[user], "X-Tenant": "spoofed-tenant"}
+            if i == len(questions) - 1:
+                cleared = emb.cache.clear()
+                cold = {"entries_cleared": cleared, "forwards_before": emb.forwards}
+            t0 = time.perf_counter()
+            status, _, body = client.json("POST", "/chat", {"question": question}, headers)
+            seconds = time.perf_counter() - t0
+            check_http_chat(phase, i, status, body)
+            chats.append({"user": user, "seconds": seconds,
+                          "tenant": body["metadata"].get("tenant"),
+                          "stage_ms": body["metadata"]["node_timings_ms"]})
+        cold["forwards"] = emb.forwards - cold["forwards_before"]
+        service.wait_idle()
+        launches = {name: k.launches for name, k in counters.items()}
+        card = card_delta(torch, card0)
+        sub_steps = engine.total_sub_steps - sub_steps0
+        forwards = {"embedder": emb.forwards - fwd0[0], "cross_encoder": ce.forwards - fwd0[1]}
+        predicted_flash = (forwards["embedder"] * emb.model_config.n_layers
+                           + forwards["cross_encoder"] * ce.model_config.n_layers)
+        ledger = rs.tenants.stats()["per_tenant"]
+        admitted = {t: ledger.get(t, {}).get("admitted", 0)
+                    - ledger0.get(t, {}).get("admitted", 0) for t in ledger}
+        result["chats"] = {
+            "chats": chats, "launches": launches, "device_launches": card,
+            "decode_sub_steps": sub_steps, "forwards": forwards,
+            "predicted_flash": predicted_flash, "cold_chat": cold,
+            "tenants_admitted": admitted,
+            "graph_captures_delta": engine.stats()["graph_captures"]
+            - stats0["graph_captures"]}
+        emit(f"{phase}_chats", **result["chats"])
+        if launches["paged_attention"] != engine.cfg.n_layers * sub_steps or sub_steps <= 0 \
+                or launches["paged_attention_quant"]:
+            raise AssertionError(f"{phase}: decode launches are not one bf16 paged launch "
+                                 f"per layer per sub-step: {launches}, {sub_steps} sub-steps")
+        if launches["flash_attention"] != predicted_flash or predicted_flash <= 0:
+            raise AssertionError(f"{phase}: {launches['flash_attention']} flash launches, the "
+                                 f"embedder's and cross-encoder's forwards predict "
+                                 f"{predicted_flash}: {forwards}")
+        if cold["forwards"] < 1 or any("scorers" not in c["stage_ms"] for c in chats):
+            raise AssertionError(f"{phase}: the scorers did not run through the kernel: "
+                                 f"{cold}, {[c['stage_ms'] for c in chats]}")
+        check_card(phase, card, launches)
+        if result["chats"]["graph_captures_delta"]:
+            raise AssertionError(f"{phase}: a graph was captured after warmup")
+        want = {f"user:{name}" for name, _ in SMOKE_USERS}
+        if {c["tenant"] for c in chats} != want or set(t for t, n in admitted.items() if n) \
+                != want or "spoofed-tenant" in ledger:
+            raise AssertionError(f"{phase}: the tenant ledger is not keyed by the principal: "
+                                 f"{[c['tenant'] for c in chats]}, {admitted}")
+
+        # ---- the cache tiers: a repeated question; the tiered set and get
+        repeat0 = emb.get_stats()["cache"]["hits"]
+        status, _, again = client.json("POST", "/chat", {"question": questions[0]},
+                                       tokens["ada"])
+        check_http_chat(phase, len(questions), status, again)
+        cache = server.chat_handler.cache_manager
+        held = cache.get_query_response(questions[0])
+        key, value = "smoke:tiered", {"question": questions[0],
+                                      "answer_chars": len(again["answer"])}
+        cache.tiered_set(key, value)
+        in_redis = json.loads(redis.store.get(b"sentio:smoke:tiered", b"null"))
+        cache.l1.delete(key)
+        read_back = cache.tiered_get(key)
+        result["cache"] = {"l1_holds_the_answer": bool(held and held.get("answer")),
+                           "repeat_embed_cache_hits": emb.get_stats()["cache"]["hits"] - repeat0,
+                           "redis_value": in_redis, "tiered_get": read_back,
+                           "promoted_to_l1": cache.l1.get(key) == value,
+                           "redis_commands": sorted({c[0].decode() for c in redis.commands})}
+        emit(f"{phase}_cache", **result["cache"])
+        if not (result["cache"]["l1_holds_the_answer"] and in_redis == value
+                and read_back == value and result["cache"]["promoted_to_l1"]
+                and result["cache"]["repeat_embed_cache_hits"] > 0):
+            raise AssertionError(f"{phase}: the cache tiers: {result['cache']}")
+
+        # ---- the web cache's chunk first for a question it answers
+        question = web_docs[5].text
+        status, _, body = client.json("POST", "/chat", {"question": question}, tokens["bob"])
+        check_http_chat(phase, len(questions) + 1, status, body)
+        hits = retriever.retrieve(question, settings.retrieval.top_k)
+        result["web_cache"] = {"top_ids": [d.id for d in hits],
+                               "bm25_hits": len(pipeline.bm25_index.retrieve(question, 10))}
+        emit(f"{phase}_web_cache", **result["web_cache"])
+        if hits[0].id != web_docs[5].id:
+            raise AssertionError(f"{phase}: the web cache's chunk is not first: "
+                                 f"{result['web_cache']}")
+
+        # ---- /metrics with METRICS_ENABLED=0: the families are recorded
+        samples = parse_prometheus(client.request("GET", "/metrics")[2].decode())
+        chat_requests = sum(v for (name, labels), v in samples.items()
+                            if name == "sentio_requests_total" and ("endpoint", "/chat") in labels)
+        if chat_requests < len(questions) + 2:
+            raise AssertionError(f"{phase}: /metrics counts {chat_requests} /chat requests")
+
+        # ---- Qdrant goes down: its breaker opens, chats go on from BM25
+        qdrant.stop()
+        outage = []
+        for i in range(8):
+            query_id = f"settings-outage-{i}"
+            t0 = time.perf_counter()
+            status, _, body = client.json("POST", "/chat", {
+                "question": f"Where is {words[(300 + 7 * i) % len(words)]} mentioned?",
+                "thread_id": query_id},
+                tokens["ada"])
+            record = get_flight_recorder().get(query_id) or {}
+            outage.append({"status": status, "seconds": time.perf_counter() - t0,
+                           "legs_dropped": record.get("retrieval_legs_dropped"),
+                           "breaker": store.breaker.state.value,
+                           "sources": len(body.get("sources", []))})
+            check_http_chat(phase, 100 + i, status, body)
+            if outage[-1]["legs_dropped"] != ["dense"]:
+                raise AssertionError(f"{phase}: chat {i} in the outage: {outage[-1]}")
+            if i and outage[-2]["breaker"] == "open":
+                break  # the chat after the breaker opened
+        detailed = client.json("GET", "/health/detailed", headers=tokens["ada"])[2]
+        breakers = detailed["components"]["breakers"]
+        result["outage"] = {"chats": outage, "breakers": breakers,
+                            "dense_index": detailed["components"]["dense_index"]}
+        emit(f"{phase}_outage", **result["outage"])
+        name = f"qdrant:{SETTINGS_COLLECTION}"
+        if outage[-2]["breaker"] != "open" or breakers.get(name, {}).get("state") != "open" \
+                or "replica_0" not in breakers:
+            raise AssertionError(f"{phase}: the store's breaker: {result['outage']}")
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=10.0)
+        pipeline.close()
+        qdrant.stop()
+        redis.close()
+    del pipeline, store, retriever, engine, service, rs, emb, ce
+    gc.collect()
+    torch.cuda.empty_cache()
+    result["memory_allocated_after_close"] = torch.cuda.memory_allocated()
+    result["seconds"] = time.perf_counter() - t_phase
+    emit(phase, seconds=result["seconds"])
+    return result
+
+
 def chunked_slice_check(torch, pipeline, phase: str = "chunked_slice",
                         chunk: int = 512) -> dict:
     """One chunked admission on the slice's own engine (its pool, its
@@ -1954,6 +2476,9 @@ def profile_chat(torch, pipeline, question: str, phase: str = "profile") -> dict
 # ------------------------------------------------------------- speculation
 
 SPEC_K = 4
+# slice_spec's target depth: 16 of Llama-3-8B's 32 layers keeps the whole
+# run inside its time limit (at 32 the spec phases took ~160 s of ~1,151)
+SPEC_LAYERS = 16
 SPEC_EXACT_TOKENS = 64
 
 
@@ -1986,9 +2511,18 @@ def close_pipeline(torch, pipeline) -> int:
     return torch.cuda.memory_allocated()
 
 
+def cut_depth(weights: dict, n_layers: int) -> dict:
+    """``weights`` (a :func:`shared_weights` dict) with the target cut to its
+    first ``n_layers`` layers: views, no copy."""
+    cfg = dataclasses.replace(weights["llama_config"], n_layers=n_layers)
+    params = {k: v for k, v in weights["llama_params"].items()
+              if not k.startswith("layers_") or int(k.split("_")[1]) < n_layers}
+    return {**weights, "llama_config": cfg, "llama_params": params}
+
+
 def run_spec_slice(torch, dev, settings, weights: dict, draft: dict) -> dict:
     """slice_spec: the /chat pipeline of ``settings`` with a draft, at full
-    width and depth, on the slices' Llama-3-8B tensors: build, warm up (both
+    width, on the slices' Llama-3-8B tensors (``weights``): build, warm up (both
     spec round variants captured), ingest, then 3 chats in a counted window
     (each a generate at temperature 0.3, the rejection rule, and a verify at
     0, the greedy rule). Gates: no chat degraded, no paged kernel launched
@@ -2117,10 +2651,8 @@ def spec_int8_check(torch, dev, weights: dict, draft: dict, n_layers: int = 4) -
     from sentio_tpu_torch.runtime.paged import ContinuousBatchingEngine
 
     phase = "spec_int8"
-    cfg = dataclasses.replace(weights["llama_config"], n_layers=n_layers)
-    params = {k: v for k, v in weights["llama_params"].items()
-              if not k.startswith("layers_") or int(k.split("_")[1]) < n_layers}
-    cut = {**weights, "llama_config": cfg, "llama_params": params}
+    cut = cut_depth(weights, n_layers)
+    cfg, params = cut["llama_config"], cut["llama_params"]
     settings = Settings(generator=GeneratorConfig(kv_quant="int8", max_new_tokens=MAX_TOKENS,
                                                   verifier_max_tokens=MAX_TOKENS))
     pipeline, docs, words, _warm = build_slice(torch, dev, phase, settings, cut, **draft)
@@ -4896,7 +5428,7 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only-new", action="store_true",
-                        help="build, the kernel checks, then only the MoE phases; ends "
+                        help="build, the kernel checks, then only serve_settings; ends "
                              "without the result lines")
     parser.add_argument("--worker-rounds", action="store_true",
                         help="build, then the rounds of one and two replicas in thread and "
@@ -4965,6 +5497,9 @@ def main(argv=None) -> int:
     flash = flash_checks(torch, dev)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    if args.only_new:
+        serve_settings_check(torch, dev, settings_weights(torch, dev))
+        return 0
 
     # the MoE phases first: their 47 GB of weights cannot sit beside the
     # 8B's, and the 8B tensors stay referenced to the end (a SIGKILLed
@@ -4981,8 +5516,6 @@ def main(argv=None) -> int:
     if torch.cuda.memory_allocated() > 8 << 30:
         raise AssertionError("moe_phases: the MoE weights outlived their phases: "
                              f"{torch.cuda.memory_allocated()} bytes still allocated")
-    if args.only_new:
-        return 0
     sm, sm8, pm = moe["slice_moe"], moe["slice_moe_int8"], moe["profile_moe"]
 
     caps = dict(max_new_tokens=MAX_TOKENS, verifier_max_tokens=MAX_TOKENS)
@@ -5007,6 +5540,7 @@ def main(argv=None) -> int:
     profile8 = profile_chat(torch, sl8["pipeline"], sl["questions"][2], "profile_int8")
     service = service_check(torch, sl8["pipeline"], sl8["words"])
     http = serve_http_check(torch, dev, weights)
+    st = serve_settings_check(torch, dev, weights)["chats"]
     chunked_check(torch, dev, sl["generate_prompt"])
 
     # USE_PAGED_KV=0 with the default hybrid retrieval, on the same weights
@@ -5025,7 +5559,7 @@ def main(argv=None) -> int:
                                         dev)}
     ss = run_spec_slice(torch, dev, Settings(generator=GeneratorConfig(speculative_k=SPEC_K,
                                                                        **caps)),
-                        weights, draft)
+                        cut_depth(weights, SPEC_LAYERS), draft)
     spec_service = service_check(torch, ss["pipeline"], ss["words"], "slice_spec_service",
                                  n_chats=4)
     profile_spec = profile_chat(torch, ss["pipeline"], ss["questions"][2], "profile_spec")
@@ -5057,6 +5591,7 @@ def main(argv=None) -> int:
          "launches": sl["launches"]["paged_attention"],
          "launches_by_path": {"slice": sl["launches"]["paged_attention"],
                               "serve_http": http["chats"]["launches"]["paged_attention"],
+                              "serve_settings": st["launches"]["paged_attention"],
                               "slice_spec": ss["launches"]["paged_attention"],
                               "slice_spec_service": spec_service["launches"]["paged_attention"],
                               "profile_spec": profile_spec["launches_counted"][
@@ -5098,6 +5633,8 @@ def main(argv=None) -> int:
          "device_launches": family_launches(sl["device_launches"], "paged_attention"),
          "device_launches_serve_http": family_launches(http["chats"]["device_launches"],
                                                        "paged_attention"),
+         "device_launches_serve_settings": family_launches(st["device_launches"],
+                                                           "paged_attention"),
          "device_launches_profiled_chat": device_launches(profile, "paged_attention"),
          "device_launches_slice_moe": family_launches(sm["device_launches"],
                                                       "paged_attention"),
@@ -5138,6 +5675,7 @@ def main(argv=None) -> int:
                               "service": service["launches"]["flash_attention"],
                               "serve_http_ingest": http["ingest"]["launches"]["flash_attention"],
                               "serve_http": http["chats"]["launches"]["flash_attention"],
+                              "serve_settings": st["launches"]["flash_attention"],
                               "slice_spec": ss["launches"]["flash_attention"],
                               "slice_spec_service": spec_service["launches"]["flash_attention"],
                               "spec_int8": spec_int8["launches"]["flash_attention"],
@@ -5163,7 +5701,8 @@ def main(argv=None) -> int:
                              for path, x in (("slice", sl), ("slice_int8", sl8),
                                              ("slice_contig", sc), ("service", service),
                                              ("serve_http_ingest", http["ingest"]),
-                                             ("serve_http", http["chats"]), ("slice_spec", ss),
+                                             ("serve_http", http["chats"]),
+                                             ("serve_settings", st), ("slice_spec", ss),
                                              ("slice_spec_service", spec_service),
                                              ("spec_int8", spec_int8),
                                              ("spec_exact", spec_exact), ("verify_modes", vm),

@@ -5,13 +5,11 @@ Same dataclasses, fields, defaults and environment variable names as the
 JAX package's tree (chunking, retrieval, rerank, embedder, generator, the
 serve section's HTTP surface, the generation service's overload controls
 and the replica tier in its thread, process and socket modes, the cache
-section, and of auth the switch, observability, and of the mesh section
+section with its Redis tier, auth, observability, and of the mesh section
 its dp / tp / sp sizes); the autoscaler's tuning fields and the rest of
-auth and of the mesh are left out because nothing in this package reads
-them. Settings the port cannot honour (``AUTH_ENABLED=1``,
-``CACHE_BACKEND=multi_tier``, ``AUTOSCALE=1``, an ``INDEX_BACKEND`` other
-than ``tpu``, a mesh of more than one device) raise where they would be
-used.
+the mesh are left out because nothing in this package reads them.
+Settings the port cannot honour (``AUTOSCALE=1``, a mesh of more than one
+device) raise where they would be used.
 Plain dataclasses, no import-time work.
 """
 
@@ -92,10 +90,10 @@ class ChunkingConfig:
 class RetrievalConfig:
     """Retriever strategy + fusion knobs. This package implements the
     ``dense``, ``bm25`` and ``hybrid`` strategies with every fusion method
-    and BM25 backend; ``use_scorers`` and ``web_cache_path`` are not ported
-    (``build_pipeline`` raises when they are set), and the index backend is
-    the in-process index. The other fields are kept so a settings tree reads
-    the same in both packages."""
+    and BM25 backend, the post-fusion scorers (``use_scorers``, their
+    weights and MMR's lambda), the web-cache leg (``web_cache_path``) and
+    both index backends: ``tpu``, the exact index on the card, and
+    ``qdrant``, an external Qdrant collection over its REST API."""
 
     strategy: str = "hybrid"  # dense | bm25 | hybrid
     top_k: int = 10
@@ -478,12 +476,15 @@ class ServeConfig:
 @dataclass
 class CacheConfig:
     """The query-response cache: ``memory`` (an LRU with a TTL, the
-    default) or ``off``; ``multi_tier`` (the Redis L2) is not ported."""
+    default), ``multi_tier`` (the LRU in front of a Redis L2 at
+    ``REDIS_URL``, keys under ``REDIS_KEY_PREFIX``) or ``off``."""
 
-    backend: str = "memory"  # memory | multi_tier | off
+    backend: str = "memory"  # memory | multi_tier (L1 + redis L2) | off
     max_entries: int = 10_000
     default_ttl_s: float = 3600.0
     query_cache_ttl_s: float = 600.0
+    redis_url: str = "redis://localhost:6379/0"
+    redis_key_prefix: str = "sentio:"
 
     @classmethod
     def from_env(cls) -> "CacheConfig":
@@ -492,18 +493,36 @@ class CacheConfig:
             max_entries=_env_int(["CACHE_MAX_ENTRIES"], 10_000),
             default_ttl_s=_env_float(["CACHE_TTL"], 3600.0),
             query_cache_ttl_s=_env_float(["QUERY_CACHE_TTL"], 600.0),
+            redis_url=_env_str(["REDIS_URL"], "redis://localhost:6379/0"),
+            redis_key_prefix=_env_str(["REDIS_KEY_PREFIX"], "sentio:"),
         )
 
 
 @dataclass
 class AuthConfig:
-    """Only the switch: auth is not ported, so ``AUTH_ENABLED=1`` raises."""
+    """Auth: JWT access / refresh tokens signed with HMAC-SHA256 under
+    ``JWT_SECRET`` (a random secret when empty), the password policy and
+    the lockout after failed logins. Off by default."""
 
     enabled: bool = False
+    jwt_secret: str = ""
+    access_ttl_s: int = 1800
+    refresh_ttl_s: int = 7 * 24 * 3600
+    max_failed_attempts: int = 5
+    lockout_s: int = 900
+    min_password_len: int = 12
 
     @classmethod
     def from_env(cls) -> "AuthConfig":
-        return cls(enabled=_env_bool(["AUTH_ENABLED"], False))
+        return cls(
+            enabled=_env_bool(["AUTH_ENABLED"], False),
+            jwt_secret=_env_str(["JWT_SECRET", "JWT_SECRET_KEY"], ""),
+            access_ttl_s=_env_int(["JWT_ACCESS_TTL"], 1800),
+            refresh_ttl_s=_env_int(["JWT_REFRESH_TTL"], 7 * 24 * 3600),
+            max_failed_attempts=_env_int(["AUTH_MAX_FAILED"], 5),
+            lockout_s=_env_int(["AUTH_LOCKOUT_S"], 900),
+            min_password_len=_env_int(["AUTH_MIN_PASSWORD_LEN"], 12),
+        )
 
 
 @dataclass

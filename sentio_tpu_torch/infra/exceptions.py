@@ -9,8 +9,7 @@ the JSON error body and :meth:`ErrorHandler.handle` maps any exception to
 errors are ``soft_fail_exempt``: the ``/chat`` degradation ladder lets
 them raise (a shed or an expired caller gets a typed 429/503/504 with
 ``Retry-After``, not an empty answer), where any other generation error
-degrades. :class:`VectorStoreError` is the vector-store registry's
-refusal of an unknown store name.
+degrades. :class:`VectorStoreError` is a vector store's failure.
 """
 
 from __future__ import annotations
@@ -110,6 +109,14 @@ class SentioError(Exception):
         }
 
 
+class AuthError(SentioError):
+    code = ErrorCode.UNAUTHORIZED
+
+
+class ForbiddenError(SentioError):
+    code = ErrorCode.FORBIDDEN
+
+
 class ValidationError(SentioError):
     code = ErrorCode.VALIDATION_ERROR
 
@@ -153,6 +160,14 @@ class ServiceUnavailableError(SentioError):
         super().__init__(message, **kw)
 
 
+class CircuitOpenError(ServiceUnavailableError):
+    code = ErrorCode.CIRCUIT_OPEN
+
+
+class TimeoutError_(SentioError):
+    code = ErrorCode.TIMEOUT
+
+
 class ReplicaUnavailable(ServiceUnavailableError):
     """The service is closed, or its engine latched broken after a failed
     reset."""
@@ -168,7 +183,10 @@ class ReplicaUnavailable(ServiceUnavailableError):
 
 
 class VectorStoreError(Exception):
-    """An unknown ``INDEX_BACKEND`` / ``VECTOR_STORE`` name —
+    """A vector store's failure — an unknown ``INDEX_BACKEND`` /
+    ``VECTOR_STORE`` name, a request the store refused, or (as
+    ``ops/vector_store.py::TransientStoreError``) an outage once retries
+    are spent or the breaker is open;
     ``sentio_tpu/ops/vector_store.py::VectorStoreError``, a plain
     exception as there."""
 

@@ -1,6 +1,7 @@
 """A JSON-over-HTTP client on the standard library (the machine with the
-card has no ``httpx``): what the OpenAI-compatible provider and the eval
-baseline's model hops need of ``httpx.Client``.
+card has no ``httpx``): what the OpenAI-compatible provider, the eval
+baseline's model hops and the Qdrant store need of ``httpx.Client`` —
+``request`` (any method, an optional JSON body), ``post`` and SSE lines.
 
 :class:`HttpClient` keeps **one persistent HTTP/1.1 connection per calling
 thread** to its base URL, as an ``httpx.Client`` pools them, so a call pays
@@ -43,7 +44,7 @@ class HttpResponse:
 
 
 class HttpClient:
-    """JSON POSTs to ``base_url`` + a path, each thread on its own
+    """JSON requests to ``base_url`` + a path, each thread on its own
     keep-alive connection."""
 
     def __init__(self, base_url: str, timeout: float = 30.0,
@@ -85,12 +86,12 @@ class HttpClient:
                     self._conns.remove(conn)
             self._local.conn = None
 
-    def _send(self, path: str, payload: Any) -> http.client.HTTPResponse:
-        body = json.dumps(payload).encode()
+    def _send(self, method: str, path: str, payload: Any) -> http.client.HTTPResponse:
+        body = None if payload is None else json.dumps(payload).encode()
         for attempt in range(2):
             conn = self._conn()
             try:
-                conn.request("POST", self._prefix + path, body=body, headers=self.headers)
+                conn.request(method, self._prefix + path, body=body, headers=self.headers)
                 return conn.getresponse()
             except (http.client.RemoteDisconnected, ConnectionResetError, BrokenPipeError,
                     http.client.CannotSendRequest):
@@ -104,8 +105,9 @@ class HttpClient:
                 raise
         raise AssertionError("unreachable")
 
-    def post(self, path: str, json_body: Any) -> HttpResponse:
-        resp = self._send(path, json_body)
+    def request(self, method: str, path: str, json_body: Any = None) -> HttpResponse:
+        """``method`` on ``path`` with ``json_body`` (None sends no body)."""
+        resp = self._send(method, path, json_body)
         try:
             data = resp.read()
         except Exception:
@@ -115,10 +117,13 @@ class HttpClient:
             self._drop()
         return HttpResponse(resp.status, data, self.base_url + path)
 
+    def post(self, path: str, json_body: Any) -> HttpResponse:
+        return self.request("POST", path, json_body)
+
     def stream_lines(self, path: str, json_body: Any) -> Iterator[str]:
         """POST and yield the response body's lines as they arrive (SSE);
         raises :class:`HTTPStatusError` first on a 4xx or 5xx."""
-        resp = self._send(path, json_body)
+        resp = self._send("POST", path, json_body)
         done = False
         try:
             if resp.status >= 400:

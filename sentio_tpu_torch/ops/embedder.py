@@ -84,6 +84,13 @@ class EmbeddingCache:
                 del self._store[victim]
             self._store[k] = (vec, time.perf_counter(), 0)
 
+    def clear(self) -> int:
+        """Drop every entry; returns how many there were."""
+        with self._lock:
+            n = len(self._store)
+            self._store.clear()
+            return n
+
     def stats(self) -> dict:
         with self._lock:
             total = self.hits + self.misses
@@ -120,6 +127,9 @@ class TorchEmbedder:
         self.params = params
         self.cache = EmbeddingCache(self.config.cache_size, self.config.cache_ttl_s)
         self.stats = {"requests": 0, "texts": 0, "errors": 0, "time_s": 0.0}
+        # encoder forwards (each one flash launch a layer on the card)
+        self.forwards = 0
+        self._forwards_lock = threading.Lock()
         # built eagerly; the dispatcher thread starts on the first submit
         self._query_batcher: Optional[ThreadBatcher] = None
         if self.config.coalesce:
@@ -221,6 +231,8 @@ class TorchEmbedder:
         mask = np.pad(mask, ((0, rows - n), (0, width - mask.shape[1])))
         ids_t = torch.as_tensor(ids, device=self.device)
         mask_t = torch.as_tensor(mask, device=self.device)
+        with self._forwards_lock:
+            self.forwards += 1
         with torch.inference_mode():
             hidden = encoder_forward(self.params, self.model_config, ids_t, mask_t,
                                      attn_fn=encoder_attn_fn)

@@ -13,6 +13,7 @@ as ``metadata.rerank_fallback``. ``RERANKER_CHECKPOINT`` loads a
 from __future__ import annotations
 
 import logging
+import threading
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -66,6 +67,9 @@ class CrossEncoderReranker:
                 generator.manual_seed(7)
             params = init_cross_encoder(self.model_config, generator, self.device)
         self.params = params
+        # encoder forwards (each one flash launch a layer on the card)
+        self.forwards = 0
+        self._forwards_lock = threading.Lock()
 
     def rerank(self, query: str, documents: Sequence[Document],
                top_k: Optional[int] = None) -> RerankingResult:
@@ -118,6 +122,8 @@ class CrossEncoderReranker:
                 mask = np.pad(mask, ((0, pad), (0, 0)))
                 mask[len(chunk):, 0] = True  # keep pad rows' softmax non-degenerate
                 types = np.pad(types, ((0, pad), (0, 0)))
+            with self._forwards_lock:
+                self.forwards += 1
             with torch.inference_mode():
                 out = cross_encoder_scores(
                     self.params, self.model_config,

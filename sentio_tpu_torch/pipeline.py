@@ -6,7 +6,12 @@ detached (``VERIFY_MODE=async``) or behind a confidence gate (``gated``).
 Retrieval follows ``RETRIEVAL_STRATEGY``: ``dense`` (the bi-encoder embeds
 the query and an exact top-k runs over the index on the card), ``bm25``
 (host BM25) or ``hybrid``, the default (both legs fused by
-``FUSION_METHOD``, rrf by default). ``KV_QUANT=int8`` gives the engine an
+``FUSION_METHOD``, rrf by default). ``INDEX_BACKEND`` picks the dense
+store through the registry (``ops/vector_store.py``: ``tpu``, the index
+on the card, or ``qdrant``, whose corpus BM25 is rebuilt from at build
+time); ``USE_SCORERS`` mixes the post-fusion scorers into the hybrid
+list, and ``WEB_CACHE_PATH`` (a saved index) adds the cached-web-results
+leg. ``KV_QUANT=int8`` gives the engine an
 int8 page pool; ``PREFIX_CACHE``, ``DECODE_PIPELINE_DEPTH`` and
 ``PREFILL_CHUNK`` reach the engine as in the JAX service (the radix prefix
 cache and depth 2 by default). Generation runs on ``REPLICAS`` paged
@@ -60,6 +65,7 @@ import threading
 import time
 import uuid
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Any, Optional, Sequence
 
 import torch
@@ -67,7 +73,6 @@ import torch
 from sentio_tpu_torch import resolve_device
 from sentio_tpu_torch.config import Settings
 from sentio_tpu_torch.infra.flight import get_flight_recorder
-from sentio_tpu_torch.infra.exceptions import VectorStoreError
 from sentio_tpu_torch.infra.metrics import get_metrics
 from sentio_tpu_torch.infra.tracing import get_tracing
 from sentio_tpu_torch.models.document import Document
@@ -82,7 +87,9 @@ from sentio_tpu_torch.ops.generator import EngineProvider, LLMGenerator
 from sentio_tpu_torch.ops.ingest import DocumentIngestor
 from sentio_tpu_torch.ops.prompts import PromptBuilder
 from sentio_tpu_torch.ops.reranker import CrossEncoderReranker
-from sentio_tpu_torch.ops.retrievers import BaseRetriever, create_retriever
+from sentio_tpu_torch.ops.retrievers import BaseRetriever, HybridRetriever, create_retriever
+from sentio_tpu_torch.ops.scorers import default_scorer_stack
+from sentio_tpu_torch.ops.vector_store import get_vector_store
 from sentio_tpu_torch.ops.verifier import AnswerVerifier
 from sentio_tpu_torch.runtime.engine import GeneratorEngine
 from sentio_tpu_torch.runtime.paged import ContinuousBatchingEngine
@@ -204,18 +211,6 @@ def replica_mode(serve) -> str:
     return serve.replica_mode if serve.replica_mode in REPLICA_MODES else "thread"
 
 
-def check_index_backend(name: str) -> None:
-    """``INDEX_BACKEND`` / ``VECTOR_STORE``: ``tpu`` is the in-memory exact
-    index on the card; ``qdrant`` (JAX's external store) is not ported; any
-    other name is refused as JAX's vector-store registry refuses it."""
-    if name == "tpu":
-        return
-    if name == "qdrant":
-        raise NotImplementedError("INDEX_BACKEND=qdrant: the Qdrant vector store is not "
-                                  "ported")
-    raise VectorStoreError(f"unknown vector store {name!r} (expected: tpu, qdrant)")
-
-
 def _user_top_k(raw: Optional[int], default: int, cap: int = 50) -> int:
     if raw is None:
         return default
@@ -266,6 +261,8 @@ class ChatPipeline:
     ready: bool = False
     # REPLICA_MODE as built: thread, process or socket
     replica_mode: str = "thread"
+    # the cached-web-results index (WEB_CACHE_PATH), if one was loaded
+    web_cache_index: Optional[TorchDenseIndex] = None
 
     def ingest(self, documents: Sequence[Document]) -> int:
         """Embed ``documents`` (already chunks), add them to the index and
@@ -449,9 +446,11 @@ class ChatPipeline:
         docs: dict[str, list[Document]] = {"retrieved_documents": [], "reranked_documents": [],
                                            "selected_documents": []}
         t0 = time.perf_counter()
+        leg_stats: dict[str, Any] = {}
+        extra = {"stats": leg_stats} if isinstance(self.retriever, HybridRetriever) else {}
         try:
             with self._span("retrieve"):
-                retrieved = self.retriever.retrieve(question, retrieve_k)
+                retrieved = self.retriever.retrieve(question, retrieve_k, **extra)
         except Exception as exc:  # noqa: BLE001 — the JAX retrieve node's degradation
             logger.exception("retrieval failed")
             meta["retrieval_error"] = str(exc)
@@ -461,6 +460,12 @@ class ChatPipeline:
                         retrieval_ms=round((time.perf_counter() - t0) * 1000, 2),
                         retriever=self.retriever.name)
         _node(meta, "retrieve", t0)
+        if "scorers_ms" in leg_stats:  # the post-fusion scorers, inside retrieve
+            meta["node_timings_ms"]["scorers"] = leg_stats["scorers_ms"]
+        if leg_stats.get("legs_dropped") and meta.get("query_id"):
+            # a store's outage dropped a leg: the request's record counts it
+            get_flight_recorder().annotate(str(meta["query_id"]),
+                                           retrieval_legs_dropped=leg_stats["legs_dropped"])
         if self.reranker is not None:
             t0 = time.perf_counter()
             if not docs["retrieved_documents"]:
@@ -540,7 +545,8 @@ class ChatPipeline:
         index's ``save``) to this pipeline's index and rebuild BM25 over it;
         returns the documents loaded. The saved vectors must have the
         embedder's width."""
-        loaded = TorchDenseIndex.load(path, device=self.index.device, dtype=self.index.dtype)
+        loaded = TorchDenseIndex.load(path, device=self.embedder.device,
+                                      dtype=self.settings.generator.dtype)
         if loaded.dim != self.embedder.dimension:
             raise ValueError(f"persisted dense index at {path} has dim={loaded.dim} but the "
                              f"configured embedder produces dim={self.embedder.dimension}")
@@ -586,6 +592,9 @@ class ChatPipeline:
         if service is not None:
             service.close()
         self.embedder.close()
+        close_store = getattr(self.index, "close", None)
+        if close_store is not None:  # the Qdrant store's clients and health loop
+            close_store()
 
 
 def make_embedder(settings: Settings, device, seed: int = 0, params: Optional[dict] = None,
@@ -631,20 +640,19 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
     every decode tick unless ``PREFILL_CHUNK`` is set (then the draft is
     ignored with a warning; its draft is a llama model), the contiguous
     engine through a ``SpeculativeDecoder`` (a draft of either family).
-    Settings this package cannot honour raise
-    ``NotImplementedError``."""
+    The dense store comes from ``INDEX_BACKEND`` through the registry
+    (BM25 is rebuilt from a store that already holds a corpus), the
+    scorers from ``USE_SCORERS`` and the web-cache index from
+    ``WEB_CACHE_PATH`` when ``<path>.json`` exists (else none, as in
+    JAX). Settings this package cannot honour (``AUTOSCALE=1``, a mesh)
+    raise ``NotImplementedError``."""
     settings = settings or Settings()
     rcfg, gcfg = settings.retrieval, settings.generator
-    if rcfg.use_scorers:
-        raise NotImplementedError("USE_SCORERS: post-fusion scorers are not ported")
-    if rcfg.web_cache_path:
-        raise NotImplementedError("WEB_CACHE_PATH: the web-cache retrieval leg is not ported")
-    check_index_backend(rcfg.index_backend)
     mesh = settings.mesh
     if max(mesh.dp_size, mesh.tp_size, mesh.sp_size) > 1:
         raise NotImplementedError(f"MESH_DP={mesh.dp_size} MESH_TP={mesh.tp_size} "
                                   f"MESH_SP={mesh.sp_size}: device meshes are not ported "
-                                  "(one card)")
+                                  "(one card; ROADMAP item 10)")
     check_verify_mode(gcfg.verify_mode)
     check_replica_settings(settings.serve)
     dev = resolve_device(device)
@@ -678,13 +686,24 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
 
     embedder = make_embedder(settings, dev, seed, params=embedder_params,
                              model_config=embedder_config)
-    # the corpus is held in the generator dtype, as the JAX container holds it
-    index = TorchDenseIndex(embedder.dimension, device=dev, dtype=gcfg.dtype)
+    # the registry, as JAX's container builds its store; the card's corpus
+    # is held in the generator dtype
+    index = get_vector_store(rcfg.index_backend, embedder.dimension, device=dev,
+                             settings=settings, dtype=gcfg.dtype)
     bm25 = None
     if rcfg.strategy in ("bm25", "sparse", "hybrid"):
         bm25 = make_bm25_index(BM25Params(k1=rcfg.bm25_k1, b=rcfg.bm25_b),
                                backend=rcfg.bm25_backend)
-    retriever = create_retriever(settings, embedder, index, bm25)
+        docs = index.documents()
+        if docs:  # rehydrate from a store that already holds a corpus
+            bm25.build(docs)
+    web_cache = None
+    if rcfg.web_cache_path and Path(rcfg.web_cache_path).with_suffix(".json").exists():
+        logger.info("loading web-cache index from %s", rcfg.web_cache_path)
+        web_cache = TorchDenseIndex.load(rcfg.web_cache_path, device=dev, dtype=gcfg.dtype)
+    scorers = default_scorer_stack(embedder, settings) if rcfg.use_scorers else None
+    retriever = create_retriever(settings, embedder, index, bm25, scorers=scorers,
+                                 web_cache_index=web_cache)
     reranker = None
     if settings.rerank.enabled:
         reranker = CrossEncoderReranker(settings.rerank, params=reranker_params,
@@ -765,7 +784,7 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
                         generator=generator, bm25_index=bm25, reranker=reranker,
                         verifier=verifier, settings=settings, warm_head=warm_head,
                         speculative_info=spec_info, ingestor=ingestor,
-                        replica_mode=replica_mode(settings.serve))
+                        replica_mode=replica_mode(settings.serve), web_cache_index=web_cache)
 
 
 def engine_settings(gcfg) -> dict:

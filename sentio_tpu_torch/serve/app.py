@@ -45,9 +45,19 @@ ticket and frees its slot.
 :func:`create_server` builds the server over a pipeline; :func:`run_server`
 (``python -m sentio_tpu_torch serve``) builds the pipeline, warms it up,
 loads ``--index`` / ``INDEX_PATH``, serves until SIGINT or SIGTERM, then
-drains the generation service. Left out: auth and ``/auth/token``, and
-the UI page at ``/``; ``AUTH_ENABLED=1`` raises, as does
-``METRICS_ENABLED=0``.
+drains the generation service.
+
+Auth (``AUTH_ENABLED=1``, ``infra/auth.py``): every path but ``/health*``,
+``/metrics*``, ``/`` and ``/auth/token`` needs ``Authorization: Bearer
+<access token>`` or ``X-API-Key``, checked after the rate limit and before
+the route, as JAX's middleware order has it; a missing or bad credential
+gets JAX's 401 body. ``POST /auth/token`` trades a username and password
+for a token pair (404 while auth is off). An authenticated caller's WFQ
+tenant is ``user:<sub>``, whatever ``X-Tenant`` says. ``GET /`` serves the
+chat page (a copy of JAX's, with its own Content-Security-Policy).
+``create_server`` installs the log sanitizer once a process.
+``METRICS_ENABLED=0`` serves as JAX's server does: the families are still
+recorded.
 """
 
 from __future__ import annotations
@@ -79,7 +89,13 @@ from sentio_tpu_torch.infra.chrome_trace import build_chrome_trace
 from sentio_tpu_torch.infra.exceptions import ErrorHandler, SentioError
 from sentio_tpu_torch.infra.metrics import get_metrics
 from sentio_tpu_torch.infra.monitoring import performance_monitor, resource_monitor
-from sentio_tpu_torch.infra.security import SECURITY_HEADERS, IPRateLimiter, RateLimitConfig
+from sentio_tpu_torch.infra.auth import AuthManager
+from sentio_tpu_torch.infra.security import (
+    SECURITY_HEADERS,
+    IPRateLimiter,
+    RateLimitConfig,
+    setup_log_sanitization,
+)
 from sentio_tpu_torch.infra.tracing import profile_window, warm_profiler
 from sentio_tpu_torch.ops.ingest import SUPPORTED_SUFFIXES
 from sentio_tpu_torch.infra.flight import get_flight_recorder
@@ -101,6 +117,101 @@ logger = logging.getLogger(__name__)
 
 __all__ = ["create_server", "run_server", "check_serve_settings", "SentioHTTPServer"]
 
+# the chat page at / — a copy of JAX's
+_UI_PAGE = """<!doctype html><html><head><meta charset="utf-8">
+<title>sentio-tpu</title><style>
+body{font-family:system-ui,sans-serif;max-width:780px;margin:2rem auto;padding:0 1rem}
+#log{border:1px solid #ccc;border-radius:8px;padding:1rem;min-height:200px;white-space:pre-wrap}
+textarea{width:100%;box-sizing:border-box}
+.src{color:#666;font-size:.85em;margin-left:1em}
+#health{float:right;font-size:.9em}
+#dot{display:inline-block;width:.7em;height:.7em;border-radius:50%;background:#999}
+#upl{color:#666;font-size:.85em}
+</style></head><body>
+<h2>sentio-tpu <span id="health"><span id="dot"></span> <span id="hstat">checking…</span></span></h2>
+<p><input type="file" id="file" accept=".txt,.md,.rst,.json,.csv,.pdf,.docx,.html,.htm" multiple>
+<button onclick="upload()">Ingest</button> <span id="upl"></span></p>
+<div id="log"></div>
+<p><textarea id="q" rows="3" placeholder="Ask a question..."></textarea>
+<button onclick="send()">Send</button></p>
+<script>
+async function send(){
+  const q=document.getElementById('q').value.trim(); if(!q)return;
+  const log=document.getElementById('log');
+  log.textContent+='\\n> '+q+'\\n';
+  const r=await fetch('/chat',{method:'POST',headers:{'Content-Type':'application/json'},
+    body:JSON.stringify({question:q})});
+  const d=await r.json();
+  log.textContent+=(d.answer||JSON.stringify(d))+'\\n';
+  (d.sources||[]).forEach((s,i)=>{log.textContent+='  ['+(i+1)+'] '+(s.metadata.source||s.id)+'\\n'});
+}
+// client-side chunking + per-chunk /embed, like the reference UI's upload
+function chunks(text,size=1500,overlap=200){
+  const out=[]; for(let i=0;i<text.length;i+=size-overlap){out.push(text.slice(i,i+size));
+    if(i+size>=text.length)break;} return out;
+}
+// binary formats go whole-file to /upload (server-side parse via the
+// docx/pdf readers); text formats keep the chunked /embed flow
+async function uploadBinary(f,st){
+  for(let tries=0;tries<20;tries++){
+    const fd=new FormData(); fd.append('file',f,f.name);
+    const r=await fetch('/upload',{method:'POST',body:fd});
+    if(r.status===429){
+      const wait=parseInt(r.headers.get('Retry-After')||'6',10);
+      st.textContent='rate limited; waiting '+wait+'s…';
+      await new Promise(res=>setTimeout(res,wait*1000));
+      continue;
+    }
+    let d=null; try{d=await r.json()}catch(e){}
+    if(!d) return 'error: HTTP '+r.status;
+    const info=(d.files&&d.files[0])||{};
+    return info.error?('error: '+info.error):((info.chunks_embedded||0)+' chunks');
+  }
+  return 'error: rate limited too long';
+}
+async function upload(){
+  const files=document.getElementById('file').files, st=document.getElementById('upl');
+  if(!files.length){st.textContent='pick a file first';return}
+  let done=0,total=0;
+  for(const f of files){
+    if(/\\.(pdf|docx|html|htm)$/i.test(f.name)){
+      st.textContent='uploading '+f.name+'…';
+      st.textContent=f.name+': '+await uploadBinary(f,st);
+      continue;
+    }
+    const text=await f.text(); const parts=chunks(text); total+=parts.length;
+    for(let i=0;i<parts.length;i++){
+      // the server rate-limits /embed per IP: back off on 429 and retry
+      // the SAME chunk instead of silently dropping the document tail
+      for(let tries=0;tries<20;tries++){
+        const r=await fetch('/embed',{method:'POST',headers:{'Content-Type':'application/json'},
+          body:JSON.stringify({content:parts[i],metadata:{source:f.name,chunk:i}})});
+        if(r.ok){done++;break}
+        if(r.status===429){
+          const wait=parseInt(r.headers.get('Retry-After')||'6',10);
+          st.textContent='rate limited; waiting '+wait+'s ('+done+'/'+total+')…';
+          await new Promise(res=>setTimeout(res,wait*1000));
+          continue;
+        }
+        break; // non-retryable error: count as failed, move on
+      }
+      st.textContent='ingesting '+done+'/'+total+' chunks…';
+    }
+  }
+  st.textContent='ingested '+done+'/'+total+' chunks';
+}
+// health badge, polled like the reference sidebar's backend check
+async function health(){
+  const dot=document.getElementById('dot'), hs=document.getElementById('hstat');
+  try{
+    const d=await (await fetch('/health')).json();
+    dot.style.background=d.status==='healthy'?'#2a2':'#d92';
+    hs.textContent=d.status+' · '+Math.round(d.uptime_s)+'s';
+  }catch(e){dot.style.background='#d22';hs.textContent='unreachable'}
+}
+health(); setInterval(health, 15000);
+</script></body></html>"""
+
 # a JSON body past this is refused with 413, as aiohttp's default
 # client_max_size refuses it
 MAX_JSON_BODY = 1024 ** 2
@@ -109,6 +220,10 @@ UPLOAD_SLACK = 1024 ** 2
 # how often a silent SSE stream checks whether its client went away
 SSE_POLL_S = 0.25
 FLIGHT_PREFIX = "/debug/flight/"
+# paths open without a credential besides /health* and /metrics*
+OPEN_PATHS = ("/", "/auth/token")
+UI_CSP = ("default-src 'none'; script-src 'unsafe-inline'; style-src 'unsafe-inline'; "
+          "connect-src 'self'")
 _REQUEST_ID_RE = re.compile(r"[A-Za-z0-9._:-]{1,128}")
 
 
@@ -135,13 +250,9 @@ class _Streamed:
 
 
 def check_serve_settings(settings: Settings) -> None:
-    """Refuse the settings the port's server cannot honour."""
-    if settings.auth.enabled:
-        raise NotImplementedError("AUTH_ENABLED=1: auth and /auth/token are not ported")
-    if not settings.observability.metrics_enabled:
-        raise NotImplementedError("METRICS_ENABLED=0: the metric families are always recorded")
-    if settings.cache.backend == "multi_tier":
-        raise NotImplementedError("CACHE_BACKEND=multi_tier: the Redis L2 cache is not ported")
+    """Refuse the settings the port's server cannot honour (an unknown
+    ``VERIFY_MODE``, ``AUTOSCALE=1``, ``REPLICA_WORKERS`` without a
+    token)."""
     check_verify_mode(settings.generator.verify_mode)
     check_replica_settings(settings.serve)
 
@@ -172,6 +283,8 @@ class SentioHTTPServer(ThreadingHTTPServer):
         self.chat_handler = ChatHandler(pipeline, cache_manager=cache_manager,
                                         fallback=fallback)
         self.health_handler = HealthHandler(pipeline)
+        # users and API keys are added through it (create_user, create_api_key)
+        self.auth_manager = AuthManager(settings.auth) if settings.auth.enabled else None
         self.rate_limiter = IPRateLimiter(
             default=RateLimitConfig(per_minute=settings.serve.rate_limit_default_per_min))
         self.rate_limiter.configure("/embed", settings.serve.rate_limit_embed_per_min)
@@ -181,6 +294,11 @@ class SentioHTTPServer(ThreadingHTTPServer):
     def url(self) -> str:
         host, port = self.server_address[:2]
         return f"http://{host}:{port}"
+
+    def server_close(self) -> None:
+        """Close the listener and the query cache's L2 connection."""
+        super().server_close()
+        self.chat_handler.cache_manager.close()
 
 
 def create_server(settings: Optional[Settings], pipeline: ChatPipeline,
@@ -194,6 +312,7 @@ def create_server(settings: Optional[Settings], pipeline: ChatPipeline,
     first window opens when it is asked for."""
     settings = settings or pipeline.settings
     check_serve_settings(settings)
+    setup_log_sanitization()
     warm_profiler()
     host = settings.serve.host if host is None else host
     port = settings.serve.port if port is None else port
@@ -228,12 +347,16 @@ def _resolve_deadline_ts(headers, req, serve_cfg) -> Optional[float]:
 _TENANT_RE = re.compile(r"[A-Za-z0-9._:-]{1,64}")
 
 
-def _request_tenant(headers) -> tuple[str, str]:
-    """(tenant, priority): a header-safe ``X-Tenant`` value, else the
-    shared tenant (auth principals are not ported); ``X-Priority: batch``
-    picks the shed-earlier tier, anything else is interactive."""
-    raw = headers.get("X-Tenant", "").strip()
-    tenant = raw if raw and _TENANT_RE.fullmatch(raw) else DEFAULT_TENANT
+def _request_tenant(headers, auth: Optional[dict] = None) -> tuple[str, str]:
+    """(tenant, priority): the auth principal ``user:<sub>`` when the
+    caller is authenticated (no header can then spoof another tenant), else
+    a header-safe ``X-Tenant`` value, else the shared tenant; ``X-Priority:
+    batch`` picks the shed-earlier tier, anything else is interactive."""
+    if auth and auth.get("sub"):
+        tenant = f"user:{auth['sub']}"
+    else:
+        raw = headers.get("X-Tenant", "").strip()
+        tenant = raw if raw and _TENANT_RE.fullmatch(raw) else DEFAULT_TENANT
     batch = headers.get("X-Priority", "").strip().lower() == "batch"
     return tenant, PRIORITY_BATCH if batch else PRIORITY_INTERACTIVE
 
@@ -336,6 +459,7 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _routes(self) -> dict[str, tuple[str, Callable[[], Any]]]:
         return {
+            "/": ("GET", self._ui_page),
             "/chat": ("POST", self._chat),
             "/embed": ("POST", self._embed),
             "/upload": ("POST", self._upload),
@@ -348,6 +472,7 @@ class _Handler(BaseHTTPRequestHandler):
             "/metrics": ("GET", self._metrics),
             "/metrics/performance": ("GET", self._metrics_performance),
             "/debug/profile": ("GET", self._debug_profile),
+            "/auth/token": ("POST", self._auth_token),
         }
 
     def _query(self) -> dict:
@@ -370,6 +495,7 @@ class _Handler(BaseHTTPRequestHandler):
         if work:
             metrics.adjust_inflight(+1)
         self._body_read = False
+        self._auth: Optional[dict] = None
         try:
             try:
                 if work and path != "/":
@@ -379,7 +505,10 @@ class _Handler(BaseHTTPRequestHandler):
                 route = self._routes().get(path)
                 if route is None and path.startswith(FLIGHT_PREFIX):
                     route = ("GET", lambda: self._debug_flight(path[len(FLIGHT_PREFIX):]))
-                if route is None:
+                denied = self._authenticate(path)
+                if denied is not None:
+                    response = denied
+                elif route is None:
                     response = _text("404: Not Found", 404)
                 elif route[0] != method:
                     response = _text("405: Method Not Allowed", 405)
@@ -407,6 +536,26 @@ class _Handler(BaseHTTPRequestHandler):
             if work:
                 metrics.adjust_inflight(-1)
             metrics.record_request(path, status, time.perf_counter() - t0)
+
+    def _authenticate(self, path: str) -> Optional[_Response]:
+        """JAX's auth middleware: None when the request may go on (auth
+        off, an open path, or a good credential, whose payload becomes the
+        request's principal), else the 401 response."""
+        auth = self.server.auth_manager
+        if auth is None or path.startswith(("/health", "/metrics")) or path in OPEN_PATHS:
+            return None
+        header = self.headers.get("Authorization", "")
+        api_key = self.headers.get("X-API-Key", "")
+        if not header.startswith("Bearer ") and not api_key:
+            return _json({"error": "missing credentials"}, 401)
+        try:
+            if header.startswith("Bearer "):
+                self._auth = auth.verify_token(header[7:])
+            else:
+                self._auth = auth.verify_api_key(api_key)
+        except Exception:  # noqa: BLE001 — any bad token or key is a 401
+            return _json({"error": "invalid credentials"}, 401)
+        return None
 
     def _send(self, response: _Response) -> None:
         if not self._body_read:
@@ -468,7 +617,7 @@ class _Handler(BaseHTTPRequestHandler):
         settings = self.server.settings
         req = parse_chat_request(self._json_body(), settings.serve)
         deadline_ts = _resolve_deadline_ts(self.headers, req, settings.serve)
-        tenant, priority = _request_tenant(self.headers)
+        tenant, priority = _request_tenant(self.headers, self._auth)
         if req.stream:
             # shed before the 200 is committed: after it a stream can only
             # end with a typed error event
@@ -594,6 +743,19 @@ class _Handler(BaseHTTPRequestHandler):
             return self.connection.recv(1, socket.MSG_PEEK) == b""
         except (OSError, ValueError):
             return True
+
+    def _ui_page(self):
+        # the page's inline script and style need a policy of their own
+        return _Response(200, _UI_PAGE.encode(), "text/html; charset=utf-8",
+                         {"Content-Security-Policy": UI_CSP})
+
+    def _auth_token(self):
+        """Username and password → JWT pair; 404 while auth is off."""
+        auth = self.server.auth_manager
+        if auth is None:
+            return _json({"error": "auth disabled"}, 404)
+        body = self._json_body()
+        return _json(auth.authenticate(body.get("username", ""), body.get("password", "")))
 
     def _embed(self):
         server = self.server

@@ -31,6 +31,7 @@ import uuid
 from typing import Any, Iterator, Optional
 
 from sentio_tpu_torch.infra.caching import CacheManager
+from sentio_tpu_torch.infra.resilience import registered_breakers
 from sentio_tpu_torch.infra.flight import get_flight_recorder
 from sentio_tpu_torch.infra.metrics import get_metrics
 from sentio_tpu_torch.ops.confidence import confidence_score
@@ -342,10 +343,9 @@ class HealthHandler:
     def detailed(self, engine: dict[str, Any]) -> dict[str, Any]:
         """JAX's ``/health/detailed``: the basic report, each component's
         probe (``engine`` is the device section the caller computed), and
-        ``breakers``: the replica tier's breakers (JAX's registry of
-        ``CircuitBreaker`` objects is empty on the default path and not
-        ported). The status is ``degraded`` when a component is not
-        healthy."""
+        ``breakers``: the registered ``CircuitBreaker`` objects (the Qdrant
+        store's, as in JAX) beside the replica tier's, one per replica. The
+        status is ``degraded`` when a component is not healthy."""
         with self._lock:
             now = time.perf_counter()
             if self._cached is not None and now - self._cached_at < self.CACHE_TTL_S:
@@ -355,9 +355,10 @@ class HealthHandler:
                           if isinstance(c, dict))
             basic = self.basic()
             components["breakers"] = {
-                f"replica_{r['replica']}": {"name": f"replica_{r['replica']}",
-                                            "state": r["state"], "rebuilds": r["rebuilds"]}
-                for r in basic.get("replicas", {}).get("replicas", [])}
+                **{name: b.health() for name, b in registered_breakers().items()},
+                **{f"replica_{r['replica']}": {"name": f"replica_{r['replica']}",
+                                               "state": r["state"], "rebuilds": r["rebuilds"]}
+                   for r in basic.get("replicas", {}).get("replicas", [])}}
             report = {**basic, "status": "healthy" if healthy else "degraded",
                       "components": components, "cached": False}
             self._cached, self._cached_at = report, now
@@ -365,7 +366,11 @@ class HealthHandler:
 
     def _components(self, engine: dict[str, Any]) -> dict[str, Any]:
         pipeline = self.pipeline
-        out: dict[str, Any] = {"dense_index": {"healthy": True, "size": pipeline.index.size}}
+        out: dict[str, Any] = {}
+        try:
+            out["dense_index"] = {"healthy": True, "size": pipeline.index.size}
+        except Exception as exc:  # noqa: BLE001 — an external store may be down
+            out["dense_index"] = {"healthy": False, "error": str(exc)}
         if pipeline.bm25_index is not None:
             out["sparse_index"] = {"healthy": True, "size": pipeline.bm25_index.size}
         try:

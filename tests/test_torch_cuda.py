@@ -884,3 +884,45 @@ def test_two_worker_process_set_on_the_card(dev):
         local.close()
     assert got == [want, want]
     assert multiprocessing.active_children() == []
+
+
+def test_scorer_embed_on_the_card_matches_plain(dev, monkeypatch):
+    """The post-fusion scorers' one batched embedding of the query and the
+    candidates runs the flash kernel once a layer on the card, and its
+    vectors and the semantic and MMR scores equal those of the same
+    embedder with plain attention."""
+    import numpy as np
+
+    from sentio_tpu_torch.config import EmbedderConfig
+    from sentio_tpu_torch.models.document import Document
+    from sentio_tpu_torch.models.transformer import EncoderConfig
+    from sentio_tpu_torch.ops import embedder as embedder_module
+    from sentio_tpu_torch.ops import scorers
+
+    cfg = EncoderConfig(vocab_size=512, dim=256, n_layers=3, n_heads=4, mlp_dim=512,
+                        max_len=512)
+    emb = embedder_module.TorchEmbedder(EmbedderConfig(cache_size=0, coalesce=False),
+                                        model_config=cfg, device=dev)
+    docs = [Document(text=f"candidate {i}: " + "pages hold keys and values " * (i + 1),
+                     id=f"c{i}") for i in range(12)]
+    question = "what do the pages hold?"
+
+    def run():
+        scorers._EMBED_MEMO.entry = None
+        vecs = scorers._doc_embeddings(emb, question, docs)
+        return (vecs, scorers.SemanticSimilarityScorer(embedder=emb).score(question, docs),
+                scorers.MMRScorer(embedder=emb).score(question, docs))
+
+    before = FLASH_KERNEL.launches
+    (q, mat), sem, mmr = run()
+    assert FLASH_KERNEL.launches - before == cfg.n_layers  # one forward, memo shared
+    monkeypatch.setattr(embedder_module, "encoder_attn_fn",
+                        lambda q, k, v, kv_lens=None: flash_attention_plain(
+                            q, k, v, kv_lens, causal=False))
+    before = FLASH_KERNEL.launches
+    (pq, pmat), psem, pmmr = run()
+    assert FLASH_KERNEL.launches == before
+    np.testing.assert_allclose(q, pq, atol=2e-2, rtol=0)
+    np.testing.assert_allclose(mat, pmat, atol=2e-2, rtol=0)
+    np.testing.assert_allclose(sem, psem, atol=1e-2, rtol=0)
+    assert mat.shape == (12, cfg.dim) and sem.shape == mmr.shape == (12,)

@@ -11,7 +11,7 @@ contiguous engine with equal greedy text; a ``soft_fail_exempt`` error
 both raise. ``build_pipeline`` gives the paged provider its contiguous
 engine on the same weight tensors, and a live tiny pipeline whose paged
 ticks fail with no failover budget answers from it. ``INDEX_BACKEND``:
-``qdrant`` is refused as not ported, an unknown name raises the port's
+``qdrant`` builds the Qdrant store, and an unknown name raises the port's
 ``VectorStoreError`` with the message JAX's registry raises."""
 
 import dataclasses
@@ -214,10 +214,31 @@ def test_failing_paged_ticks_are_answered_by_the_contiguous_engine():
 
 
 def test_index_backend_qdrant_is_refused():
+    """``INDEX_BACKEND=qdrant`` is ported: the pipeline's index is the
+    Qdrant store the registry makes from the retrieval settings, and a chat
+    retrieves through it (a loopback server over JAX's test fake)."""
+    from test_torch_vector_store import LoopbackQdrant
+    from test_vector_store import FakeQdrant
+
+    from sentio_tpu_torch.models.document import Document
+    from sentio_tpu_torch.ops.vector_store import QdrantVectorStore
+
+    fake = FakeQdrant()
+    qdrant = LoopbackQdrant(fake.handler)
     settings = tiny_settings()
-    settings.retrieval = dataclasses.replace(settings.retrieval, index_backend="qdrant")
-    with pytest.raises(NotImplementedError, match="INDEX_BACKEND=qdrant"):
-        build_pipeline(settings, device="cpu")
+    settings.retrieval = dataclasses.replace(settings.retrieval, index_backend="qdrant",
+                                             qdrant_url=qdrant.url, collection_name="hatch")
+    pipeline = build_pipeline(settings, device="cpu")
+    try:
+        assert isinstance(pipeline.index, QdrantVectorStore)
+        assert pipeline.index.collection == "hatch"
+        pipeline.ingest([Document(text=f"pages hold keys {i}", id=f"p{i}") for i in range(4)])
+        assert len(fake.collections["hatch"]["points"]) == 4
+        got = pipeline.retriever.retrieve("pages hold keys 2", 2)
+        assert got[0].metadata["retriever"] == "qdrant" and len(got) == 2
+    finally:
+        pipeline.close()
+        qdrant.close()
 
 
 def test_unknown_index_backend_raises_as_jax():

@@ -1,7 +1,8 @@
 """The port stands alone: no module of sentio_tpu_torch, and not
 chip_smoke.py, imports JAX (or flax/optax) or anything of the JAX package,
-nor an HTTP or metrics package the machine with the card lacks (aiohttp,
-httpx, pydantic, prometheus_client) — checked statically on every file,
+nor an HTTP, metrics, cache, store or token package the machine with the
+card lacks (aiohttp, httpx, pydantic, prometheus_client, redis,
+qdrant_client, jwt) — checked statically on every file,
 then by importing every module in a fresh interpreter where those imports
 are blocked, and in a spawned replica worker (``runtime/worker.py``), whose
 loaded modules must hold none of JAX or its package."""
@@ -16,7 +17,7 @@ import pytest
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "sentio_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "sentio_tpu", "aiohttp", "httpx", "pydantic",
-             "prometheus_client"}
+             "prometheus_client", "redis", "qdrant_client", "jwt"}
 
 
 def _port_files():

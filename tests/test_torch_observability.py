@@ -176,13 +176,18 @@ def test_observability_config_matches_jax(monkeypatch):
     assert Settings.from_env().observability.profiler_dir == "/tmp/profiles"
 
 
-def test_metrics_disabled_is_refused():
+def test_metrics_disabled_is_refused(monkeypatch):
+    """``METRICS_ENABLED=0`` is no longer refused: JAX reads it and serves
+    with its families recorded, and so does the port (the side-by-side
+    server test in ``test_torch_serve.py`` serves under it)."""
     from sentio_tpu_torch.serve.app import check_serve_settings
 
+    monkeypatch.setenv("METRICS_ENABLED", "0")
+    settings = Settings.from_env()
+    assert settings.observability.metrics_enabled is False
+    assert JObservabilityConfig.from_env().metrics_enabled is False
+    check_serve_settings(settings)
     check_serve_settings(Settings())
-    settings = Settings(observability=ObservabilityConfig(metrics_enabled=False))
-    with pytest.raises(NotImplementedError, match="METRICS_ENABLED=0"):
-        check_serve_settings(settings)
 
 
 def test_tracing_degrades_to_mock_spans():

@@ -37,6 +37,7 @@ from sentio_tpu.eval.dataset import build_bundle
 from sentio_tpu.graph.factory import GraphConfig, build_basic_graph
 from sentio_tpu.graph.state import create_initial_state
 from sentio_tpu.models.cross_encoder import init_cross_encoder
+from sentio_tpu.models.document import Document as JDocument
 from sentio_tpu.models.llama import LlamaConfig as JLlamaConfig
 from sentio_tpu.models.llama import init_llama
 from sentio_tpu.models.transformer import EncoderConfig as JEncoderConfig
@@ -231,21 +232,38 @@ def test_int8_chat_matches_jax_graph(hybrid_int8, question):
     ("generator", "verify_mode", "gated"),
 ])
 def test_build_pipeline_refuses_what_it_cannot_honour(section, field, value):
-    """Settings of parts that are not ported raise NotImplementedError; a
-    draft checkpoint (speculation is ported) that cannot be loaded raises
-    the loader's WeightsError, naming LLM_DRAFT_CHECKPOINT; VERIFY_MODE
+    """A tokenizer path (not ported) raises NotImplementedError; a draft
+    checkpoint (speculation is ported) that cannot be loaded raises the
+    loader's WeightsError, naming LLM_DRAFT_CHECKPOINT; VERIFY_MODE
     (ported) builds, and an unknown mode raises JAX's ValueError before
-    anything is built."""
+    anything is built; USE_SCORERS (ported) builds the default scorer
+    stack into the hybrid retriever, and a WEB_CACHE_PATH with no saved
+    index there builds with no cache leg, as JAX's container does."""
     config = {"retrieval": RetrievalConfig, "generator": GeneratorConfig}[section]
     settings = Settings(**{section: config(**{field: value})})
+    tiny = dict(embedder=EmbedderConfig(model_preset="tiny"),
+                generator=GeneratorConfig(model_preset="tiny", kv_page_size=16,
+                                          kv_max_pages_per_seq=64))
+    if section == "retrieval":
+        pipeline = build_pipeline(Settings(retrieval=RetrievalConfig(**{field: value}),
+                                           **tiny), device="cpu")
+        try:
+            retriever = pipeline.retriever
+            if field == "use_scorers":
+                assert [sc.name for sc in retriever.scorers] == ["keyword", "recency",
+                                                                 "semantic", "mmr"]
+                assert retriever.scorers[2].embedder is pipeline.embedder
+            else:
+                assert retriever.web_cache is None and pipeline.web_cache_index is None
+        finally:
+            pipeline.close()
+        return
     if field == "verify_mode":
         with pytest.raises(ValueError, match="verify_mode must be one of"):
             build_pipeline(Settings(generator=GeneratorConfig(verify_mode="eventually")),
                            device="cpu")
-        tiny = Settings(embedder=EmbedderConfig(model_preset="tiny"),
-                        generator=GeneratorConfig(verify_mode=value, model_preset="tiny",
-                                                  kv_page_size=16, kv_max_pages_per_seq=64))
-        pipeline = build_pipeline(tiny, device="cpu")
+        tiny["generator"] = dataclasses.replace(tiny["generator"], verify_mode=value)
+        pipeline = build_pipeline(Settings(**tiny), device="cpu")
         try:
             assert pipeline.settings.generator.verify_mode == value
         finally:
@@ -257,6 +275,157 @@ def test_build_pipeline_refuses_what_it_cannot_honour(section, field, value):
         return
     with pytest.raises(NotImplementedError):
         build_pipeline(settings, device="cpu")
+
+
+@pytest.mark.parametrize("mesh", [dict(dp_size=2), dict(tp_size=2), dict(sp_size=4)])
+def test_build_pipeline_refuses_a_mesh(mesh):
+    """A mesh of more than one device is still refused (ROADMAP item 10)."""
+    from sentio_tpu_torch.config import MeshConfig
+
+    with pytest.raises(NotImplementedError, match="device meshes are not ported"):
+        build_pipeline(Settings(mesh=MeshConfig(**mesh)), device="cpu")
+
+
+CACHE_TEXTS = ["cached web result: the scheduler changed on Tuesday after the audit",
+               "cached web result: the ingest pipeline is maintained by the data team",
+               "cached web result: pages map onto decode slots"]
+
+
+@pytest.fixture(scope="module")
+def settings_slice(shared, tmp_path_factory):
+    """The JAX graph with the default scorer stack, a web-cache index and a
+    Qdrant store (``MockTransport`` over JAX's ``FakeQdrant``) beside the
+    port's pipeline built from ``USE_SCORERS=1``, ``WEB_CACHE_PATH`` (the
+    same saved index) and ``INDEX_BACKEND=qdrant`` (loopback HTTP over
+    another ``FakeQdrant``), on the same weights; both ingest the corpus."""
+    import httpx
+    from test_torch_vector_store import LoopbackQdrant
+    from test_vector_store import FakeQdrant
+
+    from sentio_tpu.ops.scorers import default_scorer_stack
+    from sentio_tpu.ops.vector_store import QdrantVectorStore
+
+    enc, lcfg, docs = shared["enc"], shared["lcfg"], shared["docs"]
+    gen = dict(GEN, **ENGINE, dtype="float32")
+    js = JSettings(retrieval=JRetrievalConfig(top_k=6, use_scorers=True),
+                   rerank=JRerankConfig(top_k=3),
+                   embedder=JEmbedderConfig(model_preset="tiny", coalesce=False, cache_size=0),
+                   generator=JGeneratorConfig(model_preset="tiny", **gen))
+    embedder = TpuEmbedder(js.embedder, params=shared["enc_tree"], model_config=enc)
+    cache_docs = [JDocument(text=t, id=f"web-{i}") for i, t in enumerate(CACHE_TEXTS)]
+    cache_path = tmp_path_factory.mktemp("webcache") / "cache"
+    saved = TpuDenseIndex(dim=enc.dim, dtype="float32")
+    saved.add(cache_docs, embedder.embed_many(CACHE_TEXTS))
+    saved.save(cache_path)
+    store = QdrantVectorStore(dim=enc.dim, collection="slice",
+                              transport=httpx.MockTransport(FakeQdrant().handler))
+    store.add(docs, embedder.embed_many([d.text for d in docs]))
+    jg = js.generator
+    engine = JEngine(model_config=lcfg, params=shared["llama_tree"], max_slots=4, page_size=16,
+                     max_pages_per_seq=32, use_pallas=True, prefix_cache=jg.prefix_cache,
+                     pipeline_depth=jg.decode_pipeline_depth, steps_per_tick=8)
+    generator = JLLMGenerator(provider=TpuProvider(engine=_PagedAsEngine(engine)), config=jg)
+    retriever = create_retriever(settings=js, embedder=embedder, dense_index=store,
+                                 bm25_index=JBM25Index().build(store.documents()),
+                                 scorers=default_scorer_stack(embedder, js),
+                                 web_cache_index=TpuDenseIndex.load(cache_path,
+                                                                    dtype="float32"))
+    reranker = JReranker(js.rerank, params=shared["ce_tree"], model_config=enc)
+    graph = build_basic_graph(retriever, generator, reranker=reranker,
+                              verifier=JVerifier(generator=generator, config=jg),
+                              config=GraphConfig(settings=js))
+    qdrant = LoopbackQdrant(FakeQdrant().handler)
+    ts = Settings(retrieval=RetrievalConfig(top_k=6, use_scorers=True,
+                                            web_cache_path=str(cache_path),
+                                            index_backend="qdrant", qdrant_url=qdrant.url,
+                                            collection_name="slice"),
+                  rerank=RerankConfig(top_k=3), embedder=EmbedderConfig(model_preset="tiny"),
+                  generator=GeneratorConfig(model_preset="tiny", **gen))
+    pipeline = build_pipeline(
+        ts, device="cpu", llama_config=LlamaConfig(**dataclasses.asdict(lcfg)),
+        embedder_config=EncoderConfig(**dataclasses.asdict(enc)),
+        reranker_config=EncoderConfig(**dataclasses.asdict(enc)),
+        llama_params=weights.llama_from_jax(shared["llama_tree"]),
+        embedder_params=weights.encoder_from_jax(shared["enc_tree"]),
+        reranker_params=weights.cross_encoder_from_jax(shared["ce_tree"]))
+    pipeline.ingest([Document(text=d.text, metadata=dict(d.metadata), id=d.id) for d in docs])
+    try:
+        yield graph, pipeline, qdrant
+    finally:
+        pipeline.close()
+        store.close()
+        qdrant.close()
+
+
+@pytest.mark.parametrize("question", QUESTIONS + ["when did the scheduler change?"])
+def test_scorers_web_cache_and_qdrant_chat_matches_jax_graph(settings_slice, question):
+    """The slice as a whole: USE_SCORERS, WEB_CACHE_PATH and
+    INDEX_BACKEND=qdrant together give the JAX graph's ids, sources,
+    answer and verdict; the retriever is the hybrid one over the Qdrant
+    store, the scorers and the cache leg, and the scorers' time is a stage
+    of its own."""
+    from sentio_tpu_torch.ops.vector_store import QdrantVectorStore as TQdrant
+
+    graph, pipeline, _qdrant = settings_slice
+    assert isinstance(pipeline.index, TQdrant) and pipeline.index.size == 16
+    assert pipeline.retriever.web_cache is not None and len(pipeline.retriever.scorers) == 4
+    assert pipeline.bm25_index.size == 16
+    _state, got = _assert_same_chat(graph, pipeline, question)
+    assert "scorers" in got["metadata"]["stage_ms"]
+
+
+def test_bm25_rehydrates_from_a_store_that_holds_a_corpus(settings_slice, shared):
+    """A second pipeline on the same Qdrant collection rebuilds BM25 from
+    the store's documents at build time, as JAX's container does."""
+    _graph, pipeline, qdrant = settings_slice
+    again = build_pipeline(pipeline.settings, device="cpu",
+                           llama_config=LlamaConfig(**dataclasses.asdict(shared["lcfg"])),
+                           embedder_config=EncoderConfig(**dataclasses.asdict(shared["enc"])),
+                           reranker_config=EncoderConfig(**dataclasses.asdict(shared["enc"])),
+                           llama_params=weights.llama_from_jax(shared["llama_tree"]),
+                           embedder_params=weights.encoder_from_jax(shared["enc_tree"]),
+                           reranker_params=weights.cross_encoder_from_jax(shared["ce_tree"]))
+    try:
+        assert again.bm25_index.size == pipeline.bm25_index.size == 16
+        assert {d.id for d in again.bm25_index.retrieve("scheduler", 5)} == \
+            {d.id for d in pipeline.bm25_index.retrieve("scheduler", 5)}
+    finally:
+        again.close()
+
+
+def test_a_qdrant_outage_drops_the_dense_leg_and_is_recorded(settings_slice):
+    """With the store down the chat is answered from BM25 and the cache
+    leg; the drop is on the request's flight record; once the breaker is
+    open the leg fails at once."""
+    import httpx
+
+    from sentio_tpu_torch.infra.flight import get_flight_recorder
+    from sentio_tpu_torch.infra.resilience import CircuitState
+
+    _graph, pipeline, qdrant = settings_slice
+    store = pipeline.index
+    real = qdrant.handler
+
+    def down(request):
+        return httpx.Response(503, text="down")
+
+    qdrant.handler = down
+    store._retry.base_delay_s = 0.001
+    try:
+        for i in range(5):
+            meta = {"query_id": f"outage-{i}"}
+            docs = pipeline.context("what changed in the scheduler", 6, 3, meta)
+            assert docs["retrieved_documents"] and "retrieval_error" not in meta
+            assert get_flight_recorder().get(f"outage-{i}")["retrieval_legs_dropped"] == \
+                ["dense"]
+        assert store.breaker.state.value == "open"
+        meta = {"query_id": "outage-open"}
+        assert pipeline.context("pages and slots", 6, 3, meta)["retrieved_documents"]
+        assert get_flight_recorder().get("outage-open")["retrieval_legs_dropped"] == ["dense"]
+    finally:
+        qdrant.handler = real
+        store.breaker.state = CircuitState.CLOSED
+        store.breaker.stats.consecutive_failures = 0
 
 
 @pytest.mark.parametrize("prefix_cache,depth,chunk", [(True, 2, 0), (False, 1, 0), (True, 1, 64)])

@@ -757,19 +757,22 @@ def test_cli_ingest_and_serve(tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("env,value", [("AUTH_ENABLED", "1"), ("CACHE_BACKEND", "multi_tier"),
                                        ("VERIFY_MODE", "async"), ("VERIFY_MODE", "gated")])
 def test_server_refuses_unported_settings(monkeypatch, env, value):
-    """Auth and the Redis cache are refused; VERIFY_MODE=async|gated are
-    ported and pass, and an unknown mode is JAX's ValueError."""
+    """Auth, the Redis cache and VERIFY_MODE=async|gated are ported and
+    pass, read from JAX's env names into JAX's values; an unknown verify
+    mode is JAX's ValueError."""
+    from sentio_tpu.config import Settings as JSettingsEnv
     from sentio_tpu_torch.serve.app import check_serve_settings
 
     monkeypatch.setenv(env, value)
+    check_serve_settings(Settings.from_env())
     if env == "VERIFY_MODE":
-        check_serve_settings(Settings.from_env())
         monkeypatch.setenv(env, "eventually")
         with pytest.raises(ValueError, match="verify_mode must be one of"):
             check_serve_settings(Settings.from_env())
         return
-    with pytest.raises(NotImplementedError, match=env):
-        check_serve_settings(Settings.from_env())
+    section = "auth" if env == "AUTH_ENABLED" else "cache"
+    assert vars(getattr(Settings.from_env(), section)) == \
+        vars(getattr(JSettingsEnv.from_env(), section))
 
 
 # ------------------------------------------------------------- the replica tier
@@ -951,3 +954,237 @@ def test_two_replicas_degrade_and_recover_over_http(shared):
         server.server_close()
         thread.join(timeout=TIMEOUT_S)
         pipeline.close()
+
+
+# ------------------------------------------------------- auth, the page, metrics off
+
+AUTH_SECRET = "shared-test-secret"
+USERS = (("ada", "Str0ngPassword!", "user"), ("root", "Adm1nPassword!!", "admin"))
+
+
+@contextlib.contextmanager
+def auth_on(servers):
+    """Both servers with auth on for the block: one ``AuthManager`` each,
+    the same secret and users, restored to off afterwards."""
+    from sentio_tpu.config import AuthConfig as JAuthConfig
+    from sentio_tpu.infra.auth import AuthManager as JAuthManager
+    from sentio_tpu_torch.config import AuthConfig
+    from sentio_tpu_torch.infra.auth import AuthManager
+
+    jauth = JAuthManager(JAuthConfig(enabled=True, jwt_secret=AUTH_SECRET))
+    tauth = AuthManager(AuthConfig(enabled=True, jwt_secret=AUTH_SECRET))
+    for name, password, role in USERS:
+        jauth.create_user(name, password, role)
+        tauth.create_user(name, password, role)
+    servers["container"].override("auth_manager", jauth)
+    servers["server"].auth_manager = tauth
+    try:
+        yield jauth, tauth
+    finally:
+        servers["container"].override("auth_manager", None)
+        servers["server"].auth_manager = None
+
+
+def _bearer(token):
+    return {"Authorization": f"Bearer {token}"}
+
+
+@pytest.mark.parametrize("method,path,headers", [
+    ("POST", "/chat", {}),
+    ("POST", "/chat", {"Authorization": "Bearer not.a.token"}),
+    ("POST", "/chat", {"Authorization": "Basic abc"}),
+    ("POST", "/chat", {"X-API-Key": "stk_nope"}),
+    ("POST", "/embed", {}),
+    ("POST", "/upload", {}),
+    ("GET", "/info", {}),
+    ("GET", "/debug/flight/some-id", {}),
+    ("GET", "/nowhere", {}),
+], ids=lambda v: json.dumps(v)[:30])
+def test_auth_refuses_as_jax(servers, method, path, headers):
+    """Without a good credential every gated path answers JAX's 401 body,
+    with the security headers, and no chat runs."""
+    jc, pc = servers["jax"], servers["port"]
+    with auth_on(servers):
+        launches = servers["server"].pipeline.embedder.forwards
+        body = {"question": QUESTIONS[0]} if path == "/chat" else None
+        js, jh, jbody = jc.json(method, path, body, headers)
+        ps, ph, pbody = pc.json(method, path, body, headers)
+        assert (ps, pbody) == (js, jbody)
+        assert ps == 401 and pbody["error"] in ("missing credentials", "invalid credentials")
+        assert ph["content-type"] == jh["content-type"]
+        assert ph["x-content-type-options"] == "nosniff"
+        assert servers["server"].pipeline.embedder.forwards == launches
+
+
+@pytest.mark.parametrize("path", ["/health", "/health/live", "/health/ready", "/metrics", "/"])
+def test_open_paths_answer_without_a_token_as_jax(servers, path):
+    jc, pc = servers["jax"], servers["port"]
+    with auth_on(servers):
+        (js, _, jbody), (ps, _, pbody) = jc.request("GET", path), pc.request("GET", path)
+        assert ps == js == 200
+        if path == "/":
+            assert pbody == jbody
+
+
+def test_auth_token_and_the_tenant_key_as_jax(servers, monkeypatch):
+    """``/auth/token`` gives a token pair whose claims equal JAX's (and
+    whose tokens verify on the other server: one secret); a bad password is
+    JAX's 401; an authenticated chat is answered and charged to
+    ``user:<sub>`` whatever ``X-Tenant`` says, in the answer's metadata and
+    the tenant ledger; an API key works as a token does."""
+    from sentio_tpu.infra.auth import JWT as JJWT
+
+    jc, pc = servers["jax"], servers["port"]
+    with auth_on(servers) as (jauth, tauth):
+        tokens = {}
+        for name, client in (("jax", jc), ("port", pc)):
+            status, _, body = client.json("POST", "/auth/token",
+                                          {"username": "ada", "password": USERS[0][1]})
+            assert status == 200 and body["token_type"] == "bearer"
+            tokens[name] = body
+        claims = {k: {c: v for c, v in JJWT(AUTH_SECRET).decode(t["access_token"]).items()
+                      if c not in ("iat", "exp")} for k, t in tokens.items()}
+        assert claims["port"] == claims["jax"] == {"sub": "ada", "role": "user",
+                                                   "scopes": ["read", "chat", "embed"],
+                                                   "type": "access"}
+        for client in (jc, pc):
+            status, _, body = client.json("POST", "/auth/token",
+                                          {"username": "ada", "password": "Wrong-Password-1"})
+            assert status == 401 and body["error"]["code"] == "UNAUTHORIZED"
+            assert body["error"]["message"] == "invalid credentials"
+        spoof = {"X-Tenant": "someone-else"}
+        payload = {"question": QUESTIONS[1], "mode": "fast"}
+        # each server takes the other's token: the secret is shared
+        (js, _, jbody), (ps, _, pbody) = (
+            jc.json("POST", "/chat", payload, {**_bearer(tokens["port"]["access_token"]),
+                                               **spoof}),
+            pc.json("POST", "/chat", payload, {**_bearer(tokens["jax"]["access_token"]),
+                                               **spoof}))
+        assert ps == js == 200
+        assert pbody["metadata"]["tenant"] == jbody["metadata"]["tenant"] == "user:ada"
+        assert pbody["answer"] == jbody["answer"]
+        jset, tset = _sets(servers)
+        assert tset.tenants.stats()["per_tenant"]["user:ada"]["admitted"] == \
+            jset.tenants.stats()["per_tenant"]["user:ada"]["admitted"] >= 1
+        assert "someone-else" not in tset.tenants.stats()["per_tenant"]
+        key = tauth.create_api_key("root")
+        status, _, body = pc.json("POST", "/chat", payload, {"X-API-Key": key})
+        assert status == 200 and body["metadata"]["tenant"] == "user:root"
+
+
+def test_request_tenant_takes_the_principal_as_jax():
+    from sentio_tpu.serve import app as japp
+    from sentio_tpu_torch.serve import app as tapp
+
+    for auth in (None, {}, {"sub": ""}, {"sub": "ada"}, {"sub": "x y", "role": "admin"}):
+        for headers in ({}, {"X-Tenant": "team-a", "X-Priority": "batch"}):
+            request = _AiohttpRequest(headers)
+            if auth is not None:
+                request["auth"] = auth
+            assert tapp._request_tenant(headers, auth) == japp._request_tenant(request)
+
+
+def test_auth_token_is_404_while_auth_is_off_as_jax(servers):
+    jc, pc = servers["jax"], servers["port"]
+    payload = {"username": "ada", "password": "x"}
+    (js, _, jbody), (ps, _, pbody) = (jc.json("POST", "/auth/token", payload),
+                                      pc.json("POST", "/auth/token", payload))
+    assert (ps, pbody) == (js, jbody) == (404, {"error": "auth disabled"})
+
+
+def test_ui_page_matches_jax(servers):
+    """``GET /``: JAX's page byte for byte, as HTML, under its own
+    Content-Security-Policy; the rest of the security headers as on every
+    response."""
+    (js, jh, jbody), (ps, ph, pbody) = (servers["jax"].request("GET", "/"),
+                                        servers["port"].request("GET", "/"))
+    assert (ps, pbody) == (js, jbody) and ps == 200 and b"<title>sentio-tpu</title>" in pbody
+    for header in ("content-type", "content-security-policy", "x-frame-options"):
+        assert ph[header] == jh[header], header
+
+
+def test_server_serves_with_metrics_disabled_as_jax(servers):
+    """``METRICS_ENABLED=0``: JAX's server serves with its families
+    recorded, and so does the port's (a second server over the same
+    pipeline)."""
+    pipeline = servers["server"].pipeline
+    settings = dataclasses.replace(
+        pipeline.settings,
+        observability=dataclasses.replace(pipeline.settings.observability,
+                                          metrics_enabled=False))
+    server = create_server(settings, pipeline, host="127.0.0.1", port=0)
+    thread = threading.Thread(target=server.serve_forever, name="metrics-off-server",
+                              daemon=True)
+    thread.start()
+    try:
+        client = Client(server.server_address[1])
+        status, _, body = client.json("POST", "/chat", {"question": QUESTIONS[0],
+                                                        "mode": "fast"})
+        assert status == 200 and body["answer"]
+        port_text = client.request("GET", "/metrics")[2].decode()
+        jax_text = servers["jax"].request("GET", "/metrics")[2].decode()
+        for family in ("sentio_requests_total", "sentio_request_latency_seconds"):
+            assert family in port_text and family in jax_text
+        assert 'endpoint="/chat"' in port_text
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=TIMEOUT_S)
+
+
+def test_chat_under_multi_tier_uses_l1_only_as_jax(servers):
+    """``CACHE_BACKEND=multi_tier``: the ``/chat`` handler fills and reads
+    the query cache through the L1 surface alone, as JAX's does — no
+    command reaches Redis during a chat."""
+    from test_torch_redis_cache import LoopThread
+    from test_redis_cache import FakeRedis
+
+    from sentio_tpu_torch.config import CacheConfig
+    from sentio_tpu_torch.infra.caching import CacheManager
+    from sentio_tpu_torch.serve.handlers import ChatHandler
+
+    lt = LoopThread()
+    redis = FakeRedis()
+    lt.run(redis.start())
+    try:
+        manager = CacheManager(CacheConfig(backend="multi_tier",
+                                           redis_url=f"redis://127.0.0.1:{redis.port}/0"))
+        handler = ChatHandler(servers["server"].pipeline, cache_manager=manager,
+                              fallback=servers["server"].chat_handler.fallback)
+        out = handler.process_chat_request_sync(question=QUESTIONS[0], mode="fast")
+        assert out["answer"] and manager.get_query_response(QUESTIONS[0])["answer"] == \
+            out["answer"]
+        assert redis.commands == [] and manager.multi_tier
+        manager.close()
+    finally:
+        lt.run(redis.stop())
+        lt.close()
+
+
+def test_health_detailed_lists_registered_breakers_as_jax(servers):
+    """``/health/detailed``'s ``breakers`` carry each registered
+    ``CircuitBreaker`` (a store's) as JAX's do, beside the replica tier's
+    (``replica_0``); the report is recomputed after its cache time."""
+    from sentio_tpu.infra.resilience import CircuitBreaker as JCircuitBreaker
+    from sentio_tpu_torch.infra.resilience import CircuitBreaker, unregister_breaker
+
+    jc, pc = servers["jax"], servers["port"]
+    name = "qdrant:serve-test"
+    breakers = [CircuitBreaker(name=name, failure_threshold=2),
+                JCircuitBreaker(name=name, failure_threshold=2)]
+    for b in breakers:
+        b.record_success()
+        b.record_failure()
+        b.record_failure()
+    for handler in (servers["server"].health_handler,
+                    servers["container"].health_handler):
+        handler._cached = None
+    try:
+        (js, _, jbody), (ps, _, pbody) = (jc.json("GET", "/health/detailed"),
+                                          pc.json("GET", "/health/detailed"))
+        assert ps == js == 200
+        got, want = pbody["components"]["breakers"], jbody["components"]["breakers"]
+        assert got[name] == want[name] and got[name]["state"] == "open"
+        assert got["replica_0"]["state"] == "HEALTHY" and "replica_0" not in want
+    finally:
+        unregister_breaker(breakers[0])
