@@ -212,7 +212,8 @@ line each:
     less its reserved bytes at most 2 GB (its CUDA context), its reserved
     bytes below the weights' (a private copy would show in one or the
     other); every worker captured every graph variant and holds the head;
-    in each of 3 rounds no chat degraded, each worker served a chat, every
+    in its round (one; ``--worker-rounds`` runs three in each mode) no
+    chat degraded, each worker served a chat, every
     verify a radix hit, each worker's paged launches one per layer per
     sub-step and equal to its own card counts (read in its process, through
     its ``stats``), the router's flash launches equal to the card's and no
@@ -248,8 +249,9 @@ IPC handles on them).
 
 32. slice_moe — the /chat pipeline at Mixtral-8x7B's published widths
     (dim 4,096, MLP 14,336, 32 / 8 heads, 8 experts, top-2, vocab 32,000,
-    rope 1e6; the no-drop capacity factor 4.0) cut to 16 of its 32 layers
-    (46.96 GB of bf16 weights made on the card from the seed), under
+    rope 1e6; the no-drop capacity factor 4.0) cut to 8 of its 32 layers
+    (``MOE_LAYERS``; ~23.7 GB of bf16 weights made on the card from the
+    seed), under
     ``Settings()`` (hybrid rrf, bf16
     pool, prefix cache, one replica, sync verify): warmup, ingest, 3 chats
     in a counted window, gated as phase 4, plus the routing of the window
@@ -300,8 +302,41 @@ IPC handles on them).
     opens after its 5th failure (the next chat fails fast) and
     /health/detailed lists it open beside replica 0.
 
-``--only-new`` runs the build, the kernel checks and phase 35 only (on
-weights made afresh from the seed) and ends without the result lines.
+36. elastic (after remote_worker, on the same weights) — the elastic fleet
+    at full width: REPLICA_MODE=socket, REPLICAS=1, AUTOSCALE=1 with
+    AUTOSCALE_MAX_REPLICAS=2 behind ``create_server`` on 127.0.0.1, its
+    windows, cooldowns and poll short (``ELASTIC_SERVE``, printed with the
+    phase), ADMISSION_MAX_QUEUE 32, AFFINITY_STICKINESS 0. The live
+    autoscaler thread alone decides (the phase never calls ``step`` or
+    ``retire``): (1) a burst of concurrent chats grows the fleet (its
+    backlog fraction over the window); the launched worker spawns on the
+    router's weight tensors, registers with slot -1 and is warmed before it
+    joins; (2) a second wave reaches the joined worker, whose
+    ``/debug/flight`` is ``stitched`` and whose lone greedy text equals
+    thread mode's; (3) its ``request_leave`` is answered by a graceful
+    retire: the slot released, a redial of it rejected typed; (4) another
+    burst makes the autoscaler launch again, the new worker reusing the
+    slot at epoch 2; (5) with a stream in flight on each replica (the phase
+    routes each), the idle fleet retires one as its scale-in cooldown ends:
+    a scale-in that follows the phase's re-base of every worker's duty
+    (``reset_duty_cycle`` at the second join; the cumulative duty before
+    it is reported); the stream on it finishes inside the drain with the
+    text of an uninterrupted greedy run; (6) the CLI's fleet trace has a
+    lane for each incarnation, the retired ones marked. Gates: every chat
+    200 and not degraded; /metrics' decisions out >= 2 and in >= 1 and
+    sentio_tpu_fleet_live_replicas 1, 2, 1, 2, 1 at the steps; each worker's
+    paged launches one per layer per sub-step and equal to its card counts,
+    the router's flash launches equal to the router's; at each join the
+    card's used bytes rise by at most the worker's reserved bytes plus
+    2 GB and that reserve is below the weights' bytes, and after each
+    retire they fall back to within 1 GB of the level before the join.
+    Reported: the seconds from each decision to the first
+    chat the joined worker served, retire_drain_p95_s, tickets handed off,
+    each worker's duty cycle, the phase's wall time.
+
+``--only-new`` runs the build, the kernel checks and phase 36 only (on
+weights made afresh from the seed; the joined worker's lone greedy text
+held to the first worker's) and ends without the result lines.
 ``--rounds-only`` runs the build and replicas_1's warmup and rounds only,
 to compare two trees' round times in one call (copied into the other
 tree's root, it drives that tree's package), and ends the same way.
@@ -324,6 +359,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
@@ -3308,6 +3344,9 @@ def verify_modes_check(torch, dev, shared) -> dict:
 REPLICA_JSON_CHATS = 8   # with REPLICA_SSE_CHATS, released together from two tenants
 REPLICA_SSE_CHATS = 2
 REPLICA_ROUNDS = 3       # bursts of each replica count, each on questions of its own
+# replicas_2_process's rounds in the full run, for its time limit
+# (``--worker-rounds`` runs REPLICA_ROUNDS)
+PROCESS_ROUNDS = 1
 # AFFINITY_STICKINESS of the replica phases: a replica keeps the chats its
 # radix tree serves best while its backlog is within 0.5 x its 8 slots. The
 # router takes the first of replicas tied at the best hit, as JAX's does,
@@ -4310,9 +4349,11 @@ def cli_check(torch) -> dict:
     """``python -m sentio_tpu_torch info`` names the card, and ``trace`` (the
     default settings at full width, answers and verdicts of MAX_TOKENS)
     answers on it with its flight record's two admissions and writes a
-    Chrome trace with tick slices. The tiny presets cannot run on the card:
-    their head dims (16) are not among the kernels' tiles."""
+    Chrome trace with tick slices (``info`` runs beside ``trace``). The tiny
+    presets cannot run on the card: their head dims (16) are not among the
+    kernels' tiles."""
     import os
+    import threading
     from pathlib import Path
 
     root = Path(__file__).resolve().parent
@@ -4322,24 +4363,42 @@ def cli_check(torch) -> dict:
     torch.cuda.empty_cache()
     env = dict(os.environ, LLM_MAX_TOKENS=str(MAX_TOKENS), VERIFIER_MAX_TOKENS=str(MAX_TOKENS))
     cmd = [sys.executable, "-m", "sentio_tpu_torch"]
-    t0 = time.perf_counter()
-    proc = subprocess.run([*cmd, "info"], cwd=root, env=env, capture_output=True, text=True,
-                          timeout=300)
-    info_s = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"cli info: exit {proc.returncode}: {proc.stderr[-2000:]}")
-    info = json.loads(proc.stdout)
-    with tempfile.TemporaryDirectory(prefix="smoke-trace-") as tmp:
-        chrome_path = Path(tmp) / "trace.json"
-        t0 = time.perf_counter()
-        proc = subprocess.run([*cmd, "trace", "What does the paged cache hold?", "--chrome",
-                               str(chrome_path)], cwd=root, env=env, capture_output=True,
-                              text=True, timeout=600)
-        trace_s = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise AssertionError(f"cli trace: exit {proc.returncode}: {proc.stderr[-3000:]}")
-        trace = json.loads(proc.stdout)
-        chrome = json.loads(chrome_path.read_text())
+    # info (a CUDA context, no model) runs beside trace, timed on its own
+    t_info = time.perf_counter()
+    info_proc = subprocess.Popen([*cmd, "info"], cwd=root, env=env, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+    info_done: dict = {}
+
+    def wait_info() -> None:
+        info_done["out"] = info_proc.communicate(timeout=300)
+        info_done["s"] = time.perf_counter() - t_info
+
+    waiter = threading.Thread(target=wait_info, name="smoke-cli-info", daemon=True)
+    waiter.start()
+    try:
+        with tempfile.TemporaryDirectory(prefix="smoke-trace-") as tmp:
+            chrome_path = Path(tmp) / "trace.json"
+            t0 = time.perf_counter()
+            proc = subprocess.run([*cmd, "trace", "What does the paged cache hold?",
+                                   "--chrome", str(chrome_path)], cwd=root, env=env,
+                                  capture_output=True, text=True, timeout=600)
+            trace_s = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"cli trace: exit {proc.returncode}: "
+                                     f"{proc.stderr[-3000:]}")
+            trace = json.loads(proc.stdout)
+            chrome = json.loads(chrome_path.read_text())
+        waiter.join(timeout=300)
+    finally:
+        if info_proc.poll() is None:
+            info_proc.kill()
+        waiter.join(timeout=30)
+    if "out" not in info_done:
+        raise AssertionError("cli info did not finish within 300 s")
+    (info_out, info_err), info_s = info_done["out"], info_done["s"]
+    if info_proc.returncode != 0:
+        raise AssertionError(f"cli info: exit {info_proc.returncode}: {info_err[-2000:]}")
+    info = json.loads(info_out)
     flight = trace.get("flight") or {}
     names = [e["name"] for e in chrome.get("traceEvents", [])]
     result = {"info": info, "info_s": info_s, "trace_s": trace_s,
@@ -4851,7 +4910,7 @@ def worker_phases(torch, dev, weights: dict, ref: dict) -> dict:
         client = HttpClient(server.server_address[1])
         rs = pipeline.replica_set
         rounds = [worker_burst(torch, "replicas_2_process", pipeline, client, words,
-                               offset=3 * total * r) for r in range(REPLICA_ROUNDS)]
+                               offset=3 * total * r) for r in range(PROCESS_ROUNDS)]
         seconds = [x for r in rounds for x in r["chat_s"]]
         card_peak = warm.pop("card_peak").stop()
         lone = lone_greedy(rs)
@@ -4925,6 +4984,541 @@ def worker_phases(torch, dev, weights: dict, ref: dict) -> dict:
         del pipeline
     out["remote_worker"] = remote_worker_check(torch, dev, weights, docs, ref["lone"])
     return out
+
+
+# ------------------------------------------------------------- the elastic fleet
+
+# the elastic phase's serve settings: one socket worker at the start, the
+# autoscaler's window, cooldowns and poll cut to seconds. Scale-out follows
+# the backlog (a burst of ELASTIC_BURST chats over 32 queue places);
+# busy, the pumps' duty since their start or their last re-base, keeps
+# AUTOSCALE_OUT_BUSY at 1.0 out of scale-out's way and lets scale-in through
+# only after the duty is re-based at the second join (a joined worker's
+# warmup keeps the fleet's mean above AUTOSCALE_IN_BUSY until then); the
+# scale-in cooldown outlasts a join by 10 s or more, so the fleet shrinks
+# only in step 5
+ELASTIC_SERVE = dict(
+    replicas=1, replica_mode="socket", autoscale=True, autoscale_min_replicas=1,
+    autoscale_max_replicas=2, autoscale_window_s=2.0, autoscale_poll_interval_s=0.25,
+    autoscale_out_busy=1.0, autoscale_in_busy=0.5, autoscale_out_backlog=0.2,
+    autoscale_out_cooldown_s=10.0, autoscale_in_cooldown_s=50.0, admission_max_queue=32,
+    affinity_stickiness=0.0, replica_rebuild_drain_s=60.0)
+ELASTIC_BURST = 16       # JSON chats released together to grow the fleet
+ELASTIC_CHUNKS = 512     # the elastic server's corpus
+ELASTIC_WAVE = 8         # the wave that reaches the joined worker
+ELASTIC_STREAM_TOKENS = 512
+ELASTIC_STREAM_LEAD_S = 3.0   # the streams start this long before scale-in may fire
+ELASTIC_JOIN_S = 240.0
+# short prompts (less than one 128-token page): no radix hit anywhere, so a
+# stream and its reference take the same prefill
+ELASTIC_STREAM_PROMPTS = ("Elastic stream one: count the pages of a decode pool",
+                          "Elastic stream two: name the slots of a decode batch")
+
+
+def elastic_chats(client, words, n: int, offset: int, tag: str) -> tuple:
+    """``n`` JSON chats released together on threads, each named
+    ``{tag}-{i}`` (its flight record): the threads, and the list each
+    fills with its status, body, seconds and the perf_counter at which it
+    returned (:func:`finish_chats` joins them)."""
+    import threading
+
+    out: list = [None] * n
+    start = threading.Barrier(n)
+
+    def run(i: int) -> None:
+        question = f"What links {words[offset + 3 * i]} to {words[offset + 3 * i + 1]}?"
+        start.wait(timeout=60)
+        t0 = time.perf_counter()
+        try:
+            status, _, body = client.json("POST", "/chat",
+                                          {"question": question, "thread_id": f"{tag}-{i}"})
+            out[i] = (status, body, time.perf_counter() - t0, time.perf_counter())
+        except Exception as exc:  # noqa: BLE001 — raised below, on the main thread
+            out[i] = ("raised", exc, time.perf_counter() - t0, time.perf_counter())
+
+    threads = [threading.Thread(target=run, args=(i,), name=f"smoke-elastic-{i}", daemon=True)
+               for i in range(n)]
+    for t in threads:
+        t.start()
+    return threads, out
+
+
+def finish_chats(phase: str, threads: list, out: list) -> dict:
+    for t in threads:
+        t.join(timeout=HTTP_TIMEOUT_S)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError(f"{phase}: a chat did not return within {HTTP_TIMEOUT_S:.0f} s")
+    for i, (status, body, _s, _t) in enumerate(out):
+        if status == "raised":
+            raise AssertionError(f"{phase} chat {i} raised: {body!r}") from body
+        check_http_chat(phase, i, status, body)
+    seconds = [s for _st, _b, s, _t in out]
+    return {"chat_s": seconds, "p50_s": percentile(seconds, 0.5),
+            "p95_s": percentile(seconds, 0.95),
+            "replicas": [b["metadata"].get("replica_id") for _st, b, _s, _t in out],
+            "done_at": [t for *_x, t in out]}
+
+
+def fleet_gauge(client) -> float:
+    samples = parse_prometheus(client.request("GET", "/metrics")[2].decode())
+    return metric_sum(samples, "sentio_tpu_fleet_live_replicas")
+
+
+def decisions(client) -> dict:
+    samples = parse_prometheus(client.request("GET", "/metrics")[2].decode())
+    out = {"out": 0.0, "in": 0.0}
+    for (name, labels), value in samples.items():
+        if name == "sentio_tpu_autoscale_decisions_total":
+            direction = dict(labels)["direction"]
+            out[direction] = out.get(direction, 0.0) + value
+    return out
+
+
+def quiet_card(torch) -> int:
+    """The card's used bytes with the router's cached blocks returned."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    return card_used(torch)
+
+
+def gpu_processes() -> dict:
+    """{pid: used bytes} of each process nvidia-smi lists on the card ({}
+    where it lists none, or other pids than this machine's)."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         timeout=60).stdout
+    procs = {}
+    for line in out.splitlines():
+        parts = [x.strip() for x in line.split(",")]
+        if len(parts) == 2 and parts[0].isdigit() and parts[1].isdigit():
+            procs[int(parts[0])] = int(parts[1]) << 20
+    return procs
+
+
+def card_overhead(torch, rs) -> dict:
+    """The card's used bytes (the router's cache returned) and the part no
+    process accounts for: with nvidia-smi's per-process bytes of the
+    router and the live workers, what is left (pinned, leaked); without
+    them, what the router's and the live workers' allocators do not hold
+    (the contexts, the modules loaded, anything pinned). A join adds a
+    worker's context to the latter; a second copy of the weights would add
+    16 GB; a retire must leave neither."""
+    import os
+
+    pids = {i: svc.pid for i, svc in zip(range(rs.replicas), rs.services)
+            if rs._health[i].state != "RETIRED"}
+    reserved = {i: (rs.services[i].stats()["worker"].get("memory") or {}).get("reserved") or 0
+                for i in pids}
+    used = quiet_card(torch)
+    procs = gpu_processes()
+    router = torch.cuda.memory_reserved()
+    mine = [os.getpid(), *pids.values()]
+    by_process = all(pid in procs for pid in mine)
+    overhead = (used - sum(procs[pid] for pid in mine) if by_process
+                else used - router - sum(reserved.values()))
+    return {"used": used, "reserved": reserved, "router_reserved": router,
+            "processes": {pid: procs.get(pid) for pid in mine}, "by_process": by_process,
+            "overhead": overhead}
+
+
+def await_decision(scaler, direction: str, count: int, timeout_s: float) -> float:
+    """The perf_counter at which the loop's ``direction`` count reached
+    ``count`` (polled every 20 ms)."""
+    key = "scale_out" if direction == "out" else "scale_in"
+    wait_for(lambda: scaler.stats()[key] >= count, timeout_s,
+             f"autoscale decision {direction} #{count}", poll_s=0.02)
+    return time.perf_counter()
+
+
+def await_join(torch, rs, slot: int, epoch: int, before: dict, weight_bytes: int,
+               phase: str) -> dict:
+    """The worker of ``slot`` joined at ``epoch`` (warmed by the membership
+    source): its seconds, its reserved memory and the card's rise, gated
+    to one copy of the weights, as :func:`worker_server` gates a spawn: the
+    rise less the growth of every worker's allocator (the newcomer's whole
+    reserve, the others' growth under the burst) is at most
+    ``WORKER_SLACK_BYTES``, and the newcomer's reserve is less than the
+    weights' bytes (a private copy shows in one or the other)."""
+    t0 = time.perf_counter()
+    wait_for(lambda: rs.live_replicas == 2 and rs.replicas > slot
+             and rs.services[slot].epoch == epoch
+             and rs.health_summary()["status"] == "healthy", ELASTIC_JOIN_S,
+             f"{phase}: the worker of slot {slot} to join at epoch {epoch}")
+    worker = rs.services[slot]
+    report = worker.stats()["worker"]
+    reserved = (report.get("memory") or {}).get("reserved")
+    after = card_overhead(torch, rs)
+    out = {"slot": slot, "epoch": worker.epoch, "pid": worker.pid,
+           "waited_s": time.perf_counter() - t0, "reserved": reserved,
+           "card_rise": after["used"] - before["used"],
+           "overhead_rise": after["overhead"] - before["overhead"],
+           "before": before, "after": after,
+           "graphs_captured": report["graphs_captured"], "graphs_frozen": report["graphs_frozen"],
+           "foreign_modules": report["foreign_modules"]}
+    # the worker's own bytes where nvidia-smi has them (its allocator and
+    # context), else the rise no allocator accounts for
+    own = after["processes"].get(worker.pid) if after["by_process"] else None
+    out["worker_bytes"] = own
+    over = own - reserved if own is not None else out["overhead_rise"]
+    if not report["graphs_frozen"] or report["foreign_modules"]:
+        raise AssertionError(f"{phase}: the joined worker joined unwarmed or loaded JAX: {out}")
+    # held at the phase's end, so one run reports every step's memory
+    out["weights_bytes"] = weight_bytes
+    out["memory_gate"] = (None if reserved and over <= WORKER_SLACK_BYTES
+                          and reserved < weight_bytes else
+                          f"{phase}: the joined worker is not on the shared weights: "
+                          f"{over} bytes beyond its reserve of {reserved} "
+                          f"({weight_bytes} weight bytes)")
+    return out
+
+
+def await_retired(torch, rs, slot: int, pid: int, before: dict, phase: str) -> dict:
+    """``slot`` RETIRED, its registry slot released, its process gone and
+    the card's overhead (:func:`card_overhead`) back within 1 GB of
+    ``before``'s, taken before the join: the retired worker's pool and
+    context freed, nothing left pinned."""
+    import os
+
+    from sentio_tpu_torch.runtime.replica import HEALTH_RETIRED
+
+    t0 = time.perf_counter()
+    wait_for(lambda: rs._health[slot].state == HEALTH_RETIRED, 120,
+             f"{phase}: slot {slot} to retire")
+
+    def gone():
+        try:
+            os.kill(pid, 0)
+        except ProcessLookupError:
+            return True
+        # a zombie has exited: its memory is released
+        try:
+            with open(f"/proc/{pid}/stat") as fh:
+                return fh.read().split()[2] == "Z"
+        except OSError:
+            return True
+
+    wait_for(gone, 60, f"{phase}: worker pid {pid} to exit")
+    deadline = time.perf_counter() + 20.0
+    after = card_overhead(torch, rs)
+    while after["overhead"] - before["overhead"] > 1 << 30 and time.perf_counter() < deadline:
+        time.sleep(0.5)
+        after = card_overhead(torch, rs)
+    free = rs.registry.stats()["free_slots"]
+    if slot not in free:
+        raise AssertionError(f"{phase}: slot {slot} was not released: {free}")
+    return {"slot": slot, "waited_s": time.perf_counter() - t0, "card_used": after["used"],
+            "card_over_before": after["used"] - before["used"],
+            "overhead_over_before": after["overhead"] - before["overhead"],
+            "before": before, "after": after, "free_slots": free,
+            # held at the phase's end
+            "memory_gate": (None if after["overhead"] - before["overhead"] <= 1 << 30 else
+                            f"{phase}: the card did not fall back within 1 GB of its level "
+                            f"before the join")}
+
+
+def redial_rejected(rs, slot: int) -> str:
+    """A retired slot's redial is refused typed (FrameProtocolError)."""
+    import os
+
+    from sentio_tpu_torch.runtime.transport import FrameProtocolError, dial, send_hello
+
+    t = dial(tuple(rs.registry.address))
+    try:
+        send_hello(t, rs.registry.auth_token, slot, os.getpid())
+    except FrameProtocolError as exc:
+        return str(exc)
+    finally:
+        t.close()
+    raise AssertionError(f"elastic: a redial of retired slot {slot} was accepted")
+
+
+def first_served(chats: dict, slot: int, since: float) -> Optional[float]:
+    done = [t for r, t in zip(chats["replicas"], chats["done_at"]) if r == slot]
+    return min(done) - since if done else None
+
+
+def elastic_check(torch, dev, weights: dict, ref_lone: Optional[dict]) -> dict:
+    """Phase 36 (see the module docstring)."""
+    import threading
+
+    from sentio_tpu_torch import __main__ as cli
+    from sentio_tpu_torch.config import GeneratorConfig, ServeConfig, Settings
+    from sentio_tpu_torch.infra.flight import get_flight_recorder
+
+    t_phase = time.perf_counter()
+    docs, words = corpus(ELASTIC_CHUNKS)
+    settings = Settings(generator=GeneratorConfig(max_new_tokens=MAX_TOKENS,
+                                                  verifier_max_tokens=MAX_TOKENS),
+                        serve=ServeConfig(**ELASTIC_SERVE))
+    emit("elastic_settings", **{k.upper(): v for k, v in ELASTIC_SERVE.items()},
+         burst=ELASTIC_BURST, wave=ELASTIC_WAVE, stream_tokens=ELASTIC_STREAM_TOKENS)
+    pipeline, server, thread, warm = worker_server(torch, dev, "elastic", settings, weights,
+                                                   docs)
+    result: dict = {"warmup": warm}
+    try:
+        warm.pop("card_peak").stop()
+        client = HttpClient(server.server_address[1])
+        rs = pipeline.replica_set
+        scaler = rs.autoscaler
+        n_layers = rs.services[0].engine.cfg.n_layers
+        gauge = [fleet_gauge(client)]
+        decisions0 = decisions(client)
+        stats0 = rs.stats()
+        window = LaunchWindow(torch)
+        # the card's level before each join: read just before the loop
+        # launches a worker (the first worker's allocator grows under the
+        # burst that decides it)
+        levels: list = []
+        launch = scaler.launcher
+
+        def metered_launch():
+            levels.append(card_overhead(torch, rs))
+            launch()
+
+        metered_launch.close = launch.close  # the set's close reaps through it
+        scaler.launcher = metered_launch
+        weight_bytes = tensor_bytes(weights["llama_params"])
+        rows: list = []
+
+        # 1. scale out under a burst
+        before0 = worker_reports(rs)
+        threads, out = elastic_chats(client, words, ELASTIC_BURST, 0, "elastic-burst1")
+        t_out1 = await_decision(scaler, "out", 1, 120)
+        burst1 = finish_chats("elastic_burst1", threads, out)
+        join1 = await_join(torch, rs, 1, 1, levels[0], weight_bytes, "elastic_join1")
+        join1["decision_to_join_s"] = time.perf_counter() - t_out1
+        emit("elastic_join1", burst_p50_s=burst1["p50_s"], **join1)
+        gauge.append(fleet_gauge(client))
+
+        # 2. a wave that reaches the joined worker; its lone greedy text
+        before1 = worker_reports(rs)[1]
+        threads, out = elastic_chats(client, words, ELASTIC_WAVE, 3 * ELASTIC_BURST,
+                                     "elastic-wave")
+        wave = finish_chats("elastic_wave", threads, out)
+        if 1 not in wave["replicas"]:
+            raise AssertionError(f"elastic: no chat of the wave reached the joined worker: "
+                                 f"{wave['replicas']}")
+        served = wave["replicas"].index(1)
+        # the chat's generate ran on the joined worker (its verify may have
+        # run on the other: the record is stitched from the first worker in
+        # slot order that holds one, as JAX's)
+        status, _, record = client.json("GET", f"/debug/flight/elastic-wave-{served}")
+        flight = {k: (record or {}).get(k) for k in (
+            "engine_window", "engine_replica", "engine_epoch", "clock_uncertainty_s",
+            "replicas_unavailable")}
+        flight.update(status=status, ticks=len((record or {}).get("ticks") or []),
+                      engine_keys=sorted(((record or {}).get("engine") or {})))
+        emit("elastic_flight", chat=served, **flight)
+        if status != 200 or flight["engine_window"] != "stitched" \
+                or flight["engine_replica"] not in (0, 1) or not flight["ticks"] \
+                or not flight["engine_keys"] or flight["replicas_unavailable"]:
+            raise AssertionError(f"elastic: a worker-served chat's flight record is not "
+                                 f"stitched: {flight}")
+        rs.wait_idle()
+        lone_ref = ref_lone or {"text": rs.services[0].generate(
+            LONE_PROMPT, max_new_tokens=MAX_TOKENS, temperature=0.0, timeout_s=300).text}
+        lone = rs.services[1].generate(LONE_PROMPT, max_new_tokens=MAX_TOKENS,
+                                       temperature=0.0, timeout_s=300)
+        check_lone("elastic", {"text": lone.text}, lone_ref)
+        # the uninterrupted greedy runs of step 5's streams, one on each
+        # worker at once (every worker holds the same weights and graphs)
+        references: list = [None] * len(ELASTIC_STREAM_PROMPTS)
+
+        def reference(i: int) -> None:
+            references[i] = rs.services[i].generate(
+                ELASTIC_STREAM_PROMPTS[i], max_new_tokens=ELASTIC_STREAM_TOKENS,
+                temperature=0.0, timeout_s=300).text
+
+        refs = [threading.Thread(target=reference, args=(i,), name=f"smoke-elastic-ref-{i}",
+                                 daemon=True) for i in range(len(ELASTIC_STREAM_PROMPTS))]
+        for t in refs:
+            t.start()
+        for t in refs:
+            t.join(timeout=300)
+        if None in references:
+            raise AssertionError("elastic: a reference run did not finish")
+        after = worker_reports(rs)
+        rows += worker_deltas(before0[:1], after[:1]) + worker_deltas([before1], after[1:2])
+        duty_wave = [svc.duty_cycle() for svc in rs.services]
+
+        # 3. the joined worker deregisters: a graceful retire
+        pid1 = rs.services[1].pid
+        lanes_before = fleet_lanes_of(cli._fleet_trace(pipeline))
+        rs.services[1].request_leave("elastic smoke")
+        retire1 = await_retired(torch, rs, 1, pid1, levels[0], "elastic_deregister")
+        retire1["redial"] = redial_rejected(rs, 1)
+        if "was retired" not in retire1["redial"]:
+            raise AssertionError(f"elastic: the redial's rejection: {retire1['redial']}")
+        emit("elastic_deregister", wave_p50_s=wave["p50_s"], wave_replicas=wave["replicas"],
+             **retire1)
+        gauge.append(fleet_gauge(client))
+        lanes_retired = fleet_lanes_of(cli._fleet_trace(pipeline))
+
+        # 4. another burst: the autoscaler launches again, the slot reused
+        # (past the scale-out cooldown, which a join on the card outlasts)
+        time.sleep(max(t_out1 + settings.serve.autoscale_out_cooldown_s - time.perf_counter(),
+                       0.0))
+        before0 = worker_reports(rs)[0]
+        threads, out = elastic_chats(client, words, ELASTIC_BURST, 6 * ELASTIC_BURST,
+                                     "elastic-burst2")
+        t_out2 = await_decision(scaler, "out", 2, 120)
+        burst2 = finish_chats("elastic_burst2", threads, out)
+        join2 = await_join(torch, rs, 1, 2, levels[1], weight_bytes, "elastic_join2")
+        join2["decision_to_join_s"] = time.perf_counter() - t_out2
+        emit("elastic_join2", burst_p50_s=burst2["p50_s"], **join2)
+        gauge.append(fleet_gauge(client))
+        before2 = worker_reports(rs)[1]
+        # the rejoined worker's lone greedy text too (its first request)
+        lone2 = rs.services[1].generate(LONE_PROMPT, max_new_tokens=MAX_TOKENS,
+                                        temperature=0.0, timeout_s=300)
+        first_request = time.perf_counter() - t_out2
+        check_lone("elastic_rejoin", {"text": lone2.text}, lone_ref)
+        after = worker_reports(rs)
+        rows += worker_deltas([before0], after[:1]) + worker_deltas([before2], after[1:2])
+        # the pumps' duty re-based: the idle fleet reads idle from here, and
+        # the streams' share stays under AUTOSCALE_IN_BUSY while they ran
+        # less long than the fleet idled before them. Without the re-base a
+        # joined worker's warmup holds the cumulative duty (reported) above
+        # AUTOSCALE_IN_BUSY: the scale-in gated here is the one that follows
+        # a re-base, not one a fleet with cumulative duty would get
+        duty_before_rebase = [svc.duty_cycle() for svc in rs.services]
+        for svc in rs.services:
+            svc.reset_duty_cycle()
+        pid = {i: rs.services[i].pid for i in (0, 1)}
+
+        # 5. scale-in with a stream in flight on each replica
+        start_at = t_out2 + settings.serve.autoscale_in_cooldown_s - ELASTIC_STREAM_LEAD_S
+        if time.perf_counter() > start_at - ELASTIC_STREAM_LEAD_S:
+            raise AssertionError(f"elastic: the second join took "
+                                 f"{join2['decision_to_join_s']:.1f} s, too late for the "
+                                 f"scale-in cooldown ({settings.serve.autoscale_in_cooldown_s}"
+                                 " s)")
+        time.sleep(max(start_at - time.perf_counter(), 0.0))
+        streams: list = [dict() for _ in ELASTIC_STREAM_PROMPTS]
+
+        route = rs._route
+
+        def consume(i: int, first: threading.Event) -> None:
+            box = streams[i]
+            box["stats"] = {}
+            try:
+                # stream i on replica i: the set routes it there (its first
+                # route only; a resume routes as the set would)
+                rs._route = lambda toks, count=True, exclude=frozenset(): (i, 0)
+                try:
+                    it = rs.generate_stream(ELASTIC_STREAM_PROMPTS[i],
+                                            max_new_tokens=ELASTIC_STREAM_TOKENS,
+                                            temperature=0.0, timeout_s=300,
+                                            stats_out=box["stats"])
+                finally:
+                    rs._route = route
+                pieces = [next(it)]
+                first.set()
+                pieces += list(it)
+                box["text"] = "".join(pieces)
+            except Exception as exc:  # noqa: BLE001 — raised below, on the main thread
+                box["error"] = exc
+                first.set()
+            box["done_at"] = time.perf_counter()
+
+        consumers = []
+        for i in range(len(ELASTIC_STREAM_PROMPTS)):
+            first = threading.Event()
+            consumers.append(threading.Thread(target=consume, args=(i, first),
+                                              name=f"smoke-elastic-stream-{i}", daemon=True))
+            consumers[-1].start()
+            first.wait(timeout=120)  # in flight before the next routes
+        # the retire begins (RETIRING) at the decision; the loop books the
+        # decision once the drain is over
+        t_in = wait_for(lambda: next((time.perf_counter() for i in (0, 1)
+                                      if rs._health[i].state in ("RETIRING", "RETIRED")), None),
+                        120, "the scale-in's retire to begin", poll_s=0.01)
+        await_decision(scaler, "in", 1, 120)
+        for t in consumers:
+            t.join(timeout=300)
+        if any(t.is_alive() for t in consumers) or any("error" in b for b in streams):
+            raise AssertionError(f"elastic: a stream failed: {streams}")
+        wait_for(lambda: rs.live_replicas == 1, 120, "the scale-in's retire")
+        retired = [i for i in (0, 1) if rs._health[i].state == "RETIRED"]
+        # "replica" is where a stream ended: a resume would move it off its
+        # routed replica, so the retired one's stream is held to end there
+        stream_rows = [{"routed": i, "replica": b["stats"].get("replica_id"),
+                        "done_after_in_s": b["done_at"] - t_in, "equal": b["text"] == ref,
+                        "tokens": b["stats"].get("tokens")}
+                       for i, (b, ref) in enumerate(zip(streams, references))]
+        on_retired = [r for r in stream_rows if r["replica"] in retired]
+        if len(retired) != 1 or not on_retired or not all(r["equal"] for r in stream_rows) \
+                or on_retired[0]["done_after_in_s"] <= 0:
+            raise AssertionError(f"elastic: scale-in retired {retired} with streams "
+                                 f"{stream_rows}, stream resumes "
+                                 f"{rs.stats()['stream_resumes'] - stats0['stream_resumes']}")
+        retire2 = await_retired(torch, rs, retired[0], pid[retired[0]], levels[1],
+                                "elastic_scale_in")
+        emit("elastic_scale_in", streams=stream_rows, **retire2)
+        gauge.append(fleet_gauge(client))
+
+        # 6. the fleet trace: a lane per incarnation, the retired ones marked
+        lanes_end = fleet_lanes_of(cli._fleet_trace(pipeline))
+        incarnations = {**lanes_before, **lanes_retired, **lanes_end}
+        marked = [name for name in incarnations.values() if name.endswith("(retired)")]
+        if len(incarnations) != 3 or len(marked) < 2:
+            raise AssertionError(f"elastic: the fleet trace's lanes: {lanes_before}, "
+                                 f"{lanes_retired}, {lanes_end}")
+
+        router, router_card = window.read()
+        memory_gates = [x["memory_gate"] for x in (join1, retire1, join2, retire2)
+                        if x["memory_gate"]]
+        check_card("elastic_router", router_card, router)
+        if router["paged_attention"] or router["flash_attention"] <= 0:
+            raise AssertionError(f"elastic: the router decoded, or never launched flash: "
+                                 f"{router}")
+        check_worker_launches("elastic", rows, n_layers)
+        made = {k: v - decisions0.get(k, 0.0) for k, v in decisions(client).items()}
+        if made.get("out", 0) < 2 or made.get("in", 0) < 1 or gauge != [1, 2, 1, 2, 1]:
+            raise AssertionError(f"elastic: decisions {made}, fleet gauge {gauge}")
+        stats = rs.stats()
+        events = [t for t in get_flight_recorder().timeline()
+                  if t.get("event") in ("autoscale_decision", "replica_joined")]
+        result.update(
+            burst1=burst1, wave=wave, burst2=burst2, joins=[join1, join2],
+            retires=[retire1, retire2], flight=flight, lone_equal=lone.text == lone2.text,
+            # the first chat the joined worker served after each decision
+            # (after the second, its first request is a reference run)
+            decision_to_first_served_s=[first_served(burst1, 1, t_out1) or
+                                        first_served(wave, 1, t_out1),
+                                        first_served(burst2, 1, t_out2)],
+            decision_to_first_request_s=[None, first_request],
+            streams=stream_rows, decisions=made, fleet_gauge=gauge,
+            autoscaler=scaler.stats(), fleet=stats["fleet"],
+            handed_off=stats["handed_off"] - stats0["handed_off"],
+            stream_resumes=stats["stream_resumes"] - stats0["stream_resumes"],
+            duty_cycle_wave=duty_wave, duty_cycle_before_rebase=duty_before_rebase,
+            scale_in_conditions=(
+                "after reset_duty_cycle() on every worker at the second join (the "
+                "cumulative duty before it: duty_cycle_before_rebase); each stream "
+                "routed by the phase to its replica"),
+            fleet_lanes=incarnations,
+            registry=rs.registry.stats(), router_launches=router,
+            router_device_launches=router_card, worker_windows=rows,
+            paged_launches=sum(r["launches"]["paged_attention"] for r in rows),
+            events=[{k: e.get(k) for k in ("event", "direction", "reason", "replica")}
+                    for e in events], seconds=time.perf_counter() - t_phase)
+        emit("elastic", **result)
+        if memory_gates:
+            raise AssertionError("; ".join(memory_gates))
+        return result
+    finally:
+        stop_server(server, thread)
+        close_pipeline(torch, pipeline)
+
+
+def fleet_lanes_of(trace: Optional[dict]) -> dict:
+    """A fleet trace's worker lanes by pid, the clock bound cut off."""
+    if trace is None:
+        raise AssertionError("elastic: the fleet trace found no worker replica")
+    return {e["pid"]: re.sub(r" \(clock [^)]*\)", "", e["args"]["name"])
+            for e in trace["traceEvents"]
+            if e.get("ph") == "M" and e["name"] == "process_name" and e["pid"] >= 1000}
 
 
 def replica_phases(torch, dev, weights) -> dict:
@@ -5048,9 +5642,12 @@ def new_phases(torch, dev, weights) -> dict:
 
 # ------------------------------------------------------------------ MoE
 
-# Mixtral-8x7B at full width: 16 of its 32 layers fit one 80 GB card
-# (46.96 GB of bf16 weights) with the pool and the encoders
-MOE_LAYERS = 16
+# Mixtral-8x7B at full width, cut to 8 of its 32 layers: 16 fit one 80 GB
+# card (46.96 GB of bf16 weights) with the pool and the encoders, 8 keep
+# the whole run inside its time limit with the elastic phase (at 4 a
+# near-tied expert choice flips between the kernel and plain paths and
+# moe_logits differs by 0.80)
+MOE_LAYERS = 8
 
 
 def mixtral_config(n_layers: int = MOE_LAYERS):
@@ -5428,8 +6025,8 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only-new", action="store_true",
-                        help="build, the kernel checks, then only serve_settings; ends "
-                             "without the result lines")
+                        help="build, the kernel checks, then only elastic; ends without the "
+                             "result lines")
     parser.add_argument("--worker-rounds", action="store_true",
                         help="build, then the rounds of one and two replicas in thread and "
                              "in process mode (random 8B weights); ends without the result "
@@ -5467,14 +6064,25 @@ def main(argv=None) -> int:
         worker_rounds(torch, dev)
         return 0
 
+    import threading
+
+    bm25: dict = {}
+
+    def build_bm25() -> None:
+        t0 = time.perf_counter()
+        bm25["built"] = native.load_bm25() is not None
+        bm25["seconds"] = time.perf_counter() - t0
+
+    # the BM25 core's g++ runs beside the kernels' nvcc
+    bm25_build = threading.Thread(target=build_bm25, name="smoke-bm25-build", daemon=True)
+    bm25_build.start()
     sweep, sweep_quant = span_sweep(), span_sweep(quant=True)
     seconds = build_all([*KERNELS, *(k for k in (*sweep.values(), *sweep_quant.values())
                                      if k not in KERNELS)])
-    t0 = time.perf_counter()
-    bm25_core = native.load_bm25() is not None
+    bm25_build.join(timeout=300)
     tensor_core = {k.name: sass_counts(k) for k in KERNELS}
-    emit("build", seconds=seconds, bm25_core_built=bm25_core,
-         bm25_core_seconds=time.perf_counter() - t0, sass_tensor_core=tensor_core, ptxas={
+    emit("build", seconds=seconds, bm25_core_built=bm25.get("built", False),
+         bm25_core_seconds=bm25.get("seconds"), sass_tensor_core=tensor_core, ptxas={
              k.name: [ln.strip() for ln in k.build_log.splitlines() if "registers" in ln
                       or "spill" in ln] for k in KERNELS})
     for name, op in (("flash_attention", "HGMMA"), ("paged_attention_quant", "HMMA")):
@@ -5498,7 +6106,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     if args.only_new:
-        serve_settings_check(torch, dev, settings_weights(torch, dev))
+        elastic_check(torch, dev, settings_weights(torch, dev), None)
         return 0
 
     # the MoE phases first: their 47 GB of weights cannot sit beside the
@@ -5575,6 +6183,7 @@ def main(argv=None) -> int:
     t_workers = time.perf_counter()
     workers = worker_phases(torch, dev, weights, rep["replicas_2"])
     emit("worker_phases", seconds=time.perf_counter() - t_workers)
+    elastic = elastic_check(torch, dev, weights, rep["replicas_2"]["lone"])
     worker_paths = {"replicas_2_process": workers["replicas_2_process"]["launches"],
                     "replicas_2_socket": workers["replicas_2_socket"]["launches"],
                     "remote_worker": {k: sum(w["launches"][k] for w in
@@ -5606,13 +6215,15 @@ def main(argv=None) -> int:
                                  for path in rep_paths},
                               **{path: launches["paged_attention"]
                                  for path, launches in worker_paths.items()},
+                              "elastic": elastic["paged_launches"],
                               "slice_moe": sm["launches"]["paged_attention"],
                               "profile_moe": pm["launches_counted"]["paged_attention"]},
          "launches_by_worker": {
              "replicas_2_process": workers["replicas_2_process"]["launches_by_worker"],
              "replicas_2_socket": [w["launches"] for w in
                                    workers["replicas_2_socket"]["round"]["workers"]],
-             "remote_worker": [w["launches"] for w in workers["remote_worker"]["launches"]]},
+             "remote_worker": [w["launches"] for w in workers["remote_worker"]["launches"]],
+             "elastic": [w["launches"] for w in elastic["worker_windows"]]},
          "device_launches_by_worker": {
              "replicas_2_process": [w["device_launches"] for r in
                                     workers["replicas_2_process"]["rounds"]
@@ -5620,7 +6231,8 @@ def main(argv=None) -> int:
              "replicas_2_socket": [w["device_launches"] for w in
                                    workers["replicas_2_socket"]["round"]["workers"]],
              "remote_worker": [w["device_launches"] for w in
-                               workers["remote_worker"]["launches"]]},
+                               workers["remote_worker"]["launches"]],
+             "elastic": [w["device_launches"] for w in elastic["worker_windows"]]},
          "device_launches_replica_tier": {path: family_launches(
              rep[path]["device_launches"], "paged_attention") for path in rep_paths},
          "device_launches_eval": {name: family_launches(ev[name]["device_launches"],
@@ -5694,6 +6306,7 @@ def main(argv=None) -> int:
                                   for r in workers["replicas_2_process"]["rounds"]),
                               "replicas_2_socket_router": workers["replicas_2_socket"][
                                   "round"]["router_launches"]["flash_attention"],
+                              "elastic_router": elastic["router_launches"]["flash_attention"],
                               "slice_moe": sm["launches"]["flash_attention"],
                               "profile_moe": pm["launches_counted"]["flash_attention"],
                               "slice_moe_int8": sm8["launches"]["flash_attention"]},

@@ -30,8 +30,11 @@
   execution trace as JSON (JAX's keys: the stages' path and times, the
   document counts, the answer, the verdict, the metadata, and the request's
   flight record with its engine section and tick window); ``--chrome``
-  writes the recorder's whole timeline as a Chrome / Perfetto trace.
-  ``--fleet`` (the process tier's fleet trace) raises: not ported.
+  writes the recorder's whole timeline as a Chrome / Perfetto trace;
+  with ``--fleet`` every worker replica's flight buffer is fetched and the
+  fleet laid out on the router's clock, a lane per worker incarnation
+  (a retired or dead one marked; thread mode falls back to the local
+  timeline).
 * ``info`` prints the version, the devices (``{"platform": "gpu", "kind":
   <the card's name>}``, or ``cpu``), the retrieval strategy, the
   generator preset and the mesh sizes.
@@ -145,9 +148,6 @@ def _cmd_trace(args) -> int:
     from sentio_tpu_torch.infra.flight import get_flight_recorder
     from sentio_tpu_torch.pipeline import build_pipeline, wait_detached
 
-    if args.fleet:
-        raise NotImplementedError("--fleet: fleet traces of process and socket replicas are "
-                                  "not ported (ROADMAP item 9c)")
     settings = _settings(args)
     pipeline = build_pipeline(settings, device=args.device, seed=args.seed)
     try:
@@ -182,8 +182,14 @@ def _cmd_trace(args) -> int:
         if args.chrome:
             from sentio_tpu_torch.infra.chrome_trace import flight_to_chrome
 
+            chrome = _fleet_trace(pipeline) if args.fleet else None
+            if chrome is None:
+                if args.fleet:
+                    print("--fleet: no worker replicas (thread mode?) — falling back to the "
+                          "local timeline", file=sys.stderr)
+                chrome = flight_to_chrome()
             with open(args.chrome, "w") as fh:
-                json.dump(flight_to_chrome(), fh)
+                json.dump(chrome, fh)
             print(f"chrome trace written to {args.chrome} (open in ui.perfetto.dev)",
                   file=sys.stderr)
         if args.documents:
@@ -194,6 +200,48 @@ def _cmd_trace(args) -> int:
         pipeline.close()
     print(json.dumps(trace, indent=2, default=str))
     return 0
+
+
+def _fleet_trace(pipeline):
+    """Every worker replica's flight buffer (``fetch_flight``) on one
+    Chrome trace aligned to the router's clock: the router's lanes on top,
+    a process row per worker incarnation below, its timestamps shifted by
+    its ``ClockSync`` (the lane names the ± bound). A RETIRING or RETIRED
+    incarnation, or one that does not answer, keeps its lane from the
+    router's cached telemetry, marked ``(retired)`` or ``(dead)``. None
+    without worker replicas (thread mode)."""
+    from sentio_tpu_torch.infra.chrome_trace import build_fleet_trace
+    from sentio_tpu_torch.infra.flight import get_flight_recorder
+
+    rs = pipeline.replica_set
+    members = list(getattr(rs, "_services", None) or ())
+    healths = list(getattr(rs, "_health", None) or ())
+    if not any(callable(getattr(svc, "fetch_flight", None)) for svc in members):
+        return None
+    recorder = get_flight_recorder()
+    router_origin = recorder.origin()
+    workers = []
+    for idx, svc in enumerate(members):
+        if not callable(getattr(svc, "fetch_flight", None)):
+            continue
+        state = healths[idx].state if idx < len(healths) else ""
+        if state in ("RETIRING", "RETIRED"):
+            workers.append(svc.cached_flight_lane(router_origin, "retired"))
+            continue
+        try:
+            reply = svc.fetch_flight()
+        except Exception as exc:  # noqa: BLE001 — a dead worker: its cached lane
+            print(f"--fleet: replica {svc.replica_id} unavailable ({type(exc).__name__}) — "
+                  "rendering its lane from cached telemetry", file=sys.stderr)
+            workers.append(svc.cached_flight_lane(router_origin, "dead"))
+            continue
+        shift, bound = svc.flight_shift_s(router_origin)
+        workers.append({"replica": reply.get("replica"), "epoch": reply.get("epoch") or 0,
+                        "shift_s": shift, "uncertainty_s": bound,
+                        "ticks": reply.get("ticks") or [],
+                        "records": reply.get("records") or []})
+    return build_fleet_trace(workers, router_ticks=recorder.timeline(),
+                             router_records=recorder.records())
 
 
 def _cmd_info(args) -> int:
@@ -330,7 +378,8 @@ def main(argv=None) -> int:
     trace.add_argument("--chrome", default="", metavar="OUT_JSON",
                        help="also write the flight timeline as a Chrome/Perfetto trace")
     trace.add_argument("--fleet", action="store_true",
-                       help="a fleet trace of worker replicas (not ported: raises)")
+                       help="with --chrome: every worker replica's flight buffer on one "
+                            "clock-aligned trace (a lane per worker incarnation)")
     common(trace)
     trace.set_defaults(fn=_cmd_trace)
 

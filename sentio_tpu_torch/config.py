@@ -6,10 +6,10 @@ JAX package's tree (chunking, retrieval, rerank, embedder, generator, the
 serve section's HTTP surface, the generation service's overload controls
 and the replica tier in its thread, process and socket modes, the cache
 section with its Redis tier, auth, observability, and of the mesh section
-its dp / tp / sp sizes); the autoscaler's tuning fields and the rest of
-the mesh are left out because nothing in this package reads them.
-Settings the port cannot honour (``AUTOSCALE=1``, a mesh of more than one
-device) raise where they would be used.
+its dp / tp / sp sizes, the autoscaler's ten ``AUTOSCALE_*`` settings);
+the rest of the mesh is left out because nothing in this package reads it.
+Settings the port cannot honour (a mesh of more than one device) raise
+where they would be used.
 Plain dataclasses, no import-time work.
 """
 
@@ -384,8 +384,19 @@ class ServeConfig:
     socket_heal_grace_s: float = 5.0
     # a worker's telemetry frames (metrics deltas, duty); 0 turns them off
     telemetry_interval_s: float = 1.0
-    # the autoscaler (ROADMAP 9c): AUTOSCALE=1 raises
+    # the elastic fleet's autoscaler (built only under AUTOSCALE=1; elastic
+    # joins and deregisters reach a socket set either way). The clamps are
+    # the policy's own (runtime/autoscaler.py), as in JAX
     autoscale: bool = False
+    autoscale_min_replicas: int = 1
+    autoscale_max_replicas: int = 4
+    autoscale_window_s: float = 15.0
+    autoscale_out_busy: float = 0.75
+    autoscale_in_busy: float = 0.15
+    autoscale_out_backlog: float = 0.5
+    autoscale_out_cooldown_s: float = 30.0
+    autoscale_in_cooldown_s: float = 60.0
+    autoscale_poll_interval_s: float = 1.0
 
     @classmethod
     def from_env(cls) -> "ServeConfig":
@@ -442,6 +453,15 @@ class ServeConfig:
             socket_heal_grace_s=_env_float(["SOCKET_HEAL_GRACE_S"], 5.0),
             telemetry_interval_s=_env_float(["TELEMETRY_INTERVAL_S"], 1.0),
             autoscale=_env_bool(["AUTOSCALE"], False),
+            autoscale_min_replicas=_env_int(["AUTOSCALE_MIN_REPLICAS"], 1),
+            autoscale_max_replicas=_env_int(["AUTOSCALE_MAX_REPLICAS"], 4),
+            autoscale_window_s=_env_float(["AUTOSCALE_WINDOW_S"], 15.0),
+            autoscale_out_busy=_env_float(["AUTOSCALE_OUT_BUSY"], 0.75),
+            autoscale_in_busy=_env_float(["AUTOSCALE_IN_BUSY"], 0.15),
+            autoscale_out_backlog=_env_float(["AUTOSCALE_OUT_BACKLOG"], 0.5),
+            autoscale_out_cooldown_s=_env_float(["AUTOSCALE_OUT_COOLDOWN_S"], 30.0),
+            autoscale_in_cooldown_s=_env_float(["AUTOSCALE_IN_COOLDOWN_S"], 60.0),
+            autoscale_poll_interval_s=_env_float(["AUTOSCALE_POLL_INTERVAL_S"], 1.0),
         )
 
     def parsed_replica_workers(self) -> list[tuple[str, int]]:

@@ -16,6 +16,12 @@ recorder's seconds × 1e6 (microseconds).
 
 A tick's ``graph_captures`` (CUDA graphs captured in it) takes the place
 of JAX's ``xla_compiles`` among the arguments copied onto its slice.
+
+:func:`build_fleet_trace` lays a worker fleet out on the router's clock:
+the router's lanes on top, one process row per worker incarnation below
+(``worker R epoch E (clock ±X.Xms)``, marked ``(retired)`` or ``(dead)``
+where the incarnation no longer answers), every worker timestamp shifted
+onto the router's timeline first.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ from typing import Optional
 
 from sentio_tpu_torch.infra.phases import TICK_PHASES
 
-__all__ = ["build_chrome_trace", "flight_to_chrome"]
+__all__ = ["build_chrome_trace", "build_fleet_trace", "flight_to_chrome"]
 
 # tick fields copied onto the tick slice
 _TICK_ARGS = (
@@ -34,6 +40,8 @@ _TICK_ARGS = (
 
 _PUMP_TID = 0
 _REQUEST_TID_BASE = 1
+# a worker incarnation's synthetic process row: this x (replica + 1) + epoch
+_FLEET_PID_BASE = 1000
 
 
 def _us(seconds: float) -> float:
@@ -159,6 +167,60 @@ def build_chrome_trace(ticks: list[dict], records: list[dict],
     events.extend(sorted(tick_events + request_events,
                          key=lambda e: (e["pid"], e["tid"], e.get("ts", 0.0), e["name"])))
     return {"displayTimeUnit": "ms", "otherData": {"source": label}, "traceEvents": events}
+
+
+def build_fleet_trace(workers: list[dict], router_ticks: Optional[list] = None,
+                      router_records: Optional[list] = None,
+                      label: str = "sentio-tpu-fleet") -> dict:
+    """One Chrome trace across the fleet: the router's lanes (their own
+    pids), then a process row per worker incarnation. Each ``workers``
+    entry is plain data, ``{"replica", "epoch", "shift_s",
+    "uncertainty_s", "ticks", "records"}`` (``shift_s`` maps the worker's
+    timeline onto the router's, ``ProcessReplica.flight_shift_s``; the
+    uncertainty is stamped on the lane's name), and may carry ``"status":
+    "retired" | "dead"`` for an incarnation that no longer answers: its
+    lane renders from what the router cached, or empty, its name marked."""
+    all_ticks = [dict(t) for t in (router_ticks or [])]
+    all_records = [dict(r) for r in (router_records or [])]
+    names: dict[int, str] = {}
+    for worker in workers:
+        replica = int(worker.get("replica", 0))
+        epoch = int(worker.get("epoch", 0))
+        shift = float(worker.get("shift_s", 0.0))
+        pid = _FLEET_PID_BASE * (replica + 1) + epoch
+        bound = worker.get("uncertainty_s")
+        status = str(worker.get("status") or "").strip().lower()
+        names[pid] = (f"worker {replica} epoch {epoch}"
+                      + (f" (clock ±{float(bound) * 1e3:.1f}ms)" if bound is not None
+                         else " (clock unaligned)")
+                      + (f" ({status})" if status else ""))
+        for tick in worker.get("ticks") or []:
+            shifted = dict(tick, replica=pid)
+            if "t_s" in shifted:
+                shifted["t_s"] = round(float(shifted["t_s"]) + shift, 6)
+            all_ticks.append(shifted)
+        for record in worker.get("records") or []:
+            shifted = dict(record)
+            engine = dict(shifted.get("engine") or {})
+            engine["replica_id"] = pid
+            if engine.get("t_submit_s") is not None:
+                engine["t_submit_s"] = round(float(engine["t_submit_s"]) + shift, 6)
+            shifted["engine"] = engine
+            if shifted.get("t_start_s") is not None:
+                shifted["t_start_s"] = round(float(shifted["t_start_s"]) + shift, 6)
+            all_records.append(shifted)
+    trace = build_chrome_trace(all_ticks, all_records, label=label)
+    named: set[int] = set()
+    for event in trace["traceEvents"]:
+        if event.get("ph") == "M" and event.get("name") == "process_name" \
+                and event["pid"] in names:
+            event["args"]["name"] = names[event["pid"]]
+            named.add(event["pid"])
+    # an incarnation with nothing cached has no event: its row is named anyway
+    for pid in sorted(set(names) - named):
+        trace["traceEvents"].insert(0, {"name": "process_name", "ph": "M", "pid": pid,
+                                        "tid": 0, "args": {"name": names[pid]}})
+    return trace
 
 
 def flight_to_chrome(recorder=None, request_id: Optional[str] = None,

@@ -41,8 +41,11 @@ under ``{replica}``): ``..._worker_tick_phase_seconds_total`` /
 counters (``sentio_tpu_xla_compiles_total``,
 ``sentio_tpu_worker_compiles_total``), whose place the CUDA graph captures
 take (a tick's ``graph_captures``, a worker's ``sentio_tpu_replica_stat``
-row ``graph_captures``), and the elastic fleet's (``fleet_*``,
-``autoscale_*``; ROADMAP 9c).
+row ``graph_captures``). The elastic fleet's: ``sentio_tpu_fleet_live_replicas``
+(set by the replica set at each join and retire),
+``sentio_tpu_autoscale_decisions_total`` (each executed decision, by
+direction and reason) and ``sentio_tpu_fleet_at_max_saturated`` (the
+autoscaler's alert gauge); a router's own, never shipped by a worker.
 
 A family without labels has its one series from the start (at 0), as
 ``prometheus_client`` renders it. :meth:`MetricsCollector.export_json`
@@ -155,11 +158,15 @@ class Counter(_Family):
 
 class Gauge(_Family):
     kind = "gauge"
+    # whether any series was ever set: JAX's JSON snapshot holds a gauge
+    # only once it was (its text export renders an unlabeled one at 0)
+    touched = False
 
     def set(self, *labels, value: float) -> None:
         key = self._key(labels)
         with self._lock:
             self._children[key] = float(value)
+            self.touched = True
 
     def render(self) -> list[str]:
         with self._lock:
@@ -342,6 +349,19 @@ class MetricsCollector:
         self.worker_telemetry_dropped = Counter(
             "sentio_tpu_worker_telemetry_dropped_total",
             "worker telemetry frames/series dropped at merge", ["replica", "reason"])
+        # the elastic fleet: membership is a runtime variable, so the live
+        # size is a gauge and every autoscaler decision a counter
+        self.fleet_size = Gauge(
+            "sentio_tpu_fleet_live_replicas",
+            "live (non-retired) replicas currently wired into the serving set")
+        self.autoscale_decisions = Counter(
+            "sentio_tpu_autoscale_decisions_total",
+            "executed autoscaler decisions by direction and the signal that triggered them",
+            ["direction", "reason"])
+        self.fleet_saturated = Gauge(
+            "sentio_tpu_fleet_at_max_saturated",
+            "1 while the fleet sits at AUTOSCALE_MAX_REPLICAS with the windowed load still "
+            "above the scale-out thresholds")
         # JAX's keys for each family (its collector's and export_json's)
         self._families = {
             "requests": self.requests, "request_latency": self.request_latency,
@@ -369,6 +389,8 @@ class MetricsCollector:
             "worker_observed_count": self.worker_observed_count,
             "worker_telemetry_age": self.worker_telemetry_age,
             "worker_telemetry_dropped": self.worker_telemetry_dropped,
+            "fleet_size": self.fleet_size, "autoscale_decisions": self.autoscale_decisions,
+            "fleet_saturated": self.fleet_saturated,
         }
         # the last accepted telemetry snapshot of each replica's worker
         self._worker_last: dict[int, dict] = {}
@@ -508,6 +530,21 @@ class MetricsCollector:
         rejected_proto."""
         self.worker_reconnects.inc(outcome)
 
+    def record_fleet_size(self, live: int) -> None:
+        """The live (non-retired) replica count, re-derived by the replica
+        set at each join and retire."""
+        self.fleet_size.set(value=float(live))
+
+    def record_autoscale_decision(self, direction: str, reason: str) -> None:
+        """One executed autoscaler decision (``direction``: out | in;
+        ``reason``: busy | backlog | idle)."""
+        self.autoscale_decisions.inc(direction, reason)
+
+    def record_fleet_saturation(self, value: float) -> None:
+        """1.0 while the fleet is at its maximum and the windowed load still
+        clears the scale-out thresholds, else 0.0."""
+        self.fleet_saturated.set(value=float(value))
+
     # ------------------------------------------------- the fleet telemetry
 
     # the family keys a worker ships under JAX's series names
@@ -516,7 +553,8 @@ class MetricsCollector:
         "worker_deaths", "worker_incarnation", "worker_stale_frames", "worker_reconnects",
         "worker_tick_phase_seconds", "worker_tick_phase_ticks", "worker_verify",
         "worker_events", "worker_observed_sum", "worker_observed_count",
-        "worker_telemetry_age", "worker_telemetry_dropped"))
+        "worker_telemetry_age", "worker_telemetry_dropped", "fleet_size",
+        "autoscale_decisions", "fleet_saturated"))
 
     def export_worker_series(self) -> dict[str, Any]:
         """This process's CUMULATIVE counters and histogram counts and sums
@@ -653,6 +691,8 @@ class MetricsCollector:
             if isinstance(family, Histogram):
                 for key, summary in family.summary().items():
                     out["histograms"][f"{name}{key}"] = summary
+            elif isinstance(family, Gauge) and not family.touched:
+                continue
             else:
                 section = out["counters" if isinstance(family, Counter) else "gauges"]
                 for key, value in family.values().items():

@@ -26,8 +26,14 @@ of its own (``runtime/worker.py``) and ``socket`` does so over TCP, the
 workers registering with the router's ``WorkerRegistry``, or, with
 ``REPLICA_WORKERS``, dialed where they already serve; the router's weight
 tensors reach each spawned worker through the spawn arguments, so the card
-holds them once. With ``PREFIX_CACHE`` on, the ``/chat`` template head is
-warmed into every replica's radix tree at build time.
+holds them once. A socket set also takes workers that join at runtime
+(``slot=-1``: warmed on the set's join thread, then wired in by the
+supervisor) and retires one that deregisters; ``AUTOSCALE=1`` puts the
+autoscaler (``runtime/autoscaler.py``) over the set in every mode, whose scale-out
+spawns such a worker in socket mode (thread and process sets have no
+launcher, as in JAX: a scale-out is booked skipped, a scale-in retires).
+With ``PREFIX_CACHE`` on, the ``/chat`` template head is warmed into every
+replica's radix tree at build time.
 ``USE_PAGED_KV=0`` generates on the contiguous engine instead
 (``runtime/engine.py``: causal flash prefill, one call at a time).
 ``LLM_CHECKPOINT`` and ``RERANKER_CHECKPOINT`` load ``save_pytree``
@@ -188,18 +194,14 @@ def select_documents(docs: list, budget_tokens: int) -> tuple[list[Document], in
 
 
 def check_replica_settings(serve) -> None:
-    """Refuse ``AUTOSCALE=1`` (the autoscaler is ROADMAP item 9c) and, as
-    JAX's container does, ``REPLICA_WORKERS`` under ``REPLICA_MODE=socket``
-    without ``SOCKET_AUTH_TOKEN`` (a ``ValueError``); an unknown
-    ``REPLICA_MODE`` warns and means thread mode, as in JAX."""
+    """Refuse, as JAX's container does, ``REPLICA_WORKERS`` under
+    ``REPLICA_MODE=socket`` without ``SOCKET_AUTH_TOKEN`` (a
+    ``ValueError``); an unknown ``REPLICA_MODE`` warns and means thread
+    mode, as in JAX."""
     if serve.replica_mode == "socket" and serve.parsed_replica_workers() \
             and not serve.socket_auth_token:
         raise ValueError("REPLICA_WORKERS needs SOCKET_AUTH_TOKEN set identically on router "
                          "and workers")
-    if serve.autoscale:
-        raise NotImplementedError(f"AUTOSCALE=1 (REPLICA_MODE={serve.replica_mode}): the "
-                                  "replica autoscaler and the elastic fleet are not ported "
-                                  "(ROADMAP item 9c)")
     if serve.replica_mode not in REPLICA_MODES:
         logger.warning("REPLICA_MODE=%r unknown (expected thread|process|socket); using "
                        "thread mode", serve.replica_mode)
@@ -560,18 +562,18 @@ class ChatPipeline:
         return len(documents)
 
     def warmup(self) -> Optional[dict]:
-        """Warm every replica at once (each captures every graph variant on
-        the card, a worker in its own process) before traffic, then warm the
-        template head into every replica's tree again: warmup's own prompts
-        fill the trees and can evict it. None on the contiguous engine. Sets
-        ``ready``."""
+        """Warm every live replica at once (each captures every graph
+        variant on the card, a worker in its own process) before traffic,
+        then warm the template head into every replica's tree again:
+        warmup's own prompts fill the trees and can evict it. None on the
+        contiguous engine. Sets ``ready``."""
         stats = None
         replicas = self.replica_set
         if replicas is not None:
             stats = replicas.warmup()
             if self.warm_head:
                 stats["head_tokens"] = []
-                for svc, result in zip(replicas.services, stats["per_replica"]):
+                for (_slot, svc), result in zip(replicas.live_services(), stats["per_replica"]):
                     if "head_tokens" in result:
                         # a worker warmed it again itself, after its warmup
                         stats["head_tokens"].append(result["head_tokens"])
@@ -644,8 +646,9 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
     (BM25 is rebuilt from a store that already holds a corpus), the
     scorers from ``USE_SCORERS`` and the web-cache index from
     ``WEB_CACHE_PATH`` when ``<path>.json`` exists (else none, as in
-    JAX). Settings this package cannot honour (``AUTOSCALE=1``, a mesh)
-    raise ``NotImplementedError``."""
+    JAX). ``AUTOSCALE=1`` starts the autoscaler over the set
+    (``pipeline.replica_set.autoscaler``). A mesh, which this package
+    cannot honour, raises ``NotImplementedError``."""
     settings = settings or Settings()
     rcfg, gcfg = settings.retrieval, settings.generator
     mesh = settings.mesh
@@ -759,6 +762,8 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
                 services.append(PagedGenerationService(engine, replica_id=i,
                                                        **service_settings(serve)))
             replicas = ReplicaSet(services, **tier)
+            if serve.autoscale:
+                start_autoscaler(replicas, serve, launcher=None)
         else:
             replicas = _worker_tier(settings, mode, llama_config, llama_params, draft_params,
                                     draft_config, seed, dev, warm_head, tier)
@@ -840,15 +845,38 @@ def worker_spec(settings: Settings, model_config: LlamaConfig, replica_id: int, 
                       **transport)
 
 
+def start_autoscaler(replicas: ReplicaSet, serve, launcher=None):
+    """The ``AUTOSCALE_*`` policy and loop over ``replicas``, started and
+    attached to the set (which stops it first when it drains or closes)."""
+    from sentio_tpu_torch.runtime.autoscaler import AutoscalePolicy, Autoscaler
+
+    autoscaler = Autoscaler(
+        replicas,
+        AutoscalePolicy(min_replicas=serve.autoscale_min_replicas,
+                        max_replicas=serve.autoscale_max_replicas,
+                        window_s=serve.autoscale_window_s, out_busy=serve.autoscale_out_busy,
+                        in_busy=serve.autoscale_in_busy,
+                        out_backlog=serve.autoscale_out_backlog,
+                        out_cooldown_s=serve.autoscale_out_cooldown_s,
+                        in_cooldown_s=serve.autoscale_in_cooldown_s),
+        launcher=launcher, poll_interval_s=serve.autoscale_poll_interval_s)
+    replicas.autoscaler = autoscaler
+    autoscaler.start()
+    return autoscaler
+
+
 def _worker_tier(settings: Settings, mode: str, llama_config: LlamaConfig, llama_params: dict,
                  draft_params: Optional[dict], draft_config: Optional[LlamaConfig], seed: int,
                  dev: torch.device, warm_head: str, tier: dict) -> ReplicaSet:
     """The process or socket replica tier: a ``ProcessReplica`` per worker
     behind a ``ReplicaSet`` (JAX's ``dependencies.py`` branch). Spawned
     workers get the router's weight tensors; ``REPLICA_WORKERS`` (socket
-    mode) dials workers serving elsewhere instead. The kernels are built before the first spawn, so
-    the workers only load them. A failed spawn reaps the workers already
-    running and closes the registry."""
+    mode) dials workers serving elsewhere instead. The kernels are built
+    before the first spawn, so the workers only load them. A failed spawn
+    reaps the workers already running and closes the registry. One spec
+    recipe serves the start, the elastic joins and the autoscaler's
+    launcher; a socket set always takes joins (the membership source),
+    whatever ``AUTOSCALE`` says."""
     import secrets
 
     from sentio_tpu_torch.models.tokenizer import ByteTokenizer
@@ -877,21 +905,24 @@ def _worker_tier(settings: Settings, mode: str, llama_config: LlamaConfig, llama
 
             build_all(KERNELS)
         tokenizer = ByteTokenizer(llama_config.vocab_size)
-        for i in range(n_replicas):
-            spec = worker_spec(settings, llama_config, i, seed=seed, device=dev,
+
+        def make_spec(i: int):
+            return worker_spec(settings, llama_config, i, seed=seed, device=dev,
                                warm_head=warm_head, params=llama_params,
                                draft_params=draft_params, draft_config=draft_config,
                                auth_token=token, socket=mode == "socket")
+
+        socket_kwargs = dict(transport_mode="socket", registry=registry,
+                             partition_timeout_s=serve.socket_partition_timeout_s,
+                             heal_grace_s=serve.socket_heal_grace_s)
+        for i in range(n_replicas):
             transport = {} if mode != "socket" else dict(
-                transport_mode="socket", registry=registry,
-                connect_addr=addrs[i] if addrs else None,
-                partition_timeout_s=serve.socket_partition_timeout_s,
-                heal_grace_s=serve.socket_heal_grace_s)
-            services.append(ProcessReplica(spec, tokenizer, replica_id=i, **transport))
+                socket_kwargs, connect_addr=addrs[i] if addrs else None)
+            services.append(ProcessReplica(make_spec(i), tokenizer, replica_id=i, **transport))
         logger.info("%s-mode replica tier: %d workers (pids %s%s)", mode, n_replicas,
                     [svc.pid for svc in services],
                     f", registry {registry.address}" if registry is not None else "")
-        return ReplicaSet(services, registry=registry, **tier)
+        replicas = ReplicaSet(services, registry=registry, **tier)
     except BaseException:
         for svc in services:
             try:
@@ -901,3 +932,34 @@ def _worker_tier(settings: Settings, mode: str, llama_config: LlamaConfig, llama
         if registry is not None:
             registry.close()
         raise
+    launcher = None
+    if registry is not None:
+
+        def join_elastic() -> list:
+            """The registry's joins, each wrapped, then warmed (every graph
+            captured and the head warm before it takes traffic), on the
+            set's ``replica-join`` thread, never the supervisor's; one that
+            fails to come up is closed and its slot released."""
+            joined = []
+            for slot in sorted(registry.drain_joins()):
+                svc = None
+                try:
+                    svc = ProcessReplica(make_spec(slot), tokenizer, replica_id=slot,
+                                         adopt_registration=True, **socket_kwargs)
+                    svc.warmup()
+                except Exception:  # noqa: BLE001 — one joiner that failed, not the poll
+                    logger.exception("elastic worker for slot %d did not come up", slot)
+                    if svc is not None:
+                        svc.close()
+                    registry.release_slot(slot)
+                    continue
+                joined.append((slot, svc))
+            return joined
+
+        replicas.set_membership_source(join_elastic, release_slot=registry.release_slot)
+        from sentio_tpu_torch.runtime.autoscaler import socket_worker_launcher
+
+        launcher = socket_worker_launcher(registry.address, make_spec(-1))
+    if serve.autoscale:
+        start_autoscaler(replicas, serve, launcher=launcher)
+    return replicas

@@ -48,11 +48,22 @@ their router-side ticket shadow (``enable_shadow_handoff``), so a dead
 worker's unanswered tickets go through :meth:`ReplicaSet._handoff_inbox`
 to a survivor's ``adopt``, and a rebuild respawns (or, over a socket,
 heals) the worker. :class:`WorkerRegistry` is the socket workers'
-registration listener and incarnation-epoch book for a fixed set of slots.
-The elastic fleet (a join with ``slot=-1``, ``add_replica``, ``retire``,
-the membership source, the autoscaler) is ROADMAP item 9c: the registry
-refuses a join, and the RETIRING / RETIRED states are named but never
-entered.
+registration listener and incarnation-epoch book.
+
+The elastic fleet: the set's membership changes at runtime.
+:meth:`ReplicaSet.add_replica` wires a new replica into rotation (a
+RETIRED slot is reused), :meth:`ReplicaSet.retire` takes one out
+gracefully (RETIRING: its inbox handed to survivors, its in-flight work
+drained, then closed and parked RETIRED, its registry slot released), and
+the WFQ capacity follows the live members. A socket worker that registers
+with ``slot=-1`` gets a slot from the registry (the lowest released one,
+else a new one; a released slot's epoch is kept, so the fence holds
+across reuse); the membership source, polled on the set's own
+``replica-join`` thread, wraps and warms such joins, the supervisor wires
+the warmed ones in at the top of each pass (a failed one gives its slot
+back), and retires a worker that sent a
+voluntary deregister frame on its rebuild pool. ``runtime/autoscaler.py``
+drives both from the fleet's load.
 """
 
 from __future__ import annotations
@@ -94,13 +105,21 @@ HEALTH_HEALTHY = "HEALTHY"
 HEALTH_DEGRADED = "DEGRADED"
 HEALTH_QUARANTINED = "QUARANTINED"
 HEALTH_REBUILDING = "REBUILDING"
-# the elastic fleet's states (not ported; kept so the health gauge has
-# JAX's label set)
+# the elastic fleet's states: RETIRING drains a replica leaving the set on
+# purpose (never routed to; its in-flight work finishes), RETIRED is its
+# terminal state (closed; the slot kept for reuse, invisible to /health and
+# stats)
 HEALTH_RETIRING = "RETIRING"
 HEALTH_RETIRED = "RETIRED"
 HEALTH_STATES = (HEALTH_HEALTHY, HEALTH_DEGRADED, HEALTH_QUARANTINED,
                  HEALTH_REBUILDING, HEALTH_RETIRING, HEALTH_RETIRED)
 _OUT_OF_ROTATION = (HEALTH_QUARANTINED, HEALTH_REBUILDING)
+_LEAVING = (HEALTH_RETIRING, HEALTH_RETIRED)
+_SERVING = (HEALTH_HEALTHY, HEALTH_DEGRADED)
+# the elastic fleet's fault points
+JOIN_POINT = "replica.join"
+RETIRE_POINT = "replica.retire"
+ELASTIC_JOIN_POINT = "registry.elastic_join"
 
 
 @dataclass
@@ -350,8 +369,11 @@ class WorkerRegistry:
 
     One listener serves every slot; hellos are authenticated with the
     shared token (constant-time compare) and version-checked before any
-    epoch is granted. A hello with ``slot=-1`` (an elastic join) is
-    rejected: elastic membership is ROADMAP item 9c."""
+    epoch is granted. A hello with ``slot=-1`` is an **elastic join**: the
+    registry allocates a slot (:meth:`_alloc_slot`), acknowledges it in the
+    ``hello_ack`` and queues the join for :meth:`drain_joins`; a slot
+    returned by :meth:`release_slot` is reused, and a redial of a released
+    slot's retired incarnation is rejected typed."""
 
     def __init__(self, auth_token: str, slots: int, bind_host: str = "127.0.0.1",
                  bind_port: int = 0, max_frame_bytes: int = 32 * 1024 * 1024,
@@ -370,6 +392,13 @@ class WorkerRegistry:
         self._stale = [0] * self.slots
         self._registrations = 0
         self._rejections = 0
+        # released slots free for reuse, the join and release counters, and
+        # the joins the supervisor drains; _pending only grows, so a
+        # lock-free indexed read stays valid
+        self._free: list[int] = []
+        self._elastic_joins = 0
+        self._released = 0
+        self._joins: _queue.Queue = _queue.Queue()
         self._pending: list[_queue.Queue] = [_queue.Queue() for _ in range(self.slots)]
         self._stop = threading.Event()
         listener = _socket.socket(_socket.AF_INET, _socket.SOCK_STREAM)
@@ -412,6 +441,53 @@ class WorkerRegistry:
     def stale_frames(self, slot: int) -> int:
         with self._mutex:
             return self._stale[slot]
+
+    # ------------------------------------------------------------ elasticity
+
+    def _alloc_slot(self) -> int:
+        """A slot for an elastic join: the lowest released one (its epoch
+        entry kept, so the fence continues), else a new one."""
+        with self._mutex:
+            if self._free:
+                self._free.sort()
+                slot = self._free.pop(0)
+            else:
+                slot = self.slots
+                self.slots += 1
+                self._epochs.append(0)
+                self._stale.append(0)
+                self._pending.append(_queue.Queue())
+            self._elastic_joins += 1
+        return slot
+
+    def release_slot(self, slot: int) -> None:
+        """Return a slot after a graceful retire. Its epoch is kept: the
+        next worker on it registers above every frame the retired
+        incarnation sent. A second release is a no-op; a registration that
+        raced the release onto the queue is dropped."""
+        with self._mutex:
+            if not 0 <= slot < self.slots or slot in self._free:
+                return
+            self._free.append(slot)
+            self._released += 1
+        q = self._pending[slot]
+        while True:
+            try:
+                transport, _h, _e = q.get_nowait()
+            except _queue.Empty:
+                break
+            transport.close()
+
+    def drain_joins(self) -> list[int]:
+        """The slots elastically joined since the last call (non-blocking),
+        each once per registration."""
+        slots: list[int] = []
+        while True:
+            try:
+                slots.append(self._joins.get_nowait())
+            except _queue.Empty:
+                break
+        return slots
 
     # ---------------------------------------------------------- registration
 
@@ -456,25 +532,41 @@ class WorkerRegistry:
             transport.close()
             return
         slot = hello.get("slot", -1)
-        if isinstance(slot, int) and slot == -1:
-            self._reject(transport, transport, "elastic join (slot -1) is not ported: "
-                                               "elastic membership is ROADMAP item 9c")
-            return
-        if not isinstance(slot, int) or not 0 <= slot < self.slots:
+        elastic = isinstance(slot, int) and slot == -1
+        if elastic:
+            # the worker asks for a slot: allocate one and name it in the
+            # ack, so its reconnect loop redials the same identity
+            try:
+                faults.hit(ELASTIC_JOIN_POINT)
+            except Exception as exc:  # noqa: BLE001 — an injected join failure rejects typed
+                self._reject(transport, transport, f"elastic join failed: {exc}")
+                return
+            slot = self._alloc_slot()
+        elif not isinstance(slot, int) or not 0 <= slot < self.slots:
             self._reject(transport, transport, f"unknown slot {slot!r}")
             return
+        else:
+            with self._mutex:
+                retired = slot in self._free
+            if retired:
+                # a retired incarnation redialing: a typed rejection ends its
+                # reconnect loop
+                self._reject(transport, transport, f"slot {slot} was retired")
+                return
         epoch = self.assign_epoch(slot)
         transport.fault_scope = f"r{slot}"
         transport.epoch = epoch
         try:
             transport.send((0, "hello_ack", {"epoch": epoch, "slot": slot}))
         except TransportError:
+            if elastic:
+                self.release_slot(slot)
             transport.close()
             return
         with self._mutex:
             self._registrations += 1
-        logger.info("worker registered for slot %d at epoch %d (pid %s)", slot, epoch,
-                    hello.get("pid"))
+        logger.info("worker registered for slot %d at epoch %d (pid %s%s)", slot, epoch,
+                    hello.get("pid"), ", elastic join" if elastic else "")
         q = self._pending[slot]
         # supersede by epoch, not by arrival: of everything queued plus this
         # one, only the newest registration stays
@@ -488,6 +580,10 @@ class WorkerRegistry:
         for old_transport, _h, _e in entries[:-1]:
             old_transport.close()
         q.put(entries[-1])
+        if elastic:
+            # published after the registration is queued: the consumer's
+            # await_registration must find it
+            self._joins.put(slot)
 
     def _reject(self, transport, ackable, reason: str) -> None:
         with self._mutex:
@@ -531,7 +627,8 @@ class WorkerRegistry:
         with self._mutex:
             return {"epochs": list(self._epochs), "stale_frames": list(self._stale),
                     "registrations": self._registrations, "rejections": self._rejections,
-                    "slots": self.slots}
+                    "slots": self.slots, "elastic_joins": self._elastic_joins,
+                    "released_slots": self._released, "free_slots": sorted(self._free)}
 
     def close(self) -> None:
         self._stop.set()
@@ -636,9 +733,25 @@ class ReplicaSet:
         self._resume_exhausted = 0
         # the socket workers' registry, closed with the set
         self.registry = registry
+        # the elastic fleet: runtime joins and graceful retires, the retires'
+        # drain seconds, the membership source (with the registry's slot
+        # release) and its poller's warmed joiners, and the autoscaler over the set
+        # (stopped before the supervisor, its launched workers reaped after
+        # the replicas close)
+        self._joined = 0
+        self._retired = 0
+        self._retire_drain_s: deque = deque(maxlen=256)
+        self._membership_source = None
+        self._release_slot = None
+        # a supervising set polls the source on a thread of its own and
+        # hands the supervisor what it returned
+        self._join_poller: Optional[threading.Thread] = None
+        self._ready_joins: list = []
+        self.autoscaler = None
         metrics = get_metrics()
         for i in range(len(services)):
             metrics.record_replica_health(i, HEALTH_HEALTHY)
+        metrics.record_fleet_size(len(services))
         self._stop = threading.Event()
         self._supervisor: Optional[threading.Thread] = None
         # rebuilds run on a pool, so the supervisor's detection cadence
@@ -692,7 +805,14 @@ class ReplicaSet:
 
     @property
     def replicas(self) -> int:
+        """Slots, a RETIRED one included (JAX's count)."""
         return len(self._services)
+
+    @property
+    def live_replicas(self) -> int:
+        """Replicas not RETIRED."""
+        with self._mutex:
+            return sum(1 for h in self._health if h.state != HEALTH_RETIRED)
 
     @property
     def services(self) -> list[PagedGenerationService]:
@@ -1017,6 +1137,251 @@ class ReplicaSet:
         idx, _hit = self._route(toks, count=False)
         self._services[idx].check_admission(deadline_ts)
 
+    # ------------------------------------------------------- elastic fleet
+
+    def set_membership_source(self, source, release_slot=None) -> None:
+        """Install the callable that yields replicas which joined (socket
+        mode: the registry's joins, each wrapped in a ``ProcessReplica`` and
+        warmed); it returns ``[(slot, service), ...]`` (``slot=None`` lets
+        the set choose). ``release_slot`` gets a slot back after a graceful
+        retire or a join that failed. A supervising set polls the source on
+        its own thread (``replica-join``), so a joiner's spawn and warmup
+        never hold up detection, respawns or retires; each supervisor pass
+        wires in what the source has returned. Without a supervisor,
+        :meth:`_supervise_once` polls it inline. Installed before traffic."""
+        self._membership_source = source
+        self._release_slot = release_slot
+        if self._supervisor is not None and self._join_poller is None:
+            self._join_poller = threading.Thread(target=self._join_loop, name="replica-join",
+                                                 daemon=True)
+            self._join_poller.start()
+
+    def _poll_membership(self) -> list:
+        source = self._membership_source
+        if source is None:
+            return []
+        try:
+            return list(source() or [])
+        except Exception:  # noqa: BLE001 — the poller and the supervisor must survive
+            logger.exception("membership source poll failed")
+            return []
+
+    def _join_loop(self) -> None:
+        while not self._stop.wait(self.probe_interval_s):
+            fresh = self._poll_membership()
+            if not fresh:
+                continue
+            with self._mutex:
+                closed = self._closed or self._stop.is_set()
+                if not closed:
+                    self._ready_joins.extend(fresh)
+            if closed:
+                self._discard_joiners(fresh)
+
+    def _rederive_capacity(self) -> None:
+        """The WFQ capacity (and default headroom) from the live members,
+        and the fleet gauge; the queue is updated outside the set's mutex."""
+        with self._mutex:
+            caps = [self._services[i].max_queue for i, h in enumerate(self._health)
+                    if h.state != HEALTH_RETIRED]
+        self.tenants.set_capacity(sum(caps))
+        get_metrics().record_fleet_size(len(caps))
+
+    def fleet_load(self) -> dict:
+        """The autoscaler's sample, from cached probes: the serving replica
+        count, the mean busy fraction (``1 - idle`` of each pump's duty
+        cycle, cumulative since its start or its last reset), the summed
+        backlog over the summed queue capacity, and each serving replica's
+        busy and backlog."""
+        with self._mutex:
+            serving = [(i, self._services[i]) for i, h in enumerate(self._health)
+                       if h.state in _SERVING]
+        per: list[dict] = []
+        backlog_total = capacity_total = 0
+        for i, svc in serving:
+            try:
+                idle = float((svc.duty_cycle() or {}).get("idle", 1.0))
+                backlog = int(svc.backlog())
+            except Exception:  # noqa: BLE001 — a replica mid-swap: one sample skipped
+                continue
+            busy = max(0.0, min(1.0, 1.0 - idle))
+            backlog_total += backlog
+            capacity_total += int(svc.max_queue or 0)
+            per.append({"replica": i, "busy": busy, "backlog": backlog})
+        return {"serving": len(serving),
+                "busy": sum(p["busy"] for p in per) / len(per) if per else 0.0,
+                "backlog_fraction": backlog_total / capacity_total if capacity_total else 0.0,
+                "replicas": per}
+
+    def add_replica(self, svc, idx: Optional[int] = None) -> int:
+        """Wire a new replica into rotation at runtime (an elastic join):
+        ``idx=None`` reuses the lowest RETIRED slot, else appends; socket
+        mode passes the registry's slot so the set's index and the wire
+        identity agree. It enters HEALTHY, the WFQ capacity follows the
+        live members, and a supervising set arms its shadow handoff as at
+        start. Returns the slot."""
+        faults.hit(JOIN_POINT)
+        with self._mutex:
+            if self._closed:
+                raise ReplicaUnavailable("replica set is closed", retry_after_s=1.0,
+                                         retryable=False)
+            if idx is None:
+                idx = next((i for i, h in enumerate(self._health)
+                            if h.state == HEALTH_RETIRED), None)
+            elif idx < len(self._health) and self._health[idx].state != HEALTH_RETIRED:
+                raise ValueError(f"slot {idx} is occupied by a {self._health[idx].state} "
+                                 "replica")
+            elif idx > len(self._health):
+                raise ValueError(f"slot {idx} would leave a gap (set holds "
+                                 f"{len(self._health)} slots)")
+            elif idx == len(self._health):
+                idx = None  # a plain append
+            live = [self._services[i] for i, h in enumerate(self._health)
+                    if h.state != HEALTH_RETIRED]
+            self._check_isolation(live + [svc])
+            fresh = _ReplicaHealth(since=time.perf_counter(), ticks_seen=svc.tick_failure_count)
+            if idx is None:
+                idx = len(self._services)
+                svc.replica_id = idx
+                self._services.append(svc)
+                self._health.append(fresh)
+            else:
+                # a RETIRED slot reused: the same index, a fresh incarnation
+                svc.replica_id = idx
+                self._services[idx] = svc
+                self._health[idx] = fresh
+            self._joined += 1
+        if self._supervisor is not None:
+            enable = getattr(svc, "enable_shadow_handoff", None)
+            if enable is not None:
+                enable()
+        self._rederive_capacity()
+        logger.info("replica %d joined the set at runtime", idx)
+        get_metrics().record_replica_health(idx, HEALTH_HEALTHY)
+        get_flight_recorder().record_tick(event="replica_joined", replica=idx)
+        return idx
+
+    def retire(self, idx: int, deadline_s: Optional[float] = None) -> dict:
+        """Take replica ``idx`` out gracefully (a scale-in or a voluntary
+        deregister): RETIRING (never routed to again), its never-dispatched
+        inbox handed to survivors (the WFQ reservation re-charged), its
+        in-flight work drained within ``deadline_s`` (``rebuild_drain_s`` by
+        default; a delivered stream the deadline cuts resumes on a
+        survivor), then closed, parked RETIRED, its registry slot released
+        and the WFQ capacity re-derived. The last serving replica is never
+        retired (a typed, non-retryable ``ReplicaUnavailable``). Blocks up
+        to the drain deadline."""
+        deadline = float(deadline_s) if deadline_s is not None else self.rebuild_drain_s
+        with self._mutex:
+            if self._closed:
+                raise ReplicaUnavailable("replica set is closed", retry_after_s=1.0,
+                                         retryable=False)
+            if not 0 <= idx < len(self._health):
+                raise ValueError(f"no replica {idx} to retire")
+            state = self._health[idx].state
+            if state in _LEAVING:
+                return {"replica": idx, "state": state, "retired": False}
+            serving_others = sum(1 for i, h in enumerate(self._health)
+                                 if i != idx and h.state in _SERVING)
+            if serving_others == 0:
+                raise ReplicaUnavailable(
+                    f"cannot retire replica {idx}: no other serving replica would remain",
+                    retry_after_s=5.0, retryable=False,
+                    details={"replica": idx, "reason": "last_serving"})
+        faults.hit(RETIRE_POINT)
+        t0 = time.perf_counter()
+        self._transition(idx, HEALTH_RETIRING, "scale-in")
+        svc = self._services[idx]
+        # never-dispatched tickets move now: waiting out the drain would add
+        # the whole deadline to their latency
+        inbox: list = []
+        try:
+            inbox = svc.extract_inbox()
+        except Exception:  # noqa: BLE001 — the retire completes regardless
+            logger.exception("replica %d retire inbox extraction failed", idx)
+        self._handoff_inbox(idx, inbox)
+        drained: dict = {}
+        try:
+            drained = svc.drain(deadline) or {}
+        except Exception:  # noqa: BLE001 — a retire's drain is best-effort
+            logger.warning("replica %d retire drain failed", idx, exc_info=True)
+        if not svc.closed:
+            try:
+                svc.close()
+            except Exception:  # noqa: BLE001 — every retiree is closed regardless
+                logger.warning("replica %d retire close failed", idx, exc_info=True)
+        leaked = svc.pump_leaked_count
+        release = getattr(getattr(svc, "engine", None), "release", None)
+        if release is not None and leaked == 0:
+            # a thread replica's pool and graphs go with it, as a rebuild
+            # frees them (a worker's went with its process)
+            release()
+        drain_s = time.perf_counter() - t0
+        with self._mutex:
+            self._retired += 1
+            self._pump_leaked_carryover += leaked
+            self._retire_drain_s.append(drain_s)
+        self._transition(idx, HEALTH_RETIRED, f"retired after {drain_s:.2f}s drain")
+        if self._release_slot is not None:
+            try:
+                self._release_slot(idx)
+            except Exception:  # noqa: BLE001 — the slot's release is best-effort
+                logger.warning("registry slot %d release failed", idx, exc_info=True)
+        self._rederive_capacity()
+        return {"replica": idx, "retired": True, "drain_s": round(drain_s, 3),
+                "handed_off": len(inbox), "drained": drained.get("drained", True)}
+
+    def _attach_new_members(self) -> None:
+        """Wire each replica the membership source returned into rotation,
+        lowest slot first (joins register concurrently, and a higher slot
+        first would leave a gap); one bad joiner blocks neither the pass nor
+        its siblings, and is closed with its registry slot released."""
+        if self._join_poller is None:
+            fresh = self._poll_membership()
+        else:
+            with self._mutex:
+                fresh, self._ready_joins = self._ready_joins, []
+        fresh.sort(key=lambda joiner: (joiner[0] is None, joiner[0] or 0))
+        for slot, svc in fresh:
+            try:
+                self.add_replica(svc, idx=slot)
+            except Exception:  # noqa: BLE001 — one bad joiner, not the pass
+                logger.exception("elastic join of slot %s failed", slot)
+                self._discard_joiners([(slot, svc)])
+
+    def _discard_joiners(self, joiners: list) -> None:
+        """Close joiners that never entered rotation and give their registry
+        slots back (not a slot a live replica holds)."""
+        for slot, svc in joiners:
+            try:
+                svc.close()
+            except Exception:  # noqa: BLE001 — already on the error path
+                logger.debug("failed joiner cleanup failed", exc_info=True)
+            if slot is None or self._release_slot is None:
+                continue
+            with self._mutex:
+                held = slot < len(self._health) and self._health[slot].state != HEALTH_RETIRED
+            if held:
+                continue
+            try:
+                self._release_slot(slot)
+            except Exception:  # noqa: BLE001 — best-effort on the error path
+                logger.warning("registry slot %d release failed", slot, exc_info=True)
+
+    def _enqueue_retire(self, idx: int) -> bool:
+        """Hand a deregister's retire to the rebuild pool (False: no pool,
+        retire inline); the rebuild latch keeps it from being queued
+        twice."""
+        if self._rebuild_q is None:
+            return False
+        with self._mutex:
+            health = self._health[idx]
+            if health.rebuild_inflight:
+                return True
+            health.rebuild_inflight = True
+        self._rebuild_q.put(("retire", idx))
+        return True
+
     # ---------------------------------------------------------- supervision
 
     def _transition(self, idx: int, state: str, reason: str = "") -> bool:
@@ -1049,7 +1414,7 @@ class ReplicaSet:
         rebuild has replaced is dropped."""
         now = time.perf_counter()
         with self._mutex:
-            if self._closed:
+            if self._closed or idx >= len(self._health):
                 return
             current = self._services[idx]
             if svc is not None and current is not svc:
@@ -1057,7 +1422,7 @@ class ReplicaSet:
             health = self._health[idx]
             health.outcomes.append((now, False))
             state = health.state
-        if state in _OUT_OF_ROTATION:
+        if state in _OUT_OF_ROTATION or state in _LEAVING:
             return
         if current.broken or current.closed:
             self._quarantine(idx, f"replica latched unavailable: {exc}")
@@ -1066,7 +1431,8 @@ class ReplicaSet:
         now = time.perf_counter()
         with self._mutex:
             health = self._health[idx]
-            if health.state in _OUT_OF_ROTATION:
+            if health.state in _OUT_OF_ROTATION or health.state in _LEAVING:
+                # a retiring replica's drain and close supersede a quarantine
                 return
             health.quarantined_at = now
             health.rebuild_attempts = 0
@@ -1139,7 +1505,11 @@ class ReplicaSet:
         rebuilds (queued on the pool, or run inline without one). Tests
         call it directly to step supervision."""
         now = time.perf_counter()
+        # elastic joins first: a fresh worker is in rotation before this
+        # pass's breakers (it may be the survivor a handoff needs)
+        self._attach_new_members()
         rebuild_ready: list[int] = []
+        retire_ready: list[int] = []
         metrics = get_metrics()
         for idx in range(len(self._services)):
             svc = self._services[idx]
@@ -1147,7 +1517,9 @@ class ReplicaSet:
             with self._mutex:
                 health = self._health[idx]
                 state = health.state
-                if state in (HEALTH_HEALTHY, HEALTH_DEGRADED):
+                if state in _LEAVING:
+                    continue
+                if state in _SERVING:
                     # each tick-failure increment is one failed decode tick
                     count = svc.tick_failure_count
                     for _ in range(max(count - health.ticks_seen, 0)):
@@ -1160,6 +1532,10 @@ class ReplicaSet:
                     samples = len(health.outcomes)
                 rebuild_due = (state == HEALTH_QUARANTINED and now >= health.next_rebuild_at
                                and not health.rebuild_inflight)
+            if state in _SERVING and getattr(svc, "deregister_requested", None):
+                # a voluntary deregister frame: a graceful retire, on the
+                # rebuild pool (its drain must not stall this pass)
+                retire_ready.append(idx)
             if state in _OUT_OF_ROTATION:
                 # zeroed while out of rotation, or the stall alert would
                 # keep firing through the rebuild
@@ -1197,6 +1573,22 @@ class ReplicaSet:
                 break
             if not self._enqueue_rebuild(idx):
                 self._rebuild(idx)
+        for idx in retire_ready:
+            if self._stop.is_set():
+                break
+            with self._mutex:
+                serving_others = sum(1 for i, h in enumerate(self._health)
+                                     if i != idx and h.state in _SERVING)
+            if serving_others == 0:
+                # the last serving replica asked to leave: held until a
+                # sibling joins (re-evaluated each pass, so logged at debug)
+                logger.debug("replica %d deregister held: last serving replica", idx)
+                continue
+            if not self._enqueue_retire(idx):
+                try:
+                    self.retire(idx)
+                except Exception:  # noqa: BLE001 — the pass must survive
+                    logger.exception("replica %d deregister retire failed", idx)
 
     def _enqueue_rebuild(self, idx: int) -> bool:
         """Hand a due rebuild to the pool (False: no pool, run inline)."""
@@ -1218,6 +1610,18 @@ class ReplicaSet:
                 continue
             if idx is None:
                 return  # shutdown
+            if isinstance(idx, tuple):
+                # ("retire", idx): a deregister's retire rides the same pool
+                idx = idx[1]
+                try:
+                    self.retire(idx)
+                except Exception:  # noqa: BLE001 — the pool must survive
+                    logger.exception("replica %d retire crashed on worker", idx)
+                finally:
+                    with self._mutex:
+                        if idx < len(self._health):
+                            self._health[idx].rebuild_inflight = False
+                continue
             try:
                 self._rebuild(idx)
             except Exception:  # noqa: BLE001 — the pool must survive
@@ -1327,12 +1731,15 @@ class ReplicaSet:
         """``healthy`` while every replica is HEALTHY, ``degraded`` while at
         least one serves (HEALTHY or DEGRADED), ``unhealthy`` at none."""
         with self._mutex:
+            # a RETIRED slot left on purpose: it reads as never there but
+            # through the retired count; a RETIRING one is draining, shown
             replicas = [
                 {"replica": i, "state": h.state,
                  "since_s": round(time.perf_counter() - h.since, 1), "rebuilds": h.rebuilds,
                  **({"reason": h.last_reason} if h.last_reason else {})}
-                for i, h in enumerate(self._health)]
-        serving = sum(1 for r in replicas if r["state"] in (HEALTH_HEALTHY, HEALTH_DEGRADED))
+                for i, h in enumerate(self._health) if h.state != HEALTH_RETIRED]
+            joined, retired = self._joined, self._retired
+        serving = sum(1 for r in replicas if r["state"] in _SERVING)
         healthy = sum(1 for r in replicas if r["state"] == HEALTH_HEALTHY)
         if healthy == len(replicas):
             status = "healthy"
@@ -1341,17 +1748,34 @@ class ReplicaSet:
         else:
             status = "unhealthy"
         return {"status": status, "healthy_replicas": healthy, "serving_replicas": serving,
-                "total_replicas": len(replicas), "replicas": replicas}
+                "total_replicas": len(replicas), "joined_replicas": joined,
+                "retired_replicas": retired, "replicas": replicas}
 
     # ------------------------------------------------------------ lifecycle
 
+    def live_services(self) -> list:
+        """(slot, service) of every replica not RETIRED."""
+        with self._mutex:
+            return [(i, self._services[i]) for i, h in enumerate(self._health)
+                    if h.state != HEALTH_RETIRED]
+
     def _stop_supervisor(self, timeout_s: float = 10.0) -> None:
+        if self.autoscaler is not None:
+            # first: it must not launch or retire while the set shuts down
+            self.autoscaler.close(timeout_s)
         self._stop.set()
         supervisor = self._supervisor
         if supervisor is not None and supervisor.is_alive():
             supervisor.join(timeout=timeout_s)
             if supervisor.is_alive():
                 logger.warning("replica supervisor did not exit within %.0fs", timeout_s)
+        poller = self._join_poller
+        if poller is not None and poller.is_alive():
+            # a joiner it is warming is discarded when the poll returns
+            poller.join(timeout=timeout_s)
+        with self._mutex:
+            waiting, self._ready_joins = self._ready_joins, []
+        self._discard_joiners(waiting)
         if self._rebuild_q is not None:
             for _ in self._rebuild_pool:
                 self._rebuild_q.put(None)
@@ -1369,7 +1793,8 @@ class ReplicaSet:
         the wall seconds, the prompts, the graph captures and each
         replica's result."""
         t0 = time.perf_counter()
-        results: list = [None] * len(self._services)
+        live = [svc for _i, svc in self.live_services()]
+        results: list = [None] * len(live)
         errors: list = []
 
         def warm(i: int, svc: PagedGenerationService) -> None:
@@ -1380,11 +1805,11 @@ class ReplicaSet:
 
         threads = [threading.Thread(target=warm, args=(i, svc), name=f"replica-warmup-{i}",
                                     daemon=True)
-                   for i, svc in enumerate(self._services)]
+                   for i, svc in enumerate(live)]
         for t in threads:
             t.start()
         for t in threads:
-            t.join(timeout=max(svc.default_timeout_s for svc in self._services) + 120.0)
+            t.join(timeout=max(svc.default_timeout_s for svc in live) + 120.0)
         if errors:
             raise errors[0]
         if any(t.is_alive() for t in threads) or any(r is None for r in results):
@@ -1392,19 +1817,20 @@ class ReplicaSet:
         return {"seconds": time.perf_counter() - t0,
                 "prompts": sum(r["prompts"] for r in results),
                 "graph_captures": sum(r["graph_captures"] for r in results),
-                "replicas": len(self._services), "per_replica": results}
+                "replicas": len(live), "per_replica": results}
 
     def wait_idle(self, timeout_s: float = 60.0) -> bool:
         """Wait for every replica's pump to stop (see the service's)."""
         deadline = time.perf_counter() + timeout_s
         return all(svc.wait_idle(max(deadline - time.perf_counter(), 0.0))
-                   for svc in list(self._services))
+                   for _i, svc in self.live_services())
 
     def drain(self, deadline_s: float = 30.0) -> dict:
         """Drain every replica at once, each in the same window, after the
         supervisor stops; the set is closed afterwards."""
         self._stop_supervisor()
-        live = list(enumerate(self._services))
+        # RETIRED replicas were drained and closed at their retire
+        live = self.live_services()
         results: dict[int, Optional[dict]] = {i: None for i, _svc in live}
 
         def drain_one(i: int, svc: PagedGenerationService) -> None:
@@ -1427,6 +1853,7 @@ class ReplicaSet:
         with self._mutex:
             self._closed = True
         self._close_registry()
+        self._reap_launched()
         return {"drained": all(r["drained"] for r in per),
                 "abandoned": sum(r.get("abandoned", 0) for r in per), "replicas": per}
 
@@ -1435,22 +1862,29 @@ class ReplicaSet:
         with self._mutex:
             self._closed = True
         for svc in self._services:
+            if svc.closed:
+                continue  # retired replicas closed at their retire
             try:
                 svc.close()
             except Exception:  # noqa: BLE001 — close every replica regardless
                 logger.warning("replica %d close failed", svc.replica_id, exc_info=True)
         self._close_registry()
+        self._reap_launched()
 
     def _close_registry(self) -> None:
         if self.registry is not None:
             self.registry.close()
 
+    def _reap_launched(self) -> None:
+        if self.autoscaler is not None:
+            self.autoscaler.reap()
+
     def workers(self) -> list[dict]:
-        """Each worker replica's process id, incarnation epoch and transport
-        (none in thread mode)."""
+        """Each live worker replica's process id, incarnation epoch and
+        transport (none in thread mode)."""
         return [{"replica": i, "pid": svc.pid, "epoch": svc.epoch,
                  "transport": svc.transport_mode, "alive": not svc.broken}
-                for i, svc in enumerate(list(self._services)) if hasattr(svc, "respawn")]
+                for i, svc in self.live_services() if hasattr(svc, "respawn")]
 
     # ---------------------------------------------------------------- stats
 
@@ -1470,9 +1904,10 @@ class ReplicaSet:
         replica's samples; the per-replica rows under ``replicas``; the
         routing, failover, handoff, stall and resume counters; the tenants
         and the health summary."""
+        live = [svc for _i, svc in self.live_services()]
         per = []
         agg: dict = {}
-        for svc in list(self._services):
+        for svc in live:
             try:
                 s = svc.stats()
             except Exception:  # noqa: BLE001 — a replica mid-rebuild
@@ -1522,6 +1957,13 @@ class ReplicaSet:
             agg["stream_resumes"] = self._stream_resumes
             agg["resume_replayed_tokens"] = self._resume_replayed_tokens
             agg["resume_exhausted"] = self._resume_exhausted
+            # the elastic fleet: joins, retires and the retires' drain p95
+            drains = sorted(self._retire_drain_s)
+            agg["fleet"] = {"live_replicas": len(live), "joined": self._joined,
+                            "retired": self._retired,
+                            **({"retire_drain_p95_s": round(
+                                drains[min(int(len(drains) * 0.95), len(drains) - 1)], 3)}
+                               if drains else {})}
         agg["tenants"] = self.tenants.stats()
         agg["health"] = self.health_summary()
         return agg

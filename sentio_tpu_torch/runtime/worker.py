@@ -49,8 +49,17 @@ Every (re)registration is a fresh **incarnation epoch** stamped into frame
 headers, and the dispatcher drops stale-epoch frames. Socket liveness is
 status staleness past ``partition_timeout_s``, a broken ping write or EOF;
 recovery prefers **heal** (the live worker re-registers, keeping its warm
-engine) over respawn. Elastic joins (``slot=-1``), voluntary deregistration
-and the autoscaler are ROADMAP item 9c: the registry refuses a join.
+engine) over respawn.
+
+**The elastic fleet**: a socket worker spawned with ``slot=-1`` (the
+autoscaler's launcher) asks the registry for a slot and adopts the one the
+``hello_ack`` grants, so every redial keeps that identity; the router wraps
+the queued registration in a ``ProcessReplica(adopt_registration=True)``,
+which neither spawned nor reaps the process (its close shuts the worker
+down). A worker asked to :meth:`~ProcessReplica.request_leave` sends the
+unsolicited **deregister** frame and keeps serving; the set's supervisor
+sees :attr:`~ProcessReplica.deregister_requested` and retires it
+gracefully (drain, handoff, close, slot release).
 
 Semantic differences from thread mode, as in JAX: a stream's cancel reaches
 the worker at chunk granularity; generates still shadowed at a worker's
@@ -122,6 +131,9 @@ _F_END = "end"
 # the worker's clock (one ClockSync sample)
 _F_TELEMETRY = "telemetry"
 _F_PONG = "pong"
+# the elastic fleet: a voluntary deregister (req_id 0); the worker serves on
+# until the router's supervisor retires it, so no in-flight work is dropped
+_F_DEREGISTER = "deregister"
 
 # the stats subset a telemetry frame carries; graph_captures stands where
 # JAX's worker compiles stand (a capture is the port's compile)
@@ -333,6 +345,10 @@ class _WorkerServer:
         self.outcome = ""
         self._cancelled: set[int] = set()
         self._cancel_lock = threading.Lock()
+        # generate and stream handlers still sending their answers: a drain
+        # replies only after their last frames (the router closes on it)
+        self._answering = 0
+        self._answered = threading.Condition()
 
     def _send(self, req_id: int, kind: str, payload: Any) -> None:
         try:
@@ -397,6 +413,31 @@ class _WorkerServer:
             self._send(0, _F_TELEMETRY, payload)
 
     def _handle(self, req_id: int, method: str, kwargs: dict) -> None:
+        if method not in ("generate", "stream_open"):
+            self._dispatch(req_id, method, kwargs)
+            return
+        with self._answered:
+            self._answering += 1
+        try:
+            self._dispatch(req_id, method, kwargs)
+        finally:
+            with self._answered:
+                self._answering -= 1
+                self._answered.notify_all()
+
+    def _drain(self, deadline_s: float = 30.0) -> dict:
+        """The service's drain, then up to the rest of its deadline (and a
+        2 s grace for the typed errors of what it abandoned) for the
+        answers' last frames: a stream's tail can trail its engine, and a
+        reply sent ahead of it would let the router close on it."""
+        t_end = time.perf_counter() + max(deadline_s, 0.0) + 2.0
+        out = self.svc.drain(deadline_s=deadline_s)
+        with self._answered:
+            self._answered.wait_for(lambda: self._answering == 0,
+                                    timeout=max(t_end - time.perf_counter(), 0.0))
+        return out
+
+    def _dispatch(self, req_id: int, method: str, kwargs: dict) -> None:
         svc = self.svc
         try:
             if method == "generate":
@@ -422,7 +463,7 @@ class _WorkerServer:
             elif method == "wait_idle":
                 self._send(req_id, _F_OK, svc.wait_idle(**kwargs))
             elif method == "drain":
-                self._send(req_id, _F_OK, svc.drain(**kwargs))
+                self._send(req_id, _F_OK, self._drain(**kwargs))
             elif method == "abandon":
                 # admitted tickets fail typed in here (their err frames are
                 # on their way); the inbox comes back by shadow id
@@ -461,6 +502,12 @@ class _WorkerServer:
                 self._send(req_id, _F_OK, None)
             elif method == "ping":
                 self._send(req_id, _F_OK, os.getpid())
+            elif method == "leave":
+                # the deregister frame, then serving goes on: the router's
+                # retire owns the drain, the handoff and the close
+                self._send(0, _F_DEREGISTER, {"reason": kwargs.get("reason", "leave"),
+                                              "pid": os.getpid()})
+                self._send(req_id, _F_OK, None)
             else:
                 raise ValueError(f"unknown worker method {method!r}")
         except BaseException as exc:  # noqa: BLE001 — every failure goes back typed
@@ -613,7 +660,9 @@ def worker_main_socket(addr, spec: WorkerSpec, slot: int) -> None:
     router's registry, register (the versioned handshake grants an epoch),
     serve — and with ``spec.reconnect`` redial with exponential backoff
     whenever the link dies, a fresh incarnation each time (the engine and
-    service survive). A definitive rejection ends the worker."""
+    service survive). A definitive rejection ends the worker. ``slot=-1``
+    is an elastic join: the worker adopts the slot the ack grants, for
+    every redial and for its service's replica id."""
     signal.signal(signal.SIGTERM, lambda *_: os._exit(0))
     logging.basicConfig(level=logging.WARNING)
     svc = None
@@ -623,7 +672,13 @@ def worker_main_socket(addr, spec: WorkerSpec, slot: int) -> None:
         try:
             transport = dial(addr, max_frame_bytes=spec.max_frame_bytes,
                              frame_timeout_s=spec.frame_timeout_s, fault_scope="worker")
-            send_hello(transport, spec.auth_token, slot, os.getpid())
+            ack = send_hello(transport, spec.auth_token, slot, os.getpid())
+            acked = ack.get("slot") if isinstance(ack, dict) else None
+            if isinstance(acked, int) and acked >= 0 and acked != slot:
+                slot = acked
+                service_kwargs = spec.factory_kwargs.get("service_kwargs")
+                if isinstance(service_kwargs, dict):
+                    service_kwargs["replica_id"] = slot
         except FrameProtocolError as exc:
             logger.error("worker registration rejected: %s", exc)
             break
@@ -801,7 +856,8 @@ class ProcessReplica:
                  build_timeout_s: float = 600.0, transport_mode: str = REPLICA_MODE_PROCESS,
                  registry=None, connect_addr: Optional[tuple] = None,
                  partition_timeout_s: float = 2.0, ping_interval_s: float = 0.5,
-                 heal_grace_s: float = 5.0, _adopt_state: Optional[dict] = None) -> None:
+                 heal_grace_s: float = 5.0, adopt_registration: bool = False,
+                 _adopt_state: Optional[dict] = None) -> None:
         self.spec = spec
         self.replica_id = replica_id
         self.build_timeout_s = build_timeout_s
@@ -835,6 +891,9 @@ class ProcessReplica:
         self._telemetry: dict = {}
         self._telemetry_ts = 0.0
         self._worker_origin_s: Optional[float] = None
+        # the reason of the worker's voluntary deregister frame (None until
+        # one arrives; written by the dispatcher only)
+        self._deregister_reason: Optional[str] = None
         # the routing probe's outcomes (answered, skipped on a stale status,
         # failed or timed out), its slowest answer, and the largest status
         # lag a worker reported: how fresh the router's view of it is
@@ -864,6 +923,11 @@ class ProcessReplica:
         elif connect_addr is not None:
             # REPLICA_WORKERS: the router dials and owns the epoch
             self._transport, self.epoch = self._dial_advertised(build_timeout_s)
+        elif adopt_registration:
+            # an elastic join: the worker already registered (slot -1) and
+            # holds the granted slot; its process is not this shim's to reap
+            self._transport, _hello, self.epoch = registry.await_registration(
+                replica_id, build_timeout_s)
         else:
             ctx = _spawn_context()
             self._proc = ctx.Process(target=worker_main_socket,
@@ -999,6 +1063,14 @@ class ProcessReplica:
                 continue
             if kind == _F_PONG:
                 self._ingest_pong(payload)
+                continue
+            if kind == _F_DEREGISTER:
+                # a voluntary leave, latched for the supervisor's retire
+                reason = (payload.get("reason", "deregister") if isinstance(payload, dict)
+                          else "deregister")
+                self._deregister_reason = str(reason)
+                logger.info("replica %d worker requested deregistration (%s)",
+                            self.replica_id, reason)
                 continue
             call = None
             with self._mutex:
@@ -1475,6 +1547,17 @@ class ProcessReplica:
         return bool(self._status.get("closed"))
 
     @property
+    def deregister_requested(self) -> Optional[str]:
+        """The reason of the worker's voluntary deregister frame, or None;
+        the set's supervisor polls it."""
+        return self._deregister_reason
+
+    def request_leave(self, reason: str = "leave") -> None:
+        """Ask the worker to send its deregister frame; it keeps serving
+        until the supervisor's retire drains and closes it."""
+        self._call("leave", {"reason": reason}, timeout_s=10.0)
+
+    @property
     def tick_failure_count(self) -> int:
         return int(self._status.get("tick_failure_count") or 0)
 
@@ -1603,6 +1686,37 @@ class ProcessReplica:
             pass
         reply.update(replica=self.replica_id, epoch=self.epoch, clock=self._clock.estimate())
         return reply
+
+    def flight_shift_s(self, router_origin_s: float) -> tuple:
+        """``(shift_s, uncertainty_s)`` mapping this worker's flight timeline
+        onto the router's (``t_router = t_worker + shift``): each recorder
+        stamps from its own ``perf_counter`` origin, so the shift is
+        ``worker_origin - offset - router_origin`` (offset: the worker's
+        clock minus the router's, from :class:`ClockSync`). The uncertainty
+        is None until a clock sample exists (the offset then counts as
+        0)."""
+        if self._worker_origin_s is None:
+            return 0.0, None
+        est = self._clock.estimate()
+        offset = est["offset_s"] if est else 0.0
+        return (self._worker_origin_s - offset - router_origin_s,
+                est["uncertainty_s"] if est else None)
+
+    def cached_flight_lane(self, router_origin_s: float, status: str) -> dict:
+        """A fleet-trace lane for this incarnation from its last telemetry
+        frame, for a worker that is dead or retired (``fetch_flight`` no
+        longer answers): usually name-only, so the incarnation stays on the
+        fleet timeline marked ``status``."""
+        shift, bound = self.flight_shift_s(router_origin_s)
+        flight = (self._telemetry or {}).get("flight")
+        ticks: list = []
+        records: list = []
+        if isinstance(flight, dict):
+            ticks = list(flight.get("ticks") or [])
+            records = list(flight.get("records") or [])
+        return {"replica": self.replica_id, "epoch": self.epoch, "shift_s": shift,
+                "uncertainty_s": bound, "ticks": ticks, "records": records,
+                "status": status}
 
     # ------------------------------------------------ quarantine / handoff
 

@@ -11,8 +11,13 @@ card's memory, the resource monitor's verdict and the serving stats),
 ``/debug/flight/{id}`` (a request's flight record in JSON — its node
 timings, the ``verify`` section a detached verdict lands in, the
 ``engine`` section with each admission's TTFT, TPOT and tokens, and the
-pump ticks of its window, ``engine_window: "local"``; with
-``?format=chrome`` the same as a Chrome / Perfetto trace) and
+pump ticks of its window: ``engine_window: "local"`` in thread mode,
+``"stitched"`` when a worker held the request — its engine section and
+ticks fetched and shifted onto the router's clock, with
+``engine_replica``, ``engine_epoch`` and ``clock_uncertainty_s`` —, or
+``"remote"`` when no worker did, a worker that did not answer listed in
+``replicas_unavailable``; with ``?format=chrome`` the same as a Chrome /
+Perfetto trace) and
 ``/debug/profile?seconds=N&dir=D`` (a ``torch.profiler`` window of N
 seconds, 0.1–60, 3 by default, over the whole process — CPU and the card's
 kernels — written as a Chrome trace under D, ``PROFILER_DIR`` or a
@@ -30,7 +35,8 @@ batch`` pick the WFQ tenant and tier a chat's admissions charge;
 of resume-by-replay. ``/health`` is ``degraded`` (200) while some replica
 serves and ``unhealthy`` (503) at none; ``/metrics`` carries a
 ``sentio_tpu_replica_stat`` row set per replica; ``/info`` names the
-replica count and mode under ``generator.replicas``.
+live replica count, the mode, the fleet's joins and retires and, under
+``AUTOSCALE=1``, the autoscaler's decisions under ``generator.replicas``.
 
 SSE: admission (the tenant's WFQ test and the routed replica's own
 check) is checked before the 200 is committed; the body is
@@ -251,8 +257,7 @@ class _Streamed:
 
 def check_serve_settings(settings: Settings) -> None:
     """Refuse the settings the port's server cannot honour (an unknown
-    ``VERIFY_MODE``, ``AUTOSCALE=1``, ``REPLICA_WORKERS`` without a
-    token)."""
+    ``VERIFY_MODE``, ``REPLICA_WORKERS`` without a token)."""
     check_verify_mode(settings.generator.verify_mode)
     check_replica_settings(settings.serve)
 
@@ -388,12 +393,18 @@ def _device_stats(pipeline: ChatPipeline) -> dict:
 
 
 def _replica_info(pipeline: ChatPipeline) -> Optional[dict]:
-    """``/info``'s ``generator.replicas``: the count and the mode, and in a
-    worker mode each worker's pid, epoch and transport."""
+    """``/info``'s ``generator.replicas``: the live count, the mode, the
+    fleet's joins and retires, the autoscaler's counts when it runs, and
+    in a worker mode each live worker's pid, epoch and transport."""
     replicas = pipeline.replica_set
     if replicas is None:
         return None
-    out = {"count": replicas.replicas, "mode": pipeline.replica_mode}
+    health = replicas.health_summary()
+    out = {"count": replicas.live_replicas, "mode": pipeline.replica_mode,
+           "fleet": {"joined": health["joined_replicas"],
+                     "retired": health["retired_replicas"]},
+           "autoscale": (replicas.autoscaler.stats() if replicas.autoscaler is not None
+                         else None)}
     if pipeline.replica_mode != "thread":
         out["workers"] = replicas.workers()
     return out
@@ -867,13 +878,14 @@ class _Handler(BaseHTTPRequestHandler):
     def _debug_flight(self, request_id: str):
         """One request's flight record: its node timings, status, latency,
         the verify section a detached verdict lands in, and the engine
-        section with the ticks of its window (thread-mode replicas share
-        the process's recorder: ``engine_window`` is ``local``); with
-        ``?format=chrome`` a Chrome trace of the window and the request."""
+        section with the ticks of its window, stitched in from the worker
+        that served it in a worker mode (:func:`stitch_flight_record`);
+        with ``?format=chrome`` a Chrome trace of the window and the
+        request."""
         record = get_flight_recorder().get(request_id)
         if record is None:
             return _json({"error": f"no flight record for {request_id!r}"}, 404)
-        record["engine_window"] = "local"
+        record = stitch_flight_record(self.server.pipeline, request_id, record)
         if self._query().get("format") == "chrome":
             return _json(build_chrome_trace(record.pop("ticks", []), [record]))
         return _json(record)
@@ -904,6 +916,64 @@ class _Handler(BaseHTTPRequestHandler):
         return _json({"metrics": get_metrics().export_json(), "system": system,
                       "verdict": resource_monitor.health_verdict(system),
                       "serving": serving})
+
+
+def stitch_flight_record(pipeline: ChatPipeline, request_id: str, record: dict) -> dict:
+    """JAX's ``_stitch_flight_record``: thread replicas share the process's
+    recorder, so the router's record already holds the engine section and
+    the tick window (``engine_window: "local"``). In a worker mode the
+    engine lives in the workers: each is asked for the record
+    (``fetch_flight``); the one that holds it gives its engine section and
+    ticks, shifted onto the router's clock (``flight_shift_s``), and the
+    record says ``"stitched"`` with ``engine_replica``, ``engine_epoch``
+    and ``clock_uncertainty_s``; ``"remote"`` when none holds it. A worker
+    that does not answer (dead, partitioned, retired) is listed in
+    ``replicas_unavailable``, never left out. Blocking RPCs."""
+    rs = pipeline.replica_set
+    members = list(getattr(rs, "_services", None) or ())
+    fetchable = [svc for svc in members if callable(getattr(svc, "fetch_flight", None))]
+    if not fetchable:
+        record["engine_window"] = "local"
+        return record
+    router_origin = get_flight_recorder().origin()
+    unavailable: list[dict] = []
+    stitched = False
+    for svc in fetchable:
+        try:
+            reply = svc.fetch_flight(request_id=request_id)
+        except Exception as exc:  # noqa: BLE001 — a typed death, a timeout: listed below
+            unavailable.append({"replica": svc.replica_id, "error": type(exc).__name__})
+            continue
+        wrec = reply.get("record")
+        if not wrec:
+            continue  # this worker never served the request
+        shift, bound = svc.flight_shift_s(router_origin)
+        engine = dict(wrec.get("engine") or {})
+        if engine.get("t_submit_s") is not None:
+            engine["t_submit_s"] = round(float(engine["t_submit_s"]) + shift, 6)
+        record["engine"] = {**(record.get("engine") or {}), **engine}
+        ticks = []
+        for tick in wrec.get("ticks") or []:
+            shifted = dict(tick)
+            if "t_s" in shifted:
+                shifted["t_s"] = round(float(shifted["t_s"]) + shift, 6)
+            ticks.append(shifted)
+        if ticks:
+            record["ticks"] = ticks
+        if wrec.get("ticks_truncated"):
+            record["ticks_truncated"] = True
+        record["engine_window"] = "stitched"
+        record["engine_replica"] = reply.get("replica")
+        record["engine_epoch"] = reply.get("epoch")
+        if bound is not None:
+            record["clock_uncertainty_s"] = round(bound, 6)
+        stitched = True
+        break
+    if not stitched:
+        record["engine_window"] = "remote"
+    if unavailable:
+        record["replicas_unavailable"] = unavailable
+    return record
 
 
 class _TooLarge(Exception):

@@ -51,15 +51,10 @@ from sentio_tpu_torch.serve.app import create_server
 
 REPO = Path(__file__).resolve().parents[1]
 TIMEOUT_S = 120.0
-# JAX's families the port does not register: the elastic fleet's and the
-# autoscaler's (queue A, 9c), and the XLA compile counters, router and
-# worker (the port counts CUDA graph captures on each tick and in each
-# worker's sentio_tpu_replica_stat rows)
+# JAX's families the port does not register: the XLA compile counters,
+# router and worker (the port counts CUDA graph captures on each tick and in
+# each worker's sentio_tpu_replica_stat rows)
 NOT_PORTED = {
-    # the elastic fleet (ROADMAP 9c)
-    "sentio_tpu_fleet_live_replicas", "sentio_tpu_autoscale_decisions_total",
-    "sentio_tpu_fleet_at_max_saturated",
-    # XLA compile counters: CUDA graph captures take their place
     "sentio_tpu_xla_compiles_total", "sentio_tpu_worker_compiles_total",
 }
 NINE = ("sentio_llm_tokens_total", "sentio_llm_latency_seconds", "sentio_circuit_breaker_state",
@@ -459,9 +454,20 @@ def test_cli_trace_writes_the_chrome_trace(tmp_path):
     assert any(e["name"].startswith("tick ") for e in chrome["traceEvents"])
 
 
-def test_cli_trace_fleet_is_not_ported():
-    with pytest.raises(NotImplementedError, match="--fleet"):
-        cli.main(["trace", "q", "--fleet", "--device", "cpu"])
+def test_cli_trace_fleet_falls_back_in_thread_mode(tmp_path, capsys, monkeypatch):
+    """``trace --chrome --fleet`` with no worker replicas writes the local
+    timeline and says so, as JAX's CLI does (the worker fleet's lanes:
+    tests/test_torch_elastic.py)."""
+    monkeypatch.setenv("LLM_MAX_TOKENS", "8")
+    monkeypatch.setenv("VERIFIER_MAX_TOKENS", "8")
+    out = tmp_path / "fleet.json"
+    assert cli.main(["trace", "q", "--fleet", "--chrome", str(out), "--tiny", "--device",
+                     "cpu"]) == 0
+    captured = capsys.readouterr()
+    assert "--fleet: no worker replicas" in captured.err
+    chrome = json.loads(out.read_text())
+    assert any(e["name"].startswith("tick ") for e in chrome["traceEvents"])
+    assert json.loads(captured.out)["flight"]["engine"]["admissions"]
 
 
 def test_worker_series_merge_matches_jax():

@@ -673,29 +673,47 @@ def test_chat_charges_generate_and_verify_to_the_tenant(shared):
         pipeline.close()
 
 
-@pytest.mark.parametrize("field,value,named", [
-    ("replica_mode", "process", "REPLICA_MODE=process"),
-    ("replica_mode", "socket", "REPLICA_MODE=socket"),
-    ("replica_workers", "host-a:9101", "REPLICA_WORKERS"),
-    ("autoscale", True, "AUTOSCALE=1"),
-])
-def test_unported_replica_settings_raise_naming_the_setting(field, value, named):
-    """What the port still refuses is refused naming the setting: the
-    autoscaler under every mode (``AUTOSCALE=1``, ROADMAP 9c), and, as
-    JAX's container does, ``REPLICA_WORKERS`` without
-    ``SOCKET_AUTH_TOKEN`` (a ``ValueError``)."""
+def test_unported_replica_settings_raise_naming_the_setting():
+    """What the port refuses is refused naming the setting, as JAX's
+    container does: ``REPLICA_WORKERS`` without ``SOCKET_AUTH_TOKEN`` (a
+    ``ValueError``)."""
     from sentio_tpu_torch.config import ServeConfig
 
-    if field == "replica_workers":
-        serve, err = ServeConfig(replica_mode="socket", replica_workers=value), ValueError
-    else:
-        serve, err = ServeConfig(**{field: value, "autoscale": True}), NotImplementedError
-    with pytest.raises(err, match=named) as info:
+    serve = ServeConfig(replica_mode="socket", replica_workers="host-a:9101")
+    with pytest.raises(ValueError, match="REPLICA_WORKERS") as info:
         build_pipeline(Settings(serve=serve), device="cpu")
-    if err is NotImplementedError:
-        assert "AUTOSCALE=1" in str(info.value) and "9c" in str(info.value)
-    else:
-        assert "SOCKET_AUTH_TOKEN" in str(info.value)
+    assert "SOCKET_AUTH_TOKEN" in str(info.value)
+
+
+@pytest.mark.parametrize("mode", ["thread", "process", "socket"])
+def test_autoscale_is_accepted_in_every_replica_mode(mode):
+    """``AUTOSCALE=1`` is honoured under every ``REPLICA_MODE``: the
+    settings check passes; a thread set starts the autoscaler over itself
+    with no launcher (as in JAX: a scale-out is booked skipped), and the
+    set stops it first when it closes."""
+    import threading
+
+    from sentio_tpu_torch.config import ServeConfig
+    from sentio_tpu_torch.pipeline import check_replica_settings
+
+    serve = ServeConfig(replica_mode=mode, autoscale=True, autoscale_poll_interval_s=0.05)
+    check_replica_settings(serve)
+    if mode != "thread":
+        return  # the worker tiers' autoscaler: tests/test_torch_elastic.py
+    pipeline = build_pipeline(Settings(serve=serve), device="cpu",
+                              llama_config=LlamaConfig.tiny(),
+                              embedder_config=EncoderConfig.tiny(),
+                              reranker_config=EncoderConfig.tiny())
+    try:
+        scaler = pipeline.replica_set.autoscaler
+        assert scaler is not None and scaler.launcher is None
+        assert scaler.policy.max_replicas == serve.autoscale_max_replicas
+        assert any(t.name == "fleet-autoscaler" and t.is_alive()
+                   for t in threading.enumerate())
+    finally:
+        pipeline.close()
+    assert not any(t.name == "fleet-autoscaler" and t.is_alive()
+                   for t in threading.enumerate())
 
 
 @pytest.mark.parametrize("mode", ["process", "socket", "remote"])

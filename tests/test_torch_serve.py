@@ -902,7 +902,9 @@ def test_metrics_have_replica_rows_as_jax(servers):
 
 def test_info_names_the_replica_tier(servers):
     info = servers["port"].json("GET", "/info")[2]
-    assert info["generator"]["replicas"] == {"count": 1, "mode": "thread"}
+    assert info["generator"]["replicas"] == {"count": 1, "mode": "thread",
+                                             "fleet": {"joined": 0, "retired": 0},
+                                             "autoscale": None}
 
 
 def test_two_replicas_degrade_and_recover_over_http(shared):

@@ -6,8 +6,8 @@ frames; a truncated, oversized, corrupt, wrong-magic or wrong-version frame
 raises the typed error, bounded in time; the network faults through
 ``faults.hit_frame`` (drop the next N frames, a send-side drop, the
 half-open partition); the handshake: monotonic epochs, a bad token or
-version refused, hostile hellos, supersede by epoch, an unknown slot and
-an elastic join (``slot=-1``, ROADMAP 9c) refused. Fault points are named
+version refused, hostile hellos, supersede by epoch, an unknown slot
+refused and an elastic join (``slot=-1``) granted a slot. Fault points are named
 through constants, so JAX's fault-point inventory does not count them."""
 
 import multiprocessing
@@ -352,16 +352,34 @@ def test_racing_registrations_keep_the_highest_epoch():
         reg.close()
 
 
-@pytest.mark.parametrize("slot,named", [(5, "unknown slot 5"), (-1, "9c")],
-                         ids=["unknown_slot", "elastic_join"])
-def test_unknown_slots_and_elastic_joins_are_refused(slot, named):
+def test_unknown_slots_are_refused():
     reg = WorkerRegistry("secret", slots=1)
     try:
         t = dial(reg.address)
-        with pytest.raises(FrameProtocolError, match=named):
-            send_hello(t, "secret", slot, 1)
+        with pytest.raises(FrameProtocolError, match="unknown slot 5"):
+            send_hello(t, "secret", 5, 1)
         t.close()
         assert reg.stats()["registrations"] == 0 and reg.current_epoch(0) == 0
+    finally:
+        reg.close()
+
+
+def test_an_elastic_join_is_granted_a_slot():
+    """``slot=-1`` joins: the ack names a new slot at epoch 1, the join is
+    queued for the supervisor and the registration awaits there (the
+    elastic registry against JAX's: tests/test_torch_elastic.py)."""
+    reg = WorkerRegistry("secret", slots=1)
+    try:
+        t = dial(reg.address)
+        ack = send_hello(t, "secret", -1, 1)
+        assert (ack["slot"], ack["epoch"]) == (1, 1) and t.epoch == 1
+        deadline = time.perf_counter() + 5
+        while reg.stats()["registrations"] < 1 and time.perf_counter() < deadline:
+            time.sleep(0.02)
+        assert reg.drain_joins() == [1] and reg.stats()["slots"] == 2
+        rt, hello, epoch = reg.await_registration(1, 5.0)
+        assert (hello["pid"], epoch, reg.current_epoch(0)) == (1, 1, 0)
+        t.close(), rt.close()
     finally:
         reg.close()
 
