@@ -77,12 +77,12 @@ line each:
     is the admission, not the kernels.
 
 13. slice_spec — speculative decoding at full width, the target cut to
-    16 of Llama-3-8B's 32 layers (``SPEC_LAYERS``, to keep the run inside
-    its time limit since serve_settings): a pipeline
+    4 of Llama-3-8B's 32 layers (``SPEC_LAYERS``, to keep the run inside
+    its time limit since convert_serve): a pipeline
     under the default settings (hybrid rrf, bf16 pool, prefix cache, depth
     2) with bench.py phase E's draft (dim 2048, 4 layers, 16 / 4 heads, MLP
     7,168, random from the seed) passed to ``build_pipeline``, k 4, on the
-    slices' Llama-3-8B tensors (views of the first 16 layers; the earlier
+    slices' Llama-3-8B tensors (views of the first 4 layers; the earlier
     pipelines' pools freed first).
     Warmup captures both spec round variants. 3 chats in a counted window
     (generate at 0.3, the rejection rule; verify at 0, the greedy rule),
@@ -112,7 +112,8 @@ line each:
     fell, trained recall above untrained, the checkpoint reads back equal
     and serves through EMBEDDER_CHECKPOINT in build_pipeline.
 17. train_encoder_wide — 20 steps at the serving embedder's width (dim
-    1,024, 24 layers) in bf16 compute (step ms, peak memory) and in
+    1,024; 12 of its 24 layers since convert_serve, ``WIDE_LAYERS``) in bf16
+    compute (step ms, peak memory) and in
     float32 from the same masters: every loss finite, step 0's losses
     agree, every layer trained (the losses reported: JAX's recipe
     collapses at this depth within these steps).
@@ -334,9 +335,46 @@ IPC handles on them).
     chat the joined worker served, retire_drain_p95_s, tickets handed off,
     each worker's duty cycle, the phase's wall time.
 
-``--only-new`` runs the build, the kernel checks and phase 36 only (on
-weights made afresh from the seed; the joined worker's lone greedy text
-held to the first worker's) and ends without the result lines.
+37. convert_serve (after cli, the earlier pipelines' pools freed) — real
+    checkpoints' path on the slices' weights: Hugging Face directories
+    written from the card's tensors with the standard library and numpy
+    (safetensors, HF names, ``[out, in]``): Llama-3-8B's full width cut to
+    ``CONVERT_LAYERS`` (2) of its 32 layers as ``llama``, the base embedder
+    at its 24 layers as ``xlm-roberta`` (two offset rows before its position
+    table), the default cross-encoder as ``bert`` with the head its tree
+    maps to; their tokenizers written with ``json``: a byte-level BPE with
+    Llama-3's pre-tokenizer filling the model's 128,256 ids (128,000
+    synthetic BPE tokens, every pair of byte symbols then pair + symbol,
+    and Llama-3's 256 specials; bos ``<|begin_of_text|>``, eos
+    ``<|end_of_text|>``, no pad), a ``Unigram`` / ``Metaspace`` / ``NFKC``
+    with XLM-R's specials at 0–3, a BERT ``WordPiece`` of 512 entries.
+    ``python -m sentio_tpu_torch convert`` runs for the three families at
+    once, each in a process of its own (seconds and bytes reported), then
+    ``build_pipeline(Settings.from_env())`` reads LLM_CHECKPOINT /
+    LLM_TOKENIZER, EMBEDDER_CHECKPOINT / EMBEDDER_TOKENIZER and
+    RERANKER_CHECKPOINT / RERANKER_TOKENIZER. Gates: every converted leaf,
+    loaded on the card, bit-equal to its source tensor, each config equal
+    to the live one; every component on its checkpoint's tokenizer (the
+    router's too); the generator's tokenizer round-trips the chats'
+    questions and prompts; 3 chats on 512 chunks in a counted window
+    answered, the bf16 paged kernel once per layer (2) per decode sub-step,
+    flash as often as the embedder's and cross-encoder's forwards predict,
+    each count equal to the card's, no capture after warmup; one prompt's
+    greedy tokens from an engine on the converted weights equal an engine's
+    on the in-memory tensors (cut to 2 layers) with the same tokenizer
+    object, its text that tokenizer's decode of them. Reported: the verify
+    admissions' radix hits (a byte-level BPE merges across the template
+    head's boundary, as JAX's does). Then provider_settings: EMBEDDER_PROVIDER=
+    hash, RERANKER_KIND=passthrough and LLM_PROVIDER=openai against the
+    port's MockModelServer on 127.0.0.1: the build adds nothing to the
+    card's allocated memory, and two chats are answered with no launch of
+    any kernel, the card's counts zero.
+
+``slice_contig`` runs Llama-3-8B cut to 16 of its layers (``CONTIG_LAYERS``)
+since convert_serve.
+
+``--only-new`` runs the build, the kernel checks and phase 37 only (on
+weights made afresh from the seed) and ends without the result lines.
 ``--rounds-only`` runs the build and replicas_1's warmup and rounds only,
 to compare two trees' round times in one call (copied into the other
 tree's root, it drives that tree's package), and ends the same way.
@@ -2514,7 +2552,9 @@ def profile_chat(torch, pipeline, question: str, phase: str = "profile") -> dict
 SPEC_K = 4
 # slice_spec's target depth: 16 of Llama-3-8B's 32 layers keeps the whole
 # run inside its time limit (at 32 the spec phases took ~160 s of ~1,151)
-SPEC_LAYERS = 16
+SPEC_LAYERS = 4
+# slice_contig's depth: half of Llama-3-8B's 32 layers
+CONTIG_LAYERS = 16
 SPEC_EXACT_TOKENS = 64
 
 
@@ -2871,7 +2911,8 @@ def spec_exact_check(torch, dev, prompts: list) -> dict:
 # train-encoder's CLI defaults (JAX's): dim 256, 4 layers, 600 steps of 64
 TRAIN_DIM, TRAIN_LAYERS = 256, 4
 # the serving embedder's width (EncoderConfig.base()), a few steps
-WIDE_DIM, WIDE_LAYERS, WIDE_STEPS = 1024, 24, 20
+# 12 of the serving embedder's 24 layers since convert_serve
+WIDE_DIM, WIDE_LAYERS, WIDE_STEPS = 1024, 12, 20
 EVAL_QUERIES_GATES = 16
 VERDICT_WAIT_S = 30.0
 
@@ -2993,15 +3034,16 @@ def eval_embed(torch, params, cfg, dev, text: str):
 
 
 def train_encoder_wide_check(torch, dev) -> dict:
-    """20 training steps at the serving embedder's width (dim 1,024, 24
-    layers, 16 heads) with train-encoder's other defaults, in bf16 compute
+    """20 training steps at the serving embedder's width (dim 1,024, 16
+    heads; ``WIDE_LAYERS`` 12 of its 24 layers) with train-encoder's other
+    defaults, in bf16 compute
     (step ms, peak memory) and again in float32 compute from the same
     float32 masters. JAX's recipe collapses at this depth within these 20
     steps (every embedding alike, the loss at ln(batch)), in float32 as in
     bf16, so the loss is reported, not required to fall. Gates: every loss
     finite in both runs; step 0's loss in bf16 within 5e-2 of float32's
     (the same batch and weights; step 0 has lr 0); the masters of every
-    layer moved in both (gradients reach all 24 layers)."""
+    layer moved in both (gradients reach every layer)."""
     import math
     import statistics
 
@@ -6002,6 +6044,567 @@ def matrices_to_bf16(torch, tree):
     return tree.to(torch.bfloat16) if tree.dim() > 1 else tree
 
 
+# ----------------------------------------- phase 37: converted checkpoints
+
+CONVERT_LAYERS = 2        # the generator's depth in convert_serve
+CONVERT_CHUNKS = 512      # convert_serve's corpus
+LLAMA3_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}{1,3}|"
+                r" ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+")
+
+
+def write_safetensors(path, tensors: dict) -> int:
+    """``tensors`` (name → torch tensor) as one ``.safetensors`` file,
+    written with the standard library: a little-endian u64 header length,
+    the JSON header, the raw bytes. Returns the file's bytes."""
+    import torch
+
+    names = {torch.bfloat16: "BF16", torch.float16: "F16", torch.float32: "F32"}
+    header, offset, arrays = {}, 0, []
+    for name, t in tensors.items():
+        t = t.detach().contiguous().cpu()
+        arr = (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + arr.nbytes]}
+        offset += arr.nbytes
+        arrays.append(arr)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for arr in arrays:
+            f.write(memoryview(arr).cast("B"))
+    return 8 + len(head) + offset
+
+
+def hf_llama_dir(path, cfg, params) -> int:
+    """The decoder (port layout: ``weight`` [out, in], Hugging Face's) as a
+    ``LlamaForCausalLM`` directory."""
+    from pathlib import Path
+
+    sd = {"model.embed_tokens.weight": params["embed_tokens"]["embedding"],
+          "lm_head.weight": params["lm_head"]["weight"],
+          "model.norm.weight": params["final_norm"]["scale"]}
+    for i in range(cfg.n_layers):
+        lp, p = params[f"layers_{i}"], f"model.layers.{i}"
+        sd[f"{p}.input_layernorm.weight"] = lp["attn_norm"]["scale"]
+        sd[f"{p}.post_attention_layernorm.weight"] = lp["mlp_norm"]["scale"]
+        for ours, theirs in (("wq", "q_proj"), ("wk", "k_proj"), ("wv", "v_proj"),
+                             ("wo", "o_proj")):
+            sd[f"{p}.self_attn.{theirs}.weight"] = lp["attn"][ours]["weight"]
+        for ours, theirs in (("w_gate", "gate_proj"), ("w_up", "up_proj"),
+                             ("w_down", "down_proj")):
+            sd[f"{p}.mlp.{theirs}.weight"] = lp["mlp"][ours]["weight"]
+    Path(path).mkdir(parents=True, exist_ok=True)
+    (Path(path) / "config.json").write_text(json.dumps({
+        "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+        "vocab_size": cfg.vocab_size, "hidden_size": cfg.dim,
+        "intermediate_size": cfg.mlp_dim, "num_hidden_layers": cfg.n_layers,
+        "num_attention_heads": cfg.n_heads, "num_key_value_heads": cfg.n_kv_heads,
+        "max_position_embeddings": cfg.max_len, "rope_theta": cfg.rope_theta,
+        "rms_norm_eps": cfg.norm_eps, "tie_word_embeddings": False,
+        "bos_token_id": 128000, "eos_token_id": 128001, "torch_dtype": "bfloat16"}))
+    return write_safetensors(Path(path) / "model.safetensors", sd)
+
+
+def hf_encoder_sd(params, cfg, prefix: str, offset_rows: int) -> dict:
+    """An encoder tree in Hugging Face's BERT / XLM-R names under
+    ``prefix``; ``offset_rows`` zero rows in front of the position table."""
+    import torch
+
+    pos = params["embed_positions"]["embedding"]
+    if offset_rows:
+        pos = torch.cat([torch.zeros(offset_rows, pos.shape[1], dtype=pos.dtype,
+                                     device=pos.device), pos])
+    e = f"{prefix}embeddings."
+    sd = {f"{e}word_embeddings.weight": params["embed_tokens"]["embedding"],
+          f"{e}position_embeddings.weight": pos,
+          f"{e}token_type_embeddings.weight": params["embed_types"]["embedding"],
+          f"{e}LayerNorm.weight": params["embed_norm"]["scale"],
+          f"{e}LayerNorm.bias": params["embed_norm"]["bias"]}
+    for i in range(cfg.n_layers):
+        lp, p = params[f"layers_{i}"], f"{prefix}encoder.layer.{i}"
+        for ours, theirs in (("wq", "attention.self.query"), ("wk", "attention.self.key"),
+                             ("wv", "attention.self.value"), ("wo", "attention.output.dense")):
+            sd[f"{p}.{theirs}.weight"] = lp["attn"][ours]["weight"]
+            sd[f"{p}.{theirs}.bias"] = lp["attn"][ours]["bias"]
+        for ours, theirs in (("w_in", "intermediate.dense"), ("w_out", "output.dense")):
+            sd[f"{p}.{theirs}.weight"] = lp["mlp"][ours]["weight"]
+            sd[f"{p}.{theirs}.bias"] = lp["mlp"][ours]["bias"]
+        for ours, theirs in (("attn_norm", "attention.output.LayerNorm"),
+                             ("mlp_norm", "output.LayerNorm")):
+            sd[f"{p}.{theirs}.weight"] = lp[ours]["scale"]
+            sd[f"{p}.{theirs}.bias"] = lp[ours]["bias"]
+    return sd
+
+
+def hf_encoder_config(cfg, model_type: str, offset_rows: int, pad: int, **extra) -> dict:
+    return {"model_type": model_type, "vocab_size": cfg.vocab_size, "hidden_size": cfg.dim,
+            "num_hidden_layers": cfg.n_layers, "num_attention_heads": cfg.n_heads,
+            "intermediate_size": cfg.mlp_dim,
+            "max_position_embeddings": cfg.max_len + offset_rows,
+            "type_vocab_size": cfg.n_types, "pad_token_id": pad, "torch_dtype": "bfloat16",
+            **extra}
+
+
+def write_hf_encoders(root, weights: dict) -> dict:
+    """The embedder as ``xlm-roberta`` (two offset rows before its position
+    table) and the cross-encoder as ``bert`` with the head its tree maps to
+    (``classifier``, and ``bert.pooler.dense`` when it has a pooler)."""
+    from pathlib import Path
+
+    out = {}
+    ecfg, ccfg = weights["embedder_config"], weights["reranker_config"]
+    d = Path(root) / "hf_encoder"
+    d.mkdir(parents=True)
+    (d / "config.json").write_text(json.dumps(hf_encoder_config(
+        ecfg, "xlm-roberta", 2, 1, architectures=["XLMRobertaModel"])))
+    out["encoder"] = write_safetensors(d / "model.safetensors", hf_encoder_sd(
+        weights["embedder_params"], ecfg, "", 2))
+    ce = weights["reranker_params"]
+    d = Path(root) / "hf_cross_encoder"
+    d.mkdir(parents=True)
+    sd = hf_encoder_sd(ce["encoder"], ccfg, "bert.", 0)
+    if "pooler" in ce:
+        sd["bert.pooler.dense.weight"] = ce["pooler"]["weight"]
+        sd["bert.pooler.dense.bias"] = ce["pooler"]["bias"]
+    sd["classifier.weight"] = ce["head"]["weight"]
+    sd["classifier.bias"] = ce["head"]["bias"]
+    (d / "config.json").write_text(json.dumps(hf_encoder_config(
+        ccfg, "bert", 0, 0, architectures=["BertForSequenceClassification"], num_labels=1)))
+    out["cross-encoder"] = write_safetensors(d / "model.safetensors", sd)
+    return out
+
+
+def _bytes_to_unicode() -> list:
+    """GPT-2's printable stand-in for every byte, by byte."""
+    bs = (list(range(ord("!"), ord("~") + 1)) + list(range(ord("¡"), ord("¬") + 1))
+          + list(range(ord("®"), ord("ÿ") + 1)))
+    cs, n = bs[:], 0
+    for b in range(256):
+        if b not in bs:
+            bs.append(b)
+            cs.append(256 + n)
+            n += 1
+    table = dict(zip(bs, cs))
+    return [chr(table[b]) for b in range(256)]
+
+
+def llama3_specials() -> list:
+    """Llama-3's 256 special tokens, ids 128,000–128,255 in order."""
+    named = {0: "<|begin_of_text|>", 1: "<|end_of_text|>", 6: "<|start_header_id|>",
+             7: "<|end_header_id|>", 9: "<|eot_id|>"}
+    out, reserved = [], 0
+    for i in range(256):
+        if i in named:
+            out.append(named[i])
+        else:
+            out.append(f"<|reserved_special_token_{reserved}|>")
+            reserved += 1
+    return out
+
+
+def _added(tokens: list, start: int, special: bool = True) -> list:
+    return [{"id": start + i, "content": t, "single_word": False, "lstrip": False,
+             "rstrip": False, "normalized": False, "special": special}
+            for i, t in enumerate(tokens)]
+
+
+def _write_tokenizer(path, spec: dict, config: dict) -> None:
+    from pathlib import Path
+
+    Path(path).mkdir(parents=True, exist_ok=True)
+    (Path(path) / "tokenizer.json").write_text(json.dumps(spec, ensure_ascii=False))
+    (Path(path) / "tokenizer_config.json").write_text(json.dumps(config))
+
+
+def write_llama3_tokenizer(path, n_bpe: int = 128_000) -> None:
+    """A byte-level BPE with Llama-3's pre-tokenizer filling the model's
+    128,256 ids: the 256 byte symbols, every pair of them, then pair +
+    symbol (printable bytes first) up to ``n_bpe`` tokens, merges in that
+    order; Llama-3's 256 specials after them. Synthetic merges: every id
+    decodes to bytes, so a random model's answer is never empty."""
+    sym = _bytes_to_unicode()
+    import itertools
+
+    order = sorted(range(256), key=lambda b: (not (32 <= b < 127), b))
+    vocab = {sym[b]: b for b in range(256)}
+    merges = []
+    pairs = ((sym[a], sym[b]) for a in order for b in order)
+    triples = ((sym[a] + sym[b], sym[c]) for a in order for b in order for c in order)
+    for left, right in itertools.chain(pairs, triples):
+        if len(vocab) >= n_bpe:
+            break
+        vocab[left + right] = len(vocab)
+        merges.append([left, right])
+    specials = llama3_specials()
+    _write_tokenizer(path, {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": _added(specials, n_bpe), "normalizer": None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": LLAMA3_SPLIT}, "behavior": "Isolated",
+             "invert": False},
+            {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
+             "use_regex": False}]},
+        "post_processor": None,
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": True,
+                    "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                  "fuse_unk": False, "byte_fallback": False, "ignore_merges": True,
+                  "vocab": vocab, "merges": merges}},
+        {"bos_token": specials[0], "eos_token": specials[1],
+         "clean_up_tokenization_spaces": False, "tokenizer_class": "PreTrainedTokenizerFast"})
+
+
+def write_unigram_tokenizer(path, words) -> None:
+    """XLM-R's layout with ``NFKC`` in ``Precompiled``'s place: a Unigram of
+    ``▁``-prefixed corpus words and single characters, ``Metaspace``, the
+    specials ``<s>``, ``<pad>``, ``</s>``, ``<unk>`` at 0–3."""
+    import string
+
+    specials = ["<s>", "<pad>", "</s>", "<unk>"]
+    pieces = [[t, 0.0] for t in specials]
+    pieces += [["▁" + w, -5.0 - 0.1 * len(w)] for w in words]
+    pieces += [[c, -12.0] for c in ["▁", *string.printable.strip()]]
+    pieces += [["▁" + c, -11.0] for c in string.ascii_letters + string.digits]
+    meta = {"replacement": "▁", "prepend_scheme": "always", "split": True}
+    _write_tokenizer(path, {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": _added(specials, 0), "normalizer": {"type": "NFKC"},
+        "pre_tokenizer": {"type": "Metaspace", **meta}, "post_processor": None,
+        "decoder": {"type": "Metaspace", **meta},
+        "model": {"type": "Unigram", "unk_id": 3, "vocab": pieces, "byte_fallback": False}},
+        {"bos_token": "<s>", "eos_token": "</s>", "pad_token": "<pad>", "unk_token": "<unk>",
+         "cls_token": "<s>", "sep_token": "</s>", "clean_up_tokenization_spaces": False})
+
+
+def write_wordpiece_tokenizer(path, words, limit: int = 512) -> None:
+    """BERT's layout: ``BertNormalizer``, ``BertPreTokenizer``, a
+    ``WordPiece`` of at most ``limit`` entries (the specials, characters and
+    their ``##`` forms, then the corpus's words)."""
+    import string
+
+    specials = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    chars = string.ascii_lowercase + string.digits + string.punctuation
+    entries = [*specials, *chars, *("##" + c for c in string.ascii_lowercase + string.digits)]
+    entries += [w for w in words if w not in entries][: limit - len(entries)]
+    _write_tokenizer(path, {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": _added(specials, 0),
+        "normalizer": {"type": "BertNormalizer", "clean_text": True,
+                       "handle_chinese_chars": True, "strip_accents": None, "lowercase": True},
+        "pre_tokenizer": {"type": "BertPreTokenizer"}, "post_processor": None,
+        "decoder": {"type": "WordPiece", "prefix": "##", "cleanup": True},
+        "model": {"type": "WordPiece", "unk_token": "[UNK]", "continuing_subword_prefix": "##",
+                  "max_input_chars_per_word": 100,
+                  "vocab": {t: i for i, t in enumerate(entries)}}},
+        {"pad_token": "[PAD]", "unk_token": "[UNK]", "cls_token": "[CLS]", "sep_token": "[SEP]",
+         "mask_token": "[MASK]", "clean_up_tokenization_spaces": False})
+
+
+def tree_mismatches(loaded: dict, source: dict, prefix: str = "") -> list:
+    """Leaves of ``loaded`` that are not bit-equal to ``source``'s (the
+    same dtype, shape and bits); keys of either that the other lacks."""
+    import torch
+
+    bad = [f"{prefix}{k}: missing" for k in set(source) ^ set(loaded)]
+    for key in set(source) & set(loaded):
+        a, b = loaded[key], source[key]
+        if isinstance(a, dict):
+            bad += tree_mismatches(a, b, f"{prefix}{key}.")
+        elif a.dtype != b.dtype or a.shape != b.shape or not torch.equal(
+                a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+                b.view(torch.int16) if b.dtype == torch.bfloat16 else b):
+            bad.append(f"{prefix}{key}: {a.dtype} {tuple(a.shape)} vs {b.dtype} "
+                       f"{tuple(b.shape)}")
+    return bad
+
+
+def dir_bytes(path) -> int:
+    from pathlib import Path
+
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def convert_serve_check(torch, dev, weights: dict) -> dict:
+    """Phase 37: Hugging Face directories written from the card's tensors
+    (the generator cut to ``CONVERT_LAYERS``), their tokenizers written with
+    ``json``, ``python -m sentio_tpu_torch convert`` for each family, then
+    ``build_pipeline(Settings.from_env())`` with the six checkpoint and
+    tokenizer settings. See the module's docstring for the gates."""
+    import os
+    import shutil
+    import threading
+    from pathlib import Path
+
+    from sentio_tpu_torch.config import Settings
+    from sentio_tpu_torch.models.tokenizer import HFTokenizer
+    from sentio_tpu_torch.pipeline import build_pipeline
+    from sentio_tpu_torch.runtime.paged import ContinuousBatchingEngine
+
+    phase = "convert_serve"
+    t_phase = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="smoke-convert-"))
+    cut = cut_depth(weights, CONVERT_LAYERS)
+    docs, words = corpus(CONVERT_CHUNKS)
+    result: dict = {}
+    env_keys = ("LLM_CHECKPOINT", "LLM_TOKENIZER", "EMBEDDER_CHECKPOINT", "EMBEDDER_TOKENIZER",
+                "RERANKER_CHECKPOINT", "RERANKER_TOKENIZER", "LLM_MAX_TOKENS",
+                "VERIFIER_MAX_TOKENS")
+    saved_env = {k: os.environ.get(k) for k in env_keys}
+    pipeline = None
+    try:
+        # ---- the Hugging Face directories and the tokenizers
+        t0 = time.perf_counter()
+        hf_bytes = {"llama": hf_llama_dir(root / "hf_llama", cut["llama_config"],
+                                          cut["llama_params"]),
+                    **write_hf_encoders(root, weights)}
+        hf_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        toks = {"llama": root / "tok_llama", "encoder": root / "tok_encoder",
+                "cross-encoder": root / "tok_cross_encoder"}
+        write_llama3_tokenizer(toks["llama"])
+        write_unigram_tokenizer(toks["encoder"], words)
+        write_wordpiece_tokenizer(toks["cross-encoder"], words)
+        tok_s = time.perf_counter() - t0
+        emit(f"{phase}_hf", seconds=hf_s, bytes=hf_bytes, tokenizer_seconds=tok_s,
+             tokenizer_bytes={k: dir_bytes(v) for k, v in toks.items()})
+
+        # ---- convert, each family in its own process, all at once
+        srcs = {"llama": root / "hf_llama", "encoder": root / "hf_encoder",
+                "cross-encoder": root / "hf_cross_encoder"}
+        cks = {family: root / f"ck_{family}" for family in srcs}
+        here = Path(__file__).resolve().parent
+        t0 = time.perf_counter()
+        procs = {family: (subprocess.Popen(
+            [sys.executable, "-m", "sentio_tpu_torch", "convert", family, str(srcs[family]),
+             str(cks[family])], cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True), time.perf_counter()) for family in srcs}
+        finished: dict = {}
+
+        def wait(family: str, proc, started: float) -> None:
+            out, err = proc.communicate(timeout=600)
+            finished[family] = (proc, out, err, time.perf_counter() - started)
+
+        waiters = [threading.Thread(target=wait, args=(family, *procs[family]),
+                                    name=f"smoke-convert-{family}", daemon=True)
+                   for family in procs]
+        for waiter in waiters:
+            waiter.start()
+        for waiter in waiters:
+            waiter.join(timeout=660)
+        convert = {}
+        for family, (proc, _started) in procs.items():
+            if family not in finished:
+                proc.kill()
+                raise AssertionError(f"{phase}: convert {family} did not finish in 600 s")
+            proc, out, err, seconds = finished[family]
+            if proc.returncode != 0:
+                raise AssertionError(f"{phase}: convert {family}: exit {proc.returncode}: "
+                                     f"{err[-3000:]}")
+            line = json.loads(out.strip().splitlines()[-1])
+            convert[family] = {"seconds": seconds, "bytes": dir_bytes(cks[family]),
+                               "config": line["config"]}
+        result["convert"] = convert
+        result["convert_wall_s"] = time.perf_counter() - t0
+        emit(f"{phase}_convert", wall_seconds=result["convert_wall_s"], families=convert)
+        for family, live in (("llama", cut["llama_config"]),
+                             ("encoder", weights["embedder_config"]),
+                             ("cross-encoder", weights["reranker_config"])):
+            if convert[family]["config"] != live.__dict__:
+                raise AssertionError(f"{phase}: {family}'s converted config "
+                                     f"{convert[family]['config']} is not {live.__dict__}")
+        shutil.rmtree(root / "hf_llama")
+        for family in ("encoder", "cross-encoder"):
+            shutil.rmtree(srcs[family])
+
+        # ---- the pipeline from the environment's six settings
+        os.environ.update({
+            "LLM_CHECKPOINT": str(cks["llama"]), "LLM_TOKENIZER": str(toks["llama"]),
+            "EMBEDDER_CHECKPOINT": str(cks["encoder"]),
+            "EMBEDDER_TOKENIZER": str(toks["encoder"]),
+            "RERANKER_CHECKPOINT": str(cks["cross-encoder"]),
+            "RERANKER_TOKENIZER": str(toks["cross-encoder"]),
+            "LLM_MAX_TOKENS": str(MAX_TOKENS), "VERIFIER_MAX_TOKENS": str(MAX_TOKENS)})
+        settings = Settings.from_env()
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pipeline = build_pipeline(settings, device=dev, seed=SEED)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        engine, emb, ce = pipeline.engine, pipeline.embedder, pipeline.reranker
+        tok = engine.tokenizer
+        mismatched = (tree_mismatches(engine.params, cut["llama_params"], "llama.")
+                      + tree_mismatches(emb.params, weights["embedder_params"], "encoder.")
+                      + tree_mismatches(ce.params, weights["reranker_params"],
+                                        "cross_encoder."))
+        result["load"] = {"seconds": load_s, "memory_added": torch.cuda.memory_allocated()
+                          - mem0, "tokenizers": {
+                              name: {"class": type(t).__name__, "vocab_size": t.vocab_size,
+                                     "bos": t.bos_id, "eos": t.eos_id, "pad": t.pad_id}
+                              for name, t in (("llama", tok), ("encoder", emb.tokenizer),
+                                              ("cross-encoder", ce.tokenizer))},
+                          "mismatched_leaves": mismatched[:20]}
+        emit(f"{phase}_load", **result["load"])
+        if mismatched:
+            raise AssertionError(f"{phase}: converted leaves differ from their sources: "
+                                 f"{mismatched[:20]}")
+        if not all(isinstance(t, HFTokenizer) for t in (tok, emb.tokenizer, ce.tokenizer)) \
+                or pipeline.replica_set.tokenizer is not tok:
+            raise AssertionError(f"{phase}: a component does not use its checkpoint's "
+                                 f"tokenizer: {result['load']['tokenizers']}")
+        t0 = time.perf_counter()
+        warm = pipeline.warmup()
+        torch.cuda.synchronize()
+        emit(f"{phase}_warmup", wall_seconds=time.perf_counter() - t0, **warm)
+        t0 = time.perf_counter()
+        pipeline.ingest(docs)
+        torch.cuda.synchronize()
+        emit(f"{phase}_ingest", chunks=len(docs), seconds=time.perf_counter() - t0)
+
+        # ---- 3 chats in a counted window
+        questions = slice_questions(docs, words)
+        calls = record_admissions(pipeline.service)
+        pipeline.service.wait_idle()
+        sub_steps0, captures0 = engine.total_sub_steps, engine.graph_captures
+        fwd0 = (emb.forwards, ce.forwards)
+        try:
+            window = chat_window(torch, pipeline, questions)
+        finally:
+            del pipeline.service.generate
+        pipeline.service.wait_idle()
+        launches, card = window["launches"], window["card"]
+        sub_steps = engine.total_sub_steps - sub_steps0
+        forwards = {"embedder": emb.forwards - fwd0[0], "cross_encoder": ce.forwards - fwd0[1]}
+        predicted_flash = (forwards["embedder"] * emb.model_config.n_layers
+                           + forwards["cross_encoder"] * ce.model_config.n_layers)
+        prompts = [c["prompt"] for c in calls]
+        round_trips = sum(tok.decode(tok.encode(p)) == p for p in questions + prompts)
+        chats = []
+        for i, (response, seconds) in enumerate(window["chats"]):
+            check_answered(phase, i, response)
+            chats.append({"seconds": seconds, "answer_chars": len(response["answer"]),
+                          "generated_tokens": response["metadata"]["generated_tokens"],
+                          "verdict": response["verification"].get("verdict")})
+        result["chats"] = {
+            "chats": chats, "seconds": window["seconds"], "launches": launches,
+            "device_launches": card, "decode_sub_steps": sub_steps, "forwards": forwards,
+            "predicted_flash": predicted_flash,
+            "verify_radix_hits": [c["prefix_hit_tokens"] for c in calls[1::2]],
+            "generate_prompt_tokens": [c["prompt_tokens"] for c in calls[::2]],
+            "prompts_round_tripped": round_trips, "prompts": len(questions) + len(prompts),
+            "graph_captures_delta": engine.graph_captures - captures0,
+            "peak_memory": torch.cuda.max_memory_allocated()}
+        emit(f"{phase}_chats", **result["chats"])
+        if round_trips != len(questions) + len(prompts):
+            raise AssertionError(f"{phase}: the generator's tokenizer does not round-trip "
+                                 f"the chats' prompts ({round_trips} of "
+                                 f"{len(questions) + len(prompts)})")
+        if launches["paged_attention"] != CONVERT_LAYERS * sub_steps or sub_steps <= 0 \
+                or launches["paged_attention_quant"]:
+            raise AssertionError(f"{phase}: decode launches are not one bf16 paged launch "
+                                 f"per layer per sub-step: {launches}, {sub_steps} sub-steps")
+        if launches["flash_attention"] != predicted_flash or predicted_flash <= 0:
+            raise AssertionError(f"{phase}: {launches['flash_attention']} flash launches, the "
+                                 f"embedder's and cross-encoder's forwards predict "
+                                 f"{predicted_flash}: {forwards}")
+        check_card(phase, card, launches)
+        if result["chats"]["graph_captures_delta"]:
+            raise AssertionError(f"{phase}: a graph was captured after warmup")
+
+        # ---- greedy tokens: the converted weights against the in-memory
+        # tensors, one tokenizer object, fresh engines of one geometry
+        prompt = questions[1]
+        geometry = dict(max_slots=2, page_size=settings.generator.kv_page_size,
+                        max_pages_per_seq=8, prefix_cache=False, device=dev, tokenizer=tok)
+        runs = {}
+        for name, (cfg, params) in (("converted", (engine.cfg, engine.params)),
+                                    ("in_memory", (cut["llama_config"], cut["llama_params"]))):
+            probe = ContinuousBatchingEngine(model_config=cfg, params=params, **geometry)
+            runs[name] = probe.run_all([prompt], max_new_tokens=MAX_TOKENS, temperature=0.0)[0]
+            del probe
+        got, want = runs["converted"], runs["in_memory"]
+        result["greedy"] = {"tokens": len(got.tokens), "equal": got.tokens == want.tokens,
+                            "text_is_decode": got.text == tok.decode(got.tokens),
+                            "text_chars": len(got.text)}
+        emit(f"{phase}_greedy", **result["greedy"])
+        if got.tokens != want.tokens or not got.tokens:
+            raise AssertionError(f"{phase}: the converted engine's greedy tokens differ from "
+                                 f"the in-memory engine's: {got.tokens} vs {want.tokens}")
+        if got.text != tok.decode(got.tokens):
+            raise AssertionError(f"{phase}: the answer is not the tokenizer's decode of its "
+                                 "tokens")
+    finally:
+        if pipeline is not None:
+            close_pipeline(torch, pipeline)
+        for key, value in saved_env.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+        shutil.rmtree(root, ignore_errors=True)
+    result["providers"] = provider_settings_check(torch, dev, docs[:64], words)
+    result["seconds"] = time.perf_counter() - t_phase
+    emit(phase, seconds=result["seconds"], launches=result["chats"]["launches"])
+    return result
+
+
+def provider_settings_check(torch, dev, docs, words) -> dict:
+    """EMBEDDER_PROVIDER=hash, RERANKER_KIND=passthrough and
+    LLM_PROVIDER=openai against the port's MockModelServer on 127.0.0.1:
+    the build adds nothing to the card's allocated memory, and two chats
+    are answered with no launch of any kernel, the card's counts zero."""
+    from sentio_tpu_torch.config import (
+        EmbedderConfig,
+        GeneratorConfig,
+        RerankConfig,
+        Settings,
+    )
+    from sentio_tpu_torch.eval.baseline import MockModelServer
+    from sentio_tpu_torch.pipeline import build_pipeline
+
+    phase = "provider_settings"
+    mock = MockModelServer(dim=1024).start()
+    pipeline = None
+    try:
+        settings = Settings(embedder=EmbedderConfig(provider="hash"),
+                            rerank=RerankConfig(kind="passthrough"),
+                            generator=GeneratorConfig(provider="openai",
+                                                      api_base=mock.base_url + "/v1",
+                                                      max_new_tokens=MAX_TOKENS))
+        gc.collect()
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        pipeline = build_pipeline(settings, device=dev, seed=SEED)
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated() - mem0
+        pipeline.ingest(docs)
+        window = chat_window(torch, pipeline, [
+            f"What does the corpus say about {words[7]}?", docs[3].text[:200]])
+        for i, (response, _s) in enumerate(window["chats"]):
+            check_answered(phase, i, response)
+        result = {"memory_grown_by_build": grown, "engine": pipeline.engine is not None,
+                  "launches": window["launches"], "device_launches": window["card"],
+                  "mock_calls": dict(mock.calls), "seconds": window["seconds"],
+                  "answers": [r["answer"][:80] for r, _ in window["chats"]]}
+        emit(phase, **result)
+        if grown > 0 or result["engine"]:
+            raise AssertionError(f"{phase}: the build put something of the generator on the "
+                                 f"card ({grown} bytes, engine {result['engine']})")
+        if any(window["launches"].values()) or any(window["card"].values()) \
+                or mock.calls.get("chat", 0) < 2:
+            raise AssertionError(f"{phase}: kernels ran, or the endpoint was not asked: "
+                                 f"{result}")
+        return result
+    finally:
+        if pipeline is not None:
+            pipeline.close()
+        mock.stop()
+
+
 def family_launches(card: dict, family: str) -> dict:
     """The card's counts (:func:`card_launches`) of one kernel's device
     functions."""
@@ -6025,8 +6628,8 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only-new", action="store_true",
-                        help="build, the kernel checks, then only elastic; ends without the "
-                             "result lines")
+                        help="build, the kernel checks, then only convert_serve; ends without "
+                             "the result lines")
     parser.add_argument("--worker-rounds", action="store_true",
                         help="build, then the rounds of one and two replicas in thread and "
                              "in process mode (random 8B weights); ends without the result "
@@ -6106,7 +6709,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     if args.only_new:
-        elastic_check(torch, dev, settings_weights(torch, dev), None)
+        convert_serve_check(torch, dev, settings_weights(torch, dev))
         return 0
 
     # the MoE phases first: their 47 GB of weights cannot sit beside the
@@ -6153,7 +6756,7 @@ def main(argv=None) -> int:
 
     # USE_PAGED_KV=0 with the default hybrid retrieval, on the same weights
     sc = run_contig_slice(torch, dev, Settings(generator=GeneratorConfig(
-        use_paged_decode=False, **caps)), shared=weights)
+        use_paged_decode=False, **caps)), shared=cut_depth(weights, CONTIG_LAYERS))
     contig_logits_check(torch, sc["pipeline"], sc["generate_prompt"])
     contig_vs_paged_check(torch, dev, sl["generate_prompt"])
 
@@ -6180,6 +6783,7 @@ def main(argv=None) -> int:
     ev, gates, vm = new["eval"]["counts"], new["quality_gates"]["launches"], new["verify_modes"]
     rep = replica_phases(torch, dev, weights)
     cli_check(torch)
+    cs = convert_serve_check(torch, dev, weights)
     t_workers = time.perf_counter()
     workers = worker_phases(torch, dev, weights, rep["replicas_2"])
     emit("worker_phases", seconds=time.perf_counter() - t_workers)
@@ -6216,6 +6820,7 @@ def main(argv=None) -> int:
                               **{path: launches["paged_attention"]
                                  for path, launches in worker_paths.items()},
                               "elastic": elastic["paged_launches"],
+                              "convert_serve": cs["chats"]["launches"]["paged_attention"],
                               "slice_moe": sm["launches"]["paged_attention"],
                               "profile_moe": pm["launches_counted"]["paged_attention"]},
          "launches_by_worker": {
@@ -6247,6 +6852,8 @@ def main(argv=None) -> int:
                                                        "paged_attention"),
          "device_launches_serve_settings": family_launches(st["device_launches"],
                                                            "paged_attention"),
+         "device_launches_convert_serve": family_launches(cs["chats"]["device_launches"],
+                                                          "paged_attention"),
          "device_launches_profiled_chat": device_launches(profile, "paged_attention"),
          "device_launches_slice_moe": family_launches(sm["device_launches"],
                                                       "paged_attention"),
@@ -6307,6 +6914,7 @@ def main(argv=None) -> int:
                               "replicas_2_socket_router": workers["replicas_2_socket"][
                                   "round"]["router_launches"]["flash_attention"],
                               "elastic_router": elastic["router_launches"]["flash_attention"],
+                              "convert_serve": cs["chats"]["launches"]["flash_attention"],
                               "slice_moe": sm["launches"]["flash_attention"],
                               "profile_moe": pm["launches_counted"]["flash_attention"],
                               "slice_moe_int8": sm8["launches"]["flash_attention"]},
@@ -6315,7 +6923,9 @@ def main(argv=None) -> int:
                                              ("slice_contig", sc), ("service", service),
                                              ("serve_http_ingest", http["ingest"]),
                                              ("serve_http", http["chats"]),
-                                             ("serve_settings", st), ("slice_spec", ss),
+                                             ("serve_settings", st),
+                                             ("convert_serve", cs["chats"]),
+                                             ("slice_spec", ss),
                                              ("slice_spec_service", spec_service),
                                              ("spec_int8", spec_int8),
                                              ("spec_exact", spec_exact), ("verify_modes", vm),

@@ -1,4 +1,4 @@
-"""``python -m sentio_tpu_torch {chat,serve,ingest,eval,train-encoder,trace,info}``
+"""``python -m sentio_tpu_torch {chat,serve,ingest,eval,train-encoder,trace,info,convert}``
 
 * ``chat "question" [--docs FILE ...]`` builds the ``/chat`` pipeline,
   ingests the given files (a few built-in passages when none are given)
@@ -39,13 +39,23 @@
   <the card's name>}``, or ``cpu``), the retrieval strategy, the
   generator preset and the mesh sizes.
 
-Each runs on the card unless ``--device cpu``. Settings come from the
+* ``convert {llama,moe,encoder,cross-encoder} SRC DST [--dtype D]`` reads
+  a Hugging Face checkpoint directory (``config.json`` and
+  ``*.safetensors`` or ``pytorch_model*.bin``) and writes a ``save_pytree``
+  checkpoint with the family and config in its meta (``bfloat16`` by
+  default), then prints ``{"family", "dst", "config"}`` as JSON, as the JAX
+  CLI's ``convert``; it runs on the host and touches no card.
+
+The others run on the card unless ``--device cpu``. Settings come from the
 environment as in the JAX service: ``RETRIEVAL_STRATEGY`` (``hybrid`` by
 default, or ``dense`` / ``bm25``), ``KV_QUANT=int8`` for an int8 KV page
 pool, ``PREFIX_CACHE``, ``DECODE_PIPELINE_DEPTH`` and ``PREFILL_CHUNK``
 for the engine, ``USE_PAGED_KV=0`` for the contiguous engine,
 ``LLM_CHECKPOINT`` / ``RERANKER_CHECKPOINT`` / ``EMBEDDER_CHECKPOINT`` for
-``save_pytree`` checkpoints, ``CHUNK_SIZE``, ``INDEX_PATH``,
+``save_pytree`` checkpoints (``convert``'s), each with its own Hugging Face
+tokenizer directory in ``LLM_TOKENIZER`` / ``RERANKER_TOKENIZER`` /
+``EMBEDDER_TOKENIZER``, ``LLM_PROVIDER`` / ``EMBEDDER_PROVIDER`` /
+``RERANKER_KIND`` as in JAX's container, ``CHUNK_SIZE``, ``INDEX_PATH``,
 ``SENTIO_PORT`` and the rest of ``sentio_tpu_torch.config``. Weights not
 loaded from a checkpoint are random, made from ``--seed`` (``ingest`` and
 ``serve`` with the same seed embed with the same weights). ``--tiny``
@@ -302,6 +312,17 @@ def _cmd_train_encoder(args) -> int:
     return 0
 
 
+def _cmd_convert(args) -> int:
+    """A local HF checkpoint directory → a ``save_pytree`` checkpoint."""
+    from sentio_tpu_torch.models.convert import load_family_dir
+    from sentio_tpu_torch.runtime.weights import save_pytree
+
+    params, cfg = load_family_dir(args.family, args.src, dtype=args.dtype)
+    save_pytree(args.dst, params, meta={"family": args.family, "config": cfg.__dict__})
+    print(json.dumps({"family": args.family, "dst": args.dst, "config": cfg.__dict__}))
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="python -m sentio_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -382,6 +403,13 @@ def main(argv=None) -> int:
                             "clock-aligned trace (a lane per worker incarnation)")
     common(trace)
     trace.set_defaults(fn=_cmd_trace)
+
+    conv = sub.add_parser("convert", help="convert a local HF checkpoint dir")
+    conv.add_argument("family", choices=["llama", "moe", "encoder", "cross-encoder"])
+    conv.add_argument("src", help="HF checkpoint directory (config.json + weights)")
+    conv.add_argument("dst", help="output framework checkpoint directory")
+    conv.add_argument("--dtype", default="bfloat16")
+    conv.set_defaults(fn=_cmd_convert)
 
     info = sub.add_parser("info", help="print version, device and config info")
     common(info)

@@ -19,7 +19,6 @@ every hop and flatter the port in the north-star comparison.
 
 from __future__ import annotations
 
-import hashlib
 import json
 import math
 import re
@@ -33,23 +32,9 @@ import numpy as np
 
 from sentio_tpu_torch.infra.http_client import HttpClient
 from sentio_tpu_torch.models.document import Document
+from sentio_tpu_torch.ops.embedder import hash_embed
 
 RRF_K = 20  # the reference's tuned value
-
-
-def hash_embed(texts: Sequence[str], dim: int) -> np.ndarray:
-    """Deterministic hash-seeded unit vectors with token-level signal —
-    ``sentio_tpu/ops/embedder.py::HashEmbedder._embed_batch``."""
-    out = np.zeros((len(texts), dim), np.float32)
-    for i, text in enumerate(texts):
-        seed = int.from_bytes(hashlib.sha256(text.lower().encode()).digest()[:8], "little")
-        vec = np.random.default_rng(seed).standard_normal(dim).astype(np.float32)
-        # sorted: the same summation order in every process
-        for tok in sorted(set(text.lower().split())):
-            tseed = int.from_bytes(hashlib.md5(tok.encode()).digest()[:8], "little")
-            vec += 4.0 * np.random.default_rng(tseed).standard_normal(dim).astype(np.float32)
-        out[i] = vec / max(np.linalg.norm(vec), 1e-9)
-    return out
 
 
 # ------------------------------------------------------- loopback mock APIs

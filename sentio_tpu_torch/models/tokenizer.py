@@ -3,15 +3,22 @@ batch helpers, copied from ``sentio_tpu/models/tokenizer.py``.
 
 :class:`ByteTokenizer` — vocab = 256 bytes + specials, fully reversible;
 ``batch_encode`` right-pads a batch, ``batch_encode_pairs`` builds the
-cross-encoder's ``[CLS] a [SEP] b [SEP]`` rows with type ids. The
-HuggingFace wrapper is not part of this package yet.
+cross-encoder's ``[CLS] a [SEP] b [SEP]`` rows with type ids.
+:class:`WordHashTokenizer` hashes words to ids;
+:class:`HFTokenizer` reads a Hugging Face tokenizer directory without
+``transformers`` (``models/hf_tokenizer.py`` runs its ``tokenizer.json``)
+and encodes and decodes as the JAX package's ``HFTokenizer`` does through
+``transformers``; :func:`get_tokenizer` picks one by kind.
 """
 
 from __future__ import annotations
 
+import hashlib
 from typing import Optional, Protocol, Sequence
 
 import numpy as np
+
+from sentio_tpu_torch.models.hf_tokenizer import cleanup_spaces, read_directory, special_id
 
 
 class Tokenizer(Protocol):
@@ -72,7 +79,6 @@ def batch_encode_pairs(
     return ids, mask, types
 
 
-
 class ByteTokenizer:
     """UTF-8 bytes + 5 specials. ``decode(encode(s)) == s`` for any string."""
 
@@ -102,3 +108,72 @@ class ByteTokenizer:
             elif i > self.sep_id:  # unused padded-vocab slot
                 out.extend("�".encode())
         return out.decode("utf-8", errors="replace")
+
+
+class WordHashTokenizer:
+    """Stable word→id hash (md5). Irreversible; decode returns placeholder
+    tokens."""
+
+    def __init__(self, vocab_size: int = 512) -> None:
+        if vocab_size < 16:
+            raise ValueError("vocab too small")
+        self.vocab_size = vocab_size
+        self.pad_id, self.bos_id, self.eos_id, self.cls_id, self.sep_id = range(5)
+        self._n_special = 8
+
+    def _hash(self, word: str) -> int:
+        h = int.from_bytes(hashlib.md5(word.encode()).digest()[:4], "little")
+        return self._n_special + h % (self.vocab_size - self._n_special)
+
+    def encode(self, text: str, add_bos: bool = False, add_eos: bool = False) -> list[int]:
+        ids = [self._hash(w) for w in text.lower().split()]
+        if add_bos:
+            ids = [self.bos_id] + ids
+        if add_eos:
+            ids = ids + [self.eos_id]
+        return ids
+
+    def decode(self, ids: Sequence[int]) -> str:
+        return " ".join(f"<{i}>" for i in ids if i >= self._n_special)
+
+
+class HFTokenizer:
+    """A local Hugging Face tokenizer directory, read with the standard
+    library: ``vocab_size`` is the model's own vocabulary (added tokens
+    excluded), the five special ids come from the directory's config
+    through the vocabulary (0 for one it does not name), ``encode`` adds no
+    special tokens of its own before ``add_bos`` / ``add_eos``, and
+    ``decode`` skips special tokens and ids outside the vocabulary, then
+    cleans up tokenization spaces when the config asks for it."""
+
+    def __init__(self, path: str) -> None:
+        self.path = str(path)
+        self._tok, names, self._cleanup = read_directory(self.path)
+        self.vocab_size = self._tok.vocab_size
+        self.pad_id = special_id(self._tok, names["pad_token"])
+        self.bos_id = special_id(self._tok, names["bos_token"])
+        self.eos_id = special_id(self._tok, names["eos_token"])
+        self.cls_id = special_id(self._tok, names["cls_token"])
+        self.sep_id = special_id(self._tok, names["sep_token"])
+
+    def encode(self, text: str, add_bos: bool = False, add_eos: bool = False) -> list[int]:
+        ids = self._tok.encode(text)
+        if add_bos:
+            ids = [self.bos_id] + ids
+        if add_eos:
+            ids = ids + [self.eos_id]
+        return ids
+
+    def decode(self, ids: Sequence[int]) -> str:
+        text = self._tok.decode([int(i) for i in ids], skip_special_tokens=True)
+        return cleanup_spaces(text) if self._cleanup else text
+
+
+def get_tokenizer(kind: str, vocab_size: int = 512, path: str = "") -> Tokenizer:
+    if kind == "byte":
+        return ByteTokenizer(vocab_size)
+    if kind == "hash":
+        return WordHashTokenizer(vocab_size)
+    if kind == "hf":
+        return HFTokenizer(path)
+    raise ValueError(f"unknown tokenizer kind {kind!r}")

@@ -13,6 +13,11 @@ other threads' queries into one padded device batch
 (``EMBED_COALESCE_MAX``, ``EMBED_COALESCE_DEADLINE_MS``) by a dispatcher
 thread, and the cache is filled from a background thread so the caller
 never waits on the host copy.
+
+``EMBEDDER_PROVIDER`` picks the embedder (:func:`get_embedder`): ``tpu``
+the bi-encoder, any other name :class:`HashEmbedder` (the JAX package's
+hash-seeded vectors, no model). ``EMBEDDER_CHECKPOINT`` loads an encoder
+with the tokenizer of ``EMBEDDER_TOKENIZER``.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ from sentio_tpu_torch.models.transformer import (
     mean_pool,
 )
 from sentio_tpu_torch.parallel.batcher import ThreadBatcher, bucket_size
-from sentio_tpu_torch.runtime.weights import load_encoder, refuse_tokenizer
+from sentio_tpu_torch.runtime.weights import load_encoder, load_tokenizer
 
 logger = logging.getLogger(__name__)
 
@@ -102,34 +107,117 @@ class EmbeddingCache:
             }
 
 
-class TorchEmbedder:
+def hash_embed(texts: Sequence[str], dim: int) -> np.ndarray:
+    """Deterministic hash-seeded unit vectors with token-level signal —
+    ``sentio_tpu/ops/embedder.py::HashEmbedder._embed_batch``."""
+    out = np.zeros((len(texts), dim), np.float32)
+    for i, text in enumerate(texts):
+        seed = int.from_bytes(hashlib.sha256(text.lower().encode()).digest()[:8], "little")
+        vec = np.random.default_rng(seed).standard_normal(dim).astype(np.float32)
+        # sorted: the same summation order in every process
+        for tok in sorted(set(text.lower().split())):
+            tseed = int.from_bytes(hashlib.md5(tok.encode()).digest()[:8], "little")
+            vec += 4.0 * np.random.default_rng(tseed).standard_normal(dim).astype(np.float32)
+        out[i] = vec / max(np.linalg.norm(vec), 1e-9)
+    return out
+
+
+class BaseEmbedder:
+    """The JAX ``BaseEmbedder``'s service wrapper: the LFU cache, the stats
+    and ``embed_many`` over a provider's ``_embed_batch``."""
+
+    def __init__(self, config: Optional[EmbedderConfig]) -> None:
+        self.config = config or EmbedderConfig()
+        self.cache = EmbeddingCache(self.config.cache_size, self.config.cache_ttl_s)
+        self.stats = {"requests": 0, "texts": 0, "errors": 0, "time_s": 0.0}
+        # encoder forwards (each one flash launch a layer on the card)
+        self.forwards = 0
+        self._forwards_lock = threading.Lock()
+
+    def _embed_batch(self, texts: list[str]) -> np.ndarray:  # [B, dim] float32
+        raise NotImplementedError
+
+    def close(self) -> None:
+        """Stop the provider's threads, if any."""
+
+    def get_stats(self) -> dict:
+        return {**self.stats, "cache": self.cache.stats()}
+
+    def embed_many(self, texts: Sequence[str]) -> np.ndarray:
+        """[N, D] float32 host array: cached texts from the cache, the rest
+        embedded in batches of ``config.batch_size`` and cached."""
+        t0 = time.perf_counter()
+        self.stats["requests"] += 1
+        self.stats["texts"] += len(texts)
+        out = np.zeros((len(texts), self.dimension), np.float32)
+        missing: list[tuple[int, str]] = []
+        for i, text in enumerate(texts):
+            cached = self.cache.get(text)
+            if cached is not None:
+                out[i] = cached
+            else:
+                missing.append((i, text))
+        try:
+            for start in range(0, len(missing), self.config.batch_size):
+                chunk = missing[start : start + self.config.batch_size]
+                vecs = self._embed_batch([t for _, t in chunk])
+                for (i, text), vec in zip(chunk, vecs):
+                    out[i] = vec
+                    self.cache.put(text, vec)
+        except Exception:
+            self.stats["errors"] += 1
+            raise
+        finally:
+            self.stats["time_s"] += time.perf_counter() - t0
+        return out
+
+
+class HashEmbedder(BaseEmbedder):
+    """``EMBEDDER_PROVIDER`` other than ``tpu`` — the JAX ``HashEmbedder``:
+    deterministic hash-seeded unit vectors of ``config.dim``, no model and
+    no device work. ``device`` is where the index that searches them lives
+    (query vectors are handed to it as host arrays)."""
+
+    def __init__(self, config: Optional[EmbedderConfig] = None, device=None) -> None:
+        super().__init__(config)
+        self.device = resolve_device(device)
+
+    @property
+    def dimension(self) -> int:
+        return self.config.dim
+
+    def _embed_batch(self, texts: list[str]) -> np.ndarray:
+        return hash_embed(texts, self.dimension)
+
+    def embed_device(self, texts: Sequence[str]) -> np.ndarray:
+        return self.embed_many(list(texts))
+
+
+class TorchEmbedder(BaseEmbedder):
     BUCKETS = (16, 32, 64, 128, 256, 512)
     BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
 
     def __init__(self, config: Optional[EmbedderConfig] = None, params: Optional[dict] = None,
                  model_config: Optional[EncoderConfig] = None,
-                 device=None, generator: Optional[torch.Generator] = None) -> None:
-        self.config = config or EmbedderConfig()
+                 device=None, generator: Optional[torch.Generator] = None,
+                 tokenizer=None) -> None:
+        super().__init__(config)
         self.device = resolve_device(device)
-        refuse_tokenizer("EMBEDDER_TOKENIZER", self.config.tokenizer_path)
         if params is None and self.config.checkpoint_path:
+            # real weights: an encoder checkpoint and its own tokenizer
             params, model_config = load_encoder(self.config.checkpoint_path,
                                                 device=self.device)
+            tokenizer = tokenizer or load_tokenizer(self.config.tokenizer_path, model_config)
         self.model_config = model_config or (
             EncoderConfig.tiny() if self.config.model_preset == "tiny" else EncoderConfig.base()
         )
-        self.tokenizer = ByteTokenizer(self.model_config.vocab_size)
+        self.tokenizer = tokenizer or ByteTokenizer(self.model_config.vocab_size)
         if params is None:
             if generator is None:
                 generator = torch.Generator(device=self.device)
                 generator.manual_seed(0)
             params = init_encoder(self.model_config, generator, self.device)
         self.params = params
-        self.cache = EmbeddingCache(self.config.cache_size, self.config.cache_ttl_s)
-        self.stats = {"requests": 0, "texts": 0, "errors": 0, "time_s": 0.0}
-        # encoder forwards (each one flash launch a layer on the card)
-        self.forwards = 0
-        self._forwards_lock = threading.Lock()
         # built eagerly; the dispatcher thread starts on the first submit
         self._query_batcher: Optional[ThreadBatcher] = None
         if self.config.coalesce:
@@ -152,38 +240,13 @@ class TorchEmbedder:
             self._query_batcher.close()
 
     def get_stats(self) -> dict:
-        stats = {**self.stats, "cache": self.cache.stats()}
+        stats = super().get_stats()
         if self._query_batcher is not None:
             stats["coalescer"] = self._query_batcher.stats.snapshot()
         return stats
 
-    def embed_many(self, texts: Sequence[str]) -> np.ndarray:
-        """[N, D] float32 host array: cached texts from the cache, the rest
-        embedded in batches of ``config.batch_size`` and cached."""
-        t0 = time.perf_counter()
-        self.stats["requests"] += 1
-        self.stats["texts"] += len(texts)
-        out = np.zeros((len(texts), self.dimension), np.float32)
-        missing: list[tuple[int, str]] = []
-        for i, text in enumerate(texts):
-            cached = self.cache.get(text)
-            if cached is not None:
-                out[i] = cached
-            else:
-                missing.append((i, text))
-        try:
-            for start in range(0, len(missing), self.config.batch_size):
-                chunk = missing[start : start + self.config.batch_size]
-                vecs = self.embed_tensor([t for _, t in chunk]).cpu().numpy()
-                for (i, text), vec in zip(chunk, vecs):
-                    out[i] = vec
-                    self.cache.put(text, vec)
-        except Exception:
-            self.stats["errors"] += 1
-            raise
-        finally:
-            self.stats["time_s"] += time.perf_counter() - t0
-        return out
+    def _embed_batch(self, texts: list[str]) -> np.ndarray:
+        return self.embed_tensor(texts).cpu().numpy()
 
     def embed_device(self, texts: Sequence[str]):
         """[n, D] query vectors for the index: a full cache hit returns the
@@ -237,3 +300,13 @@ class TorchEmbedder:
             hidden = encoder_forward(self.params, self.model_config, ids_t, mask_t,
                                      attn_fn=encoder_attn_fn)
             return mean_pool(hidden, mask_t)[:n]
+
+
+def get_embedder(config: Optional[EmbedderConfig] = None, device=None, **kwargs):
+    """``EMBEDDER_PROVIDER``: ``tpu`` builds the bi-encoder (``kwargs`` go
+    to it); any other name, an unknown one too, the hash embedder, as the
+    JAX registry falls back."""
+    config = config or EmbedderConfig()
+    if config.provider == "tpu":
+        return TorchEmbedder(config, device=device, **kwargs)
+    return HashEmbedder(config, device=device)

@@ -21,8 +21,11 @@ standard library (``infra/http_client.py``: one keep-alive connection per
 thread, as its ``httpx.Client`` pools them): retries with backoff, the
 ``/api/v1`` → ``/v1`` fallback on a 404, SSE streaming that falls back to
 one plain call, and the last call's token usage. The eval's ``sparse_api``
-configuration answers through it. The echo provider is not part of this
-package.
+configuration answers through it. :class:`EchoProvider` is JAX's
+deterministic fake that quotes the top source. ``LLM_PROVIDER`` picks one
+as JAX's ``create_generator`` does (:func:`provider_for`): ``tpu`` the
+engines, ``openai`` the remote endpoint, any other name the registry's
+(``echo``), or JAX's ``ValueError``.
 """
 
 from __future__ import annotations
@@ -118,6 +121,32 @@ class EngineProvider:
                     raise
         yield from self.contiguous.stream(prompt, max_new_tokens=max_new_tokens,
                                           temperature=temperature)
+
+
+@dataclass
+class EchoProvider:
+    """Deterministic fake — ``sentio_tpu/ops/generator.py::EchoProvider``:
+    answers by quoting the top source, with no model and no device."""
+
+    name: str = "echo"
+
+    def chat(self, prompt: str, max_new_tokens: int, temperature: float,
+             deadline_ts: Optional[float] = None, stats: Optional[dict] = None) -> str:
+        line = ""
+        for cand in prompt.splitlines():
+            if cand.strip().startswith("[1]"):
+                line = cand.strip()
+                break
+        if line:
+            return f"Based on the provided sources, the most relevant finding is: {line}"
+        return "No sources were provided, so no grounded answer is available."
+
+    def stream(self, prompt: str, max_new_tokens: int, temperature: float,
+               deadline_ts: Optional[float] = None,
+               stats: Optional[dict] = None) -> Iterator[str]:
+        text = self.chat(prompt, max_new_tokens, temperature)
+        for i in range(0, len(text), 16):
+            yield text[i: i + 16]
 
 
 @dataclass
@@ -295,9 +324,31 @@ class OpenAIProvider:
                    model=cfg.api_model or cls.model, timeout_s=cfg.api_timeout_s)
 
 
+_PROVIDERS = {"echo": EchoProvider, "tpu": EngineProvider, "openai": OpenAIProvider}
+
+
+def get_provider(name: str, **kwargs):
+    """JAX's provider registry."""
+    cls = _PROVIDERS.get(name)
+    if cls is None:
+        raise ValueError(f"unknown LLM provider {name!r}; known: {sorted(_PROVIDERS)}")
+    return cls(**kwargs)
+
+
+def provider_for(cfg: GeneratorConfig):
+    """The provider of an ``LLM_PROVIDER`` other than ``tpu``, by JAX's
+    ``create_generator``: ``openai`` from the settings, any other name from
+    the registry. Nothing of it touches the card."""
+    if cfg.provider == "tpu":
+        raise ValueError("LLM_PROVIDER=tpu is served by the engines")
+    if cfg.provider == "openai":
+        return OpenAIProvider.from_config(cfg)
+    return get_provider(cfg.provider)
+
+
 @dataclass
 class LLMGenerator:
-    provider: EngineProvider
+    provider: object  # EngineProvider, OpenAIProvider or EchoProvider
     config: GeneratorConfig = field(default_factory=GeneratorConfig)
     prompts: PromptBuilder = field(default_factory=PromptBuilder)
 

@@ -7,7 +7,10 @@ through the cross-encoder with the flash kernel as its attention. When
 scoring fails the reranker keeps the original order with decaying scores
 and sets ``fallback_used``, as the JAX reranker does; ``/chat`` reports it
 as ``metadata.rerank_fallback``. ``RERANKER_CHECKPOINT`` loads a
-``save_pytree`` cross-encoder checkpoint.
+``save_pytree`` cross-encoder checkpoint, with the tokenizer of
+``RERANKER_TOKENIZER``. ``RERANKER_KIND`` picks the reranker
+(:func:`get_reranker`): ``cross_encoder``, or ``passthrough``
+(:class:`PassthroughReranker`, the retrieval order kept).
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from sentio_tpu_torch.models.document import Document
 from sentio_tpu_torch.models.tokenizer import ByteTokenizer, batch_encode_pairs
 from sentio_tpu_torch.models.transformer import EncoderConfig
 from sentio_tpu_torch.parallel.batcher import bucket_size
-from sentio_tpu_torch.runtime.weights import load_model, refuse_tokenizer
+from sentio_tpu_torch.runtime.weights import load_model, load_tokenizer
 
 logger = logging.getLogger(__name__)
 
@@ -41,35 +44,14 @@ class RerankingResult:
     fallback_used: bool = False
 
 
-class CrossEncoderReranker:
-    """Batched (query, doc) pair scoring."""
+class Reranker:
+    """The JAX ``Reranker``: ``rerank`` orders by a provider's ``_score``,
+    keeping the original order with decaying scores when scoring fails."""
 
-    name = "cross_encoder"
-    ROW_BUCKETS = (1, 2, 4, 8, 16, 32)
+    name = "base"
 
-    def __init__(self, config: Optional[RerankConfig] = None, params: Optional[dict] = None,
-                 model_config: Optional[EncoderConfig] = None,
-                 device=None, generator: Optional[torch.Generator] = None) -> None:
-        self.config = config or RerankConfig()
-        self.device = resolve_device(device)
-        refuse_tokenizer("RERANKER_TOKENIZER", self.config.tokenizer_path)
-        if params is None and self.config.checkpoint_path:
-            params, model_config = load_model(
-                self.config.checkpoint_path, expect_family="cross-encoder",
-                device=self.device)
-        # the default container builds the tiny cross-encoder when no
-        # checkpoint is configured
-        self.model_config = model_config or EncoderConfig.tiny()
-        self.tokenizer = ByteTokenizer(self.model_config.vocab_size)
-        if params is None:
-            if generator is None:
-                generator = torch.Generator(device=self.device)
-                generator.manual_seed(7)
-            params = init_cross_encoder(self.model_config, generator, self.device)
-        self.params = params
-        # encoder forwards (each one flash launch a layer on the card)
-        self.forwards = 0
-        self._forwards_lock = threading.Lock()
+    def _score(self, query: str, documents: Sequence[Document]) -> np.ndarray:
+        raise NotImplementedError
 
     def rerank(self, query: str, documents: Sequence[Document],
                top_k: Optional[int] = None) -> RerankingResult:
@@ -78,7 +60,9 @@ class CrossEncoderReranker:
             return RerankingResult([], [], self.name)
         top_k = top_k if top_k is not None else len(documents)
         try:
-            scores = self._score(query, documents)
+            scores = np.asarray(self._score(query, documents), np.float32)
+            if scores.shape != (len(documents),):
+                raise ValueError(f"scorer returned shape {scores.shape}")
         except Exception:  # noqa: BLE001 — the JAX reranker's degradation
             logger.exception("%s rerank failed; keeping original order", self.name)
             return self._default_ranking(documents, top_k)
@@ -108,6 +92,49 @@ class CrossEncoderReranker:
             scores.append(score)
         return RerankingResult(docs, scores, self.name, fallback_used=True)
 
+
+class PassthroughReranker(Reranker):
+    """Keeps retrieval order (scores preserved) — the JAX
+    ``PassthroughReranker``."""
+
+    name = "passthrough"
+
+    def _score(self, query: str, documents: Sequence[Document]) -> np.ndarray:
+        return np.asarray([d.score(1.0 - 0.01 * i) for i, d in enumerate(documents)],
+                          np.float32)
+
+
+class CrossEncoderReranker(Reranker):
+    """Batched (query, doc) pair scoring."""
+
+    name = "cross_encoder"
+    ROW_BUCKETS = (1, 2, 4, 8, 16, 32)
+
+    def __init__(self, config: Optional[RerankConfig] = None, params: Optional[dict] = None,
+                 model_config: Optional[EncoderConfig] = None,
+                 device=None, generator: Optional[torch.Generator] = None,
+                 tokenizer=None) -> None:
+        self.config = config or RerankConfig()
+        self.device = resolve_device(device)
+        if params is None and self.config.checkpoint_path:
+            params, model_config = load_model(
+                self.config.checkpoint_path, expect_family="cross-encoder",
+                device=self.device)
+            tokenizer = tokenizer or load_tokenizer(self.config.tokenizer_path, model_config)
+        # the default container builds the tiny cross-encoder when no
+        # checkpoint is configured
+        self.model_config = model_config or EncoderConfig.tiny()
+        self.tokenizer = tokenizer or ByteTokenizer(self.model_config.vocab_size)
+        if params is None:
+            if generator is None:
+                generator = torch.Generator(device=self.device)
+                generator.manual_seed(7)
+            params = init_cross_encoder(self.model_config, generator, self.device)
+        self.params = params
+        # encoder forwards (each one flash launch a layer on the card)
+        self.forwards = 0
+        self._forwards_lock = threading.Lock()
+
     def _score(self, query: str, documents: Sequence[Document]) -> np.ndarray:
         max_len = min(self.config.max_pair_tokens, self.model_config.max_len)
         pairs = [(query, d.content) for d in documents]
@@ -134,3 +161,16 @@ class CrossEncoderReranker:
                 )
             scores[start : start + len(chunk)] = out.cpu().numpy()[: len(chunk)]
         return scores
+
+
+_RERANKERS = {"cross_encoder": CrossEncoderReranker, "passthrough": PassthroughReranker}
+
+
+def get_reranker(kind: Optional[str] = None, **kwargs) -> Reranker:
+    """``RERANKER_KIND``: the JAX registry's names and its ``ValueError``
+    for any other; ``kwargs`` go to the cross-encoder."""
+    kind = kind or RerankConfig().kind
+    cls = _RERANKERS.get(kind)
+    if cls is None:
+        raise ValueError(f"unknown reranker {kind!r}; known: {sorted(_RERANKERS)}")
+    return cls(**kwargs) if cls is CrossEncoderReranker else cls()

@@ -88,11 +88,11 @@ from sentio_tpu_torch.models.transformer import EncoderConfig
 from sentio_tpu_torch.ops.bm25 import BM25Index, BM25Params, make_bm25_index
 from sentio_tpu_torch.ops.confidence import confidence_score
 from sentio_tpu_torch.ops.dense_index import TorchDenseIndex
-from sentio_tpu_torch.ops.embedder import TorchEmbedder
-from sentio_tpu_torch.ops.generator import EngineProvider, LLMGenerator
+from sentio_tpu_torch.ops.embedder import BaseEmbedder, TorchEmbedder, get_embedder
+from sentio_tpu_torch.ops.generator import EngineProvider, LLMGenerator, provider_for
 from sentio_tpu_torch.ops.ingest import DocumentIngestor
 from sentio_tpu_torch.ops.prompts import PromptBuilder
-from sentio_tpu_torch.ops.reranker import CrossEncoderReranker
+from sentio_tpu_torch.ops.reranker import Reranker, get_reranker
 from sentio_tpu_torch.ops.retrievers import BaseRetriever, HybridRetriever, create_retriever
 from sentio_tpu_torch.ops.scorers import default_scorer_stack
 from sentio_tpu_torch.ops.vector_store import get_vector_store
@@ -102,7 +102,7 @@ from sentio_tpu_torch.runtime.paged import ContinuousBatchingEngine
 from sentio_tpu_torch.runtime.replica import ReplicaSet
 from sentio_tpu_torch.runtime.service import PagedGenerationService
 from sentio_tpu_torch.runtime.speculative import SpeculativeDecoder
-from sentio_tpu_torch.runtime.weights import load_draft, load_generator, refuse_tokenizer
+from sentio_tpu_torch.runtime.weights import load_draft, load_generator
 
 logger = logging.getLogger(__name__)
 
@@ -243,12 +243,12 @@ def serialize_sources(docs: Sequence[Document]) -> list[dict[str, Any]]:
 
 @dataclass
 class ChatPipeline:
-    embedder: TorchEmbedder
+    embedder: BaseEmbedder
     index: TorchDenseIndex
     retriever: BaseRetriever
     generator: LLMGenerator
     bm25_index: Optional[BM25Index] = None
-    reranker: Optional[CrossEncoderReranker] = None
+    reranker: Optional[Reranker] = None
     verifier: Optional[AnswerVerifier] = None
     settings: Settings = field(default_factory=Settings)
     # the /chat template head warmed into the paged engine's radix tree
@@ -531,8 +531,20 @@ class ChatPipeline:
     def replica_set(self) -> Optional[ReplicaSet]:
         """The replica tier generation goes through (None on the contiguous
         engine)."""
-        service = self.generator.provider.service
+        service = self.generation_service
         return service if isinstance(service, ReplicaSet) else None
+
+    @property
+    def generation_service(self):
+        """The provider's generation tier (None for a provider with none:
+        the contiguous engine, a remote or the echo provider)."""
+        return getattr(self.generator.provider, "service", None)
+
+    @property
+    def engine(self):
+        """The provider's engine (None for a remote or the echo
+        provider)."""
+        return getattr(self.generator.provider, "engine", None)
 
     @property
     def service(self) -> Optional[PagedGenerationService]:
@@ -590,7 +602,7 @@ class ChatPipeline:
         the embedder's coalescer."""
         if not wait_detached(detached_timeout_s):
             logger.warning("closing with detached verifies still running")
-        service = self.generator.provider.service
+        service = self.generation_service
         if service is not None:
             service.close()
         self.embedder.close()
@@ -600,12 +612,15 @@ class ChatPipeline:
 
 
 def make_embedder(settings: Settings, device, seed: int = 0, params: Optional[dict] = None,
-                  model_config: Optional[EncoderConfig] = None) -> TorchEmbedder:
-    """The embedder ``build_pipeline`` makes for ``seed``: the checkpoint's
-    weights, or random ones drawn from ``seed + 1`` on ``device`` — so an
-    index that ``ingest`` saves is searched with the same weights by a
-    server built from the same settings and seed."""
+                  model_config: Optional[EncoderConfig] = None):
+    """The embedder ``build_pipeline`` makes for ``seed``: under
+    ``EMBEDDER_PROVIDER=tpu`` the checkpoint's weights, or random ones
+    drawn from ``seed + 1`` on ``device`` — so an index that ``ingest``
+    saves is searched with the same weights by a server built from the same
+    settings and seed —, under any other name the hash embedder."""
     dev = resolve_device(device)
+    if settings.embedder.provider != "tpu":
+        return get_embedder(settings.embedder, device=dev)
     g = torch.Generator(device=dev)
     g.manual_seed(seed + 1)
     return TorchEmbedder(settings.embedder, params=params, model_config=model_config,
@@ -647,8 +662,12 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
     scorers from ``USE_SCORERS`` and the web-cache index from
     ``WEB_CACHE_PATH`` when ``<path>.json`` exists (else none, as in
     JAX). ``AUTOSCALE=1`` starts the autoscaler over the set
-    (``pipeline.replica_set.autoscaler``). A mesh, which this package
-    cannot honour, raises ``NotImplementedError``."""
+    (``pipeline.replica_set.autoscaler``). ``LLM_PROVIDER``,
+    ``EMBEDDER_PROVIDER`` and ``RERANKER_KIND`` pick the components as
+    JAX's container does: a provider other than ``tpu`` is served with no
+    engine, draft or tier. ``LLM_TOKENIZER`` beside ``LLM_CHECKPOINT`` is
+    the engines' and the router's tokenizer (and each worker's). A mesh,
+    which this package cannot honour, raises ``NotImplementedError``."""
     settings = settings or Settings()
     rcfg, gcfg = settings.retrieval, settings.generator
     mesh = settings.mesh
@@ -658,25 +677,31 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
                                   "(one card; ROADMAP item 10)")
     check_verify_mode(gcfg.verify_mode)
     check_replica_settings(settings.serve)
+    # LLM_PROVIDER other than tpu (JAX's create_generator): a remote or
+    # fake provider, and no engine, draft, service or replica set — nothing
+    # of the generator touches the card
+    remote = provider_for(gcfg) if gcfg.provider != "tpu" else None
     dev = resolve_device(device)
     if draft_params is not None and draft_config is None:
         raise ValueError("draft_params requires draft_config")
     spec_info = {"draft_configured": bool(gcfg.draft_checkpoint_path
                                           or draft_params is not None)}
-    if spec_info["draft_configured"] and gcfg.use_paged_decode and gcfg.prefill_chunk:
+    if remote is None and spec_info["draft_configured"] and gcfg.use_paged_decode \
+            and gcfg.prefill_chunk:
         logger.warning("LLM_DRAFT_CHECKPOINT ignored: PREFILL_CHUNK is set and paged "
                        "speculation requires whole-prompt admission (the draft prefills "
                        "full prompts)")
         spec_info["ignored_reason"] = ("PREFILL_CHUNK set (chunked prefill excludes paged "
                                        "speculation)")
-    spec_info["active"] = spec_info["draft_configured"] and "ignored_reason" not in spec_info
+    spec_info["active"] = (remote is None and spec_info["draft_configured"]
+                           and "ignored_reason" not in spec_info)
     if spec_info["active"]:
         if draft_params is None and gcfg.use_paged_decode:
             draft_params, draft_config = load_draft(gcfg.draft_checkpoint_path, device=dev)
         elif draft_params is None:
             # the contiguous decoder drafts with either family, as JAX's
-            draft_params, draft_config = load_generator(gcfg.draft_checkpoint_path,
-                                                        device=dev)
+            draft_params, draft_config, _ = load_generator(gcfg.draft_checkpoint_path,
+                                                           device=dev)
         logger.info("speculative decoding: draft dim=%d L=%d, k=%d", draft_config.dim,
                     draft_config.n_layers, gcfg.speculative_k)
     else:
@@ -687,6 +712,12 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
         g.manual_seed(seed + offset)
         return g
 
+    # RERANKER_KIND first: an unknown kind raises before any model is made
+    reranker = None
+    if settings.rerank.enabled:
+        reranker = get_reranker(settings.rerank.kind, config=settings.rerank,
+                                params=reranker_params, model_config=reranker_config,
+                                device=dev, generator=gen(2))
     embedder = make_embedder(settings, dev, seed, params=embedder_params,
                              model_config=embedder_config)
     # the registry, as JAX's container builds its store; the card's corpus
@@ -707,21 +738,20 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
     scorers = default_scorer_stack(embedder, settings) if rcfg.use_scorers else None
     retriever = create_retriever(settings, embedder, index, bm25, scorers=scorers,
                                  web_cache_index=web_cache)
-    reranker = None
-    if settings.rerank.enabled:
-        reranker = CrossEncoderReranker(settings.rerank, params=reranker_params,
-                                        model_config=reranker_config, device=dev,
-                                        generator=gen(2))
-    refuse_tokenizer("LLM_TOKENIZER", gcfg.tokenizer_path)
-    if llama_params is None and gcfg.checkpoint_path:
-        llama_params, llama_config = load_generator(gcfg.checkpoint_path, device=dev)
-    llama_config = llama_config or (
-        LlamaConfig.tiny() if gcfg.model_preset == "tiny" else LlamaConfig.llama3_8b())
-    if llama_params is None:
-        llama_params = init_decoder(llama_config, gen(3), dev)
     prompts = PromptBuilder()
     warm_head = ""
-    if gcfg.use_paged_decode:
+    tokenizer = None  # LLM_TOKENIZER takes effect beside LLM_CHECKPOINT, as in JAX
+    if remote is None:
+        if llama_params is None and gcfg.checkpoint_path:
+            llama_params, llama_config, tokenizer = load_generator(
+                gcfg.checkpoint_path, gcfg.tokenizer_path, device=dev)
+        llama_config = llama_config or (
+            LlamaConfig.tiny() if gcfg.model_preset == "tiny" else LlamaConfig.llama3_8b())
+        if llama_params is None:
+            llama_params = init_decoder(llama_config, gen(3), dev)
+    if remote is not None:
+        provider = remote
+    elif gcfg.use_paged_decode:
         serve = settings.serve
         if gcfg.prefix_cache:
             # spares the first /chat its cold prefill of the template head,
@@ -756,7 +786,7 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
                 engine = ContinuousBatchingEngine(
                     model_config=llama_config, params=llama_params, rng_seed=seed, device=dev,
                     draft_params=draft_params, draft_config=draft_config,
-                    **engine_settings(gcfg))
+                    tokenizer=tokenizer, **engine_settings(gcfg))
                 if warm_head:
                     engine.warm_prefix(warm_head)
                 services.append(PagedGenerationService(engine, replica_id=i,
@@ -766,16 +796,17 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
                 start_autoscaler(replicas, serve, launcher=None)
         else:
             replicas = _worker_tier(settings, mode, llama_config, llama_params, draft_params,
-                                    draft_config, seed, dev, warm_head, tier)
+                                    draft_config, seed, dev, warm_head, tier, tokenizer)
         # the escape hatch, as JAX's container builds it beside the tier: a
         # contiguous engine on the same weights, whose cache is allocated
         # per call (no memory until a chat falls back to it)
         contiguous = GeneratorEngine(config=gcfg, model_config=llama_config,
-                                     params=llama_params, rng_seed=seed, device=dev)
+                                     params=llama_params, rng_seed=seed, device=dev,
+                                     tokenizer=tokenizer)
         provider = EngineProvider(contiguous=contiguous, service=replicas)
     else:
         engine = GeneratorEngine(config=gcfg, model_config=llama_config, params=llama_params,
-                                 rng_seed=seed, device=dev)
+                                 rng_seed=seed, device=dev, tokenizer=tokenizer)
         speculative = None
         if draft_params is not None:
             speculative = SpeculativeDecoder(engine, draft_params, draft_config,
@@ -817,13 +848,14 @@ def worker_spec(settings: Settings, model_config: LlamaConfig, replica_id: int, 
                 device="cuda", warm_head: str = "", params: Optional[dict] = None,
                 draft_params: Optional[dict] = None,
                 draft_config: Optional[LlamaConfig] = None, auth_token: str = "",
-                socket: bool = False):
+                socket: bool = False, tokenizer_path: str = ""):
     """One worker's :class:`~sentio_tpu_torch.runtime.worker.WorkerSpec`
     under ``settings`` — JAX's ``make_spec``: the engine and service
     arguments the thread tier gives its replicas, the template head, and
     the weights: ``params`` (tensors, shared through the spawn arguments),
-    else the worker makes them from ``seed`` as ``build_pipeline`` does. A
-    socket worker gets the token, the frame bounds and reconnection."""
+    else the worker makes them from ``seed`` as ``build_pipeline`` does,
+    and the checkpoint's tokenizer directory, if any. A socket worker gets
+    the token, the frame bounds and reconnection."""
     import dataclasses
 
     from sentio_tpu_torch.runtime.worker import WorkerSpec
@@ -834,7 +866,7 @@ def worker_spec(settings: Settings, model_config: LlamaConfig, replica_id: int, 
         rng_seed=seed, device=str(device),
         engine_kwargs=engine_settings(gcfg),
         service_kwargs={**service_settings(serve), "replica_id": replica_id},
-        warm_prefix_text=warm_head, params=params)
+        warm_prefix_text=warm_head, params=params, tokenizer_path=tokenizer_path)
     if draft_params is not None:
         kwargs.update(draft_params=draft_params,
                       draft_config=dataclasses.asdict(draft_config))
@@ -867,7 +899,8 @@ def start_autoscaler(replicas: ReplicaSet, serve, launcher=None):
 
 def _worker_tier(settings: Settings, mode: str, llama_config: LlamaConfig, llama_params: dict,
                  draft_params: Optional[dict], draft_config: Optional[LlamaConfig], seed: int,
-                 dev: torch.device, warm_head: str, tier: dict) -> ReplicaSet:
+                 dev: torch.device, warm_head: str, tier: dict,
+                 tokenizer=None) -> ReplicaSet:
     """The process or socket replica tier: a ``ProcessReplica`` per worker
     behind a ``ReplicaSet`` (JAX's ``dependencies.py`` branch). Spawned
     workers get the router's weight tensors; ``REPLICA_WORKERS`` (socket
@@ -876,7 +909,9 @@ def _worker_tier(settings: Settings, mode: str, llama_config: LlamaConfig, llama
     reaps the workers already running and closes the registry. One spec
     recipe serves the start, the elastic joins and the autoscaler's
     launcher; a socket set always takes joins (the membership source),
-    whatever ``AUTOSCALE`` says."""
+    whatever ``AUTOSCALE`` says. A checkpoint's ``tokenizer`` is the
+    router's (it encodes the routing head) and each worker loads the same
+    directory."""
     import secrets
 
     from sentio_tpu_torch.models.tokenizer import ByteTokenizer
@@ -904,13 +939,15 @@ def _worker_tier(settings: Settings, mode: str, llama_config: LlamaConfig, llama
             from sentio_tpu_torch.kernels._build import build_all
 
             build_all(KERNELS)
-        tokenizer = ByteTokenizer(llama_config.vocab_size)
+        tokenizer_path = settings.generator.tokenizer_path if tokenizer is not None else ""
+        tokenizer = tokenizer or ByteTokenizer(llama_config.vocab_size)
 
         def make_spec(i: int):
             return worker_spec(settings, llama_config, i, seed=seed, device=dev,
                                warm_head=warm_head, params=llama_params,
                                draft_params=draft_params, draft_config=draft_config,
-                               auth_token=token, socket=mode == "socket")
+                               auth_token=token, socket=mode == "socket",
+                               tokenizer_path=tokenizer_path)
 
         socket_kwargs = dict(transport_mode="socket", registry=registry,
                              partition_timeout_s=serve.socket_partition_timeout_s,

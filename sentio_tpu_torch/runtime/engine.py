@@ -73,7 +73,8 @@ class GeneratorEngine:
 
     def __init__(self, config: Optional[GeneratorConfig] = None,
                  model_config: Optional[LlamaConfig] = None, params: Optional[dict] = None,
-                 mesh=None, rng_seed: int = 0, forward_fn=None, device=None) -> None:
+                 mesh=None, rng_seed: int = 0, forward_fn=None, device=None,
+                 tokenizer=None) -> None:
         if mesh is not None:
             raise NotImplementedError("GeneratorEngine: device meshes are not ported")
         self.config = config or GeneratorConfig()
@@ -81,13 +82,14 @@ class GeneratorEngine:
         explicit = params is not None
         if params is None and self.config.checkpoint_path:
             # the family rides the checkpoint's meta (llama or moe)
-            params, model_config = load_generator(self.config.checkpoint_path,
-                                                  self.config.tokenizer_path,
-                                                  device=self.device)
+            params, model_config, ck_tok = load_generator(self.config.checkpoint_path,
+                                                          self.config.tokenizer_path,
+                                                          device=self.device)
+            tokenizer = tokenizer or ck_tok
             explicit = True
         self.model_config = model_config or (
             LlamaConfig.tiny() if self.config.model_preset == "tiny" else LlamaConfig.llama3_8b())
-        self.tokenizer = ByteTokenizer(self.model_config.vocab_size)
+        self.tokenizer = tokenizer or ByteTokenizer(self.model_config.vocab_size)
         self.forward_fn = decoder_forward(self.model_config, forward_fn, explicit)
         if params is None:
             init_gen = torch.Generator(device=self.device)

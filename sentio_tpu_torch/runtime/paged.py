@@ -521,6 +521,7 @@ class ContinuousBatchingEngine:
         spec_k: int = 4,
         forward_fn=None,
         device=None,
+        tokenizer=None,
     ) -> None:
         if kv_quant not in ("none", "int8"):
             raise ValueError(f"kv_quant must be 'none' or 'int8', got {kv_quant!r}")
@@ -559,7 +560,8 @@ class ContinuousBatchingEngine:
                 raise ValueError("the paged engine's draft must be a llama model, got a "
                                  "MoeConfig")
             self.draft_params = draft_params
-        self.tokenizer = ByteTokenizer(self.cfg.vocab_size)
+        # a checkpoint's own tokenizer, else the byte tokenizer (JAX's rule)
+        self.tokenizer = tokenizer or ByteTokenizer(self.cfg.vocab_size)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(rng_seed + 1)
         # the model family: the config's (a MoeConfig routes), or a matching

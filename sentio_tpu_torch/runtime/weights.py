@@ -20,8 +20,10 @@
   family its meta records, as ``sentio_tpu/runtime/weights.py::load_model``
   does, with the same :class:`WeightsError` messages; :func:`load_generator`
   is the generator's (``LLM_CHECKPOINT``: a ``llama`` or ``moe``
-  checkpoint). Every tokenizer path raises ``NotImplementedError``: the
-  JAX package's tokenizer for a path needs ``transformers``.
+  checkpoint); :func:`load_tokenizer` reads the Hugging Face tokenizer
+  directory beside a checkpoint (``*_TOKENIZER``, which takes effect only
+  with its checkpoint, as in JAX) and refuses one whose vocabulary is
+  larger than the model's with JAX's :class:`WeightsError` message.
 """
 
 from __future__ import annotations
@@ -40,10 +42,14 @@ import torch
 
 from sentio_tpu_torch.models.llama import LlamaConfig
 from sentio_tpu_torch.models.moe import MoeConfig
+from sentio_tpu_torch.models.tokenizer import HFTokenizer
 from sentio_tpu_torch.models.transformer import EncoderConfig
 
 FORMAT_VERSION = 1
 _TUPLE_TAG = "__tuple__"
+# bfloat16 on numpy (which has none): the bits as a uint16, in a dtype of
+# its own so a leaf says what it holds (models/convert.py makes them)
+BF16 = np.dtype([("bfloat16", "<u2")])
 # a MoE layer's expert stacks: [E, in, out] arrays, not dense-layer dicts
 _EXPERT_STACKS = ("w_gate", "w_up", "w_down")
 
@@ -52,7 +58,7 @@ def _tensor(x: Any) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x
     arr = np.asarray(x)
-    if arr.dtype.name == "bfloat16":
+    if arr.dtype.name == "bfloat16" or arr.dtype == BF16:
         return torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
     return torch.from_numpy(np.array(arr))  # a writable copy
 
@@ -62,12 +68,14 @@ def _carry(tree: dict, dtype: Optional[torch.dtype], device) -> dict:
     and embedding tables (None keeps the stored dtype), and expert stacks
     keep their layout; norm parameters and other vectors are float32."""
     if "kernel" in tree:
-        out = {"weight": _tensor(tree["kernel"]).t().contiguous()}
+        # the transpose runs where the weights go (on the card, not the host)
+        out = {"weight": _tensor(tree["kernel"]).to(device)}
         if "bias" in tree:
-            out["bias"] = _tensor(tree["bias"])
+            out["bias"] = _tensor(tree["bias"]).to(device)
         if dtype is not None:
             out = {k: v.to(dtype) for k, v in out.items()}
-        return {k: v.to(device) for k, v in out.items()}
+        out["weight"] = out["weight"].t().contiguous()
+        return out
     if "embedding" in tree:
         table = _tensor(tree["embedding"])
         return {"embedding": (table.to(dtype) if dtype is not None else table).to(device)}
@@ -184,7 +192,8 @@ def _structure_of(tree: Any, prefix: str = "") -> Any:
 
 
 def save_pytree(path, tree: Any, meta: Optional[dict] = None) -> Path:
-    """Write ``tree`` (nested dicts / lists of tensors or numpy arrays) as a
+    """Write ``tree`` (nested dicts / lists of tensors or numpy arrays,
+    bf16 as torch tensors or :data:`BF16` arrays) as a
     ``save_pytree`` checkpoint directory — the JAX package's format, which
     both its ``load_pytree`` and :func:`load_pytree` read. Written to a
     temporary directory beside ``path`` and renamed into place, so a crash
@@ -202,6 +211,8 @@ def save_pytree(path, tree: Any, meta: Optional[dict] = None) -> Path:
         else:
             arr = np.asarray(leaf)
             dtypes[key] = str(arr.dtype)
+            if arr.dtype == BF16:
+                dtypes[key], arr = "bfloat16", arr.view(np.uint16)
         arrays[f"a{i}"] = arr
         keys[f"a{i}"] = key
     manifest = {"format_version": FORMAT_VERSION, "created_unix": time.time(),
@@ -250,8 +261,10 @@ def load_pytree(path) -> tuple[Any, dict]:
     with np.load(path / "arrays.npz", allow_pickle=False) as z:
         for slot, key in manifest["keys"].items():
             arr = z[slot]
+            if not arr.flags.writeable:
+                arr = arr.copy()
             if manifest["dtypes"][key] == "bfloat16" and arr.dtype == np.uint16:
-                flat[key] = torch.from_numpy(arr.copy()).view(torch.bfloat16)
+                flat[key] = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
             else:
                 flat[key] = torch.from_numpy(arr)
     return _unflatten(flat, manifest["structure"]), manifest.get("meta", {})
@@ -279,13 +292,17 @@ _FAMILIES = {
 }
 
 
-def refuse_tokenizer(setting: str, path: str) -> None:
-    """A ``*_TOKENIZER`` path names a Hugging Face tokenizer directory; the
-    JAX package loads it through ``transformers``, which this package does
-    not use."""
-    if path:
-        raise NotImplementedError(f"{setting}={path!r}: tokenizers other than the byte "
-                                  "tokenizer are not ported")
+def load_tokenizer(tokenizer_path: str, model_config) -> Optional[HFTokenizer]:
+    """The tokenizer directory beside a checkpoint (None for no path), as
+    the JAX ``load_model`` loads it: a vocabulary larger than the model's is
+    a :class:`WeightsError`."""
+    if not tokenizer_path:
+        return None
+    tokenizer = HFTokenizer(tokenizer_path)
+    if tokenizer.vocab_size > model_config.vocab_size:
+        raise WeightsError(f"tokenizer at {tokenizer_path!r} has vocab {tokenizer.vocab_size} "
+                           f"> model vocab {model_config.vocab_size}")
+    return tokenizer
 
 
 def load_model(path, expect_family: Optional[str] = None,
@@ -316,17 +333,17 @@ def load_model(path, expect_family: Optional[str] = None,
 
 
 def load_generator(path, tokenizer_path: str = "", device="cpu"
-                   ) -> tuple[dict, LlamaConfig]:
-    """``LLM_CHECKPOINT`` → (params, config) of either decoder family (a
-    :class:`MoeConfig` for a ``moe`` checkpoint), checked as the JAX
-    generator engine checks it: a checkpoint of another family is a
-    :class:`WeightsError`."""
-    refuse_tokenizer("LLM_TOKENIZER", tokenizer_path)
+                   ) -> tuple[dict, LlamaConfig, Optional[HFTokenizer]]:
+    """``LLM_CHECKPOINT`` → (params, config, tokenizer or None) of either
+    decoder family (a :class:`MoeConfig` for a ``moe`` checkpoint), checked
+    as the JAX generator engine checks it: a checkpoint of another family
+    is a :class:`WeightsError`; the tokenizer is ``tokenizer_path``'s."""
     params, cfg = load_model(path, device=device)
+    tokenizer = load_tokenizer(tokenizer_path, cfg)
     if not isinstance(cfg, LlamaConfig):
         raise WeightsError(f"checkpoint {str(path)!r} holds a {type(cfg).__name__} model "
                            "— the generator engine serves decoder families (llama, moe)")
-    return params, cfg
+    return params, cfg, tokenizer
 
 
 def load_draft(path, device="cpu") -> tuple[dict, LlamaConfig]:

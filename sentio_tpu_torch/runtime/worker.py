@@ -206,8 +206,9 @@ def default_service_factory(
     on its own from the same seed holds the same weights. A checkpoint must
     hold ``model_family`` (JAX's ``expect_family``). The draft likewise:
     ``draft_params`` + ``draft_config``, or ``draft_checkpoint_path`` (a
-    llama model). A tokenizer path raises ``NotImplementedError``, as the
-    port's loaders do."""
+    llama model). ``tokenizer_path`` is the checkpoint's tokenizer
+    directory, loaded here as the router loaded it (JAX's workers load it
+    beside their checkpoint)."""
     import torch
 
     from sentio_tpu_torch import resolve_device
@@ -215,9 +216,8 @@ def default_service_factory(
     from sentio_tpu_torch.models.moe import init_decoder
     from sentio_tpu_torch.runtime.paged import ContinuousBatchingEngine
     from sentio_tpu_torch.runtime.service import PagedGenerationService
-    from sentio_tpu_torch.runtime.weights import load_draft, load_model, refuse_tokenizer
+    from sentio_tpu_torch.runtime.weights import load_draft, load_model, load_tokenizer
 
-    refuse_tokenizer("LLM_TOKENIZER", tokenizer_path)
     dev = resolve_device(device)
     cfg = decoder_config(model_family, model_config) if model_config is not None else None
     if params is None:
@@ -235,8 +235,9 @@ def default_service_factory(
     elif draft_checkpoint_path:
         dparams, dcfg = load_draft(draft_checkpoint_path, device=dev)
         engine_kwargs.update(draft_params=dparams, draft_config=dcfg)
+    tokenizer = load_tokenizer(tokenizer_path, cfg)
     engine = ContinuousBatchingEngine(model_config=cfg, params=params, rng_seed=rng_seed,
-                                      device=dev, **engine_kwargs)
+                                      device=dev, tokenizer=tokenizer, **engine_kwargs)
     if warm_prefix_text:
         engine.warm_prefix(warm_prefix_text)
     return PagedGenerationService(engine, **(service_kwargs or {}))

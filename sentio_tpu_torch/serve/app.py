@@ -379,7 +379,9 @@ def _device_stats(pipeline: ChatPipeline) -> dict:
     shape."""
     import torch
 
-    engine = pipeline.generator.provider.engine
+    engine = pipeline.engine
+    if engine is None:  # a remote or the echo provider (JAX's /info: null)
+        return None
     cfg = getattr(engine, "cfg", None) or engine.model_config
     dev = pipeline.embedder.device
     cuda = dev.type == "cuda"
@@ -428,7 +430,7 @@ def publish_serving_gauges(pipeline: ChatPipeline) -> Optional[dict]:
     queue depth, free pages, lifetime totals, each replica's duty cycle and
     its ``sentio_tpu_replica_stat`` rows); returns the stats (None without
     a service)."""
-    service = pipeline.generator.provider.service
+    service = pipeline.generation_service
     if service is None:
         return None
     stats = service.stats()
@@ -632,7 +634,7 @@ class _Handler(BaseHTTPRequestHandler):
         if req.stream:
             # shed before the 200 is committed: after it a stream can only
             # end with a typed error event
-            service = self.server.pipeline.generator.provider.service
+            service = self.server.pipeline.generation_service
             if service is not None:
                 # the tenant's WFQ test and the routed replica's admission,
                 # as the submit will see them
@@ -1018,8 +1020,8 @@ def run_server(settings: Optional[Settings] = None, device=None, seed: int = 0,
         server.shutdown()
         server.server_close()
         thread.join(timeout=10.0)
-        if pipeline.generator.provider.service is not None:
-            outcome = pipeline.generator.provider.service.drain(settings.serve.drain_deadline_s)
+        if pipeline.generation_service is not None:
+            outcome = pipeline.generation_service.drain(settings.serve.drain_deadline_s)
             if not outcome.get("drained", True):
                 logger.warning("shutdown drain abandoned %d in-flight request(s)",
                                outcome.get("abandoned", 0))

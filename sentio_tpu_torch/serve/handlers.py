@@ -340,7 +340,7 @@ class HealthHandler:
         ready = bool(self.pipeline.ready)
         return {"status": "ready" if ready else "initializing", "ready": ready}
 
-    def detailed(self, engine: dict[str, Any]) -> dict[str, Any]:
+    def detailed(self, engine: Optional[dict[str, Any]]) -> dict[str, Any]:
         """JAX's ``/health/detailed``: the basic report, each component's
         probe (``engine`` is the device section the caller computed), and
         ``breakers``: the registered ``CircuitBreaker`` objects (the Qdrant
@@ -378,8 +378,11 @@ class HealthHandler:
             out["embedder"] = {"healthy": len(vec) == pipeline.embedder.dimension}
         except Exception as exc:  # noqa: BLE001 — a probe reports, never raises
             out["embedder"] = {"healthy": False, "error": str(exc)}
-        out["engine"] = {"healthy": True, **engine}
-        service = pipeline.generator.provider.service
+        # JAX's: a provider with no in-process engine reports itself
+        out["engine"] = ({"healthy": True, **engine} if engine is not None else
+                         {"healthy": True,
+                          "provider": pipeline.settings.generator.provider})
+        service = pipeline.generation_service
         if service is not None:
             try:
                 out["generation_service"] = {"healthy": True, **service.stats()}

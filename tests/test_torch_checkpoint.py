@@ -8,8 +8,9 @@ tokens (exactly) and the same rerank scores (atol 1e-4, float32, as
 tests/test_torch_pipeline.py holds them). A ``moe`` checkpoint serves on
 both engines with JAX's greedy tokens. A checkpoint of the wrong family
 raises the JAX ``WeightsError`` message (a ``moe`` draft for the paged
-engine names the setting first); any tokenizer path raises
-``NotImplementedError`` naming the setting."""
+engine names the setting first); a tokenizer path takes effect only beside
+its checkpoint, as in JAX: alone it is ignored, and beside a checkpoint a
+path with no tokenizer there raises naming it."""
 
 import dataclasses
 
@@ -164,16 +165,41 @@ def test_moe_checkpoint_serves_jax_tokens(checkpoints):
 
 @pytest.mark.parametrize("setting", ["LLM_TOKENIZER", "RERANKER_TOKENIZER",
                                      "EMBEDDER_TOKENIZER"])
-def test_tokenizer_paths_raise_naming_the_setting(monkeypatch, setting):
-    monkeypatch.setenv(setting, "/nonexistent/hf-tokenizer")
+def test_tokenizer_paths_raise_naming_the_setting(monkeypatch, checkpoints, setting):
+    """Without its checkpoint a ``*_TOKENIZER`` path is ignored (the byte
+    tokenizer serves, as in JAX's engine, embedder and reranker); beside
+    its checkpoint a directory with no tokenizer raises naming the path."""
+    from sentio_tpu.config import EmbedderConfig as JEmbedderConfig
+    from sentio_tpu.ops.embedder import TpuEmbedder as JEmbedder
+    from sentio_tpu_torch.models.tokenizer import ByteTokenizer
+
+    missing = "/nonexistent/hf-tokenizer"
+    monkeypatch.setenv(setting, missing)
     settings = Settings.from_env()
     settings.embedder = dataclasses.replace(settings.embedder, model_preset="tiny")
-    settings.generator = dataclasses.replace(settings.generator, model_preset="tiny")
-    with pytest.raises(NotImplementedError, match=setting):
-        build_pipeline(settings, device="cpu")
-    if setting == "RERANKER_TOKENIZER":
-        with pytest.raises(NotImplementedError, match=setting):
-            CrossEncoderReranker(settings.rerank, device="cpu")
-    if setting == "EMBEDDER_TOKENIZER":
-        with pytest.raises(NotImplementedError, match=setting):
-            TorchEmbedder(settings.embedder, device="cpu")
+    settings.generator = dataclasses.replace(settings.generator, model_preset="tiny",
+                                             kv_page_size=16, kv_max_pages_per_seq=8)
+    pipeline = build_pipeline(settings, device="cpu")
+    try:
+        assert isinstance(pipeline.engine.tokenizer, ByteTokenizer)
+        assert isinstance(pipeline.embedder.tokenizer, ByteTokenizer)
+        assert isinstance(pipeline.reranker.tokenizer, ByteTokenizer)
+    finally:
+        pipeline.close()
+    if setting == "LLM_TOKENIZER":
+        jax_tok = JEngine(config=JGeneratorConfig(tokenizer_path=missing, **GEN)).tokenizer
+        with pytest.raises(ValueError, match="no tokenizer.json"):
+            GeneratorEngine(config=GeneratorConfig(checkpoint_path=checkpoints["llama"],
+                                                   tokenizer_path=missing, **GEN),
+                            device="cpu")
+    elif setting == "RERANKER_TOKENIZER":
+        jax_tok = JReranker(JRerankConfig(tokenizer_path=missing)).tokenizer
+        with pytest.raises(ValueError, match="no tokenizer.json"):
+            CrossEncoderReranker(RerankConfig(checkpoint_path=checkpoints["ce"],
+                                              tokenizer_path=missing), device="cpu")
+    else:
+        jax_tok = JEmbedder(JEmbedderConfig(model_preset="tiny",
+                                            tokenizer_path=missing)).tokenizer
+        assert isinstance(TorchEmbedder(settings.embedder, device="cpu").tokenizer,
+                          ByteTokenizer)
+    assert type(jax_tok).__name__ == "ByteTokenizer"

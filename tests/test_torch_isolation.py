@@ -1,8 +1,9 @@
 """The port stands alone: no module of sentio_tpu_torch, and not
 chip_smoke.py, imports JAX (or flax/optax) or anything of the JAX package,
-nor an HTTP, metrics, cache, store or token package the machine with the
-card lacks (aiohttp, httpx, pydantic, prometheus_client, redis,
-qdrant_client, jwt) — checked statically on every file,
+nor an HTTP, metrics, cache, store, token or model-file package the
+machine with the card lacks (aiohttp, httpx, pydantic, prometheus_client,
+redis, qdrant_client, jwt, transformers, tokenizers, safetensors, regex,
+ml_dtypes) — checked statically on every file,
 then by importing every module in a fresh interpreter where those imports
 are blocked, and in a spawned replica worker (``runtime/worker.py``), whose
 loaded modules must hold none of JAX or its package."""
@@ -17,7 +18,8 @@ import pytest
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "sentio_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "sentio_tpu", "aiohttp", "httpx", "pydantic",
-             "prometheus_client", "redis", "qdrant_client", "jwt"}
+             "prometheus_client", "redis", "qdrant_client", "jwt", "transformers",
+             "tokenizers", "safetensors", "regex", "ml_dtypes"}
 
 
 def _port_files():

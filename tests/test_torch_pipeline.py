@@ -232,7 +232,8 @@ def test_int8_chat_matches_jax_graph(hybrid_int8, question):
     ("generator", "verify_mode", "gated"),
 ])
 def test_build_pipeline_refuses_what_it_cannot_honour(section, field, value):
-    """A tokenizer path (not ported) raises NotImplementedError; a draft
+    """A tokenizer path without its checkpoint is ignored, as JAX's
+    container ignores it (the byte tokenizer serves); a draft
     checkpoint (speculation is ported) that cannot be loaded raises the
     loader's WeightsError, naming LLM_DRAFT_CHECKPOINT; VERIFY_MODE
     (ported) builds, and an unknown mode raises JAX's ValueError before
@@ -273,8 +274,15 @@ def test_build_pipeline_refuses_what_it_cannot_honour(section, field, value):
         with pytest.raises(weights.WeightsError, match="LLM_DRAFT_CHECKPOINT: cannot load"):
             build_pipeline(settings, device="cpu")
         return
-    with pytest.raises(NotImplementedError):
-        build_pipeline(settings, device="cpu")
+    from sentio_tpu_torch.models.tokenizer import ByteTokenizer
+
+    tiny["generator"] = dataclasses.replace(tiny["generator"], **{field: value})
+    pipeline = build_pipeline(Settings(**tiny), device="cpu")
+    try:
+        assert isinstance(pipeline.engine.tokenizer, ByteTokenizer)
+        assert isinstance(pipeline.replica_set.tokenizer, ByteTokenizer)
+    finally:
+        pipeline.close()
 
 
 @pytest.mark.parametrize("mesh", [dict(dp_size=2), dict(tp_size=2), dict(sp_size=4)])

@@ -718,6 +718,9 @@ def test_cli_ingest_and_serve(tmp_path, monkeypatch, capsys):
     try:
         assert jax_main(["ingest", str(docs)]) == 0
     finally:
+        # the port honours EMBEDDER_PROVIDER too: the server below must
+        # embed with the bi-encoder the index was saved with
+        monkeypatch.delenv("EMBEDDER_PROVIDER")
         set_settings(None)
     jax_stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert _no_elapsed(port_stats) == _no_elapsed(jax_stats)
