@@ -135,9 +135,12 @@ line each:
     under each mode against sync's.
 
 21. replicas_1, replicas_2 — the replica tier behind the HTTP server at
-    full width (``Settings()`` with REPLICAS=1, then 2): warmup of every
+    full width, Llama-3-8B cut to ``TIER_LAYERS`` (16) of its 32 layers, as
+    are the worker phases (28–31) and elastic (36) on the same tensors
+    (``Settings()`` with REPLICAS=1, then 2): warmup of every
     replica at once (seconds, each
-    replica's captures), then 3 rounds of 8 JSON and 2 SSE chats at once
+    replica's captures), then ``REPLICA_ROUNDS`` (2) rounds of 8 JSON and 2
+    SSE chats at once
     from tenants ``a`` and ``b`` (X-Tenant), each round in a counted window
     and on questions of its own, with AFFINITY_STICKINESS 0.5: the router
     takes the first of replicas tied at the best prefix hit, as JAX's does,
@@ -168,7 +171,7 @@ line each:
     right after its first delivered piece resumes on the survivor: in
     float32 at Llama-3-8B width cut to 2 layers with the plain decode
     attention (two engines behind a set), the text must equal an
-    uninterrupted run's; in bf16 at full depth on the two replicas through
+    uninterrupted run's; in bf16 at the tier's depth on the two replicas through
     the kernel, how many characters agree is reported (replaying the
     delivered prefix through prefill rounds differently from decode).
     Both gated on one resume and a balanced tenant.
@@ -303,8 +306,8 @@ IPC handles on them).
     opens after its 5th failure (the next chat fails fast) and
     /health/detailed lists it open beside replica 0.
 
-36. elastic (after remote_worker, on the same weights) — the elastic fleet
-    at full width: REPLICA_MODE=socket, REPLICAS=1, AUTOSCALE=1 with
+36. elastic (after remote_worker, on the tier's weights) — the elastic
+    fleet at full width: REPLICA_MODE=socket, REPLICAS=1, AUTOSCALE=1 with
     AUTOSCALE_MAX_REPLICAS=2 behind ``create_server`` on 127.0.0.1, its
     windows, cooldowns and poll short (``ELASTIC_SERVE``, printed with the
     phase), ADMISSION_MAX_QUEUE 32, AFFINITY_STICKINESS 0. The live
@@ -370,10 +373,39 @@ IPC handles on them).
     card's allocated memory, and two chats are answered with no launch of
     any kernel, the card's counts zero.
 
+38. mesh_tp (after the single-card slices' pools are freed, on their
+    weights) — the serving mesh at tp=2 laid over two coordinates of the
+    one card (``build_mesh(MeshConfig(dp_size=1, tp_size=2),
+    devices=[cuda:0, cuda:0])``): Llama-3-8B at full width and 32 layers
+    sharded by ``LLAMA_TP_RULES`` (the column-sharded weights are views of
+    the source tensors, the row-sharded ``wo`` and ``w_down`` halves
+    copies), the base embedder and the default cross-encoder by
+    ``ENCODER_TP_RULES``, the index's rows over both coordinates; warmup,
+    2,048 chunks, 3 chats in a counted window under the default settings.
+    Gates: the bf16 paged kernel once per layer per shard per decode
+    sub-step (2 × 32 × sub-steps, through the graph replays, each graph
+    covering both shards), flash once per layer per shard per encoder
+    forward (2 × (24 × embedder forwards + 2 × rerank forwards)), each
+    count equal to the card's, no capture after warmup, every verify a
+    radix hit. Then one prompt's prefill and 4 teacher-forced decode steps
+    on a tp=2 engine and on a tp=1 engine on the same weights cut to
+    ``MESH_PARITY_LAYERS`` (4) layers: every logit row within the logits
+    phase's 0.25, greedy agreement reported, 2 × 4 × 4 paged launches (=
+    the card's); the same with KV_QUANT=int8 through the int8 kernel per
+    shard;
+    and an index sharded over 4 coordinates of the card against an
+    unsharded one on the corpus's vectors (32 queries, top-10): float32 ids
+    exact and scores within 1e-5 (another GEMM shape sums in another
+    order), bf16 scores within one bf16 step (they tie, so ids may swap). Reported: each shard's weight bytes and what it added beside
+    the source tensors, each shard's pool bytes. The kernel checks (phase
+    3) also run each kernel at a tp=2 shard's shape: both paged kernels at
+    a chat's decode with H 16, Hkv 4; flash at the embedder's ingest batch
+    with H 8 and at the 8B prefill with H 16.
+
 ``slice_contig`` runs Llama-3-8B cut to 16 of its layers (``CONTIG_LAYERS``)
 since convert_serve.
 
-``--only-new`` runs the build, the kernel checks and phase 37 only (on
+``--only-new`` runs the build, the kernel checks and phase 38 only (on
 weights made afresh from the seed) and ends without the result lines.
 ``--rounds-only`` runs the build and replicas_1's warmup and rounds only,
 to compare two trees' round times in one call (copied into the other
@@ -928,6 +960,8 @@ def chat_window(torch, pipeline, questions) -> dict:
     0 just before and read just after: the chats with their seconds, the
     wrappers' counts and the card's."""
     counters = wrappers()
+    encoders = {"embedder": pipeline.embedder, "reranker": pipeline.reranker}
+    forwards0 = {k: getattr(e, "forwards", 0) for k, e in encoders.items()}
     card0 = card_launches(torch)
     for kernel in counters.values():
         kernel.launches = 0
@@ -941,7 +975,9 @@ def chat_window(torch, pipeline, questions) -> dict:
     total_s = time.perf_counter() - t_all
     launches = {name: kernel.launches for name, kernel in counters.items()}
     return {"chats": chats, "seconds": total_s, "launches": launches,
-            "card": card_delta(torch, card0)}
+            "card": card_delta(torch, card0),
+            "forwards": {k: getattr(e, "forwards", 0) - forwards0[k]
+                         for k, e in encoders.items()}}
 
 
 def check_answered(phase: str, i: int, response: dict) -> None:
@@ -964,16 +1000,19 @@ def slice_questions(docs, words) -> list:
             f"Summarize the passages that mention {words[100]}."]
 
 
-def run_slice(torch, dev, phase: str, settings, shared=None, n_chats: int = 3) -> dict:
+def run_slice(torch, dev, phase: str, settings, shared=None, n_chats: int = 3,
+              mesh=None) -> dict:
     """The paged slice: build, warm up, ingest, then ``n_chats`` chats in a
     counted window (:func:`chat_window`), each chat's generate and verify
     admissions recorded (:func:`record_admissions`). A MoE engine's routing
     over the window, from its stats, is reported: choices routed to each
     expert, dropped (must be none at the no-drop capacity factor) and
-    padding's."""
+    padding's. On a ``mesh`` the pipeline is built on it, and the decode
+    kernel runs once per layer per tp shard per sub-step."""
     from sentio_tpu_torch.models.moe import MoeConfig
 
-    pipeline, docs, words, warm = build_slice(torch, dev, phase, settings, shared)
+    extra = {"mesh": mesh} if mesh is not None else {}
+    pipeline, docs, words, warm = build_slice(torch, dev, phase, settings, shared, **extra)
     engine = pipeline.generator.provider.engine
     moe = isinstance(engine.cfg, MoeConfig)
     questions = slice_questions(docs, words)[:n_chats]
@@ -1013,9 +1052,10 @@ def run_slice(torch, dev, phase: str, settings, shared=None, n_chats: int = 3) -
     if calls[0]["prefix_hit_tokens"] <= 0:
         raise AssertionError(f"{phase}: chat 1's generate missed the warmed template head: "
                              f"{calls[0]}")
-    n_layers = engine.cfg.n_layers
+    n_layers = engine.cfg.n_layers * engine.tp  # a launch a layer a tp shard
     emit(phase, chats=len(chats), seconds=window["seconds"], decode_sub_steps=sub_steps,
          launches=launches, device_launches=card, expected_decode_launches=n_layers * sub_steps,
+         encoder_forwards=window["forwards"], tp=engine.tp,
          pipeline_depth=engine.pipeline_depth, prefix_cache=engine._radix is not None,
          **{k: stats[k] - stats0[k] for k in ENGINE_COUNTERS},
          prefix_cache_pages=stats["prefix_cache_pages"],
@@ -1038,6 +1078,7 @@ def run_slice(torch, dev, phase: str, settings, shared=None, n_chats: int = 3) -
         raise AssertionError(f"{phase}: {other} ran on a {engine.kv_quant!r} pool: {launches}")
     check_card(phase, card, launches)
     return {"pipeline": pipeline, "launches": launches, "device_launches": card,
+            "forwards": window["forwards"], "sub_steps": sub_steps,
             "questions": questions, "warmup": warm, "words": words, "routing": routing,
             "seconds": [seconds for _, seconds in chats], "admissions": calls,
             "chats": [response for response, _ in chats], "generate_prompt": calls[0]["prompt"]}
@@ -3385,7 +3426,12 @@ def verify_modes_check(torch, dev, shared) -> dict:
 
 REPLICA_JSON_CHATS = 8   # with REPLICA_SSE_CHATS, released together from two tenants
 REPLICA_SSE_CHATS = 2
-REPLICA_ROUNDS = 3       # bursts of each replica count, each on questions of its own
+# bursts of each replica count, each on questions of its own (2: cut from 3
+# to make room for mesh_tp)
+REPLICA_ROUNDS = 2
+# the replica tier's, the worker tier's and the elastic fleet's depth: 16 of
+# Llama-3-8B's 32 layers (cut to make room for mesh_tp)
+TIER_LAYERS = 16
 # replicas_2_process's rounds in the full run, for its time limit
 # (``--worker-rounds`` runs REPLICA_ROUNDS)
 PROCESS_ROUNDS = 1
@@ -4870,7 +4916,7 @@ def partition_drill(torch, rs, prompt: str, n_tokens: int, settings) -> dict:
 
 def remote_worker_check(torch, dev, weights: dict, docs, ref: dict) -> dict:
     """``worker_serve`` started as its own process with its own weights
-    made from the seed, and a router dialing it (``REPLICA_WORKERS`` with a
+    made from the seed at ``weights``' depth, and a router dialing it (``REPLICA_WORKERS`` with a
     shared ``SOCKET_AUTH_TOKEN``): the lone greedy text equals thread
     mode's, the worker's paged launches equal its card counts."""
     import os
@@ -4878,6 +4924,7 @@ def remote_worker_check(torch, dev, weights: dict, docs, ref: dict) -> dict:
     from sentio_tpu_torch.ops.prompts import PromptBuilder
 
     settings = worker_settings(1, "socket", socket_auth_token=SOCKET_TOKEN)
+    model = dataclasses.asdict(weights["llama_config"])
     prompts = PromptBuilder()
     head = prompts.static_head("retrieve", instruction=prompts.load("profile"))
     code = (
@@ -4888,11 +4935,13 @@ def remote_worker_check(torch, dev, weights: dict, docs, ref: dict) -> dict:
         "from sentio_tpu_torch.runtime.worker import worker_serve\n"
         f"settings = Settings(generator=GeneratorConfig(max_new_tokens={MAX_TOKENS}, "
         f"verifier_max_tokens={MAX_TOKENS}))\n"
-        f"spec = worker_spec(settings, LlamaConfig.llama3_8b(), 0, seed={SEED}, "
+        # the seed's tensors at the router's depth: an init draws the
+        # layers in order, so its first layers equal the router's
+        f"spec = worker_spec(settings, LlamaConfig(**{model!r}), 0, seed={SEED}, "
         f"device='cuda', warm_head={head!r}, auth_token={SOCKET_TOKEN!r}, socket=True)\n"
         "worker_serve('127.0.0.1', 0, spec, bound_cb=lambda a: print('bound', a[1], "
         "flush=True))\n")
-    # the worker makes its own 8B weights and pool on the card
+    # the worker makes its own weights and pool on the card
     gc.collect()
     torch.cuda.empty_cache()
     proc = subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE, text=True,
@@ -6605,6 +6654,224 @@ def provider_settings_check(torch, dev, docs, words) -> dict:
         mock.stop()
 
 
+# mesh_tp: tensor parallelism over two coordinates of the one card
+MESH_TP = 2
+# the tp=1 / tp=2 logits engines' depth, bf16 and int8 (4: cut from the
+# slice's 32 and 8 to make room for mesh_tp)
+MESH_PARITY_LAYERS = 4
+MESH_INDEX_SHARDS = 4
+# the sharded index's scores against the unsharded one's: float32 products
+# in another reduction order; bf16 one rounding step of a score below 1
+INDEX_SCORE_LIMIT = {"float32": 1e-5, "bfloat16": 2 ** -8}
+# a tp=2 shard of Llama-3-8B's decode: (B, H, Hkv, D, page, pages a row)
+TP2_GEOMETRY = (8, 32 // MESH_TP, 8 // MESH_TP, 128, 128, 64)
+
+
+def tp2_kernel_cases(torch, dev, sweep: dict, sweep_quant: dict) -> dict:
+    """Each kernel at the shape one tp=2 shard gives it on mesh_tp's main
+    path: both paged kernels at a chat's decode (H 16, Hkv 4), the flash
+    kernel at the base embedder's ingest batch (H 8, D 64) and at the
+    contiguous engine's 8B prefill (H 16, D 128); held to the plain
+    versions and timed as the full-width cases are."""
+    rng = torch.Generator().manual_seed(SEED + 1)
+    emb_lens = [0, 512, 1, 64] + torch.randint(0, 513, (124,), generator=rng).tolist()
+    shape = "b8_h16_hkv4_d128_page128"
+    return {
+        "paged_attention": paged_check(torch, dev, sweep, f"tp2_chat_decode_{shape}",
+                                       CHAT_LENS, geometry=TP2_GEOMETRY),
+        "paged_attention_quant": paged_check(torch, dev, sweep_quant,
+                                             f"tp2_chat_decode_int8_{shape}", CHAT_LENS,
+                                             quant=True, geometry=TP2_GEOMETRY),
+        "flash_attention": [
+            flash_case(torch, dev, "tp2_embedder_b128_t512_h8_d64_bidirectional",
+                       128, 512, 16 // MESH_TP, 64, False, emb_lens),
+            prefill_flash_case(torch, dev, "tp2_llama8b_prefill_b1_t4096_s8192_h16_d128_causal",
+                               1, 4096, 8192, 32 // MESH_TP, 128)],
+    }
+
+
+def shard_bytes(tree, seen: set) -> tuple[int, int]:
+    """(bytes of ``tree``'s tensors, of those not already in ``seen``,
+    whose storages it adds): what a shard holds and what it added."""
+    total = fresh = 0
+    for leaf in (tree.values() if isinstance(tree, dict) else [tree]):
+        if isinstance(leaf, dict):
+            t, f = shard_bytes(leaf, seen)
+            total, fresh = total + t, fresh + f
+            continue
+        n = leaf.numel() * leaf.element_size()
+        total += n
+        ptr = leaf.untyped_storage().data_ptr()
+        if ptr not in seen:
+            seen.add(ptr)
+            fresh += n
+    return total, fresh
+
+
+def tp_logits(torch, dev, engines: dict, prompt: str, phase: str, kernel: str) -> dict:
+    """One prompt's prefill and 4 teacher-forced decode steps (the forced
+    tokens the first engine's greedy picks) through each engine's kernel
+    path; every logit row of the tp engine against the tp=1 engine's.
+    Launches of ``kernel`` by the tp engine's decode steps are counted
+    (once per layer per shard per step) and held to the card's."""
+    import numpy as np
+
+    rows, forced = {}, []
+    counted = {}
+    for name, engine in engines.items():
+        ids = engine.tokenizer.encode(prompt, add_bos=True)[: engine.max_pages_per_seq *
+                                                             engine.page_size - 8]
+        width = engine._prefill_width(len(ids))
+        n_pages = width // engine.page_size
+        if n_pages > engine.allocator.free_pages and engine._radix is not None:
+            engine._radix.evict(n_pages - engine.allocator.free_pages)
+        pages = engine.allocator.alloc(n_pages)
+        table = torch.zeros((1, engine.max_pages_per_seq), dtype=torch.int32)
+        table[0, :n_pages] = torch.tensor(pages, dtype=torch.int32)
+        id_arr = np.full((1, width), engine.tokenizer.pad_id, np.int64)
+        id_arr[0, : len(ids)] = ids
+        try:
+            with torch.inference_mode():
+                steps = [engine.prefill_forward(id_arr, np.asarray([len(ids)]),
+                                                table.numpy().astype(np.int64)[:, :n_pages])]
+                card0 = card_launches(torch)
+                for counter in wrappers().values():
+                    counter.launches = 0
+                for s in range(4):
+                    if len(forced) <= s:
+                        forced.append(int(steps[-1].argmax(-1)[0]))
+                    tok = torch.tensor([forced[s]], device=dev)
+                    lens = torch.tensor([len(ids) + s], dtype=torch.int32, device=dev)
+                    steps.append(engine.decode_forward(tok, lens, table.to(dev)))
+                counted[name] = ({k: c.launches for k, c in wrappers().items()},
+                                 card_delta(torch, card0))
+        finally:
+            engine.allocator.free(pages)
+        rows[name] = torch.stack([x[0] for x in steps]).float()
+    (ref_name, ref), (tp_name, got) = rows.items()
+    diff = (got - ref).abs().amax(dim=-1).tolist()
+    agree = (got.argmax(-1) == ref.argmax(-1)).tolist()
+    tp_engine = engines[tp_name]
+    want = tp_engine.cfg.n_layers * tp_engine.tp * 4
+    all_launches, card = counted[tp_name]
+    launches = all_launches[kernel]
+    result = {"engines": list(rows), "prompt_tokens": len(ids), "layers": tp_engine.cfg.n_layers,
+              "max_abs_diff_per_step": diff, "greedy_agree": agree,
+              "logit_std": float(ref.std()), f"{kernel}_launches": launches,
+              "expected_launches": want, "device_launches": card}
+    emit(phase, **result)
+    if not bool(torch.isfinite(got).all()) or max(diff) > LOGITS_LIMIT:
+        raise AssertionError(f"{phase}: tp={tp_engine.tp} logits differ from tp=1's by "
+                             f"{max(diff)} > {LOGITS_LIMIT}")
+    if all_launches != {k: (want if k == kernel else 0) for k in wrappers()}:
+        raise AssertionError(f"{phase}: {all_launches} launches in 4 decode steps, expected "
+                             f"{want} of {kernel} (a layer a shard a step) and no other")
+    check_card(phase, card, all_launches)
+    return result
+
+
+def mesh_tp_check(torch, dev, weights: dict) -> dict:
+    """38. mesh_tp: the serving mesh at tp=2 over two coordinates of the one
+    card (``build_mesh(MeshConfig(dp_size=1, tp_size=2), devices=[cuda:0,
+    cuda:0])``)."""
+    import numpy as np
+
+    from sentio_tpu_torch.config import GeneratorConfig, MeshConfig, Settings
+    from sentio_tpu_torch.ops.dense_index import TorchDenseIndex
+    from sentio_tpu_torch.parallel.mesh import build_mesh
+    from sentio_tpu_torch.parallel.sharding import leaves
+    from sentio_tpu_torch.runtime.paged import ContinuousBatchingEngine
+
+    t_phase = time.perf_counter()
+    mesh = build_mesh(MeshConfig(dp_size=1, tp_size=MESH_TP), devices=[dev] * MESH_TP)
+    mem0 = torch.cuda.memory_allocated()
+    caps = dict(max_new_tokens=MAX_TOKENS, verifier_max_tokens=MAX_TOKENS)
+    sl = run_slice(torch, dev, "mesh_tp", Settings(generator=GeneratorConfig(**caps)),
+                   shared=weights, mesh=mesh)
+    pipeline = sl["pipeline"]
+    engine = pipeline.generator.provider.engine
+    embedder, reranker = pipeline.embedder, pipeline.reranker
+    if engine.tp != MESH_TP or not engine.cuda_graphs:
+        raise AssertionError(f"mesh_tp: the engine runs tp={engine.tp}, graphs "
+                             f"{engine.cuda_graphs}")
+    if embedder.params.tp != MESH_TP or reranker.params.tp != MESH_TP:
+        raise AssertionError("mesh_tp: the encoders are not sharded over tp")
+    # flash: a launch a layer a shard a forward, the encoders' heads
+    # dividing over tp
+    fwd = sl["forwards"]
+    want_flash = MESH_TP * (embedder.model_config.n_layers * fwd["embedder"]
+                            + reranker.model_config.n_layers * fwd["reranker"])
+    if sl["launches"]["flash_attention"] != want_flash:
+        raise AssertionError(f"mesh_tp: flash launched {sl['launches']['flash_attention']} "
+                             f"times, the per-shard forwards predict {want_flash} ({fwd})")
+
+    # the card's memory: each shard's weights (what it added beside the
+    # source tensors) and its pool
+    seen = {leaf.untyped_storage().data_ptr() for _, leaf in leaves(weights["llama_params"])}
+    shards = [dict(zip(("bytes", "added_bytes"), shard_bytes(tree, seen)))
+              for tree in engine.params]
+    memory = {"weights_by_shard": shards,
+              "pool_bytes_by_shard": [p.hbm_bytes for p in engine.pool.shards],
+              "allocated_after_build": torch.cuda.memory_allocated(),
+              "allocated_added": torch.cuda.memory_allocated() - mem0,
+              "peak": torch.cuda.max_memory_allocated()}
+    emit("mesh_tp_memory", **memory)
+
+    # tp=2 against tp=1 on the same weights: the first decode steps' logits
+    pipeline.service.wait_idle()
+    prompt = pipeline.generator.build_prompt(sl["questions"][1],
+                                             pipeline.index.documents()[:5])
+    geometry = dict(max_slots=1, page_size=engine.page_size,
+                    max_pages_per_seq=engine.max_pages_per_seq, prefix_cache=False,
+                    device=dev)
+    cut = cut_depth(weights, MESH_PARITY_LAYERS)
+    parity = {}
+    for kv_quant, kernel, suffix in (("none", "paged_attention", ""),
+                                     ("int8", "paged_attention_quant", "_int8")):
+        engines = {f"tp{n}{suffix}": ContinuousBatchingEngine(
+            model_config=cut["llama_config"], params=cut["llama_params"], kv_quant=kv_quant,
+            mesh=m, **geometry) for n, m in ((1, None), (MESH_TP, mesh))}
+        parity[kv_quant] = tp_logits(torch, dev, engines, prompt, f"mesh_tp_logits{suffix}",
+                                     kernel)
+        for e in engines.values():
+            e.release()
+        del engines
+
+    # the row-sharded index: 4 coordinates of the card against one
+    docs, embs = pipeline.index.documents(), pipeline.index.embeddings()
+    index4 = build_mesh(MeshConfig(dp_size=MESH_INDEX_SHARDS), devices=[dev] * MESH_INDEX_SHARDS)
+    gen = np.random.default_rng(SEED + 17)
+    queries = np.concatenate([embs[:16], gen.standard_normal((16, embs.shape[1]))
+                              .astype(np.float32)])
+    index_rows = {}
+    for dtype in ("float32", "bfloat16"):
+        plain = TorchDenseIndex(dim=embs.shape[1], device=dev, dtype=dtype)
+        sharded = TorchDenseIndex(dim=embs.shape[1], dtype=dtype, mesh=index4)
+        plain.add(docs, embs)
+        sharded.add(docs, embs)
+        a, b = plain.search_batch(queries, 10), sharded.search_batch(queries, 10)
+        ids_equal = sum([d.id for d, _ in x] == [d.id for d, _ in y] for x, y in zip(a, b))
+        score_diff = max(abs(s - t) for x, y in zip(a, b) for (_, s), (_, t) in zip(x, y))
+        index_rows[dtype] = {"queries": len(queries), "ids_equal": ids_equal,
+                             "max_score_diff": score_diff,
+                             "blocks": len(sharded._ensure_device()[0])}
+        # a block's product takes another reduction order than the whole
+        # corpus's (another GEMM shape), so scores may move in the last
+        # bits; float32 scores have no ties at that size, so the ids are
+        # exact; bf16 scores tie, so ids may swap within one bf16 step
+        limit = INDEX_SCORE_LIMIT[dtype]
+        if score_diff > limit or (dtype == "float32" and ids_equal != len(queries)):
+            raise AssertionError(f"mesh_tp: the {MESH_INDEX_SHARDS}-way index differs from "
+                                 f"the unsharded one ({dtype}, scores within {limit}): "
+                                 f"{index_rows[dtype]}")
+    emit("mesh_tp_index", shards=MESH_INDEX_SHARDS, **index_rows)
+    freed = close_pipeline(torch, sl.pop("pipeline"))
+    emit("mesh_tp_done", seconds=time.perf_counter() - t_phase, memory_allocated_after=freed,
+         chats_s=sl["seconds"])
+    return {**sl, "memory": memory, "logits": parity["none"], "logits_int8": parity["int8"],
+            "index": index_rows, "want_flash": want_flash}
+
+
 def family_launches(card: dict, family: str) -> dict:
     """The card's counts (:func:`card_launches`) of one kernel's device
     functions."""
@@ -6628,7 +6895,7 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only-new", action="store_true",
-                        help="build, the kernel checks, then only convert_serve; ends without "
+                        help="build, the kernel checks, then only mesh_tp; ends without "
                              "the result lines")
     parser.add_argument("--worker-rounds", action="store_true",
                         help="build, then the rounds of one and two replicas in thread and "
@@ -6706,10 +6973,11 @@ def main(argv=None) -> int:
                                    EVAL_LENS, quant=True, geometry=EVAL_GEOMETRY,
                                    scratch_idle=False)
     flash = flash_checks(torch, dev)
+    tp2 = tp2_kernel_cases(torch, dev, sweep, sweep_quant)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     if args.only_new:
-        convert_serve_check(torch, dev, settings_weights(torch, dev))
+        mesh_tp_check(torch, dev, settings_weights(torch, dev))
         return 0
 
     # the MoE phases first: their 47 GB of weights cannot sit beside the
@@ -6764,6 +7032,7 @@ def main(argv=None) -> int:
     freed = {name: close_pipeline(torch, x.pop("pipeline"))
              for name, x in (("slice", sl), ("slice_int8", sl8), ("slice_contig", sc))}
     emit("spec_memory", memory_allocated_after_close=freed)
+    mtp = mesh_tp_check(torch, dev, weights)
     dcfg = bench_draft_config(weights["llama_config"])
     draft = {"draft_config": dcfg,
              "draft_params": init_llama(dcfg, torch.Generator(device=dev).manual_seed(SEED + 9),
@@ -6781,13 +7050,14 @@ def main(argv=None) -> int:
                                                                   sl["generate_prompt"])])
     new = new_phases(torch, dev, weights)
     ev, gates, vm = new["eval"]["counts"], new["quality_gates"]["launches"], new["verify_modes"]
-    rep = replica_phases(torch, dev, weights)
+    tier = cut_depth(weights, TIER_LAYERS)
+    rep = replica_phases(torch, dev, tier)
     cli_check(torch)
     cs = convert_serve_check(torch, dev, weights)
     t_workers = time.perf_counter()
-    workers = worker_phases(torch, dev, weights, rep["replicas_2"])
+    workers = worker_phases(torch, dev, tier, rep["replicas_2"])
     emit("worker_phases", seconds=time.perf_counter() - t_workers)
-    elastic = elastic_check(torch, dev, weights, rep["replicas_2"]["lone"])
+    elastic = elastic_check(torch, dev, tier, rep["replicas_2"]["lone"])
     worker_paths = {"replicas_2_process": workers["replicas_2_process"]["launches"],
                     "replicas_2_socket": workers["replicas_2_socket"]["launches"],
                     "remote_worker": {k: sum(w["launches"][k] for w in
@@ -6822,7 +7092,9 @@ def main(argv=None) -> int:
                               "elastic": elastic["paged_launches"],
                               "convert_serve": cs["chats"]["launches"]["paged_attention"],
                               "slice_moe": sm["launches"]["paged_attention"],
-                              "profile_moe": pm["launches_counted"]["paged_attention"]},
+                              "profile_moe": pm["launches_counted"]["paged_attention"],
+                              "mesh_tp": mtp["launches"]["paged_attention"],
+                              "mesh_tp_logits": mtp["logits"]["paged_attention_launches"]},
          "launches_by_worker": {
              "replicas_2_process": workers["replicas_2_process"]["launches_by_worker"],
              "replicas_2_socket": [w["launches"] for w in
@@ -6857,10 +7129,11 @@ def main(argv=None) -> int:
          "device_launches_profiled_chat": device_launches(profile, "paged_attention"),
          "device_launches_slice_moe": family_launches(sm["device_launches"],
                                                       "paged_attention"),
+         "device_launches_mesh_tp": family_launches(mtp["device_launches"], "paged_attention"),
          "device_launches_profile_moe": device_launches(pm, "paged_attention"),
          **{k: paged[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                   "bound_by", "library_ms")},
-         "cases": [paged, paged_chat, paged_eval]},
+         "cases": [paged, paged_chat, paged_eval, tp2["paged_attention"]]},
         {"name": "paged_attention_quant", "route": "cuda",
          "source": "sentio_tpu_torch/csrc/paged_attention_quant.cu",
          "replaces": "sentio_tpu/kernels/paged_attention.py:167",
@@ -6871,7 +7144,9 @@ def main(argv=None) -> int:
                               "spec_int8": spec_int8["launches"]["paged_attention_quant"],
                               "quality_gates_int8":
                                   gates["int8"]["launches"]["paged_attention_quant"],
-                              "slice_moe_int8": sm8["launches"]["paged_attention_quant"]},
+                              "slice_moe_int8": sm8["launches"]["paged_attention_quant"],
+                              "mesh_tp_logits_int8":
+                                  mtp["logits_int8"]["paged_attention_quant_launches"]},
          "device_launches_quality_gates_int8": family_launches(
              gates["int8"]["device_launches"], "paged_attention_quant"),
          "device_launches": family_launches(sl8["device_launches"], "paged_attention_quant"),
@@ -6882,7 +7157,10 @@ def main(argv=None) -> int:
                                                            "paged_attention_quant"),
          **{k: paged_quant[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")},
-         "cases": [paged_quant, paged_quant_chat, paged_quant_eval]},
+         "device_launches_mesh_tp_logits_int8": family_launches(
+             mtp["logits_int8"]["device_launches"], "paged_attention_quant"),
+         "cases": [paged_quant, paged_quant_chat, paged_quant_eval,
+                   tp2["paged_attention_quant"]]},
         {"name": "flash_attention", "route": "cuda",
          "source": "sentio_tpu_torch/csrc/flash_attention.cu",
          "replaces": "sentio_tpu/kernels/flash_attention.py:41",
@@ -6917,7 +7195,8 @@ def main(argv=None) -> int:
                               "convert_serve": cs["chats"]["launches"]["flash_attention"],
                               "slice_moe": sm["launches"]["flash_attention"],
                               "profile_moe": pm["launches_counted"]["flash_attention"],
-                              "slice_moe_int8": sm8["launches"]["flash_attention"]},
+                              "slice_moe_int8": sm8["launches"]["flash_attention"],
+                              "mesh_tp": mtp["launches"]["flash_attention"]},
          "device_launches": {path: family_launches(x["device_launches"], "flash_attention")
                              for path, x in (("slice", sl), ("slice_int8", sl8),
                                              ("slice_contig", sc), ("service", service),
@@ -6930,7 +7209,8 @@ def main(argv=None) -> int:
                                              ("spec_int8", spec_int8),
                                              ("spec_exact", spec_exact), ("verify_modes", vm),
                                              *((path, rep[path]) for path in rep_paths),
-                                             ("slice_moe", sm), ("slice_moe_int8", sm8))},
+                                             ("slice_moe", sm), ("slice_moe_int8", sm8),
+                                             ("mesh_tp", mtp))},
          "device_launches_eval": {name: family_launches(ev[name]["device_launches"],
                                                         "flash_attention")
                                   for name in ("dense", "hybrid_rerank", "full_paged",
@@ -6942,7 +7222,7 @@ def main(argv=None) -> int:
          "max_abs_err": max(c["max_abs_err"] for c in flash),
          **{k: main_flash[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                        "library_ms")},
-         "cases": flash},
+         "cases": [*flash, *tp2["flash_attention"]]},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -547,13 +547,23 @@ class AuthConfig:
 
 @dataclass
 class MeshConfig:
-    """The mesh sizes ``info`` reports (``MESH_DP``, ``MESH_TP``,
-    ``MESH_SP``); the port runs on one card, so ``build_pipeline`` refuses
-    any size above 1 (0 for dp means "infer": one card)."""
+    """Device mesh geometry, JAX's fields and variables: ``dp`` (data,
+    ``MESH_DP``), ``tp`` (tensor sharding of the weights, ``MESH_TP``),
+    ``sp`` (sequence, ``MESH_SP``), ``pp`` (pipeline stages, ``MESH_PP``),
+    ``ep`` (experts, ``MESH_EP``) and a leading ``dcn`` data axis
+    (``MESH_DCN``). A zero dp means "every device left over". ``backend``
+    (``MESH_BACKEND``) names the devices the mesh is laid over: "" or
+    "cuda" every visible card, "cpu" the host. ``build_pipeline`` serves
+    dp, tp and dcn (:mod:`sentio_tpu_torch.parallel.mesh`); sp, pp and ep
+    above 1 belong to the training half of the mesh and are refused."""
 
     dp_size: int = 0
     tp_size: int = 1
     sp_size: int = 1
+    pp_size: int = 1
+    ep_size: int = 1
+    dcn_size: int = 1
+    backend: str = ""
 
     @classmethod
     def from_env(cls) -> "MeshConfig":
@@ -561,6 +571,10 @@ class MeshConfig:
             dp_size=_env_int(["MESH_DP"], 0),
             tp_size=_env_int(["MESH_TP"], 1),
             sp_size=_env_int(["MESH_SP"], 1),
+            pp_size=_env_int(["MESH_PP"], 1),
+            ep_size=_env_int(["MESH_EP"], 1),
+            dcn_size=_env_int(["MESH_DCN"], 1),
+            backend=_env_str(["MESH_BACKEND"], ""),
         )
 
 

@@ -23,7 +23,8 @@ from sentio_tpu_torch.kernels.paged_attention import (
 
 __all__ = [
     "flash_attention", "paged_attention", "paged_attention_quant", "flash_attn_fn",
-    "encoder_attn_fn", "default_attn_fn", "paged_attn_impl", "KERNELS", "FLASH_KERNEL", "PAGED_KERNEL", "PAGED_QUANT_KERNEL",
+    "encoder_attn_fn", "default_attn_fn", "paged_attn_impl", "select_encoder_attn_fn",
+    "KERNELS", "FLASH_KERNEL", "PAGED_KERNEL", "PAGED_QUANT_KERNEL",
 ]
 
 KERNELS = (PAGED_KERNEL, PAGED_QUANT_KERNEL, FLASH_KERNEL)
@@ -50,6 +51,16 @@ def encoder_attn_fn(q, k, v, kv_lens=None):
     """Bidirectional adapter for encoder forwards: right-padded keys are
     masked by ``kv_lens``, no causal constraint."""
     return flash_attention(q, k, v, kv_lens, causal=False)
+
+
+def select_encoder_attn_fn(mesh, n_heads: int):
+    """JAX's policy for encoder attention (embedder and cross-encoder, one
+    definition so the sites cannot drift): the bidirectional flash kernel,
+    per tp shard on a mesh whose ``tp`` divides the heads; None (plain
+    attention over every head) on a mesh where it does not."""
+    if mesh is None or n_heads % mesh.shape["tp"] == 0:
+        return encoder_attn_fn
+    return None
 
 
 def paged_attn_impl(q, k_pages_l, v_pages_l, page_table, lens, n_rep):

@@ -11,6 +11,7 @@ from typing import Optional
 import torch
 
 from sentio_tpu_torch.models import layers as L
+from sentio_tpu_torch.parallel.sharding import TPShards
 from sentio_tpu_torch.models.transformer import (
     EncoderConfig,
     cls_pool,
@@ -36,8 +37,12 @@ def cross_encoder_scores(params: dict, cfg: EncoderConfig, ids: Tensor,
     """[B, T] pair encodings → [B] float32 relevance scores. An optional
     ``pooler`` stage (dense + tanh over [CLS]) runs between pooling and the
     scalar head when the parameters carry one."""
-    hidden = encoder_forward(params["encoder"], cfg, ids, mask, type_ids,
-                             attn_fn=attn_fn)
+    if isinstance(params, TPShards):  # the head and pooler replicate
+        encoder = TPShards([tree["encoder"] for tree in params], params.devices)
+        params = params[0]
+    else:
+        encoder = params["encoder"]
+    hidden = encoder_forward(encoder, cfg, ids, mask, type_ids, attn_fn=attn_fn)
     pooled = cls_pool(hidden)
     if "pooler" in params:
         pooled = torch.tanh(L.dense(params["pooler"], pooled, torch.float32))

@@ -19,6 +19,8 @@ import torch.nn.functional as F
 
 from sentio_tpu_torch.models import layers as L
 from sentio_tpu_torch.models.transformer import dense_init, embed_init
+from sentio_tpu_torch.parallel.collectives import all_gather, broadcast, psum
+from sentio_tpu_torch.parallel.sharding import TPShards
 
 Tensor = torch.Tensor
 Cache = dict  # {"k": [L,B,S,Hkv,D], "v": [L,B,S,Hkv,D]}
@@ -95,6 +97,79 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: int, device) -> Cache:
             "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device)}
 
 
+def check_tp(cfg: LlamaConfig, tp: int) -> None:
+    """Each shard holds whole kv heads (JAX's pool refuses the rest)."""
+    if cfg.n_kv_heads % tp != 0:
+        raise ValueError(f"n_kv_heads={cfg.n_kv_heads} not divisible by tp={tp}")
+
+
+def init_tp_cache(cfg: LlamaConfig, batch: int, max_len: int, shards: TPShards) -> list:
+    """One cache per shard, ``[L, B, S, Hkv/tp, D]`` each on its device:
+    the kv heads shard over ``tp`` as the wk / wv columns do."""
+    check_tp(cfg, shards.tp)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads // shards.tp, cfg.head_dim)
+    return [{"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=d),
+             "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=d)} for d in shards.devices]
+
+
+def tp_embed(shards: TPShards, ids: Tensor, dtype: torch.dtype) -> Tensor:
+    """The vocabulary-sharded lookup: each shard looks up the ids in its
+    rows (zero elsewhere), and the shards' rows are summed."""
+    parts = []
+    for i, (tree, ids_s) in enumerate(zip(shards, broadcast(ids, shards.devices))):
+        table = tree["embed_tokens"]["embedding"]
+        local = ids_s.long() - i * table.shape[0]
+        mine = (local >= 0) & (local < table.shape[0])
+        rows = F.embedding(local.clamp(0, table.shape[0] - 1), table).to(dtype)
+        parts.append(torch.where(mine[..., None], rows, torch.zeros((), dtype=dtype,
+                                                                    device=rows.device)))
+    return psum(parts, shards.devices[0])
+
+
+def tp_forward(shards: TPShards, cfg: LlamaConfig, ids: Tensor,
+               positions: Optional[Tensor] = None, cache: Optional[list] = None,
+               cache_index: Union[int, Tensor] = 0, pad_mask: Optional[Tensor] = None,
+               attn_fn=None, logit_index: Optional[Tensor] = None
+               ) -> tuple[Tensor, Optional[list]]:
+    """:func:`llama_forward` over tensor-parallel shards: each shard runs
+    its heads' attention (writing its own cache, launching ``attn_fn`` on
+    its heads) and its slice of the MLP; the partial outputs of ``wo`` and
+    ``w_down`` are summed over ``tp`` (two sums a block), the norms run
+    once on the first shard's device, and the vocabulary-sharded logits
+    are gathered there."""
+    dt = cfg.torch_dtype
+    devs, home = shards.devices, shards.devices[0]
+    check_tp(cfg, shards.tp)
+    b, t = ids.shape
+    if positions is None:
+        positions = torch.arange(t, device=ids.device)[None, :].expand(b, t)
+    positions = positions.long()
+    rope_len = cache[0]["k"].shape[2] if cache is not None else max(t, cfg.max_len)
+    ropes = [L.rope_frequencies(cfg.head_dim, rope_len, cfg.rope_theta, d) for d in devs]
+    pos_s = broadcast(positions, devs)
+    pad_s = broadcast(pad_mask, devs) if pad_mask is not None else [None] * len(devs)
+    index_s = (broadcast(cache_index, devs) if isinstance(cache_index, Tensor)
+               else [cache_index] * len(devs))
+    caches = cache if cache is not None else [None] * len(devs)
+
+    x = tp_embed(shards, ids, dt)
+    for i in range(cfg.n_layers):
+        name = f"layers_{i}"
+        xn = broadcast(L.rmsnorm(shards[0][name]["attn_norm"], x, cfg.norm_eps), devs)
+        x = x + psum([_attn(tree[name]["attn"], cfg, xn[s], pos_s[s], *ropes[s], i,
+                            caches[s], index_s[s], pad_s[s], attn_fn)
+                      for s, tree in enumerate(shards)], home)
+        xm = broadcast(L.rmsnorm(shards[0][name]["mlp_norm"], x, cfg.norm_eps), devs)
+        x = x + psum([_mlp(tree[name]["mlp"], cfg, xm[s]) for s, tree in enumerate(shards)],
+                     home)
+    if logit_index is not None:
+        x = x[torch.arange(b, device=x.device), logit_index.to(x.device)][:, None]
+    x = broadcast(L.rmsnorm(shards[0]["final_norm"], x, cfg.norm_eps), devs)
+    logits = all_gather([L.dense(tree["lm_head"], x[s], dt)
+                         for s, tree in enumerate(shards)], home)
+    return logits.float(), cache
+
+
 def _write_cache(cache_layer: Tensor, kv: Tensor, index: Union[int, Tensor]) -> None:
     """Write kv [B, T, Hkv, D] into cache_layer [B, S, Hkv, D] in place at
     sequence offset ``index``: an int, or a [B] tensor with each row's own
@@ -115,8 +190,10 @@ def _attn(lp: dict, cfg: LlamaConfig, x: Tensor, positions: Tensor, cos: Tensor,
           sin: Tensor, layer: int, cache: Optional[Cache], cache_index: Union[int, Tensor],
           pad_mask: Optional[Tensor], attn_fn=None) -> Tensor:
     dt = cfg.torch_dtype
-    b, t, d = x.shape
-    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    b, t, _ = x.shape
+    hd = cfg.head_dim
+    # the heads this shard holds: all of them, or H/tp and Hkv/tp under tp
+    h, hkv = lp["wq"]["weight"].shape[0] // hd, lp["wk"]["weight"].shape[0] // hd
 
     q = L.dense(lp["wq"], x, dt).reshape(b, t, h, hd)
     k = L.dense(lp["wk"], x, dt).reshape(b, t, hkv, hd)
@@ -148,9 +225,9 @@ def _attn(lp: dict, cfg: LlamaConfig, x: Tensor, positions: Tensor, cos: Tensor,
     k_full = L.repeat_kv(k_full, h // hkv)
     v_full = L.repeat_kv(v_full, h // hkv)
     if use_kernel:
-        out = attn_fn(q, k_full, v_full, kv_lens).reshape(b, t, d)
+        out = attn_fn(q, k_full, v_full, kv_lens).reshape(b, t, h * hd)
     else:
-        out = L.attention(q, k_full, v_full, mask, dt).reshape(b, t, d)
+        out = L.attention(q, k_full, v_full, mask, dt).reshape(b, t, h * hd)
     return L.dense(lp["wo"], out, dt)
 
 
@@ -177,7 +254,15 @@ def llama_forward(params: dict, cfg: LlamaConfig, ids: Tensor,
       (a cache primed with each row's earlier tokens) passes ``cache_index``
       as a [B] tensor of per-row offsets and ``positions`` from there.
       (Decode runs over the page pool instead: ``runtime/paged.py``.)
+
+    Tensor parallel: ``params`` a :class:`TPShards` (one data coordinate's
+    shards, :func:`~..parallel.sharding.shard_params` under
+    ``LLAMA_TP_RULES``) and ``cache`` a list of per-shard caches
+    (:func:`init_tp_cache`) run :func:`tp_forward`.
     """
+    if isinstance(params, TPShards):
+        return tp_forward(params, cfg, ids, positions, cache, cache_index, pad_mask, attn_fn,
+                          logit_index)
     dt = cfg.torch_dtype
     b, t = ids.shape
     if positions is None:

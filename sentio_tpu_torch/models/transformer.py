@@ -6,6 +6,15 @@ post-LN residual blocks with learned positions and token-type embeddings.
 Plain functions over a parameter dict (see :mod:`.layers` for its layout);
 ``attn_fn`` is the kernel seam — the bidirectional flash kernel takes
 per-row key lengths instead of a ``[B, T]`` mask.
+
+Tensor parallel (``params`` a :class:`~..parallel.sharding.TPShards` under
+``ENCODER_TP_RULES``): q/k/v and ``w_in`` are column-sharded, ``wo`` and
+``w_out`` row-sharded, so a block sums over ``tp`` twice; a replicated
+bias of a column-sharded layer is cut to the shard's columns, and that of
+a row-sharded one is added once, after the sum, as XLA places them. When
+the heads divide over ``tp`` each shard attends its own heads (one
+``attn_fn`` launch a shard, JAX's ``select_encoder_attn_fn``); otherwise
+the shards' q/k/v are gathered and plain attention runs over every head.
 """
 
 from __future__ import annotations
@@ -17,6 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from sentio_tpu_torch.models import layers as L
+from sentio_tpu_torch.parallel.collectives import all_gather, broadcast, psum
+from sentio_tpu_torch.parallel.sharding import TPShards
 
 Tensor = torch.Tensor
 
@@ -116,15 +127,9 @@ def encoder_forward(params: dict, cfg: EncoderConfig, ids: Tensor, mask: Tensor,
     """ids/mask: [B, T] (mask True = real token) → hidden [B, T, D].
     ``attn_fn(q, k, v, kv_lens)``: right-padded masks reduce to per-row
     lengths for the kernel; None uses masked plain attention."""
-    dt = cfg.torch_dtype
-    t = ids.shape[1]
-    positions = torch.arange(t, device=ids.device)[None, :]
-    x = (L.embed(params["embed_tokens"], ids, dt)
-         + L.embed(params["embed_positions"], positions, dt))
-    if type_ids is not None:
-        x = x + L.embed(params["embed_types"], type_ids, dt)
-    x = L.layernorm(params["embed_norm"], x)
-
+    if isinstance(params, TPShards):
+        return tp_encoder_forward(params, cfg, ids, mask, type_ids, attn_fn)
+    x = _embed_input(params, cfg, ids, type_ids)
     attn_mask = mask[:, None, None, :].bool()  # [B,1,1,T] keys masked
     kv_lens = mask.int().sum(dim=1, dtype=torch.int32) if attn_fn is not None else None
     for i in range(cfg.n_layers):
@@ -150,6 +155,88 @@ def _block(lp: dict, cfg: EncoderConfig, x: Tensor, attn_mask: Tensor,
     # jax.nn.gelu defaults to the tanh approximation
     hidden = F.gelu(L.dense(lp["mlp"]["w_in"], x, dt), approximate="tanh")
     return L.layernorm(lp["mlp_norm"], x + L.dense(lp["mlp"]["w_out"], hidden, dt))
+
+
+def _embed_input(params: dict, cfg: EncoderConfig, ids: Tensor,
+                 type_ids: Optional[Tensor]) -> Tensor:
+    dt = cfg.torch_dtype
+    positions = torch.arange(ids.shape[1], device=ids.device)[None, :]
+    x = (L.embed(params["embed_tokens"], ids, dt)
+         + L.embed(params["embed_positions"], positions, dt))
+    if type_ids is not None:
+        x = x + L.embed(params["embed_types"], type_ids, dt)
+    return L.layernorm(params["embed_norm"], x)
+
+
+def _columns(lp: dict, x: Tensor, shard: int, dt: torch.dtype) -> Tensor:
+    """A column-sharded layer's slice of the output: the shard's weight
+    rows, and its columns of the replicated bias."""
+    y = F.linear(x.to(dt), lp["weight"].to(dt))
+    if "bias" in lp:
+        n = lp["weight"].shape[0]
+        y = y + lp["bias"][shard * n:(shard + 1) * n].to(dt)
+    return y
+
+
+def _partial(lp: dict, x: Tensor, dt: torch.dtype) -> Tensor:
+    """A row-sharded layer's partial product over the shard's inputs."""
+    return F.linear(x.to(dt), lp["weight"].to(dt))
+
+
+def _rows(parts: list, lp: dict, home: torch.device, dt: torch.dtype) -> Tensor:
+    """A row-sharded layer's output: the shards' partial products summed
+    over ``tp``, then the replicated bias once."""
+    y = psum(parts, home)
+    return y + lp["bias"].to(dt) if "bias" in lp else y
+
+
+def tp_encoder_forward(shards: TPShards, cfg: EncoderConfig, ids: Tensor, mask: Tensor,
+                       type_ids: Optional[Tensor] = None, attn_fn=None) -> Tensor:
+    """:func:`encoder_forward` over tensor-parallel shards; the embeddings
+    and norms (replicated) run on the first shard's device."""
+    dt = cfg.torch_dtype
+    devs, home, first = shards.devices, shards.devices[0], shards[0]
+    b, t = ids.shape
+    hd, tp = cfg.head_dim, shards.tp
+    per_shard = cfg.n_heads % tp == 0
+    x = _embed_input(first, cfg, ids, type_ids)
+    attn_mask = mask[:, None, None, :].bool()
+    masks = broadcast(attn_mask, devs)
+    lens = ([None] * tp if attn_fn is None else
+            broadcast(mask.int().sum(dim=1, dtype=torch.int32), devs))
+    for i in range(cfg.n_layers):
+        name = f"layers_{i}"
+        xs = broadcast(x, devs)
+        qkv = [[_columns(tree[name]["attn"][w], xs[s], s, dt) for w in ("wq", "wk", "wv")]
+               for s, tree in enumerate(shards)]
+        if per_shard:
+            outs = []
+            for s, (q, k, v) in enumerate(qkv):
+                h = q.shape[-1] // hd
+                q, k, v = (z.reshape(b, t, h, hd) for z in (q, k, v))
+                out = (attn_fn(q, k, v, lens[s]) if attn_fn is not None
+                       else L.attention(q, k, v, masks[s], dt))
+                outs.append(out.reshape(b, t, h * hd))
+        else:
+            # heads split across shards: every head's q/k/v on the first
+            # device, then each shard's columns of the output for its wo
+            q, k, v = (all_gather([p[j] for p in qkv], home).reshape(b, t, cfg.n_heads, hd)
+                       for j in range(3))
+            full = L.attention(q, k, v, attn_mask, dt).reshape(b, t, cfg.dim)
+            width = cfg.dim // tp
+            outs = [broadcast(full[..., s * width:(s + 1) * width], [d])[0]
+                    for s, d in enumerate(devs)]
+        attn_out = _rows([_partial(tree[name]["attn"]["wo"], o, dt)
+                          for o, tree in zip(outs, shards)], first[name]["attn"]["wo"], home, dt)
+        x = L.layernorm(first[name]["attn_norm"], x + attn_out)
+        xs = broadcast(x, devs)
+        hidden = [F.gelu(_columns(tree[name]["mlp"]["w_in"], xs[s], s, dt), approximate="tanh")
+                  for s, tree in enumerate(shards)]
+        mlp_out = _rows([_partial(tree[name]["mlp"]["w_out"], hh, dt)
+                         for hh, tree in zip(hidden, shards)], first[name]["mlp"]["w_out"],
+                        home, dt)
+        x = L.layernorm(first[name]["mlp_norm"], x + mlp_out)
+    return x
 
 
 def mean_pool(hidden: Tensor, mask: Tensor) -> Tensor:

@@ -15,6 +15,12 @@ and a search reads one snapshot — the corpus matrix, its valid mask and
 the document list it was built from — so it sees the index whole before a
 write or whole after it, never a matrix and a document list of different
 lengths.
+
+On a device mesh (``mesh``) the rows shard over every mesh axis, as
+JAX's ``P(axes, None)``: each coordinate holds a contiguous block of the
+padded corpus on its device and takes its local top-k, and the
+candidates, gathered on the mesh's first device, are merged by one more
+top-k into JAX's order and scores (its ``_build_topk``).
 """
 
 from __future__ import annotations
@@ -29,19 +35,27 @@ import torch
 
 from sentio_tpu_torch import resolve_device
 from sentio_tpu_torch.models.document import Document
+from sentio_tpu_torch.parallel.collectives import all_gather, broadcast
 
 
 class DenseIndexError(Exception):
     pass
 
 
+def _scores(qn, corpus, valid):
+    """[Q, N] float32 inner products, invalid rows at -inf."""
+    scores = torch.matmul(qn.to(corpus.dtype), corpus.t()).float()
+    return torch.where(valid[None, :], scores, float("-inf"))
+
+
 class TorchDenseIndex:
     """Exact top-k cosine/MIPS index. Embeddings are L2-normalized at add
     time, so inner product == cosine."""
 
-    def __init__(self, dim: int, device=None, dtype: str = "bfloat16") -> None:
+    def __init__(self, dim: int, device=None, dtype: str = "bfloat16", mesh=None) -> None:
         self.dim = dim
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.dtype = dtype
         self._embeddings = np.zeros((0, dim), np.float32)  # host master
         self._documents: list[Document] = []
@@ -138,22 +152,27 @@ class TorchDenseIndex:
         """The search snapshot ``(corpus, valid, documents, alive)``: the
         corpus uploaded (dead rows zeroed and masked) with 25% growth
         padding so appends amortize uploads, the document list its rows
-        index, and its count of live rows."""
+        index, and its count of live rows. On a mesh, corpus and valid are
+        lists of each coordinate's row block, on its device."""
         with self._lock:
             if self._device_state is None:
+                shards = self.mesh.size if self.mesh is not None else 1
                 n = len(self._documents)
-                n_pad = max(1, int(np.ceil(n * 1.25)))
+                n_pad = max(shards, int(np.ceil(n * 1.25 / shards)) * shards)
                 corpus = np.zeros((n_pad, self.dim), np.float32)
                 if n:
                     corpus[:n] = self._embeddings * self._alive[:, None]
                 valid = np.zeros(n_pad, bool)
                 valid[:n] = self._alive
-                self._device_state = (
-                    torch.as_tensor(corpus, device=self.device).to(getattr(torch, self.dtype)),
-                    torch.as_tensor(valid, device=self.device),
-                    list(self._documents),
-                    int(self._alive.sum()),
-                )
+                dt = getattr(torch, self.dtype)
+                devices = [self.device] if self.mesh is None else list(self.mesh.devices.flat)
+                blocks = [(torch.as_tensor(c, device=d).to(dt), torch.as_tensor(v, device=d))
+                          for c, v, d in zip(np.split(corpus, shards), np.split(valid, shards),
+                                             devices)]
+                corpus_t, valid_t = ((blocks[0][0], blocks[0][1]) if self.mesh is None else
+                                     ([c for c, _ in blocks], [v for _, v in blocks]))
+                self._device_state = (corpus_t, valid_t, list(self._documents),
+                                      int(self._alive.sum()))
             return self._device_state
 
     def search_batch(self, queries, top_k: int = 10) -> list[list[tuple[Document, float]]]:
@@ -167,9 +186,10 @@ class TorchDenseIndex:
             return [[] for _ in range(q.shape[0])]
         qn = q / q.norm(dim=1, keepdim=True).clamp_min(1e-9)
         k = min(top_k, alive)
-        scores = torch.matmul(qn.to(corpus.dtype), corpus.t()).float()
-        scores = torch.where(valid[None, :], scores, float("-inf"))
-        best, rows = torch.topk(scores, k, dim=1)
+        if self.mesh is None:
+            best, rows = torch.topk(_scores(qn, corpus, valid), k, dim=1)
+        else:
+            best, rows = self._sharded_topk(qn, corpus, valid, k)
         best, rows = best.cpu().numpy(), rows.cpu().numpy()
         out: list[list[tuple[Document, float]]] = []
         for qi in range(q.shape[0]):
@@ -180,6 +200,22 @@ class TorchDenseIndex:
                 hits.append((documents[int(r)], float(s)))
             out.append(hits)
         return out
+
+    def _sharded_topk(self, qn, corpus: list, valid: list, k: int):
+        """Each row block's local top-k, its rows made global, the
+        candidates gathered in block order and merged by a last top-k."""
+        n_local = corpus[0].shape[0]
+        k_local = min(max(k, 1), n_local)
+        k_out = min(k, len(corpus) * k_local)
+        cand_s, cand_i = [], []
+        for i, (c, v, q) in enumerate(zip(corpus, valid, broadcast(qn, [c.device for c in
+                                                                           corpus]))):
+            s, r = torch.topk(_scores(q, c, v), k_local, dim=1)
+            cand_s.append(s)
+            cand_i.append(r + i * n_local)
+        cat_s, cat_i = all_gather(cand_s, self.device, 1), all_gather(cand_i, self.device, 1)
+        best, pos = torch.topk(cat_s, k_out, dim=1)
+        return best, torch.gather(cat_i, 1, pos)
 
     def search(self, query, top_k: int = 10) -> list[tuple[Document, float]]:
         return self.search_batch(query[None, :], top_k)[0]
@@ -206,10 +242,10 @@ class TorchDenseIndex:
         path.with_suffix(".json").write_text(json.dumps({"dim": self.dim, "documents": docs}))
 
     @classmethod
-    def load(cls, path, device=None, dtype: str = "bfloat16") -> "TorchDenseIndex":
+    def load(cls, path, device=None, dtype: str = "bfloat16", mesh=None) -> "TorchDenseIndex":
         path = Path(path)
         meta = json.loads(path.with_suffix(".json").read_text())
-        index = cls(dim=int(meta["dim"]), device=device, dtype=dtype)
+        index = cls(dim=int(meta["dim"]), device=device, dtype=dtype, mesh=mesh)
         embeddings = np.load(path.with_suffix(".npz"))["embeddings"]
         docs = [Document.from_dict(d) for d in meta["documents"]]
         if docs:

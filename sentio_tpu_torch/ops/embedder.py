@@ -33,7 +33,8 @@ import torch
 
 from sentio_tpu_torch import resolve_device
 from sentio_tpu_torch.config import EmbedderConfig
-from sentio_tpu_torch.kernels import encoder_attn_fn
+from sentio_tpu_torch.kernels import select_encoder_attn_fn
+from sentio_tpu_torch.parallel.sharding import ENCODER_TP_RULES, shard_params
 from sentio_tpu_torch.models.tokenizer import ByteTokenizer, batch_encode
 from sentio_tpu_torch.models.transformer import (
     EncoderConfig,
@@ -200,9 +201,9 @@ class TorchEmbedder(BaseEmbedder):
     def __init__(self, config: Optional[EmbedderConfig] = None, params: Optional[dict] = None,
                  model_config: Optional[EncoderConfig] = None,
                  device=None, generator: Optional[torch.Generator] = None,
-                 tokenizer=None) -> None:
+                 tokenizer=None, mesh=None) -> None:
         super().__init__(config)
-        self.device = resolve_device(device)
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         if params is None and self.config.checkpoint_path:
             # real weights: an encoder checkpoint and its own tokenizer
             params, model_config = load_encoder(self.config.checkpoint_path,
@@ -217,7 +218,14 @@ class TorchEmbedder(BaseEmbedder):
                 generator = torch.Generator(device=self.device)
                 generator.manual_seed(0)
             params = init_encoder(self.model_config, generator, self.device)
+        # on a mesh: ENCODER_TP_RULES, computed on the first data
+        # coordinate's tp shards (JAX replicates the encoder over dp)
+        self.mesh = mesh
+        if mesh is not None:
+            shards = shard_params(params, mesh, ENCODER_TP_RULES).tp(0)
+            params = shards if shards.tp > 1 else shards[0]
         self.params = params
+        self.attn_fn = select_encoder_attn_fn(mesh, self.model_config.n_heads)
         # built eagerly; the dispatcher thread starts on the first submit
         self._query_batcher: Optional[ThreadBatcher] = None
         if self.config.coalesce:
@@ -298,7 +306,7 @@ class TorchEmbedder(BaseEmbedder):
             self.forwards += 1
         with torch.inference_mode():
             hidden = encoder_forward(self.params, self.model_config, ids_t, mask_t,
-                                     attn_fn=encoder_attn_fn)
+                                     attn_fn=self.attn_fn)
             return mean_pool(hidden, mask_t)[:n]
 
 

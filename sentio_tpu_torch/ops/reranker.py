@@ -25,7 +25,8 @@ import torch
 
 from sentio_tpu_torch import resolve_device
 from sentio_tpu_torch.config import RerankConfig
-from sentio_tpu_torch.kernels import encoder_attn_fn
+from sentio_tpu_torch.kernels import select_encoder_attn_fn
+from sentio_tpu_torch.parallel.sharding import ENCODER_TP_RULES, shard_params
 from sentio_tpu_torch.models.cross_encoder import cross_encoder_scores, init_cross_encoder
 from sentio_tpu_torch.models.document import Document
 from sentio_tpu_torch.models.tokenizer import ByteTokenizer, batch_encode_pairs
@@ -113,9 +114,9 @@ class CrossEncoderReranker(Reranker):
     def __init__(self, config: Optional[RerankConfig] = None, params: Optional[dict] = None,
                  model_config: Optional[EncoderConfig] = None,
                  device=None, generator: Optional[torch.Generator] = None,
-                 tokenizer=None) -> None:
+                 tokenizer=None, mesh=None) -> None:
         self.config = config or RerankConfig()
-        self.device = resolve_device(device)
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         if params is None and self.config.checkpoint_path:
             params, model_config = load_model(
                 self.config.checkpoint_path, expect_family="cross-encoder",
@@ -130,7 +131,14 @@ class CrossEncoderReranker(Reranker):
                 generator = torch.Generator(device=self.device)
                 generator.manual_seed(7)
             params = init_cross_encoder(self.model_config, generator, self.device)
+        # on a mesh: ENCODER_TP_RULES, computed on the first data
+        # coordinate's tp shards (JAX replicates the encoder over dp)
+        self.mesh = mesh
+        if mesh is not None:
+            shards = shard_params(params, mesh, ENCODER_TP_RULES).tp(0)
+            params = shards if shards.tp > 1 else shards[0]
         self.params = params
+        self.attn_fn = select_encoder_attn_fn(mesh, self.model_config.n_heads)
         # encoder forwards (each one flash launch a layer on the card)
         self.forwards = 0
         self._forwards_lock = threading.Lock()
@@ -157,7 +165,7 @@ class CrossEncoderReranker(Reranker):
                     torch.as_tensor(ids, device=self.device),
                     torch.as_tensor(mask, device=self.device),
                     torch.as_tensor(types, device=self.device),
-                    attn_fn=encoder_attn_fn,
+                    attn_fn=self.attn_fn,
                 )
             scores[start : start + len(chunk)] = out.cpu().numpy()[: len(chunk)]
         return scores

@@ -332,14 +332,16 @@ class QdrantVectorStore:
 
 
 def get_vector_store(name: str, dim: int, device=None, settings: Any = None,
-                     **kwargs: Any) -> Any:
-    """The registry: ``tpu`` (the exact index on ``device``, the default) or
-    ``qdrant`` (the REST store, its URL, collection and key from
-    ``settings.retrieval`` unless given)."""
+                     mesh=None, **kwargs: Any) -> Any:
+    """The registry: ``tpu`` (the exact index on ``device``, the default,
+    its rows sharded over ``mesh`` when one is given) or ``qdrant`` (the
+    REST store, its URL, collection and key from ``settings.retrieval``
+    unless given; a mesh means nothing to it)."""
     if name == "tpu":
         from sentio_tpu_torch.ops.dense_index import TorchDenseIndex
 
-        return TorchDenseIndex(dim=dim, device=device, dtype=kwargs.pop("dtype", "bfloat16"))
+        return TorchDenseIndex(dim=dim, device=device, dtype=kwargs.pop("dtype", "bfloat16"),
+                               mesh=mesh)
     if name == "qdrant":
         r = settings.retrieval if settings is not None else None
         url = kwargs.pop("url", "") or (r.qdrant_url if r else "") or "http://localhost:6333"

@@ -42,7 +42,10 @@ generation speculative as in the JAX container: the paged engine runs
 every decode tick as a spec tick (``runtime/paged_spec.py``) unless
 ``PREFILL_CHUNK`` is set, which excludes it (a warning, and
 ``speculative_info`` says why); the contiguous engine is wrapped in a
-``SpeculativeDecoder`` (``runtime/speculative.py``).
+``SpeculativeDecoder`` (``runtime/speculative.py``). ``MESH_DP``,
+``MESH_TP`` and ``MESH_DCN`` (or a caller's ``mesh``) put the models on a
+device mesh (``parallel/``), as JAX's container does; :func:`build_pipeline`
+gives its rules.
 
 * :meth:`ChatPipeline.ingest` embeds pre-chunked documents, adds them to
   the index and rebuilds the BM25 index over the index's documents, under
@@ -98,7 +101,15 @@ from sentio_tpu_torch.ops.scorers import default_scorer_stack
 from sentio_tpu_torch.ops.vector_store import get_vector_store
 from sentio_tpu_torch.ops.verifier import AnswerVerifier
 from sentio_tpu_torch.runtime.engine import GeneratorEngine
-from sentio_tpu_torch.runtime.paged import ContinuousBatchingEngine
+from sentio_tpu_torch.parallel.mesh import (
+    Mesh,
+    MeshError,
+    build_mesh,
+    check_mesh_axes,
+    visible_devices,
+)
+from sentio_tpu_torch.parallel.sharding import LLAMA_TP_RULES, shard_params
+from sentio_tpu_torch.runtime.paged import ContinuousBatchingEngine, check_mesh_model
 from sentio_tpu_torch.runtime.replica import ReplicaSet
 from sentio_tpu_torch.runtime.service import PagedGenerationService
 from sentio_tpu_torch.runtime.speculative import SpeculativeDecoder
@@ -207,6 +218,21 @@ def check_replica_settings(serve) -> None:
                        "thread mode", serve.replica_mode)
 
 
+def serving_mesh(cfg, device) -> Optional[Mesh]:
+    """The mesh the ``MESH_*`` settings ask for, by JAX's container rule:
+    none at the defaults on a host of one device, else
+    :func:`~.parallel.mesh.build_mesh` over the host's devices (every card,
+    or the host itself for a CPU pipeline or ``MESH_BACKEND=cpu``), whose
+    ``MeshError`` a size the host cannot hold raises. ``MESH_SP``,
+    ``MESH_PP`` and ``MESH_EP`` above 1 raise ``NotImplementedError``
+    first (ROADMAP 10b)."""
+    check_mesh_axes(cfg.sp_size, cfg.pp_size, cfg.ep_size)
+    devices = visible_devices(cfg.backend or ("cpu" if device.type == "cpu" else ""))
+    if cfg.dp_size == 0 and cfg.tp_size <= 1 and cfg.sp_size <= 1 and len(devices) <= 1:
+        return None  # one device: no mesh machinery
+    return build_mesh(cfg, devices)
+
+
 def replica_mode(serve) -> str:
     """The mode ``build_pipeline`` runs: the setting, or thread mode for an
     unknown value."""
@@ -265,6 +291,8 @@ class ChatPipeline:
     replica_mode: str = "thread"
     # the cached-web-results index (WEB_CACHE_PATH), if one was loaded
     web_cache_index: Optional[TorchDenseIndex] = None
+    # the device mesh the models are sharded over (MESH_*), or None
+    mesh: Optional[Mesh] = None
 
     def ingest(self, documents: Sequence[Document]) -> int:
         """Embed ``documents`` (already chunks), add them to the index and
@@ -612,7 +640,7 @@ class ChatPipeline:
 
 
 def make_embedder(settings: Settings, device, seed: int = 0, params: Optional[dict] = None,
-                  model_config: Optional[EncoderConfig] = None):
+                  model_config: Optional[EncoderConfig] = None, mesh: Optional[Mesh] = None):
     """The embedder ``build_pipeline`` makes for ``seed``: under
     ``EMBEDDER_PROVIDER=tpu`` the checkpoint's weights, or random ones
     drawn from ``seed + 1`` on ``device`` — so an index that ``ingest``
@@ -624,7 +652,7 @@ def make_embedder(settings: Settings, device, seed: int = 0, params: Optional[di
     g = torch.Generator(device=dev)
     g.manual_seed(seed + 1)
     return TorchEmbedder(settings.embedder, params=params, model_config=model_config,
-                         device=dev, generator=g)
+                         device=dev, generator=g, mesh=mesh)
 
 
 def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int = 0,
@@ -635,7 +663,8 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
                    embedder_params: Optional[dict] = None,
                    reranker_params: Optional[dict] = None,
                    draft_params: Optional[dict] = None,
-                   draft_config: Optional[LlamaConfig] = None) -> ChatPipeline:
+                   draft_config: Optional[LlamaConfig] = None,
+                   mesh: Optional[Mesh] = None) -> ChatPipeline:
     """Assemble the pipeline from ``settings`` on ``device`` (the card by
     default). Weights not passed in come from the configured checkpoints or
     are random, made on the device from ``seed``; the generator is of
@@ -666,27 +695,48 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
     ``EMBEDDER_PROVIDER`` and ``RERANKER_KIND`` pick the components as
     JAX's container does: a provider other than ``tpu`` is served with no
     engine, draft or tier. ``LLM_TOKENIZER`` beside ``LLM_CHECKPOINT`` is
-    the engines' and the router's tokenizer (and each worker's). A mesh,
-    which this package cannot honour, raises ``NotImplementedError``."""
+    the engines' and the router's tokenizer (and each worker's).
+
+    The device mesh comes from ``MESH_DP``, ``MESH_TP`` and ``MESH_DCN``
+    (:func:`serving_mesh`, JAX's container rule), or from the caller's
+    ``mesh`` (JAX's ``container.override("mesh", ...)``; a mesh may repeat
+    a device). On a mesh, as JAX's container builds it: the embedder and
+    the cross-encoder shard by ``ENCODER_TP_RULES``, the dense index (and
+    the web-cache index) by rows over every axis, the generator by
+    ``LLAMA_TP_RULES``; ``REPLICAS`` map onto :func:`split_mesh_dp`'s dp
+    slices, or share the whole mesh with a warning when they do not
+    divide; ``REPLICA_MODE=process|socket`` falls to thread mode and a
+    draft is ignored, each with JAX's warning (``speculative_info`` gives
+    the reason). ``MESH_SP``, ``MESH_PP`` and ``MESH_EP`` above 1, and the
+    ``moe`` family at ``tp`` > 1, raise ``NotImplementedError`` (ROADMAP
+    10b)."""
     settings = settings or Settings()
     rcfg, gcfg = settings.retrieval, settings.generator
-    mesh = settings.mesh
-    if max(mesh.dp_size, mesh.tp_size, mesh.sp_size) > 1:
-        raise NotImplementedError(f"MESH_DP={mesh.dp_size} MESH_TP={mesh.tp_size} "
-                                  f"MESH_SP={mesh.sp_size}: device meshes are not ported "
-                                  "(one card; ROADMAP item 10)")
     check_verify_mode(gcfg.verify_mode)
     check_replica_settings(settings.serve)
+    if mesh is None:
+        mesh = serving_mesh(settings.mesh, resolve_device(device))
+    else:
+        check_mesh_axes(mesh.shape["sp"], mesh.shape["pp"], mesh.shape["ep"])
     # LLM_PROVIDER other than tpu (JAX's create_generator): a remote or
     # fake provider, and no engine, draft, service or replica set — nothing
     # of the generator touches the card
     remote = provider_for(gcfg) if gcfg.provider != "tpu" else None
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     if draft_params is not None and draft_config is None:
         raise ValueError("draft_params requires draft_config")
     spec_info = {"draft_configured": bool(gcfg.draft_checkpoint_path
                                           or draft_params is not None)}
-    if remote is None and spec_info["draft_configured"] and gcfg.use_paged_decode \
+    if remote is None and spec_info["draft_configured"] and mesh is not None:
+        # JAX's container: neither engine speculates on a mesh
+        logger.warning("LLM_DRAFT_CHECKPOINT ignored: %s speculation does not support a "
+                       "device mesh yet (MESH_* > 1 configured); /info reports this under "
+                       "generator.speculative",
+                       "paged" if gcfg.use_paged_decode else "contiguous")
+        spec_info["ignored_reason"] = (
+            f"device mesh configured ({'paged' if gcfg.use_paged_decode else 'contiguous'} "
+            "speculation is single-chip)")
+    elif remote is None and spec_info["draft_configured"] and gcfg.use_paged_decode \
             and gcfg.prefill_chunk:
         logger.warning("LLM_DRAFT_CHECKPOINT ignored: PREFILL_CHUNK is set and paged "
                        "speculation requires whole-prompt admission (the draft prefills "
@@ -717,13 +767,13 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
     if settings.rerank.enabled:
         reranker = get_reranker(settings.rerank.kind, config=settings.rerank,
                                 params=reranker_params, model_config=reranker_config,
-                                device=dev, generator=gen(2))
+                                device=dev, generator=gen(2), mesh=mesh)
     embedder = make_embedder(settings, dev, seed, params=embedder_params,
-                             model_config=embedder_config)
+                             model_config=embedder_config, mesh=mesh)
     # the registry, as JAX's container builds its store; the card's corpus
     # is held in the generator dtype
     index = get_vector_store(rcfg.index_backend, embedder.dimension, device=dev,
-                             settings=settings, dtype=gcfg.dtype)
+                             settings=settings, dtype=gcfg.dtype, mesh=mesh)
     bm25 = None
     if rcfg.strategy in ("bm25", "sparse", "hybrid"):
         bm25 = make_bm25_index(BM25Params(k1=rcfg.bm25_k1, b=rcfg.bm25_b),
@@ -734,7 +784,8 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
     web_cache = None
     if rcfg.web_cache_path and Path(rcfg.web_cache_path).with_suffix(".json").exists():
         logger.info("loading web-cache index from %s", rcfg.web_cache_path)
-        web_cache = TorchDenseIndex.load(rcfg.web_cache_path, device=dev, dtype=gcfg.dtype)
+        web_cache = TorchDenseIndex.load(rcfg.web_cache_path, device=dev, dtype=gcfg.dtype,
+                                         mesh=mesh)
     scorers = default_scorer_stack(embedder, settings) if rcfg.use_scorers else None
     retriever = create_retriever(settings, embedder, index, bm25, scorers=scorers,
                                  web_cache_index=web_cache)
@@ -749,6 +800,11 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
             LlamaConfig.tiny() if gcfg.model_preset == "tiny" else LlamaConfig.llama3_8b())
         if llama_params is None:
             llama_params = init_decoder(llama_config, gen(3), dev)
+        if mesh is not None:
+            check_mesh_model(llama_config, mesh)
+            # the weights on every coordinate once; each engine takes its
+            # slice's shards
+            llama_params = shard_params(llama_params, mesh, LLAMA_TP_RULES)
     if remote is not None:
         provider = remote
     elif gcfg.use_paged_decode:
@@ -780,13 +836,20 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
                                   if serve.stream_resume_budget >= 0 else None),
             rebuild_workers=serve.replica_rebuild_workers)
         mode = replica_mode(serve)
+        if mode != "thread" and mesh is not None:
+            logger.warning("REPLICA_MODE=%s ignored: a device mesh is configured (MESH_* > 1) "
+                           "and mesh-sliced worker replicas are not wired yet; using thread "
+                           "mode", mode)
+            mode = "thread"
         if mode == "thread":
             services = []
-            for i in range(max(serve.replicas, 1)):
+            n_replicas = max(serve.replicas, 1)
+            slices = replica_slices(mesh, llama_params, n_replicas)
+            for i in range(n_replicas):
                 engine = ContinuousBatchingEngine(
-                    model_config=llama_config, params=llama_params, rng_seed=seed, device=dev,
+                    model_config=llama_config, params=slices[i][1], rng_seed=seed, device=dev,
                     draft_params=draft_params, draft_config=draft_config,
-                    tokenizer=tokenizer, **engine_settings(gcfg))
+                    tokenizer=tokenizer, mesh=slices[i][0], **engine_settings(gcfg))
                 if warm_head:
                     engine.warm_prefix(warm_head)
                 services.append(PagedGenerationService(engine, replica_id=i,
@@ -802,11 +865,11 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
         # per call (no memory until a chat falls back to it)
         contiguous = GeneratorEngine(config=gcfg, model_config=llama_config,
                                      params=llama_params, rng_seed=seed, device=dev,
-                                     tokenizer=tokenizer)
+                                     tokenizer=tokenizer, mesh=mesh)
         provider = EngineProvider(contiguous=contiguous, service=replicas)
     else:
         engine = GeneratorEngine(config=gcfg, model_config=llama_config, params=llama_params,
-                                 rng_seed=seed, device=dev, tokenizer=tokenizer)
+                                 rng_seed=seed, device=dev, tokenizer=tokenizer, mesh=mesh)
         speculative = None
         if draft_params is not None:
             speculative = SpeculativeDecoder(engine, draft_params, draft_config,
@@ -820,7 +883,26 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
                         generator=generator, bm25_index=bm25, reranker=reranker,
                         verifier=verifier, settings=settings, warm_head=warm_head,
                         speculative_info=spec_info, ingestor=ingestor,
-                        replica_mode=replica_mode(settings.serve), web_cache_index=web_cache)
+                        replica_mode="thread" if mesh is not None else replica_mode(settings.serve),
+                        web_cache_index=web_cache, mesh=mesh)
+
+
+def replica_slices(mesh: Optional[Mesh], params, n: int) -> list:
+    """``(mesh, params)`` of each of ``n`` replicas: off a mesh the shared
+    weights; on one, :func:`split_mesh_dp`'s dp slices with their shards
+    when they divide, else the whole mesh for every replica (their work
+    serializes on the devices), with JAX's warning."""
+    if mesh is None:
+        return [(None, params)] * n
+    if n > 1:
+        try:
+            parts = params.split(n)
+            logger.info("replicas mapped onto %d dp-axis mesh slices", n)
+            return [(part.mesh, part) for part in parts]
+        except MeshError as exc:
+            logger.warning("REPLICAS=%d cannot slice the dp axis (%s); replicas will share "
+                           "the whole mesh", n, exc)
+    return [(mesh, params)] * n
 
 
 def engine_settings(gcfg) -> dict:

@@ -24,8 +24,18 @@ The model family follows the config (a :class:`~..models.moe.MoeConfig`
 serves the routed decoder) or the checkpoint's meta, through JAX's
 ``forward_fn`` seam; ``pad_mask`` keeps padding, junk bucket rows and rows
 already done out of routed-expert capacity, as in JAX. Sampling draws from
-the engine's own ``torch.Generator``. Device meshes are not ported: they
-raise.
+the engine's own ``torch.Generator``.
+
+On a device mesh (``mesh``) the weights shard by ``LLAMA_TP_RULES`` (or
+come sharded) and the cache is laid out as JAX's ``P(None, dp,
+None, tp, None)``: a call's rows split over the data coordinates when
+they divide (each group on its own devices), else every row runs on the
+first, as JAX's ``make_mesh_attn_fn`` replicates an indivisible batch
+(JAX's ``device_put`` of such a cache raises); within a group the kv heads
+shard over ``tp`` and each shard's prefill launches the causal flash
+kernel on its heads when the heads divide over ``tp`` (an explicit test
+where JAX catches the kernel's ``ValueError``), plain attention
+otherwise. ``device_stats`` reports the mesh's shape.
 """
 
 from __future__ import annotations
@@ -40,10 +50,18 @@ import torch
 from sentio_tpu_torch import resolve_device
 from sentio_tpu_torch.config import GeneratorConfig
 from sentio_tpu_torch.kernels import default_attn_fn
-from sentio_tpu_torch.models.llama import LlamaConfig, init_cache
+from sentio_tpu_torch.models.llama import LlamaConfig, init_cache, init_tp_cache
 from sentio_tpu_torch.models.moe import decoder_forward, init_decoder
+from sentio_tpu_torch.parallel.mesh import AXIS_TP
+from sentio_tpu_torch.parallel.sharding import (
+    LLAMA_TP_RULES,
+    ShardedParams,
+    TPShards,
+    shard_params,
+)
 from sentio_tpu_torch.models.tokenizer import ByteTokenizer, batch_encode
 from sentio_tpu_torch.parallel.batcher import bucket_size, floor_bucket
+from sentio_tpu_torch.runtime.paged import check_mesh_model
 from sentio_tpu_torch.runtime.sampling import sample_tokens
 from sentio_tpu_torch.runtime.weights import load_generator
 
@@ -75,10 +93,9 @@ class GeneratorEngine:
                  model_config: Optional[LlamaConfig] = None, params: Optional[dict] = None,
                  mesh=None, rng_seed: int = 0, forward_fn=None, device=None,
                  tokenizer=None) -> None:
-        if mesh is not None:
-            raise NotImplementedError("GeneratorEngine: device meshes are not ported")
         self.config = config or GeneratorConfig()
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         explicit = params is not None
         if params is None and self.config.checkpoint_path:
             # the family rides the checkpoint's meta (llama or moe)
@@ -95,12 +112,18 @@ class GeneratorEngine:
             init_gen = torch.Generator(device=self.device)
             init_gen.manual_seed(rng_seed)
             params = init_decoder(self.model_config, init_gen, self.device)
-        self.params = params
-        self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(rng_seed + 17)
         # prefill attention: flash on the card, plain on the CPU; None runs
         # the plain path anywhere
         self.attn_fn = default_attn_fn(self.device)
+        if mesh is not None:
+            check_mesh_model(self.model_config, mesh)
+            if not isinstance(params, ShardedParams):
+                params = shard_params(params, mesh, LLAMA_TP_RULES)
+            if self.model_config.n_heads % mesh.shape[AXIS_TP] != 0:
+                self.attn_fn = None  # heads that split within a shard: plain attention
+        self.params = params
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(rng_seed + 17)
         # prefill dispatches and decode steps run, for launch-count checks
         self.prefills = 0
         self.decode_steps = 0
@@ -126,9 +149,59 @@ class GeneratorEngine:
         pad_mask = (np.arange(width)[None, :] < lens[:, None]) & (np.arange(rows) < n)[:, None]
         window = min(cfg.max_len,
                      bucket_size(width + max_new, self.PREFILL_BUCKETS + (cfg.max_len,)))
-        cache = init_cache(cfg, rows, window, self.device)
+        cache = self._init_cache(rows, window)
         positions = np.broadcast_to(np.arange(width, dtype=np.int32)[None, :], ids.shape)
         return ids, positions.copy(), lens, cache, n, window, pad_mask
+
+    def _groups(self, rows: int) -> list:
+        """``(row slice, parameters)`` of each data group of a call's
+        ``rows``: one group off a mesh; on a mesh one a data coordinate
+        when they divide the rows, else the first coordinate's alone.
+        A group's parameters are its tp shards (a plain tree at tp 1)."""
+        if self.mesh is None:
+            return [(slice(0, rows), self.params)]
+        n = self.params.rows if rows % self.params.rows == 0 else 1
+        per = rows // n
+        out = []
+        for g in range(n):
+            shards = self.params.tp(g)
+            out.append((slice(g * per, (g + 1) * per), shards if shards.tp > 1 else shards[0]))
+        return out
+
+    @staticmethod
+    def _home(params) -> torch.device:
+        """The device a group's parameters compute on."""
+        if isinstance(params, TPShards):
+            return params.devices[0]
+        return params["embed_tokens"]["embedding"].device
+
+    def _init_cache(self, rows: int, window: int):
+        """The call's fresh cache; on a mesh one per data group, each a list
+        of the tp shards' caches (a plain cache at tp 1)."""
+        cfg = self.model_config
+        if self.mesh is None:
+            return init_cache(cfg, rows, window, self.device)
+        return [init_tp_cache(cfg, sl.stop - sl.start, window, params)
+                if isinstance(params, TPShards) else
+                init_cache(cfg, sl.stop - sl.start, window, self._home(params))
+                for sl, params in self._groups(rows)]
+
+    def _forward(self, ids: Tensor, cache, **kwargs) -> Tensor:
+        """The family's forward over every data group → logits on the
+        engine's device, rows in order. Per-row tensor arguments are cut
+        to each group's rows and moved to its devices."""
+        if self.mesh is None:
+            return self.forward_fn(self.params, self.model_config, ids, cache=cache,
+                                   **kwargs)[0]
+        parts = []
+        for (sl, params), group_cache in zip(self._groups(ids.shape[0]), cache):
+            dev = self._home(params)
+            args = {k: (v[sl].to(dev) if isinstance(v, Tensor) else v)
+                    for k, v in kwargs.items()}
+            logits, _ = self.forward_fn(params, self.model_config, ids[sl].to(dev),
+                                        cache=group_cache, **args)
+            parts.append(logits.to(self.device))
+        return torch.cat(parts)
 
     def _stable_steps(self, requested: int, headroom: int) -> int:
         """The decode length: ``requested`` rounded UP to a step bucket
@@ -147,20 +220,17 @@ class GeneratorEngine:
     def _prefill(self, ids, positions, cache, pad_mask) -> Tensor:
         """Prefill the block at cache offset 0 → logits [rows, width, V]."""
         self.prefills += 1
-        logits, _ = self.forward_fn(self.params, self.model_config, self._tensor(ids),
-                                    positions=self._tensor(positions), cache=cache,
-                                    cache_index=0, pad_mask=self._tensor(pad_mask, torch.bool),
-                                    attn_fn=self.attn_fn)
-        return logits
+        return self._forward(self._tensor(ids), cache, positions=self._tensor(positions),
+                             cache_index=0, pad_mask=self._tensor(pad_mask, torch.bool),
+                             attn_fn=self.attn_fn)
 
     def _decode_step(self, tok: Tensor, lens: Tensor, cache, temperature: float,
                      top_k: int, live: Optional[Tensor] = None) -> Tensor:
         """One token per row at position ``lens`` → the sampled next [rows].
         ``live`` [rows] (None: every row) marks the rows that route."""
         self.decode_steps += 1
-        logits, _ = self.forward_fn(self.params, self.model_config, tok[:, None],
-                                    positions=lens[:, None], cache=cache, cache_index=lens,
-                                    pad_mask=None if live is None else live[:, None])
+        logits = self._forward(tok[:, None], cache, positions=lens[:, None], cache_index=lens,
+                               pad_mask=None if live is None else live[:, None])
         return sample_tokens(logits[:, -1], self._gen, temperature, top_k=top_k)[0]
 
     def _generate_fused(self, ids, positions, lens, cache, temperature: float, steps: int,
@@ -270,7 +340,7 @@ class GeneratorEngine:
         stats = {
             "platform": "gpu" if cuda else self.device.type,
             "n_devices": torch.cuda.device_count() if cuda else 1,
-            "mesh": None,
+            "mesh": dict(self.mesh.shape) if self.mesh is not None else None,
             "model": {"layers": self.model_config.n_layers, "dim": self.model_config.dim,
                       "vocab": self.model_config.vocab_size},
         }

@@ -61,7 +61,22 @@ With a draft model (``draft_params``, ``draft_config``, ``spec_k``) every
 decode tick is a spec tick (:mod:`.paged_spec`): draft-and-verify rounds
 over the slot batch, each round one CUDA graph replay on the card, with the
 draft prefilled over every admitted prompt. The decode state, the harvest
-and retirement are the plain tick's. Device meshes are not ported.
+and retirement are the plain tick's.
+
+On a device mesh (``mesh``, :mod:`sentio_tpu_torch.parallel.mesh`) the
+engine serves tensor-parallel, as JAX's: the weights shard by
+``LLAMA_TP_RULES`` (or come sharded), the pool's kv heads shard over
+``tp`` (each shard its own contiguous pool; ``n_kv_heads % tp`` raises
+JAX's ``ValueError``), page tables stay replicated on the host, and every
+decode sub-step launches the paged kernel once per shard per layer, with
+the two Megatron sums a block and the logits gathered over ``tp``
+(:mod:`sentio_tpu_torch.parallel.collectives`). Prefill keeps its plain
+attention over the dense cache, per shard. JAX replicates the pool over
+``dp``, so the engine computes on the mesh's first data coordinate
+(``REPLICAS`` over ``dp`` slices is how data parallelism serves). While
+the mesh is one card each sampling variant is still one CUDA graph over
+every shard; on more than one card the sub-step runs eagerly. A draft or
+a MoE model on a mesh is refused.
 """
 
 from __future__ import annotations
@@ -89,7 +104,13 @@ from sentio_tpu_torch.kernels.paged_attention import (
     paged_attention_quant_plain,
 )
 from sentio_tpu_torch.models import layers as L
-from sentio_tpu_torch.models.llama import LlamaConfig, init_cache
+from sentio_tpu_torch.models.llama import (
+    LlamaConfig,
+    check_tp,
+    init_cache,
+    init_tp_cache,
+    tp_embed,
+)
 from sentio_tpu_torch.models.moe import (
     MoeConfig,
     decoder_forward,
@@ -101,6 +122,14 @@ from sentio_tpu_torch.models.moe import (
 )
 from sentio_tpu_torch.models.tokenizer import ByteTokenizer
 from sentio_tpu_torch.parallel.batcher import bucket_size
+from sentio_tpu_torch.parallel.collectives import all_gather, broadcast, psum
+from sentio_tpu_torch.parallel.mesh import AXIS_EP, AXIS_PP, AXIS_SP, AXIS_TP, check_mesh_axes
+from sentio_tpu_torch.parallel.sharding import (
+    LLAMA_TP_RULES,
+    ShardedParams,
+    TPShards,
+    shard_params,
+)
 from sentio_tpu_torch.runtime.radix import RadixPrefixCache
 from sentio_tpu_torch.runtime.sampling import sample_tokens
 
@@ -122,6 +151,20 @@ def fold_seed(generator: torch.Generator, seed: int) -> None:
     digest = hashlib.blake2b(state + int(seed).to_bytes(8, "little", signed=True),
                              digest_size=8).digest()
     generator.manual_seed(int.from_bytes(digest, "little") & 0x7FFF_FFFF_FFFF_FFFF)
+
+
+def check_mesh_model(cfg: LlamaConfig, mesh, draft_params=None) -> None:
+    """What an engine on a mesh serves: a llama model whose kv heads divide
+    over ``tp``, on dp, tp and dcn axes only, with no draft (JAX's paged
+    speculation is single-chip; sp, pp, ep and MoE on a mesh are ROADMAP
+    10b)."""
+    check_mesh_axes(mesh.shape[AXIS_SP], mesh.shape[AXIS_PP], mesh.shape[AXIS_EP])
+    if isinstance(cfg, MoeConfig) and mesh.shape[AXIS_TP] > 1:
+        raise NotImplementedError("a MoE model on a device mesh (MOE_EP_RULES, expert "
+                                  "parallelism) is not ported: ROADMAP item 10b")
+    if draft_params is not None:
+        raise ValueError("paged speculation does not support a mesh yet")
+    check_tp(cfg, mesh.shape[AXIS_TP])
 
 
 # --------------------------------------------------------------------- pool
@@ -148,9 +191,29 @@ class PagedPool:
         return sum(t.numel() * t.element_size() for t in leaves)
 
 
+@dataclass
+class ShardedPool:
+    """A mesh engine's pool: one :class:`PagedPool` a ``tp`` shard, each
+    holding ``Hkv/tp`` kv heads on its shard's device."""
+
+    shards: list
+    page_size: int
+
+    @property
+    def quantized(self) -> bool:
+        return self.shards[0].quantized
+
+    @property
+    def hbm_bytes(self) -> int:
+        return sum(p.hbm_bytes for p in self.shards)
+
+
 def init_pool(cfg: LlamaConfig, num_pages: int, page_size: int, device,
-              quantized: bool = False) -> PagedPool:
-    shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+              quantized: bool = False, tp: int = 1) -> PagedPool:
+    """The pool on ``device``; with ``tp`` one shard's: ``Hkv/tp`` kv
+    heads."""
+    check_tp(cfg, tp)
+    shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads // tp, cfg.head_dim)
 
     def pages() -> Pages:
         if quantized:
@@ -268,13 +331,18 @@ def paged_decode_forward(params: dict, cfg: LlamaConfig, tok: Tensor, lens: Tens
     through :func:`~..models.moe.moe_mlp`, adding to ``tally``), as in
     JAX. ``rope`` is the
     (cos, sin) table pair covering the window; the engine builds it once,
-    so a captured sub-step reads a static tensor."""
+    so a captured sub-step reads a static tensor.
+
+    Tensor parallel: ``params`` a :class:`TPShards` and ``k_pages`` /
+    ``v_pages`` lists of the shards' pages; each shard writes and attends
+    its own kv heads (one kernel launch a shard a layer) and the partial
+    outputs are summed over ``tp``."""
     dt = cfg.torch_dtype
-    b = tok.shape[0]
-    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    page = _page_dim(k_pages)
+    hd = cfg.head_dim
+    tp = isinstance(params, TPShards)
+    devs = params.devices if tp else [tok.device]
+    page = _page_dim(k_pages[0] if tp else k_pages)
     nb = page_table.shape[1]
-    positions = lens.long()[:, None]  # [B, 1]
     cos, sin = rope or L.rope_frequencies(hd, max(nb * page, cfg.max_len), cfg.rope_theta,
                                           tok.device)
 
@@ -284,35 +352,75 @@ def paged_decode_forward(params: dict, cfg: LlamaConfig, tok: Tensor, lens: Tens
     if write_mask is not None:
         page_ids = torch.where(write_mask, page_ids, 0)
         offsets = torch.where(write_mask, offsets, 0)
+    # what each shard's attention reads, on its device
+    views = [dict(zip(("positions", "page_ids", "offsets", "table", "lens"), vals))
+             for vals in zip(*(broadcast(t, devs) for t in
+                               (lens.long()[:, None], page_ids, offsets, page_table, lens)))]
+    ropes = [(cos, sin) if d == tok.device else
+             L.rope_frequencies(hd, cos.shape[0], cfg.rope_theta, d) for d in devs]
 
     impl = attn_impl or _paged_attn_xla
-    x = L.embed(params["embed_tokens"], tok[:, None], dt)  # [B, 1, dim]
+    if tp:
+        x = tp_embed(params, tok[:, None], dt)
+        norms = params[0]
+    else:
+        x = L.embed(params["embed_tokens"], tok[:, None], dt)  # [B, 1, dim]
+        norms = params
+    shards = params if tp else [params]
+    k_list = k_pages if tp else [k_pages]
+    v_list = v_pages if tp else [v_pages]
     for i in range(cfg.n_layers):
-        lp = params[f"layers_{i}"]
-        xn = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
-        q = L.dense(lp["attn"]["wq"], xn, dt).reshape(b, 1, h, hd)
-        k = L.dense(lp["attn"]["wk"], xn, dt).reshape(b, 1, hkv, hd)
-        v = L.dense(lp["attn"]["wv"], xn, dt).reshape(b, 1, hkv, hd)
-        q = L.apply_rope(q, positions, cos, sin)
-        k = L.apply_rope(k, positions, cos, sin)
-        _page_write(k_pages, i, page_ids, offsets, k[:, 0].to(dt))
-        _page_write(v_pages, i, page_ids, offsets, v[:, 0].to(dt))
-
-        out = impl(q, _layer_pages(k_pages, i), _layer_pages(v_pages, i), page_table, lens,
-                   h // hkv)
-        x = x + L.dense(lp["attn"]["wo"], out.reshape(b, 1, cfg.dim), dt)
+        name = f"layers_{i}"
+        lp = norms[name]
+        xn = broadcast(L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps), devs)
+        parts = [_decode_attn(tree[name]["attn"], cfg, xn[s], i, k_list[s], v_list[s],
+                              views[s], ropes[s], impl)
+                 for s, tree in enumerate(shards)]
+        x = x + (psum(parts, devs[0]) if tp else parts[0])
         xm = L.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
         if "moe" in lp:
             routed, _ = moe_mlp(lp["moe"], cfg, xm,
                                 None if write_mask is None else write_mask[:, None], tally)
             x = x + routed
+        elif tp:
+            xm = broadcast(xm, devs)
+            x = x + psum([_decode_mlp(tree[name]["mlp"], xm[s], dt)
+                          for s, tree in enumerate(shards)], devs[0])
         else:
-            gate = torch.nn.functional.silu(L.dense(lp["mlp"]["w_gate"], xm, dt))
-            x = x + L.dense(lp["mlp"]["w_down"], gate * L.dense(lp["mlp"]["w_up"], xm, dt),
-                            dt)
+            x = x + _decode_mlp(lp["mlp"], xm, dt)
 
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    x = L.rmsnorm(norms["final_norm"], x, cfg.norm_eps)
+    if tp:
+        x = broadcast(x, devs)
+        logits = [L.dense(tree["lm_head"], x[s], dt) for s, tree in enumerate(shards)]
+        return all_gather(logits, devs[0])[:, 0].float()
     return L.dense(params["lm_head"], x, dt)[:, 0].float()
+
+
+def _decode_attn(lp: dict, cfg: LlamaConfig, xn: Tensor, layer: int, k_pages: Pages,
+                 v_pages: Pages, view: dict, rope: tuple[Tensor, Tensor], impl) -> Tensor:
+    """One layer's decode attention over one pool (a shard's under tp):
+    this step's k/v written into each row's page, the paged attention, and
+    ``wo`` over the heads held (a partial sum under tp)."""
+    dt = cfg.torch_dtype
+    b, hd = xn.shape[0], cfg.head_dim
+    h, hkv = lp["wq"]["weight"].shape[0] // hd, lp["wk"]["weight"].shape[0] // hd
+    cos, sin = rope
+    q = L.dense(lp["wq"], xn, dt).reshape(b, 1, h, hd)
+    k = L.dense(lp["wk"], xn, dt).reshape(b, 1, hkv, hd)
+    v = L.dense(lp["wv"], xn, dt).reshape(b, 1, hkv, hd)
+    q = L.apply_rope(q, view["positions"], cos, sin)
+    k = L.apply_rope(k, view["positions"], cos, sin)
+    _page_write(k_pages, layer, view["page_ids"], view["offsets"], k[:, 0].to(dt))
+    _page_write(v_pages, layer, view["page_ids"], view["offsets"], v[:, 0].to(dt))
+    out = impl(q, _layer_pages(k_pages, layer), _layer_pages(v_pages, layer), view["table"],
+               view["lens"], h // hkv)
+    return L.dense(lp["wo"], out.reshape(b, 1, h * hd), dt)
+
+
+def _decode_mlp(lp: dict, xm: Tensor, dt: torch.dtype) -> Tensor:
+    gate = torch.nn.functional.silu(L.dense(lp["w_gate"], xm, dt))
+    return L.dense(lp["w_down"], gate * L.dense(lp["w_up"], xm, dt), dt)
 
 
 def scatter_prefill(k_pages: Pages, v_pages: Pages, k_cache: Tensor,
@@ -522,7 +630,11 @@ class ContinuousBatchingEngine:
         forward_fn=None,
         device=None,
         tokenizer=None,
+        mesh=None,
     ) -> None:
+        if mesh is not None:
+            check_mesh_model(model_config or LlamaConfig.tiny(), mesh, draft_params)
+            device = mesh.device
         if kv_quant not in ("none", "int8"):
             raise ValueError(f"kv_quant must be 'none' or 'int8', got {kv_quant!r}")
         if prefill_chunk is not None:
@@ -576,7 +688,19 @@ class ContinuousBatchingEngine:
         with self.on_stream():
             self.route_tally = route_tally(self.cfg, self.device)
         self._forward = tallied(self.forward_fn, self.route_tally)
+        # on a mesh: the weights on every coordinate, and the first data
+        # coordinate's tp shards, which this engine computes on
+        self.mesh = mesh
+        self.sharded = None
+        if mesh is not None:
+            with self.on_stream():
+                self.sharded = (params if isinstance(params, ShardedParams)
+                                else shard_params(params, mesh, LLAMA_TP_RULES))
+            shards = self.sharded.tp(0)
+            # at tp 1 the one shard is a plain tree: today's code path
+            params = shards if shards.tp > 1 else shards[0]
         self.params = params
+        self.tp = params.tp if isinstance(params, TPShards) else 1
         self.max_slots = max_slots
         self.page_size = page_size
         self.max_pages_per_seq = max_pages_per_seq
@@ -592,13 +716,20 @@ class ContinuousBatchingEngine:
             num_pages = 1 + max_slots * max_pages_per_seq
         self.kv_quant = kv_quant
         with self.on_stream():
-            self.pool = init_pool(self.cfg, num_pages, page_size, self.device,
-                                  quantized=kv_quant == "int8")
+            if self.tp == 1:
+                self.pool = init_pool(self.cfg, num_pages, page_size, self.device,
+                                      quantized=kv_quant == "int8")
+            else:
+                self.pool = ShardedPool(
+                    [init_pool(self.cfg, num_pages, page_size, d, quantized=kv_quant == "int8",
+                               tp=params.tp) for d in params.devices], page_size)
         self.allocator = PageAllocator(num_pages)
         self._prefix_cache_enabled = bool(prefix_cache)
         self._radix = RadixPrefixCache(page_size, self.allocator) if prefix_cache else None
         self.attn_impl = paged_attn_impl
-        self.cuda_graphs = self.device.type == "cuda"
+        # a CUDA graph a sub-step, on one card (a mesh of distinct cards
+        # runs the sub-step eagerly)
+        self.cuda_graphs = self.device.type == "cuda" and (mesh is None or mesh.one_card)
 
         self.slots = [_Slot() for _ in range(max_slots)]
         self._queue: list[_Request] = []
@@ -778,9 +909,10 @@ class ContinuousBatchingEngine:
         # latches a service broken and quarantines its replica)
         faults.hit("engine.reset")
         with self.on_stream():
-            for pages in (self.pool.k, self.pool.v):
-                for t in (pages if isinstance(pages, QuantPages) else (pages,)):
-                    t.zero_()
+            for pool in self._pools():
+                for pages in (pool.k, pool.v):
+                    for t in (pages if isinstance(pages, QuantPages) else (pages,)):
+                        t.zero_()
         self.allocator = PageAllocator(self.allocator.num_pages)
         self.slots = [_Slot() for _ in range(self.max_slots)]
         self._queue.clear()
@@ -805,14 +937,14 @@ class ContinuousBatchingEngine:
         """A new engine sharing only this one's weights and settings: its
         own pool, allocator, radix tree, slots and graphs."""
         return ContinuousBatchingEngine(
-            model_config=self.cfg, params=self.params, max_slots=self.max_slots,
+            model_config=self.cfg, params=self.sharded or self.params, max_slots=self.max_slots,
             page_size=self.page_size, num_pages=self.allocator.num_pages,
             max_pages_per_seq=self.max_pages_per_seq, steps_per_tick=self.steps_per_tick,
             max_tick_steps=self.max_tick_steps, ignore_eos=self.ignore_eos,
             pipeline_depth=self.pipeline_depth, kv_quant=self.kv_quant,
             prefill_chunk=self.prefill_chunk, prefix_cache=self._prefix_cache_enabled,
             draft_params=self.draft_params, draft_config=self.draft_cfg, spec_k=self.spec_k,
-            forward_fn=self.forward_fn, device=self.device,
+            forward_fn=self.forward_fn, device=self.device, mesh=self.mesh,
         )
 
     def release(self) -> None:
@@ -839,6 +971,10 @@ class ContinuousBatchingEngine:
         if self.device.type == "cuda":
             with CAPTURE_LOCK:
                 torch.cuda.empty_cache()
+
+    def _pools(self) -> list:
+        """The pool of each tp shard (the one pool off a mesh)."""
+        return self.pool.shards if isinstance(self.pool, ShardedPool) else [self.pool]
 
     def on_stream(self):
         """The context this engine's device work runs in: its own stream on
@@ -1056,37 +1192,49 @@ class ContinuousBatchingEngine:
         # pad tails take no routed-expert capacity (a junk admission row's
         # one pad token does, as in JAX); llama ignores the mask here
         pad_mask = self._to_device(np.arange(width)[None, :] < lens[:, None])
+        pools = self._pools()
+        devs = [dev] if self.tp == 1 else self.params.devices
+        prior_w = 0 if prior_table is None else prior_table.shape[1] * self.page_size
+        # one dense cache a tp shard (its kv heads), as the pool is sharded
+        caches = ([init_cache(cfg, b, prior_w + width, dev)] if self.tp == 1
+                  else init_tp_cache(cfg, b, prior_w + width, self.params))
         if prior_table is None:
-            cache = init_cache(cfg, b, width, dev)
-            logits, cache = self._forward(self.params, cfg, ids_t, positions=positions,
-                                          cache=cache, cache_index=0, pad_mask=pad_mask,
-                                          logit_index=last)
-            k_new, v_new = cache["k"], cache["v"]
+            logits, _ = self._forward(self.params, cfg, ids_t, positions=positions,
+                                      cache=caches if self.tp > 1 else caches[0],
+                                      cache_index=0, pad_mask=pad_mask, logit_index=last)
+            news = [(cache["k"], cache["v"]) for cache in caches]
         else:
-            prior_w = prior_table.shape[1] * self.page_size
             n_prior_t = self._to_device(n_prior.astype(np.int64))
-            cache = init_cache(cfg, b, prior_w + width, dev)
             if prior_w:
-                table = self._to_device(prior_table.astype(np.int64))
-                for name, pages in (("k", self.pool.k), ("v", self.pool.v)):
-                    cache[name][:, :, :prior_w] = _gather_prior(pages, table, cfg.torch_dtype)
-            logits, cache = self._forward(self.params, cfg, ids_t,
-                                          positions=positions + n_prior_t[:, None],
-                                          cache=cache, cache_index=n_prior_t,
-                                          pad_mask=pad_mask, logit_index=last)
+                tables = broadcast(self._to_device(prior_table.astype(np.int64)), devs)
+                for cache, pool, table in zip(caches, pools, tables):
+                    for name, pages in (("k", pool.k), ("v", pool.v)):
+                        cache[name][:, :, :prior_w] = _gather_prior(pages, table,
+                                                                    cfg.torch_dtype)
+            logits, _ = self._forward(self.params, cfg, ids_t,
+                                      positions=positions + n_prior_t[:, None],
+                                      cache=caches if self.tp > 1 else caches[0],
+                                      cache_index=n_prior_t, pad_mask=pad_mask,
+                                      logit_index=last)
             # each row's new KV starts at its own offset in the primed cache
-            window = n_prior_t[:, None] + torch.arange(width, device=dev)[None, :]
-            rows = torch.arange(b, device=dev)[:, None]
-            k_new, v_new = cache["k"][:, rows, window], cache["v"][:, rows, window]
-        scatter_prefill(self.pool.k, self.pool.v, k_new, v_new,
-                        self._to_device(scat.astype(np.int64)))
+            news = []
+            for cache, start in zip(caches, broadcast(n_prior_t, devs)):
+                window = start[:, None] + torch.arange(width, device=start.device)[None, :]
+                rows = torch.arange(b, device=start.device)[:, None]
+                news.append((cache["k"][:, rows, window], cache["v"][:, rows, window]))
+        scats = broadcast(self._to_device(scat.astype(np.int64)), devs)
+        for pool, (k_new, v_new), table in zip(pools, news, scats):
+            scatter_prefill(pool.k, pool.v, k_new, v_new, table)
         return logits[:, 0]
 
     def _decode_forward(self, tok: Tensor, lens: Tensor, page_table: Tensor,
                         write_mask: Optional[Tensor] = None) -> Tensor:
         """One decode sub-step over the pool → logits [B, V]."""
+        pools = self._pools()
+        k, v = (([p.k for p in pools], [p.v for p in pools]) if self.tp > 1
+                else (self.pool.k, self.pool.v))
         return paged_decode_forward(self.params, self.cfg, tok, lens, page_table,
-                                    self.pool.k, self.pool.v, attn_impl=self.attn_impl,
+                                    k, v, attn_impl=self.attn_impl,
                                     write_mask=write_mask, rope=self._rope,
                                     tally=self.route_tally)
 

@@ -385,13 +385,27 @@ def _device_stats(pipeline: ChatPipeline) -> dict:
     cfg = getattr(engine, "cfg", None) or engine.model_config
     dev = pipeline.embedder.device
     cuda = dev.type == "cuda"
+    mesh = pipeline.mesh
     stats = {"platform": "gpu" if cuda else dev.type,
-             "n_devices": torch.cuda.device_count() if cuda else 1, "mesh": None,
+             "n_devices": torch.cuda.device_count() if cuda else 1,
+             "mesh": dict(mesh.shape) if mesh is not None else None,
              "model": {"layers": cfg.n_layers, "dim": cfg.dim, "vocab": cfg.vocab_size}}
     if cuda:
         stats["memory"] = {"bytes_in_use": torch.cuda.memory_allocated(dev),
                            "bytes_limit": torch.cuda.get_device_properties(dev).total_memory}
     return stats
+
+
+def _decode_info(pipeline: ChatPipeline) -> Optional[dict]:
+    """``/info``'s ``generator.decode``: the paged engines' tensor-parallel
+    width and whether each decode sub-step is a CUDA graph replay (on one
+    card) or runs eagerly (a mesh of distinct cards, or the CPU); None
+    without an in-process paged engine."""
+    service = pipeline.service
+    engine = getattr(service, "engine", None)
+    if engine is None or not hasattr(engine, "cuda_graphs"):
+        return None
+    return {"tp": engine.tp, "cuda_graphs": engine.cuda_graphs}
 
 
 def _replica_info(pipeline: ChatPipeline) -> Optional[dict]:
@@ -873,6 +887,7 @@ class _Handler(BaseHTTPRequestHandler):
                 "verifier": settings.generator.use_verifier,
                 "speculative": pipeline.speculative_info,
                 "replicas": _replica_info(pipeline),
+                "decode": _decode_info(pipeline),
             },
             "device": _device_stats(pipeline),
         })

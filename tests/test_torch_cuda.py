@@ -916,9 +916,8 @@ def test_scorer_embed_on_the_card_matches_plain(dev, monkeypatch):
     before = FLASH_KERNEL.launches
     (q, mat), sem, mmr = run()
     assert FLASH_KERNEL.launches - before == cfg.n_layers  # one forward, memo shared
-    monkeypatch.setattr(embedder_module, "encoder_attn_fn",
-                        lambda q, k, v, kv_lens=None: flash_attention_plain(
-                            q, k, v, kv_lens, causal=False))
+    monkeypatch.setattr(emb, "attn_fn", lambda q, k, v, kv_lens=None: flash_attention_plain(
+        q, k, v, kv_lens, causal=False))
     before = FLASH_KERNEL.launches
     (pq, pmat), psem, pmmr = run()
     assert FLASH_KERNEL.launches == before
@@ -926,3 +925,109 @@ def test_scorer_embed_on_the_card_matches_plain(dev, monkeypatch):
     np.testing.assert_allclose(mat, pmat, atol=2e-2, rtol=0)
     np.testing.assert_allclose(sem, psem, atol=1e-2, rtol=0)
     assert mat.shape == (12, cfg.dim) and sem.shape == mmr.shape == (12,)
+
+
+# ------------------------------------------------- a tp=2 mesh on the one card
+
+
+def _tp2_mesh(dev):
+    from sentio_tpu_torch.config import MeshConfig
+    from sentio_tpu_torch.parallel.mesh import build_mesh
+
+    return build_mesh(MeshConfig(dp_size=1, tp_size=2), devices=[dev, dev])
+
+
+@pytest.mark.parametrize("kernel", ["paged", "paged_int8", "flash_bidirectional",
+                                    "flash_causal_prefill"])
+def test_kernels_at_a_tp2_shards_shape(dev, kernel):
+    """Each kernel at the shape one tp=2 shard of the main path gives it
+    (Llama-3-8B's decode: H 16, Hkv 4, D 128, 128-token pages; the base
+    embedder: H 8, D 64; the 8B prefill: H 16, D 128 over a cache window)
+    against its plain version, max abs 2e-2, mean 2e-3."""
+    if kernel.startswith("paged"):
+        lens = [0, 5, 127, 128, 1000, 1023]
+        q, kp, vp, table, lens_t = _split_case(dev, lens, rep=4, d=128, page=128, nb=8,
+                                               seed=3, hkv=4)
+        if kernel == "paged":
+            out = paged_attention(q, kp, vp, table, lens_t)
+            torch.cuda.synchronize()
+            _check_paged(q, kp, vp, table, lens_t, out)
+            return
+        q, pools, table, lens_t = _quant_split_case(dev, lens, rep=4, d=128, page=128, nb=8,
+                                                    seed=3, hkv=4)
+        out = paged_attention_quant(q, *pools, table, lens_t)
+        torch.cuda.synchronize()
+        _check_quant(q, pools, table, lens_t, out)
+        return
+    causal = kernel == "flash_causal_prefill"
+    b, t, s, h, d = (1, 512, 1024, 16, 128) if causal else (8, 512, 512, 8, 64)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randn((b, t, h, d), generator=gen, device=dev, dtype=torch.bfloat16)
+    k, v = (torch.randn((b, s, h, d), generator=gen, device=dev, dtype=torch.bfloat16)
+            for _ in range(2))
+    lens = None if causal else torch.tensor([512, 0, 1, 64, 300, 512, 129, 17],
+                                            dtype=torch.int32, device=dev)
+    if causal:
+        k[:, t:] = float("nan")  # the window's unwritten tail: never read
+        v[:, t:] = float("nan")
+    out = flash_attention(q, k, v, lens, causal=causal)
+    torch.cuda.synchronize()
+    ref = flash_attention_plain(q.float(), k.float(), v.float(), lens, causal=causal)
+    diff = (out.float() - ref).abs()
+    assert bool(out.isfinite().all())
+    assert diff.max().item() <= ATOL and diff.mean().item() <= 2e-3
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_tp2_engine_on_one_card(dev, kv_quant):
+    """A tp=2 mesh of the one card: each sampling variant one CUDA graph
+    over both shards, the pool's kernel launched once per layer per shard
+    per sub-step (the card's counts agree), greedy tokens equal to the same
+    tp=2 sub-step run eagerly."""
+    mesh = _tp2_mesh(dev)
+    graph = _engine(dev, kv_quant, mesh=mesh)
+    eager = _engine(dev, kv_quant, params=graph.sharded, mesh=mesh)
+    eager.cuda_graphs = False
+    assert graph.tp == 2 and graph.cuda_graphs
+    assert all(p.k.is_contiguous() if kv_quant == "none" else p.k.q.is_contiguous()
+               for p in graph.pool.shards)
+    ran = PAGED_QUANT_KERNEL if kv_quant == "int8" else PAGED_KERNEL
+    graph.run_all(PROMPTS[:1], 4)  # captures the greedy graph
+    torch.cuda.synchronize()
+    ran.launches = 0
+    card0 = ran.device_launches()
+    steps0 = graph.total_sub_steps
+    got = graph.run_all(PROMPTS, 16)
+    torch.cuda.synchronize()
+    steps = graph.total_sub_steps - steps0
+    assert graph.graph_replays > 0 and graph.graph_captures == 1
+    assert ran.launches == 2 * SMALL.n_layers * steps
+    assert tuple(n - n0 for n, n0 in zip(ran.device_launches(), card0)) == (ran.launches,) * 2
+    eager.run_all(PROMPTS[:1], 4)
+    want = eager.run_all(PROMPTS, 16)
+    assert [r.tokens for r in got] == [r.tokens for r in want]
+
+
+def test_tp2_contiguous_and_encoders_launch_flash_per_shard(dev):
+    """On a tp=2 mesh of the card the contiguous engine's prefill launches
+    the causal flash kernel once per layer per shard, the embedder's
+    forward the bidirectional one likewise; the embedder's vectors agree
+    with one device's within the bf16 tolerance."""
+    from sentio_tpu_torch.config import EmbedderConfig, GeneratorConfig
+    from sentio_tpu_torch.ops.embedder import TorchEmbedder
+    from sentio_tpu_torch.runtime.engine import GeneratorEngine
+
+    mesh = _tp2_mesh(dev)
+    engine = GeneratorEngine(config=GeneratorConfig(model_preset="tiny", max_new_tokens=4),
+                             model_config=SMALL, mesh=mesh)
+    FLASH_KERNEL.launches = 0
+    engine.generate(PROMPTS[:2], max_new_tokens=4, temperature=0.0)
+    torch.cuda.synchronize()
+    assert FLASH_KERNEL.launches == 2 * SMALL.n_layers * engine.prefills
+    cfg = EmbedderConfig(model_preset="tiny", coalesce=False, cache_size=0)
+    one = TorchEmbedder(cfg, device=dev)
+    two = TorchEmbedder(cfg, params=one.params, model_config=one.model_config, mesh=mesh)
+    FLASH_KERNEL.launches = 0
+    got = two.embed_many(PROMPTS)
+    assert FLASH_KERNEL.launches == 2 * one.model_config.n_layers
+    assert abs(got - one.embed_many(PROMPTS)).max() <= ATOL

@@ -23,9 +23,10 @@ from sentio_tpu.kernels import flash_attn_fn as jax_flash_attn_fn
 from sentio_tpu.models.llama import LlamaConfig as JLlamaConfig
 from sentio_tpu.models.llama import init_llama
 from sentio_tpu.runtime.engine import GeneratorEngine as JEngine
-from sentio_tpu_torch.config import GeneratorConfig
+from sentio_tpu_torch.config import GeneratorConfig, MeshConfig
 from sentio_tpu_torch.kernels import default_attn_fn, flash_attn_fn
 from sentio_tpu_torch.models.llama import LlamaConfig
+from sentio_tpu_torch.parallel.mesh import build_mesh
 from sentio_tpu_torch.runtime.engine import GeneratorEngine
 from sentio_tpu_torch.runtime.weights import llama_from_jax
 
@@ -115,8 +116,11 @@ def test_device_stats_and_refusals(engines):
     _ref, port = engines
     stats = port.device_stats()
     assert stats["platform"] == "cpu" and stats["model"]["layers"] == 2
-    with pytest.raises(NotImplementedError):
-        GeneratorEngine(config=GeneratorConfig(**GEN), mesh=object(), device="cpu")
+    # a mesh is served (tests/test_torch_mesh.py); its sp, pp and ep axes
+    # are ROADMAP 10b
+    sp_mesh = build_mesh(MeshConfig(dp_size=1, sp_size=2), devices=["cpu"] * 2)
+    with pytest.raises(NotImplementedError, match="10b"):
+        GeneratorEngine(config=GeneratorConfig(**GEN), mesh=sp_mesh, device="cpu")
     # a custom model family needs its params passed in (JAX's ValueError)
     with pytest.raises(ValueError, match="overrides the model family"):
         GeneratorEngine(config=GeneratorConfig(**GEN), forward_fn=lambda *a: a, device="cpu")
