@@ -135,7 +135,7 @@ line each:
     under each mode against sync's.
 
 21. replicas_1, replicas_2 — the replica tier behind the HTTP server at
-    full width, Llama-3-8B cut to ``TIER_LAYERS`` (16) of its 32 layers, as
+    full width, Llama-3-8B cut to ``TIER_LAYERS`` (8) of its 32 layers, as
     are the worker phases (28–31) and elastic (36) on the same tensors
     (``Settings()`` with REPLICAS=1, then 2): warmup of every
     replica at once (seconds, each
@@ -402,10 +402,53 @@ IPC handles on them).
     a chat's decode with H 16, Hkv 4; flash at the embedder's ingest batch
     with H 8 and at the 8B prefill with H 16.
 
+39. mesh_train (after mesh_tp; ROADMAP 10b) — JAX's dry-run train steps
+    on repeated coordinates of the card, Llama-3-8B's widths cut to
+    ``TRAIN_MESH_LAYERS`` (4) layers in bf16, random weights from the seed,
+    a batch of 4 × 257 tokens (three rows padded), ``torch.optim.AdamW`` at
+    optax.adamw(1e-3)'s defaults: the dp=2 × tp=2 step (``llama_loss``, the
+    batch split over dp) and the dp=1 × pp=2 × tp=2 GPipe step
+    (``pipeline_loss``, 2 microbatches). Gates: a finite loss, every tensor
+    moved, none of the three kernels launched (wrappers and card). The dp
+    × tp mesh names the card twice (``cuda:0`` and ``cuda``), so each dp
+    group holds its own copy of every slice, as on two cards: the step
+    sums the copies' gradients and they must be bit-equal after it. Its
+    loss, each leaf's gradient and each leaf's AdamW update are held to
+    the plain step's on the same weights and batch, each AdamW update to
+    AdamW on its own gradient, within ``DP_TP_LIMITS``; the same readings
+    of the plain step on half the batch (one dp group's) must lie past
+    each limit. Then at ``EXACT_LAYERS`` (2) in
+    float32: ``pipeline_loss`` and every gradient at pp=2 within 1e-4
+    (relative to each leaf's largest) of pp=1's. Reported: step and
+    forward-backward ms, peak memory.
+
+40. mesh_sp — sequence parallelism on sp=2 × tp=2: the contiguous
+    engine's ring prefill of a 4,001-token prompt (Llama-3-8B's widths, 2
+    layers, float32) against the sp=1 engine's plain attention: logits
+    within 1e-3, 8 greedy tokens equal, no kernel launched; then one
+    ``/chat`` through ``build_pipeline`` with ``USE_PAGED_KV=0``,
+    ``MESH_SP=2``, ``MESH_TP=2`` (the mesh passed in) at ``CONTIG_LAYERS``
+    on the shared bf16 weights over 256 chunks: answered, not degraded,
+    both prefills on the ring, no flash launch (the encoders run plain
+    attention at sp > 1, as JAX picks it), the card's counts 0 too; then
+    ``MESH_PP=2``: a paged engine on pp=2 of the card at 4 layers, greedy
+    tokens equal to one without a mesh.
+
+41. mesh_ep — a MoE model on dp=1 × ep=2 × tp=2 (``MOE_EP_RULES``):
+    Mixtral-8x7B's widths at 2 layers in bf16 behind ``build_pipeline``
+    (warmup, 256 chunks, one chat; the paged kernel once per layer per tp
+    shard per sub-step, = the card's; no choice dropped), one prompt's
+    prefill and 4 decode steps against the single-device engine in bf16
+    and int8 (within the logits limit, 2 × 2 × 4 launches, = the card's);
+    ``bench.py``'s ``moe`` geometry in float32: greedy tokens equal to one
+    device's; one ep train step (``moe_loss``, AdamW) at Mixtral's widths
+    and one layer, its mesh naming the card twice along ep, gated and held
+    to the plain step as mesh_train's dp × tp step, within ``EP_LIMITS``.
+
 ``slice_contig`` runs Llama-3-8B cut to 16 of its layers (``CONTIG_LAYERS``)
 since convert_serve.
 
-``--only-new`` runs the build, the kernel checks and phase 38 only (on
+``--only-new`` runs the build, the kernel checks and phases 39–41 only (on
 weights made afresh from the seed) and ends without the result lines.
 ``--rounds-only`` runs the build and replicas_1's warmup and rounds only,
 to compare two trees' round times in one call (copied into the other
@@ -911,7 +954,7 @@ def shared_weights(pipeline) -> dict:
 
 
 def build_slice(torch, dev, phase: str, settings, shared=None, ingest: bool = True,
-                **weights):
+                n_chunks: int = N_CHUNKS, **weights):
     """Build the pipeline (on the weight tensors of ``shared``, a
     :func:`shared_weights` dict, when given, and on ``weights``, such as a
     draft), warm its service up as the entry point does, and ingest the
@@ -945,7 +988,7 @@ def build_slice(torch, dev, phase: str, settings, shared=None, ingest: bool = Tr
                                  f"({len(engine.graph_variants)}) and leave the template "
                                  f"head warm: {warm}")
 
-    docs, words = corpus(N_CHUNKS)
+    docs, words = corpus(n_chunks)
     if ingest:
         t0 = time.perf_counter()
         pipeline.ingest(docs)
@@ -1001,18 +1044,20 @@ def slice_questions(docs, words) -> list:
 
 
 def run_slice(torch, dev, phase: str, settings, shared=None, n_chats: int = 3,
-              mesh=None) -> dict:
+              mesh=None, n_chunks: int = N_CHUNKS, every_expert: bool = True) -> dict:
     """The paged slice: build, warm up, ingest, then ``n_chats`` chats in a
     counted window (:func:`chat_window`), each chat's generate and verify
     admissions recorded (:func:`record_admissions`). A MoE engine's routing
     over the window, from its stats, is reported: choices routed to each
     expert, dropped (must be none at the no-drop capacity factor) and
-    padding's. On a ``mesh`` the pipeline is built on it, and the decode
-    kernel runs once per layer per tp shard per sub-step."""
+    padding's; with ``every_expert`` each expert must have had a choice.
+    On a ``mesh`` the pipeline is built on it, and the decode kernel runs
+    once per layer per tp shard per sub-step."""
     from sentio_tpu_torch.models.moe import MoeConfig
 
     extra = {"mesh": mesh} if mesh is not None else {}
-    pipeline, docs, words, warm = build_slice(torch, dev, phase, settings, shared, **extra)
+    pipeline, docs, words, warm = build_slice(torch, dev, phase, settings, shared,
+                                              n_chunks=n_chunks, **extra)
     engine = pipeline.generator.provider.engine
     moe = isinstance(engine.cfg, MoeConfig)
     questions = slice_questions(docs, words)[:n_chats]
@@ -1061,7 +1106,7 @@ def run_slice(torch, dev, phase: str, settings, shared=None, n_chats: int = 3,
          prefix_cache_pages=stats["prefix_cache_pages"],
          peak_memory=torch.cuda.max_memory_allocated(),
          **({"routing": routing} if moe else {}))
-    if moe and (routing["dropped"] or not all(routing["routed"])):
+    if moe and (routing["dropped"] or (every_expert and not all(routing["routed"]))):
         raise AssertionError(f"{phase}: a choice was dropped at the no-drop capacity factor, "
                              f"or an expert got no token: {routing}")
     if stats["graph_replays"] - stats0["graph_replays"] <= 0:
@@ -3429,9 +3474,10 @@ REPLICA_SSE_CHATS = 2
 # bursts of each replica count, each on questions of its own (2: cut from 3
 # to make room for mesh_tp)
 REPLICA_ROUNDS = 2
-# the replica tier's, the worker tier's and the elastic fleet's depth: 16 of
-# Llama-3-8B's 32 layers (cut to make room for mesh_tp)
-TIER_LAYERS = 16
+# the replica tier's, the worker tier's and the elastic fleet's depth: 8 of
+# Llama-3-8B's 32 layers (cut to 16 to make room for mesh_tp, to 8 for
+# mesh_train, mesh_sp and mesh_ep)
+TIER_LAYERS = 8
 # replicas_2_process's rounds in the full run, for its time limit
 # (``--worker-rounds`` runs REPLICA_ROUNDS)
 PROCESS_ROUNDS = 1
@@ -6872,6 +6918,538 @@ def mesh_tp_check(torch, dev, weights: dict) -> dict:
             "index": index_rows, "want_flash": want_flash}
 
 
+# ------------------------------------------- the training half of the mesh
+
+# mesh_train's bf16 steps: Llama-3-8B at full width cut to 4 of its 32
+# layers (3.9 GB of weights; gradients and AdamW's two moments 11.7 GB)
+TRAIN_MESH_LAYERS = 4
+# the float32 checks' depth: GPipe against one stage, the ring against
+# plain attention
+EXACT_LAYERS = 2
+TRAIN_ROWS, TRAIN_TOKENS = 4, 257    # a step's batch: 4 rows, 256 targets each
+TRAIN_PAD = 64                       # rows 2-4 end in this many padding tokens
+# a bf16 mesh step held to the plain step (held_to_plain), set from the
+# card's readings (PERF.md §6): the loss's difference, the worst leaf's
+# gradient against the plain one's and its AdamW update against AdamW on
+# its own gradient; the half batch's step must read past each
+# (H100, 700 W; readings / controls: dp × tp 9.25e-5 / 1.77e-2, 2.25e-2 /
+# 0.92, 0 / 0.97; ep 1.49e-3 / 5.22e-2, 0.114 / 0.92, 0 / 0.98)
+DP_TP_LIMITS = dict(loss=1e-3, grad=5e-2, update=1e-3)
+EP_LIMITS = dict(loss=5e-3, grad=0.25, update=1e-3)
+PIPE_REL_LIMIT = 1e-4                # float32 pp=2 against pp=1, per leaf
+RING_PROMPT_CHARS = 4_000            # ~4,096 tokens of the byte tokenizer
+RING_LOGITS_LIMIT = 1e-3             # float32 ring prefill against plain
+SP_CHUNKS = 256                      # mesh_sp's and mesh_ep's corpus
+PP_LAYERS = 4                        # MESH_PP=2's paged engines
+# optax.adamw(1e-3)'s defaults, JAX's dry-run optimizer
+ADAMW = dict(lr=1e-3, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+
+
+def repeat_mesh(dev, **fields):
+    """A mesh of ``fields``' geometry over repeated coordinates of ``dev``."""
+    from sentio_tpu_torch.config import MeshConfig
+    from sentio_tpu_torch.parallel.mesh import build_mesh
+
+    return build_mesh(MeshConfig(**fields), devices=[dev] * math.prod(fields.values()))
+
+
+def train_batch(torch, dev, vocab: int, seed: int):
+    """Token ids [TRAIN_ROWS, TRAIN_TOKENS] from the seed and a mask whose
+    rows after the first end in TRAIN_PAD padding tokens."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ids = torch.randint(1, vocab, (TRAIN_ROWS, TRAIN_TOKENS), generator=gen, device=dev)
+    mask = torch.ones((TRAIN_ROWS, TRAIN_TOKENS), dtype=torch.bool, device=dev)
+    mask[1:, TRAIN_TOKENS - TRAIN_PAD:] = False
+    return ids, mask
+
+
+def kernel_counts(torch) -> tuple:
+    """The three wrappers' launch counts and the card's own."""
+    return {n: k.launches for n, k in wrappers().items()}, card_launches(torch)
+
+
+def twin_mesh(torch, dev, axis: str, **fields):
+    """:func:`repeat_mesh` whose coordinates past the first along ``axis``
+    name the card ``cuda`` where the others name it ``cuda:0``: to
+    :func:`shard_params` two devices, so every slice replicated over
+    ``axis`` is held by two distinct tensors, as on two cards, and the
+    step's gradient sum over those copies has work to do."""
+    from sentio_tpu_torch.parallel.mesh import MESH_AXES, Mesh
+
+    grid = repeat_mesh(dev, **fields).devices.copy()
+    later = [slice(None)] * grid.ndim
+    later[MESH_AXES.index(axis)] = slice(1, None)
+    grid[tuple(later)] = torch.device(dev.type)
+    return Mesh(grid, MESH_AXES)
+
+
+def err_norms(got, want) -> tuple:
+    """``(‖got − want‖², ‖want‖²)``, summed in float32 a block of 2^24
+    elements at a time (no float32 copy of a whole leaf)."""
+    diff = ref = 0.0
+    for g, w in zip(got.reshape(-1).split(1 << 24), want.reshape(-1).split(1 << 24)):
+        w = w.float()
+        diff += float((g.float() - w).square().sum())
+        ref += float(w.square().sum())
+    return diff, ref
+
+
+def grad_of(t):
+    """``t``'s gradient, zeros where no forward read it."""
+    return t.grad if t.grad is not None else t.new_zeros(t.shape)
+
+
+def adamw_update(torch, leaf, grad):
+    """What one AdamW step at ADAMW moves a copy of ``leaf`` by, given
+    ``grad`` (AdamW is elementwise: one leaf alone steps as in a tree)."""
+    p = leaf.detach().clone().requires_grad_(True)
+    p.grad = grad
+    torch.optim.AdamW([p], **ADAMW).step()
+    return p.detach() - leaf.detach()
+
+
+def held_to_plain(torch, phase: str, sharded, tree: dict, loss_of, loss: float,
+                  limits: dict) -> dict:
+    """The mesh step just taken on ``sharded`` against the plain step on
+    the same weights (``tree``, a plain tree of them) and batch, each leaf
+    put together from the shards' slices and read as ``‖mesh − want‖ /
+    ‖want‖``, gated at the worst leaf by ``limits``: the loss's
+    difference; each gradient against the plain one; each AdamW update
+    against AdamW on the leaf's own gradient (in bf16 Adam's first step,
+    about ``lr · sign(g)``, turns the gradients' rounding into flipped
+    signs, so the update is held to the optimizer, the gradient to the
+    plain step). The control is the plain step on the batch's first half
+    alone, what a step that lost one of two dp groups computes, read over
+    the whole tree: each limit must lie below the control's reading, or
+    its gate could not fail."""
+    from sentio_tpu_torch.parallel.sharding import leaves
+
+    plain = dict(leaves(tree))
+    held = {coord: dict(leaves(shard)) for coord, shard in sharded.trees.items()}
+
+    def gathered(path, of):
+        out = torch.empty_like(plain[path])
+        for coord, tensors in held.items():
+            out[tuple(slice(lo, hi) for lo, hi in sharded.slices[coord][path])] = \
+                of(tensors[path])
+        return out
+
+    def backward(rows) -> float:
+        for t in plain.values():
+            t.grad = None
+        value = loss_of(tree, rows)
+        value.backward()
+        return value.item()
+
+    # two passes, so the plain tree's gradients and the mesh's are held
+    # once each: the full batch against the mesh (each leaf's shards' own
+    # gradients dropped once read), then the half batch against the full
+    for t in plain.values():
+        t.requires_grad_(True)
+    losses = {"plain": backward(slice(None))}
+    full = {p: grad_of(t) for p, t in plain.items()}
+    err: dict = {"grad": {}, "update": {}}
+    ctl: dict = {"grad": {}, "update": {}}
+    with torch.no_grad():
+        for path, leaf in plain.items():
+            mine = gathered(path, grad_of)
+            err["grad"][path] = err_norms(mine, full[path])
+            err["update"][path] = err_norms(gathered(path, lambda t: t) - leaf,
+                                            adamw_update(torch, leaf, mine))
+            for tensors in held.values():
+                tensors[path].grad = None
+    losses["control"] = backward(slice(0, TRAIN_ROWS // 2))
+    with torch.no_grad():
+        for path, leaf in plain.items():
+            half = grad_of(leaf)
+            ctl["grad"][path] = err_norms(half, full[path])
+            ctl["update"][path] = err_norms(adamw_update(torch, leaf, half),
+                                            adamw_update(torch, leaf, full[path]))
+    for t in plain.values():
+        t.requires_grad_(False)
+        t.grad = None
+    out = {"loss_plain": losses["plain"], "loss_diff": abs(loss - losses["plain"]),
+           "loss_control_diff": abs(losses["control"] - losses["plain"])}
+    per_leaf = {}
+    for kind in ("grad", "update"):
+        rel = {p: math.sqrt(d / max(r, 1e-60)) for p, (d, r) in err[kind].items()}
+        worst = max(rel, key=rel.get)
+        out[kind] = {"rel_err_max": rel[worst], "worst_leaf": worst,
+                     "control_rel_err": math.sqrt(sum(d for d, _ in ctl[kind].values())
+                                                  / sum(r for _, r in ctl[kind].values()))}
+        per_leaf[kind] = rel
+    emit(f"{phase}_vs_plain", **out, per_leaf=per_leaf)
+    readings = {"loss": (out["loss_diff"], out["loss_control_diff"]),
+                **{k: (out[k]["rel_err_max"], out[k]["control_rel_err"])
+                   for k in ("grad", "update")}}
+    for kind, (got, control) in readings.items():
+        limit = limits[kind]
+        if control <= limit:
+            raise AssertionError(f"{phase}: the {kind} gate cannot fail: the half batch's "
+                                 f"step reads {control}, within the limit {limit}")
+        if got > limit:
+            raise AssertionError(f"{phase}: the {kind} of the mesh step is {got} from the "
+                                 f"plain step's, past {limit}")
+    return out
+
+
+def train_step(torch, phase: str, sharded, loss_fn, plain=None, plain_loss_of=None,
+               limits=None, **reported) -> dict:
+    """One step on ``sharded``'s tensors: ``loss_fn()``, backward, the sum
+    of each replicated slice's copies' gradients, one AdamW step. Gates:
+    a finite loss, no kernel launched (the losses run plain attention),
+    every tensor moved, every replicated slice's copies bit-equal (there
+    are copies only where the mesh names two devices, :func:`twin_mesh`);
+    given ``plain()`` (the same weights as a plain tree, made after the
+    step) and ``plain_loss_of(tree, rows)``, :func:`held_to_plain` at
+    ``limits``."""
+    from sentio_tpu_torch.parallel.collectives import psum_replicated_grads
+
+    tensors = sharded.parameters()
+    for t in tensors:
+        t.requires_grad_(True)
+    opt = torch.optim.AdamW(tensors, **ADAMW)
+    sums0 = torch.stack([t.detach().double().sum() for t in tensors])
+    copies = sharded.copies()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts0 = kernel_counts(torch)
+    t0 = time.perf_counter()
+    loss = loss_fn()
+    loss.backward()
+    psum_replicated_grads(copies)
+    torch.cuda.synchronize()
+    t_grad = time.perf_counter()
+    counts = kernel_counts(torch)
+    opt.step()
+    torch.cuda.synchronize()
+    t_step = time.perf_counter()
+    moved = int((torch.stack([t.detach().double().sum() for t in tensors]) != sums0).sum())
+    differing = sum(not torch.equal(g[0], t) for g in copies for t in g[1:])
+    result = {"loss": loss.item(), "forward_backward_ms": (t_grad - t0) * 1e3,
+              "step_ms": (t_step - t0) * 1e3, "peak_memory": torch.cuda.max_memory_allocated(),
+              "tensors": len(tensors), "moved": moved, "replicated_slices": len(copies),
+              "copies": sum(map(len, copies)), "copies_differing": differing,
+              "launches": {k: n - counts0[0][k] for k, n in counts[0].items()},
+              "mesh": dict(sharded.mesh.shape), **reported}
+    emit(phase, **result)
+    if not math.isfinite(result["loss"]):
+        raise AssertionError(f"{phase}: the loss is not finite: {result['loss']}")
+    if counts != counts0:
+        raise AssertionError(f"{phase}: a kernel launched under autograd: {counts0} -> {counts}")
+    if moved != len(tensors) or differing:
+        raise AssertionError(f"{phase}: {len(tensors) - moved} tensors did not move, "
+                             f"{differing} replicated copies differ")
+    opt = None  # AdamW's moments: the plain step below needs the room
+    if plain is not None:
+        result["vs_plain"] = held_to_plain(torch, phase, sharded, plain(), plain_loss_of,
+                                           result["loss"], limits)
+    for t in tensors:
+        t.requires_grad_(False)
+        t.grad = None
+    return result
+
+
+def mesh_train_check(torch, dev) -> dict:
+    """mesh_train: JAX's dry-run train steps on repeated coordinates of the
+    card, Llama-3-8B's widths at TRAIN_MESH_LAYERS layers in bf16, random
+    weights from the seed, a padded batch of 4 × 257 tokens, AdamW at
+    optax.adamw(1e-3)'s defaults. The dp=2 × tp=2 step (``llama_loss``, the
+    batch split over dp, on a :func:`twin_mesh` so each dp group holds its
+    own copies) against the plain step on the same weights and batch
+    (:func:`held_to_plain`); the dp=1 × pp=2 × tp=2 GPipe step
+    (``pipeline_loss``, 2 microbatches);
+    then, at EXACT_LAYERS layers in float32, ``pipeline_loss`` and every
+    gradient at pp=2 against pp=1."""
+    from sentio_tpu_torch.models.llama import (
+        LlamaConfig,
+        init_llama,
+        llama_loss,
+        stack_layer_params,
+    )
+    from sentio_tpu_torch.parallel.pipeline import pipeline_loss, shard_stacked_params
+    from sentio_tpu_torch.parallel.sharding import LLAMA_TP_RULES, leaves, shard_params
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=TRAIN_MESH_LAYERS)
+    ids, mask = train_batch(torch, dev, cfg.vocab_size, SEED + 21)
+
+    def weights(c):
+        return init_llama(c, torch.Generator(device=dev).manual_seed(SEED + 22), dev)
+
+    sharded = shard_params(weights(cfg), twin_mesh(torch, dev, "dp", dp_size=2, tp_size=2),
+                           LLAMA_TP_RULES)
+    dp_tp = train_step(torch, "mesh_train_dp_tp", sharded,
+                       lambda: llama_loss(sharded, cfg, ids, mask), plain=lambda: weights(cfg),
+                       plain_loss_of=lambda tree, rows: llama_loss(tree, cfg, ids[rows],
+                                                                   mask[rows]),
+                       limits=DP_TP_LIMITS)
+    del sharded
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    stacked = shard_stacked_params(stack_layer_params(weights(cfg), cfg),
+                                   repeat_mesh(dev, pp_size=2, tp_size=2))
+    gpipe = train_step(torch, "mesh_train_gpipe", stacked,
+                       lambda: pipeline_loss(stacked, cfg, ids, mask, n_micro=2))
+    del stacked
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    c32 = dataclasses.replace(cfg, n_layers=EXACT_LAYERS, dtype="float32")
+    plain = stack_layer_params(weights(c32), c32)
+    tensors = dict(leaves(plain))
+    for t in tensors.values():
+        t.requires_grad_(True)
+    runs = {}
+    for pp in (1, 2):
+        t0 = time.perf_counter()
+        loss = pipeline_loss(plain, c32, ids, mask, repeat_mesh(dev, pp_size=pp, tp_size=2),
+                             n_micro=2)
+        loss.backward()
+        torch.cuda.synchronize()
+        runs[pp] = {"loss": loss.item(), "ms": (time.perf_counter() - t0) * 1e3,
+                    "grads": {p: t.grad for p, t in tensors.items()}}
+        for t in tensors.values():
+            t.grad = None
+    rel = {p: float((runs[2]["grads"][p] - g).abs().max() / g.abs().max().clamp_min(1e-30))
+           for p, g in runs[1]["grads"].items()}
+    loss_rel = abs(runs[2]["loss"] - runs[1]["loss"]) / abs(runs[1]["loss"])
+    exact = {"layers": EXACT_LAYERS, "loss_pp1": runs[1]["loss"], "loss_pp2": runs[2]["loss"],
+             "loss_rel_diff": loss_rel, "grad_rel_diff_max": max(rel.values()),
+             "worst_leaf": max(rel, key=rel.get), "ms_pp1": runs[1]["ms"],
+             "ms_pp2": runs[2]["ms"]}
+    emit("mesh_train_gpipe_f32", **exact)
+    del plain, tensors, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    if loss_rel > PIPE_REL_LIMIT or exact["grad_rel_diff_max"] > PIPE_REL_LIMIT:
+        raise AssertionError(f"mesh_train: float32 pp=2 against pp=1 past {PIPE_REL_LIMIT}: "
+                             f"{exact}")
+    seconds = time.perf_counter() - t_phase
+    emit("mesh_train_done", seconds=seconds, memory_allocated_after=torch.cuda.memory_allocated())
+    return {"dp_tp": dp_tp, "gpipe": gpipe, "gpipe_f32": exact, "seconds": seconds}
+
+
+def ring_prompt(words) -> str:
+    """A prompt of RING_PROMPT_CHARS bytes (a token each, BOS before them)."""
+    text = " ".join(words)
+    while len(text) < RING_PROMPT_CHARS:
+        text = f"{text} {text}"
+    return text[:RING_PROMPT_CHARS]
+
+
+def prefill_logits(torch, engine, prompt: str):
+    """The contiguous engine's prefill of one prompt: its real rows' logits
+    and the prefill's ms."""
+    ids, positions, lens, cache, _, _, pad_mask = engine._encode_batch([prompt], 8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = engine._prefill(ids, positions, cache, pad_mask)[0, : int(lens[0])]
+    torch.cuda.synchronize()
+    return logits, (time.perf_counter() - t0) * 1e3, int(lens[0])
+
+
+def mesh_sp_check(torch, dev, weights: dict) -> dict:
+    """mesh_sp: sequence parallelism on sp=2 × tp=2 of the card. The
+    contiguous engine's ring prefill of a ~4,096-token prompt against the
+    sp=1 engine's plain attention (Llama-3-8B's widths, EXACT_LAYERS layers,
+    float32): logits and 8 greedy tokens. Then ``/chat`` with
+    ``USE_PAGED_KV=0`` on that mesh at CONTIG_LAYERS on the shared bf16
+    weights over SP_CHUNKS chunks: answered, not degraded, the prefills on
+    the ring, no flash launch (the encoders run plain attention at sp > 1,
+    as JAX picks it). Then MESH_PP=2: a paged engine on pp=2 of the card
+    (PP_LAYERS layers, shared weights) against one without a mesh."""
+    from sentio_tpu_torch.config import GeneratorConfig, MeshConfig, Settings
+    from sentio_tpu_torch.models.llama import LlamaConfig, init_llama
+    from sentio_tpu_torch.runtime.engine import GeneratorEngine
+    from sentio_tpu_torch.runtime.paged import ContinuousBatchingEngine
+
+    t_phase = time.perf_counter()
+    _, words = corpus(64)
+    prompt = ring_prompt(words)
+    c32 = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=EXACT_LAYERS, dtype="float32")
+    params = init_llama(c32, torch.Generator(device=dev).manual_seed(SEED + 23), dev)
+    gcfg = GeneratorConfig(max_new_tokens=8)
+    plain = GeneratorEngine(gcfg, model_config=c32, params=params, device=dev)
+    plain.attn_fn = None
+    ring = GeneratorEngine(gcfg, model_config=c32, params=params,
+                           mesh=repeat_mesh(dev, sp_size=2, tp_size=2))
+    counts0 = kernel_counts(torch)
+    with torch.inference_mode():
+        want, plain_ms, n_tokens = prefill_logits(torch, plain, prompt)
+        got, ring_ms, _ = prefill_logits(torch, ring, prompt)
+        diff = float((got - want).abs().max())
+        del want, got
+        tokens = {name: e.generate([prompt], max_new_tokens=8, temperature=0.0)[0].tokens
+                  for name, e in (("plain", plain), ("ring", ring))}
+    counts = kernel_counts(torch)
+    parity = {"prompt_tokens": n_tokens, "layers": EXACT_LAYERS, "logits_max_abs_diff": diff,
+              "plain_prefill_ms": plain_ms, "ring_prefill_ms": ring_ms,
+              "greedy_equal": tokens["plain"] == tokens["ring"], "tokens": tokens["ring"],
+              "ring_prefills": ring.ring_prefills, "prefill_attention": ring.prefill_attention}
+    emit("mesh_sp_parity", **parity)
+    del plain, ring, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if (diff > RING_LOGITS_LIMIT or not parity["greedy_equal"]
+            or parity["prefill_attention"] != "ring" or parity["ring_prefills"] < 2):
+        raise AssertionError(f"mesh_sp: the ring prefill differs from plain attention: {parity}")
+    if counts != counts0:
+        raise AssertionError(f"mesh_sp: a kernel launched under the ring or plain attention: "
+                             f"{counts0} -> {counts}")
+
+    mesh = repeat_mesh(dev, dp_size=1, sp_size=2, tp_size=2)
+    settings = Settings(generator=GeneratorConfig(use_paged_decode=False,
+                                                  max_new_tokens=MAX_TOKENS,
+                                                  verifier_max_tokens=MAX_TOKENS),
+                        mesh=MeshConfig(sp_size=2, tp_size=2))
+    pipeline, docs, words, _ = build_slice(torch, dev, "mesh_sp", settings,
+                                           cut_depth(weights, CONTIG_LAYERS), mesh=mesh,
+                                           n_chunks=SP_CHUNKS)
+    engine = pipeline.generator.provider.engine
+    rings0 = engine.ring_prefills
+    window = chat_window(torch, pipeline, slice_questions(docs, words)[1:2])
+    (response, chat_s), = window["chats"]
+    check_answered("mesh_sp", 0, response)
+    serving = {"chat_s": chat_s, "stage_ms": response["metadata"]["stage_ms"],
+               "launches": window["launches"], "device_launches": window["card"],
+               "encoder_forwards": window["forwards"], "prefills": engine.prefills,
+               "ring_prefills": engine.ring_prefills - rings0,
+               "prefill_attention": engine.prefill_attention,
+               "encoders_attn": [pipeline.embedder.attn_fn, pipeline.reranker.attn_fn],
+               "peak_memory": torch.cuda.max_memory_allocated()}
+    serving["encoders_attn"] = [f is not None for f in serving["encoders_attn"]]
+    emit("mesh_sp", **serving)
+    close_pipeline(torch, pipeline)
+    pipeline = engine = None
+    if any(window["launches"].values()) or any(serving["encoders_attn"]):
+        raise AssertionError(f"mesh_sp: a kernel launched at sp=2 (the encoders run plain "
+                             f"attention, the prefill the ring): {serving}")
+    if serving["prefill_attention"] != "ring" or serving["ring_prefills"] < 2:
+        raise AssertionError(f"mesh_sp: the chat's prefills did not ride the ring: {serving}")
+    check_card("mesh_sp", window["card"], window["launches"])
+
+    cut = cut_depth(weights, PP_LAYERS)
+    geometry = dict(max_slots=2, page_size=128, max_pages_per_seq=16, device=dev,
+                    prefix_cache=False)
+    pp = {}
+    for name, m in (("pp1", None), ("pp2", repeat_mesh(dev, pp_size=2))):
+        e = ContinuousBatchingEngine(model_config=cut["llama_config"],
+                                     params=cut["llama_params"], mesh=m, **geometry)
+        pp[name] = [r.tokens for r in e.run_all([q for q in slice_questions(docs, words)[:2]],
+                                                max_new_tokens=16)]
+        e.release()
+        del e
+    emit("mesh_sp_pp", layers=PP_LAYERS, tokens=pp, equal=pp["pp1"] == pp["pp2"])
+    if pp["pp1"] != pp["pp2"]:
+        raise AssertionError(f"mesh_sp: the MESH_PP=2 engine's greedy tokens differ: {pp}")
+    seconds = time.perf_counter() - t_phase
+    emit("mesh_sp_done", seconds=seconds, memory_allocated_after=torch.cuda.memory_allocated())
+    return {"parity": parity, "serving": serving, "pp": pp, "seconds": seconds}
+
+
+def mesh_ep_check(torch, dev, weights: dict) -> dict:
+    """mesh_ep: a MoE model on dp=1 × ep=2 × tp=2 of the card
+    (``MOE_EP_RULES``). Mixtral-8x7B's widths at EXACT_LAYERS layers in
+    bf16: a paged ``/chat`` through ``build_pipeline`` over SP_CHUNKS chunks
+    (the paged kernel once per layer per tp shard per sub-step, = the
+    card's), then one prompt's prefill and 4 decode steps against the
+    single-device engine, bf16 and int8, within the logits limit; at
+    ``bench.py``'s ``moe`` geometry in float32, greedy tokens equal to the
+    single-device engine's; one ep train step (``moe_loss``, AdamW) at
+    Mixtral's widths and one layer on a :func:`twin_mesh` along ep, held to
+    the plain step (:func:`held_to_plain`)."""
+    from sentio_tpu_torch.config import GeneratorConfig, Settings
+    from sentio_tpu_torch.models.moe import init_moe, moe_loss
+    from sentio_tpu_torch.parallel.sharding import MOE_EP_RULES, shard_params
+    from sentio_tpu_torch.runtime.paged import ContinuousBatchingEngine, _paged_attn_xla
+
+    t_phase = time.perf_counter()
+    mesh = repeat_mesh(dev, dp_size=1, ep_size=2, tp_size=2)
+    cfg = mixtral_config(EXACT_LAYERS)
+    params = init_moe(cfg, torch.Generator(device=dev).manual_seed(SEED + 13), dev)
+    encoders = {k: v for k, v in weights.items() if not k.startswith("llama")}
+    caps = dict(max_new_tokens=MAX_TOKENS, verifier_max_tokens=MAX_TOKENS)
+    # at 2 random layers the router leaves an expert without a choice in one
+    # chat (expert 1 had 0 of 17,104 in the first run on the card): the
+    # drop gate holds, not the every-expert one, which slice_moe keeps
+    sl = run_slice(torch, dev, "mesh_ep", Settings(generator=GeneratorConfig(**caps)),
+                   shared={**encoders, "llama_config": cfg, "llama_params": params},
+                   n_chats=1, mesh=mesh, n_chunks=SP_CHUNKS, every_expert=False)
+    pipeline = sl.pop("pipeline")
+    engine = pipeline.generator.provider.engine
+    if engine.tp != 2 or len(engine.params.experts) != 2 or not engine.cuda_graphs:
+        raise AssertionError(f"mesh_ep: the engine runs tp={engine.tp} over "
+                             f"{len(engine.params.experts)} ep shards, graphs "
+                             f"{engine.cuda_graphs}")
+    pipeline.service.wait_idle()
+    prompt = pipeline.generator.build_prompt(sl["questions"][0],
+                                             pipeline.index.documents()[:5])
+    sharded = engine.sharded
+    geometry = dict(max_slots=1, page_size=engine.page_size,
+                    max_pages_per_seq=engine.max_pages_per_seq, prefix_cache=False, device=dev)
+    close_pipeline(torch, pipeline)
+    pipeline = engine = None
+    logits = {}
+    for kv_quant, kernel, suffix in (("none", "paged_attention", ""),
+                                     ("int8", "paged_attention_quant", "_int8")):
+        engines = {f"ep1{suffix}": ContinuousBatchingEngine(
+                       model_config=cfg, params=params, kv_quant=kv_quant, **geometry),
+                   f"ep2_tp2{suffix}": ContinuousBatchingEngine(
+                       model_config=cfg, params=sharded, kv_quant=kv_quant, mesh=mesh,
+                       **geometry)}
+        logits[kv_quant] = tp_logits(torch, dev, engines, prompt, f"mesh_ep_logits{suffix}",
+                                     kernel)
+        for e in engines.values():
+            e.release()
+        del engines
+    del sharded, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    bench = bench_moe_config("float32")
+    bparams = init_moe(bench, torch.Generator(device=dev).manual_seed(SEED + 14), dev)
+    greedy = {}
+    for name, m in (("ep1", None), ("ep2_tp2", mesh)):
+        e = ContinuousBatchingEngine(model_config=bench, params=bparams, mesh=m, max_slots=4,
+                                     page_size=16, max_pages_per_seq=8, steps_per_tick=4,
+                                     device=dev)
+        e.attn_impl = _paged_attn_xla  # a float32 pool: the kernels take bf16
+        greedy[name] = [r.tokens for r in e.run_all(["experts on a mesh", "second lane"],
+                                                     max_new_tokens=8)]
+        e.release()
+        del e
+    emit("mesh_ep_greedy", config=dataclasses.asdict(bench), tokens=greedy,
+         equal=greedy["ep1"] == greedy["ep2_tp2"])
+    del bparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    if greedy["ep1"] != greedy["ep2_tp2"]:
+        raise AssertionError(f"mesh_ep: ep=2 × tp=2 greedy tokens differ from one device's: "
+                             f"{greedy}")
+
+    c1 = mixtral_config(1)
+    ids, mask = train_batch(torch, dev, c1.vocab_size, SEED + 24)
+
+    def moe_weights():
+        return init_moe(c1, torch.Generator(device=dev).manual_seed(SEED + 25), dev)
+
+    tparams = shard_params(moe_weights(), twin_mesh(torch, dev, "ep", dp_size=1, ep_size=2,
+                                                    tp_size=2), MOE_EP_RULES)
+    step = train_step(torch, "mesh_ep_train", tparams, lambda: moe_loss(tparams, c1, ids, mask),
+                      plain=moe_weights,
+                      plain_loss_of=lambda tree, rows: moe_loss(tree, c1, ids[rows], mask[rows]),
+                      limits=EP_LIMITS)
+    del tparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    emit("mesh_ep_done", seconds=seconds, memory_allocated_after=torch.cuda.memory_allocated())
+    return {**sl, "logits": logits["none"], "logits_int8": logits["int8"], "greedy": greedy,
+            "train": step, "seconds": seconds}
+
+
 def family_launches(card: dict, family: str) -> dict:
     """The card's counts (:func:`card_launches`) of one kernel's device
     functions."""
@@ -6895,8 +7473,8 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only-new", action="store_true",
-                        help="build, the kernel checks, then only mesh_tp; ends without "
-                             "the result lines")
+                        help="build, the kernel checks, then only mesh_train, mesh_sp and "
+                             "mesh_ep; ends without the result lines")
     parser.add_argument("--worker-rounds", action="store_true",
                         help="build, then the rounds of one and two replicas in thread and "
                              "in process mode (random 8B weights); ends without the result "
@@ -6977,7 +7555,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     if args.only_new:
-        mesh_tp_check(torch, dev, settings_weights(torch, dev))
+        weights = settings_weights(torch, dev)
+        mesh_train_check(torch, dev)
+        mesh_sp_check(torch, dev, weights)
+        mesh_ep_check(torch, dev, weights)
         return 0
 
     # the MoE phases first: their 47 GB of weights cannot sit beside the
@@ -7033,6 +7614,10 @@ def main(argv=None) -> int:
              for name, x in (("slice", sl), ("slice_int8", sl8), ("slice_contig", sc))}
     emit("spec_memory", memory_allocated_after_close=freed)
     mtp = mesh_tp_check(torch, dev, weights)
+    # the training half of the mesh: its own weights, then the shared ones
+    mesh_train = mesh_train_check(torch, dev)
+    msp = mesh_sp_check(torch, dev, weights)
+    mep = mesh_ep_check(torch, dev, weights)
     dcfg = bench_draft_config(weights["llama_config"])
     draft = {"draft_config": dcfg,
              "draft_params": init_llama(dcfg, torch.Generator(device=dev).manual_seed(SEED + 9),
@@ -7094,7 +7679,11 @@ def main(argv=None) -> int:
                               "slice_moe": sm["launches"]["paged_attention"],
                               "profile_moe": pm["launches_counted"]["paged_attention"],
                               "mesh_tp": mtp["launches"]["paged_attention"],
-                              "mesh_tp_logits": mtp["logits"]["paged_attention_launches"]},
+                              "mesh_tp_logits": mtp["logits"]["paged_attention_launches"],
+                              "mesh_ep": mep["launches"]["paged_attention"],
+                              "mesh_ep_logits": mep["logits"]["paged_attention_launches"],
+                              "mesh_sp": msp["serving"]["launches"]["paged_attention"],
+                              "mesh_train": mesh_train["dp_tp"]["launches"]["paged_attention"]},
          "launches_by_worker": {
              "replicas_2_process": workers["replicas_2_process"]["launches_by_worker"],
              "replicas_2_socket": [w["launches"] for w in
@@ -7130,6 +7719,9 @@ def main(argv=None) -> int:
          "device_launches_slice_moe": family_launches(sm["device_launches"],
                                                       "paged_attention"),
          "device_launches_mesh_tp": family_launches(mtp["device_launches"], "paged_attention"),
+         "device_launches_mesh_ep": family_launches(mep["device_launches"], "paged_attention"),
+         "device_launches_mesh_ep_logits": family_launches(
+             mep["logits"]["device_launches"], "paged_attention"),
          "device_launches_profile_moe": device_launches(pm, "paged_attention"),
          **{k: paged[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                   "bound_by", "library_ms")},
@@ -7146,7 +7738,9 @@ def main(argv=None) -> int:
                                   gates["int8"]["launches"]["paged_attention_quant"],
                               "slice_moe_int8": sm8["launches"]["paged_attention_quant"],
                               "mesh_tp_logits_int8":
-                                  mtp["logits_int8"]["paged_attention_quant_launches"]},
+                                  mtp["logits_int8"]["paged_attention_quant_launches"],
+                              "mesh_ep_logits_int8":
+                                  mep["logits_int8"]["paged_attention_quant_launches"]},
          "device_launches_quality_gates_int8": family_launches(
              gates["int8"]["device_launches"], "paged_attention_quant"),
          "device_launches": family_launches(sl8["device_launches"], "paged_attention_quant"),
@@ -7159,6 +7753,8 @@ def main(argv=None) -> int:
                                         "bound_by", "library_ms")},
          "device_launches_mesh_tp_logits_int8": family_launches(
              mtp["logits_int8"]["device_launches"], "paged_attention_quant"),
+         "device_launches_mesh_ep_logits_int8": family_launches(
+             mep["logits_int8"]["device_launches"], "paged_attention_quant"),
          "cases": [paged_quant, paged_quant_chat, paged_quant_eval,
                    tp2["paged_attention_quant"]]},
         {"name": "flash_attention", "route": "cuda",
@@ -7196,7 +7792,10 @@ def main(argv=None) -> int:
                               "slice_moe": sm["launches"]["flash_attention"],
                               "profile_moe": pm["launches_counted"]["flash_attention"],
                               "slice_moe_int8": sm8["launches"]["flash_attention"],
-                              "mesh_tp": mtp["launches"]["flash_attention"]},
+                              "mesh_tp": mtp["launches"]["flash_attention"],
+                              "mesh_sp": msp["serving"]["launches"]["flash_attention"],
+                              "mesh_ep": mep["launches"]["flash_attention"],
+                              "mesh_train": mesh_train["dp_tp"]["launches"]["flash_attention"]},
          "device_launches": {path: family_launches(x["device_launches"], "flash_attention")
                              for path, x in (("slice", sl), ("slice_int8", sl8),
                                              ("slice_contig", sc), ("service", service),
@@ -7210,7 +7809,7 @@ def main(argv=None) -> int:
                                              ("spec_exact", spec_exact), ("verify_modes", vm),
                                              *((path, rep[path]) for path in rep_paths),
                                              ("slice_moe", sm), ("slice_moe_int8", sm8),
-                                             ("mesh_tp", mtp))},
+                                             ("mesh_tp", mtp), ("mesh_ep", mep))},
          "device_launches_eval": {name: family_launches(ev[name]["device_launches"],
                                                         "flash_attention")
                                   for name in ("dense", "hybrid_rerank", "full_paged",

@@ -42,10 +42,22 @@ from sentio_tpu_torch.models.llama import (
     Cache,
     LlamaConfig,
     _attn,
+    home_device,
     init_llama,
     llama_forward,
+    nll_sums,
+    tp_forward,
+    weighted_mean,
 )
 from sentio_tpu_torch.models.transformer import dense_init, embed_init, normal_matrix
+from sentio_tpu_torch.parallel.collectives import psum
+from sentio_tpu_torch.parallel.sharding import (
+    LLAMA_TP_RULES,
+    MOE_EP_RULES,
+    Rules,
+    ShardedParams,
+    TPShards,
+)
 
 Tensor = torch.Tensor
 
@@ -246,26 +258,68 @@ def moe_mlp(mp: dict, cfg: MoeConfig, x: Tensor, pad_mask: Optional[Tensor] = No
     """Routed SwiGLU over x [B, T, D] → (out [B, T, D], aux scalar).
     ``pad_mask`` [B, T] keeps padding from taking expert capacity or
     skewing the load-balance statistics; the call's routing is added to
-    ``tally`` (:func:`route_tally`) when one is given. Under CUDA graph
-    capture the capacity buffers run whatever the call's size: the grouped
-    rows read per-expert counts on the host."""
+    ``tally`` (:func:`route_tally`) when one is given."""
+    return _routed(mp["router"], cfg, x, pad_mask, tally,
+                   lambda r, flat, capacity, by_capacity:
+                   _experts(mp, r, flat, capacity, by_capacity, cfg.torch_dtype))
+
+
+def ep_moe_mlp(shards: TPShards, layer: str, cfg: MoeConfig, x: Tensor,
+               pad_mask: Optional[Tensor] = None, tally: Optional[Tensor] = None
+               ) -> tuple[Tensor, Tensor]:
+    """:func:`moe_mlp` over an ep × tp mesh (``shards.experts``: each ep
+    coordinate's tp shards, ``MOE_EP_RULES``). The routing is computed once,
+    from the replicated router on the first shard; each ep shard runs its
+    ``E/ep`` experts' products on the choices routed to them (the others
+    read zero rows), split over tp inside (each shard's ``w_gate`` /
+    ``w_up`` columns and ``w_down`` rows); the partial outputs are summed
+    over ep then tp in a fixed order on ``x``'s device, and combined there
+    as :func:`moe_mlp` combines them."""
+
+    def experts(r: Routing, flat: Tensor, capacity: int, by_capacity: bool) -> Tensor:
+        parts = []
+        for e, ep_shards in enumerate(shards.experts):
+            n_local = ep_shards[0][layer]["moe"]["w_gate"].shape[0]
+            lo = e * n_local
+            mine = r.keep & (r.expert >= lo) & (r.expert < lo + n_local)
+            for tree, dev in zip(ep_shards, ep_shards.devices):
+                local = Routing(*(v.to(dev) for v in (r.expert - lo, r.pos, mine, r.weight)),
+                                r.aux)
+                parts.append(_experts(tree[layer]["moe"], local, flat.to(dev), capacity,
+                                      by_capacity, cfg.torch_dtype))
+        return psum(parts, x.device)
+
+    return _routed(shards[0][layer]["moe"]["router"], cfg, x, pad_mask, tally, experts)
+
+
+def _routed(router: dict, cfg: MoeConfig, x: Tensor, pad_mask: Optional[Tensor],
+            tally: Optional[Tensor], experts) -> tuple[Tensor, Tensor]:
+    """The routing and the combine around ``experts(routing, flat rows,
+    capacity, by_capacity)`` → per-choice outputs [k, G, D]. Under CUDA
+    graph capture the capacity buffers run whatever the call's size: the
+    grouped rows read per-expert counts on the host."""
     dt = cfg.torch_dtype
     b, t, d = x.shape
     g = b * t
     flat = x.reshape(g, d).to(dt)
     capacity = expert_capacity(cfg, g)
-    logits = L.dense(mp["router"], flat, torch.float32)  # [G, E]
-    valid = None if pad_mask is None else pad_mask.reshape(g)
+    logits = L.dense(router, flat, torch.float32)  # [G, E]
+    valid = None if pad_mask is None else pad_mask.reshape(g).to(flat.device)
     r = route(logits, cfg.experts_per_token, capacity, valid)
     if tally is not None:
         _add_to_tally(tally, r, valid)
-    if g <= CAPACITY_DISPATCH_ROWS or (x.is_cuda and torch.cuda.is_current_stream_capturing()):
-        y = _capacity_experts(mp, r, flat, capacity, dt)
-    else:
-        y = _grouped_experts(mp, r, flat, dt)
+    capturing = x.is_cuda and torch.cuda.is_current_stream_capturing()
+    y = experts(r, flat, capacity, g <= CAPACITY_DISPATCH_ROWS or capturing)
     # JAX's combine: gates rounded to the compute dtype, summed in float32
     out = (r.weight.to(dt).float()[:, :, None] * y.float()).sum(dim=0).to(dt)
     return out.reshape(b, t, d), r.aux
+
+
+def _experts(mp: dict, r: Routing, flat: Tensor, capacity: int, by_capacity: bool,
+             dt: torch.dtype) -> Tensor:
+    if by_capacity:
+        return _capacity_experts(mp, r, flat, capacity, dt)
+    return _grouped_experts(mp, r, flat, dt)
 
 
 def moe_forward(params: dict, cfg: MoeConfig, ids: Tensor,
@@ -275,7 +329,22 @@ def moe_forward(params: dict, cfg: MoeConfig, ids: Tensor,
                 tally: Optional[Tensor] = None) -> tuple[Tensor, Optional[Cache], Tensor]:
     """ids [B, T] → (logits [B, T, vocab] float32, cache, the layers' summed
     aux loss): ``llama_forward``'s contract (``logit_index`` included) plus
-    the router's aux scalar; every layer's routing goes into ``tally``."""
+    the router's aux scalar; every layer's routing goes into ``tally``.
+
+    Expert parallel: ``params`` a :class:`TPShards` (``MOE_EP_RULES``) runs
+    :func:`~.llama.tp_forward` with each layer's experts through
+    :func:`ep_moe_mlp`."""
+    if isinstance(params, TPShards):
+        aux: list = []
+
+        def experts(i: int, xm: Tensor) -> Tensor:
+            out, layer_aux = ep_moe_mlp(params, f"layers_{i}", cfg, xm, pad_mask, tally)
+            aux.append(layer_aux)
+            return out
+
+        logits, cache = tp_forward(params, cfg, ids, positions, cache, cache_index, pad_mask,
+                                   attn_fn, logit_index, mlp=experts)
+        return logits, cache, torch.stack(aux).sum()
     dt = cfg.torch_dtype
     b, t = ids.shape
     if positions is None:
@@ -311,6 +380,29 @@ def moe_serving_forward(params: dict, cfg: MoeConfig, ids: Tensor,
     logits, cache, _ = moe_forward(params, cfg, ids, positions, cache, cache_index, pad_mask,
                                    attn_fn, logit_index, tally)
     return logits, cache
+
+
+def moe_loss(params, cfg: MoeConfig, ids: Tensor, mask: Tensor) -> Tensor:
+    """Next-token cross-entropy plus ``router_aux_weight`` × the layers'
+    summed aux: the ep train step's objective. The aux stays
+    differentiable through the router's probabilities; both dispatch
+    routes are differentiable (index copies and gathers). ``params`` a
+    plain tree, a :class:`TPShards` or a
+    :class:`~..parallel.sharding.ShardedParams`; the last routes the whole
+    batch on its first data coordinate, since the capacity couples every
+    token of the call (JAX routes the global batch; a split over dp would
+    drop other choices)."""
+    group = params.group(0) if isinstance(params, ShardedParams) else params
+    dev = home_device(group)
+    ids, mask = ids.to(dev), mask.to(dev)
+    logits, _, aux = moe_forward(group, cfg, ids[:, :-1], pad_mask=mask[:, :-1])
+    return weighted_mean([nll_sums(logits, ids, mask)], dev) + cfg.router_aux_weight * aux
+
+
+def decoder_rules(cfg: LlamaConfig) -> Rules:
+    """The sharding rules of a decoder config's family on a mesh, JAX's
+    engines' ``default_rules``."""
+    return MOE_EP_RULES if isinstance(cfg, MoeConfig) else LLAMA_TP_RULES
 
 
 def tallied(forward_fn, tally: Optional[Tensor]):

@@ -135,9 +135,10 @@ class CrossEncoderReranker(Reranker):
         # coordinate's tp shards (JAX replicates the encoder over dp)
         self.mesh = mesh
         if mesh is not None:
-            shards = shard_params(params, mesh, ENCODER_TP_RULES).tp(0)
-            params = shards if shards.tp > 1 else shards[0]
+            params = shard_params(params, mesh, ENCODER_TP_RULES).group(0)
         self.params = params
+        # JAX's policy: the flash kernel per tp shard at sp 1, plain
+        # attention on an sp mesh (the ring is causal-only)
         self.attn_fn = select_encoder_attn_fn(mesh, self.model_config.n_heads)
         # encoder forwards (each one flash launch a layer on the card)
         self.forwards = 0

@@ -5,8 +5,9 @@ A :class:`Mesh` is an array of ``torch.device`` with JAX's named axes,
 outermost to innermost ``dcn``, ``dp``, ``pp``, ``ep``, ``sp``, ``tp``.
 JAX's serving mesh is single-controller: one process drives every device
 and XLA inserts the collectives. The port keeps that design: one process
-drives the mesh, and :mod:`.collectives` holds the two collectives the
-Megatron layout needs (a sum and a gather over ``tp``).
+drives the mesh, and :mod:`.collectives` holds the collectives the
+Megatron layout, the ring and the pipeline need (a sum and a gather over
+``tp``, a permutation over ``sp`` or ``pp``).
 
 A device may repeat in a mesh (``[cuda:0, cuda:0]``): every coordinate
 still holds its own weight shard and pool, and launches its own kernels,
@@ -179,15 +180,6 @@ def split_mesh_dp(mesh: Mesh, n: int) -> list[Mesh]:
         )
     axis = MESH_AXES.index(AXIS_DP)
     return [Mesh(chunk, MESH_AXES) for chunk in np.split(mesh.devices, n, axis=axis)]
-
-
-def check_mesh_axes(sp: int, pp: int, ep: int) -> None:
-    """The serving mesh is dp, tp and dcn: sequence, pipeline and expert
-    parallelism are the training half of the mesh, not ported."""
-    for name, size in (("MESH_SP", sp), ("MESH_PP", pp), ("MESH_EP", ep)):
-        if size > 1:
-            raise NotImplementedError(f"{name}={size}: sequence, pipeline and expert "
-                                      "parallelism are not ported: ROADMAP item 10b")
 
 
 def data_axes(mesh: Mesh) -> tuple[str, ...]:

@@ -67,9 +67,10 @@ LLAMA_TP_RULES: Rules = (
 )
 
 # MoE decoder: attention follows the Llama layout; expert stacks shard
-# experts over ``ep`` and keep the Megatron split of each expert's product
-# over ``tp``; the router replicates. Defined for the training half of the
-# mesh (ROADMAP 10b); nothing in this package serves with it yet.
+# experts over ``ep`` on the leading dim and keep the Megatron split of each
+# expert's product over ``tp`` (the stacks keep JAX's [E, in, out] layout,
+# so these specs apply as written); the router replicates. The default
+# rules of a MoE model on a mesh (``models.moe.decoder_rules``).
 MOE_EP_RULES: Rules = (
     (r".*moe/router/kernel$", P()),
     (r".*moe/(w_gate|w_up)$", P(AXIS_EP, None, AXIS_TP)),
@@ -162,11 +163,14 @@ def _set(tree: dict, path: str, value) -> None:
 class TPShards(list):
     """One data coordinate's parameter trees, one per ``tp`` shard in order,
     with the device each lives on: the form the models' tensor-parallel
-    forwards take."""
+    forwards take. ``experts`` holds the same for every ``ep`` coordinate
+    in order (this object first): a MoE layer's expert slices live on all
+    of them."""
 
     def __init__(self, trees: Sequence[dict], devices: Sequence[torch.device]) -> None:
         super().__init__(trees)
         self.devices = list(devices)
+        self.experts: list[TPShards] = [self]
 
     @property
     def tp(self) -> int:
@@ -179,19 +183,78 @@ class ShardedParams:
     that are the same slice on the same device are one tensor, and a shard
     that is its whole source on the source's device is the source."""
 
-    def __init__(self, mesh: Mesh, rules: Rules, trees: dict) -> None:
+    def __init__(self, mesh: Mesh, rules: Rules, trees: dict,
+                 slices: Optional[dict] = None) -> None:
         self.mesh = mesh
         self.rules = rules
         self.trees = trees
+        # per coordinate, each leaf's (start, stop) per dim in its source
+        self.slices = slices or {}
 
-    def tp(self, row: int = 0) -> TPShards:
+    def tp(self, row: int = 0, stage: int = 0) -> TPShards:
         """The ``tp`` shards of data coordinate ``row`` (``dcn`` × ``dp`` in
-        order) at the first coordinate of pp, ep and sp."""
+        order) at pipeline stage ``stage`` and the first coordinate of sp,
+        with every ``ep`` coordinate's shards in ``experts`` where the
+        rules split a leaf over ``ep``."""
         dp = self.mesh.shape[AXIS_DP]
         dcn_i, dp_i = divmod(row, dp)
-        coords = [(dcn_i, dp_i, 0, 0, 0, t) for t in range(self.mesh.shape[AXIS_TP])]
-        return TPShards([self.trees[c] for c in coords],
-                        [self.mesh.devices[c] for c in coords])
+        n_ep = self.mesh.shape[AXIS_EP] if self.splits(AXIS_EP) else 1
+
+        def at(e: int) -> TPShards:
+            coords = [(dcn_i, dp_i, stage, e, 0, t) for t in range(self.mesh.shape[AXIS_TP])]
+            return TPShards([self.trees[c] for c in coords],
+                            [self.mesh.devices[c] for c in coords])
+
+        first = at(0)
+        if n_ep > 1:
+            first.experts = [first, *(at(e) for e in range(1, n_ep))]
+        return first
+
+    def group(self, row: int = 0, stage: int = 0):
+        """What data coordinate ``row`` computes on: its :meth:`tp` shards,
+        or their one plain tree where a single shard holds the whole model
+        (tp 1 and no leaf split over ``ep``)."""
+        shards = self.tp(row, stage)
+        return shards[0] if shards.tp == 1 and len(shards.experts) == 1 else shards
+
+    def groups(self, rows: int) -> list:
+        """``(row slice, parameters)`` for each data group of a call's
+        ``rows``: one a data coordinate where they divide the rows, else
+        every row on the first coordinate (JAX replicates an indivisible
+        batch)."""
+        n = self.rows if rows % self.rows == 0 else 1
+        per = rows // n
+        return [(slice(g * per, (g + 1) * per), self.group(g)) for g in range(n)]
+
+    def splits(self, axis: str) -> bool:
+        """Whether a rule names ``axis`` (an axis no rule names replicates)."""
+        for _, spec in self.rules:
+            for entry in spec:
+                if axis == entry or (isinstance(entry, tuple) and axis in entry):
+                    return True
+        return False
+
+    def copies(self) -> list[list[torch.Tensor]]:
+        """For each leaf slice held by more than one distinct tensor (the
+        same slice on several devices), those tensors: what
+        :func:`~.collectives.psum_replicated_grads` sums over."""
+        groups: dict = {}
+        for coord, tree in self.trees.items():
+            for path, leaf in leaves(tree):
+                key = (path, self.slices[coord][path])
+                group = groups.setdefault(key, [])
+                if all(leaf is not t for t in group):
+                    group.append(leaf)
+        return [g for g in groups.values() if len(g) > 1]
+
+    def parameters(self) -> list[torch.Tensor]:
+        """Every distinct tensor of every coordinate, once: what an
+        optimizer steps."""
+        seen: dict = {}
+        for tree in self.trees.values():
+            for _, leaf in leaves(tree):
+                seen.setdefault(id(leaf), leaf)
+        return list(seen.values())
 
     @property
     def rows(self) -> int:
@@ -203,18 +266,28 @@ class ShardedParams:
         per = self.mesh.shape[AXIS_DP] // n
         out = []
         for i, sub in enumerate(subs):
-            trees = {(c[0], c[1] - i * per, *c[2:]): tree for c, tree in self.trees.items()
-                     if i * per <= c[1] < (i + 1) * per}
-            out.append(ShardedParams(sub, self.rules, trees))
+            keep = [c for c in self.trees if i * per <= c[1] < (i + 1) * per]
+            trees = {(c[0], c[1] - i * per, *c[2:]): self.trees[c] for c in keep}
+            slices = {(c[0], c[1] - i * per, *c[2:]): self.slices[c] for c in keep
+                      if c in self.slices}
+            out.append(ShardedParams(sub, self.rules, trees, slices))
         return out
 
 
 def shard_params(params: dict, mesh: Mesh, rules: Rules) -> ShardedParams:
     """Place a parameter tree onto the mesh by the rules: each coordinate
     gets its slice of every leaf as a contiguous tensor on its device."""
+    return shard_by_specs(params, mesh, rules,
+                          lambda path, leaf: port_spec(path, rules, leaf.dim()))
+
+
+def shard_by_specs(params: dict, mesh: Mesh, rules: Rules, spec_of) -> ShardedParams:
+    """:func:`shard_params` with each leaf's spec from ``spec_of(path,
+    leaf)``; ``rules`` are recorded as the tree's (which axes they split)."""
     trees: dict = {coord: {} for coord, _ in mesh.coords()}
+    slices: dict = {coord: {} for coord, _ in mesh.coords()}
     for path, leaf in leaves(params):
-        spec = port_spec(path, rules, leaf.dim())
+        spec = spec_of(path, leaf)
         made: dict = {}
         for coord, device in mesh.coords():
             index = _index(spec, leaf.shape, dict(zip(mesh.axis_names, coord)), mesh)
@@ -225,7 +298,12 @@ def shard_params(params: dict, mesh: Mesh, rules: Rules) -> ShardedParams:
                     made[key] = leaf
                 else:
                     part = leaf[tuple(slice(lo, hi) for lo, hi in index)]
-                    made[key] = part.to(device).contiguous()
+                    # storage of its own on a device named apart from the
+                    # source's, as on a distinct card: ``Tensor.to`` keeps
+                    # the storage where two names (``cuda``, ``cuda:0``)
+                    # mean one card, and a step would then move it twice
+                    made[key] = part.to(device, copy=device != leaf.device).contiguous()
             _set(trees[coord], path, made[key])
-    return ShardedParams(mesh, rules, trees)
+            slices[coord][path] = index
+    return ShardedParams(mesh, rules, trees, slices)
 

@@ -42,10 +42,10 @@ generation speculative as in the JAX container: the paged engine runs
 every decode tick as a spec tick (``runtime/paged_spec.py``) unless
 ``PREFILL_CHUNK`` is set, which excludes it (a warning, and
 ``speculative_info`` says why); the contiguous engine is wrapped in a
-``SpeculativeDecoder`` (``runtime/speculative.py``). ``MESH_DP``,
-``MESH_TP`` and ``MESH_DCN`` (or a caller's ``mesh``) put the models on a
-device mesh (``parallel/``), as JAX's container does; :func:`build_pipeline`
-gives its rules.
+``SpeculativeDecoder`` (``runtime/speculative.py``). The ``MESH_*``
+settings (or a caller's ``mesh``) put the models on a device mesh
+(``parallel/``), as JAX's container does; :func:`build_pipeline` gives
+its rules.
 
 * :meth:`ChatPipeline.ingest` embeds pre-chunked documents, adds them to
   the index and rebuilds the BM25 index over the index's documents, under
@@ -86,7 +86,7 @@ from sentio_tpu_torch.infra.metrics import get_metrics
 from sentio_tpu_torch.infra.tracing import get_tracing
 from sentio_tpu_torch.models.document import Document
 from sentio_tpu_torch.models.llama import LlamaConfig
-from sentio_tpu_torch.models.moe import family, init_decoder
+from sentio_tpu_torch.models.moe import decoder_rules, family, init_decoder
 from sentio_tpu_torch.models.transformer import EncoderConfig
 from sentio_tpu_torch.ops.bm25 import BM25Index, BM25Params, make_bm25_index
 from sentio_tpu_torch.ops.confidence import confidence_score
@@ -105,10 +105,9 @@ from sentio_tpu_torch.parallel.mesh import (
     Mesh,
     MeshError,
     build_mesh,
-    check_mesh_axes,
     visible_devices,
 )
-from sentio_tpu_torch.parallel.sharding import LLAMA_TP_RULES, shard_params
+from sentio_tpu_torch.parallel.sharding import shard_params
 from sentio_tpu_torch.runtime.paged import ContinuousBatchingEngine, check_mesh_model
 from sentio_tpu_torch.runtime.replica import ReplicaSet
 from sentio_tpu_torch.runtime.service import PagedGenerationService
@@ -223,10 +222,7 @@ def serving_mesh(cfg, device) -> Optional[Mesh]:
     none at the defaults on a host of one device, else
     :func:`~.parallel.mesh.build_mesh` over the host's devices (every card,
     or the host itself for a CPU pipeline or ``MESH_BACKEND=cpu``), whose
-    ``MeshError`` a size the host cannot hold raises. ``MESH_SP``,
-    ``MESH_PP`` and ``MESH_EP`` above 1 raise ``NotImplementedError``
-    first (ROADMAP 10b)."""
-    check_mesh_axes(cfg.sp_size, cfg.pp_size, cfg.ep_size)
+    ``MeshError`` a size the host cannot hold raises."""
     devices = visible_devices(cfg.backend or ("cpu" if device.type == "cpu" else ""))
     if cfg.dp_size == 0 and cfg.tp_size <= 1 and cfg.sp_size <= 1 and len(devices) <= 1:
         return None  # one device: no mesh machinery
@@ -697,27 +693,26 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
     engine, draft or tier. ``LLM_TOKENIZER`` beside ``LLM_CHECKPOINT`` is
     the engines' and the router's tokenizer (and each worker's).
 
-    The device mesh comes from ``MESH_DP``, ``MESH_TP`` and ``MESH_DCN``
-    (:func:`serving_mesh`, JAX's container rule), or from the caller's
-    ``mesh`` (JAX's ``container.override("mesh", ...)``; a mesh may repeat
-    a device). On a mesh, as JAX's container builds it: the embedder and
-    the cross-encoder shard by ``ENCODER_TP_RULES``, the dense index (and
-    the web-cache index) by rows over every axis, the generator by
-    ``LLAMA_TP_RULES``; ``REPLICAS`` map onto :func:`split_mesh_dp`'s dp
-    slices, or share the whole mesh with a warning when they do not
-    divide; ``REPLICA_MODE=process|socket`` falls to thread mode and a
-    draft is ignored, each with JAX's warning (``speculative_info`` gives
-    the reason). ``MESH_SP``, ``MESH_PP`` and ``MESH_EP`` above 1, and the
-    ``moe`` family at ``tp`` > 1, raise ``NotImplementedError`` (ROADMAP
-    10b)."""
+    The device mesh comes from the ``MESH_*`` settings (:func:`serving_mesh`,
+    JAX's container rule), or from the caller's ``mesh`` (JAX's
+    ``container.override("mesh", ...)``; a mesh may repeat a device). On a
+    mesh, as JAX's container builds it: the embedder and the cross-encoder
+    shard by ``ENCODER_TP_RULES`` (plain attention at sp > 1), the dense
+    index (and the web-cache index) by rows over every axis, the generator
+    by its family's rules (``LLAMA_TP_RULES``, or ``MOE_EP_RULES`` for the
+    ``moe`` family: experts over ep); the contiguous engine's prefill rides
+    the ring at sp > 1; axes the rules do not name replicate.
+    ``REPLICAS`` map onto :func:`split_mesh_dp`'s dp slices, or share the
+    whole mesh with a warning when they do not divide;
+    ``REPLICA_MODE=process|socket`` falls to thread mode and a draft is
+    ignored, each with JAX's warning (``speculative_info`` gives the
+    reason)."""
     settings = settings or Settings()
     rcfg, gcfg = settings.retrieval, settings.generator
     check_verify_mode(gcfg.verify_mode)
     check_replica_settings(settings.serve)
     if mesh is None:
         mesh = serving_mesh(settings.mesh, resolve_device(device))
-    else:
-        check_mesh_axes(mesh.shape["sp"], mesh.shape["pp"], mesh.shape["ep"])
     # LLM_PROVIDER other than tpu (JAX's create_generator): a remote or
     # fake provider, and no engine, draft, service or replica set — nothing
     # of the generator touches the card
@@ -804,7 +799,7 @@ def build_pipeline(settings: Optional[Settings] = None, device=None, seed: int =
             check_mesh_model(llama_config, mesh)
             # the weights on every coordinate once; each engine takes its
             # slice's shards
-            llama_params = shard_params(llama_params, mesh, LLAMA_TP_RULES)
+            llama_params = shard_params(llama_params, mesh, decoder_rules(llama_config))
     if remote is not None:
         provider = remote
     elif gcfg.use_paged_decode:

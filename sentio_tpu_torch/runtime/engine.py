@@ -26,16 +26,23 @@ serves the routed decoder) or the checkpoint's meta, through JAX's
 already done out of routed-expert capacity, as in JAX. Sampling draws from
 the engine's own ``torch.Generator``.
 
-On a device mesh (``mesh``) the weights shard by ``LLAMA_TP_RULES`` (or
-come sharded) and the cache is laid out as JAX's ``P(None, dp,
-None, tp, None)``: a call's rows split over the data coordinates when
-they divide (each group on its own devices), else every row runs on the
-first, as JAX's ``make_mesh_attn_fn`` replicates an indivisible batch
-(JAX's ``device_put`` of such a cache raises); within a group the kv heads
-shard over ``tp`` and each shard's prefill launches the causal flash
-kernel on its heads when the heads divide over ``tp`` (an explicit test
-where JAX catches the kernel's ``ValueError``), plain attention
-otherwise. ``device_stats`` reports the mesh's shape.
+On a device mesh (``mesh``) the weights shard by the family's rules
+(``LLAMA_TP_RULES``, or ``MOE_EP_RULES`` for a MoE model: its experts over
+``ep``; or they come sharded) and the cache is laid out as JAX's
+``P(None, dp, None, tp, None)``: a call's rows split over the data
+coordinates when they divide (each group on its own devices), else every
+row runs on the first, as JAX's ``make_mesh_attn_fn`` replicates an
+indivisible batch (JAX's ``device_put`` of such a cache raises); within a
+group the kv heads shard over ``tp``. The prefill's attention is JAX's
+choice: at sp 1 each shard launches the causal flash kernel on its heads;
+at sp > 1 the sequence rides the ring over the sp coordinates
+(:func:`~..kernels.make_mesh_attn_fn`). Where JAX catches the attention's
+``ValueError`` (heads that do not divide over tp, a width that does not
+divide over sp) and falls back to plain attention, the engine tests the
+shape before the call (:meth:`GeneratorEngine.prefill_attn_fn`).
+``prefill_attention`` names the choice ("flash", "ring" or "plain") and
+``ring_prefills`` counts the prefills the ring ran. ``device_stats``
+reports the mesh's shape.
 """
 
 from __future__ import annotations
@@ -49,16 +56,11 @@ import torch
 
 from sentio_tpu_torch import resolve_device
 from sentio_tpu_torch.config import GeneratorConfig
-from sentio_tpu_torch.kernels import default_attn_fn
-from sentio_tpu_torch.models.llama import LlamaConfig, init_cache, init_tp_cache
-from sentio_tpu_torch.models.moe import decoder_forward, init_decoder
-from sentio_tpu_torch.parallel.mesh import AXIS_TP
-from sentio_tpu_torch.parallel.sharding import (
-    LLAMA_TP_RULES,
-    ShardedParams,
-    TPShards,
-    shard_params,
-)
+from sentio_tpu_torch.kernels import default_attn_fn, make_mesh_attn_fn
+from sentio_tpu_torch.models.llama import LlamaConfig, home_device, init_cache, init_tp_cache
+from sentio_tpu_torch.models.moe import decoder_forward, decoder_rules, init_decoder
+from sentio_tpu_torch.parallel.mesh import AXIS_SP, AXIS_TP
+from sentio_tpu_torch.parallel.sharding import ShardedParams, TPShards, shard_params
 from sentio_tpu_torch.models.tokenizer import ByteTokenizer, batch_encode
 from sentio_tpu_torch.parallel.batcher import bucket_size, floor_bucket
 from sentio_tpu_torch.runtime.paged import check_mesh_model
@@ -112,21 +114,44 @@ class GeneratorEngine:
             init_gen = torch.Generator(device=self.device)
             init_gen.manual_seed(rng_seed)
             params = init_decoder(self.model_config, init_gen, self.device)
-        # prefill attention: flash on the card, plain on the CPU; None runs
-        # the plain path anywhere
+        # prefill attention: flash on the card, plain on the CPU; the ring
+        # over sp on a mesh with sp > 1; None runs the plain path anywhere
         self.attn_fn = default_attn_fn(self.device)
         if mesh is not None:
             check_mesh_model(self.model_config, mesh)
             if not isinstance(params, ShardedParams):
-                params = shard_params(params, mesh, LLAMA_TP_RULES)
-            if self.model_config.n_heads % mesh.shape[AXIS_TP] != 0:
-                self.attn_fn = None  # heads that split within a shard: plain attention
+                params = shard_params(params, mesh, decoder_rules(self.model_config))
+            if mesh.shape[AXIS_SP] > 1:
+                self.attn_fn = make_mesh_attn_fn(mesh)
         self.params = params
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(rng_seed + 17)
-        # prefill dispatches and decode steps run, for launch-count checks
+        # prefill dispatches and decode steps run, for launch-count checks,
+        # and the prefills that rode the ring
         self.prefills = 0
         self.decode_steps = 0
+        self.ring_prefills = 0
+
+    @property
+    def prefill_attention(self) -> str:
+        """The prefill's attention: "ring" (sp > 1), "flash" (the kernel,
+        on the card) or "plain"."""
+        if self.attn_fn is None:
+            return "plain"
+        return "ring" if self.mesh is not None and self.mesh.shape[AXIS_SP] > 1 else (
+            "flash" if self.device.type == "cuda" else "plain")
+
+    def prefill_attn_fn(self, width: int):
+        """The attention a prefill of ``width`` tokens runs: ``attn_fn``
+        where the shape suits it, None (plain attention) where JAX's
+        attention would raise and fall back: heads that do not divide
+        over tp, or on a ring a width that does not divide over sp."""
+        if self.mesh is None or self.attn_fn is None:
+            return self.attn_fn
+        if (self.model_config.n_heads % self.mesh.shape[AXIS_TP] != 0
+                or width % self.mesh.shape[AXIS_SP] != 0):
+            return None
+        return self.attn_fn
 
     # ------------------------------------------------------------- helpers
 
@@ -157,23 +182,11 @@ class GeneratorEngine:
         """``(row slice, parameters)`` of each data group of a call's
         ``rows``: one group off a mesh; on a mesh one a data coordinate
         when they divide the rows, else the first coordinate's alone.
-        A group's parameters are its tp shards (a plain tree at tp 1)."""
+        A group's parameters are its tp shards (a plain tree where one
+        shard holds the whole model)."""
         if self.mesh is None:
             return [(slice(0, rows), self.params)]
-        n = self.params.rows if rows % self.params.rows == 0 else 1
-        per = rows // n
-        out = []
-        for g in range(n):
-            shards = self.params.tp(g)
-            out.append((slice(g * per, (g + 1) * per), shards if shards.tp > 1 else shards[0]))
-        return out
-
-    @staticmethod
-    def _home(params) -> torch.device:
-        """The device a group's parameters compute on."""
-        if isinstance(params, TPShards):
-            return params.devices[0]
-        return params["embed_tokens"]["embedding"].device
+        return self.params.groups(rows)
 
     def _init_cache(self, rows: int, window: int):
         """The call's fresh cache; on a mesh one per data group, each a list
@@ -183,7 +196,7 @@ class GeneratorEngine:
             return init_cache(cfg, rows, window, self.device)
         return [init_tp_cache(cfg, sl.stop - sl.start, window, params)
                 if isinstance(params, TPShards) else
-                init_cache(cfg, sl.stop - sl.start, window, self._home(params))
+                init_cache(cfg, sl.stop - sl.start, window, home_device(params))
                 for sl, params in self._groups(rows)]
 
     def _forward(self, ids: Tensor, cache, **kwargs) -> Tensor:
@@ -195,7 +208,7 @@ class GeneratorEngine:
                                    **kwargs)[0]
         parts = []
         for (sl, params), group_cache in zip(self._groups(ids.shape[0]), cache):
-            dev = self._home(params)
+            dev = home_device(params)
             args = {k: (v[sl].to(dev) if isinstance(v, Tensor) else v)
                     for k, v in kwargs.items()}
             logits, _ = self.forward_fn(params, self.model_config, ids[sl].to(dev),
@@ -220,9 +233,12 @@ class GeneratorEngine:
     def _prefill(self, ids, positions, cache, pad_mask) -> Tensor:
         """Prefill the block at cache offset 0 → logits [rows, width, V]."""
         self.prefills += 1
+        attn_fn = self.prefill_attn_fn(ids.shape[1])
+        if attn_fn is not None and self.prefill_attention == "ring":
+            self.ring_prefills += 1
         return self._forward(self._tensor(ids), cache, positions=self._tensor(positions),
                              cache_index=0, pad_mask=self._tensor(pad_mask, torch.bool),
-                             attn_fn=self.attn_fn)
+                             attn_fn=attn_fn)
 
     def _decode_step(self, tok: Tensor, lens: Tensor, cache, temperature: float,
                      top_k: int, live: Optional[Tensor] = None) -> Tensor:

@@ -114,6 +114,8 @@ from sentio_tpu_torch.models.llama import (
 from sentio_tpu_torch.models.moe import (
     MoeConfig,
     decoder_forward,
+    decoder_rules,
+    ep_moe_mlp,
     init_decoder,
     moe_mlp,
     route_tally,
@@ -123,13 +125,8 @@ from sentio_tpu_torch.models.moe import (
 from sentio_tpu_torch.models.tokenizer import ByteTokenizer
 from sentio_tpu_torch.parallel.batcher import bucket_size
 from sentio_tpu_torch.parallel.collectives import all_gather, broadcast, psum
-from sentio_tpu_torch.parallel.mesh import AXIS_EP, AXIS_PP, AXIS_SP, AXIS_TP, check_mesh_axes
-from sentio_tpu_torch.parallel.sharding import (
-    LLAMA_TP_RULES,
-    ShardedParams,
-    TPShards,
-    shard_params,
-)
+from sentio_tpu_torch.parallel.mesh import AXIS_TP
+from sentio_tpu_torch.parallel.sharding import ShardedParams, TPShards, shard_params
 from sentio_tpu_torch.runtime.radix import RadixPrefixCache
 from sentio_tpu_torch.runtime.sampling import sample_tokens
 
@@ -154,14 +151,11 @@ def fold_seed(generator: torch.Generator, seed: int) -> None:
 
 
 def check_mesh_model(cfg: LlamaConfig, mesh, draft_params=None) -> None:
-    """What an engine on a mesh serves: a llama model whose kv heads divide
-    over ``tp``, on dp, tp and dcn axes only, with no draft (JAX's paged
-    speculation is single-chip; sp, pp, ep and MoE on a mesh are ROADMAP
-    10b)."""
-    check_mesh_axes(mesh.shape[AXIS_SP], mesh.shape[AXIS_PP], mesh.shape[AXIS_EP])
-    if isinstance(cfg, MoeConfig) and mesh.shape[AXIS_TP] > 1:
-        raise NotImplementedError("a MoE model on a device mesh (MOE_EP_RULES, expert "
-                                  "parallelism) is not ported: ROADMAP item 10b")
+    """What an engine on a mesh serves: a model whose kv heads divide over
+    ``tp`` (the pool holds whole kv heads a shard), with no draft (JAX's
+    paged speculation is single-chip). Every axis is served: the rules
+    shard what they name, and the axes they do not name (pp and sp for
+    the decoder, ep for a llama model) replicate."""
     if draft_params is not None:
         raise ValueError("paged speculation does not support a mesh yet")
     check_tp(cfg, mesh.shape[AXIS_TP])
@@ -336,7 +330,8 @@ def paged_decode_forward(params: dict, cfg: LlamaConfig, tok: Tensor, lens: Tens
     Tensor parallel: ``params`` a :class:`TPShards` and ``k_pages`` /
     ``v_pages`` lists of the shards' pages; each shard writes and attends
     its own kv heads (one kernel launch a shard a layer) and the partial
-    outputs are summed over ``tp``."""
+    outputs are summed over ``tp``; a MoE layer's experts run over every
+    ep × tp shard (:func:`~..models.moe.ep_moe_mlp`)."""
     dt = cfg.torch_dtype
     hd = cfg.head_dim
     tp = isinstance(params, TPShards)
@@ -379,8 +374,9 @@ def paged_decode_forward(params: dict, cfg: LlamaConfig, tok: Tensor, lens: Tens
         x = x + (psum(parts, devs[0]) if tp else parts[0])
         xm = L.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
         if "moe" in lp:
-            routed, _ = moe_mlp(lp["moe"], cfg, xm,
-                                None if write_mask is None else write_mask[:, None], tally)
+            route_mask = None if write_mask is None else write_mask[:, None]
+            routed, _ = (ep_moe_mlp(params, name, cfg, xm, route_mask, tally) if tp
+                         else moe_mlp(lp["moe"], cfg, xm, route_mask, tally))
             x = x + routed
         elif tp:
             xm = broadcast(xm, devs)
@@ -578,7 +574,10 @@ class ContinuousBatchingEngine:
     (``_paged_attn_xla``) when set to it.
     ``forward_fn`` is JAX's model-family seam: by default the config's
     family (a ``MoeConfig`` routes its layers through experts, and
-    :meth:`stats` reports the engine's routing tally).
+    :meth:`stats` reports the engine's routing tally); on an sp mesh
+    ``partial(llama_forward, attn_fn=make_mesh_attn_fn(mesh))`` runs each
+    whole-prompt prefill's attention on the ring (a prefill over prior
+    pages runs plain attention: its queries start past position 0).
     ``kv_quant="int8"`` stores the
     pool as int8 codes plus f16 scales (``KV_QUANT``), which routes decode
     to the int8 kernel. ``prefix_cache`` (``PREFIX_CACHE``),
@@ -688,19 +687,25 @@ class ContinuousBatchingEngine:
         with self.on_stream():
             self.route_tally = route_tally(self.cfg, self.device)
         self._forward = tallied(self.forward_fn, self.route_tally)
-        # on a mesh: the weights on every coordinate, and the first data
-        # coordinate's tp shards, which this engine computes on
+        # on a mesh: the weights on every coordinate (by the family's rules),
+        # and the first data coordinate's shards, which this engine computes
+        # on: axes the rules do not name (pp and sp, ep for a llama model)
+        # replicate, so one group computes what every coordinate would, and
+        # each kernel launches once a tp shard
         self.mesh = mesh
         self.sharded = None
         if mesh is not None:
             with self.on_stream():
                 self.sharded = (params if isinstance(params, ShardedParams)
-                                else shard_params(params, mesh, LLAMA_TP_RULES))
-            shards = self.sharded.tp(0)
-            # at tp 1 the one shard is a plain tree: today's code path
-            params = shards if shards.tp > 1 else shards[0]
+                                else shard_params(params, mesh, decoder_rules(self.cfg)))
+            # one shard holding the whole model is a plain tree: the
+            # single-device code path
+            params = self.sharded.group(0)
         self.params = params
-        self.tp = params.tp if isinstance(params, TPShards) else 1
+        # sharded compute (tp shards, or a MoE model's ep shards): the pool
+        # and the prefill caches are lists, one a tp shard
+        self.sharded_compute = isinstance(params, TPShards)
+        self.tp = params.tp if self.sharded_compute else 1
         self.max_slots = max_slots
         self.page_size = page_size
         self.max_pages_per_seq = max_pages_per_seq
@@ -716,7 +721,7 @@ class ContinuousBatchingEngine:
             num_pages = 1 + max_slots * max_pages_per_seq
         self.kv_quant = kv_quant
         with self.on_stream():
-            if self.tp == 1:
+            if not self.sharded_compute:
                 self.pool = init_pool(self.cfg, num_pages, page_size, self.device,
                                       quantized=kv_quant == "int8")
             else:
@@ -1193,14 +1198,14 @@ class ContinuousBatchingEngine:
         # one pad token does, as in JAX); llama ignores the mask here
         pad_mask = self._to_device(np.arange(width)[None, :] < lens[:, None])
         pools = self._pools()
-        devs = [dev] if self.tp == 1 else self.params.devices
+        devs = self.params.devices if self.sharded_compute else [dev]
         prior_w = 0 if prior_table is None else prior_table.shape[1] * self.page_size
         # one dense cache a tp shard (its kv heads), as the pool is sharded
-        caches = ([init_cache(cfg, b, prior_w + width, dev)] if self.tp == 1
-                  else init_tp_cache(cfg, b, prior_w + width, self.params))
+        caches = (init_tp_cache(cfg, b, prior_w + width, self.params) if self.sharded_compute
+                  else [init_cache(cfg, b, prior_w + width, dev)])
         if prior_table is None:
             logits, _ = self._forward(self.params, cfg, ids_t, positions=positions,
-                                      cache=caches if self.tp > 1 else caches[0],
+                                      cache=caches if self.sharded_compute else caches[0],
                                       cache_index=0, pad_mask=pad_mask, logit_index=last)
             news = [(cache["k"], cache["v"]) for cache in caches]
         else:
@@ -1213,7 +1218,7 @@ class ContinuousBatchingEngine:
                                                                     cfg.torch_dtype)
             logits, _ = self._forward(self.params, cfg, ids_t,
                                       positions=positions + n_prior_t[:, None],
-                                      cache=caches if self.tp > 1 else caches[0],
+                                      cache=caches if self.sharded_compute else caches[0],
                                       cache_index=n_prior_t, pad_mask=pad_mask,
                                       logit_index=last)
             # each row's new KV starts at its own offset in the primed cache
@@ -1231,7 +1236,7 @@ class ContinuousBatchingEngine:
                         write_mask: Optional[Tensor] = None) -> Tensor:
         """One decode sub-step over the pool → logits [B, V]."""
         pools = self._pools()
-        k, v = (([p.k for p in pools], [p.v for p in pools]) if self.tp > 1
+        k, v = (([p.k for p in pools], [p.v for p in pools]) if self.sharded_compute
                 else (self.pool.k, self.pool.v))
         return paged_decode_forward(self.params, self.cfg, tok, lens, page_table,
                                     k, v, attn_impl=self.attn_impl,

@@ -74,7 +74,7 @@ def _carry(tree: dict, dtype: Optional[torch.dtype], device) -> dict:
             out["bias"] = _tensor(tree["bias"]).to(device)
         if dtype is not None:
             out = {k: v.to(dtype) for k, v in out.items()}
-        out["weight"] = out["weight"].t().contiguous()
+        out["weight"] = out["weight"].transpose(-1, -2).contiguous()
         return out
     if "embedding" in tree:
         table = _tensor(tree["embedding"])
@@ -110,6 +110,15 @@ def moe_from_jax(tree: dict, dtype: Optional[torch.dtype] = None,
     return _carry(tree, dtype, device)
 
 
+def stacked_from_jax(tree: dict, dtype: Optional[torch.dtype] = None,
+                     device="cpu") -> dict:
+    """A ``stack_layer_params`` tree (either family): the stacked kernels
+    ``[L, in, out]`` become the port's ``[L, out, in]`` weights, expert
+    stacks ``[L, E, in, out]`` keep their layout."""
+    _check_keys(tree, ("embed_tokens", "lm_head", "final_norm", "layers"), "stacked decoder")
+    return _carry(tree, dtype, device)
+
+
 def encoder_from_jax(tree: dict, dtype: Optional[torch.dtype] = None,
                      device="cpu") -> dict:
     _check_keys(tree, ("embed_tokens", "embed_positions", "embed_norm", "layers_0"),
@@ -141,7 +150,7 @@ def _to_jax(tree: dict) -> dict:
         if isinstance(value, dict):
             out[key] = _to_jax(value)
         elif key == "weight":
-            out["kernel"] = value.detach().cpu().t()
+            out["kernel"] = value.detach().cpu().transpose(-1, -2)
         else:
             out[key] = value.detach().cpu()
     return out
@@ -159,6 +168,12 @@ def encoder_to_jax(params: dict) -> dict:
 def decoder_to_jax(params: dict) -> dict:
     """The inverse of :func:`llama_from_jax` and :func:`moe_from_jax`."""
     _check_keys(params, ("embed_tokens", "lm_head", "final_norm", "layers_0"), "decoder")
+    return _to_jax(params)
+
+
+def stacked_to_jax(params: dict) -> dict:
+    """The inverse of :func:`stacked_from_jax`."""
+    _check_keys(params, ("embed_tokens", "lm_head", "final_norm", "layers"), "stacked decoder")
     return _to_jax(params)
 
 

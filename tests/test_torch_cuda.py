@@ -1031,3 +1031,140 @@ def test_tp2_contiguous_and_encoders_launch_flash_per_shard(dev):
     got = two.embed_many(PROMPTS)
     assert FLASH_KERNEL.launches == 2 * one.model_config.n_layers
     assert abs(got - one.embed_many(PROMPTS)).max() <= ATOL
+
+
+def _mesh(dev, **fields):
+    from sentio_tpu_torch.config import MeshConfig
+    from sentio_tpu_torch.parallel.mesh import build_mesh
+
+    n = 1
+    for v in fields.values():
+        n *= v
+    return build_mesh(MeshConfig(**fields), devices=[dev] * n)
+
+
+def test_mesh_attn_fn_on_the_card(dev):
+    """``make_mesh_attn_fn``: at sp 1 each tp shard launches the flash
+    kernel on its heads (the card counts one launch a shard); at sp 2 the
+    ring (plain products) launches none; both against plain attention."""
+    from sentio_tpu_torch.kernels import make_mesh_attn_fn
+    from sentio_tpu_torch.models import layers as L
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn((2, 256, 8, 64), generator=gen, device=dev, dtype=torch.bfloat16)
+               for _ in range(3))
+    ref = L.attention(q.float(), k.float(), v.float(), L.causal_mask(256, device=dev),
+                      torch.float32)
+    FLASH_KERNEL.launches = 0
+    card0 = FLASH_KERNEL.device_launches()
+    flash = make_mesh_attn_fn(_mesh(dev, dp_size=2, tp_size=2))(q, k, v)
+    torch.cuda.synchronize()
+    assert FLASH_KERNEL.launches == 4  # 2 dp rows × 2 tp shards
+    assert FLASH_KERNEL.device_launches()[0] - card0[0] == 4
+    ring = make_mesh_attn_fn(_mesh(dev, sp_size=2, tp_size=2))(q, k, v)
+    torch.cuda.synchronize()
+    assert FLASH_KERNEL.launches == 4
+    for out in (flash, ring):
+        assert (out.float() - ref).abs().max().item() <= ATOL
+
+
+def test_ep_tp_moe_engine_on_one_card(dev):
+    """A MoE model on ep=2 × tp=2 of the card: each decode sub-step one CUDA
+    graph over every shard, the paged kernel launched once a layer a tp
+    shard a sub-step (= the card's counts), greedy tokens equal to the
+    same sub-step run eagerly and to one device's."""
+    from sentio_tpu_torch.models.moe import MoeConfig, init_moe
+
+    cfg = MoeConfig(vocab_size=512, dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                    mlp_dim=256, max_len=512, rope_theta=10_000.0, n_experts=4,
+                    experts_per_token=2, capacity_factor=2.0)
+    params = init_moe(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    mesh = _mesh(dev, ep_size=2, tp_size=2)
+    kw = dict(max_slots=4, page_size=16, max_pages_per_seq=8, steps_per_tick=8, device=dev)
+    graph = ContinuousBatchingEngine(model_config=cfg, params=params, mesh=mesh, **kw)
+    eager = ContinuousBatchingEngine(model_config=cfg, params=graph.sharded, mesh=mesh, **kw)
+    eager.cuda_graphs = False
+    assert graph.tp == 2 and len(graph.params.experts) == 2 and graph.cuda_graphs
+    graph.run_all(PROMPTS[:1], 4)
+    torch.cuda.synchronize()
+    PAGED_KERNEL.launches = 0
+    card0 = PAGED_KERNEL.device_launches()
+    steps0 = graph.total_sub_steps
+    got = graph.run_all(PROMPTS, 16)
+    torch.cuda.synchronize()
+    steps = graph.total_sub_steps - steps0
+    assert graph.graph_replays > 0 and graph.graph_captures == 1
+    assert PAGED_KERNEL.launches == 2 * cfg.n_layers * steps
+    assert tuple(n - n0 for n, n0 in zip(PAGED_KERNEL.device_launches(), card0)) == \
+        (PAGED_KERNEL.launches,) * 2
+    eager.run_all(PROMPTS[:1], 4)
+    assert [r.tokens for r in eager.run_all(PROMPTS, 16)] == [r.tokens for r in got]
+
+
+def test_train_steps_on_the_card_launch_no_kernel(dev):
+    """``llama_loss`` on dp=2 × tp=2 and ``pipeline_loss`` on pp=2 × tp=2 of
+    the card, forward and backward, launch none of the three kernels; a
+    kernel under autograd refuses (its result would train nothing)."""
+    import dataclasses
+
+    from sentio_tpu_torch.kernels import KERNELS, flash_attn_fn
+    from sentio_tpu_torch.models.llama import init_llama, llama_forward, llama_loss
+    from sentio_tpu_torch.models.llama import stack_layer_params
+    from sentio_tpu_torch.parallel.pipeline import pipeline_loss, shard_stacked_params
+    from sentio_tpu_torch.parallel.sharding import LLAMA_TP_RULES, shard_params
+
+    cfg = LlamaConfig(vocab_size=512, dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                      mlp_dim=512, max_len=512, rope_theta=10_000.0, dtype="float32")
+    params = init_llama(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    ids = torch.randint(1, 512, (4, 65), generator=gen, device=dev)
+    mask = torch.ones((4, 65), dtype=torch.bool, device=dev)
+    sharded = shard_params(params, _mesh(dev, dp_size=2, tp_size=2), LLAMA_TP_RULES)
+    stacked = shard_stacked_params(stack_layer_params(params, cfg), _mesh(dev, pp_size=2,
+                                                                          tp_size=2))
+    for tree in (sharded, stacked):
+        for t in tree.parameters():
+            t.requires_grad_(True)
+    before = [(k.launches, k.device_launches()) for k in KERNELS]
+    ref = llama_loss(sharded, cfg, ids, mask)
+    ref.backward()
+    got = pipeline_loss(stacked, cfg, ids, mask, n_micro=2)
+    got.backward()
+    torch.cuda.synchronize()
+    assert [(k.launches, k.device_launches()) for k in KERNELS] == before
+    assert abs(got.item() - ref.item()) <= 1e-4 * abs(ref.item())
+    leaf = params["layers_0"]["attn"]["wq"]["weight"].detach().requires_grad_(True)
+    tree = dict(params, layers_0=dict(params["layers_0"], attn=dict(
+        params["layers_0"]["attn"], wq={"weight": leaf})))
+    with pytest.raises(RuntimeError, match="no backward"):
+        llama_forward(tree, dataclasses.replace(cfg, dtype="bfloat16"), ids[:, :64],
+                      attn_fn=flash_attn_fn)
+
+
+def test_a_device_named_twice_holds_copies_of_its_own(dev):
+    """A mesh that names the card ``cuda:0`` and ``cuda`` along dp holds
+    each dp group's slices in storage of their own, as two cards would: an
+    optimizer steps each copy once, and after the gradient sum over copies
+    they stay bit-equal."""
+    from sentio_tpu_torch.models.llama import init_llama, llama_loss
+    from sentio_tpu_torch.parallel.collectives import psum_replicated_grads
+    from sentio_tpu_torch.parallel.mesh import MESH_AXES, Mesh
+    from sentio_tpu_torch.parallel.sharding import LLAMA_TP_RULES, shard_params
+
+    cfg = LlamaConfig(vocab_size=512, dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                      mlp_dim=512, max_len=512, rope_theta=10_000.0, dtype="float32")
+    grid = _mesh(dev, dp_size=2, tp_size=2).devices.copy()
+    grid[:, 1:] = torch.device("cuda")
+    sharded = shard_params(init_llama(cfg, torch.Generator(device=dev).manual_seed(0), dev),
+                           Mesh(grid, MESH_AXES), LLAMA_TP_RULES)
+    copies = sharded.copies()
+    assert copies and all(len({t.data_ptr() for t in group}) == len(group) for group in copies)
+    tensors = sharded.parameters()
+    for t in tensors:
+        t.requires_grad_(True)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    ids = torch.randint(1, 512, (4, 65), generator=gen, device=dev)
+    llama_loss(sharded, cfg, ids, torch.ones_like(ids, dtype=torch.bool)).backward()
+    psum_replicated_grads(copies)
+    torch.optim.AdamW(tensors, lr=1e-3, weight_decay=1e-4).step()
+    assert all(torch.equal(group[0], t) for group in copies for t in group[1:])

@@ -116,11 +116,13 @@ def test_device_stats_and_refusals(engines):
     _ref, port = engines
     stats = port.device_stats()
     assert stats["platform"] == "cpu" and stats["model"]["layers"] == 2
-    # a mesh is served (tests/test_torch_mesh.py); its sp, pp and ep axes
-    # are ROADMAP 10b
+    # a mesh is served (tests/test_torch_mesh.py), its sp axis by the ring
+    # (tests/test_torch_ring.py), and the stats report its shape
     sp_mesh = build_mesh(MeshConfig(dp_size=1, sp_size=2), devices=["cpu"] * 2)
-    with pytest.raises(NotImplementedError, match="10b"):
-        GeneratorEngine(config=GeneratorConfig(**GEN), mesh=sp_mesh, device="cpu")
+    on_sp = GeneratorEngine(config=GeneratorConfig(**GEN), mesh=sp_mesh, device="cpu")
+    assert on_sp.prefill_attention == "ring"
+    assert on_sp.device_stats()["mesh"] == {"dcn": 1, "dp": 1, "pp": 1, "ep": 1, "sp": 2,
+                                            "tp": 1}
     # a custom model family needs its params passed in (JAX's ValueError)
     with pytest.raises(ValueError, match="overrides the model family"):
         GeneratorEngine(config=GeneratorConfig(**GEN), forward_fn=lambda *a: a, device="cpu")

@@ -359,14 +359,22 @@ def test_kv_heads_not_divisible_by_tp_raises(llama):
 
 
 def test_engines_refuse_what_the_serving_mesh_is_not(llama):
-    """A MoE model at tp > 1, sp / pp / ep axes (ROADMAP 10b), a draft."""
+    """Every axis is served now: a MoE model at tp > 1 shards by
+    ``MOE_EP_RULES`` (its experts' products over tp), the contiguous engine
+    on an sp mesh prefills on the ring, pp and ep replicate a llama model.
+    What stays refused is a draft on a mesh (JAX's paged speculation is
+    single-chip)."""
     _, cfg, _, tree = llama
-    with pytest.raises(NotImplementedError, match="10b"):
-        ContinuousBatchingEngine(model_config=MoeConfig.tiny(), mesh=port_mesh(1, 2),
-                                 device="cpu")
+    moe_engine = ContinuousBatchingEngine(model_config=MoeConfig.tiny(), mesh=port_mesh(1, 2),
+                                          device="cpu")
+    assert moe_engine.tp == 2 and moe_engine.sharded.rules is psharding.MOE_EP_RULES
+    assert moe_engine.params[1]["layers_0"]["moe"]["w_gate"].shape == (4, 64, 64)
     sp = pmesh.build_mesh(MeshConfig(dp_size=1, sp_size=2), devices=[CPU] * 2)
-    with pytest.raises(NotImplementedError, match="MESH_SP=2.*10b"):
-        GeneratorEngine(model_config=cfg, params=tree, mesh=sp)
+    assert GeneratorEngine(model_config=cfg, params=tree, mesh=sp).prefill_attention == "ring"
+    pp_ep = pmesh.build_mesh(MeshConfig(dp_size=1, pp_size=2, ep_size=2), devices=[CPU] * 4)
+    replicated = ContinuousBatchingEngine(model_config=cfg, params=tree, mesh=pp_ep,
+                                          device="cpu", max_slots=2)
+    assert replicated.tp == 1 and not replicated.sharded_compute
     with pytest.raises(ValueError, match="does not support a mesh"):
         ContinuousBatchingEngine(model_config=cfg, params=tree, mesh=port_mesh(1, 2),
                                  device="cpu", draft_params=tree, draft_config=cfg)

@@ -37,7 +37,7 @@ from sentio_tpu_torch.models.llama import LlamaConfig
 from sentio_tpu_torch.models.moe import MoeConfig
 from sentio_tpu_torch.models.transformer import EncoderConfig
 from sentio_tpu_torch.parallel.mesh import MeshError, build_mesh
-from sentio_tpu_torch.pipeline import build_pipeline
+from sentio_tpu_torch.pipeline import build_pipeline, serving_mesh
 from sentio_tpu_torch.runtime import weights
 from sentio_tpu_torch.serve.app import _decode_info, _device_stats
 
@@ -68,7 +68,7 @@ def shared():
     )
 
 
-def _pipeline(shared, mesh=None, ingest=True, serve=None, **gen):
+def _pipeline(shared, mesh=None, ingest=True, serve=None, llama_params=None, **gen):
     settings = Settings(
         retrieval=RetrievalConfig(strategy="hybrid", top_k=6), rerank=RerankConfig(top_k=3),
         embedder=EmbedderConfig(model_preset="tiny"),
@@ -76,7 +76,7 @@ def _pipeline(shared, mesh=None, ingest=True, serve=None, **gen):
     pipeline = build_pipeline(
         settings, device="cpu", mesh=mesh, llama_config=shared["lcfg"],
         embedder_config=shared["enc"], reranker_config=shared["enc"],
-        llama_params=weights.llama_from_jax(shared["llama_tree"]),
+        llama_params=llama_params or weights.llama_from_jax(shared["llama_tree"]),
         embedder_params=weights.encoder_from_jax(shared["enc_tree"]),
         reranker_params=weights.cross_encoder_from_jax(shared["ce_tree"]))
     if ingest:
@@ -180,20 +180,73 @@ def test_a_draft_is_ignored_on_a_mesh(shared, caplog, paged):
 @pytest.mark.parametrize("fields,name", [(dict(sp_size=2), "MESH_SP=2"),
                                          (dict(pp_size=2), "MESH_PP=2"),
                                          (dict(ep_size=4), "MESH_EP=4")])
-def test_sp_pp_and_ep_are_refused_naming_10b(fields, name):
-    with pytest.raises(NotImplementedError, match=f"{name}.*ROADMAP item 10b"):
-        build_pipeline(Settings(mesh=MeshConfig(**fields)), device="cpu")
-    mesh = build_mesh(MeshConfig(dp_size=1, **fields), devices=[CPU] * max(fields.values()))
-    with pytest.raises(NotImplementedError, match="10b"):
-        build_pipeline(Settings(), device="cpu", mesh=mesh)
+def test_sp_pp_and_ep_are_refused_naming_10b(shared, one_device, fields, name):
+    """Once refused, now served. From the settings, JAX's container rule:
+    sp > 1 asks for a mesh, which the one-device host cannot hold (JAX's
+    ``MeshError``); pp or ep alone with ``MESH_DP`` at 0 build no mesh on
+    one device, as JAX's container does, and with ``MESH_DP=1`` reach the
+    same geometry check. On a caller's tp=2 mesh that repeats the CPU
+    device, ``/chat`` answers as one device does: the sp mesh through the
+    contiguous engine's ring prefill (the encoders on plain attention),
+    pp and ep replicated beside the paged engine's tp shards."""
+    with pytest.raises(MeshError, match="1 devices not divisible"):
+        serving_mesh(MeshConfig(dp_size=1, **fields), CPU)
+    if "sp_size" in fields:
+        with pytest.raises(MeshError, match="1 devices not divisible"):
+            build_pipeline(Settings(mesh=MeshConfig(**fields)), device="cpu")
+    else:
+        assert serving_mesh(MeshConfig(**fields), CPU) is None
+    size = 2 * max(fields.values())
+    mesh = build_mesh(MeshConfig(dp_size=1, tp_size=2, **fields), devices=[CPU] * size)
+    paged = "sp_size" not in fields
+    # the contiguous engine's answers are held to its own on one device
+    ref = one_device if paged else _pipeline(shared, use_paged_decode=False)
+    pipeline = _pipeline(shared, mesh=mesh, use_paged_decode=paged)
+    try:
+        _same_chat(ref, pipeline)
+        assert pipeline.engine.mesh is mesh
+        if paged:
+            assert pipeline.engine.tp == 2 and pipeline.embedder.attn_fn is not None
+        else:
+            assert pipeline.engine.prefill_attention == "ring"
+            assert pipeline.engine.ring_prefills > 0
+            assert pipeline.embedder.attn_fn is None and pipeline.reranker.attn_fn is None
+    finally:
+        pipeline.close()
+        if ref is not one_device:
+            ref.close()
 
 
-def test_moe_at_tp2_is_refused_naming_10b():
-    settings = Settings(generator=GeneratorConfig(model_preset="tiny"),
-                        embedder=EmbedderConfig(model_preset="tiny"))
-    with pytest.raises(NotImplementedError, match="MoE model on a device mesh.*10b"):
-        build_pipeline(settings, device="cpu", mesh=mesh_of(tp=2),
-                       llama_config=MoeConfig.tiny())
+def test_moe_at_tp2_is_refused_naming_10b(shared):
+    """Once refused, now served: a ``moe`` generator on dp=1 × ep=2 × tp=2,
+    and on tp=2 alone, shards by ``MOE_EP_RULES`` and answers ``/chat`` as
+    the same weights on one device do (float32, the no-drop capacity
+    E / k)."""
+    from sentio_tpu.models.moe import MoeConfig as JMoeConfig
+    from sentio_tpu.models.moe import init_moe
+
+    fields = dict(dataclasses.asdict(shared["lcfg"]), n_experts=4, experts_per_token=2,
+                  capacity_factor=2.0)
+    jtree = jax.tree.map(np.asarray, init_moe(jax.random.PRNGKey(34), JMoeConfig(**fields)))
+    moe_shared = dict(shared, lcfg=MoeConfig(**fields))
+
+    def build(mesh):
+        return _pipeline(moe_shared, mesh=mesh, llama_params=weights.moe_from_jax(jtree))
+
+    ref = build(None)
+    try:
+        for ep in (2, 1):
+            pipeline = build(build_mesh(MeshConfig(dp_size=1, ep_size=ep, tp_size=2),
+                                        devices=[CPU] * (2 * ep)))
+            try:
+                _same_chat(ref, pipeline)
+                engine = pipeline.engine
+                assert engine.tp == 2 and len(engine.params.experts) == ep
+                assert sum(engine.stats()["moe_routed"]) > 0
+            finally:
+                pipeline.close()
+    finally:
+        ref.close()
 
 
 def test_mesh_tp_from_the_environment_on_a_one_device_host(monkeypatch):

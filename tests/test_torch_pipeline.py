@@ -289,16 +289,13 @@ def test_build_pipeline_refuses_what_it_cannot_honour(section, field, value):
 def test_build_pipeline_refuses_a_mesh(mesh):
     """The mesh settings are honoured (tests/test_torch_mesh_serving.py), so
     what is refused is a mesh the host cannot hold — a CPU pipeline's host
-    is one device: JAX's MeshError for dp=2 or tp=2 — and sequence
-    parallelism, which is ROADMAP item 10b."""
+    is one device: JAX's MeshError for dp=2, tp=2 or sp=4, sequence
+    parallelism included."""
     from sentio_tpu_torch.config import MeshConfig
     from sentio_tpu_torch.parallel.mesh import MeshError
 
-    if mesh.get("sp_size"):
-        with pytest.raises(NotImplementedError, match="MESH_SP=4.*ROADMAP item 10b"):
-            build_pipeline(Settings(mesh=MeshConfig(**mesh)), device="cpu")
-        return
-    with pytest.raises(MeshError, match="1 devices|needs 2 devices, have 1"):
+    with pytest.raises(MeshError, match=r"1 devices not divisible by tp\*sp\*pp\*ep\*dcn"
+                                        r"|needs 2 devices, have 1"):
         build_pipeline(Settings(mesh=MeshConfig(**mesh)), device="cpu")
 
 
