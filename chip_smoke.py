@@ -349,8 +349,12 @@ IPC handles on them).
     Llama-3's pre-tokenizer filling the model's 128,256 ids (128,000
     synthetic BPE tokens, every pair of byte symbols then pair + symbol,
     and Llama-3's 256 specials; bos ``<|begin_of_text|>``, eos
-    ``<|end_of_text|>``, no pad), a ``Unigram`` / ``Metaspace`` / ``NFKC``
-    with XLM-R's specials at 0–3, a BERT ``WordPiece`` of 512 entries.
+    ``<|end_of_text|>``, no pad), XLM-R's real layout for the embedder
+    (``Sequence[Precompiled, Replace(" {2,}" → " ")]``, ``Metaspace``, a
+    ``Unigram`` with XLM-R's specials at 0–3; the precompiled character
+    map built here, first fit, from ``NFKC`` of every code point, ``Nmt``'s
+    controls and spaces and a few multi-code-point cluster keys; its bytes
+    and build seconds reported), a BERT ``WordPiece`` of 512 entries.
     ``python -m sentio_tpu_torch convert`` runs for the three families at
     once, each in a process of its own (seconds and bytes reported), then
     ``build_pipeline(Settings.from_env())`` reads LLM_CHECKPOINT /
@@ -358,8 +362,11 @@ IPC handles on them).
     RERANKER_CHECKPOINT / RERANKER_TOKENIZER. Gates: every converted leaf,
     loaded on the card, bit-equal to its source tensor, each config equal
     to the live one; every component on its checkpoint's tokenizer (the
-    router's too); the generator's tokenizer round-trips the chats'
-    questions and prompts; 3 chats on 512 chunks in a counted window
+    router's too); the embedder's tokenizer maps "ﬁne  cafe\u0301 ①" to
+    the ids of "fine café 1" (the map's NFKC and cluster key, then the
+    Replace); the generator's tokenizer round-trips the chats'
+    questions and prompts; the ingest's seconds in the embedder
+    tokenizer's ``encode`` reported; 3 chats on 512 chunks in a counted window
     answered, the bf16 paged kernel once per layer (2) per decode sub-step,
     flash as often as the embedder's and cross-encoder's forwards predict,
     each count equal to the card's, no capture after warmup; one prompt's
@@ -448,8 +455,9 @@ IPC handles on them).
 ``slice_contig`` runs Llama-3-8B cut to 16 of its layers (``CONTIG_LAYERS``)
 since convert_serve.
 
-``--only-new`` runs the build, the kernel checks and phases 39–41 only (on
-weights made afresh from the seed) and ends without the result lines.
+``--only-new`` runs the build, the kernel checks and phase 37
+(convert_serve, with provider_settings) only (on weights made afresh from
+the seed) and ends without the result lines.
 ``--rounds-only`` runs the build and replicas_1's warmup and rounds only,
 to compare two trees' round times in one call (copied into the other
 tree's root, it drives that tree's package), and ends the same way.
@@ -6172,6 +6180,93 @@ def write_safetensors(path, tensors: dict) -> int:
     return 8 + len(head) + offset
 
 
+# multi-code-point keys of XLM-R's map kind: decomposed letters composed,
+# looked up whole when their cluster is under 6 bytes
+CHARSMAP_CLUSTER_KEYS = {"e\u0301": "\u00e9", "a\u0300": "\u00e0", "n\u0303": "\u00f1",
+                         "u\u0308": "\u00fc", "\u0438\u0306": "\u0439", "\r\n": " "}
+
+
+def charsmap_rules() -> dict:
+    """SentencePiece's ``nmt_nfkc`` kind of map: ``NFKC`` of every code
+    point it changes, ``Nmt``'s controls dropped and spaces made ' ', and
+    the cluster keys."""
+    import unicodedata
+
+    rules = {}
+    for cp in range(1, 0x110000):
+        c = chr(cp)
+        if not 0xD800 <= cp <= 0xDFFF and unicodedata.normalize("NFKC", c) != c:
+            rules[c] = unicodedata.normalize("NFKC", c)
+    for cp in (*range(0x1, 0x9), 0xB, *range(0xE, 0x20), 0x7F, 0x8F, 0x9F):
+        rules[chr(cp)] = ""
+    for cp in (0x9, 0xA, 0xC, 0xD, 0x1680, *range(0x200B, 0x2010), 0x2028, 0x2029, 0xFEFF):
+        rules[chr(cp)] = " "
+    return {**rules, **CHARSMAP_CLUSTER_KEYS}
+
+
+def build_charsmap(rules: dict) -> bytes:
+    """SentencePiece's precompiled character map of ``rules`` (key →
+    replacement), as ``tokenizers``' ``Precompiled`` reads it: a
+    little-endian u32 of the trie's bytes, a darts-clone double array
+    packed first fit (a node's children take the first free base of the
+    last 16 blocks of 256 units; bases never repeat; the array ends on a
+    block), then the NUL-terminated replacements."""
+    import struct
+
+    strings, value_of = bytearray(), {}
+    for rep in sorted(set(rules.values())):
+        value_of[rep] = len(strings)
+        strings += rep.encode() + b"\0"
+    root: dict = {}
+    for key, rep in rules.items():
+        node = root
+        for b in key.encode():
+            node = node.setdefault(b, {})
+        node[-1] = value_of[rep]
+    units = [0] * 256
+    # skip[i] == i marks a free unit; a taken one points to a later free one
+    skip, bases = list(range(257)), set()
+    skip[0] = 1
+
+    def free_from(i: int) -> int:
+        top = i
+        while skip[top] != top:
+            top = skip[top]
+        while skip[i] != top:
+            skip[i], i = top, skip[i]
+        return top
+
+    stack = [(root, 0)]
+    while stack:
+        node, pos = stack.pop()
+        labels = sorted(k for k in node if k >= 0)
+        slots = ([0] if -1 in node else []) + labels
+        if not slots:
+            continue
+        p = free_from(max(1, len(units) - 4096))
+        while True:
+            base = p ^ slots[0]
+            while (base | 0xFF) >= len(units):
+                skip[len(units):] = range(len(units), len(units) + 257)
+                units += [0] * 256
+            if base not in bases and all(skip[base ^ c] == base ^ c for c in slots[1:]):
+                break
+            p = free_from(p + 1)
+        bases.add(base)
+        offset = pos ^ base
+        if offset >= 1 << 21:
+            raise ValueError("charsmap: an offset outgrows 21 bits")
+        units[pos] |= offset << 10 | (1 << 8 if -1 in node else 0)
+        for c in slots:
+            skip[base ^ c] = (base ^ c) + 1
+        if -1 in node:
+            units[base] = node[-1] | 1 << 31
+        for c in labels:
+            units[base ^ c] = c
+            stack.append((node[c], base ^ c))
+    return struct.pack(f"<I{len(units)}I", 4 * len(units), *units) + bytes(strings)
+
+
 def hf_llama_dir(path, cfg, params) -> int:
     """The decoder (port layout: ``weight`` [out, in], Hugging Face's) as a
     ``LlamaForCausalLM`` directory."""
@@ -6352,11 +6447,18 @@ def write_llama3_tokenizer(path, n_bpe: int = 128_000) -> None:
          "clean_up_tokenization_spaces": False, "tokenizer_class": "PreTrainedTokenizerFast"})
 
 
-def write_unigram_tokenizer(path, words) -> None:
-    """XLM-R's layout with ``NFKC`` in ``Precompiled``'s place: a Unigram of
+def write_unigram_tokenizer(path, words) -> dict:
+    """XLM-R's layout: ``Sequence[Precompiled(charsmap), Replace(" {2,}" →
+    " ")]`` (the map of :func:`charsmap_rules`, built here), a Unigram of
     ``▁``-prefixed corpus words and single characters, ``Metaspace``, the
-    specials ``<s>``, ``<pad>``, ``</s>``, ``<unk>`` at 0–3."""
+    specials ``<s>``, ``<pad>``, ``</s>``, ``<unk>`` at 0–3. Returns the
+    map's bytes and build seconds."""
+    import base64
     import string
+
+    t0 = time.perf_counter()
+    blob = build_charsmap(charsmap_rules())
+    build_s = time.perf_counter() - t0
 
     specials = ["<s>", "<pad>", "</s>", "<unk>"]
     pieces = [[t, 0.0] for t in specials]
@@ -6366,12 +6468,17 @@ def write_unigram_tokenizer(path, words) -> None:
     meta = {"replacement": "▁", "prepend_scheme": "always", "split": True}
     _write_tokenizer(path, {
         "version": "1.0", "truncation": None, "padding": None,
-        "added_tokens": _added(specials, 0), "normalizer": {"type": "NFKC"},
+        "added_tokens": _added(specials, 0),
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Precompiled", "precompiled_charsmap": base64.b64encode(blob).decode()},
+            {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": " "}]},
         "pre_tokenizer": {"type": "Metaspace", **meta}, "post_processor": None,
         "decoder": {"type": "Metaspace", **meta},
         "model": {"type": "Unigram", "unk_id": 3, "vocab": pieces, "byte_fallback": False}},
         {"bos_token": "<s>", "eos_token": "</s>", "pad_token": "<pad>", "unk_token": "<unk>",
-         "cls_token": "<s>", "sep_token": "</s>", "clean_up_tokenization_spaces": False})
+         "cls_token": "<s>", "sep_token": "</s>", "clean_up_tokenization_spaces": False,
+         "tokenizer_class": "PreTrainedTokenizerFast"})
+    return {"charsmap_bytes": len(blob), "charsmap_build_s": build_s}
 
 
 def write_wordpiece_tokenizer(path, words, limit: int = 512) -> None:
@@ -6460,11 +6567,11 @@ def convert_serve_check(torch, dev, weights: dict) -> dict:
         toks = {"llama": root / "tok_llama", "encoder": root / "tok_encoder",
                 "cross-encoder": root / "tok_cross_encoder"}
         write_llama3_tokenizer(toks["llama"])
-        write_unigram_tokenizer(toks["encoder"], words)
+        result["charsmap"] = write_unigram_tokenizer(toks["encoder"], words)
         write_wordpiece_tokenizer(toks["cross-encoder"], words)
         tok_s = time.perf_counter() - t0
         emit(f"{phase}_hf", seconds=hf_s, bytes=hf_bytes, tokenizer_seconds=tok_s,
-             tokenizer_bytes={k: dir_bytes(v) for k, v in toks.items()})
+             tokenizer_bytes={k: dir_bytes(v) for k, v in toks.items()}, **result["charsmap"])
 
         # ---- convert, each family in its own process, all at once
         srcs = {"llama": root / "hf_llama", "encoder": root / "hf_encoder",
@@ -6555,10 +6662,33 @@ def convert_serve_check(torch, dev, weights: dict) -> dict:
         warm = pipeline.warmup()
         torch.cuda.synchronize()
         emit(f"{phase}_warmup", wall_seconds=time.perf_counter() - t0, **warm)
+        # the embedder reads XLM-R's normalizer: the map's NFKC and the
+        # collapsed spaces reach its ids
+        etok = emb.tokenizer
+        normalized = etok.encode("\ufb01ne  caf\u0065\u0301 \u2460") == etok.encode(
+            "fine caf\u00e9 1")
+        if not normalized:
+            raise AssertionError(f"{phase}: the embedder's tokenizer does not apply the "
+                                 "Precompiled map and the Replace of its normalizer")
+        encode, spent = etok.encode, [0.0]
+
+        def timed_encode(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return encode(*args, **kwargs)
+            finally:
+                spent[0] += time.perf_counter() - t
+
+        etok.encode = timed_encode
         t0 = time.perf_counter()
-        pipeline.ingest(docs)
+        try:
+            pipeline.ingest(docs)
+        finally:
+            del etok.encode
         torch.cuda.synchronize()
-        emit(f"{phase}_ingest", chunks=len(docs), seconds=time.perf_counter() - t0)
+        result["ingest"] = {"chunks": len(docs), "seconds": time.perf_counter() - t0,
+                            "tokenize_seconds": spent[0]}
+        emit(f"{phase}_ingest", **result["ingest"])
 
         # ---- 3 chats in a counted window
         questions = slice_questions(docs, words)
@@ -6643,7 +6773,10 @@ def convert_serve_check(torch, dev, weights: dict) -> dict:
         shutil.rmtree(root, ignore_errors=True)
     result["providers"] = provider_settings_check(torch, dev, docs[:64], words)
     result["seconds"] = time.perf_counter() - t_phase
-    emit(phase, seconds=result["seconds"], launches=result["chats"]["launches"])
+    emit(phase, seconds=result["seconds"], launches=result["chats"]["launches"],
+         charsmap_bytes=result["charsmap"]["charsmap_bytes"],
+         charsmap_build_s=result["charsmap"]["charsmap_build_s"],
+         ingest_tokenize_s=result["ingest"]["tokenize_seconds"])
     return result
 
 
@@ -7473,8 +7606,8 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only-new", action="store_true",
-                        help="build, the kernel checks, then only mesh_train, mesh_sp and "
-                             "mesh_ep; ends without the result lines")
+                        help="build, the kernel checks, then only convert_serve; ends "
+                             "without the result lines")
     parser.add_argument("--worker-rounds", action="store_true",
                         help="build, then the rounds of one and two replicas in thread and "
                              "in process mode (random 8B weights); ends without the result "
@@ -7555,10 +7688,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     if args.only_new:
-        weights = settings_weights(torch, dev)
-        mesh_train_check(torch, dev)
-        mesh_sp_check(torch, dev, weights)
-        mesh_ep_check(torch, dev, weights)
+        convert_serve_check(torch, dev, settings_weights(torch, dev))
         return 0
 
     # the MoE phases first: their 47 GB of weights cannot sit beside the

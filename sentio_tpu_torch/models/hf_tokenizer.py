@@ -11,39 +11,50 @@ neither ``transformers`` nor ``tokenizers``, so this module runs the
 2. the normalizer, the pre-tokenizer and the model run on every piece
    left between them.
 
-The components read are those of the families the repo's presets name:
+Every component ``tokenizers`` 0.22 defines is read:
 
 ==========  ==============================================================
 normalizer  ``Sequence``, ``Prepend``, ``Replace``, ``BertNormalizer``,
-            ``NFKC``
-pre-tok.    ``Sequence``, ``Split``, ``ByteLevel`` (``use_regex: false``),
-            ``BertPreTokenizer``, ``Metaspace``
+            ``Precompiled`` (:mod:`charsmap`), ``Nmt``, ``NFC``, ``NFD``,
+            ``NFKC``, ``NFKD``, ``Lowercase``, ``Strip``,
+            ``StripAccents``, ``ByteLevel``
+pre-tok.    ``Sequence``, ``Split``, ``ByteLevel`` (GPT-2's regex with
+            ``use_regex``), ``BertPreTokenizer``, ``Metaspace``,
+            ``Whitespace``, ``WhitespaceSplit``, ``CharDelimiterSplit``,
+            ``Punctuation``, ``Digits``, ``UnicodeScripts``,
+            ``FixedLength``
 model       ``WordLevel``, ``BPE`` (byte fallback, ``fuse_unk``,
-            ``ignore_merges``), ``WordPiece``, ``Unigram`` (no byte
+            ``ignore_merges``, ``continuing_subword_prefix``,
+            ``end_of_word_suffix``, ``dropout`` drawn from the caller's
+            ``random.Random``), ``WordPiece``, ``Unigram`` (byte
             fallback)
 decoder     ``Sequence``, ``Fuse``, ``ByteLevel``, ``Replace``,
-            ``ByteFallback``, ``Strip``, ``WordPiece``, ``Metaspace``
+            ``ByteFallback``, ``Strip``, ``WordPiece``, ``Metaspace``,
+            ``BPEDecoder``, ``CTC``
 ==========  ==============================================================
 
-Any other component raises :class:`ValueError` naming it and the file;
-there is no fallback. The post-processor and the truncation and padding
+A component of any other ``type`` raises :class:`ValueError` naming it and
+the file; there is no fallback. The post-processor and the truncation and padding
 settings are read by nothing: ``encode`` adds no special tokens and
 truncates nothing, as ``transformers``' ``encode(add_special_tokens=
 False)`` does. Regular expressions are written for Oniguruma; the
-``\\p{..}`` and ``\\s`` classes they use are rebuilt from
-``unicodedata`` for Python's ``re``.
+``\\p{..}``, ``\\s`` and ``\\w`` classes they use are rebuilt from
+``unicodedata`` and :mod:`unicode_tables` for Python's ``re``.
 """
 
 from __future__ import annotations
 
 import functools
 import heapq
+import itertools
 import json
+import random
 import re
 import unicodedata
 from pathlib import Path
 from typing import Callable, Iterable, Optional
 
+from sentio_tpu_torch.models import charsmap, unicode_tables
 from sentio_tpu_torch.models import unicode_drift as drift
 
 # Unicode's White_Space property: Rust's ``char::is_whitespace`` and
@@ -54,6 +65,10 @@ _NEWER_FORMAT = drift.range_chars(drift.NEWER_FORMAT)
 _STRIP_KEEP = drift.range_chars(drift.STRIP_KEEP)
 _STRIP_DROP = drift.range_chars(drift.STRIP_DROP)
 _NFKC_KEEP = drift.range_chars(drift.NFKC_KEEP)
+_NFD_KEEP = drift.range_chars(drift.NFD_KEEP)
+_MARK_KEEP = drift.range_chars(drift.MARK_KEEP)
+_MARK_DROP = drift.range_chars(drift.MARK_DROP)
+_RUST_NUMERIC = drift.range_chars(drift.RUST_NUMERIC)
 _PUNCT_ADD = drift.range_chars(drift.PUNCT_ADD)
 _PUNCT_DROP = drift.range_chars(drift.PUNCT_DROP)
 _LOWER = {chr(c): chr(c + r[2]) for r in drift.LOWER_DELTA for c in range(r[0], r[1] + 1)}
@@ -106,56 +121,96 @@ _CATEGORY_NAMES = {"L", "Lu", "Ll", "Lt", "Lm", "Lo", "M", "Mn", "Mc", "Me", "N"
                    "Sc", "Sk", "So", "Z", "Zs", "Zl", "Zp"}
 
 
+@functools.lru_cache(maxsize=None)
+def _word_body() -> str:
+    """Oniguruma's ``\\w`` (:func:`unicode_tables.word_ranges`) as a class
+    body."""
+    return "".join(_class_char(a) if a == b else f"{_class_char(a)}-{_class_char(b)}"
+                   for a, b in unicode_tables.word_ranges())
+
+
 def _escape_body(esc: str, name: str, path: str) -> tuple[str, bool]:
     """(class body, negated) of an Oniguruma class escape."""
     if esc in "sS":
         return _WS_BODY, esc == "S"
+    if esc in "wW":
+        return _word_body(), esc == "W"
     if name not in _CATEGORY_NAMES:
         raise ValueError(f"{path}: regex class \\{esc}{{{name}}} is not supported")
     return _class_body((name,)), esc == "P"
 
 
+def _read_escape(pattern: str, i: int) -> tuple[str, str, int]:
+    """(escape letter, property name, length) of the escape at ``i``."""
+    esc = pattern[i + 1]
+    if esc in "pP" and pattern[i + 2: i + 3] == "{":
+        end = pattern.index("}", i)
+        return esc, pattern[i + 3: end], end - i + 1
+    return esc, "", 2
+
+
+def _class(pattern: str, i: int, path: str) -> tuple[str, int]:
+    """The ``re`` form of the class ``[...]`` opening at ``i``, and the
+    index after it. A negated escape inside (``[^\\S]``, ``[\\P{L}]``) makes
+    the class a union with the escape's complement: ``(?:[pos]|[^neg])``,
+    or for ``[^...]`` the intersection ``(?![pos])(?=[neg1])[neg2]``."""
+    j = i + 1
+    negated = pattern[j: j + 1] == "^"
+    j += negated
+    pos: list[str] = []
+    negs: list[str] = []
+    if pattern[j: j + 1] == "]":  # a leading ']' is a literal
+        pos.append("\\]")
+        j += 1
+    while j < len(pattern) and pattern[j] != "]":
+        ch = pattern[j]
+        if ch == "\\" and j + 1 < len(pattern):
+            esc, name, step = _read_escape(pattern, j)
+            if esc in "pPsSwW":
+                body, neg = _escape_body(esc, name, path)
+                (negs if neg else pos).append(body)
+            else:
+                pos.append(pattern[j: j + step])
+            j += step
+            continue
+        if ch == "[":
+            raise ValueError(f"{path}: nested class in {pattern!r} is not supported")
+        pos.append(ch)
+        j += 1
+    if j >= len(pattern):
+        raise ValueError(f"{path}: unterminated class in {pattern!r}")
+    body = "".join(pos)
+    if not negs:
+        return f"[{'^' if negated else ''}{body}]", j + 1
+    if not negated:
+        alts = ([f"[{body}]"] if body else []) + [f"[^{n}]" for n in negs]
+        return f"(?:{'|'.join(alts)})", j + 1
+    ahead = (f"(?![{body}])" if body else "") + "".join(f"(?=[{n}])" for n in negs[:-1])
+    return f"(?:{ahead}[{negs[-1]}])", j + 1
+
+
 def onig_to_re(pattern: str, path: str = "tokenizer.json") -> re.Pattern:
     """Compile an Oniguruma pattern of the kind ``tokenizer.json`` holds
-    for Python's ``re``: ``\\p{X}``, ``\\P{X}``, ``\\s`` and ``\\S`` take
-    Oniguruma's Unicode meanings; everything else passes through. A
-    negated class escape inside ``[...]`` raises."""
-    out, i, in_class = [], 0, False
+    for Python's ``re``: ``\\p{X}``, ``\\P{X}``, ``\\s``, ``\\S``, ``\\w`` and
+    ``\\W`` take Oniguruma's Unicode meanings, inside a class too;
+    everything else passes through."""
+    out, i = [], 0
     while i < len(pattern):
         ch = pattern[i]
         if ch == "\\" and i + 1 < len(pattern):
-            esc = pattern[i + 1]
-            name, step = "", 2
-            if esc in "pP" and pattern[i + 2: i + 3] == "{":
-                end = pattern.index("}", i)
-                name, step = pattern[i + 3: end], end - i + 1
-            if esc in "pPsS":
+            esc, name, step = _read_escape(pattern, i)
+            if esc in "pPsSwW":
                 body, negated = _escape_body(esc, name, path)
-                if in_class and negated:
-                    raise ValueError(f"{path}: a negated class escape inside [...] in "
-                                     f"{pattern!r} is not supported")
-                out.append(body if in_class else f"[{'^' if negated else ''}{body}]")
+                out.append(f"[{'^' if negated else ''}{body}]")
             else:
-                out.append(pattern[i: i + 2])
+                out.append(pattern[i: i + step])
             i += step
             continue
-        if ch == "[" and not in_class:
-            in_class = True
-            out.append(ch)
-            # a leading ']' (after an optional '^') is a literal
-            if pattern[i + 1: i + 2] == "^":
-                out.append("^")
-                i += 1
-            if pattern[i + 1: i + 2] == "]":
-                out.append("\\]")
-                i += 1
-        elif ch == "]" and in_class:
-            in_class = False
-            out.append(ch)
-        elif ch == "[" and in_class:
-            raise ValueError(f"{path}: nested class in {pattern!r} is not supported")
-        else:
-            out.append(ch)
+        if ch == "[":
+            text, i = _class(pattern, i, path)
+            out.append(text)
+            continue
+        out.append(ch)
         i += 1
     return re.compile("".join(out))
 
@@ -211,6 +266,22 @@ def _split(piece: Piece, spans: list[tuple[int, int, bool]], behavior: str) -> l
                 keep.append((a, b))
             prev = hit
         keep.reverse()
+    elif behavior == "MergedWithPrevious":
+        keep, prev = [], False
+        for a, b, hit in spans:
+            if hit and not prev and keep:
+                keep[-1] = (keep[-1][0], b)
+            else:
+                keep.append((a, b))
+            prev = hit
+    elif behavior == "Contiguous":
+        keep, prev = [], False
+        for a, b, hit in spans:
+            if hit == prev and keep:
+                keep[-1] = (keep[-1][0], b)
+            else:
+                keep.append((a, b))
+            prev = hit
     else:
         raise ValueError(f"split behavior {behavior!r} is not supported")
     return [(text[a:b], first and a == 0) for a, b in keep if b > a]
@@ -219,21 +290,53 @@ def _split(piece: Piece, spans: list[tuple[int, int, bool]], behavior: str) -> l
 # ----------------------------------------------------------- normalizers
 
 
+def _normalize_run(form: str, text: str) -> str:
+    out = unicodedata.normalize(form, text)
+    if form in ("NFC", "NFKC") and any(c in _NFD_KEEP for c in out):
+        # a pair the library's older tables do not compose stays apart
+        out = "".join(unicodedata.normalize("NFD", c) if c in _NFD_KEEP else c for c in out)
+    return out
+
+
 def _normalize_except(form: str, text: str, keep: frozenset) -> str:
     """``unicodedata.normalize`` that leaves the characters in ``keep``
     (those ``tokenizers``' older tables do not map) as they are."""
     if not any(c in keep for c in text):
-        return unicodedata.normalize(form, text)
+        return _normalize_run(form, text)
     out, run = [], []
     for c in text:
         if c in keep:
-            out.append(unicodedata.normalize(form, "".join(run)))
+            out.append(_normalize_run(form, "".join(run)))
             out.append(c)
             run = []
         else:
             run.append(c)
-    out.append(unicodedata.normalize(form, "".join(run)))
+    out.append(_normalize_run(form, "".join(run)))
     return "".join(out)
+
+
+# the unicode forms and the characters each leaves as it is
+_FORM_KEEP = {"NFC": _NFD_KEEP, "NFD": _NFD_KEEP, "NFKC": _NFKC_KEEP | _NFD_KEEP,
+              "NFKD": _NFKC_KEEP | _NFD_KEEP}
+# ``Nmt``: ASCII and C1 controls dropped, other spaces made ' '
+_NMT_TABLE = str.maketrans(
+    {**{c: None for c in (*range(0x1, 0x9), 0xB, *range(0xE, 0x20), 0x7F, 0x8F, 0x9F)},
+     **{c: " " for c in (0x9, 0xA, 0xC, 0xD, 0x1680, *range(0x200B, 0x2010), 0x2028, 0x2029,
+                         0x2581, 0xFEFF, 0xFFFD)}})
+_WS_CHARS = "".join(sorted(WHITE_SPACE))
+
+
+def _lowercase(text: str) -> str:
+    """Rust's ``char::to_lowercase`` of each character (no final-sigma
+    context)."""
+    return "".join(_LOWER.get(c) or c.lower() for c in text)
+
+
+def _is_mark(c: str) -> bool:
+    """``StripAccents``' combining mark."""
+    if c in _MARK_DROP:
+        return True
+    return unicodedata.category(c)[0] == "M" and c not in _MARK_KEEP
 
 
 def _bert_normalizer(spec: dict) -> Callable[[str], str]:
@@ -256,7 +359,7 @@ def _bert_normalizer(spec: dict) -> Callable[[str], str]:
                            if not ((unicodedata.category(c) == "Mn" and c not in _STRIP_KEEP)
                                    or c in _STRIP_DROP))
         if lower:
-            text = "".join(_LOWER.get(c) or c.lower() for c in text)
+            text = _lowercase(text)
         return text
 
     return norm
@@ -299,8 +402,29 @@ def build_normalizer(spec: Optional[dict], path: str) -> Callable[[str], str]:
         return _replacer(spec, path)
     if kind == "BertNormalizer":
         return _bert_normalizer(spec)
-    if kind == "NFKC":
-        return lambda text: _normalize_except("NFKC", text, _NFKC_KEEP)
+    if kind in _FORM_KEEP:
+        return functools.partial(_normalize_except, kind, keep=_FORM_KEEP[kind])
+    if kind == "Precompiled":
+        return charsmap.CharsMap.from_base64(spec.get("precompiled_charsmap") or "",
+                                             path).normalize
+    if kind == "Nmt":
+        return lambda text: text.translate(_NMT_TABLE)
+    if kind == "Lowercase":
+        return _lowercase
+    if kind == "Strip":
+        left, right = spec.get("strip_left", True), spec.get("strip_right", True)
+
+        def strip(text: str) -> str:
+            if left:
+                text = text.lstrip(_WS_CHARS)
+            return text.rstrip(_WS_CHARS) if right else text
+
+        return strip
+    if kind == "StripAccents":
+        return lambda text: "".join(c for c in text if not _is_mark(c))
+    if kind == "ByteLevel":
+        table = byte_to_unicode()
+        return lambda text: "".join(table[b] for b in text.encode("utf-8"))
     raise _refuse("normalizer", spec, path)
 
 
@@ -328,7 +452,44 @@ def _is_bert_punct(c: str) -> bool:
             or unicodedata.category(c).startswith("P")) and c not in _PUNCT_DROP
 
 
+def _is_numeric(c: str) -> bool:
+    """Rust's ``char::is_numeric``."""
+    return unicodedata.category(c)[0] == "N" or c in _RUST_NUMERIC
+
+
 PreTokenizer = Callable[[list[Piece]], list[Piece]]
+# GPT-2's pre-tokenizer pattern: ``ByteLevel`` with ``use_regex``
+GPT2_PATTERN = (r"'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+| ?[^\s\p{L}\p{N}]+|\s+(?!\S)|"
+                r"\s+")
+
+
+def _char_splitter(pred: Callable[[str], bool], behavior: str) -> PreTokenizer:
+    def run(pieces: list[Piece]) -> list[Piece]:
+        out = []
+        for p in pieces:
+            out.extend(_split(p, _char_matches(p[0], pred), behavior))
+        return out
+
+    return run
+
+
+def _unicode_scripts(pieces: list[Piece]) -> list[Piece]:
+    """``UnicodeScripts``: a cut wherever the script changes, a space (and
+    any code point the library's table lacks) joining the script before
+    it; text before the first character of a script is dropped, as the
+    library drops it."""
+    out = []
+    for text, first in pieces:
+        cuts, last = [], None
+        for i, c in enumerate(text):
+            script = unicode_tables.script_of(ord(c))
+            if script != unicode_tables.ANY:
+                if script != last:
+                    cuts.append(i)
+                last = script
+        cuts.append(len(text))
+        out.extend((text[a:b], first and a == 0) for a, b in zip(cuts, cuts[1:]))
+    return out
 
 
 def build_pre_tokenizer(spec: Optional[dict], path: str) -> PreTokenizer:
@@ -359,20 +520,45 @@ def build_pre_tokenizer(spec: Optional[dict], path: str) -> PreTokenizer:
 
         return split
     if kind == "ByteLevel":
-        if spec.get("use_regex", True):
-            raise ValueError(f"{path}: pre-tokenizer 'ByteLevel' with use_regex: true is "
-                             "not supported")
         table, prefix = byte_to_unicode(), bool(spec.get("add_prefix_space", False))
+        regex = onig_to_re(GPT2_PATTERN, path) if spec.get("use_regex", True) else None
 
         def byte_level(pieces: list[Piece]) -> list[Piece]:
             out = []
             for text, first in pieces:
                 if prefix and not text.startswith(" "):
                     text = " " + text
-                out.append(("".join(table[b] for b in text.encode("utf-8")), first))
+                parts = ([(text, first)] if regex is None
+                         else _split((text, first), _regex_matches(text, regex), "Isolated"))
+                out.extend(("".join(table[b] for b in t.encode("utf-8")), f) for t, f in parts)
             return out
 
         return byte_level
+    if kind == "Whitespace":
+        words = re.compile(f"[{_word_body()}]+|[^{_word_body()}{_WS_BODY}]+")
+
+        def whitespace(pieces: list[Piece]) -> list[Piece]:
+            return [(m.group(), first and m.start() == 0) for text, first in pieces
+                    for m in words.finditer(text)]
+
+        return whitespace
+    if kind == "WhitespaceSplit":
+        return _char_splitter(WHITE_SPACE.__contains__, "Removed")
+    if kind == "CharDelimiterSplit":
+        return _char_splitter(spec["delimiter"].__eq__, "Removed")
+    if kind == "Punctuation":
+        return _char_splitter(_is_bert_punct, spec.get("behavior", "Isolated"))
+    if kind == "Digits":
+        return _char_splitter(_is_numeric, "Isolated" if spec.get("individual_digits")
+                              else "Contiguous")
+    if kind == "UnicodeScripts":
+        return _unicode_scripts
+    if kind == "FixedLength":
+        size = int(spec.get("length", 5))
+        if size < 1:
+            raise ValueError(f"{path}: FixedLength length {size} is not positive")
+        return lambda pieces: [(text[i: i + size], first and i == 0) for text, first in pieces
+                               for i in range(0, len(text), size)]
     if kind == "BertPreTokenizer":
 
         def bert(pieces: list[Piece]) -> list[Piece]:
@@ -457,10 +643,19 @@ class WordPiece:
 
 
 class BPE:
-    def __init__(self, spec: dict, path: str) -> None:
-        for option in ("dropout", "continuing_subword_prefix", "end_of_word_suffix"):
-            if spec.get(option):
-                raise ValueError(f"{path}: BPE {option} is not supported")
+    """``tokenizers``' BPE. With ``dropout`` each merge popped is skipped
+    with that probability, drawn from ``rng`` (the caller's, or one of the
+    model's own): the skipped merges go back on the queue when the next
+    merge is taken, and are lost when the queue runs dry."""
+
+    def __init__(self, spec: dict, path: str, rng: Optional[random.Random] = None) -> None:
+        dropout = spec.get("dropout")
+        if dropout is not None and not 0.0 <= float(dropout) <= 1.0:
+            raise ValueError(f"{path}: BPE dropout {dropout} is not in [0, 1]")
+        self.dropout = float(dropout or 0.0)
+        self.rng = rng if rng is not None else random.Random(0)
+        self.prefix = spec.get("continuing_subword_prefix") or ""
+        self.suffix = spec.get("end_of_word_suffix") or ""
         self.vocab: dict[str, int] = spec["vocab"]
         self.unk = spec.get("unk_token")
         self.fuse_unk = bool(spec.get("fuse_unk", False))
@@ -469,12 +664,17 @@ class BPE:
         self.path = path
         # (left id, right id) -> (rank, merged id)
         self.merges: dict[tuple[int, int], tuple[int, int]] = {}
+        cut = len(self.prefix.encode("utf-8"))
         for rank, merge in enumerate(spec.get("merges", [])):
             a, b = merge if isinstance(merge, list) else merge.split(" ")
             if a not in self.vocab or b not in self.vocab:
                 raise ValueError(f"{path}: BPE merge {merge!r} names a token outside the "
                                  "vocabulary")
-            merged = a + b
+            # the right side loses the prefix's length in bytes, whatever it starts with
+            try:
+                merged = a + b.encode("utf-8")[cut:].decode("utf-8")
+            except UnicodeDecodeError as exc:
+                raise ValueError(f"{path}: BPE merge {merge!r} cuts a character") from exc
             if merged not in self.vocab:
                 raise ValueError(f"{path}: BPE merge {merge!r} makes {merged!r}, which is "
                                  "not in the vocabulary")
@@ -484,6 +684,8 @@ class BPE:
     def tokenize(self, word: str) -> list[int]:
         if self.ignore_merges and word in self.vocab:
             return [self.vocab[word]]
+        if self.dropout:
+            return self._merge(self._symbols(word))
         cached = self._cache.get(word)
         if cached is None:
             cached = self._merge(self._symbols(word))
@@ -494,7 +696,12 @@ class BPE:
     def _symbols(self, word: str) -> list[int]:
         syms: list[int] = []
         unk: Optional[int] = None  # a pending unk's id
-        for c in word:
+        last = len(word) - 1
+        for i, c in enumerate(word):
+            if i and self.prefix:
+                c = self.prefix + c
+            if i == last and self.suffix:
+                c = c + self.suffix
             if c in self.vocab:
                 if unk is not None:
                     syms.append(unk)
@@ -532,8 +739,16 @@ class BPE:
             if m is not None:
                 heap.append((m[0], i, m[1]))
         heapq.heapify(heap)
+        skipped: list = []
         while heap:
-            rank, i, new = heapq.heappop(heap)
+            top = heapq.heappop(heap)
+            if self.dropout and self.rng.random() < self.dropout:
+                skipped.append(top)
+                continue
+            for entry in skipped:
+                heapq.heappush(heap, entry)
+            skipped.clear()
+            rank, i, new = top
             j = nxt[i]
             if not alive[i] or j >= n:
                 continue
@@ -566,11 +781,12 @@ class Unigram:
 
     def __init__(self, spec: dict, path: str) -> None:
         vocab = spec["vocab"]
-        self.pieces = {piece: i for i, (piece, _score) in enumerate(vocab)}
+        # a piece listed twice keeps its last id, and both ids decode to it
+        self.tokens = [piece for piece, _score in vocab]
+        self.pieces = {piece: i for i, piece in enumerate(self.tokens)}
         self.scores = [float(score) for _piece, score in vocab]
         self.unk_id = spec.get("unk_id")
-        if spec.get("byte_fallback"):
-            raise ValueError(f"{path}: Unigram byte_fallback is not supported")
+        self.byte_fallback = bool(spec.get("byte_fallback", False))
         self.min_score = min(self.scores) if self.scores else 0.0
         self.max_len = max((len(p) for p in self.pieces), default=1)
         self.path = path
@@ -617,8 +833,18 @@ class Unigram:
         if unk_run:
             pieces.append("".join(reversed(unk_run)))
         pieces.reverse()
-        # a fused run of unknown characters is no piece: the unk id
-        return [self.pieces.get(piece, self.unk_id) for piece in pieces]
+        # a fused run of unknown characters is no piece: its bytes' pieces
+        # with byte fallback when all are there, else the unk id
+        ids: list[int] = []
+        for piece in pieces:
+            pid = self.pieces.get(piece)
+            if pid is None and self.byte_fallback:
+                codes = [self.pieces.get(f"<0x{b:02X}>") for b in piece.encode("utf-8")]
+                if None not in codes:
+                    ids.extend(codes)
+                    continue
+            ids.append(self.unk_id if pid is None else pid)
+        return ids
 
 
 _MODELS = {"WordLevel": WordLevel, "WordPiece": WordPiece, "BPE": BPE, "Unigram": Unigram}
@@ -698,6 +924,22 @@ def _wordpiece_decoder(prefix: str, cleanup: bool) -> Decoder:
     return run
 
 
+def _ctc_decoder(pad: str, delimiter: str, cleanup: bool) -> Decoder:
+    """CTC: repeats collapsed, the pad dropped, the word delimiter made a
+    space after the WordPiece cleanup."""
+    def run(tokens: list[str]) -> list[str]:
+        out = []
+        for tok, _ in itertools.groupby(tokens):
+            tok = tok.replace(pad, "")
+            if cleanup:
+                tok = cleanup_spaces(tok).replace(" do not", " don't").replace(delimiter, " ")
+            if tok:
+                out.append(tok)
+        return out
+
+    return run
+
+
 def build_decoder(spec: Optional[dict], path: str) -> Decoder:
     if spec is None:
         return lambda tokens: [" ".join(tokens)]
@@ -735,6 +977,14 @@ def build_decoder(spec: Optional[dict], path: str) -> Decoder:
         return _strip(spec["content"], int(spec.get("start", 0)), int(spec.get("stop", 0)))
     if kind == "WordPiece":
         return _wordpiece_decoder(spec.get("prefix", "##"), bool(spec.get("cleanup", True)))
+    if kind == "BPEDecoder":
+        suffix = spec.get("suffix", "</w>")
+        return lambda tokens: [t.replace(suffix, "" if i == len(tokens) - 1 else " ")
+                               for i, t in enumerate(tokens)]
+    if kind == "CTC":
+        return _ctc_decoder(spec.get("pad_token", "<pad>"),
+                            spec.get("word_delimiter_token", "|"),
+                            bool(spec.get("cleanup", True)))
     if kind == "Metaspace":
         rep = spec.get("replacement", "▁")
         scheme = spec.get("prepend_scheme")
@@ -815,14 +1065,16 @@ class TokenizerJson:
     """The ``tokenizer.json`` pipeline: ``encode`` (no special tokens
     added) and ``decode``."""
 
-    def __init__(self, spec: dict, path: str = "tokenizer.json") -> None:
+    def __init__(self, spec: dict, path: str = "tokenizer.json",
+                 rng: Optional[random.Random] = None) -> None:
         model = spec.get("model") or {}
         cls = _MODELS.get(model.get("type"))
         if cls is None:
             raise _refuse("model", model, path)
-        self.model = cls(model, path)
+        self.model = cls(model, path, rng) if cls is BPE else cls(model, path)
         self.vocab = model_vocab(self.model)
-        self.id_to_token = {i: t for t, i in self.vocab.items()}
+        self.id_to_token = (dict(enumerate(self.model.tokens)) if isinstance(self.model, Unigram)
+                            else {i: t for t, i in self.vocab.items()})
         self.normalize = build_normalizer(spec.get("normalizer"), path)
         self.pre_tokenize = build_pre_tokenizer(spec.get("pre_tokenizer"), path)
         self.decoder = build_decoder(spec.get("decoder"), path)
@@ -839,7 +1091,7 @@ class TokenizerJson:
 
     @property
     def vocab_size(self) -> int:
-        return len(self.vocab)
+        return len(self.id_to_token)
 
     def _register(self, tok: AddedToken) -> None:
         self.added[tok.content] = tok
@@ -862,7 +1114,7 @@ class TokenizerJson:
         tid = self.vocab.get(content)
         if tid is None:
             ids = [t.id for t in self.added.values()]
-            size = len(self.vocab)
+            size = self.vocab_size
             top = max(ids) if ids else None
             tid = size if top is None or (top < size and size) else top + 1
         self._register(AddedToken(content, tid, special=True, normalized=False))
@@ -915,18 +1167,20 @@ def _token_text(value) -> Optional[str]:
     return value
 
 
-def read_directory(path: str) -> tuple[TokenizerJson, dict[str, Optional[str]], bool]:
+def read_directory(path: str, rng: Optional[random.Random] = None
+                   ) -> tuple[TokenizerJson, dict[str, Optional[str]], bool]:
     """(pipeline, special token texts by name, clean_up_tokenization_spaces)
     of a tokenizer directory, as ``AutoTokenizer.from_pretrained`` reads
     them: ``tokenizer_config.json``, with ``special_tokens_map.json`` over
     it when the config has no ``added_tokens_decoder``; every special token
-    named there that the tokenizer does not hold is added."""
+    named there that the tokenizer does not hold is added. ``rng`` draws a
+    BPE model's dropout."""
     root = Path(path)
     tj = root / "tokenizer.json"
     if not tj.is_file():
         raise ValueError(f"{path}: no tokenizer.json (the port reads fast-tokenizer "
                          "directories only)")
-    pipeline = TokenizerJson(json.loads(tj.read_text(encoding="utf-8")), str(tj))
+    pipeline = TokenizerJson(json.loads(tj.read_text(encoding="utf-8")), str(tj), rng)
     config_path = root / "tokenizer_config.json"
     config = json.loads(config_path.read_text(encoding="utf-8")) \
         if config_path.is_file() else {}

@@ -14,6 +14,7 @@ and encodes and decodes as the JAX package's ``HFTokenizer`` does through
 from __future__ import annotations
 
 import hashlib
+import random
 from typing import Optional, Protocol, Sequence
 
 import numpy as np
@@ -144,11 +145,12 @@ class HFTokenizer:
     through the vocabulary (0 for one it does not name), ``encode`` adds no
     special tokens of its own before ``add_bos`` / ``add_eos``, and
     ``decode`` skips special tokens and ids outside the vocabulary, then
-    cleans up tokenization spaces when the config asks for it."""
+    cleans up tokenization spaces when the config asks for it. ``rng``
+    draws a BPE model's dropout (the tokenizer's own seeded one if None)."""
 
-    def __init__(self, path: str) -> None:
+    def __init__(self, path: str, rng: Optional[random.Random] = None) -> None:
         self.path = str(path)
-        self._tok, names, self._cleanup = read_directory(self.path)
+        self._tok, names, self._cleanup = read_directory(self.path, rng)
         self.vocab_size = self._tok.vocab_size
         self.pad_id = special_id(self._tok, names["pad_token"])
         self.bos_id = special_id(self._tok, names["bos_token"])

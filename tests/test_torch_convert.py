@@ -304,11 +304,27 @@ E2E_DOCS = [
 E2E_QUESTION = "What multiplies matrices on a TPU?"
 
 
+def _smoke():
+    if str(REPO) not in sys.path:
+        sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    return chip_smoke
+
+
+def _e2e_words() -> list:
+    import re
+
+    return sorted({w for t in E2E_DOCS + [E2E_QUESTION] for w in re.findall(r"\w+", t)})
+
+
 @pytest.fixture(scope="module")
 def converted(tmp_path_factory):
     """A tiny Llama (vocab of the char-level WordLevel tokenizer; weights
     drawn wide, so greedy decoding has no near-tied logits for the summation
-    order of a thread count to flip), a tiny BERT encoder and a BERT
+    order of a thread count to flip), a tiny XLM-R encoder with the
+    embedder's tokenizer ``chip_smoke.py`` writes (XLM-R's layout:
+    ``Precompiled`` and ``Replace``, ``Metaspace``, ``Unigram``) and a BERT
     cross-encoder (vocab of a WordPiece), each converted at float32 by the
     port's CLI, beside their tokenizers."""
     from test_torch_hf_tokenizer import build_layout
@@ -317,6 +333,8 @@ def converted(tmp_path_factory):
 
     root = tmp_path_factory.mktemp("e2e")
     toks = {name: build_layout(name, root / f"tok_{name}") for name in ("wordlevel", "bert")}
+    toks["xlmr"] = str(root / "tok_xlmr")
+    _smoke().write_unigram_tokenizer(toks["xlmr"], _e2e_words())
     torch.manual_seed(11)
     llama = transformers.LlamaForCausalLM(transformers.LlamaConfig(
         vocab_size=128, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
@@ -324,7 +342,9 @@ def converted(tmp_path_factory):
         tie_word_embeddings=False, initializer_range=0.5)).eval()
     enc_cfg = dict(vocab_size=512, hidden_size=32, num_hidden_layers=2,
                    num_attention_heads=4, intermediate_size=64, max_position_embeddings=128)
-    encoder = transformers.BertModel(transformers.BertConfig(**enc_cfg)).eval()
+    encoder = transformers.XLMRobertaModel(transformers.XLMRobertaConfig(
+        **{**enc_cfg, "max_position_embeddings": 130}, type_vocab_size=1,
+        pad_token_id=1)).eval()
     ce = transformers.BertForSequenceClassification(transformers.BertConfig(
         **enc_cfg, num_labels=1)).eval()
     out = {"tok": toks}
@@ -343,7 +363,7 @@ def _e2e_sections(converted):
                use_paged_decode=True, kv_page_size=16, kv_max_pages_per_seq=32,
                max_batch_size=4, context_token_budget=60)
     emb = dict(provider="tpu", dim=32, checkpoint_path=converted["encoder"],
-               tokenizer_path=converted["tok"]["bert"], coalesce=False, cache_size=0)
+               tokenizer_path=converted["tok"]["xlmr"], coalesce=False, cache_size=0)
     rr = dict(kind="cross_encoder", top_k=2, checkpoint_path=converted["cross-encoder"],
               tokenizer_path=converted["tok"]["bert"])
     return dict(retrieval=dict(strategy="dense", top_k=3), embedder=emb, rerank=rr,
@@ -429,3 +449,28 @@ def test_converted_checkpoints_serve_chat_as_jax(converted, jax_answer, mode):
     want, want_ids = jax_answer
     assert ids == want_ids and len(ids) == 2
     assert answer and answer == want, (answer, want)
+
+
+def test_smoke_embedder_tokenizer_matches_jax(converted):
+    """The embedder's tokenizer directory ``chip_smoke.py`` writes (XLM-R's
+    ``Sequence[Precompiled, Replace]`` normalizer over its own character
+    map) against JAX's ``HFTokenizer``: ids, decodes, ``vocab_size`` and
+    the five special ids on hard strings and the documents."""
+    from test_torch_hf_tokenizer import CORPUS, HARD
+
+    from sentio_tpu.models.tokenizer import HFTokenizer as JaxHFTokenizer
+    from sentio_tpu_torch.models.tokenizer import HFTokenizer
+
+    path = converted["tok"]["xlmr"]
+    data = json.loads((Path(path) / "tokenizer.json").read_text())
+    assert [n["type"] for n in data["normalizer"]["normalizers"]] == ["Precompiled", "Replace"]
+    jax_tok, tok = JaxHFTokenizer(path), HFTokenizer(path)
+    assert tok.vocab_size == jax_tok.vocab_size
+    for name in ("pad_id", "bos_id", "eos_id", "cls_id", "sep_id"):
+        assert getattr(tok, name) == getattr(jax_tok, name), name
+    for text in HARD + CORPUS[:10] + E2E_DOCS + ["ﬁne  café ①", "a\r\nb\x01c"]:
+        for add_bos, add_eos in ((False, False), (True, True)):
+            assert tok.encode(text, add_bos=add_bos, add_eos=add_eos) == jax_tok.encode(
+                text, add_bos=add_bos, add_eos=add_eos), text
+        ids = jax_tok.encode(text)
+        assert tok.decode(ids) == jax_tok.decode(ids), text

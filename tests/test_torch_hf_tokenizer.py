@@ -2,24 +2,35 @@
 hf_tokenizer.py`` behind ``models/tokenizer.py::HFTokenizer``) against the
 JAX package's ``HFTokenizer`` (``transformers``) on the same directories.
 
-Five layouts are built in-process with ``tokenizers`` and saved with
+The layouts are built in-process with ``tokenizers`` and saved with
 ``PreTrainedTokenizerFast.save_pretrained``, each with the components of
 the family it stands for: the char-level ``WordLevel`` of the JAX
 package's end-to-end test, Llama-3's byte-level BPE, Llama-2 / Mixtral's
-byte-fallback BPE, BERT's WordPiece and XLM-R's Unigram (with ``NFKC``
-where the real directory has ``Precompiled``). Ids, decodes,
-``vocab_size`` and the five special ids must be equal, exactly, on hard
-strings, a ``hypothesis`` property over text and random id lists. The
-Unicode drift tables are held to the library, range by range, and the
-refused components raise a named error. The module's ``build_layout`` is
-shared with the convert and end-to-end tests.
+byte-fallback BPE, BERT's WordPiece, XLM-R's Unigram with ``NFKC`` and
+with its real ``Sequence[Precompiled, Replace]`` normalizer, RoBERTa's
+byte-level BPE on GPT-2's regex, T5's ``Precompiled`` / ``WhitespaceSplit``
+/ byte-fallback Unigram, ALBERT's normalizer chain and CLIP's BPE with an
+end-of-word suffix; small layouts carry every other component (``Nmt``,
+``NFD``, ``Strip``, ``Whitespace``, ``CharDelimiterSplit``,
+``Punctuation``, ``Digits``, ``UnicodeScripts``, ``FixedLength``, ``CTC``,
+BPE ``dropout`` at 0 and 1 and ``continuing_subword_prefix``). Ids,
+decodes, ``vocab_size`` and the five special ids must be equal, exactly,
+on hard strings, a ``hypothesis`` property over text and random id lists;
+BPE dropout between 0 and 1 is held in law. The Unicode drift tables are
+held to the library, range by range, and a component of an unknown
+``type`` raises a named error. The module's ``build_layout``,
+``build_charsmap`` and charsmap rules are shared with the convert,
+``Precompiled`` and end-to-end tests.
 """
 
 from __future__ import annotations
 
+import base64
 import json
 import random
+import shutil
 import string
+import unicodedata
 
 import numpy as np
 import pytest
@@ -67,7 +78,111 @@ HARD = [
     "Hello World hello world", "xyz axyz xyz.", "[[X]]   tail", "​ 　",
     "Ｆｕｌｌｗｉｄｔｈ", "é é", "à̖b",
 ]
-LAYOUTS = ("wordlevel", "llama3", "llama2", "bert", "xlmr")
+LAYOUTS = ("wordlevel", "llama3", "llama2", "bert", "xlmr", "xlmr_real", "roberta", "t5",
+           "albert", "clip", "nmt", "punct", "scripts", "ctc", "dropout0", "dropout1")
+CLIP_PATTERN = (r"<\|startoftext\|>|<\|endoftext\|>|'s|'t|'re|'ve|'m|'ll|'d|[\p{L}]+|"
+                r"[\p{N}]|[^\s\p{L}\p{N}]+")
+# multi-code-point keys of a cluster under 6 bytes (looked up whole), and
+# keys of 6 bytes or more (never matched whole: their clusters go code
+# point by code point)
+CLUSTER_KEYS = {"e\u0301": "\u00e9", "n\u0303": "\u00f1", "\u0438\u0306": "\u0439",
+                "\u00e9\u0301": "E", "a\u0300\u0301": "A2", "\r\n": "\n", "q\u200d": "Q"}
+LONG_KEYS = {"\u0915\u094d\u0937": "KSSA", "\U0001f1e6\U0001f1e7": "AB",
+             "e\u0301\u0301\u0301": "E3", "\u1100\u1161\u11a8": "GAG"}
+
+
+def build_charsmap(rules: dict) -> bytes:
+    """SentencePiece's precompiled character map of ``rules`` (key →
+    replacement): a little-endian u32 of the trie's bytes, a darts-clone
+    double array packed first fit (a node's children take the first free
+    base of the last 16 blocks of 256 units; bases never repeat; the array
+    ends on a block), the
+    NUL-terminated replacements."""
+    import struct
+
+    strings, value_of = bytearray(), {}
+    for rep in sorted(set(rules.values())):
+        value_of[rep] = len(strings)
+        strings += rep.encode() + b"\0"
+    root: dict = {}
+    for key, rep in rules.items():
+        node = root
+        for b in key.encode():
+            node = node.setdefault(b, {})
+        node[-1] = value_of[rep]
+    units = [0] * 256
+    # skip[i] == i marks a free unit; a taken one points to a later free one
+    skip, bases = list(range(257)), set()
+    skip[0] = 1
+
+    def free_from(i: int) -> int:
+        top = i
+        while skip[top] != top:
+            top = skip[top]
+        while skip[i] != top:
+            skip[i], i = top, skip[i]
+        return top
+
+    stack = [(root, 0)]
+    while stack:
+        node, pos = stack.pop()
+        labels = sorted(k for k in node if k >= 0)
+        slots = ([0] if -1 in node else []) + labels
+        if not slots:
+            continue
+        # first fit within the last 16 blocks: older holes stay empty
+        p = free_from(max(1, len(units) - 4096))
+        while True:
+            base = p ^ slots[0]
+            while (base | 0xFF) >= len(units):
+                skip[len(units):] = range(len(units), len(units) + 257)
+                units += [0] * 256
+            if base not in bases and all(skip[base ^ c] == base ^ c for c in slots[1:]):
+                break
+            p = free_from(p + 1)
+        bases.add(base)
+        offset = pos ^ base
+        assert offset < 1 << 21
+        units[pos] |= offset << 10 | (1 << 8 if -1 in node else 0)
+        for c in slots:
+            skip[base ^ c] = (base ^ c) + 1
+        if -1 in node:
+            units[base] = node[-1] | 1 << 31
+        for c in labels:
+            units[base ^ c] = c
+            stack.append((node[c], base ^ c))
+    return struct.pack(f"<I{len(units)}I", 4 * len(units), *units) + bytes(strings)
+
+
+def nfkc_rules() -> dict:
+    """NFKC of every code point that it changes, with the cluster and long
+    keys."""
+    import unicodedata
+
+    rules = {}
+    for cp in range(1, 0x110000):
+        c = chr(cp)
+        if not 0xD800 <= cp <= 0xDFFF and unicodedata.normalize("NFKC", c) != c:
+            rules[c] = unicodedata.normalize("NFKC", c)
+    return {**rules, **CLUSTER_KEYS, **LONG_KEYS}
+
+
+def nmt_rules() -> dict:
+    """``Nmt``'s rules as a character map: controls dropped, spaces made
+    ' '."""
+    drop = [*range(0x1, 0x9), 0xB, *range(0xE, 0x20), 0x7F, 0x8F, 0x9F]
+    space = [0x9, 0xA, 0xC, 0xD, 0x1680, *range(0x200B, 0x2010), 0x2028, 0x2029, 0x2581,
+             0xFEFF, 0xFFFD]
+    return {**{chr(c): "" for c in drop}, **{chr(c): " " for c in space}}
+
+
+_BLOBS: dict = {}
+
+
+def nfkc_charsmap() -> bytes:
+    if "nfkc" not in _BLOBS:
+        _BLOBS["nfkc"] = build_charsmap(nfkc_rules())
+    return _BLOBS["nfkc"]
 
 
 def _save(tok: Tokenizer, path, **special) -> str:
@@ -156,8 +271,145 @@ def _xlmr(path) -> str:
                  unk_token="<unk>", cls_token="<s>", sep_token="</s>", mask_token="<mask>")
 
 
+def _unigram(normalizer, pre_tokenizer, specials, vocab_size=400):
+    tok = Tokenizer(models.Unigram())
+    tok.normalizer = normalizer
+    tok.pre_tokenizer = pre_tokenizer
+    tok.train_from_iterator(CORPUS * 4, trainers.UnigramTrainer(
+        vocab_size=vocab_size, special_tokens=specials, unk_token="<unk>",
+        show_progress=False))
+    return tok
+
+
+def _metaspace():
+    return pre_tokenizers.Metaspace(replacement="▁", prepend_scheme="always", split=True)
+
+
+def _xlmr_real(path) -> str:
+    """XLM-R's and bge-m3's real layout: ``Precompiled`` then ``Replace``
+    of two or more spaces."""
+    tok = _unigram(normalizers.Sequence([normalizers.Precompiled(nfkc_charsmap()),
+                                         normalizers.Replace(Regex(" {2,}"), " ")]),
+                   _metaspace(), ["<s>", "<pad>", "</s>", "<unk>"])
+    tok.decoder = decoders.Metaspace(replacement="▁", prepend_scheme="always", split=True)
+    tok.add_special_tokens([AddedToken("<mask>", lstrip=True, normalized=False)])
+    return _save(tok, path, bos_token="<s>", eos_token="</s>", pad_token="<pad>",
+                 unk_token="<unk>", cls_token="<s>", sep_token="</s>", mask_token="<mask>")
+
+
+def _roberta(path) -> str:
+    tok = Tokenizer(models.BPE())
+    tok.pre_tokenizer = pre_tokenizers.ByteLevel(add_prefix_space=False, use_regex=True)
+    tok.decoder = decoders.ByteLevel()
+    tok.train_from_iterator(CORPUS, trainers.BpeTrainer(
+        vocab_size=600, special_tokens=["<s>", "<pad>", "</s>", "<unk>"],
+        initial_alphabet=pre_tokenizers.ByteLevel.alphabet(), show_progress=False))
+    tok.add_special_tokens([AddedToken("<mask>", lstrip=True, normalized=False)])
+    return _save(tok, path, bos_token="<s>", eos_token="</s>", pad_token="<pad>",
+                 unk_token="<unk>", cls_token="<s>", sep_token="</s>", mask_token="<mask>")
+
+
+def _t5(path) -> str:
+    norm = normalizers.Precompiled(nfkc_charsmap())
+    pre = pre_tokenizers.Sequence([pre_tokenizers.WhitespaceSplit(), _metaspace()])
+    base = _unigram(norm, pre, ["<pad>", "</s>", "<unk>"], vocab_size=300)
+    vocab = json.loads(base.to_str())["model"]["vocab"]
+    vocab += [[f"<0x{b:02X}>", -30.0] for b in range(256)]
+    tok = Tokenizer(models.Unigram([tuple(v) for v in vocab], unk_id=2, byte_fallback=True))
+    tok.normalizer, tok.pre_tokenizer = norm, pre
+    tok.decoder = decoders.Metaspace(replacement="▁", prepend_scheme="always", split=True)
+    return _save(tok, path, eos_token="</s>", pad_token="<pad>", unk_token="<unk>")
+
+
+def _albert(path) -> str:
+    norm = normalizers.Sequence([
+        normalizers.Replace("``", '"'), normalizers.Replace("''", '"'), normalizers.NFKD(),
+        normalizers.StripAccents(), normalizers.Lowercase(),
+        normalizers.Precompiled(nfkc_charsmap()), normalizers.Replace(Regex(" {2,}"), " ")])
+    tok = _unigram(norm, _metaspace(), ["<pad>", "<unk>", "[CLS]", "[SEP]", "[MASK]"])
+    tok.decoder = decoders.Metaspace(replacement="▁", prepend_scheme="always", split=True)
+    return _save(tok, path, pad_token="<pad>", unk_token="<unk>", cls_token="[CLS]",
+                 sep_token="[SEP]", mask_token="[MASK]")
+
+
+def _clip(path) -> str:
+    tok = Tokenizer(models.BPE(unk_token="<|endoftext|>", end_of_word_suffix="</w>"))
+    tok.normalizer = normalizers.Sequence([normalizers.NFC(),
+                                           normalizers.Replace(Regex(r"\s+"), " "),
+                                           normalizers.Lowercase()])
+    tok.pre_tokenizer = pre_tokenizers.Sequence([
+        pre_tokenizers.Split(Regex(CLIP_PATTERN), behavior="removed", invert=True),
+        pre_tokenizers.ByteLevel(add_prefix_space=False, use_regex=False)])
+    tok.decoder = decoders.BPEDecoder(suffix="</w>")
+    tok.train_from_iterator(CORPUS, trainers.BpeTrainer(
+        vocab_size=600, special_tokens=["<|startoftext|>", "<|endoftext|>"],
+        end_of_word_suffix="</w>", initial_alphabet=pre_tokenizers.ByteLevel.alphabet(),
+        show_progress=False))
+    return _save(tok, path, bos_token="<|startoftext|>", eos_token="<|endoftext|>",
+                 unk_token="<|endoftext|>", pad_token="<|endoftext|>")
+
+
+def _nmt(path) -> str:
+    tok = Tokenizer(models.WordPiece(unk_token="[UNK]"))
+    tok.normalizer = normalizers.Sequence([normalizers.Nmt(), normalizers.NFD(),
+                                           normalizers.Strip(left=True, right=True)])
+    tok.pre_tokenizer = pre_tokenizers.Whitespace()
+    tok.decoder = decoders.WordPiece(prefix="##")
+    tok.train_from_iterator(CORPUS, trainers.WordPieceTrainer(
+        vocab_size=400, special_tokens=["[PAD]", "[UNK]"], show_progress=False))
+    return _save(tok, path, pad_token="[PAD]", unk_token="[UNK]")
+
+
+def _punct(path) -> str:
+    tok = Tokenizer(models.BPE(unk_token="[UNK]", continuing_subword_prefix="##"))
+    tok.pre_tokenizer = pre_tokenizers.Sequence([
+        pre_tokenizers.WhitespaceSplit(), pre_tokenizers.Punctuation(behavior="contiguous"),
+        pre_tokenizers.Digits(individual_digits=True)])
+    tok.decoder = decoders.WordPiece(prefix="##")
+    tok.train_from_iterator(CORPUS, trainers.BpeTrainer(
+        vocab_size=500, special_tokens=["[PAD]", "[UNK]"], continuing_subword_prefix="##",
+        show_progress=False))
+    return _save(tok, path, pad_token="[PAD]", unk_token="[UNK]")
+
+
+def _scripts(path) -> str:
+    pre = pre_tokenizers.Sequence([
+        pre_tokenizers.CharDelimiterSplit("|"), pre_tokenizers.UnicodeScripts(),
+        pre_tokenizers.Punctuation(behavior="merged_with_previous"),
+        pre_tokenizers.Digits(individual_digits=False)])
+    tok = _unigram(normalizers.Lowercase(), pre, ["<pad>", "<unk>"], vocab_size=300)
+    tok.decoder = decoders.Fuse()
+    return _save(tok, path, pad_token="<pad>", unk_token="<unk>")
+
+
+def _ctc(path) -> str:
+    tok = Tokenizer(models.BPE(unk_token="<unk>"))
+    tok.normalizer = normalizers.Sequence([normalizers.Lowercase(),
+                                           normalizers.Replace(" ", "|")])
+    tok.pre_tokenizer = pre_tokenizers.FixedLength(length=3)
+    tok.decoder = decoders.CTC(pad_token="<pad>", word_delimiter_token="|", cleanup=True)
+    tok.train_from_iterator(CORPUS, trainers.BpeTrainer(
+        vocab_size=300, special_tokens=["<pad>", "<unk>"], show_progress=False))
+    return _save(tok, path, pad_token="<pad>", unk_token="<unk>")
+
+
+def _dropout(path, p: float) -> str:
+    tok = Tokenizer(models.BPE())
+    tok.normalizer = normalizers.ByteLevel()
+    tok.decoder = decoders.ByteLevel()
+    tok.train_from_iterator(CORPUS, trainers.BpeTrainer(
+        vocab_size=500, special_tokens=["<|end|>"],
+        initial_alphabet=pre_tokenizers.ByteLevel.alphabet(), show_progress=False))
+    data = json.loads(tok.to_str())
+    data["model"]["dropout"] = p
+    return _save(Tokenizer.from_str(json.dumps(data)), path, eos_token="<|end|>")
+
+
 _BUILDERS = {"wordlevel": _wordlevel, "llama3": _llama3, "llama2": _llama2, "bert": _bert,
-             "xlmr": _xlmr}
+             "xlmr": _xlmr, "xlmr_real": _xlmr_real, "roberta": _roberta, "t5": _t5,
+             "albert": _albert, "clip": _clip, "nmt": _nmt, "punct": _punct,
+             "scripts": _scripts, "ctc": _ctc, "dropout0": lambda p: _dropout(p, 0.0),
+             "dropout1": lambda p: _dropout(p, 1.0)}
 
 
 def build_layout(name: str, path) -> str:
@@ -247,7 +499,8 @@ def _range_cps(ranges):
     return [c for r in ranges for c in range(r[0], r[1] + 1)]
 
 
-@pytest.mark.parametrize("table", ["strip", "lower", "nfkc", "punct", "onig", "format"])
+@pytest.mark.parametrize("table", ["strip", "lower", "nfkc", "punct", "onig", "format", "nfd",
+                                   "marks", "numeric"])
 def test_unicode_drift_tables_hold_to_the_library(table):
     """Every code point of each drift range gets the library's treatment
     from the port, and so do a seeded sample of the rest."""
@@ -271,6 +524,28 @@ def test_unicode_drift_tables_hold_to_the_library(table):
         ours = hf_tokenizer.build_normalizer({"type": "NFKC"}, "t")
         cps = _range_cps(unicode_drift.NFKC_KEEP)
         check = lambda c: lib.normalize_str(c) == ours(c)  # noqa: E731
+    elif table == "nfd":
+        forms = [(getattr(normalizers, f)(), hf_tokenizer.build_normalizer({"type": f}, "t"))
+                 for f in ("NFD", "NFKD", "NFC", "NFKC")]
+        cps = _range_cps(unicode_drift.NFD_KEEP)
+
+        def check(c):
+            # the character, and its decomposition, which the library does
+            # not compose
+            texts = (c, unicodedata.normalize("NFD", c))
+            return all(lib.normalize_str(t) == ours(t) for lib, ours in forms for t in texts)
+    elif table == "marks":
+        lib = normalizers.StripAccents()
+        ours = hf_tokenizer.build_normalizer({"type": "StripAccents"}, "t")
+        cps = _range_cps(unicode_drift.MARK_KEEP + unicode_drift.MARK_DROP)
+        check = lambda c: lib.normalize_str("a" + c) == ours("a" + c)  # noqa: E731
+    elif table == "numeric":
+        lib = pre_tokenizers.Digits(individual_digits=True)
+        ours = hf_tokenizer.build_pre_tokenizer({"type": "Digits", "individual_digits": True},
+                                                "t")
+        cps = _range_cps(unicode_drift.RUST_NUMERIC)
+        check = lambda c: ([p for p, _ in lib.pre_tokenize_str("a" + c + "b")]  # noqa: E731
+                           == [p for p, _ in ours([("a" + c + "b", True)])])
     elif table == "punct":
         lib = pre_tokenizers.BertPreTokenizer()
         ours = hf_tokenizer.build_pre_tokenizer({"type": "BertPreTokenizer"}, "t")
@@ -292,30 +567,94 @@ def test_unicode_drift_tables_hold_to_the_library(table):
     assert not bad, bad[:20]
 
 
+def _with_component(src, dst, where, spec):
+    shutil.copytree(src, dst)
+    data = json.loads((dst / "tokenizer.json").read_text())
+    data[where] = spec
+    (dst / "tokenizer.json").write_text(json.dumps(data))
+    return str(dst)
+
+
+def _precompiled_spec():
+    return {"type": "Precompiled",
+            "precompiled_charsmap": base64.b64encode(nfkc_charsmap()).decode()}
+
+
 @pytest.mark.parametrize("where,spec", [
-    ("normalizer", {"type": "Precompiled", "precompiled_charsmap": ""}),
+    ("normalizer", "precompiled"),
     ("normalizer", {"type": "Sequence", "normalizers": [
-        {"type": "Precompiled", "precompiled_charsmap": ""},
-        {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": " "}]}),
+        "precompiled", {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": " "}]}),
     ("normalizer", {"type": "NFD"}),
     ("pre_tokenizer", {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
                        "use_regex": True}),
     ("pre_tokenizer", {"type": "Digits", "individual_digits": True}),
-    ("decoder", {"type": "CTC"}),
+    ("decoder", {"type": "CTC", "pad_token": "<pad>", "word_delimiter_token": "|",
+                 "cleanup": True}),
+])
+def test_formerly_refused_component_matches_jax(layouts, tmp_path, where, spec):
+    """The components the port once refused, each put into XLM-R's layout
+    in turn: ids and decodes equal JAX's."""
+    if spec == "precompiled":
+        spec = _precompiled_spec()
+    elif spec.get("type") == "Sequence":
+        spec = {**spec, "normalizers": [_precompiled_spec(), *spec["normalizers"][1:]]}
+    d = _with_component(layouts["xlmr"], tmp_path / "tok", where, spec)
+    jax_tok, tok = JaxHFTokenizer(d), HFTokenizer(d)
+    for text in HARD + CORPUS[:10]:
+        _same_encode(jax_tok, tok, text)
+        ids = jax_tok.encode(text)
+        assert tok.decode(ids) == jax_tok.decode(ids), text
+
+
+@pytest.mark.parametrize("where,spec", [
+    ("normalizer", {"type": "NFKX"}),
+    ("normalizer", {"type": "Sequence", "normalizers": [{"type": "Lowercase"},
+                                                        {"type": "Casefold"}]}),
+    ("normalizer", {"type": "Sequence", "normalizers": [
+        {"type": "Sequence", "normalizers": [{"type": "Transliterate"}]}]}),
+    ("pre_tokenizer", {"type": "SentencePieceSplit"}),
+    ("pre_tokenizer", {"type": "Sequence", "pretokenizers": [{"type": "Whitespace"},
+                                                             {"type": "Syllables"}]}),
+    ("decoder", {"type": "Detokenize"}),
+    ("model", {"type": "WordPieceV2", "vocab": {}}),
+    ("decoder", {"type": "Sequence", "decoders": [{"type": "Fuse"}, {"type": "Titlecase"}]}),
 ])
 def test_unsupported_component_is_named(layouts, tmp_path, where, spec):
-    """A component outside the port's table raises a ValueError naming the
-    component and the file; nothing falls back to the byte tokenizer."""
-    import shutil
+    """A component of a ``type`` that ``tokenizers`` does not define raises
+    a ValueError naming it and the file, inside a Sequence too; nothing
+    falls back to the byte tokenizer."""
+    d = _with_component(layouts["xlmr"], tmp_path / "tok", where, spec)
+    inner = spec
+    while inner.get("type") == "Sequence":
+        inner = (inner.get("normalizers") or inner.get("pretokenizers")
+                 or inner.get("decoders"))[-1]
+    with pytest.raises(ValueError, match=rf"tokenizer\.json.*'{inner['type']}'"):
+        HFTokenizer(d)
 
+
+def test_bpe_dropout_is_held_in_law(layouts, tmp_path):
+    """BPE dropout 0.3: the port (drawing from a seeded ``random.Random``)
+    and ``tokenizers`` (its thread RNG) give each token of a word at the
+    same rate per encode, within 0.06 over 10,000 encodes each (about six
+    standard errors of the difference)."""
     d = tmp_path / "tok"
-    shutil.copytree(layouts["xlmr"], d)
+    shutil.copytree(layouts["dropout0"], d)
     data = json.loads((d / "tokenizer.json").read_text())
-    data[where] = spec
+    data["model"]["dropout"] = 0.3
     (d / "tokenizer.json").write_text(json.dumps(data))
-    name = spec["type"] if spec["type"] != "Sequence" else "Precompiled"
-    with pytest.raises(ValueError, match=rf"tokenizer\.json.*{name}"):
-        HFTokenizer(str(d))
+    jax_tok, tok = JaxHFTokenizer(str(d)), HFTokenizer(str(d), rng=random.Random(7))
+    text, n = "the quick brown fox", 10_000
+    rates = []
+    for t in (jax_tok, tok):
+        counts: dict = {}
+        for _ in range(n):
+            for i in t.encode(text):
+                counts[i] = counts.get(i, 0) + 1
+        rates.append({i: c / n for i, c in counts.items()})
+    assert len({tuple(tok.encode(text)) for _ in range(50)}) > 1  # the draws vary
+    for i in set(rates[0]) | set(rates[1]):
+        assert abs(rates[0].get(i, 0.0) - rates[1].get(i, 0.0)) < 0.06, (
+            tok.decode([i]), rates[0].get(i), rates[1].get(i))
 
 
 def test_unsupported_model_is_named(layouts, tmp_path):

@@ -3,7 +3,7 @@ chip_smoke.py, imports JAX (or flax/optax) or anything of the JAX package,
 nor an HTTP, metrics, cache, store, token or model-file package the
 machine with the card lacks (aiohttp, httpx, pydantic, prometheus_client,
 redis, qdrant_client, jwt, transformers, tokenizers, safetensors, regex,
-ml_dtypes) — checked statically on every file,
+ml_dtypes, sentencepiece) — checked statically on every file,
 then by importing every module in a fresh interpreter where those imports
 are blocked, and in a spawned replica worker (``runtime/worker.py``), whose
 loaded modules must hold none of JAX or its package."""
@@ -19,7 +19,7 @@ REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "sentio_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "sentio_tpu", "aiohttp", "httpx", "pydantic",
              "prometheus_client", "redis", "qdrant_client", "jwt", "transformers",
-             "tokenizers", "safetensors", "regex", "ml_dtypes"}
+             "tokenizers", "safetensors", "regex", "ml_dtypes", "sentencepiece"}
 
 
 def _port_files():

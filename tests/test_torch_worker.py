@@ -45,7 +45,7 @@ from sentio_tpu.runtime.service import GenerationTimeout as JTimeout
 from sentio_tpu.runtime.service import PagedGenerationService as JService
 from sentio_tpu.runtime.weights import load_model as jload_model
 from sentio_tpu_torch.infra import exceptions as exc
-from sentio_tpu_torch.infra.metrics import get_metrics
+from sentio_tpu_torch.infra.metrics import MetricsCollector, get_metrics, set_metrics
 from sentio_tpu_torch.kernels import KERNELS
 from sentio_tpu_torch.models.llama import LlamaConfig, init_llama
 from sentio_tpu_torch.models.tokenizer import ByteTokenizer
@@ -66,6 +66,18 @@ TOKEN = "worker-test-token"
 # fault points, named through constants
 PAGED_STEP = "paged." + "step"
 RECV_R0 = "transport.recv." + "r0"
+
+
+@pytest.fixture(scope="module", autouse=True)
+def fresh_metrics():
+    """A collector of the module's own, as JAX's worker tests keep: the
+    process-wide one carries the epoch fence of every worker an earlier
+    module ran (a socket set leaves replica 0 at epoch 1), which would drop
+    each frame of this module's pipe worker (epoch 0) as stale."""
+    old = get_metrics()
+    set_metrics(MetricsCollector())
+    yield
+    set_metrics(old)
 
 
 @pytest.fixture(scope="module")
