@@ -452,6 +452,28 @@ IPC handles on them).
     and one layer, its mesh naming the card twice along ep, gated and held
     to the plain step as mesh_train's dp × tp step, within ``EP_LIMITS``.
 
+42. sanitize (right after the replica phases, on the tier's weights) — the
+    runtime sanitizer on the card: ``SENTIO_SANITIZE=1`` while the phase's
+    objects are built (the prior value after), a wrapper over
+    ``runtime.paged.check_engine_invariants`` counting and timing each
+    tick's check per engine. Two thread-mode replicas under ``Settings()``
+    with the prefix cache, the warmed head and AFFINITY_STICKINESS 0.5:
+    warmup, 64 chunks, then 12 generations at once over two 512-token
+    heads (the first a stream dropped after its first piece) beside two
+    /chat answers, a lone greedy request, and replica 0 quarantined and
+    rebuilt (armed) under traffic; then an int8 engine at the serving
+    geometry driven directly. Gates: every engine, lock and lockset armed;
+    each replica's ticks and the int8 engine's checked; no sanitizer error
+    but one injected on the quiescent int8 engine (a page popped from its
+    free list: the next tick names it, and once it is back the engine
+    steps clean), no tick failure; a check with slots active under
+    ``torch.cuda.set_sync_debug_mode("error")`` raises nothing; both
+    replicas served, hit and hold pages in their trees, the dropped stream
+    cancelled; the lone greedy text equal to the unarmed ``replicas_2``
+    answer; both paged kernels once per layer per sub-step, flash
+    launched, each count equal to the card's. Reported: the check's host
+    ms per tick (p50, max) beside the ticks' own ms, the pools' pages.
+
 ``slice_contig`` runs Llama-3-8B cut to 16 of its layers (``CONTIG_LAYERS``)
 since convert_serve.
 
@@ -475,6 +497,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -5151,7 +5174,10 @@ ELASTIC_SERVE = dict(
 ELASTIC_BURST = 16       # JSON chats released together to grow the fleet
 ELASTIC_CHUNKS = 512     # the elastic server's corpus
 ELASTIC_WAVE = 8         # the wave that reaches the joined worker
-ELASTIC_STREAM_TOKENS = 512
+# a stream of 512 tokens on an 8-layer worker of the H100 ran ~3 s, as long
+# as the lead, and so could end before the scale-in fired: 1,024 run about
+# twice the lead, so each is still in flight when the cooldown ends
+ELASTIC_STREAM_TOKENS = 1024
 ELASTIC_STREAM_LEAD_S = 3.0   # the streams start this long before scale-in may fire
 ELASTIC_JOIN_S = 240.0
 # short prompts (less than one 128-token page): no radix hit anywhere, so a
@@ -7599,6 +7625,362 @@ def device_launches(profile: dict, family: str) -> dict:
             "profiler": family_launches(profile["profiler_launches"], family)}
 
 
+# ------------------------------------------------------------- the sanitizer
+
+SANITIZE_CHATS = 12       # concurrent generations over two 512-token heads
+SANITIZE_RAG_CHATS = 2    # /chat answers beside them (the encoders' flash)
+SANITIZE_DOCS = 64        # ingested for those chats
+SANITIZE_STREAM_TOKENS = 256   # the stream dropped after its first piece
+
+
+class Sanitized:
+    """``SENTIO_SANITIZE=1`` while the sanitize phase constructs its objects
+    (the setting is read at construction), the prior value after."""
+
+    def __enter__(self) -> "Sanitized":
+        self.prior = os.environ.get("SENTIO_SANITIZE")
+        os.environ["SENTIO_SANITIZE"] = "1"
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.prior is None:
+            os.environ.pop("SENTIO_SANITIZE", None)
+        else:
+            os.environ["SENTIO_SANITIZE"] = self.prior
+
+
+class CheckTimer:
+    """Installed over ``runtime.paged.check_engine_invariants`` (the name
+    each tick calls): the real check runs unchanged, and each call's host
+    ms and each ``SanitizerError`` are kept per engine. The package counts
+    nothing of its own for this."""
+
+    def __init__(self) -> None:
+        from sentio_tpu_torch.runtime import paged
+
+        self.paged = paged
+        self.real = paged.check_engine_invariants
+        self.ms: dict = {}
+        self.errors: list = []
+        paged.check_engine_invariants = self
+
+    def __call__(self, engine) -> None:
+        t0 = time.perf_counter()
+        try:
+            self.real(engine)
+        except Exception as exc:
+            self.errors.append((id(engine), str(exc)))
+            raise
+        finally:
+            self.ms.setdefault(id(engine), []).append((time.perf_counter() - t0) * 1e3)
+
+    def remove(self) -> None:
+        self.paged.check_engine_invariants = self.real
+
+    def of(self, *engines) -> dict:
+        ms = [x for e in engines for x in self.ms.get(id(e), [])]
+        return {"ticks": len(ms), "p50_ms": percentile(ms, 0.5) if ms else None,
+                "max_ms": max(ms) if ms else None}
+
+
+def tick_ms(recorder, since_tick: int, replica: int) -> list:
+    """The pump ticks' own ms of ``replica`` on the flight recorder, after
+    event ``since_tick``."""
+    return [e["dur_ms"] for e in recorder.events() if e["tick"] > since_tick
+            and "event" not in e and e.get("replica") == replica and "dur_ms" in e]
+
+
+def sanitize_burst(rs, pipeline, heads: list, words) -> dict:
+    """``SANITIZE_CHATS`` generations at once through the replica set, each
+    on one of two 512-token heads, from tenants a and b; the first a stream
+    dropped after its first piece (its slot cancelled); beside them
+    ``SANITIZE_RAG_CHATS`` /chat answers. Every caller must succeed."""
+    import threading
+
+    out: list = [None] * (SANITIZE_CHATS + SANITIZE_RAG_CHATS)
+    start = threading.Barrier(len(out))
+
+    def run(i: int) -> None:
+        start.wait(timeout=60)
+        try:
+            if i >= SANITIZE_CHATS:
+                question = f"What does the corpus say about {words[7 * i]}?"
+                out[i] = ("chat", pipeline.chat(question))
+                return
+            prompt = f"{heads[i % 2]} Q{i}: what links {words[3 * i]} to {words[3 * i + 1]}?"
+            if i == 0:
+                stream = rs.generate_stream(prompt, max_new_tokens=SANITIZE_STREAM_TOKENS,
+                                            tenant="a")
+                first = next(stream)
+                stream.close()
+                out[i] = ("dropped", first)
+            else:
+                out[i] = ("generate", rs.generate(prompt, max_new_tokens=MAX_TOKENS,
+                                                  tenant="ab"[i % 2], timeout_s=300))
+        except Exception as exc:  # noqa: BLE001 — raised below, on the main thread
+            out[i] = ("raised", exc)
+
+    threads = [threading.Thread(target=run, args=(i,), name=f"smoke-sanitize-{i}",
+                                daemon=True) for i in range(len(out))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=HTTP_TIMEOUT_S)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError(f"sanitize: a chat did not return within {HTTP_TIMEOUT_S:.0f} s")
+    replicas = []
+    for i, (kind, value) in enumerate(out):
+        if kind == "raised":
+            raise AssertionError(f"sanitize chat {i} raised: {value!r}") from value
+        if kind == "chat":
+            check_answered("sanitize", i, value)
+        elif kind == "generate":
+            if value.finish_reason not in ("stop", "length"):
+                raise AssertionError(f"sanitize chat {i} ended {value.finish_reason}")
+            replicas.append(value.replica_id)
+    return {"replicas": replicas, "dropped_first_piece": out[0][1]}
+
+
+def sanitize_rebuild(torch, rs, words) -> dict:
+    """Replica 0 quarantined by the supervisor's own entry point while two
+    threads send generations: drained, its engine released, a fresh one
+    (armed: built under the setting) warmed and swapped in. No tick fails."""
+    import threading
+
+    t0 = time.perf_counter()
+    old = rs.services[0]
+    done: list = []
+    stop = threading.Event()
+
+    def traffic(k: int) -> None:
+        i = 0
+        while not stop.is_set():
+            word = words[(300 + 7 * k + i) % len(words)]
+            try:
+                result = rs.generate(f"While replica 0 rebuilds, what about {word}?",
+                                     max_new_tokens=16, tenant="ab"[k], timeout_s=300)
+            except Exception as exc:  # noqa: BLE001 — raised below, on the main thread
+                done.append(("raised", exc, None))
+                return
+            done.append((rs.health_summary()["replicas"][0]["state"], result.finish_reason,
+                         result.replica_id))
+            i += 1
+
+    threads = [threading.Thread(target=traffic, args=(k,), name=f"smoke-sanitize-rebuild-{k}",
+                                daemon=True) for k in range(2)]
+    with Sanitized():
+        for t in threads:
+            t.start()
+        try:
+            wait_for(lambda: len(done) >= 2, 120, "traffic before the rebuild")
+            rs._quarantine(0, "sanitize phase: rebuild under traffic")
+            wait_for(lambda: rs.services[0] is not old
+                     and rs.health_summary()["replicas"][0]["state"] == "HEALTHY",
+                     300, "replica 0's rebuild", poll_s=0.25)
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(timeout=HTTP_TIMEOUT_S)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError(f"sanitize: a rebuild-traffic thread did not return within "
+                             f"{HTTP_TIMEOUT_S:.0f} s")
+    raised = [d[1] for d in done if d[0] == "raised"]
+    if raised:
+        raise AssertionError(f"sanitize: {len(raised)} generation(s) raised during the "
+                             f"rebuild: {raised!r}") from raised[0]
+    fresh = rs.services[0]
+    during = [d for d in done if d[0] != "HEALTHY"]
+    result = {"seconds": time.perf_counter() - t0, "chats": len(done),
+              "chats_during_rebuild": len(during),
+              "during_replicas": sorted({d[2] for d in during}),
+              "finish_reasons": sorted({d[1] for d in done}),
+              "fresh_armed": fresh.engine._san is not None,
+              "fresh_guard": getattr(fresh.engine._san, "name", None),
+              "old_pool_released": old.engine.pool is None}
+    if not result["fresh_armed"] or result["fresh_guard"] != "ContinuousBatchingEngine[r0]" \
+            or not result["old_pool_released"] or 1 not in result["during_replicas"] \
+            or set(result["finish_reasons"]) - {"stop", "length"}:
+        raise AssertionError(f"sanitize: the rebuild under traffic: {result}")
+    return {**result, "old": old, "fresh": fresh}
+
+
+def sanitize_int8(torch, dev, weights, heads: list, timer: CheckTimer) -> dict:
+    """One int8 engine at the serving geometry, armed, driven directly for a
+    few ticks; then the check shown live on the card (a page popped from
+    the free list is named on the next tick, and the engine steps clean
+    once it is back), and one check with slots active under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    from sentio_tpu_torch.analysis.sanitizer import SanitizerError
+    from sentio_tpu_torch.config import GeneratorConfig
+    from sentio_tpu_torch.pipeline import engine_settings
+    from sentio_tpu_torch.runtime.paged import ContinuousBatchingEngine
+
+    with Sanitized():
+        eng = ContinuousBatchingEngine(model_config=weights["llama_config"],
+                                       params=weights["llama_params"], device=dev,
+                                       **engine_settings(GeneratorConfig(kv_quant="int8")))
+    if eng._san is None or not eng.pool.quantized:
+        raise AssertionError("sanitize_int8: the engine is not armed or not int8")
+    step_ms = []
+
+    def drain() -> None:
+        while eng.has_work:
+            t0 = time.perf_counter()
+            eng.step()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+
+    for i in range(4):
+        eng.submit(f"{heads[i % 2]} int8 row {i}?", max_new_tokens=32)
+    drain()
+    ticks = timer.of(eng)["ticks"]
+    # the check is live on the card: a page lost from the free list
+    leaked = eng.allocator._free.pop()
+    eng.submit(f"{heads[0]} after the leak?", max_new_tokens=8)
+    caught = ""
+    try:
+        drain()
+    except SanitizerError as exc:
+        caught = str(exc)
+    if f"leaked=[{leaked}]" not in caught:
+        raise AssertionError(f"sanitize_int8: the leaked page {leaked} was not named: "
+                             f"{caught!r}")
+    eng.allocator._free.append(leaked)
+    drain()
+    timer.real(eng)
+    # one check with slots active: host metadata only, no device sync
+    eng.submit(f"{heads[1]} sync probe?", max_new_tokens=16)
+    eng.step()
+    active = sum(s.active for s in eng.slots)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        timer.real(eng)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    drain()
+    return {"engine": eng, "ticks_before_leak": ticks, "leaked_page": leaked,
+            "caught": caught, "active_under_sync_check": active,
+            "step_p50_ms": percentile(step_ms, 0.5), "num_pages": eng.allocator.num_pages}
+
+
+def sanitize_check(torch, dev, weights, unarmed_lone: dict) -> dict:
+    """sanitize: the replica tier and an int8 engine armed with
+    ``SENTIO_SANITIZE=1`` (set while their objects are built), on the tier's
+    weights. Two thread-mode replicas with the prefix cache and the warmed
+    head (AFFINITY_STICKINESS 0.5), ``SANITIZE_CHATS`` generations at once
+    over two 512-token heads, one stream dropped mid-way, two /chat
+    answers; a lone greedy request; replica 0 rebuilt under traffic; then
+    :func:`sanitize_int8`. Gates: every engine armed and its ticks checked
+    (each replica's, the int8 engine's), no sanitizer error but the one
+    injected, no tick failure, both replicas served and donated pages to
+    their trees, the lone greedy text equal to the unarmed ``replicas_2``
+    answer, each wrapper's launches equal to the card's and the paged
+    kernels once per layer per sub-step. Reported: the check's host ms per
+    tick (p50, max) beside the ticks' own ms, the pools' page counts."""
+    from sentio_tpu_torch.analysis.sanitizer import OwnedLock
+    from sentio_tpu_torch.config import GeneratorConfig, ServeConfig, Settings
+    from sentio_tpu_torch.infra.flight import get_flight_recorder
+    from sentio_tpu_torch.pipeline import build_pipeline
+
+    phase = "sanitize"
+    t_phase = time.perf_counter()
+    docs, words = corpus(SANITIZE_DOCS)
+    heads = [docs[1].text[:511], docs[2].text[:511]]
+    settings = Settings(generator=GeneratorConfig(max_new_tokens=MAX_TOKENS,
+                                                  verifier_max_tokens=MAX_TOKENS),
+                        serve=ServeConfig(replicas=2, affinity_stickiness=REPLICA_STICKINESS))
+    gc.collect()
+    torch.cuda.empty_cache()
+    timer = CheckTimer()
+    recorder = get_flight_recorder()
+    pipeline = None
+    try:
+        with Sanitized():
+            pipeline = build_pipeline(settings, device=dev, seed=SEED, **weights)
+        rs = pipeline.replica_set
+        engines = [svc.engine for svc in rs.services]
+        armed = {"engines": [e._san is not None for e in engines],
+                 "guards": [e._san.name if e._san else None for e in engines],
+                 "locks": [isinstance(x, OwnedLock) for x in
+                           (rs._mutex, rs.tenants._mutex, *(s._mutex for s in rs.services))],
+                 "locksets": ["_san_lockset_state" in x.__dict__ for x in (rs, *rs.services)]}
+        if not all(v for vals in armed.values() for v in vals):
+            raise AssertionError(f"{phase}: not every object is armed: {armed}")
+        warm = pipeline.warmup()
+        if min(warm["head_tokens"]) <= 0:
+            raise AssertionError(f"{phase}: the template head was not warmed: {warm}")
+        pipeline.ingest(docs)
+        rs.wait_idle()
+        stats0 = [svc.stats() for svc in rs.services]
+        sub0 = [e.total_sub_steps for e in engines]
+        tick0 = recorder.record_tick(event="smoke_mark", phase=phase)
+        window = LaunchWindow(torch)
+        burst = sanitize_burst(rs, pipeline, heads, words)
+        rs.wait_idle()
+        stats1 = [svc.stats() for svc in rs.services]
+        lone = lone_greedy(rs)
+        rebuild = sanitize_rebuild(torch, rs, words)
+        rs.wait_idle()
+        old, fresh = rebuild.pop("old"), rebuild.pop("fresh")
+        int8 = sanitize_int8(torch, dev, weights, heads, timer)
+        eng8 = int8.pop("engine")
+        launches, card = window.read()
+        n_layers = weights["llama_config"].n_layers
+        sub_steps = (old.engine.total_sub_steps - sub0[0] + fresh.engine.total_sub_steps
+                     + rs.services[1].engine.total_sub_steps - sub0[1])
+        checks = {"replica_0": timer.of(old.engine, fresh.engine),
+                  "replica_0_old": timer.of(old.engine), "replica_0_fresh": timer.of(fresh.engine),
+                  "replica_1": timer.of(engines[1]), "int8": timer.of(eng8)}
+        ticks = {r: tick_ms(recorder, tick0, r) for r in (0, 1)}
+        failures = [s.tick_failure_count for s in (old, fresh, rs.services[1])]
+        result = {
+            "armed": armed, "warm_head_tokens": warm["head_tokens"],
+            "chats": SANITIZE_CHATS, "rag_chats": SANITIZE_RAG_CHATS,
+            "burst_replicas": burst["replicas"],
+            "prefix_hits": [b["prefix_hits"] - a["prefix_hits"] for a, b in zip(stats0, stats1)],
+            "prefix_cache_pages": [s["prefix_cache_pages"] for s in stats1],
+            "cancelled": sum(b["cancelled"] - a["cancelled"] for a, b in zip(stats0, stats1)),
+            "lone": lone, "lone_equal": lone["text"] == unarmed_lone["text"],
+            "rebuild": rebuild, "int8": int8, "checks": checks,
+            "check_p50_ms": {k: v["p50_ms"] for k, v in checks.items()},
+            "check_max_ms": {k: v["max_ms"] for k, v in checks.items()},
+            "tick_p50_ms": {f"replica_{r}": percentile(v, 0.5) if v else None
+                            for r, v in ticks.items()},
+            "int8_step_p50_ms": int8["step_p50_ms"],
+            "num_pages": {"replicas": [e.allocator.num_pages for e in engines],
+                          "int8": int8["num_pages"]},
+            "sanitizer_errors": [m for _id, m in timer.errors],
+            "tick_failures": failures, "sub_steps": sub_steps,
+            "launches": launches, "device_launches": card,
+            "seconds": time.perf_counter() - t_phase}
+        emit(phase, **result)
+        if any(checks[k]["ticks"] <= 0 for k in ("replica_0_old", "replica_0_fresh",
+                                                 "replica_1", "int8")):
+            raise AssertionError(f"{phase}: an engine's ticks were not checked: {checks}")
+        if len(timer.errors) != 1 or str(int8["leaked_page"]) not in timer.errors[0][1] \
+                or timer.errors[0][0] != id(eng8) or any(failures):
+            raise AssertionError(f"{phase}: sanitizer errors other than the injected leak, or "
+                                 f"failed ticks: {timer.errors}, {failures}")
+        if sorted(set(burst["replicas"])) != [0, 1] or min(result["prefix_hits"]) <= 0 \
+                or min(result["prefix_cache_pages"]) <= 0 or result["cancelled"] < 1:
+            raise AssertionError(f"{phase}: both replicas must serve, hit and hold their "
+                                 f"trees, and the dropped stream be cancelled: {result}")
+        if not result["lone_equal"]:
+            raise AssertionError(f"{phase}: the armed lone greedy text differs from the "
+                                 f"unarmed replicas_2 answer: {lone} vs {unarmed_lone}")
+        if launches["paged_attention"] != n_layers * sub_steps or sub_steps <= 0 \
+                or launches["paged_attention_quant"] != n_layers * eng8.total_sub_steps \
+                or launches["flash_attention"] <= 0:
+            raise AssertionError(f"{phase}: launches are not one per layer per sub-step "
+                                 f"({sub_steps} bf16, {eng8.total_sub_steps} int8), or no "
+                                 f"flash: {launches}")
+        check_card(phase, card, launches)
+        return result
+    finally:
+        timer.remove()
+        if pipeline is not None:
+            close_pipeline(torch, pipeline)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -7767,6 +8149,7 @@ def main(argv=None) -> int:
     ev, gates, vm = new["eval"]["counts"], new["quality_gates"]["launches"], new["verify_modes"]
     tier = cut_depth(weights, TIER_LAYERS)
     rep = replica_phases(torch, dev, tier)
+    san = sanitize_check(torch, dev, tier, rep["replicas_2"]["lone"])
     cli_check(torch)
     cs = convert_serve_check(torch, dev, weights)
     t_workers = time.perf_counter()
@@ -7805,6 +8188,7 @@ def main(argv=None) -> int:
                               **{path: launches["paged_attention"]
                                  for path, launches in worker_paths.items()},
                               "elastic": elastic["paged_launches"],
+                              "sanitize": san["launches"]["paged_attention"],
                               "convert_serve": cs["chats"]["launches"]["paged_attention"],
                               "slice_moe": sm["launches"]["paged_attention"],
                               "profile_moe": pm["launches_counted"]["paged_attention"],
@@ -7831,6 +8215,7 @@ def main(argv=None) -> int:
              "elastic": [w["device_launches"] for w in elastic["worker_windows"]]},
          "device_launches_replica_tier": {path: family_launches(
              rep[path]["device_launches"], "paged_attention") for path in rep_paths},
+         "device_launches_sanitize": family_launches(san["device_launches"], "paged_attention"),
          "device_launches_eval": {name: family_launches(ev[name]["device_launches"],
                                                         "paged_attention")
                                   for name in ("full_paged", "batched")},
@@ -7870,7 +8255,10 @@ def main(argv=None) -> int:
                               "mesh_tp_logits_int8":
                                   mtp["logits_int8"]["paged_attention_quant_launches"],
                               "mesh_ep_logits_int8":
-                                  mep["logits_int8"]["paged_attention_quant_launches"]},
+                                  mep["logits_int8"]["paged_attention_quant_launches"],
+                              "sanitize_int8": san["launches"]["paged_attention_quant"]},
+         "device_launches_sanitize_int8": family_launches(san["device_launches"],
+                                                          "paged_attention_quant"),
          "device_launches_quality_gates_int8": family_launches(
              gates["int8"]["device_launches"], "paged_attention_quant"),
          "device_launches": family_launches(sl8["device_launches"], "paged_attention_quant"),
@@ -7918,6 +8306,7 @@ def main(argv=None) -> int:
                               "replicas_2_socket_router": workers["replicas_2_socket"][
                                   "round"]["router_launches"]["flash_attention"],
                               "elastic_router": elastic["router_launches"]["flash_attention"],
+                              "sanitize": san["launches"]["flash_attention"],
                               "convert_serve": cs["chats"]["launches"]["flash_attention"],
                               "slice_moe": sm["launches"]["flash_attention"],
                               "profile_moe": pm["launches_counted"]["flash_attention"],
@@ -7939,7 +8328,8 @@ def main(argv=None) -> int:
                                              ("spec_exact", spec_exact), ("verify_modes", vm),
                                              *((path, rep[path]) for path in rep_paths),
                                              ("slice_moe", sm), ("slice_moe_int8", sm8),
-                                             ("mesh_tp", mtp), ("mesh_ep", mep))},
+                                             ("mesh_tp", mtp), ("mesh_ep", mep),
+                                             ("sanitize", san))},
          "device_launches_eval": {name: family_launches(ev[name]["device_launches"],
                                                         "flash_attention")
                                   for name in ("dense", "hybrid_rerank", "full_paged",

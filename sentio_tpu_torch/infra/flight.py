@@ -33,6 +33,8 @@ import time
 from collections import OrderedDict, deque
 from typing import Any, Optional
 
+from sentio_tpu_torch.analysis.sanitizer import assert_held, guard_locksets, make_lock
+
 __all__ = ["FlightRecorder", "get_flight_recorder", "set_flight_recorder",
            "MAX_TICKS_PER_RECORD"]
 
@@ -41,18 +43,19 @@ __all__ = ["FlightRecorder", "get_flight_recorder", "set_flight_recorder",
 MAX_TICKS_PER_RECORD = 256
 
 
+@guard_locksets
 class FlightRecorder:
     """Bounded, thread-safe flight store: every method is a short dict or
     deque operation under one lock, safe from HTTP threads, pipeline
     threads, detached verify threads and the pumps at once."""
 
     def __init__(self, max_ticks: int = 4096, max_requests: int = 512) -> None:
-        self._lock = threading.Lock()
-        self._ticks: deque = deque(maxlen=max_ticks)
-        self._tick_seq = 0
-        self._records: "OrderedDict[str, dict]" = OrderedDict()
+        self._lock = make_lock("FlightRecorder._lock")
+        self._ticks: deque = deque(maxlen=max_ticks)  # guarded-by: _lock
+        self._tick_seq = 0  # guarded-by: _lock
+        self._records: "OrderedDict[str, dict]" = OrderedDict()  # guarded-by: _lock
         self.max_requests = max_requests
-        self.dropped_requests = 0
+        self.dropped_requests = 0  # guarded-by: _lock
         self._t0 = time.perf_counter()  # the timeline's origin
 
     # ------------------------------------------------------------- requests
@@ -60,6 +63,7 @@ class FlightRecorder:
     def _ensure_locked(self, request_id: str) -> dict:
         """Fetch or create a record (lock held): any layer may be the first
         to see an id."""
+        assert_held(self._lock)
         record = self._records.get(request_id)
         if record is None:
             record = {"request_id": request_id, "status": "active",
@@ -266,6 +270,7 @@ class FlightRecorder:
         return time.perf_counter() - self._t0
 
     def _evict_locked(self) -> None:
+        assert_held(self._lock)
         while len(self._records) > self.max_requests:
             self._records.popitem(last=False)
             self.dropped_requests += 1

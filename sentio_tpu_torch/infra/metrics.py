@@ -62,6 +62,7 @@ import threading
 from collections import deque
 from typing import Any, Optional, Sequence
 
+from sentio_tpu_torch.analysis.sanitizer import guard_locksets, make_lock
 from sentio_tpu_torch.infra.phases import TICK_PHASES
 
 # observations per histogram series kept for export_json's quantiles
@@ -229,6 +230,7 @@ class Histogram(_Family):
         return lines
 
 
+@guard_locksets
 class MetricsCollector:
     """One per process (:func:`get_metrics`)."""
 
@@ -393,10 +395,10 @@ class MetricsCollector:
             "fleet_saturated": self.fleet_saturated,
         }
         # the last accepted telemetry snapshot of each replica's worker
-        self._worker_last: dict[int, dict] = {}
-        self._worker_lock = threading.Lock()
-        self._inflight = 0
-        self._inflight_lock = threading.Lock()
+        self._worker_last: dict[int, dict] = {}  # guarded-by: _worker_lock
+        self._worker_lock = make_lock("MetricsCollector._worker_lock")
+        self._inflight = 0  # guarded-by: _inflight_lock
+        self._inflight_lock = make_lock("MetricsCollector._inflight_lock")
         self._serving_last: dict[str, float] = {}
         self._serving_lock = threading.Lock()
 

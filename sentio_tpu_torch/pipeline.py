@@ -614,8 +614,7 @@ class ChatPipeline:
                         # a worker warmed it again itself, after its warmup
                         stats["head_tokens"].append(result["head_tokens"])
                         continue
-                    svc.wait_idle()
-                    stats["head_tokens"].append(svc.engine.warm_prefix(self.warm_head))
+                    stats["head_tokens"].append(svc.warm_prefix(self.warm_head))
         self.ready = True
         return stats
 

@@ -41,6 +41,7 @@ import time
 from collections import deque
 from typing import Callable, Optional
 
+from sentio_tpu_torch.analysis.sanitizer import make_lock
 from sentio_tpu_torch.infra.flight import get_flight_recorder
 from sentio_tpu_torch.infra.metrics import get_metrics
 
@@ -70,10 +71,10 @@ class AutoscalePolicy:
         self.out_backlog = min(max(float(out_backlog), 0.0), 1.0)
         self.out_cooldown_s = max(float(out_cooldown_s), 0.0)
         self.in_cooldown_s = max(float(in_cooldown_s), 0.0)
-        self._mutex = threading.Lock()
-        self._samples: deque = deque()
-        self._last_out: Optional[float] = None
-        self._last_change: Optional[float] = None
+        self._mutex = make_lock("AutoscalePolicy._mutex")
+        self._samples: deque = deque()  # guarded-by: _mutex
+        self._last_out: Optional[float] = None  # guarded-by: _mutex
+        self._last_change: Optional[float] = None  # guarded-by: _mutex
 
     def observe(self, now: float, busy_fraction: float, backlog_fraction: float) -> None:
         """Fold one fleet sample into the sliding window."""
@@ -201,11 +202,11 @@ class Autoscaler:
         self.launch_grace_s = max(float(launch_grace_s), 1.0)
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
-        self._mutex = threading.Lock()
-        self._decisions = {"out": 0, "in": 0}
-        self._skipped = 0
-        self._pending_launches: list = []
-        self._last_serving: Optional[int] = None
+        self._mutex = make_lock("Autoscaler._mutex")
+        self._decisions = {"out": 0, "in": 0}  # guarded-by: _mutex
+        self._skipped = 0  # guarded-by: _mutex
+        self._pending_launches: list = []  # guarded-by: _mutex
+        self._last_serving: Optional[int] = None  # guarded-by: _mutex
 
     def start(self) -> None:
         if self._thread is not None:

@@ -94,6 +94,7 @@ import numpy as np
 import torch
 
 from sentio_tpu_torch import resolve_device
+from sentio_tpu_torch.analysis.sanitizer import check_engine_invariants, engine_guard
 from sentio_tpu_torch.infra import faults
 from sentio_tpu_torch.infra.phases import ENGINE_PHASES, PhaseTimer
 from sentio_tpu_torch.kernels import KERNELS, paged_attn_impl
@@ -728,7 +729,7 @@ class ContinuousBatchingEngine:
                 self.pool = ShardedPool(
                     [init_pool(self.cfg, num_pages, page_size, d, quantized=kv_quant == "int8",
                                tp=params.tp) for d in params.devices], page_size)
-        self.allocator = PageAllocator(num_pages)
+        self.allocator = PageAllocator(num_pages)  # guarded-by: engine-thread
         self._prefix_cache_enabled = bool(prefix_cache)
         self._radix = RadixPrefixCache(page_size, self.allocator) if prefix_cache else None
         self.attn_impl = paged_attn_impl
@@ -736,9 +737,15 @@ class ContinuousBatchingEngine:
         # runs the sub-step eagerly)
         self.cuda_graphs = self.device.type == "cuda" and (mesh is None or mesh.one_card)
 
-        self.slots = [_Slot() for _ in range(max_slots)]
-        self._queue: list[_Request] = []
-        self._finished: list[PagedResult] = []
+        # SENTIO_SANITIZE=1: the single-driver-thread guard on the mutating
+        # entry points and the page-conservation / radix-refcount / pool
+        # layout checks a tick; None when unset, so the cost is one
+        # attribute test a call
+        self._san = engine_guard("ContinuousBatchingEngine")
+
+        self.slots = [_Slot() for _ in range(max_slots)]  # guarded-by: engine-thread
+        self._queue: list[_Request] = []  # guarded-by: engine-thread
+        self._finished: list[PagedResult] = []  # guarded-by: engine-thread
         self._next_id = itertools.count()
         # skip-ahead: a request too large for the free pages may be jumped
         # by later ones, but only head_skip_bound times; then the head is
@@ -750,8 +757,8 @@ class ContinuousBatchingEngine:
         self.last_tick_active = 0
         # seconds per phase of the last step() (infra/phases.py); the
         # service adds its own inbox_drain / deliver sections
-        self._phase = PhaseTimer(ENGINE_PHASES)
-        self.last_step_phases: dict = dict.fromkeys(ENGINE_PHASES, 0.0)
+        self._phase = PhaseTimer(ENGINE_PHASES)  # guarded-by: engine-thread
+        self.last_step_phases: dict = dict.fromkeys(ENGINE_PHASES, 0.0)  # guarded-by: engine-thread
         # submit() → first token visible on the host, seconds
         self.ttft_samples: deque = deque(maxlen=1024)
         self.ttft_count = 0
@@ -829,6 +836,8 @@ class ContinuousBatchingEngine:
         already generated; only tokens after them are emitted. ``seed``
         (None = off) reseeds the engine's generator at admission. With a
         draft, ``top_k > 0`` raises ``ValueError``."""
+        if self._san is not None:
+            self._san.enter("submit")
         if top_k > 0 and self.draft_params is not None:
             raise ValueError("top_k sampling is not supported with paged speculation "
                              "(the spec tick's accept/correct rule is temperature-only)")
@@ -845,6 +854,8 @@ class ContinuousBatchingEngine:
         the tokens now cached (0 with the cache off, for a text shorter than
         a page, or when live slots pin the pool). Warmed nodes are unpinned:
         eviction reclaims them like any other cached prefix."""
+        if self._san is not None:
+            self._san.enter("warm_prefix")
         if self._radix is None:
             return 0
         toks = self.tokenizer.encode(text, add_bos=True)
@@ -879,7 +890,9 @@ class ContinuousBatchingEngine:
     def peek_prefix(self, tok_ids: Sequence[int]) -> int:
         """How many leading tokens of ``tok_ids`` the radix cache could
         serve, clamped as admission clamps a match (one suffix token must
-        remain). Takes no refcounts and touches no LRU state."""
+        remain). Takes no refcounts and touches no LRU state, so it alone
+        may be called from a thread other than the driver (the replica
+        router's affinity hint) and takes no ``_san.enter``."""
         if self._radix is None or not tok_ids:
             return 0
         matched = self._radix.peek_prefix(tok_ids)
@@ -890,6 +903,8 @@ class ContinuousBatchingEngine:
         """Abandon a request: queued → dropped; admitted → its slot retires
         ``"cancelled"`` and frees its pages (the tokens so far are
         dropped). Returns whether the request was found."""
+        if self._san is not None:
+            self._san.enter("cancel")
         for idx, req in enumerate(self._queue):
             if req.request_id == request_id:
                 del self._queue[idx]
@@ -910,6 +925,8 @@ class ContinuousBatchingEngine:
         spec tick's caches are cleared, and the generator is reseeded. They
         are zeroed in place, so the weights and the captured graphs, which
         hold their addresses, are kept."""
+        if self._san is not None:
+            self._san.enter("reset")
         # chaos seam: lets a drill make the reset itself fail (the path that
         # latches a service broken and quarantines its replica)
         faults.hit("engine.reset")
@@ -1044,6 +1061,8 @@ class ContinuousBatchingEngine:
         previous tick, after this one is dispatched. Returns the results
         completed this tick; ``last_step_phases`` holds its seconds by
         phase."""
+        if self._san is not None:
+            self._san.enter("step")
         with self.on_stream():
             return self._step()
 
@@ -1078,6 +1097,10 @@ class ContinuousBatchingEngine:
         # the harvest waits on its tick's event: at depth 2 that tick was
         # dispatched one step earlier, but this is where the wall clock goes
         acc["device_wait"] += t_harvest - t_dispatch
+        if self._san is not None:
+            # page conservation, radix refcounts and the pool's layout,
+            # checked on the tick that broke them
+            check_engine_invariants(self)
         acc["other"] += time.perf_counter() - t_harvest
         self.last_step_phases = dict(acc)
         return out

@@ -67,10 +67,10 @@ class RadixPrefixCache:
     def __init__(self, page_size: int, allocator) -> None:
         self.page_size = page_size
         self.allocator = allocator
-        self.root = RadixNode([], [], None)
-        self.pages_held = 0
-        self.node_count = 0
-        self.evicted_pages = 0
+        self.root = RadixNode([], [], None)  # guarded-by: engine-thread
+        self.pages_held = 0  # guarded-by: engine-thread
+        self.node_count = 0  # guarded-by: engine-thread
+        self.evicted_pages = 0  # guarded-by: engine-thread
         self._clock = itertools.count(1)
 
     # ------------------------------------------------------------------ reads

@@ -76,6 +76,7 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Iterator, Optional, Sequence
 
+from sentio_tpu_torch.analysis.sanitizer import assert_held, guard_locksets, make_lock
 from sentio_tpu_torch.infra import faults
 from sentio_tpu_torch.infra.exceptions import ReplicaUnavailable, SentioError, ServiceOverloaded
 from sentio_tpu_torch.infra.flight import get_flight_recorder
@@ -156,6 +157,7 @@ class _TenantState:
     tokens: int = 0           # tokens consumed (prompt + generated)
 
 
+@guard_locksets
 class TenantFairQueue:
     """Weighted fair admission across tenants over one queue capacity.
 
@@ -189,10 +191,11 @@ class TenantFairQueue:
         self.headroom = int(headroom) if headroom is not None else max(1, self.capacity // 8)
         self.headroom = min(self.headroom, self.capacity - 1)
         self._weights = dict(weights or {})
-        self._mutex = threading.Lock()
-        self._tenants: dict[str, _TenantState] = {}
+        self._mutex = make_lock("TenantFairQueue._mutex")
+        self._tenants: dict[str, _TenantState] = {}  # guarded-by: _mutex
 
     def _state_locked(self, tenant: str) -> tuple[str, _TenantState]:
+        assert_held(self._mutex)
         if tenant not in self._tenants and len(self._tenants) >= self.MAX_TRACKED:
             tenant = self.OVERFLOW_TENANT
         state = self._tenants.get(tenant)
@@ -205,6 +208,7 @@ class TenantFairQueue:
         return tenant, state
 
     def _refill_locked(self, state: _TenantState, now: float) -> None:
+        assert_held(self._mutex)
         if self.refill_tokens_per_s <= 0:
             return
         dt = max(now - state.last_refill, 0.0)
@@ -213,6 +217,7 @@ class TenantFairQueue:
                             self.burst_tokens * state.weight)
 
     def _quota_locked(self, tenant: str, state: _TenantState) -> int:
+        assert_held(self._mutex)
         active_weight = state.weight if state.pending == 0 else 0.0
         for other in self._tenants.values():
             if other.pending > 0:
@@ -223,6 +228,7 @@ class TenantFairQueue:
 
     def _shed_locked(self, tenant: str, state: _TenantState, reason: str, message: str,
                      status: int, retry_after_s: float) -> None:
+        assert_held(self._mutex)
         state.shed += 1
         metrics = get_metrics()
         metrics.record_shed(reason)
@@ -234,10 +240,10 @@ class TenantFairQueue:
         """Re-derive the capacity (an explicit headroom is kept, clamped;
         the default one follows the capacity). Held reservations stay."""
         with self._mutex:
-            self.capacity = max(int(capacity), 1)
+            self.capacity = max(int(capacity), 1)  # guarded-by: _mutex
             if not self._explicit_headroom:
-                self.headroom = max(1, self.capacity // 8)
-            self.headroom = min(self.headroom, self.capacity - 1)
+                self.headroom = max(1, self.capacity // 8)  # guarded-by: _mutex
+            self.headroom = min(self.headroom, self.capacity - 1)  # guarded-by: _mutex
 
     def admit(self, tenant: str, cost_tokens: int, priority: str = PRIORITY_INTERACTIVE,
               reserve: bool = True) -> str:
@@ -351,6 +357,7 @@ class TenantFairQueue:
             }
 
 
+@guard_locksets
 class WorkerRegistry:
     """The router's registry of socket workers (``REPLICA_MODE=socket``) —
     JAX's ``WorkerRegistry`` for a fixed set of slots: who is connected, at
@@ -387,17 +394,17 @@ class WorkerRegistry:
         self.max_frame_bytes = int(max_frame_bytes)
         self.frame_timeout_s = float(frame_timeout_s)
         self.hello_timeout_s = float(hello_timeout_s)
-        self._mutex = threading.Lock()
-        self._epochs = [0] * self.slots
-        self._stale = [0] * self.slots
-        self._registrations = 0
-        self._rejections = 0
+        self._mutex = make_lock("WorkerRegistry._mutex")
+        self._epochs = [0] * self.slots  # guarded-by: _mutex
+        self._stale = [0] * self.slots  # guarded-by: _mutex
+        self._registrations = 0  # guarded-by: _mutex
+        self._rejections = 0  # guarded-by: _mutex
         # released slots free for reuse, the join and release counters, and
         # the joins the supervisor drains; _pending only grows, so a
         # lock-free indexed read stays valid
-        self._free: list[int] = []
-        self._elastic_joins = 0
-        self._released = 0
+        self._free: list[int] = []  # guarded-by: _mutex
+        self._elastic_joins = 0  # guarded-by: _mutex
+        self._released = 0  # guarded-by: _mutex
         self._joins: _queue.Queue = _queue.Queue()
         self._pending: list[_queue.Queue] = [_queue.Queue() for _ in range(self.slots)]
         self._stop = threading.Event()
@@ -453,7 +460,7 @@ class WorkerRegistry:
                 slot = self._free.pop(0)
             else:
                 slot = self.slots
-                self.slots += 1
+                self.slots += 1  # guarded-by: _mutex
                 self._epochs.append(0)
                 self._stale.append(0)
                 self._pending.append(_queue.Queue())
@@ -515,8 +522,17 @@ class WorkerRegistry:
 
         transport = SocketTransport(conn, max_frame_bytes=self.max_frame_bytes,
                                     frame_timeout_s=self.frame_timeout_s)
+        # a bad token or version is counted before its reject frame goes
+        # out: a peer that reads the reject reads the count with it
+        counted: list[str] = []
+
+        def count_reject(reason: str) -> None:
+            counted.append(reason)
+            self._note_rejection(reason)
+
         try:
-            hello = expect_hello(transport, self.auth_token, timeout_s=self.hello_timeout_s)
+            hello = expect_hello(transport, self.auth_token, timeout_s=self.hello_timeout_s,
+                                 on_reject=count_reject)
         except TransportClosed as exc:
             # a connection that never spoke: not a protocol rejection
             logger.debug("silent connection to the worker registry dropped: %s", exc)
@@ -525,7 +541,10 @@ class WorkerRegistry:
             transport.close()
             return
         except TransportError as exc:
-            self._reject(transport, None, str(exc))
+            if counted:
+                transport.close()
+            else:
+                self._reject(transport, None, str(exc))
             return
         except Exception:  # noqa: BLE001 — a hostile hello must not kill the thread
             logger.exception("worker registration handshake crashed")
@@ -585,12 +604,18 @@ class WorkerRegistry:
             # await_registration must find it
             self._joins.put(slot)
 
-    def _reject(self, transport, ackable, reason: str) -> None:
+    def _note_rejection(self, reason: str) -> None:
+        """Count, log and export one refused registration."""
         with self._mutex:
             self._rejections += 1
         outcome = "rejected_auth" if "token" in reason else "rejected_proto"
         logger.warning("worker registration rejected: %s", reason)
         get_metrics().record_worker_reconnect(outcome)
+
+    def _reject(self, transport, ackable, reason: str) -> None:
+        """Count the refusal, then send the reject frame (when ``ackable``)
+        and close."""
+        self._note_rejection(reason)
         if ackable is not None:
             from sentio_tpu_torch.runtime.transport import TransportError
 
@@ -647,6 +672,16 @@ class WorkerRegistry:
                 transport.close()
 
 
+def _name_engine_guard(svc, idx: int) -> None:
+    """Name a replica's engine guard after its slot, so a sanitizer error
+    says WHICH replica's engine a stray thread touched (a worker replica's
+    engine lives in its own process and has no guard here)."""
+    guard = getattr(getattr(svc, "engine", None), "_san", None)
+    if guard is not None:
+        guard.name = f"ContinuousBatchingEngine[r{idx}]"
+
+
+@guard_locksets
 class ReplicaSet:
     """WFQ admission → affinity / least-loaded routing → the chosen
     replica's service, with supervision, failover and stream resumes. The
@@ -687,6 +722,7 @@ class ReplicaSet:
         self._services = services
         for i, svc in enumerate(services):
             svc.replica_id = i
+            _name_engine_guard(svc, i)
         self.tokenizer = services[0].engine.tokenizer
         # route on at most this many prompt-head tokens
         self.route_prefix_tokens = max(int(route_prefix_tokens), services[0].engine.page_size)
@@ -696,10 +732,10 @@ class ReplicaSet:
             default_weight=tenant_default_weight,
             refill_tokens_per_s=tenant_refill_tokens_per_s, burst_tokens=tenant_burst_tokens,
             batch_shed_fraction=batch_shed_fraction, headroom=tenant_headroom)
-        self._mutex = threading.Lock()
-        self._routed_affinity = 0
-        self._routed_load = 0
-        self._affinity_overflow = 0
+        self._mutex = make_lock("ReplicaSet._mutex")
+        self._routed_affinity = 0  # guarded-by: _mutex
+        self._routed_load = 0  # guarded-by: _mutex
+        self._affinity_overflow = 0  # guarded-by: _mutex
         self.probe_interval_s = max(float(probe_interval_s), 0.01)
         self.breaker_window_s = max(float(breaker_window_s), 0.1)
         self.breaker_error_rate = min(max(float(breaker_error_rate), 0.0), 1.0)
@@ -718,19 +754,19 @@ class ReplicaSet:
         # reused engine do not trip the burst breaker at once
         self._health = [_ReplicaHealth(since=time.perf_counter(),
                                        ticks_seen=svc.tick_failure_count)
-                        for svc in services]
-        self._failovers = 0
-        self._closed = False
+                        for svc in services]  # guarded-by: _mutex
+        self._failovers = 0  # guarded-by: _mutex
+        self._closed = False  # guarded-by: _mutex
         # inbox tickets moved at quarantine, stall quarantines, and leaked
         # pumps of incarnations a rebuild replaced
-        self._handed_off = 0
-        self._stall_quarantines = 0
-        self._pump_leaked_carryover = 0
+        self._handed_off = 0  # guarded-by: _mutex
+        self._stall_quarantines = 0  # guarded-by: _mutex
+        self._pump_leaked_carryover = 0  # guarded-by: _mutex
         # stream resumes, the delivered tokens they replayed, and streams
         # whose budget (or opt-out) kept the typed mid-stream error
-        self._stream_resumes = 0
-        self._resume_replayed_tokens = 0
-        self._resume_exhausted = 0
+        self._stream_resumes = 0  # guarded-by: _mutex
+        self._resume_replayed_tokens = 0  # guarded-by: _mutex
+        self._resume_exhausted = 0  # guarded-by: _mutex
         # the socket workers' registry, closed with the set
         self.registry = registry
         # the elastic fleet: runtime joins and graceful retires, the retires'
@@ -738,9 +774,9 @@ class ReplicaSet:
         # release) and its poller's warmed joiners, and the autoscaler over the set
         # (stopped before the supervisor, its launched workers reaped after
         # the replicas close)
-        self._joined = 0
-        self._retired = 0
-        self._retire_drain_s: deque = deque(maxlen=256)
+        self._joined = 0  # guarded-by: _mutex
+        self._retired = 0  # guarded-by: _mutex
+        self._retire_drain_s: deque = deque(maxlen=256)  # guarded-by: _mutex
         self._membership_source = None
         self._release_slot = None
         # a supervising set polls the source on a thread of its own and
@@ -865,6 +901,7 @@ class ReplicaSet:
 
     def _rebuild_eta_locked(self) -> float:
         """Seconds until the next quarantined replica's rebuild try."""
+        assert_held(self._mutex)
         now = time.perf_counter()
         etas = [h.next_rebuild_at - now for h in self._health if h.state in _OUT_OF_ROTATION]
         return max(min(etas), 0.0) if etas else 1.0
@@ -1250,6 +1287,7 @@ class ReplicaSet:
                 svc.replica_id = idx
                 self._services[idx] = svc
                 self._health[idx] = fresh
+            _name_engine_guard(svc, idx)
             self._joined += 1
         if self._supervisor is not None:
             enable = getattr(svc, "enable_shadow_handoff", None)
@@ -1489,6 +1527,7 @@ class ReplicaSet:
                                           failed=len(tickets) - moved)
 
     def _prune_locked(self, series: deque, now: float) -> None:
+        assert_held(self._mutex)
         horizon = now - self.breaker_window_s
         while series and series[0][0] < horizon:
             series.popleft()
@@ -1674,6 +1713,7 @@ class ReplicaSet:
                     retry_budget=old.retry_budget, replica_id=idx,
                     tick_stall_budget_s=old.tick_stall_budget_s,
                     warmup_budget_s=old.warmup_budget_s)
+                _name_engine_guard(fresh, idx)
             self._warm_rebuilt(fresh)
             if self._stop.is_set():
                 fresh.close()  # never swap a pump into a closing rotation

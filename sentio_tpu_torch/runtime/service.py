@@ -78,6 +78,12 @@ import time
 from dataclasses import dataclass, field
 from typing import Iterator, Optional
 
+from sentio_tpu_torch.analysis.sanitizer import (
+    assert_held,
+    bind_engine_owner,
+    guard_locksets,
+    make_lock,
+)
 from sentio_tpu_torch.infra.exceptions import (
     DeadlineExceededError,
     ReplicaUnavailable,
@@ -176,6 +182,7 @@ def finish_ticket_error(ticket: _Ticket, exc: Exception, finish_reason: str) -> 
     ticket.event.set()
 
 
+@guard_locksets
 class PagedGenerationService:
     """Thread-safe submit/wait facade and pump thread over the paged engine."""
 
@@ -198,39 +205,43 @@ class PagedGenerationService:
                           else max(8 * engine.max_slots, 64))
         self.default_deadline_s = default_deadline_s
         self.retry_budget = max(int(retry_budget), 0)
-        self._mutex = threading.Lock()
-        self._inbox: list[_Ticket] = []
-        self._tickets: dict[int, _Ticket] = {}
-        self._pump: Optional[threading.Thread] = None
-        self._pump_running = False
-        self._closed = False
-        self._broken = False
-        self._draining = False
-        self._shed = 0
-        self._expired = 0
-        self._cancelled = 0
-        self._requeued = 0
-        self._tick_failures = 0
-        self._pump_leaked = 0
+        # inbox and bookkeeping only, never device work
+        self._mutex = make_lock("PagedGenerationService._mutex")
+        self._inbox: list[_Ticket] = []  # guarded-by: _mutex
+        self._tickets: dict[int, _Ticket] = {}  # guarded-by: _mutex
+        self._pump: Optional[threading.Thread] = None  # guarded-by: _mutex
+        self._pump_running = False  # guarded-by: _mutex
+        self._closed = False  # guarded-by: _mutex
+        self._broken = False  # guarded-by: _mutex
+        self._draining = False  # guarded-by: _mutex
+        self._shed = 0  # guarded-by: _mutex
+        self._expired = 0  # guarded-by: _mutex
+        self._cancelled = 0  # guarded-by: _mutex
+        self._requeued = 0  # guarded-by: _mutex
+        self._tick_failures = 0  # guarded-by: _mutex
+        self._pump_leaked = 0  # guarded-by: _mutex
         # the pump's liveness stamp (perf_counter), set each loop iteration
-        self._heartbeat_ts = 0.0
+        self._heartbeat_ts = 0.0  # guarded-by: _mutex
         # latched by abandon(): the replica tier gave up on a wedged pump
-        self._abandoned = False
+        self._abandoned = False  # guarded-by: _mutex
         # warmup in progress: the watchdog stands down (warmup_budget_s)
-        self._warming = False
-        self._warming_since = 0.0
+        self._warming = False  # guarded-by: _mutex
+        self._warming_since = 0.0  # guarded-by: _mutex
+        # the engine is lent to a caller's thread (warm_prefix): no pump
+        # starts meanwhile, submits wait in the inbox
+        self._engine_lent = False  # guarded-by: _mutex
         # EMA of recent TTFT seconds: the projected wait admission weighs
         # against a deadline
-        self._ttft_ema = 0.0
-        self._ticks = 0
-        self._active_sum = 0
-        self._max_active = 0
+        self._ttft_ema = 0.0  # guarded-by: _mutex
+        self._ticks = 0  # guarded-by: _mutex
+        self._active_sum = 0  # guarded-by: _mutex
+        self._max_active = 0  # guarded-by: _mutex
         # ticks that more than one request shared
-        self._shared_ticks = 0
-        self._completed = 0
+        self._shared_ticks = 0  # guarded-by: _mutex
+        self._completed = 0  # guarded-by: _mutex
         # cumulative seconds per phase, written by the pump only
-        self._phase_totals = dict.fromkeys(TICK_PHASES, 0.0)
-        self._duty_t0 = time.perf_counter()
+        self._phase_totals = dict.fromkeys(TICK_PHASES, 0.0)  # guarded-by: pump-thread
+        self._duty_t0 = time.perf_counter()  # guarded-by: pump-thread
 
     # ------------------------------------------------------------------ api
 
@@ -526,6 +537,7 @@ class PagedGenerationService:
             self._check_admission_locked(deadline_ts)
 
     def _check_available_locked(self) -> None:
+        assert_held(self._mutex)
         if self._closed:
             raise ReplicaUnavailable("generation service is closed", retry_after_s=5.0,
                                      details={"replica": self.replica_id, "reason": "closed"})
@@ -535,6 +547,7 @@ class PagedGenerationService:
                 retry_after_s=5.0, details={"replica": self.replica_id, "reason": "broken"})
 
     def _admit_ticket_locked(self, ticket: _Ticket) -> None:
+        assert_held(self._mutex)
         self._check_available_locked()
         self._check_admission_locked(ticket.deadline_ts)
         self._inbox.append(ticket)
@@ -543,6 +556,7 @@ class PagedGenerationService:
     def _check_admission_locked(self, deadline_ts: Optional[float]) -> None:
         """Shed (typed, fast) instead of queueing work the service cannot
         finish; every rejection is counted."""
+        assert_held(self._mutex)
         if self._draining:
             self._shed += 1
             get_metrics().record_shed("draining")
@@ -573,6 +587,7 @@ class PagedGenerationService:
         """Recent TTFT (EMA) scaled by the backlog against the slot count;
         None until the first completion, so a cold service never sheds on
         projection."""
+        assert_held(self._mutex)
         if self._ttft_ema <= 0.0:
             return None
         return self._ttft_ema * (1.0 + pending / max(self.engine.max_slots, 1))
@@ -621,6 +636,32 @@ class PagedGenerationService:
             return True
         pump.join(timeout=timeout_s)
         return not pump.is_alive()
+
+    def warm_prefix(self, text: str, timeout_s: float = 60.0) -> int:
+        """Warm ``text`` into the engine's radix tree on the calling thread
+        (:meth:`ContinuousBatchingEngine.warm_prefix`), once the pump is
+        gone and while no new one may start: submits made meanwhile wait in
+        the inbox, and their pump starts after. Returns the tokens cached,
+        or 0 when the pump did not stop within ``timeout_s``."""
+        deadline = time.perf_counter() + max(timeout_s, 0.0)
+        while True:
+            if not self.wait_idle(max(deadline - time.perf_counter(), 0.0)):
+                logger.warning("template head not warmed: the pump did not stop within %.0fs",
+                               timeout_s)
+                return 0
+            with self._mutex:
+                pump = self._pump
+                # a submit may have started a fresh pump since the join
+                if not self._pump_running and (pump is None or not pump.is_alive()):
+                    self._engine_lent = True
+                    break
+        try:
+            return self.engine.warm_prefix(text)
+        finally:
+            with self._mutex:
+                self._engine_lent = False
+                if self._inbox:
+                    self._ensure_pump()
 
     def duty_cycle(self) -> dict:
         """host/device/idle fractions of wall time since construction (or
@@ -765,7 +806,8 @@ class PagedGenerationService:
     # ----------------------------------------------------------------- pump
 
     def _ensure_pump(self) -> None:
-        if not self._pump_running:
+        assert_held(self._mutex)
+        if not self._pump_running and not self._engine_lent:
             self._pump_running = True
             # a fresh burst's liveness: the previous burst's last stamp would
             # read as a stall in the new pump's spawn window
@@ -775,6 +817,9 @@ class PagedGenerationService:
             self._pump.start()
 
     def _run(self) -> None:
+        # pumps are born per burst: each new one takes the engine over from
+        # the last (the sanitizer's single-driver guard)
+        bind_engine_owner(self.engine)
         # short ticks while callers wait in the inbox, not just the engine
         # queue (a GIL-atomic length read: a hint, not a lock)
         self.engine.pressure_hint = lambda: len(self._inbox)
@@ -1045,6 +1090,7 @@ class PagedGenerationService:
 
     def _note_ttft_locked(self, ttft_s: float) -> None:
         """Fold one TTFT into the EMA admission projects from (alpha 0.2)."""
+        assert_held(self._mutex)
         if self._ttft_ema <= 0.0:
             self._ttft_ema = ttft_s
         else:
@@ -1053,6 +1099,7 @@ class PagedGenerationService:
     def _close_cancelled_locked(self, ticket: _Ticket) -> None:
         """Count one ticket its caller gave up on and pin the end of its
         engine window (an open one would absorb every later tick)."""
+        assert_held(self._mutex)
         self._cancelled += 1
         if ticket.request_id:
             get_flight_recorder().finish_engine(ticket.request_id,
@@ -1060,6 +1107,7 @@ class PagedGenerationService:
 
     def _fail_ticket_locked(self, ticket: _Ticket, reason: str) -> None:
         """End a ticket with the ``finish_reason="error"`` result."""
+        assert_held(self._mutex)
         if ticket.event.is_set():
             return
         ticket.result = PagedResult(request_id=-1, text="", tokens=[], prompt_tokens=0,
@@ -1073,6 +1121,7 @@ class PagedGenerationService:
 
     def _fail_all_locked(self, reason: str) -> None:
         """A stopping pump leaves no caller waiting."""
+        assert_held(self._mutex)
         for ticket in list(self._tickets.values()) + self._inbox:
             self._fail_ticket_locked(ticket, reason)
         self._tickets.clear()

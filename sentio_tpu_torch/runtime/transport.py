@@ -417,11 +417,13 @@ def send_hello(transport: SocketTransport, token: str, slot: int,
 
 
 def expect_hello(transport: SocketTransport, token: str,
-                 timeout_s: float = 10.0) -> dict:
+                 timeout_s: float = 10.0, on_reject=None) -> dict:
     """Accepting side: read + validate the peer's hello. Raises
     :class:`FrameProtocolError` (after sending a reject frame, best-effort)
     on a bad token or version — the caller drops the connection. Returns
-    the hello payload; the caller assigns the epoch and sends the ack."""
+    the hello payload; the caller assigns the epoch and sends the ack.
+    ``on_reject(reason)`` runs before the reject frame goes out, so what it
+    counts is current by the time the peer reads the reject."""
     got = transport.recv(timeout_s=timeout_s)
     if got is None:
         raise TransportClosed(f"no hello within {timeout_s:.0f}s")
@@ -450,6 +452,8 @@ def expect_hello(transport: SocketTransport, token: str,
                                                           "replace")):
                 reason = "bad auth token"
     if reason:
+        if on_reject is not None:
+            on_reject(reason)
         try:
             transport.send((0, "hello_reject", {"reason": reason}))
         except TransportError:

@@ -306,7 +306,8 @@ def worker_report(svc) -> dict:
     """The worker's own counters, which live in its process: each kernel
     wrapper's launches, on the card the device functions' own counts
     (``CudaKernel.device_launches``), the memory its allocator holds, its
-    graphs, and the foreign modules it loaded."""
+    graphs, whether its engine is sanitized, and the foreign modules it
+    loaded."""
     import torch
 
     from sentio_tpu_torch.kernels import KERNELS
@@ -318,6 +319,9 @@ def worker_report(svc) -> dict:
         "graph_variants": len(eng.graph_variants),
         "graphs_captured": len(getattr(eng, "_graphs", {})),
         "graphs_frozen": bool(eng.graphs_frozen),
+        # the engine was built under SENTIO_SANITIZE=1 (inherited from the
+        # router): its entry points and every tick check themselves
+        "sanitized": eng._san is not None,
         "foreign_modules": _foreign_modules(),
     }
     if eng.device.type == "cuda":
@@ -344,7 +348,7 @@ class _WorkerServer:
         self._stop = threading.Event()
         # why run() returned: "shutdown", "link_lost" or "fatal"
         self.outcome = ""
-        self._cancelled: set[int] = set()
+        self._cancelled: set[int] = set()  # guarded-by: _cancel_lock
         self._cancel_lock = threading.Lock()
         # generate and stream handlers still sending their answers: a drain
         # replies only after their last frames (the router closes on it)
@@ -458,8 +462,7 @@ class _WorkerServer:
                 head = self.spec.factory_kwargs.get("warm_prefix_text")
                 if head:
                     # warmup's own prompts can evict the template head
-                    svc.wait_idle()
-                    out["head_tokens"] = svc.engine.warm_prefix(head)
+                    out["head_tokens"] = svc.warm_prefix(head)
                 self._send(req_id, _F_OK, out)
             elif method == "wait_idle":
                 self._send(req_id, _F_OK, svc.wait_idle(**kwargs))
@@ -874,18 +877,18 @@ class ProcessReplica:
             raise ValueError("socket transport needs a WorkerRegistry (it owns the "
                              "incarnation epochs and the stale-frame fence)")
         self._mutex = threading.Lock()
-        self._calls: dict[int, _PendingCall] = {}
-        self._next_id = 1
+        self._calls: dict[int, _PendingCall] = {}  # guarded-by: _mutex
+        self._next_id = 1  # guarded-by: _mutex
         # the router-side shadow of unanswered generates and streams, by RPC
         # id; passive until a supervising set enables handoff
-        self._handoff_enabled = False
-        self._shadow: dict[int, tuple[_Ticket, _PendingCall]] = {}
+        self._handoff_enabled = False  # guarded-by: _mutex
+        self._shadow: dict[int, tuple[_Ticket, _PendingCall]] = {}  # guarded-by: _mutex
         # tickets adopted from a dead sibling: the dispatcher finishes them
-        self._adopted: dict[int, dict] = {}
-        self._dead = False
-        self._death_reason = ""
-        self._death_kind = ""
-        self._closed = False
+        self._adopted: dict[int, dict] = {}  # guarded-by: _mutex
+        self._dead = False  # guarded-by: _mutex
+        self._death_reason = ""  # guarded-by: _mutex
+        self._death_kind = ""  # guarded-by: _mutex
+        self._closed = False  # guarded-by: _mutex
         self._status: dict = {}
         self._status_ts = 0.0
         self._last_stats: dict = {}

@@ -73,6 +73,8 @@ from sentio_tpu_torch.runtime.service import PagedGenerationService
 from sentio_tpu_torch.runtime.transport import FrameProtocolError, dial, send_hello
 from sentio_tpu_torch.runtime.weights import llama_from_jax
 from sentio_tpu_torch.runtime.worker import STREAM_CHUNK_POINT, ProcessReplica, WorkerSpec
+from _sanitize import _sanitized  # noqa: F401  (arms the module)
+
 
 ENGINE_KW = dict(max_slots=2, page_size=8, max_pages_per_seq=8, steps_per_tick=2,
                  max_tick_steps=2)

@@ -38,6 +38,8 @@ from sentio_tpu_torch.runtime.paged import (
     quantize_kv,
 )
 from sentio_tpu_torch.runtime.weights import llama_from_jax
+from _sanitize import _sanitized  # noqa: F401  (arms the module)
+
 
 MAX_NEW = 24
 ENGINE_KW = dict(max_slots=4, page_size=16, max_pages_per_seq=8)

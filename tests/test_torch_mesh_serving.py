@@ -40,6 +40,8 @@ from sentio_tpu_torch.parallel.mesh import MeshError, build_mesh
 from sentio_tpu_torch.pipeline import build_pipeline, serving_mesh
 from sentio_tpu_torch.runtime import weights
 from sentio_tpu_torch.serve.app import _decode_info, _device_stats
+from _sanitize import _sanitized  # noqa: F401  (arms the module)
+
 
 CPU = torch.device("cpu")
 GEN = dict(model_preset="tiny", dtype="float32", max_new_tokens=12, verifier_max_tokens=8,

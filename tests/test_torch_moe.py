@@ -44,6 +44,8 @@ from sentio_tpu_torch.runtime import paged, weights, worker
 from sentio_tpu_torch.runtime.engine import GeneratorEngine
 from sentio_tpu_torch.runtime.paged import ContinuousBatchingEngine
 from sentio_tpu_torch.runtime.speculative import SpeculativeDecoder, SpeculativeError
+from _sanitize import _sanitized  # noqa: F401  (arms the module)
+
 
 GEN = dict(model_preset="tiny", max_new_tokens=16, dtype="float32")
 # windows of 256 tokens: no prompt is cut, no spec row meets the window

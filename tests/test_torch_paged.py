@@ -28,6 +28,8 @@ from sentio_tpu_torch.models.llama import LlamaConfig
 from sentio_tpu_torch.runtime.paged import ContinuousBatchingEngine, _paged_attn_xla
 from sentio_tpu_torch.runtime.sampling import sample_tokens
 from sentio_tpu_torch.runtime.weights import llama_from_jax
+from _sanitize import _sanitized  # noqa: F401  (arms the module)
+
 
 MAX_NEW = 24
 ENGINE_KW = dict(max_slots=4, page_size=16, max_pages_per_seq=8)

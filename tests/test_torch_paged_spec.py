@@ -44,6 +44,8 @@ from sentio_tpu_torch.runtime.service import PagedGenerationService
 from sentio_tpu_torch.runtime.speculative import SpeculativeDecoder
 from sentio_tpu_torch.runtime.weights import WeightsError, llama_from_jax
 from sentio_tpu_torch.serve.app import publish_serving_gauges
+from _sanitize import _sanitized  # noqa: F401  (arms the module)
+
 
 ENGINE_KW = dict(max_slots=4, page_size=16, max_pages_per_seq=8)
 PROMPTS = ["speculate on this prompt", "another about mxu arrays", "third request",

@@ -9,6 +9,7 @@ and ``peek_prefix`` calls over token sequences that share heads and split
 edges. Every return value, ``stats()``, the node and page counts and the
 allocators' free lists must be identical after every call."""
 
+
 import numpy as np
 import pytest
 
@@ -16,6 +17,8 @@ from sentio_tpu.runtime.paged import PageAllocator as JaxAllocator
 from sentio_tpu.runtime.radix import RadixPrefixCache as JaxRadix
 from sentio_tpu_torch.runtime.paged import PageAllocator
 from sentio_tpu_torch.runtime.radix import RadixPrefixCache
+from _sanitize import _sanitized  # noqa: F401  (arms the module)
+
 
 PAGE = 4
 NUM_PAGES = 40

@@ -36,6 +36,8 @@ from sentio_tpu_torch.models.llama import LlamaConfig
 from sentio_tpu_torch.runtime.paged import ContinuousBatchingEngine
 from sentio_tpu_torch.runtime.service import GenerationTimeout, PagedGenerationService
 from sentio_tpu_torch.runtime.weights import llama_from_jax
+from _sanitize import _sanitized  # noqa: F401  (arms the module)
+
 
 ENGINE_KW = dict(max_slots=4, page_size=16, max_pages_per_seq=8, steps_per_tick=4,
                  max_tick_steps=4)

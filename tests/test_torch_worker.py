@@ -26,6 +26,7 @@ fault point is named through a constant; every wait has a timeout and
 every set is closed."""
 
 import dataclasses
+import gc
 import multiprocessing
 import threading
 import time
@@ -54,6 +55,8 @@ from sentio_tpu_torch.runtime.paged import ContinuousBatchingEngine
 from sentio_tpu_torch.runtime.replica import ReplicaSet, WorkerRegistry
 from sentio_tpu_torch.runtime.service import GenerationTimeout, PagedGenerationService
 from sentio_tpu_torch.runtime.worker import ProcessReplica, WorkerSpec
+from _sanitize import _sanitized  # noqa: F401  (arms the module)
+
 
 ENGINE_KW = dict(max_slots=2, page_size=8, max_pages_per_seq=8, steps_per_tick=2,
                  max_tick_steps=2)
@@ -131,6 +134,11 @@ def pipe_worker(checkpoint):
 
 @pytest.fixture(scope="module")
 def socket_worker(checkpoint):
+    # the link's budgets are 1 s each way, and a stall of this process that
+    # long reads as a partition on both ends: a full collection over the
+    # heap that earlier modules left here can take that long under a loaded
+    # run, so what exists now is left out of every collection
+    gc.freeze()
     registry = WorkerRegistry(TOKEN, slots=1)
     spec = spec_for(checkpoint, service_kwargs={"max_queue": 2}, auth_token=TOKEN,
                     reconnect=True, status_interval_s=0.05, router_silence_timeout_s=1.0)
@@ -141,6 +149,7 @@ def socket_worker(checkpoint):
     yield state
     state["replica"].close()
     registry.close()
+    gc.unfreeze()
 
 
 @pytest.fixture(params=["pipe", "socket"])
@@ -299,6 +308,26 @@ def test_stats_carry_the_workers_launch_tallies(replica):
     assert report["launches"] == {k.name: 0 for k in KERNELS}  # CPU tensors never launch
     assert report["graph_variants"] == 3 and report["foreign_modules"] == []
     assert stats["replica"] == 0 and stats["completed"] >= len(PROMPTS)
+
+
+def test_an_armed_routers_workers_check_their_ticks(replica):
+    """A worker builds its engine under the environment it inherited, so
+    under the module's SENTIO_SANITIZE=1 every worker's engine is armed; a
+    SanitizerError in a worker's tick is contained there as the tick
+    failure it is (the request requeued and answered), counted in the
+    stats the router's supervisor reads."""
+    from sentio_tpu_torch.analysis.sanitizer import SanitizerError
+
+    before = replica.stats()
+    assert before["worker"]["sanitized"] is True
+    replica.inject_fault(PAGED_STEP, times=1,
+                         error=SanitizerError("page conservation violated: leaked=[3]"))
+    try:
+        out = replica.generate(PROMPTS[0], max_new_tokens=4)
+    finally:
+        replica.reset_faults()
+    assert out.finish_reason in ("stop", "length")
+    assert replica.stats()["tick_failures"] == before["tick_failures"] + 1
 
 
 def test_telemetry_and_flight_reach_the_router(pipe_worker):
